@@ -1,0 +1,456 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py [--seed N]
+
+Phases, each timed, any failure exits non-zero:
+
+  1. build the CUDA kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a);
+  2. hold each kernel against its plain PyTorch version on the card, at
+     both PointNet++(c) block shapes, batched (B=8) and at B=1, masked and
+     unmasked: ``max|Δ| <= 1e-4 · max(1, max|plain|)``;
+  3. time each kernel and its plain version in turns at the main path's
+     shapes;
+  4. serve 12 ragged requests (512–1024 points) through
+     ``PCNEngine(POINTNET2_C, mode="lpcn", fc_backend="cuda")`` in (8, 1024)
+     buckets, the partial batch filled with empty clouds; check the launch
+     counts, the logits against the "reference" backend and one request
+     against ``apply_single`` on its unpadded cloud;
+  5. one batch in ``mode="traditional"``.
+
+Output lines: the card's name and power limit (nvidia-smi), phase times,
+``parity`` and ``per_cloud`` JSON lines, the lpcn forward's stage times
+(``--profile`` adds a torch.profiler trace of one forward), stage 1 on
+the card against the CPU, a ``kernels`` JSON line, and last
+``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+
+TOL = 1e-4
+BIG = 3.4e38
+# H100 SXM published peaks (NVIDIA data sheet): fp32 outside the tensor
+# cores, and HBM3 bandwidth
+PEAK_FP32 = 67e12
+PEAK_BYTES = 3.35e12
+B, N_PAD = 8, 1024
+
+# (name, shape) of each kernel call on the pointnet2_c main path, masked as
+# the path calls it: block 1 sees the batch's n_valid, block 2 FPS centers
+DENSE = {"blk1": dict(s=512, k=32, d=65, dc=1, h=64, f=128, masked=True),
+         "blk2": dict(s=128, k=64, d=129, dc=1, h=128, f=256, masked=False)}
+REUSE = {"blk1": dict(hn=16, c=64, m=64, k=32, d=64, h=64, f=128),
+         "blk2": dict(hn=4, c=128, m=64, k=64, d=128, h=128, f=256)}
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise AssertionError(msg)
+
+
+def max_err(out, ref) -> tuple[float, float]:
+    """(max |out − ref|, tolerance) with the -BIG merge identity compared
+    exactly and left out of the scale."""
+    import torch
+    sentinel = ref <= -BIG / 2
+    check(bool(torch.equal(out[sentinel], ref[sentinel])),
+          "kernel and plain version disagree on the -BIG identity")
+    rest = ~sentinel
+    if not bool(rest.any()):
+        return 0.0, TOL
+    err = (out[rest] - ref[rest]).abs().max().item()
+    return err, TOL * max(1.0, ref[rest].abs().max().item())
+
+
+def dense_inputs(gen, dev, b, s, k, d, dc, h, f, masked):
+    import torch
+    r = lambda *shape, scale=1.0: (torch.randn(shape, generator=gen)
+                                   * scale).to(dev)
+    mask = None
+    if masked:
+        mask = torch.rand((b, s, k), generator=gen) < 0.8
+        mask[:, ::7] = False                  # whole subsets dead
+        mask = mask.to(dev)
+    return (r(b, s, k, d), r(b, s, dc), r(d, h, scale=(2 / d) ** .5),
+            r(h, scale=.1), r(h, f, scale=(2 / h) ** .5), r(f, scale=.1),
+            mask)
+
+
+def reuse_inputs(gen, dev, b, hn, c, m, k, d, h, f):
+    import torch
+    r = lambda *shape, scale=1.0: (torch.randn(shape, generator=gen)
+                                   * scale).to(dev)
+    slot = torch.randint(-1, c, (b, hn, m, k), generator=gen,
+                         dtype=torch.int32)
+    slot[:, :, ::9] = -1                      # subsets with no cached slot
+    live = (torch.rand((b, hn, m, k), generator=gen) < 0.9)
+    return (r(b, hn, c, d), slot.to(dev), r(b, hn, m, f), r(d, h,
+            scale=(2 / d) ** .5), r(h, scale=.1), r(h, f,
+            scale=(2 / h) ** .5), r(f, scale=.1), live.to(dev))
+
+
+def time_pair(fn_kernel, fn_plain, iters=20):
+    """ms per call of kernel and plain version, timed in turns (plain,
+    kernel, kernel, plain) with CUDA events after a warm-up."""
+    import torch
+    for fn in (fn_kernel, fn_plain):
+        fn()
+    torch.cuda.synchronize()
+    times = {"kernel": [], "plain": []}
+    for which in ("plain", "kernel", "kernel", "plain"):
+        fn = fn_kernel if which == "kernel" else fn_plain
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0.record()
+        for _ in range(iters):
+            fn()
+        t1.record()
+        torch.cuda.synchronize()
+        times[which].append(t0.elapsed_time(t1) / iters)
+    return min(times["kernel"]), min(times["plain"])
+
+
+def bound(flops: float, nbytes: float) -> tuple[float, str]:
+    t_ops, t_bytes = flops / PEAK_FP32, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def kernel_phase(dev, seed):
+    """Hold every kernel variant against its plain version and time the
+    main-path shapes, batched (the serving path) and at B = 1 (the
+    per-cloud entry).  -> (parity rows, batched rows without launches,
+    per-cloud rows)."""
+    import torch
+    from repro_torch.kernels.gather_mlp import gather_mlp, gather_mlp_ref
+    from repro_torch.kernels.hub_reuse import hub_reuse, hub_reuse_ref
+    gen = torch.Generator().manual_seed(seed)
+    parity, rows, per_cloud = [], [], []
+    for blk, shp in DENSE.items():
+        for bb in (B, 1):
+            for masked in (True, False):
+                raw, ctr, w1, b1, w2, b2, mask = dense_inputs(
+                    gen, dev, bb, **{**shp, "masked": masked})
+                args = (raw, ctr, w1, b1, w2, b2)
+                if bb == 1:              # the per-cloud entry: (S, K, D)
+                    args = (raw[0], ctr[0], w1, b1, w2, b2)
+                    mask = None if mask is None else mask[0]
+                out = gather_mlp(*args, mask=mask)
+                ref = gather_mlp_ref(*args, mask=mask)
+                torch.cuda.synchronize()
+                err, tol = max_err(out, ref)
+                parity.append(dict(name="gather_mlp", block=blk, b=bb,
+                                   masked=masked, max_abs_err=err, tol=tol))
+                check(err <= tol, f"gather_mlp {blk} B={bb} masked={masked}"
+                      f": max|err| {err} > {tol}")
+                if masked == shp["masked"]:
+                    ms, plain_ms = time_pair(
+                        lambda: gather_mlp(*args, mask=mask),
+                        lambda: gather_mlp_ref(*args, mask=mask))
+                    flops = 2 * bb * shp["s"] * shp["k"] * (
+                        shp["d"] * shp["h"] + shp["h"] * shp["f"])
+                    bms, by = bound(flops, nbytes(*args, mask, out))
+                    (rows if bb == B else per_cloud).append(dict(
+                        name="gather_mlp", block=blk, route="cuda",
+                        source="src/repro_torch/csrc/gather_mlp.cu",
+                        replaces="src/repro/kernels/gather_mlp/"
+                                 f"gather_mlp.py:{239 if bb == B else 91}",
+                        shape=f"B={bb} S={shp['s']} K={shp['k']} "
+                              f"D={shp['d']} Dc={shp['dc']} H={shp['h']} "
+                              f"F={shp['f']} masked={masked}",
+                        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                        bound_ms=bms, bound_by=by, library_ms=None))
+    for blk, shp in REUSE.items():
+        for bb in (B, 1):
+            for with_live in (True, False):
+                pool, slot, comp, w1, b1, w2, b2, live = reuse_inputs(
+                    gen, dev, bb, **shp)
+                live = live if with_live else None
+                args = (pool, slot, comp, w1, b1, w2, b2)
+                if bb == 1:
+                    args = (pool[0], slot[0], comp[0], w1, b1, w2, b2)
+                    live = None if live is None else live[0]
+                out = hub_reuse(*args, live=live)
+                ref = hub_reuse_ref(*args, live=live)
+                torch.cuda.synchronize()
+                err, tol = max_err(out, ref)
+                parity.append(dict(name="hub_reuse", block=blk, b=bb,
+                                   masked=with_live, max_abs_err=err,
+                                   tol=tol))
+                check(err <= tol, f"hub_reuse {blk} B={bb} live="
+                      f"{with_live}: max|err| {err} > {tol}")
+                if with_live:
+                    ms, plain_ms = time_pair(
+                        lambda: hub_reuse(*args, live=live),
+                        lambda: hub_reuse_ref(*args, live=live))
+                    flops = 2 * bb * shp["hn"] * shp["c"] * (
+                        shp["d"] * shp["h"] + shp["h"] * shp["f"])
+                    bms, by = bound(flops, nbytes(*args, live, out))
+                    (rows if bb == B else per_cloud).append(dict(
+                        name="hub_reuse", block=blk, route="cuda",
+                        source="src/repro_torch/csrc/hub_reuse.cu",
+                        replaces="src/repro/kernels/hub_reuse/"
+                                 f"hub_reuse.py:{307 if bb == B else 117}",
+                        shape=f"B={bb} H={shp['hn']} C={shp['c']} "
+                              f"M={shp['m']} K={shp['k']} D={shp['d']} "
+                              f"Hd={shp['h']} F={shp['f']} live=True",
+                        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                        bound_ms=bms, bound_by=by, library_ms=None))
+    return parity, rows, per_cloud
+
+
+def make_requests(rng, n):
+    """Seeded synthetic clouds of 512–1024 points: noisy ellipsoid shells
+    and boxes, the shapes ModelNet-style classifiers see."""
+    import numpy as np
+    clouds = []
+    for i in range(n):
+        m = int(rng.integers(512, N_PAD + 1))
+        if i % 2:
+            p = rng.standard_normal((m, 3))
+            p /= np.linalg.norm(p, axis=1, keepdims=True)
+        else:
+            p = rng.uniform(-1, 1, (m, 3))
+        p = p * rng.uniform(0.4, 1.0, 3) + 0.01 * rng.standard_normal((m, 3))
+        clouds.append(p.astype(np.float32))
+    return clouds
+
+
+def close(a, b) -> tuple[float, float]:
+    err = (a - b).abs().max().item()
+    return err, TOL * max(1.0, b.abs().max().item())
+
+
+def breakdown(params, spec, batch, repeats=3) -> dict:
+    """Host-clock ms of the forward's stages on one batch (each ended by
+    a device sync; the best of ``repeats``): stage 1 builds the structures,
+    stage 2 runs the FC dataflows, the tail is the global pool and head."""
+    import torch
+    from repro_torch.core.mlp import apply_mlp
+    from repro_torch.engine import archs
+    ctx = archs.EngineCtx.make("lpcn", "cuda")
+    best = {}
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        structs, nv = archs._structure_stack_b(spec, ctx, batch.xyz,
+                                               batch.keys, batch.n_valid)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        cx, cf = archs._compute_stack_b(params, spec, ctx, batch.xyz,
+                                        batch.feats, structs)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        apply_mlp(params.head, archs._global_pool_b(params, cx, cf, nv[-1]))
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        for k, v in (("structure_ms", t1 - t0), ("fc_ms", t2 - t1),
+                     ("pool_head_ms", t3 - t2)):
+            best[k] = min(best.get(k, float("inf")), v * 1e3)
+    return best
+
+
+def structure_card_vs_cpu(spec, batch) -> dict:
+    """Stage 1 of one batch on the card against the same code on the CPU,
+    where the tests hold it bit-equal to the JAX package: mismatching
+    entries per structure field (a near-tie rounded differently on the
+    card shows here)."""
+    from repro_torch.engine import archs
+    ctx = archs.EngineCtx.make("lpcn", "cuda")
+    card, _ = archs._structure_stack_b(spec, ctx, batch.xyz, batch.keys,
+                                       batch.n_valid)
+    host_b = batch.to("cpu")
+    host, _ = archs._structure_stack_b(spec, ctx, host_b.xyz, host_b.keys,
+                                       host_b.n_valid)
+    diff = {}
+    for i, (c, h) in enumerate(zip(card, host), 1):
+        for name, x, y in (
+                ("center_idx", c.center_idx, h.center_idx),
+                ("nbr", c.nbr, h.nbr),
+                ("members", c.islands.members, h.islands.members),
+                ("reuse_slot", c.schedule.reuse_slot, h.schedule.reuse_slot)):
+            diff[f"blk{i}.{name}"] = int((x.cpu() != y).sum())
+    return diff
+
+
+def device_profile(serve, batch) -> dict:
+    """torch.profiler over one forward: the summed time of the kernels
+    that ran on the device, the profiled host wall time, and the kernels
+    that take the most device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        serve(batch)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.device_time for e in kern)
+    by_name: dict = {}
+    for e in kern:
+        ms, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + e.device_time / 1e3, n + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    return {"profiled_wall_ms": wall_us / 1e3, "kernel_launches": len(kern),
+            "device_busy_ms": busy_us / 1e3,
+            "top": [{"name": k[:70], "ms": ms, "calls": n}
+                    for k, (ms, n) in top]}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--profile", action="store_true",
+                    help="also trace one lpcn forward with torch.profiler")
+    args = ap.parse_args()
+
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from repro_torch import kernels, random
+    from repro_torch.device import resolve_device
+    from repro_torch.engine import Batch, PCNEngine
+    from repro_torch.models.pointnet2 import POINTNET2_C
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], check=True,
+                         capture_output=True, text=True).stdout.strip()
+    log(smi.splitlines()[0])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = resolve_device()
+    phases = {}
+
+    t = time.perf_counter()
+    kernels.build_all()
+    phases["build_s"] = time.perf_counter() - t
+    log(f"build_s {phases['build_s']:.2f}")
+    for name, text in kernels.BUILD_LOG.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"ptxas {name}: {line.strip()}")
+
+    t = time.perf_counter()
+    parity, rows, per_cloud = kernel_phase(dev, args.seed)
+    phases["kernels_s"] = time.perf_counter() - t
+    log(f"kernels_s {phases['kernels_s']:.2f}")
+    log(json.dumps({"parity": parity}))
+    log(json.dumps({"per_cloud": per_cloud}))
+
+    # ---- the main path: ragged requests through the lpcn engine ---------
+    t = time.perf_counter()
+    engine = PCNEngine(POINTNET2_C, mode="lpcn", fc_backend="cuda")
+    params = engine.init(seed=args.seed)
+    # init leaves biases at zero; seeded nonzero biases keep the kernel
+    # vs reference comparison from passing on exact zeros alone
+    gen = torch.Generator().manual_seed(args.seed + 1)
+    for mlp in (*params.blocks, params.global_mlp, params.head):
+        for layer in mlp.layers:
+            layer.b.copy_(0.1 * torch.randn(layer.b.shape, generator=gen))
+    serve = engine.bucket_callable(params, B, N_PAD)
+    reference = PCNEngine(POINTNET2_C, mode="lpcn", fc_backend="reference")
+    phases["warmup_s"] = time.perf_counter() - t
+
+    rng = np.random.default_rng(args.seed)
+    requests = make_requests(rng, 12)
+    req_keys = random.fold_in(random.PRNGKey(args.seed, dev),
+                              torch.arange(len(requests), device=dev))
+    batches = []
+    for i in range(0, len(requests), B):
+        clouds = requests[i:i + B]
+        keys = req_keys[i:i + B]
+        n_fill = B - len(clouds)             # partial batch: empty clouds
+        clouds = clouds + [np.zeros((0, 3), np.float32)] * n_fill
+        keys = torch.cat([keys, random.split(random.PRNGKey(0, dev),
+                                             n_fill)]) if n_fill else keys
+        batches.append(Batch.from_clouds(clouds, key=keys, n_pad=N_PAD,
+                                         device=dev))
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t = time.perf_counter()
+    logits = [serve(b) for b in batches]
+    torch.cuda.synchronize()
+    phases["serve_s"] = time.perf_counter() - t
+    launches = kernels.launch_counts()
+    log(f"serve_s {phases['serve_s']:.3f} for {len(requests)} requests in "
+        f"{len(batches)} batches; launches {launches}")
+    for name in ("gather_mlp", "hub_reuse"):
+        want = len(POINTNET2_C.blocks) * len(batches)
+        check(launches[name] == want,
+              f"{name} launched {launches[name]} times, expected {want}")
+    for lg, b in zip(logits, batches):
+        check(tuple(lg.shape) == (B, POINTNET2_C.n_classes),
+              f"logits shape {tuple(lg.shape)}")
+        check(bool(torch.isfinite(lg).all()), "non-finite logits")
+        err, tol = close(lg, reference.apply(params, b))
+        log(f"lpcn cuda vs reference: max|err| {err:.3g} (tol {tol:.3g})")
+        check(err <= tol, "lpcn logits disagree with the reference backend")
+    stages = breakdown(params, POINTNET2_C, batches[0])
+    log(json.dumps({"lpcn_stages_ms": stages}))
+    mismatch = structure_card_vs_cpu(POINTNET2_C, batches[0])
+    log(json.dumps({"structure_card_vs_cpu_mismatches": mismatch}))
+    check(not any(mismatch.values()),
+          f"stage 1 on the card differs from the CPU, which the tests hold "
+          f"bit-equal to JAX: {mismatch} (near-tie order, ROADMAP queue 3)")
+    if args.profile:
+        log(json.dumps({"lpcn_profile": device_profile(serve, batches[0])}))
+    i = int(np.argmin([len(c) for c in requests]))
+    single = engine.apply_single(params, requests[i], key=req_keys[i])
+    err, tol = close(logits[i // B][i % B], single)
+    log(f"padded row {i} ({len(requests[i])} points) vs apply_single: "
+        f"max|err| {err:.3g} (tol {tol:.3g})")
+    check(err <= tol, "padded batch disagrees with apply_single")
+
+    # ---- traditional mode: one batch ------------------------------------
+    trad = PCNEngine(POINTNET2_C, mode="traditional", fc_backend="cuda")
+    trad_ref = PCNEngine(POINTNET2_C, mode="traditional",
+                         fc_backend="reference")
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t = time.perf_counter()
+    lg = trad.apply(params, batches[0])
+    torch.cuda.synchronize()
+    phases["traditional_s"] = time.perf_counter() - t
+    trad_launches = kernels.launch_counts()
+    log(f"traditional_s {phases['traditional_s']:.3f}; launches "
+        f"{trad_launches}")
+    check(trad_launches == {"gather_mlp": len(POINTNET2_C.blocks),
+                            "hub_reuse": 0}, "traditional launch counts")
+    check(bool(torch.isfinite(lg).all()), "non-finite traditional logits")
+    err, tol = close(lg, trad_ref.apply(params, batches[0]))
+    log(f"traditional cuda vs reference: max|err| {err:.3g} "
+        f"(tol {tol:.3g})")
+    check(err <= tol, "traditional logits disagree with the reference")
+
+    for row in rows:
+        row["launches"] = launches[row["name"]]
+    log(json.dumps({"phases_s": phases}))
+    log(json.dumps({"kernels": rows}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,112 @@
+"""The "cuda" FC backend: the building block's two dataflows routed through
+the hand-written kernels (on CPU tensors, through their plain versions).
+
+  dense  -> kernels/gather_mlp   fused normalize → MLP → max over K
+  reuse  -> kernels/hub_reuse    pool MLP → reuse gather → Δ-comp → max
+
+Both kernels are fixed two-layer (W1, relu, W2) pipelines.  General
+point-MLPs are lowered to that form exactly:
+
+  * ``block_end`` (all layers linear): compose every layer into ONE linear
+    map, then embed it as relu(x·[W,−W]+[b,−b])·[I;−I] — exact, because
+    relu(a) − relu(−a) = a.
+  * ``per_layer`` with 2 layers: direct; with 1 layer: the split-sign
+    embedding.
+  * ``per_layer`` with more than 2 layers: the leading layers run as a
+    plain PyTorch prologue (the cheap narrow layers, left to
+    ``torch.matmul`` as the JAX package leaves them to XLA); the last two
+    run fused in the kernel.
+
+Each dataflow is ONE kernel launch for the whole batch of clouds.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..core.mlp import MLP
+from ..core.islandize import _take
+from ..core.pipeline import FCBackend, _subset_inputs
+from ..core.registry import FC_BACKENDS
+from ..kernels.gather_mlp import gather_mlp
+from ..kernels.hub_reuse import hub_reuse
+
+
+def _split_sign(w, b):
+    """Embed x·w+b as a relu pair: relu(x·[w,−w]+[b,−b])·[I;−I]."""
+    eye = torch.eye(w.shape[1], dtype=w.dtype, device=w.device)
+    return (torch.cat([w, -w], dim=1), torch.cat([b, -b]),
+            torch.cat([eye, -eye], dim=0), torch.zeros_like(b))
+
+
+def two_layer_form(mlp: MLP):
+    """(prologue | None, (w1, b1, w2, b2)): ``mlp`` in the kernels' fixed
+    relu-sandwich form; the prologue (if any) runs before the kernel."""
+    layers = mlp.layers
+    if mlp.activation == "block_end":
+        w, b = layers[0].w, layers[0].b
+        for layer in layers[1:]:
+            b = b @ layer.w + layer.b
+            w = w @ layer.w
+        return None, _split_sign(w, b)
+    if len(layers) == 1:
+        return None, _split_sign(layers[0].w, layers[0].b)
+    if len(layers) == 2:
+        return None, (layers[0].w, layers[0].b, layers[1].w, layers[1].b)
+
+    def prologue(x):
+        for layer in layers[:-2]:
+            x = torch.relu(x @ layer.w + layer.b)
+        return x
+
+    return prologue, (layers[-2].w, layers[-2].b, layers[-1].w,
+                      layers[-1].b)
+
+
+def _dense_weights(mlp: MLP):
+    """The gather_mlp weights; on the prologue path W1 gains a zero row for
+    the zero center lane :func:`_dense_raw_ctr` prepends (the kernel
+    subtracts at least one center lane)."""
+    prologue, (w1, b1, w2, b2) = two_layer_form(mlp)
+    if prologue is not None:
+        w1 = torch.cat([w1.new_zeros((1, w1.shape[1])), w1], dim=0)
+    return prologue, (w1, b1, w2, b2)
+
+
+def _dense_raw_ctr(prologue, kind, xyz, feats, nbr_idx, centers_xyz,
+                   center_feats, nbr_valid):
+    """gather_mlp data operands (raw (B, S, K, D), ctr (B, S, Dc))."""
+    ids = nbr_idx if nbr_valid is None else torch.where(nbr_valid, nbr_idx,
+                                                        0)
+    if prologue is None:
+        if kind == "sa":
+            # the kernel subtracts the center from the leading 3 lanes
+            return (torch.cat([_take(xyz, ids), _take(feats, ids)], dim=-1),
+                    centers_xyz.contiguous())
+        # edge input [f_j − c, c] is a subtract of [c, −c] from [f_j, 0]
+        fj = _take(feats, ids)
+        return (torch.cat([fj, torch.zeros_like(fj)], dim=-1),
+                torch.cat([center_feats, -center_feats], dim=-1))
+    x = prologue(_subset_inputs(kind, xyz, feats, ids, centers_xyz,
+                                center_feats))
+    raw = torch.cat([x.new_zeros(x.shape[:-1] + (1,)), x], dim=-1)
+    return raw, raw.new_zeros(raw.shape[:2] + (1,))
+
+
+def _dense_cuda(mlp: MLP, kind, xyz, feats, nbr_idx, centers_xyz,
+                center_feats=None, nbr_valid=None):
+    """Dense FC through ONE gather_mlp launch.  -> (B, S, Fout)."""
+    prologue, weights = _dense_weights(mlp)
+    raw, ctr = _dense_raw_ctr(prologue, kind, xyz, feats, nbr_idx,
+                              centers_xyz, center_feats, nbr_valid)
+    return gather_mlp(raw, ctr, *weights, mask=nbr_valid)
+
+
+def _reuse_cuda(mlp: MLP, pool_in, slot, comp, live=None):
+    """Reuse dataflow through ONE hub_reuse launch.  -> (B, H, M, Fout)."""
+    prologue, weights = two_layer_form(mlp)
+    x = pool_in if prologue is None else prologue(pool_in)
+    return hub_reuse(x, slot, comp, *weights, live=live)
+
+
+FC_BACKENDS.register("cuda", FCBackend(name="cuda", dense=_dense_cuda,
+                                       reuse=_reuse_cuda))

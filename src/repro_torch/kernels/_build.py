@@ -1,0 +1,115 @@
+"""Build and load the hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
+for Hopper (``sm_90a``) into ``build/repro_torch/lib<name>-<hash>.so`` at
+the repository root, keyed by a hash of the source and the flags, then
+loaded with ``ctypes``.  The build runs at first use, so a fresh checkout
+builds everything it launches; :func:`build` starts one ``nvcc`` per
+source, all at once.  Nothing here runs at import time.
+"""
+from __future__ import annotations
+
+import collections
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# kernel launches per wrapper, counted where the wrapper launches
+LAUNCHES: collections.Counter = collections.Counter()
+# nvcc's output per built source (register and shared-memory use)
+BUILD_LOG: dict = {}
+
+_LIBS: dict = {}
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    for cand in (shutil.which("nvcc"), os.path.join(home, "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: put the CUDA toolkit's bin/ on PATH "
+                       "or set CUDA_HOME")
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{tag[:16]}.so"
+
+
+def build(names) -> float:
+    """Compile the named sources that are not built yet, one ``nvcc`` per
+    source, all in parallel.  Returns the wall seconds; raises with the
+    compiler's output if one fails."""
+    t0 = time.perf_counter()
+    todo = [(n, library_path(n)) for n in names
+            if not library_path(n).exists()]
+    if not todo:
+        return 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = []
+    for name, out in todo:
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs.append((name, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    failed = []
+    for name, out, tmp, proc in procs:
+        log, _ = proc.communicate()
+        BUILD_LOG[name] = log
+        if proc.returncode == 0:
+            os.replace(tmp, out)
+        else:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"--- nvcc {name}.cu (exit {proc.returncode})\n"
+                          f"{log}")
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return time.perf_counter() - t0
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        build([name])
+        lib = _LIBS[name] = ctypes.CDLL(str(library_path(name)))
+    return lib
+
+
+def check_launch(lib: ctypes.CDLL, prefix: str, code: int) -> None:
+    """Raise on a non-zero ``cudaError_t`` returned by a launch."""
+    if code != 0:
+        fn = getattr(lib, f"{prefix}_error_string")
+        fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_char_p
+        raise RuntimeError(f"{prefix} launch failed: CUDA error {code} "
+                           f"({fn(code).decode()})")
+
+
+def check_operands(name: str, tensors: dict, device) -> None:
+    """Every operand on ``device``, contiguous, and float32 unless it is
+    the slot index (int32) or a mask (bool) operand."""
+    for arg, t in tensors.items():
+        if t is None:
+            continue
+        if t.device != device:
+            raise ValueError(f"{name}: {arg} is on {t.device}, expected "
+                             f"{device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous")
+        want = {"slot": "torch.int32", "mask": "torch.bool",
+                "live": "torch.bool"}.get(arg, "torch.float32")
+        if str(t.dtype) != want:
+            raise ValueError(f"{name}: {arg} has dtype {t.dtype}, expected "
+                             f"{want}")

@@ -1,0 +1,279 @@
+"""The port's FC stage against the JAX package: the plain versions of the
+two kernels against the JAX oracles and the per-cloud Pallas kernels in
+interpret mode, the kernel lowering, and the batched FC dataflows on
+structures built by JAX."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.delta_comp import compensation as jcompensation
+from repro.core.mlp import init_mlp as jinit_mlp
+from repro.core.pipeline import LPCNConfig as JCfg
+from repro.core.pipeline import fc_lpcn_batched as jfc_lpcn_batched
+from repro.core.pipeline import (
+    fc_traditional_batched as jfc_traditional_batched)
+from repro.core.pipeline import get_fc_backend as jget_fc_backend
+from repro.core.pipeline import lpcn_block as jlpcn_block
+from repro.core.pipeline import structure_block as jstructure_block
+from repro.data.synthetic import make_cloud
+from repro.kernels.gather_mlp.gather_mlp import gather_mlp_pallas
+from repro.kernels.gather_mlp.ref import gather_mlp_ref as jgather_ref
+from repro.kernels.hub_reuse.hub_reuse import hub_reuse_pallas
+from repro.kernels.hub_reuse.ref import hub_reuse_ref as jreuse_ref
+from repro_torch.core.delta_comp import compensation
+from repro_torch.core.mlp import apply_mlp
+from repro_torch.core.pipeline import (FC_BACKENDS, LPCNConfig,
+                                       fc_lpcn_batched,
+                                       fc_traditional_batched, lpcn_block)
+from repro_torch.engine import fc
+from repro_torch.engine.params import (_mlp_from_numpy,
+                                       structure_from_numpy)
+from repro_torch.kernels.gather_mlp import gather_mlp, gather_mlp_ref
+from repro_torch.kernels.hub_reuse import hub_reuse, hub_reuse_ref
+
+torch.set_num_threads(1)
+
+TOL = 1e-5
+BIG = 3.4e38
+
+
+def _arrays(rng, *shapes, scale=1.0):
+    return [np.asarray(rng.normal(size=s) * scale, np.float32)
+            for s in shapes]
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("s,k,d,dc,h,f", [(24, 8, 6, 3, 16, 32),
+                                          (10, 16, 13, 1, 32, 24)])
+def test_gather_mlp_plain_matches_jax(s, k, d, dc, h, f, masked):
+    rng = np.random.default_rng(s + k)
+    raw, ctr, w1, b1, w2, b2 = _arrays(rng, (s, k, d), (s, dc), (d, h), (h,),
+                                       (h, f), (f,), scale=0.5)
+    mask = None
+    if masked:
+        mask = rng.uniform(size=(s, k)) < 0.7
+        mask[::4] = False                       # all-dead subsets
+    jargs = [jnp.asarray(a) for a in (raw, ctr, w1, b1, w2, b2)]
+    jm = None if mask is None else jnp.asarray(mask)
+    want = np.asarray(jgather_ref(*jargs, mask=jm))
+    kern = np.asarray(gather_mlp_pallas(
+        *jargs, ts=8, interpret=True,
+        mask=None if jm is None else jm.astype(jnp.int32)))
+    targs = [_t(a) for a in (raw, ctr, w1, b1, w2, b2)]
+    tm = None if mask is None else _t(mask)
+    got = gather_mlp_ref(*targs, mask=tm)
+    np.testing.assert_allclose(got.numpy(), want, rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(got.numpy(), kern, rtol=TOL, atol=TOL)
+    # the wrapper takes the plain version for CPU tensors, batched or not
+    assert torch.equal(gather_mlp(*targs, mask=tm), got)
+    batched = gather_mlp(targs[0][None].repeat(2, 1, 1, 1),
+                         targs[1][None].repeat(2, 1, 1), *targs[2:],
+                         mask=None if tm is None else tm[None].repeat(2, 1, 1))
+    assert torch.equal(batched[1], got)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("hn,c,m,k,d,h,f", [(3, 16, 6, 8, 5, 16, 24),
+                                            (2, 24, 9, 12, 16, 32, 16)])
+def test_hub_reuse_plain_matches_jax(hn, c, m, k, d, h, f, masked):
+    rng = np.random.default_rng(hn + c)
+    pool, comp, w1, b1, w2, b2 = _arrays(rng, (hn, c, d), (hn, m, f), (d, h),
+                                         (h,), (h, f), (f,), scale=0.5)
+    slot = rng.integers(-1, c, (hn, m, k)).astype(np.int32)
+    slot[:, ::3] = -1                           # subsets with no cached slot
+    live = (rng.uniform(size=(hn, m, k)) < 0.8) if masked else None
+    jargs = [jnp.asarray(a) for a in (pool, slot, comp, w1, b1, w2, b2)]
+    jl = None if live is None else jnp.asarray(live)
+    want = np.asarray(jreuse_ref(*jargs, live=jl))
+    kern = np.asarray(hub_reuse_pallas(
+        *jargs, interpret=True,
+        live=None if jl is None else jl.astype(jnp.int32)))
+    targs = [_t(a) for a in (pool, slot, comp, w1, b1, w2, b2)]
+    tl = None if live is None else _t(live)
+    got = hub_reuse_ref(*targs, live=tl).numpy()
+    empty = want <= -BIG / 2
+    assert empty.any() and (got[empty] == want[empty]).all()  # -BIG kept
+    np.testing.assert_allclose(got[~empty], want[~empty], rtol=TOL,
+                               atol=TOL)
+    np.testing.assert_allclose(got[~empty], kern[~empty], rtol=TOL,
+                               atol=TOL)
+    assert (kern[empty] == want[empty]).all()
+    assert torch.equal(hub_reuse(*targs, live=tl), torch.from_numpy(got))
+
+
+def test_wrappers_refuse_other_devices():
+    """A tensor that is neither on the CPU nor on a CUDA device never
+    reaches a plain-version fallback."""
+    meta = torch.empty((1, 2, 3, 4), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        gather_mlp(meta, meta[..., 0, :1], None, None, None, None)
+    with pytest.raises(ValueError, match="unsupported device"):
+        hub_reuse(meta, None, None, None, None, None, None)
+
+
+MLPS = {
+    "prologue": ([7, 16, 16, 24], "per_layer"),
+    "two_layer": ([7, 16, 24], "per_layer"),
+    "one_layer": ([7, 24], "per_layer"),
+    "block_end": ([7, 16, 24], "block_end"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(MLPS))
+def test_two_layer_form_is_exact(name):
+    """The kernels' relu-sandwich form of any point-MLP computes the MLP."""
+    dims, act = MLPS[name]
+    jm = jinit_mlp(jax.random.PRNGKey(1), dims, act)
+    mlp = _mlp_from_numpy(jax.tree.map(np.asarray, jm), "cpu")
+    for layer in mlp.layers:
+        layer.b += 0.1
+    x = torch.randn(50, dims[0], generator=torch.Generator().manual_seed(0))
+    prologue, (w1, b1, w2, b2) = fc.two_layer_form(mlp)
+    h = x if prologue is None else prologue(x)
+    got = torch.relu(h @ w1 + b1) @ w2 + b2
+    want = apply_mlp(mlp, x)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-5)
+
+
+N = 128
+SIZES = (128, 90, 0)
+
+
+def _setup(mode, mlp_name, kind="sa", seed=0):
+    """JAX-built stacked structures and inputs for a small block."""
+    rng = np.random.default_rng(seed)
+    xyz = np.zeros((len(SIZES), N, 3), np.float32)
+    for i, n in enumerate(SIZES):
+        if n:
+            c = np.asarray(make_cloud(rng, n), np.float32)
+            xyz[i] = np.concatenate([c, np.repeat(c[-1:], N - n, 0)])
+    feats = np.concatenate([xyz, rng.normal(size=(len(SIZES), N, 4))
+                            .astype(np.float32)], -1)
+    cfg = dict(n_centers=32, k=8, island_size=8, island_capacity=16,
+               mode=mode, overflow_frac=0.25, block_kind=kind)
+    nv = jnp.asarray(SIZES, jnp.int32)
+    keys = jax.random.split(jax.random.PRNGKey(seed), len(SIZES))
+    jst = jax.jit(jax.vmap(lambda x, k, n: jstructure_block(
+        JCfg(**cfg), x, k, n_valid=n)))(jnp.asarray(xyz), keys, nv)
+    dims, act = MLPS[mlp_name]
+    f_in = 3 + 7 if kind == "sa" else 2 * 7
+    jm = jinit_mlp(jax.random.PRNGKey(seed + 1), [f_in, *dims[1:]], act)
+    jm = jax.tree.map(lambda a: a + 0.05 if a.ndim == 1 else a, jm)
+    return cfg, xyz, feats, jst, jm
+
+
+@pytest.mark.parametrize("backend", ["reference", "cuda"])
+@pytest.mark.parametrize("mlp_name,kind", [("prologue", "sa"),
+                                           ("block_end", "sa"),
+                                           ("two_layer", "edge")])
+def test_fc_traditional_batched_on_jax_structures(mlp_name, kind, backend):
+    cfg, xyz, feats, jst, jm = _setup("traditional", mlp_name, kind)
+    cf = jnp.take_along_axis(jnp.asarray(feats), jst.center_idx[..., None],
+                             axis=1)
+    want = jax.jit(lambda x, f, s, c: jfc_traditional_batched(
+        jm, x, f, s.nbr, s.center_xyz, c, kind,
+        backend=jget_fc_backend("reference"), nbr_valid=s.nbr_valid))(
+        jnp.asarray(xyz), jnp.asarray(feats), jst, cf)
+    st = structure_from_numpy(jax.tree.map(np.asarray, jst), "cpu")
+    mlp = _mlp_from_numpy(jax.tree.map(np.asarray, jm), "cpu")
+    got = fc_traditional_batched(mlp, _t(xyz), _t(feats), st.nbr,
+                                 st.center_xyz, _t(np.asarray(cf)), kind,
+                                 backend=FC_BACKENDS.get(backend),
+                                 nbr_valid=st.nbr_valid)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL,
+                               atol=TOL)
+
+
+@pytest.mark.parametrize("backend", ["reference", "cuda"])
+@pytest.mark.parametrize("mlp_name,kind", [("prologue", "sa"),
+                                           ("two_layer", "sa"),
+                                           ("block_end", "sa"),
+                                           ("one_layer", "edge")])
+def test_fc_lpcn_batched_on_jax_structures(mlp_name, kind, backend):
+    cfg, xyz, feats, jst, jm = _setup("lpcn", mlp_name, kind, seed=1)
+    cf = jnp.take_along_axis(jnp.asarray(feats), jst.center_idx[..., None],
+                             axis=1)
+    jcfg = JCfg(**cfg)
+    want = jax.jit(lambda x, f, s, c: jfc_lpcn_batched(
+        jm, x, f, s.nbr, s.center_xyz, s.islands, s.schedule, jcfg, c,
+        backend=jget_fc_backend("reference"), nbr_valid=s.nbr_valid))(
+        jnp.asarray(xyz), jnp.asarray(feats), jst, cf)
+    st = structure_from_numpy(jax.tree.map(np.asarray, jst), "cpu")
+    mlp = _mlp_from_numpy(jax.tree.map(np.asarray, jm), "cpu")
+    got = fc_lpcn_batched(mlp, _t(xyz), _t(feats), st.nbr, st.center_xyz,
+                          st.islands, st.schedule, LPCNConfig(**cfg),
+                          _t(np.asarray(cf)), backend=FC_BACKENDS.get(backend),
+                          nbr_valid=st.nbr_valid)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL,
+                               atol=TOL)
+    assert np.abs(np.asarray(want)).max() > 0       # not a trivial zero
+
+
+@pytest.mark.parametrize("mode", ["linear", "mlp"])
+@pytest.mark.parametrize("kind", ["sa", "edge"])
+def test_compensation(mode, kind):
+    jm = jinit_mlp(jax.random.PRNGKey(3), [10, 16, 24], "per_layer")
+    jm = jax.tree.map(lambda a: a + 0.05 if a.ndim == 1 else a, jm)
+    delta = np.random.default_rng(0).normal(
+        size=(4, 6, 3 if kind == "sa" else 5)).astype(np.float32)
+    want = jcompensation(jm, jnp.asarray(delta), mode, kind)
+    got = compensation(_mlp_from_numpy(jax.tree.map(np.asarray, jm), "cpu"),
+                       _t(delta), mode, kind)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL,
+                               atol=TOL)
+
+
+def test_lpcn_block_matches_jax():
+    """The per-cloud entry (the batched code at B = 1) on a padded cloud."""
+    cfg, xyz, feats, jst, jm = _setup("lpcn", "prologue", seed=2)
+    key = jax.random.PRNGKey(5)
+    want_f, want_c = jax.jit(lambda x, f, k: (lambda o: (
+        o.features, o.center_idx))(jlpcn_block(JCfg(**cfg), jm, x, f, k,
+                                               n_valid=SIZES[1])))(
+        jnp.asarray(xyz[1]), jnp.asarray(feats[1]), key)
+    st, got = lpcn_block(LPCNConfig(**cfg),
+                         _mlp_from_numpy(jax.tree.map(np.asarray, jm), "cpu"),
+                         _t(xyz[1]), _t(feats[1]),
+                         _t(np.asarray(key).astype(np.int64)),
+                         n_valid=SIZES[1])
+    np.testing.assert_array_equal(st.center_idx[0].numpy(),
+                                  np.asarray(want_c))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want_f), rtol=TOL,
+                               atol=TOL)
+
+
+@pytest.mark.cuda
+def test_kernels_match_plain_versions_on_card():
+    """On a CUDA host: each kernel against its plain version, batched and
+    per cloud, masked and not (``python3 chip_smoke.py`` does the same at
+    the PointNet++(c) shapes)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(0)
+    r = lambda *s: torch.randn(s, generator=g).to(dev)
+    raw, ctr = r(2, 24, 8, 9), r(2, 24, 3)
+    w1, b1, w2, b2 = r(9, 16) * .3, r(16), r(16, 40) * .3, r(40)
+    mask = (torch.rand(2, 24, 8, generator=g) < .7).to(dev)
+    for m in (None, mask):
+        want = gather_mlp_ref(raw, ctr, w1, b1, w2, b2, mask=m)
+        got = gather_mlp(raw, ctr, w1, b1, w2, b2, mask=m)
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+        one = gather_mlp(raw[1], ctr[1], w1, b1, w2, b2,
+                         mask=None if m is None else m[1])
+        torch.testing.assert_close(one, want[1], rtol=1e-4, atol=1e-4)
+    pool, comp = r(2, 3, 16, 9), r(2, 3, 5, 40)
+    slot = torch.randint(-1, 16, (2, 3, 5, 8), generator=g,
+                         dtype=torch.int32).to(dev)
+    live = (torch.rand(2, 3, 5, 8, generator=g) < .8).to(dev)
+    for lv in (None, live):
+        want = hub_reuse_ref(pool, slot, comp, w1, b1, w2, b2, live=lv)
+        got = hub_reuse(pool, slot, comp, w1, b1, w2, b2, live=lv)
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
