@@ -6,23 +6,28 @@
 Phases, each timed, any failure exits non-zero:
 
   1. build the CUDA kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a);
-  2. hold each kernel against its plain PyTorch version on the card, at
+  2. hold each FC kernel against its plain PyTorch version on the card, at
      both PointNet++(c) block shapes, batched (B=8) and at B=1, masked and
      unmasked: ``max|Δ| <= 1e-4 · max(1, max|plain|)``;
-  3. time each kernel and its plain version in turns at the main path's
+  3. time each FC kernel and its plain version in turns at the main path's
      shapes;
   4. serve 12 ragged requests (512–1024 points) through
      ``PCNEngine(POINTNET2_C, mode="lpcn", fc_backend="cuda")`` in (8, 1024)
      buckets, the partial batch filled with empty clouds; check the launch
      counts, the logits against the "reference" backend and one request
      against ``apply_single`` on its unpadded cloud;
-  5. one batch in ``mode="traditional"``.
+  5. one batch in ``mode="traditional"``;
+  6. entry kernels: drive ``knn`` (stage 1 of the first batch, both
+     blocks, every cloud), ``flash_attention`` (a Qwen2-72B layer, bf16 and
+     f32) and ``ssd_chunk`` (Mamba2-2.7B) once at full width with the
+     launch counts reset, then hold each output and some ragged parity
+     cases against the plain versions and time all three.
 
 Output lines: the card's name and power limit (nvidia-smi), phase times,
-``parity`` and ``per_cloud`` JSON lines, the lpcn forward's stage times
-(``--profile`` adds a torch.profiler trace of one forward), stage 1 on
-the card against the CPU, a ``kernels`` JSON line, and last
-``{"ok": true, "device": {...}}``.
+``parity``, ``per_cloud`` and ``entry_parity`` JSON lines, the lpcn
+forward's stage times (``--profile`` adds a torch.profiler trace of one
+forward), stage 1 on the card against the CPU, a ``kernels`` JSON line,
+and last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -38,8 +43,9 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 TOL = 1e-4
 BIG = 3.4e38
 # H100 SXM published peaks (NVIDIA data sheet): fp32 outside the tensor
-# cores, and HBM3 bandwidth
+# cores, dense bf16 on the tensor cores, and HBM3 bandwidth
 PEAK_FP32 = 67e12
+PEAK_BF16 = 989e12
 PEAK_BYTES = 3.35e12
 B, N_PAD = 8, 1024
 
@@ -49,6 +55,18 @@ DENSE = {"blk1": dict(s=512, k=32, d=65, dc=1, h=64, f=128, masked=True),
          "blk2": dict(s=128, k=64, d=129, dc=1, h=128, f=256, masked=False)}
 REUSE = {"blk1": dict(hn=16, c=64, m=64, k=32, d=64, h=64, f=128),
          "blk2": dict(hn=4, c=128, m=64, k=64, d=128, h=128, f=256)}
+# a Qwen2-72B attention layer (src/repro/configs/qwen2_72b.py: 64 query
+# heads, 8 kv heads, head_dim 128) over a 2048-token prefill
+QWEN2_72B = dict(b=1, hq=64, hkv=8, s=2048, d=128)
+# parity only: (B, Hq, Hkv, Sq, Skv, D, causal, dtype) — non-causal with a
+# ragged Skv, causal with Sq != Skv (top-left mask), a D below 128
+FLASH_PARITY = ((1, 64, 8, 320, 1000, 128, False, "float32"),
+                (1, 64, 8, 320, 1000, 128, False, "bfloat16"),
+                (1, 16, 4, 320, 1000, 128, True, "float32"),
+                (2, 8, 2, 333, 333, 80, True, "bfloat16"))
+# Mamba2-2.7B's SSD (src/repro/configs/mamba2_2p7b.py: d_inner 5120 = 80
+# heads of 64, state 128, chunk 64) over a 2048-token sequence: 32 chunks
+MAMBA2_2P7B = dict(bs=1, nc=32, q=64, h=80, p=64, s=128)
 
 
 def log(msg: str) -> None:
@@ -101,28 +119,35 @@ def reuse_inputs(gen, dev, b, hn, c, m, k, d, h, f):
             scale=(2 / h) ** .5), r(f, scale=.1), live.to(dev))
 
 
-def time_pair(fn_kernel, fn_plain, iters=20):
-    """ms per call of kernel and plain version, timed in turns (plain,
-    kernel, kernel, plain) with CUDA events after a warm-up."""
+def time_turns(fns: dict, iters=20) -> dict:
+    """ms per call of each named function, timed with CUDA events after a
+    warm-up, in turns that run the names forward then backward (plain,
+    kernel, kernel, plain); each name's best turn."""
     import torch
-    for fn in (fn_kernel, fn_plain):
+    for fn in fns.values():
         fn()
     torch.cuda.synchronize()
-    times = {"kernel": [], "plain": []}
-    for which in ("plain", "kernel", "kernel", "plain"):
-        fn = fn_kernel if which == "kernel" else fn_plain
+    times = {name: [] for name in fns}
+    for name in (*fns, *reversed(fns)):
         t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         t0.record()
         for _ in range(iters):
-            fn()
+            fns[name]()
         t1.record()
         torch.cuda.synchronize()
-        times[which].append(t0.elapsed_time(t1) / iters)
-    return min(times["kernel"]), min(times["plain"])
+        times[name].append(t0.elapsed_time(t1) / iters)
+    return {name: min(t) for name, t in times.items()}
 
 
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
-    t_ops, t_bytes = flops / PEAK_FP32, nbytes / PEAK_BYTES
+def time_pair(fn_kernel, fn_plain, iters=20):
+    """ms per call of kernel and plain version, timed in turns."""
+    t = time_turns({"plain": fn_plain, "kernel": fn_kernel}, iters)
+    return t["kernel"], t["plain"]
+
+
+def bound(flops: float, nbytes: float,
+          peak: float = PEAK_FP32) -> tuple[float, str]:
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
@@ -315,6 +340,214 @@ def device_profile(serve, batch) -> dict:
                     for k, (ms, n) in top]}
 
 
+def knn_mismatch(d, i, d_ref, i_ref, d_next) -> tuple[float, float, int,
+                                                     int]:
+    """(max|Δd|, tolerance, index mismatches, index mismatches where the
+    order is decided: the sorted distance differs from both neighbours in
+    its row by more than the tolerance).  ``d_next`` (S, 1) is the
+    (k+1)-th distance, +inf when k = N, which the k-th must clear."""
+    import torch
+    tol = 1e-5 * max(1.0, d_ref.abs().max().item())
+    ext = torch.cat([d_ref, d_next], 1)
+    gap = (ext[:, 1:] - ext[:, :-1]).abs() > tol
+    decided = torch.cat([torch.ones_like(gap[:, :1]), gap[:, :-1]], 1) & gap
+    wrong = i != i_ref
+    return ((d - d_ref).abs().max().item(), tol, int(wrong.sum()),
+            int((wrong & decided).sum()))
+
+
+def flash_flops(b, hq, sq, skv, d, causal) -> float:
+    """2·D flops per (query, visible key) pair for each of q·kᵀ and p·v."""
+    if causal:                         # top-left: row i sees min(i+1, Skv)
+        m = min(sq, skv)
+        pairs = m * (m + 1) // 2 + (sq - m) * skv
+    else:
+        pairs = sq * skv
+    return 4.0 * b * hq * pairs * d
+
+
+def entry_inputs(gen, dev):
+    """Full-width inputs of flash_attention (bf16 and f32) and ssd_chunk,
+    drawn on the card from ``gen``; ssd as tests/test_kernels.py draws
+    them (dt in [0.1, 1], cum a negative cumulative sum over the chunk)."""
+    import torch
+    f = QWEN2_72B
+    qkv = {}
+    for dt in (torch.bfloat16, torch.float32):
+        qkv[dt] = tuple(
+            torch.randn((f["b"], h, f["s"], f["d"]), generator=gen,
+                        device=dev).to(dt)
+            for h in (f["hq"], f["hkv"], f["hkv"]))
+    m = MAMBA2_2P7B
+    lead = (m["bs"], m["nc"], m["q"])
+    u = lambda lo, hi, shape: lo + (hi - lo) * torch.rand(
+        shape, generator=gen, device=dev)
+    ssd = (torch.randn((*lead, m["h"], m["p"]), generator=gen, device=dev),
+           torch.randn((*lead, m["s"]), generator=gen, device=dev),
+           torch.randn((*lead, m["s"]), generator=gen, device=dev),
+           u(0.1, 1.0, (*lead, m["h"])),
+           -torch.cumsum(u(0.01, 0.2, (*lead, m["h"])), dim=2))
+    return qkv, ssd
+
+
+def entry_phase(dev, seed, spec, batch):
+    """The three entry-point kernels.  Drive each once at full width with
+    the launch counts reset (knn on stage 1 of ``batch``: every cloud, both
+    blocks; flash_attention at a Qwen2-72B layer in bf16 and f32; ssd_chunk
+    at Mamba2-2.7B), read the counts, then hold each output against its
+    plain version, run the ragged parity cases and time every shape.
+    -> (launch counts, parity rows, kernel rows without launches)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch import kernels
+    from repro_torch.engine import archs
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention)
+    from repro_torch.kernels.knn import knn, knn_ref
+    from repro_torch.kernels.ssd_chunk import ssd_chunk, ssd_chunk_ref
+    ctx = archs.EngineCtx.make("lpcn", "cuda")
+    structs, _ = archs._structure_stack_b(spec, ctx, batch.xyz, batch.keys,
+                                          batch.n_valid)
+    nv = batch.n_valid.tolist()
+    knn_calls = {
+        "blk1": [(structs[0].center_xyz[i].contiguous(),
+                  batch.xyz[i, :nv[i]].contiguous(), spec.blocks[0].k)
+                 for i in range(len(nv))],
+        "blk2": [(structs[1].center_xyz[i].contiguous(),
+                  structs[0].center_xyz[i].contiguous(), spec.blocks[1].k)
+                 for i in range(len(nv))]}
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    qkv, ssd_args = entry_inputs(gen, dev)
+    torch.cuda.synchronize()
+
+    # ---- the entry points, once each, counted ---------------------------
+    kernels.reset_launch_counts()
+    knn_out = {blk: [knn(*a) for a in calls]
+               for blk, calls in knn_calls.items()}
+    flash_out = {dt: flash_attention(*a, causal=True) for dt, a in qkv.items()}
+    ssd_out = ssd_chunk(*ssd_args)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    for name in ("knn", "flash_attention", "ssd_chunk"):
+        check(launches[name] >= 1, f"{name} did not launch in its phase")
+    check(launches["gather_mlp"] == launches["hub_reuse"] == 0,
+          f"FC kernels launched in the entry phase: {launches}")
+
+    parity, rows = [], []
+    src = "src/repro_torch/csrc/"
+    # ---- knn --------------------------------------------------------------
+    for i_blk, (blk, calls) in enumerate(knn_calls.items()):
+        err, tol, wrong, decided_wrong, vs_stage1 = 0.0, 0.0, 0, 0, 0
+        for cloud, (args, (d, i)) in enumerate(zip(calls, knn_out[blk])):
+            c, p, k = args
+            d_ext, i_ext = knn_ref(c, p, min(k + 1, p.shape[0]))
+            d_next = (d_ext[:, k:] if k < p.shape[0]
+                      else torch.full_like(d_ext[:, :1], float("inf")))
+            e, t, w, dw = knn_mismatch(d, i, d_ext[:, :k], i_ext[:, :k],
+                                       d_next)
+            check(e <= t, f"knn {blk} cloud {cloud}: max|err| {e} > {t}")
+            err, tol = max(err, e), max(tol, t)
+            wrong, decided_wrong = wrong + w, decided_wrong + dw
+            nbr = structs[i_blk].nbr[cloud]
+            vs_stage1 += int((nbr != i.long()).any(-1).sum())
+        parity.append(dict(name="knn", block=blk, max_abs_err=err, tol=tol,
+                           idx_mismatch=wrong,
+                           idx_mismatch_decided=decided_wrong,
+                           rows_differing_from_stage1_nbr=vs_stage1))
+        check(decided_wrong == 0, f"knn {blk}: {decided_wrong} indices "
+              f"differ where the distance order is decided")
+        ms, plain_ms = time_pair(lambda: [knn(*a) for a in calls],
+                                 lambda: [knn_ref(*a) for a in calls])
+        n_pts = [a[1].shape[0] for a in calls]
+        s, k = calls[0][0].shape[0], calls[0][2]
+        # 9 flops a (center, point) pair: c·p and the expanded form
+        flops = sum(9.0 * s * n for n in n_pts)
+        nbytes_ = sum(4 * (3 * s + 3 * n + 2 * s * k) for n in n_pts)
+        bms, by = bound(flops, nbytes_)
+        rows.append(dict(
+            name="knn", block=blk, route="cuda", source=src + "knn.cu",
+            replaces="src/repro/kernels/knn/knn.py:86",
+            shape=f"{len(calls)} calls, one per cloud: S={s} "
+                  f"N={min(n_pts)}..{max(n_pts)} k={k}",
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+            bound_by=by, library_ms=None))
+    # ---- flash_attention ---------------------------------------------------
+    f = QWEN2_72B
+    for dt, (q, k, v) in qkv.items():
+        name = str(dt).replace("torch.", "")
+        tol = 3e-2 if dt == torch.bfloat16 else 2e-3
+        ref = attention_ref(q, k, v, causal=True)
+        err = (flash_out[dt].float() - ref.float()).abs().max().item()
+        parity.append(dict(name="flash_attention", shape="qwen2_72b",
+                           dtype=name, causal=True, max_abs_err=err,
+                           tol=tol))
+        check(err <= tol, f"flash_attention {name}: max|err| {err} > {tol}")
+        del ref
+        t = time_turns({
+            "plain": lambda: attention_ref(q, k, v, causal=True),
+            "kernel": lambda: flash_attention(q, k, v, causal=True),
+            "library": lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True)}, iters=10)
+        bms, by = bound(flash_flops(f["b"], f["hq"], f["s"], f["s"], f["d"],
+                                    True),
+                        nbytes(q, k, v, flash_out[dt]),
+                        PEAK_BF16 if dt == torch.bfloat16 else PEAK_FP32)
+        rows.append(dict(
+            name="flash_attention", block=f"qwen2_72b_{name}", route="cuda",
+            source=src + "flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention/"
+                     "flash_attention.py:77",
+            shape=f"B={f['b']} Hq={f['hq']} Hkv={f['hkv']} Sq=Skv={f['s']} "
+                  f"D={f['d']} causal {name}",
+            max_abs_err=err, ms=t["kernel"], plain_ms=t["plain"],
+            bound_ms=bms, bound_by=by, library_ms=t["library"]))
+    for b, hq, hkv, sq, skv, d, causal, name in FLASH_PARITY:
+        dt = getattr(torch, name)
+        q = torch.randn((b, hq, sq, d), generator=gen, device=dev).to(dt)
+        k = torch.randn((b, hkv, skv, d), generator=gen, device=dev).to(dt)
+        v = torch.randn((b, hkv, skv, d), generator=gen, device=dev).to(dt)
+        out = flash_attention(q, k, v, causal=causal)
+        ref = attention_ref(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(out).all()), "flash_attention: non-finite")
+        err = (out.float() - ref.float()).abs().max().item()
+        tol = 3e-2 if dt == torch.bfloat16 else 2e-3
+        parity.append(dict(name="flash_attention",
+                           shape=f"B={b} Hq={hq} Hkv={hkv} Sq={sq} "
+                                 f"Skv={skv} D={d}",
+                           dtype=name, causal=causal, max_abs_err=err,
+                           tol=tol))
+        check(err <= tol, f"flash_attention parity {parity[-1]['shape']} "
+              f"{name} causal={causal}: max|err| {err} > {tol}")
+    # ---- ssd_chunk ---------------------------------------------------------
+    m = MAMBA2_2P7B
+    y, st = ssd_out
+    y_ref, st_ref = ssd_chunk_ref(*ssd_args)
+    err, tol = 0.0, 0.0
+    for part, out, ref in (("y_in", y, y_ref), ("states", st, st_ref)):
+        e = (out - ref).abs().max().item()
+        t = 2e-4 * max(1.0, ref.abs().max().item())
+        parity.append(dict(name="ssd_chunk", shape="mamba2_2p7b", part=part,
+                           max_abs_err=e, tol=t))
+        check(e <= t, f"ssd_chunk {part}: max|err| {e} > {t}")
+        err, tol = max(err, e), max(tol, t)
+    ms, plain_ms = time_pair(lambda: ssd_chunk(*ssd_args),
+                             lambda: ssd_chunk_ref(*ssd_args))
+    bn, q, h, p, s = m["bs"] * m["nc"], m["q"], m["h"], m["p"], m["s"]
+    # C·Bᵀ once a chunk; M·x over the q(q+1)/2 pairs i >= j and the state
+    # product per head
+    flops = 2.0 * bn * (q * q * s + h * p * (q * (q + 1) // 2 + s * q))
+    bms, by = bound(flops, nbytes(*ssd_args, y, st))
+    rows.append(dict(
+        name="ssd_chunk", block="mamba2_2p7b", route="cuda",
+        source=src + "ssd_chunk.cu",
+        replaces="src/repro/kernels/ssd_chunk/ssd_chunk.py:64",
+        shape=f"bs={m['bs']} nc={m['nc']} q={q} H={h} P={p} S={s}",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+        bound_by=by, library_ms=None))
+    return launches, parity, rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -394,8 +627,11 @@ def main() -> int:
     launches = kernels.launch_counts()
     log(f"serve_s {phases['serve_s']:.3f} for {len(requests)} requests in "
         f"{len(batches)} batches; launches {launches}")
-    for name in ("gather_mlp", "hub_reuse"):
-        want = len(POINTNET2_C.blocks) * len(batches)
+    for name, want in launches.items():
+        if name in ("gather_mlp", "hub_reuse"):
+            want = len(POINTNET2_C.blocks) * len(batches)
+        else:                              # entry points: off this path
+            want = 0
         check(launches[name] == want,
               f"{name} launched {launches[name]} times, expected {want}")
     for lg, b in zip(logits, batches):
@@ -434,16 +670,28 @@ def main() -> int:
     trad_launches = kernels.launch_counts()
     log(f"traditional_s {phases['traditional_s']:.3f}; launches "
         f"{trad_launches}")
-    check(trad_launches == {"gather_mlp": len(POINTNET2_C.blocks),
-                            "hub_reuse": 0}, "traditional launch counts")
+    check(trad_launches == {**dict.fromkeys(trad_launches, 0),
+                            "gather_mlp": len(POINTNET2_C.blocks)},
+          "traditional launch counts")
     check(bool(torch.isfinite(lg).all()), "non-finite traditional logits")
     err, tol = close(lg, trad_ref.apply(params, batches[0]))
     log(f"traditional cuda vs reference: max|err| {err:.3g} "
         f"(tol {tol:.3g})")
     check(err <= tol, "traditional logits disagree with the reference")
 
+    # ---- entry kernels: knn, flash_attention, ssd_chunk -----------------
+    t = time.perf_counter()
+    entry_launches, entry_parity, entry_rows = entry_phase(
+        dev, args.seed, POINTNET2_C, batches[0])
+    phases["entry_s"] = time.perf_counter() - t
+    log(f"entry_s {phases['entry_s']:.2f}; launches {entry_launches}")
+    log(json.dumps({"entry_parity": entry_parity}))
+
     for row in rows:
         row["launches"] = launches[row["name"]]
+    for row in entry_rows:
+        row["launches"] = entry_launches[row["name"]]
+    rows += entry_rows
     log(json.dumps({"phases_s": phases}))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

@@ -1,8 +1,15 @@
-"""Hand-written CUDA kernels of the two FC dataflows, with their plain
-PyTorch versions.
+"""Hand-written CUDA kernels, with their plain PyTorch versions.
 
-  gather_mlp  fused normalize → 2-layer MLP → max over K (dense path)
-  hub_reuse   pool MLP → compensated reuse gather → max over K (islands)
+The two FC dataflows of the PCN main path:
+
+  gather_mlp       fused normalize → 2-layer MLP → max over K (dense path)
+  hub_reuse        pool MLP → compensated reuse gather → max over K (islands)
+
+and three entry points of their own (no call site in the engine):
+
+  knn              brute-force kNN, nearest first, ties to the lower index
+  flash_attention  causal GQA attention forward, online softmax
+  ssd_chunk        Mamba-2 SSD intra-chunk output and chunk states
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches its kernel (built from ``csrc/`` with nvcc at first use) or
@@ -10,9 +17,11 @@ raises.  :data:`LAUNCHES` counts the kernel launches per wrapper.
 """
 from ._build import BUILD_LOG, LAUNCHES, build
 
+NAMES = ("gather_mlp", "hub_reuse", "knn", "flash_attention", "ssd_chunk")
+
 
 def launch_counts() -> dict:
-    return {name: LAUNCHES[name] for name in ("gather_mlp", "hub_reuse")}
+    return {name: LAUNCHES[name] for name in NAMES}
 
 
 def reset_launch_counts() -> None:
@@ -21,4 +30,4 @@ def reset_launch_counts() -> None:
 
 def build_all() -> float:
     """Build every kernel source (one nvcc each, in parallel); seconds."""
-    return build(["gather_mlp", "hub_reuse"])
+    return build(NAMES)

@@ -1,4 +1,5 @@
-"""Build and load the hand-written CUDA kernels.
+"""Build and load the hand-written CUDA kernels, and check what a wrapper
+hands them.
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for Hopper (``sm_90a``) into ``build/repro_torch/lib<name>-<hash>.so`` at
@@ -97,9 +98,12 @@ def check_launch(lib: ctypes.CDLL, prefix: str, code: int) -> None:
                            f"({fn(code).decode()})")
 
 
-def check_operands(name: str, tensors: dict, device) -> None:
-    """Every operand on ``device``, contiguous, and float32 unless it is
-    the slot index (int32) or a mask (bool) operand."""
+def check_operands(name: str, tensors: dict, device,
+                   dtypes: dict | None = None) -> None:
+    """Every operand on ``device``, contiguous, and of the dtype the caller
+    allows for it in ``dtypes`` (operand name -> ``torch.dtype``), float32
+    where it names none."""
+    dtypes = dtypes or {}
     for arg, t in tensors.items():
         if t is None:
             continue
@@ -108,8 +112,7 @@ def check_operands(name: str, tensors: dict, device) -> None:
                              f"{device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {arg} must be contiguous")
-        want = {"slot": "torch.int32", "mask": "torch.bool",
-                "live": "torch.bool"}.get(arg, "torch.float32")
-        if str(t.dtype) != want:
+        want = dtypes.get(arg, "torch.float32")
+        if str(t.dtype) != str(want):
             raise ValueError(f"{name}: {arg} has dtype {t.dtype}, expected "
                              f"{want}")

@@ -1,0 +1,67 @@
+"""Wrapper of the flash_attention CUDA kernel (``csrc/flash_attention.cu``).
+
+A CPU tensor takes the plain PyTorch version (:func:`attention_ref`); a
+CUDA tensor launches the kernel or raises.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import _build
+from .ref import attention_ref
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+MAX_D = 128
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _lib():
+    lib = _build.load("flash_attention")
+    lib.flash_attention_forward.argtypes = [_P] * 4 + [_I] * 8 + [_P]
+    lib.flash_attention_forward.restype = _I
+    return lib
+
+
+def flash_attention(q, k, v, causal: bool = True):
+    """Attention forward, GQA-aware.
+
+    q (B, Hq, Sq, D); k, v (B, Hkv, Skv, D) with Hq % Hkv == 0; float32 or
+    bfloat16, all of one dtype.  -> (B, Hq, Sq, D) in q's dtype: softmax of
+    q·kᵀ/sqrt(D) over the keys, with ``causal`` those j <= i (top-left),
+    times v; arithmetic in float32."""
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError(f"flash_attention: q and k must be 4-d, got "
+                         f"{tuple(q.shape)} and {tuple(k.shape)}")
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    if hkv < 1 or hq % hkv:
+        raise ValueError(f"flash_attention: Hq={hq} is not a multiple of "
+                         f"Hkv={hkv}")
+    if q.device.type == "cpu":
+        return attention_ref(q, k, v, causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    for arg, t in (("k", k), ("v", v)):
+        if tuple(t.shape) != (b, hkv, skv, d):
+            raise ValueError(f"flash_attention: {arg} has shape "
+                             f"{tuple(t.shape)}, expected {(b, hkv, skv, d)}")
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"flash_attention: dtype {q.dtype}, expected "
+                         f"float32 or bfloat16")
+    if not 0 < d <= MAX_D or skv < 1:
+        raise ValueError(f"flash_attention: the kernel takes 0 < D <= "
+                         f"{MAX_D} and Skv >= 1, got D={d}, Skv={skv}")
+    _build.check_operands("flash_attention", {"q": q, "k": k, "v": v},
+                          q.device, dict.fromkeys("qkv", q.dtype))
+    out = torch.empty_like(q)
+    if b * hq * sq:
+        lib = _lib()
+        code = lib.flash_attention_forward(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq,
+            hkv, sq, skv, d, int(causal), _DTYPES[q.dtype],
+            torch.cuda.current_stream(q.device).cuda_stream)
+        _build.check_launch(lib, "flash_attention", code)
+        _build.LAUNCHES["flash_attention"] += 1
+    return out

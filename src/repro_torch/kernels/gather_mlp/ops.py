@@ -51,7 +51,8 @@ def gather_mlp(raw, centers, w1, b1, w2, b2, mask=None):
                              f"{tuple(ops[arg].shape)}, expected {shape}")
     if not 0 < dc <= d:
         raise ValueError(f"gather_mlp: need 0 < Dc={dc} <= D={d}")
-    _build.check_operands("gather_mlp", ops, raw.device)
+    _build.check_operands("gather_mlp", ops, raw.device,
+                          {"mask": torch.bool})
     out = torch.empty((b, s, fout), dtype=torch.float32, device=raw.device)
     if b * s:
         lib = _lib()

@@ -52,7 +52,8 @@ def hub_reuse(pool_in, slot, comp, w1, b1, w2, b2, live=None):
         if ops[arg] is not None and tuple(ops[arg].shape) != shape:
             raise ValueError(f"hub_reuse: {arg} has shape "
                              f"{tuple(ops[arg].shape)}, expected {shape}")
-    _build.check_operands("hub_reuse", ops, pool_in.device)
+    _build.check_operands("hub_reuse", ops, pool_in.device,
+                          {"slot": torch.int32, "live": torch.bool})
     out = torch.empty((b, hn, m, fout), dtype=torch.float32,
                       device=pool_in.device)
     if b * hn * m:
