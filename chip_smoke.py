@@ -18,16 +18,19 @@ Phases, each timed, any failure exits non-zero:
      against ``apply_single`` on its unpadded cloud;
   5. one batch in ``mode="traditional"``;
   6. entry kernels: drive ``knn`` (stage 1 of the first batch, both
-     blocks, every cloud), ``flash_attention`` (a Qwen2-72B layer, bf16 and
-     f32) and ``ssd_chunk`` (Mamba2-2.7B) once at full width with the
-     launch counts reset, then hold each output and some ragged parity
-     cases against the plain versions and time all three.
+     blocks, every cloud), ``flash_attention`` (a Qwen2-72B layer, bf16 on
+     the tensor-core route; the same bf16 at an address off 16 bytes and
+     f32 on the CUDA-core one) and ``ssd_chunk`` (Mamba2-2.7B) once at
+     full width with the launch counts reset, then hold each output and
+     some ragged parity cases against the plain versions (flash: max |Δ|
+     and ‖Δ‖/‖plain‖) and time all three.
 
 Output lines: the card's name and power limit (nvidia-smi), phase times,
-``parity``, ``per_cloud`` and ``entry_parity`` JSON lines, the lpcn
-forward's stage times (``--profile`` adds a torch.profiler trace of one
-forward), stage 1 on the card against the CPU, a ``kernels`` JSON line,
-and last ``{"ok": true, "device": {...}}``.
+ptxas's registers, the count of HGMMA (wgmma) instructions in the built
+flash_attention library, ``parity``, ``per_cloud`` and ``entry_parity``
+JSON lines, the lpcn forward's stage times (``--profile`` adds a
+torch.profiler trace of one forward), stage 1 on the card against the
+CPU, a ``kernels`` JSON line, and last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -59,11 +62,18 @@ REUSE = {"blk1": dict(hn=16, c=64, m=64, k=32, d=64, h=64, f=128),
 # heads, 8 kv heads, head_dim 128) over a 2048-token prefill
 QWEN2_72B = dict(b=1, hq=64, hkv=8, s=2048, d=128)
 # parity only: (B, Hq, Hkv, Sq, Skv, D, causal, dtype) — non-causal with a
-# ragged Skv, causal with Sq != Skv (top-left mask), a D below 128
+# ragged Skv, causal with Sq != Skv (top-left mask), a D below 128, and
+# bf16 widths with D % 8 != 0 (the CUDA-core route)
 FLASH_PARITY = ((1, 64, 8, 320, 1000, 128, False, "float32"),
                 (1, 64, 8, 320, 1000, 128, False, "bfloat16"),
                 (1, 16, 4, 320, 1000, 128, True, "float32"),
-                (2, 8, 2, 333, 333, 80, True, "bfloat16"))
+                (2, 8, 2, 333, 333, 80, True, "bfloat16"),
+                (1, 64, 8, 320, 1000, 100, False, "bfloat16"),
+                (2, 8, 2, 333, 333, 36, True, "bfloat16"))
+# flash_attention's limits per dtype: max |Δ| and ‖Δ‖ / ‖plain‖.  With
+# randn inputs most causal rows average hundreds of keys and are ~0.03,
+# so the max |Δ| limit alone passes a fault confined to those rows
+FLASH_TOL = {"bfloat16": (3e-2, 1e-2), "float32": (2e-3, 1e-3)}
 # Mamba2-2.7B's SSD (src/repro/configs/mamba2_2p7b.py: d_inner 5120 = 80
 # heads of 64, state 128, chunk 64) over a 2048-token sequence: 32 chunks
 MAMBA2_2P7B = dict(bs=1, nc=32, q=64, h=80, p=64, s=128)
@@ -143,6 +153,17 @@ def time_pair(fn_kernel, fn_plain, iters=20):
     """ms per call of kernel and plain version, timed in turns."""
     t = time_turns({"plain": fn_plain, "kernel": fn_kernel}, iters)
     return t["kernel"], t["plain"]
+
+
+def hgmma_count() -> int:
+    """HGMMA (wgmma) instructions in the built flash_attention library,
+    from ``cuobjdump -sass``."""
+    from repro_torch.kernels import _build
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    lib = _build.library_path("flash_attention")
+    sass = subprocess.run([str(tool), "-sass", str(lib)], check=True,
+                          capture_output=True, text=True).stdout
+    return sum("HGMMA" in line for line in sass.splitlines())
 
 
 def bound(flops: float, nbytes: float,
@@ -366,18 +387,39 @@ def flash_flops(b, hq, sq, skv, d, causal) -> float:
     return 4.0 * b * hq * pairs * d
 
 
+def flash_err(out, ref) -> dict:
+    """max |out − ref|, |ref| where it sits, and ‖out − ref‖ / ‖ref‖."""
+    diff = (out.float() - ref.float()).flatten()
+    i = diff.abs().argmax()
+    return dict(max_abs_err=diff[i].abs().item(),
+                ref_at_max=ref.flatten()[i].abs().item(),
+                rel_err=(diff.norm() / ref.float().norm()).item())
+
+
+def at_offset(t, off):
+    """``t`` copied into a flat buffer at an offset of ``off`` elements: a
+    contiguous operand whose address is not 16-byte aligned."""
+    flat = t.new_empty(t.numel() + off)
+    view = flat[off:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
 def entry_inputs(gen, dev):
-    """Full-width inputs of flash_attention (bf16 and f32) and ssd_chunk,
-    drawn on the card from ``gen``; ssd as tests/test_kernels.py draws
-    them (dt in [0.1, 1], cum a negative cumulative sum over the chunk)."""
+    """Full-width inputs of flash_attention (bf16, the same bf16 at an
+    address off 16 bytes, f32) and ssd_chunk, drawn on the card from
+    ``gen``; ssd as tests/test_kernels.py draws them (dt in [0.1, 1], cum
+    a negative cumulative sum over the chunk)."""
     import torch
     f = QWEN2_72B
     qkv = {}
     for dt in (torch.bfloat16, torch.float32):
-        qkv[dt] = tuple(
+        qkv[str(dt).replace("torch.", "")] = tuple(
             torch.randn((f["b"], h, f["s"], f["d"]), generator=gen,
                         device=dev).to(dt)
             for h in (f["hq"], f["hkv"], f["hkv"]))
+    qkv["bfloat16_unaligned"] = tuple(at_offset(t, 1)
+                                      for t in qkv["bfloat16"])
     m = MAMBA2_2P7B
     lead = (m["bs"], m["nc"], m["q"])
     u = lambda lo, hi, shape: lo + (hi - lo) * torch.rand(
@@ -393,7 +435,8 @@ def entry_inputs(gen, dev):
 def entry_phase(dev, seed, spec, batch):
     """The three entry-point kernels.  Drive each once at full width with
     the launch counts reset (knn on stage 1 of ``batch``: every cloud, both
-    blocks; flash_attention at a Qwen2-72B layer in bf16 and f32; ssd_chunk
+    blocks; flash_attention at a Qwen2-72B layer in bf16, unaligned bf16
+    and f32; ssd_chunk
     at Mamba2-2.7B), read the counts, then hold each output against its
     plain version, run the ragged parity cases and time every shape.
     -> (launch counts, parity rows, kernel rows without launches)."""
@@ -403,6 +446,7 @@ def entry_phase(dev, seed, spec, batch):
     from repro_torch.engine import archs
     from repro_torch.kernels.flash_attention import (attention_ref,
                                                      flash_attention)
+    from repro_torch.kernels.flash_attention.ops import _variant
     from repro_torch.kernels.knn import knn, knn_ref
     from repro_torch.kernels.ssd_chunk import ssd_chunk, ssd_chunk_ref
     ctx = archs.EngineCtx.make("lpcn", "cuda")
@@ -424,7 +468,8 @@ def entry_phase(dev, seed, spec, batch):
     kernels.reset_launch_counts()
     knn_out = {blk: [knn(*a) for a in calls]
                for blk, calls in knn_calls.items()}
-    flash_out = {dt: flash_attention(*a, causal=True) for dt, a in qkv.items()}
+    flash_out = {key: flash_attention(*a, causal=True)
+                 for key, a in qkv.items()}
     ssd_out = ssd_chunk(*ssd_args)
     torch.cuda.synchronize()
     launches = kernels.launch_counts()
@@ -432,6 +477,10 @@ def entry_phase(dev, seed, spec, batch):
         check(launches[name] >= 1, f"{name} did not launch in its phase")
     check(launches["gather_mlp"] == launches["hub_reuse"] == 0,
           f"FC kernels launched in the entry phase: {launches}")
+    routes = {v: kernels.LAUNCHES[f"flash_attention_{v}"]
+              for v in ("wgmma", "simt")}
+    check(routes == {"wgmma": 1, "simt": 2}, f"flash_attention routes "
+          f"{routes}: bf16 should take wgmma, unaligned bf16 and f32 simt")
 
     parity, rows = [], []
     src = "src/repro_torch/csrc/"
@@ -473,52 +522,61 @@ def entry_phase(dev, seed, spec, batch):
             bound_by=by, library_ms=None))
     # ---- flash_attention ---------------------------------------------------
     f = QWEN2_72B
-    for dt, (q, k, v) in qkv.items():
-        name = str(dt).replace("torch.", "")
-        tol = 3e-2 if dt == torch.bfloat16 else 2e-3
-        ref = attention_ref(q, k, v, causal=True)
-        err = (flash_out[dt].float() - ref.float()).abs().max().item()
+    for name, (q, k, v) in qkv.items():
+        dt = q.dtype
+        variant = _variant(dt, f["d"], [t.data_ptr() for t in (q, k, v)])
+        tol, rel_tol = FLASH_TOL[str(dt).replace("torch.", "")]
+        e = flash_err(flash_out[name], attention_ref(q, k, v, causal=True))
+        err = e["max_abs_err"]
         parity.append(dict(name="flash_attention", shape="qwen2_72b",
-                           dtype=name, causal=True, max_abs_err=err,
-                           tol=tol))
-        check(err <= tol, f"flash_attention {name}: max|err| {err} > {tol}")
-        del ref
+                           dtype=name, variant=variant, causal=True, **e,
+                           tol=tol, rel_tol=rel_tol))
+        check(bool(torch.isfinite(flash_out[name]).all()),
+              f"flash_attention {name}: non-finite")
+        check(err <= tol and e["rel_err"] <= rel_tol,
+              f"flash_attention {name}: {e}, limits {tol}, {rel_tol}")
         t = time_turns({
             "plain": lambda: attention_ref(q, k, v, causal=True),
             "kernel": lambda: flash_attention(q, k, v, causal=True),
             "library": lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=True, enable_gqa=True)}, iters=10)
-        bms, by = bound(flash_flops(f["b"], f["hq"], f["s"], f["s"], f["d"],
-                                    True),
-                        nbytes(q, k, v, flash_out[dt]),
+        flops = flash_flops(f["b"], f["hq"], f["s"], f["s"], f["d"], True)
+        bms, by = bound(flops, nbytes(q, k, v, flash_out[name]),
                         PEAK_BF16 if dt == torch.bfloat16 else PEAK_FP32)
         rows.append(dict(
             name="flash_attention", block=f"qwen2_72b_{name}", route="cuda",
+            variant=variant, tflops=flops / t["kernel"] / 1e9,
             source=src + "flash_attention.cu",
             replaces="src/repro/kernels/flash_attention/"
                      "flash_attention.py:77",
             shape=f"B={f['b']} Hq={f['hq']} Hkv={f['hkv']} Sq=Skv={f['s']} "
                   f"D={f['d']} causal {name}",
-            max_abs_err=err, ms=t["kernel"], plain_ms=t["plain"],
+            max_abs_err=err, rel_err=e["rel_err"], ms=t["kernel"],
+            plain_ms=t["plain"],
             bound_ms=bms, bound_by=by, library_ms=t["library"]))
     for b, hq, hkv, sq, skv, d, causal, name in FLASH_PARITY:
         dt = getattr(torch, name)
         q = torch.randn((b, hq, sq, d), generator=gen, device=dev).to(dt)
         k = torch.randn((b, hkv, skv, d), generator=gen, device=dev).to(dt)
         v = torch.randn((b, hkv, skv, d), generator=gen, device=dev).to(dt)
+        variant = _variant(dt, d, [t.data_ptr() for t in (q, k, v)])
+        before = kernels.LAUNCHES[f"flash_attention_{variant}"]
         out = flash_attention(q, k, v, causal=causal)
+        check(kernels.LAUNCHES[f"flash_attention_{variant}"] == before + 1,
+              f"flash_attention parity D={d} {name}: not on route {variant}")
         ref = attention_ref(q, k, v, causal=causal)
         torch.cuda.synchronize()
         check(bool(torch.isfinite(out).all()), "flash_attention: non-finite")
-        err = (out.float() - ref.float()).abs().max().item()
-        tol = 3e-2 if dt == torch.bfloat16 else 2e-3
+        e = flash_err(out, ref)
+        tol, rel_tol = FLASH_TOL[name]
         parity.append(dict(name="flash_attention",
                            shape=f"B={b} Hq={hq} Hkv={hkv} Sq={sq} "
                                  f"Skv={skv} D={d}",
-                           dtype=name, causal=causal, max_abs_err=err,
-                           tol=tol))
-        check(err <= tol, f"flash_attention parity {parity[-1]['shape']} "
-              f"{name} causal={causal}: max|err| {err} > {tol}")
+                           dtype=name, variant=variant, causal=causal, **e,
+                           tol=tol, rel_tol=rel_tol))
+        check(e["max_abs_err"] <= tol and e["rel_err"] <= rel_tol,
+              f"flash_attention parity {parity[-1]['shape']} {name} "
+              f"causal={causal}: {e}, limits {tol}, {rel_tol}")
     # ---- ssd_chunk ---------------------------------------------------------
     m = MAMBA2_2P7B
     y, st = ssd_out
@@ -582,6 +640,9 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"ptxas {name}: {line.strip()}")
+    hgmma = hgmma_count()
+    log(f"sass flash_attention: {hgmma} HGMMA instructions")
+    check(hgmma > 0, "the flash_attention library has no HGMMA (wgmma)")
 
     t = time.perf_counter()
     parity, rows, per_cloud = kernel_phase(dev, args.seed)

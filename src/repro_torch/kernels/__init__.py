@@ -13,7 +13,9 @@ and three entry points of their own (no call site in the engine):
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches its kernel (built from ``csrc/`` with nvcc at first use) or
-raises.  :data:`LAUNCHES` counts the kernel launches per wrapper.
+raises.  :data:`LAUNCHES` counts the kernel launches per wrapper, and
+flash_attention's also per route (``flash_attention_wgmma``,
+``flash_attention_simt``).
 """
 from ._build import BUILD_LOG, LAUNCHES, build
 

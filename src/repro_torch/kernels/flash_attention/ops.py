@@ -1,7 +1,7 @@
-"""Wrapper of the flash_attention CUDA kernel (``csrc/flash_attention.cu``).
+"""Wrapper of the flash_attention CUDA kernels (``csrc/flash_attention.cu``).
 
 A CPU tensor takes the plain PyTorch version (:func:`attention_ref`); a
-CUDA tensor launches the kernel or raises.
+CUDA tensor launches the kernel that :func:`_variant` names or raises.
 """
 from __future__ import annotations
 
@@ -15,13 +15,25 @@ from .ref import attention_ref
 _P, _I = ctypes.c_void_p, ctypes.c_int
 MAX_D = 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_VARIANTS = {"simt": 0, "wgmma": 1}
 
 
 def _lib():
     lib = _build.load("flash_attention")
-    lib.flash_attention_forward.argtypes = [_P] * 4 + [_I] * 8 + [_P]
+    lib.flash_attention_forward.argtypes = [_P] * 4 + [_I] * 9 + [_P]
     lib.flash_attention_forward.restype = _I
     return lib
+
+
+def _variant(dtype, d: int, ptrs=()) -> str:
+    """The kernel a CUDA call takes: ``"wgmma"`` (bf16 products on the
+    tensor cores, fed by TMA, whose base addresses and rows must be
+    multiples of 16 bytes) for bfloat16 with D % 8 == 0 and every address
+    in ``ptrs`` 16-byte aligned, else ``"simt"`` (fp32 products on the
+    CUDA cores)."""
+    aligned = all(p % 16 == 0 for p in ptrs)
+    return ("wgmma" if dtype == torch.bfloat16 and d % 8 == 0 and aligned
+            else "simt")
 
 
 def flash_attention(q, k, v, causal: bool = True):
@@ -30,7 +42,9 @@ def flash_attention(q, k, v, causal: bool = True):
     q (B, Hq, Sq, D); k, v (B, Hkv, Skv, D) with Hq % Hkv == 0; float32 or
     bfloat16, all of one dtype.  -> (B, Hq, Sq, D) in q's dtype: softmax of
     q·kᵀ/sqrt(D) over the keys, with ``causal`` those j <= i (top-left),
-    times v; arithmetic in float32."""
+    times v; scores and softmax in float32 (the bf16 tensor-core route
+    rounds the probabilities to bf16 before the product with v; a bf16
+    operand that is not 16-byte aligned takes the CUDA-core kernel)."""
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"flash_attention: q and k must be 4-d, got "
                          f"{tuple(q.shape)} and {tuple(k.shape)}")
@@ -57,11 +71,14 @@ def flash_attention(q, k, v, causal: bool = True):
                           q.device, dict.fromkeys("qkv", q.dtype))
     out = torch.empty_like(q)
     if b * hq * sq:
+        variant = _variant(q.dtype, d, [t.data_ptr() for t in (q, k, v)])
         lib = _lib()
         code = lib.flash_attention_forward(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq,
             hkv, sq, skv, d, int(causal), _DTYPES[q.dtype],
+            _VARIANTS[variant],
             torch.cuda.current_stream(q.device).cuda_stream)
         _build.check_launch(lib, "flash_attention", code)
         _build.LAUNCHES["flash_attention"] += 1
+        _build.LAUNCHES[f"flash_attention_{variant}"] += 1
     return out

@@ -13,6 +13,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+from repro_torch.kernels.flash_attention.ops import _variant
 from repro_torch.kernels.knn import knn, knn_ref
 from repro_torch.kernels.ssd_chunk import ssd_chunk, ssd_chunk_ref
 
@@ -183,6 +184,38 @@ def test_flash_attention_ragged_kv_is_finite_and_right():
     np.testing.assert_allclose(got, np.asarray(want), rtol=2e-3, atol=2e-3)
 
 
+@pytest.mark.parametrize("dtype,d,offset,want", [
+    (torch.bfloat16, 16, 0, "wgmma"), (torch.bfloat16, 32, 0, "wgmma"),
+    (torch.bfloat16, 64, 0, "wgmma"), (torch.bfloat16, 80, 0, "wgmma"),
+    (torch.bfloat16, 128, 0, "wgmma"), (torch.bfloat16, 65, 0, "simt"),
+    (torch.bfloat16, 128, 8, "wgmma"), (torch.bfloat16, 128, 1, "simt"),
+    (torch.bfloat16, 64, 4, "simt"),
+    (torch.float32, 16, 0, "simt"), (torch.float32, 65, 0, "simt"),
+    (torch.float32, 128, 0, "simt"),
+])
+def test_flash_attention_variant(dtype, d, offset, want):
+    """bf16 rows of a multiple of 16 bytes at 16-byte aligned addresses
+    take the tensor cores; f32, other bf16 widths and a bf16 view at an
+    offset of ``offset`` elements into a flat buffer (aligned when the
+    offset is 16 bytes) the CUDA-core kernel."""
+    flat = torch.zeros(offset + 4 * d, dtype=dtype)
+    view = flat[offset:].view(4, d)
+    assert flat.data_ptr() % 16 == 0
+    assert _variant(dtype, d) == _variant(dtype, d, [flat.data_ptr()])
+    assert _variant(dtype, d, [flat.data_ptr(), view.data_ptr()]) == want
+
+
+def test_flash_attention_cpu_takes_the_plain_version():
+    """A CPU call is ``attention_ref`` itself and counts no launch."""
+    rng = np.random.default_rng(2)
+    for dtype in (torch.float32, torch.bfloat16):
+        qkv = _torch(_qkv(rng, 1, 4, 2, 40, 72, 64), dtype)
+        before = dict(_build.LAUNCHES)
+        got = flash_attention(*qkv, causal=True)
+        assert torch.equal(got, attention_ref(*qkv, causal=True))
+        assert dict(_build.LAUNCHES) == before
+
+
 def test_flash_attention_refuses_uneven_groups():
     q, k = torch.zeros((1, 6, 8, 16)), torch.zeros((1, 4, 8, 16))
     with pytest.raises(ValueError, match="multiple"):
@@ -265,6 +298,24 @@ def test_check_operands_takes_dtypes_from_the_caller():
 
 # ---- on the card -------------------------------------------------------------
 
+# limits of ‖got − want‖ / ‖want‖ for flash_attention: with randn inputs
+# most causal rows average hundreds of keys and are small (~0.03), so a
+# max |Δ| of 3e-2 alone would pass a fault in those rows
+_REL_TOL = {torch.float32: 1e-3, torch.bfloat16: 1e-2}
+
+
+def _rel_err(got, want) -> float:
+    want = want.float()
+    return ((got.float() - want).norm() / want.norm()).item()
+
+
+def _at_offset(t, off):
+    """``t`` copied into a flat buffer at an offset of ``off`` elements."""
+    flat = torch.empty(t.numel() + off, dtype=t.dtype, device=t.device)
+    view = flat[off:].view(t.shape)
+    view.copy_(t)
+    return view
+
 
 @pytest.mark.cuda
 def test_knn_kernel_matches_plain_on_card():
@@ -296,6 +347,48 @@ def test_flash_attention_kernel_matches_plain_on_card():
             assert got.dtype == dt
             torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                        atol=tol)
+            assert _rel_err(got, want) <= _REL_TOL[dt]
+    # the bf16 CUDA-core route: D % 8 != 0 (ragged non-causal Skv, causal
+    # Sq = Skv off the tile), and D = 128 operands that are not 16-byte
+    # aligned (views at one element into flat buffers)
+    for b, hq, hkv, sq, skv, d, causal, off in (
+            (1, 8, 2, 200, 333, 100, False, 0),
+            (2, 4, 4, 130, 130, 36, True, 0),
+            (1, 8, 2, 130, 200, 128, True, 1)):
+        q, k, v = (_at_offset(torch.randn(shape, generator=g).to(
+                       dev, torch.bfloat16), off)
+                   for shape in ((b, hq, sq, d), (b, hkv, skv, d),
+                                 (b, hkv, skv, d)))
+        assert (off == 0) == (q.data_ptr() % 16 == 0)
+        before = _build.LAUNCHES["flash_attention_simt"]
+        got = flash_attention(q, k, v, causal=causal)
+        assert _build.LAUNCHES["flash_attention_simt"] == before + 1
+        want = attention_ref(q, k, v, causal=causal)
+        assert bool(torch.isfinite(got).all())
+        torch.testing.assert_close(got.float(), want.float(), rtol=3e-2,
+                                   atol=3e-2)
+        assert _rel_err(got, want) <= _REL_TOL[torch.bfloat16]
+    # the bf16 tensor-core route: D padded to 64 or 128, Sq off the 128-row
+    # tile, a ragged non-causal Skv, causal Sq != Skv (top-left), GQA
+    # groups 1, 2 and 8; two calls bit-equal (no atomics)
+    for b, hq, hkv, sq, skv, d, causal in ((1, 2, 2, 130, 130, 32, True),
+                                           (2, 4, 2, 333, 333, 64, True),
+                                           (1, 8, 1, 320, 1000, 80, False),
+                                           (1, 4, 2, 64, 128, 128, True),
+                                           (1, 16, 2, 333, 200, 128, True),
+                                           (1, 8, 4, 256, 256, 16, False)):
+        q, k, v = (torch.randn(shape, generator=g).to(dev, torch.bfloat16)
+                   for shape in ((b, hq, sq, d), (b, hkv, skv, d),
+                                 (b, hkv, skv, d)))
+        before = _build.LAUNCHES["flash_attention_wgmma"]
+        got = flash_attention(q, k, v, causal=causal)
+        assert _build.LAUNCHES["flash_attention_wgmma"] == before + 1
+        want = attention_ref(q, k, v, causal=causal)
+        assert bool(torch.isfinite(got).all())
+        torch.testing.assert_close(got.float(), want.float(), rtol=3e-2,
+                                   atol=3e-2)
+        assert _rel_err(got, want) <= _REL_TOL[torch.bfloat16]
+        assert torch.equal(got, flash_attention(q, k, v, causal=causal))
 
 
 @pytest.mark.cuda
