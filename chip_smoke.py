@@ -26,8 +26,10 @@ Phases, each timed, any failure exits non-zero:
      and ‖Δ‖/‖plain‖) and time all three.
 
 Output lines: the card's name and power limit (nvidia-smi), phase times,
-ptxas's registers, the count of HGMMA (wgmma) instructions in the built
-flash_attention library, ``parity``, ``per_cloud`` and ``entry_parity``
+ptxas's registers and spills (gather_mlp must not spill), the counts of
+HGMMA (wgmma) instructions in the built flash_attention library and of
+TF32 HMMA (mma.sync) instructions in the gather_mlp one, ``parity``,
+``per_cloud`` and ``entry_parity``
 JSON lines, the lpcn forward's stage times (``--profile`` adds a
 torch.profiler trace of one forward), stage 1 on the card against the
 CPU, a ``kernels`` JSON line, and last ``{"ok": true, "device": {...}}``.
@@ -36,6 +38,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -46,9 +49,10 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 TOL = 1e-4
 BIG = 3.4e38
 # H100 SXM published peaks (NVIDIA data sheet): fp32 outside the tensor
-# cores, dense bf16 on the tensor cores, and HBM3 bandwidth
+# cores, dense bf16 and TF32 on the tensor cores, and HBM3 bandwidth
 PEAK_FP32 = 67e12
 PEAK_BF16 = 989e12
+PEAK_TF32 = 495e12
 PEAK_BYTES = 3.35e12
 B, N_PAD = 8, 1024
 
@@ -155,15 +159,21 @@ def time_pair(fn_kernel, fn_plain, iters=20):
     return t["kernel"], t["plain"]
 
 
-def hgmma_count() -> int:
-    """HGMMA (wgmma) instructions in the built flash_attention library,
-    from ``cuobjdump -sass``."""
+def sass_count(name: str, *words: str) -> int:
+    """Instructions of the built ``name`` library whose SASS line holds
+    every one of ``words`` (``cuobjdump -sass``)."""
     from repro_torch.kernels import _build
     tool = Path(_build._nvcc()).with_name("cuobjdump")
-    lib = _build.library_path("flash_attention")
+    lib = _build.library_path(name)
     sass = subprocess.run([str(tool), "-sass", str(lib)], check=True,
                           capture_output=True, text=True).stdout
-    return sum("HGMMA" in line for line in sass.splitlines())
+    return sum(all(w in line for w in words) for line in sass.splitlines())
+
+
+def spilled_bytes(log: str) -> int:
+    """Spill stores plus spill loads over every kernel in an nvcc log."""
+    return sum(int(a) + int(b) for a, b in re.findall(
+        r"(\d+) bytes spill stores, (\d+) bytes spill loads", log))
 
 
 def bound(flops: float, nbytes: float,
@@ -211,9 +221,13 @@ def kernel_phase(dev, seed):
                         lambda: gather_mlp_ref(*args, mask=mask))
                     flops = 2 * bb * shp["s"] * shp["k"] * (
                         shp["d"] * shp["h"] + shp["h"] * shp["f"])
-                    bms, by = bound(flops, nbytes(*args, mask, out))
+                    # 3xTF32: three TF32 products for each fp32 one
+                    moved = nbytes(*args, mask, out)
+                    bms, by = bound(3 * flops, moved, PEAK_TF32)
                     (rows if bb == B else per_cloud).append(dict(
                         name="gather_mlp", block=blk, route="cuda",
+                        variant="mma_tf32x3", tflops=flops / ms / 1e9,
+                        bound_fp32_ms=bound(flops, moved)[0],
                         source="src/repro_torch/csrc/gather_mlp.cu",
                         replaces="src/repro/kernels/gather_mlp/"
                                  f"gather_mlp.py:{239 if bb == B else 91}",
@@ -640,9 +654,14 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"ptxas {name}: {line.strip()}")
-    hgmma = hgmma_count()
+    check(spilled_bytes(kernels.BUILD_LOG["gather_mlp"]) == 0,
+          "ptxas reports spills in gather_mlp")
+    hgmma = sass_count("flash_attention", "HGMMA")
     log(f"sass flash_attention: {hgmma} HGMMA instructions")
     check(hgmma > 0, "the flash_attention library has no HGMMA (wgmma)")
+    hmma = sass_count("gather_mlp", "HMMA", "TF32")
+    log(f"sass gather_mlp: {hmma} HMMA TF32 instructions")
+    check(hmma > 0, "the gather_mlp library has no TF32 HMMA (mma.sync)")
 
     t = time.perf_counter()
     parity, rows, per_cloud = kernel_phase(dev, args.seed)

@@ -1,4 +1,5 @@
-// gather_mlp: fused center-normalize -> 2-layer MLP -> max over K, fp32.
+// gather_mlp: fused center-normalize -> 2-layer MLP -> max over K, fp32 in
+// and out, both products on Hopper's tensor cores in 3xTF32.
 //
 // Replaces the Pallas TPU kernels gather_mlp_pallas and
 // gather_mlp_batched_pallas (src/repro/kernels/gather_mlp/gather_mlp.py,
@@ -12,111 +13,362 @@
 // and a masked subset with no live position gives a zero row.  The batch
 // and the per-cloud entry are the same kernel (B = 1 for one cloud).
 //
-// What bounds it on an H100: fp32 FMAs.  At the pointnet2_c shapes the
+// What bounds it on an H100: the products.  At the pointnet2_c shapes the
 // work is 2*B*S*K*(D*H + H*F) flops against one read of raw and one write
 // of out: at B = 8, block 1 (S=512 K=32 D=65 H=64 F=128) is 3.24 GFLOP
-// against 36.7 MB, about 48 us at the 67 TFLOP/s fp32 peak and 11 us at
-// 3.35 TB/s; block 2 (S=128 K=64 D=129 H=128 F=256) is 6.46 GFLOP, about
-// 96 us.  Compute-bound, so the design keeps every intermediate on chip:
-// one thread block per subset stages x and h = relu(x W1 + b1) (at most
-// 64 x 129 and 64 x 128 floats) in shared memory, more than 48 KB at
-// block 2, so the launch opts in to a larger dynamic allocation.  Each
-// thread computes 4 rows of one column at a time, so a weight loaded once
-// (W1, W2: small, read through L1/L2, never staged) feeds 4 FMAs and the
-// x/h operand is a warp-wide shared-memory broadcast.  The output
-// features are split over the threads and, where F < 256, the K rows over
-// thread groups whose maxima meet in shared memory.  The y tile (K x F)
-// never exists: each thread keeps a running max.  IEEE fp32 FMA
-// throughout; no tensor cores yet (a later step).
+// against 36 MB, block 2 (S=128 K=64 D=129 H=128 F=256) 6.46 GFLOP against
+// 35 MB.  The kernel is held to 1e-4 of the fp32 result, which one TF32
+// pass breaks (its 10-bit mantissa leaves ~3e-3 here) and 3xTF32 keeps, so
+// the least time is 3 x flops at the 495 TFLOP/s TF32 peak: 0.0196 ms
+// (block 1) and 0.0391 ms (block 2), above the bytes' 0.011 ms.
+//
+// What the design does about it:
+//   * Row tiles of whole subsets: a block of 8 warps takes R = 128 rows
+//     (64 when 128-row tiles would give fewer than two blocks an SM), K
+//     rounded up to 16 per subset, the padded rows dead in the max; a
+//     subset longer than R loops over row tiles with a running max.
+//   * The tile's raw rows arrive by cp.async, all in flight at once, into
+//     a shared-memory x with D zero-padded to a multiple of 8 and a row
+//     stride that keeps fragment loads free of bank conflicts; the centers
+//     are subtracted there.  W1 and W2 stream through a two-stage cp.async
+//     ring of 32 rows by 128 columns, and each product's last stage starts
+//     the next product's first.
+//   * h = x W1 and y = h W2 run on mma.sync m16n8k8 TF32: operands stay
+//     fp32 in shared memory and are split into big and small halves in
+//     registers (tf32x3.cuh); the 8 warps tile 4 x 2 (128-row tiles) or
+//     2 x 4 (64-row tiles) over rows x columns, each with 32 rows of
+//     accumulators.  relu(h + b1) is written over x when H fits one
+//     128-column chunk.
+//   * y never leaves the registers: b2 is added, dead rows become -3.4e38,
+//     the rows of each m16 tile meet by shuffles and the m16 tiles of a
+//     subset in shared memory, where a running max per subset is kept.
+// 108 KB of shared memory at block 2 (76 KB at block 1) and at most 128
+// registers a thread, so two blocks share an SM and one block's loads and
+// barriers hide behind the other's products.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tf32x3.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kRows = 4;            // rows per thread tile
-constexpr float kBig = 3.4e38f;     // the max-pool identity of the JAX code
+using tf32x3::Frag;
 
-__global__ void __launch_bounds__(kThreads)
-gather_mlp_kernel(const float* __restrict__ raw, const float* __restrict__ ctr,
-                  const uint8_t* __restrict__ mask,
-                  const float* __restrict__ w1, const float* __restrict__ b1,
-                  const float* __restrict__ w2, const float* __restrict__ b2,
-                  float* __restrict__ out, int K, int D, int Dc, int H, int F) {
-  extern __shared__ float smem[];
-  float* xs = smem;                                 // K * D
-  float* hs = xs + K * D;                           // K * H
-  float* red = hs + K * H;                          // max(F, kThreads)
-  int* live = reinterpret_cast<int*>(red + max(F, kThreads));  // K
-  const int tid = threadIdx.x;
-  const long long sub = blockIdx.x;                 // b * S + s
-  const float* rawp = raw + sub * K * D;
-  const float* ctrp = ctr + sub * Dc;
+constexpr int kThreads = 256;            // 8 warps
+constexpr int kBlocksPerSM = 2;          // resident blocks the tiles aim at
+constexpr int kMT = 2;                   // m16 tiles per warp
+constexpr int kNC = 128;                 // columns of W per chunk
+constexpr int kKC = 32;                  // rows of W per ring stage
+constexpr int kWS = kNC + 4;             // stage row stride (≡ 4 mod 16)
+constexpr float kBig = 3.4e38f;          // the max-pool identity of the JAX code
+constexpr int kMaxSmem = 232448;         // a block's shared-memory limit
 
-  // 1. normalized inputs and live flags
-  for (int e = tid; e < K * D; e += kThreads) {
-    const int d = e % D;
-    const float v = rawp[e];
-    xs[e] = d < Dc ? v - ctrp[d] : v;
-  }
-  int any = 0;
-  for (int k = tid; k < K; k += kThreads) {
-    live[k] = mask == nullptr || mask[sub * K + k] != 0;
-    any |= live[k];
-  }
-  any = __syncthreads_or(any);
+struct Params {
+  const float* raw;
+  const float* ctr;
+  const uint8_t* mask;
+  const float* w1;
+  const float* b1;
+  const float* w2;
+  const float* b2;
+  float* out;
+  long long bs;            // B * S subsets
+  int K, D, Dc, H, F;
+  int Kp, Dp, Hp, XH;      // K to 16, D and H to 8, the x/h row stride
+  int spt;                 // subsets per row tile (1 when Kp > rows)
+  int w1_vec, w2_vec;      // 16-byte copies of W rows allowed
+};
 
-  // 2. h = relu(x W1 + b1): kRows rows of one column per work item
-  const int row_tiles = (K + kRows - 1) / kRows;
-  for (int e = tid; e < row_tiles * H; e += kThreads) {
-    const int j = e % H, k0 = (e / H) * kRows;
-    float acc[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) acc[r] = b1[j];
-    for (int d = 0; d < D; ++d) {
-      const float w = __ldg(w1 + d * H + j);
-#pragma unroll
-      for (int r = 0; r < kRows; ++r)
-        acc[r] = fmaf(xs[min(k0 + r, K - 1) * D + d], w, acc[r]);
-    }
-#pragma unroll
-    for (int r = 0; r < kRows; ++r)
-      if (k0 + r < K) hs[(k0 + r) * H + j] = fmaxf(acc[r], 0.f);
-  }
-  __syncthreads();
+// One W chunk streamed through the ring: columns [c0, c0 + nc) of the
+// row-major kdim x ncols matrix w, kKC rows a stage.
+struct Chunk {
+  const float* w;
+  int kdim, ncols, c0, nc;
+  bool vec;                // 16-byte copies allowed
+};
 
-  // 3. y = h W2 + b2 with a running max over the live rows; G groups of
-  //    threads split the rows when F < kThreads
-  const int G = max(1, kThreads / F);
-  for (int e = tid; e < F * G; e += kThreads) {
-    const int f = e % F, g = e / F;
-    const float bias = b2[f];
-    float m = -kBig;
-    for (int k0 = g * kRows; k0 < K; k0 += G * kRows) {
-      float acc[kRows];
+// Stage rows [k0, k0 + kKC) of chunk q; rows past kdim and columns past nc
+// (up to the next multiple of 8) are zero.
+__device__ __forceinline__ void load_stage(float* st, const Chunk& q,
+                                           int k0) {
+  const int nc8 = (q.nc + 7) & ~7;
+  for (int e = threadIdx.x; e < kKC * (kNC / 4); e += kThreads) {
+    const int r = e / (kNC / 4), c = (e % (kNC / 4)) * 4;
+    if (c >= nc8) continue;
+    float* dst = st + r * kWS + c;
+    const int kr = k0 + r;
+    const float* src = q.w + (size_t)kr * q.ncols + q.c0 + c;
+    if (q.vec && kr < q.kdim && c < q.nc) {
+      tf32x3::cp_async16(dst, src);
+    } else {
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) acc[r] = bias;
-      for (int j = 0; j < H; ++j) {
-        const float w = __ldg(w2 + j * F + f);
-#pragma unroll
-        for (int r = 0; r < kRows; ++r)
-          acc[r] = fmaf(hs[min(k0 + r, K - 1) * H + j], w, acc[r]);
+      for (int i = 0; i < 4; ++i) {
+        if (kr < q.kdim && c + i < q.nc) tf32x3::cp_async4(dst + i, src + i);
+        else dst[i] = 0.f;
       }
-#pragma unroll
-      for (int r = 0; r < kRows; ++r)
-        if (k0 + r < K && live[k0 + r]) m = fmaxf(m, acc[r]);
     }
-    red[g * F + f] = m;
-  }
-  __syncthreads();
-  for (int f = tid; f < F; f += kThreads) {
-    float m = red[f];
-    for (int g = 1; g < G; ++g) m = fmaxf(m, red[g * F + f]);
-    out[sub * F + f] = any ? m : 0.f;
   }
 }
 
+// The warps of a block as WM x WN over rows x columns: each warp holds
+// kMT m16 tiles by kNT n8 tiles of a 128-column chunk.  4 x 2 gives
+// 128-row tiles, 2 x 4 gives 64-row ones.
+template <int WM>
+struct Layout {
+  static constexpr int kWM = WM, kWN = kThreads / 32 / WM;
+  static constexpr int kR = 16 * kMT * WM;          // rows per tile
+  static constexpr int kNT = kNC / (8 * kWN);       // n8 tiles per warp
+};
+
+// acc = a[:, :kp] · chunk q (this warp's 16·kMT rows and its n8 tiles).
+// On entry the first stage of q is in flight in ring slot `slot`; the last
+// stage's turn starts the first stage of `next` (if next.nc > 0) in the
+// other slot, so the next product finds it there.  Ends with a barrier:
+// every warp is done with a and with q's stages.
+template <class L>
+__device__ __forceinline__ void gemm(float (&acc)[kMT][L::kNT][4],
+                                     const float* a, int lda, int kp,
+                                     float* ws, int& slot, const Chunk& q,
+                                     const Chunk& next, int wm, int wn,
+                                     int lane) {
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int j = 0; j < L::kNT; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][j][i] = 0.f;
+  const int nk = (kp + kKC - 1) / kKC;
+  const int nc8 = (q.nc + 7) & ~7;
+  for (int kc = 0; kc < nk; ++kc) {
+    float* other = ws + (slot ^ 1) * kKC * kWS;
+    if (kc + 1 < nk || next.nc > 0) {
+      if (kc + 1 < nk) load_stage(other, q, (kc + 1) * kKC);
+      else load_stage(other, next, 0);
+      tf32x3::cp_async_commit();
+      tf32x3::cp_async_wait<1>();
+    } else {
+      tf32x3::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* st = ws + slot * kKC * kWS;
+    const int steps = min(kKC, kp - kc * kKC) / 8;
+#pragma unroll
+    for (int s = 0; s < kKC / 8; ++s) {   // fully unrolled: no spills
+      if (s >= steps) break;
+      const int k = kc * kKC + s * 8;
+      Frag<4> af[kMT];
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt)
+        af[mt] = tf32x3::load_a(a, lda, (wm * kMT + mt) * 16, k, lane);
+#pragma unroll
+      for (int j = 0; j < L::kNT; ++j) {
+        const int n0 = (wn + L::kWN * j) * 8;
+        if (n0 < nc8) {
+          const Frag<2> bf = tf32x3::load_b(st, kWS, s * 8, n0, lane);
+#pragma unroll
+          for (int mt = 0; mt < kMT; ++mt)
+            tf32x3::mma3(acc[mt][j], af[mt], bf);
+        }
+      }
+    }
+    __syncthreads();
+    slot ^= 1;
+  }
+}
+
+template <class L>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
+gather_mlp_kernel(const Params p) {
+  constexpr int R = L::kR, kNT = L::kNT;
+  extern __shared__ float smem[];
+  const bool inplace = p.H <= kNC;        // h over x: one chunk holds it
+  float* xs = smem;                                    // R x XH
+  float* hs = inplace ? xs : xs + R * p.XH;            // R x XH
+  float* ws = xs + R * p.XH * (inplace ? 1 : 2);       // 2 x kKC x kWS
+  float* red = ws + 2 * kKC * kWS;                     // R/16 x kNC
+  float* pool = red + (R / 16) * kNC;                  // spt x F
+  float* cs = pool + p.spt * p.F;                      // spt x Dc
+  int* rowlive = reinterpret_cast<int*>(cs + p.spt * p.Dc);  // R
+  int* anyl = rowlive + R;                             // spt
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp / L::kWN, wn = warp % L::kWN;
+  const int g = lane >> 2, t = lane & 3;
+  const int spt = p.spt;
+  const bool multi = p.Kp > R;            // one subset over several tiles
+  const int n_tiles = multi ? (p.Kp + R - 1) / R : 1;
+  const int per = min(p.Kp, R) / 16;      // m16 tiles of a subset in a tile
+  const long long sub0 = (long long)blockIdx.x * spt;
+  const Chunk none{nullptr, 0, 0, 0, 0, false};
+  auto w1_chunk = [&](int h0) {
+    return Chunk{p.w1, p.D, p.H, h0, min(kNC, p.H - h0), p.w1_vec != 0};
+  };
+  auto w2_chunk = [&](int f0) {
+    return f0 < p.F ? Chunk{p.w2, p.H, p.F, f0, min(kNC, p.F - f0),
+                            p.w2_vec != 0}
+                    : none;
+  };
+  // (subset slot, position in the subset) of row r of tile it
+  auto row_at = [&](int it, int r, int& sl, int& k) {
+    if (multi) {
+      sl = 0;
+      k = it * R + r;
+    } else {
+      sl = r / p.Kp;
+      k = r % p.Kp;
+    }
+    return sl < spt && k < p.K && sub0 + sl < p.bs;
+  };
+
+  for (int e = tid; e < spt * p.F; e += kThreads) pool[e] = -kBig;
+  for (int e = tid; e < spt; e += kThreads) anyl[e] = 0;
+  for (int e = tid; e < spt * p.Dc; e += kThreads)
+    cs[e] = sub0 + e / p.Dc < p.bs ? p.ctr[sub0 * p.Dc + e] : 0.f;
+  __syncthreads();
+
+  float acc[kMT][kNT][4];
+  int slot = 0;
+  for (int it = 0; it < n_tiles; ++it) {
+    // ---- prologue: raw rows by cp.async, then W1's first stage ------------
+    for (int r = warp; r < R; r += kThreads / 32) {
+      int sl, k;
+      const bool valid = row_at(it, r, sl, k);
+      const float* src = p.raw + ((size_t)(sub0 + sl) * p.K + k) * p.D;
+      for (int d = lane; d < p.Dp; d += 32) {
+        if (valid && d < p.D) tf32x3::cp_async4(xs + r * p.XH + d, src + d);
+        else xs[r * p.XH + d] = 0.f;
+      }
+    }
+    tf32x3::cp_async_commit();
+    load_stage(ws + slot * kKC * kWS, w1_chunk(0), 0);
+    tf32x3::cp_async_commit();
+    for (int r = tid; r < R; r += kThreads) {
+      int sl, k;
+      const int lv = row_at(it, r, sl, k) &&
+                     (p.mask == nullptr ||
+                      p.mask[(size_t)(sub0 + sl) * p.K + k] != 0);
+      rowlive[r] = lv;
+      if (lv) anyl[sl] = 1;
+    }
+    tf32x3::cp_async_wait<1>();           // the raw rows
+    __syncthreads();
+    for (int e = tid; e < R * p.Dc; e += kThreads) {   // x = raw - ctr
+      const int r = e / p.Dc, d = e % p.Dc;
+      int sl, k;
+      if (row_at(it, r, sl, k)) xs[r * p.XH + d] -= cs[sl * p.Dc + d];
+    }
+
+    // ---- h = relu(x W1 + b1), 128 columns at a time -----------------------
+    for (int h0 = 0; h0 < p.H; h0 += kNC) {
+      const Chunk next = h0 + kNC < p.H ? w1_chunk(h0 + kNC) : w2_chunk(0);
+      gemm<L>(acc, xs, p.XH, p.Dp, ws, slot, w1_chunk(h0), next, wm, wn,
+               lane);
+      const int nc8 = (min(kNC, p.H - h0) + 7) & ~7;
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+        const int n0 = (wn + L::kWN * j) * 8;
+        if (n0 >= nc8) continue;                   // a tile gemm skipped
+        const int c = h0 + n0 + 2 * t;
+        const float bias0 = c < p.H ? __ldg(p.b1 + c) : 0.f;
+        const float bias1 = c + 1 < p.H ? __ldg(p.b1 + c + 1) : 0.f;
+#pragma unroll
+        for (int mt = 0; mt < kMT; ++mt) {
+          float* row = hs + ((wm * kMT + mt) * 16 + g) * p.XH + c;
+          const float* v = acc[mt][j];
+          row[0] = c < p.H ? fmaxf(v[0] + bias0, 0.f) : 0.f;
+          row[1] = c + 1 < p.H ? fmaxf(v[1] + bias1, 0.f) : 0.f;
+          row[8 * p.XH] = c < p.H ? fmaxf(v[2] + bias0, 0.f) : 0.f;
+          row[8 * p.XH + 1] = c + 1 < p.H ? fmaxf(v[3] + bias1, 0.f) : 0.f;
+        }
+      }
+    }
+
+    // ---- y = h W2 + b2, 128 columns at a time, pooled in registers --------
+    for (int f0 = 0; f0 < p.F; f0 += kNC) {
+      const Chunk q = w2_chunk(f0);
+      gemm<L>(acc, hs, p.XH, p.Hp, ws, slot, q, w2_chunk(f0 + kNC), wm,
+               wn, lane);
+      const int nc = q.nc;
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+        const int c = (wn + L::kWN * j) * 8 + 2 * t;
+        const float bias0 = c < nc ? __ldg(p.b2 + f0 + c) : 0.f;
+        const float bias1 = c + 1 < nc ? __ldg(p.b2 + f0 + c + 1) : 0.f;
+#pragma unroll
+        for (int mt = 0; mt < kMT; ++mt) {
+          const float* v = acc[mt][j];
+          const int r0 = (wm * kMT + mt) * 16 + g;
+          const bool l0 = rowlive[r0], l1 = rowlive[r0 + 8];
+          float m0 = fmaxf(l0 ? v[0] + bias0 : -kBig, l1 ? v[2] + bias0 : -kBig);
+          float m1 = fmaxf(l0 ? v[1] + bias1 : -kBig, l1 ? v[3] + bias1 : -kBig);
+#pragma unroll
+          for (int off = 4; off < 32; off <<= 1) {
+            m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, off));
+            m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, off));
+          }
+          if (g == 0) {                  // columns past nc: never read
+            red[(wm * kMT + mt) * kNC + c] = m0;
+            red[(wm * kMT + mt) * kNC + c + 1] = m1;
+          }
+        }
+      }
+      __syncthreads();
+      // each subset's m16 tiles meet in its running max
+      for (int e = tid; e < spt * nc; e += kThreads) {
+        const int s = e / nc, c = e % nc;
+        float m = pool[s * p.F + f0 + c];
+        for (int i = 0; i < per; ++i) m = fmaxf(m, red[(s * per + i) * kNC + c]);
+        pool[s * p.F + f0 + c] = m;
+      }
+      __syncthreads();
+    }
+  }
+
+  for (int e = tid; e < spt * p.F; e += kThreads) {
+    const int s = e / p.F;
+    if (sub0 + s < p.bs)
+      p.out[(sub0 + s) * p.F + e % p.F] = anyl[s] ? pool[e] : 0.f;
+  }
+}
+
+int padded_k(int K) { return K > 0 ? (K + 15) / 16 * 16 : 16; }
+
+int sm_count() {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    return 132;
+  return sms;
+}
+
+size_t smem_bytes(int R, const Params& p, int spt) {
+  const size_t xh = (size_t)R * p.XH * (p.H <= kNC ? 1 : 2);
+  return sizeof(float) * (xh + 2 * kKC * kWS + (R / 16) * kNC +
+                          (size_t)spt * (p.F + p.Dc)) +
+         sizeof(int) * (R + spt);
+}
+
+template <class L>
+int launch(const Params& p, size_t smem, long long grid, void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      gather_mlp_kernel<L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  gather_mlp_kernel<L><<<(unsigned)grid, kThreads, smem,
+                          (cudaStream_t)stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
+
+// Rows per tile for B·S subsets of K points: 64 when 128-row tiles would
+// give fewer than two blocks an SM, else 128.
+extern "C" int gather_mlp_row_tile(int B, int S, int K) {
+  constexpr int big = Layout<4>::kR, small = Layout<2>::kR;
+  const long long rows = (long long)B * S * padded_k(K);
+  return rows / big < (long long)kBlocksPerSM * sm_count() ? small : big;
+}
 
 extern "C" int gather_mlp_forward(const float* raw, const float* ctr,
                                   const uint8_t* mask, const float* w1,
@@ -124,16 +376,24 @@ extern "C" int gather_mlp_forward(const float* raw, const float* ctr,
                                   const float* b2, float* out, int B, int S,
                                   int K, int D, int Dc, int H, int F,
                                   void* stream) {
-  const size_t smem = sizeof(float) * ((size_t)K * D + (size_t)K * H +
-                                       (F > kThreads ? F : kThreads) + K);
-  cudaError_t err = cudaFuncSetAttribute(
-      gather_mlp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  gather_mlp_kernel<<<(unsigned)((long long)B * S), kThreads, smem,
-                      (cudaStream_t)stream>>>(raw, ctr, mask, w1, b1, w2, b2,
-                                              out, K, D, Dc, H, F);
-  return (int)cudaGetLastError();
+  Params p{raw, ctr, mask, w1, b1, w2, b2, out, (long long)B * S,
+           K, D, Dc, H, F};
+  p.Kp = padded_k(K);
+  p.Dp = (D + 7) & ~7;
+  p.Hp = (H + 7) & ~7;
+  const int xh = p.Dp > p.Hp ? p.Dp : p.Hp;
+  p.XH = xh + ((8 - xh) % 32 + 32) % 32;     // ≡ 8 mod 32: no bank conflicts
+  p.w1_vec = H % 4 == 0 && reinterpret_cast<uintptr_t>(w1) % 16 == 0;
+  p.w2_vec = F % 4 == 0 && reinterpret_cast<uintptr_t>(w2) % 16 == 0;
+  constexpr int big = Layout<4>::kR, small = Layout<2>::kR;
+  int R = gather_mlp_row_tile(B, S, K);
+  if (R == big && smem_bytes(big, p, p.Kp <= big ? big / p.Kp : 1) > kMaxSmem)
+    R = small;
+  p.spt = p.Kp <= R ? R / p.Kp : 1;
+  const size_t smem = smem_bytes(R, p, p.spt);
+  const long long grid = (p.bs + p.spt - 1) / p.spt;
+  return R == big ? launch<Layout<4>>(p, smem, grid, stream)
+                  : launch<Layout<2>>(p, smem, grid, stream);
 }
 
 extern "C" const char* gather_mlp_error_string(int code) {

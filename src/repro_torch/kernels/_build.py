@@ -3,9 +3,10 @@ hands them.
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for Hopper (``sm_90a``) into ``build/repro_torch/lib<name>-<hash>.so`` at
-the repository root, keyed by a hash of the source and the flags, then
-loaded with ``ctypes``.  The build runs at first use, so a fresh checkout
-builds everything it launches; :func:`build` starts one ``nvcc`` per
+the repository root, keyed by a hash of the source, the headers in
+``csrc/`` (``*.cuh``) and the flags, then loaded with ``ctypes``.  The
+build runs at first use, so a fresh checkout builds everything it
+launches; :func:`build` starts one ``nvcc`` per
 source, all at once.  Nothing here runs at import time.
 """
 from __future__ import annotations
@@ -26,7 +27,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # kernel launches per wrapper, counted where the wrapper launches
 LAUNCHES: collections.Counter = collections.Counter()
-# nvcc's output per built source (register and shared-memory use)
+# nvcc's output per built source (register and shared-memory use), kept
+# beside each library as lib<name>-<hash>.log
 BUILD_LOG: dict = {}
 
 _LIBS: dict = {}
@@ -42,7 +44,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
+    """Where ``csrc/<name>.cu`` builds to, keyed by the source, every
+    header in ``csrc/`` (a header edit rebuilds its includers) and the
+    flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{tag[:16]}.so"
 
@@ -52,8 +58,13 @@ def build(names) -> float:
     source, all in parallel.  Returns the wall seconds; raises with the
     compiler's output if one fails."""
     t0 = time.perf_counter()
-    todo = [(n, library_path(n)) for n in names
-            if not library_path(n).exists()]
+    todo = []
+    for n in names:
+        out = library_path(n)
+        if not out.exists():
+            todo.append((n, out))
+        elif out.with_suffix(".log").exists():
+            BUILD_LOG[n] = out.with_suffix(".log").read_text()
     if not todo:
         return 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -70,6 +81,7 @@ def build(names) -> float:
         log, _ = proc.communicate()
         BUILD_LOG[name] = log
         if proc.returncode == 0:
+            out.with_suffix(".log").write_text(log)
             os.replace(tmp, out)
         else:
             tmp.unlink(missing_ok=True)

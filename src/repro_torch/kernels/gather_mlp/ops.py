@@ -1,4 +1,5 @@
-"""Wrapper of the gather_mlp CUDA kernel (``csrc/gather_mlp.cu``).
+"""Wrapper of the gather_mlp CUDA kernel (``csrc/gather_mlp.cu``, 3xTF32
+on the tensor cores).
 
 A CPU tensor takes the plain PyTorch version (:func:`gather_mlp_ref`); a
 CUDA tensor launches the kernel or raises.
@@ -19,7 +20,15 @@ def _lib():
     lib = _build.load("gather_mlp")
     lib.gather_mlp_forward.argtypes = [_P] * 8 + [_I] * 7 + [_P]
     lib.gather_mlp_forward.restype = _I
+    lib.gather_mlp_row_tile.argtypes = [_I] * 3
+    lib.gather_mlp_row_tile.restype = _I
     return lib
+
+
+def row_tile(b: int, s: int, k: int) -> int:
+    """Rows per tile (64 or 128) the kernel takes for b·s subsets of k
+    points on the current CUDA device."""
+    return _lib().gather_mlp_row_tile(b, s, k)
 
 
 def gather_mlp(raw, centers, w1, b1, w2, b2, mask=None):

@@ -1,27 +1,16 @@
 """The port's FC stage against the JAX package: the plain versions of the
 two kernels against the JAX oracles and the per-cloud Pallas kernels in
-interpret mode, the kernel lowering, and the batched FC dataflows on
-structures built by JAX."""
-import jax
-import jax.numpy as jnp
+interpret mode, the kernel lowering, the batched FC dataflows on
+structures built by JAX, the 3xTF32 arithmetic of the gather_mlp kernel,
+and, on a CUDA host, each kernel against its plain version.
+
+The JAX package is imported inside the tests that compare with it, so
+the card test (``pytest -m cuda tests/test_torch_fc.py``) also runs on a
+host without JAX."""
 import numpy as np
 import pytest
 import torch
 
-from repro.core.delta_comp import compensation as jcompensation
-from repro.core.mlp import init_mlp as jinit_mlp
-from repro.core.pipeline import LPCNConfig as JCfg
-from repro.core.pipeline import fc_lpcn_batched as jfc_lpcn_batched
-from repro.core.pipeline import (
-    fc_traditional_batched as jfc_traditional_batched)
-from repro.core.pipeline import get_fc_backend as jget_fc_backend
-from repro.core.pipeline import lpcn_block as jlpcn_block
-from repro.core.pipeline import structure_block as jstructure_block
-from repro.data.synthetic import make_cloud
-from repro.kernels.gather_mlp.gather_mlp import gather_mlp_pallas
-from repro.kernels.gather_mlp.ref import gather_mlp_ref as jgather_ref
-from repro.kernels.hub_reuse.hub_reuse import hub_reuse_pallas
-from repro.kernels.hub_reuse.ref import hub_reuse_ref as jreuse_ref
 from repro_torch.core.delta_comp import compensation
 from repro_torch.core.mlp import apply_mlp
 from repro_torch.core.pipeline import (FC_BACKENDS, LPCNConfig,
@@ -52,6 +41,9 @@ def _t(a):
 @pytest.mark.parametrize("s,k,d,dc,h,f", [(24, 8, 6, 3, 16, 32),
                                           (10, 16, 13, 1, 32, 24)])
 def test_gather_mlp_plain_matches_jax(s, k, d, dc, h, f, masked):
+    import jax.numpy as jnp
+    from repro.kernels.gather_mlp.gather_mlp import gather_mlp_pallas
+    from repro.kernels.gather_mlp.ref import gather_mlp_ref as jgather_ref
     rng = np.random.default_rng(s + k)
     raw, ctr, w1, b1, w2, b2 = _arrays(rng, (s, k, d), (s, dc), (d, h), (h,),
                                        (h, f), (f,), scale=0.5)
@@ -82,6 +74,9 @@ def test_gather_mlp_plain_matches_jax(s, k, d, dc, h, f, masked):
 @pytest.mark.parametrize("hn,c,m,k,d,h,f", [(3, 16, 6, 8, 5, 16, 24),
                                             (2, 24, 9, 12, 16, 32, 16)])
 def test_hub_reuse_plain_matches_jax(hn, c, m, k, d, h, f, masked):
+    import jax.numpy as jnp
+    from repro.kernels.hub_reuse.hub_reuse import hub_reuse_pallas
+    from repro.kernels.hub_reuse.ref import hub_reuse_ref as jreuse_ref
     rng = np.random.default_rng(hn + c)
     pool, comp, w1, b1, w2, b2 = _arrays(rng, (hn, c, d), (hn, m, f), (d, h),
                                          (h,), (h, f), (f,), scale=0.5)
@@ -128,6 +123,8 @@ MLPS = {
 @pytest.mark.parametrize("name", sorted(MLPS))
 def test_two_layer_form_is_exact(name):
     """The kernels' relu-sandwich form of any point-MLP computes the MLP."""
+    import jax
+    from repro.core.mlp import init_mlp as jinit_mlp
     dims, act = MLPS[name]
     jm = jinit_mlp(jax.random.PRNGKey(1), dims, act)
     mlp = _mlp_from_numpy(jax.tree.map(np.asarray, jm), "cpu")
@@ -148,6 +145,12 @@ SIZES = (128, 90, 0)
 
 def _setup(mode, mlp_name, kind="sa", seed=0):
     """JAX-built stacked structures and inputs for a small block."""
+    import jax
+    import jax.numpy as jnp
+    from repro.core.mlp import init_mlp as jinit_mlp
+    from repro.core.pipeline import LPCNConfig as JCfg
+    from repro.core.pipeline import structure_block as jstructure_block
+    from repro.data.synthetic import make_cloud
     rng = np.random.default_rng(seed)
     xyz = np.zeros((len(SIZES), N, 3), np.float32)
     for i, n in enumerate(SIZES):
@@ -174,6 +177,11 @@ def _setup(mode, mlp_name, kind="sa", seed=0):
                                            ("block_end", "sa"),
                                            ("two_layer", "edge")])
 def test_fc_traditional_batched_on_jax_structures(mlp_name, kind, backend):
+    import jax
+    import jax.numpy as jnp
+    from repro.core.pipeline import (
+        fc_traditional_batched as jfc_traditional_batched)
+    from repro.core.pipeline import get_fc_backend as jget_fc_backend
     cfg, xyz, feats, jst, jm = _setup("traditional", mlp_name, kind)
     cf = jnp.take_along_axis(jnp.asarray(feats), jst.center_idx[..., None],
                              axis=1)
@@ -197,6 +205,11 @@ def test_fc_traditional_batched_on_jax_structures(mlp_name, kind, backend):
                                            ("block_end", "sa"),
                                            ("one_layer", "edge")])
 def test_fc_lpcn_batched_on_jax_structures(mlp_name, kind, backend):
+    import jax
+    import jax.numpy as jnp
+    from repro.core.pipeline import LPCNConfig as JCfg
+    from repro.core.pipeline import fc_lpcn_batched as jfc_lpcn_batched
+    from repro.core.pipeline import get_fc_backend as jget_fc_backend
     cfg, xyz, feats, jst, jm = _setup("lpcn", mlp_name, kind, seed=1)
     cf = jnp.take_along_axis(jnp.asarray(feats), jst.center_idx[..., None],
                              axis=1)
@@ -219,6 +232,10 @@ def test_fc_lpcn_batched_on_jax_structures(mlp_name, kind, backend):
 @pytest.mark.parametrize("mode", ["linear", "mlp"])
 @pytest.mark.parametrize("kind", ["sa", "edge"])
 def test_compensation(mode, kind):
+    import jax
+    import jax.numpy as jnp
+    from repro.core.delta_comp import compensation as jcompensation
+    from repro.core.mlp import init_mlp as jinit_mlp
     jm = jinit_mlp(jax.random.PRNGKey(3), [10, 16, 24], "per_layer")
     jm = jax.tree.map(lambda a: a + 0.05 if a.ndim == 1 else a, jm)
     delta = np.random.default_rng(0).normal(
@@ -232,6 +249,10 @@ def test_compensation(mode, kind):
 
 def test_lpcn_block_matches_jax():
     """The per-cloud entry (the batched code at B = 1) on a padded cloud."""
+    import jax
+    import jax.numpy as jnp
+    from repro.core.pipeline import LPCNConfig as JCfg
+    from repro.core.pipeline import lpcn_block as jlpcn_block
     cfg, xyz, feats, jst, jm = _setup("lpcn", "prologue", seed=2)
     key = jax.random.PRNGKey(5)
     want_f, want_c = jax.jit(lambda x, f, k: (lambda o: (
@@ -249,26 +270,101 @@ def test_lpcn_block_matches_jax():
                                atol=TOL)
 
 
+def _tf32(x):
+    """``cvt.rna.tf32.f32`` on float32: the low 13 mantissa bits rounded
+    off, ties away from zero."""
+    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_tf32(a, b, passes):
+    """a·b as the tensor cores take it in TF32 with fp32 sums: one pass
+    (big·big) or three (small·big + big·small + big·big)."""
+    ab, bb = _tf32(a), _tf32(b)
+    if passes == 1:
+        return ab @ bb
+    return _tf32(a - ab) @ bb + ab @ _tf32(b - bb) + ab @ bb
+
+
+# (S, K, D, Dc, H, F): the PointNet++(c) block widths at a small S
+TF32_BLOCKS = {"blk1": (16, 32, 65, 1, 64, 128),
+               "blk2": (8, 64, 129, 1, 128, 256)}
+
+
+@pytest.mark.parametrize("blk", sorted(TF32_BLOCKS))
+def test_tf32x3_keeps_the_kernel_tolerance(blk):
+    """The gather_mlp kernel's arithmetic, emulated: 3xTF32 stays within
+    1e-5 · max(1, |ref|) of fp64 at the block widths and chip_smoke.py's
+    input scales, and 1xTF32 breaks the 1e-4 limit the kernel is held
+    to (so the cheaper route is not open)."""
+    import jax.numpy as jnp
+    from repro.kernels.gather_mlp.ref import gather_mlp_ref as jgather_ref
+    s, k, d, dc, h, f = TF32_BLOCKS[blk]
+    rng = np.random.default_rng(k + d)
+    n = lambda *shape, scale=1.0: (rng.standard_normal(shape)
+                                   * scale).astype(np.float32)
+    ops = (n(s, k, d), n(s, dc), n(d, h, scale=(2 / d) ** .5),
+           n(h, scale=.1), n(h, f, scale=(2 / h) ** .5), n(f, scale=.1))
+    raw, ctr, w1, b1, w2, b2 = (torch.from_numpy(a) for a in ops)
+    ref = gather_mlp_ref(*(t.double() for t in (raw, ctr, w1, b1, w2, b2)))
+    lim = max(1.0, ref.abs().max().item())
+    want = np.asarray(jgather_ref(*(jnp.asarray(a) for a in ops)))
+    np.testing.assert_allclose(want, ref.numpy(), rtol=TOL, atol=TOL * lim)
+    x = torch.cat([raw[..., :dc] - ctr[:, None], raw[..., dc:]], dim=-1)
+    err = {}
+    for passes in (1, 3):
+        hid = torch.relu(_mm_tf32(x, w1, passes) + b1)
+        y = (_mm_tf32(hid, w2, passes) + b2).amax(1)
+        err[passes] = (y.double() - ref).abs().max().item()
+    assert err[3] <= 1e-5 * lim, err
+    assert err[1] > 1e-4 * lim, err
+
+
+# gather_mlp on the card: (B, S, K, D, Dc, H, F) — K padded inside a
+# 16-row group (8, 20), subsets that leave rows of a tile unused (48) or
+# span several tiles (200), odd D and H/F off a multiple of 4 (4-byte
+# weight copies), H above one 128-column chunk (h beside x), B·S leaving
+# the last tile partial, and shapes large enough for 128-row tiles
+CARD_DENSE = ((2, 24, 8, 9, 3, 16, 40), (3, 25, 20, 65, 1, 64, 128),
+              (1, 13, 64, 129, 1, 128, 256), (2, 7, 48, 65, 3, 128, 40),
+              (1, 5, 200, 9, 3, 16, 256), (2, 9, 20, 9, 1, 18, 37),
+              (1, 6, 24, 33, 3, 200, 72), (2, 1100, 16, 9, 3, 16, 40),
+              (2, 601, 20, 65, 1, 128, 256), (1, 515, 64, 129, 1, 128, 256))
+
+
 @pytest.mark.cuda
 def test_kernels_match_plain_versions_on_card():
     """On a CUDA host: each kernel against its plain version, batched and
-    per cloud, masked and not (``python3 chip_smoke.py`` does the same at
-    the PointNet++(c) shapes)."""
+    per cloud, masked (all-dead subsets included) and not, repeats
+    bit-equal; gather_mlp over its tile edges in both row tilings
+    (``python3 chip_smoke.py`` does the same at the PointNet++(c) shapes)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+    from repro_torch.kernels.gather_mlp.ops import row_tile
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(0)
-    r = lambda *s: torch.randn(s, generator=g).to(dev)
-    raw, ctr = r(2, 24, 8, 9), r(2, 24, 3)
+    r = lambda *s, scale=1.0: (torch.randn(s, generator=g) * scale).to(dev)
+    tilings = set()
+    for b, s, k, d, dc, h, f in CARD_DENSE:
+        raw, ctr = r(b, s, k, d), r(b, s, dc)
+        w1, b1 = r(d, h, scale=(2 / d) ** .5), r(h, scale=.1)
+        w2, b2 = r(h, f, scale=(2 / h) ** .5), r(f, scale=.1)
+        mask = torch.rand(b, s, k, generator=g) < .7
+        mask[:, ::5] = False                        # all-dead subsets
+        mask = mask.to(dev)
+        tilings.add(row_tile(b, s, k))
+        for m in (None, mask):
+            want = gather_mlp_ref(raw, ctr, w1, b1, w2, b2, mask=m)
+            got = gather_mlp(raw, ctr, w1, b1, w2, b2, mask=m)
+            torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+            assert torch.equal(gather_mlp(raw, ctr, w1, b1, w2, b2, mask=m),
+                               got)
+            one = gather_mlp(raw[-1], ctr[-1], w1, b1, w2, b2,
+                             mask=None if m is None else m[-1])
+            torch.testing.assert_close(one, want[-1], rtol=1e-4, atol=1e-4)
+        assert bool((gather_mlp(raw, ctr, w1, b1, w2, b2, mask=mask)
+                     [:, ::5] == 0).all())
+    assert tilings == {64, 128}, tilings
     w1, b1, w2, b2 = r(9, 16) * .3, r(16), r(16, 40) * .3, r(40)
-    mask = (torch.rand(2, 24, 8, generator=g) < .7).to(dev)
-    for m in (None, mask):
-        want = gather_mlp_ref(raw, ctr, w1, b1, w2, b2, mask=m)
-        got = gather_mlp(raw, ctr, w1, b1, w2, b2, mask=m)
-        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
-        one = gather_mlp(raw[1], ctr[1], w1, b1, w2, b2,
-                         mask=None if m is None else m[1])
-        torch.testing.assert_close(one, want[1], rtol=1e-4, atol=1e-4)
     pool, comp = r(2, 3, 16, 9), r(2, 3, 5, 40)
     slot = torch.randint(-1, 16, (2, 3, 5, 8), generator=g,
                          dtype=torch.int32).to(dev)

@@ -1,0 +1,124 @@
+#!/usr/bin/env python3
+"""Show that chip_smoke.py's gather_mlp limit fails planted faults.
+
+    python3 tools/gather_mlp_planted_faults.py [--seed N]
+
+Builds copies of ``src/repro_torch/csrc/gather_mlp.cu`` and its header
+``tf32x3.cuh`` with one fault each (written under
+``build/repro_torch/faults/gather_mlp/``; the sources are not touched),
+runs each through ``repro_torch.kernels.gather_mlp`` at both PointNet++(c)
+block shapes of chip_smoke.py (B = 8, masked, with all-dead subsets), and
+prints one JSON line per (fault, block): max |Δ| against
+``gather_mlp_ref`` beside chip_smoke.py's limit 1e-4 · max(1, max|plain|).
+Exits 1 if the unchanged sources break the limit or a fault passes it.
+Needs one CUDA device.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path[:0] = [str(ROOT), str(ROOT / "src")]
+
+# name -> (file, text, its replacement); each text occurs once in its file
+FAULTS = {
+    # 1xTF32: the two small products dropped
+    "one_tf32_pass": ("tf32x3.cuh",
+                      "  mma(c, a.small, b.big);\n  mma(c, a.big, b.small);\n",
+                      ""),
+    # y = h W2 without W2's last 32-row stage
+    "w2_last_stage_skipped": ("gather_mlp.cu", "gemm<L>(acc, hs, p.XH, p.Hp,",
+                              "gemm<L>(acc, hs, p.XH, p.Hp - kKC,"),
+    # every row live: the mask is not read
+    "mask_ignored": ("gather_mlp.cu", "p.mask == nullptr ||", "true ||"),
+    # the last subset of each row tile keeps the -3.4e38 identity
+    "last_subset_unpooled": ("gather_mlp.cu", "e < spt * nc;",
+                             "e < (spt - 1) * nc;"),
+}
+FILES = ("gather_mlp.cu", "tf32x3.cuh")
+
+
+def build(sources: dict, out_dir: Path, with_logs: bool = False):
+    """One nvcc per variant, all at once, with the port's flags; each
+    variant's directory holds its own copy of both files.  -> {name:
+    library} (and {name: nvcc's output} with ``with_logs``)."""
+    from repro_torch.kernels import _build
+    procs = {}
+    for name, texts in sources.items():
+        d = out_dir / name
+        d.mkdir(parents=True, exist_ok=True)
+        for fname, text in texts.items():
+            (d / fname).write_text(text)
+        so = d / "libgather_mlp.so"
+        procs[name] = (so, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so),
+             str(d / "gather_mlp.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs, logs = {}, {}
+    for name, (so, proc) in procs.items():
+        logs[name], _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc {name} failed:\n{logs[name]}")
+        libs[name] = so
+    return (libs, logs) if with_logs else libs
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+
+    import torch
+    if not torch.cuda.is_available():
+        print("gather_mlp_planted_faults: no CUDA device", file=sys.stderr)
+        return 2
+    import chip_smoke
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.gather_mlp import gather_mlp, gather_mlp_ref
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], check=True,
+                         capture_output=True, text=True).stdout.strip()
+    print(smi.splitlines()[0], flush=True)
+    sound = {f: (_build.CSRC / f).read_text() for f in FILES}
+    sources = {"none": sound}
+    for name, (fname, old, new) in FAULTS.items():
+        if sound[fname].count(old) != 1:
+            raise RuntimeError(f"fault {name}: {old!r} occurs "
+                               f"{sound[fname].count(old)} times in {fname}")
+        sources[name] = {**sound, fname: sound[fname].replace(old, new)}
+    libs = build(sources, _build.BUILD_DIR / "faults" / "gather_mlp")
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(args.seed)
+    ok = True
+    for blk, shp in chip_smoke.DENSE.items():
+        raw, ctr, w1, b1, w2, b2, mask = chip_smoke.dense_inputs(
+            gen, dev, chip_smoke.B, **{**shp, "masked": True})
+        ops = (raw, ctr, w1, b1, w2, b2)
+        ref = gather_mlp_ref(*ops, mask=mask)
+        for name, so in libs.items():
+            _build._LIBS["gather_mlp"] = ctypes.CDLL(str(so))
+            before = _build.LAUNCHES["gather_mlp"]
+            out = gather_mlp(*ops, mask=mask)
+            torch.cuda.synchronize()
+            if _build.LAUNCHES["gather_mlp"] != before + 1:
+                raise RuntimeError(f"{blk}: the kernel did not launch")
+            err = (out - ref).abs().max().item()
+            tol = chip_smoke.TOL * max(1.0, ref.abs().max().item())
+            breaks = not err <= tol
+            print(json.dumps(dict(fault=name, block=blk, max_abs_err=err,
+                                  tol=tol, breaks=breaks)), flush=True)
+            ok &= breaks if name != "none" else not breaks
+    _build._LIBS.pop("gather_mlp", None)
+    print(json.dumps({"ok": ok, "limit": "1e-4 * max(1, max|plain|)"}))
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())
