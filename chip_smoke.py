@@ -8,7 +8,9 @@ Phases, each timed, any failure exits non-zero:
   1. build the CUDA kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a);
   2. hold each FC kernel against its plain PyTorch version on the card, at
      both PointNet++(c) block shapes, batched (B=8) and at B=1, masked and
-     unmasked: ``max|Δ| <= 1e-4 · max(1, max|plain|)``;
+     unmasked, and hub_reuse also at the other families' widest blocks
+     (``REUSE_WIDE``): ``max|Δ| <= 1e-4 · max(1, max|plain|)``, the -BIG
+     identity exactly;
   3. time each FC kernel and its plain version in turns at the main path's
      shapes;
   4. serve 12 ragged requests (512–1024 points) through
@@ -26,9 +28,10 @@ Phases, each timed, any failure exits non-zero:
      and ‖Δ‖/‖plain‖) and time all three.
 
 Output lines: the card's name and power limit (nvidia-smi), phase times,
-ptxas's registers and spills (gather_mlp must not spill), the counts of
-HGMMA (wgmma) instructions in the built flash_attention library and of
-TF32 HMMA (mma.sync) instructions in the gather_mlp one, ``parity``,
+ptxas's registers and spills (gather_mlp and hub_reuse must not spill),
+the counts of HGMMA (wgmma) instructions in the built flash_attention
+library and of TF32 HMMA (mma.sync) instructions in the gather_mlp and
+hub_reuse ones, ``parity``,
 ``per_cloud`` and ``entry_parity``
 JSON lines, the lpcn forward's stage times (``--profile`` adds a
 torch.profiler trace of one forward), stage 1 on the card against the
@@ -62,6 +65,14 @@ DENSE = {"blk1": dict(s=512, k=32, d=65, dc=1, h=64, f=128, masked=True),
          "blk2": dict(s=128, k=64, d=129, dc=1, h=128, f=256, masked=False)}
 REUSE = {"blk1": dict(hn=16, c=64, m=64, k=32, d=64, h=64, f=128),
          "blk2": dict(hn=4, c=128, m=64, k=64, d=128, h=128, f=256)}
+# parity only, at B = 2: hub_reuse at the other families' widest blocks
+# (two_layer_form doubles Hd for one-layer MLPs; C = 2k cache rows)
+REUSE_WIDE = {
+    "pointnext_s_blk4": dict(hn=4, c=64, m=16, k=32, d=259, h=1024, f=512),
+    "pointvector_l_blk3": dict(hn=4, c=64, m=16, k=32, d=195, h=768, f=384),
+    "pointvector_l_blk4": dict(hn=4, c=64, m=16, k=32, d=387, h=1536,
+                               f=768),
+    "dgcnn_c_blk4": dict(hn=4, c=40, m=16, k=32, d=256, h=512, f=256)}
 # a Qwen2-72B attention layer (src/repro/configs/qwen2_72b.py: 64 query
 # heads, 8 kv heads, head_dim 128) over a 2048-token prefill
 QWEN2_72B = dict(b=1, hq=64, hkv=8, s=2048, d=128)
@@ -261,9 +272,12 @@ def kernel_phase(dev, seed):
                         lambda: hub_reuse_ref(*args, live=live))
                     flops = 2 * bb * shp["hn"] * shp["c"] * (
                         shp["d"] * shp["h"] + shp["h"] * shp["f"])
-                    bms, by = bound(flops, nbytes(*args, live, out))
+                    moved = nbytes(*args, live, out)
+                    bms, by = bound(3 * flops, moved, PEAK_TF32)
                     (rows if bb == B else per_cloud).append(dict(
                         name="hub_reuse", block=blk, route="cuda",
+                        variant="mma_tf32x3", tflops=flops / ms / 1e9,
+                        bound_fp32_ms=bound(flops, moved)[0],
                         source="src/repro_torch/csrc/hub_reuse.cu",
                         replaces="src/repro/kernels/hub_reuse/"
                                  f"hub_reuse.py:{307 if bb == B else 117}",
@@ -272,6 +286,15 @@ def kernel_phase(dev, seed):
                               f"Hd={shp['h']} F={shp['f']} live=True",
                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
                         bound_ms=bms, bound_by=by, library_ms=None))
+    for name, shp in REUSE_WIDE.items():
+        pool, slot, comp, w1, b1, w2, b2, live = reuse_inputs(
+            gen, dev, 2, **shp)
+        args = (pool, slot, comp, w1, b1, w2, b2)
+        out = hub_reuse(*args, live=live)
+        err, tol = max_err(out, hub_reuse_ref(*args, live=live))
+        parity.append(dict(name="hub_reuse", block=name, b=2, masked=True,
+                           max_abs_err=err, tol=tol))
+        check(err <= tol, f"hub_reuse {name}: max|err| {err} > {tol}")
     return parity, rows, per_cloud
 
 
@@ -654,14 +677,15 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"ptxas {name}: {line.strip()}")
-    check(spilled_bytes(kernels.BUILD_LOG["gather_mlp"]) == 0,
-          "ptxas reports spills in gather_mlp")
     hgmma = sass_count("flash_attention", "HGMMA")
     log(f"sass flash_attention: {hgmma} HGMMA instructions")
     check(hgmma > 0, "the flash_attention library has no HGMMA (wgmma)")
-    hmma = sass_count("gather_mlp", "HMMA", "TF32")
-    log(f"sass gather_mlp: {hmma} HMMA TF32 instructions")
-    check(hmma > 0, "the gather_mlp library has no TF32 HMMA (mma.sync)")
+    for name in ("gather_mlp", "hub_reuse"):
+        check(spilled_bytes(kernels.BUILD_LOG[name]) == 0,
+              f"ptxas reports spills in {name}")
+        hmma = sass_count(name, "HMMA", "TF32")
+        log(f"sass {name}: {hmma} HMMA TF32 instructions")
+        check(hmma > 0, f"the {name} library has no TF32 HMMA (mma.sync)")
 
     t = time.perf_counter()
     parity, rows, per_cloud = kernel_phase(dev, args.seed)

@@ -1,7 +1,7 @@
 """The port's FC stage against the JAX package: the plain versions of the
 two kernels against the JAX oracles and the per-cloud Pallas kernels in
 interpret mode, the kernel lowering, the batched FC dataflows on
-structures built by JAX, the 3xTF32 arithmetic of the gather_mlp kernel,
+structures built by JAX, the 3xTF32 arithmetic of the two kernels,
 and, on a CUDA host, each kernel against its plain version.
 
 The JAX package is imported inside the tests that compare with it, so
@@ -319,6 +319,60 @@ def test_tf32x3_keeps_the_kernel_tolerance(blk):
     assert err[1] > 1e-4 * lim, err
 
 
+# (H, C, M, K, D, Hd, F): hub_reuse at the PointNet++(c) block widths and
+# at pointvector_l block 4 (the widest Hd), at a small H and M
+TF32_REUSE = {"blk1": (2, 64, 8, 32, 64, 64, 128),
+              "blk2": (2, 128, 8, 64, 128, 128, 256),
+              "pointvector_l_blk4": (1, 64, 8, 32, 387, 1536, 768)}
+
+
+@pytest.mark.parametrize("blk", sorted(TF32_REUSE))
+def test_tf32x3_keeps_the_hub_reuse_tolerance(blk):
+    """The hub_reuse kernel's arithmetic, emulated: pool MLP in 3xTF32,
+    then the max of y over the live slots plus comp, ``-BIG`` where none
+    is live.  3xTF32 stays within 1e-5 · max(1, |ref|) of fp64 at
+    chip_smoke.py's input scales with the ``-BIG`` rows identical, and
+    1xTF32 breaks the kernel's 1e-4 limit at every width."""
+    import jax.numpy as jnp
+    from repro.kernels.hub_reuse.ref import hub_reuse_ref as jreuse_ref
+    hn, c, m, k, d, hd, f = TF32_REUSE[blk]
+    rng = np.random.default_rng(c + d)
+    n = lambda *shape, scale=1.0: (rng.standard_normal(shape)
+                                   * scale).astype(np.float32)
+    slot = rng.integers(-1, c, (hn, m, k)).astype(np.int32)
+    slot[:, ::3] = -1                           # subsets with no cached slot
+    live = rng.uniform(size=(hn, m, k)) < 0.9
+    ops = (n(hn, c, d), slot, n(hn, m, f), n(d, hd, scale=(2 / d) ** .5),
+           n(hd, scale=.1), n(hd, f, scale=(2 / hd) ** .5), n(f, scale=.1))
+    pool, tslot, comp, w1, b1, w2, b2 = (torch.from_numpy(a) for a in ops)
+    tlive = torch.from_numpy(live)
+    ref = hub_reuse_ref(*(t if t.dtype == torch.int32 else t.double()
+                          for t in (pool, tslot, comp, w1, b1, w2, b2)),
+                        live=tlive)
+    empty = ref <= -BIG / 2
+    assert empty.any() and not empty.all()
+    lim = max(1.0, ref[~empty].abs().max().item())
+    want = np.asarray(jreuse_ref(*(jnp.asarray(a) for a in ops),
+                                 live=jnp.asarray(live)))
+    assert (want[empty.numpy()] == np.float32(-BIG)).all()
+    np.testing.assert_allclose(want[~empty.numpy()], ref[~empty].numpy(),
+                               rtol=TOL, atol=TOL * lim)
+    ok = (tslot >= 0) & tlive
+    safe = tslot.clamp(0, c - 1).long()
+    err = {}
+    for passes in (1, 3):
+        y = _mm_tf32(torch.relu(_mm_tf32(pool, w1, passes) + b1), w2,
+                     passes) + b2                             # (H, C, F)
+        g = torch.gather(y, 1, safe.reshape(hn, m * k, 1).expand(-1, -1, f))
+        g = torch.where(ok[..., None], g.reshape(hn, m, k, f), -torch.inf)
+        top = g.amax(2)
+        got = torch.where(top == -torch.inf, torch.tensor(-BIG), top + comp)
+        assert torch.equal(got[empty], ref[empty].float())
+        err[passes] = (got[~empty].double() - ref[~empty]).abs().max().item()
+    assert err[3] <= 1e-5 * lim, err
+    assert err[1] > 1e-4 * lim, err
+
+
 # gather_mlp on the card: (B, S, K, D, Dc, H, F) — K padded inside a
 # 16-row group (8, 20), subsets that leave rows of a tile unused (48) or
 # span several tiles (200), odd D and H/F off a multiple of 4 (4-byte
@@ -331,12 +385,28 @@ CARD_DENSE = ((2, 24, 8, 9, 3, 16, 40), (3, 25, 20, 65, 1, 64, 128),
               (2, 601, 20, 65, 1, 128, 256), (1, 515, 64, 129, 1, 128, 256))
 
 
+# hub_reuse on the card: (B, H, C, M, K, D, Hd, F) — C off 16 (dgcnn_c's
+# 40) and above 64 (128-row tiles), Hd over several 64-column chunks and
+# off one, odd D (4-byte copies), F off the 64-column tile, K off 4 with
+# M·K off 4 (liveness by bytes), and the block-4 widths of dgcnn_c,
+# pointnext_s and pointvector_l (block 3 too)
+CARD_REUSE = ((2, 3, 16, 5, 8, 9, 16, 40), (2, 3, 24, 5, 7, 16, 72, 40),
+              (2, 3, 40, 9, 20, 256, 512, 256),
+              (1, 3, 100, 7, 12, 33, 200, 37), (2, 4, 128, 16, 64, 128, 128,
+                                                 256),
+              (2, 5, 64, 64, 32, 64, 64, 128),
+              (2, 2, 64, 16, 32, 259, 1024, 512),
+              (1, 2, 64, 16, 32, 195, 768, 384),
+              (1, 2, 64, 16, 32, 387, 1536, 768))
+
+
 @pytest.mark.cuda
 def test_kernels_match_plain_versions_on_card():
     """On a CUDA host: each kernel against its plain version, batched and
     per cloud, masked (all-dead subsets included) and not, repeats
-    bit-equal; gather_mlp over its tile edges in both row tilings
-    (``python3 chip_smoke.py`` does the same at the PointNet++(c) shapes)."""
+    bit-equal; gather_mlp over its tile edges in both row tilings,
+    hub_reuse over its own (``python3 chip_smoke.py`` does the same at the
+    PointNet++(c) shapes)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from repro_torch.kernels.gather_mlp.ops import row_tile
@@ -364,12 +434,34 @@ def test_kernels_match_plain_versions_on_card():
         assert bool((gather_mlp(raw, ctr, w1, b1, w2, b2, mask=mask)
                      [:, ::5] == 0).all())
     assert tilings == {64, 128}, tilings
-    w1, b1, w2, b2 = r(9, 16) * .3, r(16), r(16, 40) * .3, r(40)
-    pool, comp = r(2, 3, 16, 9), r(2, 3, 5, 40)
-    slot = torch.randint(-1, 16, (2, 3, 5, 8), generator=g,
-                         dtype=torch.int32).to(dev)
-    live = (torch.rand(2, 3, 5, 8, generator=g) < .8).to(dev)
-    for lv in (None, live):
-        want = hub_reuse_ref(pool, slot, comp, w1, b1, w2, b2, live=lv)
-        got = hub_reuse(pool, slot, comp, w1, b1, w2, b2, live=lv)
-        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    for b, hn, c, m, k, d, h, f in CARD_REUSE:
+        pool, comp = r(b, hn, c, d), r(b, hn, m, f)
+        w1, b1 = r(d, h, scale=(2 / d) ** .5), r(h, scale=.1)
+        w2, b2 = r(h, f, scale=(2 / h) ** .5), r(f, scale=.1)
+        slot = torch.randint(-1, c, (b, hn, m, k), generator=g,
+                             dtype=torch.int32)
+        slot[:, :, ::4] = -1                        # no cached slot
+        live = torch.rand(b, hn, m, k, generator=g) < .8
+        live[:, :, 1::5] = False                    # cached, none live
+        slot, live = slot.to(dev), live.to(dev)
+        ops = (pool, slot, comp, w1, b1, w2, b2)
+        for lv in (None, live):
+            want = hub_reuse_ref(*ops, live=lv)
+            got = hub_reuse(*ops, live=lv)
+            _held_reuse(got, want)
+            assert torch.equal(hub_reuse(*ops, live=lv), got)
+            one = hub_reuse(pool[-1], slot[-1], comp[-1], w1, b1, w2, b2,
+                            live=None if lv is None else lv[-1])
+            _held_reuse(one, want[-1])
+            assert torch.equal(one, got[-1])
+
+
+def _held_reuse(got, want):
+    """hub_reuse against its plain version: the -BIG identity exactly
+    (and present), the rest within 1e-4 · max(1, |want|) and rtol/atol
+    1e-4."""
+    empty = want <= -BIG / 2
+    assert bool(empty.any()) and torch.equal(got[empty], want[empty])
+    lim = 1e-4 * max(1.0, want[~empty].abs().max().item())
+    assert (got[~empty] - want[~empty]).abs().max().item() <= lim
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)

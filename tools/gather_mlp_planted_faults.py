@@ -45,8 +45,9 @@ FILES = ("gather_mlp.cu", "tf32x3.cuh")
 
 def build(sources: dict, out_dir: Path, with_logs: bool = False):
     """One nvcc per variant, all at once, with the port's flags; each
-    variant's directory holds its own copy of both files.  -> {name:
-    library} (and {name: nvcc's output} with ``with_logs``)."""
+    variant's directory holds its own copy of its files, one ``.cu`` and
+    the headers it includes.  -> {name: library} (and {name: nvcc's
+    output} with ``with_logs``)."""
     from repro_torch.kernels import _build
     procs = {}
     for name, texts in sources.items():
@@ -54,10 +55,11 @@ def build(sources: dict, out_dir: Path, with_logs: bool = False):
         d.mkdir(parents=True, exist_ok=True)
         for fname, text in texts.items():
             (d / fname).write_text(text)
-        so = d / "libgather_mlp.so"
+        cu = next(f for f in texts if f.endswith(".cu"))
+        so = d / f"lib{cu[:-3]}.so"
         procs[name] = (so, subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so),
-             str(d / "gather_mlp.cu")],
+             str(d / cu)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs, logs = {}, {}
     for name, (so, proc) in procs.items():
