@@ -83,6 +83,7 @@ class PCNEngine:
         self.fc_backend = fc_backend
         self.isl_kw = dict(isl_kw or {})
         self.device = resolve_device(device)
+        self._warmed: set = set()     # (batch, n_points) bucket_callable
         # a bad mode, backend or family fails here, not at the first batch
         EngineCtx.make(mode=mode, fc_backend=fc_backend, isl_kw=self.isl_kw)
         get_arch(spec)
@@ -109,7 +110,8 @@ class PCNEngine:
                         n_points: int):
         """Warm the (batch_size, n_points) bucket — the first run builds
         any kernel not built yet — and return ``batch -> logits`` bound to
-        ``params``: the serving layer's per-bucket seam."""
+        ``params``: the serving layer's per-bucket seam.  The bucket is
+        recorded in :attr:`compile_count`."""
         rng = np.random.default_rng(0)
         xyz = rng.standard_normal((batch_size, n_points, 3)).astype(
             np.float32)
@@ -119,7 +121,15 @@ class PCNEngine:
         self.apply(params, Batch.make(xyz, feats, device=self.device))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+        self._warmed.add((batch_size, n_points))
         return lambda batch: self.apply(params, batch)
+
+    @property
+    def compile_count(self) -> int:
+        """Distinct (batch, n_points) buckets warmed by
+        :meth:`bucket_callable` — the counterpart of the JAX engine's jit
+        cache size, which the port does not have."""
+        return len(self._warmed)
 
     def __repr__(self):
         return (f"PCNEngine({self.spec.name}, mode={self.mode!r}, "

@@ -17,17 +17,19 @@ raises.  :data:`LAUNCHES` counts the kernel launches per wrapper, and
 flash_attention's also per route (``flash_attention_wgmma``,
 ``flash_attention_simt``).
 """
-from ._build import BUILD_LOG, LAUNCHES, build
+from ._build import _LOCK, BUILD_LOG, LAUNCHES, build
 
 NAMES = ("gather_mlp", "hub_reuse", "knn", "flash_attention", "ssd_chunk")
 
 
 def launch_counts() -> dict:
-    return {name: LAUNCHES[name] for name in NAMES}
+    with _LOCK:
+        return {name: LAUNCHES[name] for name in NAMES}
 
 
 def reset_launch_counts() -> None:
-    LAUNCHES.clear()
+    with _LOCK:
+        LAUNCHES.clear()
 
 
 def build_all() -> float:

@@ -8,6 +8,10 @@ the repository root, keyed by a hash of the source, the headers in
 build runs at first use, so a fresh checkout builds everything it
 launches; :func:`build` starts one ``nvcc`` per
 source, all at once.  Nothing here runs at import time.
+
+One lock guards the build, the library table and the launch counts, so
+serving threads that reach a cold kernel together build it once, and a
+count taken from several threads loses no launch.
 """
 from __future__ import annotations
 
@@ -17,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -32,6 +37,15 @@ LAUNCHES: collections.Counter = collections.Counter()
 BUILD_LOG: dict = {}
 
 _LIBS: dict = {}
+_LOCK = threading.Lock()
+
+
+def count_launch(*names: str) -> None:
+    """Add one to each named count (a wrapper calls it where it launches
+    its kernel, and nowhere else)."""
+    with _LOCK:
+        for name in names:
+            LAUNCHES[name] += 1
 
 
 def _nvcc() -> str:
@@ -57,6 +71,11 @@ def build(names) -> float:
     """Compile the named sources that are not built yet, one ``nvcc`` per
     source, all in parallel.  Returns the wall seconds; raises with the
     compiler's output if one fails."""
+    with _LOCK:
+        return _build_locked(names)
+
+
+def _build_locked(names) -> float:
     t0 = time.perf_counter()
     todo = []
     for n in names:
@@ -96,8 +115,11 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
     lib = _LIBS.get(name)
     if lib is None:
-        build([name])
-        lib = _LIBS[name] = ctypes.CDLL(str(library_path(name)))
+        with _LOCK:
+            lib = _LIBS.get(name)
+            if lib is None:
+                _build_locked([name])
+                lib = _LIBS[name] = ctypes.CDLL(str(library_path(name)))
     return lib
 
 

@@ -79,6 +79,5 @@ def flash_attention(q, k, v, causal: bool = True):
             _VARIANTS[variant],
             torch.cuda.current_stream(q.device).cuda_stream)
         _build.check_launch(lib, "flash_attention", code)
-        _build.LAUNCHES["flash_attention"] += 1
-        _build.LAUNCHES[f"flash_attention_{variant}"] += 1
+        _build.count_launch("flash_attention", f"flash_attention_{variant}")
     return out

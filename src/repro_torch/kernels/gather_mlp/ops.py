@@ -72,5 +72,5 @@ def gather_mlp(raw, centers, w1, b1, w2, b2, mask=None):
             out.data_ptr(), b, s, k, d, dc, hdim, fout,
             torch.cuda.current_stream(raw.device).cuda_stream)
         _build.check_launch(lib, "gather_mlp", code)
-        _build.LAUNCHES["gather_mlp"] += 1
+        _build.count_launch("gather_mlp")
     return out[0] if single else out

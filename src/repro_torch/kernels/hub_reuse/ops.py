@@ -65,5 +65,5 @@ def hub_reuse(pool_in, slot, comp, w1, b1, w2, b2, live=None):
             out.data_ptr(), b, hn, c, m, k, d, hdim, fout,
             torch.cuda.current_stream(pool_in.device).cuda_stream)
         _build.check_launch(lib, "hub_reuse", code)
-        _build.LAUNCHES["hub_reuse"] += 1
+        _build.count_launch("hub_reuse")
     return out[0] if single else out

@@ -54,5 +54,5 @@ def knn(centers, points, k: int):
             idx.data_ptr(), s, n, k,
             torch.cuda.current_stream(centers.device).cuda_stream)
         _build.check_launch(lib, "knn", code)
-        _build.LAUNCHES["knn"] += 1
+        _build.count_launch("knn")
     return dists, idx

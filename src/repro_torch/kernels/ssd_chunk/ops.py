@@ -62,5 +62,5 @@ def ssd_chunk(x, B, C, dt, cum):
             cum.data_ptr(), y.data_ptr(), states.data_ptr(), bs * nc, h, q,
             p, s, torch.cuda.current_stream(x.device).cuda_stream)
         _build.check_launch(lib, "ssd_chunk", code)
-        _build.LAUNCHES["ssd_chunk"] += 1
+        _build.count_launch("ssd_chunk")
     return y, states

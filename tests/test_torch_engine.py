@@ -131,9 +131,25 @@ def test_default_device_is_cuda():
         engine.Batch.make(np.zeros((1, 4, 3), np.float32))
 
 
+def test_server_default_device_is_cuda():
+    """The server and the serving CLI on an engine with no explicit
+    device raise the port's no-CUDA error here, as the engine does."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    from repro_torch import serve
+    from repro_torch.launch.serve import main
+    with pytest.raises(RuntimeError, match="no CUDA|none is available"):
+        serve.PCNServer(engine.PCNEngine(TSPEC), None,
+                        serve.BucketSet.make([64], batch=2))
+    with pytest.raises(RuntimeError, match="none is available"):
+        main(["--arch", "pointnet2_c", "--trace", "2", "--serve-json", ""])
+
+
 def test_import_pulls_in_no_jax():
     code = ("import sys, repro_torch, repro_torch.engine, "
-            "repro_torch.kernels, repro_torch.models.pointnet2; "
+            "repro_torch.kernels, repro_torch.models.pointnet2, "
+            "repro_torch.serve, repro_torch.launch.serve, "
+            "repro_torch.data.synthetic; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); "
             "sys.exit(1 if bad else 0)")
