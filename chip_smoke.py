@@ -28,7 +28,18 @@ Phases, each timed, any failure exits non-zero:
      in a subprocess; and one (8, 1024) batch against the "reference"
      backend;
   5. one batch in ``mode="traditional"``;
-  6. entry kernels: drive ``knn`` (stage 1 of the first batch, both
+  6. families: each other model of ``repro_torch.models.MODEL_ZOO`` at
+     full width (``FAMILIES``: pointnet2_ps 4 × 2048, pointnet2_s 2 ×
+     4096, dgcnn_c 8 × 1024, dgcnn_s 1 × 8192, pointnext_s and
+     pointvector_l 2 × 4096), one ragged lpcn batch each through
+     ``fc_backend="cuda"`` with the launch counts reset (one gather_mlp
+     and one hub_reuse launch a block; gather_mlp's wide route at exactly
+     the blocks that need it), every logit against the "reference"
+     backend, seg padding rows exactly 0, the stages timed; dgcnn_c once
+     in traditional mode; gather_mlp's wide route against its plain
+     version and timed at the six blocks that take it (``DENSE_WIDE``);
+     the CLI on a seg model (``SEG_CLI``: pointnext_s, 8 requests);
+  7. entry kernels: drive ``knn`` (stage 1 of the first batch, both
      blocks, every cloud), ``flash_attention`` (a Qwen2-72B layer, bf16 on
      the tensor-core route; the same bf16 at an address off 16 bytes and
      f32 on the CUDA-core one) and ``ssd_chunk`` (Mamba2-2.7B) once at
@@ -46,10 +57,12 @@ JSON lines, the serving reports (``serve_async``, ``serve_sync``,
 ``serve_chaos``, each beside the card's name and power limit) and the
 CLI's lines, the lpcn forward's stage times (``--profile`` adds a
 torch.profiler trace of one forward), stage 1 on the card against the
-CPU, a ``kernels`` JSON line (every TPU kernel's counterpart: the FC
-kernels batched and per cloud, and the entry kernels; ``launches`` counted
-per wrapper, in the async serving run for the FC kernels and in the entry
-phase for the others), and last ``{"ok": true, "device": {...}}``.
+CPU, a ``family`` line per model and ``wide_parity``, a ``kernels`` JSON
+line (every TPU kernel's counterpart: the FC kernels batched and per
+cloud, gather_mlp's wide route, and the entry kernels; ``launches``
+counted per wrapper, in the async serving run for the FC kernels, over
+the families phase's counted forwards for the wide route, and in the
+entry phase for the others), and last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -89,6 +102,34 @@ REUSE_WIDE = {
     "pointvector_l_blk4": dict(hn=4, c=64, m=16, k=32, d=387, h=1536,
                                f=768),
     "dgcnn_c_blk4": dict(hn=4, c=40, m=16, k=32, d=256, h=512, f=256)}
+# the families phase: every other model of the zoo at full width (the
+# spec as published), one ragged padded lpcn batch each, (B, N points a
+# cloud): ShapeNet part clouds of 2048 points, S3DIS blocks of 4096
+# (dgcnn_s: its own 8192), ModelNet40 objects of 1024 as the main path
+FAMILIES = {"pointnet2_ps": (4, 2048), "pointnet2_s": (2, 4096),
+            "dgcnn_c": (8, 1024), "dgcnn_s": (1, 8192),
+            "pointnext_s": (2, 4096), "pointvector_l": (2, 4096)}
+SCENES = ("pointnet2_s", "dgcnn_s", "pointnext_s", "pointvector_l")
+# gather_mlp's wide route (h in chunks) at the six blocks that take it, at
+# the families phase's batches, masked as the path calls them (DGCNN's
+# every block sees n_valid, the SA stacks' deeper blocks FPS centers)
+DENSE_WIDE = {
+    "dgcnn_c_blk4": dict(b=8, s=1024, k=20, d=256, dc=256, h=512, f=256,
+                         masked=True),
+    "pointnext_s_blk3": dict(b=2, s=128, k=32, d=131, dc=3, h=512, f=256,
+                             masked=False),
+    "pointnext_s_blk4": dict(b=2, s=32, k=32, d=259, dc=3, h=1024, f=512,
+                             masked=False),
+    "pointvector_l_blk2": dict(b=2, s=512, k=32, d=99, dc=3, h=384, f=192,
+                               masked=False),
+    "pointvector_l_blk3": dict(b=2, s=128, k=32, d=195, dc=3, h=768, f=384,
+                               masked=False),
+    "pointvector_l_blk4": dict(b=2, s=32, k=32, d=387, dc=3, h=1536, f=768,
+                               masked=False)}
+# the CLI on a seg model: 8 S3DIS-sized requests in buckets up to 4096
+SEG_CLI = ("--arch", "pointnext_s", "--trace", "8", "--buckets",
+           "2048,4096", "--points", "3500", "--size-sigma", "0.1",
+           "--batch", "2", "--timeout-ms", "50")
 # a Qwen2-72B attention layer (src/repro/configs/qwen2_72b.py: 64 query
 # heads, 8 kv heads, head_dim 128) over a 2048-token prefill
 QWEN2_72B = dict(b=1, hq=64, hkv=8, s=2048, d=128)
@@ -348,29 +389,44 @@ def close(a, b) -> tuple[float, float]:
 def breakdown(params, spec, batch, repeats=3) -> dict:
     """Host-clock ms of the forward's stages on one batch (each ended by
     a device sync; the best of ``repeats``): stage 1 builds the structures,
-    stage 2 runs the FC dataflows, the tail is the global pool and head."""
+    stage 2 runs the FC dataflows (with a family's stem and residuals), the
+    tail is the global pool and head (cls) or the FP decoder and per-point
+    head (seg)."""
     import torch
-    from repro_torch.core.mlp import apply_mlp
     from repro_torch.engine import archs
+    arch = archs.get_arch(spec)
     ctx = archs.EngineCtx.make("lpcn", "cuda")
     best = {}
     for _ in range(repeats):
         t0 = time.perf_counter()
-        structs, nv = archs._structure_stack_b(spec, ctx, batch.xyz,
-                                               batch.keys, batch.n_valid)
+        structs, nv = arch.structure(spec, ctx, batch.xyz, batch.keys,
+                                     batch.n_valid)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        cx, cf = archs._compute_stack_b(params, spec, ctx, batch.xyz,
-                                        batch.feats, structs)
+        state = arch.features(params, spec, ctx, batch.xyz, batch.feats,
+                              structs)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-        apply_mlp(params.head, archs._global_pool_b(params, cx, cf, nv[-1]))
+        arch.tail(params, spec, state, nv, batch.n_valid)
         torch.cuda.synchronize()
         t3 = time.perf_counter()
         for k, v in (("structure_ms", t1 - t0), ("fc_ms", t2 - t1),
-                     ("pool_head_ms", t3 - t2)):
+                     ("tail_ms", t3 - t2)):
             best[k] = min(best.get(k, float("inf")), v * 1e3)
     return best
+
+
+def seed_biases(params, gen):
+    """init leaves biases at zero; seeded nonzero biases keep the kernel
+    vs reference comparison from passing on exact zeros alone."""
+    import torch
+    for mlp in (*params.blocks, params.global_mlp, params.head, params.stem,
+                *params.extras):
+        if mlp is None:
+            continue
+        for layer in mlp.layers:
+            layer.b.copy_(0.1 * torch.randn(layer.b.shape, generator=gen))
+    return params
 
 
 def trace_requests(seed, trace=SERVE_TRACE):
@@ -537,17 +593,20 @@ def serve_phase(spec, engine, reference, params, seed, smi,
     return dict(launches=runs["serve_async"]["launches"], times=times)
 
 
-def cli_phase(smi) -> float:
-    """``python -m repro_torch.launch.serve --arch pointnet2_c --trace 16``
-    in a subprocess: exit 0, every request answered, no fault; -> s."""
+def cli_phase(smi, cli_args=("--arch", "pointnet2_c", "--trace",
+                              str(CLI_TRACE))) -> float:
+    """``python -m repro_torch.launch.serve <cli_args>`` (by default
+    ``--arch pointnet2_c --trace 16``) in a subprocess: exit 0, every
+    request answered, no fault; -> s."""
     out = ROOT / "build" / "serve_cli.json"
     out.unlink(missing_ok=True)
     env = {**os.environ, "PYTHONPATH": os.pathsep.join(
         filter(None, [str(ROOT / "src"), os.environ.get("PYTHONPATH")]))}
+    n = int(cli_args[cli_args.index("--trace") + 1])
     t0 = time.perf_counter()
     res = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
-         "pointnet2_c", "--trace", str(CLI_TRACE), "--serve-json", str(out)],
+        [sys.executable, "-m", "repro_torch.launch.serve", *cli_args,
+         "--serve-json", str(out)],
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
     dt = time.perf_counter() - t0
     for line in res.stdout.splitlines():
@@ -555,8 +614,8 @@ def cli_phase(smi) -> float:
     check(res.returncode == 0, f"the serving CLI exited {res.returncode}:\n"
           f"{res.stderr[-3000:]}")
     rep = json.loads(out.read_text())
-    check(rep["answered"] == CLI_TRACE and not any(rep["faults"].values()),
-          f"the serving CLI answered {rep['answered']}/{CLI_TRACE}, faults "
+    check(rep["answered"] == n and not any(rep["faults"].values()),
+          f"the serving CLI answered {rep['answered']}/{n}, faults "
           f"{rep['faults']}")
     check(smi.startswith(rep["device"]),
           f"the CLI ran on {rep['device']}, not on {smi}")
@@ -584,6 +643,180 @@ def structure_card_vs_cpu(spec, batch) -> dict:
                 ("reuse_slot", c.schedule.reuse_slot, h.schedule.reuse_slot)):
             diff[f"blk{i}.{name}"] = int((x.cpu() != y).sum())
     return diff
+
+
+def family_batch(spec, b, n, seed, dev):
+    """One ragged batch of ``b`` synthetic clouds padded to ``n`` points:
+    the first full (when b > 1), the rest 3/4·n to n points; scenes for
+    the S3DIS models, with 3 colour channels where the spec takes 6
+    features.  -> (Batch, sizes)."""
+    import numpy as np
+    import torch
+    from repro_torch import random
+    from repro_torch.data.synthetic import make_cloud
+    from repro_torch.engine import Batch
+    rng = np.random.default_rng(seed)
+    sizes = [int(rng.integers(n * 3 // 4, n)) for _ in range(b)]
+    if b > 1:
+        sizes[0] = n
+    clouds = [make_cloud(rng, m, scene_like=spec.name in SCENES)
+              for m in sizes]
+    feats = None
+    if spec.in_feats > 3:
+        feats = [np.concatenate([c, rng.uniform(0, 1, (len(c),
+                 spec.in_feats - 3)).astype(np.float32)], -1)
+                 for c in clouds]
+    keys = random.fold_in(random.PRNGKey(seed, dev),
+                          torch.arange(b, device=dev))
+    return Batch.from_clouds(clouds, feats=feats, key=keys, n_pad=n,
+                             device=dev), sizes
+
+
+def wide_blocks(spec, params) -> list:
+    """Block numbers (from 1) whose gather_mlp launch takes the wide
+    route, from the wrapper's route at the engine's lowering."""
+    from repro_torch.engine.fc import dense_shape
+    from repro_torch.kernels.gather_mlp.ops import route
+    return [i for i, (b, mlp) in enumerate(zip(spec.blocks, params.blocks),
+                                           1)
+            if route(*dense_shape(b.kind, b.k, mlp)) == "wide"]
+
+
+def families_phase(dev, seed, smi) -> int:
+    """Every other model of the zoo at full width: one ragged lpcn batch
+    through ``PCNEngine(spec, fc_backend="cuda")`` with the launch counts
+    set to 0 just before and read just after (one gather_mlp and one
+    hub_reuse launch a block, the wide route at exactly the blocks that
+    need it, no entry kernel), every logit against the "reference" backend
+    on the card, seg padding rows exactly 0, and the forward's stages
+    timed; then dgcnn_c once in traditional mode.  -> the wide route's
+    launches over the counted forwards."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.engine import PCNEngine
+    from repro_torch.models import MODEL_ZOO
+    off_path = ("knn", "flash_attention", "ssd_chunk")
+    wide_launches = 0
+    for name, (b, n) in FAMILIES.items():
+        spec = MODEL_ZOO[name][1]
+        engine = PCNEngine(spec, mode="lpcn", fc_backend="cuda")
+        reference = PCNEngine(spec, mode="lpcn", fc_backend="reference")
+        params = seed_biases(engine.init(seed=seed),
+                             torch.Generator().manual_seed(seed + 1))
+        batch, sizes = family_batch(spec, b, n, seed, dev)
+        wide = wide_blocks(spec, params)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = engine.apply(params, batch)
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        launches = kernels.launch_counts()
+        n_wide = kernels.LAUNCHES["gather_mlp_wide"]
+        nb = len(spec.blocks)
+        check(launches["gather_mlp"] == launches["hub_reuse"] == nb
+              and not any(launches[k] for k in off_path),
+              f"{name}: launches {launches}, expected gather_mlp == "
+              f"hub_reuse == {nb} and no entry kernel")
+        check(n_wide == len(wide), f"{name}: {n_wide} wide-route launches, "
+              f"expected one at each of blocks {wide}")
+        wide_launches += n_wide
+        seg = spec.task == "seg"
+        check(tuple(out.shape) == ((b, n, spec.n_classes) if seg
+                                   else (b, spec.n_classes)),
+              f"{name}: logits of shape {tuple(out.shape)}")
+        check(bool(torch.isfinite(out).all()), f"{name}: non-finite logits")
+        if seg:
+            check(all(bool((out[i, m:] == 0).all())
+                      for i, m in enumerate(sizes)),
+                  f"{name}: a padding row is not 0")
+        err, tol = close(out, reference.apply(params, batch))
+        check(err <= tol, f"{name}: cuda vs reference max|err| {err} > "
+              f"{tol}")
+        stages = breakdown(params, spec, batch, repeats=2)
+        log(json.dumps({"family": {
+            "spec": name, "device": smi, "b": b, "n": n, "sizes": sizes,
+            "forward_ms": sum(stages.values()), **stages,
+            "first_forward_ms": first_ms,
+            "stage1_share": stages["structure_ms"] / sum(stages.values()),
+            "launches": {k: v for k, v in launches.items() if v},
+            "wide_blocks": wide, "wide_launches": n_wide,
+            "max_abs_err": err, "tol": tol}}))
+
+    # ---- traditional mode, once: dgcnn_c --------------------------------
+    spec = MODEL_ZOO["dgcnn_c"][1]
+    b, n = FAMILIES["dgcnn_c"]
+    trad = PCNEngine(spec, mode="traditional", fc_backend="cuda")
+    trad_ref = PCNEngine(spec, mode="traditional", fc_backend="reference")
+    params = seed_biases(trad.init(seed=seed),
+                         torch.Generator().manual_seed(seed + 1))
+    batch, _ = family_batch(spec, b, n, seed, dev)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = trad.apply(params, batch)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = kernels.launch_counts()
+    check(launches == {**dict.fromkeys(launches, 0),
+                       "gather_mlp": len(spec.blocks)},
+          f"dgcnn_c traditional launches {launches}")
+    check(kernels.LAUNCHES["gather_mlp_wide"] == 1,
+          "dgcnn_c traditional: block 4 did not take the wide route")
+    wide_launches += 1
+    check(bool(torch.isfinite(out).all()), "dgcnn_c traditional: non-finite")
+    err, tol = close(out, trad_ref.apply(params, batch))
+    check(err <= tol, f"dgcnn_c traditional: max|err| {err} > {tol}")
+    log(json.dumps({"family_traditional": {
+        "spec": "dgcnn_c", "device": smi, "b": b, "n": n, "forward_ms": ms,
+        "launches": {k: v for k, v in launches.items() if v},
+        "max_abs_err": err, "tol": tol}}))
+    return wide_launches
+
+
+def wide_kernel_rows(dev, seed, launches) -> tuple[list, list]:
+    """gather_mlp's wide route at ``DENSE_WIDE``: the wrapper's route
+    equal to the library's, the kernel against its plain version, both
+    timed in turns.  -> (parity rows, kernel rows with ``launches``)."""
+    import torch
+    from repro_torch.kernels.gather_mlp import gather_mlp, gather_mlp_ref
+    from repro_torch.kernels.gather_mlp.ops import library_route, route
+    gen = torch.Generator().manual_seed(seed + 2)
+    parity, rows = [], []
+    for blk, shp in DENSE_WIDE.items():
+        kshape = (shp["k"], shp["d"], shp["dc"], shp["h"], shp["f"])
+        check(route(*kshape) == library_route(*kshape) == "wide",
+              f"gather_mlp {blk}: routes {route(*kshape)} (wrapper) and "
+              f"{library_route(*kshape)} (library), expected wide")
+        raw, ctr, w1, b1, w2, b2, mask = dense_inputs(gen, dev, **shp)
+        args = (raw, ctr, w1, b1, w2, b2)
+        out = gather_mlp(*args, mask=mask)
+        ref = gather_mlp_ref(*args, mask=mask)
+        torch.cuda.synchronize()
+        err, tol = max_err(out, ref)
+        parity.append(dict(name="gather_mlp", block=blk, b=shp["b"],
+                           masked=shp["masked"], route="wide",
+                           max_abs_err=err, tol=tol))
+        check(err <= tol, f"gather_mlp {blk}: max|err| {err} > {tol}")
+        ms, plain_ms = time_pair(lambda: gather_mlp(*args, mask=mask),
+                                 lambda: gather_mlp_ref(*args, mask=mask),
+                                 iters=10)
+        flops = 2 * shp["b"] * shp["s"] * shp["k"] * (
+            shp["d"] * shp["h"] + shp["h"] * shp["f"])
+        moved = nbytes(*args, mask, out)
+        bms, by = bound(3 * flops, moved, PEAK_TF32)
+        rows.append(dict(
+            name="gather_mlp", block=blk, route="cuda",
+            variant="mma_tf32x3_wide", tflops=flops / ms / 1e9,
+            bound_fp32_ms=bound(flops, moved)[0],
+            source="src/repro_torch/csrc/gather_mlp.cu",
+            replaces="src/repro/kernels/gather_mlp/gather_mlp.py:239",
+            shape=f"B={shp['b']} S={shp['s']} K={shp['k']} D={shp['d']} "
+                  f"Dc={shp['dc']} H={shp['h']} F={shp['f']} "
+                  f"masked={shp['masked']}",
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+            bound_by=by, library_ms=None, launches=launches))
+    return parity, rows
 
 
 def device_profile(serve, batch) -> dict:
@@ -911,13 +1144,8 @@ def main() -> int:
 
     # ---- the main path: the ported server on the card ------------------
     engine = PCNEngine(POINTNET2_C, mode="lpcn", fc_backend="cuda")
-    params = engine.init(seed=args.seed)
-    # init leaves biases at zero; seeded nonzero biases keep the kernel
-    # vs reference comparison from passing on exact zeros alone
-    gen = torch.Generator().manual_seed(args.seed + 1)
-    for mlp in (*params.blocks, params.global_mlp, params.head):
-        for layer in mlp.layers:
-            layer.b.copy_(0.1 * torch.randn(layer.b.shape, generator=gen))
+    params = seed_biases(engine.init(seed=args.seed),
+                         torch.Generator().manual_seed(args.seed + 1))
     reference = PCNEngine(POINTNET2_C, mode="lpcn", fc_backend="reference")
     t = time.perf_counter()
     served = serve_phase(POINTNET2_C, engine, reference, params, args.seed,
@@ -972,6 +1200,18 @@ def main() -> int:
         f"(tol {tol:.3g})")
     check(err <= tol, "traditional logits disagree with the reference")
 
+    # ---- the families: every other model of the zoo at full width -------
+    t = time.perf_counter()
+    wide_launches = families_phase(dev, args.seed, smi.splitlines()[0])
+    phases["families_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    wide_parity, wide_rows = wide_kernel_rows(dev, args.seed, wide_launches)
+    phases["wide_kernels_s"] = time.perf_counter() - t
+    log(f"families_s {phases['families_s']:.2f}; wide-route launches "
+        f"{wide_launches}; wide_kernels_s {phases['wide_kernels_s']:.2f}")
+    log(json.dumps({"wide_parity": wide_parity}))
+    phases["seg_cli_s"] = cli_phase(smi.splitlines()[0], SEG_CLI)
+
     # ---- entry kernels: knn, flash_attention, ssd_chunk -----------------
     t = time.perf_counter()
     entry_launches, entry_parity, entry_rows = entry_phase(
@@ -987,7 +1227,7 @@ def main() -> int:
         row["launches"] = launches[row["name"]]
     for row in entry_rows:
         row["launches"] = entry_launches[row["name"]]
-    rows += entry_rows
+    rows += wide_rows + entry_rows
     log(json.dumps({"phases_s": phases}))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

@@ -67,6 +67,15 @@ def _fps(xyz, *, tree, n_centers, key, n_valid=None):
     return sampling.farthest_point_sampling(xyz, n_centers, valid=valid)
 
 
+@SAMPLERS.register("all")
+def _all(xyz, *, tree, n_centers, key, n_valid=None):
+    """DGCNN: every point is a center.  Padding rows stay in the center
+    list (static shape); the block masks them via ``center_valid``."""
+    del tree, n_centers, key, n_valid
+    idx = torch.arange(xyz.shape[-2], device=xyz.device)
+    return idx.expand(xyz.shape[:-1]).contiguous()
+
+
 @NEIGHBORS.register("pointacc")
 def _pointacc(xyz, centers, *, tree, k, radius, octree_level, n_valid=None):
     del tree, radius, octree_level

@@ -45,6 +45,10 @@
 // 108 KB of shared memory at block 2 (76 KB at block 1) and at most 128
 // registers a thread, so two blocks share an SM and one block's loads and
 // barriers hide behind the other's products.
+//
+// That is the narrow route.  Where a 64-row tile's x and whole h exceed a
+// block's 227 KB, gather_mlp_forward takes the wide route (namespace wide
+// below), which holds h in 64-column chunks.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -360,6 +364,339 @@ int launch(const Params& p, size_t smem, long long grid, void* stream) {
   return (int)cudaGetLastError();
 }
 
+// ---- the wide route: h in 64-column chunks ---------------------------------
+// Where a 64-row tile's x and whole h overflow a block's shared memory
+// (the widest blocks of dgcnn_c, pointnext_s and pointvector_l, whose
+// one-layer MLPs two_layer_form turns into Hd = 2F), the kernel below
+// holds x whole and h a chunk at a time, as hub_reuse does: for each 64
+// columns c of H, h_c = relu(x W1[:, c] + b1[c]) goes to shared memory and
+// at once into y += h_c W2[c, ftile], which stays in registers.  A block
+// takes one 64-row tile of whole subsets and 64 output features (grid:
+// row tiles x ceil(F / 64)), so each F tile recomputes the first layer.
+// W1 and W2 stream through one three-stage cp.async ring of 64 x 64
+// tiles.  Products in 3xTF32 as above; the pool is the narrow route's:
+// dead rows at -3.4e38, shuffles within each m16 tile, a running max per
+// subset in shared memory, 0 for a subset with no live row.
+//
+// What bounds it: the products again.  dgcnn_c block 4 at B = 8 (S=1024
+// K=20 D=256 Hd=512 F=256) is 85.9 GFLOP in fp32, 0.52 ms at the TF32
+// peak in three passes; the pointnext_s and pointvector_l blocks at B = 2
+// are 3.2 to 7.3 GFLOP, 0.020 to 0.044 ms.  This first version spends
+// 1.7 to 4.7 times that work (layer 1 once per F tile), with one block an
+// SM (x alone is 100 KB at D = 387).
+namespace wide {
+
+constexpr int kR = 64;                   // rows per tile: 8 warps as 2 x 4
+constexpr int kWN = 4;                   // warps along columns
+constexpr int kNC = 64;                  // Hd chunk, output features a block
+constexpr int kKC = 64;                  // rows of W per ring stage
+constexpr int kStages = 3;               // ring depth
+constexpr int kWS = kNC + 4;             // stage row stride (≡ 4 mod 16)
+constexpr int kHS = kNC + 8;             // h row stride (≡ 8 mod 32)
+constexpr int kNT = kNC / (8 * kWN);     // n8 tiles per warp
+
+struct WideParams {
+  const float* raw;
+  const float* ctr;
+  const uint8_t* mask;
+  const float* w1;
+  const float* b1;
+  const float* w2;
+  const float* b2;
+  float* out;
+  long long bs;            // B * S subsets
+  int K, D, Dc, H, F;
+  int Kp, Dp, XD;          // K to 16, D to 8, the x row stride
+  int spt;                 // subsets per row tile (1 when Kp > kR)
+  int n1, nchunk;          // W1 stages per Hd chunk, Hd chunks
+  int w1_vec, w2_vec;      // 16-byte copies of W rows allowed
+};
+
+// Rows [k0, k0 + kKC) by columns [c0, c0 + kNC) of the row-major kdim x
+// ncols matrix w into a stage; rows past kdim and columns past c0 + nc
+// are zero.
+__device__ __forceinline__ void stage_tile(float* st, const float* w,
+                                           int kdim, int ncols, int k0,
+                                           int c0, int nc, bool vec) {
+  constexpr int kQuads = kKC * kNC / 4;  // 16-byte pieces of a stage
+  for (int e = threadIdx.x; e < kQuads; e += kThreads) {
+    const int r = e / (kNC / 4), c = (e % (kNC / 4)) * 4;
+    float* dst = st + r * kWS + c;
+    const int kr = k0 + r;
+    const float* src = w + (size_t)kr * ncols + c0 + c;
+    if (vec && kr < kdim && c < nc) {
+      tf32x3::cp_async16(dst, src);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (kr < kdim && c + i < nc) tf32x3::cp_async4(dst + i, src + i);
+        else dst[i] = 0.f;
+      }
+    }
+  }
+}
+
+// Stage q of the ring's sequence: per Hd chunk j, n1 stages of W1[:, j]
+// (rows of D), then one stage of W2[j, ftile] (the chunk's 64 rows).
+__device__ __forceinline__ void issue(float* ws, const WideParams& p, int q,
+                                      int f0, int ft) {
+  const int per = p.n1 + 1, j = q / per, r = q % per;
+  float* st = ws + (q % kStages) * kKC * kWS;
+  if (r < p.n1)
+    stage_tile(st, p.w1, p.D, p.H, r * kKC, j * kNC, min(kNC, p.H - j * kNC),
+               p.w1_vec != 0);
+  else
+    stage_tile(st, p.w2, p.H, p.F, j * kNC, f0, ft, p.w2_vec != 0);
+}
+
+// acc += a[rows of this warp, k0 : k0 + 8 * steps) · st[0 : 8 * steps, :]
+__device__ __forceinline__ void mma_stage(float (&acc)[kMT][kNT][4],
+                                          const float* a, int lda, int k0,
+                                          const float* st, int steps, int wm,
+                                          int wn, int lane) {
+#pragma unroll
+  for (int s = 0; s < kKC / 8; ++s) {     // fully unrolled: no spills
+    if (s >= steps) break;
+    Frag<4> af[kMT];
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+      af[mt] = tf32x3::load_a(a, lda, (wm * kMT + mt) * 16, k0 + s * 8,
+                              lane);
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) {
+      const Frag<2> bf =
+          tf32x3::load_b(st, kWS, s * 8, (wn + kWN * j) * 8, lane);
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt) tf32x3::mma3(acc[mt][j], af[mt], bf);
+    }
+  }
+}
+
+// The h chunk: relu(acc + b1) on the chunk's n columns, 0 past them
+__device__ __forceinline__ void store_h(float* hs,
+                                       const float (&acc)[kMT][kNT][4],
+                                       const float* bias, int n, int wm,
+                                       int wn, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < kNT; ++j) {
+    const int c = (wn + kWN * j) * 8 + 2 * t;
+    const float bias0 = c < n ? __ldg(bias + c) : 0.f;
+    const float bias1 = c + 1 < n ? __ldg(bias + c + 1) : 0.f;
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt) {
+      const float* v = acc[mt][j];
+      float* row = hs + ((wm * kMT + mt) * 16 + g) * kHS + c;
+      *reinterpret_cast<float2*>(row) =
+          make_float2(fmaxf(v[0] + bias0, 0.f), fmaxf(v[1] + bias1, 0.f));
+      *reinterpret_cast<float2*>(row + 8 * kHS) =
+          make_float2(fmaxf(v[2] + bias0, 0.f), fmaxf(v[3] + bias1, 0.f));
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+gather_mlp_wide_kernel(const WideParams p) {
+  extern __shared__ __align__(16) float smem_w[];
+  float* xs = smem_w;                                  // kR x XD
+  float* hs = xs + kR * p.XD;                          // kR x kHS
+  float* ws = hs + kR * kHS;                           // kStages x kKC x kWS
+  float* red = ws + kStages * kKC * kWS;               // kR/16 x kNC
+  float* pool = red + (kR / 16) * kNC;                 // spt x kNC
+  float* cs = pool + p.spt * kNC;                      // spt x Dc
+  int* rowlive = reinterpret_cast<int*>(cs + p.spt * p.Dc);  // kR
+  int* anyl = rowlive + kR;                            // spt
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp / kWN, wn = warp % kWN;
+  const int g = lane >> 2, t = lane & 3;
+  const int spt = p.spt;
+  const bool multi = p.Kp > kR;           // one subset over several tiles
+  const int n_tiles = multi ? (p.Kp + kR - 1) / kR : 1;
+  const int per_sub = min(p.Kp, kR) / 16; // m16 tiles of a subset in a tile
+  const long long sub0 = (long long)blockIdx.x * spt;
+  const int f0 = blockIdx.y * kNC, ft = min(kNC, p.F - f0);
+  const int per = p.n1 + 1;               // ring stages per Hd chunk
+  const int nq = p.nchunk * per;
+  // (subset slot, position in the subset) of row r of tile it
+  auto row_at = [&](int it, int r, int& sl, int& k) {
+    if (multi) {
+      sl = 0;
+      k = it * kR + r;
+    } else {
+      sl = r / p.Kp;
+      k = r % p.Kp;
+    }
+    return sl < spt && k < p.K && sub0 + sl < p.bs;
+  };
+
+  for (int e = tid; e < spt * kNC; e += kThreads) pool[e] = -kBig;
+  for (int e = tid; e < spt; e += kThreads) anyl[e] = 0;
+  for (int e = tid; e < spt * p.Dc; e += kThreads)
+    cs[e] = sub0 + e / p.Dc < p.bs ? p.ctr[sub0 * p.Dc + e] : 0.f;
+  __syncthreads();
+
+  float acc_h[kMT][kNT][4], acc_y[kMT][kNT][4];
+  for (int it = 0; it < n_tiles; ++it) {
+    // ---- prologue: raw rows by cp.async, the ring's first stages ---------
+    for (int r = warp; r < kR; r += kThreads / 32) {
+      int sl, k;
+      const bool valid = row_at(it, r, sl, k);
+      const float* src = p.raw + ((size_t)(sub0 + sl) * p.K + k) * p.D;
+      for (int d = lane; d < p.Dp; d += 32) {
+        if (valid && d < p.D) tf32x3::cp_async4(xs + r * p.XD + d, src + d);
+        else xs[r * p.XD + d] = 0.f;
+      }
+    }
+    tf32x3::cp_async_commit();
+    for (int q = 0; q < kStages - 1; ++q) {
+      if (q < nq) issue(ws, p, q, f0, ft);
+      tf32x3::cp_async_commit();
+    }
+    for (int r = tid; r < kR; r += kThreads) {
+      int sl, k;
+      const int lv = row_at(it, r, sl, k) &&
+                     (!p.mask || p.mask[(size_t)(sub0 + sl) * p.K + k] != 0);
+      rowlive[r] = lv;
+      if (lv) anyl[sl] = 1;
+    }
+    tf32x3::cp_async_wait<kStages - 1>();   // the raw rows
+    __syncthreads();
+    for (int e = tid; e < kR * p.Dc; e += kThreads) {  // x = raw - ctr
+      const int r = e / p.Dc, d = e % p.Dc;
+      int sl, k;
+      if (row_at(it, r, sl, k)) xs[r * p.XD + d] -= cs[sl * p.Dc + d];
+    }
+
+    // ---- h a chunk at a time, y += h_chunk W2 in registers ---------------
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+      for (int j = 0; j < kNT; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc_y[mt][j][i] = 0.f;
+    for (int q = 0; q < nq; ++q) {
+      tf32x3::cp_async_wait<kStages - 2>();  // stage q landed
+      __syncthreads();                       // for all; slot q - 1 free
+      if (q + kStages - 1 < nq) issue(ws, p, q + kStages - 1, f0, ft);
+      tf32x3::cp_async_commit();
+      const float* st = ws + (q % kStages) * kKC * kWS;
+      const int j = q / per, r = q % per;
+      if (r < p.n1) {                        // h_chunk += x · W1 stage
+        if (r == 0) {
+#pragma unroll
+          for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+            for (int n = 0; n < kNT; ++n)
+#pragma unroll
+              for (int i = 0; i < 4; ++i) acc_h[mt][n][i] = 0.f;
+        }
+        mma_stage(acc_h, xs, p.XD, r * kKC, st,
+                  min(kKC, p.Dp - r * kKC) / 8, wm, wn, lane);
+        if (r == p.n1 - 1)                   // read after the next barrier
+          store_h(hs, acc_h, p.b1 + j * kNC, min(kNC, p.H - j * kNC), wm,
+                  wn, lane);
+      } else {                               // y += h_chunk · W2 stage
+        mma_stage(acc_y, hs, kHS, 0, st, kKC / 8, wm, wn, lane);
+      }
+    }
+    tf32x3::cp_async_wait<0>();
+
+    // ---- y + b2 pooled: dead rows -3.4e38, shuffles, then per subset -----
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) {
+      const int c = (wn + kWN * j) * 8 + 2 * t;
+      const float bias0 = c < ft ? __ldg(p.b2 + f0 + c) : 0.f;
+      const float bias1 = c + 1 < ft ? __ldg(p.b2 + f0 + c + 1) : 0.f;
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt) {
+        const float* v = acc_y[mt][j];
+        const int r0 = (wm * kMT + mt) * 16 + g;
+        const bool l0 = rowlive[r0], l1 = rowlive[r0 + 8];
+        float m0 = fmaxf(l0 ? v[0] + bias0 : -kBig, l1 ? v[2] + bias0 : -kBig);
+        float m1 = fmaxf(l0 ? v[1] + bias1 : -kBig, l1 ? v[3] + bias1 : -kBig);
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1) {
+          m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, off));
+          m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, off));
+        }
+        if (g == 0) {                  // columns past ft: never read
+          red[(wm * kMT + mt) * kNC + c] = m0;
+          red[(wm * kMT + mt) * kNC + c + 1] = m1;
+        }
+      }
+    }
+    __syncthreads();
+    for (int e = tid; e < spt * ft; e += kThreads) {
+      const int s = e / ft, c = e % ft;
+      float m = pool[s * kNC + c];
+      for (int i = 0; i < per_sub; ++i)
+        m = fmaxf(m, red[(s * per_sub + i) * kNC + c]);
+      pool[s * kNC + c] = m;
+    }
+    __syncthreads();
+  }
+
+  for (int e = tid; e < spt * ft; e += kThreads) {
+    const int s = e / ft, c = e % ft;
+    if (sub0 + s < p.bs)
+      p.out[(sub0 + s) * p.F + f0 + c] = anyl[s] ? pool[s * kNC + c] : 0.f;
+  }
+}
+
+WideParams make(const Params& q) {
+  WideParams p{q.raw, q.ctr, q.mask, q.w1, q.b1, q.w2, q.b2, q.out, q.bs,
+               q.K, q.D, q.Dc, q.H, q.F};
+  p.Kp = q.Kp;
+  p.Dp = q.Dp;
+  p.XD = p.Dp + ((8 - p.Dp) % 32 + 32) % 32;  // ≡ 8 mod 32
+  p.spt = p.Kp <= kR ? kR / p.Kp : 1;
+  p.n1 = (p.Dp + kKC - 1) / kKC;
+  p.nchunk = (p.H + kNC - 1) / kNC;
+  p.w1_vec = q.w1_vec;
+  p.w2_vec = q.w2_vec;
+  return p;
+}
+
+size_t smem_bytes(const WideParams& p) {
+  return sizeof(float) * ((size_t)kR * p.XD + kR * kHS +
+                          kStages * kKC * kWS + (kR / 16) * kNC +
+                          (size_t)p.spt * (kNC + p.Dc)) +
+         sizeof(int) * (kR + p.spt);
+}
+
+int launch(const WideParams& p, void* stream) {
+  const size_t smem = smem_bytes(p);
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      gather_mlp_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)((p.bs + p.spt - 1) / p.spt),
+                  (p.F + kNC - 1) / kNC);
+  gather_mlp_wide_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace wide
+
+// The shape fields of p from K, D and H: K padded to 16, D and H to 8,
+// and the x/h row stride
+void set_shape(Params& p) {
+  p.Kp = padded_k(p.K);
+  p.Dp = (p.D + 7) & ~7;
+  p.Hp = (p.H + 7) & ~7;
+  const int xh = p.Dp > p.Hp ? p.Dp : p.Hp;
+  p.XH = xh + ((8 - xh) % 32 + 32) % 32;     // ≡ 8 mod 32: no bank conflicts
+}
+
+// The narrow route takes a shape whose 64-row tile fits shared memory
+bool narrow_fits(const Params& p) {
+  constexpr int small = Layout<2>::kR;
+  return smem_bytes(small, p, p.Kp <= small ? small / p.Kp : 1) <=
+         kMaxSmem;
+}
+
 }  // namespace
 
 // Rows per tile for B·S subsets of K points: 64 when 128-row tiles would
@@ -378,13 +715,10 @@ extern "C" int gather_mlp_forward(const float* raw, const float* ctr,
                                   void* stream) {
   Params p{raw, ctr, mask, w1, b1, w2, b2, out, (long long)B * S,
            K, D, Dc, H, F};
-  p.Kp = padded_k(K);
-  p.Dp = (D + 7) & ~7;
-  p.Hp = (H + 7) & ~7;
-  const int xh = p.Dp > p.Hp ? p.Dp : p.Hp;
-  p.XH = xh + ((8 - xh) % 32 + 32) % 32;     // ≡ 8 mod 32: no bank conflicts
+  set_shape(p);
   p.w1_vec = H % 4 == 0 && reinterpret_cast<uintptr_t>(w1) % 16 == 0;
   p.w2_vec = F % 4 == 0 && reinterpret_cast<uintptr_t>(w2) % 16 == 0;
+  if (!narrow_fits(p)) return wide::launch(wide::make(p), stream);
   constexpr int big = Layout<4>::kR, small = Layout<2>::kR;
   int R = gather_mlp_row_tile(B, S, K);
   if (R == big && smem_bytes(big, p, p.Kp <= big ? big / p.Kp : 1) > kMaxSmem)
@@ -394,6 +728,20 @@ extern "C" int gather_mlp_forward(const float* raw, const float* ctr,
   const long long grid = (p.bs + p.spt - 1) / p.spt;
   return R == big ? launch<Layout<4>>(p, smem, grid, stream)
                   : launch<Layout<2>>(p, smem, grid, stream);
+}
+
+// The route a shape takes: 0 the narrow one (h whole), 1 the wide one (h
+// in chunks), -1 none (x of a 64-row tile alone overflows shared memory).
+extern "C" int gather_mlp_route(int K, int D, int Dc, int H, int F) {
+  Params p{};
+  p.K = K;
+  p.D = D;
+  p.Dc = Dc;
+  p.H = H;
+  p.F = F;
+  set_shape(p);
+  if (narrow_fits(p)) return 0;
+  return wide::smem_bytes(wide::make(p)) <= kMaxSmem ? 1 : -1;
 }
 
 extern "C" const char* gather_mlp_error_string(int code) {

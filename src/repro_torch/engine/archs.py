@@ -1,11 +1,20 @@
 """Architecture families: init + batched two-stage forward.
 
-The ``pointnet2`` family (generic SA stacks, classification) is ported:
-stage 1 builds every block's structure for the whole batch (DS → octree →
-islandize → hub-schedule, coordinates and keys only), stage 2 runs the FC
-dataflows block by block through the backend, one launch per dataflow
-per block, then the global SA pool and the head.  The key-split sequence
-mirrors the JAX package, so the same per-cloud keys give the same hubs.
+Every family of the JAX package is here, registered under the leading
+token of ``spec.name`` ("pointnet2", "dgcnn", "pointnext",
+"pointvector"); names of no known family take the generic SA stack.  A
+forward runs in three parts, each a field of :class:`Arch`:
+
+  * ``structure`` — stage 1 for the whole batch: every block's DS →
+    octree → islandize → hub-schedule (coordinates and keys only);
+  * ``features`` — stage 2: the FC dataflows block by block through the
+    backend, one launch per dataflow per block (plus the stem and the
+    per-stage residuals of PointNeXt / PointVector, plain matmuls);
+  * ``tail`` — the global pool and the head (cls) or the FP decoder and
+    the masked per-point head (seg).
+
+The key-split sequences mirror the JAX package, so the same per-cloud keys
+give the same hubs.
 """
 from __future__ import annotations
 
@@ -18,6 +27,7 @@ from ..core.mlp import apply_mlp, init_mlp
 from ..core.pipeline import (BIG, LPCNConfig, compute_block_features_batched,
                              structure_block)
 from ..core.registry import Registry, get_fc_backend
+from ..core.sampling import sqdist
 from .params import PCNParams
 from .spec import BlockSpec, PCNSpec, arch_of, block_in_dim
 
@@ -26,11 +36,21 @@ ARCHS = Registry("arch")
 
 @dataclass(frozen=True)
 class Arch:
-    """init(spec, generator, device) -> PCNParams; forward(params, spec,
-    xyz, feats, keys, ctx, n_valid) -> (B, n_classes) logits."""
+    """One family.  init(spec, generator, device) -> PCNParams;
+    structure(spec, ctx, xyz, keys, n_valid) -> (structs, nv_levels);
+    features(params, spec, ctx, xyz, feats, structs) -> state;
+    tail(params, spec, state, nv_levels, n_valid) -> logits, (B, n_classes)
+    for cls and (B, N, n_classes) for seg with padding rows zero."""
     name: str
     init: callable
-    forward: callable
+    structure: callable
+    features: callable
+    tail: callable
+
+    def forward(self, params, spec, xyz, feats, keys, ctx, n_valid=None):
+        structs, nv_levels = self.structure(spec, ctx, xyz, keys, n_valid)
+        state = self.features(params, spec, ctx, xyz, feats, structs)
+        return self.tail(params, spec, state, nv_levels, n_valid)
 
 
 @dataclass(frozen=True)
@@ -49,18 +69,10 @@ class EngineCtx:
                          isl_kw=tuple(sorted((isl_kw or {}).items())))
 
 
-# families of the JAX package that this package does not carry yet
-NOT_PORTED = ("dgcnn", "pointnext", "pointvector")
-
-
 def get_arch(spec: PCNSpec) -> Arch:
     """The spec's family; names of no known family take the generic SA
     stack ("pointnet2"), as in the JAX package."""
     name = arch_of(spec)
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"architecture family {name!r} is not ported yet; ported: "
-            f"{', '.join(ARCHS.names())}")
     return ARCHS.get(name if name in ARCHS else "pointnet2")
 
 
@@ -79,9 +91,35 @@ def _mask_rows_b(x, n_valid, fill=0.0):
     return torch.where(ok[..., None], x, fill)
 
 
+def feature_propagation(xyz_dst, xyz_src, f_src, k: int = 3,
+                        src_n_valid=None):
+    """PointNet++ FP layer, batched: inverse-distance k-NN interpolation of
+    source features (B, Ns, F) at (B, Ns, 3) onto destinations (B, Nd, 3).
+    ``src_n_valid`` (B,) masks padding sources out (distance +inf, weight
+    exactly 0).
+
+    As the JAX package: distances are the direct difference summed x, y, z
+    (a destination that is also a source is exactly 0 away, weight 1e8),
+    and the k nearest are taken ties to the lower index (a stable sort, as
+    ``lax.top_k``)."""
+    d = sqdist(xyz_dst[:, :, None, :], xyz_src[:, None, :, :])  # (B, Nd, Ns)
+    if src_n_valid is not None:
+        ok = (torch.arange(xyz_src.shape[1], device=d.device)
+              < src_n_valid[:, None])
+        d = torch.where(ok[:, None, :], d, float("inf"))
+    dk, idx = torch.sort(d, dim=-1, stable=True)
+    dk, idx = dk[..., :k], idx[..., :k]
+    w = 1.0 / torch.clamp(dk, min=1e-8)
+    w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-12)
+    b, nd = idx.shape[:2]
+    g = torch.gather(f_src, 1, idx.reshape(b, nd * k, 1).expand(
+        b, nd * k, f_src.shape[-1])).reshape(b, nd, k, -1)
+    return (g * w[..., None]).sum(2)
+
+
 def _structure_stack_b(spec: PCNSpec, ctx: EngineCtx, xyz, keys, n_valid):
-    """Stage 1 for the whole batch: one stacked structure per block and
-    the n_valid chain (downsampling samplers give fully valid centers, so
+    """Stage 1 of an SA stack: one stacked structure per block and the
+    n_valid chain (downsampling samplers give fully valid centers, so
     None below them; "all" keeps the count)."""
     structs, nv_levels = [], [n_valid]
     cur_xyz, cur_nv = xyz, n_valid
@@ -97,16 +135,24 @@ def _structure_stack_b(spec: PCNSpec, ctx: EngineCtx, xyz, keys, n_valid):
 
 
 def _compute_stack_b(params: PCNParams, spec: PCNSpec, ctx: EngineCtx, xyz,
-                     feats, structs):
-    """Stage 2: features through the backend block by block."""
+                     feats, structs, combine=None):
+    """Stage 2 of an SA stack: features through the backend block by
+    block, each block's output through ``combine(extra, h)`` where the
+    family has one.  -> (xyz per level, final features)."""
     backend = get_fc_backend(ctx.fc_backend)
+    extras = params.extras or (None,) * len(spec.blocks)
     cur_xyz, cur_f = xyz, feats
-    for b, mlp, st in zip(spec.blocks, params.blocks, structs):
+    xyz_levels = [xyz]
+    for b, mlp, extra, st in zip(spec.blocks, params.blocks, extras,
+                                 structs):
         cur_f = compute_block_features_batched(block_cfg(b, ctx), mlp,
                                                cur_xyz, cur_f, st,
                                                backend=backend)
+        if combine is not None:
+            cur_f = combine(extra, cur_f)
         cur_xyz = st.center_xyz
-    return cur_xyz, cur_f
+        xyz_levels.append(cur_xyz)
+    return xyz_levels, cur_f
 
 
 def _global_pool_b(params: PCNParams, center_xyz, center_f, n_valid=None):
@@ -125,6 +171,18 @@ def _global_pool_b(params: PCNParams, center_xyz, center_f, n_valid=None):
     return _mask_rows_b(apply_mlp(params.global_mlp, x), n_valid,
                         fill=-BIG).amax(1)
 
+
+def _tail_seg(params: PCNParams, spec: PCNSpec, state, nv_levels, n_valid):
+    """Segmentation tail: the FP decoder back up the pyramid, then the
+    per-point head with padding rows zeroed."""
+    xyz_levels, f = state
+    for lvl in range(len(xyz_levels) - 2, -1, -1):
+        f = feature_propagation(xyz_levels[lvl], xyz_levels[lvl + 1], f,
+                                src_n_valid=nv_levels[lvl + 1])
+    return _mask_rows_b(apply_mlp(params.head, f), n_valid)
+
+
+# ---- generic SA stack (PointNet++ and ad-hoc specs) -------------------------
 
 def _init_pointnet2(spec: PCNSpec, generator: torch.Generator,
                     device) -> PCNParams:
@@ -145,16 +203,117 @@ def _init_pointnet2(spec: PCNSpec, generator: torch.Generator,
     return PCNParams(blocks=tuple(blocks), head=head, global_mlp=global_mlp)
 
 
-def _fwd_pointnet2(params: PCNParams, spec: PCNSpec, xyz, feats, keys,
-                   ctx: EngineCtx, n_valid=None):
+def _tail_pointnet2(params, spec, state, nv_levels, n_valid):
     if spec.task != "cls":
-        raise NotImplementedError(
-            "segmentation (the FP decoder) is not ported yet")
-    structs, nv_levels = _structure_stack_b(spec, ctx, xyz, keys, n_valid)
-    cx, cf = _compute_stack_b(params, spec, ctx, xyz, feats, structs)
-    g = _global_pool_b(params, cx, cf, n_valid=nv_levels[-1])
-    return apply_mlp(params.head, g)
+        return _tail_seg(params, spec, state, nv_levels, n_valid)
+    xyz_levels, f = state
+    return apply_mlp(params.head, _global_pool_b(
+        params, xyz_levels[-1], f, n_valid=nv_levels[-1]))
 
 
 ARCHS.register("pointnet2", Arch("pointnet2", _init_pointnet2,
-                                 _fwd_pointnet2))
+                                 _structure_stack_b, _compute_stack_b,
+                                 _tail_pointnet2))
+
+
+# ---- DGCNN (EdgeConv; every point a center) ---------------------------------
+
+def _init_dgcnn(spec: PCNSpec, generator: torch.Generator,
+                device) -> PCNParams:
+    """The SA-stack init, with the head rebuilt for the concat of every
+    EdgeConv output (cls) or that plus the broadcast global vector
+    (seg)."""
+    p = _init_pointnet2(spec, generator, device)
+    cat_dim = sum(b.mlp_dims[-1] for b in spec.blocks)
+    head_in = cat_dim if spec.task == "cls" else 2 * cat_dim
+    head = init_mlp([head_in, *spec.head_dims, spec.n_classes], "per_layer",
+                    generator=generator, device=device)
+    return PCNParams(blocks=p.blocks, head=head, global_mlp=None)
+
+
+def _structure_dgcnn(spec: PCNSpec, ctx: EngineCtx, xyz, keys, n_valid):
+    """Stage 1 of the EdgeConv stack: every block structures the SAME
+    cloud (no downsampling), padding rows kept and masked."""
+    structs = []
+    for b in spec.blocks:
+        ks = random.split(keys)
+        keys, sub = ks[:, 0], ks[:, 1]
+        structs.append(structure_block(block_cfg(b, ctx), xyz, sub,
+                                       n_valid=n_valid))
+    return structs, [n_valid] * (len(spec.blocks) + 1)
+
+
+def _features_dgcnn(params, spec, ctx, xyz, feats, structs):
+    """Every EdgeConv output, concatenated: (B, N, sum of widths)."""
+    backend = get_fc_backend(ctx.fc_backend)
+    f, per_layer = feats, []
+    for b, mlp, st in zip(spec.blocks, params.blocks, structs):
+        f = compute_block_features_batched(block_cfg(b, ctx), mlp, xyz, f,
+                                           st, backend=backend)
+        per_layer.append(f)
+    return torch.cat(per_layer, dim=-1)
+
+
+def _tail_dgcnn(params, spec, cat, nv_levels, n_valid):
+    gmax = _mask_rows_b(cat, n_valid, fill=-BIG).amax(1)
+    if spec.task == "cls":
+        return apply_mlp(params.head, gmax)
+    per_point = torch.cat([cat, gmax[:, None].expand(cat.shape)], dim=-1)
+    return _mask_rows_b(apply_mlp(params.head, per_point), n_valid)
+
+
+ARCHS.register("dgcnn", Arch("dgcnn", _init_dgcnn, _structure_dgcnn,
+                             _features_dgcnn, _tail_dgcnn))
+
+
+# ---- PointNeXt and PointVector (stem + SA stages + FP decoder) --------------
+
+def _init_stem_stack(spec: PCNSpec, generator, device, stem_dim: int,
+                     extra_dims) -> PCNParams:
+    """Stem, SA blocks, one extra MLP per stage (``extra_dims(f)``), and
+    the per-point head."""
+    stem = init_mlp([spec.in_feats, stem_dim], "per_layer",
+                    generator=generator, device=device)
+    blocks, extras = [], []
+    f = stem_dim
+    for b in spec.blocks:
+        blocks.append(init_mlp([3 + f, *b.mlp_dims], spec.activation,
+                               generator=generator, device=device))
+        f = b.mlp_dims[-1]
+        extras.append(init_mlp(extra_dims(f), "per_layer",
+                               generator=generator, device=device))
+    head = init_mlp([f, *spec.head_dims, spec.n_classes], "per_layer",
+                    generator=generator, device=device)
+    return PCNParams(blocks=tuple(blocks), head=head, stem=stem,
+                     extras=tuple(extras))
+
+
+def _init_pointnext(spec, generator, device, stem_dim: int = 32):
+    # InvResMLP: pointwise expansion x4 + projection, residual
+    return _init_stem_stack(spec, generator, device, stem_dim,
+                            lambda f: [f, 4 * f, f])
+
+
+def _init_pointvector(spec, generator, device, stem_dim: int = 64):
+    # vector branch: per-center linear recombination after pooling
+    return _init_stem_stack(spec, generator, device, stem_dim,
+                            lambda f: [f, f])
+
+
+def _stem_features(combine):
+    """Stage 2 of a stem stack: the stem (a plain matmul), then each SA
+    block and its ``combine(extra, h)`` residual."""
+    def features(params, spec, ctx, xyz, feats, structs):
+        return _compute_stack_b(params, spec, ctx, xyz,
+                                apply_mlp(params.stem, feats), structs,
+                                combine)
+    return features
+
+
+ARCHS.register("pointnext", Arch(
+    "pointnext", _init_pointnext, _structure_stack_b,
+    _stem_features(lambda inv, h: h + apply_mlp(inv, h)), _tail_seg))
+ARCHS.register("pointvector", Arch(
+    "pointvector", _init_pointvector, _structure_stack_b,
+    _stem_features(lambda vec, h: torch.relu(apply_mlp(vec, h))),
+    _tail_seg))

@@ -37,11 +37,13 @@ def init(spec: PCNSpec, seed: int = 0, device=None) -> PCNParams:
 def apply(params: PCNParams, batch, *, spec: PCNSpec, mode: str = "lpcn",
           fc_backend: str = "reference", isl_kw: dict | None = None,
           device=None):
-    """Padded :class:`Batch` (or (B, N, 3) array) -> (B, n_classes) logits.
+    """Padded :class:`Batch` (or (B, N, 3) array) -> logits, (B,
+    n_classes) for cls specs and (B, N, n_classes) for seg specs.
 
     Ragged contract: ``batch.n_valid`` masks padding end to end, so
-    ``apply(batch)[i]`` equals :func:`apply_single` on cloud i's unpadded
-    prefix with key ``batch.keys[i]``."""
+    ``apply(batch)[i]`` (cls) / ``apply(batch)[i, :n_valid[i]]`` (seg)
+    equals :func:`apply_single` on cloud i's unpadded prefix with key
+    ``batch.keys[i]``; seg rows >= n_valid[i] are zeros."""
     device = resolve_device(device)
     ctx = EngineCtx.make(mode=mode, fc_backend=fc_backend, isl_kw=isl_kw)
     b = as_batch(batch, device)
@@ -54,8 +56,8 @@ def apply_single(params: PCNParams, xyz, feats=None, key=None, *,
                  spec: PCNSpec, mode: str = "lpcn",
                  fc_backend: str = "reference", isl_kw: dict | None = None,
                  n_valid=None, device=None):
-    """One cloud (N, 3) / (N, F) with key (2,) -> (n_classes,) logits: the
-    batched forward at B = 1.  ``n_valid`` (int or None) marks rows >=
+    """One cloud (N, 3) / (N, F) with key (2,) -> (n_classes,) logits, or
+    (N, n_classes) for a seg spec: the batched forward at B = 1.  ``n_valid`` (int or None) marks rows >=
     n_valid as padding."""
     device = resolve_device(device)
     ctx = EngineCtx.make(mode=mode, fc_backend=fc_backend, isl_kw=isl_kw)
@@ -102,7 +104,7 @@ class PCNEngine:
 
     def apply_single(self, params: PCNParams, xyz, feats=None, key=None, *,
                      n_valid=None) -> torch.Tensor:
-        """One cloud -> (n_classes,) logits."""
+        """One cloud -> (n_classes,) or, for seg, (N, n_classes) logits."""
         return apply_single(params, xyz, feats, key, n_valid=n_valid,
                             **self._kw())
 

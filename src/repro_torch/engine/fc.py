@@ -72,6 +72,16 @@ def _dense_weights(mlp: MLP):
     return prologue, (w1, b1, w2, b2)
 
 
+def dense_shape(kind: str, k: int, mlp: MLP) -> tuple:
+    """(K, D, Dc, H, F) of the gather_mlp launch that the dense dataflow
+    of a block of ``kind`` with k neighbors and point-MLP ``mlp`` makes
+    (:func:`_dense_raw_ctr` gives raw (…, K, D) and centers (…, Dc))."""
+    prologue, (w1, _, w2, _) = _dense_weights(mlp)
+    d = w1.shape[0]
+    dc = 1 if prologue is not None else 3 if kind == "sa" else d
+    return k, d, dc, w1.shape[1], w2.shape[1]
+
+
 def _dense_raw_ctr(prologue, kind, xyz, feats, nbr_idx, centers_xyz,
                    center_feats, nbr_valid):
     """gather_mlp data operands (raw (B, S, K, D), ctr (B, S, Dc))."""

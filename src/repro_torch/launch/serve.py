@@ -24,10 +24,11 @@ PCN half, on the GPU unless ``--device cpu`` is given.
             --arch pointnet2_c --trace 64 --rate 30 --buckets 512,1024 \\
             --batch 8 --timeout-ms 100 --faults "fail@1,nan@3"
 
-Every line that reports a time starts with the device's name.  Not
-ported yet, each refused with the ROADMAP item that will bring it: the
-mesh-sharded path (``--mesh-data``), tile knobs (``--kernel-kw``), the
-families other than PointNet++ and the LM serving loop.
+``--arch`` takes every model of ``repro_torch.models.MODEL_ZOO``; a seg
+model answers each request with its per-point logits.  Every line that
+reports a time starts with the device's name.  Not ported yet, each
+refused with the ROADMAP item that will bring it: the mesh-sharded path
+(``--mesh-data``), tile knobs (``--kernel-kw``) and the LM serving loop.
 """
 from __future__ import annotations
 
@@ -43,12 +44,7 @@ import torch
 from .. import random, serve
 from ..data.synthetic import make_cloud
 from ..engine import Batch, PCNEngine
-from ..models.pointnet2 import POINTNET2_C, POINTNET2_PS, POINTNET2_S
-
-PCN_ARCHS = {"pointnet2_c": POINTNET2_C, "pointnet2_ps": POINTNET2_PS,
-             "pointnet2_s": POINTNET2_S}
-# the JAX package's other PCN models, whose families are not ported yet
-NOT_PORTED = ("dgcnn_c", "dgcnn_s", "pointnext_s", "pointvector_l")
+from ..models import MODEL_ZOO
 
 
 def device_name(device: torch.device) -> str:
@@ -63,7 +59,7 @@ def _sync(device: torch.device) -> None:
 
 def _pcn_engine(args):
     """Shared PCN setup: spec (optionally reduced), engine, params."""
-    spec = PCN_ARCHS[args.arch]
+    _, spec = MODEL_ZOO[args.arch]
     if args.reduced:
         spec = replace(spec, blocks=tuple(
             replace(b, n_centers=min(b.n_centers, max(args.points // 4, 16)),
@@ -267,15 +263,10 @@ def main(argv=None):
         raise SystemExit("--kernel-kw: the port's kernels take no tile "
                          "knobs yet; Hopper tile plans come with ROADMAP "
                          "queue 1 item 5")
-    if args.arch in NOT_PORTED:
-        raise NotImplementedError(
-            f"architecture family {args.arch.split('_')[0]!r} is not ported "
-            f"yet (ROADMAP queue 1 item 2); ported: "
-            f"{', '.join(PCN_ARCHS)}")
-    if args.arch not in PCN_ARCHS:
+    if args.arch not in MODEL_ZOO:
         raise SystemExit(
             f"--arch {args.arch!r} is not a PCN model "
-            f"({', '.join(PCN_ARCHS)}); the LM serving loop is not ported "
+            f"({', '.join(MODEL_ZOO)}); the LM serving loop is not ported "
             f"yet (ROADMAP queue 1 item 10)")
     return serve_trace(args) if args.trace else serve_pcn(args)
 

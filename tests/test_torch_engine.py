@@ -110,14 +110,42 @@ def test_batch_from_clouds():
 
 
 def test_spec_copies_equal_jax():
-    for name in ("POINTNET2_C", "POINTNET2_PS", "POINTNET2_S"):
-        j, t = getattr(jpointnet2, name), getattr(pointnet2, name)
+    """Every spec of the port's MODEL_ZOO equals the JAX package's, field
+    by field, and so do the modules' other constants and ``with_points``."""
+    from repro.models import MODEL_ZOO as JZOO
+    from repro.models import dgcnn as jdgcnn
+    from repro_torch.models import MODEL_ZOO
+    from repro_torch.models import dgcnn, pointnext
+    assert list(MODEL_ZOO) == list(JZOO)
+    module = lambda m: m.__name__.rsplit(".", 1)[-1]
+    pairs = []
+    for name in JZOO:
+        assert module(JZOO[name][0]) == module(MODEL_ZOO[name][0]), name
+        pairs.append((name, JZOO[name][1], MODEL_ZOO[name][1]))
+    pairs.append(("with_points", jdgcnn.with_points(jdgcnn.DGCNN_S, 4096),
+                  dgcnn.with_points(dgcnn.DGCNN_S, 4096)))
+    for name, j, t in pairs:
         for f in fields(j):
             jv, tv = getattr(j, f.name), getattr(t, f.name)
             if f.name == "blocks":
                 assert [b.__dict__ for b in jv] == [b.__dict__ for b in tv]
             else:
                 assert jv == tv, (name, f.name)
+    from repro.models import pointnext as jpointnext
+    assert pointnext.STEM_DIM == jpointnext.STEM_DIM
+
+
+def test_get_arch_resolves_every_family():
+    """Every MODEL_ZOO spec has its family; nothing is left unported."""
+    from repro_torch.engine import archs
+    from repro_torch.models import MODEL_ZOO
+    assert not hasattr(archs, "NOT_PORTED")
+    assert set(archs.ARCHS.names()) == {"pointnet2", "dgcnn", "pointnext",
+                                        "pointvector"}
+    for name, (_, spec) in MODEL_ZOO.items():
+        want = spec.name.split("_")[0]
+        assert engine.get_arch(spec).name == want, name
+        engine.PCNEngine(spec, device="cpu")     # no family raises
 
 
 def test_default_device_is_cuda():
@@ -147,7 +175,7 @@ def test_server_default_device_is_cuda():
 
 def test_import_pulls_in_no_jax():
     code = ("import sys, repro_torch, repro_torch.engine, "
-            "repro_torch.kernels, repro_torch.models.pointnet2, "
+            "repro_torch.kernels, repro_torch.models, "
             "repro_torch.serve, repro_torch.launch.serve, "
             "repro_torch.data.synthetic; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "

@@ -285,9 +285,11 @@ def _mm_tf32(a, b, passes):
     return _tf32(a - ab) @ bb + ab @ _tf32(b - bb) + ab @ bb
 
 
-# (S, K, D, Dc, H, F): the PointNet++(c) block widths at a small S
+# (S, K, D, Dc, H, F): the PointNet++(c) block widths at a small S, and
+# pointvector_l block 4 (the widest, on the wide route)
 TF32_BLOCKS = {"blk1": (16, 32, 65, 1, 64, 128),
-               "blk2": (8, 64, 129, 1, 128, 256)}
+               "blk2": (8, 64, 129, 1, 128, 256),
+               "pointvector_l_blk4": (4, 32, 387, 3, 1536, 768)}
 
 
 @pytest.mark.parametrize("blk", sorted(TF32_BLOCKS))
@@ -295,7 +297,10 @@ def test_tf32x3_keeps_the_kernel_tolerance(blk):
     """The gather_mlp kernel's arithmetic, emulated: 3xTF32 stays within
     1e-5 · max(1, |ref|) of fp64 at the block widths and chip_smoke.py's
     input scales, and 1xTF32 breaks the 1e-4 limit the kernel is held
-    to (so the cheaper route is not open)."""
+    to (so the cheaper route is not open).  A wide-route shape sums y in
+    the route's order: h a 64-column chunk at a time, each chunk's
+    product added to y in fp32."""
+    from repro_torch.kernels.gather_mlp.ops import route
     import jax.numpy as jnp
     from repro.kernels.gather_mlp.ref import gather_mlp_ref as jgather_ref
     s, k, d, dc, h, f = TF32_BLOCKS[blk]
@@ -310,13 +315,53 @@ def test_tf32x3_keeps_the_kernel_tolerance(blk):
     want = np.asarray(jgather_ref(*(jnp.asarray(a) for a in ops)))
     np.testing.assert_allclose(want, ref.numpy(), rtol=TOL, atol=TOL * lim)
     x = torch.cat([raw[..., :dc] - ctr[:, None], raw[..., dc:]], dim=-1)
+    chunks = [slice(0, h)]
+    if route(k, d, dc, h, f) == "wide":
+        chunks = [slice(c, c + 64) for c in range(0, h, 64)]
+    assert (len(chunks) > 1) == (blk == "pointvector_l_blk4")
     err = {}
     for passes in (1, 3):
-        hid = torch.relu(_mm_tf32(x, w1, passes) + b1)
-        y = (_mm_tf32(hid, w2, passes) + b2).amax(1)
+        y = torch.zeros(s, k, f)
+        for c in chunks:
+            hid = torch.relu(_mm_tf32(x, w1[:, c], passes) + b1[c])
+            y = y + _mm_tf32(hid, w2[c], passes)
+        y = (y + b2).amax(1)
         err[passes] = (y.double() - ref).abs().max().item()
     assert err[3] <= 1e-5 * lim, err
     assert err[1] > 1e-4 * lim, err
+
+
+# gather_mlp's kernel shapes (K, D, Dc, H, F) that keep h whole, and the
+# blocks that need the wide route: the widest of dgcnn_c, pointnext_s and
+# pointvector_l, whose one-layer MLPs lower to Hd = 2F
+WIDE_BLOCKS = {("dgcnn_c", 4): (20, 256, 256, 512, 256),
+               ("pointnext_s", 3): (32, 131, 3, 512, 256),
+               ("pointnext_s", 4): (32, 259, 3, 1024, 512),
+               ("pointvector_l", 2): (32, 99, 3, 384, 192),
+               ("pointvector_l", 3): (32, 195, 3, 768, 384),
+               ("pointvector_l", 4): (32, 387, 3, 1536, 768)}
+
+
+def test_gather_mlp_route_follows_shared_memory():
+    """The wrapper's route, from the kernel's shared-memory formulas: the
+    narrow route (h whole) at every block of every model but the
+    six of ``WIDE_BLOCKS``, which take the wide route, at the shapes the
+    engine's lowering gives them; past the wide route's room, a raise."""
+    from repro_torch.engine import init
+    from repro_torch.kernels.gather_mlp.ops import route
+    from repro_torch.models import MODEL_ZOO
+    seen = {}
+    for name, (_, spec) in MODEL_ZOO.items():
+        params = init(spec, device="cpu")
+        for i, (b, mlp) in enumerate(zip(spec.blocks, params.blocks), 1):
+            seen[name, i] = fc.dense_shape(b.kind, b.k, mlp)
+    wide = {key: shp for key, shp in seen.items()
+            if route(*shp) == "wide"}
+    assert wide == WIDE_BLOCKS
+    assert seen["pointnet2_c", 1] == (32, 65, 1, 64, 128)
+    assert seen["pointnet2_c", 2] == (64, 129, 1, 128, 256)
+    with pytest.raises(ValueError, match="no route"):
+        route(32, 4000, 3, 512, 256)
 
 
 # (H, C, M, K, D, Hd, F): hub_reuse at the PointNet++(c) block widths and
@@ -400,21 +445,39 @@ CARD_REUSE = ((2, 3, 16, 5, 8, 9, 16, 40), (2, 3, 24, 5, 7, 16, 72, 40),
               (1, 2, 64, 16, 32, 387, 1536, 768))
 
 
+# gather_mlp's wide route on the card: the six WIDE_BLOCKS at a small B
+# and S, then K over one 64-row tile (several tiles a subset), K = 8 (four
+# subsets a tile), H and F off a multiple of 4 and F off the 64-column
+# tile, Dc = D (EdgeConv's centers)
+CARD_WIDE = tuple((b, s, *shp) for (b, s), shp in zip(
+    ((2, 37), (2, 21), (1, 16), (2, 19), (1, 13), (1, 9)),
+    WIDE_BLOCKS.values())) + ((1, 3, 100, 99, 3, 384, 200),
+                              (2, 11, 8, 200, 200, 400, 100),
+                              (2, 5, 20, 131, 3, 510, 77))
+
+
 @pytest.mark.cuda
 def test_kernels_match_plain_versions_on_card():
     """On a CUDA host: each kernel against its plain version, batched and
     per cloud, masked (all-dead subsets included) and not, repeats
-    bit-equal; gather_mlp over its tile edges in both row tilings,
-    hub_reuse over its own (``python3 chip_smoke.py`` does the same at the
-    PointNet++(c) shapes)."""
+    bit-equal; gather_mlp over its tile edges in both row tilings and on
+    both routes (the library's route equal to the wrapper's), hub_reuse
+    over its own (``python3 chip_smoke.py`` does the same at the model
+    shapes)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    from repro_torch.kernels.gather_mlp.ops import row_tile
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.gather_mlp.ops import (library_route, route,
+                                                    row_tile)
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(0)
     r = lambda *s, scale=1.0: (torch.randn(s, generator=g) * scale).to(dev)
-    tilings = set()
-    for b, s, k, d, dc, h, f in CARD_DENSE:
+    tilings, routes = set(), set()
+    for b, s, k, d, dc, h, f in CARD_DENSE + CARD_WIDE:
+        way = route(k, d, dc, h, f)
+        assert library_route(k, d, dc, h, f) == way
+        routes.add(way)
+        before = LAUNCHES[f"gather_mlp_{way}"]
         raw, ctr = r(b, s, k, d), r(b, s, dc)
         w1, b1 = r(d, h, scale=(2 / d) ** .5), r(h, scale=.1)
         w2, b2 = r(h, f, scale=(2 / h) ** .5), r(f, scale=.1)
@@ -433,7 +496,9 @@ def test_kernels_match_plain_versions_on_card():
             torch.testing.assert_close(one, want[-1], rtol=1e-4, atol=1e-4)
         assert bool((gather_mlp(raw, ctr, w1, b1, w2, b2, mask=mask)
                      [:, ::5] == 0).all())
+        assert LAUNCHES[f"gather_mlp_{way}"] == before + 7
     assert tilings == {64, 128}, tilings
+    assert routes == {"narrow", "wide"}, routes
     for b, hn, c, m, k, d, h, f in CARD_REUSE:
         pool, comp = r(b, hn, c, d), r(b, hn, m, f)
         w1, b1 = r(d, h, scale=(2 / d) ** .5), r(h, scale=.1)

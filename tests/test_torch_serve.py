@@ -27,7 +27,7 @@ from repro_torch import engine, random, serve
 from repro_torch.data.synthetic import make_cloud
 from repro_torch.engine import BlockSpec
 from repro_torch.kernels import _build
-from repro_torch.models import pointnet2
+from repro_torch.models import MODEL_ZOO, pointnet2
 from repro_torch.serve import (AdmissionError, Bucket, BucketSet, FaultPlan,
                                PCNServer, QueueFullError, RequestError,
                                ServeMetrics, UnknownRequestError,
@@ -886,3 +886,34 @@ def test_launch_counts_exact_under_threads():
     counts = kernels.launch_counts()
     assert counts["gather_mlp"] == counts["hub_reuse"] == n_threads * n_each
     kernels.reset_launch_counts()
+
+
+# ---- the serving CLI ---------------------------------------------------------
+
+@pytest.mark.parametrize("arch", list(MODEL_ZOO))
+def test_cli_serves_every_model(arch):
+    """``--arch <each MODEL_ZOO name> --reduced`` runs on the CPU: cls
+    models give (B, n_classes) logits, seg models (B, N, n_classes)."""
+    from repro_torch.launch.serve import main
+    logits = main(["--arch", arch, "--reduced", "--device", "cpu",
+                   "--points", "96", "--batch", "2", "--steps", "1",
+                   "--serve-json", ""])
+    spec = MODEL_ZOO[arch][1]
+    want = ((2, 96, spec.n_classes) if spec.task == "seg"
+            else (2, spec.n_classes))
+    assert tuple(logits.shape) == want
+    assert torch.isfinite(logits).all()
+
+
+def test_cli_trace_serves_a_seg_model(tmp_path):
+    """A seg model through ``--trace``: every request answered, none
+    failed (the dispatcher hands each its valid rows of per-point
+    logits)."""
+    from repro_torch.launch.serve import main
+    out = tmp_path / "trace.json"
+    rep = main(["--arch", "pointnext_s", "--reduced", "--device", "cpu",
+                "--trace", "6", "--points", "96", "--buckets", "64,128",
+                "--batch", "2", "--rate", "1000", "--serve-json", str(out)])
+    assert rep["answered"] == 6 and rep["failed"] == 0
+    assert not any(rep["faults"].values())
+    assert out.exists()

@@ -6,12 +6,14 @@
 Builds copies of ``src/repro_torch/csrc/gather_mlp.cu`` and its header
 ``tf32x3.cuh`` with one fault each (written under
 ``build/repro_torch/faults/gather_mlp/``; the sources are not touched),
-runs each through ``repro_torch.kernels.gather_mlp`` at both PointNet++(c)
-block shapes of chip_smoke.py (B = 8, masked, with all-dead subsets), and
-prints one JSON line per (fault, block): max |Δ| against
-``gather_mlp_ref`` beside chip_smoke.py's limit 1e-4 · max(1, max|plain|).
-Exits 1 if the unchanged sources break the limit or a fault passes it.
-Needs one CUDA device.
+runs each through ``repro_torch.kernels.gather_mlp`` at the shapes of the
+route it breaks: the narrow route at both PointNet++(c) block shapes of
+chip_smoke.py (B = 8, masked, with all-dead subsets), the wide route at
+chip_smoke.py's ``DENSE_WIDE`` (the six blocks that take it), and prints
+one JSON line per (fault, block): max |Δ| against ``gather_mlp_ref``
+beside chip_smoke.py's limit 1e-4 · max(1, max|plain|).  The unchanged
+sources run at every shape.  Exits 1 if they break the limit or a fault
+passes it.  Needs one CUDA device.
 """
 from __future__ import annotations
 
@@ -25,20 +27,33 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(ROOT), str(ROOT / "src")]
 
-# name -> (file, text, its replacement); each text occurs once in its file
+# name -> (file, text, its replacement, the routes it is run on); each
+# text occurs once in its file
 FAULTS = {
     # 1xTF32: the two small products dropped
     "one_tf32_pass": ("tf32x3.cuh",
                       "  mma(c, a.small, b.big);\n  mma(c, a.big, b.small);\n",
-                      ""),
+                      "", ("narrow", "wide")),
     # y = h W2 without W2's last 32-row stage
     "w2_last_stage_skipped": ("gather_mlp.cu", "gemm<L>(acc, hs, p.XH, p.Hp,",
-                              "gemm<L>(acc, hs, p.XH, p.Hp - kKC,"),
+                              "gemm<L>(acc, hs, p.XH, p.Hp - kKC,",
+                              ("narrow",)),
     # every row live: the mask is not read
-    "mask_ignored": ("gather_mlp.cu", "p.mask == nullptr ||", "true ||"),
+    "mask_ignored": ("gather_mlp.cu", "p.mask == nullptr ||", "true ||",
+                     ("narrow",)),
     # the last subset of each row tile keeps the -3.4e38 identity
     "last_subset_unpooled": ("gather_mlp.cu", "e < spt * nc;",
-                             "e < (spt - 1) * nc;"),
+                             "e < (spt - 1) * nc;", ("narrow",)),
+    # wide route: y without the last Hd chunk's h_c W2 product
+    "wide_last_chunk_skipped": ("gather_mlp.cu",
+                                "const int nq = p.nchunk * per;",
+                                "const int nq = (p.nchunk - 1) * per;",
+                                ("wide",)),
+    # wide route: b1 added twice to the h chunk (rows g of each m16 tile)
+    "wide_b1_twice": ("gather_mlp.cu",
+                      "fmaxf(v[0] + bias0, 0.f), fmaxf(v[1] + bias1, 0.f)",
+                      "fmaxf(v[0] + 2.f * bias0, 0.f), "
+                      "fmaxf(v[1] + 2.f * bias1, 0.f)", ("wide",)),
 }
 FILES = ("gather_mlp.cu", "tf32x3.cuh")
 
@@ -89,7 +104,7 @@ def main() -> int:
     print(smi.splitlines()[0], flush=True)
     sound = {f: (_build.CSRC / f).read_text() for f in FILES}
     sources = {"none": sound}
-    for name, (fname, old, new) in FAULTS.items():
+    for name, (fname, old, new, _) in FAULTS.items():
         if sound[fname].count(old) != 1:
             raise RuntimeError(f"fault {name}: {old!r} occurs "
                                f"{sound[fname].count(old)} times in {fname}")
@@ -98,13 +113,19 @@ def main() -> int:
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(args.seed)
+    shapes = [("narrow", blk, {"b": chip_smoke.B, **shp, "masked": True})
+              for blk, shp in chip_smoke.DENSE.items()]
+    shapes += [("wide", blk, shp)
+               for blk, shp in chip_smoke.DENSE_WIDE.items()]
     ok = True
-    for blk, shp in chip_smoke.DENSE.items():
+    for way, blk, shp in shapes:
         raw, ctr, w1, b1, w2, b2, mask = chip_smoke.dense_inputs(
-            gen, dev, chip_smoke.B, **{**shp, "masked": True})
+            gen, dev, **shp)
         ops = (raw, ctr, w1, b1, w2, b2)
         ref = gather_mlp_ref(*ops, mask=mask)
         for name, so in libs.items():
+            if name != "none" and way not in FAULTS[name][3]:
+                continue
             _build._LIBS["gather_mlp"] = ctypes.CDLL(str(so))
             before = _build.LAUNCHES["gather_mlp"]
             out = gather_mlp(*ops, mask=mask)
@@ -114,8 +135,9 @@ def main() -> int:
             err = (out - ref).abs().max().item()
             tol = chip_smoke.TOL * max(1.0, ref.abs().max().item())
             breaks = not err <= tol
-            print(json.dumps(dict(fault=name, block=blk, max_abs_err=err,
-                                  tol=tol, breaks=breaks)), flush=True)
+            print(json.dumps(dict(fault=name, route=way, block=blk,
+                                  max_abs_err=err, tol=tol,
+                                  breaks=breaks)), flush=True)
             ok &= breaks if name != "none" else not breaks
     _build._LIBS.pop("gather_mlp", None)
     print(json.dumps({"ok": ok, "limit": "1e-4 * max(1, max|plain|)"}))

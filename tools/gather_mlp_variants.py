@@ -2,6 +2,7 @@
 """Time text variants of the gather_mlp kernel side by side.
 
     python3 tools/gather_mlp_variants.py [--seed N] [--iters N]
+        [--only committed,one_pass,...] [--against DIR]
 
 Builds copies of ``src/repro_torch/csrc/gather_mlp.cu`` and
 ``tf32x3.cuh`` with one edit each (under ``build/repro_torch/variants/``;
@@ -13,8 +14,11 @@ JSON line per (variant, block, B): ms and max |Δ| against the plain
 version.  Most variants compute a wrong result on purpose: each removes
 one part of the kernel (the small TF32 products, the raw loads, the W
 stages, the epilogue's shuffles) so that its time shows that part's
-cost; the others are alternatives the kernel does not take.  Needs one
-CUDA device.
+cost; the others are alternatives the kernel does not take.  ``--only``
+keeps the named variants; ``--against DIR`` adds the sources of another
+tree (``gather_mlp.cu`` and ``tf32x3.cuh`` in DIR, e.g. a parent
+commit's ``src/repro_torch/csrc``) as the variant ``against``, timed in
+the same turns.  Needs one CUDA device.
 """
 from __future__ import annotations
 
@@ -74,6 +78,11 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--iters", type=int, default=50)
+    ap.add_argument("--only", default="",
+                    help="comma-separated variants to build (default all)")
+    ap.add_argument("--against", default="",
+                    help="a directory with another gather_mlp.cu and "
+                         "tf32x3.cuh, timed as the variant 'against'")
     args = ap.parse_args()
 
     import torch
@@ -91,7 +100,10 @@ def main() -> int:
     print(smi.splitlines()[0], flush=True)
     sound = {f: (_build.CSRC / f).read_text() for f in FILES}
     sources = {}
+    only = set(filter(None, args.only.split(",")))
     for name, edits in VARIANTS.items():
+        if only and name not in only:
+            continue
         texts = dict(sound)
         for fname, old, new in edits:
             if texts[fname].count(old) != 1:
@@ -99,6 +111,9 @@ def main() -> int:
                                    f"{texts[fname].count(old)} times")
             texts[fname] = texts[fname].replace(old, new)
         sources[name] = texts
+    if args.against:
+        sources["against"] = {f: (Path(args.against) / f).read_text()
+                              for f in FILES}
     libs, logs = build(sources, _build.BUILD_DIR / "variants" / "gather_mlp",
                        with_logs=True)
     for name, log in logs.items():
