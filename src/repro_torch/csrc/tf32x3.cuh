@@ -41,6 +41,26 @@ __device__ __forceinline__ void split(Frag<N>& f, const float (&v)[N]) {
   }
 }
 
+// As split, but the remainder is handed over as it is: mma.sync reads a
+// TF32 operand's top 19 bits, so the remainder is truncated there instead
+// of rounded (CUTLASS's fast 3xTF32).  Its error grows from 2^-12 to
+// 2^-11 of itself, about 2^-22 of the value, for one integer operation
+// less an element.
+template <int N>
+__device__ __forceinline__ void split_fast(Frag<N>& f, const float (&v)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    f.big[i] = to_tf32(v[i]);
+    f.small[i] = __float_as_uint(v[i] - __uint_as_float(f.big[i]));
+  }
+}
+
+template <bool Fast, int N>
+__device__ __forceinline__ void split_as(Frag<N>& f, const float (&v)[N]) {
+  if constexpr (Fast) split_fast(f, v);
+  else split(f, v);
+}
+
 // Fragment loads.  The A and B loads below agree on a permutation of k
 // inside each k8 step: the k = t and k = t + 4 slots of lane 4·g + t
 // read memory k 2t and 2t + 1.  The product sums over k, so it is unchanged,
@@ -48,7 +68,8 @@ __device__ __forceinline__ void split(Frag<N>& f, const float (&v)[N]) {
 
 // A fragment of the 16x8 tile at (row0, k0) of a row-major fp32 matrix in
 // shared memory with a row stride of lda floats (even; with lda ≡ 8 mod 32
-// each half-warp's 8-byte loads hit 32 distinct banks).
+// each half-warp's 8-byte loads hit 32 distinct banks).  Fast: split_fast.
+template <bool Fast = false>
 __device__ __forceinline__ Frag<4> load_a(const float* s, int lda, int row0,
                                           int k0, int lane) {
   const float* p = s + (row0 + (lane >> 2)) * lda + k0 + 2 * (lane & 3);
@@ -56,19 +77,36 @@ __device__ __forceinline__ Frag<4> load_a(const float* s, int lda, int row0,
   const float2 hi = *reinterpret_cast<const float2*>(p + 8 * lda);
   const float v[4] = {lo.x, hi.x, lo.y, hi.y};
   Frag<4> f;
-  split(f, v);
+  split_as<Fast>(f, v);
   return f;
 }
 
 // B fragment of the 8x8 tile at (k0, n0) of a row-major K x N fp32 matrix
 // in shared memory with a row stride of ldb floats (with ldb ≡ 4 mod 16
 // each load hits 32 distinct banks).
+template <bool Fast = false>
 __device__ __forceinline__ Frag<2> load_b(const float* s, int ldb, int k0,
                                           int n0, int lane) {
   const float* p = s + (k0 + 2 * (lane & 3)) * ldb + n0 + (lane >> 2);
   const float v[2] = {p[0], p[ldb]};
   Frag<2> f;
-  split(f, v);
+  split_as<Fast>(f, v);
+  return f;
+}
+
+// B fragment of the 8x8 tile at (k0, n0) of B = Xᵀ, read from X, a
+// row-major N x K fp32 matrix in shared memory with a row stride of ldx
+// floats (X's rows are B's columns; with ldx ≡ 8 mod 32 each half-warp's
+// 8-byte loads hit 32 distinct banks).  Slots t and t + 4 read k 2t and
+// 2t + 1, as load_a's do.
+template <bool Fast = false>
+__device__ __forceinline__ Frag<2> load_bt(const float* s, int ldx, int n0,
+                                           int k0, int lane) {
+  const float2 p = *reinterpret_cast<const float2*>(
+      s + (n0 + (lane >> 2)) * ldx + k0 + 2 * (lane & 3));
+  const float v[2] = {p.x, p.y};
+  Frag<2> f;
+  split_as<Fast>(f, v);
   return f;
 }
 

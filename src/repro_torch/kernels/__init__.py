@@ -15,7 +15,7 @@ A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches its kernel (built from ``csrc/`` with nvcc at first use) or
 raises.  :data:`LAUNCHES` counts the kernel launches per wrapper, and
 flash_attention's also per route (``flash_attention_wgmma``,
-``flash_attention_simt``).
+``flash_attention_mma``).
 """
 from ._build import _LOCK, BUILD_LOG, LAUNCHES, build
 

@@ -13,9 +13,9 @@ from .. import _build
 from .ref import attention_ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-MAX_D = 128
+MAX_D = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_VARIANTS = {"simt": 0, "wgmma": 1}
+_VARIANTS = {"mma": 0, "wgmma": 1}
 
 
 def _lib():
@@ -26,14 +26,18 @@ def _lib():
 
 
 def _variant(dtype, d: int, ptrs=()) -> str:
-    """The kernel a CUDA call takes: ``"wgmma"`` (bf16 products on the
-    tensor cores, fed by TMA, whose base addresses and rows must be
-    multiples of 16 bytes) for bfloat16 with D % 8 == 0 and every address
-    in ``ptrs`` 16-byte aligned, else ``"simt"`` (fp32 products on the
-    CUDA cores)."""
+    """The kernel a CUDA call takes: ``"wgmma"`` (bf16 products on
+    ``wgmma``, fed by TMA, whose base addresses and rows must be multiples
+    of 16 bytes) for bfloat16 with D % 8 == 0, D <= 128 and every address
+    in ``ptrs`` 16-byte aligned, else ``"mma"`` (``mma.sync``: f32 in
+    3xTF32, bf16 with fp32 accumulation).  Raises for D outside
+    1..MAX_D."""
+    if not 0 < d <= MAX_D:
+        raise ValueError(f"flash_attention: the kernels take 0 < D <= "
+                         f"{MAX_D}, got D={d}")
     aligned = all(p % 16 == 0 for p in ptrs)
-    return ("wgmma" if dtype == torch.bfloat16 and d % 8 == 0 and aligned
-            else "simt")
+    return ("wgmma" if dtype == torch.bfloat16 and d % 8 == 0 and d <= 128
+            and aligned else "mma")
 
 
 def flash_attention(q, k, v, causal: bool = True):
@@ -42,9 +46,9 @@ def flash_attention(q, k, v, causal: bool = True):
     q (B, Hq, Sq, D); k, v (B, Hkv, Skv, D) with Hq % Hkv == 0; float32 or
     bfloat16, all of one dtype.  -> (B, Hq, Sq, D) in q's dtype: softmax of
     q·kᵀ/sqrt(D) over the keys, with ``causal`` those j <= i (top-left),
-    times v; scores and softmax in float32 (the bf16 tensor-core route
-    rounds the probabilities to bf16 before the product with v; a bf16
-    operand that is not 16-byte aligned takes the CUDA-core kernel)."""
+    times v; scores and softmax in float32 (bf16 rounds the
+    probabilities to bf16 before the product with v; f32 runs its
+    products in 3xTF32).  On a CUDA device D <= 256."""
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"flash_attention: q and k must be 4-d, got "
                          f"{tuple(q.shape)} and {tuple(k.shape)}")
@@ -64,14 +68,14 @@ def flash_attention(q, k, v, causal: bool = True):
     if q.dtype not in _DTYPES:
         raise ValueError(f"flash_attention: dtype {q.dtype}, expected "
                          f"float32 or bfloat16")
-    if not 0 < d <= MAX_D or skv < 1:
-        raise ValueError(f"flash_attention: the kernel takes 0 < D <= "
-                         f"{MAX_D} and Skv >= 1, got D={d}, Skv={skv}")
+    if skv < 1:
+        raise ValueError(f"flash_attention: the kernels take Skv >= 1, got "
+                         f"Skv={skv}")
     _build.check_operands("flash_attention", {"q": q, "k": k, "v": v},
                           q.device, dict.fromkeys("qkv", q.dtype))
+    variant = _variant(q.dtype, d, [t.data_ptr() for t in (q, k, v)])
     out = torch.empty_like(q)
     if b * hq * sq:
-        variant = _variant(q.dtype, d, [t.data_ptr() for t in (q, k, v)])
         lib = _lib()
         code = lib.flash_attention_forward(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq,

@@ -116,6 +116,7 @@ def _torch(arrays, dtype=torch.float32):
     (2, 4, 2, 256, 64, True),
     (1, 4, 4, 64, 32, False),
     (1, 8, 2, 192, 16, True),     # ragged q tiles
+    (1, 2, 1, 128, 256, True),    # head_dim 256 (gemma_7b, paligemma_3b)
 ])
 def test_flash_attention_matches_jax(b, hq, hkv, s, d, causal):
     import jax.numpy as jnp
@@ -187,20 +188,28 @@ def test_flash_attention_ragged_kv_is_finite_and_right():
 @pytest.mark.parametrize("dtype,d,offset,want", [
     (torch.bfloat16, 16, 0, "wgmma"), (torch.bfloat16, 32, 0, "wgmma"),
     (torch.bfloat16, 64, 0, "wgmma"), (torch.bfloat16, 80, 0, "wgmma"),
-    (torch.bfloat16, 128, 0, "wgmma"), (torch.bfloat16, 65, 0, "simt"),
-    (torch.bfloat16, 128, 8, "wgmma"), (torch.bfloat16, 128, 1, "simt"),
-    (torch.bfloat16, 64, 4, "simt"),
-    (torch.float32, 16, 0, "simt"), (torch.float32, 65, 0, "simt"),
-    (torch.float32, 128, 0, "simt"),
+    (torch.bfloat16, 128, 0, "wgmma"), (torch.bfloat16, 65, 0, "mma"),
+    (torch.bfloat16, 128, 8, "wgmma"), (torch.bfloat16, 128, 1, "mma"),
+    (torch.bfloat16, 64, 4, "mma"),
+    (torch.float32, 16, 0, "mma"), (torch.float32, 65, 0, "mma"),
+    (torch.float32, 128, 0, "mma"),
+    (torch.bfloat16, 256, 0, "mma"), (torch.float32, 256, 0, "mma"),
+    (torch.bfloat16, 257, 0, ValueError), (torch.float32, 257, 0, ValueError),
 ])
 def test_flash_attention_variant(dtype, d, offset, want):
-    """bf16 rows of a multiple of 16 bytes at 16-byte aligned addresses
-    take the tensor cores; f32, other bf16 widths and a bf16 view at an
-    offset of ``offset`` elements into a flat buffer (aligned when the
-    offset is 16 bytes) the CUDA-core kernel."""
+    """bf16 rows of a multiple of 16 bytes, D <= 128, at 16-byte aligned
+    addresses take ``wgmma``; f32, other bf16 widths (D = 256 too) and a
+    bf16 view at an offset of ``offset`` elements into a flat buffer
+    (aligned when the offset is 16 bytes) the ``mma.sync`` kernel; D > 256
+    raises, with no fallback."""
     flat = torch.zeros(offset + 4 * d, dtype=dtype)
     view = flat[offset:].view(4, d)
     assert flat.data_ptr() % 16 == 0
+    if want is ValueError:
+        for ptrs in ((), [flat.data_ptr()]):
+            with pytest.raises(ValueError, match="D <= 256"):
+                _variant(dtype, d, ptrs)
+        return
     assert _variant(dtype, d) == _variant(dtype, d, [flat.data_ptr()])
     assert _variant(dtype, d, [flat.data_ptr(), view.data_ptr()]) == want
 
@@ -337,7 +346,10 @@ def test_flash_attention_kernel_matches_plain_on_card():
     g = torch.Generator().manual_seed(0)
     for b, hq, hkv, sq, skv, d, causal in ((1, 4, 2, 130, 130, 128, True),
                                            (2, 4, 1, 64, 96, 32, False),
-                                           (1, 2, 2, 64, 128, 80, True)):
+                                           (1, 2, 2, 64, 128, 80, True),
+                                           (1, 4, 4, 130, 130, 256, True),
+                                           (1, 8, 1, 70, 333, 256, False),
+                                           (1, 2, 1, 40, 40, 200, True)):
         for dt, tol in ((torch.float32, 2e-3), (torch.bfloat16, 3e-2)):
             q, k, v = (torch.randn(shape, generator=g).to(dev, dt)
                        for shape in ((b, hq, sq, d), (b, hkv, skv, d),
@@ -348,21 +360,25 @@ def test_flash_attention_kernel_matches_plain_on_card():
             torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                        atol=tol)
             assert _rel_err(got, want) <= _REL_TOL[dt]
-    # the bf16 CUDA-core route: D % 8 != 0 (ragged non-causal Skv, causal
-    # Sq = Skv off the tile), and D = 128 operands that are not 16-byte
-    # aligned (views at one element into flat buffers)
+    # the mma route in bf16: D % 8 != 0 (ragged non-causal Skv, causal
+    # Sq = Skv off the tile, odd D), D = 128 and D = 256 operands that are
+    # not 16-byte aligned (views at one element into flat buffers), and
+    # D = 256 aligned (GQA group 8, ragged non-causal Skv)
     for b, hq, hkv, sq, skv, d, causal, off in (
             (1, 8, 2, 200, 333, 100, False, 0),
             (2, 4, 4, 130, 130, 36, True, 0),
-            (1, 8, 2, 130, 200, 128, True, 1)):
+            (1, 4, 2, 130, 130, 65, True, 0),
+            (1, 8, 2, 130, 200, 128, True, 1),
+            (1, 4, 4, 130, 130, 256, True, 1),
+            (1, 8, 1, 70, 333, 256, False, 0)):
         q, k, v = (_at_offset(torch.randn(shape, generator=g).to(
                        dev, torch.bfloat16), off)
                    for shape in ((b, hq, sq, d), (b, hkv, skv, d),
                                  (b, hkv, skv, d)))
         assert (off == 0) == (q.data_ptr() % 16 == 0)
-        before = _build.LAUNCHES["flash_attention_simt"]
+        before = _build.LAUNCHES["flash_attention_mma"]
         got = flash_attention(q, k, v, causal=causal)
-        assert _build.LAUNCHES["flash_attention_simt"] == before + 1
+        assert _build.LAUNCHES["flash_attention_mma"] == before + 1
         want = attention_ref(q, k, v, causal=causal)
         assert bool(torch.isfinite(got).all())
         torch.testing.assert_close(got.float(), want.float(), rtol=3e-2,
