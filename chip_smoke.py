@@ -40,19 +40,25 @@ Phases, each timed, any failure exits non-zero:
      version and timed at the six blocks that take it (``DENSE_WIDE``);
      the CLI on a seg model (``SEG_CLI``: pointnext_s, 8 requests);
   7. entry kernels: drive ``knn`` (stage 1 of the first batch, both
-     blocks, every cloud), ``flash_attention`` (a Qwen2-72B layer, bf16 on
-     the ``wgmma`` route; the same bf16 at an address off 16 bytes and f32
-     on the ``mma`` one) and ``ssd_chunk`` (Mamba2-2.7B) once at full
-     width with the launch counts reset, then hold each output and some
-     ragged parity cases (head_dim 256 among them) against the plain
-     versions (flash: max |Δ| and ‖Δ‖/‖plain‖) and time all three, flash
-     also at a gemma_7b layer (head_dim 256) in f32 and bf16.
+     blocks, every cloud; block 1 again at k = 96 and 300; dgcnn_s's kNN,
+     one 8192-point cloud against itself, k = 20), ``flash_attention`` (a
+     Qwen2-72B layer, bf16 on the ``wgmma`` route; the same bf16 at an
+     address off 16 bytes and f32 on the ``mma`` one) and ``ssd_chunk``
+     (Mamba2-2.7B at chunks of 64 and 128) once at full width with the
+     launch counts reset (exactly one launch a call), then hold each
+     output and the parity cases (knn on integer grids, where the order
+     of ties must equal the plain version's; flash at head_dim 256;
+     ssd_chunk with ragged P, S and head tiles) against the plain
+     versions (flash: max |Δ| and ‖Δ‖/‖plain‖) and time all three: knn
+     also by its kernel time (``device_ms``, torch.profiler), flash also
+     at a gemma_7b layer (head_dim 256) in f32 and bf16.
 
 Output lines: the card's name and power limit (nvidia-smi), phase times,
-ptxas's registers and spills per kernel (gather_mlp and hub_reuse must
-not spill), the counts of HGMMA (wgmma) and HMMA (mma.sync) instructions
-in the built flash_attention library and of TF32 HMMA instructions in the
-gather_mlp and hub_reuse ones, ``parity``,
+ptxas's registers and spills per kernel (gather_mlp, hub_reuse and
+ssd_chunk must not spill), the counts of HGMMA (wgmma) and HMMA
+(mma.sync) instructions in the built flash_attention library and of TF32
+HMMA instructions in the gather_mlp, hub_reuse and ssd_chunk ones,
+``parity``,
 ``per_cloud`` and ``entry_parity``
 JSON lines, the serving reports (``serve_async``, ``serve_sync``,
 ``serve_chaos``, each beside the card's name and power limit) and the
@@ -168,8 +174,29 @@ SERVE_TIMEOUT_S = 0.1
 SERVE_CHAOS = "fail@1,nan@3"
 CLI_TRACE = 16
 # Mamba2-2.7B's SSD (src/repro/configs/mamba2_2p7b.py: d_inner 5120 = 80
-# heads of 64, state 128, chunk 64) over a 2048-token sequence: 32 chunks
-MAMBA2_2P7B = dict(bs=1, nc=32, q=64, h=80, p=64, s=128)
+# heads of 64, state 128, chunk 64) over a 2048-token sequence: 32 chunks;
+# and the same layer at src/repro/nn/ssm.py's default chunk, 128: 16 chunks
+SSD_LAYERS = {"mamba2_2p7b": dict(bs=1, nc=32, q=64, h=80, p=64, s=128),
+              "mamba2_2p7b_q128": dict(bs=1, nc=16, q=128, h=80, p=64,
+                                       s=128)}
+# parity only: ssd_chunk where its tiles run ragged, (bs, nc, q, H, P, S):
+# two P and two S tiles at chunk 128, H not a multiple of any head group,
+# and q, P, S off every tile
+SSD_PARITY = ((1, 2, 128, 6, 128, 256), (1, 3, 50, 7, 36, 100),
+              (2, 2, 100, 5, 130, 131))
+# knn beyond the main path's two blocks: k = 96 and 300 on block 1's
+# clouds (8 calls each), and dgcnn_s's EdgeConv kNN with the "all"
+# sampler: one S3DIS-like cloud of 8192 points, every point a center
+KNN_WIDE_K = (96, 300)
+DGCNN_S_KNN = dict(n=8192, k=20)
+# parity only, (S, N, k): knn on integer grid points (coordinates in 0..7),
+# where the distances are exact and most of them tie, so the order among
+# ties is decided by the index and must equal the plain version's
+# everywhere: 4 warps a center (k = 32; k = 300 in memory lists), 2
+# centers a warp (dgcnn_s's shape), every point (k = N, 2 warps a center),
+# and lists past shared memory (k = 1600, in device memory)
+KNN_TIES = ((512, 900, 32), (512, 900, 300), (8192, 8192, 20),
+            (64, 100, 100), (2560, 4096, 1600))
 
 
 def log(msg: str) -> None:
@@ -932,16 +959,83 @@ def entry_inputs(gen, dev):
             for h in (f["hq"], f["hkv"], f["hkv"]))
     qkv["bfloat16_unaligned"] = tuple(at_offset(t, 1)
                                       for t in qkv["bfloat16"])
-    m = MAMBA2_2P7B
-    lead = (m["bs"], m["nc"], m["q"])
+    ssd = {name: ssd_inputs(gen, dev, **m) for name, m in SSD_LAYERS.items()}
+    return qkv, ssd
+
+
+def ssd_inputs(gen, dev, bs, nc, q, h, p, s):
+    """ssd_chunk's inputs as tests/test_kernels.py draws them: dt in
+    [0.1, 1], cum a negative cumulative sum over the chunk."""
+    import torch
+    lead = (bs, nc, q)
     u = lambda lo, hi, shape: lo + (hi - lo) * torch.rand(
         shape, generator=gen, device=dev)
-    ssd = (torch.randn((*lead, m["h"], m["p"]), generator=gen, device=dev),
-           torch.randn((*lead, m["s"]), generator=gen, device=dev),
-           torch.randn((*lead, m["s"]), generator=gen, device=dev),
-           u(0.1, 1.0, (*lead, m["h"])),
-           -torch.cumsum(u(0.01, 0.2, (*lead, m["h"])), dim=2))
-    return qkv, ssd
+    return (torch.randn((*lead, h, p), generator=gen, device=dev),
+            torch.randn((*lead, s), generator=gen, device=dev),
+            torch.randn((*lead, s), generator=gen, device=dev),
+            u(0.1, 1.0, (*lead, h)),
+            -torch.cumsum(u(0.01, 0.2, (*lead, h)), dim=2))
+
+
+def main_batch(seed, dev):
+    """The main path's (8, 1024) batch of seeded ModelNet-sized clouds."""
+    import numpy as np
+    import torch
+    from repro_torch import random
+    from repro_torch.engine import Batch
+    rng = np.random.default_rng(seed)
+    return Batch.from_clouds(
+        make_requests(rng, B), key=random.fold_in(
+            random.PRNGKey(seed, dev), torch.arange(B, device=dev)),
+        n_pad=N_PAD, device=dev)
+
+
+def knn_call_sets(spec, batch, seed, dev) -> dict:
+    """knn's calls, named: stage 1 of ``batch`` (block 1: each cloud's
+    centers against its points; block 2: its block-2 centers against its
+    block-1 centers; one call a cloud), block 1's calls again at k = 96
+    and 300, and dgcnn_s's kNN (one seeded S3DIS-like cloud of 8192
+    points against itself, k = 20)."""
+    import numpy as np
+    import torch
+    from repro_torch.data.synthetic import make_cloud
+    from repro_torch.engine import archs
+    ctx = archs.EngineCtx.make("lpcn", "cuda")
+    structs, _ = archs._structure_stack_b(spec, ctx, batch.xyz, batch.keys,
+                                          batch.n_valid)
+    nv = batch.n_valid.tolist()
+    sets = {
+        "blk1": [(structs[0].center_xyz[i].contiguous(),
+                  batch.xyz[i, :nv[i]].contiguous(), spec.blocks[0].k)
+                 for i in range(len(nv))],
+        "blk2": [(structs[1].center_xyz[i].contiguous(),
+                  structs[0].center_xyz[i].contiguous(), spec.blocks[1].k)
+                 for i in range(len(nv))]}
+    for k in KNN_WIDE_K:
+        sets[f"blk1_k{k}"] = [(c, p, k) for c, p, _ in sets["blk1"]]
+    cloud = torch.from_numpy(make_cloud(np.random.default_rng(seed),
+                                        DGCNN_S_KNN["n"], scene_like=True))
+    cloud = cloud.to(dev)
+    sets["dgcnn_s"] = [(cloud, cloud, DGCNN_S_KNN["k"])]
+    return sets, structs
+
+
+def device_ms(fn, name: str, iters: int = 10) -> float | None:
+    """Device time of the kernels whose name holds ``name``, per call of
+    ``fn`` (torch.profiler's CUDA kernel time over ``iters`` calls after
+    a warm-up); None where the profiler recorded no such kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.device_time for e in prof.events()
+          if e.device_type == DeviceType.CUDA and name in e.name]
+    return sum(us) / iters / 1e3 if us else None
 
 
 def flash_row(layer: str, f: dict, name: str, q, k, v, out):
@@ -1002,81 +1096,43 @@ def flash_row(layer: str, f: dict, name: str, q, k, v, out):
     return parity, row
 
 
-def entry_phase(dev, seed, spec, batch):
-    """The three entry-point kernels.  Drive each once at full width with
-    the launch counts reset (knn on stage 1 of ``batch``: every cloud, both
-    blocks; flash_attention at a Qwen2-72B layer in bf16, unaligned bf16
-    and f32; ssd_chunk
-    at Mamba2-2.7B), read the counts, then hold each output against its
-    plain version, run the ragged parity cases and time every shape.
-    -> (launch counts, parity rows, kernel rows without launches)."""
+def knn_rows(knn_sets, knn_out, structs):
+    """knn's parity and timed rows: each named set of calls held against
+    the plain version (distances within 1e-5 · max(1, max|d|), indices
+    equal wherever the distance order is decided; the main path's blocks
+    also against stage 1's neighbours), then timed: wall (``ms``, CUDA
+    events around the calls, host gaps included) and the kernel's own
+    time (``device_ms``, torch.profiler); then the integer-grid cases of
+    ``KNN_TIES``, where every index must equal the plain version's."""
     import torch
-    from repro_torch import kernels
-    from repro_torch.engine import archs
-    from repro_torch.kernels.flash_attention import (attention_ref,
-                                                     flash_attention)
-    from repro_torch.kernels.flash_attention.ops import _variant
     from repro_torch.kernels.knn import knn, knn_ref
-    from repro_torch.kernels.ssd_chunk import ssd_chunk, ssd_chunk_ref
-    ctx = archs.EngineCtx.make("lpcn", "cuda")
-    structs, _ = archs._structure_stack_b(spec, ctx, batch.xyz, batch.keys,
-                                          batch.n_valid)
-    nv = batch.n_valid.tolist()
-    knn_calls = {
-        "blk1": [(structs[0].center_xyz[i].contiguous(),
-                  batch.xyz[i, :nv[i]].contiguous(), spec.blocks[0].k)
-                 for i in range(len(nv))],
-        "blk2": [(structs[1].center_xyz[i].contiguous(),
-                  structs[0].center_xyz[i].contiguous(), spec.blocks[1].k)
-                 for i in range(len(nv))]}
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    qkv, ssd_args = entry_inputs(gen, dev)
-    torch.cuda.synchronize()
-
-    # ---- the entry points, once each, counted ---------------------------
-    kernels.reset_launch_counts()
-    knn_out = {blk: [knn(*a) for a in calls]
-               for blk, calls in knn_calls.items()}
-    flash_out = {key: flash_attention(*a, causal=True)
-                 for key, a in qkv.items()}
-    ssd_out = ssd_chunk(*ssd_args)
-    torch.cuda.synchronize()
-    launches = kernels.launch_counts()
-    for name in ("knn", "flash_attention", "ssd_chunk"):
-        check(launches[name] >= 1, f"{name} did not launch in its phase")
-    check(launches["gather_mlp"] == launches["hub_reuse"] == 0,
-          f"FC kernels launched in the entry phase: {launches}")
-    routes = {v: kernels.LAUNCHES[f"flash_attention_{v}"]
-              for v in ("wgmma", "mma")}
-    log(json.dumps({"flash_attention_routes": routes}))
-    check(routes == {"wgmma": 1, "mma": 2}, f"flash_attention routes "
-          f"{routes}: bf16 should take wgmma, unaligned bf16 and f32 mma")
-
+    from repro_torch.kernels.knn.ops import plan
     parity, rows = [], []
-    src = "src/repro_torch/csrc/"
-    # ---- knn --------------------------------------------------------------
-    for i_blk, (blk, calls) in enumerate(knn_calls.items()):
+    for name, calls in knn_sets.items():
         err, tol, wrong, decided_wrong, vs_stage1 = 0.0, 0.0, 0, 0, 0
-        for cloud, (args, (d, i)) in enumerate(zip(calls, knn_out[blk])):
-            c, p, k = args
+        for cloud, ((c, p, k), (d, i)) in enumerate(zip(calls,
+                                                        knn_out[name])):
             d_ext, i_ext = knn_ref(c, p, min(k + 1, p.shape[0]))
             d_next = (d_ext[:, k:] if k < p.shape[0]
                       else torch.full_like(d_ext[:, :1], float("inf")))
             e, t, w, dw = knn_mismatch(d, i, d_ext[:, :k], i_ext[:, :k],
                                        d_next)
-            check(e <= t, f"knn {blk} cloud {cloud}: max|err| {e} > {t}")
+            check(e <= t, f"knn {name} call {cloud}: max|err| {e} > {t}")
             err, tol = max(err, e), max(tol, t)
             wrong, decided_wrong = wrong + w, decided_wrong + dw
-            nbr = structs[i_blk].nbr[cloud]
-            vs_stage1 += int((nbr != i.long()).any(-1).sum())
-        parity.append(dict(name="knn", block=blk, max_abs_err=err, tol=tol,
-                           idx_mismatch=wrong,
-                           idx_mismatch_decided=decided_wrong,
-                           rows_differing_from_stage1_nbr=vs_stage1))
-        check(decided_wrong == 0, f"knn {blk}: {decided_wrong} indices "
+            if name in ("blk1", "blk2"):
+                nbr = structs[int(name[-1]) - 1].nbr[cloud]
+                vs_stage1 += int((nbr != i.long()).any(-1).sum())
+        row = dict(name="knn", block=name, max_abs_err=err, tol=tol,
+                   idx_mismatch=wrong, idx_mismatch_decided=decided_wrong)
+        if name in ("blk1", "blk2"):
+            row["rows_differing_from_stage1_nbr"] = vs_stage1
+        parity.append(row)
+        check(decided_wrong == 0, f"knn {name}: {decided_wrong} indices "
               f"differ where the distance order is decided")
         ms, plain_ms = time_pair(lambda: [knn(*a) for a in calls],
                                  lambda: [knn_ref(*a) for a in calls])
+        dev_ms = device_ms(lambda: [knn(*a) for a in calls], "knn_kernel")
         n_pts = [a[1].shape[0] for a in calls]
         s, k = calls[0][0].shape[0], calls[0][2]
         # 9 flops a (center, point) pair: c·p and the expanded form
@@ -1084,12 +1140,122 @@ def entry_phase(dev, seed, spec, batch):
         nbytes_ = sum(4 * (3 * s + 3 * n + 2 * s * k) for n in n_pts)
         bms, by = bound(flops, nbytes_)
         rows.append(dict(
-            name="knn", block=blk, route="cuda", source=src + "knn.cu",
+            name="knn", block=name, route="cuda",
+            source="src/repro_torch/csrc/knn.cu",
             replaces="src/repro/kernels/knn/knn.py:86",
-            shape=f"{len(calls)} calls, one per cloud: S={s} "
+            shape=f"{len(calls)} call(s), one per cloud: S={s} "
                   f"N={min(n_pts)}..{max(n_pts)} k={k}",
+            plan=plan(s, max(n_pts), k), max_abs_err=err, ms=ms,
+            device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+            library_ms=None))
+    gen = torch.Generator(device=knn_out["blk1"][0][0].device)
+    gen.manual_seed(1)
+    for s, n, k in KNN_TIES:
+        c, p = (torch.randint(0, 8, (m, 3), generator=gen,
+                              device=gen.device).float() for m in (s, n))
+        d, i = knn(c, p, k)
+        d0, i0 = knn_ref(c, p, k)
+        wrong = int((i != i0).sum())
+        parity.append(dict(name="knn", block=f"ties S={s} N={n} k={k}",
+                           plan=plan(s, n, k), idx_mismatch=wrong,
+                           dists_equal=bool(torch.equal(d, d0))))
+        check(wrong == 0 and bool(torch.equal(d, d0)), f"knn ties S={s} "
+              f"N={n} k={k}: {wrong} indices differ from the plain version")
+    return parity, rows
+
+
+def ssd_rows(ssd_args, ssd_out, gen, dev):
+    """ssd_chunk's parity and timed rows at each layer of ``SSD_LAYERS``
+    (y_in and the states within 2e-4 · max(1, max|plain|), the JAX
+    package's own tolerance), the TF32 HMMA count and ptxas's spills of
+    its library beside each, and the ragged ``SSD_PARITY`` shapes."""
+    from repro_torch.kernels import BUILD_LOG
+    from repro_torch.kernels.ssd_chunk import ssd_chunk, ssd_chunk_ref
+    hmma = sass_count("ssd_chunk", "HMMA", "TF32")
+    spill = spilled_bytes(BUILD_LOG["ssd_chunk"])
+    parity, rows = [], []
+
+    def held(shape, args, out):
+        worst = (0.0, 0.0)
+        for part, o, r in zip(("y_in", "states"), out, ssd_chunk_ref(*args)):
+            e = (o - r).abs().max().item()
+            t = 2e-4 * max(1.0, r.abs().max().item())
+            parity.append(dict(name="ssd_chunk", shape=shape, part=part,
+                               max_abs_err=e, tol=t))
+            check(e <= t, f"ssd_chunk {shape} {part}: max|err| {e} > {t}")
+            worst = max(worst, (e, t))
+        return worst
+
+    for name, m in SSD_LAYERS.items():
+        args = ssd_args[name]
+        err, _ = held(name, args, ssd_out[name])
+        ms, plain_ms = time_pair(lambda: ssd_chunk(*args),
+                                 lambda: ssd_chunk_ref(*args))
+        bn, q, h, p, s = m["bs"] * m["nc"], m["q"], m["h"], m["p"], m["s"]
+        # C·Bᵀ once a chunk; M·x over the q(q+1)/2 pairs i >= j and the
+        # state product per head; 3xTF32: three TF32 products for each
+        flops = 2.0 * bn * (q * q * s + h * p * (q * (q + 1) // 2 + s * q))
+        moved = nbytes(*args, *ssd_out[name])
+        bms, by = bound(3 * flops, moved, PEAK_TF32)
+        rows.append(dict(
+            name="ssd_chunk", block=name, route="cuda",
+            source="src/repro_torch/csrc/ssd_chunk.cu",
+            replaces="src/repro/kernels/ssd_chunk/ssd_chunk.py:64",
+            shape=f"bs={m['bs']} nc={m['nc']} q={q} H={h} P={p} S={s}",
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-            bound_by=by, library_ms=None))
+            bound_by=by, bound_fp32_ms=bound(flops, moved)[0],
+            library_ms=None, sass_count=hmma, spill_bytes=spill))
+    for shp in SSD_PARITY:
+        args = ssd_inputs(gen, dev, *shp)
+        held("bs={} nc={} q={} H={} P={} S={}".format(*shp), args,
+             ssd_chunk(*args))
+    return parity, rows
+
+
+def entry_phase(dev, seed, spec, batch):
+    """The three entry-point kernels.  Drive each once at full width with
+    the launch counts reset (knn on ``knn_call_sets``: stage 1 of
+    ``batch``, every cloud, both blocks, block 1 at k = 96 and 300, and
+    dgcnn_s's cloud; flash_attention at a Qwen2-72B layer in bf16,
+    unaligned bf16 and f32; ssd_chunk at Mamba2-2.7B with chunks of 64 and
+    128), read the counts (each wrapper exactly once a call), then hold
+    each output against its plain version, run the parity cases and time
+    every shape.  -> (launch counts, parity rows, kernel rows without
+    launches)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention)
+    from repro_torch.kernels.flash_attention.ops import _variant
+    from repro_torch.kernels.knn import knn
+    from repro_torch.kernels.ssd_chunk import ssd_chunk
+    knn_sets, structs = knn_call_sets(spec, batch, seed, dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    qkv, ssd_args = entry_inputs(gen, dev)
+    torch.cuda.synchronize()
+
+    # ---- the entry points, once each, counted ---------------------------
+    kernels.reset_launch_counts()
+    knn_out = {name: [knn(*a) for a in calls]
+               for name, calls in knn_sets.items()}
+    flash_out = {key: flash_attention(*a, causal=True)
+                 for key, a in qkv.items()}
+    ssd_out = {name: ssd_chunk(*a) for name, a in ssd_args.items()}
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    want = {"gather_mlp": 0, "hub_reuse": 0,
+            "knn": sum(len(calls) for calls in knn_sets.values()),
+            "flash_attention": len(qkv), "ssd_chunk": len(ssd_args)}
+    check(launches == want, f"entry phase launches {launches}, expected "
+          f"one a call: {want}")
+    routes = {v: kernels.LAUNCHES[f"flash_attention_{v}"]
+              for v in ("wgmma", "mma")}
+    log(json.dumps({"flash_attention_routes": routes}))
+    check(routes == {"wgmma": 1, "mma": 2}, f"flash_attention routes "
+          f"{routes}: bf16 should take wgmma, unaligned bf16 and f32 mma")
+
+    # ---- knn --------------------------------------------------------------
+    parity, rows = knn_rows(knn_sets, knn_out, structs)
     # ---- flash_attention ---------------------------------------------------
     for name, (q, k, v) in qkv.items():
         p_row, k_row = flash_row("qwen2_72b", QWEN2_72B, name, q, k, v,
@@ -1131,32 +1297,8 @@ def entry_phase(dev, seed, spec, batch):
               f"flash_attention parity {parity[-1]['shape']} {name} "
               f"causal={causal}: {e}, limits {tol}, {rel_tol}")
     # ---- ssd_chunk ---------------------------------------------------------
-    m = MAMBA2_2P7B
-    y, st = ssd_out
-    y_ref, st_ref = ssd_chunk_ref(*ssd_args)
-    err, tol = 0.0, 0.0
-    for part, out, ref in (("y_in", y, y_ref), ("states", st, st_ref)):
-        e = (out - ref).abs().max().item()
-        t = 2e-4 * max(1.0, ref.abs().max().item())
-        parity.append(dict(name="ssd_chunk", shape="mamba2_2p7b", part=part,
-                           max_abs_err=e, tol=t))
-        check(e <= t, f"ssd_chunk {part}: max|err| {e} > {t}")
-        err, tol = max(err, e), max(tol, t)
-    ms, plain_ms = time_pair(lambda: ssd_chunk(*ssd_args),
-                             lambda: ssd_chunk_ref(*ssd_args))
-    bn, q, h, p, s = m["bs"] * m["nc"], m["q"], m["h"], m["p"], m["s"]
-    # C·Bᵀ once a chunk; M·x over the q(q+1)/2 pairs i >= j and the state
-    # product per head
-    flops = 2.0 * bn * (q * q * s + h * p * (q * (q + 1) // 2 + s * q))
-    bms, by = bound(flops, nbytes(*ssd_args, y, st))
-    rows.append(dict(
-        name="ssd_chunk", block="mamba2_2p7b", route="cuda",
-        source=src + "ssd_chunk.cu",
-        replaces="src/repro/kernels/ssd_chunk/ssd_chunk.py:64",
-        shape=f"bs={m['bs']} nc={m['nc']} q={q} H={h} P={p} S={s}",
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-        bound_by=by, library_ms=None))
-    return launches, parity, rows
+    p_rows, k_rows = ssd_rows(ssd_args, ssd_out, gen, dev)
+    return launches, parity + p_rows, rows + k_rows
 
 
 def main() -> int:
@@ -1166,14 +1308,13 @@ def main() -> int:
                     help="also trace one lpcn forward with torch.profiler")
     args = ap.parse_args()
 
-    import numpy as np
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    from repro_torch import kernels, random
+    from repro_torch import kernels
     from repro_torch.device import resolve_device
-    from repro_torch.engine import Batch, PCNEngine
+    from repro_torch.engine import PCNEngine
     from repro_torch.models.pointnet2 import POINTNET2_C
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1199,7 +1340,7 @@ def main() -> int:
         f"instructions")
     check(hgmma > 0, "the flash_attention library has no HGMMA (wgmma)")
     check(hmma > 0, "the flash_attention library has no HMMA (mma.sync)")
-    for name in ("gather_mlp", "hub_reuse"):
+    for name in ("gather_mlp", "hub_reuse", "ssd_chunk"):
         check(spilled_bytes(kernels.BUILD_LOG[name]) == 0,
               f"ptxas reports spills in {name}")
         hmma = sass_count(name, "HMMA", "TF32")
@@ -1229,11 +1370,7 @@ def main() -> int:
 
     # one (8, 1024) batch of the earlier slices' requests (the same clouds
     # and keys), input of the stage times and the phases below
-    rng = np.random.default_rng(args.seed)
-    batch = Batch.from_clouds(
-        make_requests(rng, B), key=random.fold_in(
-            random.PRNGKey(args.seed, dev), torch.arange(B, device=dev)),
-        n_pad=N_PAD, device=dev)
+    batch = main_batch(args.seed, dev)
     err, tol = close(engine.apply(params, batch),
                      reference.apply(params, batch))
     log(f"lpcn cuda vs reference: max|err| {err:.3g} (tol {tol:.3g})")

@@ -1,4 +1,4 @@
-// ssd_chunk: the Mamba-2 SSD intra-chunk block, fp32.
+// ssd_chunk: the Mamba-2 SSD intra-chunk block, fp32 on the tensor cores.
 //
 // Replaces the Pallas TPU kernel ssd_chunk_pallas
 // (src/repro/kernels/ssd_chunk/ssd_chunk.py, body _ssd_chunk_kernel): for
@@ -12,150 +12,421 @@
 //                   B[j, s]
 //
 // The exponential is taken only where i >= j: above the diagonal cum_i -
-// cum_j is positive and can overflow, and inf * 0 would be NaN.
+// cum_j is positive and can overflow, and inf * 0 would be NaN.  Any
+// q <= 128 (kQMax), any P and S.
 //
 // What bounds it on an H100: at Mamba2-2.7B's widths (H = 80, P = 64,
 // S = 128, chunk q = 64, a 2048-token sequence: 32 chunks) the outputs
-// alone are 126 MB (y 42 MB, states 84 MB) against ~3.4 GFLOP, so bytes
-// and operations bound it about equally, near 0.05 ms each.  The TPU
-// kernel loops over all heads of a chunk in one grid step; here heads are
-// in the grid, as groups of kHeads = 4 that share one CB tile (grid
-// (bs * nc, H / 4): 640 blocks at full width).  A block holds B (q x S),
-// C (q x S, whose space M and x[:, h, :] take once CB is built), CB (q x q)
-// and the head's decay weights in shared memory, 84 KB at full width, so
-// two blocks fit on an SM.  Every product runs from shared memory with each
-// thread owning a 4 x 4 (CB, y) or 4 x 8 (states) register tile, strided by
-// 16 so a warp's reads hit distinct banks (rows padded by one).  y and the
-// states stream out once, contiguous along P and S.
+// alone are 126 MB (y 42 MB, states 84 MB), 0.05 ms at 3.35 TB/s, against
+// ~3.4 GFLOP, ~10 GFLOP of TF32 products in 3xTF32: about as long on
+// mma.sync.  So the products run on the tensor cores and the loads hide
+// under them:
+//
+// - A block takes one chunk and a group of HG heads (chosen on the host
+//   so the grid fills the SMs in whole waves).  C.B^T is built once a
+//   block into shared memory (skipping the 32-column groups wholly above
+//   the diagonal); each head then runs two products on 8 warps, all in
+//   3xTF32 mma.sync m16n8k8 (csrc/tf32x3.cuh: fp32 split into TF32 big
+//   and small parts in registers, three products summed in fp32).
+// - y = M x: a warp owns two 16-row strips r and n - 1 - r (equal work
+//   under the triangle) and a share of P's n8 tiles.  M is never stored:
+//   the warp loads C.B^T's A fragments, scales each value by
+//   exp(cum_i - cum_j) dt_j or masks it to 0 above the diagonal in
+//   registers (the exponential's value dropped, never multiplied by 0),
+//   and splits it there; the k steps wholly above the diagonal are
+//   skipped.  w_j = exp(cum_end - cum_j) dt_j for the states goes to
+//   shared memory once a head.
+// - states = (x w)^T B: a warp owns a 32 x 32 tile of the 64 x 128 (P x
+//   S) tile, two m16 tiles by four n8 tiles, so each fragment serves
+//   more than one product; the A fragments are read from x transposed
+//   (row stride = 4 mod 32: no bank conflict) and scaled by w.
+// - The next head's x, cum and dt stream into the other half of a double
+//   buffer by cp.async, issued after y so the copies queue behind the
+//   states' products; y and the states are written from the accumulators
+//   as 8-byte pairs (each n8 tile row a whole 32-byte sector).
+// - P runs in 64-column tiles and S in 128-column tiles; with S > 128 the
+//   B tile is reloaded for each states tile (correct, not tuned).
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "tf32x3.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTx = 16, kTy = 16;
-constexpr int kHeads = 4;               // heads per block, sharing CB
-constexpr int kQMax = 64, kPMax = 64, kSMax = 128;
-constexpr int kQT = kQMax / kTy;        // CB and y rows per thread
-constexpr int kCT = kQMax / kTx;        // CB columns per thread
-constexpr int kPT = kPMax / kTx;        // y columns / state rows per thread
-constexpr int kST = kSMax / kTx;        // state columns per thread
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
+constexpr int kQMax = 128;            // chunk length
+constexpr int kPT = 64, kST = 128;    // P and S tiles
+constexpr int kLdX = kPT + 4;         // x rows: = 4 mod 32
+constexpr int kLdB = kST + 4;         // B rows: = 4 mod 16 (B fragments)
+constexpr int kLdC = kST + 8;         // C rows: = 8 mod 32 (A fragments)
+constexpr int kMaxSmem = 232448 - 1024;
+constexpr int kMaxHeads = 16;
 
+struct Params {
+  const float* x;
+  const float* B;
+  const float* C;
+  const float* dt;
+  const float* cum;
+  float* y;
+  float* st;
+  int H, Q, P, S;
+  int QP;      // Q rounded up to 16
+  int ldcb;    // row stride of C.B^T: = 8 mod 32
+  int HG;      // heads a block
+  int nP, nS;  // P and S tiles
+  int vx;      // x rows 16-byte aligned: cp.async of 16 bytes
+  int vbc;     // B and C rows 16-byte aligned
+  int vy, vst; // y and the states in 8-byte pairs
+};
+
+// n floats of each of rows rows, from src + r * stride to dst + r * ld,
+// 16 bytes at a time where vec, else 4
+__device__ __forceinline__ void load_rows(float* dst, int ld,
+                                          const float* src, long long stride,
+                                          int rows, int n, bool vec) {
+  if (vec && n == kPT) {
+    for (int e = threadIdx.x; e < rows * (kPT / 4); e += kThreads) {
+      const int r = e >> 4, c = (e & 15) << 2;
+      tf32x3::cp_async16(dst + r * ld + c, src + r * stride + c);
+    }
+  } else if (vec) {
+    const int per = n >> 2;
+    for (int e = threadIdx.x; e < rows * per; e += kThreads) {
+      const int r = e / per, c = (e - r * per) << 2;
+      tf32x3::cp_async16(dst + r * ld + c, src + r * stride + c);
+    }
+  } else {
+    for (int e = threadIdx.x; e < rows * n; e += kThreads) {
+      const int r = e / n, c = e - r * n;
+      tf32x3::cp_async4(dst + r * ld + c, src + r * stride + c);
+    }
+  }
+}
+
+// zero columns [c0, c1) of rows rows
+__device__ __forceinline__ void zero_cols(float* dst, int ld, int rows,
+                                          int c0, int c1) {
+  const int w = c1 - c0;
+  if (w <= 0) return;
+  for (int e = threadIdx.x; e < rows * w; e += kThreads) {
+    const int r = e / w;
+    dst[r * ld + c0 + e - r * w] = 0.f;
+  }
+}
+
+// x of head h, P tile pt, and the head's cum and dt, into one half of the
+// double buffer (rows >= Q stay zero)
+__device__ __forceinline__ void load_head(const Params& p, long long bn,
+                                          int h, int pt, float* xs,
+                                          float* cums, float* dts) {
+  const int p0 = pt * kPT, w = min(kPT, p.P - p0);
+  load_rows(xs, kLdX, p.x + (bn * p.Q * p.H + h) * p.P + p0,
+            (long long)p.H * p.P, p.Q, w, p.vx);
+  for (int e = threadIdx.x; e < p.Q; e += kThreads) {
+    tf32x3::cp_async4(cums + e, p.cum + (bn * p.Q + e) * p.H + h);
+    tf32x3::cp_async4(dts + e, p.dt + (bn * p.Q + e) * p.H + h);
+  }
+}
+
+// S tile sti of B (and of C, for C.B^T) into shared memory; the columns
+// past S zeroed when zero_pad (C.B^T sums over them)
+__device__ __forceinline__ void load_bc(const Params& p, long long bn,
+                                        int sti, float* bs, float* cs,
+                                        bool zero_pad) {
+  const int s0 = sti * kST, w = min(kST, p.S - s0);
+  const long long off = bn * p.Q * p.S + s0;
+  load_rows(bs, kLdB, p.B + off, p.S, p.Q, w, p.vbc);
+  if (cs) load_rows(cs, kLdC, p.C + off, p.S, p.Q, w, p.vbc);
+  if (zero_pad && w < kST) {
+    zero_cols(bs, kLdB, p.Q, w, kST);
+    if (cs) zero_cols(cs, kLdC, p.Q, w, kST);
+  }
+}
+
+// M[i, j] from CB[i, j]: the decay exp(cum_i - cum_j) dt_j where i >= j
+// (on), else 0 (the exponential's value is dropped, not multiplied by 0)
+__device__ __forceinline__ float decay(float cb, float ci, float cj, float dj,
+                                       bool on) {
+  return on ? cb * __expf(ci - cj) * dj : 0.f;
+}
+
+// a pair of outputs at (row, col) and (row, col + 1) of a row-major
+// matrix with cols columns: one 8-byte store where vec
+__device__ __forceinline__ void store2(float* out, long long off, int col,
+                                       int cols, float a, float b, bool vec) {
+  if (vec) {
+    if (col < cols)
+      *reinterpret_cast<float2*>(out + off) = make_float2(a, b);
+  } else {
+    if (col < cols) out[off] = a;
+    if (col + 1 < cols) out[off + 1] = b;
+  }
+}
+
+template <int NT>   // n8 tiles of P a warp owns in y = M x
 __global__ void __launch_bounds__(kThreads, 2)
-ssd_chunk_kernel(const float* __restrict__ x, const float* __restrict__ Bm,
-                 const float* __restrict__ Cm, const float* __restrict__ dt,
-                 const float* __restrict__ cum, float* __restrict__ y,
-                 float* __restrict__ st, int H, int Q, int P, int S) {
-  extern __shared__ float smem[];
-  const int ls = S + 1, lq = Q + 1, lp = P + 1;
-  float* bs = smem;                               // Q x ls
-  float* cs = bs + Q * ls;                        // Q x ls, until CB is built
-  float* ms = cs;                                 // Q x lq, per head
-  float* xs = ms + Q * lq;                        // Q x lp, per head
-  float* cb = cs + max(Q * ls, Q * lq + Q * lp);  // Q x lq
-  float* ws = cb + Q * lq;                        // Q: decay to chunk end
-  float* cums = ws + Q;                           // Q
-  float* dts = cums + Q;                          // Q
-  const int tid = threadIdx.x, tx = tid % kTx, ty = tid / kTx;
-  const long long bn = blockIdx.x;                // b * nc + n
-  const int h0 = blockIdx.y * kHeads;
+ssd_chunk_kernel(const Params p) {
+  extern __shared__ __align__(16) float smem[];
+  const int QP = p.QP;
+  float* bs = smem;                          // QP x kLdB
+  float* cbs = bs + QP * kLdB;               // QP x ldcb
+  float* xs = cbs + QP * p.ldcb;             // 2 x QP x kLdX
+  float* cs = xs;                            // QP x kLdC, until C.B^T
+  float* cums = xs + 2 * QP * kLdX;          // 2 x QP
+  float* dts = cums + 2 * QP;                // 2 x QP
+  float* ws = dts + 2 * QP;                  // QP: the head's decay to
+                                             // the chunk end, w_j
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const long long bn = blockIdx.x;           // b * nc + n
+  const int h0 = blockIdx.y * p.HG, hg = min(p.HG, p.H - h0);
+  const int nstrips = QP / 16;
 
-  for (int e = tid; e < Q * S; e += kThreads) {
-    const int r = e / S, c = e - r * S;
-    bs[r * ls + c] = Bm[bn * Q * S + e];
-    cs[r * ls + c] = Cm[bn * Q * S + e];
+  // rows Q..QP-1 of B and C, and cum and dt past Q, are zero
+  if (p.Q < QP) {
+    zero_cols(bs + p.Q * kLdB, kLdB, QP - p.Q, 0, kLdB);
+    zero_cols(cs + p.Q * kLdC, kLdC, QP - p.Q, 0, kLdC);
   }
-  __syncthreads();
-  {  // CB[i, j], i = ty + 16 a, j = tx + 16 c
-    float acc[kQT][kCT] = {};
-    for (int s = 0; s < S; ++s) {
-      float a[kQT], b[kCT];
-#pragma unroll
-      for (int t = 0; t < kQT; ++t) a[t] = cs[min(ty + kTy * t, Q - 1) * ls + s];
-#pragma unroll
-      for (int t = 0; t < kCT; ++t) b[t] = bs[min(tx + kTx * t, Q - 1) * ls + s];
-#pragma unroll
-      for (int i = 0; i < kQT; ++i)
-#pragma unroll
-        for (int j = 0; j < kCT; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < kQT; ++i)
-#pragma unroll
-      for (int j = 0; j < kCT; ++j) {
-        const int r = ty + kTy * i, c = tx + kTx * j;
-        if (r < Q && c < Q) cb[r * lq + c] = acc[i][j];
-      }
-  }
+  for (int e = threadIdx.x; e < 4 * QP; e += kThreads)
+    if (e % QP >= p.Q) cums[e] = 0.f;
 
-  for (int hh = 0; hh < kHeads; ++hh) {
-    const int h = h0 + hh;
-    if (h >= H) break;                            // uniform over the block
-    __syncthreads();  // CB built and C dead; the last head's reads done
-    for (int e = tid; e < Q * P; e += kThreads) {
-      const int r = e / P, p = e - r * P;
-      xs[r * lp + p] = x[((bn * Q + r) * H + h) * P + p];
-    }
-    for (int e = tid; e < Q; e += kThreads) {
-      cums[e] = cum[(bn * Q + e) * H + h];
-      dts[e] = dt[(bn * Q + e) * H + h];
-    }
+  // ---- C.B^T, once a block: items (16-row strip r, 32-column group) ----
+  const int ncg = (QP + 31) / 32;
+  for (int sti = 0; sti < p.nS; ++sti) {
+    if (sti) __syncthreads();   // the last S tile is read
+    load_bc(p, bn, sti, bs, cs, true);
+    tf32x3::cp_async_commit();
+    tf32x3::cp_async_wait<0>();
     __syncthreads();
-    for (int e = tid; e < Q * Q; e += kThreads) {
-      const int i = e / Q, j = e - i * Q;
-      ms[i * lq + j] =
-          i >= j ? cb[i * lq + j] * expf(cums[i] - cums[j]) * dts[j] : 0.f;
-    }
-    for (int e = tid; e < Q; e += kThreads)
-      ws[e] = expf(cums[Q - 1] - cums[e]) * dts[e];
-    __syncthreads();
-
-    {  // y[i, p] = sum_j M[i, j] x[j, p], i = ty + 16 a, p = tx + 16 c
-      float acc[kQT][kPT] = {};
-      for (int j = 0; j < Q; ++j) {
-        float a[kQT], b[kPT];
+    for (int it = warp; it < nstrips * ncg; it += kWarps) {
+      const int r = it / ncg, c0 = 32 * (it - r * ncg);
+      if (c0 > 16 * r + 15) continue;   // wholly above the diagonal
+      const int nj = min(4, (QP - c0) / 8);
+      float acc[4][4] = {};
+#pragma unroll 2
+      for (int ks = 0; ks < kST / 8; ++ks) {
+        const tf32x3::Frag<4> a =
+            tf32x3::load_a<true>(cs, kLdC, 16 * r, 8 * ks, lane);
 #pragma unroll
-        for (int t = 0; t < kQT; ++t) a[t] = ms[min(ty + kTy * t, Q - 1) * lq + j];
-#pragma unroll
-        for (int t = 0; t < kPT; ++t) b[t] = xs[j * lp + min(tx + kTx * t, P - 1)];
-#pragma unroll
-        for (int i = 0; i < kQT; ++i)
-#pragma unroll
-          for (int c = 0; c < kPT; ++c) acc[i][c] = fmaf(a[i], b[c], acc[i][c]);
+        for (int j = 0; j < 4; ++j)
+          if (j < nj)
+            tf32x3::mma3(acc[j], a,
+                         tf32x3::load_bt<true>(bs, kLdB, c0 + 8 * j, 8 * ks,
+                                               lane));
       }
 #pragma unroll
-      for (int i = 0; i < kQT; ++i)
-#pragma unroll
-        for (int c = 0; c < kPT; ++c) {
-          const int r = ty + kTy * i, p = tx + kTx * c;
-          if (r < Q && p < P) y[((bn * Q + r) * H + h) * P + p] = acc[i][c];
+      for (int j = 0; j < 4; ++j) {
+        if (j >= nj) break;
+        float* o = cbs + (16 * r + g) * p.ldcb + c0 + 8 * j + 2 * t;
+        float2 lo = make_float2(acc[j][0], acc[j][1]);
+        float2 hi = make_float2(acc[j][2], acc[j][3]);
+        if (sti) {
+          const float2 l0 = *reinterpret_cast<float2*>(o);
+          const float2 h0v = *reinterpret_cast<float2*>(o + 8 * p.ldcb);
+          lo.x += l0.x; lo.y += l0.y; hi.x += h0v.x; hi.y += h0v.y;
         }
-    }
-    {  // st[p, s] = sum_j (x[j, p] w_j) B[j, s], p = ty + 16 a, s = tx + 16 c
-      float acc[kPT][kST] = {};
-      for (int j = 0; j < Q; ++j) {
-        const float w = ws[j];
-        float a[kPT], b[kST];
-#pragma unroll
-        for (int t = 0; t < kPT; ++t) a[t] = xs[j * lp + min(ty + kTy * t, P - 1)] * w;
-#pragma unroll
-        for (int t = 0; t < kST; ++t) b[t] = bs[j * ls + min(tx + kTx * t, S - 1)];
-#pragma unroll
-        for (int i = 0; i < kPT; ++i)
-#pragma unroll
-          for (int c = 0; c < kST; ++c) acc[i][c] = fmaf(a[i], b[c], acc[i][c]);
+        *reinterpret_cast<float2*>(o) = lo;
+        *reinterpret_cast<float2*>(o + 8 * p.ldcb) = hi;
       }
-      float* sp = st + (bn * H + h) * (long long)P * S;
-#pragma unroll
-      for (int i = 0; i < kPT; ++i)
-#pragma unroll
-        for (int c = 0; c < kST; ++c) {
-          const int p = ty + kTy * i, s = tx + kTx * c;
-          if (p < P && s < S) sp[p * S + s] = acc[i][c];
-        }
     }
   }
+  __syncthreads();   // C.B^T built; C's space is x's from here
+  if (p.Q < QP) {     // rows Q..QP-1 of both halves: the loads skip them
+    zero_cols(xs + p.Q * kLdX, kLdX, QP - p.Q, 0, kLdX);
+    zero_cols(xs + (QP + p.Q) * kLdX, kLdX, QP - p.Q, 0, kLdX);
+  }
+
+  // ---- per head and P tile: y = M x, then the states over S tiles -----
+  const int items = hg * p.nP;
+  const int npairs = (nstrips + 1) / 2;
+  const int ps = (kPT / 8) / NT;             // P splits of the y product
+  const int pr = warp / ps, pq = warp - pr * ps;
+  load_head(p, bn, h0, 0, xs, cums, dts);
+  tf32x3::cp_async_commit();
+  for (int it = 0; it < items; ++it) {
+    const int hh = it / p.nP, pt = it - hh * p.nP, h = h0 + hh;
+    const int buf = it & 1, p0 = pt * kPT;
+    const float* xb = xs + buf * QP * kLdX;
+    const float* cum = cums + buf * QP;
+    const float* dt = dts + buf * QP;
+    tf32x3::cp_async_wait<0>();
+    __syncthreads();   // this item's x landed; the last item is done (the
+                       // other half of the buffer is free from here)
+
+    // once a head: w_j = exp(cum_end - cum_j) dt_j for the states
+    if (pt == 0) {
+      const float cend = cum[p.Q - 1];
+      for (int j = threadIdx.x; j < QP; j += kThreads)
+        ws[j] = j < p.Q ? __expf(cend - cum[j]) * dt[j] : 0.f;
+      __syncthreads();
+    }
+
+    // y = M x: strips pr and nstrips - 1 - pr, n8 tiles pq*NT.. of P
+    if (pr < npairs) {
+      for (int side = 0; side < 2; ++side) {
+        const int r = side ? nstrips - 1 - pr : pr;
+        if (side && r == pr) break;
+        const int i0 = 16 * r + g, i1 = i0 + 8;
+        const float ci0 = cum[i0], ci1 = cum[i1];
+        float acc[NT][4] = {};
+        for (int ks = 0; ks < 2 * r + 2; ++ks) {
+          const int j0 = 8 * ks + 2 * t, j1 = j0 + 1;
+          const float2 lo =
+              *reinterpret_cast<const float2*>(cbs + i0 * p.ldcb + j0);
+          const float2 hi =
+              *reinterpret_cast<const float2*>(cbs + i1 * p.ldcb + j0);
+          const float cj0 = cum[j0], cj1 = cum[j1];
+          const float dj0 = dt[j0], dj1 = dt[j1];
+          const float v[4] = {decay(lo.x, ci0, cj0, dj0, i0 >= j0),
+                              decay(hi.x, ci1, cj0, dj0, i1 >= j0),
+                              decay(lo.y, ci0, cj1, dj1, i0 >= j1),
+                              decay(hi.y, ci1, cj1, dj1, i1 >= j1)};
+          tf32x3::Frag<4> a;
+          tf32x3::split_fast(a, v);
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+            tf32x3::mma3(acc[nt], a,
+                         tf32x3::load_b<true>(xb, kLdX, 8 * ks,
+                                              8 * (pq * NT + nt), lane));
+        }
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const int col = p0 + 8 * (pq * NT + nt) + 2 * t;
+          if (i0 < p.Q)
+            store2(p.y, ((bn * p.Q + i0) * p.H + h) * p.P + col, col, p.P,
+                   acc[nt][0], acc[nt][1], p.vy);
+          if (i1 < p.Q)
+            store2(p.y, ((bn * p.Q + i1) * p.H + h) * p.P + col, col, p.P,
+                   acc[nt][2], acc[nt][3], p.vy);
+        }
+      }
+    }
+
+    // the next item's x, cum and dt into the other half of the buffer,
+    // issued here, after y, so that their copies queue behind the states'
+    // products rather than ahead of the work at the item's start
+    if (it + 1 < items) {
+      const int nh = (it + 1) / p.nP, np_ = it + 1 - nh * p.nP;
+      load_head(p, bn, h0 + nh, np_, xs + (buf ^ 1) * QP * kLdX,
+                cums + (buf ^ 1) * QP, dts + (buf ^ 1) * QP);
+      tf32x3::cp_async_commit();
+    }
+
+    // states (x w)^T B: 32 x 32 tiles of the P x S tile (two m16 tiles of
+    // P by four n8 tiles of S, so each A and B fragment serves more than
+    // one product), K over the chunk
+    const int pw = min(kPT, p.P - p0);
+    for (int sti = 0; sti < p.nS; ++sti) {
+      if (p.nS > 1) {
+        __syncthreads();   // the last S tile is read
+        load_bc(p, bn, sti, bs, nullptr, false);
+        tf32x3::cp_async_commit();
+        tf32x3::cp_async_wait<0>();
+        __syncthreads();
+      }
+      const int s0 = sti * kST, sw = min(kST, p.S - s0);
+      const int npp = (pw + 31) / 32, nsq = (sw + 31) / 32;
+      for (int wi = warp; wi < npp * nsq; wi += kWarps) {
+        const int pp = wi / nsq, sq = wi - pp * nsq;
+        float acc[2][4][4] = {};
+        const float* xc = xb + 32 * pp + g;
+#pragma unroll 2
+        for (int ks = 0; ks < QP / 8; ++ks) {
+          const int j0 = 8 * ks + 2 * t, j1 = j0 + 1;
+          const float w0 = ws[j0], w1 = ws[j1];
+          tf32x3::Frag<4> a[2];
+#pragma unroll
+          for (int m = 0; m < 2; ++m) {
+            const float* x0 = xc + j0 * kLdX + 16 * m;
+            const float v[4] = {x0[0] * w0, x0[8] * w0, x0[kLdX] * w1,
+                                x0[kLdX + 8] * w1};
+            tf32x3::split_fast(a[m], v);
+          }
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) {
+            const tf32x3::Frag<2> b = tf32x3::load_b<true>(
+                bs, kLdB, 8 * ks, 32 * sq + 8 * nt, lane);
+#pragma unroll
+            for (int m = 0; m < 2; ++m) tf32x3::mma3(acc[m][nt], a[m], b);
+          }
+        }
+        float* sp = p.st + (bn * p.H + h) * (long long)p.P * p.S;
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+          const int pa = p0 + 32 * pp + 16 * m + g, pb = pa + 8;
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) {
+            const int col = s0 + 32 * sq + 8 * nt + 2 * t;
+            if (pa < p.P)
+              store2(sp, (long long)pa * p.S + col, col, p.S,
+                     acc[m][nt][0], acc[m][nt][1], p.vst);
+            if (pb < p.P)
+              store2(sp, (long long)pb * p.S + col, col, p.S,
+                     acc[m][nt][2], acc[m][nt][3], p.vst);
+          }
+        }
+      }
+    }
+  }
+}
+
+int sm_count() {
+  static int cache[64];
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= 64) dev = 0;
+  if (cache[dev] == 0) {
+    int n = 0;
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    cache[dev] = n > 0 ? n : 132;
+  }
+  return cache[dev];
+}
+
+// B, C.B^T, two x tiles, two cum and dt halves, and w
+long long smem_bytes(int QP, int ldcb) {
+  return 4ll * (QP * kLdB + QP * ldcb + 2 * QP * kLdX + 5 * QP);
+}
+
+// heads a block: the HG <= kMaxHeads that minimises whole waves x the
+// block's work (HG heads plus its C.B^T, in multiply-adds)
+int heads_per_block(int BN, int H, int QP, int P, int S, int slots) {
+  const double pp = ((P + 7) / 8) * 8.0, sp = ((S + 7) / 8) * 8.0;
+  const double head = QP * (QP / 2.0 + 8) * pp + pp * sp * QP;
+  const double cb = (double)QP * QP * sp;
+  int best = 1;
+  double best_cost = 0;
+  for (int hg = 1; hg <= kMaxHeads && hg <= H; ++hg) {
+    const long long blocks = (long long)BN * ((H + hg - 1) / hg);
+    const double waves = (double)((blocks + slots - 1) / slots);
+    const double cost = waves * (hg * head + cb);
+    if (hg == 1 || cost < best_cost) {
+      best = hg;
+      best_cost = cost;
+    }
+  }
+  return best;
+}
+
+template <int NT>
+cudaError_t launch(const Params& p, long long smem, dim3 grid,
+                   cudaStream_t stream) {
+  static long long attr_set[64];
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= 64) dev = 0;
+  if (attr_set[dev] < smem) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        ssd_chunk_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return err;
+    attr_set[dev] = smem;
+  }
+  ssd_chunk_kernel<NT><<<grid, kThreads, smem, stream>>>(p);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -165,20 +436,43 @@ extern "C" int ssd_chunk_forward(const float* x, const float* Bm,
                                  const float* cum, float* y, float* st,
                                  int BN, int H, int Q, int P, int S,
                                  void* stream) {
-  if (Q < 1 || Q > kQMax || P < 1 || P > kPMax || S < 1 || S > kSMax)
+  if (BN < 1 || H < 1 || Q < 1 || Q > kQMax || P < 1 || S < 1)
     return (int)cudaErrorInvalidValue;
-  const size_t ls = S + 1, lq = Q + 1, lp = P + 1;
-  const size_t c_region = Q * ls > Q * (lq + lp) ? Q * ls : Q * (lq + lp);
-  const size_t smem =
-      sizeof(float) * (Q * ls + c_region + Q * lq + 3 * (size_t)Q);
-  cudaError_t err = cudaFuncSetAttribute(
-      ssd_chunk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)BN, (unsigned)((H + kHeads - 1) / kHeads));
-  ssd_chunk_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      x, Bm, Cm, dt, cum, y, st, H, Q, P, S);
-  return (int)cudaGetLastError();
+  Params p;
+  p.x = x;
+  p.B = Bm;
+  p.C = Cm;
+  p.dt = dt;
+  p.cum = cum;
+  p.y = y;
+  p.st = st;
+  p.H = H;
+  p.Q = Q;
+  p.P = P;
+  p.S = S;
+  p.QP = (Q + 15) / 16 * 16;
+  p.ldcb = (p.QP + 31) / 32 * 32 + 8;
+  p.nP = (P + kPT - 1) / kPT;
+  p.nS = (S + kST - 1) / kST;
+  auto al = [](const void* a, int n) {
+    return (reinterpret_cast<uintptr_t>(a) & (n - 1)) == 0;
+  };
+  p.vx = al(x, 16) && P % 4 == 0;
+  p.vbc = al(Bm, 16) && al(Cm, 16) && S % 4 == 0;
+  p.vy = al(y, 8) && P % 2 == 0;
+  p.vst = al(st, 8) && S % 2 == 0;
+  const long long smem = smem_bytes(p.QP, p.ldcb);
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  const int per_sm = (int)(233472 / (smem + 1024)) < 2
+                         ? 1 : 2;   // __launch_bounds__(256, 2)
+  p.HG = heads_per_block(BN, H, p.QP, P, S, per_sm * sm_count());
+  const dim3 grid((unsigned)BN, (unsigned)((H + p.HG - 1) / p.HG));
+  const cudaStream_t sm = (cudaStream_t)stream;
+  // two 16-row strips a warp, P's 8 n8 tiles split over the warps a pair
+  const int npairs = (p.QP / 16 + 1) / 2;
+  if (npairs == 1) return (int)launch<1>(p, smem, grid, sm);
+  if (npairs == 2) return (int)launch<2>(p, smem, grid, sm);
+  return (int)launch<4>(p, smem, grid, sm);
 }
 
 extern "C" const char* ssd_chunk_error_string(int code) {

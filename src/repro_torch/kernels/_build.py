@@ -111,15 +111,20 @@ def _build_locked(names) -> float:
     return time.perf_counter() - t0
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+def load(name: str, declare=None) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed.
+    ``declare(lib)``, where given, sets the ctypes signatures once, when
+    the library loads."""
     lib = _LIBS.get(name)
     if lib is None:
         with _LOCK:
             lib = _LIBS.get(name)
             if lib is None:
                 _build_locked([name])
-                lib = _LIBS[name] = ctypes.CDLL(str(library_path(name)))
+                lib = ctypes.CDLL(str(library_path(name)))
+                if declare is not None:
+                    declare(lib)
+                _LIBS[name] = lib
     return lib
 
 

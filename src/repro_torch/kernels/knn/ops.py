@@ -12,15 +12,32 @@ import torch
 from .. import _build
 from .ref import knn_ref
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-MAX_K = 64           # the kernel keeps k entries in 2 registers per lane
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# the kernel keeps lists of up to this many entries in shared memory
+# (csrc/knn.cu kSmemLists); a longer k asks for device scratch
+SMEM_K = 1024
+
+
+def _declare(lib):
+    lib.knn_forward.argtypes = [_P] * 4 + [_I] * 3 + [_P, _L, _P]
+    lib.knn_forward.restype = _I
+    lib.knn_scratch_bytes.argtypes = [_I] * 3
+    lib.knn_scratch_bytes.restype = _L
+    lib.knn_plan.argtypes = [_I] * 3 + [_P]
+    lib.knn_plan.restype = None
 
 
 def _lib():
-    lib = _build.load("knn")
-    lib.knn_forward.argtypes = [_P] * 4 + [_I] * 3 + [_P]
-    lib.knn_forward.restype = _I
-    return lib
+    return _build.load("knn", _declare)
+
+
+def plan(s: int, n: int, k: int) -> dict:
+    """How the kernel splits a call: warps a center (``w``), list
+    registers a lane (``r``; 0: lists in memory), lists in device memory
+    (``scratch``), blocks (``grid``)."""
+    out = (ctypes.c_int * 4)()
+    _lib().knn_plan(s, n, k, out)
+    return dict(w=out[0], r=out[1], scratch=bool(out[2]), grid=out[3])
 
 
 def knn(centers, points, k: int):
@@ -32,27 +49,33 @@ def knn(centers, points, k: int):
     n = points.shape[0]
     if not 0 <= k <= n:
         raise ValueError(f"knn: need 0 <= k <= N, got k={k}, N={n}")
-    if centers.device.type == "cpu":
+    dev = centers.device
+    if dev.type == "cpu":
         return knn_ref(centers, points, k)
-    if centers.device.type != "cuda":
-        raise ValueError(f"knn: unsupported device {centers.device}")
-    if k > MAX_K:
-        raise ValueError(f"knn: the kernel takes k <= {MAX_K}, got {k}")
+    if dev.type != "cuda":
+        raise ValueError(f"knn: unsupported device {dev}")
     for arg, t in (("centers", centers), ("points", points)):
         if t.dim() != 2 or t.shape[1] != 3:
             raise ValueError(f"knn: {arg} has shape {tuple(t.shape)}, "
                              f"expected (*, 3)")
     _build.check_operands("knn", {"centers": centers, "points": points},
-                          centers.device)
+                          dev)
     s = centers.shape[0]
-    dists = torch.empty((s, k), dtype=torch.float32, device=centers.device)
-    idx = torch.empty((s, k), dtype=torch.int32, device=centers.device)
+    # one allocation: distances in the first half, indices in the second
+    out = torch.empty((2, s, k), dtype=torch.int32, device=dev)
+    dists, idx = out[0].view(torch.float32), out[1]
     if s * k:
         lib = _lib()
+        scratch, nbytes = None, 0
+        if k > SMEM_K:
+            nbytes = lib.knn_scratch_bytes(s, n, k)
+            if nbytes:
+                scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
         code = lib.knn_forward(
             centers.data_ptr(), points.data_ptr(), dists.data_ptr(),
             idx.data_ptr(), s, n, k,
-            torch.cuda.current_stream(centers.device).cuda_stream)
+            None if scratch is None else scratch.data_ptr(), nbytes,
+            torch._C._cuda_getCurrentRawStream(dev.index))
         _build.check_launch(lib, "knn", code)
         _build.count_launch("knn")
     return dists, idx

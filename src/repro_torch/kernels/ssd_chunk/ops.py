@@ -13,15 +13,18 @@ from .. import _build
 from .ref import ssd_chunk_ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# the kernel's register tiles: chunk length, head dim, state dim
-MAX_Q, MAX_P, MAX_S = 64, 64, 128
+# the longest chunk the kernel takes (csrc/ssd_chunk.cu kQMax: C·Bᵀ and
+# two x tiles of q rows in shared memory); P and S are tiled, any size
+MAX_Q = 128
+
+
+def _declare(lib):
+    lib.ssd_chunk_forward.argtypes = [_P] * 7 + [_I] * 5 + [_P]
+    lib.ssd_chunk_forward.restype = _I
 
 
 def _lib():
-    lib = _build.load("ssd_chunk")
-    lib.ssd_chunk_forward.argtypes = [_P] * 7 + [_I] * 5 + [_P]
-    lib.ssd_chunk_forward.restype = _I
-    return lib
+    return _build.load("ssd_chunk", _declare)
 
 
 def ssd_chunk(x, B, C, dt, cum):
@@ -47,20 +50,21 @@ def ssd_chunk(x, B, C, dt, cum):
         if tuple(ops[arg].shape) != shape:
             raise ValueError(f"ssd_chunk: {arg} has shape "
                              f"{tuple(ops[arg].shape)}, expected {shape}")
-    if not (0 < q <= MAX_Q and 0 < p <= MAX_P and 0 < s <= MAX_S):
-        raise ValueError(f"ssd_chunk: the kernel takes 0 < q <= {MAX_Q}, "
-                         f"0 < P <= {MAX_P}, 0 < S <= {MAX_S}; got q={q}, "
-                         f"P={p}, S={s}")
+    if not (0 < q <= MAX_Q and p > 0 and s > 0):
+        raise ValueError(f"ssd_chunk: the kernel takes chunks of 0 < q <= "
+                         f"{MAX_Q} and P, S > 0; got q={q}, P={p}, S={s}")
     _build.check_operands("ssd_chunk", ops, x.device)
-    y = torch.empty_like(x)
-    states = torch.empty((bs, nc, h, p, s), dtype=torch.float32,
-                         device=x.device)
+    # one allocation: y_in first, the states after it
+    n_y = x.numel()
+    out = torch.empty(n_y + bs * nc * h * p * s, dtype=torch.float32,
+                      device=x.device)
+    y, states = out[:n_y].view(x.shape), out[n_y:].view(bs, nc, h, p, s)
     if bs * nc * h:
         lib = _lib()
         code = lib.ssd_chunk_forward(
             x.data_ptr(), B.data_ptr(), C.data_ptr(), dt.data_ptr(),
             cum.data_ptr(), y.data_ptr(), states.data_ptr(), bs * nc, h, q,
-            p, s, torch.cuda.current_stream(x.device).cuda_stream)
+            p, s, torch._C._cuda_getCurrentRawStream(x.device.index))
         _build.check_launch(lib, "ssd_chunk", code)
         _build.count_launch("ssd_chunk")
     return y, states

@@ -7,6 +7,8 @@ each kernel against its plain version.
 The JAX package is imported inside the tests that compare with it, so
 the card tests (``pytest -m cuda tests/test_torch_kernels.py``) also run
 on a host without JAX."""
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -15,7 +17,9 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import attention_ref, flash_attention
 from repro_torch.kernels.flash_attention.ops import _variant
 from repro_torch.kernels.knn import knn, knn_ref
+from repro_torch.kernels.knn import ops as knn_ops
 from repro_torch.kernels.ssd_chunk import ssd_chunk, ssd_chunk_ref
+from repro_torch.kernels.ssd_chunk import ops as ssd_ops
 
 torch.set_num_threads(1)
 
@@ -31,6 +35,15 @@ def _knn_index_agreement(got, want, d):
     (tests/test_kernels.py's rule: near-ties may reorder)."""
     unique = np.abs(d[:, 1:] - d[:, :-1]) > 1e-9
     return (got == want)[:, 1:][unique].mean()
+
+
+def _knn_decided(d, d_next, tol):
+    """Where the order is decided: the sorted distance differs from both
+    neighbours in its row (the (k+1)-th, ``d_next``, +inf at k = N, beside
+    the last) by more than ``tol``."""
+    ext = np.concatenate([d, d_next], 1)
+    gap = np.abs(ext[:, 1:] - ext[:, :-1]) > tol
+    return np.concatenate([np.ones_like(gap[:, :1]), gap[:, :-1]], 1) & gap
 
 
 # ---- knn ---------------------------------------------------------------------
@@ -64,6 +77,42 @@ def test_knn_matches_jax(s, n, k, tc, tp):
     assert (np.diff(d, axis=1) >= 0).all()
     tie = np.diff(d, axis=1) == 0
     assert (np.diff(i, axis=1)[tie] > 0).all()
+
+
+@pytest.mark.parametrize("s,n,k,pallas", [
+    (48, 400, 96, True),      # past the parent kernel's 64 entries
+    (40, 700, 300, False),    # past 256: the lists in shared memory
+    (24, 150, 150, True),     # k = N: every point, in order
+])
+def test_knn_wide_k_matches_jax(s, n, k, pallas):
+    """The kernel's new domain, any 1 <= k <= N, on the plain version
+    against JAX ``knn_ref`` (and the Pallas kernel in interpret mode where
+    it is small): distances within 1e-5, indices exact wherever the
+    distance order is decided."""
+    import jax.numpy as jnp
+    from repro.kernels.knn.knn import knn_pallas
+    from repro.kernels.knn.ref import knn_ref as jknn_ref
+    rng = np.random.default_rng(s + n + k)
+    c = rng.normal(size=(s, 3)).astype(np.float32)
+    p = rng.normal(size=(n, 3)).astype(np.float32)
+    d, i = (t.numpy() for t in knn(torch.from_numpy(c),
+                                    torch.from_numpy(p), k))
+    assert d.shape == i.shape == (s, k)
+    jc, jp = jnp.asarray(c), jnp.asarray(p)
+    wants = [jknn_ref(jc, jp, min(k + 1, n))]
+    if pallas:
+        wants.append(knn_pallas(jc, jp, k, tc=16, tp=128, interpret=True))
+    for dw, iw in wants:
+        dw, iw = np.asarray(dw), np.asarray(iw)
+        d_next = (dw[:, k:k + 1] if dw.shape[1] > k
+                  else np.full((s, 1), np.inf, np.float32))
+        dw, iw = dw[:, :k], iw[:, :k]
+        np.testing.assert_allclose(d, dw, rtol=1e-5, atol=1e-5)
+        decided = _knn_decided(dw, d_next, 1e-5)
+        assert decided.mean() > 0.9
+        np.testing.assert_array_equal(i[decided], iw[decided])
+    if k == n:
+        assert (np.sort(i, axis=1) == np.arange(n)).all()
 
 
 def test_knn_ties_go_to_the_lower_index_across_tiles():
@@ -248,6 +297,8 @@ def _ssd_inputs(rng, bs, nc, q, h, p, s):
 @pytest.mark.parametrize("bs,nc,q,h,p,s", [
     (1, 2, 16, 2, 8, 16),
     (2, 1, 32, 4, 16, 32),
+    (1, 2, 128, 4, 128, 256),   # the kernel's new domain: two P, S tiles
+    (1, 2, 40, 6, 24, 40),      # H not a multiple of 4, q off 16
 ])
 def test_ssd_chunk_matches_jax(bs, nc, q, h, p, s):
     import jax.numpy as jnp
@@ -294,6 +345,52 @@ def test_wrappers_refuse_other_devices():
                   meta(1, 1, 4, 2), meta(1, 1, 4, 2))
 
 
+class _StubFn:
+    """A ctypes function that counts the assignments of its signature."""
+
+    def __init__(self):
+        object.__setattr__(self, "sets", [])
+
+    def __setattr__(self, name, value):
+        self.sets.append(name)
+        object.__setattr__(self, name, value)
+
+
+class _StubLib:
+    def __init__(self):
+        self.fns = {}
+
+    def __getattr__(self, name):
+        return self.fns.setdefault(name, _StubFn())
+
+
+@pytest.mark.parametrize("ops,name,want", [
+    (knn_ops, "knn", {
+        "knn_forward": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+        + [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p],
+        "knn_scratch_bytes": [ctypes.c_int] * 3,
+        "knn_plan": [ctypes.c_int] * 3 + [ctypes.c_void_p]}),
+    (ssd_ops, "ssd_chunk", {
+        "ssd_chunk_forward": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+        + [ctypes.c_void_p]}),
+])
+def test_wrappers_declare_ctypes_signatures_once(monkeypatch, ops, name,
+                                                 want):
+    """The library's ctypes signatures are set when it loads, once, and
+    not again by the calls after (a stub library: no kernel runs here)."""
+    stub, opened = _StubLib(), []
+    monkeypatch.setattr(_build, "_LIBS", {})
+    monkeypatch.setattr(_build, "_build_locked", lambda names: 0.0)
+    monkeypatch.setattr(_build.ctypes, "CDLL",
+                        lambda path: opened.append(path) or stub)
+    for _ in range(3):
+        assert ops._lib() is stub
+    assert len(opened) == 1 and name in opened[0]
+    for fn, argtypes in want.items():
+        assert stub.fns[fn].sets == ["argtypes", "restype"]
+        assert stub.fns[fn].argtypes == argtypes
+
+
 def test_check_operands_takes_dtypes_from_the_caller():
     cpu = torch.device("cpu")
     bf = torch.zeros(2, dtype=torch.bfloat16)
@@ -327,17 +424,41 @@ def _at_offset(t, off):
 
 
 @pytest.mark.cuda
-def test_knn_kernel_matches_plain_on_card():
+@pytest.mark.parametrize("s,n,k", [
+    (130, 1000, 32), (64, 300, 64), (9, 64, 64),
+    (512, 900, 96), (512, 900, 300),   # past the parent's k <= 64
+    (64, 100, 100),                    # k = N, two warps a center
+    (8192, 8192, 20),                  # dgcnn_s: every point a center
+    (2560, 4096, 1600),                # lists past shared memory
+    (64, 16384, 2000),                 # and with 8 warps a center
+    (1, 1, 1),
+])
+def test_knn_kernel_matches_plain_on_card(s, n, k):
+    """Random points: distances within 1e-5, indices exact wherever the
+    order is decided (and, at the first three shapes, wherever a distance
+    differs from the one before it); integer grid points (exact distances,
+    most of them tied): every index and distance equal to the plain
+    version's."""
     dev = _cuda()
-    g = torch.Generator().manual_seed(0)
-    for s, n, k in ((130, 1000, 32), (64, 300, 64), (9, 64, 64)):
-        c = torch.randn((s, 3), generator=g).to(dev)
-        p = torch.randn((n, 3), generator=g).to(dev)
-        d, i = knn(c, p, k)
-        d0, i0 = knn_ref(c, p, k)
-        torch.testing.assert_close(d, d0, rtol=1e-5, atol=1e-5)
+    g = torch.Generator().manual_seed(s + n + k)
+    c = torch.randn((s, 3), generator=g).to(dev)
+    p = torch.randn((n, 3), generator=g).to(dev)
+    d, i = knn(c, p, k)
+    d0, i0 = knn_ref(c, p, min(k + 1, n))
+    d_next = (d0[:, k:] if k < n else
+              torch.full_like(d0[:, :1], float("inf"))).cpu().numpy()
+    d0, i0 = d0[:, :k], i0[:, :k]
+    torch.testing.assert_close(d, d0, rtol=1e-5, atol=1e-5)
+    decided = torch.from_numpy(_knn_decided(d0.cpu().numpy(), d_next, 1e-5))
+    assert bool((i.cpu() == i0.cpu())[decided].all())
+    if (s, n, k) in ((130, 1000, 32), (64, 300, 64), (9, 64, 64)):
         unique = (d0[:, 1:] - d0[:, :-1]).abs() > 1e-5
         assert bool((i[:, 1:] == i0[:, 1:])[unique].all())
+    c, p = (torch.randint(0, 8, (m, 3), generator=g).float().to(dev)
+            for m in (s, n))
+    d, i = knn(c, p, k)
+    d0, i0 = knn_ref(c, p, k)
+    assert torch.equal(d, d0) and torch.equal(i, i0)
 
 
 @pytest.mark.cuda
@@ -408,11 +529,29 @@ def test_flash_attention_kernel_matches_plain_on_card():
 
 
 @pytest.mark.cuda
-def test_ssd_chunk_kernel_matches_plain_on_card():
+@pytest.mark.parametrize("shape", [
+    (1, 2, 16, 2, 8, 16), (2, 3, 64, 6, 64, 128),
+    (1, 16, 128, 80, 64, 128),   # Mamba2-2.7B at chunk 128
+    (1, 2, 128, 6, 128, 256),    # two P and two S tiles
+    (1, 3, 50, 7, 36, 100),      # H not a multiple of 4, ragged tiles
+    (1, 2, 1, 3, 5, 7),          # one-row chunks
+])
+def test_ssd_chunk_kernel_matches_plain_on_card(shape):
     dev = _cuda()
-    rng = np.random.default_rng(0)
-    for shape in ((1, 2, 16, 2, 8, 16), (2, 3, 64, 6, 64, 128)):
-        args = [t.to(dev) for t in _torch(_ssd_inputs(rng, *shape))]
-        for got, want in zip(ssd_chunk(*args), ssd_chunk_ref(*args)):
-            tol = 2e-4 * max(1.0, want.abs().max().item())
-            torch.testing.assert_close(got, want, rtol=0, atol=tol)
+    rng = np.random.default_rng(sum(shape))
+    args = [t.to(dev) for t in _torch(_ssd_inputs(rng, *shape))]
+    for got, want in zip(ssd_chunk(*args), ssd_chunk_ref(*args)):
+        assert bool(torch.isfinite(got).all())
+        tol = 2e-4 * max(1.0, want.abs().max().item())
+        torch.testing.assert_close(got, want, rtol=0, atol=tol)
+
+
+@pytest.mark.cuda
+def test_ssd_chunk_kernel_refuses_chunks_past_its_limit():
+    """q > 128 raises, naming the limit: no fallback to the plain version."""
+    dev = _cuda()
+    rng = np.random.default_rng(1)
+    args = [t.to(dev) for t in _torch(_ssd_inputs(rng, 1, 1, 129, 2, 8,
+                                                  16))]
+    with pytest.raises(ValueError, match="q <= 128"):
+        ssd_chunk(*args)
