@@ -9,8 +9,9 @@ Phases, each timed, any failure exits non-zero:
   2. hold each FC kernel against its plain PyTorch version on the card, at
      both PointNet++(c) block shapes, batched (B=8) and at B=1, masked and
      unmasked, and hub_reuse also at the other families' widest blocks
-     (``REUSE_WIDE``): ``max|Δ| <= 1e-4 · max(1, max|plain|)``, the -BIG
-     identity exactly;
+     (``REUSE_WIDE``) and past one launch's 128 cache rows
+     (``REUSE_C256``, timed): ``max|Δ| <= 1e-4 · max(1, max|plain|)``,
+     the -BIG identity exactly;
   3. time each FC kernel and its plain version in turns at the main path's
      shapes;
   4. serve: ``repro_torch.serve.PCNServer`` over
@@ -27,7 +28,9 @@ Phases, each timed, any failure exits non-zero:
      ``python -m repro_torch.launch.serve --arch pointnet2_c --trace 16``,
      in a subprocess; and one (8, 1024) batch against the "reference"
      backend;
-  5. one batch in ``mode="traditional"``;
+  5. one batch in ``mode="traditional"``; one lpcn batch at
+     ``cache_capacity_x = 4`` (``CACHE_X4``: 256 cache rows at block 2, two
+     hub_reuse launches there) against the "reference" backend;
   6. families: each other model of ``repro_torch.models.MODEL_ZOO`` at
      full width (``FAMILIES``: pointnet2_ps 4 × 2048, pointnet2_s 2 ×
      4096, dgcnn_c 8 × 1024, dgcnn_s 1 × 8192, pointnext_s and
@@ -37,7 +40,9 @@ Phases, each timed, any failure exits non-zero:
      the blocks that need it), every logit against the "reference"
      backend, seg padding rows exactly 0, the stages timed; dgcnn_c once
      in traditional mode; gather_mlp's wide route against its plain
-     version and timed at the six blocks that take it (``DENSE_WIDE``);
+     version and timed at the six blocks that take it (``DENSE_WIDE``)
+     and at D = 700 (``WIDE_D``), its plan (grid, layer-1 recompute)
+     equal in wrapper and library;
      the CLI on a seg model (``SEG_CLI``: pointnext_s, 8 requests);
   7. entry kernels: drive ``knn`` (stage 1 of the first batch, both
      blocks, every cloud; block 1 again at k = 96 and 300; dgcnn_s's kNN,
@@ -101,6 +106,12 @@ DENSE = {"blk1": dict(s=512, k=32, d=65, dc=1, h=64, f=128, masked=True),
          "blk2": dict(s=128, k=64, d=129, dc=1, h=128, f=256, masked=False)}
 REUSE = {"blk1": dict(hn=16, c=64, m=64, k=32, d=64, h=64, f=128),
          "blk2": dict(hn=4, c=128, m=64, k=64, d=128, h=128, f=256)}
+# hub_reuse past one launch's 128 cache rows: pointnet2_c block 2 at the
+# paper's Fig. 22 cache size, cache_capacity_x = 4 (C = 4k = 256), at B = 8
+REUSE_C256 = {"blk2_c256": dict(hn=4, c=256, m=64, k=64, d=128, h=128,
+                                f=256)}
+# the lpcn forward at that cache size, against the "reference" backend
+CACHE_X4 = {"cache_capacity_x": 4.0}
 # parity only, at B = 2: hub_reuse at the other families' widest blocks
 # (two_layer_form doubles Hd for one-layer MLPs; C = 2k cache rows)
 REUSE_WIDE = {
@@ -133,6 +144,10 @@ DENSE_WIDE = {
                                masked=False),
     "pointvector_l_blk4": dict(b=2, s=32, k=32, d=387, dc=3, h=1536, f=768,
                                masked=False)}
+# the wide route at a D past the PR 18 route's limit (x of a 64-row tile
+# alone over 227 KB at D above ~600): x streams through the ring in slices
+WIDE_D = {"d700": dict(b=2, s=128, k=32, d=700, dc=3, h=1024, f=512,
+                       masked=False)}
 # the CLI on a seg model: 8 S3DIS-sized requests in buckets up to 4096
 SEG_CLI = ("--arch", "pointnext_s", "--trace", "8", "--buckets",
            "2048,4096", "--points", "3500", "--size-sigma", "0.1",
@@ -406,6 +421,34 @@ def kernel_phase(dev, seed):
                               f"Hd={shp['h']} F={shp['f']} live=True",
                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
                         bound_ms=bms, bound_by=by, library_ms=None))
+    for blk, shp in REUSE_C256.items():   # two launches a call
+        pool, slot, comp, w1, b1, w2, b2, live = reuse_inputs(
+            gen, dev, B, **shp)
+        args = (pool, slot, comp, w1, b1, w2, b2)
+        out = hub_reuse(*args, live=live)
+        ref = hub_reuse_ref(*args, live=live)
+        torch.cuda.synchronize()
+        err, tol = max_err(out, ref)
+        parity.append(dict(name="hub_reuse", block=blk, b=B, masked=True,
+                           max_abs_err=err, tol=tol))
+        check(err <= tol, f"hub_reuse {blk}: max|err| {err} > {tol}")
+        ms, plain_ms = time_pair(lambda: hub_reuse(*args, live=live),
+                                 lambda: hub_reuse_ref(*args, live=live))
+        flops = 2 * B * shp["hn"] * shp["c"] * (
+            shp["d"] * shp["h"] + shp["h"] * shp["f"])
+        moved = nbytes(*args, live, out)
+        bms, by = bound(3 * flops, moved, PEAK_TF32)
+        rows.append(dict(
+            name="hub_reuse", block=blk, route="cuda",
+            variant="mma_tf32x3_chunked", tflops=flops / ms / 1e9,
+            bound_fp32_ms=bound(flops, moved)[0],
+            source="src/repro_torch/csrc/hub_reuse.cu",
+            replaces="src/repro/kernels/hub_reuse/hub_reuse.py:307",
+            shape=f"B={B} H={shp['hn']} C={shp['c']} M={shp['m']} "
+                  f"K={shp['k']} D={shp['d']} Hd={shp['h']} F={shp['f']} "
+                  f"live=True",
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+            bound_by=by, library_ms=None, path="cache_x4"))
     for name, shp in REUSE_WIDE.items():
         pool, slot, comp, w1, b1, w2, b2, live = reuse_inputs(
             gen, dev, 2, **shp)
@@ -829,19 +872,27 @@ def families_phase(dev, seed, smi) -> int:
 
 
 def wide_kernel_rows(dev, seed, launches) -> tuple[list, list]:
-    """gather_mlp's wide route at ``DENSE_WIDE``: the wrapper's route
-    equal to the library's, the kernel against its plain version, both
-    timed in turns.  -> (parity rows, kernel rows with ``launches``)."""
+    """gather_mlp's wide route at ``DENSE_WIDE`` and ``WIDE_D``: the
+    wrapper's route and plan equal to the library's, the kernel against
+    its plain version, both timed in turns.  -> (parity rows, kernel rows
+    with ``launches`` and the plan: grid, layer-1 recompute factor)."""
     import torch
     from repro_torch.kernels.gather_mlp import gather_mlp, gather_mlp_ref
-    from repro_torch.kernels.gather_mlp.ops import library_route, route
+    from repro_torch.kernels.gather_mlp.ops import (library_plan,
+                                                    library_route, route,
+                                                    wide_plan)
     gen = torch.Generator().manual_seed(seed + 2)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     parity, rows = [], []
-    for blk, shp in DENSE_WIDE.items():
+    for blk, shp in {**DENSE_WIDE, **WIDE_D}.items():
         kshape = (shp["k"], shp["d"], shp["dc"], shp["h"], shp["f"])
         check(route(*kshape) == library_route(*kshape) == "wide",
               f"gather_mlp {blk}: routes {route(*kshape)} (wrapper) and "
               f"{library_route(*kshape)} (library), expected wide")
+        plan = library_plan(shp["b"], shp["s"], *kshape)
+        check(plan == wide_plan(shp["b"], shp["s"], *kshape, sms=sms),
+              f"gather_mlp {blk}: the library's plan {plan} differs from "
+              f"the wrapper's")
         raw, ctr, w1, b1, w2, b2, mask = dense_inputs(gen, dev, **shp)
         args = (raw, ctr, w1, b1, w2, b2)
         out = gather_mlp(*args, mask=mask)
@@ -869,8 +920,47 @@ def wide_kernel_rows(dev, seed, launches) -> tuple[list, list]:
                   f"Dc={shp['dc']} H={shp['h']} F={shp['f']} "
                   f"masked={shp['masked']}",
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-            bound_by=by, library_ms=None, launches=launches))
+            bound_by=by, library_ms=None, launches=launches,
+            plan=dict(plan, grid=[plan["groups"], plan["nft"],
+                                  plan["nsplit"]],
+                      layer1_recompute=plan["nft"])))
     return parity, rows
+
+
+def cache_x4_phase(params, batch) -> dict:
+    """One pointnet2_c lpcn forward at the paper's Fig. 22 cache size
+    (``CACHE_X4``: C = 4k, 256 rows at block 2) with the launch counts set
+    to 0 just before and read just after: one gather_mlp launch a block
+    and one hub_reuse launch per 128 cache rows, no entry kernel; logits
+    within 1e-4 of the "reference" backend at the same cache size.  ->
+    the launch counts."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.engine import PCNEngine
+    from repro_torch.models.pointnet2 import POINTNET2_C
+    eng = PCNEngine(POINTNET2_C, mode="lpcn", fc_backend="cuda",
+                    isl_kw=CACHE_X4)
+    ref = PCNEngine(POINTNET2_C, mode="lpcn", fc_backend="reference",
+                    isl_kw=CACHE_X4)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    out = eng.apply(params, batch)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    chunks = sum(-(-int(CACHE_X4["cache_capacity_x"] * b.k) // 128)
+                 for b in POINTNET2_C.blocks)
+    check(launches == {**dict.fromkeys(launches, 0),
+                       "gather_mlp": len(POINTNET2_C.blocks),
+                       "hub_reuse": chunks},
+          f"cache_x4 launches {launches}, expected gather_mlp "
+          f"{len(POINTNET2_C.blocks)} and hub_reuse {chunks}")
+    check(bool(torch.isfinite(out).all()), "cache_x4: non-finite logits")
+    err, tol = close(out, ref.apply(params, batch))
+    log(json.dumps({"cache_x4": {"isl_kw": CACHE_X4, "launches": {
+        k: v for k, v in launches.items() if v}, "max_abs_err": err,
+        "tol": tol}}))
+    check(err <= tol, f"cache_x4: cuda vs reference max|err| {err} > {tol}")
+    return launches
 
 
 def device_profile(serve, batch) -> dict:
@@ -1408,6 +1498,11 @@ def main() -> int:
         f"(tol {tol:.3g})")
     check(err <= tol, "traditional logits disagree with the reference")
 
+    # ---- lpcn at cache_capacity_x = 4: hub_reuse past 128 cache rows ----
+    t = time.perf_counter()
+    x4_launches = cache_x4_phase(params, batch)
+    phases["cache_x4_s"] = time.perf_counter() - t
+
     # ---- the families: every other model of the zoo at full width -------
     t = time.perf_counter()
     wide_launches = families_phase(dev, args.seed, smi.splitlines()[0])
@@ -1432,7 +1527,8 @@ def main() -> int:
     # counts its kernel's launches whatever the shape
     rows += per_cloud
     for row in rows:
-        row["launches"] = launches[row["name"]]
+        row["launches"] = (x4_launches if row.pop("path", None) == "cache_x4"
+                           else launches)[row["name"]]
     for row in entry_rows:
         row["launches"] = entry_launches[row["name"]]
     rows += wide_rows + entry_rows

@@ -48,7 +48,7 @@
 //
 // That is the narrow route.  Where a 64-row tile's x and whole h exceed a
 // block's 227 KB, gather_mlp_forward takes the wide route (namespace wide
-// below), which holds h in 64-column chunks.
+// below), which holds y in registers and h in 32-column chunks.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -364,36 +364,63 @@ int launch(const Params& p, size_t smem, long long grid, void* stream) {
   return (int)cudaGetLastError();
 }
 
-// ---- the wide route: h in 64-column chunks ---------------------------------
+// ---- the wide route: y in registers, h in 32-column chunks ---------------
 // Where a 64-row tile's x and whole h overflow a block's shared memory
 // (the widest blocks of dgcnn_c, pointnext_s and pointvector_l, whose
-// one-layer MLPs two_layer_form turns into Hd = 2F), the kernel below
-// holds x whole and h a chunk at a time, as hub_reuse does: for each 64
-// columns c of H, h_c = relu(x W1[:, c] + b1[c]) goes to shared memory and
-// at once into y += h_c W2[c, ftile], which stays in registers.  A block
-// takes one 64-row tile of whole subsets and 64 output features (grid:
-// row tiles x ceil(F / 64)), so each F tile recomputes the first layer.
-// W1 and W2 stream through one three-stage cp.async ring of 64 x 64
-// tiles.  Products in 3xTF32 as above; the pool is the narrow route's:
-// dead rows at -3.4e38, shuffles within each m16 tile, a running max per
-// subset in shared memory, 0 for a subset with no live row.
+// one-layer MLPs two_layer_form turns into Hd = 2F, and any D past that),
+// gather_mlp_forward takes the route below.  A block takes one 64-row
+// tile of whole subsets, packed K rows apart with no padding (K = 20 puts
+// 3 subsets in 60 rows), and up to 256 output features, whose y stays in
+// registers (64 floats a thread).  For each 32 columns c of H,
+// h_c = relu(x W1[:, c] + b1[c]) goes to shared memory and at once into
+// y += h_c W2[c, ftile], so layer 1 runs once per block: once in all
+// where F <= 256, once per 256-wide F tile above.  Where the row tiles
+// times the F tiles give fewer blocks than SMs (pointnext_s blocks 3-4
+// and pointvector_l block 4 at B = 2), H is split across
+// blocks too; each writes its partial y to device scratch, and a second
+// kernel sums the parts, adds b2, masks and pools.
 //
-// What bounds it: the products again.  dgcnn_c block 4 at B = 8 (S=1024
-// K=20 D=256 Hd=512 F=256) is 85.9 GFLOP in fp32, 0.52 ms at the TF32
-// peak in three passes; the pointnext_s and pointvector_l blocks at B = 2
-// are 3.2 to 7.3 GFLOP, 0.020 to 0.044 ms.  This first version spends
-// 1.7 to 4.7 times that work (layer 1 once per F tile), with one block an
-// SM (x alone is 100 KB at D = 387).
+// x is resident in shared memory where it fits beside the ring within
+// half an SM (two blocks an SM; D up to 256); past that it streams
+// through the ring in 64-column slices beside W1's rows, re-read from L2
+// for each h chunk, so any D fits.  W1 and W2 stream through a two-stage
+// cp.async ring (one barrier a stage).  The centers are subtracted by the
+// thread that copied each x element, right after its copy lands (once a
+// tile where x is resident).  Products in 3xTF32 as above, the small
+// parts truncated (split_fast).  The pool goes through shared memory:
+// y + b2 is stored over the ring, and a thread a (subset, column) takes
+// the max over the subset's live rows, wherever its subset starts in the
+// tile; a subset longer than a tile keeps a running max across tiles.
+//
+// What bounds it: the products.  dgcnn_c block 4 at B = 8 (S=1024 K=20
+// D=256 Hd=512 F=256) is 85.9 GFLOP in fp32, 0.52 ms at the TF32 peak in
+// three passes; the pointnext_s and pointvector_l blocks at B = 2 are 3.2
+// to 7.3 GFLOP, 0.020 to 0.044 ms.  Packing K = 20 three to a tile leaves
+// 6 % of the rows dead (37.5 % at K padded to 16), and the layer-1
+// recompute is 1 at F <= 256 and the number of F tiles above.
 namespace wide {
 
 constexpr int kR = 64;                   // rows per tile: 8 warps as 2 x 4
-constexpr int kWN = 4;                   // warps along columns
-constexpr int kNC = 64;                  // Hd chunk, output features a block
-constexpr int kKC = 64;                  // rows of W per ring stage
-constexpr int kStages = 3;               // ring depth
-constexpr int kWS = kNC + 4;             // stage row stride (≡ 4 mod 16)
-constexpr int kHS = kNC + 8;             // h row stride (≡ 8 mod 32)
-constexpr int kNT = kNC / (8 * kWN);     // n8 tiles per warp
+constexpr int kWN = 4;                   // warps along y's columns
+constexpr int kHC = 32;                  // columns of h a chunk
+constexpr int kWNH = 2;                  // warps along h's columns (4 x 2)
+constexpr int kNH = kHC / (8 * kWNH);    // n8 tiles of h a warp (one m16)
+constexpr int kDCR = 128;                // rows of W1 a stage, x resident
+constexpr int kDCS = 64;                 // rows of W1 a stage, x streamed
+constexpr int kMaxFT = 256;              // output columns a block holds
+constexpr int kBlocks = 2;               // blocks an SM the plan aims at
+constexpr int kSmemSM = 233472;          // an SM's shared memory
+constexpr int kBudget = kSmemSM / kBlocks - 1024;  // a block's share
+constexpr int kW1S = kHC + 4;            // W1 stage row stride (≡ 4 mod 16)
+constexpr int kXS = kDCS + 8;            // x slice row stride (≡ 8 mod 32)
+constexpr int kHS = kHC + 8;             // h row stride (≡ 8 mod 32)
+constexpr bool kFast = true;             // split_fast: small parts truncated
+
+// rows of W2 a stage for FT output columns: a multiple of 8 dividing kHC,
+// at most 17 KB
+__host__ __device__ constexpr int rows2(int ft) {
+  return 4352 / (ft + 4) / 8 * 8 < kHC ? 4352 / (ft + 4) / 8 * 8 : kHC;
+}
 
 struct WideParams {
   const float* raw;
@@ -404,278 +431,456 @@ struct WideParams {
   const float* w2;
   const float* b2;
   float* out;
+  float* part;             // partial y of each H split, null with one split
   long long bs;            // B * S subsets
   int K, D, Dc, H, F;
-  int Kp, Dp, XD;          // K to 16, D to 8, the x row stride
-  int spt;                 // subsets per row tile (1 when Kp > kR)
-  int n1, nchunk;          // W1 stages per Hd chunk, Hd chunks
-  int w1_vec, w2_vec;      // 16-byte copies of W rows allowed
+  int Kp;                  // rows a subset takes in a tile
+  int spt, n_tiles;        // subsets a tile (1 when Kp > kR), tiles a subset
+  int Dp, XD;              // D to 8; x's row stride, 0 where x streams
+  int dc;                  // rows of W1 a stage (kDCR or kDCS)
+  int n1, nchunk, cps;     // D slices, H chunks, H chunks a split
+  int FT, FP;              // output columns a block, partial row stride
+  int stage;               // floats of a ring stage
+  int x_vec, w1_vec, w2_vec;  // 16-byte copies allowed
 };
 
-// Rows [k0, k0 + kKC) by columns [c0, c0 + kNC) of the row-major kdim x
-// ncols matrix w into a stage; rows past kdim and columns past c0 + nc
-// are zero.
-__device__ __forceinline__ void stage_tile(float* st, const float* w,
-                                           int kdim, int ncols, int k0,
-                                           int c0, int nc, bool vec) {
-  constexpr int kQuads = kKC * kNC / 4;  // 16-byte pieces of a stage
-  for (int e = threadIdx.x; e < kQuads; e += kThreads) {
-    const int r = e / (kNC / 4), c = (e % (kNC / 4)) * 4;
-    float* dst = st + r * kWS + c;
-    const int kr = k0 + r;
-    const float* src = w + (size_t)kr * ncols + c0 + c;
-    if (vec && kr < kdim && c < nc) {
-      tf32x3::cp_async16(dst, src);
+// rows x COLS (a multiple of 4) of the row-major src (row stride lds)
+// into dst (row stride ldd); rows from rlim and columns from clim are zero
+template <int COLS>
+__device__ __forceinline__ void copy_tile(float* dst, int ldd,
+                                          const float* src, int lds,
+                                          int rows, int rlim, int clim,
+                                          bool vec) {
+  for (int e = threadIdx.x; e < rows * (COLS / 4); e += kThreads) {
+    const int r = e / (COLS / 4), c = (e % (COLS / 4)) * 4;
+    float* d = dst + r * ldd + c;
+    const float* s = src + (size_t)r * lds + c;
+    if (vec && r < rlim && c < clim) {
+      tf32x3::cp_async16(d, s);
     } else {
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        if (kr < kdim && c + i < nc) tf32x3::cp_async4(dst + i, src + i);
-        else dst[i] = 0.f;
+        if (r < rlim && c + i < clim) tf32x3::cp_async4(d + i, s + i);
+        else d[i] = 0.f;
       }
     }
   }
 }
 
-// Stage q of the ring's sequence: per Hd chunk j, n1 stages of W1[:, j]
-// (rows of D), then one stage of W2[j, ftile] (the chunk's 64 rows).
-__device__ __forceinline__ void issue(float* ws, const WideParams& p, int q,
-                                      int f0, int ft) {
-  const int per = p.n1 + 1, j = q / per, r = q % per;
-  float* st = ws + (q % kStages) * kKC * kWS;
-  if (r < p.n1)
-    stage_tile(st, p.w1, p.D, p.H, r * kKC, j * kNC, min(kNC, p.H - j * kNC),
-               p.w1_vec != 0);
-  else
-    stage_tile(st, p.w2, p.H, p.F, j * kNC, f0, ft, p.w2_vec != 0);
-}
-
-// acc += a[rows of this warp, k0 : k0 + 8 * steps) · st[0 : 8 * steps, :]
-__device__ __forceinline__ void mma_stage(float (&acc)[kMT][kNT][4],
-                                          const float* a, int lda, int k0,
-                                          const float* st, int steps, int wm,
-                                          int wn, int lane) {
+// A warp's accumulators: MT m16 tiles (rows (wm * MT + mt) * 16) by NT n8
+// tiles (columns (wn + WN * j) * 8), WN warps along the columns.
+// acc += a[its rows, 0 : 8 * steps) · b[0 : 8 * steps, its columns]
+template <int MT, int NT, int WN, int STEPS>
+__device__ __forceinline__ void mma_stage(float (&acc)[MT][NT][4],
+                                          const float* a, int lda,
+                                          const float* b, int ldb, int steps,
+                                          int wm, int wn, int lane) {
 #pragma unroll
-  for (int s = 0; s < kKC / 8; ++s) {     // fully unrolled: no spills
+  for (int s = 0; s < STEPS; ++s) {       // fully unrolled: no spills
     if (s >= steps) break;
-    Frag<4> af[kMT];
+    Frag<4> af[MT];
 #pragma unroll
-    for (int mt = 0; mt < kMT; ++mt)
-      af[mt] = tf32x3::load_a(a, lda, (wm * kMT + mt) * 16, k0 + s * 8,
-                              lane);
+    for (int mt = 0; mt < MT; ++mt)
+      af[mt] = tf32x3::load_a<kFast>(a, lda, (wm * MT + mt) * 16, s * 8,
+                                     lane);
 #pragma unroll
-    for (int j = 0; j < kNT; ++j) {
+    for (int j = 0; j < NT; ++j) {
       const Frag<2> bf =
-          tf32x3::load_b(st, kWS, s * 8, (wn + kWN * j) * 8, lane);
+          tf32x3::load_b<kFast>(b, ldb, s * 8, (wn + WN * j) * 8, lane);
 #pragma unroll
-      for (int mt = 0; mt < kMT; ++mt) tf32x3::mma3(acc[mt][j], af[mt], bf);
+      for (int mt = 0; mt < MT; ++mt) tf32x3::mma3(acc[mt][j], af[mt], bf);
     }
   }
 }
 
-// The h chunk: relu(acc + b1) on the chunk's n columns, 0 past them
-__device__ __forceinline__ void store_h(float* hs,
-                                       const float (&acc)[kMT][kNT][4],
-                                       const float* bias, int n, int wm,
-                                       int wn, int lane) {
+template <int MT, int NT>
+__device__ __forceinline__ void zero(float (&acc)[MT][NT][4]) {
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][j][i] = 0.f;
+}
+
+// acc plus a bias on columns below n (0 past them), relu'd if asked, as a
+// row-major tile of row stride ld
+template <int MT, int NT, int WN, bool kRelu>
+__device__ __forceinline__ void store_acc(float* dst, int ld,
+                                          const float (&acc)[MT][NT][4],
+                                          const float* bias, int n, int wm,
+                                          int wn, int lane) {
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int j = 0; j < kNT; ++j) {
-    const int c = (wn + kWN * j) * 8 + 2 * t;
+  for (int j = 0; j < NT; ++j) {
+    const int c = (wn + WN * j) * 8 + 2 * t;
     const float bias0 = c < n ? __ldg(bias + c) : 0.f;
     const float bias1 = c + 1 < n ? __ldg(bias + c + 1) : 0.f;
 #pragma unroll
-    for (int mt = 0; mt < kMT; ++mt) {
+    for (int mt = 0; mt < MT; ++mt) {
       const float* v = acc[mt][j];
-      float* row = hs + ((wm * kMT + mt) * 16 + g) * kHS + c;
-      *reinterpret_cast<float2*>(row) =
-          make_float2(fmaxf(v[0] + bias0, 0.f), fmaxf(v[1] + bias1, 0.f));
-      *reinterpret_cast<float2*>(row + 8 * kHS) =
-          make_float2(fmaxf(v[2] + bias0, 0.f), fmaxf(v[3] + bias1, 0.f));
+      float2 lo = make_float2(v[0] + bias0, v[1] + bias1);
+      float2 hi = make_float2(v[2] + bias0, v[3] + bias1);
+      if (kRelu) {
+        lo = make_float2(fmaxf(lo.x, 0.f), fmaxf(lo.y, 0.f));
+        hi = make_float2(fmaxf(hi.x, 0.f), fmaxf(hi.y, 0.f));
+      }
+      float* row = dst + ((wm * MT + mt) * 16 + g) * ld + c;
+      *reinterpret_cast<float2*>(row) = lo;
+      *reinterpret_cast<float2*>(row + 8 * ld) = hi;
     }
   }
 }
 
-__global__ void __launch_bounds__(kThreads, 1)
+constexpr int kTab = 3 * kR + 4;         // ints of the row tables (16-byte)
+
+// Floats of the kernel's main region: x (resident), h and the ring, and
+// later y over them
+__host__ __device__ __forceinline__ int main_floats(const WideParams& p) {
+  const int xhr = kR * (p.XD + kHS) + 2 * p.stage, ys = kR * (p.FT + 8);
+  return xhr > ys ? xhr : ys;
+}
+
+// threadIdx.x and blockIdx read afresh for the epilogue: otherwise the
+// compiler keeps values it made from the prologue's reads live across the
+// main loop, and at 128 registers spills them
+__device__ __forceinline__ int fresh_tid() {
+  int v;
+  asm volatile("mov.u32 %0, %%tid.x;" : "=r"(v));
+  return v;
+}
+
+template <int I>
+__device__ __forceinline__ int fresh_ctaid() {
+  int v;
+  if constexpr (I == 0) asm volatile("mov.u32 %0, %%ctaid.x;" : "=r"(v));
+  else if constexpr (I == 1) asm volatile("mov.u32 %0, %%ctaid.y;" : "=r"(v));
+  else asm volatile("mov.u32 %0, %%ctaid.z;" : "=r"(v));
+  return v;
+}
+
+template <int NY>
+__global__ void __launch_bounds__(kThreads, kBlocks)
 gather_mlp_wide_kernel(const WideParams p) {
+  constexpr int FT = 32 * NY, R2 = rows2(FT), W2S = FT + 4, YS = FT + 8;
+  static_assert(kHC % R2 == 0, "W2 stages tile an h chunk");
   extern __shared__ __align__(16) float smem_w[];
-  float* xs = smem_w;                                  // kR x XD
+  const bool resident = p.XD > 0;
+  // the row tables first, at fixed offsets (no registers hold them)
+  int* xrow = reinterpret_cast<int*>(smem_w);          // kR: raw row
+  int* rowsub = xrow + kR;                             // kR: subset slot
+  int* rowlive = rowsub + kR;                          // kR
+  int* anyl = rowlive + kR;                            // 1
+  float* xs = smem_w + kTab;                           // kR x XD (resident)
   float* hs = xs + kR * p.XD;                          // kR x kHS
-  float* ws = hs + kR * kHS;                           // kStages x kKC x kWS
-  float* red = ws + kStages * kKC * kWS;               // kR/16 x kNC
-  float* pool = red + (kR / 16) * kNC;                 // spt x kNC
-  float* cs = pool + p.spt * kNC;                      // spt x Dc
-  int* rowlive = reinterpret_cast<int*>(cs + p.spt * p.Dc);  // kR
-  int* anyl = rowlive + kR;                            // spt
+  float* ring = hs + kR * kHS;                         // 2 x stage
+  float* ys = xs;                                      // kR x YS, at the end
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp / kWN, wn = warp % kWN;
-  const int g = lane >> 2, t = lane & 3;
-  const int spt = p.spt;
-  const bool multi = p.Kp > kR;           // one subset over several tiles
-  const int n_tiles = multi ? (p.Kp + kR - 1) / kR : 1;
-  const int per_sub = min(p.Kp, kR) / 16; // m16 tiles of a subset in a tile
-  const long long sub0 = (long long)blockIdx.x * spt;
-  const int f0 = blockIdx.y * kNC, ft = min(kNC, p.F - f0);
-  const int per = p.n1 + 1;               // ring stages per Hd chunk
-  const int nq = p.nchunk * per;
-  // (subset slot, position in the subset) of row r of tile it
-  auto row_at = [&](int it, int r, int& sl, int& k) {
-    if (multi) {
-      sl = 0;
-      k = it * kR + r;
-    } else {
-      sl = r / p.Kp;
-      k = r % p.Kp;
-    }
-    return sl < spt && k < p.K && sub0 + sl < p.bs;
-  };
+  const bool multi = p.n_tiles > 1;       // one subset over several tiles
+  const long long grp = blockIdx.x, sub0 = grp * p.spt;
+  const int f0 = blockIdx.y * FT, ft = min(FT, p.F - f0);
+  const int j0 = blockIdx.z * p.cps, j1 = min(p.nchunk, j0 + p.cps);
+  const int n2 = kHC / R2, per = p.n1 + n2, nq = (j1 - j0) * per;
 
-  for (int e = tid; e < spt * kNC; e += kThreads) pool[e] = -kBig;
-  for (int e = tid; e < spt; e += kThreads) anyl[e] = 0;
-  for (int e = tid; e < spt * p.Dc; e += kThreads)
-    cs[e] = sub0 + e / p.Dc < p.bs ? p.ctr[sub0 * p.Dc + e] : 0.f;
-  __syncthreads();
-
-  float acc_h[kMT][kNT][4], acc_y[kMT][kNT][4];
-  for (int it = 0; it < n_tiles; ++it) {
-    // ---- prologue: raw rows by cp.async, the ring's first stages ---------
-    for (int r = warp; r < kR; r += kThreads / 32) {
-      int sl, k;
-      const bool valid = row_at(it, r, sl, k);
-      const float* src = p.raw + ((size_t)(sub0 + sl) * p.K + k) * p.D;
-      for (int d = lane; d < p.Dp; d += 32) {
-        if (valid && d < p.D) tf32x3::cp_async4(xs + r * p.XD + d, src + d);
-        else xs[r * p.XD + d] = 0.f;
+  // x's columns [d0, d0 + width) of the tile's rows into dst (row stride
+  // ld), rows past the subsets and columns past D zero
+  auto load_x = [&](float* dst, int ld, int d0, int width) {
+    for (int e = tid; e < kR * (width / 4); e += kThreads) {
+      const int r = e / (width / 4), c = (e % (width / 4)) * 4, d = d0 + c;
+      float* o = dst + r * ld + c;
+      const int row = xrow[r];
+      const float* src = p.raw + (size_t)row * p.D + d;
+      if (p.x_vec && row >= 0 && d < p.D) {
+        tf32x3::cp_async16(o, src);
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if (row >= 0 && d + i < p.D) tf32x3::cp_async4(o + i, src + i);
+          else o[i] = 0.f;
+        }
       }
     }
-    tf32x3::cp_async_commit();
-    for (int q = 0; q < kStages - 1; ++q) {
-      if (q < nq) issue(ws, p, q, f0, ft);
-      tf32x3::cp_async_commit();
+  };
+  // x = raw - ctr on the first Dc columns: each thread on the elements
+  // load_x gave it, once its own copies have landed
+  auto center = [&](float* dst, int ld, int d0, int width) {
+    if (d0 >= p.Dc) return;
+#pragma unroll 4              // 4 quads' loads in flight (rolled: spills)
+    for (int e = tid; e < kR * (width / 4); e += kThreads) {
+      const int r = e / (width / 4), c = (e % (width / 4)) * 4, d = d0 + c;
+      const int sl = rowsub[r];
+      if (sl < 0 || d >= p.Dc) continue;
+      const float* cp = p.ctr + (sub0 + sl) * p.Dc + d;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (d + i < p.Dc) dst[r * ld + c + i] -= __ldg(cp + i);
     }
-    for (int r = tid; r < kR; r += kThreads) {
-      int sl, k;
-      const int lv = row_at(it, r, sl, k) &&
-                     (!p.mask || p.mask[(size_t)(sub0 + sl) * p.K + k] != 0);
-      rowlive[r] = lv;
-      if (lv) anyl[sl] = 1;
+  };
+  // stage q of the ring's sequence: per H chunk j, n1 stages of W1[:, j]
+  // (rows of D; with x's slice where x streams), then n2 of W2[j, ftile]
+  auto issue = [&](int q) {
+    const int j = j0 + q / per, r = q % per;
+    float* st = ring + (q & 1) * p.stage;
+    if (r < p.n1) {
+      copy_tile<kHC>(st, kW1S, p.w1 + (size_t)r * p.dc * p.H + j * kHC,
+                     p.H, p.dc, p.D - r * p.dc, min(kHC, p.H - j * kHC),
+                     p.w1_vec != 0);
+      if (!resident) load_x(st + p.dc * kW1S, kXS, r * kDCS, kDCS);
+    } else {
+      const int k0 = j * kHC + (r - p.n1) * R2;
+      copy_tile<FT>(st, W2S, p.w2 + (size_t)k0 * p.F + f0, p.F, R2,
+                    p.H - k0, ft, p.w2_vec != 0);
     }
-    tf32x3::cp_async_wait<kStages - 1>();   // the raw rows
-    __syncthreads();
-    for (int e = tid; e < kR * p.Dc; e += kThreads) {  // x = raw - ctr
-      const int r = e / p.Dc, d = e % p.Dc;
-      int sl, k;
-      if (row_at(it, r, sl, k)) xs[r * p.XD + d] -= cs[sl * p.Dc + d];
-    }
+  };
 
-    // ---- h a chunk at a time, y += h_chunk W2 in registers ---------------
-#pragma unroll
-    for (int mt = 0; mt < kMT; ++mt)
-#pragma unroll
-      for (int j = 0; j < kNT; ++j)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc_y[mt][j][i] = 0.f;
+  float* pool = xs + main_floats(p);                   // FT (n_tiles > 1)
+  if (multi)
+    for (int e = tid; e < FT; e += kThreads) pool[e] = -kBig;
+  if (tid == 0) anyl[0] = 0;
+  float acc_y[kMT][NY][4], acc_h[1][kNH][4];
+  for (int it = 0; it < p.n_tiles; ++it) {
+    __syncthreads();                      // the last tile done with smem
+    if (tid < kR) {                       // (subset slot, position) of row
+      const int sl = multi ? 0 : tid / p.Kp;
+      const int k = multi ? it * kR + tid : tid % p.Kp;
+      const bool valid = sl < p.spt && k < p.K && sub0 + sl < p.bs;
+      const long long at = (sub0 + sl) * p.K + k;
+      rowsub[tid] = valid ? sl : -1;
+      xrow[tid] = valid ? (int)at : -1;
+      const int lv = valid && (!p.mask || p.mask[at] != 0);
+      rowlive[tid] = lv;
+      if (lv) anyl[0] = 1;
+    }
+    __syncthreads();
+    if (resident) load_x(xs, p.XD, 0, p.Dp);
+    issue(0);
+    tf32x3::cp_async_commit();
+    zero(acc_y);
     for (int q = 0; q < nq; ++q) {
-      tf32x3::cp_async_wait<kStages - 2>();  // stage q landed
-      __syncthreads();                       // for all; slot q - 1 free
-      if (q + kStages - 1 < nq) issue(ws, p, q + kStages - 1, f0, ft);
+      tf32x3::cp_async_wait<0>();         // this thread's copies of stage q
+      const int j = j0 + q / per, r = q % per;
+      float* st = ring + (q & 1) * p.stage;
+      if (r < p.n1) {
+        if (!resident) center(st + p.dc * kW1S, kXS, r * kDCS, kDCS);
+        else if (q == 0) center(xs, p.XD, 0, p.Dp);
+      }
+      __syncthreads();                    // stage q for all; q - 1's slot free
+      if (q + 1 < nq) issue(q + 1);
       tf32x3::cp_async_commit();
-      const float* st = ws + (q % kStages) * kKC * kWS;
-      const int j = q / per, r = q % per;
-      if (r < p.n1) {                        // h_chunk += x · W1 stage
-        if (r == 0) {
-#pragma unroll
-          for (int mt = 0; mt < kMT; ++mt)
-#pragma unroll
-            for (int n = 0; n < kNT; ++n)
-#pragma unroll
-              for (int i = 0; i < 4; ++i) acc_h[mt][n][i] = 0.f;
-        }
-        mma_stage(acc_h, xs, p.XD, r * kKC, st,
-                  min(kKC, p.Dp - r * kKC) / 8, wm, wn, lane);
-        if (r == p.n1 - 1)                   // read after the next barrier
-          store_h(hs, acc_h, p.b1 + j * kNC, min(kNC, p.H - j * kNC), wm,
-                  wn, lane);
-      } else {                               // y += h_chunk · W2 stage
-        mma_stage(acc_y, hs, kHS, 0, st, kKC / 8, wm, wn, lane);
+      if (r < p.n1) {                     // h_c += x · W1 stage
+        if (r == 0) zero(acc_h);
+        const float* a = resident ? xs + r * p.dc : st + p.dc * kW1S;
+        mma_stage<1, kNH, kWNH, kDCR / 8>(
+            acc_h, a, resident ? p.XD : kXS, st, kW1S,
+            min(p.dc, p.Dp - r * p.dc) / 8, warp / kWNH, warp % kWNH, lane);
+        if (r == p.n1 - 1)                // read after the next barrier
+          store_acc<1, kNH, kWNH, true>(hs, kHS, acc_h, p.b1 + j * kHC,
+                                        min(kHC, p.H - j * kHC),
+                                        warp / kWNH, warp % kWNH, lane);
+      } else {                            // y += h_c · W2 stage
+#pragma unroll 1                          // one k8 step at a time: no spills
+        for (int s = 0; s < R2 / 8; ++s)
+          mma_stage<kMT, NY, kWN, 1>(acc_y, hs + (r - p.n1) * R2 + s * 8,
+                                     kHS, st + s * 8 * W2S, W2S, 1, wm, wn,
+                                     lane);
       }
     }
     tf32x3::cp_async_wait<0>();
 
-    // ---- y + b2 pooled: dead rows -3.4e38, shuffles, then per subset -----
+    // the epilogue's indices, from special registers read afresh
+    const int et = fresh_tid(), el = et & 31;
+    const int ewm = (et >> 5) / kWN, ewn = (et >> 5) % kWN;
+    const int ef0 = fresh_ctaid<1>() * FT, eft = min(FT, p.F - ef0);
+    const long long egrp = fresh_ctaid<0>(), esub0 = egrp * p.spt;
+    if (p.part != nullptr) {              // one split of H: raw y rows out
+      const int g = el >> 2, t = el & 3;
+      float* dst = p.part + ((size_t)fresh_ctaid<2>() * gridDim.x *
+                             p.n_tiles + egrp * p.n_tiles + it) *
+                            kR * p.FP + ef0;
 #pragma unroll
-    for (int j = 0; j < kNT; ++j) {
-      const int c = (wn + kWN * j) * 8 + 2 * t;
-      const float bias0 = c < ft ? __ldg(p.b2 + f0 + c) : 0.f;
-      const float bias1 = c + 1 < ft ? __ldg(p.b2 + f0 + c + 1) : 0.f;
+      for (int j = 0; j < NY; ++j) {
+        const int c = (ewn + kWN * j) * 8 + 2 * t;
 #pragma unroll
-      for (int mt = 0; mt < kMT; ++mt) {
-        const float* v = acc_y[mt][j];
-        const int r0 = (wm * kMT + mt) * 16 + g;
-        const bool l0 = rowlive[r0], l1 = rowlive[r0 + 8];
-        float m0 = fmaxf(l0 ? v[0] + bias0 : -kBig, l1 ? v[2] + bias0 : -kBig);
-        float m1 = fmaxf(l0 ? v[1] + bias1 : -kBig, l1 ? v[3] + bias1 : -kBig);
-#pragma unroll
-        for (int off = 4; off < 32; off <<= 1) {
-          m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, off));
-          m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, off));
-        }
-        if (g == 0) {                  // columns past ft: never read
-          red[(wm * kMT + mt) * kNC + c] = m0;
-          red[(wm * kMT + mt) * kNC + c + 1] = m1;
+        for (int mt = 0; mt < kMT; ++mt) {
+          const int r0 = (ewm * kMT + mt) * 16 + g;
+          const float* v = acc_y[mt][j];
+          if (rowsub[r0] >= 0)
+            *reinterpret_cast<float2*>(dst + (size_t)r0 * p.FP + c) =
+                make_float2(v[0], v[1]);
+          if (rowsub[r0 + 8] >= 0)
+            *reinterpret_cast<float2*>(dst + (size_t)(r0 + 8) * p.FP + c) =
+                make_float2(v[2], v[3]);
         }
       }
+      continue;
     }
+    // ---- y + b2 over the ring, then a thread a (subset, column) --------
+    __syncthreads();                      // every warp done with x, h, ring
+    store_acc<kMT, NY, kWN, false>(ys, YS, acc_y, p.b2 + ef0, eft, ewm, ewn,
+                                   el);
     __syncthreads();
-    for (int e = tid; e < spt * ft; e += kThreads) {
-      const int s = e / ft, c = e % ft;
-      float m = pool[s * kNC + c];
-      for (int i = 0; i < per_sub; ++i)
-        m = fmaxf(m, red[(s * per_sub + i) * kNC + c]);
-      pool[s * kNC + c] = m;
+    for (int e = et; e < p.spt * eft; e += kThreads) {
+      const int sl = e / eft, c = e % eft;
+      if (p.n_tiles > 1) {
+        float m = pool[c];
+        const int rows = min(kR, p.K - it * kR);
+        for (int r = 0; r < rows; ++r)
+          if (rowlive[r]) m = fmaxf(m, ys[r * YS + c]);
+        pool[c] = m;
+      } else if (esub0 + sl < p.bs) {
+        float m = -kBig;
+        bool any = false;
+        for (int k = 0; k < p.K; ++k) {
+          const int r = sl * p.Kp + k;
+          if (rowlive[r]) {
+            m = fmaxf(m, ys[r * YS + c]);
+            any = true;
+          }
+        }
+        p.out[(esub0 + sl) * p.F + ef0 + c] = any ? m : 0.f;
+      }
     }
-    __syncthreads();
   }
-
-  for (int e = tid; e < spt * ft; e += kThreads) {
-    const int s = e / ft, c = e % ft;
-    if (sub0 + s < p.bs)
-      p.out[(sub0 + s) * p.F + f0 + c] = anyl[s] ? pool[s * kNC + c] : 0.f;
+  if (multi && p.part == nullptr) {
+    __syncthreads();
+    const int ef0 = fresh_ctaid<1>() * FT, eft = min(FT, p.F - ef0);
+    const long long esub0 = fresh_ctaid<0>();   // one subset a block
+    for (int c = fresh_tid(); c < eft; c += kThreads)
+      p.out[esub0 * p.F + ef0 + c] = anyl[0] ? pool[c] : 0.f;
   }
 }
 
-WideParams make(const Params& q) {
-  WideParams p{q.raw, q.ctr, q.mask, q.w1, q.b1, q.w2, q.b2, q.out, q.bs,
-               q.K, q.D, q.Dc, q.H, q.F};
-  p.Kp = q.Kp;
-  p.Dp = q.Dp;
-  p.XD = p.Dp + ((8 - p.Dp) % 32 + 32) % 32;  // ≡ 8 mod 32
-  p.spt = p.Kp <= kR ? kR / p.Kp : 1;
-  p.n1 = (p.Dp + kKC - 1) / kKC;
-  p.nchunk = (p.H + kNC - 1) / kNC;
-  p.w1_vec = q.w1_vec;
-  p.w2_vec = q.w2_vec;
-  return p;
+// The second pass after a split of H: a thread a (subset, column), the
+// parts summed in split order, b2 added, the max over the live rows, 0
+// for a subset with none.
+__global__ void __launch_bounds__(kThreads)
+gather_mlp_wide_pool(const WideParams p, int nsplit, long long groups) {
+  const long long e = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (e >= p.bs * p.F) return;
+  const long long sub = e / p.F;
+  const int c = (int)(e % p.F);
+  const long long grp = sub / p.spt;
+  const int sl = (int)(sub % p.spt);
+  const size_t split = (size_t)groups * p.n_tiles * kR * p.FP;
+  const float bias = __ldg(p.b2 + c);
+  float m = -kBig;
+  bool any = false;
+#pragma unroll 4
+  for (int k = 0; k < p.K; ++k) {
+    if (p.mask != nullptr && p.mask[sub * p.K + k] == 0) continue;
+    const int r = p.n_tiles > 1 ? k % kR : sl * p.Kp + k;
+    const float* src =
+        p.part + ((size_t)(grp * p.n_tiles + k / kR) * kR + r) * p.FP + c;
+    float v = src[0];
+    for (int s = 1; s < nsplit; ++s) v += src[s * split];
+    m = fmaxf(m, v + bias);
+    any = true;
+  }
+  p.out[sub * p.F + c] = any ? m : 0.f;
 }
+
+// How a shape runs on sms SMs: the tiles, the F tiles, the H splits and
+// where x lives
+struct Plan {
+  WideParams p;
+  long long groups;        // row-tile groups (grid x)
+  int nft, nsplit;         // F tiles (grid y), H splits (grid z)
+  size_t smem;
+};
 
 size_t smem_bytes(const WideParams& p) {
-  return sizeof(float) * ((size_t)kR * p.XD + kR * kHS +
-                          kStages * kKC * kWS + (kR / 16) * kNC +
-                          (size_t)p.spt * (kNC + p.Dc)) +
-         sizeof(int) * (kR + p.spt);
+  return sizeof(float) * ((size_t)kTab + main_floats(p) +
+                          (p.n_tiles > 1 ? p.FT : 0));
 }
 
-int launch(const WideParams& p, void* stream) {
-  const size_t smem = smem_bytes(p);
-  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+int stride8(int x) { return x + ((8 - x) % 32 + 32) % 32; }  // ≡ 8 mod 32
+
+// floats of a ring stage: W1's rows beside x's slice where x streams, or
+// W2's rows, whichever is larger
+int stage_floats(int dc, bool resident, int ft) {
+  const int w1 = dc * kW1S + (resident ? 0 : kR * kXS);
+  const int w2 = rows2(ft) * (ft + 4);
+  return w1 > w2 ? w1 : w2;
+}
+
+Plan make_plan(const Params& q, int sms) {
+  Plan w{};
+  WideParams& p = w.p;
+  p = WideParams{q.raw, q.ctr, q.mask, q.w1, q.b1, q.w2, q.b2, q.out,
+                 nullptr, q.bs, q.K, q.D, q.Dc, q.H, q.F};
+  p.Kp = q.K > 0 ? q.K : 1;
+  p.spt = p.Kp <= kR ? kR / p.Kp : 1;
+  p.n_tiles = p.Kp <= kR ? 1 : (p.K + kR - 1) / kR;
+  p.Dp = q.Dp;
+  p.nchunk = (p.H + kHC - 1) / kHC;
+  w.nft = (p.F + kMaxFT - 1) / kMaxFT;
+  p.FT = ((p.F + w.nft - 1) / w.nft + 63) / 64 * 64;
+  p.FP = w.nft * p.FT;
+  w.groups = (p.bs + p.spt - 1) / p.spt;
+  // H split where the blocks would leave SMs idle
+  const long long blocks = w.groups * w.nft;
+  long long nsplit = 1;
+  if (blocks < sms) {
+    nsplit = (sms + blocks - 1) / blocks;
+    const long long most = p.nchunk / 2 > 1 ? p.nchunk / 2 : 1;
+    if (nsplit > most) nsplit = most;
+  }
+  p.cps = (int)((p.nchunk + nsplit - 1) / nsplit);
+  w.nsplit = (p.nchunk + p.cps - 1) / p.cps;
+  p.XD = stride8(p.Dp);                   // x resident where it fits
+  p.dc = kDCR;
+  p.stage = stage_floats(p.dc, true, p.FT);
+  if (smem_bytes(p) > (size_t)kBudget) {
+    p.XD = 0;                             // else x streams
+    p.dc = kDCS;
+    p.stage = stage_floats(p.dc, false, p.FT);
+  }
+  p.n1 = (p.Dp + p.dc - 1) / p.dc;
+  p.x_vec = q.D % 4 == 0 && reinterpret_cast<uintptr_t>(q.raw) % 16 == 0;
+  p.w1_vec = q.w1_vec;
+  p.w2_vec = q.w2_vec;
+  w.smem = smem_bytes(p);
+  return w;
+}
+
+// Bytes of device scratch a plan's partial y takes (0 with one split)
+size_t scratch_bytes(const Plan& w) {
+  return w.nsplit > 1 ? sizeof(float) * w.nsplit * w.groups *
+                            w.p.n_tiles * kR * w.p.FP
+                      : 0;
+}
+
+template <int NY>
+int launch_ny(const Plan& w, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      gather_mlp_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      gather_mlp_wide_kernel<NY>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)w.smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)((p.bs + p.spt - 1) / p.spt),
-                  (p.F + kNC - 1) / kNC);
-  gather_mlp_wide_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(p);
+  const dim3 grid((unsigned)w.groups, w.nft, w.nsplit);
+  gather_mlp_wide_kernel<NY><<<grid, kThreads, w.smem, stream>>>(w.p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || w.nsplit == 1) return (int)err;
+  const long long n = w.p.bs * w.p.F;
+  gather_mlp_wide_pool<<<(unsigned)((n + kThreads - 1) / kThreads), kThreads,
+                         0, stream>>>(w.p, w.nsplit, w.groups);
   return (int)cudaGetLastError();
+}
+
+int launch(Plan w, float* scratch, void* stream) {
+  if (w.nsplit > 1 && scratch == nullptr) return (int)cudaErrorInvalidValue;
+  if (w.p.bs * w.p.K >= (1LL << 31))     // raw rows are int in the tables
+    return (int)cudaErrorInvalidValue;
+  w.p.part = w.nsplit > 1 ? scratch : nullptr;
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (w.p.FT / 32) {
+    case 2: return launch_ny<2>(w, s);
+    case 4: return launch_ny<4>(w, s);
+    case 6: return launch_ny<6>(w, s);
+    case 8: return launch_ny<8>(w, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace wide
@@ -707,18 +912,35 @@ extern "C" int gather_mlp_row_tile(int B, int S, int K) {
   return rows / big < (long long)kBlocksPerSM * sm_count() ? small : big;
 }
 
-extern "C" int gather_mlp_forward(const float* raw, const float* ctr,
-                                  const uint8_t* mask, const float* w1,
-                                  const float* b1, const float* w2,
-                                  const float* b2, float* out, int B, int S,
-                                  int K, int D, int Dc, int H, int F,
-                                  void* stream) {
+namespace {
+
+// The shape of a call, as both routes take it
+Params make_params(const float* raw, const float* ctr, const uint8_t* mask,
+                   const float* w1, const float* b1, const float* w2,
+                   const float* b2, float* out, int B, int S, int K, int D,
+                   int Dc, int H, int F) {
   Params p{raw, ctr, mask, w1, b1, w2, b2, out, (long long)B * S,
            K, D, Dc, H, F};
   set_shape(p);
   p.w1_vec = H % 4 == 0 && reinterpret_cast<uintptr_t>(w1) % 16 == 0;
   p.w2_vec = F % 4 == 0 && reinterpret_cast<uintptr_t>(w2) % 16 == 0;
-  if (!narrow_fits(p)) return wide::launch(wide::make(p), stream);
+  return p;
+}
+
+}  // namespace
+
+// scratch: gather_mlp_scratch_bytes of device memory (the wide route's
+// partial y where it splits H; null where that is 0)
+extern "C" int gather_mlp_forward(const float* raw, const float* ctr,
+                                  const uint8_t* mask, const float* w1,
+                                  const float* b1, const float* w2,
+                                  const float* b2, float* out, float* scratch,
+                                  int B, int S, int K, int D, int Dc, int H,
+                                  int F, void* stream) {
+  Params p = make_params(raw, ctr, mask, w1, b1, w2, b2, out, B, S, K, D,
+                         Dc, H, F);
+  if (!narrow_fits(p))
+    return wide::launch(wide::make_plan(p, sm_count()), scratch, stream);
   constexpr int big = Layout<4>::kR, small = Layout<2>::kR;
   int R = gather_mlp_row_tile(B, S, K);
   if (R == big && smem_bytes(big, p, p.Kp <= big ? big / p.Kp : 1) > kMaxSmem)
@@ -730,18 +952,42 @@ extern "C" int gather_mlp_forward(const float* raw, const float* ctr,
                   : launch<Layout<2>>(p, smem, grid, stream);
 }
 
-// The route a shape takes: 0 the narrow one (h whole), 1 the wide one (h
-// in chunks), -1 none (x of a 64-row tile alone overflows shared memory).
+// The route a shape takes: 0 the narrow one (h whole), 1 the wide one (y
+// in registers, h in chunks).  Every shape has one.
 extern "C" int gather_mlp_route(int K, int D, int Dc, int H, int F) {
-  Params p{};
-  p.K = K;
-  p.D = D;
-  p.Dc = Dc;
-  p.H = H;
-  p.F = F;
-  set_shape(p);
+  const Params p = make_params(nullptr, nullptr, nullptr, nullptr, nullptr,
+                               nullptr, nullptr, nullptr, 1, 1, K, D, Dc, H,
+                               F);
+  return narrow_fits(p) ? 0 : 1;
+}
+
+// Bytes of device scratch gather_mlp_forward needs for the call
+extern "C" long long gather_mlp_scratch_bytes(int B, int S, int K, int D,
+                                              int Dc, int H, int F) {
+  const Params p = make_params(nullptr, nullptr, nullptr, nullptr, nullptr,
+                               nullptr, nullptr, nullptr, B, S, K, D, Dc, H,
+                               F);
   if (narrow_fits(p)) return 0;
-  return wide::smem_bytes(wide::make(p)) <= kMaxSmem ? 1 : -1;
+  return (long long)wide::scratch_bytes(wide::make_plan(p, sm_count()));
+}
+
+// The wide route's plan for a call on the current device, into out[8]:
+// x resident (1) or streamed (0), output columns a block, F tiles, H
+// splits, H chunks a split, subsets a tile, row-tile groups, shared
+// memory bytes; out[0] = -1 where the call takes the narrow route
+extern "C" void gather_mlp_wide_plan(int B, int S, int K, int D, int Dc,
+                                     int H, int F, long long* out) {
+  const Params p = make_params(nullptr, nullptr, nullptr, nullptr, nullptr,
+                               nullptr, nullptr, nullptr, B, S, K, D, Dc, H,
+                               F);
+  if (narrow_fits(p)) {
+    out[0] = -1;
+    return;
+  }
+  const wide::Plan w = wide::make_plan(p, sm_count());
+  const long long v[8] = {w.p.XD > 0, w.p.FT, w.nft, w.nsplit, w.p.cps,
+                          w.p.spt, w.groups, (long long)w.smem};
+  for (int i = 0; i < 8; ++i) out[i] = v[i];
 }
 
 extern "C" const char* gather_mlp_error_string(int code) {

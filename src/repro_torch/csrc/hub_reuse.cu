@@ -13,7 +13,11 @@
 //                 y[slot[m,k], f] + comp[m, f]                    (M, F)
 //
 // and -BIG (the merge identity, not 0) where a subset has no live slot.
-// Slots clamp at C - 1, as the plain version's do.  The TPU kernel gathers
+// Slots clamp at C - 1, as the plain version's do.  A launch takes at
+// most 128 cache rows, rows [c0, c0 + 128) of each island; the wrapper
+// covers a larger C with one launch a chunk, each merged into the last
+// one's output by an elementwise max (a subset with no live slot in a
+// chunk gives -BIG there, the identity of that max).  The TPU kernel gathers
 // y[slot] as a one-hot matmul on the MXU; here a warp reads y[slot] from
 // shared memory, which gives the same values for finite inputs.  Each
 // block reads only its own island, so the TPU kernel's out-of-range-island
@@ -72,7 +76,7 @@ constexpr int kStages = 3;               // ring depth
 constexpr int kWS = kNC + 4;             // stage row stride (≡ 4 mod 16)
 constexpr int kHS = kNC + 8;             // h and y row stride (≡ 8 mod 32)
 constexpr int kN2 = kNC / kKC;           // W2 stages per Hd chunk
-constexpr int kMaxC = 128;               // cache rows C a block takes
+constexpr int kMaxC = 128;               // cache rows a launch takes
 constexpr float kBig = 3.4e38f;          // the max-pool identity of the JAX code
 
 struct Params {
@@ -86,6 +90,8 @@ struct Params {
   const float* b2;
   float* out;
   int C, M, K, D, Hd, F;
+  int c0, Cc;              // the launch's cache rows [c0, c0 + Cc)
+  int merge;               // out = max(out, this launch's result)
   int Dp, XD, K4;          // D to 8, the x row stride, K to 4
   int n1, nchunk;          // W1 stages per chunk, Hd chunks
   int x_vec, w1_vec, w2_vec;  // 16-byte copies allowed
@@ -236,17 +242,17 @@ hub_reuse_kernel(const Params p) {
   const int nq = p.nchunk * per;
 
   // ---- prologue: x by cp.async, the ring's first stages, the slots ------
-  const float* poolp = p.pool + isl * p.C * p.D;
+  const float* poolp = p.pool + (isl * p.C + p.c0) * p.D;
   for (int e = tid; e < R * (p.Dp / 4); e += kThreads) {
     const int r = e / (p.Dp / 4), c = (e % (p.Dp / 4)) * 4;
     float* dst = xs + r * p.XD + c;
     const float* src = poolp + (size_t)r * p.D + c;
-    if (p.x_vec && r < p.C && c < p.D) {
+    if (p.x_vec && r < p.Cc && c < p.D) {
       tf32x3::cp_async16(dst, src);
     } else {
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        if (r < p.C && c + i < p.D) tf32x3::cp_async4(dst + i, src + i);
+        if (r < p.Cc && c + i < p.D) tf32x3::cp_async4(dst + i, src + i);
         else dst[i] = 0.f;
       }
     }
@@ -324,7 +330,8 @@ hub_reuse_kernel(const Params p) {
     for (int k = lane; k < p.K4; k += 32) {  // per (m, k), -1 where dead
       const bool ok = k < p.K && e[k] >= 0 &&
                       (p.live == nullptr || lv[m * p.K + k] != 0);
-      e[k] = ok ? min(e[k], p.C - 1) : -1;
+      const int s = ok ? min(e[k], p.C - 1) - p.c0 : -1;  // row of y
+      e[k] = s >= 0 && s < p.Cc ? s : -1;
     }
     __syncwarp();
     float a0 = -INFINITY, a1 = -INFINITY;
@@ -340,8 +347,14 @@ hub_reuse_kernel(const Params p) {
         }
       }
     }
-    if (c < ft) p.out[row + c] = merged(a0, c0);
-    if (c + 1 < ft) p.out[row + c + 1] = merged(a1, c1);
+    if (c < ft) {
+      const float v = merged(a0, c0);
+      p.out[row + c] = p.merge ? fmaxf(p.out[row + c], v) : v;
+    }
+    if (c + 1 < ft) {
+      const float v = merged(a1, c1);
+      p.out[row + c + 1] = p.merge ? fmaxf(p.out[row + c + 1], v) : v;
+    }
   }
 }
 
@@ -367,10 +380,13 @@ extern "C" int hub_reuse_forward(const float* pool, const int32_t* slot,
                                  const float* w1, const float* b1,
                                  const float* w2, const float* b2, float* out,
                                  int B, int H, int C, int M, int K, int D,
-                                 int Hd, int F, void* stream) {
-  // the wrapper raises on the error: no other kernel takes these shapes
-  if (C < 1 || C > kMaxC || D < 1) return (int)cudaErrorInvalidValue;
-  Params p{pool, slot, comp, live, w1, b1, w2, b2, out, C, M, K, D, Hd, F};
+                                 int Hd, int F, int c0, int merge,
+                                 void* stream) {
+  // the wrapper raises on the error: it splits C into chunks of kMaxC
+  if (C < 1 || c0 < 0 || c0 >= C || D < 1) return (int)cudaErrorInvalidValue;
+  const int Cc = min(kMaxC, C - c0);
+  Params p{pool, slot, comp, live, w1, b1, w2, b2, out, C, M, K, D, Hd, F,
+           c0, Cc, merge};
   p.Dp = (D + 7) & ~7;
   p.XD = p.Dp + ((8 - p.Dp) % 32 + 32) % 32;  // ≡ 8 mod 32: no bank conflicts
   p.K4 = (K + 3) & ~3;
@@ -382,8 +398,8 @@ extern "C" int hub_reuse_forward(const float* pool, const int32_t* slot,
   p.live_words = (long long)M * K % 4 == 0 &&
                  reinterpret_cast<uintptr_t>(live) % 4 == 0;
   const long long islands = (long long)B * H;
-  return C <= Rows64::kR ? launch<Rows64>(p, islands, stream)
-                         : launch<Rows128>(p, islands, stream);
+  return Cc <= Rows64::kR ? launch<Rows64>(p, islands, stream)
+                          : launch<Rows128>(p, islands, stream);
 }
 
 extern "C" const char* hub_reuse_error_string(int code) {

@@ -18,11 +18,13 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _VARIANTS = {"mma": 0, "wgmma": 1}
 
 
-def _lib():
-    lib = _build.load("flash_attention")
+def _declare(lib):
     lib.flash_attention_forward.argtypes = [_P] * 4 + [_I] * 9 + [_P]
     lib.flash_attention_forward.restype = _I
-    return lib
+
+
+def _lib():
+    return _build.load("flash_attention", _declare)
 
 
 def _variant(dtype, d: int, ptrs=()) -> str:

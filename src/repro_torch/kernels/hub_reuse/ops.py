@@ -1,7 +1,9 @@
 """Wrapper of the hub_reuse CUDA kernel (``csrc/hub_reuse.cu``).
 
 A CPU tensor takes the plain PyTorch version (:func:`hub_reuse_ref`); a
-CUDA tensor launches the kernel or raises.
+CUDA tensor launches the kernel or raises.  A launch takes at most
+:data:`CHUNK` cache rows; a larger C takes one launch a chunk, each merged
+into the output by an elementwise max.
 """
 from __future__ import annotations
 
@@ -13,13 +15,16 @@ from .. import _build
 from .ref import hub_reuse_ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+CHUNK = 128                # cache rows a launch takes (csrc kMaxC)
+
+
+def _declare(lib):
+    lib.hub_reuse_forward.argtypes = [_P] * 9 + [_I] * 10 + [_P]
+    lib.hub_reuse_forward.restype = _I
 
 
 def _lib():
-    lib = _build.load("hub_reuse")
-    lib.hub_reuse_forward.argtypes = [_P] * 9 + [_I] * 8 + [_P]
-    lib.hub_reuse_forward.restype = _I
-    return lib
+    return _build.load("hub_reuse", _declare)
 
 
 def hub_reuse(pool_in, slot, comp, w1, b1, w2, b2, live=None):
@@ -54,16 +59,20 @@ def hub_reuse(pool_in, slot, comp, w1, b1, w2, b2, live=None):
                              f"{tuple(ops[arg].shape)}, expected {shape}")
     _build.check_operands("hub_reuse", ops, pool_in.device,
                           {"slot": torch.int32, "live": torch.bool})
+    if c < 1:
+        raise ValueError("hub_reuse: needs C >= 1 cache rows")
     out = torch.empty((b, hn, m, fout), dtype=torch.float32,
                       device=pool_in.device)
     if b * hn * m:
         lib = _lib()
-        code = lib.hub_reuse_forward(
-            pool_in.data_ptr(), slot.data_ptr(), comp.data_ptr(),
-            None if live is None else live.data_ptr(),
-            w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-            out.data_ptr(), b, hn, c, m, k, d, hdim, fout,
-            torch.cuda.current_stream(pool_in.device).cuda_stream)
-        _build.check_launch(lib, "hub_reuse", code)
-        _build.count_launch("hub_reuse")
+        stream = torch._C._cuda_getCurrentRawStream(pool_in.device.index)
+        for c0 in range(0, c, CHUNK):
+            code = lib.hub_reuse_forward(
+                pool_in.data_ptr(), slot.data_ptr(), comp.data_ptr(),
+                None if live is None else live.data_ptr(),
+                w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+                out.data_ptr(), b, hn, c, m, k, d, hdim, fout, c0,
+                int(c0 > 0), stream)
+            _build.check_launch(lib, "hub_reuse", code)
+            _build.count_launch("hub_reuse")
     return out[0] if single else out

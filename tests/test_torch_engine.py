@@ -11,6 +11,7 @@ from functools import partial
 from pathlib import Path
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -88,6 +89,68 @@ def test_bucket_callable_serves_ragged_batches(setup):
     assert out.shape == (4, 10) and torch.isfinite(out).all()
     np.testing.assert_allclose(out.numpy(), eng.apply(tp, tb).numpy(),
                                rtol=1e-5, atol=1e-5)
+
+
+# pointnet2_c cut to a small S with k as published at block 2 (64), at
+# the paper's Fig. 22 cache size, cache_capacity_x = 4: C = 256 cache rows
+# at block 2, past one hub_reuse launch's 128
+CAP_BLOCKS = ((256, 32, (16, 16, 32)), (32, 64, (32, 32, 48)))
+CAP_KW = {"cache_capacity_x": 4.0}
+CAP_SIZES = (400, 330, 270, 0)
+
+
+def test_wide_hub_cache_matches_jax():
+    """lpcn at cache_capacity_x = 4 against JAX: block 2's stage 1 exactly
+    equal (its slots reach past row 128 of the 256-row cache), logits
+    within 1e-4 of JAX "reference" and "pallas_vmap" for both of the
+    port's backends."""
+    from repro.core.pipeline import LPCNConfig as JCfg
+    from repro.core.pipeline import structure_block as jstructure_block
+    from repro_torch.core.pipeline import LPCNConfig, structure_block
+    jspec = replace(JSPEC, blocks=tuple(jengine.BlockSpec(*b)
+                                        for b in CAP_BLOCKS))
+    tspec = replace(TSPEC, blocks=tuple(engine.BlockSpec(*b)
+                                        for b in CAP_BLOCKS))
+    rng = np.random.default_rng(3)
+    clouds = [np.asarray(make_cloud(rng, n), np.float32) if n
+              else np.zeros((0, 3), np.float32) for n in CAP_SIZES]
+    keys = jax.random.split(jax.random.PRNGKey(5), len(CAP_SIZES))
+
+    # block 2's stage 1 on clouds of block 1's 256 centers
+    xyz = np.stack([c[:256] if len(c) else np.zeros((256, 3), np.float32)
+                    for c in clouds])
+    nv = np.asarray([min(len(c), 256) for c in clouds], np.int64)
+    cfg = dict(n_centers=32, k=64, **CAP_KW)
+    jst = jax.jit(jax.vmap(lambda x, k, n: jstructure_block(
+        JCfg(**cfg), x, k, n_valid=n)))(jnp.asarray(xyz), keys,
+                                        jnp.asarray(nv, jnp.int32))
+    got = structure_block(LPCNConfig(**cfg), torch.from_numpy(xyz),
+                          torch.from_numpy(np.asarray(keys).astype(np.int64)),
+                          n_valid=torch.from_numpy(nv))
+    assert LPCNConfig(**cfg).cache_capacity == 256
+    for f in ("pool_ids", "reuse_slot", "is_first", "subset_valid",
+              "pos_live"):
+        np.testing.assert_array_equal(
+            np.asarray(getattr(jst.schedule, f)),
+            getattr(got.schedule, f).numpy(), err_msg=f)
+    assert int(got.schedule.reuse_slot.max()) >= 128
+
+    jp = jengine.init(jax.random.PRNGKey(0), jspec)
+    jp = jax.tree.map(lambda a: a + 0.05 if a.ndim == 1 else a, jp)
+    tp = engine.params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+    jb = jengine.Batch.from_clouds(clouds, key=keys)
+    tb = engine.Batch.from_clouds(clouds, key=np.asarray(keys),
+                                  device="cpu")
+    want = {be: np.asarray(jax.jit(partial(
+        jengine.apply, spec=jspec, mode="lpcn", fc_backend=be,
+        isl_kw=CAP_KW))(jp, jb)) for be in ("reference", "pallas_vmap")}
+    for be in ("reference", "cuda"):
+        out = engine.apply(tp, tb, spec=tspec, mode="lpcn", fc_backend=be,
+                           isl_kw=CAP_KW, device="cpu").numpy()
+        assert out.shape == (len(CAP_SIZES), 10) and np.isfinite(out).all()
+        for jbe, w in want.items():
+            np.testing.assert_allclose(out, w, rtol=1e-4, atol=1e-4,
+                                       err_msg=f"{be} vs JAX {jbe}")
 
 
 def test_batch_from_clouds():

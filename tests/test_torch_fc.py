@@ -276,20 +276,31 @@ def _tf32(x):
     return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
 
 
-def _mm_tf32(a, b, passes):
+def _trunc(x):
+    """A TF32 operand as ``mma.sync`` reads an fp32 register: the low 13
+    mantissa bits dropped (``split_fast``'s small part)."""
+    return (x.view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_tf32(a, b, passes, fast=False):
     """a·b as the tensor cores take it in TF32 with fp32 sums: one pass
-    (big·big) or three (small·big + big·small + big·big)."""
+    (big·big) or three (small·big + big·small + big·big), the small parts
+    rounded (``split``) or truncated (``fast``: ``split_fast``)."""
     ab, bb = _tf32(a), _tf32(b)
     if passes == 1:
         return ab @ bb
-    return _tf32(a - ab) @ bb + ab @ _tf32(b - bb) + ab @ bb
+    small = _trunc if fast else _tf32
+    return small(a - ab) @ bb + ab @ small(b - bb) + ab @ bb
 
 
 # (S, K, D, Dc, H, F): the PointNet++(c) block widths at a small S, and
-# pointvector_l block 4 (the widest, on the wide route)
+# the wide route at pointvector_l block 4 (the widest; at S = 4, H split
+# across blocks) and dgcnn_c block 4 (K = 20, three subsets a 64-row
+# tile; S = 400 fills 132 SMs, so H is not split)
 TF32_BLOCKS = {"blk1": (16, 32, 65, 1, 64, 128),
                "blk2": (8, 64, 129, 1, 128, 256),
-               "pointvector_l_blk4": (4, 32, 387, 3, 1536, 768)}
+               "pointvector_l_blk4": (4, 32, 387, 3, 1536, 768),
+               "dgcnn_c_blk4": (400, 20, 256, 256, 512, 256)}
 
 
 @pytest.mark.parametrize("blk", sorted(TF32_BLOCKS))
@@ -298,9 +309,11 @@ def test_tf32x3_keeps_the_kernel_tolerance(blk):
     1e-5 · max(1, |ref|) of fp64 at the block widths and chip_smoke.py's
     input scales, and 1xTF32 breaks the 1e-4 limit the kernel is held
     to (so the cheaper route is not open).  A wide-route shape sums y in
-    the route's order: h a 64-column chunk at a time, each chunk's
-    product added to y in fp32."""
-    from repro_torch.kernels.gather_mlp.ops import route
+    the route's order (``wide_plan`` on a card of 132 SMs): h a 32-column
+    chunk at a time, each chunk's product added to its H split's partial
+    y in fp32, the splits summed in order, then b2; small TF32 parts
+    truncated (``split_fast``)."""
+    from repro_torch.kernels.gather_mlp.ops import route, wide_plan
     import jax.numpy as jnp
     from repro.kernels.gather_mlp.ref import gather_mlp_ref as jgather_ref
     s, k, d, dc, h, f = TF32_BLOCKS[blk]
@@ -315,16 +328,25 @@ def test_tf32x3_keeps_the_kernel_tolerance(blk):
     want = np.asarray(jgather_ref(*(jnp.asarray(a) for a in ops)))
     np.testing.assert_allclose(want, ref.numpy(), rtol=TOL, atol=TOL * lim)
     x = torch.cat([raw[..., :dc] - ctr[:, None], raw[..., dc:]], dim=-1)
-    chunks = [slice(0, h)]
-    if route(k, d, dc, h, f) == "wide":
-        chunks = [slice(c, c + 64) for c in range(0, h, 64)]
-    assert (len(chunks) > 1) == (blk == "pointvector_l_blk4")
+    wide = route(k, d, dc, h, f) == "wide"
+    assert wide == blk.startswith(("pointvector", "dgcnn"))
+    splits = [[slice(0, h)]]
+    if wide:
+        plan = wide_plan(1, s, k, d, dc, h, f, sms=132)
+        chunks = [slice(c, c + 32) for c in range(0, h, 32)]
+        cps = plan["cps"]
+        splits = [chunks[i:i + cps] for i in range(0, len(chunks), cps)]
+        assert len(splits) == plan["nsplit"]
+        assert (len(splits) > 1) == (blk == "pointvector_l_blk4")
     err = {}
     for passes in (1, 3):
-        y = torch.zeros(s, k, f)
-        for c in chunks:
-            hid = torch.relu(_mm_tf32(x, w1[:, c], passes) + b1[c])
-            y = y + _mm_tf32(hid, w2[c], passes)
+        y = None
+        for part in splits:
+            yp = torch.zeros(s, k, f)
+            for c in part:
+                hid = torch.relu(_mm_tf32(x, w1[:, c], passes, wide) + b1[c])
+                yp = yp + _mm_tf32(hid, w2[c], passes, wide)
+            y = yp if y is None else y + yp
         y = (y + b2).amax(1)
         err[passes] = (y.double() - ref).abs().max().item()
     assert err[3] <= 1e-5 * lim, err
@@ -346,7 +368,8 @@ def test_gather_mlp_route_follows_shared_memory():
     """The wrapper's route, from the kernel's shared-memory formulas: the
     narrow route (h whole) at every block of every model but the
     six of ``WIDE_BLOCKS``, which take the wide route, at the shapes the
-    engine's lowering gives them; past the wide route's room, a raise."""
+    engine's lowering gives them; past every 64-row tile's room (D = 4000)
+    the wide route too, which takes any D by streaming x in slices."""
     from repro_torch.engine import init
     from repro_torch.kernels.gather_mlp.ops import route
     from repro_torch.models import MODEL_ZOO
@@ -360,8 +383,7 @@ def test_gather_mlp_route_follows_shared_memory():
     assert wide == WIDE_BLOCKS
     assert seen["pointnet2_c", 1] == (32, 65, 1, 64, 128)
     assert seen["pointnet2_c", 2] == (64, 129, 1, 128, 256)
-    with pytest.raises(ValueError, match="no route"):
-        route(32, 4000, 3, 512, 256)
+    assert route(32, 4000, 3, 512, 256) == "wide"
 
 
 # (H, C, M, K, D, Hd, F): hub_reuse at the PointNet++(c) block widths and
@@ -433,8 +455,10 @@ CARD_DENSE = ((2, 24, 8, 9, 3, 16, 40), (3, 25, 20, 65, 1, 64, 128),
 # hub_reuse on the card: (B, H, C, M, K, D, Hd, F) — C off 16 (dgcnn_c's
 # 40) and above 64 (128-row tiles), Hd over several 64-column chunks and
 # off one, odd D (4-byte copies), F off the 64-column tile, K off 4 with
-# M·K off 4 (liveness by bytes), and the block-4 widths of dgcnn_c,
-# pointnext_s and pointvector_l (block 3 too)
+# M·K off 4 (liveness by bytes), the block-4 widths of dgcnn_c,
+# pointnext_s and pointvector_l (block 3 too), and C past one launch's 128
+# rows: 129 (a one-row second chunk) and 256 (pointnet2_c block 2 at
+# cache_capacity_x = 4)
 CARD_REUSE = ((2, 3, 16, 5, 8, 9, 16, 40), (2, 3, 24, 5, 7, 16, 72, 40),
               (2, 3, 40, 9, 20, 256, 512, 256),
               (1, 3, 100, 7, 12, 33, 200, 37), (2, 4, 128, 16, 64, 128, 128,
@@ -442,18 +466,28 @@ CARD_REUSE = ((2, 3, 16, 5, 8, 9, 16, 40), (2, 3, 24, 5, 7, 16, 72, 40),
               (2, 5, 64, 64, 32, 64, 64, 128),
               (2, 2, 64, 16, 32, 259, 1024, 512),
               (1, 2, 64, 16, 32, 195, 768, 384),
-              (1, 2, 64, 16, 32, 387, 1536, 768))
+              (1, 2, 64, 16, 32, 387, 1536, 768),
+              (2, 3, 129, 9, 20, 65, 128, 100),
+              (2, 4, 256, 64, 64, 129, 128, 256))
 
 
 # gather_mlp's wide route on the card: the six WIDE_BLOCKS at a small B
-# and S, then K over one 64-row tile (several tiles a subset), K = 8 (four
-# subsets a tile), H and F off a multiple of 4 and F off the 64-column
-# tile, Dc = D (EdgeConv's centers)
+# and S (H split across blocks), then K over one 64-row tile (several
+# tiles a subset), K = 8 (eight subsets a tile), H and F off a multiple of
+# 4 and F off the 64-column tile, Dc = D (EdgeConv's centers); K = 20
+# packed three to a tile on enough tiles to fill the card (no split), D
+# past the PR 18 route's ~600 (x streamed in slices), F > 256 (three F
+# tiles), a long subset with x streamed, and D = 300 streamed unsplit
 CARD_WIDE = tuple((b, s, *shp) for (b, s), shp in zip(
     ((2, 37), (2, 21), (1, 16), (2, 19), (1, 13), (1, 9)),
     WIDE_BLOCKS.values())) + ((1, 3, 100, 99, 3, 384, 200),
                               (2, 11, 8, 200, 200, 400, 100),
-                              (2, 5, 20, 131, 3, 510, 77))
+                              (2, 5, 20, 131, 3, 510, 77),
+                              (2, 200, 20, 256, 256, 512, 256),
+                              (1, 9, 32, 700, 3, 1024, 512),
+                              (2, 70, 20, 99, 3, 384, 600),
+                              (1, 2, 150, 700, 5, 300, 300),
+                              (3, 100, 32, 300, 3, 640, 130))
 
 
 @pytest.mark.cuda
@@ -461,14 +495,15 @@ def test_kernels_match_plain_versions_on_card():
     """On a CUDA host: each kernel against its plain version, batched and
     per cloud, masked (all-dead subsets included) and not, repeats
     bit-equal; gather_mlp over its tile edges in both row tilings and on
-    both routes (the library's route equal to the wrapper's), hub_reuse
-    over its own (``python3 chip_smoke.py`` does the same at the model
-    shapes)."""
+    both routes (the library's route and wide plan equal to the
+    wrapper's), hub_reuse over its own and past one launch's 128 cache
+    rows (``python3 chip_smoke.py`` does the same at the model shapes)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from repro_torch.kernels import LAUNCHES
-    from repro_torch.kernels.gather_mlp.ops import (library_route, route,
-                                                    row_tile)
+    from repro_torch.kernels.gather_mlp.ops import (library_plan,
+                                                    library_route, route,
+                                                    row_tile, wide_plan)
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(0)
     r = lambda *s, scale=1.0: (torch.randn(s, generator=g) * scale).to(dev)
@@ -476,6 +511,10 @@ def test_kernels_match_plain_versions_on_card():
     for b, s, k, d, dc, h, f in CARD_DENSE + CARD_WIDE:
         way = route(k, d, dc, h, f)
         assert library_route(k, d, dc, h, f) == way
+        if way == "wide":
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
+            assert library_plan(b, s, k, d, dc, h, f) == wide_plan(
+                b, s, k, d, dc, h, f, sms=sms)
         routes.add(way)
         before = LAUNCHES[f"gather_mlp_{way}"]
         raw, ctr = r(b, s, k, d), r(b, s, dc)
@@ -510,6 +549,7 @@ def test_kernels_match_plain_versions_on_card():
         live[:, :, 1::5] = False                    # cached, none live
         slot, live = slot.to(dev), live.to(dev)
         ops = (pool, slot, comp, w1, b1, w2, b2)
+        before = LAUNCHES["hub_reuse"]
         for lv in (None, live):
             want = hub_reuse_ref(*ops, live=lv)
             got = hub_reuse(*ops, live=lv)
@@ -519,6 +559,8 @@ def test_kernels_match_plain_versions_on_card():
                             live=None if lv is None else lv[-1])
             _held_reuse(one, want[-1])
             assert torch.equal(one, got[-1])
+        # one launch per 128 cache rows a call, six calls
+        assert LAUNCHES["hub_reuse"] == before + 6 * -(-c // 128)
 
 
 def _held_reuse(got, want):

@@ -15,7 +15,10 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ops import _variant
+from repro_torch.kernels.gather_mlp import ops as gather_ops
+from repro_torch.kernels.hub_reuse import ops as reuse_ops
 from repro_torch.kernels.knn import knn, knn_ref
 from repro_torch.kernels.knn import ops as knn_ops
 from repro_torch.kernels.ssd_chunk import ssd_chunk, ssd_chunk_ref
@@ -373,6 +376,19 @@ class _StubLib:
     (ssd_ops, "ssd_chunk", {
         "ssd_chunk_forward": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
         + [ctypes.c_void_p]}),
+    (gather_ops, "gather_mlp", {
+        "gather_mlp_forward": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
+        + [ctypes.c_void_p],
+        "gather_mlp_row_tile": [ctypes.c_int] * 3,
+        "gather_mlp_route": [ctypes.c_int] * 5,
+        "gather_mlp_scratch_bytes": [ctypes.c_int] * 7,
+        "gather_mlp_wide_plan": [ctypes.c_int] * 7 + [ctypes.c_void_p]}),
+    (reuse_ops, "hub_reuse", {
+        "hub_reuse_forward": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10
+        + [ctypes.c_void_p]}),
+    (flash_ops, "flash_attention", {
+        "flash_attention_forward": [ctypes.c_void_p] * 4
+        + [ctypes.c_int] * 9 + [ctypes.c_void_p]}),
 ])
 def test_wrappers_declare_ctypes_signatures_once(monkeypatch, ops, name,
                                                  want):

@@ -102,6 +102,7 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import (attention_ref,
                                                      flash_attention)
+    from repro_torch.kernels.flash_attention.ops import _declare
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], check=True,
@@ -131,7 +132,9 @@ def main() -> int:
         for name, so in libs.items():
             if name != "none" and shape not in FAULTS[name][3]:
                 continue
-            _build._LIBS["flash_attention"] = ctypes.CDLL(str(so))
+            lib = ctypes.CDLL(str(so))
+            _declare(lib)
+            _build._LIBS["flash_attention"] = lib
             before = _build.LAUNCHES[f"flash_attention_{route}"]
             out = flash_attention(q, k, v, causal=causal)
             torch.cuda.synchronize()

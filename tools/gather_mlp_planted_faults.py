@@ -9,7 +9,8 @@ Builds copies of ``src/repro_torch/csrc/gather_mlp.cu`` and its header
 runs each through ``repro_torch.kernels.gather_mlp`` at the shapes of the
 route it breaks: the narrow route at both PointNet++(c) block shapes of
 chip_smoke.py (B = 8, masked, with all-dead subsets), the wide route at
-chip_smoke.py's ``DENSE_WIDE`` (the six blocks that take it), and prints
+chip_smoke.py's ``DENSE_WIDE`` (the six blocks that take it) and
+``WIDE_D`` (D = 700, x streamed), and prints
 one JSON line per (fault, block): max |Δ| against ``gather_mlp_ref``
 beside chip_smoke.py's limit 1e-4 · max(1, max|plain|).  The unchanged
 sources run at every shape.  Exits 1 if they break the limit or a fault
@@ -27,33 +28,49 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(ROOT), str(ROOT / "src")]
 
-# name -> (file, text, its replacement, the routes it is run on); each
+# name -> ([(file, text, its replacement), ...], the routes it is run
+# on: "wide_unsplit" the wide route's shapes where H is not split); each
 # text occurs once in its file
 FAULTS = {
     # 1xTF32: the two small products dropped
-    "one_tf32_pass": ("tf32x3.cuh",
-                      "  mma(c, a.small, b.big);\n  mma(c, a.big, b.small);\n",
-                      "", ("narrow", "wide")),
+    "one_tf32_pass": ([("tf32x3.cuh",
+                        "  mma(c, a.small, b.big);\n  mma(c, a.big, b.small);\n",
+                        "")], ("narrow", "wide")),
     # y = h W2 without W2's last 32-row stage
-    "w2_last_stage_skipped": ("gather_mlp.cu", "gemm<L>(acc, hs, p.XH, p.Hp,",
-                              "gemm<L>(acc, hs, p.XH, p.Hp - kKC,",
+    "w2_last_stage_skipped": ([("gather_mlp.cu",
+                                "gemm<L>(acc, hs, p.XH, p.Hp,",
+                                "gemm<L>(acc, hs, p.XH, p.Hp - kKC,")],
                               ("narrow",)),
     # every row live: the mask is not read
-    "mask_ignored": ("gather_mlp.cu", "p.mask == nullptr ||", "true ||",
+    "mask_ignored": ([("gather_mlp.cu", "p.mask == nullptr ||", "true ||")],
                      ("narrow",)),
     # the last subset of each row tile keeps the -3.4e38 identity
-    "last_subset_unpooled": ("gather_mlp.cu", "e < spt * nc;",
-                             "e < (spt - 1) * nc;", ("narrow",)),
-    # wide route: y without the last Hd chunk's h_c W2 product
-    "wide_last_chunk_skipped": ("gather_mlp.cu",
-                                "const int nq = p.nchunk * per;",
-                                "const int nq = (p.nchunk - 1) * per;",
-                                ("wide",)),
+    "last_subset_unpooled": ([("gather_mlp.cu", "e < spt * nc;",
+                               "e < (spt - 1) * nc;")], ("narrow",)),
+    # wide route: y without the last H chunk of each block (of each split)
+    "wide_last_chunk_skipped": ([("gather_mlp.cu",
+                                  "nq = (j1 - j0) * per;",
+                                  "nq = (j1 - j0 - 1) * per;")], ("wide",)),
     # wide route: b1 added twice to the h chunk (rows g of each m16 tile)
-    "wide_b1_twice": ("gather_mlp.cu",
-                      "fmaxf(v[0] + bias0, 0.f), fmaxf(v[1] + bias1, 0.f)",
-                      "fmaxf(v[0] + 2.f * bias0, 0.f), "
-                      "fmaxf(v[1] + 2.f * bias1, 0.f)", ("wide",)),
+    "wide_b1_twice": ([("gather_mlp.cu",
+                        "        lo = make_float2(fmaxf(lo.x, 0.f), "
+                        "fmaxf(lo.y, 0.f));",
+                        "        lo = make_float2(fmaxf(lo.x + bias0, 0.f), "
+                        "fmaxf(lo.y + bias1, 0.f));")], ("wide",)),
+    # wide route: each subset but a tile's last also takes the row after
+    # its last, the first row of the next subset packed into the tile (the
+    # pool of an unsplit H, so run where H is not split)
+    "wide_pool_across_subsets": ([
+        ("gather_mlp.cu",
+         "        for (int k = 0; k < p.K; ++k) {\n"
+         "          const int r = sl * p.Kp + k;",
+         "        for (int k = 0; k < p.K + (sl + 1 < p.spt); ++k) {\n"
+         "          const int r = sl * p.Kp + k;")], ("wide_unsplit",)),
+    # wide route: layer 1 without x's last D slice (W1's last rows)
+    "wide_last_d_slice_dropped": ([("gather_mlp.cu",
+                                    "  p.n1 = (p.Dp + p.dc - 1) / p.dc;",
+                                    "  p.n1 = (p.Dp - 1) / p.dc;")],
+                                  ("wide",)),
 }
 FILES = ("gather_mlp.cu", "tf32x3.cuh")
 
@@ -97,6 +114,7 @@ def main() -> int:
     import chip_smoke
     from repro_torch.kernels import _build
     from repro_torch.kernels.gather_mlp import gather_mlp, gather_mlp_ref
+    from repro_torch.kernels.gather_mlp.ops import _declare, wide_plan
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], check=True,
@@ -104,19 +122,28 @@ def main() -> int:
     print(smi.splitlines()[0], flush=True)
     sound = {f: (_build.CSRC / f).read_text() for f in FILES}
     sources = {"none": sound}
-    for name, (fname, old, new, _) in FAULTS.items():
-        if sound[fname].count(old) != 1:
-            raise RuntimeError(f"fault {name}: {old!r} occurs "
-                               f"{sound[fname].count(old)} times in {fname}")
-        sources[name] = {**sound, fname: sound[fname].replace(old, new)}
+    for name, (edits, _) in FAULTS.items():
+        texts = dict(sound)
+        for fname, old, new in edits:
+            if texts[fname].count(old) != 1:
+                raise RuntimeError(f"fault {name}: {old!r} occurs "
+                                   f"{texts[fname].count(old)} times in "
+                                   f"{fname}")
+            texts[fname] = texts[fname].replace(old, new)
+        sources[name] = texts
     libs = build(sources, _build.BUILD_DIR / "faults" / "gather_mlp")
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(args.seed)
     shapes = [("narrow", blk, {"b": chip_smoke.B, **shp, "masked": True})
               for blk, shp in chip_smoke.DENSE.items()]
-    shapes += [("wide", blk, shp)
-               for blk, shp in chip_smoke.DENSE_WIDE.items()]
+    shapes += [("wide", blk, shp) for blk, shp in
+               {**chip_smoke.DENSE_WIDE, **chip_smoke.WIDE_D}.items()]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    unsplit = {blk: wide_plan(shp["b"], shp["s"], shp["k"], shp["d"],
+                              shp["dc"], shp["h"], shp["f"],
+                              sms=sms)["nsplit"] == 1
+               for way, blk, shp in shapes if way == "wide"}
     ok = True
     for way, blk, shp in shapes:
         raw, ctr, w1, b1, w2, b2, mask = chip_smoke.dense_inputs(
@@ -124,9 +151,14 @@ def main() -> int:
         ops = (raw, ctr, w1, b1, w2, b2)
         ref = gather_mlp_ref(*ops, mask=mask)
         for name, so in libs.items():
-            if name != "none" and way not in FAULTS[name][3]:
+            routes = FAULTS[name][1] if name != "none" else ()
+            if name != "none" and way not in routes and not (
+                    "wide_unsplit" in routes and way == "wide"
+                    and unsplit[blk]):
                 continue
-            _build._LIBS["gather_mlp"] = ctypes.CDLL(str(so))
+            lib = ctypes.CDLL(str(so))
+            _declare(lib)
+            _build._LIBS["gather_mlp"] = lib
             before = _build.LAUNCHES["gather_mlp"]
             out = gather_mlp(*ops, mask=mask)
             torch.cuda.synchronize()

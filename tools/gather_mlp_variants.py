@@ -2,23 +2,27 @@
 """Time text variants of the gather_mlp kernel side by side.
 
     python3 tools/gather_mlp_variants.py [--seed N] [--iters N]
-        [--only committed,one_pass,...] [--against DIR]
+        [--narrow] [--only committed,one_pass,...] [--against DIR]
 
 Builds copies of ``src/repro_torch/csrc/gather_mlp.cu`` and
 ``tf32x3.cuh`` with one edit each (under ``build/repro_torch/variants/``;
 the sources are not touched), calls each library's ``gather_mlp_forward``
-directly (no Python wrapper) at chip_smoke.py's block shapes, batched
-(B = 8) and per cloud (B = 1), and times all variants in turns with
-CUDA events.  Prints ptxas's registers and spills per variant and one
-JSON line per (variant, block, B): ms and max |Δ| against the plain
-version.  Most variants compute a wrong result on purpose: each removes
-one part of the kernel (the small TF32 products, the raw loads, the W
-stages, the epilogue's shuffles) so that its time shows that part's
-cost; the others are alternatives the kernel does not take.  ``--only``
-keeps the named variants; ``--against DIR`` adds the sources of another
-tree (``gather_mlp.cu`` and ``tf32x3.cuh`` in DIR, e.g. a parent
-commit's ``src/repro_torch/csrc``) as the variant ``against``, timed in
-the same turns.  Needs one CUDA device.
+directly (no Python wrapper) and times all variants in turns with CUDA
+events, beside the committed kernel called through the wrapper
+(``wrapper``: the host's share).  By default at the wide route's shapes
+(chip_smoke.py's ``DENSE_WIDE`` and ``WIDE_D``), with ``--narrow`` at
+the narrow route's block shapes, batched (B = 8) and per cloud (B = 1).
+Prints ptxas's registers and spills per variant and one JSON line per
+(variant, shape): ms and max |Δ| against the plain version.  Most
+variants compute a wrong result or take a worse path on purpose: each
+removes one part of the design (the small TF32 products, layer 1 once a
+block, subsets packed K rows apart, two blocks an SM, ...) so that its
+time shows that part's worth; the others are alternatives the kernel
+does not take.  ``--only`` keeps the named variants; ``--against DIR``
+adds the sources of another tree (``gather_mlp.cu`` and ``tf32x3.cuh``
+in DIR, e.g. a parent commit's ``src/repro_torch/csrc``) as the variant
+``against``, timed in the same turns (called with its own signature).
+Needs one CUDA device.
 """
 from __future__ import annotations
 
@@ -32,52 +36,139 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(ROOT), str(ROOT / "src"), str(ROOT / "tools")]
 
-# name -> [(file, text, replacement), ...]; each text occurs once
+SMALL = "  mma(c, a.small, b.big);\n  mma(c, a.big, b.small);\n"
+# name -> (the route whose shapes it runs on, [(file, text, replacement),
+# ...]); each text occurs once
 VARIANTS = {
-    "committed": [],
+    "committed": ("both", []),
     # 1xTF32: what the two small products cost
-    "one_pass": [("tf32x3.cuh",
-                  "  mma(c, a.small, b.big);\n  mma(c, a.big, b.small);\n",
-                  "")],
-    # no tensor-core work at all: everything else the kernel does
-    "no_products": [("tf32x3.cuh",
-                     "  mma(c, a.small, b.big);\n  mma(c, a.big, b.small);\n"
-                     "  mma(c, a.big, b.big);\n",
-                     "  c[0] += __uint_as_float(a.big[0] ^ b.small[1]);\n")],
+    "one_pass": ("both", [("tf32x3.cuh", SMALL, "")]),
+    # ---- the wide route --------------------------------------------------
+    # layer 1 once per 64-column F tile, as the PR 18 route did
+    "recompute": ("wide", [("gather_mlp.cu",
+                            "constexpr int kMaxFT = 256;",
+                            "constexpr int kMaxFT = 64;")]),
+    # subsets at multiples of 16 rows (K = 20: 2 a tile, not 3)
+    "k_pad16": ("wide", [("gather_mlp.cu",
+                          "p.Kp = q.K > 0 ? q.K : 1;", "p.Kp = q.Kp;")]),
+    # one block an SM: x resident wherever it fits an SM, H split only to
+    # one block an SM, 255 registers
+    "one_block": ("wide", [("gather_mlp.cu", "constexpr int kBlocks = 2;",
+                            "constexpr int kBlocks = 1;")]),
+    # H never split: small grids leave SMs idle
+    "no_split": ("wide", [("gather_mlp.cu", "  if (blocks < sms) {",
+                           "  if (false) {")]),
+    # H split only where the blocks would fill at most half the SMs
+    "split_half": ("wide", [("gather_mlp.cu", "  if (blocks < sms) {",
+                             "  if (2 * blocks <= sms) {")]),
+    # x always streamed in slices beside W1, never resident
+    "stream_x": ("wide", [("gather_mlp.cu",
+                           "  if (smem_bytes(p) > (size_t)kBudget) {",
+                           "  if (true) {")]),
+    # the small parts rounded to TF32 (split), not truncated (split_fast)
+    "exact_split": ("wide", [("gather_mlp.cu",
+                              "constexpr bool kFast = true;",
+                              "constexpr bool kFast = false;")]),
+    # W2's k8 steps unrolled within a stage (ptxas spills at 128 registers)
+    "l2_unrolled": ("wide", [("gather_mlp.cu",
+                              "#pragma unroll 1                          "
+                              "// one k8 step at a time: no spills",
+                              "#pragma unroll")]),
+    # layer 1's k8 steps one at a time, as layer 2's
+    "l1_rolled": ("wide", [("gather_mlp.cu",
+                            "        mma_stage<1, kNH, kWNH, kDCR / 8>(\n"
+                            "            acc_h, a, resident ? p.XD : kXS, st, "
+                            "kW1S,\n            min(p.dc, p.Dp - r * p.dc) / 8, "
+                            "warp / kWNH, warp % kWNH, lane);",
+                            "        const int steps = min(p.dc, p.Dp - r * "
+                            "p.dc) / 8;\n#pragma unroll 1\n"
+                            "        for (int s = 0; s < steps; ++s)\n"
+                            "          mma_stage<1, kNH, kWNH, 1>(acc_h, a + s "
+                            "* 8, resident ? p.XD : kXS, st + s * 8 * kW1S, "
+                            "kW1S, 1, warp / kWNH, warp % kWNH, lane);")]),
+    # W1's and W2's stages never copied (stale): what streaming W costs
+    "no_w_loads": ("wide", [("gather_mlp.cu",
+                             "  for (int e = threadIdx.x; e < rows * (COLS / 4);"
+                             " e += kThreads) {",
+                             "  for (int e = threadIdx.x; e < 0; "
+                             "e += kThreads) {")]),
+    # x never copied (stale): what loading x costs
+    "no_x_loads": ("wide", [("gather_mlp.cu",
+                             "  auto load_x = [&](float* dst, int ld, int d0, "
+                             "int width) {\n    for (int e = tid; e < kR * "
+                             "(width / 4); e += kThreads) {",
+                             "  auto load_x = [&](float* dst, int ld, int d0, "
+                             "int width) {\n    for (int e = tid; e < 0; "
+                             "e += kThreads) {")]),
+    # the centers' loop not unrolled: its loads one quad at a time
+    "center_rolled": ("wide", [("gather_mlp.cu",
+                                "#pragma unroll 4              // 4 quads' "
+                                "loads in flight (rolled: spills)\n", "")]),
+    # the centers not subtracted: what the per-thread fix-up costs
+    "no_center": ("wide", [("gather_mlp.cu",
+                            "    if (d0 >= p.Dc) return;",
+                            "    return;")]),
+    # ---- the narrow route ------------------------------------------------
     # x left as it was: what staging the raw rows costs
-    "no_raw": [("gather_mlp.cu",
-                "    for (int r = warp; r < R; r += kThreads / 32) {",
-                "    for (int r = warp; r < 0; r += kThreads / 32) {")],
+    "no_raw": ("narrow", [("gather_mlp.cu",
+                           "    for (int r = warp; r < R; r += kThreads / 32) {",
+                           "    for (int r = warp; r < 0; r += kThreads / 32) {")]),
     # W stages left as they were: what streaming W1 and W2 costs
-    "no_w_stages": [("gather_mlp.cu",
-                     "  for (int e = threadIdx.x; e < kKC * (kNC / 4); "
-                     "e += kThreads) {",
-                     "  for (int e = threadIdx.x; e < 0; e += kThreads) {")],
+    "no_w_stages": ("narrow", [("gather_mlp.cu",
+                                "  for (int e = threadIdx.x; e < kKC * (kNC / 4); "
+                                "e += kThreads) {",
+                                "  for (int e = threadIdx.x; e < 0; e += kThreads) {")]),
     # rows of an m16 tile not met by shuffles: what the epilogue's cost
-    "no_shuffles": [("gather_mlp.cu",
-                     "          for (int off = 4; off < 32; off <<= 1) {",
-                     "          for (int off = 4; off < 0; off <<= 1) {")],
-    # the split by the cvt.rna.tf32.f32 instruction instead of integers
-    "cvt_split": [("tf32x3.cuh",
-                   "  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;",
-                   "  uint32_t r;\n  asm(\"cvt.rna.tf32.f32 %0, %1;\" : "
-                   "\"=r\"(r) : \"f\"(x));\n  return r;")],
-    # the k-step loop unrolled by 4 over a runtime bound
-    "unroll_4": [("gather_mlp.cu",
-                  "#pragma unroll\n    for (int s = 0; s < kKC / 8; ++s) {",
-                  "#pragma unroll 4\n    for (int s = 0; s < kKC / 8; ++s) {")],
+    "no_shuffles": ("narrow", [("gather_mlp.cu",
+                                "          for (int off = 4; off < 32; off <<= 1) {",
+                                "          for (int off = 4; off < 0; off <<= 1) {")]),
     # 64-row tiles at every size
-    "rows_64": [("gather_mlp.cu",
-                 "  return rows / big < (long long)kBlocksPerSM * "
-                 "sm_count() ? small : big;",
-                 "  return small;")],
+    "rows_64": ("narrow", [("gather_mlp.cu",
+                            "  return rows / big < (long long)kBlocksPerSM * "
+                            "sm_count() ? small : big;",
+                            "  return small;")]),
 }
+
+
+def forward(lib, dev):
+    """A caller of lib's gather_mlp_forward, with either signature: the
+    scratch pointer (and its size from gather_mlp_scratch_bytes) where the
+    library has one, none where it predates the wide route's splits."""
+    import torch
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fwd = lib.gather_mlp_forward
+    try:
+        sizer = lib.gather_mlp_scratch_bytes
+    except AttributeError:
+        sizer = None
+    fwd.argtypes = [P] * (9 if sizer else 8) + [I] * 7 + [P]
+    fwd.restype = I
+    if sizer:
+        sizer.argtypes, sizer.restype = [I] * 7, ctypes.c_longlong
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def bind(ptrs, out, dims):
+        ptrs = [*ptrs, out]
+        scratch = None
+        if sizer:
+            n = sizer(*dims)
+            if n:
+                scratch = torch.empty(n, dtype=torch.uint8, device=dev)
+            ptrs.append(None if scratch is None else scratch.data_ptr())
+
+        def call():
+            return fwd(*ptrs, *dims, stream)
+        call.scratch = scratch            # held while the caller lives
+        return call
+    return bind
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--iters", type=int, default=50)
+    ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--narrow", action="store_true",
+                    help="time the narrow route's shapes instead")
     ap.add_argument("--only", default="",
                     help="comma-separated variants to build (default all)")
     ap.add_argument("--against", default="",
@@ -92,17 +183,18 @@ def main() -> int:
     import chip_smoke
     from gather_mlp_planted_faults import FILES, build
     from repro_torch.kernels import _build
-    from repro_torch.kernels.gather_mlp import gather_mlp_ref
+    from repro_torch.kernels.gather_mlp import gather_mlp, gather_mlp_ref
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], check=True,
                          capture_output=True, text=True).stdout.strip()
     print(smi.splitlines()[0], flush=True)
+    way = "narrow" if args.narrow else "wide"
     sound = {f: (_build.CSRC / f).read_text() for f in FILES}
     sources = {}
     only = set(filter(None, args.only.split(",")))
-    for name, edits in VARIANTS.items():
-        if only and name not in only:
+    for name, (route, edits) in VARIANTS.items():
+        if (only and name not in only) or route not in ("both", way):
             continue
         texts = dict(sound)
         for fname, old, new in edits:
@@ -118,40 +210,51 @@ def main() -> int:
                        with_logs=True)
     for name, log in logs.items():
         print(json.dumps({"variant": name, "ptxas": [
-            line.strip() for line in log.splitlines()
-            if "registers" in line or "spill" in line]}), flush=True)
+            row for row in chip_smoke.ptxas_kernels(log)]}), flush=True)
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(args.seed)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    for blk, shp in chip_smoke.DENSE.items():
-        for bb in (chip_smoke.B, 1):
-            raw, ctr, w1, b1, w2, b2, mask = chip_smoke.dense_inputs(
-                gen, dev, bb, **shp)
-            ref = gather_mlp_ref(raw, ctr, w1, b1, w2, b2, mask=mask)
-            fns, errs = {}, {}
-            for name, so in libs.items():
-                lib = ctypes.CDLL(str(so))
-                fwd = lib.gather_mlp_forward
-                fwd.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
-                                + [ctypes.c_void_p])
-                out = torch.empty_like(ref)
-                call = (lambda fwd=fwd, out=out: fwd(
-                    raw.data_ptr(), ctr.data_ptr(),
-                    None if mask is None else mask.data_ptr(),
-                    w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-                    b2.data_ptr(), out.data_ptr(), bb, shp["s"], shp["k"],
-                    shp["d"], shp["dc"], shp["h"], shp["f"], stream))
-                if call() != 0:
-                    raise RuntimeError(f"{name}: launch failed")
-                torch.cuda.synchronize()
-                errs[name] = (out - ref).abs().max().item()
-                fns[name] = call
-            ms = chip_smoke.time_turns(fns, iters=args.iters)
-            for name in fns:
-                print(json.dumps(dict(variant=name, block=blk, b=bb,
-                                      ms=ms[name], max_abs_err=errs[name])),
-                      flush=True)
+    if args.narrow:
+        shapes = {f"{blk}_b{bb}": {"b": bb, **shp}
+                  for blk, shp in chip_smoke.DENSE.items()
+                  for bb in (chip_smoke.B, 1)}
+    else:
+        shapes = {**chip_smoke.DENSE_WIDE, **chip_smoke.WIDE_D}
+    callers = {name: forward(ctypes.CDLL(str(so)), dev)
+               for name, so in libs.items()}
+    for blk, shp in shapes.items():
+        raw, ctr, w1, b1, w2, b2, mask = chip_smoke.dense_inputs(
+            gen, dev, **shp)
+        args_ = (raw, ctr, w1, b1, w2, b2)
+        ref = gather_mlp_ref(*args_, mask=mask)
+        dims = (shp["b"], shp["s"], shp["k"], shp["d"], shp["dc"], shp["h"],
+                shp["f"])
+        ptrs = [t.data_ptr() if t is not None else None
+                for t in (raw, ctr, mask, w1, b1, w2, b2)]
+        fns = {"wrapper": lambda: gather_mlp(*args_, mask=mask)}
+        outs = {"wrapper": None}
+        for name, bind in callers.items():
+            out = torch.empty_like(ref)
+            fns[name], outs[name] = bind(ptrs, out.data_ptr(), dims), out
+        errs = {}
+        for name, fn in list(fns.items()):
+            got = fn()
+            if name != "wrapper":
+                if got != 0 and name == "against":
+                    print(json.dumps(dict(variant=name, shape=blk,
+                                          refuses=got)), flush=True)
+                    del fns[name]
+                    continue
+                if got != 0:
+                    raise RuntimeError(f"{name} {blk}: launch failed ({got})")
+                got = outs[name]
+            torch.cuda.synchronize()
+            errs[name] = (got - ref).abs().max().item()
+        ms = chip_smoke.time_turns(fns, iters=args.iters)
+        for name in fns:
+            print(json.dumps(dict(variant=name, shape=blk, ms=ms[name],
+                                  max_abs_err=errs[name], device=smi)),
+                  flush=True)
     return 0
 
 

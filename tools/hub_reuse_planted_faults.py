@@ -8,7 +8,9 @@ Builds copies of ``src/repro_torch/csrc/hub_reuse.cu`` and its header
 ``build/repro_torch/faults/hub_reuse/``; the sources are not touched),
 runs each through ``repro_torch.kernels.hub_reuse`` at both PointNet++(c)
 block shapes of chip_smoke.py (B = 8, live masked, subsets with no live
-slot), and prints one JSON line per (fault, block): max |Δ| against
+slot) and at block 2's widths with C = 256 cache rows (``REUSE_C256``,
+two launches a call; the dropped-chunk fault runs there only), and
+prints one JSON line per (fault, block): max |Δ| against
 ``hub_reuse_ref`` beside chip_smoke.py's limit 1e-4 · max(1, max|plain|),
 and whether the -BIG identity came out exactly.  Exits 1 if the unchanged
 sources break the limit or a fault passes it.  Needs one CUDA device.
@@ -43,7 +45,14 @@ FAULTS = {
     # a subset with no live slot written as 0, not the merge identity
     "big_identity_as_zero": ("hub_reuse.cu", "-kBig : m + c;",
                              "0.f : m + c;"),
+    # past 128 cache rows: the second chunk's launch does nothing
+    "chunk_dropped": ("hub_reuse.cu",
+                      "  const int Cc = min(kMaxC, C - c0);",
+                      "  if (c0 > 0) return 0;\n"
+                      "  const int Cc = min(kMaxC, C - c0);"),
 }
+# faults that only a C past one launch's 128 rows shows: run there only
+LARGE_C = ("chunk_dropped",)
 FILES = ("hub_reuse.cu", "tf32x3.cuh")
 
 
@@ -60,6 +69,7 @@ def main() -> int:
     from gather_mlp_planted_faults import build
     from repro_torch.kernels import _build
     from repro_torch.kernels.hub_reuse import hub_reuse, hub_reuse_ref
+    from repro_torch.kernels.hub_reuse.ops import _declare
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], check=True,
@@ -77,7 +87,7 @@ def main() -> int:
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(args.seed)
     ok = True
-    for blk, shp in chip_smoke.REUSE.items():
+    for blk, shp in {**chip_smoke.REUSE, **chip_smoke.REUSE_C256}.items():
         pool, slot, comp, w1, b1, w2, b2, live = chip_smoke.reuse_inputs(
             gen, dev, chip_smoke.B, **shp)
         ops = (pool, slot, comp, w1, b1, w2, b2)
@@ -85,11 +95,15 @@ def main() -> int:
         empty = ref <= -chip_smoke.BIG / 2
         tol = chip_smoke.TOL * max(1.0, ref[~empty].abs().max().item())
         for name, so in libs.items():
-            _build._LIBS["hub_reuse"] = ctypes.CDLL(str(so))
+            if name in LARGE_C and shp["c"] <= 128:
+                continue
+            lib = ctypes.CDLL(str(so))
+            _declare(lib)
+            _build._LIBS["hub_reuse"] = lib
             before = _build.LAUNCHES["hub_reuse"]
             out = hub_reuse(*ops, live=live)
             torch.cuda.synchronize()
-            if _build.LAUNCHES["hub_reuse"] != before + 1:
+            if _build.LAUNCHES["hub_reuse"] != before + -(-shp["c"] // 128):
                 raise RuntimeError(f"{blk}: the kernel did not launch")
             identity = bool(torch.equal(out[empty], ref[empty]))
             err = (out[~empty] - ref[~empty]).abs().max().item()

@@ -88,8 +88,10 @@ VARIANTS = {
         ("hub_reuse.cu", "  const float2* y2 = reinterpret_cast",
          "  tt[5] = clock64();\n  const float2* y2 = reinterpret_cast"),
         ("hub_reuse.cu",
-         "    if (c + 1 < ft) p.out[row + c + 1] = merged(a1, c1);\n  }\n",
-         "    if (c + 1 < ft) p.out[row + c + 1] = merged(a1, c1);\n  }\n"
+         "      p.out[row + c + 1] = p.merge ? fmaxf(p.out[row + c + 1], v) "
+         ": v;\n    }\n  }\n",
+         "      p.out[row + c + 1] = p.merge ? fmaxf(p.out[row + c + 1], v) "
+         ": v;\n    }\n  }\n"
          "  tt[6] = clock64();\n"
          "  if (tid == 0 && blockIdx.x == 0 && blockIdx.y == 0)\n"
          "    for (int i = 1; i < 7; ++i) p.out[i - 1] = "
@@ -151,14 +153,14 @@ def main() -> int:
             for name, so in libs.items():
                 lib = ctypes.CDLL(str(so))
                 fwd = lib.hub_reuse_forward
-                fwd.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
+                fwd.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 10
                                 + [ctypes.c_void_p])
                 out = torch.empty_like(ref)
                 call = (lambda fwd=fwd, out=out: fwd(
                     *(t.data_ptr() for t in (pool, slot, comp, live, w1, b1,
                                              w2, b2, out)),
                     bb, shp["hn"], shp["c"], shp["m"], shp["k"], shp["d"],
-                    shp["h"], shp["f"], stream))
+                    shp["h"], shp["f"], 0, 0, stream))
                 if call() != 0:
                     raise RuntimeError(f"{name}: launch failed")
                 torch.cuda.synchronize()
