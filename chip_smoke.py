@@ -30,7 +30,14 @@ Phases, each timed, any failure exits non-zero:
      backend;
   5. one batch in ``mode="traditional"``; one lpcn batch at
      ``cache_capacity_x = 4`` (``CACHE_X4``: 256 cache rows at block 2, two
-     hub_reuse launches there) against the "reference" backend;
+     hub_reuse launches there) against the "reference" backend; then the
+     same batch under each data structuring of ``DS_VARIANTS`` (the
+     paper's DS baselines HgPCN, EdgePC and Crescent beside PointACC's,
+     the ball query, the random and Morton samplers, FPS hubs): one
+     gather_mlp and one hub_reuse launch a block, logits against the
+     "reference" backend, stage 1 and the workload reports
+     (``apply_with_reports``) equal on the card and on the CPU, the stages
+     timed and the reports' fetch and compute savings printed;
   6. families: each other model of ``repro_torch.models.MODEL_ZOO`` at
      full width (``FAMILIES``: pointnet2_ps 4 × 2048, pointnet2_s 2 ×
      4096, dgcnn_c 8 × 1024, dgcnn_s 1 × 8192, pointnext_s and
@@ -69,7 +76,9 @@ JSON lines, the serving reports (``serve_async``, ``serve_sync``,
 ``serve_chaos``, each beside the card's name and power limit) and the
 CLI's lines, the lpcn forward's stage times (``--profile`` adds a
 torch.profiler trace of one forward), stage 1 on the card against the
-CPU, a ``family`` line per model and ``wide_parity``, a ``kernels`` JSON
+CPU, a ``ds_variant`` line per data structuring (beside the card's name
+and power limit), a ``family`` line per model and ``wide_parity``, a
+``kernels`` JSON
 line (every TPU kernel's counterpart: the FC kernels batched and per
 cloud, gather_mlp's wide route, and the entry kernels; ``launches``
 counted per wrapper, in the async serving run for the FC kernels, over
@@ -112,6 +121,21 @@ REUSE_C256 = {"blk2_c256": dict(hn=4, c=256, m=64, k=64, d=128, h=128,
                                 f=256)}
 # the lpcn forward at that cache size, against the "reference" backend
 CACHE_X4 = {"cache_capacity_x": 4.0}
+# the ds_variants phase: pointnet2_c's forward under each data structuring
+# the paper measures the Islandization Unit on (Fig. 16: PointACC, the
+# main path's, then HgPCN, EdgePC, Crescent), PointNet++'s own ball query
+# (its blocks' radii 0.2 / 0.4), the random sampler of the approximate
+# baselines, the FractalCloud setting of the JAX package's benchmarks
+# (Morton sampler + EdgePC) and hub selection by FPS:
+# name -> (sampler, neighbor, isl_kw)
+DS_VARIANTS = {"pointacc": ("fps", "pointacc", {}),
+               "hgpcn": ("fps", "hgpcn", {}),
+               "edgepc": ("fps", "edgepc", {}),
+               "crescent": ("fps", "crescent", {}),
+               "ball": ("fps", "ball", {}),
+               "random": ("random", "pointacc", {}),
+               "fractal": ("morton", "edgepc", {}),
+               "fps_hubs": ("fps", "pointacc", {"hub_select": "fps"})}
 # parity only, at B = 2: hub_reuse at the other families' widest blocks
 # (two_layer_form doubles Hd for one-layer MLPs; C = 2k cache rows)
 REUSE_WIDE = {
@@ -483,7 +507,7 @@ def close(a, b) -> tuple[float, float]:
     return err, TOL * max(1.0, b.abs().max().item())
 
 
-def breakdown(params, spec, batch, repeats=3) -> dict:
+def breakdown(params, spec, batch, repeats=3, isl_kw=None) -> dict:
     """Host-clock ms of the forward's stages on one batch (each ended by
     a device sync; the best of ``repeats``): stage 1 builds the structures,
     stage 2 runs the FC dataflows (with a family's stem and residuals), the
@@ -492,7 +516,7 @@ def breakdown(params, spec, batch, repeats=3) -> dict:
     import torch
     from repro_torch.engine import archs
     arch = archs.get_arch(spec)
-    ctx = archs.EngineCtx.make("lpcn", "cuda")
+    ctx = archs.EngineCtx.make("lpcn", "cuda", isl_kw)
     best = {}
     for _ in range(repeats):
         t0 = time.perf_counter()
@@ -719,13 +743,13 @@ def cli_phase(smi, cli_args=("--arch", "pointnet2_c", "--trace",
     return dt
 
 
-def structure_card_vs_cpu(spec, batch) -> dict:
+def structure_card_vs_cpu(spec, batch, isl_kw=None) -> dict:
     """Stage 1 of one batch on the card against the same code on the CPU,
     where the tests hold it bit-equal to the JAX package: mismatching
     entries per structure field (a near-tie rounded differently on the
     card shows here)."""
     from repro_torch.engine import archs
-    ctx = archs.EngineCtx.make("lpcn", "cuda")
+    ctx = archs.EngineCtx.make("lpcn", "cuda", isl_kw)
     card, _ = archs._structure_stack_b(spec, ctx, batch.xyz, batch.keys,
                                        batch.n_valid)
     host_b = batch.to("cpu")
@@ -961,6 +985,93 @@ def cache_x4_phase(params, batch) -> dict:
         "tol": tol}}))
     check(err <= tol, f"cache_x4: cuda vs reference max|err| {err} > {tol}")
     return launches
+
+
+def params_to(params, device):
+    """A copy of ``params`` with every weight on ``device``."""
+    from dataclasses import replace
+
+    def mv(m):
+        return None if m is None else replace(m, layers=[
+            replace(d, w=d.w.to(device), b=d.b.to(device))
+            for d in m.layers])
+    return replace(params, blocks=tuple(mv(m) for m in params.blocks),
+                   head=mv(params.head), global_mlp=mv(params.global_mlp),
+                   stem=mv(params.stem),
+                   extras=tuple(mv(m) for m in params.extras))
+
+
+def ds_variants_phase(params, batch, smi) -> None:
+    """pointnet2_c's lpcn forward under every ``DS_VARIANTS`` entry, on the
+    main batch with the main path's weights: the launch counts set to 0
+    just before the forward and read just after (one gather_mlp and one
+    hub_reuse launch a block, no entry kernel), the logits within 1e-4 of
+    the "reference" backend on the card, the stages timed; then, once
+    every variant is timed (the CPU's worker threads would otherwise
+    share the cores with the timed launches), stage 1 equal on the card
+    and on the CPU field by field and the ``apply_with_reports`` counters
+    equal on the card and on the CPU.  Prints one ``ds_variant`` line
+    each."""
+    from dataclasses import replace
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core.workload import COUNTERS, WorkloadReport
+    from repro_torch.engine import PCNEngine, apply_with_reports
+    from repro_torch.models.pointnet2 import POINTNET2_C
+    off_path = ("knn", "flash_attention", "ssd_chunk")
+    rows = {}
+    for name, (sampler, neighbor, kw) in DS_VARIANTS.items():
+        spec = replace(POINTNET2_C, blocks=tuple(
+            replace(b, sampler=sampler, neighbor=neighbor)
+            for b in POINTNET2_C.blocks))
+        engine = PCNEngine(spec, mode="lpcn", fc_backend="cuda", isl_kw=kw)
+        reference = PCNEngine(spec, mode="lpcn", fc_backend="reference",
+                              isl_kw=kw)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        logits = engine.apply(params, batch)
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        nb = len(spec.blocks)
+        check(launches["gather_mlp"] == launches["hub_reuse"] == nb
+              and not any(launches[k] for k in off_path),
+              f"ds {name}: launches {launches}, expected gather_mlp == "
+              f"hub_reuse == {nb} and no entry kernel")
+        check(bool(torch.isfinite(logits).all()),
+              f"ds {name}: non-finite logits")
+        err, tol = close(logits, reference.apply(params, batch))
+        check(err <= tol, f"ds {name}: cuda vs reference max|err| {err} > "
+              f"{tol}")
+        stages = breakdown(params, spec, batch, isl_kw=kw)
+        fwd = sum(stages.values())
+        rows[name] = (spec, kw, dict(
+            name=name, sampler=sampler, neighbor=neighbor, isl_kw=kw,
+            device=smi, forward_ms=fwd, **stages,
+            stage1_share=stages["structure_ms"] / fwd,
+            launches={k: v for k, v in launches.items() if v},
+            max_abs_err=err, tol=tol))
+    host_params, host_batch = params_to(params, "cpu"), batch.to("cpu")
+    for name, (spec, kw, row) in rows.items():
+        mismatch = structure_card_vs_cpu(spec, batch, kw)
+        check(not any(mismatch.values()),
+              f"ds {name}: stage 1 on the card differs from the CPU: "
+              f"{mismatch}")
+        _, card = apply_with_reports(params, batch, spec=spec,
+                                     fc_backend="cuda", isl_kw=kw)
+        _, host = apply_with_reports(host_params, host_batch, spec=spec,
+                                     isl_kw=kw, device="cpu")
+        counters = {f: getattr(card, f).cpu() for f in COUNTERS}
+        check(all(torch.equal(v, getattr(host, f))
+                  for f, v in counters.items()),
+              f"ds {name}: reports differ card vs CPU")
+        total = WorkloadReport(*(int(v.sum()) for v in counters.values()),
+                               card.k)
+        log(json.dumps({"ds_variant": {
+            **row, "structure_mismatches": sum(mismatch.values()),
+            "fetch_saving": float(total.fetch_saving),
+            "compute_saving": float(total.compute_saving),
+            "counters": {f: int(v.sum()) for f, v in counters.items()},
+            "reports_card_vs_cpu": "equal"}}))
 
 
 def device_profile(serve, batch) -> dict:
@@ -1502,6 +1613,12 @@ def main() -> int:
     t = time.perf_counter()
     x4_launches = cache_x4_phase(params, batch)
     phases["cache_x4_s"] = time.perf_counter() - t
+
+    # ---- the paper's other samplers and neighbor searches ---------------
+    t = time.perf_counter()
+    ds_variants_phase(params, batch, smi.splitlines()[0])
+    phases["ds_variants_s"] = time.perf_counter() - t
+    log(f"ds_variants_s {phases['ds_variants_s']:.2f}")
 
     # ---- the families: every other model of the zoo at full width -------
     t = time.perf_counter()

@@ -3,7 +3,8 @@
 Partition each cloud's sampled centers into *Islands* of spatially
 adjacent point subsets:
 
-  Step 1  pick hub centers at random (shape-stable per-index scores);
+  Step 1  pick hub centers at random (shape-stable per-index scores,
+          the paper's default) or by masked FPS (``hub_select="fps"``);
   Step 2  multi-source BFS over occupied voxels of the Sampled Octree at
           ``level`` (26-connectivity); a voxel reached in an earlier round
           is nearer, same-round ties go to the hub nearest the voxel
@@ -26,7 +27,7 @@ import torch
 
 from . import morton
 from .octree import adjacent_node_keys
-from .sampling import index_uniform, sqdist
+from .sampling import farthest_point_sampling, index_uniform, sqdist
 
 INT32_MAX = 2 ** 31 - 1
 
@@ -74,9 +75,11 @@ def islandize(centers: torch.Tensor, n_hubs: int, *, level: int = 4,
     """Partition ``centers`` (B, S, 3) into ``n_hubs`` islands per cloud,
     with per-cloud keys (B, 2).  ``center_valid`` (B, S) marks padding
     centers (no voxel, no island, never solo); ``n_hubs_valid`` (B,) keeps
-    hub slots past the valid budget inert."""
-    if hub_select != "random":
-        raise NotImplementedError(f"hub_select={hub_select!r}")
+    hub slots past the valid budget inert.  ``hub_select`` is "random" or
+    "fps"; any other name raises (the JAX package takes it as random)."""
+    if hub_select not in ("random", "fps"):
+        raise ValueError(f"unknown hub_select {hub_select!r}; expected "
+                         f"'random' or 'fps'")
     B, S, _ = centers.shape
     dev = centers.device
     H = n_hubs
@@ -110,10 +113,13 @@ def islandize(centers: torch.Tensor, n_hubs: int, *, level: int = 4,
     nbr_safe = torch.clamp(nbr, 0, S - 1)
 
     # ---- Step 1: hub selection -------------------------------------------
-    scores = index_uniform(key, S)                                # (B, S)
-    if center_valid is not None:
-        scores = torch.where(center_valid, scores, float("inf"))
-    hub_idx = torch.sort(scores, dim=-1, stable=True).indices[:, :H]
+    if hub_select == "fps":
+        hub_idx = farthest_point_sampling(centers, H, valid=center_valid)
+    else:
+        scores = index_uniform(key, S)                            # (B, S)
+        if center_valid is not None:
+            scores = torch.where(center_valid, scores, float("inf"))
+        hub_idx = torch.sort(scores, dim=-1, stable=True).indices[:, :H]
     hub_xyz = _take(centers, hub_idx)                             # (B, H, 3)
     hub_vox = torch.gather(vox_of_center, 1, hub_idx)
     hub_tgt = hub_vox if hub_ok is None else torch.where(hub_ok, hub_vox, S)

@@ -4,10 +4,12 @@ Codes are 30-bit (10 bits per axis) and held in int64 tensors, with
 ``SENTINEL = 0xFFFFFFFF`` above every real code, so they equal the JAX
 package's uint32 codes value for value.  ``quantize`` evaluates
 ``(p − lo) / extent · n`` in that exact float32 operation order, so the
-codes match bit for bit.
+codes match bit for bit.  ``np_morton_codes`` is the numpy twin (float64
+quantization, uint32 codes) for analytics and dataset tooling.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 MAX_DEPTH = 10
@@ -81,3 +83,31 @@ def node_key(codes: torch.Tensor, depth: int,
              full_depth: int = MAX_DEPTH) -> torch.Tensor:
     """Octree-node key at ``depth`` of a code made at ``full_depth``."""
     return codes >> (3 * (full_depth - depth))
+
+
+# ---- numpy twins (analytics / dataset tooling) -----------------------------
+
+def _np_part1by2(x: np.ndarray) -> np.ndarray:
+    x = x.astype(np.uint32) & np.uint32(0x3FF)
+    x = (x | (x << np.uint32(16))) & np.uint32(0x030000FF)
+    x = (x | (x << np.uint32(8))) & np.uint32(0x0300F00F)
+    x = (x | (x << np.uint32(4))) & np.uint32(0x030C30C3)
+    x = (x | (x << np.uint32(2))) & np.uint32(0x09249249)
+    return x
+
+
+def np_morton_codes(points: np.ndarray, depth: int = MAX_DEPTH,
+                    lo=None, hi=None) -> np.ndarray:
+    """points (..., 3) -> uint32 Morton codes, quantized in float64 over
+    the box of all points (``lo``/``hi`` override it)."""
+    pts = np.asarray(points, dtype=np.float64)
+    if lo is None:
+        lo = pts.reshape(-1, 3).min(axis=0)
+    if hi is None:
+        hi = pts.reshape(-1, 3).max(axis=0)
+    extent = max(float(np.max(np.asarray(hi) - np.asarray(lo))), 1e-9)
+    n = (1 << depth) - 1
+    iv = np.clip((pts - lo) / extent * n, 0, n).astype(np.uint32)
+    return (_np_part1by2(iv[..., 0])
+            | (_np_part1by2(iv[..., 1]) << np.uint32(1))
+            | (_np_part1by2(iv[..., 2]) << np.uint32(2)))

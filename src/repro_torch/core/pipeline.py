@@ -11,15 +11,16 @@ Execution modes:
 
 The block runs in two stages: :func:`structure_block` (geometry and RNG
 only) and :func:`compute_block_features_batched` (Feature Computation).
-Every array carries a leading cloud axis (B, …); the per-cloud entry
-:func:`lpcn_block` is the batched code at B = 1.  The two heavy dataflows
+Every array carries a leading cloud axis (B, …); the per-cloud API
+(:func:`fc_traditional`, :func:`fc_lpcn`, :func:`compute_block_features`,
+:func:`lpcn_block`) is the batched code at B = 1.  The two heavy dataflows
 go through an :class:`FCBackend`: the "reference" backend here is plain
 PyTorch, the "cuda" backend (``repro_torch.engine.fc``) runs the
 hand-written kernels.  Overflow and merge bookkeeping is shared.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, fields, is_dataclass
 from typing import Callable
 
 import torch
@@ -31,8 +32,30 @@ from .hub_schedule import Schedule, build_schedule
 from .islandize import Islands, _take, islandize
 from .mlp import MLP, apply_mlp, post_pool_activation
 from .registry import FC_BACKENDS, NEIGHBORS, SAMPLERS, get_fc_backend
+from .workload import WorkloadReport, analyze
 
 BIG = 3.4e38
+
+
+def _lift(x):
+    """One cloud's array, or a dataclass of them (Islands, Schedule,
+    BlockStructure), with a leading cloud axis of 1; None stays None."""
+    if x is None:
+        return None
+    if is_dataclass(x):
+        return type(x)(**{f.name: _lift(getattr(x, f.name))
+                          for f in fields(x)})
+    return x[None]
+
+
+def _first(x):
+    """The inverse of :func:`_lift`: cloud 0 of a batched value."""
+    if x is None:
+        return None
+    if is_dataclass(x):
+        return type(x)(**{f.name: _first(getattr(x, f.name))
+                          for f in fields(x)})
+    return x[0] if isinstance(x, torch.Tensor) else x
 
 
 @dataclass(frozen=True)
@@ -139,6 +162,17 @@ def fc_traditional_batched(mlp: MLP, xyz, feats, nbr_idx, centers_xyz,
     return post_pool_activation(mlp, pooled)
 
 
+def fc_traditional(mlp: MLP, xyz, feats, nbr_idx, centers_xyz,
+                   center_feats=None, kind: str = "sa",
+                   backend: FCBackend | None = None, nbr_valid=None):
+    """Baseline FC on ONE cloud: the MLP on all S·K gathered points, then
+    max-pool.  ``nbr_valid`` (S, K) masks ragged -1 slots out of the pool
+    (an empty subset gives a zero row).  -> (S, Fout)."""
+    return fc_traditional_batched(
+        mlp, xyz[None], feats[None], nbr_idx[None], centers_xyz[None],
+        _lift(center_feats), kind, backend, _lift(nbr_valid))[0]
+
+
 def _lpcn_reuse_inputs(mlp: MLP, xyz, feats, nbr_idx, centers_xyz,
                        islands: Islands, sched: Schedule, cfg: LPCNConfig,
                        center_feats=None):
@@ -241,6 +275,31 @@ def fc_lpcn_batched(mlp: MLP, xyz, feats, nbr_idx, centers_xyz,
     return post_pool_activation(mlp, out)
 
 
+def fc_lpcn(mlp: MLP, xyz, feats, nbr_idx, centers_xyz, islands: Islands,
+            sched: Schedule, cfg: LPCNConfig, center_feats=None,
+            backend: FCBackend | None = None, nbr_valid=None):
+    """Islandized FC on ONE cloud (per-cloud ``islands`` and ``sched``):
+    pool-MLP + compensated reuse + compact overflow.  -> (S, Fout), the
+    contract of :func:`fc_traditional`."""
+    return fc_lpcn_batched(
+        mlp, xyz[None], feats[None], nbr_idx[None], centers_xyz[None],
+        _lift(islands), _lift(sched), cfg, _lift(center_feats), backend,
+        _lift(nbr_valid))[0]
+
+
+@dataclass
+class BlockOutput:
+    """One building block on one cloud, as :func:`lpcn_block` returns it."""
+    center_idx: torch.Tensor
+    center_xyz: torch.Tensor
+    features: torch.Tensor
+    islands: Islands | None
+    schedule: Schedule | None
+    nbr_idx: torch.Tensor
+    report: WorkloadReport | None = None
+    center_valid: torch.Tensor | None = None   # (S,) bool; None = all valid
+
+
 @dataclass
 class BlockStructure:
     """Geometric stage of one building block, batched: everything the FC
@@ -256,15 +315,35 @@ class BlockStructure:
     nbr_valid: torch.Tensor | None            # (B, S, K) bool
 
 
+def _no_n_valid_hint(kind: str, name: str, err: TypeError, kw: dict):
+    """A component that lacks ``n_valid``: name it and the fix."""
+    if kw and "n_valid" in str(err):
+        return TypeError(
+            f"{kind} {name!r} does not accept n_valid, which the batched "
+            f"engine always passes; add n_valid=None to its signature (see "
+            f"core.registry docstring)")
+    return None
+
+
 def data_structuring(cfg: LPCNConfig, xyz, key, n_valid=None):
     """DS step: sample centers, gather neighbors (registry-resolved).
-    -> (center_idx (B, S), nbr_idx (B, S, K))."""
+    -> (center_idx (B, S), nbr_idx (B, S, K)).
+
+    ``n_valid`` is passed to the components only when set; a component
+    that lacks it gets a TypeError naming it."""
     tree = oct.build(xyz, n_valid=n_valid)
-    cidx = SAMPLERS.get(cfg.sampler)(xyz, tree=tree, n_centers=cfg.n_centers,
-                                     key=key, n_valid=n_valid)
-    nbr = NEIGHBORS.get(cfg.neighbor)(
-        xyz, _take(xyz, cidx), tree=tree, k=cfg.k, radius=cfg.radius,
-        octree_level=cfg.octree_level, n_valid=n_valid)
+    kw = {} if n_valid is None else {"n_valid": n_valid}
+    try:
+        cidx = SAMPLERS.get(cfg.sampler)(
+            xyz, tree=tree, n_centers=cfg.n_centers, key=key, **kw)
+    except TypeError as e:
+        raise _no_n_valid_hint("sampler", cfg.sampler, e, kw) or e
+    try:
+        nbr = NEIGHBORS.get(cfg.neighbor)(
+            xyz, _take(xyz, cidx), tree=tree, k=cfg.k, radius=cfg.radius,
+            octree_level=cfg.octree_level, **kw)
+    except TypeError as e:
+        raise _no_n_valid_hint("neighbor", cfg.neighbor, e, kw) or e
     return cidx, nbr
 
 
@@ -316,12 +395,31 @@ def compute_block_features_batched(cfg: LPCNConfig, mlp: MLP, xyz, feats,
     return f
 
 
-def lpcn_block(cfg: LPCNConfig, mlp: MLP, xyz, feats, key, n_valid=None):
+def compute_block_features(cfg: LPCNConfig, mlp: MLP, xyz, feats,
+                           st: BlockStructure,
+                           backend: FCBackend | None = None):
+    """Stage 2 on ONE cloud over its (unbatched) structure.  -> (S, Fout),
+    padding centers zeroed."""
+    return compute_block_features_batched(cfg, mlp, xyz[None], feats[None],
+                                          _lift(st), backend)[0]
+
+
+def lpcn_block(cfg: LPCNConfig, mlp: MLP, xyz, feats, key,
+               with_report: bool = False, n_valid=None) -> BlockOutput:
     """One building block on ONE cloud (N, 3)/(N, F) with key (2,): the two
-    stages at B = 1.  -> (BlockStructure with a leading axis of 1,
-    features (S, Fout))."""
+    stages at B = 1.  ``n_valid`` (int or None) marks rows >= n_valid as
+    padding: the block then equals its run on the unpadded prefix, with
+    padding centers' features zeroed (``center_valid`` marks them) and a
+    report that counts only real work (0-d counters; None in traditional
+    mode or without ``with_report``)."""
     nv = None if n_valid is None else torch.as_tensor(
         [int(n_valid)], device=xyz.device)
     st = structure_block(cfg, xyz[None], key[None], n_valid=nv)
     f = compute_block_features_batched(cfg, mlp, xyz[None], feats[None], st)
-    return st, f[0]
+    report = None
+    if with_report and st.islands is not None:
+        report = _first(analyze(st.islands, st.schedule, cfg.k))
+    st = _first(st)
+    return BlockOutput(st.center_idx, st.center_xyz, f[0], st.islands,
+                       st.schedule, st.nbr, report,
+                       center_valid=st.center_valid)

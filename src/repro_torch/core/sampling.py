@@ -1,8 +1,10 @@
 """Sampling Module — central-point selection (paper Fig. 6).
 
-Every function takes clouds with leading batch axes.  Selection is
-shape-stable under padding: a padded cloud with ``n_valid = n`` picks the
-same indices as the unpadded (n, 3) prefix.
+Farthest Point Sampling is the standard PCN sampler; random and
+Morton-strided sampling serve the approximate-DS baselines.  Every
+function takes clouds with leading batch axes.  Selection is shape-stable
+under padding: a padded cloud with ``n_valid = n`` picks the same indices
+as the unpadded (n, 3) prefix.
 """
 from __future__ import annotations
 
@@ -53,3 +55,37 @@ def farthest_point_sampling(points: torch.Tensor, n_samples: int,
         last = torch.argmax(min_d, dim=-1, keepdim=True)
         idx[..., i:i + 1] = last
     return idx
+
+
+def random_sampling(key: torch.Tensor, n_points: int, n_samples: int,
+                    n_valid=None) -> torch.Tensor:
+    """Uniform draw without replacement: keys (..., 2) -> (..., n_samples)
+    int64 indices, the ``n_samples`` smallest :func:`index_uniform`
+    scores (a stable sort, as ``jnp.argsort``).  With ``n_valid`` (...)
+    padding scores +inf, and slots past the valid count repeat the first
+    pick."""
+    scores = index_uniform(key, n_points)
+    if n_valid is None:
+        return torch.sort(scores, dim=-1, stable=True).indices[..., :n_samples]
+    count = torch.as_tensor(n_valid, device=key.device)[..., None]
+    scores = torch.where(torch.arange(n_points, device=key.device) < count,
+                         scores, float("inf"))
+    pick = torch.sort(scores, dim=-1, stable=True).indices[..., :n_samples]
+    ok = torch.arange(n_samples, device=key.device) < count
+    return torch.where(ok, pick, pick[..., :1])
+
+
+def morton_strided_sampling(sorted_order: torch.Tensor, n_samples: int,
+                            n_valid=None) -> torch.Tensor:
+    """EdgePC-style sampler: ``n_samples`` evenly strided positions of the
+    Morton order (..., N) -> (..., n_samples) int64.  With ``n_valid``
+    (...) the stride runs over the valid prefix of a valid-first order
+    (``octree.build(..., n_valid=...)``), never touching padding."""
+    n = sorted_order.shape[-1]
+    count = n if n_valid is None else torch.as_tensor(
+        n_valid, device=sorted_order.device)[..., None]
+    pos = (torch.arange(n_samples, device=sorted_order.device)
+           * count) // n_samples
+    pos = torch.clamp(pos, 0, n - 1).expand(sorted_order.shape[:-1]
+                                            + (n_samples,))
+    return torch.gather(sorted_order, -1, pos)

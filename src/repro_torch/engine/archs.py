@@ -28,6 +28,7 @@ from ..core.pipeline import (BIG, LPCNConfig, compute_block_features_batched,
                              structure_block)
 from ..core.registry import Registry, get_fc_backend
 from ..core.sampling import sqdist
+from ..core.workload import WorkloadReport, analyze
 from .params import PCNParams
 from .spec import BlockSpec, PCNSpec, arch_of, block_in_dim
 
@@ -47,10 +48,26 @@ class Arch:
     features: callable
     tail: callable
 
-    def forward(self, params, spec, xyz, feats, keys, ctx, n_valid=None):
+    def forward(self, params, spec, xyz, feats, keys, ctx, n_valid=None,
+                with_report=False):
+        """-> logits, or (logits, :func:`structure_report`) with
+        ``with_report``."""
         structs, nv_levels = self.structure(spec, ctx, xyz, keys, n_valid)
         state = self.features(params, spec, ctx, xyz, feats, structs)
-        return self.tail(params, spec, state, nv_levels, n_valid)
+        logits = self.tail(params, spec, state, nv_levels, n_valid)
+        if not with_report:
+            return logits
+        return logits, structure_report(spec, structs)
+
+
+def structure_report(spec: PCNSpec, structs) -> WorkloadReport | None:
+    """The forward's workload report from its stage-1 structures: every
+    block's (B,) counters summed, the first block's k kept; None in
+    traditional mode (no islands)."""
+    reports = [analyze(st.islands, st.schedule, b.k)
+               for b, st in zip(spec.blocks, structs)
+               if st.islands is not None]
+    return WorkloadReport.sum_counters(reports) if reports else None
 
 
 @dataclass(frozen=True)

@@ -20,8 +20,9 @@ import torch
 
 from . import fc  # noqa: F401  (registers the "cuda" backend)
 from ..device import resolve_device
+from ..core.pipeline import _first
 from .archs import EngineCtx, get_arch
-from .params import Batch, PCNParams, as_batch, key_words
+from .params import Batch, PCNParams, as_batch, from_legacy, key_words
 from .spec import PCNSpec
 
 
@@ -43,22 +44,45 @@ def apply(params: PCNParams, batch, *, spec: PCNSpec, mode: str = "lpcn",
     Ragged contract: ``batch.n_valid`` masks padding end to end, so
     ``apply(batch)[i]`` (cls) / ``apply(batch)[i, :n_valid[i]]`` (seg)
     equals :func:`apply_single` on cloud i's unpadded prefix with key
-    ``batch.keys[i]``; seg rows >= n_valid[i] are zeros."""
+    ``batch.keys[i]``; seg rows >= n_valid[i] are zeros.  Legacy param
+    dicts are accepted (:func:`~repro_torch.engine.params.from_legacy`)."""
+    return _forward(params, batch, spec, mode, fc_backend, isl_kw, device,
+                    with_report=False)
+
+
+def apply_with_reports(params: PCNParams, batch, *, spec: PCNSpec,
+                       mode: str = "lpcn", fc_backend: str = "reference",
+                       isl_kw: dict | None = None, device=None):
+    """Like :func:`apply`, and also the per-cloud
+    :class:`~repro_torch.core.workload.WorkloadReport` ((B,) counters
+    summed over the blocks), computed from the forward's own stage-1
+    structures; None in traditional mode.  Padding contributes to no
+    counter, so the counters are the same with and without padding.
+    -> (logits, report)."""
+    return _forward(params, batch, spec, mode, fc_backend, isl_kw, device,
+                    with_report=True)
+
+
+def _forward(params, batch, spec, mode, fc_backend, isl_kw, device,
+             with_report):
     device = resolve_device(device)
     ctx = EngineCtx.make(mode=mode, fc_backend=fc_backend, isl_kw=isl_kw)
     b = as_batch(batch, device)
     with torch.no_grad():
-        return get_arch(spec).forward(params, spec, b.xyz, b.feats, b.keys,
-                                      ctx, b.n_valid)
+        return get_arch(spec).forward(from_legacy(params), spec, b.xyz,
+                                      b.feats, b.keys, ctx, b.n_valid,
+                                      with_report=with_report)
 
 
 def apply_single(params: PCNParams, xyz, feats=None, key=None, *,
                  spec: PCNSpec, mode: str = "lpcn",
                  fc_backend: str = "reference", isl_kw: dict | None = None,
-                 n_valid=None, device=None):
+                 with_report: bool = False, n_valid=None, device=None):
     """One cloud (N, 3) / (N, F) with key (2,) -> (n_classes,) logits, or
-    (N, n_classes) for a seg spec: the batched forward at B = 1.  ``n_valid`` (int or None) marks rows >=
-    n_valid as padding."""
+    (N, n_classes) for a seg spec: the batched forward at B = 1.
+    ``n_valid`` (int or None) marks rows >= n_valid as padding.  With
+    ``with_report`` -> (logits, WorkloadReport with 0-d counters, or None
+    in traditional mode)."""
     device = resolve_device(device)
     ctx = EngineCtx.make(mode=mode, fc_backend=fc_backend, isl_kw=isl_kw)
     xyz = torch.as_tensor(xyz, dtype=torch.float32, device=device)
@@ -68,8 +92,13 @@ def apply_single(params: PCNParams, xyz, feats=None, key=None, *,
     nv = None if n_valid is None else torch.tensor([int(n_valid)],
                                                    device=device)
     with torch.no_grad():
-        return get_arch(spec).forward(params, spec, xyz[None], feats[None],
-                                      key[None], ctx, nv)[0]
+        out = get_arch(spec).forward(from_legacy(params), spec, xyz[None],
+                                     feats[None], key[None], ctx, nv,
+                                     with_report=with_report)
+    if not with_report:
+        return out[0]
+    logits, report = out
+    return logits[0], _first(report)
 
 
 class PCNEngine:
@@ -103,10 +132,11 @@ class PCNEngine:
         return apply(params, batch, **self._kw())
 
     def apply_single(self, params: PCNParams, xyz, feats=None, key=None, *,
-                     n_valid=None) -> torch.Tensor:
-        """One cloud -> (n_classes,) or, for seg, (N, n_classes) logits."""
-        return apply_single(params, xyz, feats, key, n_valid=n_valid,
-                            **self._kw())
+                     with_report: bool = False, n_valid=None):
+        """One cloud -> (n_classes,) or, for seg, (N, n_classes) logits;
+        with ``with_report``, (logits, report)."""
+        return apply_single(params, xyz, feats, key, with_report=with_report,
+                            n_valid=n_valid, **self._kw())
 
     def bucket_callable(self, params: PCNParams, batch_size: int,
                         n_points: int):

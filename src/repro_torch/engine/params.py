@@ -29,6 +29,31 @@ class PCNParams:
     extras: tuple = ()
 
 
+def from_legacy(params) -> PCNParams:
+    """A legacy per-model param dict as :class:`PCNParams`: the layouts
+    {"blocks", "global", "head"}, {"stem", "blocks", "invres", "head"}
+    and {"stem", "blocks", "vector", "head"}; a PCNParams passes through
+    unchanged."""
+    if isinstance(params, PCNParams):
+        return params
+    extras = params.get("invres") or params.get("vector") or ()
+    return PCNParams(blocks=tuple(params["blocks"]), head=params["head"],
+                     global_mlp=params.get("global"),
+                     stem=params.get("stem"), extras=tuple(extras))
+
+
+def to_legacy(params: PCNParams, arch: str) -> dict:
+    """:class:`PCNParams` in the legacy dict layout of ``arch``."""
+    if arch == "pointnext":
+        return {"stem": params.stem, "blocks": list(params.blocks),
+                "invres": list(params.extras), "head": params.head}
+    if arch == "pointvector":
+        return {"stem": params.stem, "blocks": list(params.blocks),
+                "vector": list(params.extras), "head": params.head}
+    return {"blocks": list(params.blocks), "global": params.global_mlp,
+            "head": params.head}
+
+
 def _field(obj, name, default=None):
     if isinstance(obj, dict):
         return obj.get(name, default)

@@ -259,15 +259,13 @@ def test_lpcn_block_matches_jax():
         o.features, o.center_idx))(jlpcn_block(JCfg(**cfg), jm, x, f, k,
                                                n_valid=SIZES[1])))(
         jnp.asarray(xyz[1]), jnp.asarray(feats[1]), key)
-    st, got = lpcn_block(LPCNConfig(**cfg),
-                         _mlp_from_numpy(jax.tree.map(np.asarray, jm), "cpu"),
-                         _t(xyz[1]), _t(feats[1]),
-                         _t(np.asarray(key).astype(np.int64)),
-                         n_valid=SIZES[1])
-    np.testing.assert_array_equal(st.center_idx[0].numpy(),
-                                  np.asarray(want_c))
-    np.testing.assert_allclose(got.numpy(), np.asarray(want_f), rtol=TOL,
-                               atol=TOL)
+    out = lpcn_block(LPCNConfig(**cfg),
+                     _mlp_from_numpy(jax.tree.map(np.asarray, jm), "cpu"),
+                     _t(xyz[1]), _t(feats[1]),
+                     _t(np.asarray(key).astype(np.int64)), n_valid=SIZES[1])
+    np.testing.assert_array_equal(out.center_idx.numpy(), np.asarray(want_c))
+    np.testing.assert_allclose(out.features.numpy(), np.asarray(want_f),
+                               rtol=TOL, atol=TOL)
 
 
 def _tf32(x):
