@@ -37,7 +37,19 @@ Phases, each timed, any failure exits non-zero:
      gather_mlp and one hub_reuse launch a block, logits against the
      "reference" backend, stage 1 and the workload reports
      (``apply_with_reports``) equal on the card and on the CPU, the stages
-     timed and the reports' fetch and compute savings printed;
+     timed and the reports' fetch and compute savings printed; then the
+     plans phase (``plans_phase``): pointnet2_c's FC cells at B = 8 and
+     B = 2 (``autotune.model_cells``), equal to the calls of the counted
+     forwards, each tuned into a store of the smoke's own
+     (``build/tile_plans_smoke.json``; every candidate timed, tiling.py's
+     shared memory equal to the library's, every output within 1e-4 of
+     the heuristic plan's), the forward under that store and under each
+     forced knob (``PLAN_FORCED``) against the heuristic's logits with
+     the launches the plans say, ``fc_backend="cuda_per_cloud"`` against
+     ``"cuda"`` (one launch a cloud), Mesorasi's delayed aggregation on
+     block 1's structure card vs CPU (1e-5) beside PointACC's counters,
+     and the serving CLI under ``--kernel-kw`` (``PLAN_CLI``); every
+     other phase runs with an empty tile-plan store;
   6. families: each other model of ``repro_torch.models.MODEL_ZOO`` at
      full width (``FAMILIES``: pointnet2_ps 4 × 2048, pointnet2_s 2 ×
      4096, dgcnn_c 8 × 1024, dgcnn_s 1 × 8192, pointnext_s and
@@ -77,7 +89,12 @@ JSON lines, the serving reports (``serve_async``, ``serve_sync``,
 CLI's lines, the lpcn forward's stage times (``--profile`` adds a
 torch.profiler trace of one forward), stage 1 on the card against the
 CPU, a ``ds_variant`` line per data structuring (beside the card's name
-and power limit), a ``family`` line per model and ``wide_parity``, a
+and power limit), ``plan_cells``, a ``plan_cell`` line per tuned cell
+(each candidate's ms, its difference from the heuristic plan's output and
+bit-equality, shared memory by tiling.py and by the library; the
+heuristic's, the per-cloud and the winner's ms; beside the card's name
+and power limit), ``plan_forward`` lines and ``mesorasi``, a ``family``
+line per model and ``wide_parity``, a
 ``kernels`` JSON
 line (every TPU kernel's counterpart: the FC kernels batched and per
 cloud, gather_mlp's wide route, and the entry kernels; ``launches``
@@ -176,6 +193,16 @@ WIDE_D = {"d700": dict(b=2, s=128, k=32, d=700, dc=3, h=1024, f=512,
 SEG_CLI = ("--arch", "pointnext_s", "--trace", "8", "--buckets",
            "2048,4096", "--points", "3500", "--size-sigma", "0.1",
            "--batch", "2", "--timeout-ms", "50")
+# the plans phase: pointnet2_c's FC cells at the serving buckets' batch
+# sizes (the main batch's 8, and 2), tuned into a store of the smoke's own
+# under build/; the knobs forced engine-wide, one value at a time; and the
+# serving CLI under --kernel-kw (pointnet2_c's blocks take the narrow
+# route, so rows and chunk are the knobs that act on them)
+PLAN_BATCHES = (B, 2)
+PLAN_FORCED = ({"rows": 64}, {"rows": 128}, {"chunk": 64}, {"chunk": 128})
+PLAN_CLI_KW = {"rows": 64, "chunk": 64}
+PLAN_CLI = ("--arch", "pointnet2_c", "--trace", "8", "--kernel-kw",
+            json.dumps(PLAN_CLI_KW))
 # a Qwen2-72B attention layer (src/repro/configs/qwen2_72b.py: 64 query
 # heads, 8 kv heads, head_dim 128) over a 2048-token prefill
 QWEN2_72B = dict(b=1, hq=64, hkv=8, s=2048, d=128)
@@ -721,8 +748,11 @@ def cli_phase(smi, cli_args=("--arch", "pointnet2_c", "--trace",
     request answered, no fault; -> s."""
     out = ROOT / "build" / "serve_cli.json"
     out.unlink(missing_ok=True)
+    # the CLI plans every call by the heuristic (or its --kernel-kw): no
+    # tile-plan store, whatever results/ holds
     env = {**os.environ, "PYTHONPATH": os.pathsep.join(
-        filter(None, [str(ROOT / "src"), os.environ.get("PYTHONPATH")]))}
+        filter(None, [str(ROOT / "src"), os.environ.get("PYTHONPATH")])),
+        "REPRO_TORCH_TILE_PLANS": str(ROOT / "build" / "no_tile_plans")}
     n = int(cli_args[cli_args.index("--trace") + 1])
     t0 = time.perf_counter()
     res = subprocess.run(
@@ -1072,6 +1102,207 @@ def ds_variants_phase(params, batch, smi) -> None:
             "compute_saving": float(total.compute_saving),
             "counters": {f: int(v.sum()) for f, v in counters.items()},
             "reports_card_vs_cpu": "equal"}}))
+
+
+def expected_launches(captured) -> dict:
+    """Kernel launches the captured plans make: one a call, or one a cloud
+    on a per_cloud plan; hub_reuse once per chunk of cache rows."""
+    out = {"gather_mlp": 0, "hub_reuse": 0}
+    for rec in captured:
+        pl, dims = rec["plan"], rec["dims"]
+        n = dims["b"] if pl["variant"] == "per_cloud" else 1
+        if rec["kernel"] == "hub_reuse":
+            n *= -(-dims["c"] // pl["chunk"])
+        out[rec["kernel"]] += n
+    return out
+
+
+def counted_forward(engine, params, batch):
+    """One forward with the launch counts set to 0 just before and read
+    just after, under plans.capture(): -> (logits, counts, captured)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.kernels import plans
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with plans.capture() as cap:
+        out = engine.apply(params, batch)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    check(not any(counts[k] for k in ("knn", "flash_attention",
+                                      "ssd_chunk")),
+          f"an entry kernel launched in an FC forward: {counts}")
+    check({k: counts[k] for k in ("gather_mlp", "hub_reuse")}
+          == expected_launches(cap),
+          f"launches {counts} against the plans' {expected_launches(cap)}")
+    check(bool(torch.isfinite(out).all()), "non-finite logits")
+    return out, counts, cap
+
+
+def plans_phase(params, batch, smi, seed) -> dict:
+    """Tile plans, the autotuner and the per-cloud dispatch on the main
+    path's FC stage (``repro_torch.kernels.plans``,
+    ``repro_torch.launch.autotune``): pointnet2_c's cells at B = 8 and 2
+    (``model_cells``), equal to the calls the counted forwards make; each
+    cell tuned into a store of the smoke's own (every candidate timed,
+    tiling.py's shared memory equal to the library's, every output within
+    1e-4 of the heuristic plan's; one ``plan_cell`` line each); the
+    forward under that store, and under each ``PLAN_FORCED`` knob, against
+    the heuristic's logits, launches as the plans say; the
+    ``"cuda_per_cloud"`` backend against ``"cuda"`` (one launch a cloud a
+    dataflow a block); Mesorasi's delayed aggregation on block 1's
+    structure, card vs CPU, its counters beside PointACC's islands'; the
+    serving CLI under ``--kernel-kw``.  The store is emptied after, so
+    the later phases run on the heuristic as the earlier ones did.  ->
+    the launch counts of the phase's forwards."""
+    import torch
+    from repro_torch.core.workload import WorkloadReport, analyze
+    from repro_torch.engine import PCNEngine, archs
+    from repro_torch.engine.params import Batch
+    from repro_torch.kernels import plans
+    from repro_torch.launch import autotune
+    from repro_torch.models import mesorasi_fc, mesorasi_workload
+    from repro_torch.models.pointnet2 import POINTNET2_C
+    spec = POINTNET2_C
+    path = ROOT / "build" / "tile_plans_smoke.json"
+    path.unlink(missing_ok=True)
+    plans.configure(str(path))
+    log(f"plans: store {path}")
+    engine = PCNEngine(spec, mode="lpcn", fc_backend="cuda")
+    batches = {B: batch, 2: Batch(*(t[:2] for t in (
+        batch.xyz, batch.feats, batch.keys, batch.n_valid)))}
+    launches = {}
+
+    # 1. the cells, and the heuristic's forwards they come from
+    cells, base = {}, {}
+    for b in PLAN_BATCHES:
+        cells[b] = autotune.model_cells(spec, b, N_PAD, seed=seed)
+        log(json.dumps({"plan_cells": {"b": b, "keys": [
+            plans.plan_key(k, d) for k, d in cells[b]]}}))
+        base[b], counts, cap = counted_forward(engine, params, batches[b])
+        check([(r["kernel"], r["dims"]) for r in cap] == cells[b],
+              f"plans: the cells at B={b} differ from the forward's calls")
+        check(all(r["plan"]["provenance"] == "heuristic" for r in cap),
+              "plans: the empty store resolved a plan")
+        launches[f"heuristic_b{b}"] = counts
+
+    # 2. tune every cell into the store
+    store = plans.active_store()
+    for b in PLAN_BATCHES:
+        for kernel, dims in cells[b]:
+            entry = autotune.autotune_cell(kernel, dims, store=store,
+                                           seed=seed)
+            cands = autotune.candidate_plans(kernel, dims)
+            rows = entry["candidates"]
+            check(len(rows) == len(cands),
+                  f"plans: {len(rows)} of {len(cands)} candidates timed")
+            for row in rows:
+                check(row["smem"] == row["smem_library"],
+                      f"plans: {kernel} {row['knobs']}: tiling.py's smem "
+                      f"{row['smem']} != the library's "
+                      f"{row['smem_library']}")
+                check(row["rejected"] is None,
+                      f"plans: {kernel} {row['knobs']}: {row['rejected']}")
+            log(json.dumps({"plan_cell": {
+                "key": plans.plan_key(kernel, dims), "device": smi,
+                "winner": entry.get("variant") or plans.knobs(kernel,
+                                                              entry),
+                "measured_ms": entry["measured_ms"],
+                "heuristic": entry["heuristic"],
+                "heuristic_ms": entry["heuristic_ms"],
+                "per_cloud_ms": entry["per_cloud_ms"],
+                "batched_ms": entry["batched_ms"],
+                "candidates": [{k: row[k] for k in (
+                    "knobs", "ms", "max_diff", "bit_equal", "smem",
+                    "smem_library")} for row in rows]}}))
+    store.save()
+
+    # 3. the forward under the store, then under each forced knob
+    for b in PLAN_BATCHES:
+        out, counts, cap = counted_forward(engine, params, batches[b])
+        check(all(r["plan"]["provenance"] == "autotuned" for r in cap),
+              "plans: a tuned cell did not resolve from the store")
+        err, tol = close(out, base[b])
+        log(json.dumps({"plan_forward": {
+            "b": b, "store": "autotuned", "launches": counts,
+            "plans": [dict(kernel=r["kernel"], **r["plan"]) for r in cap],
+            "max_abs_err": err, "tol": tol}}))
+        check(err <= tol, f"plans: tuned forward B={b} {err} > {tol}")
+        launches[f"autotuned_b{b}"] = counts
+    with plans.bypass():
+        for kw in PLAN_FORCED:
+            eng = PCNEngine(spec, mode="lpcn", fc_backend="cuda",
+                            kernel_kw=kw)
+            out, counts, cap = counted_forward(eng, params, batch)
+            knob, v = next(iter(kw.items()))
+            check(all(r["plan"]["provenance"] == "override"
+                      and r["plan"][knob] == v for r in cap
+                      if knob in r["plan"]),
+                  f"plans: kernel_kw {kw} did not reach every launch")
+            err, tol = close(out, base[B])
+            log(json.dumps({"plan_forward": {
+                "b": B, "kernel_kw": kw, "launches": counts,
+                "max_abs_err": err, "bit_equal": bool(torch.equal(
+                    out, base[B])), "tol": tol}}))
+            check(err <= tol, f"plans: kernel_kw {kw}: {err} > {tol}")
+            launches[f"forced_{knob}{v}"] = counts
+
+        # 4. one launch per cloud against the batched launch
+        per_cloud = PCNEngine(spec, mode="lpcn", fc_backend="cuda_per_cloud")
+        out, counts, cap = counted_forward(per_cloud, params, batch)
+        nb = len(spec.blocks)
+        check(counts["gather_mlp"] == counts["hub_reuse"] == B * nb,
+              f"plans: cuda_per_cloud launches {counts}, expected {B} a "
+              f"dataflow a block")
+        err, tol = close(out, base[B])
+        log(json.dumps({"plan_forward": {
+            "b": B, "fc_backend": "cuda_per_cloud", "launches": counts,
+            "max_abs_err": err, "bit_equal": bool(torch.equal(out, base[B])),
+            "tol": tol}}))
+        check(err <= tol, f"plans: cuda_per_cloud vs cuda {err} > {tol}")
+        launches["cuda_per_cloud"] = counts
+
+    # 5. Mesorasi's delayed aggregation on block 1's structure
+    ctx = archs.EngineCtx.make("lpcn", "cuda")
+    structs, _ = archs._structure_stack_b(spec, ctx, batch.xyz, batch.keys,
+                                          batch.n_valid)
+    st, blk = structs[0], spec.blocks[0]
+    card = mesorasi_fc(params.blocks[0], batch.xyz, batch.feats, st.nbr,
+                       st.center_xyz)
+    host_mlp = params_to(params, "cpu").blocks[0]
+    host = mesorasi_fc(host_mlp, *(t.cpu() for t in (
+        batch.xyz, batch.feats, st.nbr, st.center_xyz)))
+    err = (card.cpu() - host).abs().max().item()
+    lim = 1e-5 * max(1.0, host.abs().max().item())
+    check(card.shape == (B, blk.n_centers, blk.mlp_dims[-1])
+          and bool(torch.isfinite(card).all()), "mesorasi: shape or NaN")
+    # both counted over the batch: Mesorasi's PFT over each cloud's valid
+    # points, the islands' counters of analyze
+    fields = ("baseline_fetches", "lpcn_fetches", "baseline_mlp_evals",
+              "lpcn_mlp_evals", "n_subsets", "n_islands_used")
+    per = [mesorasi_workload(int(n), blk.n_centers, blk.k)
+           for n in batch.n_valid.tolist()]
+    meso = WorkloadReport(*(sum(getattr(r, f) for r in per)
+                            for f in fields), blk.k)
+    rep = analyze(st.islands, st.schedule, blk.k)
+    lpcn = WorkloadReport(*(int(getattr(rep, f).sum()) for f in fields),
+                          blk.k)
+    log(json.dumps({"mesorasi": {
+        "block": 1, "max_abs_err_card_vs_cpu": err, "tol": lim,
+        **{name: {**{f: getattr(r, f) for f in fields},
+                  "compute_saving": float(r.compute_saving),
+                  "fetch_saving": float(r.fetch_saving)}
+           for name, r in (("mesorasi", meso), ("pointacc", lpcn))}}}))
+    check(err <= lim, f"mesorasi: card vs CPU {err} > {lim}")
+
+    # 6. the serving CLI under --kernel-kw
+    launches["cli_s"] = cli_phase(smi, PLAN_CLI)
+    engine_repr = json.loads((ROOT / "build" / "serve_cli.json")
+                             .read_text())["engine"]
+    check(f"kernel_kw={PLAN_CLI_KW}" in engine_repr,
+          f"plans: the CLI's engine {engine_repr} took no --kernel-kw")
+    plans.configure(None)
+    return launches
 
 
 def device_profile(serve, batch) -> dict:
@@ -1526,6 +1757,10 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = resolve_device()
     phases = {}
+    # every phase but the plans phase plans by the heuristic: an empty
+    # tile-plan store, whatever results/ holds
+    from repro_torch.kernels import plans
+    plans.configure(None)
 
     t = time.perf_counter()
     kernels.build_all()
@@ -1619,6 +1854,14 @@ def main() -> int:
     ds_variants_phase(params, batch, smi.splitlines()[0])
     phases["ds_variants_s"] = time.perf_counter() - t
     log(f"ds_variants_s {phases['ds_variants_s']:.2f}")
+
+    # ---- tile plans, the autotuner, the per-cloud dispatch --------------
+    t = time.perf_counter()
+    plan_launches = plans_phase(params, batch, smi.splitlines()[0],
+                                args.seed)
+    phases["plans_s"] = time.perf_counter() - t
+    log(f"plans_s {phases['plans_s']:.2f}; launches "
+        f"{json.dumps(plan_launches)}")
 
     # ---- the families: every other model of the zoo at full width -------
     t = time.perf_counter()

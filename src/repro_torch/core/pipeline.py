@@ -94,10 +94,19 @@ class FCBackend:
     reuse(mlp, pool_in, slot, comp, live) -> (B, H, M, F_out) pooled
           reuse partials, ``-BIG`` where a subset has no live cached
           position (``slot >= 0`` and ``live``).
+
+    Where the engine is given ``kernel_kw`` (tuning knobs, validated by
+    ``EngineCtx.make``), both also receive it as the keyword
+    ``kernel_kw``; a backend that has no knobs ignores it.
     """
     name: str
     dense: Callable
     reuse: Callable
+
+
+def _knobs(kernel_kw) -> dict:
+    """The keyword a backend's dataflows get: ``kernel_kw`` where set."""
+    return {"kernel_kw": kernel_kw} if kernel_kw else {}
 
 
 def _center_vec(kind: str, centers_xyz, center_feats):
@@ -122,8 +131,8 @@ def _subset_inputs(kind, xyz, feats, nbr_idx, centers_xyz, center_feats):
 
 
 def _dense_reference(mlp: MLP, kind, xyz, feats, nbr_idx, centers_xyz,
-                     center_feats=None, nbr_valid=None):
-    """Plain dense dataflow: gather, MLP, max over K."""
+                     center_feats=None, nbr_valid=None, kernel_kw=None):
+    """Plain dense dataflow: gather, MLP, max over K (no knobs)."""
     ids = nbr_idx if nbr_valid is None else torch.where(nbr_valid, nbr_idx,
                                                         0)
     y = apply_mlp(mlp, _subset_inputs(kind, xyz, feats, ids, centers_xyz,
@@ -134,9 +143,10 @@ def _dense_reference(mlp: MLP, kind, xyz, feats, nbr_idx, centers_xyz,
     return torch.where(nbr_valid.any(2)[..., None], pooled, 0.0)
 
 
-def _reuse_reference(mlp: MLP, pool_in, slot, comp, live=None):
+def _reuse_reference(mlp: MLP, pool_in, slot, comp, live=None,
+                     kernel_kw=None):
     """Plain reuse dataflow: pool MLP, slot gather, + comp, masked max
-    over K; ``-BIG`` for a subset with no live slot."""
+    over K; ``-BIG`` for a subset with no live slot (no knobs)."""
     y = apply_mlp(mlp, pool_in)                           # (B, H, C, F)
     b, h, m, k = slot.shape
     safe = torch.clamp(slot, 0, pool_in.shape[2] - 1).long().reshape(
@@ -154,11 +164,11 @@ FC_BACKENDS.register("reference", FCBackend(
 def fc_traditional_batched(mlp: MLP, xyz, feats, nbr_idx, centers_xyz,
                            center_feats=None, kind: str = "sa",
                            backend: FCBackend | None = None,
-                           nbr_valid=None):
+                           nbr_valid=None, kernel_kw=None):
     """Baseline FC: the MLP on all S·K gathered points, then max-pool."""
     backend = backend or FC_BACKENDS.get("reference")
     pooled = backend.dense(mlp, kind, xyz, feats, nbr_idx, centers_xyz,
-                           center_feats, nbr_valid)
+                           center_feats, nbr_valid, **_knobs(kernel_kw))
     return post_pool_activation(mlp, pooled)
 
 
@@ -258,7 +268,7 @@ def _lpcn_merge(mlp: MLP, xyz, feats, nbr_idx, islands: Islands,
 def fc_lpcn_batched(mlp: MLP, xyz, feats, nbr_idx, centers_xyz,
                     islands: Islands, sched: Schedule, cfg: LPCNConfig,
                     center_feats=None, backend: FCBackend | None = None,
-                    nbr_valid=None):
+                    nbr_valid=None, kernel_kw=None):
     """Islandized FC: pool-MLP + compensated reuse + compact overflow,
     with the dense path for fallback rows.  -> (B, S, Fout)."""
     backend = backend or get_fc_backend(cfg.fc_backend)
@@ -266,11 +276,12 @@ def fc_lpcn_batched(mlp: MLP, xyz, feats, nbr_idx, centers_xyz,
         mlp, xyz, feats, nbr_idx, centers_xyz, islands, sched, cfg,
         center_feats)
     reuse_pooled = backend.reuse(mlp, pool_in, sched.reuse_slot, comp,
-                                 slot_live)
+                                 slot_live, **_knobs(kernel_kw))
     out, fb = _lpcn_merge(mlp, xyz, feats, nbr_idx, islands, sched, cfg,
                           sub_vec, slot_live, reuse_pooled)
     h_dense = backend.dense(mlp, cfg.block_kind, xyz, feats, nbr_idx,
-                            centers_xyz, center_feats, nbr_valid)
+                            centers_xyz, center_feats, nbr_valid,
+                            **_knobs(kernel_kw))
     out = torch.where(fb[..., None], h_dense, out)
     return post_pool_activation(mlp, out)
 
@@ -376,20 +387,24 @@ def structure_block(cfg: LPCNConfig, xyz, key, n_valid=None
 
 def compute_block_features_batched(cfg: LPCNConfig, mlp: MLP, xyz, feats,
                                    st: BlockStructure,
-                                   backend: FCBackend | None = None):
+                                   backend: FCBackend | None = None,
+                                   kernel_kw=None):
     """Stage 2: Feature Computation over a stacked structure; the two
-    dataflows go through the backend once each for the whole batch.
-    -> (B, S, Fout), padding centers zeroed."""
+    dataflows go through the backend once each for the whole batch, with
+    ``kernel_kw`` where given.  -> (B, S, Fout), padding centers
+    zeroed."""
     backend = backend or get_fc_backend(cfg.fc_backend)
     center_feats = _take(feats, st.center_idx)
     if cfg.mode == "traditional":
         f = fc_traditional_batched(mlp, xyz, feats, st.nbr, st.center_xyz,
                                    center_feats, cfg.block_kind,
-                                   backend=backend, nbr_valid=st.nbr_valid)
+                                   backend=backend, nbr_valid=st.nbr_valid,
+                                   kernel_kw=kernel_kw)
     else:
         f = fc_lpcn_batched(mlp, xyz, feats, st.nbr, st.center_xyz,
                             st.islands, st.schedule, cfg, center_feats,
-                            backend=backend, nbr_valid=st.nbr_valid)
+                            backend=backend, nbr_valid=st.nbr_valid,
+                            kernel_kw=kernel_kw)
     if st.center_valid is not None:
         f = torch.where(st.center_valid[..., None], f, 0.0)
     return f

@@ -805,7 +805,10 @@ int stage_floats(int dc, bool resident, int ft) {
   return w1 > w2 ? w1 : w2;
 }
 
-Plan make_plan(const Params& q, int sms) {
+// nsplit: 0 = split H where the blocks would leave SMs idle; n >= 1 =
+// split it n ways (H chunks a split rounded up, so the splits that run
+// may be fewer)
+Plan make_plan(const Params& q, int sms, int nsplit_forced = 0) {
   Plan w{};
   WideParams& p = w.p;
   p = WideParams{q.raw, q.ctr, q.mask, q.w1, q.b1, q.w2, q.b2, q.out,
@@ -822,7 +825,9 @@ Plan make_plan(const Params& q, int sms) {
   // H split where the blocks would leave SMs idle
   const long long blocks = w.groups * w.nft;
   long long nsplit = 1;
-  if (blocks < sms) {
+  if (nsplit_forced > 0) {
+    nsplit = nsplit_forced;
+  } else if (blocks < sms) {
     nsplit = (sms + blocks - 1) / blocks;
     const long long most = p.nchunk / 2 > 1 ? p.nchunk / 2 : 1;
     if (nsplit > most) nsplit = most;
@@ -929,27 +934,68 @@ Params make_params(const float* raw, const float* ctr, const uint8_t* mask,
 
 }  // namespace
 
+namespace {
+
+// How a call launches under the knobs: rows (0 = the heuristic; 64 or 128
+// force the narrow route's row tile) and nsplit (0 = make_plan's; 1 to the
+// number of 32-column H chunks force the wide route's H split).  Each
+// knob acts on its own route and is ignored on the other.  Returns 0, or
+// an error for a knob out of range and, where strict, for a forced row
+// tile whose shared memory overflows a block's (the heuristic drops 128
+// rows to 64 there instead).  l.smem is the launch's shared memory either
+// way.
+struct Launch {
+  bool wide;
+  int R;                   // rows per tile (narrow)
+  wide::Plan w;            // (wide)
+  size_t smem;             // bytes a block
+};
+
+int plan_launch(Params& p, int B, int S, int rows, int nsplit, bool strict,
+                Launch& l) {
+  constexpr int big = Layout<4>::kR, small = Layout<2>::kR;
+  if ((rows != 0 && rows != small && rows != big) || nsplit < 0)
+    return (int)cudaErrorInvalidValue;
+  l.wide = !narrow_fits(p);
+  if (l.wide) {
+    if (nsplit > (p.H + wide::kHC - 1) / wide::kHC)
+      return (int)cudaErrorInvalidValue;
+    l.w = wide::make_plan(p, sm_count(), nsplit);
+    l.smem = l.w.smem;
+    return 0;
+  }
+  int R = rows ? rows : gather_mlp_row_tile(B, S, p.K);
+  if (smem_bytes(R, p, p.Kp <= R ? R / p.Kp : 1) > (size_t)kMaxSmem) {
+    if (rows == 0) R = small;              // the heuristic's drop
+    else if (strict) return (int)cudaErrorInvalidConfiguration;
+  }
+  p.spt = p.Kp <= R ? R / p.Kp : 1;
+  l.R = R;
+  l.smem = smem_bytes(R, p, p.spt);
+  return 0;
+}
+
+}  // namespace
+
 // scratch: gather_mlp_scratch_bytes of device memory (the wide route's
-// partial y where it splits H; null where that is 0)
+// partial y where it splits H; null where that is 0); rows and nsplit as
+// plan_launch takes them (0, 0 = the heuristic's launch)
 extern "C" int gather_mlp_forward(const float* raw, const float* ctr,
                                   const uint8_t* mask, const float* w1,
                                   const float* b1, const float* w2,
                                   const float* b2, float* out, float* scratch,
                                   int B, int S, int K, int D, int Dc, int H,
-                                  int F, void* stream) {
+                                  int F, int rows, int nsplit, void* stream) {
   Params p = make_params(raw, ctr, mask, w1, b1, w2, b2, out, B, S, K, D,
                          Dc, H, F);
-  if (!narrow_fits(p))
-    return wide::launch(wide::make_plan(p, sm_count()), scratch, stream);
-  constexpr int big = Layout<4>::kR, small = Layout<2>::kR;
-  int R = gather_mlp_row_tile(B, S, K);
-  if (R == big && smem_bytes(big, p, p.Kp <= big ? big / p.Kp : 1) > kMaxSmem)
-    R = small;
-  p.spt = p.Kp <= R ? R / p.Kp : 1;
-  const size_t smem = smem_bytes(R, p, p.spt);
+  Launch l;
+  const int code = plan_launch(p, B, S, rows, nsplit, true, l);
+  if (code) return code;
+  if (l.wide) return wide::launch(l.w, scratch, stream);
   const long long grid = (p.bs + p.spt - 1) / p.spt;
-  return R == big ? launch<Layout<4>>(p, smem, grid, stream)
-                  : launch<Layout<2>>(p, smem, grid, stream);
+  return l.R == Layout<4>::kR
+             ? launch<Layout<4>>(p, l.smem, grid, stream)
+             : launch<Layout<2>>(p, l.smem, grid, stream);
 }
 
 // The route a shape takes: 0 the narrow one (h whole), 1 the wide one (y
@@ -961,30 +1007,57 @@ extern "C" int gather_mlp_route(int K, int D, int Dc, int H, int F) {
   return narrow_fits(p) ? 0 : 1;
 }
 
-// Bytes of device scratch gather_mlp_forward needs for the call
-extern "C" long long gather_mlp_scratch_bytes(int B, int S, int K, int D,
-                                              int Dc, int H, int F) {
-  const Params p = make_params(nullptr, nullptr, nullptr, nullptr, nullptr,
-                               nullptr, nullptr, nullptr, B, S, K, D, Dc, H,
-                               F);
-  if (narrow_fits(p)) return 0;
-  return (long long)wide::scratch_bytes(wide::make_plan(p, sm_count()));
+// Bytes of shared memory a block of the call takes under the knobs (a
+// forced row tile's even where it overflows); -1 for a knob out of range
+extern "C" long long gather_mlp_smem_bytes(int B, int S, int K, int D,
+                                           int Dc, int H, int F, int rows,
+                                           int nsplit) {
+  Params p = make_params(nullptr, nullptr, nullptr, nullptr, nullptr,
+                         nullptr, nullptr, nullptr, B, S, K, D, Dc, H, F);
+  Launch l;
+  if (plan_launch(p, B, S, rows, nsplit, false, l)) return -1;
+  return (long long)l.smem;
 }
 
-// The wide route's plan for a call on the current device, into out[8]:
-// x resident (1) or streamed (0), output columns a block, F tiles, H
-// splits, H chunks a split, subsets a tile, row-tile groups, shared
-// memory bytes; out[0] = -1 where the call takes the narrow route
+// Rows per tile the narrow route takes under the knob rows (64 or 128;
+// the heuristic's where rows is 0); 0 where the call takes the wide route,
+// -1 where the knobs are out of range or a forced tile overflows
+extern "C" int gather_mlp_rows(int B, int S, int K, int D, int Dc, int H,
+                               int F, int rows) {
+  Params p = make_params(nullptr, nullptr, nullptr, nullptr, nullptr,
+                         nullptr, nullptr, nullptr, B, S, K, D, Dc, H, F);
+  Launch l;
+  if (plan_launch(p, B, S, rows, 0, true, l)) return -1;
+  return l.wide ? 0 : l.R;
+}
+
+// Bytes of device scratch gather_mlp_forward needs for the call
+extern "C" long long gather_mlp_scratch_bytes(int B, int S, int K, int D,
+                                              int Dc, int H, int F,
+                                              int nsplit) {
+  Params p = make_params(nullptr, nullptr, nullptr, nullptr, nullptr,
+                         nullptr, nullptr, nullptr, B, S, K, D, Dc, H, F);
+  Launch l;
+  if (plan_launch(p, B, S, 0, nsplit, true, l) || !l.wide) return 0;
+  return (long long)wide::scratch_bytes(l.w);
+}
+
+// The wide route's plan for a call on the current device under the knob
+// nsplit, into out[8]: x resident (1) or streamed (0), output columns a
+// block, F tiles, H splits, H chunks a split, subsets a tile, row-tile
+// groups, shared memory bytes; out[0] = -1 where the call takes the
+// narrow route or nsplit is out of range
 extern "C" void gather_mlp_wide_plan(int B, int S, int K, int D, int Dc,
-                                     int H, int F, long long* out) {
-  const Params p = make_params(nullptr, nullptr, nullptr, nullptr, nullptr,
-                               nullptr, nullptr, nullptr, B, S, K, D, Dc, H,
-                               F);
-  if (narrow_fits(p)) {
+                                     int H, int F, int nsplit,
+                                     long long* out) {
+  Params p = make_params(nullptr, nullptr, nullptr, nullptr, nullptr,
+                         nullptr, nullptr, nullptr, B, S, K, D, Dc, H, F);
+  Launch l;
+  if (plan_launch(p, B, S, 0, nsplit, true, l) || !l.wide) {
     out[0] = -1;
     return;
   }
-  const wide::Plan w = wide::make_plan(p, sm_count());
+  const wide::Plan& w = l.w;
   const long long v[8] = {w.p.XD > 0, w.p.FT, w.nft, w.nsplit, w.p.cps,
                           w.p.spt, w.groups, (long long)w.smem};
   for (int i = 0; i < 8; ++i) out[i] = v[i];

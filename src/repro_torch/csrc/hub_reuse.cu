@@ -13,8 +13,9 @@
 //                 y[slot[m,k], f] + comp[m, f]                    (M, F)
 //
 // and -BIG (the merge identity, not 0) where a subset has no live slot.
-// Slots clamp at C - 1, as the plain version's do.  A launch takes at
-// most 128 cache rows, rows [c0, c0 + 128) of each island; the wrapper
+// Slots clamp at C - 1, as the plain version's do.  A launch takes a
+// chunk of at most 64 or 128 cache rows (the wrapper's knob; 128 unless a
+// plan says otherwise), rows [c0, c0 + chunk) of each island; the wrapper
 // covers a larger C with one launch a chunk, each merged into the last
 // one's output by an elementwise max (a subset with no live slot in a
 // chunk gives -BIG there, the identity of that max).  The TPU kernel gathers
@@ -76,7 +77,7 @@ constexpr int kStages = 3;               // ring depth
 constexpr int kWS = kNC + 4;             // stage row stride (≡ 4 mod 16)
 constexpr int kHS = kNC + 8;             // h and y row stride (≡ 8 mod 32)
 constexpr int kN2 = kNC / kKC;           // W2 stages per Hd chunk
-constexpr int kMaxC = 128;               // cache rows a launch takes
+constexpr int kMaxC = 128;               // the most cache rows a launch takes
 constexpr float kBig = 3.4e38f;          // the max-pool identity of the JAX code
 
 struct Params {
@@ -358,12 +359,17 @@ hub_reuse_kernel(const Params p) {
   }
 }
 
+// Bytes of shared memory a block of L takes
+template <class L>
+size_t smem_bytes(const Params& p) {
+  return sizeof(float) * ((size_t)p.M * p.K4 + live_floats(p) +
+                          xy_floats<L>(p) + (size_t)L::kR * kHS +
+                          (size_t)kStages * kKC * kWS);
+}
+
 template <class L>
 int launch(const Params& p, long long islands, void* stream) {
-  const size_t smem =
-      sizeof(float) * ((size_t)p.M * p.K4 + live_floats(p) +
-                       xy_floats<L>(p) + (size_t)L::kR * kHS +
-                       (size_t)kStages * kKC * kWS);
+  const size_t smem = smem_bytes<L>(p);
   cudaError_t err = cudaFuncSetAttribute(
       hub_reuse_kernel<L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
@@ -373,33 +379,61 @@ int launch(const Params& p, long long islands, void* stream) {
   return (int)cudaGetLastError();
 }
 
+// The shape fields of p; Cc = min(chunk, C - c0) cache rows a launch
+void set_shape(Params& p, int chunk) {
+  p.Cc = min(chunk, p.C - p.c0);
+  p.Dp = (p.D + 7) & ~7;
+  p.XD = p.Dp + ((8 - p.Dp) % 32 + 32) % 32;  // ≡ 8 mod 32: no bank conflicts
+  p.K4 = (p.K + 3) & ~3;
+  p.n1 = (p.Dp + kKC - 1) / kKC;
+  p.nchunk = (p.Hd + kNC - 1) / kNC;
+}
+
+bool chunk_ok(int chunk) { return chunk == Rows64::kR || chunk == kMaxC; }
+
 }  // namespace
 
+// chunk: cache rows a launch takes, 64 (Rows64) or 128 (Rows128 where
+// more than 64 are left); the wrapper covers C with one launch a chunk
 extern "C" int hub_reuse_forward(const float* pool, const int32_t* slot,
                                  const float* comp, const uint8_t* live,
                                  const float* w1, const float* b1,
                                  const float* w2, const float* b2, float* out,
                                  int B, int H, int C, int M, int K, int D,
-                                 int Hd, int F, int c0, int merge,
+                                 int Hd, int F, int c0, int merge, int chunk,
                                  void* stream) {
-  // the wrapper raises on the error: it splits C into chunks of kMaxC
-  if (C < 1 || c0 < 0 || c0 >= C || D < 1) return (int)cudaErrorInvalidValue;
-  const int Cc = min(kMaxC, C - c0);
+  // the wrapper raises on the error: it splits C into chunks
+  if (C < 1 || c0 < 0 || c0 >= C || D < 1 || !chunk_ok(chunk))
+    return (int)cudaErrorInvalidValue;
   Params p{pool, slot, comp, live, w1, b1, w2, b2, out, C, M, K, D, Hd, F,
-           c0, Cc, merge};
-  p.Dp = (D + 7) & ~7;
-  p.XD = p.Dp + ((8 - p.Dp) % 32 + 32) % 32;  // ≡ 8 mod 32: no bank conflicts
-  p.K4 = (K + 3) & ~3;
-  p.n1 = (p.Dp + kKC - 1) / kKC;
-  p.nchunk = (Hd + kNC - 1) / kNC;
+           c0, 0, merge};
+  set_shape(p, chunk);
   p.x_vec = D % 4 == 0 && reinterpret_cast<uintptr_t>(pool) % 16 == 0;
   p.w1_vec = Hd % 4 == 0 && reinterpret_cast<uintptr_t>(w1) % 16 == 0;
   p.w2_vec = F % 4 == 0 && reinterpret_cast<uintptr_t>(w2) % 16 == 0;
   p.live_words = (long long)M * K % 4 == 0 &&
                  reinterpret_cast<uintptr_t>(live) % 4 == 0;
   const long long islands = (long long)B * H;
-  return Cc <= Rows64::kR ? launch<Rows64>(p, islands, stream)
-                          : launch<Rows128>(p, islands, stream);
+  return p.Cc <= Rows64::kR ? launch<Rows64>(p, islands, stream)
+                            : launch<Rows128>(p, islands, stream);
+}
+
+// Bytes of shared memory a block of the call's largest launch (its first
+// chunk's) takes at the knob chunk, with liveness (live != 0) or without;
+// -1 for a chunk out of range or C < 1
+extern "C" long long hub_reuse_smem_bytes(int C, int M, int K, int D, int Hd,
+                                          int live, int chunk) {
+  if (C < 1 || D < 1 || !chunk_ok(chunk)) return -1;
+  Params p{};
+  p.live = live ? reinterpret_cast<const uint8_t*>(1) : nullptr;
+  p.C = C;
+  p.M = M;
+  p.K = K;
+  p.D = D;
+  p.Hd = Hd;
+  set_shape(p, chunk);
+  return (long long)(p.Cc <= Rows64::kR ? smem_bytes<Rows64>(p)
+                                        : smem_bytes<Rows128>(p));
 }
 
 extern "C" const char* hub_reuse_error_string(int code) {

@@ -1,5 +1,5 @@
 """Synthetic point clouds (the port's copy of ``repro.data.synthetic``'s
-cloud generator).
+cloud and dataset generators).
 
 The public datasets (ModelNet40 and the rest) are not available offline,
 so clouds are surface-sampled from composited geometric primitives
@@ -11,6 +11,15 @@ the same generator state gives the same cloud as the JAX package's.
 from __future__ import annotations
 
 import numpy as np
+
+DATASETS = {
+    # name: (points per cloud, feature dim, n classes, scene_like)
+    "modelnet40": (1024, 3, 40, False),
+    "shapenet": (2048, 3, 16, False),
+    "s3dis": (4096, 6, 13, True),
+    "scannet": (8192, 6, 20, True),
+    "s3dis_large": (65536, 6, 13, True),   # FractalCloud large-scale band
+}
 
 
 def _sphere(rng, n, c, r):
@@ -73,3 +82,21 @@ def make_cloud(rng: np.random.Generator, n_points: int,
     pts -= pts.mean(0)
     pts /= np.abs(pts).max() + 1e-9
     return pts.astype(np.float32)
+
+
+def make_dataset(name: str, n_clouds: int, seed: int = 0):
+    """-> (clouds (B, N, 3), feats (B, N, F), labels (B,)) of ``DATASETS``
+    entry ``name``, drawn in the JAX package's order (the same seed gives
+    the same bytes)."""
+    n_pts, f_dim, n_cls, scene = DATASETS[name]
+    rng = np.random.default_rng(seed)
+    clouds = np.stack([make_cloud(rng, n_pts, scene)
+                       for _ in range(n_clouds)])
+    if f_dim > 3:
+        feats = rng.uniform(0, 1, (n_clouds, n_pts, f_dim - 3)
+                            ).astype(np.float32)
+        feats = np.concatenate([clouds, feats], -1)
+    else:
+        feats = clouds.copy()
+    labels = rng.integers(0, n_cls, n_clouds).astype(np.int32)
+    return clouds, feats, labels

@@ -29,6 +29,7 @@ from ..core.pipeline import (BIG, LPCNConfig, compute_block_features_batched,
 from ..core.registry import Registry, get_fc_backend
 from ..core.sampling import sqdist
 from ..core.workload import WorkloadReport, analyze
+from ..kernels.tiling import CHUNKS, ROWS
 from .params import PCNParams
 from .spec import BlockSpec, PCNSpec, arch_of, block_in_dim
 
@@ -72,18 +73,53 @@ def structure_report(spec: PCNSpec, structs) -> WorkloadReport | None:
 
 @dataclass(frozen=True)
 class EngineCtx:
-    """Per-call execution context."""
+    """Per-call execution context.  ``kernel_kw`` holds the FC kernels'
+    launch knobs (``rows``: gather_mlp's narrow row tile, 64 or 128;
+    ``nsplit``: its wide route's H split; ``chunk``: hub_reuse's cache
+    rows a launch, 64 or 128), over the tile-plan store and the
+    heuristic (``repro_torch.kernels.plans``)."""
     mode: str = "lpcn"
     fc_backend: str = "reference"
     isl_kw: tuple = ()            # sorted (key, value) pairs of LPCNConfig
+    kernel_kw: tuple = ()         # sorted (key, value) pairs
+
+    KERNEL_KW_KEYS = frozenset({"rows", "nsplit", "chunk"})
+    # the JAX package's TPU knobs, which mean nothing to these kernels
+    TPU_KW_KEYS = frozenset({"ts", "th", "lanes", "vmem_budget_mb",
+                             "dimension_semantics"})
 
     @staticmethod
-    def make(mode="lpcn", fc_backend="reference", isl_kw=None):
+    def make(mode="lpcn", fc_backend="reference", isl_kw=None,
+             kernel_kw=None):
         if mode not in ("lpcn", "traditional"):
             raise ValueError(f"unknown mode {mode!r}")
         get_fc_backend(fc_backend)          # unknown names raise here
+        kernel_kw = dict(kernel_kw or {})
+        tpu = sorted(set(kernel_kw) & EngineCtx.TPU_KW_KEYS)
+        if tpu:
+            raise ValueError(
+                f"kernel_kw {tpu}: TPU tile knobs of the JAX package; the "
+                f"CUDA kernels take {sorted(EngineCtx.KERNEL_KW_KEYS)} "
+                f"(rows: gather_mlp's narrow row tile, nsplit: its wide "
+                f"route's H split, chunk: hub_reuse's cache rows a launch)")
+        unknown = sorted(set(kernel_kw) - EngineCtx.KERNEL_KW_KEYS)
+        if unknown:
+            raise ValueError(
+                f"unknown kernel_kw key(s) {unknown}; valid knobs: "
+                f"{sorted(EngineCtx.KERNEL_KW_KEYS)} (a typo here would "
+                f"silently leave the plan to the store or the heuristic)")
+        for name, v in kernel_kw.items():
+            allowed = {"rows": ROWS, "chunk": CHUNKS}.get(name)
+            ok = isinstance(v, int) and not isinstance(v, bool) and (
+                v >= 1 if allowed is None else v in allowed)
+            if not ok:
+                raise ValueError(
+                    f"kernel_kw {name!r} must be "
+                    f"{'a positive int' if allowed is None else allowed}, "
+                    f"got {v!r}")
         return EngineCtx(mode=mode, fc_backend=fc_backend,
-                         isl_kw=tuple(sorted((isl_kw or {}).items())))
+                         isl_kw=tuple(sorted((isl_kw or {}).items())),
+                         kernel_kw=tuple(sorted(kernel_kw.items())))
 
 
 def get_arch(spec: PCNSpec) -> Arch:
@@ -162,9 +198,9 @@ def _compute_stack_b(params: PCNParams, spec: PCNSpec, ctx: EngineCtx, xyz,
     xyz_levels = [xyz]
     for b, mlp, extra, st in zip(spec.blocks, params.blocks, extras,
                                  structs):
-        cur_f = compute_block_features_batched(block_cfg(b, ctx), mlp,
-                                               cur_xyz, cur_f, st,
-                                               backend=backend)
+        cur_f = compute_block_features_batched(
+            block_cfg(b, ctx), mlp, cur_xyz, cur_f, st, backend=backend,
+            kernel_kw=dict(ctx.kernel_kw))
         if combine is not None:
             cur_f = combine(extra, cur_f)
         cur_xyz = st.center_xyz
@@ -266,7 +302,8 @@ def _features_dgcnn(params, spec, ctx, xyz, feats, structs):
     f, per_layer = feats, []
     for b, mlp, st in zip(spec.blocks, params.blocks, structs):
         f = compute_block_features_batched(block_cfg(b, ctx), mlp, xyz, f,
-                                           st, backend=backend)
+                                           st, backend=backend,
+                                           kernel_kw=dict(ctx.kernel_kw))
         per_layer.append(f)
     return torch.cat(per_layer, dim=-1)
 

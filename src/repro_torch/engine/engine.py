@@ -10,8 +10,12 @@
 The forward runs in two stages: the geometric chain (DS → octree →
 islandize → hub-schedule) for the whole batch with per-cloud keys, then
 Feature Computation, where each block's dense and reuse dataflows are one
-kernel launch each for the whole batch.  The device defaults to the GPU
-and must be given as ``device="cpu"`` to run the plain PyTorch path.
+kernel launch each for the whole batch (``fc_backend="cuda_per_cloud"``:
+one a cloud).  ``kernel_kw`` (``{"rows", "nsplit", "chunk"}``) forces the
+FC kernels' launch knobs over the tile-plan store
+(``repro_torch.kernels.plans``) and the heuristic.  The device defaults
+to the GPU and must be given as ``device="cpu"`` to run the plain
+PyTorch path.
 """
 from __future__ import annotations
 
@@ -37,7 +41,7 @@ def init(spec: PCNSpec, seed: int = 0, device=None) -> PCNParams:
 
 def apply(params: PCNParams, batch, *, spec: PCNSpec, mode: str = "lpcn",
           fc_backend: str = "reference", isl_kw: dict | None = None,
-          device=None):
+          kernel_kw: dict | None = None, device=None):
     """Padded :class:`Batch` (or (B, N, 3) array) -> logits, (B,
     n_classes) for cls specs and (B, N, n_classes) for seg specs.
 
@@ -45,28 +49,33 @@ def apply(params: PCNParams, batch, *, spec: PCNSpec, mode: str = "lpcn",
     ``apply(batch)[i]`` (cls) / ``apply(batch)[i, :n_valid[i]]`` (seg)
     equals :func:`apply_single` on cloud i's unpadded prefix with key
     ``batch.keys[i]``; seg rows >= n_valid[i] are zeros.  Legacy param
-    dicts are accepted (:func:`~repro_torch.engine.params.from_legacy`)."""
-    return _forward(params, batch, spec, mode, fc_backend, isl_kw, device,
-                    with_report=False)
+    dicts are accepted (:func:`~repro_torch.engine.params.from_legacy`).
+    ``kernel_kw`` forces the FC kernels' launch knobs (``rows``,
+    ``nsplit``, ``chunk``; see :class:`~repro_torch.engine.archs.EngineCtx`);
+    unknown keys and the JAX package's TPU knobs raise."""
+    return _forward(params, batch, spec, mode, fc_backend, isl_kw,
+                    kernel_kw, device, with_report=False)
 
 
 def apply_with_reports(params: PCNParams, batch, *, spec: PCNSpec,
                        mode: str = "lpcn", fc_backend: str = "reference",
-                       isl_kw: dict | None = None, device=None):
+                       isl_kw: dict | None = None,
+                       kernel_kw: dict | None = None, device=None):
     """Like :func:`apply`, and also the per-cloud
     :class:`~repro_torch.core.workload.WorkloadReport` ((B,) counters
     summed over the blocks), computed from the forward's own stage-1
     structures; None in traditional mode.  Padding contributes to no
     counter, so the counters are the same with and without padding.
     -> (logits, report)."""
-    return _forward(params, batch, spec, mode, fc_backend, isl_kw, device,
-                    with_report=True)
+    return _forward(params, batch, spec, mode, fc_backend, isl_kw,
+                    kernel_kw, device, with_report=True)
 
 
-def _forward(params, batch, spec, mode, fc_backend, isl_kw, device,
-             with_report):
+def _forward(params, batch, spec, mode, fc_backend, isl_kw, kernel_kw,
+             device, with_report):
     device = resolve_device(device)
-    ctx = EngineCtx.make(mode=mode, fc_backend=fc_backend, isl_kw=isl_kw)
+    ctx = EngineCtx.make(mode=mode, fc_backend=fc_backend, isl_kw=isl_kw,
+                         kernel_kw=kernel_kw)
     b = as_batch(batch, device)
     with torch.no_grad():
         return get_arch(spec).forward(from_legacy(params), spec, b.xyz,
@@ -77,14 +86,16 @@ def _forward(params, batch, spec, mode, fc_backend, isl_kw, device,
 def apply_single(params: PCNParams, xyz, feats=None, key=None, *,
                  spec: PCNSpec, mode: str = "lpcn",
                  fc_backend: str = "reference", isl_kw: dict | None = None,
-                 with_report: bool = False, n_valid=None, device=None):
+                 kernel_kw: dict | None = None, with_report: bool = False,
+                 n_valid=None, device=None):
     """One cloud (N, 3) / (N, F) with key (2,) -> (n_classes,) logits, or
     (N, n_classes) for a seg spec: the batched forward at B = 1.
     ``n_valid`` (int or None) marks rows >= n_valid as padding.  With
     ``with_report`` -> (logits, WorkloadReport with 0-d counters, or None
     in traditional mode)."""
     device = resolve_device(device)
-    ctx = EngineCtx.make(mode=mode, fc_backend=fc_backend, isl_kw=isl_kw)
+    ctx = EngineCtx.make(mode=mode, fc_backend=fc_backend, isl_kw=isl_kw,
+                         kernel_kw=kernel_kw)
     xyz = torch.as_tensor(xyz, dtype=torch.float32, device=device)
     feats = xyz if feats is None else torch.as_tensor(
         feats, dtype=torch.float32, device=device)
@@ -104,25 +115,29 @@ def apply_single(params: PCNParams, xyz, feats=None, key=None, *,
 class PCNEngine:
     """A spec bound to an execution configuration and a device — the
     serving handle: construct once, ``init`` (or carry over) params, then
-    ``apply`` padded batches."""
+    ``apply`` padded batches.  ``kernel_kw`` forces the FC kernels' launch
+    knobs on every call (:func:`apply`)."""
 
     def __init__(self, spec: PCNSpec, *, mode: str = "lpcn",
                  fc_backend: str = "reference", isl_kw: dict | None = None,
-                 device=None):
+                 kernel_kw: dict | None = None, device=None):
         self.spec = spec
         self.mode = mode
         self.fc_backend = fc_backend
         self.isl_kw = dict(isl_kw or {})
+        self.kernel_kw = dict(kernel_kw or {})
         self.device = resolve_device(device)
         self._warmed: set = set()     # (batch, n_points) bucket_callable
-        # a bad mode, backend or family fails here, not at the first batch
-        EngineCtx.make(mode=mode, fc_backend=fc_backend, isl_kw=self.isl_kw)
+        # a bad mode, backend, knob or family fails here, not at the
+        # first batch
+        EngineCtx.make(mode=mode, fc_backend=fc_backend, isl_kw=self.isl_kw,
+                       kernel_kw=self.kernel_kw)
         get_arch(spec)
 
     def _kw(self):
         return dict(spec=self.spec, mode=self.mode,
                     fc_backend=self.fc_backend, isl_kw=self.isl_kw,
-                    device=self.device)
+                    kernel_kw=self.kernel_kw, device=self.device)
 
     def init(self, seed: int = 0) -> PCNParams:
         return init(self.spec, seed, self.device)
@@ -164,5 +179,6 @@ class PCNEngine:
         return len(self._warmed)
 
     def __repr__(self):
+        kw = f", kernel_kw={self.kernel_kw}" if self.kernel_kw else ""
         return (f"PCNEngine({self.spec.name}, mode={self.mode!r}, "
-                f"fc_backend={self.fc_backend!r}, device={self.device})")
+                f"fc_backend={self.fc_backend!r}{kw}, device={self.device})")

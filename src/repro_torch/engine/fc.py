@@ -17,7 +17,13 @@ point-MLPs are lowered to that form exactly:
     ``torch.matmul`` as the JAX package leaves them to XLA); the last two
     run fused in the kernel.
 
-Each dataflow is ONE kernel launch for the whole batch of clouds.
+Each dataflow is ONE kernel launch for the whole batch of clouds (one a
+cloud under ``"cuda_per_cloud"``, the A/B counterpart of the JAX
+package's ``"pallas_vmap"``).  ``kernel_kw`` (the engine's ``{"rows",
+"nsplit", "chunk"}``) reaches each launch whose route its knob acts on:
+``rows`` gather_mlp's narrow route, ``nsplit`` its wide one, ``chunk``
+hub_reuse.  A knob is left out of the launches of the other route, and
+raises where its value does not fit the launch.
 """
 from __future__ import annotations
 
@@ -27,6 +33,7 @@ from ..core.mlp import MLP
 from ..core.islandize import _take
 from ..core.pipeline import FCBackend, _subset_inputs
 from ..core.registry import FC_BACKENDS
+from ..kernels import tiling
 from ..kernels.gather_mlp import gather_mlp
 from ..kernels.hub_reuse import hub_reuse
 
@@ -102,21 +109,51 @@ def _dense_raw_ctr(prologue, kind, xyz, feats, nbr_idx, centers_xyz,
     return raw, raw.new_zeros(raw.shape[:2] + (1,))
 
 
+def _route_knobs(kernel_kw, names) -> dict:
+    """The knobs of ``kernel_kw`` among ``names`` (the call's route's)."""
+    return {k: v for k, v in (kernel_kw or {}).items() if k in names}
+
+
 def _dense_cuda(mlp: MLP, kind, xyz, feats, nbr_idx, centers_xyz,
-                center_feats=None, nbr_valid=None):
+                center_feats=None, nbr_valid=None, kernel_kw=None,
+                variant=None):
     """Dense FC through ONE gather_mlp launch.  -> (B, S, Fout)."""
     prologue, weights = _dense_weights(mlp)
     raw, ctr = _dense_raw_ctr(prologue, kind, xyz, feats, nbr_idx,
                               centers_xyz, center_feats, nbr_valid)
-    return gather_mlp(raw, ctr, *weights, mask=nbr_valid)
+    kw = {}
+    if kernel_kw:
+        way = tiling.route(raw.shape[-2], raw.shape[-1], ctr.shape[-1],
+                           weights[0].shape[1], weights[2].shape[1])
+        kw = _route_knobs(kernel_kw, ("rows",) if way == "narrow"
+                          else ("nsplit",))
+    return gather_mlp(raw, ctr, *weights, mask=nbr_valid, variant=variant,
+                      **kw)
 
 
-def _reuse_cuda(mlp: MLP, pool_in, slot, comp, live=None):
+def _reuse_cuda(mlp: MLP, pool_in, slot, comp, live=None, kernel_kw=None,
+                variant=None):
     """Reuse dataflow through ONE hub_reuse launch.  -> (B, H, M, Fout)."""
     prologue, weights = two_layer_form(mlp)
     x = pool_in if prologue is None else prologue(pool_in)
-    return hub_reuse(x, slot, comp, *weights, live=live)
+    return hub_reuse(x, slot, comp, *weights, live=live, variant=variant,
+                     **_route_knobs(kernel_kw, ("chunk",)))
+
+
+def _dense_per_cloud(*args, **kw):
+    """:func:`_dense_cuda` with one gather_mlp launch per cloud."""
+    return _dense_cuda(*args, **kw, variant="per_cloud")
+
+
+def _reuse_per_cloud(*args, **kw):
+    """:func:`_reuse_cuda` with one hub_reuse launch per cloud."""
+    return _reuse_cuda(*args, **kw, variant="per_cloud")
 
 
 FC_BACKENDS.register("cuda", FCBackend(name="cuda", dense=_dense_cuda,
                                        reuse=_reuse_cuda))
+# the same kernels, one launch per cloud per dataflow: the A/B of the
+# batched launch (the JAX package's "pallas_vmap"), and the dispatch a
+# "per_cloud" plan-store entry selects for one cell
+FC_BACKENDS.register("cuda_per_cloud", FCBackend(
+    name="cuda_per_cloud", dense=_dense_per_cloud, reuse=_reuse_per_cloud))

@@ -1,53 +1,143 @@
 """Wrapper of the hub_reuse CUDA kernel (``csrc/hub_reuse.cu``).
 
 A CPU tensor takes the plain PyTorch version (:func:`hub_reuse_ref`); a
-CUDA tensor launches the kernel or raises.  A launch takes at most
-:data:`CHUNK` cache rows; a larger C takes one launch a chunk, each merged
-into the output by an elementwise max.
+CUDA tensor launches the kernel or raises.  A launch takes a chunk of at
+most ``chunk`` cache rows (64 or 128; :data:`CHUNK` unless a plan says
+otherwise); a larger C takes one launch a chunk, each merged into the
+output by an elementwise max.
+
+Each call resolves its plan (:func:`plan`) before the CPU/CUDA split, as
+``gather_mlp``'s does: an explicit ``chunk`` or ``variant`` over a hit in
+the tile-plan store (``repro_torch.kernels.plans``) over the heuristic
+(``chunk`` = 128).  A ``"per_cloud"`` plan launches once per cloud (and
+chunk), at B = 1.
 """
 from __future__ import annotations
 
 import ctypes
+import warnings
 
 import torch
 
-from .. import _build
+from .. import _build, plans, tiling
 from .ref import hub_reuse_ref
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-CHUNK = 128                # cache rows a launch takes (csrc kMaxC)
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+CHUNK = 128                # the heuristic's cache rows a launch (csrc kMaxC)
+VARIANTS = ("batched", "per_cloud")
 
 
 def _declare(lib):
-    lib.hub_reuse_forward.argtypes = [_P] * 9 + [_I] * 10 + [_P]
+    lib.hub_reuse_forward.argtypes = [_P] * 9 + [_I] * 11 + [_P]
     lib.hub_reuse_forward.restype = _I
+    lib.hub_reuse_smem_bytes.argtypes = [_I] * 7
+    lib.hub_reuse_smem_bytes.restype = _L
 
 
 def _lib():
     return _build.load("hub_reuse", _declare)
 
 
-def hub_reuse(pool_in, slot, comp, w1, b1, w2, b2, live=None):
+def library_smem(c: int, m: int, k: int, d: int, h: int, live: bool = True,
+                 chunk: int = CHUNK) -> int:
+    """Shared memory of a block of the call's largest launch at ``chunk``,
+    as the built kernel counts it (the card's answer to
+    :func:`~repro_torch.kernels.tiling.hub_reuse_smem`); -1 for a chunk
+    out of range."""
+    return _lib().hub_reuse_smem_bytes(c, m, k, d, h, int(live), chunk)
+
+
+# ---- plan resolution -------------------------------------------------------
+
+_MEMO: dict = {}
+plans.register_cache_clearer(_MEMO.clear)
+
+
+def plan(b: int, hn: int, c: int, m: int, k: int, d: int, h: int, f: int,
+         device, chunk: int | None = None,
+         variant: str | None = None) -> dict:
+    """The plan a call of b clouds of hn islands (C cache rows, M subsets
+    of K points, widths d, h, f) on ``device`` launches: ``variant``
+    ("batched" or "per_cloud"), ``provenance`` ("override", "autotuned"
+    or "heuristic", as ``gather_mlp``'s) and ``chunk``, with ``route``
+    None (one route).  A given chunk that does not fit raises
+    ``ValueError``; a store entry that does not fit warns and the
+    heuristic plans the call.  Memoised per call shape until the store
+    changes."""
+    return _resolved((b, hn, c, m, k, d, h, f, torch.device(device), chunk,
+                      variant))
+
+
+def _resolved(key: tuple) -> dict:
+    hit = _MEMO.get(key)
+    if hit is None:
+        hit = _MEMO[key] = _resolve(*key)
+    return hit
+
+
+def _resolve(b, hn, c, m, k, d, h, f, device, chunk, variant):
+    dims = dict(b=b, hn=hn, c=c, m=m, k=k, d=d, h=h, f=f)
+    if variant is not None and variant not in VARIANTS:
+        raise ValueError(f"hub_reuse: variant {variant!r} is not one of "
+                         f"{VARIANTS}")
+    knobs = {} if chunk is None else {"chunk": chunk}
+    if knobs or variant is not None:
+        err = tiling.infeasible("hub_reuse", dims, knobs)
+        if err:
+            raise ValueError(f"hub_reuse: {plans.plan_key('hub_reuse', dims)}"
+                             f": {err}")
+        prov, variant = "override", variant or "batched"
+    else:
+        prov, variant = "heuristic", "batched"
+        entry = plans.lookup("hub_reuse", device=device, **dims)
+        if entry is not None:
+            err = (plans.entry_error("hub_reuse", entry)
+                   or tiling.infeasible("hub_reuse", dims,
+                                        plans.knobs("hub_reuse", entry)))
+            if err:
+                warnings.warn(
+                    f"tile plan for {plans.plan_key('hub_reuse', dims)} no "
+                    f"longer fits ({err}); the heuristic plans it (re-run "
+                    f"python -m repro_torch.launch.autotune)",
+                    RuntimeWarning, stacklevel=4)
+            else:
+                knobs = plans.knobs("hub_reuse", entry)
+                prov = "autotuned"
+                variant = entry.get("variant") or "batched"
+    return dict(route=None, variant=variant, provenance=prov,
+                chunk=knobs.get("chunk", CHUNK))
+
+
+def hub_reuse(pool_in, slot, comp, w1, b1, w2, b2, live=None, *,
+              chunk=None, variant=None):
     """Pool MLP + compensated reuse gather + masked max over K.
 
     pool_in (B, H, C, D) or (H, C, D) hub-relative cache inputs; slot
     (…, H, M, K) int32 cache slot per position (-1 = not cached); comp
     (…, H, M, F) per-subset compensation; live (…, H, M, K) bool (None =
     all resident).  -> (…, H, M, F) float32: max over the live slots of
-    y[slot] + comp, ``-BIG`` where a subset has none."""
-    if pool_in.device.type == "cpu":
-        return hub_reuse_ref(pool_in, slot, comp, w1, b1, w2, b2, live)
-    if pool_in.device.type != "cuda":
+    y[slot] + comp, ``-BIG`` where a subset has none.  ``chunk`` (64 or
+    128 cache rows a launch) and ``variant`` ("batched", "per_cloud")
+    force the plan (:func:`plan`)."""
+    if pool_in.device.type not in ("cpu", "cuda"):
         raise ValueError(f"hub_reuse: unsupported device {pool_in.device}")
     single = pool_in.dim() == 3
+    hn, c, d = pool_in.shape[-3:]
+    b = 1 if single else pool_in.shape[0]
+    m, k = slot.shape[-2:]
+    hdim, fout = w1.shape[1], w2.shape[1]
+    pl = _resolved((b, hn, c, m, k, d, hdim, fout, pool_in.device, chunk,
+                    variant))
+    if plans.capturing():
+        plans.note_plan("hub_reuse", dict(b=b, hn=hn, c=c, m=m, k=k, d=d,
+                                          h=hdim, f=fout), pl)
+    if pool_in.device.type == "cpu":
+        return hub_reuse_ref(pool_in, slot, comp, w1, b1, w2, b2, live)
     if single:
         pool_in, slot, comp = pool_in[None], slot[None], comp[None]
         live = None if live is None else live[None]
     if live is not None and live.dtype != torch.bool:
         live = live != 0
-    b, hn, c, d = pool_in.shape
-    m, k = slot.shape[-2:]
-    hdim, fout = w1.shape[1], w2.shape[1]
     expect = {"slot": (b, hn, m, k), "comp": (b, hn, m, fout),
               "w1": (d, hdim), "b1": (hdim,), "w2": (hdim, fout),
               "b2": (fout,), "live": (b, hn, m, k)}
@@ -66,13 +156,23 @@ def hub_reuse(pool_in, slot, comp, w1, b1, w2, b2, live=None):
     if b * hn * m:
         lib = _lib()
         stream = torch._C._cuda_getCurrentRawStream(pool_in.device.index)
-        for c0 in range(0, c, CHUNK):
-            code = lib.hub_reuse_forward(
-                pool_in.data_ptr(), slot.data_ptr(), comp.data_ptr(),
-                None if live is None else live.data_ptr(),
-                w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-                out.data_ptr(), b, hn, c, m, k, d, hdim, fout, c0,
-                int(c0 > 0), stream)
-            _build.check_launch(lib, "hub_reuse", code)
-            _build.count_launch("hub_reuse")
+        weights = (w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+                   b2.data_ptr())
+        step = pl["chunk"]
+        # one launch a chunk for the batch, or for each cloud at the
+        # clouds' offsets (every operand is contiguous, the batch leading)
+        n, bb = (b, 1) if pl["variant"] == "per_cloud" else (1, b)
+        for i in range(n):
+            mk = i * hn * m * k
+            ptrs = (pool_in.data_ptr() + i * 4 * hn * c * d,
+                    slot.data_ptr() + 4 * mk,
+                    comp.data_ptr() + i * 4 * hn * m * fout,
+                    None if live is None else live.data_ptr() + mk,
+                    *weights, out.data_ptr() + i * 4 * hn * m * fout)
+            for c0 in range(0, c, step):
+                code = lib.hub_reuse_forward(
+                    *ptrs, bb, hn, c, m, k, d, hdim, fout, c0, int(c0 > 0),
+                    step, stream)
+                _build.check_launch(lib, "hub_reuse", code)
+                _build.count_launch("hub_reuse")
     return out[0] if single else out

@@ -1,0 +1,215 @@
+"""Launch shapes of the two FC kernels on Hopper: the shared-memory
+formulas of ``csrc/gather_mlp.cu`` and ``csrc/hub_reuse.cu``, the knobs a
+tile plan sets, and whether a plan fits a block's shared memory.
+
+The counterpart of ``repro.kernels.tiling``.  The TPU kernels tile their
+grids against a VMEM budget and pad every lane dimension to 128; the CUDA
+kernels take their shapes as they are (no lane padding) and are held to
+a block's 227 KB of shared memory instead, so ``LANE``, ``pad_lanes``
+and ``vmem_budget_mb`` have no meaning here and are not ported.  What a
+plan sets, per kernel and route:
+
+  gather_mlp, route ``narrow``  ``rows``    the row tile, 64 or 128
+  gather_mlp, route ``wide``    ``nsplit``  H's 32-column chunks split
+                                            across blocks, 1 to ⌈H/32⌉
+  hub_reuse                     ``chunk``   cache rows a launch, 64 or 128
+
+The formulas mirror the kernels' own (``smem_bytes`` and
+``wide::make_plan`` in ``gather_mlp.cu``, ``smem_bytes`` in
+``hub_reuse.cu``); each library also answers for itself
+(``gather_mlp_smem_bytes``, ``hub_reuse_smem_bytes``), which
+``chip_smoke.py`` holds these against.
+"""
+from __future__ import annotations
+
+MAX_SMEM = 232448          # a block's shared memory on Hopper, bytes
+SMEM_SM = 233472           # an SM's shared memory, bytes
+WIDE_BLOCKS_PER_SM = 2     # what the wide route's plan aims at (kBlocks)
+NARROW_BLOCKS_PER_SM = 2   # what the narrow row tile aims at (kBlocksPerSM)
+ROWS = (64, 128)           # the narrow route's row tiles
+CHUNKS = (64, 128)         # hub_reuse's cache rows a launch
+H_CHUNK = 32               # the wide route's columns of h a chunk
+ROUTES = ("narrow", "wide")
+#: the knobs of each kernel's plans, and the route each acts on
+KNOBS = {"gather_mlp": ("rows", "nsplit"), "hub_reuse": ("chunk",)}
+KNOB_ROUTE = {"rows": "narrow", "nsplit": "wide", "chunk": None}
+
+
+def round_up(n: int, m: int) -> int:
+    return ((n + m - 1) // m) * m
+
+
+def _stride(x: int) -> int:
+    """x rounded up to ≡ 8 mod 32 floats (the kernels' row strides)."""
+    return x + (8 - x) % 32
+
+
+def padded_k(k: int) -> int:
+    """K as the narrow route pads it: to 16 (16 for K = 0)."""
+    return round_up(k, 16) if k > 0 else 16
+
+
+def narrow_smem(rows: int, k: int, d: int, dc: int, h: int, f: int) -> int:
+    """Bytes of shared memory a block of the narrow route takes at a row
+    tile of ``rows`` (``gather_mlp.cu``: ``smem_bytes``)."""
+    kp = padded_k(k)
+    spt = rows // kp if kp <= rows else 1
+    xh = _stride(max(round_up(d, 8), round_up(h, 8)))
+    return (4 * (rows * xh * (1 if h <= 128 else 2) + 2 * 32 * 132
+                 + (rows // 16) * 128 + spt * (f + dc))
+            + 4 * (rows + spt))
+
+
+def route(k: int, d: int, dc: int, h: int, f: int) -> str:
+    """The route gather_mlp takes for subsets of k points of width d,
+    centers of width dc, hidden width h and output width f: ``"narrow"``
+    where a 64-row tile's x and whole h fit, else ``"wide"``, which takes
+    any shape."""
+    return "narrow" if narrow_smem(64, k, d, dc, h, f) <= MAX_SMEM else "wide"
+
+
+def row_tile(b: int, s: int, k: int, sms: int) -> int:
+    """The narrow route's heuristic row tile on a card of ``sms`` SMs: 64
+    where 128-row tiles would give fewer than two blocks an SM, else 128
+    (``gather_mlp_row_tile``)."""
+    rows = b * s * padded_k(k)
+    return 64 if rows // 128 < NARROW_BLOCKS_PER_SM * sms else 128
+
+
+def narrow_rows(b, s, k, d, dc, h, f, sms: int, rows: int = 0) -> int:
+    """The row tile a narrow call launches with: ``rows`` where forced,
+    else the heuristic's, dropped to 64 where 128 rows overflow."""
+    if rows:
+        return rows
+    r = row_tile(b, s, k, sms)
+    return 64 if narrow_smem(r, k, d, dc, h, f) > MAX_SMEM else r
+
+
+def wide_chunks(h: int) -> int:
+    """H's 32-column chunks on the wide route: the most ``nsplit`` takes."""
+    return -(-h // H_CHUNK)
+
+
+def wide_plan(b: int, s: int, k: int, d: int, dc: int, h: int, f: int,
+              sms: int, nsplit: int = 0) -> dict:
+    """How the wide route tiles a call on a card of ``sms`` SMs, from the
+    kernel's own formulas (``wide::make_plan``): whole subsets packed k
+    rows apart into 64-row tiles (``spt`` a tile, ``groups`` of them),
+    ``nft`` F tiles of ``ft`` columns (layer 1 runs once per F tile), H's
+    32-column chunks split ``nsplit`` ways (``cps`` chunks a split) where
+    the blocks would leave SMs idle, or as the knob ``nsplit`` says (the
+    chunks a split rounded up, so the splits that run may be fewer), and
+    x ``resident`` in shared memory where it fits in a block's share of
+    an SM (two blocks an SM), else streamed in slices; ``smem`` bytes a
+    block."""
+    kp = max(k, 1)
+    spt, multi = (64 // kp, False) if kp <= 64 else (1, True)
+    dp, nchunk = round_up(d, 8), wide_chunks(h)
+    nft = -(-f // 256)
+    ft = round_up(-(-f // nft), 64)
+    groups = -(-(b * s) // spt)
+    blocks = groups * nft
+    split = 1
+    if nsplit > 0:
+        split = nsplit
+    elif blocks < sms:
+        split = min(max(nchunk // 2, 1), -(-sms // blocks))
+    cps = -(-nchunk // split)
+    split = -(-nchunk // cps)
+    w2 = min(4352 // (ft + 4) // 8 * 8, 32) * (ft + 4)
+
+    def smem(xd, dc, resident):
+        stage = max(dc * 36 + (0 if resident else 64 * 72), w2)
+        main = max(64 * (xd + 40) + 2 * stage, 64 * (ft + 8))
+        return 4 * (3 * 64 + 4 + main + (ft if multi else 0))
+
+    size = smem(_stride(dp), 128, True)
+    resident = size <= SMEM_SM // WIDE_BLOCKS_PER_SM - 1024
+    if not resident:
+        size = smem(0, 64, False)
+    return dict(resident=int(resident), ft=ft, nft=nft, nsplit=split,
+                cps=cps, spt=spt, groups=groups, smem=size)
+
+
+def gather_mlp_smem(b, s, k, d, dc, h, f, sms: int, rows: int = 0,
+                    nsplit: int = 0) -> int:
+    """Bytes of shared memory a block of the gather_mlp call takes under
+    the knobs (0 = the heuristic's; a forced row tile's even where it
+    overflows), as ``gather_mlp_smem_bytes`` answers."""
+    if route(k, d, dc, h, f) == "wide":
+        return wide_plan(b, s, k, d, dc, h, f, sms, nsplit)["smem"]
+    return narrow_smem(narrow_rows(b, s, k, d, dc, h, f, sms, rows), k, d,
+                       dc, h, f)
+
+
+def hub_reuse_launches(c: int, chunk: int = 128) -> list:
+    """Cache rows of each hub_reuse launch a call of C rows makes."""
+    return [min(chunk, c - c0) for c0 in range(0, c, chunk)]
+
+
+def hub_reuse_smem(c: int, m: int, k: int, d: int, live: bool = True,
+                   chunk: int = 128) -> int:
+    """Bytes of shared memory a block of the call's largest launch (its
+    first chunk's) takes (``hub_reuse.cu``: ``smem_bytes``), with the
+    liveness mask staged or without, as ``hub_reuse_smem_bytes``
+    answers."""
+    rows = 64 if min(chunk, c) <= 64 else 128
+    k4 = round_up(k, 4)
+    live_floats = (m * k + 15) // 16 * 4 if live else 0
+    hs = 64 + 8                             # kHS
+    xy = rows * max(_stride(round_up(d, 8)), hs)
+    return 4 * (m * k4 + live_floats + xy + rows * hs + 3 * 64 * (64 + 4))
+
+
+def knobs_of(kernel: str, dims: dict) -> tuple:
+    """The knobs that act on the call ``dims`` describes: ``("rows",)``
+    on gather_mlp's narrow route, ``("nsplit",)`` on its wide one,
+    ``("chunk",)`` for hub_reuse."""
+    if kernel == "hub_reuse":
+        return ("chunk",)
+    way = route(dims["k"], dims["d"], dims["dc"], dims["h"], dims["f"])
+    return ("rows",) if way == "narrow" else ("nsplit",)
+
+
+def infeasible(kernel: str, dims: dict, knobs: dict) -> str | None:
+    """Why the knobs of a plan do not fit the call ``dims`` describes
+    (None where they do).  ``knobs`` holds the plan's knob fields only
+    (empty = the heuristic's launch); a knob of the other route does not
+    fit."""
+    if kernel not in KNOBS:
+        return f"unknown kernel {kernel!r}"
+    for name, v in knobs.items():
+        if name not in KNOBS[kernel]:
+            return f"{name!r} is not a knob of {kernel}"
+        if not isinstance(v, int) or isinstance(v, bool):
+            return f"{name!r} must be an int, got {v!r}"
+        if name not in knobs_of(kernel, dims):
+            return (f"{name!r} acts on gather_mlp's {KNOB_ROUTE[name]} "
+                    f"route and this call takes the other one")
+        if name == "rows":
+            if v not in ROWS:
+                return f"'rows' must be one of {ROWS}, got {v}"
+            smem = narrow_smem(v, dims["k"], dims["d"], dims["dc"],
+                               dims["h"], dims["f"])
+            if smem > MAX_SMEM:
+                return (f"a {v}-row tile takes {smem} B of shared memory, "
+                        f"past a block's {MAX_SMEM}")
+        elif name == "nsplit":
+            most = wide_chunks(dims["h"])
+            if not 1 <= v <= most:
+                return f"'nsplit' must lie in 1..{most} (H/32), got {v}"
+        elif name == "chunk":
+            if v not in CHUNKS:
+                return f"'chunk' must be one of {CHUNKS}, got {v}"
+    if kernel == "hub_reuse":
+        smem = hub_reuse_smem(dims["c"], dims["m"], dims["k"], dims["d"],
+                              True, knobs.get("chunk", 128))
+        if smem > MAX_SMEM:
+            return (f"a launch takes {smem} B of shared memory, past a "
+                    f"block's {MAX_SMEM}")
+    return None
+
+
+def feasible(kernel: str, dims: dict, knobs: dict) -> bool:
+    """Whether the knobs fit the call (see :func:`infeasible`)."""
+    return infeasible(kernel, dims, knobs) is None

@@ -25,10 +25,15 @@ PCN half, on the GPU unless ``--device cpu`` is given.
             --batch 8 --timeout-ms 100 --faults "fail@1,nan@3"
 
 ``--arch`` takes every model of ``repro_torch.models.MODEL_ZOO``; a seg
-model answers each request with its per-point logits.  Every line that
-reports a time starts with the device's name.  Not ported yet, each
-refused with the ROADMAP item that will bring it: the mesh-sharded path
-(``--mesh-data``), tile knobs (``--kernel-kw``) and the LM serving loop.
+model answers each request with its per-point logits.  ``--kernel-kw``
+takes a JSON object of the FC kernels' launch knobs (``{"rows": 64,
+"chunk": 64}``; ``rows``, ``nsplit``, ``chunk``), passed to
+``PCNEngine(kernel_kw=...)``; without it each call's plan comes from the
+tile-plan store (``python -m repro_torch.launch.autotune``) or the
+heuristic.  Every line that reports a time starts with the device's
+name.  Not ported yet, each refused with the ROADMAP item that will
+bring it: the mesh-sharded path (``--mesh-data``) and the LM serving
+loop.
 """
 from __future__ import annotations
 
@@ -64,8 +69,9 @@ def _pcn_engine(args):
         spec = replace(spec, blocks=tuple(
             replace(b, n_centers=min(b.n_centers, max(args.points // 4, 16)),
                     k=min(b.k, 16)) for b in spec.blocks))
+    kernel_kw = json.loads(args.kernel_kw) if args.kernel_kw else None
     eng = PCNEngine(spec, mode=args.mode, fc_backend=args.backend,
-                    device=args.device)
+                    kernel_kw=kernel_kw, device=args.device)
     return spec, eng, eng.init(seed=0)
 
 
@@ -209,14 +215,17 @@ def main(argv=None):
     ap.add_argument("--mode", default="lpcn",
                     choices=["lpcn", "traditional"])
     ap.add_argument("--backend", default="cuda",
-                    choices=["reference", "cuda"],
+                    choices=["reference", "cuda", "cuda_per_cloud"],
                     help="FC backend: the hand-written CUDA kernels "
-                         "(default) or the plain PyTorch path")
+                         "(default; cuda_per_cloud: one launch per cloud) "
+                         "or the plain PyTorch path")
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--mesh-data", type=int, default=0,
                     help="not ported yet (ROADMAP queue 1 item 8)")
     ap.add_argument("--kernel-kw", default=None,
-                    help="not ported yet (ROADMAP queue 1 item 5)")
+                    help="JSON object of FC kernel launch knobs, e.g. "
+                         "'{\"rows\": 64, \"chunk\": 64}' (rows, nsplit, "
+                         "chunk; passed to PCNEngine(kernel_kw=...))")
     # trace-serving options (--trace N turns the mode on)
     ap.add_argument("--trace", type=int, default=0,
                     help="replay a synthetic ragged trace of N requests "
@@ -259,10 +268,6 @@ def main(argv=None):
         raise SystemExit("--mesh-data: the port's engine has no mesh yet; "
                          "batch data parallelism comes with ROADMAP queue 1 "
                          "item 8")
-    if args.kernel_kw:
-        raise SystemExit("--kernel-kw: the port's kernels take no tile "
-                         "knobs yet; Hopper tile plans come with ROADMAP "
-                         "queue 1 item 5")
     if args.arch not in MODEL_ZOO:
         raise SystemExit(
             f"--arch {args.arch!r} is not a PCN model "

@@ -1,6 +1,7 @@
 """PCN benchmark models (paper Table I + §VI-D), the port's copies of
 ``repro.models``: name -> (module, spec)."""
 from . import dgcnn, pointnet2, pointnext, pointvector
+from .baselines import mesorasi_fc, mesorasi_workload  # noqa: F401
 from .common import BlockSpec, PCNSpec  # noqa: F401
 
 MODEL_ZOO = {

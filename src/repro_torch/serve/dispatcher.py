@@ -288,7 +288,8 @@ class PCNServer:
                         self._fallback_engine = type(eng)(
                             eng.spec, mode=eng.mode,
                             fc_backend=self.fallback,
-                            isl_kw=eng.isl_kw, device=eng.device)
+                            isl_kw=eng.isl_kw, kernel_kw=eng.kernel_kw,
+                            device=eng.device)
                     with self._exec_lock:
                         fn = self._fallback_engine.bucket_callable(
                             self.params, bucket.batch, bucket.n_points)

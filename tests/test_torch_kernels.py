@@ -377,15 +377,18 @@ class _StubLib:
         "ssd_chunk_forward": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
         + [ctypes.c_void_p]}),
     (gather_ops, "gather_mlp", {
-        "gather_mlp_forward": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
+        "gather_mlp_forward": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
         + [ctypes.c_void_p],
         "gather_mlp_row_tile": [ctypes.c_int] * 3,
         "gather_mlp_route": [ctypes.c_int] * 5,
-        "gather_mlp_scratch_bytes": [ctypes.c_int] * 7,
-        "gather_mlp_wide_plan": [ctypes.c_int] * 7 + [ctypes.c_void_p]}),
+        "gather_mlp_rows": [ctypes.c_int] * 8,
+        "gather_mlp_smem_bytes": [ctypes.c_int] * 9,
+        "gather_mlp_scratch_bytes": [ctypes.c_int] * 8,
+        "gather_mlp_wide_plan": [ctypes.c_int] * 8 + [ctypes.c_void_p]}),
     (reuse_ops, "hub_reuse", {
-        "hub_reuse_forward": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10
-        + [ctypes.c_void_p]}),
+        "hub_reuse_forward": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 11
+        + [ctypes.c_void_p],
+        "hub_reuse_smem_bytes": [ctypes.c_int] * 7}),
     (flash_ops, "flash_attention", {
         "flash_attention_forward": [ctypes.c_void_p] * 4
         + [ctypes.c_int] * 9 + [ctypes.c_void_p]}),

@@ -1,0 +1,106 @@
+#!/usr/bin/env python3
+"""Time the FC kernels' wrappers of two trees on the main path's calls,
+in turns.
+
+    python3 tools/fc_wrapper_ab.py --against DIR [--seed N] [--iters N]
+                                   [--rounds N]
+
+``DIR`` is another checkout's root (e.g. a parent commit unpacked with
+``git archive``).  Saves chip_smoke.py's gather_mlp and hub_reuse calls
+of the pointnet2_c main path (``DENSE`` / ``REUSE``, both blocks, at B =
+8, masked as the path calls them) to ``build/repro_torch/fc_wrapper_ab.pt``,
+then runs one child process per turn (``--rounds`` times: against, this
+tree, this tree, against), each importing its tree's ``repro_torch`` (its own library and
+Python wrapper, with no tile-plan store: each call planned by the
+heuristic) and timing each call through
+``repro_torch.kernels.{gather_mlp,hub_reuse}`` with CUDA events: wall
+time, the wrapper's host work included.  Prints one JSON line per (tree,
+turn, call) with ms a call, best of 5 runs of ``--iters``, and the card's
+name and power limit first.  Needs one CUDA device.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+CHILD = r"""
+import json, sys, torch
+from repro_torch.kernels.gather_mlp import gather_mlp
+from repro_torch.kernels.hub_reuse import hub_reuse
+calls = torch.load(sys.argv[1])
+iters = int(sys.argv[2])
+for name, (kernel, args, mask) in calls.items():
+    args = [a.cuda() for a in args]
+    fn = gather_mlp if kernel == "gather_mlp" else hub_reuse
+    kw = {} if mask is None else {
+        "mask" if kernel == "gather_mlp" else "live": mask.cuda()}
+    fn(*args, **kw)
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(5):
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0.record()
+        for _ in range(iters):
+            fn(*args, **kw)
+        t1.record()
+        torch.cuda.synchronize()
+        best = min(best, t0.elapsed_time(t1) / iters)
+    print(json.dumps({"call": name, "ms": best}))
+"""
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--against", required=True,
+                    help="another checkout's root, with src/repro_torch")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--rounds", type=int, default=1)
+    args = ap.parse_args()
+
+    sys.path[:0] = [str(ROOT), str(ROOT / "src")]
+    import torch
+    if not torch.cuda.is_available():
+        print("fc_wrapper_ab: no CUDA device", file=sys.stderr)
+        return 2
+    import chip_smoke
+    from repro_torch.kernels import _build
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], check=True,
+                         capture_output=True, text=True).stdout.strip()
+    print(smi.splitlines()[0], flush=True)
+    cpu = torch.device("cpu")
+    gen = torch.Generator().manual_seed(args.seed)
+    calls = {}
+    for blk, shp in chip_smoke.DENSE.items():
+        *ops, mask = chip_smoke.dense_inputs(gen, cpu, chip_smoke.B, **shp)
+        calls[f"gather_mlp_{blk}"] = ("gather_mlp", ops, mask)
+    for blk, shp in chip_smoke.REUSE.items():
+        *ops, live = chip_smoke.reuse_inputs(gen, cpu, chip_smoke.B, **shp)
+        calls[f"hub_reuse_{blk}"] = ("hub_reuse", ops, live)
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    path = _build.BUILD_DIR / "fc_wrapper_ab.pt"
+    torch.save(calls, path)
+    trees = {"against": Path(args.against).resolve(), "this": ROOT}
+    order = ("against", "this", "this", "against") * args.rounds
+    for turn, tree in enumerate(order):
+        env = {**os.environ, "PYTHONPATH": str(trees[tree] / "src"),
+               "REPRO_TORCH_TILE_PLANS": str(ROOT / "build" / "no_plans")}
+        out = subprocess.run([sys.executable, "-c", CHILD, str(path),
+                              str(args.iters)], env=env, check=True,
+                             capture_output=True, text=True,
+                             cwd=trees[tree]).stdout
+        for line in out.splitlines():
+            print(json.dumps({"tree": tree, "turn": turn,
+                              **json.loads(line)}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

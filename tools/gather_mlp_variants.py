@@ -131,9 +131,11 @@ VARIANTS = {
 
 
 def forward(lib, dev):
-    """A caller of lib's gather_mlp_forward, with either signature: the
-    scratch pointer (and its size from gather_mlp_scratch_bytes) where the
-    library has one, none where it predates the wide route's splits."""
+    """A caller of lib's gather_mlp_forward, with any of its signatures:
+    the scratch pointer (and its size from gather_mlp_scratch_bytes) where
+    the library has one, none where it predates the wide route's splits;
+    the launch knobs rows and nsplit (0, 0: the heuristic's launch) where
+    it takes them (it then has gather_mlp_smem_bytes)."""
     import torch
     P, I = ctypes.c_void_p, ctypes.c_int
     fwd = lib.gather_mlp_forward
@@ -141,23 +143,26 @@ def forward(lib, dev):
         sizer = lib.gather_mlp_scratch_bytes
     except AttributeError:
         sizer = None
-    fwd.argtypes = [P] * (9 if sizer else 8) + [I] * 7 + [P]
+    knobs = (0, 0) if hasattr(lib, "gather_mlp_smem_bytes") else ()
+    fwd.argtypes = ([P] * (9 if sizer else 8) + [I] * (7 + len(knobs))
+                    + [P])
     fwd.restype = I
     if sizer:
-        sizer.argtypes, sizer.restype = [I] * 7, ctypes.c_longlong
+        sizer.argtypes = [I] * (7 + len(knobs[:1]))
+        sizer.restype = ctypes.c_longlong
     stream = torch.cuda.current_stream(dev).cuda_stream
 
     def bind(ptrs, out, dims):
         ptrs = [*ptrs, out]
         scratch = None
         if sizer:
-            n = sizer(*dims)
+            n = sizer(*dims, *knobs[:1])
             if n:
                 scratch = torch.empty(n, dtype=torch.uint8, device=dev)
             ptrs.append(None if scratch is None else scratch.data_ptr())
 
         def call():
-            return fwd(*ptrs, *dims, stream)
+            return fwd(*ptrs, *dims, *knobs, stream)
         call.scratch = scratch            # held while the caller lives
         return call
     return bind

@@ -153,14 +153,18 @@ def main() -> int:
             for name, so in libs.items():
                 lib = ctypes.CDLL(str(so))
                 fwd = lib.hub_reuse_forward
-                fwd.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 10
+                # the chunk knob (128 cache rows a launch) where it is taken
+                chunk = ((128,) if hasattr(lib, "hub_reuse_smem_bytes")
+                         else ())
+                fwd.argtypes = ([ctypes.c_void_p] * 9
+                                + [ctypes.c_int] * (10 + len(chunk))
                                 + [ctypes.c_void_p])
                 out = torch.empty_like(ref)
-                call = (lambda fwd=fwd, out=out: fwd(
+                call = (lambda fwd=fwd, out=out, chunk=chunk: fwd(
                     *(t.data_ptr() for t in (pool, slot, comp, live, w1, b1,
                                              w2, b2, out)),
                     bb, shp["hn"], shp["c"], shp["m"], shp["k"], shp["d"],
-                    shp["h"], shp["f"], 0, 0, stream))
+                    shp["h"], shp["f"], 0, 0, *chunk, stream))
                 if call() != 0:
                     raise RuntimeError(f"{name}: launch failed")
                 torch.cuda.synchronize()
