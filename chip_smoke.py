@@ -75,7 +75,20 @@ Phases, each timed, any failure exits non-zero:
      ssd_chunk with ragged P, S and head tiles) against the plain
      versions (flash: max |Δ| and ‖Δ‖/‖plain‖) and time all three: knn
      also by its kernel time (``device_ms``, torch.profiler), flash also
-     at a gemma_7b layer (head_dim 256) in f32 and bf16.
+     at a gemma_7b layer (head_dim 256) in f32 and bf16;
+  8. LM (``lm_phase``): the port's LM serving side at full width from
+     seeded weights.  olmo-1b and mamba2-2.7b prefill B = 2 × 2048 through
+     ``steps.make_prefill_step`` with the launch counts reset (exactly
+     16 ``flash_attention`` / 64 ``ssd_chunk`` launches, nothing else), in
+     float32 and in bfloat16, against the same prefill with the kernels'
+     plain versions routed in (``LM_MAIN``'s limits); a 32-token prompt
+     through ``make_cache`` / ``make_decode_step`` (olmo-1b's logits
+     against the forward's) and 16 greedy tokens, timed; the kernels at
+     the inputs those prefills gave them, held and timed.  Every other
+     config once (``LM_ONCE``; qwen2-72b, llama4-maverick and grok-1 at 2
+     layers): a counted prefill, decode steps (no launch), finite logits.
+     Then ``python -m repro_torch.launch.serve --arch olmo-1b ...`` in a
+     subprocess.
 
 Output lines: the card's name and power limit (nvidia-smi), phase times,
 ptxas's registers and spills per kernel (gather_mlp, hub_reuse and
@@ -95,16 +108,22 @@ bit-equality, shared memory by tiling.py and by the library; the
 heuristic's, the per-cloud and the winner's ms; beside the card's name
 and power limit), ``plan_forward`` lines and ``mesorasi``, a ``family``
 line per model and ``wide_parity``, a
-``kernels`` JSON
+an ``lm`` line
+per LM config (its routes, launches, prefill and decode times, beside the
+card's name and power limit), ``lm_parity``, a ``kernels`` JSON
 line (every TPU kernel's counterpart: the FC kernels batched and per
-cloud, gather_mlp's wide route, and the entry kernels; ``launches``
-counted per wrapper, in the async serving run for the FC kernels, over
-the families phase's counted forwards for the wide route, and in the
-entry phase for the others), and last ``{"ok": true, "device": {...}}``.
+cloud, gather_mlp's wide route, the entry kernels, and flash_attention
+and ssd_chunk at the LM prefills' inputs; ``launches`` counted per
+wrapper, in the async serving run for the FC kernels, over the families
+phase's counted forwards for the wide route, in the entry phase for the
+entry kernels' rows (``lm_launches`` beside them: the LM phase's counted
+prefills) and in the LM phase for its rows), and last ``{"ok": true,
+"device": {...}}``.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import re
@@ -263,6 +282,40 @@ DGCNN_S_KNN = dict(n=8192, k=20)
 # and lists past shared memory (k = 1600, in device memory)
 KNN_TIES = ((512, 900, 32), (512, 900, 300), (8192, 8192, 20),
             (64, 100, 100), (2560, 4096, 1600))
+# the LM phase: the port's LM serving side (repro_torch.lm, configs from
+# src/repro/configs/) at full width, seeded random weights.  olmo-1b and
+# mamba2-2.7b prefill B = 2 × 2048 tokens through their kernels (one
+# flash_attention / ssd_chunk launch a layer) in float32 and in bfloat16,
+# each held against the same prefill with the kernels' plain versions
+# routed in: float32 max |Δ| <= 1e-3 · max(1, max|plain|) (3xTF32 products
+# through 16 / 64 layers); bfloat16 ‖Δ‖ / ‖plain‖ <= 2e-2
+# (tests/test_lm_smoke.py's tolerance) or, where larger, bf16's own error,
+# the plain route's bf16 logits against the f32 model's (the same weights
+# rounded): 64 bf16 layers amplify rounding, so two bf16 runs whose f32
+# SSD outputs differ at rounding level differ by several % (mamba2-2.7b's
+# line reports it as ssd_rounding_noise_rel: y_in × (1 + 1e-7·N(0, 1)) in
+# the plain route).  Then a 32-token
+# prompt teacher-forced through decode (olmo-1b: each position's logits
+# against the forward's, float32 within rtol = atol = 2e-2 as
+# test_lm_smoke.py's test_decode_matches_forward_olmo; bfloat16, where
+# decode's plain attention rounds its probabilities to bf16 and the
+# forward's kernel does not round alike, ‖Δ‖ / ‖ref‖ by the bf16 rule) and
+# 16 greedy tokens
+LM_MAIN = ("olmo-1b", "mamba2-2.7b")
+LM_PREFILL = dict(b=2, s=2048)
+LM_PROMPT, LM_GEN = 32, 16
+LM_F32_TOL, LM_BF16_REL, LM_DECODE_TOL = 1e-3, 2e-2, 2e-2
+# every other config once, in its own bfloat16: B = 1, S = 512 (Whisper's
+# encoder its 1500 frames), then 4 decode steps; n_layers cut to 2 where
+# one card's 80 GB does not hold the whole model (qwen2-72b ~145 GB,
+# llama4-maverick ~800 GB, grok-1 ~630 GB of bf16 weights)
+LM_ONCE = ("gemma-7b", "phi3-medium-14b", "recurrentgemma-2b",
+           "paligemma-3b", "whisper-large-v3", "qwen2-72b",
+           "llama4-maverick-400b-a17b", "grok-1-314b")
+LM_CUT = {"qwen2-72b": 2, "llama4-maverick-400b-a17b": 2, "grok-1-314b": 2}
+LM_ONCE_RUN = dict(b=1, s=512, steps=4, cache_len=64)
+LM_CLI = ("--arch", "olmo-1b", "--batch", "4", "--prompt-len", "32",
+          "--gen", "16", "--cache-len", "64")
 
 
 def log(msg: str) -> None:
@@ -1596,51 +1649,61 @@ def knn_rows(knn_sets, knn_out, structs):
     return parity, rows
 
 
-def ssd_rows(ssd_args, ssd_out, gen, dev):
-    """ssd_chunk's parity and timed rows at each layer of ``SSD_LAYERS``
-    (y_in and the states within 2e-4 · max(1, max|plain|), the JAX
-    package's own tolerance), the TF32 HMMA count and ptxas's spills of
-    its library beside each, and the ragged ``SSD_PARITY`` shapes."""
+def ssd_held(shape, args, out, parity) -> float:
+    """ssd_chunk's ``out`` on ``args`` against the plain version: y_in and
+    the states within 2e-4 · max(1, max|plain|), the JAX package's own
+    tolerance; a parity row each appended to ``parity``.  -> the larger
+    max |Δ|."""
+    from repro_torch.kernels.ssd_chunk import ssd_chunk_ref
+    worst = 0.0
+    for part, o, r in zip(("y_in", "states"), out, ssd_chunk_ref(*args)):
+        e = (o - r).abs().max().item()
+        t = 2e-4 * max(1.0, r.abs().max().item())
+        parity.append(dict(name="ssd_chunk", shape=shape, part=part,
+                           max_abs_err=e, tol=t))
+        check(e <= t, f"ssd_chunk {shape} {part}: max|err| {e} > {t}")
+        worst = max(worst, e)
+    return worst
+
+
+def ssd_row(block, args, out, parity) -> dict:
+    """ssd_chunk held (``ssd_held``) and timed against its plain version
+    on ``args``, with its bound: a ``kernels`` row without launches."""
     from repro_torch.kernels import BUILD_LOG
     from repro_torch.kernels.ssd_chunk import ssd_chunk, ssd_chunk_ref
-    hmma = sass_count("ssd_chunk", "HMMA", "TF32")
-    spill = spilled_bytes(BUILD_LOG["ssd_chunk"])
-    parity, rows = [], []
+    bs, nc, q, h, p = args[0].shape
+    s = args[1].shape[-1]
+    shape = f"bs={bs} nc={nc} q={q} H={h} P={p} S={s}"
+    err = ssd_held(block, args, out, parity)
+    ms, plain_ms = time_pair(lambda: ssd_chunk(*args),
+                             lambda: ssd_chunk_ref(*args))
+    # C·Bᵀ once a chunk; M·x over the q(q+1)/2 pairs i >= j and the
+    # state product per head; 3xTF32: three TF32 products for each
+    flops = 2.0 * bs * nc * (q * q * s + h * p * (q * (q + 1) // 2 + s * q))
+    moved = nbytes(*args, *out)
+    bms, by = bound(3 * flops, moved, PEAK_TF32)
+    return dict(
+        name="ssd_chunk", block=block, route="cuda",
+        source="src/repro_torch/csrc/ssd_chunk.cu",
+        replaces="src/repro/kernels/ssd_chunk/ssd_chunk.py:64", shape=shape,
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+        bound_fp32_ms=bound(flops, moved)[0], library_ms=None,
+        sass_count=sass_count("ssd_chunk", "HMMA", "TF32"),
+        spill_bytes=spilled_bytes(BUILD_LOG["ssd_chunk"]))
 
-    def held(shape, args, out):
-        worst = (0.0, 0.0)
-        for part, o, r in zip(("y_in", "states"), out, ssd_chunk_ref(*args)):
-            e = (o - r).abs().max().item()
-            t = 2e-4 * max(1.0, r.abs().max().item())
-            parity.append(dict(name="ssd_chunk", shape=shape, part=part,
-                               max_abs_err=e, tol=t))
-            check(e <= t, f"ssd_chunk {shape} {part}: max|err| {e} > {t}")
-            worst = max(worst, (e, t))
-        return worst
 
-    for name, m in SSD_LAYERS.items():
-        args = ssd_args[name]
-        err, _ = held(name, args, ssd_out[name])
-        ms, plain_ms = time_pair(lambda: ssd_chunk(*args),
-                                 lambda: ssd_chunk_ref(*args))
-        bn, q, h, p, s = m["bs"] * m["nc"], m["q"], m["h"], m["p"], m["s"]
-        # C·Bᵀ once a chunk; M·x over the q(q+1)/2 pairs i >= j and the
-        # state product per head; 3xTF32: three TF32 products for each
-        flops = 2.0 * bn * (q * q * s + h * p * (q * (q + 1) // 2 + s * q))
-        moved = nbytes(*args, *ssd_out[name])
-        bms, by = bound(3 * flops, moved, PEAK_TF32)
-        rows.append(dict(
-            name="ssd_chunk", block=name, route="cuda",
-            source="src/repro_torch/csrc/ssd_chunk.cu",
-            replaces="src/repro/kernels/ssd_chunk/ssd_chunk.py:64",
-            shape=f"bs={m['bs']} nc={m['nc']} q={q} H={h} P={p} S={s}",
-            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-            bound_by=by, bound_fp32_ms=bound(flops, moved)[0],
-            library_ms=None, sass_count=hmma, spill_bytes=spill))
+def ssd_rows(ssd_args, ssd_out, gen, dev):
+    """ssd_chunk's parity and timed rows at each layer of ``SSD_LAYERS``,
+    the TF32 HMMA count and ptxas's spills of its library beside each, and
+    the ragged ``SSD_PARITY`` shapes."""
+    from repro_torch.kernels.ssd_chunk import ssd_chunk
+    parity = []
+    rows = [ssd_row(name, ssd_args[name], ssd_out[name], parity)
+            for name in SSD_LAYERS]
     for shp in SSD_PARITY:
         args = ssd_inputs(gen, dev, *shp)
-        held("bs={} nc={} q={} H={} P={} S={}".format(*shp), args,
-             ssd_chunk(*args))
+        ssd_held("bs={} nc={} q={} H={} P={} S={}".format(*shp), args,
+                 ssd_chunk(*args), parity)
     return parity, rows
 
 
@@ -1731,6 +1794,418 @@ def entry_phase(dev, seed, spec, batch):
     # ---- ssd_chunk ---------------------------------------------------------
     p_rows, k_rows = ssd_rows(ssd_args, ssd_out, gen, dev)
     return launches, parity + p_rows, rows + k_rows
+
+
+def lm_batch(cfg, b, s, gen, dev) -> dict:
+    """Random tokens (b, s + 1) and, for the VLM and audio families, the
+    stubbed patch / frame embeddings in the model dtype."""
+    import torch
+    from repro_torch.lm.transformer import dtype_of
+    batch = {"tokens": torch.randint(0, cfg.vocab, (b, s + 1), generator=gen,
+                                     device=dev)}
+    extra = {"vlm": ("patches", cfg.prefix_tokens),
+             "audio": ("frames", cfg.enc_seq)}.get(cfg.family)
+    if extra:
+        batch[extra[0]] = (0.02 * torch.randn(
+            (b, extra[1], cfg.d_model), generator=gen, device=dev)
+        ).to(dtype_of(cfg))
+    return batch
+
+
+@contextlib.contextmanager
+def lm_kernels(flash, ssd):
+    """The LM modules' kernel calls (``nn.attention.flash_attention``,
+    ``nn.ssm.ssd_chunk``) replaced for the block's duration."""
+    from repro_torch.nn import attention, ssm
+    saved = attention.flash_attention, ssm.ssd_chunk
+    attention.flash_attention, ssm.ssd_chunk = flash, ssd
+    try:
+        yield
+    finally:
+        attention.flash_attention, ssm.ssd_chunk = saved
+
+
+def plain_route():
+    """Each LM kernel's plain version routed in where the kernel runs."""
+    from repro_torch.kernels.flash_attention import attention_ref
+    from repro_torch.kernels.ssd_chunk import ssd_chunk_ref
+    return lm_kernels(attention_ref, ssd_chunk_ref)
+
+
+def ssd_rounding_noise(cfg, params, batch, plain, dev, seed) -> float:
+    """‖Δ‖ / ‖plain‖ of the plain route's prefill logits when ssd_chunk's
+    f32 y_in is multiplied by (1 + 1e-7·N(0, 1)): how far a kernel whose
+    f32 output differs at the level of its rounding moves the model's
+    logits by itself."""
+    import torch
+    from repro_torch.kernels.flash_attention import attention_ref
+    from repro_torch.kernels.ssd_chunk import ssd_chunk_ref
+    from repro_torch.lm import steps
+    noise = torch.Generator(device=dev).manual_seed(seed + 1)
+
+    def perturbed(*args):
+        y, states = ssd_chunk_ref(*args)
+        eps = torch.randn(y.shape, generator=noise, device=dev)
+        return y * (1 + 1e-7 * eps), states
+    with lm_kernels(attention_ref, perturbed):
+        moved = steps.make_prefill_step(cfg)(params, batch)
+    return rel_err(moved, plain)
+
+
+def first_inputs(store: dict):
+    """The kernels run as they do, the arguments of each one's first call
+    kept in ``store`` (name -> (args, kwargs))."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_chunk import ssd_chunk
+
+    def kept(name, fn):
+        def call(*args, **kw):
+            store.setdefault(name, (args, kw))
+            return fn(*args, **kw)
+        return call
+    return lm_kernels(kept("flash_attention", flash_attention),
+                      kept("ssd_chunk", ssd_chunk))
+
+
+def lm_routes(cfg) -> dict:
+    """Where each attention / mixer kind of ``cfg`` runs its core."""
+    from repro_torch.nn.attention import attention_route
+    if cfg.family == "audio":
+        return {"encoder": attention_route("bidir", cfg.hd),
+                "decoder": attention_route("causal", cfg.hd),
+                "cross": "plain", "decode": "plain"}
+    prefix = cfg.prefix_tokens if cfg.family == "vlm" else 0
+    routes = {}
+    for kind in dict.fromkeys(cfg.mixer_of(i) for i in range(cfg.n_layers)):
+        routes[kind] = {
+            "attn": attention_route("causal", cfg.hd, prefix,
+                                    cfg.logits_softcap),
+            "local": "plain", "rglru": "plain",
+            "ssd": "ssd_chunk"}[kind]
+    routes["decode"] = "plain"
+    return routes
+
+
+def rel_err(got, ref) -> float:
+    """‖got − ref‖ / ‖ref‖ in float32."""
+    ref = ref.float()
+    return ((got.float() - ref).norm() / ref.norm()).item()
+
+
+def tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(tree_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
+
+
+def lm_bounds(cfg, params, b, s) -> dict:
+    """The least time one prefill of (b, s) tokens and one decode step at
+    batch b could take: products (2 flops a weight a token through it; the
+    MoE's top-k experts a token; the head at the last position only; q·kᵀ
+    and p·v over the visible pairs; the SSD chunks' quadratic form) at the
+    bf16 peak, against the weights read once at the HBM rate (a prefill:
+    all of them, every expert taking tokens at these sizes; a decode step:
+    the routed experts' share, not Whisper's encoder)."""
+    d, hd, h = cfg.d_model, cfg.hd, cfg.n_heads
+    attn_w = d * hd * (h + 2 * cfg.n_kv) + h * hd * d
+    head = 2 * b * d * cfg.vocab
+    causal = lambda n, w=None: (n * (n + 1) / 2 if w is None or w >= n
+                                else w * (w + 1) / 2 + (n - w) * w)
+    if cfg.family == "audio":
+        t = cfg.enc_seq
+        enc_w = attn_w + 2 * d * cfg.d_ff
+        kv_w = 2 * d * hd * cfg.n_kv           # cross K/V, over the frames
+        dec_w = 2 * attn_w + 2 * d * cfg.d_ff - kv_w
+        flops = (2 * b * (cfg.enc_layers * enc_w * t
+                          + cfg.n_layers * (dec_w * s + kv_w * t))
+                 + 4 * b * h * hd * (cfg.enc_layers * t * t
+                                     + cfg.n_layers * (causal(s) + s * t))
+                 + head)
+        step_bytes = tree_bytes(params) - tree_bytes(params["enc_layers"])
+    else:
+        n = s + (cfg.prefix_tokens if cfg.family == "vlm" else 0)
+        emb = cfg.vocab * d * (1 if cfg.tie_embed else 2)
+        flops = 2 * b * n * (cfg.param_counts()["active"] - emb) + head
+        for i in range(cfg.n_layers):
+            kind = cfg.mixer_of(i)
+            if kind in ("attn", "local"):
+                w = cfg.local_window if kind == "local" else None
+                flops += 4 * b * h * hd * causal(n, w)
+            elif kind == "ssd":
+                q = min(cfg.ssd_chunk, n)
+                hp, st = cfg.d_inner, cfg.ssm_state
+                flops += 2 * b * (n // q) * (q * q * st + hp * (
+                    q * (q + 1) // 2 + 2 * st * q))
+        step_bytes = tree_bytes(params)
+        for lp in params["layers"]:
+            ffn = lp.get("ffn", {})
+            if "router" in ffn:                # the unrouted experts
+                experts = sum(tree_bytes(ffn[k]) for k in
+                              ("w_in", "w_out", "w_gate") if k in ffn)
+                step_bytes -= experts * (1 - cfg.moe_top_k
+                                         / cfg.moe_experts)
+    ms, by = bound(flops, tree_bytes(params),
+                   PEAK_BF16 if cfg.dtype == "bfloat16" else PEAK_FP32)
+    return dict(prefill_flops=flops, prefill_bound_ms=ms,
+                prefill_bound_by=by,
+                decode_bound_ms=step_bytes / PEAK_BYTES * 1e3)
+
+
+def free_card() -> None:
+    import gc
+
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def lm_prefill(cfg, params, batch, label, repeats=2):
+    """One prefill (``steps.make_prefill_step``) with the launch counts
+    reset, checked against the launches its routes name and for finite
+    logits, then timed (best of ``repeats``, host clock to a sync).  ->
+    (last-position logits, launches, ms)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.lm import model_zoo, steps
+    prefill = steps.make_prefill_step(cfg)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    out = prefill(params, batch)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    want = {**dict.fromkeys(launches, 0), **model_zoo.prefill_launches(cfg)}
+    check(launches == want, f"lm {label}: prefill launches {launches}, its "
+          f"routes name {want}")
+    check(bool(torch.isfinite(out.float()).all()),
+          f"lm {label}: non-finite prefill logits")
+    best = float("inf")
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        prefill(params, batch)
+        torch.cuda.synchronize()
+        best = min(best, 1e3 * (time.perf_counter() - t0))
+    return out, launches, best
+
+
+def lm_decode(cfg, params, tokens, cache, start, label):
+    """Decode ``tokens`` (B, T) teacher-forced from position ``start``,
+    then ``LM_GEN`` greedy tokens, with the launch counts reset (a decode
+    step launches no kernel).  -> (the teacher-forced steps' logits
+    (B, T, V), generated tokens, ms a teacher-forced step, ms a generated
+    token)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.lm import steps
+    step = steps.make_decode_step(cfg)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    forced = []
+    for i in range(tokens.shape[1]):
+        nxt, logits, cache = step(params, tokens[:, i], cache, start + i)
+        forced.append(logits)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out = []
+    for g in range(LM_GEN):
+        nxt, logits, cache = step(params, nxt, cache,
+                                  start + tokens.shape[1] + g)
+        out.append(nxt)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = kernels.launch_counts()
+    check(not any(launches.values()), f"lm {label}: decode launched "
+          f"{launches}")
+    check(bool(torch.isfinite(logits.float()).all()),
+          f"lm {label}: non-finite decode logits")
+    return (torch.stack(forced, 1), torch.stack(out, 1),
+            1e3 * (t1 - t0) / tokens.shape[1], 1e3 * (t2 - t1) / LM_GEN)
+
+
+def lm_main(arch, dev, seed, smi, inputs) -> tuple[dict, dict]:
+    """olmo-1b or mamba2-2.7b at full width (``LM_PREFILL``): in float32
+    and in bfloat16, a counted prefill held against the plain route; the
+    prompt through decode against the prefill forward (bfloat16's
+    decode times are the served numbers).  The first kernel call's
+    arguments go into ``inputs[dtype]``.  -> (the ``lm`` line, launches
+    of the counted prefills)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.lm import model_zoo as zoo
+    from repro_torch.lm import steps
+    from repro_torch.lm import transformer as tfm
+    line = dict(lm=arch, n_layers=get_config(arch).n_layers, reduced=[],
+                routes=lm_routes(get_config(arch)), batch=LM_PREFILL["b"],
+                seq=LM_PREFILL["s"], card=smi)
+    total, f32 = {}, {}
+    for dtype in ("float32", "bfloat16"):
+        # one seed: the bf16 weights are the f32 ones rounded, the tokens
+        # the same
+        cfg = dataclasses.replace(get_config(arch), dtype=dtype)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        params = zoo.init(gen, cfg, dev)
+        batch = lm_batch(cfg, LM_PREFILL["b"], LM_PREFILL["s"], gen, dev)
+        with first_inputs(inputs.setdefault(dtype, {})):
+            out, launches, ms = lm_prefill(cfg, params, batch,
+                                           f"{arch} {dtype}")
+        for name, n in launches.items():
+            total[name] = total.get(name, 0) + n
+        with plain_route():
+            plain = steps.make_prefill_step(cfg)(params, batch)
+        err = (out.float() - plain.float()).abs().max().item()
+        scale = max(1.0, plain.float().abs().max().item())
+        rel = rel_err(out, plain)
+        # the prompt through decode against the forward there
+        prompt = batch["tokens"][:, :LM_PROMPT]
+        with torch.no_grad():
+            full, _ = tfm.forward(cfg, params, tokens=prompt)
+        cache = zoo.make_cache(cfg, params, LM_PREFILL["b"],
+                               LM_PROMPT + LM_GEN, device=dev)
+        forced, gen_toks, forced_ms, gen_ms = lm_decode(
+            cfg, params, prompt, cache, 0, f"{arch} {dtype}")
+        worst = ((forced.float() - full.float()).abs()
+                 - LM_DECODE_TOL * full.float().abs()).max().item()
+        d_rel = rel_err(forced, full)
+        row = dict(
+            prefill_launches={k: v for k, v in launches.items() if v},
+            prefill_ms=ms,
+            prefill_tokens_per_s=LM_PREFILL["b"] * LM_PREFILL["s"] / ms * 1e3,
+            vs_plain_max_abs_err=err, plain_scale=scale,
+            vs_plain_rel_err=rel,
+            decode_vs_forward_excess=worst, decode_vs_forward_rel=d_rel,
+            prompt_ms_per_step=forced_ms, decode_ms_per_token=gen_ms,
+            generated=gen_toks[0, :8].tolist(),
+            **lm_bounds(cfg, params, LM_PREFILL["b"], LM_PREFILL["s"]))
+        if dtype == "float32":
+            f32 = dict(plain=plain.float(), full=full.float())
+            check(err <= LM_F32_TOL * scale, f"lm {arch} f32 prefill: "
+                  f"max|Δ| {err} > {LM_F32_TOL} · {scale}")
+            if arch == "olmo-1b":
+                check(worst <= LM_DECODE_TOL, f"lm {arch} f32: decode "
+                      f"logits off the forward's by {worst} past rtol·|ref|")
+        else:
+            # bf16's own error: the plain route against the f32 model
+            row["plain_vs_f32_rel"] = cost = rel_err(plain, f32["plain"])
+            row["forward_vs_f32_rel"] = fcost = rel_err(full, f32["full"])
+            if launches["ssd_chunk"]:
+                row["ssd_rounding_noise_rel"] = ssd_rounding_noise(
+                    cfg, params, batch, plain, dev, seed)
+            check(rel <= max(LM_BF16_REL, cost), f"lm {arch} bf16 prefill: "
+                  f"‖Δ‖/‖plain‖ {rel} > {LM_BF16_REL} and > bf16's own "
+                  f"{cost}")
+            if arch == "olmo-1b":
+                check(d_rel <= max(LM_BF16_REL, fcost), f"lm {arch} bf16: "
+                      f"decode off the forward by ‖Δ‖/‖ref‖ {d_rel} > "
+                      f"{LM_BF16_REL} and > bf16's own {fcost}")
+        line[dtype] = row
+        del params, batch, out, plain, full, cache, forced
+        free_card()
+    return line, total
+
+
+def lm_once(arch, dev, seed, smi) -> tuple[dict, dict]:
+    """One config in its own bfloat16 at full width (``LM_CUT``'s configs
+    cut to fewer layers): a counted prefill (``LM_ONCE_RUN``) and decode
+    steps.  -> (the ``lm`` line, launches of the prefill)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.lm import model_zoo as zoo
+    cfg = get_config(arch)
+    reduced = []
+    if arch in LM_CUT:
+        reduced.append(f"n_layers {cfg.n_layers} -> {LM_CUT[arch]}")
+        cfg = dataclasses.replace(cfg, n_layers=LM_CUT[arch])
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = zoo.init(gen, cfg, dev)
+    r = LM_ONCE_RUN
+    batch = lm_batch(cfg, r["b"], r["s"], gen, dev)
+    out, launches, ms = lm_prefill(cfg, params, batch, arch)
+    with torch.no_grad():
+        cache = zoo.make_cache(cfg, params, r["b"], r["cache_len"],
+                               frames=batch.get("frames"), device=dev)
+    _, _, step_ms, gen_ms = lm_decode(cfg, params,
+                                      batch["tokens"][:, :r["steps"]], cache,
+                                      0, arch)
+    line = dict(lm=arch, n_layers=cfg.n_layers, reduced=reduced,
+                routes=lm_routes(cfg), batch=r["b"], seq=r["s"],
+                prefill_launches={k: v for k, v in launches.items() if v},
+                prefill_ms=ms,
+                prefill_tokens_per_s=r["b"] * r["s"] / ms * 1e3,
+                decode_ms_per_token=gen_ms, prompt_ms_per_step=step_ms,
+                params_gb=tree_bytes(params) / 1e9,
+                **lm_bounds(cfg, params, r["b"], r["s"]), card=smi)
+    del params, batch, out, cache
+    free_card()
+    return line, launches
+
+
+def lm_cli(smi) -> float:
+    """``python -m repro_torch.launch.serve <LM_CLI>`` in a subprocess at
+    full width: exit 0, the generated (4, 16) tokens, every timed line
+    beginning with the card's name.  -> s."""
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        filter(None, [str(ROOT / "src"), os.environ.get("PYTHONPATH")]))}
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                          *LM_CLI], cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=300)
+    dt = time.perf_counter() - t0
+    for line in res.stdout.splitlines():
+        log(f"cli: {line}")
+    check(res.returncode == 0, f"the LM serving CLI exited "
+          f"{res.returncode}:\n{res.stderr[-3000:]}")
+    first = res.stdout.splitlines()[0]
+    check(smi.startswith(first.split(":")[0]) and "(4, 16) tokens" in first,
+          f"the LM serving CLI's report: {first}")
+    return dt
+
+
+def lm_phase(dev, seed, smi) -> tuple[dict, list, list]:
+    """Phase 8, the LM serving side: ``lm_main`` on ``LM_MAIN``,
+    ``lm_once`` on ``LM_ONCE``, an ``lm`` line each; the kernels at the
+    inputs the olmo-1b / mamba2-2.7b prefills gave them, held and timed
+    (``flash_row``, ``ssd_row``); the CLI.  -> (flash_attention and
+    ssd_chunk launches over the phase's counted prefills, parity rows,
+    ``kernels`` rows without launches)."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_chunk import ssd_chunk
+    from repro_torch.configs import get_config
+    total, parity, rows = {}, [], []
+    for arch in LM_MAIN:
+        inputs = {}
+        line, launches = lm_main(arch, dev, seed, smi, inputs)
+        log(json.dumps(line))
+        for name, n in launches.items():
+            total[name] = total.get(name, 0) + n
+        cfg = get_config(arch)
+        block = arch.replace("-", "_").replace(".", "p") + "_prefill"
+        for dtype, got in inputs.items():
+            if "flash_attention" in got:
+                (q, k, v), kw = got["flash_attention"]
+                f = dict(b=q.shape[0], hq=q.shape[1], hkv=k.shape[1],
+                         s=q.shape[2], d=q.shape[3])
+                p_row, k_row = flash_row(block, f, dtype, q, k, v,
+                                         flash_attention(q, k, v, **kw))
+                parity.append(p_row)
+                rows.append(k_row)
+            if "ssd_chunk" in got and dtype == "bfloat16":
+                args, _ = got["ssd_chunk"]
+                rows.append(ssd_row(block, args, ssd_chunk(*args), parity))
+        del inputs
+        free_card()
+    for arch in LM_ONCE:
+        line, launches = lm_once(arch, dev, seed, smi)
+        log(json.dumps(line))
+        for name, n in launches.items():
+            total[name] = total.get(name, 0) + n
+    lm_cli(smi)
+    return total, parity, rows
 
 
 def main() -> int:
@@ -1883,6 +2358,15 @@ def main() -> int:
     log(f"entry_s {phases['entry_s']:.2f}; launches {entry_launches}")
     log(json.dumps({"entry_parity": entry_parity}))
 
+    # ---- the LM serving side: the ten configs, prefill and decode -------
+    t = time.perf_counter()
+    lm_launches, lm_parity, lm_rows = lm_phase(dev, args.seed,
+                                               smi.splitlines()[0])
+    phases["lm_s"] = time.perf_counter() - t
+    log(f"lm_s {phases['lm_s']:.2f}; launches over the counted prefills "
+        f"{lm_launches}")
+    log(json.dumps({"lm_parity": lm_parity}))
+
     # the per-cloud entries (B = 1) are the same kernels: each wrapper
     # counts its kernel's launches whatever the shape
     rows += per_cloud
@@ -1891,7 +2375,10 @@ def main() -> int:
                            else launches)[row["name"]]
     for row in entry_rows:
         row["launches"] = entry_launches[row["name"]]
-    rows += wide_rows + entry_rows
+        row["lm_launches"] = lm_launches[row["name"]]
+    for row in lm_rows:
+        row["launches"] = lm_launches[row["name"]]
+    rows += wide_rows + entry_rows + lm_rows
     log(json.dumps({"phases_s": phases}))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
-"""PCN serving entry point: the port's counterpart of ``repro.launch.serve``'s
-PCN half, on the GPU unless ``--device cpu`` is given.
+"""Serving entry point: the port's counterpart of ``repro.launch.serve``,
+on the GPU unless ``--device cpu`` is given.  Two families share one CLI,
+dispatched on ``--arch``.
 
   * Batched inference — one padded (B, N, 3) batch shape through
     ``repro_torch.engine``, a throughput loop with per-step latency:
@@ -24,16 +25,25 @@ PCN half, on the GPU unless ``--device cpu`` is given.
             --arch pointnet2_c --trace 64 --rate 30 --buckets 512,1024 \\
             --batch 8 --timeout-ms 100 --faults "fail@1,nan@3"
 
-``--arch`` takes every model of ``repro_torch.models.MODEL_ZOO``; a seg
-model answers each request with its per-point logits.  ``--kernel-kw``
+  * LM serving — ``--arch`` one of ``repro_torch.configs.ARCH_IDS``
+    (``--reduced`` for its smoke config): a batch of random prompts
+    teacher-forced through the decode cache one token a step, then
+    ``--gen`` greedy tokens (``repro_torch.lm.steps.make_decode_step``).
+
+        PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b \\
+            --batch 4 --prompt-len 32 --gen 16 --cache-len 64
+
+For PCN serving, ``--arch`` takes every model of
+``repro_torch.models.MODEL_ZOO``; a seg model answers each request with
+its per-point logits.  ``--kernel-kw``
 takes a JSON object of the FC kernels' launch knobs (``{"rows": 64,
 "chunk": 64}``; ``rows``, ``nsplit``, ``chunk``), passed to
 ``PCNEngine(kernel_kw=...)``; without it each call's plan comes from the
 tile-plan store (``python -m repro_torch.launch.autotune``) or the
 heuristic.  Every line that reports a time starts with the device's
-name.  Not ported yet, each refused with the ROADMAP item that will
-bring it: the mesh-sharded path (``--mesh-data``) and the LM serving
-loop.
+name.  Not ported yet, refused with the ROADMAP item that will bring it:
+the PCN mesh-sharded path (``--mesh-data``); with an LM arch it is
+refused as the JAX CLI refuses it.
 """
 from __future__ import annotations
 
@@ -47,8 +57,13 @@ import numpy as np
 import torch
 
 from .. import random, serve
+from ..configs import ARCH_IDS, get_config
 from ..data.synthetic import make_cloud
+from ..device import resolve_device
 from ..engine import Batch, PCNEngine
+from ..lm import model_zoo as zoo
+from ..lm import steps as lm_steps
+from ..lm.transformer import dtype_of
 from ..models import MODEL_ZOO
 
 
@@ -202,15 +217,78 @@ def serve_trace(args):
     return report
 
 
+def serve_lm(args, params=None):
+    """Batched decode loop: a batch of random prompts teacher-forced
+    through the decode cache token by token, then ``--gen`` greedy tokens,
+    each step on the device.  It is the JAX CLI's loop to the position:
+    the prompt's last token enters at position ``prompt_len``, so cache
+    slot ``prompt_len - 1`` stays empty (ROADMAP queue 3).  ``params``
+    (default: ``zoo.init`` from a generator seeded with 0) lets a caller
+    serve weights carried across from JAX.  -> (batch, gen) generated
+    tokens."""
+    cfg = get_config(args.arch, reduced=args.reduced)
+    dev = resolve_device(args.device)
+    name = device_name(dev)
+    rng = np.random.default_rng(0)
+    t0 = time.perf_counter()
+    if params is None:
+        params = zoo.init(torch.Generator(device=dev).manual_seed(0), cfg,
+                          dev)
+    frames = None
+    if cfg.family == "audio":           # the stubbed frontend's frames
+        frames = torch.full((args.batch, cfg.enc_seq, cfg.d_model), 0.01,
+                            dtype=dtype_of(cfg), device=dev)
+    with torch.no_grad():
+        cache = zoo.make_cache(cfg, params, args.batch, args.cache_len,
+                               frames=frames, device=dev)
+    decode = lm_steps.make_decode_step(cfg)
+    _sync(dev)
+    setup_s = time.perf_counter() - t0
+
+    prompts = rng.integers(0, cfg.vocab, (args.batch, args.prompt_len),
+                           dtype=np.int32)
+    prompts = torch.from_numpy(prompts).to(dev)
+    tok = prompts[:, 0]
+    t0 = time.perf_counter()
+    for pos in range(args.prompt_len - 1):
+        _, _, cache = decode(params, tok, cache, pos)
+        tok = prompts[:, pos + 1]
+    _sync(dev)
+    prompt_s = time.perf_counter() - t0
+    out = []
+    t0 = time.perf_counter()
+    for g in range(args.gen):
+        tok, _, cache = decode(params, tok, cache, args.prompt_len + g)
+        out.append(tok)
+    gen = torch.stack(out, 1).cpu().numpy()
+    gen_s = max(time.perf_counter() - t0, 1e-9)
+    n = args.batch * args.gen
+    print(f"{name}: {cfg.name} ({cfg.n_layers} layers, {cfg.dtype}): set "
+          f"up in {setup_s:.2f}s; prompt of {args.prompt_len} through "
+          f"decode in {prompt_s:.2f}s; generated {gen.shape} tokens in "
+          f"{gen_s:.2f}s ({n / gen_s:.1f} tok/s, "
+          f"{1e3 * gen_s / args.gen:.2f} ms a step, batch={args.batch})")
+    print(gen)
+    return gen
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(
-        description="PCN serving on the port (GPU unless --device cpu)")
-    ap.add_argument("--arch", required=True)
+        description="PCN and LM serving on the port (GPU unless --device "
+                    "cpu)")
+    ap.add_argument("--arch", required=True,
+                    help="a PCN model (repro_torch.models.MODEL_ZOO) or an "
+                         "LM architecture (repro_torch.configs.ARCH_IDS)")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA device; 'cpu' "
                          "runs the plain PyTorch path)")
+    # LM options
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--gen", type=int, default=8)
+    ap.add_argument("--cache-len", type=int, default=64)
+    # PCN options
     ap.add_argument("--points", type=int, default=1024)
     ap.add_argument("--mode", default="lpcn",
                     choices=["lpcn", "traditional"])
@@ -264,15 +342,21 @@ def main(argv=None):
                     help="where the trace report JSON goes ('' = skip)")
     args = ap.parse_args(argv)
 
+    if args.arch in ARCH_IDS:
+        if args.mesh_data:
+            raise SystemExit(
+                "--mesh-data is the PCN engine's sharded path; the LM "
+                "serving loop runs on one device")
+        return serve_lm(args)
+    if args.arch not in MODEL_ZOO:
+        raise SystemExit(
+            f"--arch {args.arch!r} is neither a PCN model "
+            f"({', '.join(MODEL_ZOO)}) nor an LM architecture "
+            f"({', '.join(ARCH_IDS)})")
     if args.mesh_data:
         raise SystemExit("--mesh-data: the port's engine has no mesh yet; "
                          "batch data parallelism comes with ROADMAP queue 1 "
                          "item 8")
-    if args.arch not in MODEL_ZOO:
-        raise SystemExit(
-            f"--arch {args.arch!r} is not a PCN model "
-            f"({', '.join(MODEL_ZOO)}); the LM serving loop is not ported "
-            f"yet (ROADMAP queue 1 item 10)")
     return serve_trace(args) if args.trace else serve_pcn(args)
 
 

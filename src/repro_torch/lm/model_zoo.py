@@ -1,0 +1,99 @@
+"""Unified entry points across the LM families (the port of
+``repro.lm.model_zoo``), on the GPU unless given ``device="cpu"``:
+
+    init(gen, cfg, device)                  -> params
+    loss_fn(cfg, params, batch)             -> (loss, aux)
+    prefill_fn(cfg, params, batch)          -> last-position logits
+    decode_fn(cfg, params, tok, cache, pos) -> (logits, cache)
+    make_cache(cfg, params, batch, len)     -> cache
+
+Batches are dicts of tensors:  dense/moe/ssm/hybrid: {tokens (B,S+1)};
+vlm: {patches (B,P,D), tokens (B,S+1)};  audio: {frames (B,T,D),
+tokens (B,S+1)}.  Labels are tokens shifted by one.  The dry-run's
+shape-only stand-ins (``input_specs``, ``cache_specs``) are not ported.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..nn.attention import attention_route
+from . import transformer as tfm
+from . import whisper as whi
+from .config import ArchConfig
+from .losses import cross_entropy
+
+AUX_WEIGHT = 0.01
+
+
+def init(gen: torch.Generator, cfg: ArchConfig, device=None):
+    """Random params drawn from ``gen``, on ``device`` (default: the
+    GPU)."""
+    if cfg.family == "audio":
+        return whi.init_params(gen, cfg, device)
+    return tfm.init_params(gen, cfg, device)
+
+
+def loss_fn(cfg: ArchConfig, params, batch):
+    toks = batch["tokens"]
+    inp, lab = toks[:, :-1], toks[:, 1:]
+    if cfg.family == "audio":
+        logits, aux = whi.forward(cfg, params, batch["frames"], inp)
+        return cross_entropy(logits, lab), aux
+    if cfg.family == "vlm":
+        logits, aux = tfm.forward(cfg, params, tokens=inp,
+                                  prefix_embeds=batch["patches"])
+        txt_logits = logits[:, cfg.prefix_tokens:]
+        return cross_entropy(txt_logits, lab) + AUX_WEIGHT * aux, aux
+    logits, aux = tfm.forward(cfg, params, tokens=inp)
+    return cross_entropy(logits, lab) + AUX_WEIGHT * aux, aux
+
+
+def prefill_fn(cfg: ArchConfig, params, batch):
+    """Forward pass only (inference prefill): returns last-position
+    logits.  The head projects ONLY the last position — a (B, S, V)
+    logits tensor is never materialized."""
+    if cfg.family == "audio":
+        logits, _ = whi.forward(cfg, params, batch["frames"],
+                                batch["tokens"][:, :-1],
+                                head_last_only=True)
+    elif cfg.family == "vlm":
+        logits, _ = tfm.forward(cfg, params, tokens=batch["tokens"][:, :-1],
+                                prefix_embeds=batch["patches"],
+                                head_last_only=True)
+    else:
+        logits, _ = tfm.forward(cfg, params, tokens=batch["tokens"][:, :-1],
+                                head_last_only=True)
+    return logits[:, -1, :]
+
+
+def make_cache(cfg: ArchConfig, params, batch_sz: int, cache_len: int,
+               frames=None, device=None):
+    """Decode caches; audio runs the encoder over ``frames`` (its caches
+    follow the frames' device), the rest allocate on ``device`` (default:
+    the GPU)."""
+    if cfg.family == "audio":
+        return whi.init_cache(cfg, params, frames, cache_len)
+    return tfm.init_cache(cfg, batch_sz, cache_len, device)
+
+
+def prefill_launches(cfg: ArchConfig) -> dict:
+    """The kernel launches of one :func:`prefill_fn` call on the card, as
+    the routes name them (a decode step launches none; an audio
+    :func:`make_cache` runs the encoder's)."""
+    if cfg.family == "audio":
+        flash = (cfg.enc_layers * (attention_route("bidir", cfg.hd) == "flash")
+                 + cfg.n_layers * (attention_route("causal", cfg.hd)
+                                   == "flash"))
+        return {"flash_attention": flash, "ssd_chunk": 0}
+    prefix = cfg.prefix_tokens if cfg.family == "vlm" else 0
+    mixers = [cfg.mixer_of(i) for i in range(cfg.n_layers)]
+    flash = attention_route("causal", cfg.hd, prefix,
+                            cfg.logits_softcap) == "flash"
+    return {"flash_attention": mixers.count("attn") * flash,
+            "ssd_chunk": mixers.count("ssd")}
+
+
+def decode_fn(cfg: ArchConfig, params, token, cache, pos: int):
+    if cfg.family == "audio":
+        return whi.decode_step(cfg, params, token, cache, pos)
+    return tfm.decode_step(cfg, params, token, cache, pos)

@@ -1,0 +1,304 @@
+"""Attention: GQA/MQA, full-causal, block-local, cross; prefill + decode
+(the port of ``repro.nn.attention``).
+
+Shapes: hidden (B, S, D); per-head (B, S, H, Dh).  GQA is computed grouped
+(no K/V expansion).  :func:`attention_route` names, from a call's static
+arguments alone, where its softmax(QKᵀ)V core runs:
+
+  * ``"flash"`` — the hand-written ``flash_attention`` kernel on
+    (B, H, S, D) tensors: :func:`causal_attention` without a
+    bidirectional prefix and without a softcap, and
+    :func:`bidir_attention` (``causal=False``), for head_dim up to the
+    kernel's ``MAX_D``.  These calls have Sq == Skv, where the kernel's
+    top-left causal mask is the JAX package's ``rows >= cols``, and one
+    call computes what the JAX package's query chunking above
+    ``CHUNK_Q_ABOVE`` computes.
+  * ``"plain"`` — torch einsums mirroring the JAX package: PaliGemma's
+    bidirectional prefix, a softcap, :func:`local_attention`, cross
+    attention and decode.
+
+The route never falls back: on a CUDA tensor the kernel launches or
+raises; on a CPU tensor its wrapper runs ``attention_ref``.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..kernels.flash_attention import flash_attention
+from ..kernels.flash_attention.ops import MAX_D
+from .layers import lecun, rope
+
+NEG = -2.0e38
+CHUNK_Q_ABOVE = 8192   # the plain route chunks the query axis above this
+N_Q_CHUNKS = 8
+
+
+def attention_route(kind: str, head_dim: int, prefix_len: int = 0,
+                    softcap: float = 0.0) -> str:
+    """``"flash"`` or ``"plain"`` for an attention call of ``kind``
+    (``causal``, ``bidir``, ``local``, ``cross``, ``decode``)."""
+    if (kind in ("causal", "bidir") and prefix_len == 0 and softcap == 0
+            and 0 < head_dim <= MAX_D):
+        return "flash"
+    return "plain"
+
+
+def attn_params(gen, d: int, n_heads: int, n_kv: int, head_dim: int,
+                qkv_bias: bool, dtype, device) -> dict:
+    p = {
+        "wq": lecun(gen, (d, n_heads * head_dim), dtype, device),
+        "wk": lecun(gen, (d, n_kv * head_dim), dtype, device),
+        "wv": lecun(gen, (d, n_kv * head_dim), dtype, device),
+        "wo": lecun(gen, (n_heads * head_dim, d), dtype, device,
+                    fan_in=n_heads * head_dim),
+    }
+    if qkv_bias:
+        for name, n in (("bq", n_heads), ("bk", n_kv), ("bv", n_kv)):
+            p[name] = torch.zeros((n * head_dim,), dtype=dtype,
+                                  device=device)
+    return p
+
+
+def _project_qkv(p, x, n_heads, n_kv, head_dim, positions, theta,
+                 use_rope=True):
+    b, s, _ = x.shape
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if "bq" in p:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(b, s, n_heads, head_dim)
+    k = k.reshape(b, s, n_kv, head_dim)
+    v = v.reshape(b, s, n_kv, head_dim)
+    if use_rope:
+        q = rope(q, positions, theta)
+        k = rope(k, positions, theta)
+    return q, k, v
+
+
+def _scaled(q, scale: float):
+    """q times ``scale`` rounded to q's dtype first, as JAX multiplies by
+    a weakly typed Python float."""
+    return q * torch.tensor(scale, dtype=q.dtype)
+
+
+def _gqa_scores(q, k, scale):
+    """q (B,S,H,Dh), k (B,T,Hkv,Dh) -> float32 scores (B,Hkv,G,S,T),
+    grouped; q is scaled in its own dtype, the products are float32."""
+    b, s, h, dh = q.shape
+    hkv = k.shape[2]
+    qg = _scaled(q, scale).reshape(b, s, hkv, h // hkv, dh)
+    return torch.einsum("bshgd,bthd->bhgst", qg.float(), k.float())
+
+
+def _gqa_out(probs, v, b, s, h, dh):
+    """probs (B,Hkv,G,S,T), v (B,T,Hkv,Dh) -> (B,S,H*Dh)."""
+    o = torch.einsum("bhgst,bthd->bshgd", probs, v)
+    return o.reshape(b, s, h * dh)
+
+
+def _softmax(scores, dtype):
+    return torch.softmax(scores, dim=-1).to(dtype)
+
+
+def _flash(q, k, v, causal: bool):
+    """q (B,S,H,Dh), k/v (B,S,Hkv,Dh) -> (B,S,H*Dh) through the kernel's
+    (B, H, S, D) layout."""
+    b, s, h, dh = q.shape
+    o = flash_attention(*(t.transpose(1, 2).contiguous() for t in (q, k, v)),
+                        causal=causal)
+    return o.transpose(1, 2).reshape(b, s, h * dh)
+
+
+def causal_attention(p, x, n_heads, n_kv, head_dim, positions, theta,
+                     softcap: float = 0.0, prefix_len: int = 0,
+                     use_rope: bool = True):
+    """Full causal self-attention (optionally with a bidirectional prefix —
+    PaliGemma's image tokens attend fully within the prefix).  The plain
+    route processes the query axis in N_Q_CHUNKS chunks for S >
+    CHUNK_Q_ABOVE, each against the keys up to its end."""
+    b, s, d = x.shape
+    q, k, v = _project_qkv(p, x, n_heads, n_kv, head_dim, positions, theta,
+                           use_rope)
+    if attention_route("causal", head_dim, prefix_len, softcap) == "flash":
+        return _flash(q, k, v, causal=True) @ p["wo"]
+    scale = head_dim ** -0.5
+
+    def block(qc, q0, t_hi):
+        """q chunk (B, QC, H, Dh) at offset q0 vs. keys [0, t_hi)."""
+        qc_len = qc.shape[1]
+        scores = _gqa_scores(qc, k[:, :t_hi], scale)   # (B,Hkv,G,QC,T')
+        if softcap > 0:
+            scores = torch.tanh(scores / softcap) * softcap
+        rows = q0 + torch.arange(qc_len, device=x.device)[:, None]
+        cols = torch.arange(t_hi, device=x.device)[None, :]
+        mask = rows >= cols
+        if prefix_len > 0:
+            mask = mask | ((rows < prefix_len) & (cols < prefix_len))
+        scores = torch.where(mask, scores, NEG)
+        return _gqa_out(_softmax(scores, x.dtype), v[:, :t_hi], b, qc_len,
+                        n_heads, head_dim)
+
+    if s <= CHUNK_Q_ABOVE:
+        o = block(q, 0, s)
+    else:
+        nc = N_Q_CHUNKS
+        assert s % nc == 0
+        qlen = s // nc
+        o = torch.cat([block(q[:, i * qlen:(i + 1) * qlen], i * qlen,
+                             (i + 1) * qlen) for i in range(nc)], dim=1)
+    return o @ p["wo"]
+
+
+def local_attention(p, x, n_heads, n_kv, head_dim, positions, theta,
+                    window: int):
+    """Block-local causal attention, exact for lookback ``window``.
+
+    Sequence is tiled into blocks of `window`; each block attends to itself
+    and the previous block with a per-position causal+window mask.  Memory
+    is O(S·2w) instead of O(S²)."""
+    b, s, d = x.shape
+    w = min(window, s)
+    assert s % w == 0, "local attention needs seq divisible by window"
+    nb = s // w
+    q, k, v = _project_qkv(p, x, n_heads, n_kv, head_dim, positions, theta)
+    hkv = n_kv
+    g = n_heads // n_kv
+    scale = head_dim ** -0.5
+    qb = _scaled(q, scale).reshape(b, nb, w, hkv, g, head_dim)
+    kb = k.reshape(b, nb, w, hkv, head_dim)
+    vb = v.reshape(b, nb, w, hkv, head_dim)
+    # keys for block i: [block i-1 ++ block i]  (block 0 pads with zeros)
+    kprev = torch.cat([torch.zeros_like(kb[:, :1]), kb[:, :-1]], dim=1)
+    vprev = torch.cat([torch.zeros_like(vb[:, :1]), vb[:, :-1]], dim=1)
+    k2 = torch.cat([kprev, kb], dim=2)                  # (B,nb,2w,Hkv,Dh)
+    v2 = torch.cat([vprev, vb], dim=2)
+    scores = torch.einsum("bnshgd,bnthd->bnhgst", qb.float(), k2.float())
+    dev = x.device
+    rows = torch.arange(w, device=dev)[:, None]         # in-block q pos
+    cols = torch.arange(2 * w, device=dev)[None, :] - w  # key offset
+    mask = (cols <= rows) & (cols > rows - w)           # causal, window w
+    first = torch.arange(nb, device=dev)[:, None, None] == 0
+    mask_b = mask[None, :, :] & (~first | (cols[None] >= 0))
+    scores = torch.where(mask_b[None, :, None, None, :, :], scores, NEG)
+    o = torch.einsum("bnhgst,bnthd->bnshgd", _softmax(scores, x.dtype), v2)
+    return o.reshape(b, s, n_heads * head_dim) @ p["wo"]
+
+
+def cross_attention(p, x, kv_feats, n_heads, n_kv, head_dim):
+    """Whisper decoder cross-attention (no RoPE, no mask); q-chunked for
+    long decoder sequences like causal_attention."""
+    b, s, d = x.shape
+    t = kv_feats.shape[1]
+    q = (x @ p["wq"]).reshape(b, s, n_heads, head_dim)
+    k = (kv_feats @ p["wk"]).reshape(b, t, n_kv, head_dim)
+    v = (kv_feats @ p["wv"]).reshape(b, t, n_kv, head_dim)
+
+    def block(qc):
+        scores = _gqa_scores(qc, k, head_dim ** -0.5)
+        return _gqa_out(_softmax(scores, x.dtype), v, b, qc.shape[1],
+                        n_heads, head_dim)
+
+    if s <= CHUNK_Q_ABOVE:
+        o = block(q)
+    else:
+        qlen = s // N_Q_CHUNKS
+        o = torch.cat([block(q[:, i * qlen:(i + 1) * qlen])
+                       for i in range(N_Q_CHUNKS)], dim=1)
+    return o @ p["wo"]
+
+
+def decode_cross_attention(p, x, cross_k, cross_v, n_heads, n_kv,
+                           head_dim):
+    """Decoder cross-attention against precomputed encoder K/V
+    (cross_k/v (B, T, Hkv, Dh), computed once per request at prefill)."""
+    b = x.shape[0]
+    q = (x @ p["wq"]).reshape(b, 1, n_heads, head_dim)
+    scores = _gqa_scores(q, cross_k, head_dim ** -0.5)
+    o = _gqa_out(_softmax(scores, x.dtype), cross_v, b, 1, n_heads, head_dim)
+    return o @ p["wo"]
+
+
+def cross_kv(p, kv_feats, n_kv, head_dim):
+    """Precompute encoder K/V for decode."""
+    b, t, _ = kv_feats.shape
+    k = (kv_feats @ p["wk"]).reshape(b, t, n_kv, head_dim)
+    v = (kv_feats @ p["wv"]).reshape(b, t, n_kv, head_dim)
+    return k, v
+
+
+def bidir_attention(p, x, n_heads, n_kv, head_dim):
+    """Encoder self-attention (Whisper encoder): full bidirectional."""
+    b, s, d = x.shape
+    q = (x @ p["wq"]).reshape(b, s, n_heads, head_dim)
+    k = (x @ p["wk"]).reshape(b, s, n_kv, head_dim)
+    v = (x @ p["wv"]).reshape(b, s, n_kv, head_dim)
+    if attention_route("bidir", head_dim) == "flash":
+        return _flash(q, k, v, causal=False) @ p["wo"]
+    scores = _gqa_scores(q, k, head_dim ** -0.5)
+    o = _gqa_out(_softmax(scores, x.dtype), v, b, s, n_heads, head_dim)
+    return o @ p["wo"]
+
+
+# ---------------------------------------------------------------------------
+# decode (single new token against a cache)
+# ---------------------------------------------------------------------------
+
+def _quantize_kv(kv):
+    """kv (B, 1, H, Dh) -> (int8 codes, (B, 1, H) f32 scale)."""
+    kv32 = kv.float()
+    scale = torch.clamp_min(kv32.abs().amax(dim=-1) / 127.0, 1e-8)
+    q = torch.clamp(torch.round(kv32 / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def decode_attention(p, x, cache_k, cache_v, pos: int, n_heads, n_kv,
+                     head_dim, theta, window: int = 0, use_rope: bool = True,
+                     softcap: float = 0.0, k_scale=None, v_scale=None):
+    """x (B, 1, D); cache_k/v (B, T, Hkv, Dh) with valid [0, pos);
+    returns (out (B,1,D), cache_k, cache_v[, k_scale, v_scale]).
+
+    The new token's K/V are written into the caches in place (the JAX
+    package returns updated copies); the returned caches are the
+    arguments.  ``window`` > 0 -> ring-buffer cache of size T=window
+    (local attention).  ``k_scale``/``v_scale`` (B, T, Hkv) -> the cache
+    is int8-quantized per (token, head), dequantized in the model dtype
+    before the scores.  A slot past the cache's end writes its last row,
+    as ``dynamic_update_slice`` clamps its start.
+    """
+    b = x.shape[0]
+    t = cache_k.shape[1]
+    quant = k_scale is not None
+    q = (x @ p["wq"]).reshape(b, 1, n_heads, head_dim)
+    k = (x @ p["wk"]).reshape(b, 1, n_kv, head_dim)
+    v = (x @ p["wv"]).reshape(b, 1, n_kv, head_dim)
+    if "bq" in p:
+        q = q + p["bq"].reshape(1, 1, n_heads, head_dim)
+        k = k + p["bk"].reshape(1, 1, n_kv, head_dim)
+        v = v + p["bv"].reshape(1, 1, n_kv, head_dim)
+    if use_rope:
+        posv = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+        q = rope(q, posv, theta)
+        k = rope(k, posv, theta)
+    slot = pos % t if window else pos
+    at = min(slot, t - 1)
+    if quant:
+        k8, ks = _quantize_kv(k)
+        v8, vs = _quantize_kv(v)
+        cache_k[:, at], cache_v[:, at] = k8[:, 0], v8[:, 0]
+        k_scale[:, at], v_scale[:, at] = ks[:, 0], vs[:, 0]
+        kf = cache_k.to(x.dtype) * k_scale[..., None].to(x.dtype)
+        vf = cache_v.to(x.dtype) * v_scale[..., None].to(x.dtype)
+    else:
+        cache_k[:, at], cache_v[:, at] = k[:, 0], v[:, 0]
+        kf, vf = cache_k, cache_v
+    scores = _gqa_scores(q, kf, head_dim ** -0.5)       # (B,Hkv,G,1,T)
+    if softcap > 0:
+        scores = torch.tanh(scores / softcap) * softcap
+    if not (window and pos >= t):
+        valid = torch.arange(t, device=x.device) <= slot
+        scores = torch.where(valid, scores, NEG)
+    o = _gqa_out(_softmax(scores, x.dtype), vf, b, 1, n_heads, head_dim)
+    if quant:
+        return o @ p["wo"], cache_k, cache_v, k_scale, v_scale
+    return o @ p["wo"], cache_k, cache_v
