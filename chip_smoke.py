@@ -88,12 +88,30 @@ Phases, each timed, any failure exits non-zero:
      config once (``LM_ONCE``; qwen2-72b, llama4-maverick and grok-1 at 2
      layers): a counted prefill, decode steps (no launch), finite logits.
      Then ``python -m repro_torch.launch.serve --arch olmo-1b ...`` in a
-     subprocess.
+     subprocess;
+  9. train (``train_phase``): ``flash_attention``'s backward kernel
+     (``csrc/flash_attention_bwd.cu``, built with the others) held
+     against ``attention_bwd_ref`` and timed beside the plain version and
+     SDPA's backward (``BWD_LAYERS``: olmo-1b's layer in bf16 and f32,
+     Qwen2-72B's, Whisper-large-v3's encoder, gemma-7b's in f32;
+     ``BWD_TOL``; two calls bit-equal); olmo-1b at full width cut to 2
+     layers in f32, every leaf's gradient through the kernels against the
+     plain route's (``WIRING_TOL``); ``repro_torch.launch.train.main`` on
+     olmo-1b as published, 4 × 2048 tokens in 2 microbatches, 8 steps
+     (``TRAIN_MAIN``), with the launch counts reset (the forward and
+     backward kernels' launches must equal ``model_zoo.train_launches``
+     a step), every loss finite, step time, tokens/s, bound and peak
+     memory; the resume check (``TRAIN_RESUME``: 6 steps straight
+     against 3 + 3 with a restart from the checkpoint, losses within
+     ``RESUME_TOL``); every other config at its reduced config for 2
+     steps (``TRAIN_OTHERS``), mamba2-2.7b refused with the named
+     no-``ssd_chunk``-backward error (``TRAIN_REFUSED``).
 
 Output lines: the card's name and power limit (nvidia-smi), phase times,
 ptxas's registers and spills per kernel (gather_mlp, hub_reuse and
 ssd_chunk must not spill), the counts of HGMMA (wgmma) and HMMA
-(mma.sync) instructions in the built flash_attention library and of TF32
+(mma.sync) instructions in the built flash_attention library, of HMMA in
+flash_attention_bwd's and of TF32
 HMMA instructions in the gather_mlp, hub_reuse and ssd_chunk ones,
 ``parity``,
 ``per_cloud`` and ``entry_parity``
@@ -110,14 +128,19 @@ and power limit), ``plan_forward`` lines and ``mesorasi``, a ``family``
 line per model and ``wide_parity``, a
 an ``lm`` line
 per LM config (its routes, launches, prefill and decode times, beside the
-card's name and power limit), ``lm_parity``, a ``kernels`` JSON
+card's name and power limit), ``lm_parity``, a ``bwd_kernel`` line per
+backward layer, ``train_wiring``, ``train`` (beside the card's name and
+power limit), ``train_resume``, a ``train_other`` line per config, the
+trainer's own lines (``train: step N: ...``), ``train_parity``, a
+``kernels`` JSON
 line (every TPU kernel's counterpart: the FC kernels batched and per
 cloud, gather_mlp's wide route, the entry kernels, and flash_attention
 and ssd_chunk at the LM prefills' inputs; ``launches`` counted per
 wrapper, in the async serving run for the FC kernels, over the families
 phase's counted forwards for the wide route, in the entry phase for the
 entry kernels' rows (``lm_launches`` beside them: the LM phase's counted
-prefills) and in the LM phase for its rows), and last ``{"ok": true,
+prefills), in the LM phase for its rows and in the full-width training
+run for ``flash_attention_bwd``'s), and last ``{"ok": true,
 "device": {...}}``.
 """
 from __future__ import annotations
@@ -317,6 +340,44 @@ LM_ONCE_RUN = dict(b=1, s=512, steps=4, cache_len=64)
 LM_CLI = ("--arch", "olmo-1b", "--batch", "4", "--prompt-len", "32",
           "--gen", "16", "--cache-len", "64")
 
+# phase 9, the trainer.  flash_attention's backward kernel at the layers
+# that train through it, (name, layer, dtype): olmo-1b's (one of its
+# microbatches, B = 2 × 2048) in bf16 and f32, a Qwen2-72B layer (GQA 64 /
+# 8), Whisper-large-v3's encoder (non-causal, 1500 frames, 20 heads of
+# 64) and a gemma-7b layer (D = 256) in f32; held against
+# attention_bwd_ref on the same inputs: f32 max|Δ| <= 1e-4 · max(1,
+# max|ref|) per output (3xTF32, sums in another order), bf16 ‖Δ‖/‖ref‖ <=
+# 2e-2 (P and dS rounded to bf16 before their products)
+BWD_LAYERS = (
+    ("olmo_1b", dict(b=2, hq=16, hkv=16, s=2048, d=128, causal=True),
+     "bfloat16"),
+    ("olmo_1b", dict(b=2, hq=16, hkv=16, s=2048, d=128, causal=True),
+     "float32"),
+    ("qwen2_72b", dict(b=1, hq=64, hkv=8, s=2048, d=128, causal=True),
+     "bfloat16"),
+    ("whisper_large_v3_encoder", dict(b=2, hq=20, hkv=20, s=1500, d=64,
+                                      causal=False), "bfloat16"),
+    ("gemma_7b", dict(b=1, hq=16, hkv=16, s=2048, d=256, causal=True),
+     "float32"))
+BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# the gradient wiring: olmo-1b at full width cut to 2 layers, f32, every
+# leaf's grad through the kernels against the plain route's (a detached
+# attention would leave the q/k/v projections' grads zero)
+TRAIN_WIRING = dict(layers=2, b=2, s=512)
+WIRING_TOL = 1e-3
+# the trainer at full width: olmo-1b as published (16 layers, d 2048,
+# vocab 50304, bf16 params, f32 AdamW state, remat), 4 × 2048 tokens a
+# step in 2 microbatches, 8 steps; then the resume check at full width
+# cut to 2 layers (6 steps straight against 3 + 3 with a restart, losses
+# within 1e-6 as tests/test_train_ckpt.py asks of JAX) and every other
+# config at its reduced config, 2 steps (mamba2-2.7b must refuse: no
+# ssd_chunk backward yet)
+TRAIN_MAIN = dict(arch="olmo-1b", b=4, s=2048, microbatches=2, steps=8)
+TRAIN_RESUME = dict(arch="olmo-1b", layers=2, b=2, s=512, steps=6,
+                    ckpt_every=3)
+RESUME_TOL = 1e-6
+TRAIN_OTHERS = dict(b=2, s=64, steps=2)
+TRAIN_REFUSED = {"mamba2-2.7b": "no ssd_chunk backward"}
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -728,7 +789,7 @@ def serve_phase(spec, engine, reference, params, seed, smi,
     buckets = BucketSet.make(bucket_sizes, batch=batch)
     events, clouds, keys = trace_requests(seed, trace)
     n_blocks = len(spec.blocks)
-    off_path = ("knn", "flash_attention", "ssd_chunk")
+    off_path = ("knn", "flash_attention", "flash_attention_bwd", "ssd_chunk")
     times = {}
 
     def check_launches(name, launches, primary_runs):
@@ -899,7 +960,7 @@ def families_phase(dev, seed, smi) -> int:
     from repro_torch import kernels
     from repro_torch.engine import PCNEngine
     from repro_torch.models import MODEL_ZOO
-    off_path = ("knn", "flash_attention", "ssd_chunk")
+    off_path = ("knn", "flash_attention", "flash_attention_bwd", "ssd_chunk")
     wide_launches = 0
     for name, (b, n) in FAMILIES.items():
         spec = MODEL_ZOO[name][1]
@@ -1101,7 +1162,7 @@ def ds_variants_phase(params, batch, smi) -> None:
     from repro_torch.core.workload import COUNTERS, WorkloadReport
     from repro_torch.engine import PCNEngine, apply_with_reports
     from repro_torch.models.pointnet2 import POINTNET2_C
-    off_path = ("knn", "flash_attention", "ssd_chunk")
+    off_path = ("knn", "flash_attention", "flash_attention_bwd", "ssd_chunk")
     rows = {}
     for name, (sampler, neighbor, kw) in DS_VARIANTS.items():
         spec = replace(POINTNET2_C, blocks=tuple(
@@ -1183,7 +1244,7 @@ def counted_forward(engine, params, batch):
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
     check(not any(counts[k] for k in ("knn", "flash_attention",
-                                      "ssd_chunk")),
+                                      "flash_attention_bwd", "ssd_chunk")),
           f"an entry kernel launched in an FC forward: {counts}")
     check({k: counts[k] for k in ("gather_mlp", "hub_reuse")}
           == expected_launches(cap),
@@ -1740,7 +1801,8 @@ def entry_phase(dev, seed, spec, batch):
     launches = kernels.launch_counts()
     want = {"gather_mlp": 0, "hub_reuse": 0,
             "knn": sum(len(calls) for calls in knn_sets.values()),
-            "flash_attention": len(qkv), "ssd_chunk": len(ssd_args)}
+            "flash_attention": len(qkv), "flash_attention_bwd": 0,
+            "ssd_chunk": len(ssd_args)}
     check(launches == want, f"entry phase launches {launches}, expected "
           f"one a call: {want}")
     routes = {v: kernels.LAUNCHES[f"flash_attention_{v}"]
@@ -2208,12 +2270,351 @@ def lm_phase(dev, seed, smi) -> tuple[dict, list, list]:
     return total, parity, rows
 
 
+def bwd_flops(b, hq, sq, skv, d, causal) -> float:
+    """The gradient's five products (S, dP, dV, dK, dQ): 2.5× the
+    forward's two, over the visible pairs."""
+    return 2.5 * flash_flops(b, hq, sq, skv, d, causal)
+
+
+def bwd_row(name: str, f: dict, dtype, dev, seed: int):
+    """flash_attention_backward at an attention layer ``f`` (b, hq, hkv,
+    s, d, causal): q, k, v and dO drawn from ``seed``, o from the forward
+    kernel; dq, dk, dv held against ``attention_bwd_ref`` on the same
+    inputs (``BWD_TOL``), then kernel, plain version and SDPA's backward
+    (the library, timed only: autograd of one SDPA call, its graph kept)
+    timed in turns.  -> (parity row, ``kernels`` row without launches)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import BUILD_LOG
+    from repro_torch.kernels.flash_attention import (
+        attention_bwd_ref, flash_attention, flash_attention_backward)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    causal = f["causal"]
+    q, k, v = (torch.randn((f["b"], h, f["s"], f["d"]), generator=gen,
+                           device=dev).to(dtype)
+               for h in (f["hq"], f["hkv"], f["hkv"]))
+    o = flash_attention(q, k, v, causal=causal)
+    do = torch.randn(o.shape, generator=gen, device=dev).to(dtype)
+    got = flash_attention_backward(q, k, v, o, do, causal)
+    want = attention_bwd_ref(q, k, v, o, do, causal)
+    again = flash_attention_backward(q, k, v, o, do, causal)
+    torch.cuda.synchronize()
+    label = str(dtype).replace("torch.", "")
+    errs = {}
+    for part, x, y, z in zip(("dq", "dk", "dv"), got, want, again):
+        check(bool(torch.isfinite(x).all()),
+              f"flash_attention_bwd {name} {label} {part}: non-finite")
+        check(torch.equal(x, z), f"flash_attention_bwd {name} {label} "
+              f"{part}: two calls differ (the kernel has no atomics)")
+        e = flash_err(x, y)
+        e["scale"] = max(1.0, y.float().abs().max().item())
+        errs[part] = e
+        if dtype == torch.float32:
+            check(e["max_abs_err"] <= BWD_TOL[label] * e["scale"],
+                  f"flash_attention_bwd {name} f32 {part}: {e}, limit "
+                  f"{BWD_TOL[label]} · max(1, max|ref|)")
+        else:
+            check(e["rel_err"] <= BWD_TOL[label],
+                  f"flash_attention_bwd {name} bf16 {part}: {e}, limit "
+                  f"‖Δ‖/‖ref‖ {BWD_TOL[label]}")
+    del want, again
+    free_card()
+    fns = {"plain": lambda: attention_bwd_ref(q, k, v, o, do, causal),
+           "kernel": lambda: flash_attention_backward(q, k, v, o, do,
+                                                      causal)}
+    refused = None
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    try:
+        lib_out = F.scaled_dot_product_attention(*leaves, is_causal=causal,
+                                                 enable_gqa=True)
+        fns["library"] = lambda: torch.autograd.grad(
+            lib_out, leaves, do, retain_graph=True)
+        fns["library"]()
+    except RuntimeError as err:        # no SDPA backend takes the call
+        refused = str(err).splitlines()[0]
+        fns.pop("library", None)
+    t = time_turns(fns, iters=5)
+    flops = bwd_flops(f["b"], f["hq"], f["s"], f["s"], f["d"], causal)
+    moved = nbytes(q, k, v, o, do, *got)
+    extra = {}
+    if dtype == torch.bfloat16:
+        bms, by = bound(flops, moved, PEAK_BF16)
+    else:
+        bms, by = bound(3 * flops, moved, PEAK_TF32)
+        extra["bound_fp32_ms"] = bound(flops, moved)[0]
+    if refused:
+        extra["library_refused"] = refused
+    shape = (f"B={f['b']} Hq={f['hq']} Hkv={f['hkv']} Sq=Skv={f['s']} "
+             f"D={f['d']} {'causal' if causal else 'non-causal'} {label}")
+    parity = dict(name="flash_attention_bwd", shape=shape,
+                  tol=BWD_TOL[label], **errs)
+    row = dict(
+        name="flash_attention_bwd", block=f"{name}_{label}", route="cuda",
+        source="src/repro_torch/csrc/flash_attention_bwd.cu",
+        replaces="src/repro/kernels/flash_attention/flash_attention.py:77",
+        shape=shape, tflops=flops / t["kernel"] / 1e9,
+        max_abs_err=max(e["max_abs_err"] for e in errs.values()),
+        rel_err=max(e["rel_err"] for e in errs.values()), ms=t["kernel"],
+        plain_ms=t["plain"], bound_ms=bms, bound_by=by,
+        share=bms / t["kernel"], library_ms=t.get("library"),
+        spill_bytes=spilled_bytes(BUILD_LOG["flash_attention_bwd"]),
+        **extra)
+    del q, k, v, o, do, got, leaves, fns
+    free_card()
+    return parity, row
+
+
+def grad_wiring(dev, seed) -> dict:
+    """olmo-1b at full width cut to ``TRAIN_WIRING``'s layers, float32:
+    every leaf's gradient through the kernel route (flash forward and
+    backward kernels, counted) against the plain route's, max|Δ| <=
+    ``WIRING_TOL`` · max(1, max|plain|) per leaf."""
+    import dataclasses
+
+    import torch
+    from repro_torch import kernels, tree
+    from repro_torch.configs import get_config
+    from repro_torch.lm import model_zoo as zoo
+    from repro_torch.lm.steps import loss_and_grads
+    w = TRAIN_WIRING
+    cfg = dataclasses.replace(get_config("olmo-1b"), n_layers=w["layers"],
+                              dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = zoo.init(gen, cfg, dev)
+    batch = lm_batch(cfg, w["b"], w["s"], gen, dev)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    got = loss_and_grads(cfg, params, batch)[2]
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    want_l = {**dict.fromkeys(launches, 0), **zoo.train_launches(cfg, 1)}
+    check(launches == want_l, f"train wiring: launches {launches}, "
+          f"train_launches {want_l}")
+    with plain_route():
+        want = loss_and_grads(cfg, params, batch)[2]
+    worst, worst_path = 0.0, None
+    for path, g, p in zip(tree.paths(params), got, want):
+        err = (g - p).abs().max().item()
+        ratio = err / (WIRING_TOL * max(1.0, p.abs().max().item()))
+        if ratio > worst:
+            worst, worst_path = ratio, path
+        check(ratio <= 1.0, f"train wiring: {path} grads off the plain "
+              f"route's by {err} (limit {WIRING_TOL} · max(1, max|plain|))")
+    line = dict(train_wiring="olmo-1b", n_layers=cfg.n_layers,
+                batch=w["b"], seq=w["s"], dtype="float32", leaves=len(got),
+                launches={k: v for k, v in launches.items() if v},
+                worst_share_of_limit=worst, worst_leaf=worst_path,
+                tol=WIRING_TOL)
+    del params, batch, got, want
+    free_card()
+    return line
+
+
+@contextlib.contextmanager
+def cut_layers(n_layers):
+    """``launch.train``'s configs cut to ``n_layers`` (None: as
+    published) for the block's duration."""
+    import dataclasses
+
+    from repro_torch.launch import train as train_mod
+    saved = train_mod.get_config
+    if n_layers is not None:
+        train_mod.get_config = lambda arch, reduced=False: dataclasses.replace(
+            saved(arch, reduced=reduced), n_layers=n_layers)
+    try:
+        yield
+    finally:
+        train_mod.get_config = saved
+
+
+def run_train(argv, n_layers=None) -> tuple[list, list, dict]:
+    """``launch.train.main(argv)`` in this process with the launch counts
+    set to 0 just before and read just after, its lines logged.  -> (the
+    losses, each step's seconds (its ``dt=``), launches)."""
+    import io
+
+    import torch
+    from repro_torch import kernels
+    from repro_torch.launch import train as train_mod
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with cut_layers(n_layers), contextlib.redirect_stdout(out):
+        losses = train_mod.main(list(argv))
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    dts = []
+    for line in out.getvalue().splitlines():
+        log(f"train: {line}")
+        m = re.search(r"dt=([0-9.]+)s", line)
+        if m:
+            dts.append(float(m.group(1)))
+    return losses, dts, launches
+
+
+def train_bound(cfg, b, s) -> dict:
+    """The least time one train step could take: its products (the
+    forward, the backward's twice that, and under remat the forward again;
+    2 flops a weight a token, the tied head over every position, q·kᵀ and
+    p·v over the causal pairs) at the bf16 peak, against its inputs read
+    once and its outputs written once at the HBM rate (params in bf16, m
+    and v in f32, each read and written)."""
+    n = cfg.param_counts()["total"]
+    fwd = (2 * b * s * n
+           + 4 * b * cfg.n_heads * cfg.hd * cfg.n_layers * s * (s + 1) / 2)
+    flops = fwd * (4 if cfg.remat else 3)
+    moved = 2 * (2 + 4 + 4) * n
+    ms, by = bound(flops, moved, PEAK_BF16)
+    return dict(step_flops=flops, step_bytes=moved, bound_ms=ms,
+                bound_by=by)
+
+
+def train_full(seed, smi) -> tuple[dict, dict]:
+    """The trainer at full width (``TRAIN_MAIN``): every loss finite, the
+    counted launches equal to ``train_launches`` a step, the median step
+    time over the steps after the first two, tokens/s, the bound and its
+    share, peak memory.  -> (the ``train`` line, launches)."""
+    import statistics
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.lm import model_zoo as zoo
+    r = TRAIN_MAIN
+    cfg = get_config(r["arch"])
+    argv = ("--arch", r["arch"], "--steps", str(r["steps"]), "--batch",
+            str(r["b"]), "--seq", str(r["s"]), "--microbatches",
+            str(r["microbatches"]), "--seed", str(seed))
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses, dts, launches = run_train(argv)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    check(len(losses) == r["steps"] and all(
+        x == x and abs(x) != float("inf") for x in losses),
+        f"train {r['arch']}: losses {losses}")
+    per_step = zoo.train_launches(cfg, r["microbatches"])
+    want = {**dict.fromkeys(launches, 0),
+            **{k: r["steps"] * v for k, v in per_step.items()}}
+    check(launches == want, f"train {r['arch']}: launches {launches}, "
+          f"train_launches × steps {want}")
+    med = statistics.median(dts[2:])
+    bnd = train_bound(cfg, r["b"], r["s"])
+    line = dict(train=r["arch"], n_layers=cfg.n_layers, reduced=[],
+                batch=r["b"], seq=r["s"], microbatches=r["microbatches"],
+                steps=r["steps"], losses=losses, step_s=dts,
+                median_step_ms=med * 1e3,
+                tokens_per_s=r["b"] * r["s"] / med, **bnd,
+                share=bnd["bound_ms"] / (med * 1e3),
+                peak_memory_gb=peak / 1e9, wall_s=wall,
+                launches={k: v for k, v in launches.items() if v},
+                launches_per_step=per_step, card=smi)
+    return line, launches
+
+
+def train_resume(seed) -> dict:
+    """``TRAIN_RESUME`` straight and cut in two with a restart from the
+    checkpoint: the same losses (|Δ| <= ``RESUME_TOL``)."""
+    import tempfile
+    r = TRAIN_RESUME
+    base = ("--arch", r["arch"], "--batch", str(r["b"]), "--seq",
+            str(r["s"]), "--ckpt-every", str(r["ckpt_every"]), "--seed",
+            str(seed))
+    half = r["steps"] // 2
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        ref, _, _ = run_train(base + ("--steps", str(r["steps"]), "--ckpt",
+                                      os.path.join(d, "ref")), r["layers"])
+        part1, _, _ = run_train(base + ("--steps", str(half), "--ckpt",
+                                        os.path.join(d, "run")), r["layers"])
+        part2, _, _ = run_train(base + ("--steps", str(r["steps"]),
+                                        "--ckpt", os.path.join(d, "run")),
+                                r["layers"])
+        wall = time.perf_counter() - t0
+    worst = max(abs(a - b) for a, b in zip(ref, part1 + part2))
+    line = dict(train_resume=r["arch"], n_layers=r["layers"], batch=r["b"],
+                seq=r["s"], straight=ref, resumed=part1 + part2,
+                max_abs_diff=worst, tol=RESUME_TOL, wall_s=wall)
+    check(len(part1) == half and len(part2) == r["steps"] - half,
+          f"train resume: {len(part1)} + {len(part2)} steps")
+    check(worst <= RESUME_TOL, f"train resume: losses off the "
+          f"uninterrupted run's by {worst}: {line}")
+    return line
+
+
+def train_others() -> list:
+    """Every other config at its reduced config in bf16 (``TRAIN_OTHERS``):
+    losses finite and the launches ``train_launches`` names; mamba2-2.7b
+    must raise the named no-``ssd_chunk``-backward error."""
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.kernels import NoBackwardError
+    from repro_torch.lm import model_zoo as zoo
+    r = TRAIN_OTHERS
+    lines = []
+    for arch in ARCH_IDS:
+        if arch == TRAIN_MAIN["arch"]:
+            continue
+        argv = ("--arch", arch, "--reduced", "--steps", str(r["steps"]),
+                "--batch", str(r["b"]), "--seq", str(r["s"]))
+        cfg = get_config(arch, reduced=True)
+        if arch in TRAIN_REFUSED:
+            try:
+                run_train(argv)
+            except NoBackwardError as err:
+                msg = str(err)
+            else:
+                msg = None
+            check(msg is not None and TRAIN_REFUSED[arch] in msg,
+                  f"train {arch}: expected NoBackwardError naming "
+                  f"'{TRAIN_REFUSED[arch]}', got {msg}")
+            lines.append(dict(train_other=arch, refused=msg))
+            continue
+        t0 = time.perf_counter()
+        losses, dts, launches = run_train(argv)
+        want = {**dict.fromkeys(launches, 0), **{
+            k: r["steps"] * v for k, v in zoo.train_launches(cfg).items()}}
+        check(all(x == x and abs(x) != float("inf") for x in losses),
+              f"train {arch}: losses {losses}")
+        check(launches == want, f"train {arch}: launches {launches}, "
+              f"train_launches × steps {want}")
+        lines.append(dict(train_other=arch, dtype=cfg.dtype,
+                          losses=losses, step_s=dts,
+                          launches={k: v for k, v in launches.items() if v},
+                          wall_s=time.perf_counter() - t0))
+    return lines
+
+
+def train_phase(dev, seed, smi) -> tuple[dict, list, list]:
+    """Phase 9, the trainer: the backward kernel held and timed at the
+    ``BWD_LAYERS``; the gradient wiring; the trainer at full width
+    (counted: the phase's launches); the resume check; the other
+    configs.  -> (launches of the full-width run, parity rows, ``kernels``
+    rows without launches)."""
+    import torch
+    parity, rows = [], []
+    for name, f, dtype in BWD_LAYERS:
+        p_row, k_row = bwd_row(name, f, getattr(torch, dtype), dev, seed)
+        parity.append(p_row)
+        rows.append(k_row)
+        log(json.dumps({"bwd_kernel": k_row}))
+    log(json.dumps(grad_wiring(dev, seed)))
+    line, launches = train_full(seed, smi)
+    log(json.dumps(line))
+    log(json.dumps(train_resume(seed)))
+    for other in train_others():
+        log(json.dumps(other))
+    return launches, parity, rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="also trace one lpcn forward with torch.profiler")
     args = ap.parse_args()
+    # the trainer's deterministic cuBLAS: a fixed workspace, which cuBLAS
+    # takes only if it is set before its first call in the process
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
     import torch
     if not torch.cuda.is_available():
@@ -2251,6 +2652,10 @@ def main() -> int:
         f"instructions")
     check(hgmma > 0, "the flash_attention library has no HGMMA (wgmma)")
     check(hmma > 0, "the flash_attention library has no HMMA (mma.sync)")
+    hmma = sass_count("flash_attention_bwd", "HMMA")
+    log(f"sass flash_attention_bwd: {hmma} HMMA instructions")
+    check(hmma > 0, "the flash_attention_bwd library has no HMMA "
+          "(mma.sync)")
     for name in ("gather_mlp", "hub_reuse", "ssd_chunk"):
         check(spilled_bytes(kernels.BUILD_LOG[name]) == 0,
               f"ptxas reports spills in {name}")
@@ -2367,6 +2772,15 @@ def main() -> int:
         f"{lm_launches}")
     log(json.dumps({"lm_parity": lm_parity}))
 
+    # ---- the LM trainer: flash_attention's backward, olmo-1b ------------
+    t = time.perf_counter()
+    train_launches, train_parity, train_rows = train_phase(
+        dev, args.seed, smi.splitlines()[0])
+    phases["train_s"] = time.perf_counter() - t
+    log(f"train_s {phases['train_s']:.2f}; launches of the full-width run "
+        f"{train_launches}")
+    log(json.dumps({"train_parity": train_parity}))
+
     # the per-cloud entries (B = 1) are the same kernels: each wrapper
     # counts its kernel's launches whatever the shape
     rows += per_cloud
@@ -2378,7 +2792,9 @@ def main() -> int:
         row["lm_launches"] = lm_launches[row["name"]]
     for row in lm_rows:
         row["launches"] = lm_launches[row["name"]]
-    rows += wide_rows + entry_rows + lm_rows
+    for row in train_rows:
+        row["launches"] = train_launches[row["name"]]
+    rows += wide_rows + entry_rows + lm_rows + train_rows
     log(json.dumps({"phases_s": phases}))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

@@ -1,1 +1,2 @@
-"""Synthetic data (the port's copy of ``repro.data``)."""
+"""Synthetic data and the token stream (the port's copy of
+``repro.data``)."""

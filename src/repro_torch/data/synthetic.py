@@ -1,5 +1,5 @@
-"""Synthetic point clouds (the port's copy of ``repro.data.synthetic``'s
-cloud and dataset generators).
+"""Synthetic point clouds and token batches (the port's copy of
+``repro.data.synthetic``).
 
 The public datasets (ModelNet40 and the rest) are not available offline,
 so clouds are surface-sampled from composited geometric primitives
@@ -100,3 +100,11 @@ def make_dataset(name: str, n_clouds: int, seed: int = 0):
         feats = clouds.copy()
     labels = rng.integers(0, n_cls, n_clouds).astype(np.int32)
     return clouds, feats, labels
+
+
+def token_batch(step: int, batch: int, seq_len: int, vocab: int,
+                seed: int = 0) -> np.ndarray:
+    """Deterministic token batch for step `step` (resumable by
+    construction: content is a pure function of (seed, step))."""
+    rng = np.random.default_rng(np.uint64(seed) + np.uint64(step) * 2654435761)
+    return rng.integers(0, vocab, (batch, seq_len), dtype=np.int32)

@@ -25,6 +25,8 @@ import threading
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -46,6 +48,24 @@ def count_launch(*names: str) -> None:
     with _LOCK:
         for name in names:
             LAUNCHES[name] += 1
+
+
+class NoBackwardError(RuntimeError):
+    """A kernel that has no backward was called on the card where autograd
+    would need its gradient."""
+
+
+def refuse_grad(name: str, tensors, item: str) -> None:
+    """Raise :class:`NoBackwardError` when grad is enabled and one of
+    ``tensors`` requires it: a kernel without a backward must not hand
+    autograd a result detached from its inputs.  ``item`` names the
+    ROADMAP item that brings the backward."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise NoBackwardError(
+            f"{name}: no {name} backward kernel: it cannot run under "
+            f"autograd on the card ({item}); run it under torch.no_grad() "
+            f"or on CPU tensors, whose plain version has a gradient")
 
 
 def _nvcc() -> str:

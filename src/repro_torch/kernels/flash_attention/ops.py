@@ -1,7 +1,10 @@
-"""Wrapper of the flash_attention CUDA kernels (``csrc/flash_attention.cu``).
+"""Wrappers of the flash_attention CUDA kernels: the forward
+(``csrc/flash_attention.cu``) and its gradient
+(``csrc/flash_attention_bwd.cu``), joined by :class:`FlashAttentionFn`.
 
-A CPU tensor takes the plain PyTorch version (:func:`attention_ref`); a
-CUDA tensor launches the kernel that :func:`_variant` names or raises.
+A CPU tensor takes the plain PyTorch versions (:func:`attention_ref`,
+:func:`attention_bwd_ref`); a CUDA tensor launches the kernel (the forward
+the one that :func:`_variant` names) or raises.
 """
 from __future__ import annotations
 
@@ -10,7 +13,7 @@ import ctypes
 import torch
 
 from .. import _build
-from .ref import attention_ref
+from .ref import attention_bwd_ref, attention_ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 MAX_D = 256
@@ -25,6 +28,15 @@ def _declare(lib):
 
 def _lib():
     return _build.load("flash_attention", _declare)
+
+
+def _declare_bwd(lib):
+    lib.flash_attention_backward.argtypes = [_P] * 10 + [_I] * 8 + [_P]
+    lib.flash_attention_backward.restype = _I
+
+
+def _lib_bwd():
+    return _build.load("flash_attention_bwd", _declare_bwd)
 
 
 def _variant(dtype, d: int, ptrs=()) -> str:
@@ -43,6 +55,103 @@ def _variant(dtype, d: int, ptrs=()) -> str:
 
 
 def flash_attention(q, k, v, causal: bool = True):
+    """Attention forward, GQA-aware, differentiable: where grad is enabled
+    and an input requires it, the call goes through
+    :class:`FlashAttentionFn`, whose backward is
+    :func:`flash_attention_backward`; otherwise the forward runs alone.
+
+    q (B, Hq, Sq, D); k, v (B, Hkv, Skv, D) with Hq % Hkv == 0; float32 or
+    bfloat16, all of one dtype.  -> (B, Hq, Sq, D) in q's dtype (see
+    :func:`_forward`)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttentionFn.apply(q, k, v, causal)
+    return _forward(q, k, v, causal)
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """flash_attention with its gradient: the forward kernel, and the
+    backward kernel on the saved q, k, v and output (the plain versions
+    on CPU tensors)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        out = _forward(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, out, do.contiguous(),
+                                              ctx.causal)
+        return dq, dk, dv, None
+
+
+def _check_heads(name, q, k):
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError(f"{name}: q and k must be 4-d, got "
+                         f"{tuple(q.shape)} and {tuple(k.shape)}")
+    hq, hkv = q.shape[1], k.shape[1]
+    if hkv < 1 or hq % hkv:
+        raise ValueError(f"{name}: Hq={hq} is not a multiple of Hkv={hkv}")
+
+
+def flash_attention_backward(q, k, v, o, do, causal: bool = True):
+    """The gradient of :func:`flash_attention`: q (B, Hq, Sq, D), k, v
+    (B, Hkv, Skv, D), its output ``o`` and the output's gradient ``do``
+    (B, Hq, Sq, D), all float32 or all bfloat16.  -> (dq, dk, dv) in
+    their inputs' dtype: P recomputed from q and k in float32 (the
+    log-sum-exp rebuilt, not taken from the forward), dS = P ∘ (dO·vᵀ −
+    rowsum(dO ∘ O)), dq = dS·k/sqrt(D), dk and dv summed over each kv
+    head's query heads.  On a CUDA device D <= 256 and every operand
+    contiguous; two launches, no atomics (the same inputs give the same
+    bits)."""
+    _check_heads("flash_attention_backward", q, k)
+    if q.device.type == "cpu":
+        return attention_bwd_ref(q, k, v, o, do, causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_backward: unsupported device "
+                         f"{q.device}")
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    want = {"k": (b, hkv, skv, d), "v": (b, hkv, skv, d),
+            "o": (b, hq, sq, d), "do": (b, hq, sq, d)}
+    ops = {"q": q, "k": k, "v": v, "o": o, "do": do}
+    for arg, shape in want.items():
+        if tuple(ops[arg].shape) != shape:
+            raise ValueError(f"flash_attention_backward: {arg} has shape "
+                             f"{tuple(ops[arg].shape)}, expected {shape}")
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"flash_attention_backward: dtype {q.dtype}, "
+                         f"expected float32 or bfloat16")
+    if not 0 < d <= MAX_D or skv < 1:
+        raise ValueError(f"flash_attention_backward: the kernel takes "
+                         f"0 < D <= {MAX_D} and Skv >= 1, got D={d}, "
+                         f"Skv={skv}")
+    _build.check_operands("flash_attention_backward", ops, q.device,
+                          dict.fromkeys(ops, q.dtype))
+    dq = torch.empty_like(q)
+    if b * hq * sq == 0:
+        return dq, torch.zeros_like(k), torch.zeros_like(v)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    # log-sum-exp and rowsum(dO ∘ O) per query row, from the dQ pass to
+    # the dK/dV pass
+    scratch = torch.empty((2, b * hq * sq), dtype=torch.float32,
+                          device=q.device)
+    lib = _lib_bwd()
+    code = lib.flash_attention_backward(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        scratch[0].data_ptr(), scratch[1].data_ptr(), b, hq, hkv, sq, skv,
+        d, int(causal), _DTYPES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check_launch(lib, "flash_attention_bwd", code)
+    _build.count_launch("flash_attention_bwd")
+    return dq, dk, dv
+
+
+def _forward(q, k, v, causal: bool = True):
     """Attention forward, GQA-aware.
 
     q (B, Hq, Sq, D); k, v (B, Hkv, Skv, D) with Hq % Hkv == 0; float32 or

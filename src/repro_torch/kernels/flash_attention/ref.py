@@ -18,3 +18,32 @@ def attention_ref(q, k, v, causal: bool = True):
                           device=s.device).tril()
         s = s.masked_fill(~keep, -1e30)
     return (torch.softmax(s, dim=-1) @ vx).to(q.dtype)
+
+
+def attention_bwd_ref(q, k, v, o, do, causal: bool = True):
+    """The gradient of :func:`attention_ref`, written out: -> (dq, dk, dv)
+    in the inputs' dtypes.  P is recomputed from q and k, D_i =
+    rowsum(dO_i ∘ O_i) is taken from the forward's output ``o``, dS =
+    P ∘ (dO·vᵀ − D), and each kv head sums dk and dv over its group of
+    query heads; every product in float32."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    group = hq // hkv
+    scale = d ** -0.5
+    qf, dof = q.float(), do.float()
+    kx = k.float().repeat_interleave(group, dim=1)
+    vx = v.float().repeat_interleave(group, dim=1)
+    s = (qf @ kx.transpose(-1, -2)) * scale
+    if causal:
+        keep = torch.ones((sq, skv), dtype=torch.bool,
+                          device=s.device).tril()
+        s = s.masked_fill(~keep, -1e30)
+    p = torch.softmax(s, dim=-1)
+    dp = dof @ vx.transpose(-1, -2)
+    dsum = (dof * o.float()).sum(-1, keepdim=True)
+    ds = p * (dp - dsum)
+    dq = (ds @ kx) * scale
+    dk = ((ds.transpose(-1, -2) @ qf) * scale).reshape(
+        b, hkv, group, skv, d).sum(2)
+    dv = (p.transpose(-1, -2) @ dof).reshape(b, hkv, group, skv, d).sum(2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

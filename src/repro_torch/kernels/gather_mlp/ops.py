@@ -186,6 +186,8 @@ def gather_mlp(raw, centers, w1, b1, w2, b2, mask=None, *, rows=None,
                                            h=hdim, f=fout), pl)
     if raw.device.type == "cpu":
         return gather_mlp_ref(raw, centers, w1, b1, w2, b2, mask)
+    _build.refuse_grad("gather_mlp", (raw, centers, w1, b1, w2, b2),
+                       "ROADMAP queue 1 item 7: PCN training")
     if single:
         raw, centers = raw[None], centers[None]
         mask = None if mask is None else mask[None]

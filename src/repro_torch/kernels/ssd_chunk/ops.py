@@ -38,6 +38,9 @@ def ssd_chunk(x, B, C, dt, cum):
         return ssd_chunk_ref(x, B, C, dt, cum)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_chunk: unsupported device {x.device}")
+    _build.refuse_grad("ssd_chunk", (x, B, C, dt, cum),
+                       "ROADMAP queue 2: the ssd_chunk backward "
+                       "kernel and Mamba-2 training on the card")
     if x.dim() != 5:
         raise ValueError(f"ssd_chunk: x has shape {tuple(x.shape)}, "
                          f"expected (bs, nc, q, H, P)")

@@ -93,6 +93,20 @@ def prefill_launches(cfg: ArchConfig) -> dict:
             "ssd_chunk": mixers.count("ssd")}
 
 
+def train_launches(cfg: ArchConfig, microbatches: int = 1) -> dict:
+    """The kernel launches of one ``steps.make_train_step`` step on the
+    card: each microbatch runs the prefill's forward launches (the head
+    aside, which launches nothing) and, under ``cfg.remat``, runs them
+    again in the backward, and one ``flash_attention_bwd`` a
+    ``flash_attention`` forward it differentiates.  An ``ssd_chunk`` layer
+    raises on the card under grad (no backward yet)."""
+    fwd = prefill_launches(cfg)
+    runs = microbatches * (2 if cfg.remat else 1)
+    return {"flash_attention": runs * fwd["flash_attention"],
+            "flash_attention_bwd": microbatches * fwd["flash_attention"],
+            "ssd_chunk": runs * fwd["ssd_chunk"]}
+
+
 def decode_fn(cfg: ArchConfig, params, token, cache, pos: int):
     if cfg.family == "audio":
         return whi.decode_step(cfg, params, token, cache, pos)

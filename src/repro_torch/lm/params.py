@@ -1,5 +1,5 @@
-"""Carry the JAX package's LM params and decode caches across, as numpy
-arrays: nested dicts and lists of arrays become the same nesting of
+"""Carry the JAX package's LM params, decode caches and optimizer state
+across, as numpy arrays: nested dicts and lists of arrays become the same nesting of
 tensors on ``device`` (default: the GPU), each in its own dtype
 (bfloat16 stays bfloat16, int8 codes int8)."""
 from __future__ import annotations
@@ -36,4 +36,12 @@ def lm_cache_from_numpy(tree, device=None) -> list:
     """JAX ``model_zoo.make_cache`` caches (as numpy arrays) -> the
     port's, whose attention caches a decode step then updates in
     place."""
+    return _tree(tree, resolve_device(device))
+
+
+def optim_state_from_numpy(tree, device=None) -> dict:
+    """JAX optimizer state (``optim.adamw.init_state`` / ``adafactor``'s,
+    with ``"ef"`` where seeded; as numpy arrays, the step a 0-d int32)
+    -> the port's, e.g. to start both packages from the same
+    mid-training m, v and step."""
     return _tree(tree, resolve_device(device))

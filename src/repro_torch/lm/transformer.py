@@ -7,13 +7,17 @@ Params are a dict:
   embed (V, D), final_norm {...}, lm_head (D, V) (absent if tied),
   layers: list of per-layer dicts {"norm1", "mixer", "norm2"?, "ffn"?}.
 
-Execution is eager over the layer list.  ``cfg.remat`` (activation
-checkpointing for training) and the JAX package's sharding constraints
-have no effect here.
+Execution is eager over the layer list.  With ``cfg.remat`` and grad
+enabled, each layer runs under ``torch.utils.checkpoint`` (the
+counterpart of ``jax.checkpoint``): its activations are recomputed in the
+backward, so the layer's kernels run twice a training step.  Prefill and
+decode run without grad and are unchanged.  The JAX package's sharding
+constraints have no counterpart here.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from ..nn import attention as attn
@@ -117,6 +121,15 @@ def apply_layer(cfg: ArchConfig, i: int, p: dict, x, positions,
     return x, aux
 
 
+def remat(cfg: ArchConfig, fn, *args):
+    """fn(*args), under ``torch.utils.checkpoint`` where ``cfg.remat`` is
+    set and grad is enabled (its activations recomputed in the
+    backward)."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 def _scale(cfg: ArchConfig, x):
     """Gemma's sqrt(d) input scale, rounded to the model dtype first."""
     if cfg.embed_scale:
@@ -148,7 +161,8 @@ def forward(cfg: ArchConfig, params: dict, tokens=None, embeds=None,
 
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, lp in enumerate(params["layers"]):
-        x, aux = apply_layer(cfg, i, lp, x, positions, prefix_len)
+        x, aux = remat(cfg, apply_layer, cfg, i, lp, x, positions,
+                       prefix_len)
         aux_total = aux_total + aux
     x = nnl.apply_norm(cfg.norm, x, params["final_norm"])
     if head_last_only:

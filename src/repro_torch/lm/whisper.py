@@ -5,7 +5,10 @@ The mel/conv frontend is stubbed: callers supply precomputed frame
 embeddings (B, enc_seq, D).  Encoder: bidirectional attention (the
 ``flash_attention`` kernel, ``causal=False``) + GELU MLP, LayerNorm,
 sinusoidal positions.  Decoder: causal self-attn + cross-attn per layer,
-sinusoidal positions, full softmax vocab 51866.
+sinusoidal positions, full softmax vocab 51866.  With ``cfg.remat`` and
+grad enabled each encoder and decoder layer runs under
+``torch.utils.checkpoint``, as ``jax.checkpoint`` wraps them in the JAX
+package.
 """
 from __future__ import annotations
 
@@ -15,7 +18,7 @@ from ..device import resolve_device
 from ..nn import attention as attn
 from ..nn import layers as nnl
 from .config import ArchConfig
-from .transformer import dtype_of
+from .transformer import dtype_of, remat
 
 DECODE_POSITIONS = 8192   # decode positions wrap modulo this table size
 
@@ -61,12 +64,28 @@ def encode(cfg: ArchConfig, params, frames):
     x = frames + sinusoid(frames.shape[1], cfg.d_model, frames.dtype,
                           frames.device)[None]
     for lp in params["enc_layers"]:
-        h = nnl.apply_norm("ln", x, lp["norm1"])
-        x = x + attn.bidir_attention(lp["mixer"], h, cfg.n_heads, cfg.n_kv,
-                                     cfg.hd)
-        h = nnl.apply_norm("ln", x, lp["norm2"])
-        x = x + nnl.mlp_apply(lp["ffn"], h, "gelu")
+        x = remat(cfg, _enc_layer, cfg, lp, x)
     return nnl.apply_norm("ln", x, params["enc_norm"])
+
+
+def _enc_layer(cfg: ArchConfig, lp, x):
+    h = nnl.apply_norm("ln", x, lp["norm1"])
+    x = x + attn.bidir_attention(lp["mixer"], h, cfg.n_heads, cfg.n_kv,
+                                 cfg.hd)
+    h = nnl.apply_norm("ln", x, lp["norm2"])
+    return x + nnl.mlp_apply(lp["ffn"], h, "gelu")
+
+
+def _dec_layer(cfg: ArchConfig, lp, x, enc, positions):
+    h = nnl.apply_norm("ln", x, lp["norm1"])
+    x = x + attn.causal_attention(lp["self"], h, cfg.n_heads, cfg.n_kv,
+                                  cfg.hd, positions, cfg.rope_theta,
+                                  use_rope=False)
+    h = nnl.apply_norm("ln", x, lp["norm_x"])
+    x = x + attn.cross_attention(lp["cross"], h, enc, cfg.n_heads, cfg.n_kv,
+                                 cfg.hd)
+    h = nnl.apply_norm("ln", x, lp["norm2"])
+    return x + nnl.mlp_apply(lp["ffn"], h, "gelu")
 
 
 def forward(cfg: ArchConfig, params, frames, tokens,
@@ -79,15 +98,7 @@ def forward(cfg: ArchConfig, params, frames, tokens,
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device).expand(b, s)
     for lp in params["dec_layers"]:
-        h = nnl.apply_norm("ln", x, lp["norm1"])
-        x = x + attn.causal_attention(lp["self"], h, cfg.n_heads, cfg.n_kv,
-                                      cfg.hd, positions, cfg.rope_theta,
-                                      use_rope=False)
-        h = nnl.apply_norm("ln", x, lp["norm_x"])
-        x = x + attn.cross_attention(lp["cross"], h, enc, cfg.n_heads,
-                                     cfg.n_kv, cfg.hd)
-        h = nnl.apply_norm("ln", x, lp["norm2"])
-        x = x + nnl.mlp_apply(lp["ffn"], h, "gelu")
+        x = remat(cfg, _dec_layer, cfg, lp, x, enc, positions)
     x = nnl.apply_norm("ln", x, params["dec_norm"])
     if head_last_only:
         x = x[:, -1:, :]

@@ -332,6 +332,85 @@ def test_ssd_chunk_steep_decay_stays_finite():
     assert torch.isfinite(y).all() and torch.isfinite(st).all()
 
 
+# ---- flash_attention's gradient -------------------------------------------
+
+
+_BWD_CASES = [(1, 2, 1, 64, 16, True), (2, 8, 2, 96, 64, True),
+              (2, 8, 2, 96, 16, False), (1, 4, 4, 64, 64, False)]
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d,causal", _BWD_CASES)
+def test_attention_bwd_ref_matches_autograd_and_jax_vjp(b, hq, hkv, s, d,
+                                                        causal):
+    """attention_bwd_ref (the formula written out) against torch autograd
+    of attention_ref and jax.vjp of the JAX package's attention_ref, within
+    1e-5 · max(1, max|ref|), over GQA (8/2), a ragged S = 96 and D in
+    {16, 64}; Sq == Skv, where the two packages' causal masks agree."""
+    import jax
+    import jax.numpy as jnp
+    from repro.kernels.flash_attention.ref import (
+        attention_ref as jattention_ref)
+    from repro_torch.kernels.flash_attention import attention_bwd_ref
+    rng = np.random.default_rng(b * hq + s + d)
+    qkv = _qkv(rng, b, hq, hkv, s, s, d)
+    do = rng.standard_normal((b, hq, s, d)).astype(np.float32)
+    q, k, v = _torch(qkv)
+    out = attention_ref(q, k, v, causal)
+    got = attention_bwd_ref(q, k, v, out, torch.from_numpy(do), causal)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    autograd = torch.autograd.grad(attention_ref(*leaves, causal), leaves,
+                                   torch.from_numpy(do))
+    _, vjp = jax.vjp(lambda *a: jattention_ref(*a, causal=causal),
+                     *(jnp.asarray(a) for a in qkv))
+    for g, a, j in zip(got, autograd, vjp(jnp.asarray(do))):
+        for want in (a.numpy(), np.asarray(j)):
+            lim = 1e-5 * max(1.0, float(np.abs(want).max()))
+            assert float(np.abs(g.numpy() - want).max()) <= lim
+
+
+def test_attention_bwd_ref_bf16_matches_jax_vjp():
+    """bf16 inputs: within 2e-2 · max(1, max|ref|) of jax.vjp on the same
+    bf16 inputs, in bf16."""
+    import jax
+    import jax.numpy as jnp
+    from repro.kernels.flash_attention.ref import (
+        attention_ref as jattention_ref)
+    from repro_torch.kernels.flash_attention import attention_bwd_ref
+    rng = np.random.default_rng(11)
+    qkv = _qkv(rng, 2, 8, 2, 96, 96, 64)
+    do = rng.standard_normal((2, 8, 96, 64)).astype(np.float32)
+    q, k, v = _torch(qkv, torch.bfloat16)
+    dot = torch.from_numpy(do).to(torch.bfloat16)
+    got = attention_bwd_ref(q, k, v, attention_ref(q, k, v), dot)
+    _, vjp = jax.vjp(jattention_ref,
+                     *(jnp.asarray(a, jnp.bfloat16) for a in qkv))
+    for g, j in zip(got, vjp(jnp.asarray(do, jnp.bfloat16))):
+        assert g.dtype == torch.bfloat16
+        want = np.asarray(j, np.float32)
+        lim = 2e-2 * max(1.0, float(np.abs(want).max()))
+        assert float(np.abs(g.float().numpy() - want).max()) <= lim
+
+
+def test_flash_attention_cpu_backward_takes_the_plain_version():
+    """On CPU tensors flash_attention_backward is attention_bwd_ref (no
+    launch counted), and flash_attention under grad has a grad_fn."""
+    from repro_torch.kernels.flash_attention import (
+        attention_bwd_ref, flash_attention_backward)
+    rng = np.random.default_rng(5)
+    q, k, v = _torch(_qkv(rng, 1, 4, 2, 40, 40, 16))
+    o = attention_ref(q, k, v)
+    do = torch.randn_like(o)
+    before = dict(_build.LAUNCHES)
+    for got, want in zip(flash_attention_backward(q, k, v, o, do),
+                         attention_bwd_ref(q, k, v, o, do)):
+        assert torch.equal(got, want)
+    assert dict(_build.LAUNCHES) == before
+    assert flash_attention(q.requires_grad_(), k, v).grad_fn is not None
+    assert flash_attention(q.detach(), k, v).grad_fn is None
+    with pytest.raises(ValueError, match="multiple"):
+        flash_attention_backward(q, k[:, :1].expand(1, 3, 40, 16), v, o, do)
+
+
 # ---- the wrappers ------------------------------------------------------------
 
 
@@ -408,6 +487,21 @@ def test_wrappers_declare_ctypes_signatures_once(monkeypatch, ops, name,
     for fn, argtypes in want.items():
         assert stub.fns[fn].sets == ["argtypes", "restype"]
         assert stub.fns[fn].argtypes == argtypes
+
+
+def test_backward_library_declares_its_ctypes_signature_once(monkeypatch):
+    stub, opened = _StubLib(), []
+    monkeypatch.setattr(_build, "_LIBS", {})
+    monkeypatch.setattr(_build, "_build_locked", lambda names: 0.0)
+    monkeypatch.setattr(_build.ctypes, "CDLL",
+                        lambda path: opened.append(path) or stub)
+    for _ in range(3):
+        assert flash_ops._lib_bwd() is stub
+    assert len(opened) == 1 and "flash_attention_bwd" in opened[0]
+    fn = stub.fns["flash_attention_backward"]
+    assert fn.sets == ["argtypes", "restype"]
+    assert fn.argtypes == [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [
+        ctypes.c_void_p]
 
 
 def test_check_operands_takes_dtypes_from_the_caller():
@@ -574,3 +668,99 @@ def test_ssd_chunk_kernel_refuses_chunks_past_its_limit():
                                                   16))]
     with pytest.raises(ValueError, match="q <= 128"):
         ssd_chunk(*args)
+
+
+# the backward kernel's limits against attention_bwd_ref on the same
+# inputs: f32 max|Δ| <= 1e-4 · max(1, max|ref|) per output (3xTF32, sums
+# in another order); bf16 ‖Δ‖ / ‖ref‖ <= 2e-2 (P and dS rounded to bf16)
+_BWD_SHAPES = (
+    (1, 4, 2, 130, 130, 128, True),     # GQA, a ragged last tile
+    (2, 4, 1, 64, 96, 32, False),       # Sq != Skv, non-causal
+    (1, 2, 2, 64, 128, 80, True),       # causal, Sq != Skv (top-left)
+    (1, 4, 4, 130, 130, 256, True),     # D = 256: two column groups
+    (1, 8, 1, 70, 333, 256, False),     # group 8, ragged Skv
+    (2, 8, 2, 96, 96, 16, True),        # D = 16
+    (1, 2, 1, 40, 40, 36, True),        # D % 8 != 0: scalar copies
+    (1, 6, 2, 200, 200, 64, False),
+)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", _BWD_SHAPES)
+def test_flash_attention_backward_kernel_matches_plain_on_card(shape,
+                                                               dtype):
+    """dq, dk, dv of the kernel against attention_bwd_ref on the same
+    inputs, at an address off 16 bytes too, and two calls bit-equal."""
+    from repro_torch.kernels.flash_attention import (
+        attention_bwd_ref, flash_attention_backward)
+    dev = _cuda()
+    b, hq, hkv, sq, skv, d, causal = shape
+    g = torch.Generator().manual_seed(sum(shape))
+    for off in (0, 1):
+        q, k, v = (_at_offset(torch.randn(s, generator=g).to(dev, dtype),
+                              off)
+                   for s in ((b, hq, sq, d), (b, hkv, skv, d),
+                             (b, hkv, skv, d)))
+        o = flash_attention(q, k, v, causal=causal)
+        do = torch.randn(o.shape, generator=g).to(dev, dtype)
+        before = _build.LAUNCHES["flash_attention_bwd"]
+        got = flash_attention_backward(q, k, v, o, do, causal)
+        assert _build.LAUNCHES["flash_attention_bwd"] == before + 1
+        want = attention_bwd_ref(q, k, v, o, do, causal)
+        for x, y in zip(got, want):
+            assert x.dtype == dtype and bool(torch.isfinite(x).all())
+            if dtype == torch.float32:
+                lim = 1e-4 * max(1.0, y.abs().max().item())
+                assert (x - y).abs().max().item() <= lim
+            else:
+                assert _rel_err(x, y) <= 2e-2
+        again = flash_attention_backward(q, k, v, o, do, causal)
+        assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_flash_attention_grads_go_through_the_backward_kernel():
+    """Autograd through flash_attention on the card launches the backward
+    kernel once and matches autograd through the plain version."""
+    dev = _cuda()
+    g = torch.Generator().manual_seed(3)
+    leaves = [torch.randn(s, generator=g).to(dev).requires_grad_()
+              for s in ((2, 4, 100, 64), (2, 2, 100, 64), (2, 2, 100, 64))]
+    do = torch.randn((2, 4, 100, 64), generator=g).to(dev)
+    before = _build.LAUNCHES["flash_attention_bwd"]
+    got = torch.autograd.grad(flash_attention(*leaves), leaves, do)
+    assert _build.LAUNCHES["flash_attention_bwd"] == before + 1
+    want = torch.autograd.grad(attention_ref(*leaves), leaves, do)
+    for x, y in zip(got, want):
+        assert (x - y).abs().max().item() <= 1e-4 * max(
+            1.0, y.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_kernels_without_a_backward_raise_under_grad_on_card():
+    """ssd_chunk, gather_mlp, hub_reuse and knn refuse an input that
+    requires grad on the card (no detached result, no plain fallback),
+    and run under torch.no_grad()."""
+    from repro_torch.kernels import NoBackwardError
+    from repro_torch.kernels.gather_mlp import gather_mlp
+    from repro_torch.kernels.hub_reuse import hub_reuse
+    dev = _cuda()
+    rng = np.random.default_rng(0)
+    ssd = [t.to(dev) for t in _torch(_ssd_inputs(rng, 1, 2, 16, 2, 8, 16))]
+    ssd[0].requires_grad_()
+    with pytest.raises(NoBackwardError, match="no ssd_chunk backward"):
+        ssd_chunk(*ssd)
+    with torch.no_grad():
+        ssd_chunk(*ssd)
+    pts = torch.randn((64, 3), device=dev, requires_grad=True)
+    with pytest.raises(NoBackwardError, match="no knn backward"):
+        knn(pts, pts, 4)
+    r = lambda *s: torch.randn(s, device=dev)
+    w1 = r(8, 16).requires_grad_()
+    with pytest.raises(NoBackwardError, match="no gather_mlp backward"):
+        gather_mlp(r(2, 4, 8, 8), r(2, 4, 3), w1, r(16), r(16, 8), r(8))
+    slot = torch.zeros((2, 2, 4, 8), dtype=torch.int32, device=dev)
+    with pytest.raises(NoBackwardError, match="no hub_reuse backward"):
+        hub_reuse(r(2, 2, 8, 8), slot, r(2, 2, 4, 8), w1, r(16), r(16, 8),
+                  r(8))
