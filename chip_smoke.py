@@ -90,17 +90,22 @@ Phases, each timed, any failure exits non-zero:
      Then ``python -m repro_torch.launch.serve --arch olmo-1b ...`` in a
      subprocess;
   9. train (``train_phase``): ``flash_attention``'s backward kernel
-     (``csrc/flash_attention_bwd.cu``, built with the others) held
+     (``csrc/flash_attention_bwd.cu``, built with the others; two
+     launches a call, the dQ pass and the dK/dV pass, both counted) held
      against ``attention_bwd_ref`` and timed beside the plain version and
      SDPA's backward (``BWD_LAYERS``: olmo-1b's layer in bf16 and f32,
      Qwen2-72B's, Whisper-large-v3's encoder, gemma-7b's in f32;
      ``BWD_TOL``; two calls bit-equal); olmo-1b at full width cut to 2
      layers in f32, every leaf's gradient through the kernels against the
-     plain route's (``WIRING_TOL``); ``repro_torch.launch.train.main`` on
-     olmo-1b as published, 4 × 2048 tokens in 2 microbatches, 8 steps
-     (``TRAIN_MAIN``), with the launch counts reset (the forward and
-     backward kernels' launches must equal ``model_zoo.train_launches``
-     a step), every loss finite, step time, tokens/s, bound and peak
+     plain route's, each held to its own size (``WIRING_TOL``), and a
+     planted detached attention that must fail that check.  Then, in a
+     subprocess that carries ``TRAIN_ENV`` (``--trainer-runs``):
+     ``repro_torch.launch.train.main`` on olmo-1b as published, 4 × 2048
+     tokens in 2 microbatches, 8 steps (``TRAIN_MAIN``), with the launch
+     counts reset (the forward and backward kernels' launches must equal
+     ``model_zoo.train_launches`` a step), every loss finite, step time
+     and tokens/s over the window after the first two steps, the bound
+     (the forward and backward; remat's recompute beside it) and peak
      memory; the resume check (``TRAIN_RESUME``: 6 steps straight
      against 3 + 3 with a restart from the checkpoint, losses within
      ``RESUME_TOL``); every other config at its reduced config for 2
@@ -361,8 +366,9 @@ BWD_LAYERS = (
      "float32"))
 BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # the gradient wiring: olmo-1b at full width cut to 2 layers, f32, every
-# leaf's grad through the kernels against the plain route's (a detached
-# attention would leave the q/k/v projections' grads zero)
+# leaf's grad through the kernels against the plain route's, max|Δ| <=
+# 1e-3 · max|plain| per leaf (a detached attention leaves the q/k/v
+# projections' grads zero, max|Δ| = max|plain|; the smoke plants one)
 TRAIN_WIRING = dict(layers=2, b=2, s=512)
 WIRING_TOL = 1e-3
 # the trainer at full width: olmo-1b as published (16 layers, d 2048,
@@ -378,6 +384,10 @@ TRAIN_RESUME = dict(arch="olmo-1b", layers=2, b=2, s=512, steps=6,
 RESUME_TOL = 1e-6
 TRAIN_OTHERS = dict(b=2, s=64, steps=2)
 TRAIN_REFUSED = {"mamba2-2.7b": "no ssd_chunk backward"}
+# the trainer's deterministic cuBLAS takes a fixed workspace only if this
+# is set before cuBLAS's first call in the process: the trainer runs in a
+# process of its own that carries it (the earlier phases run without it)
+TRAIN_ENV = {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -2364,16 +2374,34 @@ def bwd_row(name: str, f: dict, dtype, dev, seed: int):
     return parity, row
 
 
+def wiring_ratios(params, got, want) -> dict:
+    """Leaf path -> (max|plain|, max|Δ| / (``WIRING_TOL`` · max|plain|)):
+    each leaf's gradient held to its own size (a ratio above 1 fails)."""
+    from repro_torch import tree
+    out = {}
+    for path, g, p in zip(tree.paths(params), got, want):
+        scale = p.abs().max().item()
+        err = (g - p).abs().max().item()
+        out[path] = (scale, err / (WIRING_TOL * scale) if scale
+                     else (0.0 if err == 0 else float("inf")))
+    return out
+
+
 def grad_wiring(dev, seed) -> dict:
     """olmo-1b at full width cut to ``TRAIN_WIRING``'s layers, float32:
     every leaf's gradient through the kernel route (flash forward and
     backward kernels, counted) against the plain route's, max|Δ| <=
-    ``WIRING_TOL`` · max(1, max|plain|) per leaf."""
+    ``WIRING_TOL`` · max|plain| per leaf.  Then a planted fault: the
+    forward kernel's output detached from q, k and v (what the wrappers
+    returned before ``FlashAttentionFn``) must break that limit on every
+    q/k/v projection."""
     import dataclasses
 
     import torch
-    from repro_torch import kernels, tree
+    from repro_torch import kernels
     from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.ssd_chunk import ssd_chunk
     from repro_torch.lm import model_zoo as zoo
     from repro_torch.lm.steps import loss_and_grads
     w = TRAIN_WIRING
@@ -2392,19 +2420,31 @@ def grad_wiring(dev, seed) -> dict:
           f"train_launches {want_l}")
     with plain_route():
         want = loss_and_grads(cfg, params, batch)[2]
-    worst, worst_path = 0.0, None
-    for path, g, p in zip(tree.paths(params), got, want):
-        err = (g - p).abs().max().item()
-        ratio = err / (WIRING_TOL * max(1.0, p.abs().max().item()))
-        if ratio > worst:
-            worst, worst_path = ratio, path
+    ratios = wiring_ratios(params, got, want)
+    for path, (scale, ratio) in ratios.items():
         check(ratio <= 1.0, f"train wiring: {path} grads off the plain "
-              f"route's by {err} (limit {WIRING_TOL} · max(1, max|plain|))")
+              f"route's by {ratio} of the limit {WIRING_TOL} · max|plain| "
+              f"(max|plain| {scale})")
+    with lm_kernels(lambda q, k, v, causal=True: flash_ops._forward(
+            q, k, v, causal), ssd_chunk):
+        planted = loss_and_grads(cfg, params, batch)[2]
+    planted = wiring_ratios(params, planted, want)
+    qkv = [path for path in ratios if path.rsplit("/", 1)[-1] in
+           ("wq", "wk", "wv")]
+    check(qkv and all(planted[path][1] > 1.0 for path in qkv),
+          f"train wiring: a detached attention passes the check: "
+          f"{ {path: planted[path] for path in qkv} }")
+    worst = max(ratios, key=lambda path: ratios[path][1])
     line = dict(train_wiring="olmo-1b", n_layers=cfg.n_layers,
                 batch=w["b"], seq=w["s"], dtype="float32", leaves=len(got),
                 launches={k: v for k, v in launches.items() if v},
-                worst_share_of_limit=worst, worst_leaf=worst_path,
-                tol=WIRING_TOL)
+                tol=WIRING_TOL, worst_share_of_limit=ratios[worst][1],
+                worst_leaf=worst,
+                max_plain_and_share={p: list(r) for p, r in ratios.items()},
+                planted_detach_failing=sum(r > 1.0 for _, r in
+                                           planted.values()),
+                planted_detach_qkv_least_share=min(planted[p][1]
+                                                   for p in qkv))
     del params, batch, got, want
     free_card()
     return line
@@ -2454,28 +2494,31 @@ def run_train(argv, n_layers=None) -> tuple[list, list, dict]:
 
 def train_bound(cfg, b, s) -> dict:
     """The least time one train step could take: its products (the
-    forward, the backward's twice that, and under remat the forward again;
-    2 flops a weight a token, the tied head over every position, q·kᵀ and
-    p·v over the causal pairs) at the bf16 peak, against its inputs read
-    once and its outputs written once at the HBM rate (params in bf16, m
-    and v in f32, each read and written)."""
+    forward and the backward's twice that; 2 flops a weight a token, the
+    tied head over every position, q·kᵀ and p·v over the causal pairs)
+    at the bf16 peak, against its inputs read once and its outputs
+    written once at the HBM rate (params in bf16, m and v in f32, each
+    read and written).  Remat's second forward of the layers is work the
+    step chooses, not work it must do: it is reported beside the bound
+    (``remat_flops``), not in it."""
     n = cfg.param_counts()["total"]
-    fwd = (2 * b * s * n
-           + 4 * b * cfg.n_heads * cfg.hd * cfg.n_layers * s * (s + 1) / 2)
-    flops = fwd * (4 if cfg.remat else 3)
+    head = cfg.vocab * cfg.d_model
+    attn = 4 * b * cfg.n_heads * cfg.hd * cfg.n_layers * s * (s + 1) / 2
+    flops = 3 * (2 * b * s * n + attn)
     moved = 2 * (2 + 4 + 4) * n
     ms, by = bound(flops, moved, PEAK_BF16)
+    remat = 2 * b * s * (n - head) + attn if cfg.remat else 0
     return dict(step_flops=flops, step_bytes=moved, bound_ms=ms,
-                bound_by=by)
+                bound_by=by, remat_flops=remat)
 
 
 def train_full(seed, smi) -> tuple[dict, dict]:
     """The trainer at full width (``TRAIN_MAIN``): every loss finite, the
-    counted launches equal to ``train_launches`` a step, the median step
-    time over the steps after the first two, tokens/s, the bound and its
-    share, peak memory.  -> (the ``train`` line, launches)."""
-    import statistics
-
+    counted launches equal to ``train_launches`` a step; over the steps
+    after the first two, the step time and tokens/s from the window's
+    summed ``dt`` (each step from its batch's copy to its loss on the
+    host); the bound and its share, peak memory.  -> (the ``train`` line,
+    launches)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.lm import model_zoo as zoo
@@ -2498,14 +2541,15 @@ def train_full(seed, smi) -> tuple[dict, dict]:
             **{k: r["steps"] * v for k, v in per_step.items()}}
     check(launches == want, f"train {r['arch']}: launches {launches}, "
           f"train_launches × steps {want}")
-    med = statistics.median(dts[2:])
+    window = dts[2:]
+    step_s = sum(window) / len(window)
     bnd = train_bound(cfg, r["b"], r["s"])
     line = dict(train=r["arch"], n_layers=cfg.n_layers, reduced=[],
                 batch=r["b"], seq=r["s"], microbatches=r["microbatches"],
                 steps=r["steps"], losses=losses, step_s=dts,
-                median_step_ms=med * 1e3,
-                tokens_per_s=r["b"] * r["s"] / med, **bnd,
-                share=bnd["bound_ms"] / (med * 1e3),
+                window_steps=len(window), step_ms=step_s * 1e3,
+                tokens_per_s=len(window) * r["b"] * r["s"] / sum(window),
+                **bnd, share=bnd["bound_ms"] / (step_s * 1e3),
                 peak_memory_gb=peak / 1e9, wall_s=wall,
                 launches={k: v for k, v in launches.items() if v},
                 launches_per_step=per_step, card=smi)
@@ -2584,12 +2628,28 @@ def train_others() -> list:
     return lines
 
 
+def trainer_runs(seed, smi) -> dict:
+    """The runs of ``launch.train.main`` in this process, which carries
+    ``TRAIN_ENV``: the full-width run, the resume check and the other
+    configs, their lines logged.  -> launches of the full-width run."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    line, launches = train_full(seed, smi)
+    log(json.dumps(line))
+    log(json.dumps(train_resume(seed)))
+    for other in train_others():
+        log(json.dumps(other))
+    return launches
+
+
 def train_phase(dev, seed, smi) -> tuple[dict, list, list]:
     """Phase 9, the trainer: the backward kernel held and timed at the
-    ``BWD_LAYERS``; the gradient wiring; the trainer at full width
-    (counted: the phase's launches); the resume check; the other
-    configs.  -> (launches of the full-width run, parity rows, ``kernels``
-    rows without launches)."""
+    ``BWD_LAYERS``; the gradient wiring; then ``trainer_runs`` in a
+    subprocess that carries ``TRAIN_ENV`` (the earlier phases run without
+    it): the trainer at full width (counted: the phase's launches), the
+    resume check, the other configs.  -> (launches of the full-width run,
+    parity rows, ``kernels`` rows without launches)."""
     import torch
     parity, rows = [], []
     for name, f, dtype in BWD_LAYERS:
@@ -2598,12 +2658,17 @@ def train_phase(dev, seed, smi) -> tuple[dict, list, list]:
         rows.append(k_row)
         log(json.dumps({"bwd_kernel": k_row}))
     log(json.dumps(grad_wiring(dev, seed)))
-    line, launches = train_full(seed, smi)
-    log(json.dumps(line))
-    log(json.dumps(train_resume(seed)))
-    for other in train_others():
-        log(json.dumps(other))
-    return launches, parity, rows
+    free_card()
+    res = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--trainer-runs",
+         "--seed", str(seed)], cwd=ROOT, env={**os.environ, **TRAIN_ENV},
+        capture_output=True, text=True, timeout=600)
+    out = res.stdout.splitlines()
+    for line in out[:-1]:
+        log(line)
+    check(res.returncode == 0 and bool(out), f"the trainer runs exited "
+          f"{res.returncode}:\n{res.stderr[-3000:]}")
+    return json.loads(out[-1])["train_launches"], parity, rows
 
 
 def main() -> int:
@@ -2611,10 +2676,10 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="also trace one lpcn forward with torch.profiler")
+    ap.add_argument("--trainer-runs", action="store_true",
+                    help="phase 9's trainer runs alone (the smoke runs "
+                         "them in a subprocess that carries TRAIN_ENV)")
     args = ap.parse_args()
-    # the trainer's deterministic cuBLAS: a fixed workspace, which cuBLAS
-    # takes only if it is set before its first call in the process
-    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
     import torch
     if not torch.cuda.is_available():
@@ -2628,6 +2693,10 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], check=True,
                          capture_output=True, text=True).stdout.strip()
+    if args.trainer_runs:
+        launches = trainer_runs(args.seed, smi.splitlines()[0])
+        log(json.dumps({"train_launches": launches}))
+        return 0
     log(smi.splitlines()[0])
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

@@ -19,6 +19,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 MAX_D = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _VARIANTS = {"mma": 0, "wgmma": 1}
+# the backward's kernels, each launched once a call, in this order
+BWD_PASSES = ("dq", "dkdv")
 
 
 def _declare(lib):
@@ -55,17 +57,14 @@ def _variant(dtype, d: int, ptrs=()) -> str:
 
 
 def flash_attention(q, k, v, causal: bool = True):
-    """Attention forward, GQA-aware, differentiable: where grad is enabled
-    and an input requires it, the call goes through
-    :class:`FlashAttentionFn`, whose backward is
-    :func:`flash_attention_backward`; otherwise the forward runs alone.
+    """Attention forward, GQA-aware, differentiable through
+    :class:`FlashAttentionFn` (its backward is
+    :func:`flash_attention_backward`).
 
     q (B, Hq, Sq, D); k, v (B, Hkv, Skv, D) with Hq % Hkv == 0; float32 or
     bfloat16, all of one dtype.  -> (B, Hq, Sq, D) in q's dtype (see
     :func:`_forward`)."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return FlashAttentionFn.apply(q, k, v, causal)
-    return _forward(q, k, v, causal)
+    return FlashAttentionFn.apply(q, k, v, causal)
 
 
 class FlashAttentionFn(torch.autograd.Function):
@@ -147,7 +146,9 @@ def flash_attention_backward(q, k, v, o, do, causal: bool = True):
         d, int(causal), _DTYPES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check_launch(lib, "flash_attention_bwd", code)
-    _build.count_launch("flash_attention_bwd")
+    for kernel in BWD_PASSES:
+        _build.count_launch("flash_attention_bwd",
+                            f"flash_attention_bwd_{kernel}")
     return dq, dk, dv
 
 

@@ -69,6 +69,7 @@ def main(argv=None) -> list:
     dev = resolve_device(args.device)
     # cuBLAS takes a fixed workspace only if this is set before its first
     # call in the process
+    workspace = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     was_deterministic = (torch.are_deterministic_algorithms_enabled(),
                          torch.is_deterministic_algorithms_warn_only_enabled())
@@ -78,6 +79,8 @@ def main(argv=None) -> list:
         return _train(args, dev)
     finally:
         signal.signal(signal.SIGTERM, old_handler)
+        if workspace is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
         torch.use_deterministic_algorithms(was_deterministic[0],
                                            warn_only=was_deterministic[1])
 
@@ -118,6 +121,7 @@ def _train(args, dev) -> list:
     dt = dtype_of(cfg)
     losses = []
     for step in range(start_step, args.steps):
+        t0 = time.perf_counter()        # dt: the batch's copy included
         batch = {"tokens": torch.from_numpy(stream.next()).to(dev)}
         if cfg.family == "vlm":
             batch["patches"] = torch.zeros(
@@ -127,7 +131,6 @@ def _train(args, dev) -> list:
             batch["frames"] = 0.01 * torch.ones(
                 (args.batch, cfg.enc_seq, cfg.d_model), dtype=dt,
                 device=dev)
-        t0 = time.perf_counter()
         params, opt_state, metrics = train_step(params, opt_state, batch,
                                                 step)
         loss = float(metrics["loss"])       # waits for the step

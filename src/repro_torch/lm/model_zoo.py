@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from ..kernels.flash_attention.ops import BWD_PASSES
 from ..nn.attention import attention_route
 from . import transformer as tfm
 from . import whisper as whi
@@ -97,13 +98,16 @@ def train_launches(cfg: ArchConfig, microbatches: int = 1) -> dict:
     """The kernel launches of one ``steps.make_train_step`` step on the
     card: each microbatch runs the prefill's forward launches (the head
     aside, which launches nothing) and, under ``cfg.remat``, runs them
-    again in the backward, and one ``flash_attention_bwd`` a
-    ``flash_attention`` forward it differentiates.  An ``ssd_chunk`` layer
-    raises on the card under grad (no backward yet)."""
+    again in the backward, and for each ``flash_attention`` forward it
+    differentiates one ``flash_attention_backward`` call, which launches
+    ``len(BWD_PASSES)`` kernels (the dQ pass, then the dK/dV pass).  An
+    ``ssd_chunk`` layer raises on the card under grad (no backward
+    yet)."""
     fwd = prefill_launches(cfg)
     runs = microbatches * (2 if cfg.remat else 1)
     return {"flash_attention": runs * fwd["flash_attention"],
-            "flash_attention_bwd": microbatches * fwd["flash_attention"],
+            "flash_attention_bwd": (len(BWD_PASSES) * microbatches
+                                    * fwd["flash_attention"]),
             "ssd_chunk": runs * fwd["ssd_chunk"]}
 
 

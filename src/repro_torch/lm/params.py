@@ -7,6 +7,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import tree as tree_mod
 from ..device import resolve_device
 
 
@@ -18,30 +19,12 @@ def _tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-def _tree(tree, device: torch.device):
-    """dicts / lists / tuples of arrays -> the same of tensors."""
-    if isinstance(tree, dict):
-        return {k: _tree(v, device) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_tree(v, device) for v in tree)
-    return _tensor(tree, device)
-
-
-def lm_params_from_numpy(tree, device=None) -> dict:
-    """JAX ``model_zoo.init`` params (as numpy arrays) -> the port's."""
-    return _tree(tree, resolve_device(device))
-
-
-def lm_cache_from_numpy(tree, device=None) -> list:
-    """JAX ``model_zoo.make_cache`` caches (as numpy arrays) -> the
-    port's, whose attention caches a decode step then updates in
-    place."""
-    return _tree(tree, resolve_device(device))
-
-
-def optim_state_from_numpy(tree, device=None) -> dict:
-    """JAX optimizer state (``optim.adamw.init_state`` / ``adafactor``'s,
-    with ``"ef"`` where seeded; as numpy arrays, the step a 0-d int32)
-    -> the port's, e.g. to start both packages from the same
-    mid-training m, v and step."""
-    return _tree(tree, resolve_device(device))
+def from_numpy(tree, device=None):
+    """A JAX tree as numpy arrays -> the same tree of tensors: its
+    ``model_zoo.init`` params, ``model_zoo.make_cache`` caches (whose
+    attention caches a decode step then updates in place) or optimizer
+    state (``optim.adamw.init_state`` / ``adafactor``'s, with ``"ef"``
+    where seeded, the step a 0-d int32), e.g. to start both packages from
+    the same mid-training m, v and step."""
+    device = resolve_device(device)
+    return tree_mod.map(lambda a: _tensor(a, device), tree)

@@ -5,7 +5,7 @@ Params are nested dicts of tensors with the JAX package's keys and
 layouts (weights ``(in, out)``, so ``x @ w``).  Init draws come from a
 ``torch.Generator`` on its own device and land on ``device`` in the
 requested dtype; they are not the JAX package's numbers (carry JAX
-weights across with :func:`repro_torch.lm.params.lm_params_from_numpy`).
+weights across with :func:`repro_torch.lm.params.from_numpy`).
 Casts follow the JAX package: norms and RoPE compute in float32 and
 return the input's dtype.
 """

@@ -1,10 +1,10 @@
 """The port's LM entry points (``repro_torch.lm``: ``forward``,
 ``model_zoo.{prefill_fn,loss_fn,make_cache,decode_fn}``, ``steps``) against
 the JAX package on every architecture's reduced config in float32, with
-JAX's ``zoo.init`` weights carried across by ``lm_params_from_numpy``:
+JAX's ``zoo.init`` weights carried across by ``from_numpy``:
 logits within 1e-4 · max(1, max|ref|), decode over 4 steps (caches
 included), a decode continued from JAX's own cache
-(``lm_cache_from_numpy``), the int8 KV cache, and teacher-forced decode
+(``from_numpy``), the int8 KV cache, and teacher-forced decode
 against the port's own forward.  The bfloat16 runs are in
 ``test_torch_lm_bf16.py``."""
 import dataclasses
@@ -28,7 +28,7 @@ from repro_torch.lm import model_zoo as pzoo
 from repro_torch.lm import steps as psteps
 from repro_torch.lm import transformer as ptfm
 from repro_torch.lm import whisper as pwhi
-from repro_torch.lm.params import lm_cache_from_numpy, lm_params_from_numpy
+from repro_torch.lm.params import from_numpy
 
 torch.set_num_threads(1)
 TOL = 1e-4
@@ -100,7 +100,7 @@ def jax_run(arch, kv_quant=False):
 def port(arch, kv_quant=False):
     ref = jax_run(arch, kv_quant)
     _, pb = batches(ref["cfg"])
-    return ref, lm_params_from_numpy(ref["params"], device="cpu"), pb
+    return ref, from_numpy(ref["params"], device="cpu"), pb
 
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
@@ -163,7 +163,7 @@ def test_decode_continues_from_jax_cache(arch):
     port's: the port's attention / SSM / RG-LRU / cross caches mean what
     JAX's mean."""
     ref, params, pb = port(arch)
-    cache = lm_cache_from_numpy(ref["caches"][2], device="cpu")
+    cache = from_numpy(ref["caches"][2], device="cpu")
     for (_, logits, _), (_, want) in zip(
             _decode(ref["cfg"], params, cache, pb["tokens"], 2),
             ref["steps"][2:]):

@@ -25,7 +25,7 @@ from repro.lm import whisper as jwhi
 from repro_torch.lm import model_zoo as pzoo
 from repro_torch.lm import transformer as ptfm
 from repro_torch.lm import whisper as pwhi
-from repro_torch.lm.params import lm_params_from_numpy
+from repro_torch.lm.params import from_numpy
 
 torch.set_num_threads(1)
 REL = 2e-2
@@ -43,7 +43,7 @@ def setup(arch):
     cfg = get_config(arch, reduced=True)
     assert cfg.dtype == "bfloat16"
     jp = jzoo.init(jax.random.PRNGKey(0), cfg)
-    pp = lm_params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
+    pp = from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
     rng = np.random.default_rng(0)
     toks = rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)
     extra = None

@@ -26,7 +26,7 @@ from repro.nn import ssm as jssm
 from repro_torch import configs as pcfgs
 from repro_torch.lm import losses as plosses
 from repro_torch.lm import model_zoo as pzoo
-from repro_torch.lm.params import lm_params_from_numpy
+from repro_torch.lm.params import from_numpy
 from repro_torch.nn import attention as pattn
 from repro_torch.nn import layers as pnl
 from repro_torch.nn import moe as pmoe
@@ -39,7 +39,7 @@ KEY = jax.random.PRNGKey(0)
 
 
 def carry(tree):
-    return lm_params_from_numpy(jax.tree.map(np.asarray, tree), device="cpu")
+    return from_numpy(jax.tree.map(np.asarray, tree), device="cpu")
 
 
 def both(a, dtype=np.float32):

@@ -26,7 +26,7 @@ from repro.launch import serve as jserve
 from repro.lm import model_zoo as jzoo
 from repro.lm import steps as jsteps
 from repro_torch.launch import serve as pserve
-from repro_torch.lm.params import lm_params_from_numpy
+from repro_torch.lm.params import from_numpy
 
 torch.set_num_threads(1)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -61,7 +61,7 @@ def port_greedy(arch, params, monkeypatch=None, cfg=None):
         monkeypatch.setattr(pserve, "get_config", lambda a, reduced: cfg)
     args = argparse.Namespace(arch=arch, reduced=True, device="cpu", **RUN)
     return pserve.serve_lm(
-        args, lm_params_from_numpy(jax.tree.map(np.asarray, params), "cpu"))
+        args, from_numpy(jax.tree.map(np.asarray, params), "cpu"))
 
 
 @pytest.mark.parametrize("arch", ARCH_IDS)

@@ -24,7 +24,7 @@ from repro_torch import tree
 from repro_torch.data import loader as ploader
 from repro_torch.data import synthetic as psyn
 from repro_torch.dist import compress as pcompress
-from repro_torch.lm.params import lm_params_from_numpy, optim_state_from_numpy
+from repro_torch.lm.params import from_numpy
 from repro_torch.optim import adafactor as padafactor
 from repro_torch.optim import adamw as padamw
 from repro_torch.optim import schedules as pschedules
@@ -92,15 +92,15 @@ def test_adamw_matches_jax(state_dtype, weight_decay):
               "step": np.int32(41),
               "ef": {"x": rng.standard_normal(4).astype(np.float32)}}
         jp, jst = params, st
-        pp = lm_params_from_numpy(params, "cpu")
-        pst = optim_state_from_numpy(st, "cpu")
+        pp = from_numpy(params, "cpu")
+        pst = from_numpy(st, "cpu")
         for i in range(3):
             grads = jax.tree.map(lambda a: rng.standard_normal(a.shape)
                                  .astype(a.dtype), params)
             scale = 0.5 + 0.25 * i
             jp, jst = jadamw.apply_updates(jcfg, jp, grads, jst, scale)
             pp, pst = padamw.apply_updates(
-                pcfg, pp, lm_params_from_numpy(grads, "cpu"), pst, scale)
+                pcfg, pp, from_numpy(grads, "cpu"), pst, scale)
         for got, want in ((pp, jp), (pst["m"], jst["m"]),
                           (pst["v"], jst["v"])):
             for g, w in zip(tree.leaves(got), jax.tree.leaves(want)):
@@ -136,14 +136,14 @@ def test_adafactor_matches_jax():
     jcfg, pcfg = jadafactor.AdafactorConfig(), padafactor.AdafactorConfig()
     params = _params(rng)
     jp, jst = params, jadafactor.init_state(jcfg, params)
-    pp = lm_params_from_numpy(params, "cpu")
+    pp = from_numpy(params, "cpu")
     pst = padafactor.init_state(pcfg, pp)
     for i in range(4):
         grads = jax.tree.map(lambda a: rng.standard_normal(a.shape)
                              .astype(a.dtype), params)
         jp, jst = jadafactor.apply_updates(jcfg, jp, grads, jst, 0.9)
         pp, pst = padafactor.apply_updates(
-            pcfg, pp, lm_params_from_numpy(grads, "cpu"), pst, 0.9)
+            pcfg, pp, from_numpy(grads, "cpu"), pst, 0.9)
     trees_close(pp, jp)
     trees_close(pst["f"], jst["f"])
     assert int(pst["step"]) == int(jst["step"]) == 4
@@ -196,13 +196,13 @@ def test_compress_grads_with_error_feedback_matches_jax(codec):
                       .astype(np.float32) / 7.0 - 40.0, shapes,
                       is_leaf=lambda s: isinstance(s, tuple))
     jef = jcompress.init_error_feedback(jg)
-    pef = pcompress.init_error_feedback(lm_params_from_numpy(jg, "cpu"))
+    pef = pcompress.init_error_feedback(from_numpy(jg, "cpu"))
     for _ in range(10):
         g = jax.tree.map(lambda a: (a * rng.uniform(0.5, 1.5, a.shape))
                          .astype(np.float32), jg)
         jdg, jef = jcompress.compress_grads(g, jef, codec=codec,
                                             topk_frac=0.25)
-        pdg, pef = pcompress.compress_grads(lm_params_from_numpy(g, "cpu"),
+        pdg, pef = pcompress.compress_grads(from_numpy(g, "cpu"),
                                             pef, codec=codec, topk_frac=0.25)
         trees_close(pdg, jdg)
         trees_close(pef, jef)

@@ -1,7 +1,7 @@
 """The port's train step (``repro_torch.lm.steps.make_train_step``)
 against the JAX package's, without a mesh, on one reduced config per
-family in float32, from the same params (``lm_params_from_numpy``) and
-the same mid-training AdamW state (``optim_state_from_numpy``) at step
+family in float32, from the same params and the same mid-training
+AdamW state (both carried across by ``from_numpy``) at step
 1000 (``lr_scale`` = 1): grads per leaf within 1e-4 · max(1, max|g|);
 loss and grad norm within 1e-5 relative; params, m and v per leaf within
 1e-5 · max(1, max|·|); microbatches 1 and 2, compression none and int8.
@@ -38,7 +38,7 @@ from repro_torch.dist import compress as pcompress
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.lm import model_zoo as pzoo
 from repro_torch.lm import steps as psteps
-from repro_torch.lm.params import lm_params_from_numpy, optim_state_from_numpy
+from repro_torch.lm.params import from_numpy
 from repro_torch.nn import attention as pattn
 from repro_torch.nn import ssm as pssm
 from repro_torch.optim import adamw as padamw
@@ -125,9 +125,9 @@ def start(arch):
 
 def port(arch):
     cfg, params, batch, opt = start(arch)
-    return (cfg, lm_params_from_numpy(params, "cpu"),
+    return (cfg, from_numpy(params, "cpu"),
             {k: torch.from_numpy(v) for k, v in batch.items()},
-            optim_state_from_numpy(opt, "cpu"))
+            from_numpy(opt, "cpu"))
 
 
 def port_grads(cfg, params, batch):
@@ -223,20 +223,22 @@ def test_train_step_calls_the_kernels_train_launches_counts(
         arch, microbatches, monkeypatch):
     """On the CPU the wrappers run their plain versions through the same
     wiring: one step calls flash_attention's forward, its backward and
-    ssd_chunk as often as the card would launch them."""
+    ssd_chunk as often as the card would launch them (each backward call
+    launches ``BWD_PASSES``' kernels)."""
     calls = {"flash_attention": 0, "flash_attention_bwd": 0,
              "ssd_chunk": 0}
 
-    def counted(name, fn):
+    def counted(name, fn, launches=1):
         def call(*args, **kw):
-            calls[name] += 1
+            calls[name] += launches
             return fn(*args, **kw)
         return call
     monkeypatch.setattr(pattn, "flash_attention",
                         counted("flash_attention", pattn.flash_attention))
     monkeypatch.setattr(flash_ops, "flash_attention_backward",
                         counted("flash_attention_bwd",
-                                flash_ops.flash_attention_backward))
+                                flash_ops.flash_attention_backward,
+                                len(flash_ops.BWD_PASSES)))
     monkeypatch.setattr(pssm, "ssd_chunk",
                         counted("ssd_chunk", pssm.ssd_chunk))
     cfg, params, batch, opt = port(arch)
