@@ -95,29 +95,36 @@ Phases, each timed, any failure exits non-zero:
      against ``attention_bwd_ref`` and timed beside the plain version and
      SDPA's backward (``BWD_LAYERS``: olmo-1b's layer in bf16 and f32,
      Qwen2-72B's, Whisper-large-v3's encoder, gemma-7b's in f32;
-     ``BWD_TOL``; two calls bit-equal); olmo-1b at full width cut to 2
-     layers in f32, every leaf's gradient through the kernels against the
-     plain route's, each held to its own size (``WIRING_TOL``), and a
-     planted detached attention that must fail that check.  Then, in a
+     ``BWD_TOL``; two calls bit-equal); ``ssd_chunk``'s backward kernel
+     (``csrc/ssd_chunk_bwd.cu``; two launches a call, the heads pass and
+     the chunk pass) held against ``ssd_chunk_bwd_ref`` and autograd of
+     ``ssd_chunk_ref`` and timed beside the plain version
+     (``SSD_BWD_LAYERS``: Mamba2-2.7B's layer at chunks of 64 and 128 and
+     at the trainer's microbatch; ``SSD_BWD_TOL``; two calls bit-equal;
+     the ``SSD_PARITY`` shapes and a steep decay held too); olmo-1b and
+     mamba2-2.7b at full width cut to 2 layers in f32, every leaf's
+     gradient through the kernels against the plain route's, each held to
+     its own size (``WIRING_TOL``), and a planted detached attention /
+     SSD that must fail that check (``WIRING_PLANTED``).  Then, in a
      subprocess that carries ``TRAIN_ENV`` (``--trainer-runs``):
-     ``repro_torch.launch.train.main`` on olmo-1b as published, 4 × 2048
-     tokens in 2 microbatches, 8 steps (``TRAIN_MAIN``), with the launch
-     counts reset (the forward and backward kernels' launches must equal
-     ``model_zoo.train_launches`` a step), every loss finite, step time
-     and tokens/s over the window after the first two steps, the bound
-     (the forward and backward; remat's recompute beside it) and peak
-     memory; the resume check (``TRAIN_RESUME``: 6 steps straight
-     against 3 + 3 with a restart from the checkpoint, losses within
-     ``RESUME_TOL``); every other config at its reduced config for 2
-     steps (``TRAIN_OTHERS``), mamba2-2.7b refused with the named
-     no-``ssd_chunk``-backward error (``TRAIN_REFUSED``).
+     ``repro_torch.launch.train.main`` on olmo-1b and on mamba2-2.7b as
+     published, 4 × 2048 tokens in 2 microbatches, 8 steps
+     (``TRAIN_MAIN``), each with the launch counts reset (the forward and
+     backward kernels' launches must equal ``model_zoo.train_launches``
+     a step), every loss finite, step time and tokens/s over the window
+     after the first two steps, the bound (the forward and backward;
+     remat's recompute beside it) and peak memory; the resume check of
+     each at 2 layers (``TRAIN_RESUME``: 6 steps straight against 3 + 3
+     with a restart from the checkpoint, losses within ``RESUME_TOL``);
+     every other config at its reduced config for 2 steps
+     (``TRAIN_OTHERS``).
 
 Output lines: the card's name and power limit (nvidia-smi), phase times,
-ptxas's registers and spills per kernel (gather_mlp, hub_reuse and
-ssd_chunk must not spill), the counts of HGMMA (wgmma) and HMMA
-(mma.sync) instructions in the built flash_attention library, of HMMA in
-flash_attention_bwd's and of TF32
-HMMA instructions in the gather_mlp, hub_reuse and ssd_chunk ones,
+ptxas's registers and spills per kernel (gather_mlp, hub_reuse,
+ssd_chunk and ssd_chunk_bwd must not spill), the counts of HGMMA (wgmma)
+and HMMA (mma.sync) instructions in the built flash_attention library, of
+HMMA in flash_attention_bwd's and of TF32 HMMA instructions in the
+gather_mlp, hub_reuse, ssd_chunk and ssd_chunk_bwd ones,
 ``parity``,
 ``per_cloud`` and ``entry_parity``
 JSON lines, the serving reports (``serve_async``, ``serve_sync``,
@@ -134,8 +141,10 @@ line per model and ``wide_parity``, a
 an ``lm`` line
 per LM config (its routes, launches, prefill and decode times, beside the
 card's name and power limit), ``lm_parity``, a ``bwd_kernel`` line per
-backward layer, ``train_wiring``, ``train`` (beside the card's name and
-power limit), ``train_resume``, a ``train_other`` line per config, the
+backward layer (flash_attention's and ssd_chunk's), a ``train_wiring``
+line per config, a ``train`` line per full-width run (beside the card's
+name and power limit), a ``train_resume`` line per config, a
+``train_other`` line per config, the
 trainer's own lines (``train: step N: ...``), ``train_parity``, a
 ``kernels`` JSON
 line (every TPU kernel's counterpart: the FC kernels batched and per
@@ -145,7 +154,8 @@ wrapper, in the async serving run for the FC kernels, over the families
 phase's counted forwards for the wide route, in the entry phase for the
 entry kernels' rows (``lm_launches`` beside them: the LM phase's counted
 prefills), in the LM phase for its rows and in the full-width training
-run for ``flash_attention_bwd``'s), and last ``{"ok": true,
+runs for ``flash_attention_bwd``'s and ``ssd_chunk_bwd``'s), and last
+``{"ok": true,
 "device": {...}}``.
 """
 from __future__ import annotations
@@ -371,19 +381,33 @@ BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # projections' grads zero, max|Δ| = max|plain|; the smoke plants one)
 TRAIN_WIRING = dict(layers=2, b=2, s=512)
 WIRING_TOL = 1e-3
+# ssd_chunk's backward kernel at the SSD_LAYERS and at the trainer's
+# microbatch (mamba2-2.7b, B = 2 × 2048 in chunks of 64), held against
+# ssd_chunk_bwd_ref and against autograd of ssd_chunk_ref on the same
+# inputs: f32 max|Δ| <= 1e-4 · max(1, max|ref|) per output (3xTF32, sums
+# in another order); then the SSD_PARITY shapes and a steep decay (cum
+# falling by 10 a step: exp overflows above the diagonal), whose outputs
+# must be finite and within the same limit
+SSD_BWD_LAYERS = {**SSD_LAYERS,
+                  "mamba2_2p7b_train": dict(bs=2, nc=32, q=64, h=80, p=64,
+                                            s=128)}
+SSD_BWD_STEEP = dict(bs=1, nc=4, q=64, h=80, p=64, s=128)
+SSD_BWD_TOL = 1e-4
 # the trainer at full width: olmo-1b as published (16 layers, d 2048,
-# vocab 50304, bf16 params, f32 AdamW state, remat), 4 × 2048 tokens a
-# step in 2 microbatches, 8 steps; then the resume check at full width
-# cut to 2 layers (6 steps straight against 3 + 3 with a restart, losses
-# within 1e-6 as tests/test_train_ckpt.py asks of JAX) and every other
-# config at its reduced config, 2 steps (mamba2-2.7b must refuse: no
-# ssd_chunk backward yet)
-TRAIN_MAIN = dict(arch="olmo-1b", b=4, s=2048, microbatches=2, steps=8)
-TRAIN_RESUME = dict(arch="olmo-1b", layers=2, b=2, s=512, steps=6,
-                    ckpt_every=3)
+# vocab 50304) and mamba2-2.7b as published (64 layers, d 2560, vocab
+# 50280, SSD chunks of 64), bf16 params, f32 AdamW state, remat, 4 × 2048
+# tokens a step in 2 microbatches, 8 steps; then the resume check on each
+# at full width cut to 2 layers (6 steps straight against 3 + 3 with a
+# restart, losses within 1e-6 as tests/test_train_ckpt.py asks of JAX)
+# and every config but olmo-1b at its reduced config, 2 steps
+TRAIN_MAIN = (dict(arch="olmo-1b", b=4, s=2048, microbatches=2, steps=8),
+              dict(arch="mamba2-2.7b", b=4, s=2048, microbatches=2,
+                   steps=8))
+TRAIN_RESUME = tuple(dict(arch=arch, layers=2, b=2, s=512, steps=6,
+                          ckpt_every=3)
+                     for arch in ("olmo-1b", "mamba2-2.7b"))
 RESUME_TOL = 1e-6
 TRAIN_OTHERS = dict(b=2, s=64, steps=2)
-TRAIN_REFUSED = {"mamba2-2.7b": "no ssd_chunk backward"}
 # the trainer's deterministic cuBLAS takes a fixed workspace only if this
 # is set before cuBLAS's first call in the process: the trainer runs in a
 # process of its own that carries it (the earlier phases run without it)
@@ -799,7 +823,8 @@ def serve_phase(spec, engine, reference, params, seed, smi,
     buckets = BucketSet.make(bucket_sizes, batch=batch)
     events, clouds, keys = trace_requests(seed, trace)
     n_blocks = len(spec.blocks)
-    off_path = ("knn", "flash_attention", "flash_attention_bwd", "ssd_chunk")
+    off_path = ("knn", "flash_attention", "flash_attention_bwd", "ssd_chunk",
+                "ssd_chunk_bwd")
     times = {}
 
     def check_launches(name, launches, primary_runs):
@@ -970,7 +995,8 @@ def families_phase(dev, seed, smi) -> int:
     from repro_torch import kernels
     from repro_torch.engine import PCNEngine
     from repro_torch.models import MODEL_ZOO
-    off_path = ("knn", "flash_attention", "flash_attention_bwd", "ssd_chunk")
+    off_path = ("knn", "flash_attention", "flash_attention_bwd", "ssd_chunk",
+                "ssd_chunk_bwd")
     wide_launches = 0
     for name, (b, n) in FAMILIES.items():
         spec = MODEL_ZOO[name][1]
@@ -1172,7 +1198,8 @@ def ds_variants_phase(params, batch, smi) -> None:
     from repro_torch.core.workload import COUNTERS, WorkloadReport
     from repro_torch.engine import PCNEngine, apply_with_reports
     from repro_torch.models.pointnet2 import POINTNET2_C
-    off_path = ("knn", "flash_attention", "flash_attention_bwd", "ssd_chunk")
+    off_path = ("knn", "flash_attention", "flash_attention_bwd", "ssd_chunk",
+                "ssd_chunk_bwd")
     rows = {}
     for name, (sampler, neighbor, kw) in DS_VARIANTS.items():
         spec = replace(POINTNET2_C, blocks=tuple(
@@ -1254,7 +1281,8 @@ def counted_forward(engine, params, batch):
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
     check(not any(counts[k] for k in ("knn", "flash_attention",
-                                      "flash_attention_bwd", "ssd_chunk")),
+                                      "flash_attention_bwd", "ssd_chunk",
+                                      "ssd_chunk_bwd")),
           f"an entry kernel launched in an FC forward: {counts}")
     check({k: counts[k] for k in ("gather_mlp", "hub_reuse")}
           == expected_launches(cap),
@@ -1812,7 +1840,7 @@ def entry_phase(dev, seed, spec, batch):
     want = {"gather_mlp": 0, "hub_reuse": 0,
             "knn": sum(len(calls) for calls in knn_sets.values()),
             "flash_attention": len(qkv), "flash_attention_bwd": 0,
-            "ssd_chunk": len(ssd_args)}
+            "ssd_chunk": len(ssd_args), "ssd_chunk_bwd": 0}
     check(launches == want, f"entry phase launches {launches}, expected "
           f"one a call: {want}")
     routes = {v: kernels.LAUNCHES[f"flash_attention_{v}"]
@@ -2374,6 +2402,116 @@ def bwd_row(name: str, f: dict, dtype, dev, seed: int):
     return parity, row
 
 
+def ssd_bwd_macs(q, h, p, s) -> int:
+    """Multiply-adds one chunk of ssd_chunk's gradient needs: C·Bᵀ, dC =
+    dCB·B and dCBᵀ·C over the q(q+1)/2 pairs i >= j; per head dM = dy·xᵀ
+    and Mᵀ·dy over those pairs, E = B·dstᵀ and the state term (x ⊙
+    w)·dst."""
+    tri = q * (q + 1) // 2
+    return 3 * tri * s + h * (2 * tri * p + 2 * q * p * s)
+
+
+def ssd_bwd_inputs(gen, dev, bs, nc, q, h, p, s, steep=False):
+    """ssd_chunk's inputs (``ssd_inputs``) and its outputs' gradients dy
+    and dst; ``steep``: cum falls by 10 a step, so exp(cum_i − cum_j)
+    overflows above the diagonal."""
+    import torch
+    x, B, C, dt, cum = ssd_inputs(gen, dev, bs, nc, q, h, p, s)
+    if steep:
+        step = torch.arange(1, q + 1, device=dev, dtype=torch.float32)
+        cum = (-10.0 * step)[None, None, :, None].expand(
+            bs, nc, q, h).contiguous()
+    return (x, B, C, dt, cum, torch.randn(x.shape, generator=gen, device=dev),
+            torch.randn((bs, nc, h, p, s), generator=gen, device=dev))
+
+
+def ssd_bwd_held(label, args, parity):
+    """ssd_chunk_backward on ``args`` against ssd_chunk_bwd_ref and against
+    autograd of ssd_chunk_ref: every output finite and within
+    ``SSD_BWD_TOL`` · max(1, max|ref|), two calls bit-equal; a parity row
+    per reference appended to ``parity``.  -> (the outputs, the largest
+    max|Δ|)."""
+    import torch
+    from repro_torch.kernels.ssd_chunk import (ssd_chunk_backward,
+                                               ssd_chunk_bwd_ref,
+                                               ssd_chunk_ref)
+    got = ssd_chunk_backward(*args)
+    again = ssd_chunk_backward(*args)
+    leaves = [t.detach().requires_grad_() for t in args[:5]]
+    refs = {"closed_form": ssd_chunk_bwd_ref(*args),
+            "autograd": torch.autograd.grad(ssd_chunk_ref(*leaves), leaves,
+                                            args[5:])}
+    torch.cuda.synchronize()
+    parts = ("dx", "dB", "dC", "ddt", "dcum")
+    for part, g, a in zip(parts, got, again):
+        check(bool(torch.isfinite(g).all()),
+              f"ssd_chunk_bwd {label} {part}: non-finite")
+        check(torch.equal(g, a), f"ssd_chunk_bwd {label} {part}: two calls "
+              f"differ (the kernel has no atomics)")
+    worst = 0.0
+    for against, want in refs.items():
+        row = dict(name="ssd_chunk_bwd", shape=label, against=against,
+                   tol=SSD_BWD_TOL)
+        for part, g, w in zip(parts, got, want):
+            e = (g - w).abs().max().item()
+            scale = max(1.0, w.abs().max().item())
+            row[part] = dict(max_abs_err=e, scale=scale)
+            check(e <= SSD_BWD_TOL * scale, f"ssd_chunk_bwd {label} {part} "
+                  f"vs {against}: max|Δ| {e} > {SSD_BWD_TOL} · {scale}")
+            worst = max(worst, e)
+        parity.append(row)
+    del refs, leaves, again
+    return got, worst
+
+
+def ssd_bwd_rows(dev, seed) -> tuple[list, list]:
+    """ssd_chunk's backward kernel held (``ssd_bwd_held``) and timed
+    beside its plain version at each ``SSD_BWD_LAYERS`` layer, with its
+    bound; then held at the ``SSD_PARITY`` shapes and ``SSD_BWD_STEEP``.
+    -> (parity rows, ``kernels`` rows without launches)."""
+    import torch
+    from repro_torch.kernels import BUILD_LOG
+    from repro_torch.kernels.ssd_chunk import (ssd_chunk_backward,
+                                               ssd_chunk_bwd_ref)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    fmt = "bs={} nc={} q={} H={} P={} S={}"
+    parity, rows = [], []
+    for name, f in SSD_BWD_LAYERS.items():
+        args = ssd_bwd_inputs(gen, dev, **f)
+        shape = fmt.format(*f.values())
+        got, err = ssd_bwd_held(shape, args, parity)
+        free_card()
+        t = time_turns({"plain": lambda: ssd_chunk_bwd_ref(*args),
+                        "kernel": lambda: ssd_chunk_backward(*args)},
+                       iters=5)
+        flops = 2.0 * f["bs"] * f["nc"] * ssd_bwd_macs(
+            f["q"], f["h"], f["p"], f["s"])
+        moved = nbytes(*args, *got)
+        bms, by = bound(3 * flops, moved, PEAK_TF32)
+        row = dict(
+            name="ssd_chunk_bwd", block=name, route="cuda",
+            source="src/repro_torch/csrc/ssd_chunk_bwd.cu",
+            replaces="src/repro/kernels/ssd_chunk/ssd_chunk.py:64",
+            shape=shape, tflops=flops / t["kernel"] / 1e9,
+            max_abs_err=err, ms=t["kernel"], plain_ms=t["plain"],
+            bound_ms=bms, bound_by=by, bound_fp32_ms=bound(flops, moved)[0],
+            share=bms / t["kernel"], library_ms=None,
+            sass_count=sass_count("ssd_chunk_bwd", "HMMA", "TF32"),
+            spill_bytes=spilled_bytes(BUILD_LOG["ssd_chunk_bwd"]))
+        rows.append(row)
+        log(json.dumps({"bwd_kernel": row}))
+        del args, got
+        free_card()
+    for shp in SSD_PARITY:
+        ssd_bwd_held(fmt.format(*shp), ssd_bwd_inputs(gen, dev, *shp),
+                     parity)
+    ssd_bwd_held(fmt.format(*SSD_BWD_STEEP.values()) + " steep",
+                 ssd_bwd_inputs(gen, dev, **SSD_BWD_STEEP, steep=True),
+                 parity)
+    free_card()
+    return parity, rows
+
+
 def wiring_ratios(params, got, want) -> dict:
     """Leaf path -> (max|plain|, max|Δ| / (``WIRING_TOL`` · max|plain|)):
     each leaf's gradient held to its own size (a ratio above 1 fails)."""
@@ -2387,25 +2525,34 @@ def wiring_ratios(params, got, want) -> dict:
     return out
 
 
-def grad_wiring(dev, seed) -> dict:
-    """olmo-1b at full width cut to ``TRAIN_WIRING``'s layers, float32:
-    every leaf's gradient through the kernel route (flash forward and
-    backward kernels, counted) against the plain route's, max|Δ| <=
+# the planted fault of each wiring check: the kernel whose output is
+# detached from its inputs, and the leaves whose gradients it must break
+WIRING_PLANTED = {"olmo-1b": ("flash_attention", ("wq", "wk", "wv")),
+                  "mamba2-2.7b": ("ssd_chunk",
+                                  ("in_proj", "A_log", "dt_bias"))}
+
+
+def grad_wiring(dev, seed, arch) -> dict:
+    """``arch`` at full width cut to ``TRAIN_WIRING``'s layers, float32:
+    every leaf's gradient through the kernel route (forward and backward
+    kernels, counted) against the plain route's, max|Δ| <=
     ``WIRING_TOL`` · max|plain| per leaf.  Then a planted fault: the
-    forward kernel's output detached from q, k and v (what the wrappers
-    returned before ``FlashAttentionFn``) must break that limit on every
-    q/k/v projection."""
+    forward kernel's output detached from its inputs (what the wrappers
+    returned before their autograd Functions) must break that limit on
+    every leaf ``WIRING_PLANTED`` names."""
     import dataclasses
 
     import torch
     from repro_torch import kernels
     from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.ssd_chunk import ssd_chunk
+    from repro_torch.kernels.ssd_chunk import ops as ssd_ops
     from repro_torch.lm import model_zoo as zoo
     from repro_torch.lm.steps import loss_and_grads
     w = TRAIN_WIRING
-    cfg = dataclasses.replace(get_config("olmo-1b"), n_layers=w["layers"],
+    cfg = dataclasses.replace(get_config(arch), n_layers=w["layers"],
                               dtype="float32")
     gen = torch.Generator(device=dev).manual_seed(seed)
     params = zoo.init(gen, cfg, dev)
@@ -2416,35 +2563,36 @@ def grad_wiring(dev, seed) -> dict:
     torch.cuda.synchronize()
     launches = kernels.launch_counts()
     want_l = {**dict.fromkeys(launches, 0), **zoo.train_launches(cfg, 1)}
-    check(launches == want_l, f"train wiring: launches {launches}, "
+    check(launches == want_l, f"train wiring {arch}: launches {launches}, "
           f"train_launches {want_l}")
     with plain_route():
         want = loss_and_grads(cfg, params, batch)[2]
     ratios = wiring_ratios(params, got, want)
     for path, (scale, ratio) in ratios.items():
-        check(ratio <= 1.0, f"train wiring: {path} grads off the plain "
-              f"route's by {ratio} of the limit {WIRING_TOL} · max|plain| "
-              f"(max|plain| {scale})")
-    with lm_kernels(lambda q, k, v, causal=True: flash_ops._forward(
-            q, k, v, causal), ssd_chunk):
+        check(ratio <= 1.0, f"train wiring {arch}: {path} grads off the "
+              f"plain route's by {ratio} of the limit {WIRING_TOL} · "
+              f"max|plain| (max|plain| {scale})")
+    kernel, names = WIRING_PLANTED[arch]
+    detached = {"flash_attention": (
+        lambda q, k, v, causal=True: flash_ops._forward(q, k, v, causal),
+        ssd_chunk), "ssd_chunk": (flash_attention, ssd_ops._forward)}
+    with lm_kernels(*detached[kernel]):
         planted = loss_and_grads(cfg, params, batch)[2]
     planted = wiring_ratios(params, planted, want)
-    qkv = [path for path in ratios if path.rsplit("/", 1)[-1] in
-           ("wq", "wk", "wv")]
-    check(qkv and all(planted[path][1] > 1.0 for path in qkv),
-          f"train wiring: a detached attention passes the check: "
-          f"{ {path: planted[path] for path in qkv} }")
+    hit = [path for path in ratios if path.rsplit("/", 1)[-1] in names]
+    check(hit and all(planted[path][1] > 1.0 for path in hit),
+          f"train wiring {arch}: a detached {kernel} passes the check: "
+          f"{ {path: planted[path] for path in hit} }")
     worst = max(ratios, key=lambda path: ratios[path][1])
-    line = dict(train_wiring="olmo-1b", n_layers=cfg.n_layers,
+    line = dict(train_wiring=arch, n_layers=cfg.n_layers,
                 batch=w["b"], seq=w["s"], dtype="float32", leaves=len(got),
                 launches={k: v for k, v in launches.items() if v},
                 tol=WIRING_TOL, worst_share_of_limit=ratios[worst][1],
                 worst_leaf=worst,
                 max_plain_and_share={p: list(r) for p, r in ratios.items()},
-                planted_detach_failing=sum(r > 1.0 for _, r in
-                                           planted.values()),
-                planted_detach_qkv_least_share=min(planted[p][1]
-                                                   for p in qkv))
+                planted=f"{kernel} detached",
+                planted_failing=sum(r > 1.0 for _, r in planted.values()),
+                planted_least_share=min(planted[p][1] for p in hit))
     del params, batch, got, want
     free_card()
     return line
@@ -2495,34 +2643,46 @@ def run_train(argv, n_layers=None) -> tuple[list, list, dict]:
 def train_bound(cfg, b, s) -> dict:
     """The least time one train step could take: its products (the
     forward and the backward's twice that; 2 flops a weight a token, the
-    tied head over every position, q·kᵀ and p·v over the causal pairs)
-    at the bf16 peak, against its inputs read once and its outputs
-    written once at the HBM rate (params in bf16, m and v in f32, each
-    read and written).  Remat's second forward of the layers is work the
-    step chooses, not work it must do: it is reported beside the bound
-    (``remat_flops``), not in it."""
+    tied head over every position; an attention layer's q·kᵀ and p·v over
+    the causal pairs, an SSD layer's intra-chunk block: ``ssd_chunk``'s
+    products forward and ``ssd_bwd_macs`` backward) at the bf16 peak,
+    against its inputs read once and its outputs written once at the HBM
+    rate (params in bf16, m and v in f32, each read and written).  Remat's
+    second forward of the layers is work the step chooses, not work it
+    must do: it is reported beside the bound (``remat_flops``), not in
+    it."""
     n = cfg.param_counts()["total"]
     head = cfg.vocab * cfg.d_model
-    attn = 4 * b * cfg.n_heads * cfg.hd * cfg.n_layers * s * (s + 1) / 2
-    flops = 3 * (2 * b * s * n + attn)
+    kinds = [cfg.mixer_of(i) for i in range(cfg.n_layers)]
+    n_ssd = kinds.count("ssd")
+    attn = (4 * b * cfg.n_heads * cfg.hd * (cfg.n_layers - n_ssd)
+            * s * (s + 1) / 2)
+    ssd_fwd = ssd_bwd = 0.0
+    if n_ssd:
+        q = min(cfg.ssd_chunk, s)
+        h, p, st = cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state
+        tri = q * (q + 1) // 2
+        chunks = n_ssd * b * (s // q)
+        ssd_fwd = 2.0 * chunks * (tri * st + h * (tri * p + q * p * st))
+        ssd_bwd = 2.0 * chunks * ssd_bwd_macs(q, h, p, st)
+    flops = 3 * (2 * b * s * n + attn) + ssd_fwd + ssd_bwd
     moved = 2 * (2 + 4 + 4) * n
     ms, by = bound(flops, moved, PEAK_BF16)
-    remat = 2 * b * s * (n - head) + attn if cfg.remat else 0
+    remat = 2 * b * s * (n - head) + attn + ssd_fwd if cfg.remat else 0
     return dict(step_flops=flops, step_bytes=moved, bound_ms=ms,
                 bound_by=by, remat_flops=remat)
 
 
-def train_full(seed, smi) -> tuple[dict, dict]:
-    """The trainer at full width (``TRAIN_MAIN``): every loss finite, the
-    counted launches equal to ``train_launches`` a step; over the steps
-    after the first two, the step time and tokens/s from the window's
-    summed ``dt`` (each step from its batch's copy to its loss on the
-    host); the bound and its share, peak memory.  -> (the ``train`` line,
-    launches)."""
+def train_full(seed, smi, r) -> tuple[dict, dict]:
+    """The trainer at full width (a ``TRAIN_MAIN`` run ``r``): every loss
+    finite, the counted launches equal to ``train_launches`` a step; over
+    the steps after the first two, the step time and tokens/s from the
+    window's summed ``dt`` (each step from its batch's copy to its loss on
+    the host); the bound and its share, peak memory.  -> (the ``train``
+    line, launches)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.lm import model_zoo as zoo
-    r = TRAIN_MAIN
     cfg = get_config(r["arch"])
     argv = ("--arch", r["arch"], "--steps", str(r["steps"]), "--batch",
             str(r["b"]), "--seq", str(r["s"]), "--microbatches",
@@ -2552,15 +2712,15 @@ def train_full(seed, smi) -> tuple[dict, dict]:
                 **bnd, share=bnd["bound_ms"] / (step_s * 1e3),
                 peak_memory_gb=peak / 1e9, wall_s=wall,
                 launches={k: v for k, v in launches.items() if v},
-                launches_per_step=per_step, card=smi)
+                launches_per_step={k: v for k, v in per_step.items() if v},
+                card=smi)
     return line, launches
 
 
-def train_resume(seed) -> dict:
-    """``TRAIN_RESUME`` straight and cut in two with a restart from the
-    checkpoint: the same losses (|Δ| <= ``RESUME_TOL``)."""
+def train_resume(seed, r) -> dict:
+    """A ``TRAIN_RESUME`` run ``r`` straight and cut in two with a restart
+    from the checkpoint: the same losses (|Δ| <= ``RESUME_TOL``)."""
     import tempfile
-    r = TRAIN_RESUME
     base = ("--arch", r["arch"], "--batch", str(r["b"]), "--seq",
             str(r["s"]), "--ckpt-every", str(r["ckpt_every"]), "--seed",
             str(seed))
@@ -2580,39 +2740,26 @@ def train_resume(seed) -> dict:
                 seq=r["s"], straight=ref, resumed=part1 + part2,
                 max_abs_diff=worst, tol=RESUME_TOL, wall_s=wall)
     check(len(part1) == half and len(part2) == r["steps"] - half,
-          f"train resume: {len(part1)} + {len(part2)} steps")
-    check(worst <= RESUME_TOL, f"train resume: losses off the "
+          f"train resume {r['arch']}: {len(part1)} + {len(part2)} steps")
+    check(worst <= RESUME_TOL, f"train resume {r['arch']}: losses off the "
           f"uninterrupted run's by {worst}: {line}")
     return line
 
 
 def train_others() -> list:
-    """Every other config at its reduced config in bf16 (``TRAIN_OTHERS``):
-    losses finite and the launches ``train_launches`` names; mamba2-2.7b
-    must raise the named no-``ssd_chunk``-backward error."""
+    """Every config but the first full-width one at its reduced config in
+    bf16 (``TRAIN_OTHERS``): losses finite and the launches
+    ``train_launches`` names."""
     from repro_torch.configs import ARCH_IDS, get_config
-    from repro_torch.kernels import NoBackwardError
     from repro_torch.lm import model_zoo as zoo
     r = TRAIN_OTHERS
     lines = []
     for arch in ARCH_IDS:
-        if arch == TRAIN_MAIN["arch"]:
+        if arch == TRAIN_MAIN[0]["arch"]:
             continue
         argv = ("--arch", arch, "--reduced", "--steps", str(r["steps"]),
                 "--batch", str(r["b"]), "--seq", str(r["s"]))
         cfg = get_config(arch, reduced=True)
-        if arch in TRAIN_REFUSED:
-            try:
-                run_train(argv)
-            except NoBackwardError as err:
-                msg = str(err)
-            else:
-                msg = None
-            check(msg is not None and TRAIN_REFUSED[arch] in msg,
-                  f"train {arch}: expected NoBackwardError naming "
-                  f"'{TRAIN_REFUSED[arch]}', got {msg}")
-            lines.append(dict(train_other=arch, refused=msg))
-            continue
         t0 = time.perf_counter()
         losses, dts, launches = run_train(argv)
         want = {**dict.fromkeys(launches, 0), **{
@@ -2630,26 +2777,35 @@ def train_others() -> list:
 
 def trainer_runs(seed, smi) -> dict:
     """The runs of ``launch.train.main`` in this process, which carries
-    ``TRAIN_ENV``: the full-width run, the resume check and the other
-    configs, their lines logged.  -> launches of the full-width run."""
+    ``TRAIN_ENV``: the full-width runs, the resume checks and the other
+    configs, their lines logged.  -> launches over the full-width runs
+    (each checked against its own config's ``train_launches``: olmo-1b's
+    run launches no SSD kernel, mamba2-2.7b's no attention kernel)."""
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    line, launches = train_full(seed, smi)
-    log(json.dumps(line))
-    log(json.dumps(train_resume(seed)))
+    total = {}
+    for r in TRAIN_MAIN:
+        line, launches = train_full(seed, smi, r)
+        log(json.dumps(line))
+        for name, n in launches.items():
+            total[name] = total.get(name, 0) + n
+        free_card()
+    for r in TRAIN_RESUME:
+        log(json.dumps(train_resume(seed, r)))
     for other in train_others():
         log(json.dumps(other))
-    return launches
+    return total
 
 
 def train_phase(dev, seed, smi) -> tuple[dict, list, list]:
-    """Phase 9, the trainer: the backward kernel held and timed at the
-    ``BWD_LAYERS``; the gradient wiring; then ``trainer_runs`` in a
-    subprocess that carries ``TRAIN_ENV`` (the earlier phases run without
-    it): the trainer at full width (counted: the phase's launches), the
-    resume check, the other configs.  -> (launches of the full-width run,
-    parity rows, ``kernels`` rows without launches)."""
+    """Phase 9, the trainer: the backward kernels held and timed at the
+    ``BWD_LAYERS`` and the ``SSD_BWD_LAYERS``; the gradient wiring of
+    olmo-1b and mamba2-2.7b; then ``trainer_runs`` in a subprocess that
+    carries ``TRAIN_ENV`` (the earlier phases run without it): the trainer
+    at full width (counted: the phase's launches), the resume checks, the
+    other configs.  -> (launches of the full-width runs, parity rows,
+    ``kernels`` rows without launches)."""
     import torch
     parity, rows = [], []
     for name, f, dtype in BWD_LAYERS:
@@ -2657,12 +2813,16 @@ def train_phase(dev, seed, smi) -> tuple[dict, list, list]:
         parity.append(p_row)
         rows.append(k_row)
         log(json.dumps({"bwd_kernel": k_row}))
-    log(json.dumps(grad_wiring(dev, seed)))
+    ssd_parity, ssd_rows_ = ssd_bwd_rows(dev, seed)
+    parity += ssd_parity
+    rows += ssd_rows_
+    for arch in WIRING_PLANTED:
+        log(json.dumps(grad_wiring(dev, seed, arch)))
     free_card()
     res = subprocess.run(
         [sys.executable, str(ROOT / "chip_smoke.py"), "--trainer-runs",
          "--seed", str(seed)], cwd=ROOT, env={**os.environ, **TRAIN_ENV},
-        capture_output=True, text=True, timeout=600)
+        capture_output=True, text=True, timeout=900)
     out = res.stdout.splitlines()
     for line in out[:-1]:
         log(line)
@@ -2725,7 +2885,7 @@ def main() -> int:
     log(f"sass flash_attention_bwd: {hmma} HMMA instructions")
     check(hmma > 0, "the flash_attention_bwd library has no HMMA "
           "(mma.sync)")
-    for name in ("gather_mlp", "hub_reuse", "ssd_chunk"):
+    for name in ("gather_mlp", "hub_reuse", "ssd_chunk", "ssd_chunk_bwd"):
         check(spilled_bytes(kernels.BUILD_LOG[name]) == 0,
               f"ptxas reports spills in {name}")
         hmma = sass_count(name, "HMMA", "TF32")

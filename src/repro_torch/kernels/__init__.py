@@ -10,20 +10,21 @@ and three entry points of their own (no call site in the engine):
   knn              brute-force kNN, nearest first, ties to the lower index
   flash_attention  causal GQA attention forward, online softmax, and
                    its gradient (``flash_attention_bwd``)
-  ssd_chunk        Mamba-2 SSD intra-chunk output and chunk states
+  ssd_chunk        Mamba-2 SSD intra-chunk output and chunk states, and
+                   its gradient (``ssd_chunk_bwd``)
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches its kernel (built from ``csrc/`` with nvcc at first use) or
-raises.  Only flash_attention has a backward kernel: on the card the
-others raise :class:`NoBackwardError` where autograd would need their
-gradient.  :data:`LAUNCHES` counts the kernel launches per wrapper, and
+raises.  flash_attention and ssd_chunk have backward kernels: on the
+card the others raise :class:`NoBackwardError` where autograd would need
+their gradient.  :data:`LAUNCHES` counts the kernel launches per wrapper, and
 flash_attention's also per route (``flash_attention_wgmma``,
 ``flash_attention_mma``).
 """
 from ._build import _LOCK, BUILD_LOG, LAUNCHES, NoBackwardError, build
 
 NAMES = ("gather_mlp", "hub_reuse", "knn", "flash_attention",
-         "flash_attention_bwd", "ssd_chunk")
+         "flash_attention_bwd", "ssd_chunk", "ssd_chunk_bwd")
 
 
 def launch_counts() -> dict:

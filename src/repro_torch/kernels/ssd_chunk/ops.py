@@ -1,7 +1,9 @@
-"""Wrapper of the ssd_chunk CUDA kernel (``csrc/ssd_chunk.cu``).
+"""Wrappers of the ssd_chunk CUDA kernels: the forward
+(``csrc/ssd_chunk.cu``) and its gradient (``csrc/ssd_chunk_bwd.cu``),
+joined by :class:`SsdChunkFn`.
 
-A CPU tensor takes the plain PyTorch version (:func:`ssd_chunk_ref`); a
-CUDA tensor launches the kernel or raises.
+A CPU tensor takes the plain PyTorch versions (:func:`ssd_chunk_ref`,
+:func:`ssd_chunk_bwd_ref`); a CUDA tensor launches the kernel or raises.
 """
 from __future__ import annotations
 
@@ -10,12 +12,16 @@ import ctypes
 import torch
 
 from .. import _build
-from .ref import ssd_chunk_ref
+from .ref import ssd_chunk_bwd_ref, ssd_chunk_ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# the longest chunk the kernel takes (csrc/ssd_chunk.cu kQMax: C·Bᵀ and
+# the longest chunk the kernels take (csrc/ssd_chunk.cu kQMax: C·Bᵀ and
 # two x tiles of q rows in shared memory); P and S are tiled, any size
 MAX_Q = 128
+# the backward's kernels, each launched once a call, in this order: per
+# (chunk, head group) dx, ddt, dcum and the group's partial sums; per
+# chunk the partial sums added in a fixed order, then dB and dC
+SSD_BWD_PASSES = ("heads", "chunk")
 
 
 def _declare(lib):
@@ -27,35 +33,73 @@ def _lib():
     return _build.load("ssd_chunk", _declare)
 
 
+def _declare_bwd(lib):
+    lib.ssd_chunk_backward.argtypes = [_P] * 13 + [_I] * 5 + [_P]
+    lib.ssd_chunk_backward.restype = _I
+    lib.ssd_chunk_backward_scratch.argtypes = [_I] * 5
+    lib.ssd_chunk_backward_scratch.restype = ctypes.c_longlong
+
+
+def _lib_bwd():
+    return _build.load("ssd_chunk_bwd", _declare_bwd)
+
+
 def ssd_chunk(x, B, C, dt, cum):
-    """Mamba-2 SSD intra-chunk output and chunk states.
+    """Mamba-2 SSD intra-chunk output and chunk states, differentiable
+    through :class:`SsdChunkFn` (its backward is
+    :func:`ssd_chunk_backward`).
 
     x (bs, nc, q, H, P); B, C (bs, nc, q, S); dt, cum (bs, nc, q, H), all
     float32.  -> (y_in (bs, nc, q, H, P), states (bs, nc, H, P, S)):
     y_in[i] = Σ_{j<=i} (C_i·B_j) exp(cum_i − cum_j) dt_j x_j per head, and
     states = Σ_j x_j exp(cum_end − cum_j) dt_j B_jᵀ."""
+    return SsdChunkFn.apply(x, B, C, dt, cum)
+
+
+class SsdChunkFn(torch.autograd.Function):
+    """ssd_chunk with its gradient: the forward kernel, and the backward
+    kernel on the five saved inputs (the plain versions on CPU
+    tensors)."""
+
+    @staticmethod
+    def forward(ctx, x, B, C, dt, cum):
+        ctx.save_for_backward(x, B, C, dt, cum)
+        return _forward(x, B, C, dt, cum)
+
+    @staticmethod
+    def backward(ctx, dy, dst):
+        # an output that does not reach the loss comes as zeros
+        return ssd_chunk_backward(*ctx.saved_tensors, dy.contiguous(),
+                                  dst.contiguous())
+
+
+def _check_shapes(name, x, B, ops):
+    if x.dim() != 5:
+        raise ValueError(f"{name}: x has shape {tuple(x.shape)}, expected "
+                         f"(bs, nc, q, H, P)")
+    bs, nc, q, h, p = x.shape
+    s = B.shape[-1]
+    expect = {"B": (bs, nc, q, s), "C": (bs, nc, q, s),
+              "dt": (bs, nc, q, h), "cum": (bs, nc, q, h),
+              "dy": (bs, nc, q, h, p), "dst": (bs, nc, h, p, s)}
+    for arg, t in ops.items():
+        if arg in expect and tuple(t.shape) != expect[arg]:
+            raise ValueError(f"{name}: {arg} has shape {tuple(t.shape)}, "
+                             f"expected {expect[arg]}")
+    if not (0 < q <= MAX_Q and p > 0 and s > 0):
+        raise ValueError(f"{name}: the kernel takes chunks of 0 < q <= "
+                         f"{MAX_Q} and P, S > 0; got q={q}, P={p}, S={s}")
+    return bs, nc, q, h, p, s
+
+
+def _forward(x, B, C, dt, cum):
+    """The forward of :func:`ssd_chunk`, without autograd's wiring."""
     if x.device.type == "cpu":
         return ssd_chunk_ref(x, B, C, dt, cum)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_chunk: unsupported device {x.device}")
-    _build.refuse_grad("ssd_chunk", (x, B, C, dt, cum),
-                       "ROADMAP queue 2: the ssd_chunk backward "
-                       "kernel and Mamba-2 training on the card")
-    if x.dim() != 5:
-        raise ValueError(f"ssd_chunk: x has shape {tuple(x.shape)}, "
-                         f"expected (bs, nc, q, H, P)")
-    bs, nc, q, h, p = x.shape
-    s = B.shape[-1]
-    expect = {"B": (bs, nc, q, s), "C": (bs, nc, q, s),
-              "dt": (bs, nc, q, h), "cum": (bs, nc, q, h)}
     ops = {"x": x, "B": B, "C": C, "dt": dt, "cum": cum}
-    for arg, shape in expect.items():
-        if tuple(ops[arg].shape) != shape:
-            raise ValueError(f"ssd_chunk: {arg} has shape "
-                             f"{tuple(ops[arg].shape)}, expected {shape}")
-    if not (0 < q <= MAX_Q and p > 0 and s > 0):
-        raise ValueError(f"ssd_chunk: the kernel takes chunks of 0 < q <= "
-                         f"{MAX_Q} and P, S > 0; got q={q}, P={p}, S={s}")
+    bs, nc, q, h, p, s = _check_shapes("ssd_chunk", x, B, ops)
     _build.check_operands("ssd_chunk", ops, x.device)
     # one allocation: y_in first, the states after it
     n_y = x.numel()
@@ -71,3 +115,41 @@ def ssd_chunk(x, B, C, dt, cum):
         _build.check_launch(lib, "ssd_chunk", code)
         _build.count_launch("ssd_chunk")
     return y, states
+
+
+def ssd_chunk_backward(x, B, C, dt, cum, dy, dst):
+    """The gradient of :func:`ssd_chunk`: its five inputs and the
+    outputs' gradients dy (bs, nc, q, H, P) and dst (bs, nc, H, P, S),
+    all float32.  -> (dx, dB, dC, ddt, dcum) in the inputs' shapes (see
+    :func:`ssd_chunk_bwd_ref` for the closed form).  On a CUDA device
+    q <= 128 and every operand contiguous; ``len(SSD_BWD_PASSES)``
+    launches, no atomics (the same inputs give the same bits)."""
+    if x.device.type == "cpu":
+        return ssd_chunk_bwd_ref(x, B, C, dt, cum, dy, dst)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_chunk_backward: unsupported device "
+                         f"{x.device}")
+    ops = {"x": x, "B": B, "C": C, "dt": dt, "cum": cum, "dy": dy,
+           "dst": dst}
+    bs, nc, q, h, p, s = _check_shapes("ssd_chunk_backward", x, B, ops)
+    _build.check_operands("ssd_chunk_backward", ops, x.device)
+    dx, dB, dC = (torch.empty_like(t) for t in (x, B, C))
+    ddt, dcum = torch.empty_like(dt), torch.empty_like(cum)
+    if bs * nc * h == 0:
+        return dx, dB.zero_(), dC.zero_(), ddt, dcum
+    lib = _lib_bwd()
+    # each head group's partial dCB and state term of dB, from the first
+    # pass to the second
+    scratch = torch.empty(lib.ssd_chunk_backward_scratch(bs * nc, h, q, p,
+                                                         s),
+                          dtype=torch.float32, device=x.device)
+    code = lib.ssd_chunk_backward(
+        x.data_ptr(), B.data_ptr(), C.data_ptr(), dt.data_ptr(),
+        cum.data_ptr(), dy.data_ptr(), dst.data_ptr(), dx.data_ptr(),
+        dB.data_ptr(), dC.data_ptr(), ddt.data_ptr(), dcum.data_ptr(),
+        scratch.data_ptr(), bs * nc, h, q, p, s,
+        torch._C._cuda_getCurrentRawStream(x.device.index))
+    _build.check_launch(lib, "ssd_chunk_bwd", code)
+    for _ in SSD_BWD_PASSES:
+        _build.count_launch("ssd_chunk_bwd")
+    return dx, dB, dC, ddt, dcum

@@ -15,7 +15,11 @@ one.
         --reduced --device cpu --steps 20 --batch 8 --seq 128
 
 On the card attention's gradient runs through the ``flash_attention``
-backward kernel; an SSD layer raises (no ``ssd_chunk`` backward yet).
+backward kernel and an SSD layer's through the ``ssd_chunk`` one:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-2.7b \\
+        --steps 8 --batch 4 --seq 2048 --microbatches 2
+
 ``--production-mesh`` is refused: the multi-device code is not ported.
 """
 from __future__ import annotations

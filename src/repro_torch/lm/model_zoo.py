@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from ..kernels.flash_attention.ops import BWD_PASSES
+from ..kernels.ssd_chunk.ops import SSD_BWD_PASSES
 from ..nn.attention import attention_route
 from . import transformer as tfm
 from . import whisper as whi
@@ -98,17 +99,20 @@ def train_launches(cfg: ArchConfig, microbatches: int = 1) -> dict:
     """The kernel launches of one ``steps.make_train_step`` step on the
     card: each microbatch runs the prefill's forward launches (the head
     aside, which launches nothing) and, under ``cfg.remat``, runs them
-    again in the backward, and for each ``flash_attention`` forward it
+    again in the backward; for each ``flash_attention`` forward it
     differentiates one ``flash_attention_backward`` call, which launches
-    ``len(BWD_PASSES)`` kernels (the dQ pass, then the dK/dV pass).  An
-    ``ssd_chunk`` layer raises on the card under grad (no backward
-    yet)."""
+    ``len(BWD_PASSES)`` kernels (the dQ pass, then the dK/dV pass), and
+    for each ``ssd_chunk`` forward one ``ssd_chunk_backward`` call, which
+    launches ``len(SSD_BWD_PASSES)`` (the heads pass, then the chunk
+    pass)."""
     fwd = prefill_launches(cfg)
     runs = microbatches * (2 if cfg.remat else 1)
     return {"flash_attention": runs * fwd["flash_attention"],
             "flash_attention_bwd": (len(BWD_PASSES) * microbatches
                                     * fwd["flash_attention"]),
-            "ssd_chunk": runs * fwd["ssd_chunk"]}
+            "ssd_chunk": runs * fwd["ssd_chunk"],
+            "ssd_chunk_bwd": (len(SSD_BWD_PASSES) * microbatches
+                              * fwd["ssd_chunk"])}
 
 
 def decode_fn(cfg: ArchConfig, params, token, cache, pos: int):

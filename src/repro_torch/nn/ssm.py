@@ -4,9 +4,11 @@
 Chunked SSD: within a chunk the recurrence is a masked attention-like
 quadratic form; across chunks a short loop carries the (n_heads, headdim,
 d_state) states.  The intra-chunk output and the chunk states come from
-the hand-written ``ssd_chunk`` kernel (float32, chunks of q <= 128; on a
-CPU tensor its wrapper runs ``ssd_chunk_ref``); the inter-chunk scan and
-the rest are plain torch.  Single-token decode is the O(1) recurrence.
+the hand-written ``ssd_chunk`` kernel (float32, chunks of q <= 128), and
+under autograd their gradient from its backward kernel (``SsdChunkFn``;
+on a CPU tensor the wrappers run ``ssd_chunk_ref`` and the closed form
+``ssd_chunk_bwd_ref``); the inter-chunk scan and the rest are plain
+torch.  Single-token decode is the O(1) recurrence.
 n_groups = 1 (B/C shared across heads, the released-model default).
 
 Layer structure (released mamba2): in_proj -> [z | x | B | C | dt],

@@ -738,21 +738,31 @@ def test_flash_attention_grads_go_through_the_backward_kernel():
 
 
 @pytest.mark.cuda
-def test_kernels_without_a_backward_raise_under_grad_on_card():
-    """ssd_chunk, gather_mlp, hub_reuse and knn refuse an input that
-    requires grad on the card (no detached result, no plain fallback),
-    and run under torch.no_grad()."""
-    from repro_torch.kernels import NoBackwardError
-    from repro_torch.kernels.gather_mlp import gather_mlp
-    from repro_torch.kernels.hub_reuse import hub_reuse
+def test_ssd_chunk_under_grad_on_card_has_a_grad_fn():
+    """ssd_chunk on an input that requires grad on the card launches its
+    forward kernel and hands autograd a result wired to its inputs (no
+    NoBackwardError, no detached result), as it does under no_grad."""
     dev = _cuda()
     rng = np.random.default_rng(0)
     ssd = [t.to(dev) for t in _torch(_ssd_inputs(rng, 1, 2, 16, 2, 8, 16))]
     ssd[0].requires_grad_()
-    with pytest.raises(NoBackwardError, match="no ssd_chunk backward"):
-        ssd_chunk(*ssd)
+    before = _build.LAUNCHES["ssd_chunk"]
+    y, st = ssd_chunk(*ssd)
+    assert _build.LAUNCHES["ssd_chunk"] == before + 1
+    assert y.grad_fn is not None and st.grad_fn is not None
     with torch.no_grad():
-        ssd_chunk(*ssd)
+        y0, st0 = ssd_chunk(*ssd)
+    assert torch.equal(y, y0) and torch.equal(st, st0)
+
+
+@pytest.mark.cuda
+def test_kernels_without_a_backward_raise_under_grad_on_card():
+    """gather_mlp, hub_reuse and knn refuse an input that requires grad on
+    the card (no detached result, no plain fallback)."""
+    from repro_torch.kernels import NoBackwardError
+    from repro_torch.kernels.gather_mlp import gather_mlp
+    from repro_torch.kernels.hub_reuse import hub_reuse
+    dev = _cuda()
     pts = torch.randn((64, 3), device=dev, requires_grad=True)
     with pytest.raises(NoBackwardError, match="no knn backward"):
         knn(pts, pts, 4)

@@ -36,6 +36,7 @@ from repro.optim import adamw as jadamw
 from repro_torch import tree
 from repro_torch.dist import compress as pcompress
 from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.ssd_chunk import ops as ssd_ops
 from repro_torch.lm import model_zoo as pzoo
 from repro_torch.lm import steps as psteps
 from repro_torch.lm.params import from_numpy
@@ -223,10 +224,11 @@ def test_train_step_calls_the_kernels_train_launches_counts(
         arch, microbatches, monkeypatch):
     """On the CPU the wrappers run their plain versions through the same
     wiring: one step calls flash_attention's forward, its backward and
-    ssd_chunk as often as the card would launch them (each backward call
-    launches ``BWD_PASSES``' kernels)."""
+    ssd_chunk and its backward as often as the card would launch them
+    (each backward call launches ``BWD_PASSES``' or ``SSD_BWD_PASSES``'
+    kernels)."""
     calls = {"flash_attention": 0, "flash_attention_bwd": 0,
-             "ssd_chunk": 0}
+             "ssd_chunk": 0, "ssd_chunk_bwd": 0}
 
     def counted(name, fn, launches=1):
         def call(*args, **kw):
@@ -241,6 +243,9 @@ def test_train_step_calls_the_kernels_train_launches_counts(
                                 len(flash_ops.BWD_PASSES)))
     monkeypatch.setattr(pssm, "ssd_chunk",
                         counted("ssd_chunk", pssm.ssd_chunk))
+    monkeypatch.setattr(ssd_ops, "ssd_chunk_backward",
+                        counted("ssd_chunk_bwd", ssd_ops.ssd_chunk_backward,
+                                len(ssd_ops.SSD_BWD_PASSES)))
     cfg, params, batch, opt = port(arch)
     step = psteps.make_train_step(cfg, padamw.AdamWConfig(
         state_dtype="float32"), microbatches=microbatches)

@@ -3,8 +3,8 @@
 
     python3 tools/ssd_chunk_planted_faults.py [--seed N]
 
-Builds copies of ``src/repro_torch/csrc/ssd_chunk.cu`` and its header
-``tf32x3.cuh`` with one fault each (under
+Builds copies of ``src/repro_torch/csrc/ssd_chunk.cu`` and its headers
+``ssd_tiles.cuh`` and ``tf32x3.cuh`` with one fault each (under
 ``build/repro_torch/faults/ssd_chunk/``; the sources are not touched),
 runs each through ``repro_torch.kernels.ssd_chunk`` at chip_smoke.py's
 ``SSD_LAYERS`` (a Mamba2-2.7B layer at chunks of 64 and 128) and
@@ -36,7 +36,7 @@ FAULTS = {
                       ""),
     # M's decay taken above the diagonal too (not masked to 0)
     "exp_above_diagonal_unmasked": (
-        "ssd_chunk.cu", "return on ? cb * __expf(ci - cj) * dj : 0.f;",
+        "ssd_tiles.cuh", "return on ? cb * __expf(ci - cj) * dj : 0.f;",
         "return cb * __expf(ci - cj) * dj;"),
     # the last 64-column tile of P never computed
     "last_p_tile_dropped": ("ssd_chunk.cu", "p.nP = (P + kPT - 1) / kPT;",
@@ -49,7 +49,7 @@ FAULTS = {
                                "const float cend = cum[p.Q - 1];",
                                "const float cend = cum[p.Q - 2];"),
 }
-FILES = ("ssd_chunk.cu", "tf32x3.cuh")
+FILES = ("ssd_chunk.cu", "ssd_tiles.cuh", "tf32x3.cuh")
 
 
 def main() -> int:

@@ -4,8 +4,9 @@
     python3 tools/ssd_chunk_variants.py [--seed N] [--iters N]
         [--only committed,one_pass] [--shapes a,b] [--against DIR]
 
-Builds copies of ``src/repro_torch/csrc/ssd_chunk.cu`` and ``tf32x3.cuh``
-with one edit each (under ``build/repro_torch/variants/ssd_chunk/``; the
+Builds copies of ``src/repro_torch/csrc/ssd_chunk.cu``, ``ssd_tiles.cuh``
+and ``tf32x3.cuh`` with one edit each (under
+``build/repro_torch/variants/ssd_chunk/``; the
 sources are not touched), calls each library's ``ssd_chunk_forward``
 directly (no Python wrapper) at chip_smoke.py's ``SSD_LAYERS`` (a
 Mamba2-2.7B layer at chunks of 64 and 128), and times every variant and
@@ -16,7 +17,7 @@ take (``VARIANTS``).  Prints ptxas's registers and spills per kernel of
 each variant and one JSON line per (shape, variant): ms and max |Δ| of
 y_in and the states against the plain version beside the limit 2e-4 ·
 max(1, max|plain|).  ``--against DIR`` adds another tree's
-``ssd_chunk.cu`` (and its ``tf32x3.cuh`` where DIR has one; e.g. a
+``ssd_chunk.cu`` (and its headers where DIR has them; e.g. a
 parent commit's ``src/repro_torch/csrc``) as the variant ``against``,
 timed in the same turns; a library that refuses a shape (a parent at
 q > 64) says so.  Needs one CUDA device.
@@ -33,7 +34,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(ROOT), str(ROOT / "src"), str(ROOT / "tools")]
 
-FILES = ("ssd_chunk.cu", "tf32x3.cuh")
+FILES = ("ssd_chunk.cu", "ssd_tiles.cuh", "tf32x3.cuh")
 NO_Y = ("ssd_chunk.cu", "    if (pr < npairs) {", "    if (false) {")
 NO_STATES = ("ssd_chunk.cu",
              "for (int wi = warp; wi < npp * nsq; wi += kWarps) {",
@@ -47,7 +48,7 @@ VARIANTS = {
                   "  mma(c, a.small, b.big);\n  mma(c, a.big, b.small);\n",
                   "")],
     # the exponentials in full precision (expf, not __expf)
-    "exact_exp": [("ssd_chunk.cu", "return on ? cb * __expf(ci - cj) * dj",
+    "exact_exp": [("ssd_tiles.cuh", "return on ? cb * __expf(ci - cj) * dj",
                    "return on ? cb * expf(ci - cj) * dj"),
                   ("ssd_chunk.cu", "ws[j] = j < p.Q ? __expf(cend - cum[j])",
                    "ws[j] = j < p.Q ? expf(cend - cum[j])")],

@@ -1,18 +1,19 @@
 #!/usr/bin/env python3
-"""Where one full-width olmo-1b train step spends its time (GPU only).
+"""Where one full-width train step spends its time (GPU only).
 
-    python3 tools/train_profile.py [--steps 2] [--seed 0]
+    python3 tools/train_profile.py [--arch olmo-1b] [--steps 2] [--seed 0]
 
-The step of ``chip_smoke.TRAIN_MAIN`` (olmo-1b as published, bf16 params,
-f32 AdamW state, remat, 4 x 2048 tokens in 2 microbatches) through
-``repro_torch.lm.steps.make_train_step``: after two warm-up steps,
-``--steps`` steps under torch.profiler, their kernels' device time summed
-by kind (the flash_attention forward and backward kernels, cuBLAS's
-matrix products, everything else) with the device's idle share of the
-profiled wall time; then, timed alone with CUDA events, one microbatch's
-forward and backward (``steps.loss_and_grads``) and one
-AdamW update (``optim.adamw.apply_updates``).  Prints one JSON line beside
-the card's name and power limit.
+The step of a ``chip_smoke.TRAIN_MAIN`` run (olmo-1b or mamba2-2.7b as
+published, bf16 params, f32 AdamW state, remat, 4 x 2048 tokens in 2
+microbatches) through ``repro_torch.lm.steps.make_train_step``: after two
+warm-up steps, ``--steps`` steps under torch.profiler, their kernels'
+device time summed by kind (the flash_attention and ssd_chunk forward and
+backward kernels, cuBLAS's matrix products, everything else, whose
+costliest kernels are named) with the device's idle share of the profiled
+wall time; then, timed alone with CUDA events, one microbatch's forward
+and backward (``steps.loss_and_grads``) and one AdamW update
+(``optim.adamw.apply_updates``).  Prints one JSON line beside the card's
+name and power limit.
 """
 from __future__ import annotations
 
@@ -30,6 +31,8 @@ sys.path.insert(0, str(ROOT / "src"))
 # kernel name fragments of each kind, tried in this order
 KINDS = (("flash_attention_bwd", ("bwd_dq_kernel", "bwd_dkv_kernel")),
          ("flash_attention", ("flash_mma_kernel", "flash_wgmma_kernel")),
+         ("ssd_chunk_bwd", ("ssd_bwd_heads", "ssd_bwd_chunk")),
+         ("ssd_chunk", ("ssd_chunk_kernel",)),
          ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "sm90_")))
 
 
@@ -57,6 +60,8 @@ def cuda_ms(fn, reps: int = 3) -> float:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="olmo-1b",
+                    choices=("olmo-1b", "mamba2-2.7b"))
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -82,9 +87,10 @@ def main() -> int:
                           "--format=csv,noheader"], check=True,
                          capture_output=True, text=True).stdout.splitlines()[0]
     print(smi, flush=True)
-    kernels.build(("flash_attention", "flash_attention_bwd"))
+    kernels.build(("flash_attention", "flash_attention_bwd", "ssd_chunk",
+                   "ssd_chunk_bwd"))
     torch.use_deterministic_algorithms(True, warn_only=True)
-    r = cs.TRAIN_MAIN
+    r = next(run for run in cs.TRAIN_MAIN if run["arch"] == args.arch)
     cfg = get_config(r["arch"])
     dev = torch.device("cuda")
     params = zoo.init(torch.Generator(device=dev).manual_seed(args.seed), cfg,
@@ -108,9 +114,13 @@ def main() -> int:
         wall_ms = (time.perf_counter() - t0) * 1e3
     kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     by_kind: dict = {}
+    other: dict = {}
     for e in kern:
         ms, n = by_kind.get(kind_of(e.name), (0.0, 0))
         by_kind[kind_of(e.name)] = (ms + e.device_time / 1e3, n + 1)
+        if kind_of(e.name) == "other":
+            ms, n = other.get(e.name, (0.0, 0))
+            other[e.name] = (ms + e.device_time / 1e3, n + 1)
     busy = sum(ms for ms, _ in by_kind.values())
 
     mb = {k: v[: r["b"] // r["microbatches"]] for k, v in batches[0].items()}
@@ -128,6 +138,10 @@ def main() -> int:
                      "share_of_busy": ms / busy}
                  for k, (ms, n) in sorted(by_kind.items(),
                                           key=lambda kv: -kv[1][0])},
+        costliest_other={name[:120]: {"ms_per_step": ms / args.steps,
+                                      "launches_per_step": n / args.steps}
+                         for name, (ms, n) in sorted(
+                             other.items(), key=lambda kv: -kv[1][0])[:10]},
         microbatch_fwd_bwd_ms=cuda_ms(
             lambda: steps.loss_and_grads(cfg, params, mb)),
         adamw_ms=cuda_ms(lambda: adamw.apply_updates(opt_cfg, params, grads,
