@@ -91,11 +91,14 @@ Phases, each timed, any failure exits non-zero:
      subprocess;
   9. train (``train_phase``): ``flash_attention``'s backward kernel
      (``csrc/flash_attention_bwd.cu``, built with the others; two
-     launches a call, the dQ pass and the dK/dV pass, both counted) held
-     against ``attention_bwd_ref`` and timed beside the plain version and
-     SDPA's backward (``BWD_LAYERS``: olmo-1b's layer in bf16 and f32,
-     Qwen2-72B's, Whisper-large-v3's encoder, gemma-7b's in f32;
-     ``BWD_TOL``; two calls bit-equal); ``ssd_chunk``'s backward kernel
+     launches a call, the dQ pass and the dK/dV pass, both counted, per
+     route too: ``wgmma`` for aligned bf16 at D <= 128, else ``mma``)
+     given the forward's log-sum-exp, held against ``attention_bwd_ref``
+     and timed beside the plain version and SDPA's backward (which reuses
+     its own saved log-sum-exp) (``BWD_LAYERS``: olmo-1b's layer in bf16
+     and f32, Qwen2-72B's, Whisper-large-v3's encoder, gemma-7b's in f32;
+     ``BWD_TOL``; two calls bit-equal, and bit-equal to the call that
+     leaves the log-sum-exp to the wrapper); ``ssd_chunk``'s backward kernel
      (``csrc/ssd_chunk_bwd.cu``; two launches a call, the heads pass and
      the chunk pass) held against ``ssd_chunk_bwd_ref`` and autograd of
      ``ssd_chunk_ref`` and timed beside the plain version
@@ -111,8 +114,9 @@ Phases, each timed, any failure exits non-zero:
      published, 4 × 2048 tokens in 2 microbatches, 8 steps
      (``TRAIN_MAIN``), each with the launch counts reset (the forward and
      backward kernels' launches must equal ``model_zoo.train_launches``
-     a step), every loss finite, step time and tokens/s over the window
-     after the first two steps, the bound (the forward and backward;
+     a step; olmo-1b's backward all on ``wgmma``), every loss finite,
+     step time and tokens/s over the window after the first two steps,
+     the bound (the forward and backward;
      remat's recompute beside it) and peak memory; the resume check of
      each at 2 layers (``TRAIN_RESUME``: 6 steps straight against 3 + 3
      with a restart from the checkpoint, losses within ``RESUME_TOL``);
@@ -121,10 +125,11 @@ Phases, each timed, any failure exits non-zero:
 
 Output lines: the card's name and power limit (nvidia-smi), phase times,
 ptxas's registers and spills per kernel (gather_mlp, hub_reuse,
-ssd_chunk and ssd_chunk_bwd must not spill), the counts of HGMMA (wgmma)
-and HMMA (mma.sync) instructions in the built flash_attention library, of
-HMMA in flash_attention_bwd's and of TF32 HMMA instructions in the
-gather_mlp, hub_reuse, ssd_chunk and ssd_chunk_bwd ones,
+ssd_chunk, ssd_chunk_bwd and flash_attention_bwd must not spill), the
+counts of HGMMA (wgmma) and HMMA (mma.sync) instructions in the built
+flash_attention and flash_attention_bwd libraries and of TF32 HMMA
+instructions in the gather_mlp, hub_reuse, ssd_chunk, ssd_chunk_bwd and
+flash_attention_bwd ones,
 ``parity``,
 ``per_cloud`` and ``entry_parity``
 JSON lines, the serving reports (``serve_async``, ``serve_sync``,
@@ -2316,34 +2321,51 @@ def bwd_flops(b, hq, sq, skv, d, causal) -> float:
 
 def bwd_row(name: str, f: dict, dtype, dev, seed: int):
     """flash_attention_backward at an attention layer ``f`` (b, hq, hkv,
-    s, d, causal): q, k, v and dO drawn from ``seed``, o from the forward
-    kernel; dq, dk, dv held against ``attention_bwd_ref`` on the same
-    inputs (``BWD_TOL``), then kernel, plain version and SDPA's backward
-    (the library, timed only: autograd of one SDPA call, its graph kept)
-    timed in turns.  -> (parity row, ``kernels`` row without launches)."""
+    s, d, causal): q, k, v and dO drawn from ``seed``, o and the
+    log-sum-exp from the forward kernel; dq, dk, dv held against
+    ``attention_bwd_ref`` on the same inputs (``BWD_TOL``), on the route
+    ``_variant`` names (counted per pass), two calls bit-equal and equal
+    to the call that leaves the log-sum-exp to the wrapper; then kernel
+    (given the forward's log-sum-exp, as SDPA's backward reuses its own),
+    plain version and SDPA's backward (the library, timed only: autograd
+    of one SDPA call, its graph kept) timed in turns.  -> (parity row,
+    ``kernels`` row without launches)."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels import BUILD_LOG
+    from repro_torch.kernels import BUILD_LOG, LAUNCHES
     from repro_torch.kernels.flash_attention import (
-        attention_bwd_ref, flash_attention, flash_attention_backward)
+        attention_bwd_ref, flash_attention_backward)
+    from repro_torch.kernels.flash_attention import ops as flash_ops
     gen = torch.Generator(device=dev).manual_seed(seed)
     causal = f["causal"]
     q, k, v = (torch.randn((f["b"], h, f["s"], f["d"]), generator=gen,
                            device=dev).to(dtype)
                for h in (f["hq"], f["hkv"], f["hkv"]))
-    o = flash_attention(q, k, v, causal=causal)
+    o, lse = flash_ops._forward(q, k, v, causal, lse=True)
     do = torch.randn(o.shape, generator=gen, device=dev).to(dtype)
-    got = flash_attention_backward(q, k, v, o, do, causal)
-    want = attention_bwd_ref(q, k, v, o, do, causal)
-    again = flash_attention_backward(q, k, v, o, do, causal)
-    torch.cuda.synchronize()
+    route = flash_ops._variant(dtype, f["d"],
+                               [t.data_ptr() for t in (q, k, v, o, do)])
+    counts = [f"flash_attention_bwd_{p}_{route}"
+              for p in flash_ops.BWD_PASSES]
+    before = [LAUNCHES[c] for c in counts]
+    got = flash_attention_backward(q, k, v, o, do, causal, lse=lse)
     label = str(dtype).replace("torch.", "")
+    check([LAUNCHES[c] for c in counts] == [n + 1 for n in before],
+          f"flash_attention_bwd {name} {label}: not on the {route} route")
+    want = attention_bwd_ref(q, k, v, o, do, causal)
+    again = flash_attention_backward(q, k, v, o, do, causal, lse=lse)
+    rebuilt = flash_attention_backward(q, k, v, o, do, causal)
+    torch.cuda.synchronize()
     errs = {}
-    for part, x, y, z in zip(("dq", "dk", "dv"), got, want, again):
+    for part, x, y, z, r in zip(("dq", "dk", "dv"), got, want, again,
+                                rebuilt):
         check(bool(torch.isfinite(x).all()),
               f"flash_attention_bwd {name} {label} {part}: non-finite")
         check(torch.equal(x, z), f"flash_attention_bwd {name} {label} "
               f"{part}: two calls differ (the kernel has no atomics)")
+        check(torch.equal(x, r), f"flash_attention_bwd {name} {label} "
+              f"{part}: the forward's log-sum-exp and the wrapper's give "
+              f"other bits")
         e = flash_err(x, y)
         e["scale"] = max(1.0, y.float().abs().max().item())
         errs[part] = e
@@ -2355,11 +2377,11 @@ def bwd_row(name: str, f: dict, dtype, dev, seed: int):
             check(e["rel_err"] <= BWD_TOL[label],
                   f"flash_attention_bwd {name} bf16 {part}: {e}, limit "
                   f"‖Δ‖/‖ref‖ {BWD_TOL[label]}")
-    del want, again
+    del want, again, rebuilt
     free_card()
     fns = {"plain": lambda: attention_bwd_ref(q, k, v, o, do, causal),
            "kernel": lambda: flash_attention_backward(q, k, v, o, do,
-                                                      causal)}
+                                                      causal, lse=lse)}
     refused = None
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
     try:
@@ -2373,7 +2395,7 @@ def bwd_row(name: str, f: dict, dtype, dev, seed: int):
         fns.pop("library", None)
     t = time_turns(fns, iters=5)
     flops = bwd_flops(f["b"], f["hq"], f["s"], f["s"], f["d"], causal)
-    moved = nbytes(q, k, v, o, do, *got)
+    moved = nbytes(q, k, v, o, do, lse, *got)
     extra = {}
     if dtype == torch.bfloat16:
         bms, by = bound(flops, moved, PEAK_BF16)
@@ -2382,13 +2404,15 @@ def bwd_row(name: str, f: dict, dtype, dev, seed: int):
         extra["bound_fp32_ms"] = bound(flops, moved)[0]
     if refused:
         extra["library_refused"] = refused
+    else:
+        extra["vs_library"] = t["kernel"] / t["library"]
     shape = (f"B={f['b']} Hq={f['hq']} Hkv={f['hkv']} Sq=Skv={f['s']} "
              f"D={f['d']} {'causal' if causal else 'non-causal'} {label}")
-    parity = dict(name="flash_attention_bwd", shape=shape,
+    parity = dict(name="flash_attention_bwd", shape=shape, variant=route,
                   tol=BWD_TOL[label], **errs)
     row = dict(
         name="flash_attention_bwd", block=f"{name}_{label}", route="cuda",
-        source="src/repro_torch/csrc/flash_attention_bwd.cu",
+        variant=route, source="src/repro_torch/csrc/flash_attention_bwd.cu",
         replaces="src/repro/kernels/flash_attention/flash_attention.py:77",
         shape=shape, tflops=flops / t["kernel"] / 1e9,
         max_abs_err=max(e["max_abs_err"] for e in errs.values()),
@@ -2397,7 +2421,7 @@ def bwd_row(name: str, f: dict, dtype, dev, seed: int):
         share=bms / t["kernel"], library_ms=t.get("library"),
         spill_bytes=spilled_bytes(BUILD_LOG["flash_attention_bwd"]),
         **extra)
-    del q, k, v, o, do, got, leaves, fns
+    del q, k, v, o, do, lse, got, leaves, fns
     free_card()
     return parity, row
 
@@ -2701,6 +2725,16 @@ def train_full(seed, smi, r) -> tuple[dict, dict]:
             **{k: r["steps"] * v for k, v in per_step.items()}}
     check(launches == want, f"train {r['arch']}: launches {launches}, "
           f"train_launches × steps {want}")
+    # the backward's launches by pass and route (counted since run_train
+    # reset them): bf16 at olmo-1b's head width runs on wgmma alone
+    from repro_torch import kernels
+    routes = {k: v for k, v in kernels.LAUNCHES.items()
+              if k.startswith("flash_attention_bwd_") and v}
+    check(sum(routes.values()) == launches["flash_attention_bwd"],
+          f"train {r['arch']}: backward launches by route {routes}")
+    if launches["flash_attention_bwd"] and cfg.dtype == "bfloat16":
+        check(all(k.endswith("_wgmma") for k in routes),
+              f"train {r['arch']}: the bf16 backward off wgmma: {routes}")
     window = dts[2:]
     step_s = sum(window) / len(window)
     bnd = train_bound(cfg, r["b"], r["s"])
@@ -2712,6 +2746,7 @@ def train_full(seed, smi, r) -> tuple[dict, dict]:
                 **bnd, share=bnd["bound_ms"] / (step_s * 1e3),
                 peak_memory_gb=peak / 1e9, wall_s=wall,
                 launches={k: v for k, v in launches.items() if v},
+                bwd_routes=routes,
                 launches_per_step={k: v for k, v in per_step.items() if v},
                 card=smi)
     return line, launches
@@ -2875,17 +2910,15 @@ def main() -> int:
         for row in ptxas_kernels(text):
             log(f"ptxas {name}: {row['kernel']}: {row['registers']} "
                 f"registers, {row['spill']} bytes spilled")
-    hgmma = sass_count("flash_attention", "HGMMA")
-    hmma = sass_count("flash_attention", "HMMA")
-    log(f"sass flash_attention: {hgmma} HGMMA instructions, {hmma} HMMA "
-        f"instructions")
-    check(hgmma > 0, "the flash_attention library has no HGMMA (wgmma)")
-    check(hmma > 0, "the flash_attention library has no HMMA (mma.sync)")
-    hmma = sass_count("flash_attention_bwd", "HMMA")
-    log(f"sass flash_attention_bwd: {hmma} HMMA instructions")
-    check(hmma > 0, "the flash_attention_bwd library has no HMMA "
-          "(mma.sync)")
-    for name in ("gather_mlp", "hub_reuse", "ssd_chunk", "ssd_chunk_bwd"):
+    for name in ("flash_attention", "flash_attention_bwd"):
+        hgmma = sass_count(name, "HGMMA")
+        hmma = sass_count(name, "HMMA")
+        log(f"sass {name}: {hgmma} HGMMA instructions, {hmma} HMMA "
+            f"instructions")
+        check(hgmma > 0, f"the {name} library has no HGMMA (wgmma)")
+        check(hmma > 0, f"the {name} library has no HMMA (mma.sync)")
+    for name in ("gather_mlp", "hub_reuse", "ssd_chunk", "ssd_chunk_bwd",
+                 "flash_attention_bwd"):
         check(spilled_bytes(kernels.BUILD_LOG[name]) == 0,
               f"ptxas reports spills in {name}")
         hmma = sass_count(name, "HMMA", "TF32")

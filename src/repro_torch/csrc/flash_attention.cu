@@ -98,12 +98,19 @@
 // The two round differently from the TPU kernel, which multiplies p by v
 // in fp32: bf16 on either route rounds P to bf16 first, as tensor-core
 // flash kernels do; f32 keeps it in 3xTF32.
+//
+// Given a non-null `lse`, both kernels also store each row's log-sum-exp
+// in their softmax's log2 domain (lse2 below), which the backward
+// (csrc/flash_attention_bwd.cu) reads instead of rebuilding it; given null
+// they store nothing.  The wgmma route's TMA, mbarrier and wgmma helpers
+// live in csrc/sm90.cuh, which the backward shares.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "sm90.cuh"
 #include "tf32x3.cuh"
 
 namespace {
@@ -114,6 +121,13 @@ __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
+}
+
+// a row's log-sum-exp in the log2 domain of the online softmax: m the
+// row's max of q_i . k_j * scale * log2(e), l the sum of exp2 of those
+// minus m
+__device__ __forceinline__ float lse2(float m, float l) {
+  return m == -INFINITY ? 0.f : m + log2f(l);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -410,14 +424,17 @@ __device__ __forceinline__ void put2(__nv_bfloat16* p, float x, float y) {
 }
 
 // kPlain: the plain-load copies (bf16 only), else cp.async; the tiles
-// held in registers across the products take one block an SM
-template <typename T, int DP, bool kPlain>
+// held in registers across the products take one block an SM.  kLse: the
+// rows' log-sum-exp stored too (a template argument, so that the kernel
+// without it is the code it was: at DP = 256, where O takes 128 registers
+// a lane, the store tips ptxas into spills)
+template <typename T, int DP, bool kPlain, bool kLse>
 __global__ void __launch_bounds__(Cfg<T, DP>::kThreads,
                                   kPlain ? 1 : Cfg<T, DP>::kMinBlocks)
 flash_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int Hq, int group,
-                 int Sq, int Skv, int D, float scale_log2, int causal,
-                 int copy) {
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, int Hq, int group, int Sq, int Skv,
+                 int D, float scale_log2, int causal, int copy) {
   using C = Cfg<T, DP>;
   extern __shared__ __align__(16) uint8_t mm_smem[];
   T* qs = reinterpret_cast<T*>(mm_smem);
@@ -566,6 +583,9 @@ flash_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < 2; ++i) {
     l_run[i] += __shfl_xor_sync(0xffffffffu, l_run[i], 1);
     l_run[i] += __shfl_xor_sync(0xffffffffu, l_run[i], 2);
+    const int row = row_lo + g + 8 * i;
+    if (kLse && t == 0 && row < Sq)
+      lse[(long long)bh * Sq + row] = lse2(m_run[i], l_run[i]);
     l_run[i] = 1.f / fmaxf(l_run[i], 1e-20f);
   }
   const bool pairs =
@@ -602,10 +622,10 @@ cudaError_t run(void (*kernel)(P...), dim3 grid, int threads, int smem,
   return cudaGetLastError();
 }
 
-template <typename T, int DP>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int Hq, int Hkv, int Sq, int Skv, int D, int causal,
-                   cudaStream_t stream) {
+template <typename T, int DP, bool kLse>
+cudaError_t launch_as(const void* q, const void* k, const void* v, void* o,
+                      float* lse, int B, int Hq, int Hkv, int Sq, int Skv,
+                      int D, int causal, cudaStream_t stream) {
   using C = Cfg<T, DP>;
   // the largest cp.async piece that every address and row allows, else
   // plain loads (a bf16 operand 2 bytes off a 4-byte boundary, or an odd
@@ -622,28 +642,44 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((unsigned)(B * Hq), (unsigned)((Sq + C::kBQ - 1) / C::kBQ));
   const float scale_log2 = (float)(1.4426950408889634 / sqrt((double)D));
   if (copy != 0)
-    return run(flash_mma_kernel<T, DP, false>, grid, C::kThreads, C::kBytes,
-               stream, (const T*)q, (const T*)k, (const T*)v, (T*)o, Hq,
-               Hq / Hkv, Sq, Skv, D, scale_log2, causal, copy);
+    return run(flash_mma_kernel<T, DP, false, kLse>, grid, C::kThreads,
+               C::kBytes,
+               stream, (const T*)q, (const T*)k, (const T*)v, (T*)o, lse,
+               Hq, Hq / Hkv, Sq, Skv, D, scale_log2, causal, copy);
   if constexpr (C::kF32) {
     return cudaErrorMisalignedAddress;
   } else {
-    return run(flash_mma_kernel<T, DP, true>, grid, C::kThreads, C::kBytes,
-               stream, (const T*)q, (const T*)k, (const T*)v, (T*)o, Hq,
-               Hq / Hkv, Sq, Skv, D, scale_log2, causal,
+    return run(flash_mma_kernel<T, DP, true, kLse>, grid, C::kThreads,
+               C::kBytes,
+               stream, (const T*)q, (const T*)k, (const T*)v, (T*)o, lse,
+               Hq, Hq / Hkv, Sq, Skv, D, scale_log2, causal,
                D % 8 == 0 ? kShifted : kScalar);
   }
 }
 
+template <typename T, int DP>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+                   float* lse, int B, int Hq, int Hkv, int Sq, int Skv, int D,
+                   int causal, cudaStream_t stream) {
+  if (lse != nullptr)
+    return launch_as<T, DP, true>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, D,
+                                  causal, stream);
+  return launch_as<T, DP, false>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, D,
+                                 causal, stream);
+}
+
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int Hq, int Hkv, int Sq, int Skv, int D, int causal,
-                   cudaStream_t stream) {
+                   float* lse, int B, int Hq, int Hkv, int Sq, int Skv, int D,
+                   int causal, cudaStream_t stream) {
   if (D <= 64)
-    return launch<T, 64>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D, causal, stream);
+    return launch<T, 64>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, D, causal,
+                         stream);
   if (D <= 128)
-    return launch<T, 128>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D, causal, stream);
-  return launch<T, 256>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D, causal, stream);
+    return launch<T, 128>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, D, causal,
+                          stream);
+  return launch<T, 256>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, D, causal,
+                        stream);
 }
 
 }  // namespace mm
@@ -657,8 +693,7 @@ constexpr int kBK = 128;                // keys per kv tile
 constexpr int kStages = 2;              // K/V ring depth
 constexpr int kConsumers = 2;           // warpgroups of 64 query rows
 constexpr int kThreads = 128 * (kConsumers + 1);
-constexpr int kRowBytes = 128;          // a swizzle row: 64 bf16 of D
-constexpr int kHalfBytes = kBK * kRowBytes;   // 128 rows x 64 columns
+constexpr int kHalfBytes = kBK * sm90::kRowBytes;  // 128 rows x 64 columns
 
 // byte offsets from a 1024-aligned base; DP (64 or 128) is D padded
 template <int DP>
@@ -673,134 +708,6 @@ struct Layout {
   static constexpr int kBytes = kBar + 8 * kBars + 1024;  // + alignment
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar))
-               : "memory");
-}
-
-// returns once the barrier's phase with the given parity has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred done;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-      "@!done bra WAIT;\n"
-      "}\n" ::"r"(smem_u32(bar)),
-      "r"(parity)
-      : "memory");
-}
-
-// one box of the 3-d map (D, S, B * H) at (c0, c1, c2) into shared memory
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int c0, int c1,
-                                         int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::"
-      "complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(
-          smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1), "r"(c2)
-      : "memory");
-}
-
-// shared-memory matrix descriptor, 128-byte swizzle; offsets in bytes
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
-                                         uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) |
-         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-// keeps the compiler from moving reads of an accumulator above the wait
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-#define WG_D8(i)                                                     \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),        \
-      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-
-// d (64 x 128) = or += A (64 x 16) B (16 x 128), both from shared memory,
-// both K-major
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
-                                              uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16\n{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
-      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
-      "%58, %59, %60, %61, %62, %63},\n"
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24), WG_D8(32), WG_D8(40),
-        WG_D8(48), WG_D8(56)
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-// d (64 x 128) += A (64 x 16, registers) B (16 x 128, shared, N-major)
-__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t* a,
-                                         uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16\n{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
-      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
-      "%58, %59, %60, %61, %62, %63},\n"
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24), WG_D8(32), WG_D8(40),
-        WG_D8(48), WG_D8(56)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-// d (64 x 64) += A (64 x 16, registers) B (16 x 64, shared, N-major)
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a,
-                                         uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16\n{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31},\n"
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-#undef WG_D8
-
 // Accumulator fragment of wgmma m64nNk16 (fp32), thread t of a warpgroup:
 // register r holds row 16 (t / 32) + (t % 32) / 4 + 8 ((r / 2) % 2) and
 // column 8 (r / 4) + 2 (t % 4) + r % 2 of the 64 x N tile.
@@ -809,8 +716,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv,
-                   __nv_bfloat16* __restrict__ o, int Hq, int group, int Sq,
-                   int Skv, int D, float scale_log2, int causal) {
+                   __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                   int Hq, int group, int Sq, int Skv, int D,
+                   float scale_log2, int causal) {
   using L = Layout<DP>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
@@ -829,12 +737,12 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int wgi = threadIdx.x / 128;
 
   if (threadIdx.x == 0) {
-    mbar_init(q_full, 1);
+    sm90::mbar_init(q_full, 1);
     for (int s = 0; s < kStages; ++s) {
-      mbar_init(k_full + s, 1);
-      mbar_init(v_full + s, 1);
-      mbar_init(k_empty + s, 128 * kConsumers);
-      mbar_init(v_empty + s, 128 * kConsumers);
+      sm90::mbar_init(k_full + s, 1);
+      sm90::mbar_init(v_full + s, 1);
+      sm90::mbar_init(k_empty + s, 128 * kConsumers);
+      sm90::mbar_init(v_empty + s, 128 * kConsumers);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
@@ -845,24 +753,25 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
     if (threadIdx.x == 128 * kConsumers) {
       const int kvh = (bh / Hq) * (Hq / group) + (bh % Hq) / group;
-      mbar_expect_tx(q_full, L::kTile);
+      sm90::mbar_expect_tx(q_full, L::kTile);
 #pragma unroll
       for (int h = 0; h < L::kHalves; ++h)
-        tma_load(smem + L::kQ + h * kHalfBytes, &tq, q_full, 64 * h, q0, bh);
+        sm90::tma_load(smem + L::kQ + h * kHalfBytes, &tq, q_full, 64 * h,
+                       q0, bh);
       for (int kt = 0; kt < n_kt; ++kt) {
         const int s = kt % kStages, ph = (kt / kStages) & 1;
-        mbar_wait(k_empty + s, ph ^ 1);
-        mbar_expect_tx(k_full + s, L::kTile);
+        sm90::mbar_wait(k_empty + s, ph ^ 1);
+        sm90::mbar_expect_tx(k_full + s, L::kTile);
 #pragma unroll
         for (int h = 0; h < L::kHalves; ++h)
-          tma_load(smem + L::kK + s * L::kTile + h * kHalfBytes, &tk,
-                   k_full + s, 64 * h, kt * kBK, kvh);
-        mbar_wait(v_empty + s, ph ^ 1);
-        mbar_expect_tx(v_full + s, L::kTile);
+          sm90::tma_load(smem + L::kK + s * L::kTile + h * kHalfBytes, &tk,
+                         k_full + s, 64 * h, kt * kBK, kvh);
+        sm90::mbar_wait(v_empty + s, ph ^ 1);
+        sm90::mbar_expect_tx(v_full + s, L::kTile);
 #pragma unroll
         for (int h = 0; h < L::kHalves; ++h)
-          tma_load(smem + L::kV + s * L::kTile + h * kHalfBytes, &tv,
-                   v_full + s, 64 * h, kt * kBK, kvh);
+          sm90::tma_load(smem + L::kV + s * L::kTile + h * kHalfBytes, &tv,
+                         v_full + s, 64 * h, kt * kBK, kvh);
       }
     }
   } else {
@@ -872,33 +781,35 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     const int row_lo = q0 + 64 * wgi;                    // first row of mine
     const int row0 = row_lo + 16 * (t / 32) + lane / 4;  // and row0 + 8
     const int col0 = 2 * (lane % 4);
-    const uint32_t q_base = smem_u32(smem + L::kQ) + 64 * wgi * kRowBytes;
+    const uint32_t q_base =
+        sm90::smem_u32(smem + L::kQ) + 64 * wgi * sm90::kRowBytes;
 
     float acc[DP / 2];
 #pragma unroll
     for (int r = 0; r < DP / 2; ++r) acc[r] = 0.f;
     float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 
-    mbar_wait(q_full, 0);
+    sm90::mbar_wait(q_full, 0);
     for (int kt = 0; kt < n_kt; ++kt) {
       const int s = kt % kStages, ph = (kt / kStages) & 1;
       const int k0 = kt * kBK;
 
       // S = q k^T over D in steps of 16 (32 bytes of a swizzle row)
       float sc[64];
-      const uint32_t k_base = smem_u32(smem + L::kK + s * L::kTile);
-      mbar_wait(k_full + s, ph);
-      wgmma_fence();
+      const uint32_t k_base = sm90::smem_u32(smem + L::kK + s * L::kTile);
+      sm90::mbar_wait(k_full + s, ph);
+      sm90::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < DP / 16; ++kk) {
         const uint32_t off = (kk / 4) * kHalfBytes + (kk % 4) * 32;
-        wgmma_ss_n128(sc, desc(q_base + off, 16, 8 * kRowBytes),
-                      desc(k_base + off, 16, 8 * kRowBytes), kk > 0);
+        sm90::wgmma_ss(sc, sm90::desc(q_base + off, 16, 8 * sm90::kRowBytes),
+                       sm90::desc(k_base + off, 16, 8 * sm90::kRowBytes),
+                       kk > 0);
       }
-      wgmma_commit();
-      wgmma_wait();
-      fence_regs(sc);
-      mbar_arrive(k_empty + s);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait();
+      sm90::fence_regs(sc);
+      sm90::mbar_arrive(k_empty + s);
 
       // mask only the tile that crosses Skv and causal tiles that cross
       // the diagonal of my rows
@@ -941,18 +852,18 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       for (int r = 0; r < DP / 2; ++r) acc[r] *= alpha[(r / 2) % 2];
 
       // O += P V over the 128 keys in steps of 16 (16 rows of V)
-      const uint32_t v_base = smem_u32(smem + L::kV + s * L::kTile);
-      mbar_wait(v_full + s, ph);
-      wgmma_fence();
+      const uint32_t v_base = sm90::smem_u32(smem + L::kV + s * L::kTile);
+      sm90::mbar_wait(v_full + s, ph);
+      sm90::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kBK / 16; ++kk)
-        wgmma_rs(acc, pa + 4 * kk,
-                 desc(v_base + kk * 16 * kRowBytes, kHalfBytes,
-                      8 * kRowBytes));
-      wgmma_commit();
-      wgmma_wait();
-      fence_regs(acc);
-      mbar_arrive(v_empty + s);
+        sm90::wgmma_rs(acc, pa + 4 * kk,
+                       sm90::desc(v_base + kk * 16 * sm90::kRowBytes,
+                                  kHalfBytes, 8 * sm90::kRowBytes));
+      sm90::wgmma_commit();
+      sm90::wgmma_wait();
+      sm90::fence_regs(acc);
+      sm90::mbar_arrive(v_empty + s);
     }
 
     // l is a partial sum over my columns: reduce over the row's 4 threads
@@ -960,6 +871,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     for (int i = 0; i < 2; ++i) {
       l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
       l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+      const int row = row0 + 8 * i;
+      if (lse != nullptr && col0 == 0 && row < Sq)
+        lse[(long long)bh * Sq + row] = lse2(m[i], l[i]);
       l[i] = 1.f / fmaxf(l[i], 1e-20f);
     }
 #pragma unroll
@@ -980,57 +894,14 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// libcuda's cuTensorMapEncodeTiled, looked up through the runtime, so
-// the library links no -lcuda
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// (D, S, BH) bf16, boxes of 64 columns x `rows` rows of one head
-bool make_map(CUtensorMap* map, const void* base, int D, int S, int BH,
-              int rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)BH};
-  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)S * D * 2};
-  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
-  const cuuint32_t step[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                const_cast<void*>(base), dims, strides, box, step,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int DP>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int Hq, int Hkv, int Sq, int Skv, int D, int causal,
-                   cudaStream_t stream) {
+                   float* lse, int B, int Hq, int Hkv, int Sq, int Skv, int D,
+                   int causal, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
-  if (!make_map(&tq, q, D, Sq, B * Hq, kBQ) ||
-      !make_map(&tk, k, D, Skv, B * Hkv, kBK) ||
-      !make_map(&tv, v, D, Skv, B * Hkv, kBK))
+  if (!sm90::make_map(&tq, q, D, Sq, B * Hq, kBQ) ||
+      !sm90::make_map(&tk, k, D, Skv, B * Hkv, kBK) ||
+      !sm90::make_map(&tv, v, D, Skv, B * Hkv, kBK))
     return cudaErrorInvalidValue;
   const int smem = Layout<DP>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
@@ -1040,8 +911,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((unsigned)(B * Hq), (unsigned)((Sq + kBQ - 1) / kBQ));
   const float scale_log2 = (float)(1.4426950408889634 / sqrt((double)D));
   flash_wgmma_kernel<DP><<<grid, kThreads, smem, stream>>>(
-      tq, tk, tv, (__nv_bfloat16*)o, Hq, Hq / Hkv, Sq, Skv, D, scale_log2,
-      causal);
+      tq, tk, tv, (__nv_bfloat16*)o, lse, Hq, Hq / Hkv, Sq, Skv, D,
+      scale_log2, causal);
   return cudaGetLastError();
 }
 
@@ -1051,33 +922,37 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 
 // variant: 0 mma (dtype 0 float32 or 1 bfloat16), 1 wgmma (bfloat16 with
 // D % 8 == 0, D <= 128 and 16-byte aligned q, k, v); q, k, v and o of one
-// dtype, D <= 256
+// dtype, D <= 256.  lse: null, or B * Hq * Sq floats that take each row's
+// log-sum-exp in the kernels' log2 domain, log2(sum_j exp2(q_i . k_j *
+// scale * log2(e))) over the visible keys (lse2 above), which
+// flash_attention_bwd reads
 extern "C" int flash_attention_forward(const void* q, const void* k,
-                                       const void* v, void* o, int B, int Hq,
-                                       int Hkv, int Sq, int Skv, int D,
-                                       int causal, int dtype, int variant,
-                                       void* stream) {
+                                       const void* v, void* o, void* lse,
+                                       int B, int Hq, int Hkv, int Sq,
+                                       int Skv, int D, int causal, int dtype,
+                                       int variant, void* stream) {
   if (D < 1 || D > kDMax || Hkv < 1 || Hq % Hkv != 0 || Skv < 1)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
+  float* l = static_cast<float*>(lse);
   if (variant == 1) {
     if (dtype != 1 || D % 8 != 0 || D > 128) return (int)cudaErrorInvalidValue;
     if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
          reinterpret_cast<uintptr_t>(v)) % 16 != 0)
       return (int)cudaErrorMisalignedAddress;
     if (D <= 64)
-      return (int)wg::launch<64>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D, causal,
-                                 st);
-    return (int)wg::launch<128>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D, causal,
+      return (int)wg::launch<64>(q, k, v, o, l, B, Hq, Hkv, Sq, Skv, D,
+                                 causal, st);
+    return (int)wg::launch<128>(q, k, v, o, l, B, Hq, Hkv, Sq, Skv, D, causal,
                                 st);
   }
   if (variant != 0) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return (int)mm::launch<float>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D, causal,
-                                  st);
+    return (int)mm::launch<float>(q, k, v, o, l, B, Hq, Hkv, Sq, Skv, D,
+                                  causal, st);
   if (dtype == 1)
-    return (int)mm::launch<__nv_bfloat16>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D,
-                                          causal, st);
+    return (int)mm::launch<__nv_bfloat16>(q, k, v, o, l, B, Hq, Hkv, Sq, Skv,
+                                          D, causal, st);
   return (int)cudaErrorInvalidValue;
 }
 

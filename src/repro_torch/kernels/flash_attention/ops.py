@@ -3,8 +3,13 @@
 (``csrc/flash_attention_bwd.cu``), joined by :class:`FlashAttentionFn`.
 
 A CPU tensor takes the plain PyTorch versions (:func:`attention_ref`,
-:func:`attention_bwd_ref`); a CUDA tensor launches the kernel (the forward
-the one that :func:`_variant` names) or raises.
+:func:`attention_lse_ref`, :func:`attention_bwd_ref`); a CUDA tensor
+launches the kernel of the route that :func:`_variant` names or raises.
+
+The log-sum-exp that the forward hands the backward is float32 (B, Hq,
+Sq) in the kernels' log2 domain: row i's log2(sum_j exp2(q_i·k_j ·
+log2(e) / sqrt(D))) over its visible keys, i.e. log2(e) times the
+natural log-sum-exp of the scaled scores (:func:`attention_lse_ref`).
 """
 from __future__ import annotations
 
@@ -13,7 +18,7 @@ import ctypes
 import torch
 
 from .. import _build
-from .ref import attention_bwd_ref, attention_ref
+from .ref import attention_bwd_ref, attention_lse_ref, attention_ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 MAX_D = 256
@@ -24,7 +29,7 @@ BWD_PASSES = ("dq", "dkdv")
 
 
 def _declare(lib):
-    lib.flash_attention_forward.argtypes = [_P] * 4 + [_I] * 9 + [_P]
+    lib.flash_attention_forward.argtypes = [_P] * 5 + [_I] * 9 + [_P]
     lib.flash_attention_forward.restype = _I
 
 
@@ -33,7 +38,7 @@ def _lib():
 
 
 def _declare_bwd(lib):
-    lib.flash_attention_backward.argtypes = [_P] * 10 + [_I] * 8 + [_P]
+    lib.flash_attention_backward.argtypes = [_P] * 10 + [_I] * 9 + [_P]
     lib.flash_attention_backward.restype = _I
 
 
@@ -42,12 +47,12 @@ def _lib_bwd():
 
 
 def _variant(dtype, d: int, ptrs=()) -> str:
-    """The kernel a CUDA call takes: ``"wgmma"`` (bf16 products on
-    ``wgmma``, fed by TMA, whose base addresses and rows must be multiples
-    of 16 bytes) for bfloat16 with D % 8 == 0, D <= 128 and every address
-    in ``ptrs`` 16-byte aligned, else ``"mma"`` (``mma.sync``: f32 in
-    3xTF32, bf16 with fp32 accumulation).  Raises for D outside
-    1..MAX_D."""
+    """The route a CUDA call takes, forward and backward alike:
+    ``"wgmma"`` (bf16 products on ``wgmma``, fed by TMA, whose base
+    addresses and rows must be multiples of 16 bytes) for bfloat16 with
+    D % 8 == 0, D <= 128 and every address in ``ptrs`` 16-byte aligned,
+    else ``"mma"`` (``mma.sync``: f32 in 3xTF32, bf16 with fp32
+    accumulation).  Raises for D outside 1..MAX_D."""
     if not 0 < d <= MAX_D:
         raise ValueError(f"flash_attention: the kernels take 0 < D <= "
                          f"{MAX_D}, got D={d}")
@@ -63,28 +68,33 @@ def flash_attention(q, k, v, causal: bool = True):
 
     q (B, Hq, Sq, D); k, v (B, Hkv, Skv, D) with Hq % Hkv == 0; float32 or
     bfloat16, all of one dtype.  -> (B, Hq, Sq, D) in q's dtype (see
-    :func:`_forward`)."""
-    return FlashAttentionFn.apply(q, k, v, causal)
+    :func:`_forward`).  Only a call that records a graph has the forward
+    keep its log-sum-exp for the backward."""
+    graph = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
+    return FlashAttentionFn.apply(q, k, v, causal, graph)
 
 
 class FlashAttentionFn(torch.autograd.Function):
-    """flash_attention with its gradient: the forward kernel, and the
-    backward kernel on the saved q, k, v and output (the plain versions
-    on CPU tensors)."""
+    """flash_attention with its gradient: the forward kernel, which also
+    stores the log-sum-exp when ``keep_lse``, and the backward kernel on
+    the saved q, k, v, output and log-sum-exp (the plain versions on CPU
+    tensors)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal):
-        out = _forward(q, k, v, causal)
-        ctx.save_for_backward(q, k, v, out)
+    def forward(ctx, q, k, v, causal, keep_lse=True):
+        out, lse = (_forward(q, k, v, causal, lse=True) if keep_lse
+                    else (_forward(q, k, v, causal), None))
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal = causal
         return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, out = ctx.saved_tensors
+        q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_backward(q, k, v, out, do.contiguous(),
-                                              ctx.causal)
-        return dq, dk, dv, None
+                                              ctx.causal, lse=lse)
+        return dq, dk, dv, None, None
 
 
 def _check_heads(name, q, k):
@@ -96,16 +106,23 @@ def _check_heads(name, q, k):
         raise ValueError(f"{name}: Hq={hq} is not a multiple of Hkv={hkv}")
 
 
-def flash_attention_backward(q, k, v, o, do, causal: bool = True):
+def flash_attention_backward(q, k, v, o, do, causal: bool = True,
+                             lse=None):
     """The gradient of :func:`flash_attention`: q (B, Hq, Sq, D), k, v
     (B, Hkv, Skv, D), its output ``o`` and the output's gradient ``do``
-    (B, Hq, Sq, D), all float32 or all bfloat16.  -> (dq, dk, dv) in
-    their inputs' dtype: P recomputed from q and k in float32 (the
-    log-sum-exp rebuilt, not taken from the forward), dS = P ∘ (dO·vᵀ −
-    rowsum(dO ∘ O)), dq = dS·k/sqrt(D), dk and dv summed over each kv
-    head's query heads.  On a CUDA device D <= 256 and every operand
-    contiguous; two launches, no atomics (the same inputs give the same
-    bits)."""
+    (B, Hq, Sq, D), all float32 or all bfloat16, and ``lse`` the
+    forward's log-sum-exp (float32 (B, Hq, Sq), the module's log2 domain;
+    ``_forward(..., lse=True)`` returns it).  -> (dq, dk, dv) in their
+    inputs' dtype: P recomputed from q, k and the log-sum-exp in float32,
+    dS = P ∘ (dO·vᵀ − rowsum(dO ∘ O)), dq = dS·k/sqrt(D), dk and dv
+    summed over each kv head's query heads.  On a CUDA device D <= 256
+    and every operand contiguous; two launches on the route of
+    :func:`_variant` (counted per pass and route,
+    ``flash_attention_bwd_<pass>_<route>``), no atomics (the same inputs
+    give the same bits).  With ``lse=None`` on the card the forward kernel
+    runs once more to obtain it (one ``flash_attention`` launch).  On the
+    CPU ``lse`` is not read: :func:`attention_bwd_ref` recomputes the
+    softmax."""
     _check_heads("flash_attention_backward", q, k)
     if q.device.type == "cpu":
         return attention_bwd_ref(q, k, v, o, do, causal)
@@ -128,31 +145,37 @@ def flash_attention_backward(q, k, v, o, do, causal: bool = True):
         raise ValueError(f"flash_attention_backward: the kernel takes "
                          f"0 < D <= {MAX_D} and Skv >= 1, got D={d}, "
                          f"Skv={skv}")
-    _build.check_operands("flash_attention_backward", ops, q.device,
-                          dict.fromkeys(ops, q.dtype))
+    dtypes = dict.fromkeys(ops, q.dtype)
+    if lse is None:
+        lse = _forward(q, k, v, causal, lse=True)[1]
+    ops["lse"], dtypes["lse"] = lse, torch.float32
+    if tuple(lse.shape) != (b, hq, sq):
+        raise ValueError(f"flash_attention_backward: lse has shape "
+                         f"{tuple(lse.shape)}, expected {(b, hq, sq)}")
+    _build.check_operands("flash_attention_backward", ops, q.device, dtypes)
     dq = torch.empty_like(q)
     if b * hq * sq == 0:
         return dq, torch.zeros_like(k), torch.zeros_like(v)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    # log-sum-exp and rowsum(dO ∘ O) per query row, from the dQ pass to
-    # the dK/dV pass
-    scratch = torch.empty((2, b * hq * sq), dtype=torch.float32,
-                          device=q.device)
+    route = _variant(q.dtype, d,
+                     [t.data_ptr() for t in (q, k, v, o, do)])
+    # rowsum(dO ∘ O) per query row, from the dQ pass to the dK/dV pass
+    dsum = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
     lib = _lib_bwd()
     code = lib.flash_attention_backward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        scratch[0].data_ptr(), scratch[1].data_ptr(), b, hq, hkv, sq, skv,
-        d, int(causal), _DTYPES[q.dtype],
+        do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), dsum.data_ptr(), b, hq, hkv, sq, skv, d, int(causal),
+        _DTYPES[q.dtype], _VARIANTS[route],
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check_launch(lib, "flash_attention_bwd", code)
     for kernel in BWD_PASSES:
         _build.count_launch("flash_attention_bwd",
-                            f"flash_attention_bwd_{kernel}")
+                            f"flash_attention_bwd_{kernel}_{route}")
     return dq, dk, dv
 
 
-def _forward(q, k, v, causal: bool = True):
+def _forward(q, k, v, causal: bool = True, lse: bool = False):
     """Attention forward, GQA-aware.
 
     q (B, Hq, Sq, D); k, v (B, Hkv, Skv, D) with Hq % Hkv == 0; float32 or
@@ -160,7 +183,9 @@ def _forward(q, k, v, causal: bool = True):
     q·kᵀ/sqrt(D) over the keys, with ``causal`` those j <= i (top-left),
     times v; scores and softmax in float32 (bf16 rounds the
     probabilities to bf16 before the product with v; f32 runs its
-    products in 3xTF32).  On a CUDA device D <= 256."""
+    products in 3xTF32).  With ``lse`` -> (out, the rows' log-sum-exp,
+    float32 (B, Hq, Sq) in the module's log2 domain), which the kernel
+    stores beside the output.  On a CUDA device D <= 256."""
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"flash_attention: q and k must be 4-d, got "
                          f"{tuple(q.shape)} and {tuple(k.shape)}")
@@ -170,7 +195,8 @@ def _forward(q, k, v, causal: bool = True):
         raise ValueError(f"flash_attention: Hq={hq} is not a multiple of "
                          f"Hkv={hkv}")
     if q.device.type == "cpu":
-        return attention_ref(q, k, v, causal)
+        out = attention_ref(q, k, v, causal)
+        return (out, attention_lse_ref(q, k, causal)) if lse else out
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     for arg, t in (("k", k), ("v", v)):
@@ -187,13 +213,15 @@ def _forward(q, k, v, causal: bool = True):
                           q.device, dict.fromkeys("qkv", q.dtype))
     variant = _variant(q.dtype, d, [t.data_ptr() for t in (q, k, v)])
     out = torch.empty_like(q)
+    rows = (torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+            if lse else None)
     if b * hq * sq:
         lib = _lib()
         code = lib.flash_attention_forward(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq,
-            hkv, sq, skv, d, int(causal), _DTYPES[q.dtype],
-            _VARIANTS[variant],
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            rows.data_ptr() if lse else None, b, hq, hkv, sq, skv, d,
+            int(causal), _DTYPES[q.dtype], _VARIANTS[variant],
             torch.cuda.current_stream(q.device).cuda_stream)
         _build.check_launch(lib, "flash_attention", code)
         _build.count_launch("flash_attention", f"flash_attention_{variant}")
-    return out
+    return (out, rows) if lse else out

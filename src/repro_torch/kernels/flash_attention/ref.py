@@ -1,6 +1,8 @@
 """Plain PyTorch version of the flash_attention kernel."""
 from __future__ import annotations
 
+import math
+
 import torch
 
 
@@ -18,6 +20,22 @@ def attention_ref(q, k, v, causal: bool = True):
                           device=s.device).tril()
         s = s.masked_fill(~keep, -1e30)
     return (torch.softmax(s, dim=-1) @ vx).to(q.dtype)
+
+
+def attention_lse_ref(q, k, causal: bool = True):
+    """What the forward kernel stores beside its output for the backward:
+    q (B, Hq, Sq, D), k (B, Hkv, Skv, D) -> float32 (B, Hq, Sq), each
+    row's log-sum-exp of q·kᵀ/sqrt(D) over its visible keys (``causal``:
+    top-left, as :func:`attention_ref`), in base 2: log2(e) times the
+    natural one."""
+    d, group = q.shape[-1], q.shape[1] // k.shape[1]
+    kx = k.float().repeat_interleave(group, dim=1)
+    s = (q.float() @ kx.transpose(-1, -2)) / d ** 0.5
+    if causal:
+        keep = torch.ones(s.shape[-2:], dtype=torch.bool,
+                          device=s.device).tril()
+        s = s.masked_fill(~keep, float("-inf"))
+    return torch.logsumexp(s, dim=-1) * math.log2(math.e)
 
 
 def attention_bwd_ref(q, k, v, o, do, causal: bool = True):

@@ -14,7 +14,8 @@ import pytest
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+from repro_torch.kernels.flash_attention import (
+    attention_lse_ref, attention_ref, flash_attention)
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ops import _variant
 from repro_torch.kernels.gather_mlp import ops as gather_ops
@@ -391,6 +392,63 @@ def test_attention_bwd_ref_bf16_matches_jax_vjp():
         assert float(np.abs(g.float().numpy() - want).max()) <= lim
 
 
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d,causal", [
+    (1, 4, 1, 96, 96, 16, True),       # GQA 4, ragged S
+    (2, 8, 2, 130, 130, 64, True),
+    (1, 4, 2, 70, 333, 32, False),     # Sq != Skv, ragged
+    (2, 2, 2, 64, 40, 128, False)])
+def test_attention_lse_ref_matches_jax_logsumexp(b, hq, hkv, sq, skv, d,
+                                                 causal):
+    """attention_lse_ref (what the forward kernel stores for the backward,
+    base 2) against jax.nn.logsumexp of the JAX package's scaled, masked
+    scores (attention_ref's) times log2(e), within 1e-5 · max(1,
+    max|ref|); causal at Sq == Skv, where the two packages' masks
+    agree."""
+    import jax
+    import jax.numpy as jnp
+    from repro_torch.kernels.flash_attention import attention_lse_ref
+    rng = np.random.default_rng(sq + skv + d)
+    q, k, _ = _qkv(rng, b, hq, hkv, sq, skv, d)
+    kx = jnp.repeat(jnp.asarray(k), hq // hkv, axis=1)
+    s = jnp.einsum("bhqd,bhkd->bhqk", jnp.asarray(q), kx) / (d ** 0.5)
+    if causal:
+        s = jnp.where(jnp.tril(jnp.ones((sq, skv), bool), k=skv - sq), s,
+                      -1e30)
+    want = np.asarray(jax.nn.logsumexp(s, axis=-1)) * np.log2(np.e)
+    got = attention_lse_ref(*_torch((q, k)), causal)
+    assert got.dtype == torch.float32 and got.shape == (b, hq, sq)
+    lim = 1e-5 * max(1.0, float(np.abs(want).max()))
+    assert float(np.abs(got.numpy() - want).max()) <= lim
+
+
+def test_flash_attention_cpu_grads_equal_plain_autograd(monkeypatch):
+    """FlashAttentionFn's grads on CPU tensors equal autograd through
+    attention_ref (GQA, ragged S); the forward keeps its log-sum-exp only
+    when the call records a graph (not under no_grad, not on leaves that
+    need none)."""
+    rng = np.random.default_rng(9)
+    qkv = _torch(_qkv(rng, 2, 6, 2, 50, 50, 32))
+    do = torch.from_numpy(rng.normal(size=(2, 6, 50, 32)).astype(np.float32))
+    asked = []
+    real = flash_ops._forward
+    monkeypatch.setattr(flash_ops, "_forward", lambda *a, **kw: (
+        asked.append(kw.get("lse", False)) or real(*a, **kw)))
+    leaves = [t.clone().requires_grad_() for t in qkv]
+    got = torch.autograd.grad(flash_attention(*leaves), leaves, do)
+    want = torch.autograd.grad(attention_ref(*leaves), leaves, do)
+    for x, y in zip(got, want):
+        lim = 1e-5 * max(1.0, y.abs().max().item())
+        assert (x - y).abs().max().item() <= lim
+    assert asked == [True]
+    with torch.no_grad():
+        flash_attention(*leaves)
+    flash_attention(*qkv)
+    assert asked == [True, False, False]
+    out, lse = real(*qkv, causal=True, lse=True)
+    assert torch.equal(out, attention_ref(*qkv))
+    assert torch.equal(lse, attention_lse_ref(*qkv[:2]))
+
+
 def test_flash_attention_cpu_backward_takes_the_plain_version():
     """On CPU tensors flash_attention_backward is attention_bwd_ref (no
     launch counted), and flash_attention under grad has a grad_fn."""
@@ -469,7 +527,7 @@ class _StubLib:
         + [ctypes.c_void_p],
         "hub_reuse_smem_bytes": [ctypes.c_int] * 7}),
     (flash_ops, "flash_attention", {
-        "flash_attention_forward": [ctypes.c_void_p] * 4
+        "flash_attention_forward": [ctypes.c_void_p] * 5
         + [ctypes.c_int] * 9 + [ctypes.c_void_p]}),
 ])
 def test_wrappers_declare_ctypes_signatures_once(monkeypatch, ops, name,
@@ -500,7 +558,7 @@ def test_backward_library_declares_its_ctypes_signature_once(monkeypatch):
     assert len(opened) == 1 and "flash_attention_bwd" in opened[0]
     fn = stub.fns["flash_attention_backward"]
     assert fn.sets == ["argtypes", "restype"]
-    assert fn.argtypes == [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [
+    assert fn.argtypes == [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [
         ctypes.c_void_p]
 
 
@@ -670,6 +728,35 @@ def test_ssd_chunk_kernel_refuses_chunks_past_its_limit():
         ssd_chunk(*args)
 
 
+@pytest.mark.cuda
+def test_flash_attention_forward_lse_matches_plain_on_card():
+    """The forward's log-sum-exp on both routes (wgmma: bf16, D <= 128;
+    mma: f32, bf16 at D = 256 and off 16 bytes) against attention_lse_ref
+    within 1e-4 · max(1, max|ref|), and a null LSE leaves the output
+    bit-equal."""
+    dev = _cuda()
+    g = torch.Generator().manual_seed(4)
+    for b, hq, hkv, sq, skv, d, causal, dt, off, route in (
+            (1, 8, 2, 333, 333, 128, True, torch.bfloat16, 0, "wgmma"),
+            (2, 4, 4, 130, 200, 64, False, torch.bfloat16, 0, "wgmma"),
+            (1, 4, 2, 130, 130, 256, True, torch.float32, 0, "mma"),
+            (1, 4, 2, 130, 130, 256, True, torch.bfloat16, 0, "mma"),
+            (1, 8, 1, 70, 333, 128, False, torch.bfloat16, 1, "mma"),
+            (1, 4, 2, 200, 200, 80, True, torch.float32, 1, "mma")):
+        q, k, v = (_at_offset(torch.randn(shape, generator=g).to(dev, dt),
+                              off)
+                   for shape in ((b, hq, sq, d), (b, hkv, skv, d),
+                                 (b, hkv, skv, d)))
+        before = _build.LAUNCHES[f"flash_attention_{route}"]
+        out, lse = flash_ops._forward(q, k, v, causal, lse=True)
+        assert _build.LAUNCHES[f"flash_attention_{route}"] == before + 1
+        want = attention_lse_ref(q, k, causal)
+        assert lse.dtype == torch.float32 and lse.shape == (b, hq, sq)
+        lim = 1e-4 * max(1.0, want.abs().max().item())
+        assert (lse - want).abs().max().item() <= lim
+        assert torch.equal(out, flash_ops._forward(q, k, v, causal))
+
+
 # the backward kernel's limits against attention_bwd_ref on the same
 # inputs: f32 max|Δ| <= 1e-4 · max(1, max|ref|) per output (3xTF32, sums
 # in another order); bf16 ‖Δ‖ / ‖ref‖ <= 2e-2 (P and dS rounded to bf16)
@@ -682,7 +769,17 @@ _BWD_SHAPES = (
     (2, 8, 2, 96, 96, 16, True),        # D = 16
     (1, 2, 1, 40, 40, 36, True),        # D % 8 != 0: scalar copies
     (1, 6, 2, 200, 200, 64, False),
+    (1, 16, 2, 333, 333, 128, True),    # group 8 (a cluster of 8), ragged
+    (1, 8, 2, 130, 130, 256, True),     # group 4 at D = 256
+    (1, 8, 2, 200, 333, 64, True),      # GQA, causal, Sq < Skv: keys no
+                                        # row sees get zero gradients
+    (1, 12, 2, 300, 130, 128, True),    # group 6 (clusters of 6), Sq > Skv
 )
+
+
+def _bwd_route(dtype, d, off) -> str:
+    return ("wgmma" if dtype == torch.bfloat16 and d % 8 == 0 and d <= 128
+            and off == 0 else "mma")
 
 
 @pytest.mark.cuda
@@ -690,8 +787,10 @@ _BWD_SHAPES = (
 @pytest.mark.parametrize("shape", _BWD_SHAPES)
 def test_flash_attention_backward_kernel_matches_plain_on_card(shape,
                                                                dtype):
-    """dq, dk, dv of the kernel against attention_bwd_ref on the same
-    inputs, at an address off 16 bytes too, and two calls bit-equal."""
+    """dq, dk, dv of the kernel, given the forward's log-sum-exp, against
+    attention_bwd_ref on the same inputs, at an address off 16 bytes too;
+    the route counted per pass; two calls bit-equal, and bit-equal to the
+    call that leaves the log-sum-exp to the wrapper."""
     from repro_torch.kernels.flash_attention import (
         attention_bwd_ref, flash_attention_backward)
     dev = _cuda()
@@ -702,11 +801,20 @@ def test_flash_attention_backward_kernel_matches_plain_on_card(shape,
                               off)
                    for s in ((b, hq, sq, d), (b, hkv, skv, d),
                              (b, hkv, skv, d)))
-        o = flash_attention(q, k, v, causal=causal)
-        do = torch.randn(o.shape, generator=g).to(dev, dtype)
-        before = _build.LAUNCHES["flash_attention_bwd"]
-        got = flash_attention_backward(q, k, v, o, do, causal)
-        assert _build.LAUNCHES["flash_attention_bwd"] == before + 2
+        o, lse = flash_ops._forward(q, k, v, causal, lse=True)
+        do = _at_offset(torch.randn(o.shape, generator=g).to(dev, dtype),
+                        off)
+        route = _bwd_route(dtype, d, off)
+        before = dict(_build.LAUNCHES)
+        got = flash_attention_backward(q, k, v, o, do, causal, lse=lse)
+        after = dict(_build.LAUNCHES)
+        assert after["flash_attention_bwd"] == before.get(
+            "flash_attention_bwd", 0) + 2
+        for kernel in flash_ops.BWD_PASSES:
+            name = f"flash_attention_bwd_{kernel}_{route}"
+            assert after[name] == before.get(name, 0) + 1
+        assert after.get("flash_attention", 0) == before.get(
+            "flash_attention", 0)
         want = attention_bwd_ref(q, k, v, o, do, causal)
         for x, y in zip(got, want):
             assert x.dtype == dtype and bool(torch.isfinite(x).all())
@@ -715,26 +823,38 @@ def test_flash_attention_backward_kernel_matches_plain_on_card(shape,
                 assert (x - y).abs().max().item() <= lim
             else:
                 assert _rel_err(x, y) <= 2e-2
-        again = flash_attention_backward(q, k, v, o, do, causal)
+        again = flash_attention_backward(q, k, v, o, do, causal, lse=lse)
         assert all(torch.equal(x, y) for x, y in zip(got, again))
+        before = _build.LAUNCHES["flash_attention"]
+        rebuilt = flash_attention_backward(q, k, v, o, do, causal)
+        assert _build.LAUNCHES["flash_attention"] == before + 1
+        assert all(torch.equal(x, y) for x, y in zip(got, rebuilt))
 
 
 @pytest.mark.cuda
-def test_flash_attention_grads_go_through_the_backward_kernel():
-    """Autograd through flash_attention on the card launches the backward's
-    two kernels once each and matches autograd through the plain version."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_grads_go_through_the_backward_kernel(dtype):
+    """Autograd through flash_attention on the card launches the forward
+    once and the backward's two kernels once each (no second forward for
+    the log-sum-exp) and matches autograd through the plain version."""
     dev = _cuda()
     g = torch.Generator().manual_seed(3)
-    leaves = [torch.randn(s, generator=g).to(dev).requires_grad_()
+    leaves = [torch.randn(s, generator=g).to(dev, dtype).requires_grad_()
               for s in ((2, 4, 100, 64), (2, 2, 100, 64), (2, 2, 100, 64))]
-    do = torch.randn((2, 4, 100, 64), generator=g).to(dev)
-    before = _build.LAUNCHES["flash_attention_bwd"]
+    do = torch.randn((2, 4, 100, 64), generator=g).to(dev, dtype)
+    before = dict(_build.LAUNCHES)
     got = torch.autograd.grad(flash_attention(*leaves), leaves, do)
-    assert _build.LAUNCHES["flash_attention_bwd"] == before + 2
+    after = dict(_build.LAUNCHES)
+    assert after["flash_attention"] == before.get("flash_attention", 0) + 1
+    assert after["flash_attention_bwd"] == before.get(
+        "flash_attention_bwd", 0) + 2
     want = torch.autograd.grad(attention_ref(*leaves), leaves, do)
     for x, y in zip(got, want):
-        assert (x - y).abs().max().item() <= 1e-4 * max(
-            1.0, y.abs().max().item())
+        if dtype == torch.float32:
+            assert (x - y).abs().max().item() <= 1e-4 * max(
+                1.0, y.abs().max().item())
+        else:
+            assert _rel_err(x, y) <= 2e-2
 
 
 @pytest.mark.cuda

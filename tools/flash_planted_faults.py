@@ -4,7 +4,7 @@
     python3 tools/flash_planted_faults.py [--seed N]
 
 Builds copies of ``src/repro_torch/csrc/flash_attention.cu`` and its
-header ``tf32x3.cuh`` with one fault each (under
+headers ``sm90.cuh`` and ``tf32x3.cuh`` with one fault each (under
 ``build/repro_torch/faults/flash_attention/``; the sources are not
 touched), runs each through ``repro_torch.kernels.flash_attention`` at the
 shapes of the route it breaks (``SHAPES``: chip_smoke.py's Qwen2-72B layer,
@@ -28,7 +28,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(ROOT), str(ROOT / "src"), str(ROOT / "tools")]
 
-FILES = ("flash_attention.cu", "tf32x3.cuh")
+FILES = ("flash_attention.cu", "sm90.cuh", "tf32x3.cuh")
 WGMMA = ("qwen2_72b_bf16", "ragged_bf16")
 # name -> (file, text, its replacement, the shapes it runs on); each text
 # occurs once in its file

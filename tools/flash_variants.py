@@ -23,9 +23,26 @@ registers and spills per kernel of each variant and one JSON line per
 (shape, variant): ms, max |Δ| and ‖Δ‖/‖plain‖ against the plain version,
 and the shape's bound.
 ``--against DIR`` adds the sources of another tree (``flash_attention.cu``
-and, where DIR has it, ``tf32x3.cuh``; e.g. a parent commit's
+and, where DIR has them, its headers; e.g. a parent commit's
 ``src/repro_torch/csrc``) as the variant ``against``, timed in the same
-turns.  Needs one CUDA device.
+turns.
+
+``--backward`` does the same for the backward,
+``flash_attention_bwd.cu`` (``BWD_VARIANTS``: the steps of its design
+taken out or changed one at a time, ``serial_heads`` (no clusters: a
+block walks the whole group), ``cluster4`` / ``cluster8`` (clusters of at
+most 4 or 8), ``one_stage`` (the mma route's streamed tiles in one
+stage), ``two_stages`` (in two wherever they fit); and, wrong on purpose
+to show what a part of the wgmma route's dK/dV pass costs,
+``dkv_no_exp``, ``dkv_no_dk``, ``dkv_no_rows`` (no LSE or D copied),
+``dkv_no_epilogue``), at chip_smoke.py's
+``BWD_LAYERS``, the bf16 ones on both routes (``*_mma``: variant 0, the
+route without wgmma), the forward's log-sum-exp passed in; ``--against`` there takes a
+tree whose backward rebuilt the log-sum-exp itself (its own C signature).
+Beside each shape's times: SDPA's backward (autograd of one call, its
+graph kept), the plain version, each variant's errors against it, and the
+committed library's device time per pass (torch.profiler).  Needs one
+CUDA device.
 """
 from __future__ import annotations
 
@@ -39,7 +56,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(ROOT), str(ROOT / "src"), str(ROOT / "tools")]
 
-FILES = ("flash_attention.cu", "tf32x3.cuh")
+FILES = ("flash_attention.cu", "sm90.cuh", "tf32x3.cuh")
+BWD_FILES = ("flash_attention_bwd.cu", "sm90.cuh", "tf32x3.cuh")
 # name -> [(file, text, replacement), ...]; each text occurs once
 VARIANTS = {
     "committed": [],
@@ -97,6 +115,53 @@ VARIANTS = {
                    ": 1;",
                    "1;")],
 }
+_BWD = "flash_attention_bwd.cu"
+BWD_VARIANTS = {
+    "committed": [],
+    # a block walks the whole group: no clusters, no reduction across blocks
+    "serial_heads": [(_BWD, "constexpr int kMaxCluster = 2;",
+                      "constexpr int kMaxCluster = 1;")],
+    # clusters of at most 4 blocks, and of up to the portable 8
+    "cluster4": [(_BWD, "constexpr int kMaxCluster = 2;",
+                  "constexpr int kMaxCluster = 4;")],
+    "cluster8": [(_BWD, "constexpr int kMaxCluster = 2;",
+                  "constexpr int kMaxCluster = 8;")],
+    # mma route: the streamed tiles in one stage, loaded between barriers
+    "one_stage": [(_BWD, "  return two <= kSmemMax && sm_blocks(two, threads) "
+                         ">= sm_blocks(one, threads)\n             ? 2\n"
+                         "             : 1;",
+                   "  return 1;")],
+    # mma route: two stages wherever they fit, whatever they cost in blocks
+    "two_stages": [(_BWD, "  return two <= kSmemMax && sm_blocks(two, "
+                          "threads) >= sm_blocks(one, threads)\n"
+                          "             ? 2\n             : 1;",
+                    "  return two <= kSmemMax ? 2 : 1;")],
+    # wgmma dK/dV pass, wrong on purpose, to show what a part costs:
+    # P^T without exp2 or the LSE (the products unchanged)
+    "dkv_no_exp": [(_BWD, "st[r] = ex2(fmaf(st[r], scale_log2, -lse_s[qi]));",
+                    "st[r] = st[r];"),
+                   (_BWD, "st[r + 1] = ex2(fmaf(st[r + 1], scale_log2, "
+                          "-lse_s[qi + 1]));",
+                    "st[r + 1] = st[r + 1];")],
+    # the dk += dS^T q products left out
+    "dkv_no_dk": [(_BWD, "      for (int kk = 0; kk < kBQ2 / 16; ++kk)\n"
+                         "        sm90::wgmma_rs(adk,",
+                   "      for (int kk = 0; kk < 0; ++kk)\n"
+                   "        sm90::wgmma_rs(adk,")],
+    # the producer copies no LSE or D into the stages
+    "dkv_no_rows": [(_BWD, "          ls[r] = in ? lse[at] : 0.f;\n"
+                           "          ls[kBQ2 + r] = in ? dsum[at] : 0.f;",
+                     "          ls[r] = 0.f;\n          ls[kBQ2 + r] = 0.f;")],
+    # the cluster's sum and the stores of dK and dV left out
+    "dkv_no_epilogue": [(_BWD, "  cluster_sum<__nv_bfloat16, kBKV, DP, "
+                               "L::kLdPart>(\n      part, dv + off,",
+                         "  if (D < 0) cluster_sum<__nv_bfloat16, kBKV, DP, "
+                         "L::kLdPart>(\n      part, dv + off,"),
+                        (_BWD, "  cluster_sum<__nv_bfloat16, kBKV, DP, "
+                               "L::kLdPart>(\n      part, dk + off,",
+                         "  if (D < 0) cluster_sum<__nv_bfloat16, kBKV, DP, "
+                         "L::kLdPart>(\n      part, dk + off,")],
+}
 # name -> (B, Hq, Hkv, S, D, dtype, element offset of q, k, v, variant)
 SHAPES = {
     "qwen2_72b_f32": (1, 64, 8, 2048, 128, "float32", 0, 0),
@@ -120,6 +185,8 @@ def main() -> int:
     ap.add_argument("--against", default="",
                     help="a directory with another flash_attention.cu, "
                          "timed as the variant 'against'")
+    ap.add_argument("--backward", action="store_true",
+                    help="the backward's variants at BWD_LAYERS")
     args = ap.parse_args()
 
     import torch
@@ -136,6 +203,8 @@ def main() -> int:
                           "--format=csv,noheader"], check=True,
                          capture_output=True, text=True).stdout.strip()
     print(smi.splitlines()[0], flush=True)
+    if args.backward:
+        return backward(args)
     sound = {f: (_build.CSRC / f).read_text() for f in FILES}
     only = set(filter(None, args.only.split(",")))
     sources = {}
@@ -167,9 +236,11 @@ def main() -> int:
     fwd = {}
     for name, so in libs.items():
         f = ctypes.CDLL(str(so)).flash_attention_forward
-        f.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [
-            ctypes.c_void_p]
-        fwd[name] = f
+        # a tree from before the forward stored the log-sum-exp has no lse
+        with_lse = "void* lse" in sources[name]["flash_attention.cu"]
+        f.argtypes = [ctypes.c_void_p] * (4 + with_lse) + [
+            ctypes.c_int] * 9 + [ctypes.c_void_p]
+        fwd[name] = (f, with_lse)
     keep = set(filter(None, args.shapes.split(",")))
     for shape, (b, hq, hkv, s, d, dtype, off, variant) in SHAPES.items():
         if keep and shape not in keep:
@@ -188,12 +259,12 @@ def main() -> int:
         except RuntimeError as err:           # no SDPA backend takes it
             rows["sdpa"] = dict(refused=str(err).splitlines()[0])
             del fns["sdpa"]
-        for name, f in fwd.items():
+        for name, (f, with_lse) in fwd.items():
             out = torch.empty_like(q)
-            call = (lambda f=f, out=out: f(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
-                hq, hkv, s, s, d, 1, 1 if dt == torch.bfloat16 else 0,
-                variant, stream))
+            call = (lambda f=f, out=out, lse=(None,) * with_lse: f(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                *lse, b, hq, hkv, s, s, d, 1,
+                1 if dt == torch.bfloat16 else 0, variant, stream))
             code = call()
             torch.cuda.synchronize()
             if code != 0:
@@ -215,6 +286,140 @@ def main() -> int:
                 row["ms"] = ms[name]
             print(json.dumps(dict(shape=shape, variant=name, **row,
                                   **bounds)), flush=True)
+    return 0
+
+
+def bwd_shapes() -> dict:
+    """name -> (BWD_LAYERS entry, dtype, route): every layer on its own
+    route and the bf16 ones on the mma route too."""
+    import chip_smoke
+    out = {}
+    for name, f, dtype in chip_smoke.BWD_LAYERS:
+        label = f"{name}_{'bf16' if dtype == 'bfloat16' else 'f32'}"
+        if dtype == "bfloat16":
+            out[label] = (f, dtype, "wgmma")
+            out[f"{label}_mma"] = (f, dtype, "mma")
+        else:
+            out[label] = (f, dtype, "mma")
+    return out
+
+
+def backward(args) -> int:
+    """The backward's variants at BWD_LAYERS (see the module's doc)."""
+    import torch
+    import torch.nn.functional as F
+
+    import chip_smoke
+    from gather_mlp_planted_faults import build
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import attention_bwd_ref
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    sound = {f: (_build.CSRC / f).read_text() for f in BWD_FILES}
+    only = set(filter(None, args.only.split(",")))
+    sources = {}
+    for name, edits in BWD_VARIANTS.items():
+        if only and name not in only:
+            continue
+        texts = dict(sound)
+        for fname, old, new in edits:
+            if texts[fname].count(old) != 1:
+                raise RuntimeError(f"variant {name}: {old!r} occurs "
+                                   f"{texts[fname].count(old)} times")
+            texts[fname] = texts[fname].replace(old, new)
+        sources[name] = texts
+    if args.against:
+        d = Path(args.against)
+        sources["against"] = {f: (d / f).read_text() for f in BWD_FILES
+                              if (d / f).exists()}
+    libs, logs = build(sources,
+                       _build.BUILD_DIR / "variants" / "flash_attention_bwd",
+                       with_logs=True)
+    for name, log in logs.items():
+        print(json.dumps({"variant": name,
+                          "ptxas": chip_smoke.ptxas_kernels(log)}),
+              flush=True)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    entries = {}
+    for name, so in libs.items():
+        f = ctypes.CDLL(str(so)).flash_attention_backward
+        # a tree whose backward rebuilt the log-sum-exp: no lse in, no
+        # route, two scratch rows
+        with_lse = "int variant" in sources[name][_BWD]
+        f.argtypes = [P] * 10 + [I] * (8 + with_lse) + [P]
+        f.restype = I
+        entries[name] = (f, with_lse)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    keep = set(filter(None, args.shapes.split(",")))
+    for shape, (f, dtype, route) in bwd_shapes().items():
+        if keep and shape not in keep:
+            continue
+        dt = getattr(torch, dtype)
+        b, hq, hkv, s, d, causal = (f[x] for x in ("b", "hq", "hkv", "s",
+                                                   "d", "causal"))
+        q, k, v = (torch.randn((b, h, s, d), generator=gen,
+                               device=dev).to(dt) for h in (hq, hkv, hkv))
+        o, lse = flash_ops._forward(q, k, v, causal, lse=True)
+        do = torch.randn(o.shape, generator=gen, device=dev).to(dt)
+        ref = attention_bwd_ref(q, k, v, o, do, causal)
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        lib_out = F.scaled_dot_product_attention(*leaves, is_causal=causal,
+                                                 enable_gqa=True)
+        fns = {"plain": lambda: attention_bwd_ref(q, k, v, o, do, causal),
+               "sdpa": lambda: torch.autograd.grad(lib_out, leaves, do,
+                                                   retain_graph=True)}
+        rows = {}
+        scratch = torch.empty((2, b, hq, s), dtype=torch.float32,
+                              device=dev)
+        for name, (fn, with_lse) in entries.items():
+            outs = [torch.empty_like(t) for t in (q, k, v)]
+            ptrs = [t.data_ptr() for t in (q, k, v, o, do)]
+            if with_lse:
+                argv = (*ptrs, lse.data_ptr(), *[t.data_ptr() for t in outs],
+                        scratch[1].data_ptr(), b, hq, hkv, s, s, d,
+                        int(causal), 1 if dt == torch.bfloat16 else 0,
+                        flash_ops._VARIANTS[route], stream)
+            elif route == "wgmma":
+                continue                # that tree has no wgmma route
+            else:
+                argv = (*ptrs, *[t.data_ptr() for t in outs],
+                        scratch[0].data_ptr(), scratch[1].data_ptr(), b, hq,
+                        hkv, s, s, d, int(causal),
+                        1 if dt == torch.bfloat16 else 0, stream)
+            call = (lambda fn=fn, argv=argv: fn(*argv))
+            code = call()
+            torch.cuda.synchronize()
+            if code != 0:
+                rows[name] = dict(refused=f"CUDA error {code}")
+                continue
+            errs = [chip_smoke.flash_err(x, y) for x, y in zip(outs, ref)]
+            rows[name] = dict(
+                max_abs_err=max(e["max_abs_err"] for e in errs),
+                rel_err=max(e["rel_err"] for e in errs))
+            fns[name] = call
+        ms = chip_smoke.time_turns(fns, iters=args.iters)
+        if "committed" in fns:
+            rows["committed"]["device_ms"] = {
+                p: chip_smoke.device_ms(fns["committed"], f"bwd_{p}_")
+                for p in ("dq", "dkv")}
+        flops = chip_smoke.bwd_flops(b, hq, s, s, d, causal)
+        moved = chip_smoke.nbytes(q, k, v, o, do, lse, *ref)
+        bounds = (dict(bound_ms=chip_smoke.bound(
+                       flops, moved, chip_smoke.PEAK_BF16)[0])
+                  if dt == torch.bfloat16 else
+                  dict(bound_ms=chip_smoke.bound(
+                       3 * flops, moved, chip_smoke.PEAK_TF32)[0]))
+        for name in (*entries, "sdpa", "plain"):
+            row = rows.get(name, {})
+            if name in ms:
+                row["ms"] = ms[name]
+            if name in ms or row:
+                print(json.dumps(dict(shape=shape, route=route, variant=name,
+                                      **row, **bounds)), flush=True)
+        del q, k, v, o, do, lse, ref, leaves, lib_out, fns
+        chip_smoke.free_card()
     return 0
 
 

@@ -29,7 +29,9 @@ sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "src"))
 
 # kernel name fragments of each kind, tried in this order
-KINDS = (("flash_attention_bwd", ("bwd_dq_kernel", "bwd_dkv_kernel")),
+KINDS = (("flash_attention_bwd", ("bwd_dq_kernel", "bwd_dkv_kernel",
+                                  "bwd_dq_wgmma_kernel",
+                                  "bwd_dkv_wgmma_kernel")),
          ("flash_attention", ("flash_mma_kernel", "flash_wgmma_kernel")),
          ("ssd_chunk_bwd", ("ssd_bwd_heads", "ssd_bwd_chunk")),
          ("ssd_chunk", ("ssd_chunk_kernel",)),
