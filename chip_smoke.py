@@ -2491,12 +2491,16 @@ def ssd_bwd_held(label, args, parity):
 def ssd_bwd_rows(dev, seed) -> tuple[list, list]:
     """ssd_chunk's backward kernel held (``ssd_bwd_held``) and timed
     beside its plain version at each ``SSD_BWD_LAYERS`` layer, with its
-    bound; then held at the ``SSD_PARITY`` shapes and ``SSD_BWD_STEEP``.
-    -> (parity rows, ``kernels`` rows without launches)."""
+    bound, each pass's device time (torch.profiler) and the heads pass's
+    plan (heads a group, groups, warps, blocks an SM, shared memory, B and
+    the state term on chip); then held at the ``SSD_PARITY`` shapes and
+    ``SSD_BWD_STEEP``.  -> (parity rows, ``kernels`` rows without
+    launches)."""
     import torch
     from repro_torch.kernels import BUILD_LOG
     from repro_torch.kernels.ssd_chunk import (ssd_chunk_backward,
                                                ssd_chunk_bwd_ref)
+    from repro_torch.kernels.ssd_chunk import ops as ssd_ops
     gen = torch.Generator(device=dev).manual_seed(seed)
     fmt = "bs={} nc={} q={} H={} P={} S={}"
     parity, rows = [], []
@@ -2521,7 +2525,11 @@ def ssd_bwd_rows(dev, seed) -> tuple[list, list]:
             bound_ms=bms, bound_by=by, bound_fp32_ms=bound(flops, moved)[0],
             share=bms / t["kernel"], library_ms=None,
             sass_count=sass_count("ssd_chunk_bwd", "HMMA", "TF32"),
-            spill_bytes=spilled_bytes(BUILD_LOG["ssd_chunk_bwd"]))
+            spill_bytes=spilled_bytes(BUILD_LOG["ssd_chunk_bwd"]),
+            device_ms={p: device_ms(lambda: ssd_chunk_backward(*args),
+                                    f"ssd_bwd_{p}")
+                       for p in ssd_ops.SSD_BWD_PASSES},
+            plan=ssd_ops.backward_plan(*f.values()))
         rows.append(row)
         log(json.dumps({"bwd_kernel": row}))
         del args, got

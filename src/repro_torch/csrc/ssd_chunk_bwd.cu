@@ -22,36 +22,67 @@
 //
 // The exponential is taken only where i >= j: above the diagonal it can
 // overflow, and inf * 0 would be NaN; every masked value is selected to 0,
-// never multiplied by 0.  Any q <= 128 (kQMax), any P and S.
+// never multiplied by 0.  Any q <= 128 (kQMax), any P and S, operands at
+// any 4-byte offset.
 //
-// Two launches and no atomics, so two calls give the same bits:
+// What bounds it on an H100: at Mamba2-2.7B's layer (32 chunks of 64,
+// H = 80, P = 64, S = 128) it must read x, dy (42 MB each) and dst
+// (84 MB) and write dx (42 MB): 0.0646 ms at 3.35 TB/s.  Its products are
+// ~6.8 GFLOP, 20.3 GFLOP of TF32 in 3xTF32 (0.041 ms at the TF32 peak;
+// mma.sync m16n8k8 costs ~8.7 cycles a scheduler, about half the peak), so
+// copies and products take about as long and must overlap.  Two launches
+// and no atomics, so two calls give the same bits:
 //
-// * heads pass, a block per (chunk, group of HG heads), 8 warps.  C B^T is
-//   built once a block into shared memory; then per head and 64-column P
-//   tile: dM = dy x^T on the lower triangle's m16n8 tiles (accumulated in
-//   registers over the P tiles), E = B dst^T over the S tiles (the
-//   accumulators of dx's tiles), u from E and x, E scaled by w, then
-//   dx += M^T dy with M^T's A fragments built from C B^T, cum and dt in
-//   registers (M is never stored); the state term (x o w) dst of dB for
-//   each (P, S) tile, added into the group's slot of a scratch buffer the
-//   wrapper allocates.  After the P tiles, dM's tiles give dCB (summed over
-//   the group's heads in registers, written to scratch once a block), and
-//   the row and column sums of G and dM o CB o L, reduced by fixed-order
-//   shuffles and per-tile partials in shared memory, give ddt and dcum.
-// * chunk pass, a block per (chunk, 32 columns of S): the groups' partial
-//   dCB and state terms added in group order, then dC = dCB B and
-//   dB = dCB^T C + state term, on the CUDA cores in fp32 (q^2 S per chunk,
-//   under 1 % of the products).
+// * heads pass, a block per (chunk, group of HG heads), 16 warps in two
+//   groups of 8, one block an SM: the X warps compute E = B dst^T and dx,
+//   the D warps dB's state term and dM, side by side.  C B^T is built once
+//   a block.  The block then walks the group's units (head, T columns of
+//   P) in steps of T columns of S, one __syncthreads a step.  Two streams
+//   of cp.async copies run ahead in double buffers: a step's dst tile is
+//   issued when the step before starts, across units, and a unit's x, dy,
+//   cum and dt when the unit before starts.
+//   - a head's first step: the D warps form its w_end, w and (chunk <= 64)
+//     L = exp(cum_i - cum_j) once, the X warps finish the last head's ddt
+//     and dcum (beside the products, not in a step of their own);
+//   - each step: X: E's share of the S tile into dx's accumulators (each
+//     warp the 16-row strips r and n - 1 - r by 16 columns); D: the state
+//     term (x o w) dst's columns of the S tile (a strip by 32 columns a
+//     warp), added into a q x S accumulator in shared memory that lives
+//     across the group's heads, or where it does not fit into the group's
+//     scratch slot;
+//   - a unit's last step, then: X: u from E and x, E scaled by w, and
+//     dx += M^T dy with M^T's fragments from C B^T, L and dt (M is never
+//     stored; the strip pairing gives every X warp as many k-steps); D:
+//     dM = dy x^T on the lower triangle's m16n8 tiles, three at a time, its
+//     share of dCB (in registers across the group's heads, written once a
+//     block) and the row and column sums of G and dM o CB o L by tile.
+// * chunk pass, a block per (chunk, 64 columns of S, 32 rows): the groups'
+//   dCB rows and columns and state terms added in group order, then
+//   dC = dCB B and dB = dCB^T C + state term, on the CUDA cores in fp32.
 //
-// The heads pass's products run in 3xTF32 on mma.sync m16n8k8
-// (csrc/tf32x3.cuh).  What bounds it on an H100: at Mamba2-2.7B's layer
-// (32 chunks of 64, H = 80, P = 64, S = 128) it must read x, dy (42 MB
-// each) and dst (84 MB) and write dx (42 MB): ~0.065 ms at 3.35 TB/s,
-// against ~6.8 GFLOP of products, ~0.041 ms at the TF32 peak in 3xTF32.
-// This first version loads each tile synchronously (cp.async, then wait),
-// reloads B's S tiles per head where S > 64, and reads and writes the
-// state term's partial sums once per head (L2-resident); a copy pipeline
-// and wgmma are later work.
+// Shared memory, in floats (QP = q rounded to 16; T = 64 at QP <= 64, else
+// 32; LD = T + 8): C B^T, and L at QP <= 64, as the lower triangle's
+// strips (cb_off(QP / 16) each); B resident, QP (nS T + 8), where it fits,
+// else its S tile in each D stage; the state term's accumulator
+// QP (nS T + 8) where it fits after that; the U ring 2 (2 QP LD + 2 QP);
+// the D ring 2 T LD; the vectors (4 + T / 16 + QP / 8 + QP / 8) QP.  At
+// Mamba2-2.7B's P = 64, S = 128: at q = 64, 3328 + 3328 + 8704 + 8704 +
+// 18688 + 9216 + 1536 = 53504 (214 KB), all on chip; at q = 128, 10752 +
+// 17408 + 20992 + 2560 + 4864 = 56576 (226 KB): B stays, the state term
+// goes through scratch and L is taken in registers.  Either way 227 KB
+// holds one block an SM, so its 16 warps (128 registers a thread) are all
+// an SM runs; plan() picks HG for whole waves of such blocks.
+//
+// Choices by measurement (tools/ssd_chunk_variants.py --backward, the
+// layer): the copy pipeline is worth 8 % (sync_copies), B resident 4 %
+// (b_reload), the state term on chip 4 % (st_through_scratch), L in shared
+// memory 8 % (l_regs).  Bulk copies a tile row (cp.async.bulk on an
+// mbarrier a stage, issued by one warp) took 0.432 ms against cp.async's
+// 0.327: cp.async stays.  A tensor-map TMA needs swizzled tiles and
+// fragment loads to match, and wgmma in TF32 K-major operands with big and
+// small parts in shared memory: later work.  What holds it at ~20 % of its
+// bound is the warps' own latency, four a scheduler: with no copies at all
+// it is 11 % faster, with one TF32 pass in place of three 20 %.
 #include "ssd_tiles.cuh"
 
 namespace {
@@ -59,10 +90,11 @@ namespace {
 using namespace ssd;
 
 constexpr int kQMax = 128;           // chunk length
-constexpr int kT = kPT;              // P and S tiles
-constexpr int kLd = kT + 8;          // tile rows: = 8 mod 32
+constexpr int kWarpsH = 16;          // the heads pass: X warps, then D warps
+constexpr int kThreadsH = kWarpsH * 32;
 constexpr int kMaxSmem = 232448 - 1024;
-constexpr int kS2 = 32;              // the chunk pass's S columns a block
+constexpr int kS2 = 64;              // the chunk pass's S columns a block
+constexpr int kR2 = 32;              // and its rows
 
 struct Params {
   const float* x;
@@ -81,10 +113,15 @@ struct Params {
   float* part_st;   // [BN][G][Q][SP]: each group's state term of dB
   int H, Q, P, S;
   int QP;           // Q rounded up to 16
-  int ldcb;         // row stride of C.B^T: = 8 mod 32
+  int cbf;          // C.B^T's (and L's) floats: cb_off(QP / 16)
   int SP;           // S rounded up to even (the state term's rows)
   int HG, G;        // heads a group, groups
-  int nP, nS;       // 64-column P and S tiles
+  int nP, nS;       // T-column P and S tiles
+  int b_res, ldb;   // B resident (row stride ldb), else in the D ring
+  int st_res, ldst; // the state term in shared memory, else in scratch
+  // offsets in floats: L, B, the state term, the U ring, the D ring, the
+  // vectors; the rings' stage sizes
+  int o_l, o_b, o_st, o_u, o_d, o_v, u_stage, d_stage;
   int smem_floats;  // the heads pass's shared memory
   int vx;           // x and dy rows 16-byte aligned: cp.async of 16 bytes
   int vbc;          // B and C rows 16-byte aligned
@@ -92,18 +129,56 @@ struct Params {
   int vdx;          // dx in 8-byte pairs
 };
 
-// S tile sti of B (and of C where cs) into shared memory, the columns
-// past S zeroed (rows past Q are zero from the block's start)
-__device__ __forceinline__ void load_bc(const Params& p, long long bn,
-                                        int sti, float* bs, float* cs) {
-  const int s0 = sti * kT, w = min(kT, p.S - s0);
-  const long long off = bn * p.Q * p.S + s0;
-  load_rows(bs, kLd, p.B + off, p.S, p.Q, w, p.vbc);
-  if (cs) load_rows(cs, kLd, p.C + off, p.S, p.Q, w, p.vbc);
-  if (w < kT) {
-    zero_cols(bs, kLd, p.Q, w, kT);
-    if (cs) zero_cols(cs, kLd, p.Q, w, kT);
+// C.B^T and L keep the lower triangle's 16-row strips: strip r's rows hold
+// its 16 (r + 1) columns, padded to cb_ld(r) floats (= 4 mod 32: M^T's
+// fragments read them across rows without a bank conflict)
+__host__ __device__ __forceinline__ int cb_ld(int r) {
+  return 32 * ((r + 2) / 2) + 4;
+}
+
+// the first float of strip r: 16 sum_{r' < r} cb_ld(r')
+__host__ __device__ __forceinline__ int cb_off(int r) {
+  const int m = r / 2, s = (r & 1) ? (m + 1) * (m + 1) : m * (m + 1);
+  return 16 * (4 * r + 32 * s);
+}
+
+__device__ __forceinline__ int cb_row(int i) {
+  return cb_off(i >> 4) + (i & 15) * cb_ld(i >> 4);
+}
+
+// x and dy's P tile at p0 of head h, and the head's cum and dt, into a U
+// stage (rows past Q stay zero: the copies write rows < Q only)
+template <int T>
+__device__ __forceinline__ void load_unit(const Params& p, long long bn,
+                                          int h, int p0, float* xs,
+                                          float* dys, float* cum,
+                                          float* dt) {
+  const int pw = min(T, p.P - p0);
+  const long long o = (bn * p.Q * p.H + h) * (long long)p.P + p0;
+  const long long rs = (long long)p.H * p.P;
+  load_rows<kThreadsH>(xs, T + 8, p.x + o, rs, p.Q, pw, p.vx);
+  load_rows<kThreadsH>(dys, T + 8, p.dy + o, rs, p.Q, pw, p.vx);
+  if (pw < T) {
+    zero_cols<kThreadsH>(xs, T + 8, p.Q, pw, T);
+    zero_cols<kThreadsH>(dys, T + 8, p.Q, pw, T);
   }
+  const int e = threadIdx.x;
+  if (e < p.Q)
+    tf32x3::cp_async4(cum + e, p.cum + (bn * p.Q + e) * p.H + h);
+  else if (e >= kQMax && e < kQMax + p.Q)
+    tf32x3::cp_async4(dt + e - kQMax,
+                      p.dt + (bn * p.Q + e - kQMax) * p.H + h);
+}
+
+// B's S tile at s0 into bt (row stride ld), its columns past S zeroed:
+// E and C.B^T sum over them, and the other operand's are not zeroed
+template <int T>
+__device__ __forceinline__ void load_b_tile(const Params& p, long long bn,
+                                            int s0, float* bt, int ld) {
+  const int w = min(T, p.S - s0);
+  load_rows<kThreadsH>(bt, ld, p.B + bn * p.Q * p.S + s0, p.S, p.Q, w,
+                       p.vbc);
+  if (w < T) zero_cols<kThreadsH>(bt, ld, p.Q, w, T);
 }
 
 __device__ __forceinline__ float quad_sum(float v) {
@@ -117,393 +192,535 @@ __device__ __forceinline__ float column_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 16);
 }
 
+// the m16n8 tiles on and below the diagonal, strip by strip: tile k's
+// strip (its column tile is k - r (r + 1))
+__device__ __forceinline__ int tile_strip(int k) {
+  int r = 0;
+  while ((r + 1) * (r + 2) <= k) ++r;
+  return r;
+}
+
+// ddt and dcum of one head (row j at o + j H) from the sums its units
+// left: row j by thread j (Q <= kQMax), and cum_end's share of w,
+// sum_k u_k w_k, by the warp holding row Q - 1 (lanes in fixed strides,
+// then a butterfly).  Not inlined: it runs once a head, and out of the
+// steps' loop the heads pass at chunk 128 takes 122 registers, not 128.
+template <int QM>
+__device__ __noinline__ void finish(float* ddt, float* dcum, long long o,
+                                    int H, int Q, int QP,
+                                    const float* upart, const float* rowg,
+                                    const float* colg, const float* colt,
+                                    const float* w, const float* wend) {
+  constexpr int kNcg = (QM == 64 ? 64 : 32) / 16;
+  const int j = threadIdx.x, lane = j & 31, nstrips = QP / 16;
+  float tot = 0.f;
+  if (j >> 5 == (Q - 1) >> 5) {
+    for (int k = lane; k < Q; k += 32) {
+      float uk = 0.f;
+#pragma unroll
+      for (int cg = 0; cg < kNcg; ++cg) uk += upart[cg * QP + k];
+      tot += uk * w[k];
+    }
+#pragma unroll
+    for (int s = 16; s; s >>= 1) tot += __shfl_xor_sync(0xffffffffu, tot, s);
+  }
+  if (j >= Q) return;
+  const int r = j / 16, c = j / 8;
+  float us = 0.f;
+#pragma unroll
+  for (int cg = 0; cg < kNcg; ++cg) us += upart[cg * QP + j];
+  // the sums in a fixed order, unrolled to the chunk's largest shape so
+  // the loads issue together
+  float rs = 0.f, cs = 0.f, cts = 0.f;
+#pragma unroll
+  for (int cc = 0; cc < QM / 8; ++cc)
+    if (cc <= 2 * r + 1) rs += rowg[cc * QP + j];
+#pragma unroll
+  for (int rr = 0; rr < QM / 16; ++rr)
+    if (rr >= c / 2 && rr < nstrips) {
+      cs += colg[rr * QP + j];
+      cts += colt[rr * QP + j];
+    }
+  float dc = rs - cs - us * w[j];
+  if (j == Q - 1) dc += tot;
+  ddt[o + (long long)j * H] = cts + us * wend[j];
+  dcum[o + (long long)j * H] = dc;
+}
+
 // QM: the largest padded chunk the instance takes (64 or 128)
-template <int QM, int MinBlocks>
-__global__ void __launch_bounds__(kThreads, MinBlocks)
+template <int QM>
+__global__ void __launch_bounds__(kThreadsH, 1)
 ssd_bwd_heads(const Params p) {
-  // dM's m16n8 tiles on and below the diagonal, dealt to the warps in
-  // turn; dx's tiles: a 16-row strip by 32 columns, one or two a warp
+  constexpr int T = QM == 64 ? 64 : 32;      // P and S tiles
+  constexpr int LD = T + 8;                  // tile rows: = 8 mod 32
+  constexpr bool kL = QM == 64;              // L in shared memory
+  constexpr int kNcg = T / 16;               // X warps' column groups
   constexpr int kStrips = QM / 16;
-  constexpr int kSlotsM = (kStrips * (kStrips + 1) + kWarps - 1) / kWarps;
-  constexpr int kSlotsX = QM / 64;
+  constexpr int kSlotsM = (kStrips * (kStrips + 1) + 7) / 8;
+  constexpr int kKeep = kSlotsM > 4 ? kSlotsM : 4;
   extern __shared__ __align__(16) float smem[];
-  const int QP = p.QP, Q = p.Q, ldcb = p.ldcb;
-  float* cbs = smem;                         // QP x ldcb: C.B^T
-  float* bs = cbs + QP * ldcb;               // QP x kLd: B's S tile
-  float* xs = bs + QP * kLd;                 // QP x kLd: x's P tile (C's
-                                             // S tile while C.B^T is built)
-  float* dys = xs + QP * kLd;                // QP x kLd: dy's P tile
-  float* dsts = dys + QP * kLd;              // kT x kLd: dst's (P, S) tile
-  float* cum = dsts + kT * kLd;              // QP: the head's cum
-  float* dt = cum + QP;                      // QP
-  float* wend = dt + QP;                     // QP: exp(cum_end - cum)
-  float* w = wend + QP;                      // QP: w_end dt
-  float* uw = w + QP;                        // QP: u w
-  float* rowg = uw + QP;                     // QP/8 x QP: G's row sums by
+  const int QP = p.QP, Q = p.Q, nS = p.nS, nP = p.nP;
+  float* cbs = smem;                         // C.B^T's strips (cb_row)
+  float* Lm = smem + p.o_l;                  // the head's L, the same way
+  float* bres = smem + p.o_b;                // QP x ldb: B, if resident
+  float* sta = smem + p.o_st;                // QP x ldst: the state term
+  float* ubase = smem + p.o_u;               // 2 x (x, dy, cum, dt)
+  float* dbase = smem + p.o_d;               // 2 x (dst, [B's S tile])
+  float* wend2 = smem + p.o_v;               // 2 x QP: exp(cum_end - cum)
+  float* w2 = wend2 + 2 * QP;                // 2 x QP: w_end dt
+  float* upart = w2 + 2 * QP;                // kNcg x QP: u by column group
+  float* rowg = upart + kNcg * QP;           // QP/8 x QP: G's row sums by
                                              // column tile
   float* colg = rowg + (QP / 8) * QP;        // QP/16 x QP: G's column sums
                                              // by row strip
   float* colt = colg + (QP / 16) * QP;       // QP/16 x QP: dM CB L's
-  float* upart = colt + (QP / 16) * QP;      // 2 x QP: u by 32-column half
-                                             // of the P tile
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
+  const bool xw = warp < 8;                  // an X warp, else a D warp
+  const int gw = warp & 7;
   const long long bn = blockIdx.x;           // b * nc + n
   const int grp = blockIdx.y;
   const int h0 = grp * p.HG, hg = min(p.HG, p.H - h0);
-  const int nstrips = QP / 16;
+  const int nstrips = QP / 16, ntiles = nstrips * (nstrips + 1);
+  const int units = hg * nP, steps = units * nS;
 
-  // rows past Q of every tile, and cum, dt, w past Q, stay zero: the
-  // loads write rows < Q only
-  for (int e = threadIdx.x; e < p.smem_floats; e += kThreads) smem[e] = 0.f;
+  // rows past Q of every tile, and cum, dt past Q, stay zero: the loads
+  // write rows < Q only; the state term's accumulator starts at zero
+  for (int e = threadIdx.x; e < p.smem_floats; e += kThreadsH) smem[e] = 0.f;
   __syncthreads();
 
-  // ---- C.B^T, once a block: items (16-row strip r, 32-column group) ----
-  const int ncg = (QP + 31) / 32;
-  for (int sti = 0; sti < p.nS; ++sti) {
-    if (sti) __syncthreads();   // the last S tile is read
-    load_bc(p, bn, sti, bs, xs);
+  // Two streams of copies into double buffers: unit it + 1's x, dy, cum
+  // and dt, issued when unit it starts, and the steps' dst tiles (and B's
+  // S tiles), step d + 1's when step d starts, across units.  A unit's
+  // first step commits its tile's group, then the next unit's; the other
+  // steps one group (each empty at the ends), so a step waits for its own
+  // copies with a fixed count.
+  auto issue_unit = [&](int it) {
+    const int hh = it / nP, pi = it - hh * nP;
+    float* xs = ubase + (it & 1) * p.u_stage;
+    load_unit<T>(p, bn, h0 + hh, pi * T, xs, xs + QP * LD, xs + 2 * QP * LD,
+                 xs + 2 * QP * LD + QP);
+  };
+  auto issue_tile = [&](int d) {
+    const int it = d / nS, si = d - it * nS;
+    const int hh = it / nP, pi = it - hh * nP, h = h0 + hh;
+    const int s0 = si * T, p0 = pi * T;
+    float* ds = dbase + (d & 1) * p.d_stage;
+    load_rows<kThreadsH>(
+        ds, LD, p.dst + ((bn * p.H + h) * (long long)p.P + p0) * p.S + s0,
+        p.S, min(T, p.P - p0), min(T, p.S - s0), p.vst);
+    if (!p.b_res) load_b_tile<T>(p, bn, s0, ds + T * LD, LD);
+  };
+  // at step d: the copies each stream runs ahead
+  auto prefetch = [&](int d) {
+    if (d + 1 < steps) issue_tile(d + 1);
     tf32x3::cp_async_commit();
-    tf32x3::cp_async_wait<0>();
-    __syncthreads();
-    for (int it = warp; it < nstrips * ncg; it += kWarps) {
-      const int r = it / ncg, c0 = 32 * (it - r * ncg);
-      if (c0 > 16 * r + 15) continue;   // wholly above the diagonal
-      const int nj = min(4, (QP - c0) / 8);
-      float acc[4][4] = {};
-      for (int ks = 0; ks < kT / 8; ++ks) {
-        const tf32x3::Frag<4> a =
-            tf32x3::load_a<true>(xs, kLd, 16 * r, 8 * ks, lane);
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          if (j < nj)
-            tf32x3::mma3(acc[j], a,
-                         tf32x3::load_bt<true>(bs, kLd, c0 + 8 * j, 8 * ks,
-                                               lane));
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (j >= nj) break;
-        float* o = cbs + (16 * r + g) * ldcb + c0 + 8 * j + 2 * t;
-        float2 lo = make_float2(acc[j][0], acc[j][1]);
-        float2 hi = make_float2(acc[j][2], acc[j][3]);
-        if (sti) {
-          const float2 l0 = *reinterpret_cast<float2*>(o);
-          const float2 h0v = *reinterpret_cast<float2*>(o + 8 * ldcb);
-          lo.x += l0.x; lo.y += l0.y; hi.x += h0v.x; hi.y += h0v.y;
-        }
-        *reinterpret_cast<float2*>(o) = lo;
-        *reinterpret_cast<float2*>(o + 8 * ldcb) = hi;
-      }
+    const int it = d / nS;
+    if (d == it * nS) {
+      if (it + 1 < units) issue_unit(it + 1);
+      tf32x3::cp_async_commit();
     }
-  }
-  // C.B^T built; C's space is x's from here (each x tile load writes
-  // its columns and zeroes the rest)
+  };
+  issue_unit(0);   // the first unit's copies run under C.B^T
+  tf32x3::cp_async_commit();
 
-  // this warp's dM tiles (strip mr, column tile mc; mr < 0: none), and
-  // its dx strips (xr; the 32-column half xc of the P tile)
-  int mr[kSlotsM], mc[kSlotsM];
-#pragma unroll
-  for (int s = 0; s < kSlotsM; ++s) {
-    const int k = warp + kWarps * s;
-    mr[s] = -1;
-    mc[s] = 0;
-    if (k < nstrips * (nstrips + 1)) {
-      int r = 0;
-      while ((r + 1) * (r + 2) <= k) ++r;
-      mr[s] = r;
-      mc[s] = k - r * (r + 1);
-    }
-  }
-  int xr[kSlotsX];
-  const int xc = warp & 1;
-  xr[0] = (warp >> 1) < nstrips ? (warp >> 1) : -1;
-  if constexpr (kSlotsX > 1) {
-    const int r1 = nstrips - 1 - (warp >> 1);
-    xr[kSlotsX - 1] = r1 >= 4 ? r1 : -1;   // strips past the first four
-  }
-  float dcb[kSlotsM][4] = {};   // the group's dCB, summed over its heads
-  float* part_st = p.part_st + (bn * p.G + grp) * (long long)Q * p.SP;
-
-  for (int hh = 0; hh < hg; ++hh) {
-    const int h = h0 + hh;
-    __syncthreads();   // the last head's readers are done
-    for (int j = threadIdx.x; j < Q; j += kThreads) {
-      cum[j] = p.cum[(bn * Q + j) * p.H + h];
-      dt[j] = p.dt[(bn * Q + j) * p.H + h];
-    }
-    __syncthreads();
-    const float cend = cum[Q - 1];
-    for (int j = threadIdx.x; j < Q; j += kThreads) {
-      const float we = __expf(cend - cum[j]);
-      wend[j] = we;
-      w[j] = we * dt[j];
-    }
-    float dm[kSlotsM][4] = {};
-    for (int pi = 0; pi < p.nP; ++pi) {
-      const int p0 = pi * kT, pw = min(kT, p.P - p0);
-      __syncthreads();   // the last tiles are read; w is written
-      const long long xo = (bn * Q * p.H + h) * (long long)p.P + p0;
-      load_rows(xs, kLd, p.x + xo, (long long)p.H * p.P, Q, pw, p.vx);
-      load_rows(dys, kLd, p.dy + xo, (long long)p.H * p.P, Q, pw, p.vx);
-      if (pw < kT) {
-        zero_cols(xs, kLd, Q, pw, kT);
-        zero_cols(dys, kLd, Q, pw, kT);
-      }
+  // ---- C.B^T, once a block: items (16-row strip r, 32-column group) ----
+  {
+    float* cs = ubase + p.u_stage;   // C's S tile in the second U stage
+    const int ncg = (QP + 31) / 32;
+    for (int sti = 0; sti < nS; ++sti) {
+      if (sti) __syncthreads();   // the last S tile is read
+      const int s0 = sti * T, w = min(T, p.S - s0);
+      float* bt = p.b_res ? bres + s0 : dbase + T * LD;
+      const int ldbt = p.b_res ? p.ldb : LD;
+      load_b_tile<T>(p, bn, s0, bt, ldbt);
+      load_rows<kThreadsH>(cs, LD, p.C + bn * Q * p.S + s0, p.S, Q, w,
+                           p.vbc);
       tf32x3::cp_async_commit();
       tf32x3::cp_async_wait<0>();
       __syncthreads();
-      const int kp = (pw + 7) / 8;
-
-      // dM += dy x^T over this P tile
+      for (int it = warp; it < nstrips * ncg; it += kWarpsH) {
+        const int r = it / ncg, c0 = 32 * (it - r * ncg);
+        if (c0 > 16 * r + 15) continue;   // wholly above the diagonal
+        const int nj = min(4, (QP - c0) / 8);
+        float acc[4][4] = {};
+        for (int ks = 0; ks < T / 8; ++ks) {
+          const tf32x3::Frag<4> a =
+              tf32x3::load_a<true>(cs, LD, 16 * r, 8 * ks, lane);
 #pragma unroll
-      for (int s = 0; s < kSlotsM; ++s) {
-        if (mr[s] < 0) continue;
-        for (int ks = 0; ks < kp; ++ks)
-          tf32x3::mma3(dm[s],
-                       tf32x3::load_a<true>(dys, kLd, 16 * mr[s], 8 * ks,
-                                            lane),
-                       tf32x3::load_bt<true>(xs, kLd, 8 * mc[s], 8 * ks,
-                                             lane));
+          for (int j = 0; j < 4; ++j)
+            if (j < nj)
+              tf32x3::mma3(acc[j], a,
+                           tf32x3::load_bt<true>(bt, ldbt, c0 + 8 * j,
+                                                 8 * ks, lane));
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (j >= nj) break;
+          float* o = cbs + cb_row(16 * r + g) + c0 + 8 * j + 2 * t;
+          float2 lo = make_float2(acc[j][0], acc[j][1]);
+          float2 hi = make_float2(acc[j][2], acc[j][3]);
+          if (sti) {
+            const float2 l0 = *reinterpret_cast<float2*>(o);
+            const float2 h0v =
+                *reinterpret_cast<float2*>(o + 8 * cb_ld(r));
+            lo.x += l0.x; lo.y += l0.y; hi.x += h0v.x; hi.y += h0v.y;
+          }
+          *reinterpret_cast<float2*>(o) = lo;
+          *reinterpret_cast<float2*>(o + 8 * cb_ld(r)) = hi;
+        }
       }
+    }
+  }
+  __syncthreads();   // C.B^T built; B's ring tile and C's are read
+  issue_tile(0);
+  tf32x3::cp_async_commit();
 
-      // E = B dst^T into dx's accumulators, and the state term of dB
-      float ex[kSlotsX][4][4] = {};
-      for (int si = 0; si < p.nS; ++si) {
-        const int s0 = si * kT, sw = min(kT, p.S - s0);
-        if (si) __syncthreads();   // the last dst (and B) tile is read
-        if (p.nS > 1) load_bc(p, bn, si, bs, nullptr);
-        load_rows(dsts, kLd,
-                  p.dst + ((bn * p.H + h) * (long long)p.P + p0) * p.S + s0,
-                  p.S, pw, sw, p.vst);
-        if (sw < kT) zero_cols(dsts, kLd, pw, sw, kT);
-        if (pw < kT) zero_cols(dsts + pw * kLd, kLd, kT - pw, 0, kT);
-        tf32x3::cp_async_commit();
-        tf32x3::cp_async_wait<0>();
-        __syncthreads();
+  // X warps: dx's strips xr (r and nstrips - 1 - r, so every warp has
+  // as many k-steps of M^T dy) and 16-column group xcg of the P tile
+  int xr[2];
+  const int xpr = gw / kNcg, xcg = gw - xpr * kNcg;
+  xr[0] = xpr <= nstrips - 1 - xpr ? xpr : -1;
+  xr[1] = nstrips - 1 - xpr > xpr ? nstrips - 1 - xpr : -1;
+  // accumulators that live across steps: an X warp's E and dx tiles
+  // (strip s, n8 tile nt: keep[2 s + nt]); a D warp's share of the
+  // group's dCB, summed over its heads (its tile gw + 8 s: keep[s])
+  float keep[kKeep][4] = {};
+  float* part_st = p.part_st + (bn * p.G + grp) * (long long)Q * p.SP;
+
+  // ddt and dcum of the group's head hh from the sums its units left
+  auto finish_head = [&](int hh) {
+    finish<QM>(p.ddt, p.dcum, (bn * Q) * p.H + h0 + hh, p.H, Q, QP, upart,
+               rowg, colg, colt, w2 + (hh & 1) * QP, wend2 + (hh & 1) * QP);
+  };
+
+  for (int d = 0; d < steps; ++d) {
+    const int it = d / nS, si = d - it * nS;
+    // pending: this step's group, and at the unit's second step the next
+    // unit's (younger); at its first step this unit's (older) too
+    if (si == 1) tf32x3::cp_async_wait<1>();
+    else tf32x3::cp_async_wait<0>();
+    __syncthreads();   // step d's copies landed; step d - 1 is read
+    prefetch(d);
+    const int hh = it / nP, pi = it - hh * nP, h = h0 + hh;
+    const int p0 = pi * T, pw = min(T, p.P - p0), kp = (pw + 7) / 8;
+    const float* xs = ubase + (it & 1) * p.u_stage;
+    const float* dys = xs + QP * LD;
+    const float* cum = dys + QP * LD;
+    const float* dt = cum + QP;
+    const float* w = w2 + (hh & 1) * QP;
+    const float cend = cum[Q - 1];
+    const int s0 = si * T, sw = min(T, p.S - s0);
+    const float* ds = dbase + (d & 1) * p.d_stage;
+
+    // a head's first step: the X warps finish the last head (ddt, dcum);
+    // the D warps form this head's w_end, w and L, read from the next
+    // step on (and after a barrier where this is the unit's last step)
+    if (si == 0 && pi == 0) {
+      if (xw) {
+        if (hh) finish_head(hh - 1);
+      } else {
+        for (int j = threadIdx.x - 256; j < QP; j += 256) {
+          const float we = j < Q ? __expf(cend - cum[j]) : 0.f;
+          wend2[(hh & 1) * QP + j] = we;
+          w2[(hh & 1) * QP + j] = we * dt[j];
+        }
+        if constexpr (kL) {   // rows by warp, columns by lane
+#pragma unroll
+          for (int ii = 0; ii < QM / 8; ++ii)
+#pragma unroll
+            for (int jj = 0; jj < QM / 32; ++jj) {
+              const int i = gw + 8 * ii, j = lane + 32 * jj;
+              if (i < QP && j < 16 * ((i >> 4) + 1))
+                Lm[cb_row(i) + j] =
+                    i >= j && i < Q ? __expf(cum[i] - cum[j]) : 0.f;
+            }
+        }
+      }
+      if (nS == 1) __syncthreads();
+    }
+
+    if (xw) {
+      // E += B[:, S tile] dst[P tile, S tile]^T
+      if (si == 0) {
+#pragma unroll
+        for (int s = 0; s < 4; ++s)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) keep[s][e] = 0.f;
+      }
+      const float* bsrc = p.b_res ? bres + s0 : ds + T * LD;
+      const int ldbs = p.b_res ? p.ldb : LD;
+      if (xr[0] >= 0) {
         const int kss = (sw + 7) / 8;
+        for (int ks = 0; ks < kss; ++ks) {
+          const tf32x3::Frag<4> a0 =
+              tf32x3::load_a<true>(bsrc, ldbs, 16 * xr[0], 8 * ks, lane);
+          tf32x3::Frag<4> a1 = a0;
+          if (xr[1] >= 0)
+            a1 = tf32x3::load_a<true>(bsrc, ldbs, 16 * xr[1], 8 * ks, lane);
 #pragma unroll
-        for (int s = 0; s < kSlotsX; ++s) {
-          if (xr[s] < 0) continue;
-          for (int ks = 0; ks < kss; ++ks) {
-            const tf32x3::Frag<4> a =
-                tf32x3::load_a<true>(bs, kLd, 16 * xr[s], 8 * ks, lane);
-#pragma unroll
-            for (int nt = 0; nt < 4; ++nt)
-              tf32x3::mma3(ex[s][nt], a,
-                           tf32x3::load_bt<true>(dsts, kLd,
-                                                 32 * xc + 8 * nt, 8 * ks,
-                                                 lane));
+          for (int nt = 0; nt < 2; ++nt) {
+            const tf32x3::Frag<2> b = tf32x3::load_bt<true>(
+                ds, LD, 16 * xcg + 8 * nt, 8 * ks, lane);
+            tf32x3::mma3(keep[nt], a0, b);
+            if (xr[1] >= 0) tf32x3::mma3(keep[2 + nt], a1, b);
           }
         }
-        // (x o w) dst: items (strip, 32-column half of the S tile)
-        const bool first = hh == 0 && pi == 0;
-        for (int it = warp; it < nstrips * 2; it += kWarps) {
-          const int r = it >> 1, ng = it & 1;
-          if (32 * ng >= sw) continue;
-          const int j0 = 16 * r + g, j1 = j0 + 8;
-          const float w0 = w[j0], w1 = w[j1];
-          float acc[4][4] = {};
-          for (int ks = 0; ks < kp; ++ks) {
-            const int pc = 8 * ks + 2 * t;
-            const float2 lo = *reinterpret_cast<const float2*>(
-                xs + j0 * kLd + pc);
-            const float2 hi = *reinterpret_cast<const float2*>(
-                xs + j1 * kLd + pc);
-            const float v[4] = {lo.x * w0, hi.x * w1, lo.y * w0, hi.y * w1};
-            tf32x3::Frag<4> a;
-            tf32x3::split_fast(a, v);
+      }
+    } else {
+      // the state term (x o w) dst: items (strip, 32 columns of the tile)
+      for (int it2 = gw; it2 < nstrips * (T / 32); it2 += 8) {
+        const int r = it2 / (T / 32), ng = it2 - r * (T / 32);
+        if (32 * ng >= sw) continue;
+        const int j0 = 16 * r + g, j1 = j0 + 8;
+        // w as the head's first step forms it in w2 (the same bits)
+        const float w0 = j0 < Q ? __expf(cend - cum[j0]) * dt[j0] : 0.f;
+        const float w1 = j1 < Q ? __expf(cend - cum[j1]) * dt[j1] : 0.f;
+        float acc[4][4] = {};
+        for (int ks = 0; ks < kp; ++ks) {
+          const int pc = 8 * ks + 2 * t;
+          const float2 lo = *reinterpret_cast<const float2*>(
+              xs + j0 * LD + pc);
+          const float2 hi = *reinterpret_cast<const float2*>(
+              xs + j1 * LD + pc);
+          const float v[4] = {lo.x * w0, hi.x * w1, lo.y * w0, hi.y * w1};
+          tf32x3::Frag<4> a;
+          tf32x3::split_fast(a, v);
 #pragma unroll
-            for (int nt = 0; nt < 4; ++nt)
-              tf32x3::mma3(acc[nt], a,
-                           tf32x3::load_b<true>(dsts, kLd, 8 * ks,
-                                                32 * ng + 8 * nt, lane));
-          }
+          for (int nt = 0; nt < 4; ++nt)
+            tf32x3::mma3(acc[nt], a,
+                         tf32x3::load_b<true>(ds, LD, 8 * ks,
+                                              32 * ng + 8 * nt, lane));
+        }
+        const int c0 = s0 + 32 * ng + 2 * t;
+        if (p.st_res) {   // the block's accumulator, rows past Q zero
 #pragma unroll
-          for (int nt = 0; nt < 4; ++nt) {
-            const int col = s0 + 32 * ng + 8 * nt + 2 * t;
-            if (col >= p.S) continue;
+          for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
             for (int half = 0; half < 2; ++half) {
-              const int j = half ? j1 : j0;
-              if (j >= Q) continue;
               float2* o = reinterpret_cast<float2*>(
-                  part_st + (long long)j * p.SP + col);
-              float2 v = make_float2(acc[nt][2 * half],
-                                     acc[nt][2 * half + 1]);
-              if (!first) {
-                const float2 old = *o;
-                v.x += old.x;
-                v.y += old.y;
-              }
-              *o = v;
+                  sta + (half ? j1 : j0) * p.ldst + c0 + 8 * nt);
+              const float2 old = *o;
+              *o = make_float2(old.x + acc[nt][2 * half],
+                               old.y + acc[nt][2 * half + 1]);
             }
-          }
+        } else {          // the group's scratch slot: all loads, then stores
+          float2 old[4][2];
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+            for (int half = 0; half < 2; ++half) {
+              const int j = half ? j1 : j0, col = c0 + 8 * nt;
+              old[nt][half] = it && col < p.S && j < Q
+                  ? *reinterpret_cast<const float2*>(
+                        part_st + (long long)j * p.SP + col)
+                  : make_float2(0.f, 0.f);
+            }
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+            for (int half = 0; half < 2; ++half) {
+              const int j = half ? j1 : j0, col = c0 + 8 * nt;
+              if (col < p.S && j < Q)
+                *reinterpret_cast<float2*>(
+                    part_st + (long long)j * p.SP + col) =
+                    make_float2(old[nt][half].x + acc[nt][2 * half],
+                                old[nt][half].y + acc[nt][2 * half + 1]);
+            }
         }
       }
+    }
+    if (si < nS - 1) continue;
 
+    // ---- after the unit's last D step ----------------------------------
+    if (xw) {
       // u from E and x; then dx = w o E + M^T dy
 #pragma unroll
-      for (int s = 0; s < kSlotsX; ++s) {
+      for (int s = 0; s < 2; ++s) {
         if (xr[s] < 0) continue;
+        float (&ex0)[4] = keep[2 * s];
+        float (&ex1)[4] = keep[2 * s + 1];
         const int r = xr[s], j0 = 16 * r + g, j1 = j0 + 8;
-        float u0 = 0.f, u1 = 0.f;
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          const int pc = 32 * xc + 8 * nt + 2 * t;
-          u0 += xs[j0 * kLd + pc] * ex[s][nt][0]
-                + xs[j0 * kLd + pc + 1] * ex[s][nt][1];
-          u1 += xs[j1 * kLd + pc] * ex[s][nt][2]
-                + xs[j1 * kLd + pc + 1] * ex[s][nt][3];
-        }
+        const int pc = 16 * xcg + 2 * t;
+        float u0 = xs[j0 * LD + pc] * ex0[0] + xs[j0 * LD + pc + 1] * ex0[1]
+                   + xs[j0 * LD + pc + 8] * ex1[0]
+                   + xs[j0 * LD + pc + 9] * ex1[1];
+        float u1 = xs[j1 * LD + pc] * ex0[2] + xs[j1 * LD + pc + 1] * ex0[3]
+                   + xs[j1 * LD + pc + 8] * ex1[2]
+                   + xs[j1 * LD + pc + 9] * ex1[3];
         u0 = quad_sum(u0);
         u1 = quad_sum(u1);
         if (t == 0) {
-          upart[xc * QP + j0] = (pi ? upart[xc * QP + j0] : 0.f) + u0;
-          upart[xc * QP + j1] = (pi ? upart[xc * QP + j1] : 0.f) + u1;
+          upart[xcg * QP + j0] = (pi ? upart[xcg * QP + j0] : 0.f) + u0;
+          upart[xcg * QP + j1] = (pi ? upart[xcg * QP + j1] : 0.f) + u1;
         }
         const float w0 = w[j0], w1 = w[j1];
 #pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          ex[s][nt][0] *= w0;
-          ex[s][nt][1] *= w0;
-          ex[s][nt][2] *= w1;
-          ex[s][nt][3] *= w1;
+        for (int nt = 0; nt < 2; ++nt) {
+          keep[2 * s + nt][0] *= w0;
+          keep[2 * s + nt][1] *= w0;
+          keep[2 * s + nt][2] *= w1;
+          keep[2 * s + nt][3] *= w1;
         }
         const float cj0 = cum[j0], cj1 = cum[j1];
         const float dj0 = dt[j0], dj1 = dt[j1];
         for (int ks = 2 * r; ks < QP / 8; ++ks) {
           // M^T's A fragment: row j, column i, = M[i, j], for j <= i < Q
           const int i0 = 8 * ks + 2 * t, i1 = i0 + 1;
-          const float ci0 = cum[i0], ci1 = cum[i1];
-          const float v[4] = {
-              decay(cbs[i0 * ldcb + j0], ci0, cj0, dj0, i0 >= j0 && i0 < Q),
-              decay(cbs[i0 * ldcb + j1], ci0, cj1, dj1, i0 >= j1 && i0 < Q),
-              decay(cbs[i1 * ldcb + j0], ci1, cj0, dj0, i1 >= j0 && i1 < Q),
-              decay(cbs[i1 * ldcb + j1], ci1, cj1, dj1, i1 >= j1 && i1 < Q)};
+          const int o0 = cb_row(i0), o1 = o0 + cb_ld(ks >> 1);
+          float v[4];
+          if constexpr (kL) {
+            v[0] = cbs[o0 + j0] * Lm[o0 + j0] * dj0;
+            v[1] = cbs[o0 + j1] * Lm[o0 + j1] * dj1;
+            v[2] = cbs[o1 + j0] * Lm[o1 + j0] * dj0;
+            v[3] = cbs[o1 + j1] * Lm[o1 + j1] * dj1;
+          } else {
+            const float ci0 = cum[i0], ci1 = cum[i1];
+            v[0] = decay(cbs[o0 + j0], ci0, cj0, dj0, i0 >= j0 && i0 < Q);
+            v[1] = decay(cbs[o0 + j1], ci0, cj1, dj1, i0 >= j1 && i0 < Q);
+            v[2] = decay(cbs[o1 + j0], ci1, cj0, dj0, i1 >= j0 && i1 < Q);
+            v[3] = decay(cbs[o1 + j1], ci1, cj1, dj1, i1 >= j1 && i1 < Q);
+          }
           tf32x3::Frag<4> a;
           tf32x3::split_fast(a, v);
 #pragma unroll
-          for (int nt = 0; nt < 4; ++nt)
-            tf32x3::mma3(ex[s][nt], a,
-                         tf32x3::load_b<true>(dys, kLd, 8 * ks,
-                                              32 * xc + 8 * nt, lane));
+          for (int nt = 0; nt < 2; ++nt)
+            tf32x3::mma3(keep[2 * s + nt], a,
+                         tf32x3::load_b<true>(dys, LD, 8 * ks,
+                                              16 * xcg + 8 * nt, lane));
         }
 #pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          const int col = p0 + 32 * xc + 8 * nt + 2 * t;
+        for (int nt = 0; nt < 2; ++nt) {
+          const int col = p0 + 16 * xcg + 8 * nt + 2 * t;
+          const float(&e)[4] = keep[2 * s + nt];
           if (j0 < Q)
             store2(p.dx, ((bn * Q + j0) * p.H + h) * (long long)p.P + col,
-                   col, p.P, ex[s][nt][0], ex[s][nt][1], p.vdx);
+                   col, p.P, e[0], e[1], p.vdx);
           if (j1 < Q)
             store2(p.dx, ((bn * Q + j1) * p.H + h) * (long long)p.P + col,
-                   col, p.P, ex[s][nt][2], ex[s][nt][3], p.vdx);
+                   col, p.P, e[2], e[3], p.vdx);
+        }
+      }
+    } else {
+      // dM = dy x^T over this P tile, three tiles at a time (kSlotsM is 3
+      // or 9), then their share of dCB and the row and column sums of
+      // G = dM o M and of dM o CB o L
+#pragma unroll
+      for (int s3 = 0; s3 < kSlotsM; s3 += 3) {
+        float dm[3][4] = {};
+#pragma unroll
+        for (int s = s3; s < s3 + 3; ++s) {
+          const int kt = gw + 8 * s;
+          if (kt >= ntiles) continue;
+          const int r = tile_strip(kt), c = kt - r * (r + 1);
+          for (int ks = 0; ks < kp; ++ks)
+            tf32x3::mma3(dm[s - s3],
+                         tf32x3::load_a<true>(dys, LD, 16 * r, 8 * ks, lane),
+                         tf32x3::load_bt<true>(xs, LD, 8 * c, 8 * ks, lane));
+        }
+#pragma unroll
+        for (int s = s3; s < s3 + 3; ++s) {
+          const int kt = gw + 8 * s;
+          if (kt >= ntiles) continue;
+          const int r = tile_strip(kt), c = kt - r * (r + 1);
+          const int i0 = 16 * r + g, j0 = 8 * c + 2 * t;
+          const float ci[2] = {cum[i0], cum[i0 + 8]};
+          const float cj[2] = {cum[j0], cum[j0 + 1]};
+          const float dj[2] = {dt[j0], dt[j0 + 1]};
+          float rg[2] = {0.f, 0.f}, cg[2] = {0.f, 0.f}, ct[2] = {0.f, 0.f};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {   // (i0, j0), (i0, j1), (i1, j0),
+            const int a = e >> 1, b = e & 1;   // (i1, j1)
+            const int i = i0 + 8 * a, j = j0 + b;
+            const bool on = i >= j && i < Q;
+            float L;
+            if constexpr (kL) L = Lm[cb_row(i) + j];
+            else L = on ? __expf(ci[a] - cj[b]) : 0.f;
+            const float dd = on ? dm[s - s3][e] : 0.f;
+            const float dl = dd * L;
+            keep[s][e] += dl * dj[b];                  // dCB
+            const float tv = dl * cbs[cb_row(i) + j];  // dM CB L
+            const float gv = tv * dj[b];               // dM M
+            if (i != j) {   // G_ii enters both sums and cancels
+              rg[a] += gv;
+              cg[b] += gv;
+            }
+            ct[b] += tv;
+          }
+          rg[0] = quad_sum(rg[0]);
+          rg[1] = quad_sum(rg[1]);
+          if (t == 0) {
+            float* o = rowg + c * QP + i0;
+            o[0] = (pi ? o[0] : 0.f) + rg[0];
+            o[8] = (pi ? o[8] : 0.f) + rg[1];
+          }
+#pragma unroll
+          for (int b = 0; b < 2; ++b) {
+            cg[b] = column_sum(cg[b]);
+            ct[b] = column_sum(ct[b]);
+          }
+          if (g == 0) {
+            float* og = colg + r * QP + j0;
+            float* ot = colt + r * QP + j0;
+            og[0] = (pi ? og[0] : 0.f) + cg[0];
+            og[1] = (pi ? og[1] : 0.f) + cg[1];
+            ot[0] = (pi ? ot[0] : 0.f) + ct[0];
+            ot[1] = (pi ? ot[1] : 0.f) + ct[1];
+          }
         }
       }
     }
+  }
+  __syncthreads();   // the last unit's sums and the state term are written
+  finish_head(hg - 1);
 
-    // dM's tiles: dCB's share, and the row and column sums of G = dM o M
-    // and of dM o CB o L, per tile, reduced in a fixed order
+  // the group's dCB and (where kept here) state term, once
+  if (!xw) {
+    float* pc = p.part_cb + (bn * p.G + grp) * (long long)QP * QP;
 #pragma unroll
     for (int s = 0; s < kSlotsM; ++s) {
-      if (mr[s] < 0) continue;
-      const int r = mr[s], c = mc[s];
+      const int kt = gw + 8 * s;
+      if (kt >= ntiles) continue;
+      const int r = tile_strip(kt), c = kt - r * (r + 1);
       const int i0 = 16 * r + g, j0 = 8 * c + 2 * t;
-      const float ci[2] = {cum[i0], cum[i0 + 8]};
-      const float cj[2] = {cum[j0], cum[j0 + 1]};
-      const float dj[2] = {dt[j0], dt[j0 + 1]};
-      float rg[2] = {0.f, 0.f}, cg[2] = {0.f, 0.f}, ct[2] = {0.f, 0.f};
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {   // (i0, j0), (i0, j1), (i1, j0), (i1, j1)
-        const int a = e >> 1, b = e & 1;
-        const int i = i0 + 8 * a, j = j0 + b;
-        const bool on = i >= j && i < Q;
-        const float L = on ? __expf(ci[a] - cj[b]) : 0.f;
-        const float d = on ? dm[s][e] : 0.f;
-        const float dl = d * L;
-        dcb[s][e] += dl * dj[b];
-        const float tv = dl * cbs[i * ldcb + j];   // dM CB L
-        const float gv = tv * dj[b];               // dM M
-        if (i != j) {   // G_ii enters both sums and cancels
-          rg[a] += gv;
-          cg[b] += gv;
-        }
-        ct[b] += tv;
-      }
-      rg[0] = quad_sum(rg[0]);
-      rg[1] = quad_sum(rg[1]);
-      if (t == 0) {
-        rowg[c * QP + i0] = rg[0];
-        rowg[c * QP + i0 + 8] = rg[1];
-      }
-#pragma unroll
-      for (int b = 0; b < 2; ++b) {
-        cg[b] = column_sum(cg[b]);
-        ct[b] = column_sum(ct[b]);
-      }
-      if (g == 0) {
-        colg[r * QP + j0] = cg[0];
-        colg[r * QP + j0 + 1] = cg[1];
-        colt[r * QP + j0] = ct[0];
-        colt[r * QP + j0 + 1] = ct[1];
-      }
-    }
-    __syncthreads();
-    for (int j = threadIdx.x; j < Q; j += kThreads)
-      uw[j] = (upart[j] + upart[QP + j]) * w[j];
-    __syncthreads();
-    for (int j = threadIdx.x; j < Q; j += kThreads) {
-      const int r = j / 16, c = j / 8;
-      float rs = 0.f, cs = 0.f, cts = 0.f;
-      for (int cc = 0; cc <= 2 * r + 1; ++cc) rs += rowg[cc * QP + j];
-      for (int rr = c / 2; rr < nstrips; ++rr) {
-        cs += colg[rr * QP + j];
-        cts += colt[rr * QP + j];
-      }
-      float dc = rs - cs - uw[j];
-      if (j == Q - 1) {
-        float tot = 0.f;
-        for (int k = 0; k < Q; ++k) tot += uw[k];
-        dc += tot;
-      }
-      const long long o = (bn * Q + j) * p.H + h;
-      p.ddt[o] = cts + (upart[j] + upart[QP + j]) * wend[j];
-      p.dcum[o] = dc;
+      *reinterpret_cast<float2*>(pc + i0 * QP + j0) =
+          make_float2(keep[s][0], keep[s][1]);
+      *reinterpret_cast<float2*>(pc + (i0 + 8) * QP + j0) =
+          make_float2(keep[s][2], keep[s][3]);
     }
   }
-
-  // the group's dCB, once
-  float* pc = p.part_cb + (bn * p.G + grp) * (long long)QP * QP;
-#pragma unroll
-  for (int s = 0; s < kSlotsM; ++s) {
-    if (mr[s] < 0) continue;
-    const int i0 = 16 * mr[s] + g, j0 = 8 * mc[s] + 2 * t;
-    *reinterpret_cast<float2*>(pc + i0 * QP + j0) =
-        make_float2(dcb[s][0], dcb[s][1]);
-    *reinterpret_cast<float2*>(pc + (i0 + 8) * QP + j0) =
-        make_float2(dcb[s][2], dcb[s][3]);
-  }
+  if (p.st_res)
+    for (int e = threadIdx.x; e < Q * p.S; e += kThreadsH) {
+      const int j = e / p.S, c = e - j * p.S;
+      part_st[(long long)j * p.SP + c] = sta[j * p.ldst + c];
+    }
 }
 
-// per (chunk, 32 columns of S): dCB and the state term summed over the
-// groups in group order, then dC = dCB B and dB = dCB^T C + state term
+// per (chunk, 32 columns of S, 32 rows): dCB's rows and columns of those
+// rows summed over the groups in group order, then dC = dCB B and
+// dB = dCB^T C + the groups' state terms
 __global__ void __launch_bounds__(kThreads)
 ssd_bwd_chunk(const Params p) {
   extern __shared__ __align__(16) float sm[];
-  const int Q = p.Q, ld = Q + 1, QP = p.QP;
-  float* dcb = sm;                 // Q x (Q + 1)
-  float* bt = dcb + Q * ld;        // Q x kS2: B's columns
+  const int Q = p.Q, QP = p.QP;
+  const int r0 = blockIdx.z * kR2, nr = min(kR2, Q - r0);
+  float* rows = sm;                // kR2 x Q: dCB[r0 + a, j], j <= r0 + a
+  float* cols = rows + kR2 * Q;    // kR2 x Q: dCB[i, r0 + a], i >= r0 + a
+  float* bt = cols + kR2 * Q;      // Q x kS2: B's columns
   float* ctile = bt + Q * kS2;     // Q x kS2: C's
   const long long bn = blockIdx.x;
   const int s0 = blockIdx.y * kS2, sw = min(kS2, p.S - s0);
   const float* pc = p.part_cb + bn * p.G * (long long)QP * QP;
-  for (int e = threadIdx.x; e < Q * Q; e += kThreads) {
-    const int i = e / Q, j = e - i * Q;
-    float v = 0.f;
-    if (j <= i)   // above the diagonal dCB is 0 (and not written)
-      for (int gi = 0; gi < p.G; ++gi)
-        v += pc[(long long)gi * QP * QP + i * QP + j];
-    dcb[i * ld + j] = v;
+  for (int e = threadIdx.x; e < nr * Q; e += kThreads) {
+    const int a = e / Q, j = e - a * Q, r = r0 + a;
+    float v = 0.f, u = 0.f;   // above the diagonal dCB is 0 (not written)
+    for (int gi = 0; gi < p.G; ++gi) {
+      const float* pg = pc + (long long)gi * QP * QP;
+      if (j <= r) v += pg[r * QP + j];
+      if (j >= r) u += pg[j * QP + r];
+    }
+    rows[e] = v;
+    cols[e] = u;
   }
   for (int e = threadIdx.x; e < Q * kS2; e += kThreads) {
     const int r = e / kS2, c = e - r * kS2;
@@ -514,54 +731,86 @@ ssd_bwd_chunk(const Params p) {
   }
   __syncthreads();
   const float* ps = p.part_st + bn * p.G * (long long)Q * p.SP;
-  for (int e = threadIdx.x; e < Q * kS2; e += kThreads) {
-    const int r = e / kS2, c = e - r * kS2;
+  for (int e = threadIdx.x; e < nr * kS2; e += kThreads) {
+    const int a = e / kS2, c = e - a * kS2, r = r0 + a;
     if (c >= sw) continue;
-    float a = 0.f;
-    for (int j = 0; j <= r; ++j) a += dcb[r * ld + j] * bt[j * kS2 + c];
-    float b = 0.f;
-    for (int i = r; i < Q; ++i) b += dcb[i * ld + r] * ctile[i * kS2 + c];
+    float x = 0.f;
+    for (int j = 0; j <= r; ++j) x += rows[a * Q + j] * bt[j * kS2 + c];
+    float y = 0.f;
+    for (int i = r; i < Q; ++i) y += cols[a * Q + i] * ctile[i * kS2 + c];
     for (int gi = 0; gi < p.G; ++gi)
-      b += ps[((long long)gi * Q + r) * p.SP + s0 + c];
+      y += ps[((long long)gi * Q + r) * p.SP + s0 + c];
     const long long o = (bn * Q + r) * p.S + s0 + c;
-    p.dC[o] = a;
-    p.dB[o] = b;
+    p.dC[o] = x;
+    p.dB[o] = y;
   }
 }
 
-// the heads pass's shared memory, in floats: C.B^T, the B, x, dy and dst
-// tiles, five vectors, the row and column partial sums, u's halves
-long long heads_floats(int QP, int ldcb) {
-  return (long long)QP * ldcb + 3ll * QP * kLd + kT * kLd + 5ll * QP +
-         (QP / 8) * QP + 2ll * (QP / 16) * QP + 2ll * QP;
-}
-
-long long chunk_smem(int Q) { return 4ll * (Q * (Q + 1) + 2 * Q * kS2); }
+long long chunk_smem(int Q) { return 4ll * (2 * kR2 * Q + 2 * Q * kS2); }
 
 struct Plan {
-  int QP, ldcb, SP, HG, G, blocks_per_sm;
+  int QP, cbf, SP, HG, G, T, nP, nS, b_res, ldb, st_res, ldst;
+  int o_l, o_b, o_st, o_u, o_d, o_v, u_stage, d_stage;
   long long smem;
 };
 
-// heads a group: the HG that minimises whole waves x a block's work (HG
-// heads plus its C.B^T, in multiply-adds)
+// The heads pass's shared memory (the layout in the header), with B
+// resident and the state term in shared memory where they fit, in that
+// order; and the heads a group.  One 16-warp block an SM (its shared
+// memory allows no second), so a wave is sm_count() blocks.  A head's time
+// is the larger of its copies (x, dy and dst in, dx out, at an SM's share
+// of 3.35 TB/s, 25 bytes a ns) and its products (3xTF32 on mma.sync, at
+// ~1100 TF32 multiply-adds a ns an SM, ~60 % of the tensor cores' peak):
+// the pipeline overlaps the two.  A block adds C.B^T and its B and C.  HG
+// minimises whole waves x a block's time.
 Plan plan(int BN, int H, int Q, int P, int S) {
   Plan pl;
   pl.QP = (Q + 15) / 16 * 16;
-  pl.ldcb = (pl.QP + 31) / 32 * 32 + 8;
+  const int QP = pl.QP;
+  pl.T = QP <= 64 ? 64 : 32;
+  const int T = pl.T, LD = T + 8;
+  pl.cbf = cb_off(QP / 16);
   pl.SP = (S + 1) / 2 * 2;
-  pl.smem = 4 * heads_floats(pl.QP, pl.ldcb);
-  pl.blocks_per_sm = (pl.QP <= 64 && 2 * (pl.smem + 1024) <= 233472) ? 2 : 1;
-  const double qp = pl.QP, pp = (P + 7) / 8 * 8.0, sp = (S + 7) / 8 * 8.0;
-  const double head = qp * qp * pp + 2.0 * qp * pp * sp;
-  const double cb = qp * qp * sp / 2 + qp * sp;
-  const long long slots = (long long)pl.blocks_per_sm * sm_count();
+  pl.nP = (P + T - 1) / T;
+  pl.nS = (S + T - 1) / T;
+  pl.ldb = pl.ldst = pl.nS * T + 8;
+  const long long res = (long long)QP * (pl.nS * T + 8);
+  long long o = (long long)pl.cbf * (QP <= 64 ? 2 : 1);
+  pl.u_stage = 2 * QP * LD + 2 * QP;
+  const long long vecs = 4ll * QP + (T / 16) * QP + (QP / 8) * QP +
+                         2ll * (QP / 16) * QP;
+  const long long base = o + 2ll * pl.u_stage + 2ll * T * LD + vecs;
+  const long long max_f = kMaxSmem / 4;
+  pl.b_res = base + res <= max_f;
+  pl.d_stage = T * LD + (pl.b_res ? 0 : QP * LD);
+  long long total = base + (pl.b_res ? res : 2ll * QP * LD);
+  pl.st_res = total + res <= max_f;
+  if (pl.st_res) total += res;
+  pl.o_l = pl.cbf;
+  pl.o_b = (int)o;
+  if (pl.b_res) o += res;
+  pl.o_st = (int)o;
+  if (pl.st_res) o += res;
+  pl.o_u = (int)o;
+  o += 2ll * pl.u_stage;
+  pl.o_d = (int)o;
+  o += 2ll * pl.d_stage;
+  pl.o_v = (int)o;
+  pl.smem = 4 * total;
+
+  const double qp = QP, pp = (P + 7) / 8 * 8.0, sp = (S + 7) / 8 * 8.0;
+  const double tri = qp * (qp + 16) / 2;
+  const double head = fmax(4.0 * (3.0 * Q * P + (double)P * S) / 25.0,
+                               3.0 * (2 * tri * pp + 2 * qp * pp * sp) /
+                                   1100.0);
+  const double block = fmax(8.0 * Q * S / 25.0, 3.0 * tri * sp / 1100.0);
+  const long long slots = sm_count();
   pl.HG = 1;
   double best = 0;
   for (int hg = 1; hg <= H; ++hg) {
     const long long blocks = (long long)BN * ((H + hg - 1) / hg);
     const double waves = (double)((blocks + slots - 1) / slots);
-    const double cost = waves * (hg * head + cb);
+    const double cost = waves * (hg * head + block);
     if (hg == 1 || cost < best) {
       pl.HG = hg;
       best = cost;
@@ -585,15 +834,18 @@ cudaError_t set_smem(K kernel, long long smem, long long* attr_set) {
   return cudaSuccess;
 }
 
-template <int QM, int MinBlocks>
+template <int QM>
 cudaError_t launch_heads(const Params& p, long long smem, dim3 grid,
                          cudaStream_t stream) {
   static long long attr_set[64];
-  const cudaError_t err = set_smem(ssd_bwd_heads<QM, MinBlocks>, smem,
-                                   attr_set);
+  const cudaError_t err = set_smem(ssd_bwd_heads<QM>, smem, attr_set);
   if (err != cudaSuccess) return err;
-  ssd_bwd_heads<QM, MinBlocks><<<grid, kThreads, smem, stream>>>(p);
+  ssd_bwd_heads<QM><<<grid, kThreadsH, smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+bool valid(int BN, int H, int Q, int P, int S) {
+  return BN >= 1 && H >= 1 && Q >= 1 && Q <= kQMax && P >= 1 && S >= 1;
 }
 
 }  // namespace
@@ -601,10 +853,22 @@ cudaError_t launch_heads(const Params& p, long long smem, dim3 grid,
 // floats of scratch a call takes: each group's partial dCB and state term
 extern "C" long long ssd_chunk_backward_scratch(int BN, int H, int Q, int P,
                                                 int S) {
-  if (BN < 1 || H < 1 || Q < 1 || Q > kQMax || P < 1 || S < 1) return 0;
+  if (!valid(BN, H, Q, P, S)) return 0;
   const Plan pl = plan(BN, H, Q, P, S);
   return (long long)BN * pl.G *
          ((long long)pl.QP * pl.QP + (long long)Q * pl.SP);
+}
+
+// the heads pass's plan: out[0..6] = heads a group, groups, warps a block,
+// blocks an SM, shared memory bytes, B resident, state term on chip
+extern "C" int ssd_chunk_backward_plan(int BN, int H, int Q, int P, int S,
+                                       long long* out) {
+  if (!valid(BN, H, Q, P, S)) return (int)cudaErrorInvalidValue;
+  const Plan pl = plan(BN, H, Q, P, S);
+  const long long v[7] = {pl.HG, pl.G, kWarpsH, 1, pl.smem, pl.b_res,
+                          pl.st_res};
+  for (int i = 0; i < 7; ++i) out[i] = v[i];
+  return 0;
 }
 
 extern "C" int ssd_chunk_backward(const float* x, const float* Bm,
@@ -614,8 +878,7 @@ extern "C" int ssd_chunk_backward(const float* x, const float* Bm,
                                   float* dC, float* ddt, float* dcum,
                                   float* scratch, int BN, int H, int Q,
                                   int P, int S, void* stream) {
-  if (BN < 1 || H < 1 || Q < 1 || Q > kQMax || P < 1 || S < 1)
-    return (int)cudaErrorInvalidValue;
+  if (!valid(BN, H, Q, P, S)) return (int)cudaErrorInvalidValue;
   const Plan pl = plan(BN, H, Q, P, S);
   if (pl.smem > kMaxSmem) return (int)cudaErrorInvalidValue;
   Params p;
@@ -638,12 +901,24 @@ extern "C" int ssd_chunk_backward(const float* x, const float* Bm,
   p.P = P;
   p.S = S;
   p.QP = pl.QP;
-  p.ldcb = pl.ldcb;
+  p.cbf = pl.cbf;
   p.SP = pl.SP;
   p.HG = pl.HG;
   p.G = pl.G;
-  p.nP = (P + kT - 1) / kT;
-  p.nS = (S + kT - 1) / kT;
+  p.nP = pl.nP;
+  p.nS = pl.nS;
+  p.b_res = pl.b_res;
+  p.ldb = pl.ldb;
+  p.st_res = pl.st_res;
+  p.ldst = pl.ldst;
+  p.o_l = pl.o_l;
+  p.o_b = pl.o_b;
+  p.o_st = pl.o_st;
+  p.o_u = pl.o_u;
+  p.o_d = pl.o_d;
+  p.o_v = pl.o_v;
+  p.u_stage = pl.u_stage;
+  p.d_stage = pl.d_stage;
   p.smem_floats = (int)(pl.smem / 4);
   auto al = [](const void* a, int n) {
     return (reinterpret_cast<uintptr_t>(a) & (n - 1)) == 0;
@@ -654,17 +929,15 @@ extern "C" int ssd_chunk_backward(const float* x, const float* Bm,
   p.vdx = al(dx, 8) && P % 2 == 0;
   const cudaStream_t sm = (cudaStream_t)stream;
   const dim3 grid1((unsigned)BN, (unsigned)pl.G);
-  cudaError_t err = pl.QP <= 64
-                        ? (pl.blocks_per_sm == 2
-                               ? launch_heads<64, 2>(p, pl.smem, grid1, sm)
-                               : launch_heads<64, 1>(p, pl.smem, grid1, sm))
-                        : launch_heads<128, 1>(p, pl.smem, grid1, sm);
+  cudaError_t err = pl.QP <= 64 ? launch_heads<64>(p, pl.smem, grid1, sm)
+                                : launch_heads<128>(p, pl.smem, grid1, sm);
   if (err != cudaSuccess) return (int)err;
   static long long attr_set[64];
   const long long smem2 = chunk_smem(Q);
   err = set_smem(ssd_bwd_chunk, smem2, attr_set);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid2((unsigned)BN, (unsigned)((S + kS2 - 1) / kS2));
+  const dim3 grid2((unsigned)BN, (unsigned)((S + kS2 - 1) / kS2),
+                   (unsigned)((Q + kR2 - 1) / kR2));
   ssd_bwd_chunk<<<grid2, kThreads, smem2, sm>>>(p);
   return (int)cudaGetLastError();
 }

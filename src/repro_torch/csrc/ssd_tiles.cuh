@@ -1,7 +1,8 @@
 // ssd_tiles.cuh: what the ssd_chunk forward (csrc/ssd_chunk.cu) and its
-// gradient (csrc/ssd_chunk_bwd.cu) share: blocks of 8 warps, 64-column P
-// tiles, tile loads by cp.async, the decay M[i, j] taken only where
-// i >= j, pair stores, and the SM count.
+// gradient (csrc/ssd_chunk_bwd.cu) share: blocks of 8 warps (the
+// gradient's heads pass takes 16: the loads' NT), 64-column P tiles, tile
+// loads by cp.async, the decay M[i, j] taken only where i >= j, pair
+// stores, and the SM count.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -17,23 +18,24 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kPT = 64;   // P tile
 
 // n floats of each of rows rows, from src + r * stride to dst + r * ld,
-// 16 bytes at a time where vec, else 4
+// 16 bytes at a time where vec, else 4, by a block of NT threads
+template <int NT = kThreads>
 __device__ __forceinline__ void load_rows(float* dst, int ld,
                                           const float* src, long long stride,
                                           int rows, int n, bool vec) {
   if (vec && n == kPT) {
-    for (int e = threadIdx.x; e < rows * (kPT / 4); e += kThreads) {
+    for (int e = threadIdx.x; e < rows * (kPT / 4); e += NT) {
       const int r = e >> 4, c = (e & 15) << 2;
       tf32x3::cp_async16(dst + r * ld + c, src + r * stride + c);
     }
   } else if (vec) {
     const int per = n >> 2;
-    for (int e = threadIdx.x; e < rows * per; e += kThreads) {
+    for (int e = threadIdx.x; e < rows * per; e += NT) {
       const int r = e / per, c = (e - r * per) << 2;
       tf32x3::cp_async16(dst + r * ld + c, src + r * stride + c);
     }
   } else {
-    for (int e = threadIdx.x; e < rows * n; e += kThreads) {
+    for (int e = threadIdx.x; e < rows * n; e += NT) {
       const int r = e / n, c = e - r * n;
       tf32x3::cp_async4(dst + r * ld + c, src + r * stride + c);
     }
@@ -41,11 +43,12 @@ __device__ __forceinline__ void load_rows(float* dst, int ld,
 }
 
 // zero columns [c0, c1) of rows rows
+template <int NT = kThreads>
 __device__ __forceinline__ void zero_cols(float* dst, int ld, int rows,
                                           int c0, int c1) {
   const int w = c1 - c0;
   if (w <= 0) return;
-  for (int e = threadIdx.x; e < rows * w; e += kThreads) {
+  for (int e = threadIdx.x; e < rows * w; e += NT) {
     const int r = e / w;
     dst[r * ld + c0 + e - r * w] = 0.f;
   }

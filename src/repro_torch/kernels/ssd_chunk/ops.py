@@ -22,6 +22,9 @@ MAX_Q = 128
 # (chunk, head group) dx, ddt, dcum and the group's partial sums; per
 # chunk the partial sums added in a fixed order, then dB and dC
 SSD_BWD_PASSES = ("heads", "chunk")
+# ssd_chunk_backward_plan's fields, in order (the heads pass's launch)
+BWD_PLAN = ("heads_a_group", "groups", "warps", "blocks_an_sm",
+            "smem_bytes", "b_resident", "state_term_on_chip")
 
 
 def _declare(lib):
@@ -38,10 +41,24 @@ def _declare_bwd(lib):
     lib.ssd_chunk_backward.restype = _I
     lib.ssd_chunk_backward_scratch.argtypes = [_I] * 5
     lib.ssd_chunk_backward_scratch.restype = ctypes.c_longlong
+    lib.ssd_chunk_backward_plan.argtypes = [_I] * 5 + [_P]
+    lib.ssd_chunk_backward_plan.restype = _I
 
 
 def _lib_bwd():
     return _build.load("ssd_chunk_bwd", _declare_bwd)
+
+
+def backward_plan(bs, nc, q, h, p, s) -> dict:
+    """The heads pass's launch at these widths, as the library plans it
+    (``BWD_PLAN``: heads a group, its warps and shared memory, and whether
+    B and the state term of dB stay on chip).  Loads the library, so a
+    card is needed: the plan follows its SM count."""
+    lib = _lib_bwd()
+    out = (ctypes.c_longlong * len(BWD_PLAN))()
+    code = lib.ssd_chunk_backward_plan(bs * nc, h, q, p, s, out)
+    _build.check_launch(lib, "ssd_chunk_bwd", code)
+    return dict(zip(BWD_PLAN, out))
 
 
 def ssd_chunk(x, B, C, dt, cum):

@@ -220,6 +220,10 @@ def test_backward_library_declares_its_ctypes_signatures_once(monkeypatch):
     scratch = stub.fns["ssd_chunk_backward_scratch"]
     assert scratch.argtypes == [ctypes.c_int] * 5
     assert scratch.restype is ctypes.c_longlong
+    plan = stub.fns["ssd_chunk_backward_plan"]
+    assert plan.sets == ["argtypes", "restype"]
+    assert plan.argtypes == [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    assert plan.restype is ctypes.c_int
 
 
 def test_backward_is_a_registered_kernel():
@@ -231,16 +235,36 @@ def test_backward_is_a_registered_kernel():
 # ---- on the card ---------------------------------------------------------------
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("steep", [False, True])
-@pytest.mark.parametrize("shape", SHAPES + [
+def _off16(t):
+    """t's values in a contiguous view at a storage offset of one float:
+    off 16 bytes, so the kernel takes its 4-byte copies."""
+    view = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:]
+    return view.view(t.shape).copy_(t)
+
+
+# (shape, operands off 16 bytes)
+CARD_CASES = [(shape, False) for shape in SHAPES + [
     (1, 4, 64, 80, 64, 128),    # Mamba2-2.7B's layer, 4 of its chunks
     (2, 2, 128, 12, 64, 128),   # chunk 128
-    (1, 1, 33, 3, 65, 65)])     # P and S one past a tile
-def test_ssd_chunk_backward_kernel_matches_plain_on_card(shape, steep):
+    (1, 1, 33, 3, 65, 65),      # P and S one past a tile
+    (2, 2, 64, 80, 64, 128),    # the trainer's microbatch: 40 heads a group
+    (1, 2, 128, 4, 64, 256),    # chunk 128, S = 256: B cannot stay whole
+    (1, 2, 128, 4, 64, 250)]    # ... and its last S tile ragged
+] + [((1, 2, 64, 6, 64, 128), True), ((1, 1, 33, 3, 65, 65), True),
+     ((1, 2, 128, 4, 64, 256), True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("steep", [False, True])
+@pytest.mark.parametrize("shape, off16", CARD_CASES)
+def test_ssd_chunk_backward_kernel_matches_plain_on_card(shape, off16,
+                                                          steep):
     dev = _cuda()
     args = _torch(_inputs(np.random.default_rng(sum(shape)), *shape,
                           steep=steep), dev)
+    if off16:
+        args = [_off16(a) for a in args]
+        assert all(a.data_ptr() % 16 for a in args)
     before = _build.LAUNCHES["ssd_chunk_bwd"]
     got = ssd_chunk_backward(*args)
     assert _build.LAUNCHES["ssd_chunk_bwd"] == before + len(
@@ -264,7 +288,23 @@ def test_ssd_chunk_grads_go_through_the_backward_kernel():
     assert out[0].grad_fn is not None
     got = torch.autograd.grad(out, leaves, (dy, dst))
     assert _build.LAUNCHES["ssd_chunk_bwd"] == before.get(
-        "ssd_chunk_bwd", 0) + 2
+        "ssd_chunk_bwd", 0) + len(ssd_ops.SSD_BWD_PASSES)
     assert _build.LAUNCHES["ssd_chunk"] == before.get("ssd_chunk", 0) + 1
     want = torch.autograd.grad(ssd_chunk_ref(*leaves), leaves, (dy, dst))
     _assert_close(got, want, KERNEL_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q, state_term_on_chip", [(64, True), (128, False)])
+def test_backward_plan_at_mamba2_widths(q, state_term_on_chip):
+    """Mamba2-2.7B's layer (H = 80, P = 64, S = 128): one 16-warp block an
+    SM, a grid of at most one wave, B resident; at chunk 64 dB's state
+    term stays in shared memory too, at chunk 128 C.B^T leaves no room."""
+    _cuda()
+    plan = ssd_ops.backward_plan(1, 2048 // q, q, 80, 64, 128)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert plan["warps"] == 16 and plan["blocks_an_sm"] == 1
+    assert plan["groups"] * plan["heads_a_group"] >= 80
+    assert (2048 // q) * plan["groups"] <= sms
+    assert plan["b_resident"] == 1
+    assert plan["state_term_on_chip"] == int(state_term_on_chip)

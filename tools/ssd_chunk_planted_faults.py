@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Show that chip_smoke.py's ssd_chunk limit fails planted faults.
 
-    python3 tools/ssd_chunk_planted_faults.py [--seed N]
+    python3 tools/ssd_chunk_planted_faults.py [--seed N] [--backward]
 
 Builds copies of ``src/repro_torch/csrc/ssd_chunk.cu`` and its headers
 ``ssd_tiles.cuh`` and ``tf32x3.cuh`` with one fault each (under
@@ -14,7 +14,15 @@ against ``ssd_chunk_ref`` beside the smoke's limit 2e-4 · max(1,
 max|plain|).  The output block is freed full of NaN just before each
 call, so what a fault leaves unwritten cannot read as the last run's
 answer.  The unchanged sources run at every shape.  Exits 1 if they
-break the limit or a fault passes it everywhere.  Needs one CUDA device.
+break the limit or a fault passes it everywhere.
+
+``--backward`` does the same for ``ssd_chunk_bwd.cu`` (``BWD_FAULTS``) at
+chip_smoke.py's ``SSD_BWD_LAYERS``, ``SSD_PARITY`` and ``SSD_BWD_STEEP``
+shapes and ``BWD_STREAMED_B``, calling each library's
+``ssd_chunk_backward`` directly with its outputs and scratch filled with
+NaN: max |Δ| of dx, dB, dC, ddt and dcum
+against ``ssd_chunk_bwd_ref`` beside the smoke's ``SSD_BWD_TOL`` ·
+max(1, max|ref|) (a NaN breaks it).  Needs one CUDA device.
 """
 from __future__ import annotations
 
@@ -50,11 +58,123 @@ FAULTS = {
                                "const float cend = cum[p.Q - 2];"),
 }
 FILES = ("ssd_chunk.cu", "ssd_tiles.cuh", "tf32x3.cuh")
+BWD_FILES = ("ssd_chunk_bwd.cu", "ssd_tiles.cuh", "tf32x3.cuh")
+# (bs, nc, q, H, P, S) where B is too wide to stay in shared memory beside
+# chunk 128's C.B^T and streams in S tiles, the last one ragged
+BWD_STREAMED_B = (1, 2, 128, 4, 64, 250)
+BWD_FAULTS = {
+    # a D step reads the other half of the copy ring: the tile before, or
+    # the one being copied
+    "stage_read_before_it_lands": (
+        "ssd_chunk_bwd.cu",
+        "const float* ds = dbase + (d & 1) * p.d_stage;",
+        "const float* ds = dbase + ((d + 1) & 1) * p.d_stage;"),
+    # the group's second head never reaches dB's state term
+    "head_left_out_of_state_term": (
+        "ssd_chunk_bwd.cu",
+        "        if (32 * ng >= sw) continue;\n",
+        "        if (32 * ng >= sw || hh == 1) continue;\n"),
+    # B's ragged S tile keeps the last tile's columns past S (only where B
+    # streams through the copy ring: BWD_STREAMED_B)
+    "b_ragged_tile_not_zeroed": (
+        "ssd_chunk_bwd.cu",
+        "  if (w < T) zero_cols<kThreadsH>(bt, ld, p.Q, w, T);\n", ""),
+    # G_ii in dcum's row sums only, so it no longer cancels
+    "g_ii_not_cancelled": (
+        "ssd_chunk_bwd.cu",
+        "            if (i != j) {   // G_ii enters both sums and cancels\n"
+        "              rg[a] += gv;\n",
+        "            rg[a] += gv;\n"
+        "            if (i != j) {   // G_ii enters both sums and cancels\n"),
+    # L's exponential taken everywhere and multiplied by 0 above the
+    # diagonal: inf * 0 where the decay is steep
+    "exp_times_zero_above_diagonal": (
+        "ssd_chunk_bwd.cu",
+        "i >= j && i < Q ? __expf(cum[i] - cum[j]) : 0.f;",
+        "__expf(cum[i] - cum[j]) * (i >= j && i < Q ? 1.f : 0.f);"),
+}
+
+
+def backward(args) -> int:
+    """The backward's planted faults (see the module's doc)."""
+    import torch
+
+    import chip_smoke
+    from gather_mlp_planted_faults import build
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ssd_chunk import ssd_chunk_bwd_ref
+    sound = {f: (_build.CSRC / f).read_text() for f in BWD_FILES}
+    sources = {"none": sound}
+    for name, (fname, old, new) in BWD_FAULTS.items():
+        if sound[fname].count(old) != 1:
+            raise RuntimeError(f"fault {name}: {old!r} occurs "
+                               f"{sound[fname].count(old)} times in {fname}")
+        sources[name] = {**sound, fname: sound[fname].replace(old, new)}
+    libs = build(sources, _build.BUILD_DIR / "faults" / "ssd_chunk_bwd")
+    loaded = {}
+    for name, so in libs.items():
+        lib = ctypes.CDLL(str(so))
+        lib.ssd_chunk_backward.argtypes = ([ctypes.c_void_p] * 13
+                                           + [ctypes.c_int] * 5
+                                           + [ctypes.c_void_p])
+        lib.ssd_chunk_backward_scratch.argtypes = [ctypes.c_int] * 5
+        lib.ssd_chunk_backward_scratch.restype = ctypes.c_longlong
+        loaded[name] = lib
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    fmt = "bs={} nc={} q={} H={} P={} S={}"
+    shapes = [(name, m, False)
+              for name, m in chip_smoke.SSD_BWD_LAYERS.items()]
+    shapes += [(fmt.format(*shp), dict(zip(("bs", "nc", "q", "h", "p",
+                                            "s"), shp)), False)
+               for shp in (*chip_smoke.SSD_PARITY, BWD_STREAMED_B)]
+    shapes.append(("steep", chip_smoke.SSD_BWD_STEEP, True))
+    parts = ("dx", "dB", "dC", "ddt", "dcum")
+    broken = {name: False for name in loaded}
+    ok = True
+    for shape, m, steep in shapes:
+        ops = chip_smoke.ssd_bwd_inputs(gen, dev, **m, steep=steep)
+        refs = ssd_chunk_bwd_ref(*ops)
+        tols = [chip_smoke.SSD_BWD_TOL * max(1.0, r.abs().max().item())
+                for r in refs]
+        dims = (m["bs"] * m["nc"], m["h"], m["q"], m["p"], m["s"])
+        for name, lib in loaded.items():
+            outs = [torch.full(r.shape, float("nan"), device=dev)
+                    for r in refs]
+            scratch = torch.full((lib.ssd_chunk_backward_scratch(*dims),),
+                                 float("nan"), device=dev)
+            code = lib.ssd_chunk_backward(
+                *[t.data_ptr() for t in (*ops, *outs, scratch)], *dims,
+                stream)
+            torch.cuda.synchronize()
+            if code != 0:
+                raise RuntimeError(f"{name} {shape}: CUDA error {code}")
+            errs = [(o - r).abs().max().item() for o, r in zip(outs, refs)]
+            breaks = not all(e <= tol for e, tol in zip(errs, tols))
+            print(json.dumps(dict(fault=name, shape=shape, breaks=breaks,
+                                  **{f"{p}_err": e for p, e in
+                                     zip(parts, errs)},
+                                  **{f"{p}_tol": tol for p, tol in
+                                     zip(parts, tols)})), flush=True)
+            if name == "none":
+                ok &= not breaks
+            broken[name] |= breaks
+        del ops, refs
+        chip_smoke.free_card()
+    ok &= all(broken[name] for name in BWD_FAULTS)
+    print(json.dumps({"ok": ok, "broken": broken,
+                      "limit": f"{chip_smoke.SSD_BWD_TOL} * max(1, "
+                               f"max|ref|)"}))
+    return 0 if ok else 1
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--backward", action="store_true",
+                    help="the backward's faults (BWD_FAULTS)")
     args = ap.parse_args()
 
     import torch
@@ -71,6 +191,8 @@ def main() -> int:
                           "--format=csv,noheader"], check=True,
                          capture_output=True, text=True).stdout.strip()
     print(smi.splitlines()[0], flush=True)
+    if args.backward:
+        return backward(args)
     sound = {f: (_build.CSRC / f).read_text() for f in FILES}
     sources = {"none": sound}
     for name, (fname, old, new) in FAULTS.items():

@@ -3,6 +3,7 @@
 
     python3 tools/ssd_chunk_variants.py [--seed N] [--iters N]
         [--only committed,one_pass] [--shapes a,b] [--against DIR]
+        [--backward]
 
 Builds copies of ``src/repro_torch/csrc/ssd_chunk.cu``, ``ssd_tiles.cuh``
 and ``tf32x3.cuh`` with one edit each (under
@@ -20,7 +21,23 @@ max(1, max|plain|).  ``--against DIR`` adds another tree's
 ``ssd_chunk.cu`` (and its headers where DIR has them; e.g. a
 parent commit's ``src/repro_torch/csrc``) as the variant ``against``,
 timed in the same turns; a library that refuses a shape (a parent at
-q > 64) says so.  Needs one CUDA device.
+q > 64) says so.
+
+``--backward`` does the same for ``ssd_chunk_bwd.cu`` at chip_smoke.py's
+``SSD_BWD_LAYERS`` (the layer at chunks of 64 and 128, and the trainer's
+microbatch), calling each library's ``ssd_chunk_backward`` with scratch
+sized by its own ``ssd_chunk_backward_scratch``: max |Δ| of each output
+against ``ssd_chunk_bwd_ref`` beside the smoke's ``SSD_BWD_TOL`` ·
+max(1, max|ref|), ms, the bound, and for ``committed`` each pass's device
+time (torch.profiler) and the plan.  Its variants (``BWD_VARIANTS``) take
+one design step out at a time (``sync_copies``: every copy waited for as
+soon as it is issued; ``b_reload``: B's S tiles through the copy ring
+for every unit; ``st_through_scratch``: dB's state term added into the
+group's scratch slot at every (unit, S tile)), ``one_pass`` (1xTF32,
+wrong on purpose) and ``hg10`` (10 heads a group); designs measured and
+not taken (``l_regs``, ``unroll``, ``mma3_split``); ``timeline`` (block
+(0, 0)'s cycles a step, by warp group); and diagnostics that drop a part,
+wrong on purpose (``BWD_DIAGNOSTICS``).  Needs one CUDA device.
 """
 from __future__ import annotations
 
@@ -83,36 +100,117 @@ VARIANTS = {
 }
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--iters", type=int, default=20)
-    ap.add_argument("--only", default="",
-                    help="comma-separated variants to build (default all)")
-    ap.add_argument("--shapes", default="",
-                    help="comma-separated shapes to run (default all)")
-    ap.add_argument("--against", default="",
-                    help="a directory with another ssd_chunk.cu, timed as "
-                         "the variant 'against'")
-    args = ap.parse_args()
+BWD_FILES = ("ssd_chunk_bwd.cu", "ssd_tiles.cuh", "tf32x3.cuh")
+BWD_VARIANTS = {
+    "committed": [],
+    "sync_copies": [("ssd_chunk_bwd.cu", "    prefetch(d);\n",
+                     "    prefetch(d);\n"
+                     "    tf32x3::cp_async_wait<0>();\n"
+                     "    __syncthreads();\n")],
+    "b_reload": [("ssd_chunk_bwd.cu", "  pl.b_res = base + res <= max_f;",
+                  "  pl.b_res = 0;")],
+    "st_through_scratch": [("ssd_chunk_bwd.cu",
+                            "  pl.st_res = total + res <= max_f;",
+                            "  pl.st_res = 0;")],
+    "one_pass": VARIANTS["one_pass"],
+    "hg10": [("ssd_chunk_bwd.cu", "  pl.G = (H + pl.HG - 1) / pl.HG;",
+              "  pl.HG = H < 10 ? H : 10;\n"
+              "  pl.G = (H + pl.HG - 1) / pl.HG;")],
+}
+# diagnostics, all wrong on purpose: both warp groups' products dropped
+# (the X warps' E and M^T dy, the D warps' state term and dM: "bare" keeps
+# the copies, barriers and stores alone), the copies after the first
+# unit's (every unit reuses stale tiles), a head's first step's w, L and
+# the last head's ddt / dcum
+_NO_X = [("ssd_chunk_bwd.cu",
+          "      if (xr[0] >= 0) {\n        const int kss",
+          "      if (false) {\n        const int kss"),
+         ("ssd_chunk_bwd.cu", "for (int ks = 2 * r; ks < QP / 8; ++ks) {",
+          "for (int ks = QP / 8; ks < QP / 8; ++ks) {")]
+_NO_D = [("ssd_chunk_bwd.cu",
+          "        for (int ks = 0; ks < kp; ++ks) {\n"
+          "          const int pc = 8 * ks + 2 * t;",
+          "        for (int ks = kp; ks < kp; ++ks) {\n"
+          "          const int pc = 8 * ks + 2 * t;"),
+         ("ssd_chunk_bwd.cu",
+          "          for (int ks = 0; ks < kp; ++ks)\n"
+          "            tf32x3::mma3(dm[s - s3],",
+          "          for (int ks = kp; ks < kp; ++ks)\n"
+          "            tf32x3::mma3(dm[s - s3],")]
+BWD_DIAGNOSTICS = {
+    "bare": _NO_X + _NO_D,
+    "no_copies": [("ssd_chunk_bwd.cu",
+                   "      if (it + 1 < units) issue_unit(it + 1);",
+                   "      if (false) issue_unit(it + 1);"),
+                  ("ssd_chunk_bwd.cu",
+                   "    if (d + 1 < steps) issue_tile(d + 1);",
+                   "    if (false) issue_tile(d + 1);")],
+    "no_head_start": [("ssd_chunk_bwd.cu",
+                       "    if (si == 0 && pi == 0) {\n      if (xw) {",
+                       "    if (false) {\n      if (xw) {")],
+}
+BWD_VARIANTS.update(BWD_DIAGNOSTICS)
+# L in registers at chunk 64 too, as at 128 (the exponentials taken per
+# fragment, its shared memory freed)
+BWD_VARIANTS["l_regs"] = [
+    ("ssd_chunk_bwd.cu", "  constexpr bool kL = QM == 64;",
+     "  constexpr bool kL = false;"),
+    ("ssd_chunk_bwd.cu", "pl.cbf * (QP <= 64 ? 2 : 1);", "pl.cbf;")]
+# block (0, 0)'s clock at each step: thread 0 (an X warp) and thread 256
+# (a D warp) on reaching the step's wait, thread 0 past its barrier
+_TL = ("    if (blockIdx.x == 0 && blockIdx.y == 0 && d < 4096) {\n"
+       "      if (threadIdx.x == 0) g_tl[0][d] = clock64();\n"
+       "      if (threadIdx.x == 256) g_tl[1][d] = clock64();\n"
+       "    }\n")
+BWD_VARIANTS["timeline"] = [
+    ("ssd_chunk_bwd.cu", "using namespace ssd;\n",
+     "using namespace ssd;\n__device__ long long g_tl[3][4096];\n"),
+    ("ssd_chunk_bwd.cu", "    if (si == 1) tf32x3::cp_async_wait<1>();\n",
+     _TL + "    if (si == 1) tf32x3::cp_async_wait<1>();\n"),
+    ("ssd_chunk_bwd.cu", "    prefetch(d);\n",
+     "    if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0 &&\n"
+     "        d < 4096) g_tl[2][d] = clock64();\n    prefetch(d);\n"),
+    ("ssd_chunk_bwd.cu", "extern \"C\" const char* ssd_chunk_bwd_error_string",
+     "extern \"C\" int ssd_bwd_timeline(long long* out) {\n"
+     "  return (int)cudaMemcpyFromSymbol(out, g_tl, sizeof(g_tl));\n}\n\n"
+     "extern \"C\" const char* ssd_chunk_bwd_error_string")]
+# each 3xTF32 product's two small terms into a fresh accumulator, added to
+# the sum after its big term: two dependent mma.sync a product, not three
+BWD_VARIANTS["mma3_split"] = [
+    ("tf32x3.cuh",
+     "  mma(c, a.small, b.big);\n  mma(c, a.big, b.small);\n"
+     "  mma(c, a.big, b.big);\n",
+     "  float s[4] = {0.f, 0.f, 0.f, 0.f};\n  mma(s, a.small, b.big);\n"
+     "  mma(s, a.big, b.small);\n  mma(c, a.big, b.big);\n"
+     "#pragma unroll\n  for (int i = 0; i < 4; ++i) c[i] += s[i];\n")]
+BWD_VARIANTS["unroll"] = [
+    ("ssd_chunk_bwd.cu",
+     "        for (int ks = 0; ks < kss; ++ks) {\n",
+     "#pragma unroll\n        for (int ks = 0; ks < T / 8; ++ks) {\n"
+     "          if (ks >= kss) break;\n"),
+    ("ssd_chunk_bwd.cu",
+     "        for (int ks = 0; ks < kp; ++ks) {\n",
+     "#pragma unroll\n        for (int ks = 0; ks < T / 8; ++ks) {\n"
+     "          if (ks >= kp) break;\n"),
+    ("ssd_chunk_bwd.cu",
+     "          for (int ks = 0; ks < kp; ++ks)\n"
+     "            tf32x3::mma3(dm[s - s3],",
+     "#pragma unroll\n          for (int ks = 0; ks < T / 8; ++ks)\n"
+     "            if (ks < kp) tf32x3::mma3(dm[s - s3],"),
+    ("ssd_chunk_bwd.cu",
+     "        for (int ks = 2 * r; ks < QP / 8; ++ks) {\n",
+     "#pragma unroll\n        for (int kk = 0; kk < QM / 8; ++kk) {\n"
+     "          const int ks = 2 * r + kk;\n"
+     "          if (ks >= QP / 8) break;\n")]
 
-    import torch
-    if not torch.cuda.is_available():
-        print("ssd_chunk_variants: no CUDA device", file=sys.stderr)
-        return 2
-    import chip_smoke
-    from gather_mlp_planted_faults import build
+
+def texts_of(files, variants, only, against):
+    """{variant: {file: text}}: each variant's edits applied to the
+    committed sources, and ``against``'s files where it names a tree."""
     from repro_torch.kernels import _build
-    from repro_torch.kernels.ssd_chunk import ssd_chunk_ref
-
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], check=True,
-                         capture_output=True, text=True).stdout.strip()
-    print(smi.splitlines()[0], flush=True)
-    sound = {f: (_build.CSRC / f).read_text() for f in FILES}
-    only = set(filter(None, args.only.split(",")))
+    sound = {f: (_build.CSRC / f).read_text() for f in files}
     sources = {}
-    for name, edits in VARIANTS.items():
+    for name, edits in variants.items():
         if only and name not in only:
             continue
         texts = dict(sound)
@@ -122,10 +220,165 @@ def main() -> int:
                                    f"{texts[fname].count(old)} times")
             texts[fname] = texts[fname].replace(old, new)
         sources[name] = texts
-    if args.against:
-        d = Path(args.against)
-        sources["against"] = {f: (d / f).read_text() for f in FILES
+    if against:
+        d = Path(against)
+        sources["against"] = {f: (d / f).read_text() for f in files
                               if (d / f).exists()}
+    return sources
+
+
+def timeline(lib, call, m) -> dict:
+    """One more call of the ``timeline`` variant, then block (0, 0)'s
+    steps: cycles of the X and the D warp's work before each barrier, the
+    stall from the later of the two to the barrier's release (the copies'
+    wait and the other warps), and the block's cycles from its first step
+    to its last; means by the step's place in its unit (si)."""
+    import torch
+    call()
+    torch.cuda.synchronize()
+    buf = (ctypes.c_longlong * (3 * 4096))()
+    if lib.ssd_bwd_timeline(buf):
+        return {}
+    tx, td, tb = (list(buf[k * 4096:(k + 1) * 4096]) for k in range(3))
+    steps = next((i for i in range(4096) if tb[i] == 0), 4096)
+    n_s = -(-m["s"] // 64) if m["q"] <= 64 else -(-m["s"] // 32)  # S tiles
+    out = {}
+    for d in range(1, steps):   # step d - 1's work, d - 1's place
+        key = f"si{(d - 1) % n_s}"
+        row = out.setdefault(key, dict(n=0, x_work=0, d_work=0, stall=0))
+        row["n"] += 1
+        row["x_work"] += tx[d] - tb[d - 1]
+        row["d_work"] += td[d] - tb[d - 1]
+        row["stall"] += tb[d] - max(tx[d], td[d])
+    for row in out.values():
+        for k in ("x_work", "d_work", "stall"):
+            row[k] = round(row[k] / row["n"])
+    out["cycles"] = tb[steps - 1] - tb[0]
+    return out
+
+
+def backward(args) -> int:
+    """The backward's variants at SSD_BWD_LAYERS (see the module's doc)."""
+    import torch
+
+    import chip_smoke
+    from gather_mlp_planted_faults import build
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ssd_chunk import ssd_chunk_bwd_ref
+    from repro_torch.kernels.ssd_chunk import ops as ssd_ops
+    sources = texts_of(BWD_FILES, BWD_VARIANTS,
+                       set(filter(None, args.only.split(","))), args.against)
+    libs, logs = build(sources,
+                       _build.BUILD_DIR / "variants" / "ssd_chunk_bwd",
+                       with_logs=True)
+    for name, log in logs.items():
+        print(json.dumps({"variant": name,
+                          "ptxas": chip_smoke.ptxas_kernels(log)}),
+              flush=True)
+    loaded = {}
+    for name, so in libs.items():
+        lib = ctypes.CDLL(str(so))
+        lib.ssd_chunk_backward.argtypes = ([ctypes.c_void_p] * 13
+                                           + [ctypes.c_int] * 5
+                                           + [ctypes.c_void_p])
+        lib.ssd_chunk_backward_scratch.argtypes = [ctypes.c_int] * 5
+        lib.ssd_chunk_backward_scratch.restype = ctypes.c_longlong
+        loaded[name] = lib
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    keep = set(filter(None, args.shapes.split(",")))
+    parts = ("dx", "dB", "dC", "ddt", "dcum")
+    for shape, m in chip_smoke.SSD_BWD_LAYERS.items():
+        if keep and shape not in keep:
+            continue
+        ops = chip_smoke.ssd_bwd_inputs(gen, dev, **m)
+        refs = ssd_chunk_bwd_ref(*ops)
+        dims = (m["bs"] * m["nc"], m["h"], m["q"], m["p"], m["s"])
+        fns = {"plain": lambda ops=ops: ssd_chunk_bwd_ref(*ops)}
+        rows = {}
+        for name, lib in loaded.items():
+            outs = [torch.empty(r.shape, device=dev) for r in refs]
+            scratch = torch.empty(lib.ssd_chunk_backward_scratch(*dims),
+                                  device=dev)
+            argv = (*[t.data_ptr() for t in (*ops, *outs, scratch)], *dims,
+                    stream)
+            call = (lambda lib=lib, argv=argv: lib.ssd_chunk_backward(*argv))
+            code = call()
+            torch.cuda.synchronize()
+            if code != 0:
+                rows[name] = dict(refused=f"CUDA error {code}")
+                continue
+            row = {}
+            for part, o, r in zip(parts, outs, refs):
+                row[part] = dict(
+                    max_abs_err=(o - r).abs().max().item(),
+                    tol=chip_smoke.SSD_BWD_TOL * max(1.0,
+                                                      r.abs().max().item()))
+            row["within_tol"] = all(v["max_abs_err"] <= v["tol"]
+                                    for v in row.values())
+            rows[name] = row
+            fns[name] = call
+        ms = chip_smoke.time_turns(fns, iters=args.iters)
+        if "timeline" in fns:
+            rows["timeline"]["steps"] = timeline(loaded["timeline"],
+                                                 fns["timeline"], m)
+        if "committed" in fns:
+            rows["committed"]["device_ms"] = {
+                p: chip_smoke.device_ms(fns["committed"], f"ssd_bwd_{p}")
+                for p in ssd_ops.SSD_BWD_PASSES}
+            rows["committed"]["plan"] = ssd_ops.backward_plan(
+                m["bs"], m["nc"], m["q"], m["h"], m["p"], m["s"])
+        flops = 2.0 * m["bs"] * m["nc"] * chip_smoke.ssd_bwd_macs(
+            m["q"], m["h"], m["p"], m["s"])
+        bms, by = chip_smoke.bound(3 * flops, chip_smoke.nbytes(*ops, *refs),
+                                   chip_smoke.PEAK_TF32)
+        for name in (*loaded, "plain"):
+            row = rows.get(name, {})
+            if name in ms:
+                row["ms"] = ms[name]
+                row["share"] = bms / ms[name]
+            print(json.dumps(dict(shape=shape, variant=name, **row,
+                                  bound_ms=bms, bound_by=by)), flush=True)
+        del ops, refs, fns, rows
+        chip_smoke.free_card()
+    return 0
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--only", default="",
+                    help="comma-separated variants to build (default all)")
+    ap.add_argument("--shapes", default="",
+                    help="comma-separated shapes to run (default all)")
+    ap.add_argument("--against", default="",
+                    help="a directory with another ssd_chunk.cu (with "
+                         "--backward: ssd_chunk_bwd.cu), timed as the "
+                         "variant 'against'")
+    ap.add_argument("--backward", action="store_true",
+                    help="the backward's variants at SSD_BWD_LAYERS")
+    args = ap.parse_args()
+
+    import torch
+    if not torch.cuda.is_available():
+        print("ssd_chunk_variants: no CUDA device", file=sys.stderr)
+        return 2
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], check=True,
+                         capture_output=True, text=True).stdout.strip()
+    print(smi.splitlines()[0], flush=True)
+    if args.backward:
+        return backward(args)
+    import chip_smoke
+    from gather_mlp_planted_faults import build
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ssd_chunk import ssd_chunk_ref
+
+    sources = texts_of(FILES, VARIANTS,
+                       set(filter(None, args.only.split(","))), args.against)
     libs, logs = build(sources, _build.BUILD_DIR / "variants" / "ssd_chunk",
                        with_logs=True)
     for name, log in logs.items():

@@ -9,8 +9,8 @@ microbatches) through ``repro_torch.lm.steps.make_train_step``: after two
 warm-up steps, ``--steps`` steps under torch.profiler, their kernels'
 device time summed by kind (the flash_attention and ssd_chunk forward and
 backward kernels, cuBLAS's matrix products, everything else, whose
-costliest kernels are named) with the device's idle share of the profiled
-wall time; then, timed alone with CUDA events, one microbatch's forward
+costliest kernels are named; the backward kernels also by pass) with the
+device's idle share of the profiled wall time; then, timed alone with CUDA events, one microbatch's forward
 and backward (``steps.loss_and_grads``) and one AdamW update
 (``optim.adamw.apply_updates``).  Prints one JSON line beside the card's
 name and power limit.
@@ -117,12 +117,18 @@ def main() -> int:
     kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     by_kind: dict = {}
     other: dict = {}
+    by_pass: dict = {}   # the backward kernels' device time by pass
     for e in kern:
         ms, n = by_kind.get(kind_of(e.name), (0.0, 0))
         by_kind[kind_of(e.name)] = (ms + e.device_time / 1e3, n + 1)
         if kind_of(e.name) == "other":
             ms, n = other.get(e.name, (0.0, 0))
             other[e.name] = (ms + e.device_time / 1e3, n + 1)
+        for kind, frags in KINDS[:3:2]:   # the two backward kinds
+            for f in frags:
+                if f in e.name:
+                    ms, n = by_pass.get(f, (0.0, 0))
+                    by_pass[f] = (ms + e.device_time / 1e3, n + 1)
     busy = sum(ms for ms, _ in by_kind.values())
 
     mb = {k: v[: r["b"] // r["microbatches"]] for k, v in batches[0].items()}
@@ -140,6 +146,9 @@ def main() -> int:
                      "share_of_busy": ms / busy}
                  for k, (ms, n) in sorted(by_kind.items(),
                                           key=lambda kv: -kv[1][0])},
+        backward_by_pass={f: {"ms_per_step": ms / args.steps,
+                              "launches_per_step": n / args.steps}
+                          for f, (ms, n) in by_pass.items()},
         costliest_other={name[:120]: {"ms_per_step": ms / args.steps,
                                       "launches_per_step": n / args.steps}
                          for name, (ms, n) in sorted(
