@@ -121,7 +121,24 @@ Phases, each timed, any failure exits non-zero:
      each at 2 layers (``TRAIN_RESUME``: 6 steps straight against 3 + 3
      with a restart from the checkpoint, losses within ``RESUME_TOL``);
      every other config at its reduced config for 2 steps
-     (``TRAIN_OTHERS``).
+     (``TRAIN_OTHERS``).  In a world of one these runs have no mesh.
+ 10. the mesh (``repro_torch.launch.mesh``, ``repro_torch.dist``) under a
+     world of one on the card: the main (8, 1024) batch through
+     ``PCNEngine(POINTNET2_C, mode="lpcn", fc_backend="cuda",
+     mesh=data_mesh(1))`` bit-equal to the mesh-free forward with the
+     same launches, both timed in turns; the serving CLI with
+     ``--mesh-data 1`` answering every request; in the ``--trainer-runs``
+     subprocess, after phase 9's runs, olmo-1b as published (``MESH_TRAIN``:
+     4 × 2048 tokens in 2 microbatches, 4 steps) under ``local_mesh()``
+     (handed to ``launch.train.main``: the CLI runs a world of one
+     without a mesh),
+     its losses and grad norms bit-equal to phase 9's mesh-free run, its
+     flash launches ``train_launches`` a step, its step time beside the
+     mesh-free run's, and mamba2-2.7b at 2 layers (``MESH_SSM``) under
+     the mesh and without, losses and grad norms bit-equal, the same
+     launches; ``--production-mesh`` exiting non-zero with the world
+     size it needs.  A ``mesh`` line (and a ``mesh_train`` line from the
+     subprocess) beside the card's name and power limit.
 
 Output lines: the card's name and power limit (nvidia-smi), phase times,
 ptxas's registers and spills per kernel (gather_mlp, hub_reuse,
@@ -417,6 +434,14 @@ TRAIN_OTHERS = dict(b=2, s=64, steps=2)
 # is set before cuBLAS's first call in the process: the trainer runs in a
 # process of its own that carries it (the earlier phases run without it)
 TRAIN_ENV = {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+# phase 10, the mesh on one card: the serving CLI over a data mesh of one
+# rank; olmo-1b as in TRAIN_MAIN for its first 4 steps under local_mesh()
+# (held bit-equal to phase 9's mesh-free run); mamba2-2.7b at 2 layers
+# with and without the mesh
+MESH_CLI = ("--arch", "pointnet2_c", "--trace", str(CLI_TRACE),
+            "--mesh-data", "1")
+MESH_TRAIN = dict(arch="olmo-1b", b=4, s=2048, microbatches=2, steps=4)
+MESH_SSM = dict(arch="mamba2-2.7b", layers=2, b=2, s=512, steps=3)
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -2647,10 +2672,13 @@ def cut_layers(n_layers):
         train_mod.get_config = saved
 
 
-def run_train(argv, n_layers=None) -> tuple[list, list, dict]:
-    """``launch.train.main(argv)`` in this process with the launch counts
-    set to 0 just before and read just after, its lines logged.  -> (the
-    losses, each step's seconds (its ``dt=``), launches)."""
+def run_train(argv, n_layers=None, history=None,
+              mesh=None) -> tuple[list, list, dict]:
+    """``launch.train.main(argv)`` in this process (under ``mesh`` if
+    given) with the launch counts set to 0 just before and read just
+    after, its lines logged; each step's loss and grad norm appended to
+    ``history`` if given.  -> (the losses, each step's seconds (its
+    ``dt=``), launches)."""
     import io
 
     import torch
@@ -2660,7 +2688,7 @@ def run_train(argv, n_layers=None) -> tuple[list, list, dict]:
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     with cut_layers(n_layers), contextlib.redirect_stdout(out):
-        losses = train_mod.main(list(argv))
+        losses = train_mod.main(list(argv), history, mesh)
     torch.cuda.synchronize()
     launches = kernels.launch_counts()
     dts = []
@@ -2722,7 +2750,8 @@ def train_full(seed, smi, r) -> tuple[dict, dict]:
     free_card()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    losses, dts, launches = run_train(argv)
+    history = []
+    losses, dts, launches = run_train(argv, history=history)
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     check(len(losses) == r["steps"] and all(
@@ -2748,7 +2777,8 @@ def train_full(seed, smi, r) -> tuple[dict, dict]:
     bnd = train_bound(cfg, r["b"], r["s"])
     line = dict(train=r["arch"], n_layers=cfg.n_layers, reduced=[],
                 batch=r["b"], seq=r["s"], microbatches=r["microbatches"],
-                steps=r["steps"], losses=losses, step_s=dts,
+                steps=r["steps"], losses=losses,
+                grad_norms=[h["grad_norm"] for h in history], step_s=dts,
                 window_steps=len(window), step_ms=step_s * 1e3,
                 tokens_per_s=len(window) * r["b"] * r["s"] / sum(window),
                 **bnd, share=bnd["bound_ms"] / (step_s * 1e3),
@@ -2828,9 +2858,11 @@ def trainer_runs(seed, smi) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     total = {}
+    lines = {}
     for r in TRAIN_MAIN:
         line, launches = train_full(seed, smi, r)
         log(json.dumps(line))
+        lines[r["arch"]] = line
         for name, n in launches.items():
             total[name] = total.get(name, 0) + n
         free_card()
@@ -2838,7 +2870,86 @@ def trainer_runs(seed, smi) -> dict:
         log(json.dumps(train_resume(seed, r)))
     for other in train_others():
         log(json.dumps(other))
+    log(json.dumps(mesh_train(seed, smi, lines[MESH_TRAIN["arch"]])))
     return total
+
+
+def mesh_train(seed, smi, free_line) -> dict:
+    """Phase 10's trainer runs under ``local_mesh()`` (a world of one,
+    made here and handed to the trainer, which runs a world of one
+    without a mesh of its own): ``MESH_TRAIN`` against phase 9's
+    mesh-free run ``free_line`` of the same seed (losses and grad norms
+    bit-equal, the launches ``train_launches`` a step), and ``MESH_SSM``
+    with and without the mesh (bit-equal, the same launches).  -> the
+    ``mesh_train`` line."""
+    from repro_torch.launch.mesh import local_mesh, release_world
+    try:
+        return _mesh_train(seed, smi, free_line, local_mesh())
+    finally:
+        release_world()
+
+
+def _mesh_train(seed, smi, free_line, mesh) -> dict:
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.lm import model_zoo as zoo
+    r = MESH_TRAIN
+    argv = ("--arch", r["arch"], "--steps", str(r["steps"]), "--batch",
+            str(r["b"]), "--seq", str(r["s"]), "--microbatches",
+            str(r["microbatches"]), "--seed", str(seed))
+    free_card()
+    history = []
+    t0 = time.perf_counter()
+    losses, dts, launches = run_train(argv, history=history, mesh=mesh)
+    wall = time.perf_counter() - t0
+    n = r["steps"]
+    norms = [h["grad_norm"] for h in history]
+    check(losses == free_line["losses"][:n]
+          and norms == free_line["grad_norms"][:n],
+          f"mesh train {r['arch']}: losses {losses} / grad norms {norms} "
+          f"under local_mesh(), {free_line['losses'][:n]} / "
+          f"{free_line['grad_norms'][:n]} without")
+    per_step = zoo.train_launches(get_config(r["arch"]), r["microbatches"])
+    want = {**dict.fromkeys(launches, 0),
+            **{k: n * v for k, v in per_step.items()}}
+    check(launches == want, f"mesh train {r['arch']}: launches {launches}, "
+          f"train_launches × steps {want}")
+    window = slice(2, n)
+    line = {"mesh_train": r["arch"], "mesh": {"data": 1, "model": 1},
+            "batch": r["b"], "seq": r["s"],
+            "microbatches": r["microbatches"], "steps": n, "losses": losses,
+            "grad_norms": norms, "bit_equal_to_no_mesh": True,
+            "step_s": dts, "no_mesh_step_s": free_line["step_s"][:n],
+            "step_ms": 1e3 * sum(dts[window]) / len(dts[window]),
+            "no_mesh_step_ms": 1e3 * sum(free_line["step_s"][window])
+            / len(free_line["step_s"][window]),
+            "launches": {k: v for k, v in launches.items() if v},
+            "wall_s": wall, "card": smi}
+    free_card()
+    s = MESH_SSM
+    base = ("--arch", s["arch"], "--steps", str(s["steps"]), "--batch",
+            str(s["b"]), "--seq", str(s["s"]), "--seed", str(seed))
+    runs = {}
+    for tag, on in (("no_mesh", None), ("mesh", mesh)):
+        hist = []
+        got, sdts, sl = run_train(base, s["layers"], hist, on)
+        runs[tag] = (got, [h["grad_norm"] for h in hist], sl, sdts)
+        free_card()
+    check(runs["mesh"][:3] == runs["no_mesh"][:3] and bool(
+        runs["mesh"][2].get("ssd_chunk")),
+          f"mesh train {s['arch']} at {s['layers']} layers: (losses, grad "
+          f"norms, launches) {runs['mesh'][:3]} under the mesh, "
+          f"{runs['no_mesh'][:3]} without")
+    line["ssm"] = {"arch": s["arch"], "n_layers": s["layers"],
+                   "batch": s["b"], "seq": s["s"],
+                   "losses": runs["mesh"][0], "grad_norms": runs["mesh"][1],
+                   "bit_equal_to_no_mesh": True,
+                   "launches": {k: v for k, v in runs["mesh"][2].items()
+                                if v},
+                   "step_s": runs["mesh"][3],
+                   "no_mesh_step_s": runs["no_mesh"][3]}
+    torch.cuda.synchronize()
+    return line
 
 
 def train_phase(dev, seed, smi) -> tuple[dict, list, list]:
@@ -2872,6 +2983,63 @@ def train_phase(dev, seed, smi) -> tuple[dict, list, list]:
     check(res.returncode == 0 and bool(out), f"the trainer runs exited "
           f"{res.returncode}:\n{res.stderr[-3000:]}")
     return json.loads(out[-1])["train_launches"], parity, rows
+
+
+def mesh_phase(params, batch, smi) -> dict:
+    """Phase 10 in this process: the main batch through the engine under
+    ``data_mesh(1)`` and without, in turns (mesh-free, mesh, mesh,
+    mesh-free), each forward with the launch counts set to 0 just before
+    and read just after: the logits bit-equal, the launches the same;
+    then the serving CLI under ``--mesh-data 1`` and ``--production-mesh``
+    refused.  -> the ``mesh`` line."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.engine import PCNEngine
+    from repro_torch.launch.mesh import data_mesh, release_world
+    from repro_torch.models.pointnet2 import POINTNET2_C
+    free = PCNEngine(POINTNET2_C, mode="lpcn", fc_backend="cuda")
+    runs = {"no_mesh": [], "mesh": []}
+    try:
+        meshed = PCNEngine(POINTNET2_C, mode="lpcn", fc_backend="cuda",
+                           mesh=data_mesh(1))
+        for tag in ("no_mesh", "mesh", "mesh", "no_mesh"):
+            eng = meshed if tag == "mesh" else free
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            logits = eng.apply(params, batch)
+            torch.cuda.synchronize()
+            runs[tag].append((1e3 * (time.perf_counter() - t0),
+                              kernels.launch_counts(), logits))
+    finally:
+        release_world()
+    ref = runs["no_mesh"][0]
+    for tag in runs:
+        for ms, launches, logits in runs[tag]:
+            check(torch.equal(logits, ref[2]), f"mesh: the {tag} logits are "
+                  f"not bit-equal to the mesh-free forward's")
+            check(launches == ref[1] and ref[1]["gather_mlp"] > 0
+                  and ref[1]["hub_reuse"] > 0, f"mesh: {tag} launches "
+                  f"{launches}, mesh-free {ref[1]}")
+    cli_s = cli_phase(smi, MESH_CLI)
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         "olmo-1b", "--production-mesh"], cwd=ROOT, capture_output=True,
+        text=True, timeout=300, env={**os.environ, "PYTHONPATH": str(
+            ROOT / "src")})
+    refusal = (res.stderr.strip().splitlines() or [""])[-1]
+    check(res.returncode != 0 and "needs 256 ranks" in refusal,
+          f"--production-mesh on one card exited {res.returncode}: "
+          f"{res.stderr[-2000:]}")
+    return {"mesh": {"mesh": {"data": 1, "model": 1},
+                     "batch": list(batch.xyz.shape), "bit_equal": True,
+                     "launches": {k: v for k, v in ref[1].items() if v},
+                     "forward_ms": [r[0] for r in runs["mesh"]],
+                     "no_mesh_forward_ms": [r[0] for r in runs["no_mesh"]],
+                     "cli": list(MESH_CLI), "cli_s": cli_s,
+                     "production_mesh": {"exit": res.returncode,
+                                         "message": refusal},
+                     "card": smi}}
 
 
 def main() -> int:
@@ -3050,6 +3218,12 @@ def main() -> int:
     log(f"train_s {phases['train_s']:.2f}; launches of the full-width run "
         f"{train_launches}")
     log(json.dumps({"train_parity": train_parity}))
+
+    # ---- the mesh: a world of one on the card ---------------------------
+    t = time.perf_counter()
+    log(json.dumps(mesh_phase(params, batch, smi.splitlines()[0])))
+    phases["mesh_s"] = time.perf_counter() - t
+    log(f"mesh_s {phases['mesh_s']:.2f}")
 
     # the per-cloud entries (B = 1) are the same kernels: each wrapper
     # counts its kernel's launches whatever the shape

@@ -15,6 +15,12 @@ dtype in ``leaf_dtypes``.  Contract of ``launch/train.py``: save every N
 steps and on SIGTERM; ``restore()`` returns (step, params, opt_state,
 data_state) or None; keep the newest K, deleting older ones only after
 the new COMMIT exists.
+
+Under a mesh (DTensor leaves) the ranks gather one leaf at a time, rank
+0 copies it to host memory and the others drop it, so a device holds one
+whole leaf at most; rank 0 writes them, so the layout does not depend on
+the mesh.  ``restore(..., shardings=)`` lays the leaves out on the
+current mesh, which need not be the one that wrote them.
 """
 from __future__ import annotations
 
@@ -27,6 +33,7 @@ import numpy as np
 import torch
 
 from .. import tree
+from ..dist.sharding import is_dtensor
 
 # npz can't hold these: stored as unsigned views of their width
 _VIEW = {"bfloat16": (np.uint16, np.int16, torch.bfloat16),
@@ -65,17 +72,36 @@ class CheckpointManager:
 
     def save(self, step: int, params, opt_state, data_state: dict,
              extra: dict | None = None) -> str:
+        state = {"params": params, "opt": opt_state}
+        names, leaves = tree.paths(state), tree.leaves(state)
+        if not any(is_dtensor(t) for t in leaves):
+            return self._write(step, names, map(_to_numpy, leaves),
+                               data_state, extra)
+        # a collective: the ranks gather leaf by leaf, rank 0 writes
+        import torch.distributed as dist
+        lead = dist.get_rank() == 0
+        host = []
+        for t in leaves:
+            whole = t.full_tensor() if is_dtensor(t) else t
+            if lead:
+                host.append(_to_numpy(whole))
+            del whole
+        if lead:
+            self._write(step, names, host, data_state, extra)
+        dist.barrier()
+        return os.path.join(self.root, f"step_{step:09d}")
+
+    def _write(self, step, names, host, data_state, extra) -> str:
+        """Publish ``host``, the leaves as ``_to_numpy`` pairs."""
         d = os.path.join(self.root, f"step_{step:09d}")
         tmp = d + ".tmp"
         if os.path.exists(tmp):
             shutil.rmtree(tmp)
         os.makedirs(tmp)
 
-        state = {"params": params, "opt": opt_state}
-        names = tree.paths(state)
         arrays, dtypes = {}, {}
-        for name, leaf in zip(names, tree.leaves(state)):
-            arrays[name], dtypes[name] = _to_numpy(leaf)
+        for name, (arr, dtype) in zip(names, host):
+            arrays[name], dtypes[name] = arr, dtype
         np.savez(os.path.join(tmp, "host_000.npz"), **arrays)
 
         meta = {
@@ -107,11 +133,13 @@ class CheckpointManager:
         steps = self._committed()
         return steps[-1] if steps else None
 
-    def restore(self, params_like, opt_like):
+    def restore(self, params_like, opt_like, shardings=None):
         """-> (step, params, opt_state, data_state) or None.
         ``params_like`` / ``opt_like``: trees with the target structure;
         each leaf comes back in its like's shape (checked), dtype and
-        device."""
+        device.  ``shardings``: ``{"params": ..., "opt": ...}`` trees of
+        ``dist.sharding.Sharding`` for the current mesh, each leaf then a
+        DTensor of its placements."""
         step = self.latest_step()
         if step is None:
             return None
@@ -120,16 +148,20 @@ class CheckpointManager:
             meta = json.load(f)
         like = {"params": params_like, "opt": opt_like}
         dtypes = meta.get("leaf_dtypes", {})
+        sh_leaves = ([None] * len(tree.leaves(like)) if shardings is None
+                     else tree.flatten_up_to(like, shardings))
         out = []
         with np.load(os.path.join(d, "host_000.npz")) as data:
-            for name, ref in zip(tree.paths(like), tree.leaves(like)):
+            for name, ref, sh in zip(tree.paths(like), tree.leaves(like),
+                                     sh_leaves):
                 arr = data[name]
                 t = _to_tensor(arr, dtypes.get(name, str(arr.dtype)))
                 if tuple(t.shape) != tuple(ref.shape):
                     raise ValueError(
                         f"checkpoint leaf {name}: shape {tuple(t.shape)} "
                         f"!= expected {tuple(ref.shape)}")
-                out.append(t.to(device=ref.device, dtype=ref.dtype))
+                t = t.to(device=ref.device, dtype=ref.dtype)
+                out.append(t if sh is None else sh.distribute(t))
         restored = tree.unflatten(like, out)
         return (meta["step"], restored["params"], restored["opt"],
                 meta["data_state"])

@@ -77,11 +77,13 @@ class EngineCtx:
     launch knobs (``rows``: gather_mlp's narrow row tile, 64 or 128;
     ``nsplit``: its wide route's H split; ``chunk``: hub_reuse's cache
     rows a launch, 64 or 128), over the tile-plan store and the
-    heuristic (``repro_torch.kernels.plans``)."""
+    heuristic (``repro_torch.kernels.plans``).  ``mesh``: the data mesh
+    of the sharded forward (None: one device)."""
     mode: str = "lpcn"
     fc_backend: str = "reference"
     isl_kw: tuple = ()            # sorted (key, value) pairs of LPCNConfig
     kernel_kw: tuple = ()         # sorted (key, value) pairs
+    mesh: object = None           # launch.mesh.Mesh | None
 
     KERNEL_KW_KEYS = frozenset({"rows", "nsplit", "chunk"})
     # the JAX package's TPU knobs, which mean nothing to these kernels
@@ -90,7 +92,7 @@ class EngineCtx:
 
     @staticmethod
     def make(mode="lpcn", fc_backend="reference", isl_kw=None,
-             kernel_kw=None):
+             kernel_kw=None, mesh=None):
         if mode not in ("lpcn", "traditional"):
             raise ValueError(f"unknown mode {mode!r}")
         get_fc_backend(fc_backend)          # unknown names raise here
@@ -117,9 +119,15 @@ class EngineCtx:
                     f"kernel_kw {name!r} must be "
                     f"{'a positive int' if allowed is None else allowed}, "
                     f"got {v!r}")
+        if mesh is not None and "data" not in mesh.axis_names:
+            raise ValueError(
+                f"engine meshes shard the batch along a 'data' axis; got "
+                f"axes {tuple(mesh.axis_names)} (build one with "
+                f"repro_torch.launch.mesh.data_mesh / make_mesh)")
         return EngineCtx(mode=mode, fc_backend=fc_backend,
                          isl_kw=tuple(sorted((isl_kw or {}).items())),
-                         kernel_kw=tuple(sorted(kernel_kw.items())))
+                         kernel_kw=tuple(sorted(kernel_kw.items())),
+                         mesh=mesh)
 
 
 def get_arch(spec: PCNSpec) -> Arch:

@@ -1,4 +1,5 @@
-"""The engine: from a padded cloud batch to logits, on one device.
+"""The engine: from a padded cloud batch to logits, on one device or over
+a data mesh.
 
     from repro_torch.engine import PCNEngine, Batch
     from repro_torch.models.pointnet2 import POINTNET2_C
@@ -16,6 +17,12 @@ FC kernels' launch knobs over the tile-plan store
 (``repro_torch.kernels.plans``) and the heuristic.  The device defaults
 to the GPU and must be given as ``device="cpu"`` to run the plain
 PyTorch path.
+
+``mesh`` (a ``repro_torch.launch.mesh.Mesh`` with a ``"data"`` axis, e.g.
+``data_mesh(n)`` under ``torchrun --nproc-per-node n``) turns on the
+sharded serving path (``engine/sharded.py``): each rank runs its block of
+the batch's rows and every rank gets the whole logits.  ``mesh=None`` is
+the single-device fast path, which never imports ``torch.distributed``.
 """
 from __future__ import annotations
 
@@ -41,7 +48,7 @@ def init(spec: PCNSpec, seed: int = 0, device=None) -> PCNParams:
 
 def apply(params: PCNParams, batch, *, spec: PCNSpec, mode: str = "lpcn",
           fc_backend: str = "reference", isl_kw: dict | None = None,
-          kernel_kw: dict | None = None, device=None):
+          kernel_kw: dict | None = None, device=None, mesh=None):
     """Padded :class:`Batch` (or (B, N, 3) array) -> logits, (B,
     n_classes) for cls specs and (B, N, n_classes) for seg specs.
 
@@ -52,7 +59,17 @@ def apply(params: PCNParams, batch, *, spec: PCNSpec, mode: str = "lpcn",
     dicts are accepted (:func:`~repro_torch.engine.params.from_legacy`).
     ``kernel_kw`` forces the FC kernels' launch knobs (``rows``,
     ``nsplit``, ``chunk``; see :class:`~repro_torch.engine.archs.EngineCtx`);
-    unknown keys and the JAX package's TPU knobs raise."""
+    unknown keys and the JAX package's TPU knobs raise.  ``mesh``: every
+    rank of it calls ``apply`` (rank 0's batch is the one run), each runs
+    B / n_data rows, and each returns the whole (B, …) logits."""
+    if mesh is not None:
+        from . import sharded
+        ctx = EngineCtx.make(mode=mode, fc_backend=fc_backend,
+                             isl_kw=isl_kw, kernel_kw=kernel_kw, mesh=mesh)
+        with torch.no_grad():
+            return sharded.forward(from_legacy(params),
+                                   as_batch(batch, resolve_device(device)),
+                                   spec, ctx, mesh)
     return _forward(params, batch, spec, mode, fc_backend, isl_kw,
                     kernel_kw, device, with_report=False)
 
@@ -116,22 +133,26 @@ class PCNEngine:
     """A spec bound to an execution configuration and a device — the
     serving handle: construct once, ``init`` (or carry over) params, then
     ``apply`` padded batches.  ``kernel_kw`` forces the FC kernels' launch
-    knobs on every call (:func:`apply`)."""
+    knobs on every call (:func:`apply`).  ``mesh`` makes it a sharded
+    serving handle (:func:`apply`); a server that forms batches on rank 0
+    alone has the other ranks :meth:`follow` it."""
 
     def __init__(self, spec: PCNSpec, *, mode: str = "lpcn",
                  fc_backend: str = "reference", isl_kw: dict | None = None,
-                 kernel_kw: dict | None = None, device=None):
+                 kernel_kw: dict | None = None, device=None, mesh=None):
         self.spec = spec
         self.mode = mode
         self.fc_backend = fc_backend
         self.isl_kw = dict(isl_kw or {})
         self.kernel_kw = dict(kernel_kw or {})
         self.device = resolve_device(device)
+        self.mesh = mesh
         self._warmed: set = set()     # (batch, n_points) bucket_callable
-        # a bad mode, backend, knob or family fails here, not at the
+        # a bad mode, backend, knob, mesh or family fails here, not at the
         # first batch
-        EngineCtx.make(mode=mode, fc_backend=fc_backend, isl_kw=self.isl_kw,
-                       kernel_kw=self.kernel_kw)
+        self.ctx = EngineCtx.make(mode=mode, fc_backend=fc_backend,
+                                  isl_kw=self.isl_kw,
+                                  kernel_kw=self.kernel_kw, mesh=mesh)
         get_arch(spec)
 
     def _kw(self):
@@ -139,12 +160,30 @@ class PCNEngine:
                     fc_backend=self.fc_backend, isl_kw=self.isl_kw,
                     kernel_kw=self.kernel_kw, device=self.device)
 
+    def twin(self, fc_backend: str) -> "PCNEngine":
+        """This engine with another FC backend (the degraded path)."""
+        return PCNEngine(self.spec, mode=self.mode, fc_backend=fc_backend,
+                         isl_kw=self.isl_kw, kernel_kw=self.kernel_kw,
+                         device=self.device, mesh=self.mesh)
+
+    def follow(self, params: PCNParams) -> int:
+        """On a mesh rank other than 0: run rank 0's forwards (of this
+        engine or a :meth:`twin`) until it calls :meth:`release`.  -> the
+        forwards run."""
+        from . import sharded
+        return sharded.follow(self, from_legacy(params))
+
+    def release(self) -> None:
+        """On rank 0: end the other ranks' :meth:`follow`."""
+        from . import sharded
+        sharded.release(self.device)
+
     def init(self, seed: int = 0) -> PCNParams:
         return init(self.spec, seed, self.device)
 
     def apply(self, params: PCNParams, batch) -> torch.Tensor:
         """Padded batch (Batch or (B, N, 3) array) -> logits."""
-        return apply(params, batch, **self._kw())
+        return apply(params, batch, mesh=self.mesh, **self._kw())
 
     def apply_single(self, params: PCNParams, xyz, feats=None, key=None, *,
                      with_report: bool = False, n_valid=None):
@@ -180,5 +219,7 @@ class PCNEngine:
 
     def __repr__(self):
         kw = f", kernel_kw={self.kernel_kw}" if self.kernel_kw else ""
+        m = "" if self.mesh is None else f", mesh={self.mesh.shape}"
         return (f"PCNEngine({self.spec.name}, mode={self.mode!r}, "
-                f"fc_backend={self.fc_backend!r}{kw}, device={self.device})")
+                f"fc_backend={self.fc_backend!r}{kw}, device={self.device}"
+                f"{m})")

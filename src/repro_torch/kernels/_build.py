@@ -21,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import threading
 import time
 from pathlib import Path
@@ -53,6 +54,18 @@ def count_launch(*names: str) -> None:
 class NoBackwardError(RuntimeError):
     """A kernel that has no backward was called on the card where autograd
     would need its gradient."""
+
+
+def refuse_dtensor(name: str, tensors) -> None:
+    """Raise TypeError when one of ``tensors`` is a DTensor: a kernel
+    takes each rank's local shard (``dist.sharding.local_call``), never a
+    distributed tensor, whose ``data_ptr`` is not the whole operand; and a
+    wrapper does not fall back to its plain version for one."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    if mod is not None and any(isinstance(t, mod.DTensor) for t in tensors):
+        raise TypeError(
+            f"{name}: handed a DTensor; kernels take local shards "
+            f"(repro_torch.dist.sharding.local_call)")
 
 
 def refuse_grad(name: str, tensors, item: str) -> None:

@@ -70,6 +70,7 @@ def flash_attention(q, k, v, causal: bool = True):
     bfloat16, all of one dtype.  -> (B, Hq, Sq, D) in q's dtype (see
     :func:`_forward`).  Only a call that records a graph has the forward
     keep its log-sum-exp for the backward."""
+    _build.refuse_dtensor("flash_attention", (q, k, v))
     graph = torch.is_grad_enabled() and any(
         t.requires_grad for t in (q, k, v))
     return FlashAttentionFn.apply(q, k, v, causal, graph)
@@ -124,6 +125,7 @@ def flash_attention_backward(q, k, v, o, do, causal: bool = True,
     CPU ``lse`` is not read: :func:`attention_bwd_ref` recomputes the
     softmax."""
     _check_heads("flash_attention_backward", q, k)
+    _build.refuse_dtensor("flash_attention_backward", (q, k, v, o, do, lse))
     if q.device.type == "cpu":
         return attention_bwd_ref(q, k, v, o, do, causal)
     if q.device.type != "cuda":

@@ -173,6 +173,7 @@ def gather_mlp(raw, centers, w1, b1, w2, b2, mask=None, *, rows=None,
     with none live gives a zero row.  ``rows`` (64 or 128, narrow route),
     ``nsplit`` (wide route) and ``variant`` ("batched", "per_cloud")
     force the plan (:func:`plan`).  -> (…, S, F) float32."""
+    _build.refuse_dtensor("gather_mlp", (raw, centers, w1, b1, w2, b2, mask))
     if raw.device.type not in ("cpu", "cuda"):
         raise ValueError(f"gather_mlp: unsupported device {raw.device}")
     single = raw.dim() == 3

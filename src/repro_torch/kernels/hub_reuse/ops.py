@@ -119,6 +119,8 @@ def hub_reuse(pool_in, slot, comp, w1, b1, w2, b2, live=None, *,
     y[slot] + comp, ``-BIG`` where a subset has none.  ``chunk`` (64 or
     128 cache rows a launch) and ``variant`` ("batched", "per_cloud")
     force the plan (:func:`plan`)."""
+    _build.refuse_dtensor("hub_reuse", (pool_in, slot, comp, w1, b1, w2, b2,
+                                        live))
     if pool_in.device.type not in ("cpu", "cuda"):
         raise ValueError(f"hub_reuse: unsupported device {pool_in.device}")
     single = pool_in.dim() == 3

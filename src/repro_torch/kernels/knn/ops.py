@@ -46,6 +46,7 @@ def knn(centers, points, k: int):
     centers (S, 3), points (N, 3) float32; 0 <= k <= N.  -> ((S, k) float32
     squared distances ``(|c|² + |p|²) − 2·c·p``, (S, k) int32 indices into
     ``points``), nearest first, ties to the lower index."""
+    _build.refuse_dtensor("knn", (centers, points))
     n = points.shape[0]
     if not 0 <= k <= n:
         raise ValueError(f"knn: need 0 <= k <= N, got k={k}, N={n}")

@@ -70,6 +70,7 @@ def ssd_chunk(x, B, C, dt, cum):
     float32.  -> (y_in (bs, nc, q, H, P), states (bs, nc, H, P, S)):
     y_in[i] = Σ_{j<=i} (C_i·B_j) exp(cum_i − cum_j) dt_j x_j per head, and
     states = Σ_j x_j exp(cum_end − cum_j) dt_j B_jᵀ."""
+    _build.refuse_dtensor("ssd_chunk", (x, B, C, dt, cum))
     return SsdChunkFn.apply(x, B, C, dt, cum)
 
 
@@ -141,6 +142,7 @@ def ssd_chunk_backward(x, B, C, dt, cum, dy, dst):
     :func:`ssd_chunk_bwd_ref` for the closed form).  On a CUDA device
     q <= 128 and every operand contiguous; ``len(SSD_BWD_PASSES)``
     launches, no atomics (the same inputs give the same bits)."""
+    _build.refuse_dtensor("ssd_chunk_backward", (x, B, C, dt, cum, dy, dst))
     if x.device.type == "cpu":
         return ssd_chunk_bwd_ref(x, B, C, dt, cum, dy, dst)
     if x.device.type != "cuda":

@@ -41,9 +41,20 @@ takes a JSON object of the FC kernels' launch knobs (``{"rows": 64,
 ``PCNEngine(kernel_kw=...)``; without it each call's plan comes from the
 tile-plan store (``python -m repro_torch.launch.autotune``) or the
 heuristic.  Every line that reports a time starts with the device's
-name.  Not ported yet, refused with the ROADMAP item that will bring it:
-the PCN mesh-sharded path (``--mesh-data``); with an LM arch it is
-refused as the JAX CLI refuses it.
+name.
+
+``--mesh-data N`` serves a PCN model over an (N, 1) data mesh, one rank
+a device (``torchrun --nproc-per-node N``; with N = 1 a world of one is
+made in-process): each forward splits the batch's rows over the ranks
+(``PCNEngine(mesh=)``).  The throughput loop runs on every rank; a trace
+is served by rank 0, which forms the batches, while the other ranks
+follow its forwards (``PCNEngine.follow``).  Rank 0 prints, with the rate
+per device.  With an LM arch ``--mesh-data`` is refused, as the JAX CLI
+refuses it.  Rehearsed on the CPU over gloo:
+
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
+        --arch pointnet2_c --reduced --device cpu --mesh-data 4 --batch 4 \
+        --points 256 --trace 16 --serve-json ''
 """
 from __future__ import annotations
 
@@ -65,6 +76,7 @@ from ..lm import model_zoo as zoo
 from ..lm import steps as lm_steps
 from ..lm.transformer import dtype_of
 from ..models import MODEL_ZOO
+from .mesh import data_mesh, release_world
 
 
 def device_name(device: torch.device) -> str:
@@ -78,22 +90,49 @@ def _sync(device: torch.device) -> None:
 
 
 def _pcn_engine(args):
-    """Shared PCN setup: spec (optionally reduced), engine, params."""
+    """Shared PCN setup: spec (optionally reduced), the data mesh (None
+    without ``--mesh-data``), engine, params (the same on every rank)."""
     _, spec = MODEL_ZOO[args.arch]
     if args.reduced:
         spec = replace(spec, blocks=tuple(
             replace(b, n_centers=min(b.n_centers, max(args.points // 4, 16)),
                     k=min(b.k, 16)) for b in spec.blocks))
+    mesh = None
+    if args.mesh_data:
+        if args.batch % args.mesh_data:
+            raise SystemExit(
+                f"--batch {args.batch} does not divide over a "
+                f"{args.mesh_data}-way data mesh; pick a batch that is a "
+                f"multiple of --mesh-data")
+        try:
+            mesh = data_mesh(args.mesh_data, device=args.device)
+        except (RuntimeError, ValueError) as e:
+            raise SystemExit(f"--mesh-data {args.mesh_data}: {e}") from None
     kernel_kw = json.loads(args.kernel_kw) if args.kernel_kw else None
     eng = PCNEngine(spec, mode=args.mode, fc_backend=args.backend,
-                    kernel_kw=kernel_kw, device=args.device)
-    return spec, eng, eng.init(seed=0)
+                    kernel_kw=kernel_kw, device=args.device, mesh=mesh)
+    return spec, mesh, eng, eng.init(seed=0)
+
+
+def _lead(mesh) -> bool:
+    """Whether this rank prints (rank 0, or no mesh)."""
+    if mesh is None:
+        return True
+    import torch.distributed as dist
+    return dist.get_rank() == 0
+
+
+def _per_device(mesh, rate: float, unit: str) -> str:
+    if mesh is None:
+        return ""
+    n = mesh.shape["data"]
+    return f", {rate / n:.1f} {unit}/device over {n} devices"
 
 
 def serve_pcn(args):
     """Batched PCN inference through the engine (one shape, many
     batches), each step ended by a device sync."""
-    spec, eng, params = _pcn_engine(args)
+    spec, mesh, eng, params = _pcn_engine(args)
     dev, name = eng.device, device_name(eng.device)
     rng = np.random.default_rng(0)
     f = spec.in_feats
@@ -125,9 +164,11 @@ def serve_pcn(args):
     dt = max(sum(step_ms) / 1e3, 1e-9)
     n = args.steps * args.batch
     lat = serve.percentile_summary(step_ms)
+    if not _lead(mesh):
+        return logits
     print(f"{name}: {eng}: warmed in {warmup_s:.2f}s; served {n} clouds in "
           f"{dt:.2f}s ({n / dt:.1f} clouds/s, batch={args.batch}, "
-          f"N={args.points})")
+          f"N={args.points}{_per_device(mesh, n / dt, 'clouds/s')})")
     print(f"{name}: per-step latency ms: p50={lat['p50']:.2f} "
           f"p95={lat['p95']:.2f} p99={lat['p99']:.2f} "
           f"mean={lat['mean']:.2f} max={lat['max']:.2f}")
@@ -139,8 +180,20 @@ def serve_trace(args):
     """Replay a synthetic ragged arrival trace through
     ``repro_torch.serve.PCNServer`` and write the latency / throughput /
     padding-waste / fault report as JSON.  Shed requests count in the
-    report's ``faults`` section rather than aborting the replay."""
-    spec, eng, params = _pcn_engine(args)
+    report's ``faults`` section rather than aborting the replay.  Under a
+    mesh the ranks but 0 follow rank 0's forwards and return None."""
+    spec, mesh, eng, params = _pcn_engine(args)
+    if not _lead(mesh):
+        eng.follow(params)
+        return None
+    try:
+        return _serve_trace(args, spec, mesh, eng, params)
+    finally:
+        if mesh is not None:
+            eng.release()
+
+
+def _serve_trace(args, spec, mesh, eng, params):
     name = device_name(eng.device)
     if args.buckets:
         sizes = sorted({int(s) for s in args.buckets.split(",")})
@@ -184,6 +237,7 @@ def serve_trace(args):
     failed = sum(server.failed(r) for r in admitted)
     report = server.report(arch=args.arch, mode=args.mode,
                            backend=args.backend, rate_hz=args.rate,
+                           mesh_data=args.mesh_data or None,
                            device=name, warmup_s=warmup_s,
                            answered=answered, failed=failed,
                            shed=len(rids) - len(admitted))
@@ -191,12 +245,15 @@ def serve_trace(args):
     fl = report["faults"]
     dmode = ("sync" if args.sync
              else f"async(max_in_flight={args.max_in_flight})")
+    over = "" if mesh is None else f" over {mesh.shape['data']} devices"
     print(f"{name}: {eng}: {buckets}, timeout={args.timeout_ms:.1f}ms, "
           f"{dmode}; warmed {len(buckets)} buckets in {warmup_s:.2f}s; "
-          f"answered {answered}/{len(rids)} requests")
+          f"answered {answered}/{len(rids)} requests{over}")
     ov = report["overlap"]
     print(f"{name}: throughput {report['throughput_rps']:.1f} req/s "
-          f"(offered {args.rate:.1f}), padding waste "
+          f"(offered {args.rate:.1f}"
+          f"{_per_device(mesh, report['throughput_rps'], 'req/s')}), "
+          f"padding waste "
           f"{report['padding_waste_pct']:.1f}%, dispatches "
           f"{report['dispatches']} ({report['partial_batches']} partial), "
           f"overlap {ov['overlap_pct']:.1f}% "
@@ -299,7 +356,8 @@ def main(argv=None):
                          "or the plain PyTorch path")
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--mesh-data", type=int, default=0,
-                    help="not ported yet (ROADMAP queue 1 item 8)")
+                    help="serve a PCN model over an N-way data mesh, one "
+                         "rank a device (torchrun --nproc-per-node N)")
     ap.add_argument("--kernel-kw", default=None,
                     help="JSON object of FC kernel launch knobs, e.g. "
                          "'{\"rows\": 64, \"chunk\": 64}' (rows, nsplit, "
@@ -353,11 +411,10 @@ def main(argv=None):
             f"--arch {args.arch!r} is neither a PCN model "
             f"({', '.join(MODEL_ZOO)}) nor an LM architecture "
             f"({', '.join(ARCH_IDS)})")
-    if args.mesh_data:
-        raise SystemExit("--mesh-data: the port's engine has no mesh yet; "
-                         "batch data parallelism comes with ROADMAP queue 1 "
-                         "item 8")
-    return serve_trace(args) if args.trace else serve_pcn(args)
+    try:
+        return serve_trace(args) if args.trace else serve_pcn(args)
+    finally:
+        release_world()
 
 
 if __name__ == "__main__":

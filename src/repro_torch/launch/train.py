@@ -1,6 +1,6 @@
 """Training entry point (the port of ``repro.launch.train``): data,
-checkpoint/restart and the train loop, on the GPU unless ``--device cpu``
-is given.
+checkpoint/restart and the train loop under a mesh, on the GPU unless
+``--device cpu`` is given.
 
 Runs real steps and the full fault-tolerance loop: restore from the
 newest committed checkpoint, atomic saves every ``--ckpt-every`` steps and
@@ -20,7 +20,17 @@ backward kernel and an SSD layer's through the ``ssd_chunk`` one:
     PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-2.7b \\
         --steps 8 --batch 4 --seq 2048 --microbatches 2
 
-``--production-mesh`` is refused: the multi-device code is not ported.
+A world of one (no torchrun, or one rank) trains without a mesh: plain
+tensors, no process group.  Launched on more ranks, the mesh is
+``local_mesh()`` ((1, world) over ("data", "model")); with
+``--production-mesh`` it is ``make_production_mesh()`` (256 ranks, refused
+in any other world).  Under a mesh, params and optimizer state are
+DTensors laid out by ``dist.sharding.param_shardings``; every rank draws
+the same batch and the step lays it out; rank 0 prints the step lines
+and writes the checkpoints.  Rehearsed on the CPU over gloo:
+
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+        --arch olmo-1b --reduced --device cpu --steps 3 --batch 4 --seq 32
 """
 from __future__ import annotations
 
@@ -36,9 +46,11 @@ from ..configs import get_config
 from ..data.loader import TokenStream
 from ..device import resolve_device
 from ..dist import compress as compress_mod
+from ..dist import sharding as shd
 from ..lm import model_zoo as zoo
 from ..lm import steps as steps_mod
 from ..lm.transformer import dtype_of
+from .mesh import local_mesh, make_production_mesh, world_size
 from ..optim import adamw
 
 
@@ -53,7 +65,8 @@ def parse_args(argv=None):
     ap.add_argument("--ckpt", default=None)
     ap.add_argument("--ckpt-every", type=int, default=5)
     ap.add_argument("--production-mesh", action="store_true",
-                    help="not ported yet (ROADMAP queue 1 item 8)")
+                    help="the 16 x 16 production mesh: 256 ranks, one a "
+                         "device (torchrun --nproc-per-node ...)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--compress", default=None, choices=["int8", "topk"],
                     help="compress the gradients with this dist.compress "
@@ -63,13 +76,13 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
-def main(argv=None) -> list:
-    """Train; -> the losses of the steps run."""
+def main(argv=None, history: list | None = None, mesh=None) -> list:
+    """Train; -> the losses of the steps run.  ``history``, if given, gets
+    each step's ``{"loss", "grad_norm"}`` as floats.  ``mesh`` (a
+    ``launch.mesh.Mesh`` the caller made and releases) runs the steps
+    under it in place of the mesh the world gives: the way to drive the
+    sharded path in a world of one."""
     args = parse_args(argv)
-    if args.production_mesh:
-        raise SystemExit("--production-mesh: the port has no mesh yet; the "
-                         "multi-device slice brings it (ROADMAP queue 1 "
-                         "item 8)")
     dev = resolve_device(args.device)
     # cuBLAS takes a fixed workspace only if this is set before its first
     # call in the process
@@ -80,7 +93,19 @@ def main(argv=None) -> list:
     torch.use_deterministic_algorithms(True, warn_only=True)
     old_handler = signal.getsignal(signal.SIGTERM)
     try:
-        return _train(args, dev)
+        if mesh is None and args.production_mesh:
+            try:
+                mesh = make_production_mesh(device=dev)
+            except RuntimeError as e:
+                raise SystemExit(f"--production-mesh: {e}") from None
+        elif mesh is None and world_size() > 1:
+            mesh = local_mesh(dev)
+        if mesh is None:
+            return _train(args, dev, None, history)
+        cfg = get_config(args.arch, reduced=args.reduced)
+        with shd.use_mesh(mesh, sp=cfg.seq_shard_blocks,
+                          profile=cfg.shard_profile):
+            return _train(args, dev, mesh, history)
     finally:
         signal.signal(signal.SIGTERM, old_handler)
         if workspace is None:
@@ -89,7 +114,7 @@ def main(argv=None) -> list:
                                            warn_only=was_deterministic[1])
 
 
-def _train(args, dev) -> list:
+def _train(args, dev, mesh, history) -> list:
     cfg = get_config(args.arch, reduced=args.reduced)
     opt_cfg = adamw.AdamWConfig(state_dtype="float32")
     gen = torch.Generator(device=dev).manual_seed(args.seed)
@@ -97,22 +122,33 @@ def _train(args, dev) -> list:
     opt_state = adamw.init_state(opt_cfg, params)
     if args.compress:
         opt_state["ef"] = compress_mod.init_error_feedback(params)
+    p_sh = o_sh = None
+    lead = True
+    if mesh is not None:
+        # every rank drew the same params: each keeps its shards
+        p_sh = shd.param_shardings(params, mesh, cfg.moe_shard)
+        o_sh = shd.param_shardings(opt_state, mesh, cfg.moe_shard)
+        params = shd.distribute(params, p_sh)
+        opt_state = shd.distribute(opt_state, o_sh)
+        lead = torch.distributed.get_rank() == 0
 
     stream = TokenStream(vocab=cfg.vocab, batch=args.batch,
                          seq_len=args.seq, seed=args.seed)
     start_step = 0
     mgr = CheckpointManager(args.ckpt) if args.ckpt else None
     if mgr is not None:
-        restored = mgr.restore(params, opt_state)
+        restored = mgr.restore(params, opt_state, shardings=(
+            None if mesh is None else {"params": p_sh, "opt": o_sh}))
         if restored is not None:
             start_step, params, opt_state, dstate = restored
             stream = TokenStream.from_state(dstate, vocab=cfg.vocab,
                                             batch=args.batch,
                                             seq_len=args.seq)
-            print(f"[restore] resumed at step {start_step}", flush=True)
+            if lead:
+                print(f"[restore] resumed at step {start_step}", flush=True)
 
     train_step = steps_mod.make_train_step(
-        cfg, opt_cfg, microbatches=args.microbatches,
+        cfg, opt_cfg, microbatches=args.microbatches, param_shardings=p_sh,
         compressor=(compress_mod.make_compressor(args.compress)
                     if args.compress else None))
 
@@ -139,15 +175,20 @@ def _train(args, dev) -> list:
                                                 step)
         loss = float(metrics["loss"])       # waits for the step
         losses.append(loss)
-        print(f"step {step}: loss={loss:.4f} "
-              f"gnorm={float(metrics['grad_norm']):.3f} "
-              f"dt={time.perf_counter() - t0:.4f}s", flush=True)
+        if history is not None:
+            history.append({"loss": loss,
+                            "grad_norm": float(metrics["grad_norm"])})
+        if lead:
+            print(f"step {step}: loss={loss:.4f} "
+                  f"gnorm={float(metrics['grad_norm']):.3f} "
+                  f"dt={time.perf_counter() - t0:.4f}s", flush=True)
         if mgr is not None and (
                 (step + 1) % args.ckpt_every == 0 or stop["now"]
                 or step + 1 == args.steps):
             mgr.save(step + 1, params, opt_state, stream.state())
         if stop["now"]:
-            print("[preempt] checkpoint saved; exiting", flush=True)
+            if lead:
+                print("[preempt] checkpoint saved; exiting", flush=True)
             break
     return losses
 

@@ -18,6 +18,7 @@ import torch
 
 from ..kernels.flash_attention.ops import BWD_PASSES
 from ..kernels.ssd_chunk.ops import SSD_BWD_PASSES
+from ..dist.sharding import constrain
 from ..nn.attention import attention_route
 from . import transformer as tfm
 from . import whisper as whi
@@ -35,19 +36,25 @@ def init(gen: torch.Generator, cfg: ArchConfig, device=None):
     return tfm.init_params(gen, cfg, device)
 
 
+def _whole_vocab(logits):
+    """Under a mesh, the logits' vocab dim gathered onto every model rank
+    (rows stay over the data axes) before the loss picks labels."""
+    return constrain(logits, "dp", None, None)
+
+
 def loss_fn(cfg: ArchConfig, params, batch):
     toks = batch["tokens"]
     inp, lab = toks[:, :-1], toks[:, 1:]
     if cfg.family == "audio":
         logits, aux = whi.forward(cfg, params, batch["frames"], inp)
-        return cross_entropy(logits, lab), aux
+        return cross_entropy(_whole_vocab(logits), lab), aux
     if cfg.family == "vlm":
         logits, aux = tfm.forward(cfg, params, tokens=inp,
                                   prefix_embeds=batch["patches"])
-        txt_logits = logits[:, cfg.prefix_tokens:]
+        txt_logits = _whole_vocab(logits)[:, cfg.prefix_tokens:]
         return cross_entropy(txt_logits, lab) + AUX_WEIGHT * aux, aux
     logits, aux = tfm.forward(cfg, params, tokens=inp)
-    return cross_entropy(logits, lab) + AUX_WEIGHT * aux, aux
+    return cross_entropy(_whole_vocab(logits), lab) + AUX_WEIGHT * aux, aux
 
 
 def prefill_fn(cfg: ArchConfig, params, batch):

@@ -11,8 +11,10 @@ Execution is eager over the layer list.  With ``cfg.remat`` and grad
 enabled, each layer runs under ``torch.utils.checkpoint`` (the
 counterpart of ``jax.checkpoint``): its activations are recomputed in the
 backward, so the layer's kernels run twice a training step.  Prefill and
-decode run without grad and are unchanged.  The JAX package's sharding
-constraints have no counterpart here.
+decode run without grad and are unchanged.  Between blocks the
+activations are constrained (``dist.sharding.constrain``: batch over
+``dp``, the sequence over ``sp`` where ``cfg.seq_shard_blocks``), which
+lays DTensors out under a mesh and leaves plain tensors as they are.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
+from ..dist.sharding import carry, constrain
 from ..nn import attention as attn
 from ..nn import layers as nnl
 from ..nn import moe as nnmoe
@@ -114,7 +117,8 @@ def apply_layer(cfg: ArchConfig, i: int, p: dict, x, positions,
         if cfg.ffn_of(i) == "moe":
             y, aux = nnmoe.moe_apply(p["ffn"], h, cfg.moe_experts,
                                      cfg.moe_top_k, cfg.act,
-                                     cfg.capacity_factor, cfg.moe_scheme)
+                                     cfg.capacity_factor, cfg.moe_scheme,
+                                     cfg.moe_shard)
         else:
             y = nnl.mlp_apply(p["ffn"], h, cfg.act)
         x = x + y
@@ -126,7 +130,7 @@ def remat(cfg: ArchConfig, fn, *args):
     set and grad is enabled (its activations recomputed in the
     backward)."""
     if cfg.remat and torch.is_grad_enabled():
-        return checkpoint(fn, *args, use_reentrant=False)
+        return checkpoint(carry(fn), *args, use_reentrant=False)
     return fn(*args)
 
 
@@ -160,9 +164,12 @@ def forward(cfg: ArchConfig, params: dict, tokens=None, embeds=None,
                              device=x.device).expand(b, s)
 
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    sp = "sp" if cfg.seq_shard_blocks else None
+    x = constrain(x, "dp", sp, None)
     for i, lp in enumerate(params["layers"]):
         x, aux = remat(cfg, apply_layer, cfg, i, lp, x, positions,
                        prefix_len)
+        x = constrain(x, "dp", sp, None)
         aux_total = aux_total + aux
     x = nnl.apply_norm(cfg.norm, x, params["final_norm"])
     if head_last_only:
@@ -256,7 +263,8 @@ def decode_step(cfg: ArchConfig, params: dict, token, caches: list,
             if cfg.ffn_of(i) == "moe":
                 y, _ = nnmoe.moe_apply(lp["ffn"], h, cfg.moe_experts,
                                        cfg.moe_top_k, cfg.act,
-                                       cfg.capacity_factor, cfg.moe_scheme)
+                                       cfg.capacity_factor, cfg.moe_scheme,
+                                       cfg.moe_shard)
             else:
                 y = nnl.mlp_apply(lp["ffn"], h, cfg.act)
             x = x + y

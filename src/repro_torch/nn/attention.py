@@ -19,11 +19,17 @@ arguments alone, where its softmax(QKᵀ)V core runs:
 
 The route never falls back: on a CUDA tensor the kernel launches or
 raises; on a CPU tensor its wrapper runs ``attention_ref``.
+
+Under a mesh (``dist.sharding.use_mesh``, DTensor activations) q, k and v
+are laid out by ``constrain_heads`` (batch over the data axes, heads over
+``model`` where the count divides it), and the kernel runs on each rank's
+local shard (``dist.sharding.local_call``).
 """
 from __future__ import annotations
 
 import torch
 
+from ..dist import sharding as shd
 from ..kernels.flash_attention import flash_attention
 from ..kernels.flash_attention.ops import MAX_D
 from .layers import lecun, rope
@@ -67,9 +73,9 @@ def _project_qkv(p, x, n_heads, n_kv, head_dim, positions, theta,
     v = x @ p["wv"]
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(b, s, n_heads, head_dim)
-    k = k.reshape(b, s, n_kv, head_dim)
-    v = v.reshape(b, s, n_kv, head_dim)
+    q = shd.constrain_heads(q.reshape(b, s, n_heads, head_dim), n_heads)
+    k = shd.constrain_heads(k.reshape(b, s, n_kv, head_dim), n_kv)
+    v = shd.constrain_heads(v.reshape(b, s, n_kv, head_dim), n_kv)
     if use_rope:
         q = rope(q, positions, theta)
         k = rope(k, positions, theta)
@@ -105,9 +111,40 @@ def _flash(q, k, v, causal: bool):
     """q (B,S,H,Dh), k/v (B,S,Hkv,Dh) -> (B,S,H*Dh) through the kernel's
     (B, H, S, D) layout."""
     b, s, h, dh = q.shape
+    if shd.is_dtensor(q):
+        return _flash_sharded(q, k, v, causal).reshape(b, s, h * dh)
+    return _flash_local(q, k, v, causal).reshape(b, s, h * dh)
+
+
+def _flash_local(q, k, v, causal: bool):
+    """(B,S,H,Dh) plain tensors -> the kernel's output (B,S,H,Dh)."""
     o = flash_attention(*(t.transpose(1, 2).contiguous() for t in (q, k, v)),
                         causal=causal)
-    return o.transpose(1, 2).reshape(b, s, h * dh)
+    return o.transpose(1, 2)
+
+
+def _flash_sharded(q, k, v, causal: bool):
+    """The kernel on each rank's shard of DTensors q, k, v laid out by
+    ``constrain_heads``.  Where the query heads are split over ``model``
+    and too few KV heads to split are replicated, each rank keeps the KV
+    heads its query heads read (their grads come back as partial sums)."""
+    phys, sizes = shd.physical()
+    h, hkv = q.shape[2], k.shape[2]
+    qs = shd.heads_spec(phys, sizes, h)
+    ks = shd.heads_spec(phys, sizes, hkv)
+    kv = slice(None)
+    if qs[2] is not None and ks[2] is None:
+        hl, g = h // shd.axis_size(qs[2]), h // hkv
+        if hl % g and g % hl:
+            raise ValueError(f"attention under a mesh: {hl} query heads a "
+                             f"rank do not tile groups of {g}")
+        first = shd.coordinate(qs[2]) * hl
+        kv = slice(first // g, (first + hl - 1) // g + 1)
+
+    def run(ql, kl, vl):
+        return _flash_local(ql, kl[:, :, kv], vl[:, :, kv], causal)
+    return shd.local_call(run, (q, k, v), (qs, ks, ks), (qs,),
+                          (tuple(q.shape),))
 
 
 def causal_attention(p, x, n_heads, n_kv, head_dim, positions, theta,
@@ -135,7 +172,7 @@ def causal_attention(p, x, n_heads, n_kv, head_dim, positions, theta,
         mask = rows >= cols
         if prefix_len > 0:
             mask = mask | ((rows < prefix_len) & (cols < prefix_len))
-        scores = torch.where(mask, scores, NEG)
+        scores = torch.where(shd.replicated_like(mask, scores), scores, NEG)
         return _gqa_out(_softmax(scores, x.dtype), v[:, :t_hi], b, qc_len,
                         n_heads, head_dim)
 
@@ -180,7 +217,9 @@ def local_attention(p, x, n_heads, n_kv, head_dim, positions, theta,
     mask = (cols <= rows) & (cols > rows - w)           # causal, window w
     first = torch.arange(nb, device=dev)[:, None, None] == 0
     mask_b = mask[None, :, :] & (~first | (cols[None] >= 0))
-    scores = torch.where(mask_b[None, :, None, None, :, :], scores, NEG)
+    scores = torch.where(
+        shd.replicated_like(mask_b[None, :, None, None, :, :], scores),
+        scores, NEG)
     o = torch.einsum("bnhgst,bnthd->bnshgd", _softmax(scores, x.dtype), v2)
     return o.reshape(b, s, n_heads * head_dim) @ p["wo"]
 

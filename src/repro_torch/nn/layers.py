@@ -14,6 +14,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..dist import sharding as shd
+
 
 def normal(gen: torch.Generator, shape, std: float, dtype, device):
     """float32 N(0, std²) draws from ``gen``, cast to ``dtype`` on
@@ -102,8 +104,8 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     freq = theta ** (-torch.arange(0, half, dtype=torch.float32,
                                    device=x.device) / half)
     ang = positions[..., :, None].float() * freq              # (..., S, half)
-    cos = torch.cos(ang)[..., None, :]                        # (...,S,1,half)
-    sin = torch.sin(ang)[..., None, :]
+    cos = shd.replicated_like(torch.cos(ang)[..., None, :], x)  # (.,S,1,h/2)
+    sin = shd.replicated_like(torch.sin(ang)[..., None, :], x)
     x1, x2 = x[..., :half], x[..., half:]
     y1 = x1 * cos - x2 * sin
     y2 = x2 * cos + x1 * sin
@@ -118,7 +120,14 @@ def causal_conv(x, w):
     """x (B, S, D), w (W, D) depthwise causal conv (no activation), its
     taps summed in order as the JAX package sums them."""
     wlen = w.shape[0]
-    xp = F.pad(x, (0, 0, wlen - 1, 0))
+    if shd.is_dtensor(x):
+        # the left padding as a concatenation: DTensor's pad rule drops a
+        # mesh dimension from its result in some torch releases (2.11)
+        b, _, d = x.shape
+        zeros = torch.zeros((b, wlen - 1, d), dtype=x.dtype, device=x.device)
+        xp = torch.cat([shd.replicated_like(zeros, x), x], dim=1)
+    else:
+        xp = F.pad(x, (0, 0, wlen - 1, 0))
     out = xp[:, 0:x.shape[1], :] * w[0][None, None, :]
     for i in range(1, wlen):
         out = out + xp[:, i:i + x.shape[1], :] * w[i][None, None, :]

@@ -14,12 +14,19 @@ token's slot in its expert's queue is its first-come rank over the
 flattened (T·k) order.
 
 Aux: load-balance loss (Switch-style: E · Σ_e f_e · p_e).
+
+Under a mesh (DTensor activations) the routing and the dispatch run
+whole on every rank, as one device runs them (the capacity counts every
+token of the global batch); the expert buffer is laid out by ``shard``
+(``"ep"``: experts over ``model``) and the expert FFN runs on the
+DTensor weights.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from ..dist import sharding as shd
 from .layers import gelu, lecun, mlp_apply, mlp_params, normal
 
 
@@ -82,10 +89,14 @@ def _slots(idx_k, n_experts: int, cap: int):
 
 
 def moe_apply(p, x, n_experts: int, top_k: int, act: str,
-              capacity_factor: float = 1.25, scheme: str = "scatter"):
-    """x (B, S, D) -> (y (B, S, D), aux loss scalar).  (The JAX package's
-    ``shard`` argument places expert buffers on a mesh; one device has
-    none.)"""
+              capacity_factor: float = 1.25, scheme: str = "scatter",
+              shard: str = "ep"):
+    """x (B, S, D) -> (y (B, S, D), aux loss scalar).  ``shard`` lays
+    the expert buffer out under a mesh (``"ep"``: experts over the model
+    axis; ``"tp"``: left to the expert weights' split)."""
+    if shd.is_dtensor(x):
+        return _moe_sharded(p, x, n_experts, top_k, act, capacity_factor,
+                            scheme, shard)
     if scheme == "dense":
         return _moe_dense(p, x, n_experts, top_k, act)
     b, s, d = x.shape
@@ -94,21 +105,60 @@ def moe_apply(p, x, n_experts: int, top_k: int, act: str,
     gate_k, idx_k, aux = _route(p, xt, n_experts, top_k)
     cap = capacity(n_tok, top_k, n_experts, capacity_factor)
     slot = _slots(idx_k, n_experts, cap)
-
-    # scatter-dispatch into (E, C+1, D); the +1 row absorbs drops
-    buf = torch.zeros((n_experts, cap + 1, d), dtype=x.dtype,
-                      device=x.device)
-    tok_rep = xt[:, None, :].expand(n_tok, top_k, d)
-    buf.index_put_((idx_k.reshape(-1), slot.reshape(-1)),
-                   tok_rep.reshape(-1, d), accumulate=True)
-    ye = _expert_ffn(p, buf[:, :cap], act)                 # (E, C, D)
-    ye = F.pad(ye, (0, 0, 0, 1))                           # drop row = 0
-    out = ye[idx_k, slot]                                  # (T, k, D)
-    yt = torch.sum(out * gate_k[..., None].to(x.dtype), dim=1)
-    y = yt.reshape(b, s, d)
+    ye = _expert_ffn(p, _dispatch(xt, idx_k, slot, n_experts, cap), act)
+    y = _combine(ye, idx_k, slot, gate_k).reshape(b, s, d)
     if "shared" in p:
         y = y + mlp_apply(p["shared"], x, act)
     return y, aux
+
+
+def _dispatch(xt, idx_k, slot, n_experts: int, cap: int):
+    """Scatter tokens into (E, C+1, D), the +1 row absorbing drops; ->
+    the (E, C, D) expert buffer."""
+    n_tok, top_k = idx_k.shape
+    d = xt.shape[-1]
+    buf = torch.zeros((n_experts, cap + 1, d), dtype=xt.dtype,
+                      device=xt.device)
+    tok_rep = xt[:, None, :].expand(n_tok, top_k, d)
+    buf.index_put_((idx_k.reshape(-1), slot.reshape(-1)),
+                   tok_rep.reshape(-1, d), accumulate=True)
+    return buf[:, :cap]
+
+
+def _combine(ye, idx_k, slot, gate_k):
+    """(E, C, D) expert outputs -> (T, D), gate-weighted over k."""
+    ye = F.pad(ye, (0, 0, 0, 1))                           # drop row = 0
+    out = ye[idx_k, slot]                                  # (T, k, D)
+    return torch.sum(out * gate_k[..., None].to(ye.dtype), dim=1)
+
+
+def _moe_sharded(p, x, n_experts, top_k, act, capacity_factor, scheme,
+                 shard):
+    """:func:`moe_apply` on a DTensor ``x``: routing, dispatch and combine
+    on the whole batch on every rank (plain tensors, the same on each);
+    the expert FFN on the DTensor weights, its buffer laid out by
+    ``shard``."""
+    b, s, d = x.shape
+    xt = shd.whole(x).reshape(b * s, d)
+    gate_k, idx_k, aux = _route({"router": shd.whole(p["router"])}, xt,
+                                n_experts, top_k)
+    if scheme == "dense":
+        buf = xt.expand(n_experts, *xt.shape)
+    else:
+        cap = capacity(b * s, top_k, n_experts, capacity_factor)
+        slot = _slots(idx_k, n_experts, cap)
+        buf = _dispatch(xt, idx_k, slot, n_experts, cap)
+    # EP: expert buffers live on their expert's shard
+    buf = shd.constrain(shd.replicated_like(buf, x),
+                        "tp" if shard == "ep" else None, None, None)
+    ye = shd.whole(_expert_ffn(p, buf, act))
+    yt = (_dense_combine(ye, idx_k, gate_k) if scheme == "dense"
+          else _combine(ye, idx_k, slot, gate_k))
+    y = shd.replicated_like(yt.reshape(b, s, d), x).redistribute(
+        x.device_mesh, x.placements)
+    if "shared" in p:
+        y = y + mlp_apply(p["shared"], x, act)
+    return y, shd.replicated_like(aux, x)
 
 
 def _moe_dense(p, x, n_experts, top_k, act):
@@ -116,12 +166,17 @@ def _moe_dense(p, x, n_experts, top_k, act):
     b, s, d = x.shape
     xt = x.reshape(b * s, d)
     gate_k, idx_k, aux = _route(p, xt, n_experts, top_k)
-    w = torch.zeros((xt.shape[0], n_experts), dtype=torch.float32,
-                    device=x.device)
-    w.scatter_(1, idx_k, gate_k)                           # (T, E)
     ye = _expert_ffn(p, xt.expand(n_experts, *xt.shape), act)
-    yt = torch.einsum("te,etd->td", w.to(xt.dtype), ye)
-    y = yt.reshape(b, s, d)
+    y = _dense_combine(ye, idx_k, gate_k).reshape(b, s, d)
     if "shared" in p:
         y = y + mlp_apply(p["shared"], x, act)
     return y, aux
+
+
+def _dense_combine(ye, idx_k, gate_k):
+    """(E, T, D) outputs of every expert for every token -> (T, D), each
+    token's top-k gate-weighted."""
+    w = torch.zeros((ye.shape[1], ye.shape[0]), dtype=torch.float32,
+                    device=ye.device)
+    w.scatter_(1, idx_k, gate_k)                           # (T, E)
+    return torch.einsum("te,etd->td", w.to(ye.dtype), ye)

@@ -13,12 +13,18 @@ n_groups = 1 (B/C shared across heads, the released-model default).
 
 Layer structure (released mamba2): in_proj -> [z | x | B | C | dt],
 causal depthwise conv on (x,B,C), SSD, gated RMSNorm(z), out_proj.
+
+Under a mesh (DTensor activations) x and dt are head-parallel over
+``model`` where the head count divides it, batch over the data axes, and
+the scan (the kernel, the inter-chunk carry, the skip term) runs on each
+rank's local shard (``dist.sharding.local_call``).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from ..dist import sharding as shd
 from ..kernels.ssd_chunk import ssd_chunk
 from .layers import causal_conv, lecun, normal, rmsnorm, softplus
 
@@ -63,26 +69,39 @@ def ssd_apply(p, u, d_state: int, expand: int, headdim: int,
     B = xBC[..., d_inner:d_inner + d_state]
     C = xBC[..., d_inner + d_state:]
     dt = softplus(dt.float() + p["dt_bias"])                  # (B,S,H)
-    A = -torch.exp(p["A_log"])                                # (H,)
 
     h = n_heads
     xh = x.reshape(bsz, s, h, headdim).float()
     assert s % chunk == 0 or s < chunk, "seq must divide chunk"
     q = min(chunk, s)
     nc = s // q
-    xc = xh.reshape(bsz, nc, q, h, headdim).contiguous()
+    # head-parallel over the model axis: the chunk states shard H-fold
+    xc = shd.constrain(xh.reshape(bsz, nc, q, h, headdim),
+                       "dp", None, None, "tp", None).contiguous()
     Bc = B.reshape(bsz, nc, q, d_state).float().contiguous()
     Cc = C.reshape(bsz, nc, q, d_state).float().contiguous()
-    dtc = dt.reshape(bsz, nc, q, h)
-    cum = torch.cumsum(dtc * A, dim=2)                        # in-chunk
+    dtc = shd.constrain(dt.reshape(bsz, nc, q, h), "dp", None, None, "tp")
+    args = (xc, Bc, Cc, dtc, p["A_log"], p["D"])
+    y = _scan_sharded(*args) if shd.is_dtensor(xc) else _scan(*args)
+    y = y.reshape(bsz, s, d_inner).to(u.dtype)
+    y = rmsnorm(y * F.silu(z), p["norm_scale"])               # gated norm
+    return y @ p["out_proj"]
+
+
+def _scan(xc, Bc, Cc, dt, A_log, D):
+    """The SSD of one chunked layer: xc (B, nc, q, H, P), Bc / Cc (B, nc,
+    q, S), dt (B, nc, q, H) float32; -> y (B, nc·q, H, P) float32."""
+    bsz, nc, q, h, p = xc.shape
+    A = -torch.exp(A_log)                                     # (H,)
+    cum = torch.cumsum(dt * A, dim=2)                         # in-chunk
 
     # intra-chunk output and chunk states: the kernel
-    y_in, states = ssd_chunk(xc, Bc, Cc, dtc, cum)
+    y_in, states = ssd_chunk(xc, Bc, Cc, dt, cum)
 
     # inter-chunk scan: the state carried into each chunk
     chunk_decay = torch.exp(cum[:, :, -1, :])                 # (B,nc,H)
-    st = torch.zeros((bsz, h, headdim, d_state), dtype=torch.float32,
-                     device=u.device)
+    st = torch.zeros((bsz, h, p, Bc.shape[-1]), dtype=torch.float32,
+                     device=xc.device)
     st_before = []
     for n in range(nc):
         st_before.append(st)
@@ -92,11 +111,26 @@ def ssd_apply(p, u, d_state: int, expand: int, headdim: int,
     # contribution of carried-in state to each position
     y_out = (torch.einsum("bnis,bnhps->bnihp", Cc, st_before)
              * torch.exp(cum)[..., None])
-    y = (y_in + y_out).reshape(bsz, s, h, headdim)
-    y = y + p["D"][None, None, :, None] * xh
-    y = y.reshape(bsz, s, d_inner).to(u.dtype)
-    y = rmsnorm(y * F.silu(z), p["norm_scale"])               # gated norm
-    return y @ p["out_proj"]
+    y = (y_in + y_out).reshape(bsz, nc * q, h, p)
+    return y + D[None, None, :, None] * xc.reshape(bsz, nc * q, h, p)
+
+
+def _scan_sharded(xc, Bc, Cc, dt, A_log, D):
+    """:func:`_scan` on each rank's shard of DTensor operands: batch over
+    the data axes, heads over ``model`` where the head count divides it
+    (A_log and D split with them), B and C (shared by the heads) whole on
+    every model rank."""
+    phys, sizes = shd.physical()
+    bsz, nc, q, h, p = xc.shape
+    dp = shd.fit_spec((phys.get("dp"),), (bsz,), shd.active_mesh())[0]
+    tp = phys.get("tp")
+    heads = tp if tp is not None and h % sizes[tp] == 0 else None
+    b_spec = (dp, None, None, None)
+    return shd.local_call(
+        _scan, (xc, Bc, Cc, dt, A_log, D),
+        ((dp, None, None, heads, None), b_spec, b_spec,
+         (dp, None, None, heads), (heads,), (heads,)),
+        ((dp, None, heads, None),), ((bsz, nc * q, h, p),))
 
 
 def ssd_decode(p, u, state, conv_state, d_state: int, expand: int,

@@ -12,6 +12,7 @@ from dataclasses import dataclass
 import torch
 
 from .. import tree
+from ..dist.sharding import is_dtensor, whole
 
 
 @dataclass(frozen=True)
@@ -37,15 +38,22 @@ def apply_updates(cfg: AdamWConfig, params, grads, state, lr_scale=1.0):
     """-> (params, state), both updated in place: f32 math, m and v stored
     in their own dtype, params in theirs; decay only on leaves of ndim >=
     2; entries of ``state`` beside m, v and step (the compressor's
-    ``"ef"``) are kept."""
+    ``"ef"``) are kept.  DTensor leaves update their local shards: a
+    param, its grad, m and v share their placements (``lm.steps`` pins
+    the grads), and the update is elementwise."""
     state["step"] += 1
-    step = state["step"].float()
+    step = whole(state["step"]).float()
     b1, b2 = cfg.b1, cfg.b2
     c1 = 1.0 - torch.pow(b1, step)
     c2 = 1.0 - torch.pow(b2, step)
     lr = cfg.lr * torch.as_tensor(lr_scale, dtype=torch.float32)
     for p, g, m, v in zip(tree.leaves(params), tree.leaves(grads),
                           tree.leaves(state["m"]), tree.leaves(state["v"])):
+        if is_dtensor(p):
+            if not all(t.placements == p.placements for t in (g, m, v)):
+                raise ValueError("adamw: a param, its grad, m and v must "
+                                 "share their placements")
+            p, g, m, v = (t.to_local() for t in (p, g, m, v))
         g32 = g.float()
         m32 = b1 * m.float() + (1 - b1) * g32
         v32 = b2 * v.float() + (1 - b2) * g32 * g32

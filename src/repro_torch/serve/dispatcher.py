@@ -166,9 +166,10 @@ class PCNServer:
     Parameters
     ----------
     engine:    a ``repro_torch.engine.PCNEngine`` (any mode/backend; on
-               its device, which defaults to the GPU).  The port's engine
-               has no mesh yet, so there is no data-axis check on the
-               bucket batches.
+               its device, which defaults to the GPU).  With a mesh, every
+               bucket's batch must divide over its ``data`` axis (checked
+               here), the server runs on rank 0 and the other ranks
+               ``engine.follow`` it.
     params:    the engine params served to every request.
     buckets:   a :class:`BucketSet` (or iterable of :class:`Bucket`).
     timeout_s: max queue-wait of a lane's oldest request before a
@@ -220,6 +221,15 @@ class PCNServer:
         self.params = params
         self.buckets = (buckets if isinstance(buckets, BucketSet)
                         else BucketSet(buckets))
+        mesh = getattr(engine, "mesh", None)
+        if mesh is not None:
+            n_data = int(dict(mesh.shape).get("data", 1))
+            bad = [b for b in self.buckets if b.batch % max(n_data, 1)]
+            if bad:
+                raise ValueError(
+                    f"buckets {bad} do not divide over the engine's "
+                    f"{n_data}-way data mesh; use batch sizes that are "
+                    f"multiples of {n_data}")
         if max_in_flight < 1:
             raise ValueError(f"max_in_flight must be >= 1, "
                              f"got {max_in_flight}")
@@ -273,8 +283,8 @@ class PCNServer:
         return fn
 
     def _fallback_callable_for(self, bucket: Bucket):
-        """The degraded-path callable: same spec, mode and device, FC
-        backend swapped to ``self.fallback``.  Built and warmed lazily —
+        """The degraded-path callable: same spec, mode, device and mesh,
+        FC backend swapped to ``self.fallback``.  Built and warmed lazily —
         healthy serving never pays for it (the first degraded dispatch of
         a bucket absorbs the warm-up; that cost lands in its service
         time, visibly)."""
@@ -284,12 +294,8 @@ class PCNServer:
                 fn = self._fallback_callables.get(bucket.key)
                 if fn is None:
                     if self._fallback_engine is None:
-                        eng = self.engine
-                        self._fallback_engine = type(eng)(
-                            eng.spec, mode=eng.mode,
-                            fc_backend=self.fallback,
-                            isl_kw=eng.isl_kw, kernel_kw=eng.kernel_kw,
-                            device=eng.device)
+                        self._fallback_engine = self.engine.twin(
+                            self.fallback)
                     with self._exec_lock:
                         fn = self._fallback_engine.bucket_callable(
                             self.params, bucket.batch, bucket.n_points)

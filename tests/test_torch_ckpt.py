@@ -2,9 +2,11 @@
 ``repro_torch.launch.train``) on the CPU: the round trip (bf16 leaves as
 uint16 views), GC keeping the newest, an uncommitted checkpoint ignored
 (as ``tests/test_substrate.py`` asks of JAX's), a checkpoint written by
-either package restored by the other leaf for leaf, and the CLI resuming
-bit-exactly (the counterpart of ``tests/test_train_ckpt.py``), running
-``--compress int8`` and refusing ``--production-mesh``."""
+either package restored by the other leaf for leaf, a save under a mesh
+gathering one leaf at a time, and the CLI resuming bit-exactly (the
+counterpart of ``tests/test_train_ckpt.py``), running ``--compress
+int8``, training a world of one without a mesh (and bit-equal under one
+handed to it), and refusing ``--production-mesh`` in a world of one."""
 import os
 
 import jax.numpy as jnp
@@ -134,5 +136,71 @@ def test_cli_compress_runs(capsys):
 
 
 def test_cli_refuses_production_mesh():
-    with pytest.raises(SystemExit, match="item 8"):
+    """In a world of one the 16 x 16 mesh is refused, naming the world it
+    needs."""
+    with pytest.raises(SystemExit, match="needs 256 ranks.*has 1.*"
+                                         "--nproc-per-node 256"):
         train_mod.main(CLI + ["--production-mesh"])
+    assert not torch.distributed.is_initialized()
+
+
+def test_cli_world_of_one_runs_without_a_mesh(monkeypatch):
+    """A world of one trains on plain tensors with no process group; a
+    (1, 1) mesh handed to ``main`` runs the DTensor path, its losses and
+    grad norms bit-equal."""
+    from repro_torch.launch.mesh import make_mesh, release_world
+    seen = []
+    inner = train_mod._train
+
+    def spy(args, dev, mesh, history):
+        seen.append((mesh, torch.distributed.is_initialized()))
+        return inner(args, dev, mesh, history)
+    monkeypatch.setattr(train_mod, "_train", spy)
+    argv = CLI + ["--steps", "2", "--microbatches", "2"]
+    free, meshed = [], []
+    train_mod.main(argv, free)
+    assert seen == [(None, False)]
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device="cpu")
+        train_mod.main(argv, meshed, mesh)
+    finally:
+        release_world()
+    assert seen[1][0] is mesh and len(meshed) == 2
+    assert meshed == free
+
+
+def test_save_under_a_mesh_gathers_one_leaf_at_a_time(tmp_path,
+                                                      monkeypatch):
+    """Under a mesh each leaf is gathered whole and copied to host memory
+    before the next is gathered (a device never holds the whole state);
+    the checkpoint restores bit-equal without a mesh."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.ckpt import manager as mgr_mod
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch.mesh import make_mesh, release_world
+    params, opt = _trees()
+    events = []
+    gather, to_host = DTensor.full_tensor, mgr_mod._to_numpy
+
+    def full_tensor(self, *a, **k):
+        events.append("gather")
+        return gather(self, *a, **k)
+
+    def host(t):
+        events.append("host")
+        return to_host(t)
+    monkeypatch.setattr(DTensor, "full_tensor", full_tensor)
+    monkeypatch.setattr(mgr_mod, "_to_numpy", host)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device="cpu")
+        state = shd.distribute((params, opt), shd.param_shardings(
+            (params, opt), mesh))
+        CheckpointManager(str(tmp_path)).save(3, *state, {"step": 3})
+    finally:
+        release_world()
+    n = len(tree.leaves((params, opt)))
+    assert events == ["gather", "host"] * n
+    step, p2, o2, _ = CheckpointManager(str(tmp_path)).restore(
+        _zeros_like(params), _zeros_like(opt))
+    for got, want in zip(tree.leaves((p2, o2)), tree.leaves((params, opt))):
+        assert got.dtype == want.dtype and torch.equal(got, want)

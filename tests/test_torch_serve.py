@@ -6,9 +6,11 @@ the metrics report, the hardened-failure layer and async dispatch — plus
 the same request stream through the JAX ``repro.serve.PCNServer`` and the
 port's, and the kernel loader under threads.
 
-``test_rejects_buckets_not_dividing_mesh`` has no counterpart here: the
-port's engine has no mesh (ROADMAP queue 1 item 8).  The JAX compile-once
-tests become warmed-bucket counts (``PCNEngine.compile_count``)."""
+``test_rejects_buckets_not_dividing_mesh`` holds the data-axis check on a
+stand-in 4-way mesh (the server reads only its shape; the engine's
+sharded forward over gloo ranks is in ``test_torch_dist.py``).  The JAX
+compile-once tests become warmed-bucket counts
+(``PCNEngine.compile_count``)."""
 import sys
 import threading
 import time
@@ -70,6 +72,24 @@ def eng_params(request):
     eng = engine.PCNEngine(SPEC, mode="lpcn", fc_backend=request.param,
                            device="cpu")
     return eng, _with_biases(eng.init(seed=0))
+
+
+class _DataMesh:
+    """Stands in for a 4-way data mesh: the server and the engine's
+    constructor read only its shape and axis names."""
+    shape = {"data": 4, "model": 1}
+    axis_names = ("data", "model")
+
+
+def test_rejects_buckets_not_dividing_mesh(eng_params):
+    eng, params = eng_params
+    meshed = engine.PCNEngine(SPEC, mode="lpcn", fc_backend=eng.fc_backend,
+                              device="cpu", mesh=_DataMesh())
+    with pytest.raises(ValueError, match="4-way data mesh"):
+        PCNServer(meshed, params, BucketSet.make([64], batch=6),
+                  warmup=False)
+    PCNServer(meshed, params, BucketSet.make([64, 96], batch=8),
+              warmup=False).close()
 
 
 def _cloud(n, seed=0):
