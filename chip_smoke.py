@@ -139,6 +139,22 @@ Phases, each timed, any failure exits non-zero:
      launches; ``--production-mesh`` exiting non-zero with the world
      size it needs.  A ``mesh`` line (and a ``mesh_train`` line from the
      subprocess) beside the card's name and power limit.
+ 11. LM serving under a mesh and the planning tools: ``launch.serve.serve_lm``
+     (``SERVE_MESH``: batch 4, a prompt of 16 teacher-forced through
+     decode, 32 greedy tokens, a cache of 2048) on olmo-1b and mamba2-2.7b
+     as published, and recurrentgemma-2b, whisper-large-v3 and
+     llama4-maverick cut to 2 layers, each without a mesh and under a
+     ``local_mesh()`` handed in (params laid out by ``param_shardings``,
+     caches by ``cache_shardings`` as DTensors), the same seeded params:
+     the tokens bit-equal, the last step's logits equal, the same launches
+     (none; Whisper's encoder's flash_attention in ``make_cache``), decode
+     ms a token under the mesh beside mesh-free (a ``serve_mesh`` line
+     each); then ``python -m repro_torch.launch.memreport`` and ``python -m
+     repro_torch.launch.dryrun --arch olmo-1b --shape train_4k`` on the
+     fake 256-rank world, each in a subprocess, their lines logged, the
+     dry run's per-device flops × 256 over the mesh-free count of the same
+     step, and ``memmodel`` of phase 9's olmo-1b step on a one-device mesh
+     beside phase 9's measured peak (a ``planning`` line).
 
 Output lines: the card's name and power limit (nvidia-smi), phase times,
 ptxas's registers and spills per kernel (gather_mlp, hub_reuse,
@@ -195,14 +211,17 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch import HW  # noqa: E402
+
 TOL = 1e-4
 BIG = 3.4e38
-# H100 SXM published peaks (NVIDIA data sheet): fp32 outside the tensor
-# cores, dense bf16 and TF32 on the tensor cores, and HBM3 bandwidth
-PEAK_FP32 = 67e12
-PEAK_BF16 = 989e12
-PEAK_TF32 = 495e12
-PEAK_BYTES = 3.35e12
+# H100 SXM published peaks (NVIDIA data sheet, repro_torch.HW): fp32
+# outside the tensor cores, dense bf16 and TF32 on the tensor cores, and
+# HBM3 bandwidth
+PEAK_FP32 = HW["peak_fp32_flops"]
+PEAK_BF16 = HW["peak_bf16_flops"]
+PEAK_TF32 = HW["peak_tf32_flops"]
+PEAK_BYTES = HW["hbm_bw"]
 B, N_PAD = 8, 1024
 
 # (name, shape) of each kernel call on the pointnet2_c main path, masked as
@@ -442,6 +461,21 @@ MESH_CLI = ("--arch", "pointnet2_c", "--trace", str(CLI_TRACE),
             "--mesh-data", "1")
 MESH_TRAIN = dict(arch="olmo-1b", b=4, s=2048, microbatches=2, steps=4)
 MESH_SSM = dict(arch="mamba2-2.7b", layers=2, b=2, s=512, steps=3)
+# phase 11, LM serving under a mesh: launch.serve.serve_lm on the configs
+# as published (olmo-1b, mamba2-2.7b) and cut to 2 layers (the RG-LRU
+# state and conv caches, Whisper's cross caches from its encoder, MoE),
+# each without a mesh and under local_mesh() handed in, the same params;
+# then the planning tools: memreport and the dry run of one cell on the
+# fake 256-rank world, each in a subprocess, the dry run's mesh-free count
+# of the same step, and memmodel of phase 9's olmo-1b step on a one-device
+# mesh (4 × 2048 tokens in 2 microbatches, bf16 params, f32 grads and
+# AdamW state) beside the peak phase 9 measured
+SERVE_MESH = dict(batch=4, prompt_len=16, gen=32, cache_len=2048)
+SERVE_MESH_MAIN = ("olmo-1b", "mamba2-2.7b")
+SERVE_MESH_CUT = ("recurrentgemma-2b", "whisper-large-v3",
+                  "llama4-maverick-400b-a17b")
+PLAN_DRYRUN = ("--arch", "olmo-1b", "--shape", "train_4k")
+PLAN_STEP = dict(arch="olmo-1b", b=4, s=2048, microbatches=2)
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -2959,7 +2993,8 @@ def train_phase(dev, seed, smi) -> tuple[dict, list, list]:
     carries ``TRAIN_ENV`` (the earlier phases run without it): the trainer
     at full width (counted: the phase's launches), the resume checks, the
     other configs.  -> (launches of the full-width runs, parity rows,
-    ``kernels`` rows without launches)."""
+    ``kernels`` rows without launches, each full-width run's peak memory
+    in GB)."""
     import torch
     parity, rows = [], []
     for name, f, dtype in BWD_LAYERS:
@@ -2978,11 +3013,15 @@ def train_phase(dev, seed, smi) -> tuple[dict, list, list]:
          "--seed", str(seed)], cwd=ROOT, env={**os.environ, **TRAIN_ENV},
         capture_output=True, text=True, timeout=900)
     out = res.stdout.splitlines()
+    peaks = {}
     for line in out[:-1]:
         log(line)
+        if line.startswith('{"train": '):
+            run = json.loads(line)
+            peaks[run["train"]] = run["peak_memory_gb"]
     check(res.returncode == 0 and bool(out), f"the trainer runs exited "
           f"{res.returncode}:\n{res.stderr[-3000:]}")
-    return json.loads(out[-1])["train_launches"], parity, rows
+    return json.loads(out[-1])["train_launches"], parity, rows, peaks
 
 
 def mesh_phase(params, batch, smi) -> dict:
@@ -3040,6 +3079,194 @@ def mesh_phase(params, batch, smi) -> dict:
                      "production_mesh": {"exit": res.returncode,
                                          "message": refusal},
                      "card": smi}}
+
+
+@contextlib.contextmanager
+def serve_config(n_layers):
+    """``launch.serve``'s configs cut to ``n_layers`` (None: as
+    published) for the block's duration."""
+    import dataclasses
+
+    from repro_torch.launch import serve as serve_mod
+    saved = serve_mod.get_config
+    if n_layers is not None:
+        serve_mod.get_config = lambda arch, reduced=False: dataclasses.replace(
+            saved(arch, reduced=reduced), n_layers=n_layers)
+    try:
+        yield serve_mod.get_config
+    finally:
+        serve_mod.get_config = saved
+
+
+def lm_serve_run(arch, params, mesh, n_layers) -> dict:
+    """``serve_lm`` on ``arch`` (``SERVE_MESH``) under ``mesh`` (or none)
+    with ``params``, the launch counts set to 0 just before and read just
+    after.  -> its tokens, last step's logits, ms a generated token (the
+    CLI's own host-clock figure), launches and wall seconds."""
+    import argparse
+    import io
+
+    import torch
+    from repro_torch import kernels
+    from repro_torch.launch import serve as serve_mod
+    args = argparse.Namespace(arch=arch, reduced=False, device=None,
+                              **SERVE_MESH)
+    logits, out = [], io.StringIO()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with serve_config(n_layers), contextlib.redirect_stdout(out):
+        gen = serve_mod.serve_lm(args, params, mesh, logits)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    first = out.getvalue().splitlines()[0]
+    log(f"serve_lm: {first}")
+    return {"tokens": gen, "logits": logits[-1],
+            "ms": float(re.search(r"([0-9.]+) ms a step", first).group(1)),
+            "launches": {k: v for k, v in kernels.launch_counts().items()
+                         if v}, "wall_s": wall}
+
+
+def serve_mesh_pair(arch, dev, seed, smi, mesh, n_layers=None) -> dict:
+    """``arch`` served without a mesh and under ``mesh`` from the same
+    seeded params: the tokens bit-equal, the last step's logits equal,
+    the same launches (none but the audio encoder's flash_attention).
+    -> the ``serve_mesh`` line."""
+    import torch
+    from repro_torch.lm import model_zoo as zoo
+    with serve_config(n_layers) as get_config:
+        cfg = get_config(arch)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = zoo.init(gen, cfg, dev)
+    runs = {tag: lm_serve_run(arch, params, on, n_layers)
+            for tag, on in (("no_mesh", None), ("mesh", mesh))}
+    free, meshed = runs["no_mesh"], runs["mesh"]
+    check(bool((free["tokens"] == meshed["tokens"]).all()),
+          f"serve_mesh {arch}: tokens under the mesh differ from the "
+          f"mesh-free ones")
+    diff = (free["logits"].float() - meshed["logits"].float()).abs()
+    check(torch.equal(free["logits"], meshed["logits"]),
+          f"serve_mesh {arch}: the last step's logits under the mesh "
+          f"differ by {float(diff.max()):.3g}")
+    check(bool(torch.isfinite(free["logits"].float()).all()),
+          f"serve_mesh {arch}: non-finite logits")
+    enc = cfg.enc_layers if cfg.family == "audio" else 0
+    want = {"flash_attention": enc} if enc else {}
+    check(free["launches"] == meshed["launches"] == want,
+          f"serve_mesh {arch}: launches {free['launches']} without the "
+          f"mesh, {meshed['launches']} under it, {want} expected")
+    line = {"serve_mesh": arch, "n_layers": cfg.n_layers,
+            "reduced": ([] if n_layers is None else
+                        [f"n_layers -> {n_layers}"]),
+            "mesh": dict(mesh.shape), **SERVE_MESH, "dtype": cfg.dtype,
+            "tokens_bit_equal": True, "last_logits_equal": True,
+            "decode_ms_per_token": meshed["ms"],
+            "no_mesh_decode_ms_per_token": free["ms"],
+            "launches": meshed["launches"],
+            "wall_s": meshed["wall_s"], "no_mesh_wall_s": free["wall_s"],
+            "card": smi}
+    del params, runs, free, meshed
+    free_card()
+    return line
+
+
+def tool(argv, timeout=900) -> tuple[list, float]:
+    """``python -m <argv>`` in a subprocess from the checkout: exit 0.
+    -> (its stdout lines, wall seconds)."""
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        filter(None, [str(ROOT / "src"), os.environ.get("PYTHONPATH")]))}
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", *argv], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    check(res.returncode == 0, f"{' '.join(argv)} exited {res.returncode}:"
+          f"\n{res.stderr[-3000:]}")
+    return res.stdout.splitlines(), wall
+
+
+def planning_tools(smi, phase9_peak_gb) -> dict:
+    """The planning tools on this machine: memreport and the dry run of
+    ``PLAN_DRYRUN`` on the fake 256-rank world, each in a subprocess
+    (their lines logged, their per-device numbers and wall time kept);
+    the dry run's per-device flops × 256 against the mesh-free count of
+    the same step; memmodel of phase 9's olmo-1b step (``PLAN_STEP``) on
+    a one-device mesh beside the peak phase 9 measured.  -> the
+    ``planning`` line."""
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.launch import dryrun, memmodel
+    from repro_torch.launch.mesh import local_mesh, release_world
+    out = ROOT / "build" / "phase11"
+    out.mkdir(parents=True, exist_ok=True)
+    mem_lines, mem_s = tool(("repro_torch.launch.memreport", "--out",
+                             str(out / "memmodel.json")))
+    for line in mem_lines:
+        log(f"memreport: {line}")
+    with open(out / "memmodel.json") as fh:
+        cells = json.load(fh)
+    check(len(cells) == 32, f"memreport: {len(cells)} cells, 32 expected")
+    dry_json = out / "dryrun.json"
+    if dry_json.exists():
+        dry_json.unlink()
+    dry_lines, dry_s = tool(("repro_torch.launch.dryrun", *PLAN_DRYRUN,
+                             "--out", str(dry_json)))
+    for line in dry_lines:
+        log(f"dryrun: {line}")
+    with open(dry_json) as fh:
+        rec = json.load(fh)[0]
+    check(rec["status"] == "ok", f"dryrun {PLAN_DRYRUN}: {rec.get('error')}"
+          f"\n{rec.get('trace', '')}")
+    arch, shape = PLAN_DRYRUN[1], PLAN_DRYRUN[3]
+    t0 = time.perf_counter()
+    free = dryrun.trace_step(get_config(arch), shape, None)
+    free_s = time.perf_counter() - t0
+    r = PLAN_STEP
+    step = ShapeSpec("phase9_step", r["s"], r["b"], "train")
+    try:
+        model = memmodel.train_footprint(get_config(r["arch"]), step,
+                                         local_mesh(), r["microbatches"],
+                                         accum_bytes=4, opt_state_bytes=4)
+    finally:
+        release_world()
+    return {"planning": {
+        "memreport": {"cells": len(cells), "wall_s": mem_s,
+                      "not_fitting": [f"{c['arch']} {c['shape']}"
+                                      for c in cells if not c["fits_hbm"]],
+                      "olmo-1b": {c["shape"]: c["total_bytes"]
+                                  for c in cells if c["arch"] == "olmo-1b"}},
+        "dryrun": {"cell": f"{arch} {shape}", "wall_s": dry_s,
+                   **{k: rec[k] for k in (
+                       "chips", "microbatches", "lower_s", "compile_s",
+                       "hlo_flops_per_chip", "hlo_bytes_per_chip",
+                       "collective_bytes_per_chip", "memory", "compute_s",
+                       "memory_s", "collective_s", "dominant")},
+                   "mesh_free_flops": free["flops"],
+                   "mesh_free_trace_s": free_s,
+                   "flops_x_chips_over_mesh_free":
+                       rec["hlo_flops_per_chip"] * rec["chips"]
+                       / free["flops"]},
+        "memmodel_phase9_step": {**r, "opt_state_bytes": 4,
+                                 "accum_bytes": 4, **model,
+                                 "total_gb": model["total_bytes"] / 1e9,
+                                 "phase9_peak_gb": phase9_peak_gb},
+        "card": smi}}
+
+
+def serve_mesh_phase(dev, seed, smi) -> list:
+    """Phase 11's serving part: ``serve_mesh_pair`` on
+    ``SERVE_MESH_MAIN`` as published and ``SERVE_MESH_CUT`` at 2 layers
+    under one ``local_mesh()`` of this world of one.  -> the lines."""
+    from repro_torch.launch.mesh import local_mesh, release_world
+    lines = []
+    try:
+        mesh = local_mesh()
+        for arch in SERVE_MESH_MAIN + SERVE_MESH_CUT:
+            line = serve_mesh_pair(arch, dev, seed, smi, mesh,
+                                   None if arch in SERVE_MESH_MAIN else 2)
+            log(json.dumps(line))
+            lines.append(line)
+    finally:
+        release_world()
+    return lines
 
 
 def main() -> int:
@@ -3212,7 +3439,7 @@ def main() -> int:
 
     # ---- the LM trainer: flash_attention's backward, olmo-1b ------------
     t = time.perf_counter()
-    train_launches, train_parity, train_rows = train_phase(
+    train_launches, train_parity, train_rows, train_peaks = train_phase(
         dev, args.seed, smi.splitlines()[0])
     phases["train_s"] = time.perf_counter() - t
     log(f"train_s {phases['train_s']:.2f}; launches of the full-width run "
@@ -3224,6 +3451,17 @@ def main() -> int:
     log(json.dumps(mesh_phase(params, batch, smi.splitlines()[0])))
     phases["mesh_s"] = time.perf_counter() - t
     log(f"mesh_s {phases['mesh_s']:.2f}")
+
+    # ---- LM serving under a mesh; the planning tools --------------------
+    t = time.perf_counter()
+    serve_mesh_phase(dev, args.seed, smi.splitlines()[0])
+    phases["serve_mesh_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    log(json.dumps(planning_tools(smi.splitlines()[0],
+                                  train_peaks.get(PLAN_STEP["arch"]))))
+    phases["planning_s"] = time.perf_counter() - t
+    log(f"serve_mesh_s {phases['serve_mesh_s']:.2f}; planning_s "
+        f"{phases['planning_s']:.2f}")
 
     # the per-cloud entries (B = 1) are the same kernels: each wrapper
     # counts its kernel's launches whatever the shape

@@ -32,6 +32,8 @@ from contextlib import contextmanager
 from contextvars import ContextVar
 from dataclasses import dataclass
 
+import torch
+
 from .. import tree as _tree
 
 # (mesh, {logical name -> physical axis or tuple or None}) of the
@@ -130,8 +132,11 @@ class Sharding:
 
     def distribute(self, t):
         """The full tensor ``t`` (the same on every rank) as a DTensor of
-        these placements; each rank keeps its own shard."""
+        these placements, each rank keeping its own shard; a DTensor
+        redistributed to them."""
         from torch.distributed.tensor import distribute_tensor
+        if is_dtensor(t):
+            return t.redistribute(self.mesh.device_mesh, self.placements)
         return distribute_tensor(t.detach(), self.mesh.device_mesh,
                                  self.placements, src_data_rank=None)
 
@@ -165,6 +170,55 @@ def constrain(x, *logical):
     return _redistribute(x, _logical_spec(phys, logical), mesh)
 
 
+def gather_seq(x):
+    """A (B, S, D) activation with its sequence whole on every model rank
+    (batch over the data axes), as Megatron's sequence parallelism
+    gathers it before a block's products: DTensor (torch 2.11) cannot
+    fold a sequence split over the model axis into the rows of a product.
+    No-op outside :func:`use_mesh`; a plain tensor passes through."""
+    return constrain(x, "dp", None, None)
+
+
+def lookup(table, ids):
+    """``table[ids]``: an embedding lookup.  Under a mesh the ids are
+    replicated first, so that its gradient (an accumulating
+    ``index_put``) meets no split index, for which DTensor (torch 2.11)
+    has no working rule; the rows come out whole on every rank and are
+    laid out by the caller's next ``constrain``.  The table's gradient
+    comes back in its own layout (:func:`pin_grad`)."""
+    if is_dtensor(ids):
+        from torch.distributed.tensor import Replicate
+        ids = ids.redistribute(ids.device_mesh,
+                               [Replicate()] * ids.device_mesh.ndim)
+    return pin_grad(table)[ids]
+
+
+def pin_grad(t):
+    """``t`` itself, whose gradient comes back laid out as ``t`` is (a
+    partial sum reduced into its shards).  For a parameter read twice (a
+    tied embedding: the lookup and the head), autograd then adds two
+    gradients of one layout: DTensor (torch 2.11) cannot turn a shard into
+    the partial sum that the other read's gradient is.  A plain tensor
+    passes through."""
+    if not is_dtensor(t):
+        return t
+    return _PinGrad.apply(t)
+
+
+class _PinGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t):
+        ctx.layout = (t.device_mesh, tuple(t.placements))
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        mesh, placements = ctx.layout
+        if tuple(grad.placements) == placements:
+            return grad
+        return grad.redistribute(mesh, placements)
+
+
 def heads_spec(phys, sizes, n_heads: int) -> tuple:
     """(B, S, H, Dh): batch over ``dp``, heads over ``tp`` only where the
     head count divides the model axis (few KV heads stay replicated)."""
@@ -182,6 +236,20 @@ def constrain_heads(x, n_heads: int):
     mesh, phys = active
     return _redistribute(x, heads_spec(phys, _mesh_sizes(mesh), n_heads),
                          mesh)
+
+
+def constrain_heads_flat(x, n_heads: int):
+    """Constrain a (B, S, H·Dh) tensor as :func:`constrain_heads` lays
+    out its (B, S, H, Dh) view: the last dim over ``tp`` only where the
+    head count divides the model axis, so that the split into heads is a
+    local view on every rank.  No-op outside :func:`use_mesh`; a plain
+    tensor passes through."""
+    active = _ACTIVE.get()
+    if active is None:
+        return x
+    mesh, phys = active
+    dp, _, heads, _ = heads_spec(phys, _mesh_sizes(mesh), n_heads)
+    return _redistribute(x, (dp, None, heads), mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -205,6 +273,31 @@ def replicated_like(t, x):
     mesh = x.device_mesh
     return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
                               run_check=False)
+
+
+def like(x, ref):
+    """``x`` laid out as the DTensor ``ref`` is (a decode step's new
+    recurrent state handed back in its cache's layout, as the JAX
+    package's ``out_shardings`` do); ``x`` itself where either is a plain
+    tensor."""
+    if not (is_dtensor(x) and is_dtensor(ref)):
+        return x
+    if tuple(x.placements) == tuple(ref.placements):
+        return x
+    return x.redistribute(ref.device_mesh, ref.placements)
+
+
+def write_slot(cache, at: int, new) -> None:
+    """``cache[:, at] = new[:, 0]`` in place.  On a DTensor cache (laid
+    out by :func:`cache_shardings`: batch over the data axes, heads over
+    ``model`` where the count divides it, else replicated) each rank
+    writes its own shard: ``new`` is laid out as the cache is, and its
+    local rows go into the cache's local shard."""
+    if not is_dtensor(cache):
+        cache[:, at] = new[:, 0]
+        return
+    new = new.redistribute(cache.device_mesh, cache.placements)
+    cache.to_local()[:, at] = new.to_local()[:, 0]
 
 
 def whole(x):
@@ -408,7 +501,7 @@ def cache_shardings(cache, mesh):
 
 
 def distribute(tree, shardings):
-    """Each full leaf of ``tree`` as the DTensor its :class:`Sharding`
-    in ``shardings`` (a matching tree) gives."""
+    """Each leaf of ``tree`` (full, or a DTensor) as the DTensor its
+    :class:`Sharding` in ``shardings`` (a matching tree) gives."""
     return _tree.map(lambda t, sh: sh.distribute(t), tree, shardings)
 

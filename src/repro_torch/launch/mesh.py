@@ -9,7 +9,9 @@ JAX package's meshes do (``dict(mesh.shape)``, ``mesh.axis_names``), so
 Functions, not module constants: importing this module starts no process
 group.  When none exists and the mesh needs one device, a world of one is
 made in-process (:func:`release_world` ends it); a mesh of more devices
-needs the ranks launched beforehand.
+needs the ranks launched beforehand, or a fake world (:func:`fake_world`:
+this process alone plays rank 0 of N, meshes on the ``meta`` device, the
+dry run's world).
 """
 from __future__ import annotations
 
@@ -19,8 +21,9 @@ import torch
 
 from ..device import resolve_device
 
-# the world of one this module started, if any (released by release_world)
-_OWN_WORLD = {"on": False}
+# the world this module started, if any (released by release_world), and
+# whether it is fake
+_OWN_WORLD = {"on": False, "fake": False}
 
 
 class Mesh:
@@ -75,14 +78,36 @@ def _world(n: int, device_type: str) -> None:
         torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
 
 
+def fake_world(n: int) -> None:
+    """Make this process rank 0 of a FAKE world of ``n`` ranks: torch's
+    fake process group (``torch.testing._internal.distributed.fake_pg``),
+    whose collectives return without moving a byte, so no other rank is
+    launched.  Meshes of that world are made with ``device="meta"`` and
+    hold shapes only (the dry run's world, ``launch/dryrun.py``);
+    :func:`release_world` ends it.  Raises if a process group exists
+    already, or if this torch has no fake backend."""
+    import torch.distributed as dist
+    if dist.is_initialized():
+        raise RuntimeError("fake_world: a process group exists already")
+    try:
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+    except ImportError as e:
+        raise RuntimeError(
+            f"fake_world: this torch ({torch.__version__}) has no fake "
+            f"process group: {e}") from e
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=n)
+    _OWN_WORLD.update(on=True, fake=True)
+
+
 def release_world() -> None:
-    """End the world of one that a mesh of one device started (no-op if
-    the process group came from elsewhere)."""
+    """End the world of one that a mesh of one device started, or the
+    fake world (no-op if the process group came from elsewhere)."""
     if _OWN_WORLD["on"]:
         import torch.distributed as dist
         if dist.is_initialized():
             dist.destroy_process_group()
-        _OWN_WORLD["on"] = False
+        _OWN_WORLD.update(on=False, fake=False)
 
 
 def make_mesh(shape, axes, device=None) -> Mesh:
@@ -96,9 +121,32 @@ def make_mesh(shape, axes, device=None) -> Mesh:
     n = 1
     for s in shape:
         n *= s
+    if _OWN_WORLD["fake"]:
+        return _fake_mesh(shape, axes, n, device)
     device_type = resolve_device(device).type
     _world(n, device_type)
     return Mesh(init_device_mesh(device_type, shape, mesh_dim_names=axes))
+
+
+def _fake_mesh(shape, axes, n: int, device) -> Mesh:
+    """A mesh of the fake world, whose tensors are ``meta`` ones
+    (``device="meta"``).  It is a CUDA device mesh where a card is
+    present, so that DTensor plans the collectives NCCL would run; on a
+    host without one a CPU mesh, on which DTensor plans an all-to-all as
+    an all-gather (gloo has none) and shape propagation needs no CUDA."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    if device is None or torch.device(device).type != "meta":
+        raise RuntimeError(
+            f"the world is fake (launch.mesh.fake_world): its collectives "
+            f"move nothing, so its meshes take device='meta' (shapes "
+            f"only), not {device!r}")
+    if dist.get_world_size() != n:
+        raise RuntimeError(f"this mesh needs {n} ranks; the fake world "
+                           f"has {dist.get_world_size()}")
+    return Mesh(init_device_mesh(
+        "cuda" if torch.cuda.is_available() else "cpu", shape,
+        mesh_dim_names=axes))
 
 
 def world_size() -> int:

@@ -29,9 +29,13 @@ dispatched on ``--arch``.
     (``--reduced`` for its smoke config): a batch of random prompts
     teacher-forced through the decode cache one token a step, then
     ``--gen`` greedy tokens (``repro_torch.lm.steps.make_decode_step``).
+    Launched on N ranks it decodes tensor-parallel under ``local_mesh()``
+    ((1, N) over ("data", "model"); a world of one runs without a mesh):
 
         PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b \\
             --batch 4 --prompt-len 32 --gen 16 --cache-len 64
+        PYTHONPATH=src torchrun --nproc-per-node 4 -m \\
+            repro_torch.launch.serve --arch olmo-1b --reduced --device cpu
 
 For PCN serving, ``--arch`` takes every model of
 ``repro_torch.models.MODEL_ZOO``; a seg model answers each request with
@@ -70,13 +74,14 @@ import torch
 from .. import random, serve
 from ..configs import ARCH_IDS, get_config
 from ..data.synthetic import make_cloud
+from ..dist import sharding as shd
 from ..device import resolve_device
 from ..engine import Batch, PCNEngine
 from ..lm import model_zoo as zoo
 from ..lm import steps as lm_steps
 from ..lm.transformer import dtype_of
 from ..models import MODEL_ZOO
-from .mesh import data_mesh, release_world
+from .mesh import data_mesh, local_mesh, release_world, world_size
 
 
 def device_name(device: torch.device) -> str:
@@ -274,30 +279,65 @@ def _serve_trace(args, spec, mesh, eng, params):
     return report
 
 
-def serve_lm(args, params=None):
+def serve_lm(args, params=None, mesh=None, logits=None):
     """Batched decode loop: a batch of random prompts teacher-forced
     through the decode cache token by token, then ``--gen`` greedy tokens,
     each step on the device.  It is the JAX CLI's loop to the position:
     the prompt's last token enters at position ``prompt_len``, so cache
     slot ``prompt_len - 1`` stays empty (ROADMAP queue 3).  ``params``
     (default: ``zoo.init`` from a generator seeded with 0) lets a caller
-    serve weights carried across from JAX.  -> (batch, gen) generated
-    tokens."""
+    serve weights carried across from JAX; ``logits``, if a list, gets
+    each generated step's logits (the whole (batch, vocab) tensor).  ->
+    (batch, gen) generated tokens.
+
+    Launched on more than one rank (``torchrun --nproc-per-node N``) it
+    serves under ``local_mesh()``, a (1, N) ("data", "model") mesh:
+    tensor-parallel decode, params laid out by ``param_shardings`` and
+    the caches by ``cache_shardings`` as DTensors, every rank drawing the
+    same params and prompts; rank 0 prints.  A world of one serves
+    without a mesh unless ``mesh`` (a ``launch.mesh.Mesh`` the caller
+    made and releases) is handed in.  An op without a DTensor rule
+    raises; nothing falls back to the mesh-free loop."""
     cfg = get_config(args.arch, reduced=args.reduced)
     dev = resolve_device(args.device)
+    own = mesh is None and world_size() > 1
+    if own:
+        mesh = local_mesh(dev)
+    if mesh is None:
+        return _serve_lm(args, cfg, dev, params, None, logits)
+    try:
+        with shd.use_mesh(mesh, sp=cfg.seq_shard_blocks,
+                          profile=cfg.shard_profile):
+            return _serve_lm(args, cfg, dev, params, mesh, logits)
+    finally:
+        if own:
+            release_world()
+
+
+def _serve_lm(args, cfg, dev, params, mesh, logits):
     name = device_name(dev)
+    lead = mesh is None or torch.distributed.get_rank() == 0
     rng = np.random.default_rng(0)
     t0 = time.perf_counter()
     if params is None:
         params = zoo.init(torch.Generator(device=dev).manual_seed(0), cfg,
                           dev)
+
+    def laid(tree, shardings):
+        return tree if mesh is None else shd.distribute(tree,
+                                                        shardings(tree))
+
+    params = laid(params, lambda t: shd.param_shardings(t, mesh,
+                                                        cfg.moe_shard))
     frames = None
     if cfg.family == "audio":           # the stubbed frontend's frames
-        frames = torch.full((args.batch, cfg.enc_seq, cfg.d_model), 0.01,
-                            dtype=dtype_of(cfg), device=dev)
+        frames = laid(torch.full((args.batch, cfg.enc_seq, cfg.d_model),
+                                 0.01, dtype=dtype_of(cfg), device=dev),
+                      lambda t: shd.batch_shardings(t, mesh))
     with torch.no_grad():
-        cache = zoo.make_cache(cfg, params, args.batch, args.cache_len,
-                               frames=frames, device=dev)
+        cache = laid(zoo.make_cache(cfg, params, args.batch, args.cache_len,
+                                    frames=frames, device=dev),
+                     lambda t: shd.cache_shardings(t, mesh))
     decode = lm_steps.make_decode_step(cfg)
     _sync(dev)
     setup_s = time.perf_counter() - t0
@@ -305,27 +345,38 @@ def serve_lm(args, params=None):
     prompts = rng.integers(0, cfg.vocab, (args.batch, args.prompt_len),
                            dtype=np.int32)
     prompts = torch.from_numpy(prompts).to(dev)
-    tok = prompts[:, 0]
+
+    def token(t):
+        return laid(t, lambda x: shd.batch_shardings(x, mesh))
+
+    tok = token(prompts[:, 0])
     t0 = time.perf_counter()
     for pos in range(args.prompt_len - 1):
         _, _, cache = decode(params, tok, cache, pos)
-        tok = prompts[:, pos + 1]
+        tok = token(prompts[:, pos + 1])
     _sync(dev)
     prompt_s = time.perf_counter() - t0
     out = []
     t0 = time.perf_counter()
     for g in range(args.gen):
-        tok, _, cache = decode(params, tok, cache, args.prompt_len + g)
-        out.append(tok)
+        tok, step_logits, cache = decode(params, tok, cache,
+                                         args.prompt_len + g)
+        out.append(shd.whole(tok))
+        if logits is not None:
+            logits.append(shd.whole(step_logits))
     gen = torch.stack(out, 1).cpu().numpy()
     gen_s = max(time.perf_counter() - t0, 1e-9)
     n = args.batch * args.gen
-    print(f"{name}: {cfg.name} ({cfg.n_layers} layers, {cfg.dtype}): set "
-          f"up in {setup_s:.2f}s; prompt of {args.prompt_len} through "
-          f"decode in {prompt_s:.2f}s; generated {gen.shape} tokens in "
-          f"{gen_s:.2f}s ({n / gen_s:.1f} tok/s, "
-          f"{1e3 * gen_s / args.gen:.2f} ms a step, batch={args.batch})")
-    print(gen)
+    if lead:
+        over = ("" if mesh is None else
+                f", mesh {dict(mesh.shape)} over {mesh.size} devices")
+        print(f"{name}: {cfg.name} ({cfg.n_layers} layers, {cfg.dtype}"
+              f"{over}): set up in {setup_s:.2f}s; prompt of "
+              f"{args.prompt_len} through decode in {prompt_s:.2f}s; "
+              f"generated {gen.shape} tokens in {gen_s:.2f}s "
+              f"({n / gen_s:.1f} tok/s, {1e3 * gen_s / args.gen:.2f} ms a "
+              f"step, batch={args.batch})")
+        print(gen)
     return gen
 
 

@@ -6,11 +6,14 @@
     prefill_fn(cfg, params, batch)          -> last-position logits
     decode_fn(cfg, params, tok, cache, pos) -> (logits, cache)
     make_cache(cfg, params, batch, len)     -> cache
+    input_specs(cfg, seq_len, batch, kind)  -> batch on ``meta``
+    cache_specs(cfg, batch, cache_len)      -> cache on ``meta``
 
 Batches are dicts of tensors:  dense/moe/ssm/hybrid: {tokens (B,S+1)};
 vlm: {patches (B,P,D), tokens (B,S+1)};  audio: {frames (B,T,D),
-tokens (B,S+1)}.  Labels are tokens shifted by one.  The dry-run's
-shape-only stand-ins (``input_specs``, ``cache_specs``) are not ported.
+tokens (B,S+1)}.  Labels are tokens shifted by one.  The dry run's
+stand-ins are tensors on the ``meta`` device (shapes and dtypes, no
+storage), as ``init(None, cfg, "meta")`` gives the params'.
 """
 from __future__ import annotations
 
@@ -30,7 +33,8 @@ AUX_WEIGHT = 0.01
 
 def init(gen: torch.Generator, cfg: ArchConfig, device=None):
     """Random params drawn from ``gen``, on ``device`` (default: the
-    GPU)."""
+    GPU).  On ``"meta"`` nothing is drawn (``gen`` may be None): the
+    params' shapes and dtypes only."""
     if cfg.family == "audio":
         return whi.init_params(gen, cfg, device)
     return tfm.init_params(gen, cfg, device)
@@ -126,3 +130,42 @@ def decode_fn(cfg: ArchConfig, params, token, cache, pos: int):
     if cfg.family == "audio":
         return whi.decode_step(cfg, params, token, cache, pos)
     return tfm.decode_step(cfg, params, token, cache, pos)
+
+
+# ---------------------------------------------------------------------------
+# meta-device stand-ins for the dry run (no storage)
+# ---------------------------------------------------------------------------
+
+def input_specs(cfg: ArchConfig, seq_len: int, batch: int,
+                kind: str = "train") -> dict:
+    """The batch of one step of ``kind`` on the ``meta`` device."""
+    meta = dict(dtype=tfm.dtype_of(cfg), device="meta")
+    if kind in ("train", "prefill"):
+        b = {"tokens": torch.empty((batch, seq_len + 1), dtype=torch.int32,
+                                   device="meta")}
+        if cfg.family == "vlm":
+            b["patches"] = torch.empty(
+                (batch, cfg.prefix_tokens, cfg.d_model), **meta)
+        if cfg.family == "audio":
+            b["frames"] = torch.empty((batch, cfg.enc_seq, cfg.d_model),
+                                      **meta)
+        return b
+    # decode: one new token against a cache of seq_len
+    return {"token": torch.empty((batch,), dtype=torch.int32,
+                                 device="meta")}
+
+
+def cache_specs(cfg: ArchConfig, batch: int, cache_len: int):
+    """The decode cache of :func:`make_cache` on the ``meta`` device (the
+    audio arch's cross K/V at the encoder's length, as its encoder would
+    give them)."""
+    if cfg.family != "audio":
+        return tfm.init_cache(cfg, batch, cache_len, "meta")
+    meta = dict(dtype=tfm.dtype_of(cfg), device="meta")
+    self_kv = (batch, cache_len, cfg.n_kv, cfg.hd)
+    cross_kv = (batch, cfg.enc_seq, cfg.n_kv, cfg.hd)
+    return [{"k": torch.empty(self_kv, **meta),
+             "v": torch.empty(self_kv, **meta),
+             "xk": torch.empty(cross_kv, **meta),
+             "xv": torch.empty(cross_kv, **meta)}
+            for _ in range(cfg.n_layers)]

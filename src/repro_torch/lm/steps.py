@@ -116,10 +116,13 @@ def make_prefill_step(cfg: ArchConfig):
 
 def make_decode_step(cfg: ArchConfig):
     """-> decode_step(params, token, cache, pos) -> (next_token, logits,
-    cache).  Greedy sampling (argmax, the first of equal maxima)."""
+    cache).  Greedy sampling (argmax, the first of equal maxima); under a
+    mesh over the whole vocab on every model rank (the logits' vocab dim
+    gathered first)."""
     @torch.no_grad()
     def decode_step(params, token, cache, pos: int):
         logits, cache = zoo.decode_fn(cfg, params, token, cache, pos)
+        logits = shd.constrain(logits, "dp", None)
         nxt = torch.argmax(logits, dim=-1).to(torch.int32)
         return nxt, logits, cache
     return decode_step

@@ -13,8 +13,10 @@ counterpart of ``jax.checkpoint``): its activations are recomputed in the
 backward, so the layer's kernels run twice a training step.  Prefill and
 decode run without grad and are unchanged.  Between blocks the
 activations are constrained (``dist.sharding.constrain``: batch over
-``dp``, the sequence over ``sp`` where ``cfg.seq_shard_blocks``), which
-lays DTensors out under a mesh and leaves plain tensors as they are.
+``dp``, the sequence over ``sp`` where ``cfg.seq_shard_blocks``), and a
+block's normed input is gathered whole along the sequence before its
+products (``gather_seq``), which lays DTensors out under a mesh and
+leaves plain tensors as they are.
 """
 from __future__ import annotations
 
@@ -22,7 +24,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
-from ..dist.sharding import carry, constrain
+from ..dist.sharding import (carry, constrain, gather_seq, like, lookup,
+                             pin_grad)
 from ..nn import attention as attn
 from ..nn import layers as nnl
 from ..nn import moe as nnmoe
@@ -95,7 +98,7 @@ def apply_layer(cfg: ArchConfig, i: int, p: dict, x, positions,
     """Full-sequence (train/prefill) layer.  Returns (x, aux_loss)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     mixer_kind = cfg.mixer_of(i)
-    h = nnl.apply_norm(cfg.norm, x, p["norm1"])
+    h = gather_seq(nnl.apply_norm(cfg.norm, x, p["norm1"]))
     if mixer_kind == "attn":
         m = attn.causal_attention(p["mixer"], h, cfg.n_heads, cfg.n_kv,
                                   cfg.hd, positions, cfg.rope_theta,
@@ -111,9 +114,9 @@ def apply_layer(cfg: ArchConfig, i: int, p: dict, x, positions,
         m = nnr.rglru_apply(p["mixer"], h)
     else:
         raise ValueError(mixer_kind)
-    x = x + m
+    x = x + _residual(cfg, m)
     if "ffn" in p:
-        h = nnl.apply_norm(cfg.norm, x, p["norm2"])
+        h = gather_seq(nnl.apply_norm(cfg.norm, x, p["norm2"]))
         if cfg.ffn_of(i) == "moe":
             y, aux = nnmoe.moe_apply(p["ffn"], h, cfg.moe_experts,
                                      cfg.moe_top_k, cfg.act,
@@ -121,8 +124,17 @@ def apply_layer(cfg: ArchConfig, i: int, p: dict, x, positions,
                                      cfg.moe_shard)
         else:
             y = nnl.mlp_apply(p["ffn"], h, cfg.act)
-        x = x + y
+        x = x + _residual(cfg, y)
     return x, aux
+
+
+def _residual(cfg: ArchConfig, x):
+    """``x`` in the residual stream's layout between blocks: batch over
+    ``dp``, the sequence over ``sp`` where ``cfg.seq_shard_blocks`` (a
+    block's output reduce-scattered along the sequence, as Megatron's
+    sequence parallelism does; its gradient comes back in the layout the
+    block's products made)."""
+    return constrain(x, "dp", "sp" if cfg.seq_shard_blocks else None, None)
 
 
 def remat(cfg: ArchConfig, fn, *args):
@@ -143,7 +155,7 @@ def _scale(cfg: ArchConfig, x):
 
 def _head(params: dict, x):
     head = params.get("lm_head")
-    return x @ (params["embed"].T if head is None else head)
+    return x @ (pin_grad(params["embed"]).T if head is None else head)
 
 
 def forward(cfg: ArchConfig, params: dict, tokens=None, embeds=None,
@@ -153,7 +165,7 @@ def forward(cfg: ArchConfig, params: dict, tokens=None, embeds=None,
     ``head_last_only``: inference prefill — project only the final
     position (avoids materializing (B, S, V) logits)."""
     assert tokens is not None or embeds is not None
-    x = _scale(cfg, params["embed"][tokens.long()] if embeds is None
+    x = _scale(cfg, lookup(params["embed"], tokens.long()) if embeds is None
                else embeds)
     prefix_len = 0
     if prefix_embeds is not None:
@@ -164,14 +176,13 @@ def forward(cfg: ArchConfig, params: dict, tokens=None, embeds=None,
                              device=x.device).expand(b, s)
 
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    sp = "sp" if cfg.seq_shard_blocks else None
-    x = constrain(x, "dp", sp, None)
+    x = _residual(cfg, x)
     for i, lp in enumerate(params["layers"]):
         x, aux = remat(cfg, apply_layer, cfg, i, lp, x, positions,
                        prefix_len)
-        x = constrain(x, "dp", sp, None)
+        x = _residual(cfg, x)
         aux_total = aux_total + aux
-    x = nnl.apply_norm(cfg.norm, x, params["final_norm"])
+    x = gather_seq(nnl.apply_norm(cfg.norm, x, params["final_norm"]))
     if head_last_only:
         x = x[:, -1:, :]
     return _head(params, x), aux_total
@@ -225,9 +236,11 @@ def decode_step(cfg: ArchConfig, params: dict, token, caches: list,
                 pos: int):
     """token (B,) int; pos the current position (an int).  Returns
     (logits (B, V), new caches); attention caches are updated in place
-    (``nn.attention.decode_attention``)."""
+    (``nn.attention.decode_attention``).  Under a mesh (DTensor params,
+    token and caches laid out by ``dist.sharding.cache_shardings``) the
+    new recurrent states come back in their caches' layout."""
     pos = int(pos)
-    x = _scale(cfg, params["embed"][token.long()][:, None, :])  # (B,1,D)
+    x = _scale(cfg, lookup(params["embed"], token.long())[:, None, :])
     new_caches = []
     for i, (lp, c) in enumerate(zip(params["layers"], caches)):
         kind = cfg.mixer_of(i)
@@ -248,15 +261,16 @@ def decode_step(cfg: ArchConfig, params: dict, token, caches: list,
                     cfg.n_kv, cfg.hd, cfg.rope_theta, window=window,
                     softcap=cfg.logits_softcap)
                 new_caches.append({"k": nk, "v": nv})
-        elif kind == "ssd":
-            m, st, cv = nnssm.ssd_decode(lp["mixer"], h, c["state"],
-                                         c["conv"], cfg.ssm_state,
-                                         cfg.ssm_expand, cfg.ssm_headdim)
-            new_caches.append({"state": st, "conv": cv})
-        else:  # rglru
-            m, st, cv = nnr.rglru_decode(lp["mixer"], h, c["state"],
-                                         c["conv"])
-            new_caches.append({"state": st, "conv": cv})
+        else:
+            if kind == "ssd":
+                m, st, cv = nnssm.ssd_decode(lp["mixer"], h, c["state"],
+                                             c["conv"], cfg.ssm_state,
+                                             cfg.ssm_expand, cfg.ssm_headdim)
+            else:  # rglru
+                m, st, cv = nnr.rglru_decode(lp["mixer"], h, c["state"],
+                                             c["conv"])
+            new_caches.append({"state": like(st, c["state"]),
+                               "conv": like(cv, c["conv"])})
         x = x + m
         if "ffn" in lp:
             h = nnl.apply_norm(cfg.norm, x, lp["norm2"])

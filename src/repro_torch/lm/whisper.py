@@ -8,13 +8,15 @@ sinusoidal positions.  Decoder: causal self-attn + cross-attn per layer,
 sinusoidal positions, full softmax vocab 51866.  With ``cfg.remat`` and
 grad enabled each encoder and decoder layer runs under
 ``torch.utils.checkpoint``, as ``jax.checkpoint`` wraps them in the JAX
-package.
+package.  Under a mesh each layer's input is laid out batch over the data
+axes, whole along the sequence (``dist.sharding.gather_seq``).
 """
 from __future__ import annotations
 
 import torch
 
 from ..device import resolve_device
+from ..dist import sharding as shd
 from ..nn import attention as attn
 from ..nn import layers as nnl
 from .config import ArchConfig
@@ -30,6 +32,13 @@ def sinusoid(s: int, d: int, dtype, device, start: int = 0) -> torch.Tensor:
     dim = torch.arange(d // 2, dtype=torch.float32, device=device)[None, :]
     ang = pos / torch.pow(10000.0, 2 * dim / d)
     return torch.cat([torch.sin(ang), torch.cos(ang)], -1).to(dtype)
+
+
+def _positions(x, s: int, d: int, start: int = 0):
+    """The (1, s, d) sinusoid rows [start, start + s) in ``x``'s dtype,
+    replicated on ``x``'s mesh where ``x`` is a DTensor."""
+    return shd.replicated_like(
+        sinusoid(s, d, x.dtype, x.device, start=start)[None], x)
 
 
 def init_params(gen: torch.Generator, cfg: ArchConfig, device=None) -> dict:
@@ -61,11 +70,10 @@ def init_params(gen: torch.Generator, cfg: ArchConfig, device=None) -> dict:
 
 def encode(cfg: ArchConfig, params, frames):
     """frames (B, T, D) stubbed conv-frontend output -> encoder states."""
-    x = frames + sinusoid(frames.shape[1], cfg.d_model, frames.dtype,
-                          frames.device)[None]
+    x = frames + _positions(frames, frames.shape[1], cfg.d_model)
     for lp in params["enc_layers"]:
-        x = remat(cfg, _enc_layer, cfg, lp, x)
-    return nnl.apply_norm("ln", x, params["enc_norm"])
+        x = remat(cfg, _enc_layer, cfg, lp, shd.gather_seq(x))
+    return shd.gather_seq(nnl.apply_norm("ln", x, params["enc_norm"]))
 
 
 def _enc_layer(cfg: ArchConfig, lp, x):
@@ -92,17 +100,18 @@ def forward(cfg: ArchConfig, params, frames, tokens,
             head_last_only: bool = False):
     """-> (logits (B, S, V), aux=0)."""
     enc = encode(cfg, params, frames)
-    x = params["embed"][tokens.long()]
+    x = shd.lookup(params["embed"], tokens.long())
     b, s, _ = x.shape
-    x = x + sinusoid(s, cfg.d_model, x.dtype, x.device)[None]
+    x = x + _positions(x, s, cfg.d_model)
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device).expand(b, s)
     for lp in params["dec_layers"]:
-        x = remat(cfg, _dec_layer, cfg, lp, x, enc, positions)
-    x = nnl.apply_norm("ln", x, params["dec_norm"])
+        x = remat(cfg, _dec_layer, cfg, lp, shd.gather_seq(x), enc,
+                  positions)
+    x = shd.gather_seq(nnl.apply_norm("ln", x, params["dec_norm"]))
     if head_last_only:
         x = x[:, -1:, :]
-    return (x @ params["embed"].T,
+    return (x @ shd.pin_grad(params["embed"]).T,
             torch.zeros((), dtype=torch.float32, device=x.device))
 
 
@@ -129,9 +138,8 @@ def decode_step(cfg: ArchConfig, params, token, caches, pos: int):
     """token (B,) int; pos an int.  -> (logits (B, V), caches), the
     self-attention caches updated in place."""
     pos = int(pos)
-    x = params["embed"][token.long()][:, None, :]
-    x = x + sinusoid(1, cfg.d_model, x.dtype, x.device,
-                     start=pos % DECODE_POSITIONS)[None]
+    x = shd.lookup(params["embed"], token.long())[:, None, :]
+    x = x + _positions(x, 1, cfg.d_model, pos % DECODE_POSITIONS)
     new_caches = []
     for lp, c in zip(params["dec_layers"], caches):
         h = nnl.apply_norm("ln", x, lp["norm1"])

@@ -22,8 +22,10 @@ raises; on a CPU tensor its wrapper runs ``attention_ref``.
 
 Under a mesh (``dist.sharding.use_mesh``, DTensor activations) q, k and v
 are laid out by ``constrain_heads`` (batch over the data axes, heads over
-``model`` where the count divides it), and the kernel runs on each rank's
-local shard (``dist.sharding.local_call``).
+``model`` where the count divides it), and every core, the kernel and
+the plain route alike, runs on each rank's local shard (:func:`_attend`,
+``dist.sharding.local_call``).  Decode's in-place cache writes go to each
+rank's shard of the DTensor caches (``dist.sharding.write_slot``).
 """
 from __future__ import annotations
 
@@ -65,6 +67,14 @@ def attn_params(gen, d: int, n_heads: int, n_kv: int, head_dim: int,
     return p
 
 
+def _heads(t, n: int, head_dim: int):
+    """(B, S, n·Dh) -> (B, S, n, Dh); under a mesh laid out by
+    ``constrain_heads`` (a head count the model axis does not divide is
+    gathered whole before the split)."""
+    t = shd.constrain_heads_flat(t, n)
+    return shd.constrain_heads(t.reshape(*t.shape[:2], n, head_dim), n)
+
+
 def _project_qkv(p, x, n_heads, n_kv, head_dim, positions, theta,
                  use_rope=True):
     b, s, _ = x.shape
@@ -73,9 +83,8 @@ def _project_qkv(p, x, n_heads, n_kv, head_dim, positions, theta,
     v = x @ p["wv"]
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = shd.constrain_heads(q.reshape(b, s, n_heads, head_dim), n_heads)
-    k = shd.constrain_heads(k.reshape(b, s, n_kv, head_dim), n_kv)
-    v = shd.constrain_heads(v.reshape(b, s, n_kv, head_dim), n_kv)
+    q, k, v = (_heads(q, n_heads, head_dim), _heads(k, n_kv, head_dim),
+               _heads(v, n_kv, head_dim))
     if use_rope:
         q = rope(q, positions, theta)
         k = rope(k, positions, theta)
@@ -97,41 +106,37 @@ def _gqa_scores(q, k, scale):
     return torch.einsum("bshgd,bthd->bhgst", qg.float(), k.float())
 
 
-def _gqa_out(probs, v, b, s, h, dh):
-    """probs (B,Hkv,G,S,T), v (B,T,Hkv,Dh) -> (B,S,H*Dh)."""
+def _gqa_out(probs, v):
+    """probs (B,Hkv,G,S,T), v (B,T,Hkv,Dh) -> (B,S,H,Dh)."""
+    b, hkv, g, s, _ = probs.shape
     o = torch.einsum("bhgst,bthd->bshgd", probs, v)
-    return o.reshape(b, s, h * dh)
+    return o.reshape(b, s, hkv * g, v.shape[-1])
 
 
 def _softmax(scores, dtype):
     return torch.softmax(scores, dim=-1).to(dtype)
 
 
-def _flash(q, k, v, causal: bool):
-    """q (B,S,H,Dh), k/v (B,S,Hkv,Dh) -> (B,S,H*Dh) through the kernel's
-    (B, H, S, D) layout."""
+def _attend(core, q, k, v):
+    """``core(q, k, v)`` -> (B, S, H, Dh) on plain tensors q (B, S, H, Dh)
+    and k, v (B, T, Hkv, Dh); -> (B, S, H·Dh).
+
+    On DTensors (laid out by ``constrain_heads``) the core runs on each
+    rank's shards (``dist.sharding.local_call``): batch over the data
+    axes, heads over ``model`` where the count divides it.  Where the
+    query heads split and too few KV heads to split are replicated, each
+    rank keeps the KV heads its query heads read (their grads come back
+    as partial sums).  So neither a kernel nor a GQA grouping nor the
+    merge of the heads ever sees a DTensor, whose view rules cannot merge
+    two split dims (torch 2.11) nor split an unevenly split one."""
     b, s, h, dh = q.shape
-    if shd.is_dtensor(q):
-        return _flash_sharded(q, k, v, causal).reshape(b, s, h * dh)
-    return _flash_local(q, k, v, causal).reshape(b, s, h * dh)
-
-
-def _flash_local(q, k, v, causal: bool):
-    """(B,S,H,Dh) plain tensors -> the kernel's output (B,S,H,Dh)."""
-    o = flash_attention(*(t.transpose(1, 2).contiguous() for t in (q, k, v)),
-                        causal=causal)
-    return o.transpose(1, 2)
-
-
-def _flash_sharded(q, k, v, causal: bool):
-    """The kernel on each rank's shard of DTensors q, k, v laid out by
-    ``constrain_heads``.  Where the query heads are split over ``model``
-    and too few KV heads to split are replicated, each rank keeps the KV
-    heads its query heads read (their grads come back as partial sums)."""
+    if not shd.is_dtensor(q):
+        return core(q, k, v).reshape(b, s, h * dh)
     phys, sizes = shd.physical()
-    h, hkv = q.shape[2], k.shape[2]
-    qs = shd.heads_spec(phys, sizes, h)
-    ks = shd.heads_spec(phys, sizes, hkv)
+    mesh = shd.active_mesh()
+    hkv = k.shape[2]
+    qs = shd.fit_spec(shd.heads_spec(phys, sizes, h), q.shape, mesh)
+    ks = shd.fit_spec(shd.heads_spec(phys, sizes, hkv), k.shape, mesh)
     kv = slice(None)
     if qs[2] is not None and ks[2] is None:
         hl, g = h // shd.axis_size(qs[2]), h // hkv
@@ -142,9 +147,48 @@ def _flash_sharded(q, k, v, causal: bool):
         kv = slice(first // g, (first + hl - 1) // g + 1)
 
     def run(ql, kl, vl):
-        return _flash_local(ql, kl[:, :, kv], vl[:, :, kv], causal)
-    return shd.local_call(run, (q, k, v), (qs, ks, ks), (qs,),
-                          (tuple(q.shape),))
+        o = core(ql, kl[:, :, kv], vl[:, :, kv])
+        return o.reshape(*o.shape[:2], o.shape[2] * dh)
+    # the heads merged on each rank: the output's last dim split where
+    # the heads are, its gradient handed back in that layout
+    return shd.local_call(run, (q, k, v), (qs, ks, ks),
+                          ((qs[0], None, qs[2]),), ((b, s, h * dh),))
+
+
+def _flash_local(q, k, v, causal: bool):
+    """(B,S,H,Dh) plain tensors -> the kernel's output (B,S,H,Dh), through
+    its (B, H, S, D) layout."""
+    o = flash_attention(*(t.transpose(1, 2).contiguous() for t in (q, k, v)),
+                        causal=causal)
+    return o.transpose(1, 2)
+
+
+def _flash(q, k, v, causal: bool):
+    """q (B,S,H,Dh), k/v (B,S,Hkv,Dh) -> (B,S,H*Dh) through the kernel."""
+    return _attend(lambda ql, kl, vl: _flash_local(ql, kl, vl, causal),
+                   q, k, v)
+
+
+def _plain(q, k, v, dtype, mask=None, softcap: float = 0.0):
+    """The plain softmax(q·kᵀ)·v core: q (B,S,H,Dh), k, v (B,T,Hkv,Dh) ->
+    (B,S,H,Dh); ``mask(scores)`` -> where scores stay (else NEG)."""
+    scores = _gqa_scores(q, k, q.shape[-1] ** -0.5)     # (B,Hkv,G,S,T)
+    if softcap > 0:
+        scores = torch.tanh(scores / softcap) * softcap
+    if mask is not None:
+        scores = torch.where(mask(scores), scores, NEG)
+    return _gqa_out(_softmax(scores, dtype), v)
+
+
+def _chunked(block, s: int):
+    """``block(q0, q1)`` over the query axis: whole up to CHUNK_Q_ABOVE,
+    else in N_Q_CHUNKS chunks concatenated."""
+    if s <= CHUNK_Q_ABOVE:
+        return block(0, s)
+    assert s % N_Q_CHUNKS == 0
+    qlen = s // N_Q_CHUNKS
+    return torch.cat([block(i * qlen, (i + 1) * qlen)
+                      for i in range(N_Q_CHUNKS)], dim=1)
 
 
 def causal_attention(p, x, n_heads, n_kv, head_dim, positions, theta,
@@ -154,37 +198,23 @@ def causal_attention(p, x, n_heads, n_kv, head_dim, positions, theta,
     PaliGemma's image tokens attend fully within the prefix).  The plain
     route processes the query axis in N_Q_CHUNKS chunks for S >
     CHUNK_Q_ABOVE, each against the keys up to its end."""
-    b, s, d = x.shape
     q, k, v = _project_qkv(p, x, n_heads, n_kv, head_dim, positions, theta,
                            use_rope)
     if attention_route("causal", head_dim, prefix_len, softcap) == "flash":
         return _flash(q, k, v, causal=True) @ p["wo"]
-    scale = head_dim ** -0.5
 
-    def block(qc, q0, t_hi):
-        """q chunk (B, QC, H, Dh) at offset q0 vs. keys [0, t_hi)."""
-        qc_len = qc.shape[1]
-        scores = _gqa_scores(qc, k[:, :t_hi], scale)   # (B,Hkv,G,QC,T')
-        if softcap > 0:
-            scores = torch.tanh(scores / softcap) * softcap
-        rows = q0 + torch.arange(qc_len, device=x.device)[:, None]
-        cols = torch.arange(t_hi, device=x.device)[None, :]
-        mask = rows >= cols
-        if prefix_len > 0:
-            mask = mask | ((rows < prefix_len) & (cols < prefix_len))
-        scores = torch.where(shd.replicated_like(mask, scores), scores, NEG)
-        return _gqa_out(_softmax(scores, x.dtype), v[:, :t_hi], b, qc_len,
-                        n_heads, head_dim)
-
-    if s <= CHUNK_Q_ABOVE:
-        o = block(q, 0, s)
-    else:
-        nc = N_Q_CHUNKS
-        assert s % nc == 0
-        qlen = s // nc
-        o = torch.cat([block(q[:, i * qlen:(i + 1) * qlen], i * qlen,
-                             (i + 1) * qlen) for i in range(nc)], dim=1)
-    return o @ p["wo"]
+    def core(q, k, v):
+        def block(q0, q1):
+            """queries [q0, q1) vs. keys [0, q1)."""
+            rows = torch.arange(q0, q1, device=q.device)[:, None]
+            cols = torch.arange(q1, device=q.device)[None, :]
+            mask = rows >= cols
+            if prefix_len > 0:
+                mask = mask | ((rows < prefix_len) & (cols < prefix_len))
+            return _plain(q[:, q0:q1], k[:, :q1], v[:, :q1], x.dtype,
+                          lambda _: mask, softcap)
+        return _chunked(block, q.shape[1])
+    return _attend(core, q, k, v) @ p["wo"]
 
 
 def local_attention(p, x, n_heads, n_kv, head_dim, positions, theta,
@@ -199,83 +229,70 @@ def local_attention(p, x, n_heads, n_kv, head_dim, positions, theta,
     assert s % w == 0, "local attention needs seq divisible by window"
     nb = s // w
     q, k, v = _project_qkv(p, x, n_heads, n_kv, head_dim, positions, theta)
-    hkv = n_kv
-    g = n_heads // n_kv
-    scale = head_dim ** -0.5
-    qb = _scaled(q, scale).reshape(b, nb, w, hkv, g, head_dim)
-    kb = k.reshape(b, nb, w, hkv, head_dim)
-    vb = v.reshape(b, nb, w, hkv, head_dim)
-    # keys for block i: [block i-1 ++ block i]  (block 0 pads with zeros)
-    kprev = torch.cat([torch.zeros_like(kb[:, :1]), kb[:, :-1]], dim=1)
-    vprev = torch.cat([torch.zeros_like(vb[:, :1]), vb[:, :-1]], dim=1)
-    k2 = torch.cat([kprev, kb], dim=2)                  # (B,nb,2w,Hkv,Dh)
-    v2 = torch.cat([vprev, vb], dim=2)
-    scores = torch.einsum("bnshgd,bnthd->bnhgst", qb.float(), k2.float())
-    dev = x.device
-    rows = torch.arange(w, device=dev)[:, None]         # in-block q pos
-    cols = torch.arange(2 * w, device=dev)[None, :] - w  # key offset
-    mask = (cols <= rows) & (cols > rows - w)           # causal, window w
-    first = torch.arange(nb, device=dev)[:, None, None] == 0
-    mask_b = mask[None, :, :] & (~first | (cols[None] >= 0))
-    scores = torch.where(
-        shd.replicated_like(mask_b[None, :, None, None, :, :], scores),
-        scores, NEG)
-    o = torch.einsum("bnhgst,bnthd->bnshgd", _softmax(scores, x.dtype), v2)
-    return o.reshape(b, s, n_heads * head_dim) @ p["wo"]
+
+    def core(q, k, v):
+        b, _, h, dh = q.shape
+        hkv = k.shape[2]
+        qb = _scaled(q, dh ** -0.5).reshape(b, nb, w, hkv, h // hkv, dh)
+        kb = k.reshape(b, nb, w, hkv, dh)
+        vb = v.reshape(b, nb, w, hkv, dh)
+        # keys for block i: [block i-1 ++ block i] (block 0 pads with 0)
+        kprev = torch.cat([torch.zeros_like(kb[:, :1]), kb[:, :-1]], dim=1)
+        vprev = torch.cat([torch.zeros_like(vb[:, :1]), vb[:, :-1]], dim=1)
+        k2 = torch.cat([kprev, kb], dim=2)              # (B,nb,2w,Hkv,Dh)
+        v2 = torch.cat([vprev, vb], dim=2)
+        scores = torch.einsum("bnshgd,bnthd->bnhgst", qb.float(),
+                              k2.float())
+        dev = q.device
+        rows = torch.arange(w, device=dev)[:, None]         # in-block q pos
+        cols = torch.arange(2 * w, device=dev)[None, :] - w  # key offset
+        mask = (cols <= rows) & (cols > rows - w)           # causal, window
+        first = torch.arange(nb, device=dev)[:, None, None] == 0
+        mask_b = mask[None, :, :] & (~first | (cols[None] >= 0))
+        scores = torch.where(mask_b[None, :, None, None, :, :], scores, NEG)
+        o = torch.einsum("bnhgst,bnthd->bnshgd", _softmax(scores, x.dtype),
+                         v2)
+        return o.reshape(b, s, h, dh)
+    return _attend(core, q, k, v) @ p["wo"]
 
 
 def cross_attention(p, x, kv_feats, n_heads, n_kv, head_dim):
     """Whisper decoder cross-attention (no RoPE, no mask); q-chunked for
     long decoder sequences like causal_attention."""
-    b, s, d = x.shape
-    t = kv_feats.shape[1]
-    q = (x @ p["wq"]).reshape(b, s, n_heads, head_dim)
-    k = (kv_feats @ p["wk"]).reshape(b, t, n_kv, head_dim)
-    v = (kv_feats @ p["wv"]).reshape(b, t, n_kv, head_dim)
+    q = _heads(x @ p["wq"], n_heads, head_dim)
+    k, v = cross_kv(p, kv_feats, n_kv, head_dim)
 
-    def block(qc):
-        scores = _gqa_scores(qc, k, head_dim ** -0.5)
-        return _gqa_out(_softmax(scores, x.dtype), v, b, qc.shape[1],
-                        n_heads, head_dim)
-
-    if s <= CHUNK_Q_ABOVE:
-        o = block(q)
-    else:
-        qlen = s // N_Q_CHUNKS
-        o = torch.cat([block(q[:, i * qlen:(i + 1) * qlen])
-                       for i in range(N_Q_CHUNKS)], dim=1)
-    return o @ p["wo"]
+    def core(q, k, v):
+        return _chunked(lambda q0, q1: _plain(q[:, q0:q1], k, v, x.dtype),
+                        q.shape[1])
+    return _attend(core, q, k, v) @ p["wo"]
 
 
 def decode_cross_attention(p, x, cross_k, cross_v, n_heads, n_kv,
                            head_dim):
     """Decoder cross-attention against precomputed encoder K/V
     (cross_k/v (B, T, Hkv, Dh), computed once per request at prefill)."""
-    b = x.shape[0]
-    q = (x @ p["wq"]).reshape(b, 1, n_heads, head_dim)
-    scores = _gqa_scores(q, cross_k, head_dim ** -0.5)
-    o = _gqa_out(_softmax(scores, x.dtype), cross_v, b, 1, n_heads, head_dim)
+    q = _heads(x @ p["wq"], n_heads, head_dim)
+    o = _attend(lambda q, k, v: _plain(q, k, v, x.dtype), q, cross_k,
+                cross_v)
     return o @ p["wo"]
 
 
 def cross_kv(p, kv_feats, n_kv, head_dim):
     """Precompute encoder K/V for decode."""
-    b, t, _ = kv_feats.shape
-    k = (kv_feats @ p["wk"]).reshape(b, t, n_kv, head_dim)
-    v = (kv_feats @ p["wv"]).reshape(b, t, n_kv, head_dim)
+    k = _heads(kv_feats @ p["wk"], n_kv, head_dim)
+    v = _heads(kv_feats @ p["wv"], n_kv, head_dim)
     return k, v
 
 
 def bidir_attention(p, x, n_heads, n_kv, head_dim):
     """Encoder self-attention (Whisper encoder): full bidirectional."""
-    b, s, d = x.shape
-    q = (x @ p["wq"]).reshape(b, s, n_heads, head_dim)
-    k = (x @ p["wk"]).reshape(b, s, n_kv, head_dim)
-    v = (x @ p["wv"]).reshape(b, s, n_kv, head_dim)
+    q = _heads(x @ p["wq"], n_heads, head_dim)
+    k = _heads(x @ p["wk"], n_kv, head_dim)
+    v = _heads(x @ p["wv"], n_kv, head_dim)
     if attention_route("bidir", head_dim) == "flash":
         return _flash(q, k, v, causal=False) @ p["wo"]
-    scores = _gqa_scores(q, k, head_dim ** -0.5)
-    o = _gqa_out(_softmax(scores, x.dtype), v, b, s, n_heads, head_dim)
+    o = _attend(lambda q, k, v: _plain(q, k, v, x.dtype), q, k, v)
     return o @ p["wo"]
 
 
@@ -303,18 +320,20 @@ def decode_attention(p, x, cache_k, cache_v, pos: int, n_heads, n_kv,
     (local attention).  ``k_scale``/``v_scale`` (B, T, Hkv) -> the cache
     is int8-quantized per (token, head), dequantized in the model dtype
     before the scores.  A slot past the cache's end writes its last row,
-    as ``dynamic_update_slice`` clamps its start.
+    as ``dynamic_update_slice`` clamps its start.  Under a mesh the
+    caches are DTensors laid out by ``dist.sharding.cache_shardings`` and
+    each rank writes its own shard (``dist.sharding.write_slot``).
     """
     b = x.shape[0]
     t = cache_k.shape[1]
     quant = k_scale is not None
-    q = (x @ p["wq"]).reshape(b, 1, n_heads, head_dim)
-    k = (x @ p["wk"]).reshape(b, 1, n_kv, head_dim)
-    v = (x @ p["wv"]).reshape(b, 1, n_kv, head_dim)
+    q = _heads(x @ p["wq"], n_heads, head_dim)
+    k = _heads(x @ p["wk"], n_kv, head_dim)
+    v = _heads(x @ p["wv"], n_kv, head_dim)
     if "bq" in p:
-        q = q + p["bq"].reshape(1, 1, n_heads, head_dim)
-        k = k + p["bk"].reshape(1, 1, n_kv, head_dim)
-        v = v + p["bv"].reshape(1, 1, n_kv, head_dim)
+        q = q + _heads(p["bq"].reshape(1, 1, -1), n_heads, head_dim)
+        k = k + _heads(p["bk"].reshape(1, 1, -1), n_kv, head_dim)
+        v = v + _heads(p["bv"].reshape(1, 1, -1), n_kv, head_dim)
     if use_rope:
         posv = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
         q = rope(q, posv, theta)
@@ -324,20 +343,21 @@ def decode_attention(p, x, cache_k, cache_v, pos: int, n_heads, n_kv,
     if quant:
         k8, ks = _quantize_kv(k)
         v8, vs = _quantize_kv(v)
-        cache_k[:, at], cache_v[:, at] = k8[:, 0], v8[:, 0]
-        k_scale[:, at], v_scale[:, at] = ks[:, 0], vs[:, 0]
+        for cache, new in ((cache_k, k8), (cache_v, v8), (k_scale, ks),
+                           (v_scale, vs)):
+            shd.write_slot(cache, at, new)
         kf = cache_k.to(x.dtype) * k_scale[..., None].to(x.dtype)
         vf = cache_v.to(x.dtype) * v_scale[..., None].to(x.dtype)
     else:
-        cache_k[:, at], cache_v[:, at] = k[:, 0], v[:, 0]
+        shd.write_slot(cache_k, at, k)
+        shd.write_slot(cache_v, at, v)
         kf, vf = cache_k, cache_v
-    scores = _gqa_scores(q, kf, head_dim ** -0.5)       # (B,Hkv,G,1,T)
-    if softcap > 0:
-        scores = torch.tanh(scores / softcap) * softcap
+    mask = None
     if not (window and pos >= t):
-        valid = torch.arange(t, device=x.device) <= slot
-        scores = torch.where(valid, scores, NEG)
-    o = _gqa_out(_softmax(scores, x.dtype), vf, b, 1, n_heads, head_dim)
+        def mask(scores):
+            return torch.arange(t, device=scores.device) <= slot
+    o = _attend(lambda q, k, v: _plain(q, k, v, x.dtype, mask, softcap),
+                q, kf, vf)
     if quant:
         return o @ p["wo"], cache_k, cache_v, k_scale, v_scale
     return o @ p["wo"], cache_k, cache_v

@@ -19,7 +19,10 @@ from ..dist import sharding as shd
 
 def normal(gen: torch.Generator, shape, std: float, dtype, device):
     """float32 N(0, std²) draws from ``gen``, cast to ``dtype`` on
-    ``device``."""
+    ``device``.  On the ``meta`` device (shapes only: the dry run's
+    stand-ins) nothing is drawn and ``gen`` may be None."""
+    if torch.device(device).type == "meta":
+        return torch.empty(tuple(shape), dtype=dtype, device="meta")
     x = torch.randn(tuple(shape), generator=gen, device=gen.device,
                     dtype=torch.float32)
     return x.mul_(std).to(device=device, dtype=dtype)

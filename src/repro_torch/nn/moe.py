@@ -154,8 +154,12 @@ def _moe_sharded(p, x, n_experts, top_k, act, capacity_factor, scheme,
     ye = shd.whole(_expert_ffn(p, buf, act))
     yt = (_dense_combine(ye, idx_k, gate_k) if scheme == "dense"
           else _combine(ye, idx_k, slot, gate_k))
+    # back in x's layout; a partial sum in x (decode's residual stream
+    # after a row-parallel product) is whole in y, so replicated there
+    from torch.distributed.tensor import Partial, Replicate
     y = shd.replicated_like(yt.reshape(b, s, d), x).redistribute(
-        x.device_mesh, x.placements)
+        x.device_mesh, [Replicate() if isinstance(pl, Partial) else pl
+                        for pl in x.placements])
     if "shared" in p:
         y = y + mlp_apply(p["shared"], x, act)
     return y, shd.replicated_like(aux, x)
