@@ -155,6 +155,21 @@ Phases, each timed, any failure exits non-zero:
      dry run's per-device flops × 256 over the mesh-free count of the same
      step, and ``memmodel`` of phase 9's olmo-1b step on a one-device mesh
      beside phase 9's measured peak (a ``planning`` line).
+ 12. the static analysis (``repro_torch.analysis``): ``python -m
+     repro_torch.analysis --strict --device cuda`` in a subprocess, which
+     runs the matrix (four families x two modes x the ``reference`` and
+     ``cuda`` FC backends at N = 96, the serving partial batch, the
+     one-rank sharded engine, the three entry kernels) on the CPU and on
+     the card and lints the kernel launches (K001–K005), the graphs
+     (M001), the operands (R001–R003), the plan caches (R004, both
+     devices) and the source (A001–A005); the run fails on an unsuppressed
+     error, on a card site that differs from its CPU-derived twin, on a
+     site whose shared memory by ``tiling.py`` or the analysis's copies
+     of the entry kernels' formulas differs from the built library's, and
+     on a family, an lpcn ``cuda`` target's FC kernel or
+     an entry kernel without sites.  An ``analysis`` line (targets, sites
+     by kernel and family, findings, wall time) beside the card's name
+     and power limit.
 
 Output lines: the card's name and power limit (nvidia-smi), phase times,
 ptxas's registers and spills per kernel (gather_mlp, hub_reuse,
@@ -183,8 +198,9 @@ backward layer (flash_attention's and ssd_chunk's), a ``train_wiring``
 line per config, a ``train`` line per full-width run (beside the card's
 name and power limit), a ``train_resume`` line per config, a
 ``train_other`` line per config, the
-trainer's own lines (``train: step N: ...``), ``train_parity``, a
-``kernels`` JSON
+trainer's own lines (``train: step N: ...``), ``train_parity``, the
+``mesh``, ``mesh_train``, ``serve_mesh``, ``planning`` and ``analysis``
+lines, a ``kernels`` JSON
 line (every TPU kernel's counterpart: the FC kernels batched and per
 cloud, gather_mlp's wide route, the entry kernels, and flash_attention
 and ssd_chunk at the LM prefills' inputs; ``launches`` counted per
@@ -3269,6 +3285,61 @@ def serve_mesh_phase(dev, seed, smi) -> list:
     return lines
 
 
+ANALYSIS_CLI = ("repro_torch.analysis", "--strict", "--device", "cuda")
+ANALYSIS_FAMILIES = ("pointnet2", "dgcnn", "pointnext", "pointvector")
+ANALYSIS_KERNELS = ("gather_mlp", "hub_reuse", "knn", "flash_attention",
+                    "ssd_chunk")
+
+
+def analysis_phase(smi) -> dict:
+    """Phase 12: the static analysis on the card, in a subprocess
+    (``ANALYSIS_CLI``); its report held to the phase's checks (see the
+    module docstring).  -> the ``analysis`` line."""
+    out = ROOT / "build" / "phase12" / "analysis.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    if out.exists():
+        out.unlink()
+    lines, wall = tool((*ANALYSIS_CLI, "--json", str(out)))
+    for line in lines:
+        if "[suppressed]" not in line:
+            log(f"analysis: {line}")
+    with open(out) as fh:
+        rep = json.load(fh)
+    s = rep["summary"]
+    check(s["strict_ok"] and s["errors"] == 0,
+          f"analysis: {s['errors']} unsuppressed errors")
+    m = re.search(r"(\d+) targets, (\d+) kernel sites", lines[-1])
+    check(m is not None, f"analysis: no summary line in {lines[-1:]}")
+    rows = rep["kernel_sites"]
+    check(bool(rows) and all(r["device"] == "cuda" for r in rows),
+          "analysis: the sites were not captured on the card")
+    check(all(r["matches_cpu"] for r in rows),
+          f"analysis: card sites differ from their CPU-derived twins: "
+          f"{[r['site'] for r in rows if not r['matches_cpu']]}")
+    check(all(r["smem_library"] == r["footprint_bytes"] for r in rows),
+          f"analysis: the formulas' shared memory differs from the "
+          f"library's at "
+          f"{[r['site'] for r in rows if r['smem_library'] != r['footprint_bytes']]}")
+    by_kernel = {k: sum(r["kernel"] == k for r in rows)
+                 for k in ANALYSIS_KERNELS}
+    by_family = {f: sum(r["family"] == f for r in rows)
+                 for f in ANALYSIS_FAMILIES}
+    check(all(by_kernel.values()) and all(by_family.values()),
+          f"analysis: a kernel or family without sites: {by_kernel} "
+          f"{by_family}")
+    for t in {r["target"] for r in rows if r["target"].endswith(
+            "lpcn/cuda")}:
+        kinds = {r["kernel"] for r in rows if r["target"] == t}
+        check(kinds == {"gather_mlp", "hub_reuse"},
+              f"analysis: {t} launched {kinds}")
+    return {"analysis": {
+        "targets": int(m.group(1)), "sites": int(m.group(2)),
+        "sites_by_kernel": by_kernel, "sites_by_family": by_family,
+        "findings": s["findings"], "errors": s["errors"],
+        "warnings": s["warnings"], "suppressed": s["suppressed"],
+        "wall_s": wall, "card": smi}}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3462,6 +3533,12 @@ def main() -> int:
     phases["planning_s"] = time.perf_counter() - t
     log(f"serve_mesh_s {phases['serve_mesh_s']:.2f}; planning_s "
         f"{phases['planning_s']:.2f}")
+
+    # ---- the static analysis: the matrix's launches on the card ---------
+    t = time.perf_counter()
+    log(json.dumps(analysis_phase(smi.splitlines()[0])))
+    phases["analysis_s"] = time.perf_counter() - t
+    log(f"analysis_s {phases['analysis_s']:.2f}")
 
     # the per-cloud entries (B = 1) are the same kernels: each wrapper
     # counts its kernel's launches whatever the shape

@@ -15,4 +15,6 @@ HW = dict(  # NVIDIA H100 SXM5 80 GB: the data sheet's peaks, not measured
     nvlink_bw=450e9,           # bytes/s per card, one direction (NVLink 4)
     hbm_bytes=80e9,            # 80 GB of HBM3 per card
     smem_bytes=227 * 1024,     # the most shared memory a block opts into
+    sms=132,                   # streaming multiprocessors (the tile plans'
+                               # input where no card is asked)
 )

@@ -1,0 +1,517 @@
+"""Kernel-site lint: K001–K005 over the launches a forward makes.
+
+The port's counterpart of ``repro.analysis.kernels``.  The JAX package
+reads each ``pallas_call``'s grid and index maps out of a jaxpr; a CUDA
+kernel has no such record, so a *site* here is one kernel call that a
+target's forward resolved (``repro_torch.kernels.plans.capture``: the
+kernel, its dims and the plan the wrapper resolved), and its launch is
+derived from the kernels' own formulas (``kernels/tiling.py`` for the
+two FC kernels, the copies below for the three entry kernels): the grid,
+which output tiles each block writes, the operands kept resident in
+shared memory, the route's preconditions and the shared memory a block
+takes.  Nothing here launches a kernel.  The plans use the card's SM
+count for a call that ran on the card and ``repro_torch.HW``'s H100
+count otherwise; on the card each built library also answers for its
+own launch, so the copies are held to the sources they copy.
+
+* **K001** — a block's shared memory by the formulas must fit the
+  kernel's limit (227 KB, less the static part where a kernel has one);
+  on the card it must also equal the built library's own count
+  (``gather_mlp_smem_bytes``, ``hub_reuse_smem_bytes``,
+  ``knn_smem_bytes``, ``flash_attention_layout``, ``ssd_chunk_plan``).
+* **K002** — each route's alignment precondition: the narrow row tile
+  holds whole 16-padded subsets, the wide route's F tiles are 64-column
+  multiples of at most 256, ``wgmma`` takes bf16 rows of 16 bytes, a
+  chunk is 64 or 128 cache rows, an SSD chunk at most 128 rows.
+* **K003** — the grid writes every output tile and no block writes
+  only outside the output or nothing, the splits of H and of the cache
+  rows cover them, and the plan that launched (captured on the card, or
+  reported there by the library: ``gather_mlp_wide_plan``, ``knn_plan``,
+  ``flash_attention_layout``'s tiles, ``ssd_chunk_plan``) equals the
+  derived one.
+* **K004** — an operand the plan keeps resident in shared memory (the
+  wide route's x tile where ``resident``, the narrow route's row tile of
+  x and h, hub_reuse's slot table) covers its array.
+* **K005** — no output tile is written by two blocks unless they differ
+  only along an axis the plan merges in order (the wide route's
+  ``nsplit`` second pass, ``hub_reuse``'s max over chunks): the kernels'
+  no-atomics contract.
+"""
+from __future__ import annotations
+
+import itertools
+import math
+from dataclasses import dataclass, field
+from typing import Callable
+
+from .. import HW
+from ..kernels import tiling
+from ..kernels.tiling import MAX_SMEM, SMEM_SM, round_up
+from .findings import Finding
+
+#: a kernel's static shared memory is set aside from a block's limit
+STATIC_SMEM = 1024
+#: grids past this many blocks are probed at their corners only
+MAX_PROBE = 1 << 17
+MERGE, PARALLEL = "merge", "parallel"
+
+
+@dataclass
+class OperandInfo:
+    """An operand (or a tile of one) a block keeps in shared memory."""
+    name: str
+    array_shape: tuple
+    block_shape: tuple
+    resident: bool
+
+
+@dataclass
+class KernelSite:
+    """One kernel call, its launch derived from the kernels' formulas."""
+    kernel: str
+    where: str
+    dims: dict
+    plan: dict                       # the plan the wrapper resolved
+    grid: tuple                      # blocks along each launch axis
+    semantics: tuple                 # PARALLEL or MERGE per grid axis
+    out_shape: tuple                 # the output, in tiles of out_block
+    out_block: tuple
+    out_map: Callable                # grid point -> the tiles it writes
+    smem: int
+    smem_limit: int = MAX_SMEM
+    smem_library: int | None = None  # the built library's count (card)
+    operands: list = field(default_factory=list)
+    preconditions: list = field(default_factory=list)   # (what, holds)
+    coverage: list = field(default_factory=list)        # (what, holds)
+    mismatch: list = field(default_factory=list)   # launched vs derived
+    launch: dict = field(default_factory=dict)     # the derived knobs
+
+    def points(self):
+        """Every grid point (corners only past :data:`MAX_PROBE`)."""
+        if math.prod(self.grid) <= MAX_PROBE:
+            return itertools.product(*(range(g) for g in self.grid))
+        return itertools.product(*(sorted({0, max(g - 1, 0)})
+                                   for g in self.grid))
+
+
+# ---- the entry kernels' launch formulas (csrc/knn.cu, flash_attention.cu,
+# ---- ssd_chunk.cu), copied as tiling.py copies the FC kernels' ------------
+
+KNN_WARPS, KNN_TILE, KNN_BUF = 8, 1024, 96
+KNN_SCRATCH_BUDGET = 256 << 20
+SSD_QMAX, SSD_ST, SSD_PT, SSD_MAX_HEADS = 128, 128, 64, 16
+FLASH_DMAX = 256
+
+
+def knn_plan(s: int, n: int, k: int, sms: int) -> dict:
+    """``knn.cu``'s ``make_plan``: warps a center ``w``, list registers a
+    lane ``r`` (0: lists in memory), the list length ``l`` and capacity,
+    center groups of ``8 // w``, the grid, shared memory and scratch."""
+    w_max = KNN_WARPS if k > 128 else 2
+    w = 1
+    while w < w_max and 2 * s * w <= 16 * sms and n >= 64 * w:
+        w *= 2
+    ln = (-(-n // w) + 31) // 32 * 32
+    kcap = min(k, ln)
+    r = (kcap + 31) // 32 if kcap <= 8 * 32 else 0
+    base = 4 * 10 * KNN_TILE + 8 * KNN_WARPS * KNN_BUF
+    lists = ((8 * KNN_WARPS * kcap if w > 1 else 0) if r > 0
+             else 16 * KNN_WARPS * kcap)
+    groups = -(-s // (KNN_WARPS // w))
+    if base + lists <= MAX_SMEM - STATIC_SMEM:
+        smem, grid, scratch = base + lists, groups, 0
+    else:
+        blocks = max(KNN_SCRATCH_BUDGET // lists, 1)
+        smem, grid = base, min(blocks, groups)
+        scratch = grid * lists
+    return dict(w=w, r=r, l=ln, kcap=kcap, groups=groups, grid=grid,
+                smem=smem, scratch=scratch)
+
+
+def flash_layout(route: str, dtype: str, d: int) -> dict:
+    """``flash_attention.cu``'s tiles for a route: query rows a block
+    ``bq``, keys a tile ``bk``, D padded ``dp`` and shared memory."""
+    if route == "wgmma":
+        dp = 64 if d <= 64 else 128
+        tile = dp // 64 * 128 * 128          # kHalves x 128 rows x 128 B
+        return dict(bq=128, bk=128, dp=dp,
+                    smem=tile * 5 + 8 * 9 + 1024)
+    dp = 64 if d <= 64 else 128 if d <= 128 else 256
+    f32 = dtype == "float32"
+    warps = 4 if dp == 256 else 8
+    bq, bk = 16 * warps, 32 if dp == 256 else 64
+    ld_v = dp + 4 if f32 else dp + 8
+    elems = bq * (dp + 8) + 2 * bk * (dp + 8) + 2 * bk * ld_v
+    return dict(bq=bq, bk=bk, dp=dp, smem=(4 if f32 else 2) * elems)
+
+
+def flash_route(dtype: str, d: int, aligned: bool) -> str:
+    """``ops._variant``: wgmma for 16-byte aligned bf16 with D % 8 == 0
+    and D <= 128, else mma."""
+    return ("wgmma" if dtype == "bfloat16" and d % 8 == 0 and d <= 128
+            and aligned else "mma")
+
+
+def ssd_plan(bn: int, h: int, q: int, p: int, s: int, sms: int) -> dict:
+    """``ssd_chunk.cu``'s launch: q padded ``qp``, heads a block ``hg``
+    (``heads_per_block``), the grid and shared memory."""
+    qp = round_up(q, 16)
+    ldcb = round_up(qp, 32) + 8
+    smem = 4 * (qp * (SSD_ST + 4) + qp * ldcb + 2 * qp * (SSD_PT + 4)
+                + 5 * qp)
+    slots = (1 if SMEM_SM // (smem + 1024) < 2 else 2) * sms
+    pp, sp = round_up(p, 8), round_up(s, 8)
+    head = qp * (qp / 2.0 + 8) * pp + pp * sp * qp
+    cb = float(qp) * qp * sp
+    best, best_cost = 1, 0.0
+    for hg in range(1, min(SSD_MAX_HEADS, h) + 1):
+        blocks = bn * -(-h // hg)
+        cost = -(-blocks // slots) * (hg * head + cb)
+        if hg == 1 or cost < best_cost:
+            best, best_cost = hg, cost
+    return dict(qp=qp, hg=best, grid=(bn, -(-h // best)), smem=smem)
+
+
+# ---- sites from captured plans --------------------------------------------
+
+def _gather_mlp_site(dims, plan, where, sms, card):
+    b, s, k, d, dc, h, f = (dims[n] for n in ("b", "s", "k", "d", "dc",
+                                              "h", "f"))
+    per_cloud = plan.get("variant") == "per_cloud"
+    nb, bb = (b, 1) if per_cloud else (1, b)
+    forced = plan.get("provenance") in ("override", "autotuned")
+    way = tiling.route(k, d, dc, h, f)
+    mismatch = []
+    if plan.get("route") not in (None, way):
+        mismatch.append(f"route {plan['route']} launched, {way} derived")
+    if way == "narrow":
+        rows = tiling.narrow_rows(bb, s, k, d, dc, h, f, sms,
+                                  (plan.get("rows") or 0) if forced else 0)
+        if plan.get("rows") is not None and plan["rows"] != rows:
+            mismatch.append(f"rows {plan['rows']} launched, {rows} derived")
+        kp = tiling.padded_k(k)
+        spt = rows // kp if kp <= rows else 1
+        groups = -(-(bb * s) // spt)
+        xh = max(round_up(d, 8), round_up(h, 8))
+        smem = tiling.narrow_smem(rows, k, d, dc, h, f)
+        site = KernelSite(
+            "gather_mlp", where, dims, plan, grid=(nb, groups),
+            semantics=(PARALLEL, PARALLEL), out_shape=(nb, bb * s, f),
+            out_block=(1, spt, f), out_map=lambda p: [(p[0], p[1], 0)],
+            smem=smem, launch=dict(route=way, rows=rows, spt=spt),
+            operands=[OperandInfo("x|h row tile", (rows, xh),
+                                  (rows, tiling._stride(xh)), True)],
+            preconditions=[
+                (f"row tile {rows} in {tiling.ROWS}", rows in tiling.ROWS),
+                (f"padded K {kp} a multiple of 16", kp % 16 == 0),
+                (f"{spt} subsets of {kp} rows fit a {rows}-row tile",
+                 spt * kp <= rows or spt == 1)])
+        knobs = ((plan.get("rows") or 0) if forced else 0, 0)
+    else:
+        n_knob = (plan.get("nsplit") or 0) if forced else 0
+        wp = tiling.wide_plan(bb, s, k, d, dc, h, f, sms, n_knob)
+        if plan.get("nsplit") is not None and plan["nsplit"] != wp["nsplit"]:
+            mismatch.append(f"nsplit {plan['nsplit']} launched, "
+                            f"{wp['nsplit']} derived")
+        nchunk = tiling.wide_chunks(h)
+        spt, ft = wp["spt"], wp["ft"]
+        ops = []
+        if wp["resident"]:
+            ops.append(OperandInfo("x", (64, d), (64, tiling._stride(
+                round_up(d, 8))), True))
+        site = KernelSite(
+            "gather_mlp", where, dims, plan,
+            grid=(nb, wp["groups"], wp["nft"], wp["nsplit"]),
+            semantics=(PARALLEL, PARALLEL, PARALLEL, MERGE),
+            out_shape=(nb, bb * s, f), out_block=(1, spt, ft),
+            out_map=lambda p: [(p[0], p[1], p[2])], smem=wp["smem"],
+            launch=dict(route=way, **wp), operands=ops,
+            preconditions=[
+                (f"F tile {ft} a multiple of 64 and at most 256",
+                 ft % 64 == 0 and 0 < ft <= 256),
+                (f"{spt} subsets of {max(k, 1)} rows fit a 64-row tile",
+                 spt * max(k, 1) <= 64 or spt == 1)],
+            coverage=[
+                (f"{wp['nsplit']} splits of {wp['cps']} chunks cover H's "
+                 f"{nchunk}, none empty",
+                 wp["nsplit"] * wp["cps"] >= nchunk
+                 and (wp["nsplit"] - 1) * wp["cps"] < nchunk)])
+        knobs = (0, n_knob)
+    if card:
+        from ..kernels.gather_mlp import ops
+        site.smem_library = ops.library_smem(bb, s, k, d, dc, h, f, *knobs)
+        if way == "wide":
+            lib = ops.library_plan(bb, s, k, d, dc, h, f, knobs[1])
+            ours = {n: site.launch[n] for n in ops.PLAN}
+            if lib != ours:
+                mismatch.append(f"wide plan {lib} from the library, "
+                                f"{ours} derived")
+    site.mismatch = mismatch
+    return site
+
+
+def _hub_reuse_site(dims, plan, where, sms, card):
+    b, hn, c, m, k, d, h, f = (dims[n] for n in ("b", "hn", "c", "m", "k",
+                                                 "d", "h", "f"))
+    per_cloud = plan.get("variant") == "per_cloud"
+    nb, bb = (b, 1) if per_cloud else (1, b)
+    chunk = plan.get("chunk") or 128
+    launches = tiling.hub_reuse_launches(c, chunk)
+    nf = -(-f // 64)
+    site = KernelSite(
+        "hub_reuse", where, dims, plan,
+        grid=(nb, len(launches), bb * hn, nf),
+        semantics=(PARALLEL, MERGE, PARALLEL, PARALLEL),
+        out_shape=(nb, bb * hn, f), out_block=(1, 1, 64),
+        out_map=lambda p: [(p[0], p[2], p[3])],
+        smem=tiling.hub_reuse_smem(c, m, k, d, True, chunk),
+        launch=dict(chunk=chunk, launches=launches),
+        operands=[OperandInfo("slot table", (m, k), (m, round_up(k, 4)),
+                              True)],
+        preconditions=[(f"chunk {chunk} in {tiling.CHUNKS}",
+                        chunk in tiling.CHUNKS)],
+        coverage=[(f"launches {launches} cover the {c} cache rows",
+                   sum(launches) == c and all(0 < r <= chunk
+                                              for r in launches))])
+    if card:
+        from ..kernels.hub_reuse import ops
+        site.smem_library = ops.library_smem(c, m, k, d, h, True, chunk)
+    return site
+
+
+def _knn_site(dims, plan, where, sms, card):
+    s, n, k = dims["s"], dims["n"], dims["k"]
+    kp = knn_plan(s, n, k, sms)
+    per = KNN_WARPS // kp["w"]
+    grid, groups = kp["grid"], kp["groups"]
+    mismatch = [f"{key} {plan[key]} launched, {kp[key]} derived"
+                for key in ("w", "r", "grid") if plan.get(key) is not None
+                and plan[key] != kp[key]]
+    if plan.get("scratch") is not None and plan["scratch"] != (
+            kp["scratch"] > 0):
+        mismatch.append(f"scratch {plan['scratch']} launched, "
+                        f"{kp['scratch'] > 0} derived")
+    site = KernelSite(
+        "knn", where, dims, plan, grid=(grid,), semantics=(PARALLEL,),
+        out_shape=(s, k), out_block=(per, k),
+        # the blocks walk the center groups grid-stride
+        out_map=lambda p: [(g, 0) for g in range(p[0], groups, grid)],
+        smem=kp["smem"], smem_limit=MAX_SMEM - STATIC_SMEM, launch=kp,
+        preconditions=[
+            (f"{kp['w']} warps a center divide the block's {KNN_WARPS}",
+             KNN_WARPS % kp["w"] == 0),
+            (f"list of {kp['kcap']} fits {kp['r']} registers a lane, "
+             f"shared memory or scratch",
+             kp["kcap"] <= kp["l"] and (0 < 32 * kp["r"] >= kp["kcap"]
+                                        or kp["r"] == 0))],
+        mismatch=mismatch)
+    if card and s * k:
+        from ..kernels.knn import ops
+        site.smem_library = ops.library_smem(s, n, k)
+    return site
+
+
+def _flash_site(dims, plan, where, sms, card):
+    b, hq, hkv, sq, skv, d = (dims[n] for n in ("b", "hq", "hkv", "sq",
+                                                "skv", "d"))
+    dtype = plan.get("dtype", "float32")
+    route = flash_route(dtype, d, bool(plan.get("aligned", True)))
+    mismatch = ([] if plan.get("route") in (None, route) else
+                [f"route {plan['route']} launched, {route} derived"])
+    lay = flash_layout(route, dtype, d)
+    bq = lay["bq"]
+    pre = [(f"D={d} in 1..{FLASH_DMAX}", 0 < d <= FLASH_DMAX),
+           (f"Hq={hq} a multiple of Hkv={hkv}", hkv > 0 and hq % hkv == 0)]
+    if route == "wgmma":
+        pre += [(f"wgmma takes bf16, got {dtype}", dtype == "bfloat16"),
+                (f"wgmma's rows of D={d} bf16 are 16-byte multiples",
+                 d % 8 == 0 and d <= 128),
+                ("wgmma's TMA bases 16-byte aligned",
+                 bool(plan.get("aligned", True)))]
+    site = KernelSite(
+        "flash_attention", where, dims, plan, grid=(b * hq, -(-sq // bq)),
+        semantics=(PARALLEL, PARALLEL), out_shape=(b * hq, sq),
+        out_block=(1, bq), out_map=lambda p: [p], smem=lay["smem"],
+        launch=dict(route=route, **lay), preconditions=pre,
+        mismatch=mismatch)
+    if card and 0 < d <= FLASH_DMAX:
+        from ..kernels.flash_attention import ops
+        lib = ops.library_layout(route, dtype, d)
+        site.smem_library = lib["smem"]
+        ours = {n: lay[n] for n in ("bq", "bk", "dp")}
+        theirs = {n: lib[n] for n in ours}
+        if theirs != ours:
+            site.mismatch.append(f"{route} tiles {theirs} from the "
+                                 f"library, {ours} derived")
+    return site
+
+
+def _ssd_site(dims, plan, where, sms, card):
+    bn, h, q, p, s = (dims[n] for n in ("bn", "h", "q", "p", "s"))
+    sp = ssd_plan(bn, h, q, p, s, sms)
+    hg = sp["hg"]
+    site = KernelSite(
+        "ssd_chunk", where, dims, plan, grid=sp["grid"],
+        semantics=(PARALLEL, PARALLEL), out_shape=(bn, h),
+        out_block=(1, hg), out_map=lambda pt: [pt], smem=sp["smem"],
+        smem_limit=MAX_SMEM - STATIC_SMEM, launch=sp,
+        preconditions=[
+            (f"chunk q={q} in 1..{SSD_QMAX}", 0 < q <= SSD_QMAX),
+            (f"{hg} heads a block in 1..{SSD_MAX_HEADS}",
+             0 < hg <= SSD_MAX_HEADS)])
+    if card and 0 < q <= SSD_QMAX:
+        from ..kernels.ssd_chunk import ops
+        lib = ops.library_plan(bn, h, q, p, s)
+        site.smem_library = lib["smem"]
+        theirs = dict(qp=lib["qp"], hg=lib["hg"],
+                      grid=(lib["grid_x"], lib["grid_y"]))
+        ours = dict(qp=sp["qp"], hg=hg, grid=tuple(sp["grid"]))
+        if theirs != ours:
+            site.mismatch.append(f"plan {theirs} from the library, {ours} "
+                                 f"derived")
+    return site
+
+
+_DERIVE = {"gather_mlp": _gather_mlp_site, "hub_reuse": _hub_reuse_site,
+           "knn": _knn_site, "flash_attention": _flash_site,
+           "ssd_chunk": _ssd_site}
+
+
+def site_from_capture(entry: dict, where: str, *, sms: int | None = None,
+                      card: bool = False) -> KernelSite:
+    """The site of one captured call (``{"kernel", "dims", "plan"}``).
+    ``card``: the call ran on the card, so the built libraries answer
+    for their own shared memory and plans (and must agree)."""
+    return _DERIVE[entry["kernel"]](entry["dims"], entry["plan"], where,
+                                    HW["sms"] if sms is None else sms, card)
+
+
+def kernel_sites(captured, where: str = "capture", *,
+                 sms: int | None = None, card: bool = False) -> list:
+    """Sites of every captured call a lint knows (numbered per kernel)."""
+    seen: dict = {}
+    out = []
+    for entry in captured:
+        kernel = entry["kernel"]
+        if kernel not in _DERIVE:
+            continue
+        i = seen[kernel] = seen.get(kernel, -1) + 1
+        out.append(site_from_capture(entry, f"{where}/{kernel}#{i}",
+                                     sms=sms, card=card))
+    return out
+
+
+# ---- the rules -------------------------------------------------------------
+
+def check_kernel_site(site: KernelSite) -> list[Finding]:
+    out: list[Finding] = []
+    if site.smem > site.smem_limit:
+        out.append(Finding(
+            "K001", f"{site.smem} B of shared memory a block, past the "
+                    f"kernel's {site.smem_limit} (grid={site.grid})",
+            where=site.where))
+    if site.smem_library is not None and site.smem_library != site.smem:
+        out.append(Finding(
+            "K001", f"tiling's {site.smem} B of shared memory != the "
+                    f"library's {site.smem_library}", where=site.where))
+    for what, holds in site.preconditions:
+        if not holds:
+            out.append(Finding("K002", f"precondition fails: {what}",
+                               where=site.where))
+    for what in site.mismatch:
+        out.append(Finding("K003", f"the launched plan differs from the "
+                                   f"derived one: {what}", where=site.where))
+    for what, holds in site.coverage:
+        if not holds:
+            out.append(Finding("K003", f"coverage fails: {what}",
+                               where=site.where))
+    if len(site.semantics) != len(site.grid):
+        out.append(Finding(
+            "K005", f"semantics {site.semantics} has rank "
+                    f"{len(site.semantics)} but the grid {site.grid} has "
+                    f"rank {len(site.grid)}", where=site.where))
+        return out
+
+    need = tuple(-(-a // bk) for a, bk in zip(site.out_shape,
+                                              site.out_block))
+    writers: dict = {}
+    outside = empty = None
+    for point in site.points():
+        tiles = site.out_map(point)
+        inside = [t for t in tiles
+                  if all(0 <= ti < n for ti, n in zip(t, need))]
+        if len(inside) < len(tiles) and outside is None:
+            outside = (point, [t for t in tiles if t not in inside][0])
+        if not tiles and empty is None:
+            empty = point
+        for t in inside:
+            writers.setdefault(t, []).append(point)
+    if outside is not None:
+        out.append(Finding(
+            "K003", f"block {outside[0]} writes tile {outside[1]}, wholly "
+                    f"outside the output {site.out_shape} in tiles of "
+                    f"{site.out_block}", where=site.where))
+    if empty is not None:
+        out.append(Finding(
+            "K003", f"block {empty} of grid {site.grid} writes no tile",
+            where=site.where))
+    if math.prod(site.grid) <= MAX_PROBE and len(writers) < math.prod(
+            need):
+        missing = next(t for t in itertools.product(*(range(n)
+                                                      for n in need))
+                       if t not in writers)
+        out.append(Finding(
+            "K003", f"grid {site.grid} leaves output tile {missing} of "
+                    f"{need} unwritten (output {site.out_shape}, tiles of "
+                    f"{site.out_block})", where=site.where))
+
+    merge = {a for a, s in enumerate(site.semantics) if s == MERGE}
+    for t, pts in writers.items():
+        first = pts[0]
+        clash = next((q for q in pts[1:] if any(
+            a not in merge and q[a] != first[a] for a in range(len(first)))),
+            None)
+        if clash is not None:
+            out.append(Finding(
+                "K005", f"blocks {first} and {clash} both write output "
+                        f"tile {t} and the plan does not merge them "
+                        f"(semantics {site.semantics})", where=site.where))
+            break
+
+    for o in site.operands:
+        if o.resident and not all(bd >= ad for bd, ad in
+                                  zip(o.block_shape, o.array_shape)):
+            out.append(Finding(
+                "K004", f"{o.name} is resident but its block "
+                        f"{o.block_shape} does not cover {o.array_shape}",
+                where=site.where))
+    return out
+
+
+def kernel_findings(sites) -> list[Finding]:
+    """Run K001–K005 over every site."""
+    out: list[Finding] = []
+    for site in sites:
+        out.extend(check_kernel_site(site))
+    return out
+
+
+def plan_site(kernel: str, dims: dict, knobs: dict, *, sms: int,
+              card: bool = False, where: str = "autotune") -> KernelSite:
+    """The site of the launch one FC plan makes (``knobs``: a tile plan's
+    knob fields, or ``{"variant": "per_cloud"}``); ``card``: with the
+    library's own shared memory and wide plan beside the formulas'."""
+    plan = {"provenance": "override", "variant": knobs.get("variant"),
+            **{n: knobs.get(n) for n in tiling.KNOBS[kernel]}}
+    if kernel == "hub_reuse":
+        plan["chunk"] = knobs.get("chunk", 128)
+    return site_from_capture({"kernel": kernel, "dims": dims, "plan": plan},
+                             f"{where}:{kernel}", sms=sms, card=card)
+
+
+def lint_plan(kernel: str, dims: dict, knobs: dict, *, sms: int,
+              card: bool = False, where: str = "autotune") -> tuple:
+    """K001–K005 over the launch one FC plan makes, as the autotuner asks
+    before it promotes the plan -> ``(site, findings)``."""
+    site = plan_site(kernel, dims, knobs, sms=sms, card=card, where=where)
+    return site, check_kernel_site(site)

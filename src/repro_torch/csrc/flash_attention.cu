@@ -956,6 +956,64 @@ extern "C" int flash_attention_forward(const void* q, const void* k,
   return (int)cudaErrorInvalidValue;
 }
 
+namespace {
+
+template <typename T, int DP>
+void mm_layout(int* out) {
+  using C = mm::Cfg<T, DP>;
+  out[0] = C::kBQ;
+  out[1] = C::kBK;
+  out[2] = DP;
+  out[3] = C::kBytes;
+  out[4] = C::kThreads;
+}
+
+template <int DP>
+void wg_layout(int* out) {
+  out[0] = wg::kBQ;
+  out[1] = wg::kBK;
+  out[2] = DP;
+  out[3] = wg::Layout<DP>::kBytes;
+  out[4] = wg::kThreads;
+}
+
+}  // namespace
+
+// the tiles flash_attention_forward launches for a route (variant and
+// dtype as it takes them) and D: {query rows a block, keys a kv tile, D
+// padded, a block's shared memory bytes, threads}; 0, or an error for a
+// route the call cannot take
+extern "C" int flash_attention_layout(int variant, int dtype, int D,
+                                      int* out) {
+  if (D < 1 || D > kDMax) return (int)cudaErrorInvalidValue;
+  if (variant == 1) {
+    if (dtype != 1 || D % 8 != 0 || D > 128) return (int)cudaErrorInvalidValue;
+    if (D <= 64)
+      wg_layout<64>(out);
+    else
+      wg_layout<128>(out);
+    return 0;
+  }
+  if (variant != 0 || (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 0) {
+    if (D <= 64)
+      mm_layout<float, 64>(out);
+    else if (D <= 128)
+      mm_layout<float, 128>(out);
+    else
+      mm_layout<float, 256>(out);
+  } else {
+    if (D <= 64)
+      mm_layout<__nv_bfloat16, 64>(out);
+    else if (D <= 128)
+      mm_layout<__nv_bfloat16, 128>(out);
+    else
+      mm_layout<__nv_bfloat16, 256>(out);
+  }
+  return 0;
+}
+
 extern "C" const char* flash_attention_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }

@@ -542,6 +542,13 @@ extern "C" void knn_plan(int S, int N, int K, int* out) {
   out[3] = pl.grid;
 }
 
+// a block's shared memory bytes in the launch of a call (0 for widths
+// the kernel does not take)
+extern "C" long long knn_smem_bytes(int S, int N, int K) {
+  if (K < 1 || K > N || S < 1) return 0;
+  return make_plan(S, N, K).smem;
+}
+
 extern "C" int knn_forward(const float* centers, const float* points,
                            float* dists, int32_t* idx, int S, int N, int K,
                            void* scratch, long long scratch_bytes,

@@ -339,6 +339,27 @@ int heads_per_block(int BN, int H, int QP, int P, int S, int slots) {
   return best;
 }
 
+// the launch of a call on the current device: Q padded to 16, C.B^T's
+// row stride, heads a block, the grid and a block's shared memory (what
+// ssd_chunk_plan reports)
+struct Launch {
+  int QP, ldcb, HG;
+  dim3 grid;
+  long long smem;
+};
+
+Launch make_launch(int BN, int H, int Q, int P, int S) {
+  Launch l;
+  l.QP = (Q + 15) / 16 * 16;
+  l.ldcb = (l.QP + 31) / 32 * 32 + 8;
+  l.smem = smem_bytes(l.QP, l.ldcb);
+  const int per_sm = (int)(233472 / (l.smem + 1024)) < 2
+                         ? 1 : 2;   // __launch_bounds__(256, 2)
+  l.HG = heads_per_block(BN, H, l.QP, P, S, per_sm * sm_count());
+  l.grid = dim3((unsigned)BN, (unsigned)((H + l.HG - 1) / l.HG));
+  return l;
+}
+
 template <int NT>
 cudaError_t launch(const Params& p, long long smem, dim3 grid,
                    cudaStream_t stream) {
@@ -378,8 +399,11 @@ extern "C" int ssd_chunk_forward(const float* x, const float* Bm,
   p.Q = Q;
   p.P = P;
   p.S = S;
-  p.QP = (Q + 15) / 16 * 16;
-  p.ldcb = (p.QP + 31) / 32 * 32 + 8;
+  const Launch l = make_launch(BN, H, Q, P, S);
+  if (l.smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  p.QP = l.QP;
+  p.ldcb = l.ldcb;
+  p.HG = l.HG;
   p.nP = (P + kPT - 1) / kPT;
   p.nS = (S + kST - 1) / kST;
   auto al = [](const void* a, int n) {
@@ -389,18 +413,28 @@ extern "C" int ssd_chunk_forward(const float* x, const float* Bm,
   p.vbc = al(Bm, 16) && al(Cm, 16) && S % 4 == 0;
   p.vy = al(y, 8) && P % 2 == 0;
   p.vst = al(st, 8) && S % 2 == 0;
-  const long long smem = smem_bytes(p.QP, p.ldcb);
-  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  const int per_sm = (int)(233472 / (smem + 1024)) < 2
-                         ? 1 : 2;   // __launch_bounds__(256, 2)
-  p.HG = heads_per_block(BN, H, p.QP, P, S, per_sm * sm_count());
-  const dim3 grid((unsigned)BN, (unsigned)((H + p.HG - 1) / p.HG));
   const cudaStream_t sm = (cudaStream_t)stream;
   // two 16-row strips a warp, P's 8 n8 tiles split over the warps a pair
   const int npairs = (p.QP / 16 + 1) / 2;
-  if (npairs == 1) return (int)launch<1>(p, smem, grid, sm);
-  if (npairs == 2) return (int)launch<2>(p, smem, grid, sm);
-  return (int)launch<4>(p, smem, grid, sm);
+  if (npairs == 1) return (int)launch<1>(p, l.smem, l.grid, sm);
+  if (npairs == 2) return (int)launch<2>(p, l.smem, l.grid, sm);
+  return (int)launch<4>(p, l.smem, l.grid, sm);
+}
+
+// the launch ssd_chunk_forward makes for these widths on the current
+// device: {Q padded, heads a block, grid x, grid y, shared memory bytes};
+// 0, or an error for widths the kernel does not take
+extern "C" int ssd_chunk_plan(int BN, int H, int Q, int P, int S,
+                              long long* out) {
+  if (BN < 1 || H < 1 || Q < 1 || Q > kQMax || P < 1 || S < 1)
+    return (int)cudaErrorInvalidValue;
+  const Launch l = make_launch(BN, H, Q, P, S);
+  out[0] = l.QP;
+  out[1] = l.HG;
+  out[2] = l.grid.x;
+  out[3] = l.grid.y;
+  out[4] = l.smem;
+  return l.smem > kMaxSmem ? (int)cudaErrorInvalidValue : 0;
 }
 
 extern "C" const char* ssd_chunk_error_string(int code) {

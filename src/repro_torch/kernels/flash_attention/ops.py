@@ -17,7 +17,7 @@ import ctypes
 
 import torch
 
-from .. import _build
+from .. import _build, plans
 from .ref import attention_bwd_ref, attention_lse_ref, attention_ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -28,13 +28,35 @@ _VARIANTS = {"mma": 0, "wgmma": 1}
 BWD_PASSES = ("dq", "dkdv")
 
 
+# what flash_attention_layout reports for a route
+LAYOUT = ("bq", "bk", "dp", "smem", "threads")
+
+
 def _declare(lib):
     lib.flash_attention_forward.argtypes = [_P] * 5 + [_I] * 9 + [_P]
     lib.flash_attention_forward.restype = _I
+    lib.flash_attention_layout.argtypes = [_I] * 3 + [_P]
+    lib.flash_attention_layout.restype = _I
 
 
 def _lib():
     return _build.load("flash_attention", _declare)
+
+
+def library_layout(route: str, dtype, d: int) -> dict:
+    """The tiles the built forward launches on ``route`` (``"mma"`` or
+    ``"wgmma"``) for ``dtype`` (a torch dtype or its name) and D
+    (``LAYOUT``: query rows a block, keys a kv tile, D padded, a block's
+    shared memory and threads).  Loads the library, so a card is
+    needed.  Raises for a route the call cannot take."""
+    if isinstance(dtype, str):
+        dtype = getattr(torch, dtype)
+    lib = _lib()
+    out = (ctypes.c_int * len(LAYOUT))()
+    code = lib.flash_attention_layout(_VARIANTS[route], _DTYPES[dtype], d,
+                                      out)
+    _build.check_launch(lib, "flash_attention", code)
+    return dict(zip(LAYOUT, out))
 
 
 def _declare_bwd(lib):
@@ -177,6 +199,20 @@ def flash_attention_backward(q, k, v, o, do, causal: bool = True,
     return dq, dk, dv
 
 
+def _note(q, k, v, causal, lse):
+    """Record the call's launch for ``plans.capture()``: its dims, dtype,
+    whether q, k and v are 16-byte aligned, and the route
+    :func:`_variant` names (None for a D no kernel takes)."""
+    b, hq, sq, d = q.shape
+    ptrs = [t.data_ptr() for t in (q, k, v)]
+    plans.note_plan("flash_attention", dict(
+        b=b, hq=hq, hkv=k.shape[1], sq=sq, skv=k.shape[2], d=d), dict(
+        route=_variant(q.dtype, d, ptrs) if 0 < d <= MAX_D else None,
+        dtype=str(q.dtype).removeprefix("torch."),
+        aligned=all(p % 16 == 0 for p in ptrs), causal=bool(causal),
+        lse=bool(lse)))
+
+
 def _forward(q, k, v, causal: bool = True, lse: bool = False):
     """Attention forward, GQA-aware.
 
@@ -196,6 +232,8 @@ def _forward(q, k, v, causal: bool = True, lse: bool = False):
     if hkv < 1 or hq % hkv:
         raise ValueError(f"flash_attention: Hq={hq} is not a multiple of "
                          f"Hkv={hkv}")
+    if plans.capturing():
+        _note(q, k, v, causal, lse)
     if q.device.type == "cpu":
         out = attention_ref(q, k, v, causal)
         return (out, attention_lse_ref(q, k, causal)) if lse else out

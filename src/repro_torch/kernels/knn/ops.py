@@ -9,7 +9,7 @@ import ctypes
 
 import torch
 
-from .. import _build
+from .. import _build, plans
 from .ref import knn_ref
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -25,6 +25,8 @@ def _declare(lib):
     lib.knn_scratch_bytes.restype = _L
     lib.knn_plan.argtypes = [_I] * 3 + [_P]
     lib.knn_plan.restype = None
+    lib.knn_smem_bytes.argtypes = [_I] * 3
+    lib.knn_smem_bytes.restype = _L
 
 
 def _lib():
@@ -40,6 +42,12 @@ def plan(s: int, n: int, k: int) -> dict:
     return dict(w=out[0], r=out[1], scratch=bool(out[2]), grid=out[3])
 
 
+def library_smem(s: int, n: int, k: int) -> int:
+    """A block's shared memory in the call's launch, as the built kernel
+    counts it (0 for widths it does not take)."""
+    return _lib().knn_smem_bytes(s, n, k)
+
+
 def knn(centers, points, k: int):
     """Brute-force k nearest neighbours.
 
@@ -51,6 +59,12 @@ def knn(centers, points, k: int):
     if not 0 <= k <= n:
         raise ValueError(f"knn: need 0 <= k <= N, got k={k}, N={n}")
     dev = centers.device
+    if plans.capturing():
+        # the launch the call makes (the library's plan where it runs)
+        pl = {"route": None}
+        if dev.type == "cuda" and centers.shape[0] * k:
+            pl.update(plan(centers.shape[0], n, k))
+        plans.note_plan("knn", dict(s=centers.shape[0], n=n, k=k), pl)
     if dev.type == "cpu":
         return knn_ref(centers, points, k)
     if dev.type != "cuda":

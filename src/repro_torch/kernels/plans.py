@@ -308,8 +308,18 @@ def note_plan(kernel: str, dims: dict, plan: dict) -> None:
                     "plan": dict(plan)})
 
 
+_lookups = [0]
+
+
+def lookup_count() -> int:
+    """Calls of :func:`lookup` so far (the wrappers call it where a call
+    shape's plan is not memoised yet)."""
+    return _lookups[0]
+
+
 def lookup(kernel: str, *, device=None, **dims) -> dict | None:
     """Store lookup honouring :func:`bypass`; None on a miss."""
+    _lookups[0] += 1
     if not enabled():
         return None
     return active_store().lookup(kernel, device=device, **dims)

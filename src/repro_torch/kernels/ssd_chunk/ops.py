@@ -11,7 +11,7 @@ import ctypes
 
 import torch
 
-from .. import _build
+from .. import _build, plans
 from .ref import ssd_chunk_bwd_ref, ssd_chunk_ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -27,13 +27,31 @@ BWD_PLAN = ("heads_a_group", "groups", "warps", "blocks_an_sm",
             "smem_bytes", "b_resident", "state_term_on_chip")
 
 
+# what ssd_chunk_plan reports: the forward's launch
+PLAN = ("qp", "hg", "grid_x", "grid_y", "smem")
+
+
 def _declare(lib):
     lib.ssd_chunk_forward.argtypes = [_P] * 7 + [_I] * 5 + [_P]
     lib.ssd_chunk_forward.restype = _I
+    lib.ssd_chunk_plan.argtypes = [_I] * 5 + [_P]
+    lib.ssd_chunk_plan.restype = _I
 
 
 def _lib():
     return _build.load("ssd_chunk", _declare)
+
+
+def library_plan(bn: int, h: int, q: int, p: int, s: int) -> dict:
+    """The forward's launch at these widths, as the library plans it on
+    the current device (``PLAN``: q padded to 16, heads a block, the grid
+    and a block's shared memory).  Loads the library, so a card is
+    needed: the plan follows its SM count."""
+    lib = _lib()
+    out = (ctypes.c_longlong * len(PLAN))()
+    code = lib.ssd_chunk_plan(bn, h, q, p, s, out)
+    _build.check_launch(lib, "ssd_chunk", code)
+    return dict(zip(PLAN, out))
 
 
 def _declare_bwd(lib):
@@ -112,6 +130,10 @@ def _check_shapes(name, x, B, ops):
 
 def _forward(x, B, C, dt, cum):
     """The forward of :func:`ssd_chunk`, without autograd's wiring."""
+    if plans.capturing() and x.dim() == 5:
+        bs, nc, q, h, p = x.shape
+        plans.note_plan("ssd_chunk", dict(bn=bs * nc, h=h, q=q, p=p,
+                                          s=B.shape[-1]), {"route": None})
     if x.device.type == "cpu":
         return ssd_chunk_ref(x, B, C, dt, cum)
     if x.device.type != "cuda":

@@ -11,13 +11,15 @@ records the winner in the card-keyed store of ``repro_torch.kernels.plans``
 every call without an explicit knob, so each later forward at a tuned
 shape on that card launches the measured winner.
 
-A candidate is promoted only if it fits by ``repro_torch.kernels.tiling``,
-whose shared-memory count must equal the library's own
-(``gather_mlp_smem_bytes`` / ``hub_reuse_smem_bytes``), and if its
-output on the cell's inputs lies within 1e-4·max(1, max|ref|) of the
-heuristic plan's (``rows`` and ``chunk`` change no sum's order and come
-out bit-equal; ``nsplit`` sums H's partials in another grouping).  This
-takes the place of the JAX package's K001–K005 lint gate.
+A candidate is promoted only if it fits by ``repro_torch.kernels.tiling``
+(the first filter), if its launch passes the K001–K005 rules of
+``repro_torch.analysis`` (as the JAX package lints each winner before it
+promotes it; on the card K001 also holds tiling.py's shared-memory count
+to the library's own, ``gather_mlp_smem_bytes`` /
+``hub_reuse_smem_bytes``), and if its output
+on the cell's inputs lies within 1e-4·max(1, max|ref|) of the heuristic
+plan's (``rows`` and ``chunk`` change no sum's order and come out
+bit-equal; ``nsplit`` sums H's partials in another grouping).
 
 Model cells come from running the port's forward once under
 ``plans.bypass()`` and ``plans.capture()``: the tuner sees exactly the
@@ -185,28 +187,25 @@ def compare(out, ref) -> tuple:
     return err, lim, bool(torch.equal(out, ref))
 
 
+def lint_knobs(kernel: str, dims: dict, knobs: dict, sms: int,
+               device) -> tuple:
+    """The launch the plan ``knobs`` makes for the cell on a card of
+    ``sms`` SMs and its K001–K005 findings (``repro_torch.analysis``) ->
+    ``(site, findings)``.  On the card the library answers for its own
+    shared memory (``site.smem_library``, which K001 holds to tiling.py's
+    ``site.smem``) and wide plan.  A finding disqualifies the plan from
+    promotion."""
+    from ..analysis.kernels import lint_plan
+    return lint_plan(kernel, dims, knobs, sms=sms,
+                     card=torch.device(device).type == "cuda")
+
+
 def smem_counts(kernel: str, dims: dict, knobs: dict, sms: int,
                 device) -> tuple:
     """(shared-memory bytes of the plan's largest launch by tiling.py, by
-    the library; None off the card)."""
-    b = 1 if "variant" in knobs else dims["b"]
-    if kernel == "hub_reuse":
-        chunk = knobs.get("chunk", 128)
-        ours = tiling.hub_reuse_smem(dims["c"], dims["m"], dims["k"],
-                                     dims["d"], True, chunk)
-        if device.type != "cuda":
-            return ours, None
-        from ..kernels.hub_reuse.ops import library_smem
-        return ours, library_smem(dims["c"], dims["m"], dims["k"],
-                                  dims["d"], dims["h"], True, chunk)
-    shape = (b, dims["s"], dims["k"], dims["d"], dims["dc"], dims["h"],
-             dims["f"])
-    r, n = knobs.get("rows", 0), knobs.get("nsplit", 0)
-    ours = tiling.gather_mlp_smem(*shape, sms, r, n)
-    if device.type != "cuda":
-        return ours, None
-    from ..kernels.gather_mlp.ops import library_smem
-    return ours, library_smem(*shape, r, n)
+    the library; None off the card): :func:`lint_knobs`'s site."""
+    site, _ = lint_knobs(kernel, dims, knobs, sms, device)
+    return site.smem, site.smem_library
 
 
 def autotune_cell(kernel: str, dims: dict, *, budget: int = 16,
@@ -218,8 +217,10 @@ def autotune_cell(kernel: str, dims: dict, *, budget: int = 16,
 
     ``timer(call, knobs) -> ms`` is injectable (the tests give a cost
     model); the default is :func:`measure`.  A screening pass times every
-    candidate once and runs the gate (tiling.py's shared memory equal to
-    the library's, the output within the limit of the heuristic plan's);
+    candidate once and runs the gate (no K001–K005 finding on its launch,
+    :func:`lint_knobs`, which on the card holds tiling.py's shared memory
+    to the library's; the output within the limit of the heuristic
+    plan's);
     the fastest :data:`FINALISTS` that pass are re-timed interleaved with
     the per-cloud launch for :data:`FINAL_PASSES` passes, min-merged.
     Where the per-cloud launch beats every finalist, the cell records
@@ -250,14 +251,15 @@ def autotune_cell(kernel: str, dims: dict, *, budget: int = 16,
                 log(f"  {key}: candidate {knobs} failed: "
                     f"{type(e).__name__}: {e}")
             continue
-        ours, lib = smem_counts(kernel, dims, knobs, sms, device)
+        site, lint = lint_knobs(kernel, dims, knobs, sms, device)
         gate = None
-        if lib is not None and ours != lib:
-            gate = f"tiling.py's smem {ours} != the library's {lib}"
+        if lint:       # K001 holds tiling.py's smem to the library's too
+            gate = "; ".join(f"{f.rule}: {f.message}" for f in lint)
         elif err > lim:
             gate = f"output {err:.3g} from the heuristic's, past {lim:.3g}"
         rows.append(dict(knobs=dict(knobs), ms=ms, max_diff=err,
-                         bit_equal=same, smem=ours, smem_library=lib,
+                         bit_equal=same, smem=site.smem,
+                         smem_library=site.smem_library,
                          rejected=gate))
         timed.append([ms, knobs, gate])
     if not timed or timed[0][1] is not cands[0]:
@@ -267,6 +269,9 @@ def autotune_cell(kernel: str, dims: dict, *, budget: int = 16,
     batched = [t for t in timed if "variant" not in t[1]]
     finalists = [t for t in sorted(batched, key=lambda t: t[0])
                  if t[2] is None][:FINALISTS]
+    if not finalists:
+        raise RuntimeError(f"autotune: no batched plan of {key} passes the "
+                           f"gate: {[r['rejected'] for r in rows]}")
     per_cloud = next((t for t in timed if "variant" in t[1]), None)
     pc_ok = per_cloud is not None and per_cloud[2] is None
     pc_call = cell_call(kernel, args, PER_CLOUD) if pc_ok else None

@@ -67,13 +67,24 @@ def init_rank(rank: int, n: int, store: str) -> None:
         timeout=datetime.timedelta(seconds=SPAWN_TIMEOUT))
 
 
+def _rank_main(rank: int, fn, n: int, store: str, out: str, *args):
+    """A spawned rank: ``fn``, then, where it made a process group, a
+    barrier and the group's end, so that no rank exits with the group's
+    threads still running (which aborts it at exit, under load)."""
+    import torch.distributed as dist
+    fn(rank, n, store, out, *args)
+    if dist.is_initialized():
+        dist.barrier()
+        dist.destroy_process_group()
+
+
 def spawn(fn, n: int, tmp_path, *args):
     """Run ``fn(rank, n, store, out, *args)`` in ``n`` spawned ranks; ->
     what rank 0 wrote to ``out`` (JSON)."""
     import torch.multiprocessing as mp
     store, out = str(tmp_path / "store"), str(tmp_path / "out.json")
-    ctx = mp.start_processes(fn, args=(n, store, out) + args, nprocs=n,
-                             join=False, start_method="spawn")
+    ctx = mp.start_processes(_rank_main, args=(fn, n, store, out) + args,
+                             nprocs=n, join=False, start_method="spawn")
     deadline = datetime.datetime.now() + datetime.timedelta(
         seconds=SPAWN_TIMEOUT)
     try:

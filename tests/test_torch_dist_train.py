@@ -19,7 +19,12 @@ params, m, v and the error feedback are off only at those elements.
 
 Checkpoints: the olmo-1b state saved under (2, 2) restores bit-equal
 under (4, 1) and without a mesh; a JAX checkpoint restores under (2, 2).
-(The trainer's CLI over gloo is in ``test_torch_dist.py``.)"""
+(The trainer's CLI over gloo is in ``test_torch_dist.py``.)
+
+Every run is a fresh interpreter: the mesh ranks, and one spawned process
+for JAX's inputs and checkpoint, the port's mesh-free runs and JAX's; the
+test process only compares, so the torch and JAX state that earlier
+tests leave in a shared worker process cannot reach either side."""
 import dataclasses
 import pickle
 
@@ -177,31 +182,53 @@ def _jax_run(arch, micro, codec, params, opt, batches):
     return losses, norms
 
 
-@pytest.fixture(scope="module")
-def runs(tmp_path_factory):
-    """The mesh runs (spawned), the port's mesh-free runs and JAX's, and
-    the checkpoints."""
-    from repro.ckpt.manager import CheckpointManager as JaxManager
+def _free_run(rank, n, store, out, tmp):
+    """In a spawned process of its own: JAX's inputs (``in.pkl``) and
+    checkpoint, the port's mesh-free runs and JAX's, into ``free.pkl``.
+    A fresh interpreter, as the mesh ranks are: nothing that earlier
+    tests left in the test process (its torch and JAX state) reaches
+    the runs that the mesh runs are held against."""
     import jax.numpy as jnp
-    tmp = tmp_path_factory.mktemp("train")
+    from repro.ckpt.manager import CheckpointManager as JaxManager
+    torch.set_num_threads(1)
     inputs = {name: start(arch, codec) for name, arch, _, codec in CASES}
-    with open(tmp / "in.pkl", "wb") as f:
+    with open(f"{tmp}/in.pkl", "wb") as f:
         pickle.dump(inputs, f)
     jp, _, jo = inputs["olmo-1b"]
-    JaxManager(str(tmp / "ck" / "jax")).save(
+    JaxManager(f"{tmp}/ck/jax").save(
         5, jax_tree(jp, jnp), jax_tree(jo, jnp), {"step": 5})
-    mesh = spawn(_train_rank, 4, tmp, str(tmp / "in.pkl"),
-                 str(tmp / "ck"))
-    out = {}
+    res = {}
     for name, arch, micro, codec in CASES:
         params, batches, opt = inputs[name]
         free = run_port(arch, micro, codec, params, opt, batches)
-        with open(tmp / f"out.json.{name}.pkl", "rb") as f:
-            got = pickle.load(f)
-        out[name] = dict(mesh=mesh[name], free=free[:4], trace=free[5],
-                         got=got,
+        res[name] = dict(free=free[:4], trace=free[5],
                          jax=_jax_run(arch, micro, codec, params, opt,
                                       batches))
+    with open(f"{tmp}/free.pkl", "wb") as f:
+        pickle.dump(res, f)
+    dump(out, {"cases": len(res)})
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """The port's mesh-free runs, JAX's and its inputs and checkpoint (one
+    spawned process), then the mesh runs (4 spawned ranks) and the
+    checkpoints; this process only compares."""
+    tmp = tmp_path_factory.mktemp("train")
+    (tmp / "free").mkdir()
+    assert spawn(_free_run, 1, tmp / "free", str(tmp)) == {
+        "cases": len(CASES)}
+    with open(tmp / "in.pkl", "rb") as f:
+        inputs = pickle.load(f)
+    with open(tmp / "free.pkl", "rb") as f:
+        free = pickle.load(f)
+    mesh = spawn(_train_rank, 4, tmp, str(tmp / "in.pkl"),
+                 str(tmp / "ck"))
+    out = {}
+    for name, *_ in CASES:
+        with open(tmp / f"out.json.{name}.pkl", "rb") as f:
+            got = pickle.load(f)
+        out[name] = dict(mesh=mesh[name], got=got, **free[name])
     with open(tmp / "out.json.ckpt.pkl", "rb") as f:
         out["ckpt"] = pickle.load(f)
     out["ckpt_root"] = tmp / "ck"

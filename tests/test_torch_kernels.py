@@ -509,10 +509,12 @@ class _StubLib:
         "knn_forward": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
         + [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p],
         "knn_scratch_bytes": [ctypes.c_int] * 3,
-        "knn_plan": [ctypes.c_int] * 3 + [ctypes.c_void_p]}),
+        "knn_plan": [ctypes.c_int] * 3 + [ctypes.c_void_p],
+        "knn_smem_bytes": [ctypes.c_int] * 3}),
     (ssd_ops, "ssd_chunk", {
         "ssd_chunk_forward": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
-        + [ctypes.c_void_p]}),
+        + [ctypes.c_void_p],
+        "ssd_chunk_plan": [ctypes.c_int] * 5 + [ctypes.c_void_p]}),
     (gather_ops, "gather_mlp", {
         "gather_mlp_forward": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
         + [ctypes.c_void_p],
@@ -528,7 +530,8 @@ class _StubLib:
         "hub_reuse_smem_bytes": [ctypes.c_int] * 7}),
     (flash_ops, "flash_attention", {
         "flash_attention_forward": [ctypes.c_void_p] * 5
-        + [ctypes.c_int] * 9 + [ctypes.c_void_p]}),
+        + [ctypes.c_int] * 9 + [ctypes.c_void_p],
+        "flash_attention_layout": [ctypes.c_int] * 3 + [ctypes.c_void_p]}),
 ])
 def test_wrappers_declare_ctypes_signatures_once(monkeypatch, ops, name,
                                                  want):
