@@ -170,6 +170,28 @@ Phases, each timed, any failure exits non-zero:
      an entry kernel without sites.  An ``analysis`` line (targets, sites
      by kernel and family, findings, wall time) beside the card's name
      and power limit.
+ 13. PCN training and the paper's Fig. 20 accuracy run
+     (``repro_torch.examples.accuracy``): (a) ``run_accuracy()`` at full
+     size (160 train / 64 test clouds of 256 points, 10 epochs of SGD at
+     batch 16 through the "reference" FC backend under autograd, at both
+     activation placements; each evaluation under ``no_grad`` through
+     the "cuda" backend) with the launch counts reset: no launch in
+     training, ``PCN_EVAL_LAUNCHES`` a forward (gather_mlp 2, and
+     hub_reuse 2 in lpcn); (b) the quick run on the card against the
+     same run on the CPU, each step's loss within ``PCN_LOSS_RTOL``
+     relative and the same prediction on every test cloud whose CPU
+     top-two margin is >= ``PCN_MARGIN``; (c) the trained weights'
+     logits through "cuda" against "reference" on the card (1e-4 ·
+     max(1, max|ref|)) in every mode, each forward's launches counted;
+     (d) gather_mlp, hub_reuse and knn under autograd on the card raise
+     ``NoBackwardError`` naming how PCN training gets its gradient, and
+     launch nothing; (e) the four examples (``PCN_EXAMPLES``:
+     quickstart, islandization_demo, lm_decode, train_pointnet2 at 50
+     steps) in subprocesses side by side, each exiting 0.  Rehearsed on
+     the CPU: stub ``torch.cuda.synchronize`` and ``chip_smoke.check``
+     (collect), set ``PCN_FULL_QUICK = True`` and ``EXAMPLE_ARGS =
+     ("--device", "cpu")``, then ``pcn_train_phase(torch.device("cpu"),
+     "cpu")`` (~40 s; only the launch and refusal checks fail).
 
 Output lines: the card's name and power limit (nvidia-smi), phase times,
 ptxas's registers and spills per kernel (gather_mlp, hub_reuse,
@@ -200,7 +222,11 @@ name and power limit), a ``train_resume`` line per config, a
 ``train_other`` line per config, the
 trainer's own lines (``train: step N: ...``), ``train_parity``, the
 ``mesh``, ``mesh_train``, ``serve_mesh``, ``planning`` and ``analysis``
-lines, a ``kernels`` JSON
+lines, ``pcn_train`` (beside the card's name and power limit: steps,
+mean step ms from step 3, first and last loss, the 2 × 4 accuracy table,
+launches, seconds), ``pcn_card_vs_cpu``, ``pcn_kernels_vs_plain``,
+``pcn_grad_refusal``, the examples' lines (``example <name>: ...``) and
+``pcn_examples_s``, a ``kernels`` JSON
 line (every TPU kernel's counterpart: the FC kernels batched and per
 cloud, gather_mlp's wide route, the entry kernels, and flash_attention
 and ssd_chunk at the LM prefills' inputs; ``launches`` counted per
@@ -208,7 +234,9 @@ wrapper, in the async serving run for the FC kernels, over the families
 phase's counted forwards for the wide route, in the entry phase for the
 entry kernels' rows (``lm_launches`` beside them: the LM phase's counted
 prefills), in the LM phase for its rows and in the full-width training
-runs for ``flash_attention_bwd``'s and ``ssd_chunk_bwd``'s), and last
+runs for ``flash_attention_bwd``'s and ``ssd_chunk_bwd``'s;
+``pcn_train_launches`` beside the FC rows: phase 13's full-size run),
+and last
 ``{"ok": true,
 "device": {...}}``.
 """
@@ -3340,6 +3368,213 @@ def analysis_phase(smi) -> dict:
         "wall_s": wall, "card": smi}}
 
 
+# phase 13: PCN training and the paper's Fig. 20 accuracy run
+PCN_FULL_QUICK = False        # (a) at full size: 160 / 64 clouds, 10 epochs
+# FC kernel launches of one evaluation forward (two blocks, one launch a
+# dataflow a block; Mesorasi is plain torch)
+PCN_EVAL_LAUNCHES = {"traditional": {"gather_mlp": 2, "hub_reuse": 0},
+                     "lpcn": {"gather_mlp": 2, "hub_reuse": 2},
+                     "mesorasi": {"gather_mlp": 0, "hub_reuse": 0}}
+PCN_LOSS_RTOL = 1e-3          # (b): each SGD step's loss, card vs CPU
+PCN_MARGIN = 1e-3             # (b): CPU top-two logit margin of a held cloud
+PCN_EXAMPLES = (("quickstart",), ("islandization_demo",), ("lm_decode",),
+                ("train_pointnet2", "--steps", "50"))
+EXAMPLE_ARGS = ()             # the examples' extra flags (none: the card)
+
+
+def pcn_expected(evals, n_runs: int = 1) -> dict:
+    """FC launches of ``n_runs`` × the evaluation forwards ``evals``."""
+    return {k: n_runs * sum(PCN_EVAL_LAUNCHES[m][k] for m, _ in evals)
+            for k in ("gather_mlp", "hub_reuse")}
+
+
+def pcn_full(dev, smi):
+    """(a) ``run_accuracy()`` at full size with the launch counts reset:
+    training launches no kernel ("reference" under autograd), each
+    evaluation forward its ``PCN_EVAL_LAUNCHES``.  -> (run, launches,
+    the ``pcn_train`` line)."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.examples import accuracy
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t = time.perf_counter()
+    run = accuracy.run_accuracy(PCN_FULL_QUICK, dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = kernels.launch_counts()
+    want = pcn_expected(accuracy.EVALS, len(accuracy.ACTIVATIONS))
+    check(counts == {**dict.fromkeys(counts, 0), **want},
+          f"pcn_train: launches {counts}, expected {want}")
+    for act, losses in run.losses.items():
+        check(all(np.isfinite(losses)), f"pcn_train {act}: a loss is not "
+              f"finite")
+    n_train, n_test, n_points, epochs = accuracy.sizes(PCN_FULL_QUICK)
+    line = {"pcn_train": {
+        "card": smi, "clouds": [n_train, n_test], "points": n_points,
+        "epochs": epochs,
+        "steps": {a: len(v) for a, v in run.losses.items()},
+        "step_ms_from_3": {a: 1e3 * float(np.mean(v[2:]))
+                           for a, v in run.step_s.items()},
+        "loss_first": {a: v[0] for a, v in run.losses.items()},
+        "loss_last": {a: v[-1] for a, v in run.losses.items()},
+        "accuracy": run.table,
+        "launches_per_eval_forward": PCN_EVAL_LAUNCHES,
+        "launches": {k: counts[k] for k in want}, "seconds": wall}}
+    return run, {k: counts[k] for k in want}, line
+
+
+def pcn_card_vs_cpu(dev) -> dict:
+    """(b) the quick run on the card against the same run on the CPU:
+    each step's loss within ``PCN_LOSS_RTOL``, the same prediction on
+    every test cloud whose CPU top-two margin is >= ``PCN_MARGIN``."""
+    from repro_torch.examples import accuracy
+    t = time.perf_counter()
+    card = accuracy.run_accuracy(True, dev)
+    cpu = accuracy.run_accuracy(True, "cpu")
+    out = {"loss_rel_max": {}, "held": 0, "excepted": [], "seconds": 0.0}
+    for act in accuracy.ACTIVATIONS:
+        rel = max(abs(a - b) / abs(b) for a, b in zip(card.losses[act],
+                                                      cpu.losses[act]))
+        out["loss_rel_max"][act] = rel
+        check(len(card.losses[act]) == len(cpu.losses[act]) and
+              rel <= PCN_LOSS_RTOL,
+              f"pcn card vs cpu {act}: losses differ by {rel:.3g} "
+              f"relative (tol {PCN_LOSS_RTOL})")
+        for name, ref in cpu.logits[act].items():
+            top2 = ref.topk(2, dim=-1).values
+            held = (top2[:, 0] - top2[:, 1]) >= PCN_MARGIN
+            got = card.logits[act][name].argmax(-1).cpu()
+            bad = int((held & (got != ref.argmax(-1))).sum())
+            check(bad == 0, f"pcn card vs cpu {act} {name}: {bad} held "
+                  f"clouds predicted differently")
+            out["held"] += int(held.sum())
+            out["excepted"] += [f"{act}/{name}/{int(i)}"
+                                for i in (~held).nonzero().flatten()]
+    out["seconds"] = time.perf_counter() - t
+    return out
+
+
+def pcn_kernels_vs_plain(run, dev) -> dict:
+    """(c) the trained weights' evaluation logits through "cuda" against
+    "reference" on the card (``TOL`` · max(1, max|ref|)), each "cuda"
+    forward with its launches counted."""
+    import torch
+    from repro_torch import kernels, random
+    from repro_torch.examples import accuracy
+    xte, _ = accuracy.gen_task(accuracy.sizes(PCN_FULL_QUICK)[1], 256, 2,
+                               dev)
+    key = random.PRNGKey(0, dev)
+    out = {}
+    for act in accuracy.ACTIVATIONS:
+        for mode, comp in accuracy.EVALS:
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            got = accuracy.predict(run.params[act], xte, mode, comp, key)
+            torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+            want = pcn_expected(((mode, comp),))
+            check(counts == {**dict.fromkeys(counts, 0), **want},
+                  f"pcn eval {act} {mode}/{comp}: launches {counts}, "
+                  f"expected {want}")
+            ref = accuracy.predict(run.params[act], xte, mode, comp, key,
+                                   "reference")
+            err, tol = close(got, ref)
+            check(err <= tol, f"pcn eval {act} {mode}/{comp}: cuda vs "
+                  f"reference max|err| {err:.3g} > {tol:.3g}")
+            out[f"{act}/{accuracy.tag(mode, comp)}"] = {
+                "max_abs_err": err, "tol": tol,
+                "launches": {k: counts[k] for k in want}}
+    return out
+
+
+def pcn_grad_refusal(run, dev) -> dict:
+    """(d) under autograd on the card, gather_mlp (a training step through
+    "cuda"), hub_reuse (an lpcn forward) and knn raise NoBackwardError
+    with their message, and launch nothing."""
+    import torch
+    from repro_torch import kernels, random
+    from repro_torch.examples import accuracy
+    from repro_torch.kernels import NoBackwardError
+    from repro_torch.kernels.knn import knn
+    xs, ys = accuracy.gen_task(16, 256, 1, dev)
+    key = random.PRNGKey(0, dev)
+    params = run.params["block_end"]
+    flat = [p.detach().requires_grad_() for p in accuracy.leaves(params)]
+
+    def lpcn_forward():
+        with torch.enable_grad():
+            accuracy.forward(accuracy.with_leaves(params, flat), xs, "lpcn",
+                             key, backend="cuda")
+
+    pts = xs[0].detach().clone().requires_grad_()
+    calls = {"gather_mlp": lambda: accuracy.grads(params, xs, ys, key,
+                                                  backend="cuda"),
+             "hub_reuse": lpcn_forward,
+             "knn": lambda: knn(pts, pts, 16)}
+    out = {}
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    for name, call in calls.items():
+        try:
+            call()
+        except NoBackwardError as e:
+            msg = str(e)
+        else:
+            msg = ""
+        check(msg.startswith(f"{name}: no {name} backward kernel") and
+              "PCN training" in msg,
+              f"pcn grad refusal: {name} under autograd on the card gave "
+              f"{msg!r}")
+        out[name] = msg
+    counts = kernels.launch_counts()
+    check(not any(counts.values()),
+          f"pcn grad refusal: a refused call launched {counts}")
+    return out
+
+
+def pcn_examples() -> float:
+    """(e) the four examples in subprocesses side by side (``EXAMPLE_ARGS``
+    added), each exiting 0; their lines echoed.  -> wall seconds."""
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        filter(None, [str(ROOT / "src"), os.environ.get("PYTHONPATH")])),
+        "REPRO_TORCH_TILE_PLANS": str(ROOT / "build" / "no_tile_plans")}
+    t0 = time.perf_counter()
+    procs = {ex[0]: subprocess.Popen(
+        [sys.executable, "-m", f"repro_torch.examples.{ex[0]}", *ex[1:],
+         *EXAMPLE_ARGS], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for ex in PCN_EXAMPLES}
+    try:
+        for name, proc in procs.items():
+            stdout, stderr = proc.communicate(timeout=300)
+            for line in stdout.splitlines():
+                log(f"example {name}: {line}")
+            check(proc.returncode == 0, f"example {name} exited "
+                  f"{proc.returncode}:\n{stderr[-3000:]}")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return time.perf_counter() - t0
+
+
+def pcn_train_phase(dev, smi) -> dict:
+    """Phase 13 (see the module docstring).  -> the FC launches of the
+    full-size run."""
+    t = time.perf_counter()
+    run, launches, line = pcn_full(dev, smi)
+    log(json.dumps(line))
+    log(json.dumps({"pcn_card_vs_cpu": pcn_card_vs_cpu(dev), "card": smi}))
+    log(json.dumps({"pcn_kernels_vs_plain": pcn_kernels_vs_plain(run, dev),
+                    "card": smi}))
+    log(json.dumps({"pcn_grad_refusal": pcn_grad_refusal(run, dev)}))
+    log(json.dumps({"pcn_examples_s": pcn_examples(),
+                    "phase_s": time.perf_counter() - t}))
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3540,6 +3775,13 @@ def main() -> int:
     phases["analysis_s"] = time.perf_counter() - t
     log(f"analysis_s {phases['analysis_s']:.2f}")
 
+    # ---- PCN training, the Fig. 20 accuracy run, the examples -----------
+    t = time.perf_counter()
+    pcn_launches = pcn_train_phase(dev, smi.splitlines()[0])
+    phases["pcn_train_s"] = time.perf_counter() - t
+    log(f"pcn_train_s {phases['pcn_train_s']:.2f}; FC launches of the "
+        f"full-size run {pcn_launches}")
+
     # the per-cloud entries (B = 1) are the same kernels: each wrapper
     # counts its kernel's launches whatever the shape
     rows += per_cloud
@@ -3554,6 +3796,9 @@ def main() -> int:
     for row in train_rows:
         row["launches"] = train_launches[row["name"]]
     rows += wide_rows + entry_rows + lm_rows + train_rows
+    for row in rows:
+        if row["name"] in pcn_launches:
+            row["pcn_train_launches"] = pcn_launches[row["name"]]
     log(json.dumps({"phases_s": phases}))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

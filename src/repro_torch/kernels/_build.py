@@ -68,17 +68,23 @@ def refuse_dtensor(name: str, tensors) -> None:
             f"(repro_torch.dist.sharding.local_call)")
 
 
-def refuse_grad(name: str, tensors, item: str) -> None:
+# where PCN training's gradient comes from, for the FC kernels' refusal
+FC_TRAINING = ('PCN training runs the "reference" FC backend under autograd, '
+               'as the JAX package does (repro_torch.examples.accuracy)')
+
+
+def refuse_grad(name: str, tensors, instead: str) -> None:
     """Raise :class:`NoBackwardError` when grad is enabled and one of
     ``tensors`` requires it: a kernel without a backward must not hand
-    autograd a result detached from its inputs.  ``item`` names the
-    ROADMAP item that brings the backward."""
+    autograd a result detached from its inputs, nor fall back to its plain
+    version.  ``instead`` says where the caller's gradient comes from."""
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in tensors):
         raise NoBackwardError(
-            f"{name}: no {name} backward kernel: it cannot run under "
-            f"autograd on the card ({item}); run it under torch.no_grad() "
-            f"or on CPU tensors, whose plain version has a gradient")
+            f"{name}: no {name} backward kernel, in this package or the JAX "
+            f"one: it cannot run under autograd on the card. {instead}; run "
+            f"the kernel under torch.no_grad(), or on CPU tensors, whose "
+            f"plain version has a gradient")
 
 
 def _nvcc() -> str:

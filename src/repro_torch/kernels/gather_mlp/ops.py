@@ -188,7 +188,7 @@ def gather_mlp(raw, centers, w1, b1, w2, b2, mask=None, *, rows=None,
     if raw.device.type == "cpu":
         return gather_mlp_ref(raw, centers, w1, b1, w2, b2, mask)
     _build.refuse_grad("gather_mlp", (raw, centers, w1, b1, w2, b2),
-                       "ROADMAP queue 1 item 7: PCN training")
+                       _build.FC_TRAINING)
     if single:
         raw, centers = raw[None], centers[None]
         mask = None if mask is None else mask[None]

@@ -136,7 +136,7 @@ def hub_reuse(pool_in, slot, comp, w1, b1, w2, b2, live=None, *,
     if pool_in.device.type == "cpu":
         return hub_reuse_ref(pool_in, slot, comp, w1, b1, w2, b2, live)
     _build.refuse_grad("hub_reuse", (pool_in, comp, w1, b1, w2, b2),
-                       "ROADMAP queue 1 item 7: PCN training")
+                       _build.FC_TRAINING)
     if single:
         pool_in, slot, comp = pool_in[None], slot[None], comp[None]
         live = None if live is None else live[None]

@@ -69,7 +69,10 @@ def knn(centers, points, k: int):
         return knn_ref(centers, points, k)
     if dev.type != "cuda":
         raise ValueError(f"knn: unsupported device {dev}")
-    _build.refuse_grad("knn", (centers, points), "ROADMAP queue 1 item 7: PCN training")
+    _build.refuse_grad("knn", (centers, points),
+                       "PCN training takes its neighbors from the plain "
+                       "core.neighbor.knn_bruteforce, as the JAX package "
+                       "does")
     for arg, t in (("centers", centers), ("points", points)):
         if t.dim() != 2 or t.shape[1] != 3:
             raise ValueError(f"knn: {arg} has shape {tuple(t.shape)}, "
