@@ -30,7 +30,10 @@ Phases, each timed, any failure exits non-zero:
      backend;
   5. one batch in ``mode="traditional"``; one lpcn batch at
      ``cache_capacity_x = 4`` (``CACHE_X4``: 256 cache rows at block 2, two
-     hub_reuse launches there) against the "reference" backend; then the
+     hub_reuse launches there) against the "reference" backend, and
+     pointnext_s and pointvector_l (``CACHE_X4_FAMILIES``) likewise at the
+     families phase's batch (block 4: C = 128 in 64-row chunks, the
+     launches each call's plan makes); then the
      same batch under each data structuring of ``DS_VARIANTS`` (the
      paper's DS baselines HgPCN, EdgePC and Crescent beside PointACC's,
      the ball query, the random and Morton samplers, FPS hubs): one
@@ -167,9 +170,10 @@ Phases, each timed, any failure exits non-zero:
      site whose shared memory by ``tiling.py`` or the analysis's copies
      of the entry kernels' formulas differs from the built library's, and
      on a family, an lpcn ``cuda`` target's FC kernel or
-     an entry kernel without sites.  An ``analysis`` line (targets, sites
-     by kernel and family, findings, wall time) beside the card's name
-     and power limit.
+     an entry kernel without sites, and on hub_reuse's ``stream``,
+     ssd_chunk's ``tiled`` or flash's ``split`` route without sites.  An
+     ``analysis`` line (targets, sites by kernel and family, findings,
+     wall time) beside the card's name and power limit.
  13. PCN training and the paper's Fig. 20 accuracy run
      (``repro_torch.examples.accuracy``): (a) ``run_accuracy()`` at full
      size (160 train / 64 test clouds of 256 points, 10 epochs of SGD at
@@ -192,6 +196,25 @@ Phases, each timed, any failure exits non-zero:
      (collect), set ``PCN_FULL_QUICK = True`` and ``EXAMPLE_ARGS =
      ("--device", "cpu")``, then ``pcn_train_phase(torch.device("cpu"),
      "cpu")`` (~40 s; only the launch and refusal checks fail).
+ 14. the kernels' domain routes, past the limits the earlier routes had
+     (``domain_phase``): each driven once with the launch counts reset
+     (``domain_drive``: by wrapper and by route), then held against its
+     plain version and timed beside it: hub_reuse at ``REUSE_DOMAIN``
+     (pointvector_l's block 4 under ``CACHE_X4``, resident in 64-row
+     chunks; the streamed route at D = 700; route and shared memory equal
+     to the library's), ssd_chunk and its backward on the tiled route at
+     ``SSD_TILED`` (Mamba2-2.7B's widths at chunk 256, bs 1 and 2;
+     ``ssd_held``, ``ssd_bwd_held``), flash_attention and its backward on
+     the split route at ``FLASH_SPLIT`` (8 heads, S = 2048, causal, D =
+     512 in f32 and bf16, D = 257 in bf16; ``FLASH_TOL``, ``BWD_TOL``,
+     SDPA timed beside each); then mamba2-2.7b at full width with
+     ``ssd_chunk`` = 256: a counted f32 prefill of 2 × 2048 (64 tiled
+     launches) against the plain route (``LM_F32_TOL``), and the 2-layer
+     gradient wiring (``grad_wiring``, its planted fault included).
+     Rehearsed on the CPU as phase 9, with ``REUSE_DOMAIN``,
+     ``SSD_TILED``, ``FLASH_SPLIT*``, ``LM_PREFILL`` and ``TRAIN_WIRING``
+     shrunk, the libraries' plan queries stubbed by the formulas and the
+     reduced configs (~5 s; only the launch checks fail).
 
 Output lines: the card's name and power limit (nvidia-smi), phase times,
 ptxas's registers and spills per kernel (gather_mlp, hub_reuse,
@@ -233,8 +256,11 @@ and ssd_chunk at the LM prefills' inputs; ``launches`` counted per
 wrapper, in the async serving run for the FC kernels, over the families
 phase's counted forwards for the wide route, in the entry phase for the
 entry kernels' rows (``lm_launches`` beside them: the LM phase's counted
-prefills), in the LM phase for its rows and in the full-width training
-runs for ``flash_attention_bwd``'s and ``ssd_chunk_bwd``'s;
+prefills), in the LM phase for its rows, in the full-width training
+runs for ``flash_attention_bwd``'s and ``ssd_chunk_bwd``'s, and in phase
+14's drive for the domain routes' rows (``route_launches`` beside: the
+route's own count; ``cache_x4_launches`` beside pointvector_l's block 4:
+phase 5's forward of that spec);
 ``pcn_train_launches`` beside the FC rows: phase 13's full-size run),
 and last
 ``{"ok": true,
@@ -518,6 +544,30 @@ SERVE_MESH = dict(batch=4, prompt_len=16, gen=32, cache_len=2048)
 SERVE_MESH_MAIN = ("olmo-1b", "mamba2-2.7b")
 SERVE_MESH_CUT = ("recurrentgemma-2b", "whisper-large-v3",
                   "llama4-maverick-400b-a17b")
+# phase 5: the families whose block 4 passes a block's shared memory at
+# the paper's Fig. 22 cache size (C = 128 there: 64-row chunks), at the
+# families phase's batch
+CACHE_X4_FAMILIES = ("pointnext_s", "pointvector_l")
+# phase 14, the kernels' domain routes (each against its plain version):
+# hub_reuse at pointvector_l's block 4 under CACHE_X4 (resident, 64-row
+# chunks) and on its streamed route at D = 700, at B = 2
+REUSE_DOMAIN = {
+    "pointvector_l_blk4_c128": dict(hn=1, c=128, m=64, k=32, d=387, h=1536,
+                                    f=768),
+    "stream_d700": dict(hn=4, c=128, m=64, k=32, d=700, h=1024, f=512)}
+# ssd_chunk's tiled route at Mamba-2's published chunk (256) and
+# Mamba2-2.7B's widths over 2048 tokens
+SSD_TILED = {"mamba2_2p7b_c256": dict(bs=1, nc=8, q=256, h=80, p=64, s=128),
+             "mamba2_2p7b_c256_bs2": dict(bs=2, nc=8, q=256, h=80, p=64,
+                                          s=128)}
+# flash_attention's split route: a causal layer of 8 heads over 2048
+# tokens at head widths past 256, (layer, D, dtype)
+FLASH_SPLIT_LAYER = dict(b=1, hq=8, hkv=8, s=2048, causal=True)
+FLASH_SPLIT = (("split_d512", 512, "float32"), ("split_d512", 512, "bfloat16"),
+               ("split_d257", 257, "bfloat16"))
+# mamba2-2.7b at chunk 256: a B x S prefill (f32) against the plain route,
+# and the 2-layer gradient wiring (TRAIN_WIRING)
+SSD_CHUNK_LONG = 256
 PLAN_DRYRUN = ("--arch", "olmo-1b", "--shape", "train_4k")
 PLAN_STEP = dict(arch="olmo-1b", b=4, s=2048, microbatches=2)
 
@@ -1239,13 +1289,14 @@ def wide_kernel_rows(dev, seed, launches) -> tuple[list, list]:
     return parity, rows
 
 
-def cache_x4_phase(params, batch) -> dict:
+def cache_x4_phase(params, batch, seed, dev) -> dict:
     """One pointnet2_c lpcn forward at the paper's Fig. 22 cache size
     (``CACHE_X4``: C = 4k, 256 rows at block 2) with the launch counts set
     to 0 just before and read just after: one gather_mlp launch a block
     and one hub_reuse launch per 128 cache rows, no entry kernel; logits
-    within 1e-4 of the "reference" backend at the same cache size.  ->
-    the launch counts."""
+    within 1e-4 of the "reference" backend at the same cache size.  Then
+    ``CACHE_X4_FAMILIES`` likewise at the families phase's batch
+    (``x4_family``).  -> (pointnet2_c's launch counts, each family's)."""
     import torch
     from repro_torch import kernels
     from repro_torch.engine import PCNEngine
@@ -1272,6 +1323,42 @@ def cache_x4_phase(params, batch) -> dict:
         k: v for k, v in launches.items() if v}, "max_abs_err": err,
         "tol": tol}}))
     check(err <= tol, f"cache_x4: cuda vs reference max|err| {err} > {tol}")
+    return launches, {name: x4_family(name, seed, dev)
+                      for name in CACHE_X4_FAMILIES}
+
+
+def x4_family(name, seed, dev) -> dict:
+    """``name`` at full width, published, in lpcn mode at ``CACHE_X4``:
+    one ragged batch of the families phase's size through
+    ``fc_backend="cuda"``, counted (``counted_forward``: the hub_reuse
+    launches each call's plan makes, 64-row chunks where 128 rows pass a
+    block's shared memory), the logits within 1e-4 · max(1, max|ref|) of
+    the "reference" backend.  -> the launch counts."""
+    import torch
+    from repro_torch.engine import PCNEngine
+    from repro_torch.models import MODEL_ZOO
+    spec = MODEL_ZOO[name][1]
+    b, n = FAMILIES[name]
+    eng = PCNEngine(spec, mode="lpcn", fc_backend="cuda", isl_kw=CACHE_X4)
+    ref = PCNEngine(spec, mode="lpcn", fc_backend="reference",
+                    isl_kw=CACHE_X4)
+    params = seed_biases(eng.init(seed=seed),
+                         torch.Generator().manual_seed(seed + 1))
+    fam, _ = family_batch(spec, b, n, seed, dev)
+    out, launches, cap = counted_forward(eng, params, fam)
+    plans = [dict(c=r["dims"]["c"], d=r["dims"]["d"], route=r["plan"][
+        "route"], chunk=r["plan"]["chunk"]) for r in cap
+        if r["kernel"] == "hub_reuse"]
+    err, tol = close(out, ref.apply(params, fam))
+    log(json.dumps({"cache_x4": {"spec": name, "b": b, "n": n,
+                                 "isl_kw": CACHE_X4, "hub_reuse": plans,
+                                 "launches": {k: v for k, v in
+                                              launches.items() if v},
+                                 "max_abs_err": err, "tol": tol}}))
+    check(err <= tol, f"cache_x4 {name}: cuda vs reference max|err| {err} "
+          f"> {tol}")
+    del eng, ref, params, fam, out
+    free_card()
     return launches
 
 
@@ -2591,13 +2678,14 @@ def ssd_bwd_held(label, args, parity):
     return got, worst
 
 
-def ssd_bwd_rows(dev, seed) -> tuple[list, list]:
+def ssd_bwd_rows(dev, seed, layers=None) -> tuple[list, list]:
     """ssd_chunk's backward kernel held (``ssd_bwd_held``) and timed
     beside its plain version at each ``SSD_BWD_LAYERS`` layer, with its
     bound, each pass's device time (torch.profiler) and the heads pass's
     plan (heads a group, groups, warps, blocks an SM, shared memory, B and
-    the state term on chip); then held at the ``SSD_PARITY`` shapes and
-    ``SSD_BWD_STEEP``.  -> (parity rows, ``kernels`` rows without
+    the state term on chip, the tiled route); then held at the
+    ``SSD_PARITY`` shapes and ``SSD_BWD_STEEP``.  Given ``layers``, at
+    those layers only.  -> (parity rows, ``kernels`` rows without
     launches)."""
     import torch
     from repro_torch.kernels import BUILD_LOG
@@ -2607,7 +2695,7 @@ def ssd_bwd_rows(dev, seed) -> tuple[list, list]:
     gen = torch.Generator(device=dev).manual_seed(seed)
     fmt = "bs={} nc={} q={} H={} P={} S={}"
     parity, rows = [], []
-    for name, f in SSD_BWD_LAYERS.items():
+    for name, f in (layers or SSD_BWD_LAYERS).items():
         args = ssd_bwd_inputs(gen, dev, **f)
         shape = fmt.format(*f.values())
         got, err = ssd_bwd_held(shape, args, parity)
@@ -2637,6 +2725,8 @@ def ssd_bwd_rows(dev, seed) -> tuple[list, list]:
         log(json.dumps({"bwd_kernel": row}))
         del args, got
         free_card()
+    if layers:
+        return parity, rows
     for shp in SSD_PARITY:
         ssd_bwd_held(fmt.format(*shp), ssd_bwd_inputs(gen, dev, *shp),
                      parity)
@@ -2667,14 +2757,15 @@ WIRING_PLANTED = {"olmo-1b": ("flash_attention", ("wq", "wk", "wv")),
                                   ("in_proj", "A_log", "dt_bias"))}
 
 
-def grad_wiring(dev, seed, arch) -> dict:
+def grad_wiring(dev, seed, arch, chunk=None) -> dict:
     """``arch`` at full width cut to ``TRAIN_WIRING``'s layers, float32:
     every leaf's gradient through the kernel route (forward and backward
     kernels, counted) against the plain route's, max|Δ| <=
     ``WIRING_TOL`` · max|plain| per leaf.  Then a planted fault: the
     forward kernel's output detached from its inputs (what the wrappers
     returned before their autograd Functions) must break that limit on
-    every leaf ``WIRING_PLANTED`` names."""
+    every leaf ``WIRING_PLANTED`` names.  ``chunk``: an SSD chunk in
+    place of the config's own."""
     import dataclasses
 
     import torch
@@ -2689,12 +2780,16 @@ def grad_wiring(dev, seed, arch) -> dict:
     w = TRAIN_WIRING
     cfg = dataclasses.replace(get_config(arch), n_layers=w["layers"],
                               dtype="float32")
+    if chunk:
+        cfg = dataclasses.replace(cfg, ssd_chunk=chunk)
     gen = torch.Generator(device=dev).manual_seed(seed)
     params = zoo.init(gen, cfg, dev)
     batch = lm_batch(cfg, w["b"], w["s"], gen, dev)
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     got = loss_and_grads(cfg, params, batch)[2]
+    routes = {k: v for k, v in kernels.LAUNCHES.items()
+              if k.startswith("ssd_chunk_") and v}
     torch.cuda.synchronize()
     launches = kernels.launch_counts()
     want_l = {**dict.fromkeys(launches, 0), **zoo.train_launches(cfg, 1)}
@@ -2721,6 +2816,7 @@ def grad_wiring(dev, seed, arch) -> dict:
     worst = max(ratios, key=lambda path: ratios[path][1])
     line = dict(train_wiring=arch, n_layers=cfg.n_layers,
                 batch=w["b"], seq=w["s"], dtype="float32", leaves=len(got),
+                ssd_chunk=cfg.ssd_chunk, ssd_routes=routes,
                 launches={k: v for k, v in launches.items() if v},
                 tol=WIRING_TOL, worst_share_of_limit=ratios[worst][1],
                 worst_leaf=worst,
@@ -3355,6 +3451,10 @@ def analysis_phase(smi) -> dict:
     check(all(by_kernel.values()) and all(by_family.values()),
           f"analysis: a kernel or family without sites: {by_kernel} "
           f"{by_family}")
+    routes = {(r["kernel"], r["launch"].get("route")) for r in rows}
+    check({("hub_reuse", "stream"), ("ssd_chunk", "tiled"),
+           ("flash_attention", "split")} <= routes,
+          f"analysis: a route past the old limits without sites: {routes}")
     for t in {r["target"] for r in rows if r["target"].endswith(
             "lpcn/cuda")}:
         kinds = {r["kernel"] for r in rows if r["target"] == t}
@@ -3575,6 +3675,223 @@ def pcn_train_phase(dev, smi) -> dict:
     return launches
 
 
+def domain_drive(dev, seed) -> tuple[dict, dict]:
+    """The domain routes' calls, each launched once with the launch counts
+    set to 0 just before and read just after: hub_reuse at
+    ``REUSE_DOMAIN`` (resident in 64-row chunks, streamed), ssd_chunk and
+    its backward at ``SSD_TILED`` (tiled), flash_attention and its
+    backward at ``FLASH_SPLIT`` (split), each route's count as its plan
+    says.  -> (launches by wrapper and by route, the calls' inputs)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.kernels import tiling
+    from repro_torch.kernels.flash_attention import flash_attention_backward
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.hub_reuse import hub_reuse
+    from repro_torch.kernels.ssd_chunk import ssd_chunk_backward
+    from repro_torch.kernels.ssd_chunk import ops as ssd_ops
+    gen = torch.Generator(device=dev).manual_seed(seed + 7)
+    hub = {name: reuse_inputs(torch.Generator().manual_seed(seed + 7), dev,
+                              2, **shp)
+           for name, shp in REUSE_DOMAIN.items()}
+    ssd = {name: ssd_bwd_inputs(gen, dev, **f) for name, f in
+           SSD_TILED.items()}
+    f = FLASH_SPLIT_LAYER
+    flash = {(layer, dt): tuple(
+        torch.randn((f["b"], h, f["s"], d), generator=gen,
+                    device=dev).to(getattr(torch, dt))
+        for h in (f["hq"], f["hkv"], f["hkv"], f["hq"]))
+        for layer, d, dt in FLASH_SPLIT}
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    for a in hub.values():
+        hub_reuse(*a[:7], live=a[7])
+    for a in ssd.values():
+        ssd_ops._forward(*a[:5])
+        ssd_chunk_backward(*a)
+    for q, k, v, do in flash.values():
+        o, lse = flash_ops._forward(q, k, v, True, lse=True)
+        flash_attention_backward(q, k, v, o, do, True, lse=lse)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    chunks = [tiling.hub_reuse_launches(shp["c"], tiling.hub_reuse_chunk(
+        shp["c"], shp["m"], shp["k"], shp["d"])) for shp in
+        REUSE_DOMAIN.values()]
+    routes = [tiling.hub_reuse_route(shp["c"], shp["m"], shp["k"], shp["d"])
+              for shp in REUSE_DOMAIN.values()]
+    n_ssd, n_fl = len(SSD_TILED), len(FLASH_SPLIT)
+    want = {"hub_reuse": sum(map(len, chunks)),
+            "ssd_chunk": n_ssd, "ssd_chunk_tiled": n_ssd,
+            "ssd_chunk_bwd": 2 * n_ssd, "ssd_chunk_bwd_tiled": 2 * n_ssd,
+            "flash_attention": n_fl, "flash_attention_split": n_fl,
+            "flash_attention_bwd": 2 * n_fl,
+            "flash_attention_bwd_dq_split": n_fl,
+            "flash_attention_bwd_dkdv_split": n_fl}
+    for route, ch in zip(routes, chunks):
+        want[f"hub_reuse_{route}"] = want.get(f"hub_reuse_{route}", 0) + len(
+            ch)
+    check(launches == want, f"domain launches {launches}, expected {want}")
+    check(routes == ["resident", "stream"] and chunks == [[64, 64], [128]],
+          f"domain: hub_reuse routes {routes} and chunks {chunks}, expected "
+          f"resident in 64-row chunks and stream")
+    return {**dict.fromkeys(want, 0), **launches}, dict(hub=hub, ssd=ssd,
+                                                       flash=flash)
+
+
+def domain_hub_rows(hub, launches) -> tuple[list, list]:
+    """hub_reuse at ``REUSE_DOMAIN``: the plan's route and shared memory
+    equal to the library's, the kernel against its plain version (1e-4 ·
+    max(1, max|plain|), the -BIG identity exactly), both timed in turns.
+    -> (parity rows, ``kernels`` rows)."""
+    from repro_torch.kernels import tiling
+    from repro_torch.kernels.hub_reuse import hub_reuse, hub_reuse_ref
+    from repro_torch.kernels.hub_reuse import ops as hub_ops
+    parity, rows = [], []
+    for name, shp in REUSE_DOMAIN.items():
+        pool, slot, comp, w1, b1, w2, b2, live = hub[name]
+        args = (pool, slot, comp, w1, b1, w2, b2)
+        dims = (shp["c"], shp["m"], shp["k"], shp["d"])
+        pl = hub_ops.plan(2, shp["hn"], *dims, shp["h"], shp["f"],
+                          pool.device)
+        smem = tiling.hub_reuse_smem(*dims, True, pl["chunk"])
+        lib = hub_ops.library_smem(*dims, shp["h"], True, pl["chunk"])
+        check(hub_ops.library_route(*dims) == pl["route"] and lib == smem,
+              f"hub_reuse {name}: route {pl['route']} and {smem} B by "
+              f"tiling.py, the library's {hub_ops.library_route(*dims)} "
+              f"and {lib} B")
+        out = hub_reuse(*args, live=live)
+        err, tol = max_err(out, hub_reuse_ref(*args, live=live))
+        parity.append(dict(name="hub_reuse", block=name, b=2, masked=True,
+                           route=pl["route"], chunk=pl["chunk"],
+                           max_abs_err=err, tol=tol))
+        check(err <= tol, f"hub_reuse {name}: max|err| {err} > {tol}")
+        ms, plain_ms = time_pair(lambda: hub_reuse(*args, live=live),
+                                 lambda: hub_reuse_ref(*args, live=live),
+                                 iters=10)
+        flops = 2 * 2 * shp["hn"] * shp["c"] * (
+            shp["d"] * shp["h"] + shp["h"] * shp["f"])
+        moved = nbytes(*args, live, out)
+        bms, by = bound(3 * flops, moved, PEAK_TF32)
+        rows.append(dict(
+            name="hub_reuse", block=name, route="cuda",
+            variant=f"mma_tf32x3_{pl['route']}_chunk{pl['chunk']}",
+            tflops=flops / ms / 1e9, bound_fp32_ms=bound(flops, moved)[0],
+            source="src/repro_torch/csrc/hub_reuse.cu",
+            replaces="src/repro/kernels/hub_reuse/hub_reuse.py:307",
+            shape=f"B=2 H={shp['hn']} C={shp['c']} M={shp['m']} "
+                  f"K={shp['k']} D={shp['d']} Hd={shp['h']} F={shp['f']} "
+                  f"live=True",
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+            bound_by=by, library_ms=None, smem=smem,
+            launches=launches["hub_reuse"],
+            route_launches=launches[f"hub_reuse_{pl['route']}"]))
+    return parity, rows
+
+
+def domain_phase(dev, seed, smi) -> tuple[list, list]:
+    """Phase 14, the kernels' domain routes: ``domain_drive`` (counted),
+    then each route held against its plain version and timed beside it
+    (``domain_hub_rows``; ``ssd_row`` and ``ssd_bwd_rows`` at
+    ``SSD_TILED``; ``flash_row`` and ``bwd_row`` at ``FLASH_SPLIT``, SDPA
+    beside them), each row with its wrapper's and its route's launches in
+    the drive; then mamba2-2.7b at chunk ``SSD_CHUNK_LONG``: a counted
+    f32 prefill of ``LM_PREFILL`` against the plain route (max|Δ| <=
+    ``LM_F32_TOL`` · max(1, max|plain|)) and the gradient wiring
+    (``grad_wiring``) at 2 layers.  -> (parity rows, ``kernels`` rows)."""
+    import dataclasses
+
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd_chunk import ops as ssd_ops
+    from repro_torch.lm import model_zoo as zoo
+    from repro_torch.lm import steps
+    launches, inputs = domain_drive(dev, seed)
+    log(json.dumps({"domain_launches": launches}))
+    parity, rows = domain_hub_rows(inputs["hub"], launches)
+    ssd_parity = []
+    for name, a in inputs["ssd"].items():
+        row = ssd_row(name, a[:5], ssd_ops._forward(*a[:5]), ssd_parity)
+        row.update(variant="fp32_tiled", plan=ssd_ops.library_plan(
+            a[0].shape[0] * a[0].shape[1], a[0].shape[3], a[0].shape[2],
+            a[0].shape[4], a[1].shape[-1]), launches=launches["ssd_chunk"],
+            route_launches=launches["ssd_chunk_tiled"])
+        rows.append(row)
+    del inputs["ssd"]
+    free_card()
+    bwd_parity, bwd = ssd_bwd_rows(dev, seed + 7, SSD_TILED)
+    for row in bwd:
+        row.update(variant="fp32_tiled", launches=launches["ssd_chunk_bwd"],
+                   route_launches=launches["ssd_chunk_bwd_tiled"])
+    parity += ssd_parity + bwd_parity
+    rows += bwd
+    f = FLASH_SPLIT_LAYER
+    for (layer, dt), (q, k, v, _) in inputs["flash"].items():
+        d = q.shape[-1]
+        from repro_torch.kernels.flash_attention import flash_attention
+        with torch.no_grad():
+            out = flash_attention(q, k, v, causal=True)
+        p_row, k_row = flash_row(layer, {**f, "d": d}, dt, q, k, v, out)
+        k_row.update(source="src/repro_torch/csrc/flash_split.cuh",
+                     launches=launches["flash_attention"],
+                     route_launches=launches["flash_attention_split"])
+        parity.append(p_row)
+        rows.append(k_row)
+        p_row, k_row = bwd_row(layer, {**f, "d": d}, getattr(torch, dt), dev,
+                               seed + 7)
+        k_row.update(source="src/repro_torch/csrc/flash_split.cuh",
+                     launches=launches["flash_attention_bwd"],
+                     route_launches={
+                         p: launches[f"flash_attention_bwd_{p}_split"]
+                         for p in ("dq", "dkdv")})
+        parity.append(p_row)
+        rows.append(k_row)
+        log(json.dumps({"bwd_kernel": k_row}))
+    del inputs
+    free_card()
+
+    # ---- mamba2-2.7b at chunk 256: the prefill and the gradient wiring --
+    cfg = dataclasses.replace(get_config("mamba2-2.7b"), dtype="float32",
+                              ssd_chunk=SSD_CHUNK_LONG)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = zoo.init(gen, cfg, dev)
+    batch = lm_batch(cfg, LM_PREFILL["b"], LM_PREFILL["s"], gen, dev)
+    # the counted prefill and lm_prefill's two timed ones
+    out, pre, ms = lm_prefill(cfg, params, batch, "mamba2-2.7b chunk 256",
+                              repeats=2)
+    tiled = kernels.LAUNCHES["ssd_chunk_tiled"]
+    check(pre["ssd_chunk"] == cfg.n_layers and tiled == 3 * cfg.n_layers,
+          f"mamba2-2.7b chunk 256: {pre['ssd_chunk']} ssd_chunk launches a "
+          f"prefill and {tiled} tiled over three, expected {cfg.n_layers} "
+          f"and all tiled")
+    with plain_route():
+        t0 = time.perf_counter()
+        plain = steps.make_prefill_step(cfg)(params, batch)
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.perf_counter() - t0)
+    err = (out.float() - plain.float()).abs().max().item()
+    scale = max(1.0, plain.float().abs().max().item())
+    line = dict(domain_lm="mamba2-2.7b", ssd_chunk=cfg.ssd_chunk,
+                n_layers=cfg.n_layers, batch=LM_PREFILL["b"],
+                seq=LM_PREFILL["s"], dtype="float32", card=smi,
+                prefill_launches={k: v for k, v in pre.items() if v},
+                tiled_launches_over_3_prefills=tiled, prefill_ms=ms,
+                plain_prefill_ms=plain_ms,
+                vs_plain_max_abs_err=err, plain_scale=scale,
+                vs_plain_rel_err=rel_err(out, plain), tol=LM_F32_TOL)
+    log(json.dumps(line))
+    check(err <= LM_F32_TOL * scale, f"mamba2-2.7b chunk 256 prefill: "
+          f"max|Δ| {err} > {LM_F32_TOL} · {scale}")
+    del params, batch, out, plain
+    free_card()
+    wiring = grad_wiring(dev, seed, "mamba2-2.7b", SSD_CHUNK_LONG)
+    check(wiring["ssd_routes"].get("ssd_chunk_tiled", 0) > 0
+          and wiring["ssd_routes"].get("ssd_chunk_bwd_tiled", 0) > 0,
+          f"mamba2-2.7b chunk 256 wiring: routes {wiring['ssd_routes']}")
+    log(json.dumps(wiring))
+    return parity, rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3697,7 +4014,7 @@ def main() -> int:
 
     # ---- lpcn at cache_capacity_x = 4: hub_reuse past 128 cache rows ----
     t = time.perf_counter()
-    x4_launches = cache_x4_phase(params, batch)
+    x4_launches, x4_families = cache_x4_phase(params, batch, args.seed, dev)
     phases["cache_x4_s"] = time.perf_counter() - t
 
     # ---- the paper's other samplers and neighbor searches ---------------
@@ -3782,6 +4099,14 @@ def main() -> int:
     log(f"pcn_train_s {phases['pcn_train_s']:.2f}; FC launches of the "
         f"full-size run {pcn_launches}")
 
+    # ---- the kernels' domain routes: past the old routes' limits ---------
+    t = time.perf_counter()
+    domain_parity, domain_rows = domain_phase(dev, args.seed,
+                                              smi.splitlines()[0])
+    phases["domain_s"] = time.perf_counter() - t
+    log(f"domain_s {phases['domain_s']:.2f}")
+    log(json.dumps({"domain_parity": domain_parity}))
+
     # the per-cloud entries (B = 1) are the same kernels: each wrapper
     # counts its kernel's launches whatever the shape
     rows += per_cloud
@@ -3795,7 +4120,11 @@ def main() -> int:
         row["launches"] = lm_launches[row["name"]]
     for row in train_rows:
         row["launches"] = train_launches[row["name"]]
-    rows += wide_rows + entry_rows + lm_rows + train_rows
+    for row in domain_rows:           # the block phase 5 runs published
+        if row["block"] == "pointvector_l_blk4_c128":
+            row["cache_x4_launches"] = x4_families["pointvector_l"][
+                "hub_reuse"]
+    rows += wide_rows + entry_rows + lm_rows + train_rows + domain_rows
     for row in rows:
         if row["name"] in pcn_launches:
             row["pcn_train_launches"] = pcn_launches[row["name"]]

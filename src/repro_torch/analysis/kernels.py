@@ -22,7 +22,9 @@ own launch, so the copies are held to the sources they copy.
 * **K002** — each route's alignment precondition: the narrow row tile
   holds whole 16-padded subsets, the wide route's F tiles are 64-column
   multiples of at most 256, ``wgmma`` takes bf16 rows of 16 bytes, a
-  chunk is 64 or 128 cache rows, an SSD chunk at most 128 rows.
+  chunk is 64 or 128 cache rows, an SSD chunk at most 128 rows on its
+  ``whole`` route, a flash head at most 256 wide off its ``split``
+  route.
 * **K003** — the grid writes every output tile and no block writes
   only outside the output or nothing, the splits of H and of the cache
   rows cover them, and the plan that launched (captured on the card, or
@@ -99,7 +101,12 @@ class KernelSite:
 
 KNN_WARPS, KNN_TILE, KNN_BUF = 8, 1024, 96
 KNN_SCRATCH_BUDGET = 256 << 20
+# SSD_QMAX: the longest chunk of ssd_chunk's "whole" route (the tiled
+# route takes longer ones in SSD_TILE-row tiles, with 128-column S tiles
+# for its states); FLASH_DMAX: the widest head off flash's "split" route
 SSD_QMAX, SSD_ST, SSD_PT, SSD_MAX_HEADS = 128, 128, 64, 16
+SSD_TILE = 64
+SSD_TILED_SMEM = 4 * (2 * 32 * 129 + 64 * 65 + 3 * 64)
 FLASH_DMAX = 256
 
 
@@ -130,7 +137,12 @@ def knn_plan(s: int, n: int, k: int, sms: int) -> dict:
 
 def flash_layout(route: str, dtype: str, d: int) -> dict:
     """``flash_attention.cu``'s tiles for a route: query rows a block
-    ``bq``, keys a tile ``bk``, D padded ``dp`` and shared memory."""
+    ``bq``, keys a tile ``bk``, D padded ``dp`` and shared memory (the
+    split route: ``flash_split.cuh``, 64 rows and 64 columns of D a
+    block)."""
+    if route == "split":
+        return dict(bq=64, bk=64, dp=round_up(d, 64),
+                    smem=4 * (2 * 32 * 129 + 64 * 65))
     if route == "wgmma":
         dp = 64 if d <= 64 else 128
         tile = dp // 64 * 128 * 128          # kHalves x 128 rows x 128 B
@@ -146,15 +158,24 @@ def flash_layout(route: str, dtype: str, d: int) -> dict:
 
 
 def flash_route(dtype: str, d: int, aligned: bool) -> str:
-    """``ops._variant``: wgmma for 16-byte aligned bf16 with D % 8 == 0
-    and D <= 128, else mma."""
+    """``ops._variant``: split for D > FLASH_DMAX, wgmma for 16-byte
+    aligned bf16 with D % 8 == 0 and D <= 128, else mma."""
+    if d > FLASH_DMAX:
+        return "split"
     return ("wgmma" if dtype == "bfloat16" and d % 8 == 0 and d <= 128
             and aligned else "mma")
 
 
 def ssd_plan(bn: int, h: int, q: int, p: int, s: int, sms: int) -> dict:
     """``ssd_chunk.cu``'s launch: q padded ``qp``, heads a block ``hg``
-    (``heads_per_block``), the grid and shared memory."""
+    (``heads_per_block``), the grid and shared memory; ``tiled`` for the
+    tiled route (q > SSD_QMAX: a head a block, and per chunk each head's
+    row tiles and states tiles)."""
+    if q > SSD_QMAX:
+        nt = -(-q // SSD_TILE)
+        tiles = nt + -(-p // SSD_PT) * -(-s // (2 * SSD_TILE))
+        return dict(qp=nt * SSD_TILE, hg=1, grid=(bn, h * tiles),
+                    smem=SSD_TILED_SMEM, tiled=1)
     qp = round_up(q, 16)
     ldcb = round_up(qp, 32) + 8
     smem = 4 * (qp * (SSD_ST + 4) + qp * ldcb + 2 * qp * (SSD_PT + 4)
@@ -169,7 +190,8 @@ def ssd_plan(bn: int, h: int, q: int, p: int, s: int, sms: int) -> dict:
         cost = -(-blocks // slots) * (hg * head + cb)
         if hg == 1 or cost < best_cost:
             best, best_cost = hg, cost
-    return dict(qp=qp, hg=best, grid=(bn, -(-h // best)), smem=smem)
+    return dict(qp=qp, hg=best, grid=(bn, -(-h // best)), smem=smem,
+                tiled=0)
 
 
 # ---- sites from captured plans --------------------------------------------
@@ -255,8 +277,12 @@ def _hub_reuse_site(dims, plan, where, sms, card):
                                                  "d", "h", "f"))
     per_cloud = plan.get("variant") == "per_cloud"
     nb, bb = (b, 1) if per_cloud else (1, b)
-    chunk = plan.get("chunk") or 128
+    chunk = plan.get("chunk") or tiling.hub_reuse_chunk(c, m, k, d)
     launches = tiling.hub_reuse_launches(c, chunk)
+    route = tiling.hub_reuse_route(c, m, k, d)
+    # the streamed route stages a warp's slots a tile at a time
+    slots = ((m, round_up(k, 4)) if route == "resident"
+             else (1, tiling.SLOT_TILE))
     nf = -(-f // 64)
     site = KernelSite(
         "hub_reuse", where, dims, plan,
@@ -265,17 +291,23 @@ def _hub_reuse_site(dims, plan, where, sms, card):
         out_shape=(nb, bb * hn, f), out_block=(1, 1, 64),
         out_map=lambda p: [(p[0], p[2], p[3])],
         smem=tiling.hub_reuse_smem(c, m, k, d, True, chunk),
-        launch=dict(chunk=chunk, launches=launches),
-        operands=[OperandInfo("slot table", (m, k), (m, round_up(k, 4)),
-                              True)],
+        launch=dict(route=route, chunk=chunk, launches=launches),
+        operands=[OperandInfo("slot table", (m, k), slots,
+                              route == "resident")],
         preconditions=[(f"chunk {chunk} in {tiling.CHUNKS}",
                         chunk in tiling.CHUNKS)],
         coverage=[(f"launches {launches} cover the {c} cache rows",
                    sum(launches) == c and all(0 < r <= chunk
-                                              for r in launches))])
+                                              for r in launches))],
+        mismatch=([] if plan.get("route") in (None, route) else
+                  [f"route {plan['route']} launched, {route} derived"]))
     if card:
         from ..kernels.hub_reuse import ops
         site.smem_library = ops.library_smem(c, m, k, d, h, True, chunk)
+        lib_route = ops.library_route(c, m, k, d)
+        if lib_route != route:
+            site.mismatch.append(f"route {lib_route} from the library, "
+                                 f"{route} derived")
     return site
 
 
@@ -320,7 +352,8 @@ def _flash_site(dims, plan, where, sms, card):
                 [f"route {plan['route']} launched, {route} derived"])
     lay = flash_layout(route, dtype, d)
     bq = lay["bq"]
-    pre = [(f"D={d} in 1..{FLASH_DMAX}", 0 < d <= FLASH_DMAX),
+    pre = [(f"D={d} in 1..{FLASH_DMAX} off the split route",
+            0 < d and (route == "split" or d <= FLASH_DMAX)),
            (f"Hq={hq} a multiple of Hkv={hkv}", hkv > 0 and hq % hkv == 0)]
     if route == "wgmma":
         pre += [(f"wgmma takes bf16, got {dtype}", dtype == "bfloat16"),
@@ -328,13 +361,20 @@ def _flash_site(dims, plan, where, sms, card):
                  d % 8 == 0 and d <= 128),
                 ("wgmma's TMA bases 16-byte aligned",
                  bool(plan.get("aligned", True)))]
+    # the split route's grid also runs D's 64-column slices
+    if route == "split":
+        grid, out_shape, out_block = ((b * hq, -(-sq // bq), -(-d // 64)),
+                                      (b * hq, sq, d), (1, bq, 64))
+    else:
+        grid, out_shape, out_block = ((b * hq, -(-sq // bq)), (b * hq, sq),
+                                      (1, bq))
     site = KernelSite(
-        "flash_attention", where, dims, plan, grid=(b * hq, -(-sq // bq)),
-        semantics=(PARALLEL, PARALLEL), out_shape=(b * hq, sq),
-        out_block=(1, bq), out_map=lambda p: [p], smem=lay["smem"],
+        "flash_attention", where, dims, plan, grid=grid,
+        semantics=(PARALLEL,) * len(grid), out_shape=out_shape,
+        out_block=out_block, out_map=lambda p: [p], smem=lay["smem"],
         launch=dict(route=route, **lay), preconditions=pre,
         mismatch=mismatch)
-    if card and 0 < d <= FLASH_DMAX:
+    if card and 0 < d:
         from ..kernels.flash_attention import ops
         lib = ops.library_layout(route, dtype, d)
         site.smem_library = lib["smem"]
@@ -350,22 +390,30 @@ def _ssd_site(dims, plan, where, sms, card):
     bn, h, q, p, s = (dims[n] for n in ("bn", "h", "q", "p", "s"))
     sp = ssd_plan(bn, h, q, p, s, sms)
     hg = sp["hg"]
+    way = "tiled" if sp["tiled"] else "whole"
     site = KernelSite(
         "ssd_chunk", where, dims, plan, grid=sp["grid"],
-        semantics=(PARALLEL, PARALLEL), out_shape=(bn, h),
+        semantics=(PARALLEL, PARALLEL),
+        # the tiled route: a block a (chunk, head, tile)
+        out_shape=(bn, sp["grid"][1] if sp["tiled"] else h),
         out_block=(1, hg), out_map=lambda pt: [pt], smem=sp["smem"],
-        smem_limit=MAX_SMEM - STATIC_SMEM, launch=sp,
+        smem_limit=MAX_SMEM - STATIC_SMEM, launch=dict(route=way, **sp),
         preconditions=[
-            (f"chunk q={q} in 1..{SSD_QMAX}", 0 < q <= SSD_QMAX),
+            (f"chunk q={q} in 1..{SSD_QMAX} on the whole route",
+             0 < q and (sp["tiled"] or q <= SSD_QMAX)),
             (f"{hg} heads a block in 1..{SSD_MAX_HEADS}",
-             0 < hg <= SSD_MAX_HEADS)])
-    if card and 0 < q <= SSD_QMAX:
+             0 < hg <= SSD_MAX_HEADS)],
+        mismatch=([] if plan.get("route") in (None, way) else
+                  [f"route {plan['route']} launched, {way} derived"]))
+    if card and q > 0:
         from ..kernels.ssd_chunk import ops
         lib = ops.library_plan(bn, h, q, p, s)
         site.smem_library = lib["smem"]
         theirs = dict(qp=lib["qp"], hg=lib["hg"],
-                      grid=(lib["grid_x"], lib["grid_y"]))
-        ours = dict(qp=sp["qp"], hg=hg, grid=tuple(sp["grid"]))
+                      grid=(lib["grid_x"], lib["grid_y"]),
+                      tiled=lib.get("tiled", sp["tiled"]))
+        ours = dict(qp=sp["qp"], hg=hg, grid=tuple(sp["grid"]),
+                    tiled=sp["tiled"])
         if theirs != ours:
             site.mismatch.append(f"plan {theirs} from the library, {ours} "
                                  f"derived")
@@ -504,7 +552,8 @@ def plan_site(kernel: str, dims: dict, knobs: dict, *, sms: int,
     plan = {"provenance": "override", "variant": knobs.get("variant"),
             **{n: knobs.get(n) for n in tiling.KNOBS[kernel]}}
     if kernel == "hub_reuse":
-        plan["chunk"] = knobs.get("chunk", 128)
+        plan["chunk"] = knobs.get("chunk", tiling.hub_reuse_chunk(
+            *(dims[n] for n in ("c", "m", "k", "d"))))
     return site_from_capture({"kernel": kernel, "dims": dims, "plan": plan},
                              f"{where}:{kernel}", sms=sms, card=card)
 

@@ -30,7 +30,7 @@ from ..device import resolve_device
 MODELS = ("pointnet2", "dgcnn", "pointnext", "pointvector")
 MODES = ("traditional", "lpcn")
 BACKENDS = ("reference", "cuda")
-ENTRIES = ("knn", "flash_attention", "ssd_chunk")
+ENTRIES = ("knn", "flash_attention", "ssd_chunk", "hub_reuse")
 
 _N = 96
 _SIZES = (96, 70, 57)
@@ -184,8 +184,11 @@ def _entry_targets(device, names=ENTRIES) -> list:
     """One target per entry kernel, at the widths of its model's reduced
     config: knn over a 96-point cloud (k = 8) and over 1024 points
     (k = 300, lists past the registers), flash_attention at olmo-1b's
-    reduced heads in float32 and bfloat16, ssd_chunk at mamba2-2.7b's
-    reduced widths."""
+    reduced heads in float32 and bfloat16 and at a head of 320 (the split
+    route), ssd_chunk at mamba2-2.7b's reduced widths and at a chunk of
+    160 (the tiled route); and one for the FC kernel's routes that no
+    reduced spec reaches: hub_reuse at C = 128 and D = 387 (resident, in
+    64-row chunks) and at D = 700 (streamed)."""
     from ..configs import get_config
     gen = torch.Generator().manual_seed(0)
 
@@ -207,6 +210,8 @@ def _entry_targets(device, names=ENTRIES) -> list:
         hq, hkv, d = cfg.n_heads, cfg.n_kv, cfg.hd
         calls = [tuple(r(2, h, 64, d, dtype=dt) for h in (hq, hkv, hkv))
                  for dt in (torch.float32, torch.bfloat16)]
+        calls.append(tuple(r(1, h, 64, 320, dtype=torch.bfloat16)
+                           for h in (hq, hkv, hkv)))
         out.append(Target(
             "entry:flash_attention",
             lambda calls=calls: [flash_attention(*c, causal=True)
@@ -220,8 +225,25 @@ def _entry_targets(device, names=ENTRIES) -> list:
         dt = torch.rand((2, 2, q, h), generator=gen).to(device) * 0.1
         args = (r(2, 2, q, h, p), r(2, 2, q, s), r(2, 2, q, s), dt,
                 torch.cumsum(-dt, 2))
-        out.append(Target("entry:ssd_chunk", lambda: ssd_chunk(*args),
-                          operands={"args": args}, device=device))
+        dt2 = torch.rand((1, 1, 160, h), generator=gen).to(device) * 0.1
+        long = (r(1, 1, 160, h, p), r(1, 1, 160, s), r(1, 1, 160, s), dt2,
+                torch.cumsum(-dt2, 2))
+        out.append(Target("entry:ssd_chunk",
+                          lambda: [ssd_chunk(*args), ssd_chunk(*long)],
+                          operands={"args": args, "long": long},
+                          device=device))
+    if "hub_reuse" in names:
+        from ..kernels.hub_reuse import hub_reuse
+        calls = []
+        for d in (387, 700):
+            slot = torch.randint(-1, 128, (1, 1, 8, 8), generator=gen,
+                                 dtype=torch.int32).to(device)
+            calls.append((r(1, 1, 128, d), slot, r(1, 1, 8, 16), r(d, 16),
+                          r(16), r(16, 16), r(16)))
+        out.append(Target(
+            "entry:hub_reuse",
+            lambda calls=calls: [hub_reuse(*c) for c in calls],
+            operands={"calls": calls}, device=device))
     return out
 
 

@@ -51,8 +51,8 @@
 //   first K tile) and epilogue (O stored from registers) are not
 //   overlapped with another block.
 //
-// * mma (every other call: f32, and bf16 with D % 8 != 0, D > 128 or an
-//   operand off 16 bytes, which TMA cannot read; D <= 256): both
+// * mma (every other call up to D = 256: f32, and bf16 with D % 8 != 0,
+//   D > 128 or an operand off 16 bytes, which TMA cannot read): both
 //   products on the tensor cores with warp-level mma.sync.  f32 runs in
 //   3xTF32 (csrc/tf32x3.cuh: each operand split in registers into a TF32
 //   big part and a remainder, three m16n8k8 products, small terms first),
@@ -95,8 +95,12 @@
 //   fragment from shared memory for 16 rows only, and mma.sync has no
 //   asynchronous pipeline to hide the softmax behind.
 //
-// The two round differently from the TPU kernel, which multiplies p by v
-// in fp32: bf16 on either route rounds P to bf16 first, as tensor-core
+// * split (D > 256, fp32 or bf16): csrc/flash_split.cuh, fp32 on the CUDA
+//   cores, 64 query rows and a 64-column slice of D a block, S summed
+//   over all of D; correct, not tuned.
+//
+// The routes round differently from the TPU kernel, which multiplies p by
+// v in fp32: bf16 on either route rounds P to bf16 first, as tensor-core
 // flash kernels do; f32 keeps it in 3xTF32.
 //
 // Given a non-null `lse`, both kernels also store each row's log-sum-exp
@@ -110,12 +114,13 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_split.cuh"
 #include "sm90.cuh"
 #include "tf32x3.cuh"
 
 namespace {
 
-constexpr int kDMax = 256;
+constexpr int kDMax = 256;     // the widest head of the mma and wgmma routes
 
 __device__ __forceinline__ float ex2(float x) {
   float y;
@@ -926,15 +931,48 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 // log-sum-exp in the kernels' log2 domain, log2(sum_j exp2(q_i . k_j *
 // scale * log2(e))) over the visible keys (lse2 above), which
 // flash_attention_bwd reads
+namespace {
+
+template <typename T>
+cudaError_t launch_split(const void* q, const void* k, const void* v,
+                         void* o, float* lse, int B, int Hq, int Hkv, int Sq,
+                         int Skv, int D, int causal, cudaStream_t stream) {
+  const dim3 grid = split::grid(Sq, (long long)B * Hq, D);
+  if (grid.y > 65535 || grid.z > 65535) return cudaErrorInvalidValue;
+  const cudaError_t err =
+      split::smem_attr(split::flash_split_fwd<T>, split::kFwdSmem);
+  if (err != cudaSuccess) return err;
+  split::flash_split_fwd<T><<<grid, split::kBlock, split::kFwdSmem,
+                              stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, lse,
+      split::make_shape(Hq, Hkv, Sq, Skv, D, causal));
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// variant: 0 mma, 1 wgmma (bf16, D % 8 == 0, D <= 128, 16-byte aligned),
+// 2 split (D > 256)
 extern "C" int flash_attention_forward(const void* q, const void* k,
                                        const void* v, void* o, void* lse,
                                        int B, int Hq, int Hkv, int Sq,
                                        int Skv, int D, int causal, int dtype,
                                        int variant, void* stream) {
-  if (D < 1 || D > kDMax || Hkv < 1 || Hq % Hkv != 0 || Skv < 1)
+  if (D < 1 || Hkv < 1 || Hq % Hkv != 0 || Skv < 1)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   float* l = static_cast<float*>(lse);
+  if (variant == 2) {
+    if (D <= kDMax) return (int)cudaErrorInvalidValue;
+    if (dtype == 0)
+      return (int)launch_split<float>(q, k, v, o, l, B, Hq, Hkv, Sq, Skv, D,
+                                      causal, st);
+    if (dtype == 1)
+      return (int)launch_split<__nv_bfloat16>(q, k, v, o, l, B, Hq, Hkv, Sq,
+                                              Skv, D, causal, st);
+    return (int)cudaErrorInvalidValue;
+  }
+  if (D > kDMax) return (int)cudaErrorInvalidValue;
   if (variant == 1) {
     if (dtype != 1 || D % 8 != 0 || D > 128) return (int)cudaErrorInvalidValue;
     if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
@@ -985,6 +1023,16 @@ void wg_layout(int* out) {
 // route the call cannot take
 extern "C" int flash_attention_layout(int variant, int dtype, int D,
                                       int* out) {
+  if (variant == 2) {
+    if (D <= kDMax || (dtype != 0 && dtype != 1))
+      return (int)cudaErrorInvalidValue;
+    out[0] = split::kT;
+    out[1] = split::kT;
+    out[2] = (D + split::kT - 1) / split::kT * split::kT;
+    out[3] = (int)split::kFwdSmem;
+    out[4] = split::kBlock;
+    return 0;
+  }
   if (D < 1 || D > kDMax) return (int)cudaErrorInvalidValue;
   if (variant == 1) {
     if (dtype != 1 || D % 8 != 0 || D > 128) return (int)cudaErrorInvalidValue;

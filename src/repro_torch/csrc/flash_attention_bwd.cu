@@ -77,6 +77,12 @@
 //   16 bytes or with D * sizeof(T) % 16 != 0 load element by element into
 //   the same stages.
 //
+// * split (D > 256, fp32 or bf16): csrc/flash_split.cuh, fp32 on the CUDA
+//   cores, the same two passes with 64 rows and a 64-column slice of D a
+//   block (S and dP summed over all of D); the dK/dV pass walks the
+//   group's query heads in order, so it needs no cluster.  Correct, not
+//   tuned.
+//
 // Rows past Sq or Skv load as zero and are masked, so a ragged last tile
 // gives P = 0 there.  What bounds it on an H100: the five products of the
 // gradient are 2.5x the forward's two (olmo-1b's layer, B = 2, H = 16, S =
@@ -93,6 +99,7 @@
 
 #include <type_traits>
 
+#include "flash_split.cuh"
 #include "sm90.cuh"
 #include "tf32x3.cuh"
 
@@ -100,7 +107,7 @@ namespace {
 
 namespace cg = cooperative_groups;
 
-constexpr int kDMax = 256;
+constexpr int kDMax = 256;     // the widest head of the mma and wgmma routes
 constexpr int kSmemMax = 232448;        // shared memory a block can have
 constexpr int kSmemSm = 233472;         // shared memory of an SM
 // blocks a cluster at most: at Qwen2-72B's layer (group 8) clusters of 2
@@ -1237,13 +1244,38 @@ cudaError_t launch_wgmma(const Args& a) {
              a.Sq, a.Skv, a.D, scale_log2, scale, a.causal);
 }
 
+template <typename T>
+cudaError_t launch_split(const Args& a) {
+  const split::Shape sh =
+      split::make_shape(a.Hq, a.Hkv, a.Sq, a.Skv, a.D, a.causal);
+  const dim3 g1 = split::grid(a.Sq, (long long)a.B * a.Hq, a.D);
+  const dim3 g2 = split::grid(a.Skv, (long long)a.B * a.Hkv, a.D);
+  if (g1.y > 65535 || g1.z > 65535) return cudaErrorInvalidValue;
+  cudaError_t err = split::smem_attr(split::flash_split_dq<T>,
+                                     split::kDqSmem);
+  if (err != cudaSuccess) return err;
+  err = split::smem_attr(split::flash_split_dkv<T>, split::kDkvSmem);
+  if (err != cudaSuccess) return err;
+  split::flash_split_dq<T><<<g1, split::kBlock, split::kDqSmem, a.stream>>>(
+      (const T*)a.q, (const T*)a.k, (const T*)a.v, (const T*)a.o,
+      (const T*)a.dout, a.lse, (T*)a.dq, a.dsum, sh);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  split::flash_split_dkv<T><<<g2, split::kBlock, split::kDkvSmem,
+                              a.stream>>>(
+      (const T*)a.q, (const T*)a.k, (const T*)a.v, (const T*)a.dout, a.lse,
+      (const float*)a.dsum, (T*)a.dk, (T*)a.dv, sh);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // dq (B, Hq, Sq, D), dk and dv (B, Hkv, Skv, D) in the inputs' type (dtype
 // 0 fp32, 1 bf16); lse: the forward's (flash_attention_forward), B * Hq *
 // Sq floats; dsum: B * Hq * Sq floats of scratch.  variant: 0 mma, 1 wgmma
-// (bf16, D % 8 == 0, D <= 128, q, k, v, o and dout 16-byte aligned).  Two
-// launches on `stream`; returns the first cudaError_t that is not success.
+// (bf16, D % 8 == 0, D <= 128, q, k, v, o and dout 16-byte aligned), 2
+// split (D > 256).  Two launches on `stream`; returns the first
+// cudaError_t that is not success.
 extern "C" int flash_attention_backward(const void* q, const void* k,
                                         const void* v, const void* o,
                                         const void* dout, const void* lse,
@@ -1252,12 +1284,18 @@ extern "C" int flash_attention_backward(const void* q, const void* k,
                                         int Sq, int Skv, int D, int causal,
                                         int dtype, int variant,
                                         void* stream) {
-  if (D < 1 || D > kDMax || Hkv < 1 || Hq % Hkv != 0 || Sq < 1 || Skv < 1 ||
-      B < 1)
+  if (D < 1 || Hkv < 1 || Hq % Hkv != 0 || Sq < 1 || Skv < 1 || B < 1)
     return (int)cudaErrorInvalidValue;
   const Args a{q, k, v, o, dout, static_cast<const float*>(lse), dq, dk, dv,
                static_cast<float*>(dsum), B, Hq, Hkv, Sq, Skv, D, causal,
                (cudaStream_t)stream};
+  if (variant == 2) {
+    if (D <= kDMax) return (int)cudaErrorInvalidValue;
+    if (dtype == 0) return (int)launch_split<float>(a);
+    if (dtype == 1) return (int)launch_split<__nv_bfloat16>(a);
+    return (int)cudaErrorInvalidValue;
+  }
+  if (D > kDMax) return (int)cudaErrorInvalidValue;
   if (variant == 1) {
     if (dtype != 1 || D % 8 != 0 || D > 128) return (int)cudaErrorInvalidValue;
     if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |

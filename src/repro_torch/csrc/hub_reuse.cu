@@ -60,6 +60,18 @@
 //     slots into y rows (-1 where a slot is not cached or not live), then
 //     each (m, k) reads one y row without bank conflicts and a dead slot
 //     is a warp-uniform skip; comp is read once per (m, f), coalesced.
+//
+// The streamed route.  The route above stages x (C x D) and the slots and
+// liveness (M x K) whole, so its shared memory grows with D and M*K: past
+// 227 KB at 64 rows (D of ~590, or M*K of ~28,000 slots) no chunk fits.
+// Such a call streams (`streams` below; the planner's copy is
+// kernels/tiling.py::hub_reuse_route): the same grid, warps and ring, but
+// x arrives one 64-column slice at a time, at each W1 stage, into an R x
+// 64 tile that later holds y (so layer 1 is summed over D in slices, as
+// gather_mlp's wide route streams x), and each warp stages its subset's
+// slots and liveness kSlotTile at a time just before its gather.  Its
+// shared memory is fixed: 93 KB at 64 rows, 134 KB at 128.  The slices
+// are re-read once per Hd chunk, from L2; no speed was sought.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -79,6 +91,8 @@ constexpr int kHS = kNC + 8;             // h and y row stride (≡ 8 mod 32)
 constexpr int kN2 = kNC / kKC;           // W2 stages per Hd chunk
 constexpr int kMaxC = 128;               // the most cache rows a launch takes
 constexpr float kBig = 3.4e38f;          // the max-pool identity of the JAX code
+constexpr int kSlotTile = 128;           // slots a warp stages (streamed)
+constexpr long long kMaxSmem = 232448;   // a block's shared memory
 
 struct Params {
   const float* pool;
@@ -211,10 +225,18 @@ __host__ __device__ __forceinline__ int live_floats(const Params& p) {
   return p.live == nullptr ? 0 : (p.M * p.K + 15) / 16 * 4;
 }
 
-// Floats of the x region: R rows of x, later R rows of y
-template <class L>
+// Floats of the x region: R rows of x (a 64-column slice of them when
+// streamed), later R rows of y
+template <class L, bool kStream>
 __host__ __device__ __forceinline__ int xy_floats(const Params& p) {
-  return L::kR * (p.XD > kHS ? p.XD : kHS);
+  return L::kR * (!kStream && p.XD > kHS ? p.XD : kHS);
+}
+
+// Floats before the x region: the island's slots and liveness, or each
+// warp's kSlotTile staged slots when streamed
+template <class L, bool kStream>
+__host__ __device__ __forceinline__ int slot_floats(const Params& p) {
+  return kStream ? L::kWarps * kSlotTile : p.M * p.K4 + live_floats(p);
 }
 
 // max over a subset's live slots of y, plus comp; -BIG where none is live
@@ -222,16 +244,17 @@ __device__ __forceinline__ float merged(float m, float c) {
   return m == -INFINITY ? -kBig : m + c;
 }
 
-template <class L>
+template <class L, bool kStream>
 __global__ void __launch_bounds__(L::kThreads, L::kMinBlocks)
 hub_reuse_kernel(const Params p) {
   constexpr int R = L::kR, kNT = L::kNT, kThreads = L::kThreads;
   extern __shared__ __align__(16) float smem[];
-  int* sl = reinterpret_cast<int*>(smem);              // M x K4
+  int* sl = reinterpret_cast<int*>(smem);              // M x K4 (streamed:
+                                                       // warps x kSlotTile)
   uint8_t* lv = reinterpret_cast<uint8_t*>(sl + p.M * p.K4);  // M x K
-  float* xs = smem + p.M * p.K4 + live_floats(p);      // R x XD
+  float* xs = smem + slot_floats<L, kStream>(p);       // R x XD (R x kHS)
   float* ys = xs;                                      // R x kHS, after
-  float* hs = xs + xy_floats<L>(p);                    // R x kHS
+  float* hs = xs + xy_floats<L, kStream>(p);           // R x kHS
   float* ws = hs + R * kHS;                            // kStages x kKC x kWS
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -244,7 +267,7 @@ hub_reuse_kernel(const Params p) {
 
   // ---- prologue: x by cp.async, the ring's first stages, the slots ------
   const float* poolp = p.pool + (isl * p.C + p.c0) * p.D;
-  for (int e = tid; e < R * (p.Dp / 4); e += kThreads) {
+  for (int e = tid; !kStream && e < R * (p.Dp / 4); e += kThreads) {
     const int r = e / (p.Dp / 4), c = (e % (p.Dp / 4)) * 4;
     float* dst = xs + r * p.XD + c;
     const float* src = poolp + (size_t)r * p.D + c;
@@ -266,10 +289,10 @@ hub_reuse_kernel(const Params p) {
   // here would hold up its part of the products); rows of K4
   const long long mk = (long long)p.M * p.K;
   const int32_t* slp = p.slot + isl * mk;
-  for (int m = warp; m < p.M; m += L::kWarps)
+  for (int m = warp; !kStream && m < p.M; m += L::kWarps)
     for (int k = lane; k < p.K; k += 32)
       tf32x3::cp_async4(sl + m * p.K4 + k, slp + m * p.K + k);
-  if (p.live != nullptr) {
+  if (!kStream && p.live != nullptr) {
     const uint8_t* lvp = p.live + isl * mk;
     if (p.live_words)
       for (int e = tid; e < mk / 4; e += kThreads)
@@ -303,8 +326,21 @@ hub_reuse_kernel(const Params p) {
 #pragma unroll
             for (int i = 0; i < 4; ++i) acc_h[mt][n][i] = 0.f;
       }
-      mma_stage<L>(acc_h, xs, p.XD, r * kKC, st,
-                   min(kKC, p.Dp - r * kKC) / 8, wm, wn, lane);
+      if constexpr (kStream) {               // x[:, r * kKC : + kKC]
+        const int d0 = r * kKC;
+        for (int e = tid; e < R * kKC; e += kThreads) {
+          const int row = e / kKC, col = e % kKC;
+          xs[row * kHS + col] = row < p.Cc && d0 + col < p.D
+                                    ? poolp[(size_t)row * p.D + d0 + col]
+                                    : 0.f;
+        }
+        __syncthreads();                     // the slice, for all
+        mma_stage<L>(acc_h, xs, kHS, 0, st, min(kKC, p.Dp - d0) / 8, wm,
+                     wn, lane);
+      } else {
+        mma_stage<L>(acc_h, xs, p.XD, r * kKC, st,
+                     min(kKC, p.Dp - r * kKC) / 8, wm, wn, lane);
+      }
       if (r == p.n1 - 1)                     // read after the next barrier
         store_tile<L, true>(hs, acc_h, p.b1 + j * kNC,
                             min(kNC, p.Hd - j * kNC), wm, wn, lane);
@@ -323,6 +359,47 @@ hub_reuse_kernel(const Params p) {
   // bank conflicts, and a dead slot is a warp-uniform skip
   const float2* y2 = reinterpret_cast<const float2*>(ys);
   const int c = 2 * lane;
+  if constexpr (kStream) {
+    // a warp a subset as above; its slots and liveness kSlotTile at a
+    // time, from device memory into the warp's own rows
+    int* e = sl + warp * kSlotTile;
+    const uint8_t* lvp = p.live == nullptr ? nullptr : p.live + isl * mk;
+    for (int m = warp; m < p.M; m += kThreads / 32) {
+      const long long row = (isl * p.M + m) * p.F + f0;
+      const float c0 = c < ft ? p.comp[row + c] : 0.f;
+      const float c1 = c + 1 < ft ? p.comp[row + c + 1] : 0.f;
+      float a0 = -INFINITY, a1 = -INFINITY;
+      for (int k0 = 0; k0 < p.K; k0 += kSlotTile) {
+        const int n = min(kSlotTile, p.K - k0);
+        for (int k = lane; k < n; k += 32) {
+          const long long at = (long long)m * p.K + k0 + k;
+          const int v = slp[at];
+          const bool ok = v >= 0 && (lvp == nullptr || lvp[at] != 0);
+          const int s = ok ? min(v, p.C - 1) - p.c0 : -1;
+          e[k] = s >= 0 && s < p.Cc ? s : -1;
+        }
+        __syncwarp();
+        for (int k = 0; k < n; ++k) {
+          const int s = e[k];
+          if (s >= 0) {                      // warp-uniform
+            const float2 v = y2[s * (kHS / 2) + lane];
+            a0 = fmaxf(a0, v.x);
+            a1 = fmaxf(a1, v.y);
+          }
+        }
+        __syncwarp();                        // e is rewritten next
+      }
+      if (c < ft) {
+        const float v = merged(a0, c0);
+        p.out[row + c] = p.merge ? fmaxf(p.out[row + c], v) : v;
+      }
+      if (c + 1 < ft) {
+        const float v = merged(a1, c1);
+        p.out[row + c + 1] = p.merge ? fmaxf(p.out[row + c + 1], v) : v;
+      }
+    }
+    return;
+  }
   for (int m = warp; m < p.M; m += L::kWarps) {
     const long long row = (isl * p.M + m) * p.F + f0;
     const float c0 = c < ft ? p.comp[row + c] : 0.f;
@@ -360,22 +437,23 @@ hub_reuse_kernel(const Params p) {
 }
 
 // Bytes of shared memory a block of L takes
-template <class L>
+template <class L, bool kStream>
 size_t smem_bytes(const Params& p) {
-  return sizeof(float) * ((size_t)p.M * p.K4 + live_floats(p) +
-                          xy_floats<L>(p) + (size_t)L::kR * kHS +
+  return sizeof(float) * ((size_t)slot_floats<L, kStream>(p) +
+                          xy_floats<L, kStream>(p) + (size_t)L::kR * kHS +
                           (size_t)kStages * kKC * kWS);
 }
 
-template <class L>
+template <class L, bool kStream>
 int launch(const Params& p, long long islands, void* stream) {
-  const size_t smem = smem_bytes<L>(p);
+  const size_t smem = smem_bytes<L, kStream>(p);
   cudaError_t err = cudaFuncSetAttribute(
-      hub_reuse_kernel<L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      hub_reuse_kernel<L, kStream>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)islands, (p.F + kNC - 1) / kNC);
-  hub_reuse_kernel<L><<<grid, L::kThreads, smem, (cudaStream_t)stream>>>(p);
+  hub_reuse_kernel<L, kStream>
+      <<<grid, L::kThreads, smem, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -391,10 +469,37 @@ void set_shape(Params& p, int chunk) {
 
 bool chunk_ok(int chunk) { return chunk == Rows64::kR || chunk == kMaxC; }
 
+// Whether a call takes the streamed route: where a 64-row launch that
+// stages x, the slots and the liveness whole (counted whether the call
+// passes liveness or not, as the planner counts it) would pass a block's
+// shared memory
+bool streams(int C, int M, int K, int D) {
+  Params p{};
+  p.live = reinterpret_cast<const uint8_t*>(1);
+  p.C = C;
+  p.M = M;
+  p.K = K;
+  p.D = D;
+  set_shape(p, Rows64::kR);
+  return (long long)smem_bytes<Rows64, false>(p) > kMaxSmem;
+}
+
+// Shared memory of a block of the launch p (its shape set) on its route
+long long route_smem(const Params& p, bool stream) {
+  const bool r64 = p.Cc <= Rows64::kR;
+  if (stream)
+    return (long long)(r64 ? smem_bytes<Rows64, true>(p)
+                           : smem_bytes<Rows128, true>(p));
+  return (long long)(r64 ? smem_bytes<Rows64, false>(p)
+                         : smem_bytes<Rows128, false>(p));
+}
+
 }  // namespace
 
 // chunk: cache rows a launch takes, 64 (Rows64) or 128 (Rows128 where
-// more than 64 are left); the wrapper covers C with one launch a chunk
+// more than 64 are left); the wrapper covers C with one launch a chunk.
+// The route follows from C, M, K and D (`streams`); a chunk whose launch
+// does not fit its route's shared memory is refused.
 extern "C" int hub_reuse_forward(const float* pool, const int32_t* slot,
                                  const float* comp, const uint8_t* live,
                                  const float* w1, const float* b1,
@@ -414,13 +519,18 @@ extern "C" int hub_reuse_forward(const float* pool, const int32_t* slot,
   p.live_words = (long long)M * K % 4 == 0 &&
                  reinterpret_cast<uintptr_t>(live) % 4 == 0;
   const long long islands = (long long)B * H;
-  return p.Cc <= Rows64::kR ? launch<Rows64>(p, islands, stream)
-                            : launch<Rows128>(p, islands, stream);
+  const bool streamed = streams(C, M, K, D);
+  if (route_smem(p, streamed) > kMaxSmem) return (int)cudaErrorInvalidValue;
+  if (streamed)
+    return p.Cc <= Rows64::kR ? launch<Rows64, true>(p, islands, stream)
+                              : launch<Rows128, true>(p, islands, stream);
+  return p.Cc <= Rows64::kR ? launch<Rows64, false>(p, islands, stream)
+                            : launch<Rows128, false>(p, islands, stream);
 }
 
 // Bytes of shared memory a block of the call's largest launch (its first
-// chunk's) takes at the knob chunk, with liveness (live != 0) or without;
-// -1 for a chunk out of range or C < 1
+// chunk's) takes at the knob chunk on the call's route, with liveness
+// (live != 0) or without; -1 for a chunk out of range or C < 1
 extern "C" long long hub_reuse_smem_bytes(int C, int M, int K, int D, int Hd,
                                           int live, int chunk) {
   if (C < 1 || D < 1 || !chunk_ok(chunk)) return -1;
@@ -432,8 +542,12 @@ extern "C" long long hub_reuse_smem_bytes(int C, int M, int K, int D, int Hd,
   p.D = D;
   p.Hd = Hd;
   set_shape(p, chunk);
-  return (long long)(p.Cc <= Rows64::kR ? smem_bytes<Rows64>(p)
-                                        : smem_bytes<Rows128>(p));
+  return route_smem(p, streams(C, M, K, D));
+}
+
+// 1 where a call of these widths takes the streamed route, else 0
+extern "C" int hub_reuse_streams(int C, int M, int K, int D) {
+  return C >= 1 && D >= 1 && streams(C, M, K, D) ? 1 : 0;
 }
 
 extern "C" const char* hub_reuse_error_string(int code) {

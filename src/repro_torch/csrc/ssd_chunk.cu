@@ -12,8 +12,10 @@
 //                   B[j, s]
 //
 // The exponential is taken only where i >= j: above the diagonal cum_i -
-// cum_j is positive and can overflow, and inf * 0 would be NaN.  Any
-// q <= 128 (kQMax), any P and S.
+// cum_j is positive and can overflow, and inf * 0 would be NaN.  Any q,
+// any P and S: q <= 128 (kQMax) on the route below, which keeps the whole
+// chunk's C.B^T in shared memory; longer chunks on the tiled route at the
+// end of this file.
 //
 // What bounds it on an H100: at Mamba2-2.7B's widths (H = 80, P = 64,
 // S = 128, chunk q = 64, a 2048-token sequence: 32 chunks) the outputs
@@ -46,6 +48,15 @@
 //   as 8-byte pairs (each n8 tile row a whole 32-byte sector).
 // - P runs in 64-column tiles and S in 128-column tiles; with S > 128 the
 //   B tile is reloaded for each states tile (correct, not tuned).
+//
+// The tiled route (q > kQMax; Mamba-2's own chunk is 256, where C.B^T
+// alone is 256 KB in fp32): the chunk's rows in tiles of 64
+// (ssd_tiles.cuh, namespace tiled), fp32 on the CUDA cores, no speed
+// sought.  A block takes one (chunk, head) and either a row tile i of y,
+// looping over the causal column tiles j <= i (C.B^T's tile over S, the
+// decay and dt_j applied in registers, then y_i += M_ij x_j through
+// shared memory), or a 64 x 128 tile of the states, summing over the
+// chunk's rows in order.  One launch; no atomics.
 #include "ssd_tiles.cuh"
 
 namespace {
@@ -380,13 +391,181 @@ cudaError_t launch(const Params& p, long long smem, dim3 grid,
 
 }  // namespace
 
+// ---- the tiled route: chunks of q > kQMax rows ----------------------------
+
+namespace tl {
+
+using ssd::kThreads;
+using namespace ssd::tiled;
+
+constexpr int kST2 = 2 * kT;   // the states' S tile
+
+struct Args {
+  const float* x;
+  const float* B;
+  const float* C;
+  const float* dt;
+  const float* cum;
+  float* y;
+  float* st;
+  int H, Q, P, S;
+  int nT, nPT, nST;   // 64-row tiles of q, 64-column of P, 128-column of S
+};
+
+// the staging, a 64 x 64 tile of M, cum of rows i, cum and dt of rows j
+constexpr long long kSmem = 4ll * (kStageFloats + kT * kLdT + 3 * kT);
+
+int tiles(const Args& p) { return p.nT + p.nPT * p.nST; }
+
+__global__ void __launch_bounds__(kThreads)
+ssd_chunk_tiled(const Args p) {
+  extern __shared__ __align__(16) float smem[];
+  float* stage = smem;
+  float* ms = stage + kStageFloats;
+  float* cumi = ms + kT * kLdT;
+  float* cumj = cumi + kT;
+  float* dtj = cumj + kT;
+  const long long bn = blockIdx.x;
+  const int ntile = p.nT + p.nPT * p.nST;
+  const int h = blockIdx.y / ntile, tile = blockIdx.y % ntile;
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const long long HP = (long long)p.H * p.P;
+  const float* xb = p.x + bn * p.Q * HP + (long long)h * p.P;  // row j: j HP
+  const float* Bb = p.B + bn * p.Q * p.S;
+  const float* Cb = p.C + bn * p.Q * p.S;
+  const float* cumh = p.cum + bn * p.Q * p.H + h;             // row j: j H
+  const float* dth = p.dt + bn * p.Q * p.H + h;
+  if (tile < p.nT) {                  // y of rows [i0, i0 + 64)
+    const int i0 = tile * kT;
+    for (int e = tid; e < kT; e += kThreads)
+      cumi[e] = i0 + e < p.Q ? cumh[(long long)(i0 + e) * p.H] : 0.f;
+    for (int pt = 0; pt < p.nPT; ++pt) {
+      const int p0 = pt * kT;
+      float acc[4][4];
+      zero(acc);
+      for (int jt = 0; jt <= tile; ++jt) {
+        const int j0 = jt * kT;
+        for (int e = tid; e < kT; e += kThreads) {
+          const bool in = j0 + e < p.Q;
+          cumj[e] = in ? cumh[(long long)(j0 + e) * p.H] : 0.f;
+          dtj[e] = in ? dth[(long long)(j0 + e) * p.H] : 0.f;
+        }
+        float m[4][4];                // C.B^T, then M, of tile (i, j)
+        zero(m);
+        mm_acc<4, true, true>(
+            m, p.S,
+            [&](int r, int k) {
+              return i0 + r < p.Q ? Cb[(long long)(i0 + r) * p.S + k] : 0.f;
+            },
+            [&](int k, int c) {
+              return j0 + c < p.Q ? Bb[(long long)(j0 + c) * p.S + k] : 0.f;
+            },
+            stage);
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int b = 0; b < 4; ++b) {
+            const int ri = 4 * ty + a, cj = tx + 16 * b;
+            const int i = i0 + ri, j = j0 + cj;
+            const bool on = i >= j && i < p.Q && j < p.Q;
+            m[a][b] = on ? m[a][b] * decay_l(cumi[ri], cumj[cj], on) *
+                               dtj[cj]
+                         : 0.f;
+          }
+        store_tile(ms, m);
+        mm_acc<4, false, false>(
+            acc, kT, [&](int r, int k) { return ms[r * kLdT + k]; },
+            [&](int k, int c) {
+              return j0 + k < p.Q && p0 + c < p.P
+                         ? xb[(j0 + k) * HP + p0 + c]
+                         : 0.f;
+            },
+            stage);
+      }
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          const int i = i0 + 4 * ty + a, pc = p0 + tx + 16 * b;
+          if (i < p.Q && pc < p.P)
+            p.y[(bn * p.Q + i) * HP + (long long)h * p.P + pc] = acc[a][b];
+        }
+    }
+    return;
+  }
+  // the states' tile: P rows [p0, p0 + 64), S columns [s0, s0 + 128)
+  const int idx = tile - p.nT, pt = idx / p.nST, sti = idx % p.nST;
+  const int p0 = pt * kT, s0 = sti * kST2;
+  const float cend = cumh[(long long)(p.Q - 1) * p.H];
+  float acc[4][8];
+  zero(acc);
+  mm_acc<8, false, false>(
+      acc, p.Q,
+      [&](int r, int k) {
+        return p0 + r < p.P
+                   ? xb[k * HP + p0 + r] *
+                         (expf(cend - cumh[(long long)k * p.H]) *
+                          dth[(long long)k * p.H])
+                   : 0.f;
+      },
+      [&](int k, int c) {
+        return s0 + c < p.S ? Bb[(long long)k * p.S + s0 + c] : 0.f;
+      },
+      stage);
+  float* sp = p.st + (bn * p.H + h) * (long long)p.P * p.S;
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int b = 0; b < 8; ++b) {
+      const int pr = p0 + 4 * ty + a, sc = s0 + tx + 16 * b;
+      if (pr < p.P && sc < p.S) sp[(long long)pr * p.S + sc] = acc[a][b];
+    }
+}
+
+Args make_args(int BN, int H, int Q, int P, int S) {
+  Args a{};
+  a.H = H;
+  a.Q = Q;
+  a.P = P;
+  a.S = S;
+  a.nT = (Q + kT - 1) / kT;
+  a.nPT = (P + kT - 1) / kT;
+  a.nST = (S + kST2 - 1) / kST2;
+  return a;
+}
+
+int launch(Args a, int BN, cudaStream_t stream) {
+  const long long gy = (long long)a.H * tiles(a);
+  if (gy > 65535) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = cudaFuncSetAttribute(
+      ssd_chunk_tiled, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)kSmem);
+  if (err != cudaSuccess) return (int)err;
+  ssd_chunk_tiled<<<dim3((unsigned)BN, (unsigned)gy), kThreads, kSmem,
+                  stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tl
+
 extern "C" int ssd_chunk_forward(const float* x, const float* Bm,
                                  const float* Cm, const float* dt,
                                  const float* cum, float* y, float* st,
                                  int BN, int H, int Q, int P, int S,
                                  void* stream) {
-  if (BN < 1 || H < 1 || Q < 1 || Q > kQMax || P < 1 || S < 1)
+  if (BN < 1 || H < 1 || Q < 1 || P < 1 || S < 1)
     return (int)cudaErrorInvalidValue;
+  if (Q > kQMax) {
+    tl::Args a = tl::make_args(BN, H, Q, P, S);
+    a.x = x;
+    a.B = Bm;
+    a.C = Cm;
+    a.dt = dt;
+    a.cum = cum;
+    a.y = y;
+    a.st = st;
+    return tl::launch(a, BN, (cudaStream_t)stream);
+  }
   Params p;
   p.x = x;
   p.B = Bm;
@@ -422,18 +601,31 @@ extern "C" int ssd_chunk_forward(const float* x, const float* Bm,
 }
 
 // the launch ssd_chunk_forward makes for these widths on the current
-// device: {Q padded, heads a block, grid x, grid y, shared memory bytes};
-// 0, or an error for widths the kernel does not take
+// device: {Q padded, heads a block, grid x, grid y, shared memory bytes,
+// tiled}: the tiled route (q > kQMax) pads Q to its 64-row tiles, takes
+// one head a block and H x (row tiles + states tiles) blocks a chunk; 0,
+// or an error for widths the kernel does not take
 extern "C" int ssd_chunk_plan(int BN, int H, int Q, int P, int S,
                               long long* out) {
-  if (BN < 1 || H < 1 || Q < 1 || Q > kQMax || P < 1 || S < 1)
+  if (BN < 1 || H < 1 || Q < 1 || P < 1 || S < 1)
     return (int)cudaErrorInvalidValue;
+  if (Q > kQMax) {
+    const tl::Args a = tl::make_args(BN, H, Q, P, S);
+    out[0] = (long long)a.nT * tl::kT;
+    out[1] = 1;
+    out[2] = BN;
+    out[3] = (long long)H * tl::tiles(a);
+    out[4] = tl::kSmem;
+    out[5] = 1;
+    return out[3] > 65535 ? (int)cudaErrorInvalidValue : 0;
+  }
   const Launch l = make_launch(BN, H, Q, P, S);
   out[0] = l.QP;
   out[1] = l.HG;
   out[2] = l.grid.x;
   out[3] = l.grid.y;
   out[4] = l.smem;
+  out[5] = 0;
   return l.smem > kMaxSmem ? (int)cudaErrorInvalidValue : 0;
 }
 

@@ -22,8 +22,9 @@
 //
 // The exponential is taken only where i >= j: above the diagonal it can
 // overflow, and inf * 0 would be NaN; every masked value is selected to 0,
-// never multiplied by 0.  Any q <= 128 (kQMax), any P and S, operands at
-// any 4-byte offset.
+// never multiplied by 0.  Any q, any P and S, operands at any 4-byte
+// offset: q <= 128 (kQMax) on the route below; longer chunks on the tiled
+// route at the end of this file.
 //
 // What bounds it on an H100: at Mamba2-2.7B's layer (32 chunks of 64,
 // H = 80, P = 64, S = 128) it must read x, dy (42 MB each) and dst
@@ -83,6 +84,20 @@
 // small parts in shared memory: later work.  What holds it at ~20 % of its
 // bound is the warps' own latency, four a scheduler: with no copies at all
 // it is 11 % faster, with one TF32 pass in place of three 20 %.
+//
+// The tiled route (q > kQMax, where C.B^T alone passes 64 KB): the
+// forward's tiled route's tiles (ssd_tiles.cuh, namespace tiled), fp32 on
+// the CUDA cores, the same two passes, no scratch and no atomics; no
+// speed sought.
+// * heads pass, a block per (chunk, head, 64-row tile t): as columns j of
+//   t, over the row tiles i >= t, C.B^T's and dM's tiles (over S and P),
+//   M, the column sums of dM o CB o L and of G, and dx_j += M^T dy_i; then
+//   E = B dst^T of its rows, dx += w E and u; as rows i of t, over the
+//   column tiles j <= t, the row sums of G; the last tile's block also
+//   sums u_j w_j over the chunk, tile by tile in order.
+// * chunk pass, a block per (chunk, dC or dB, 64-row tile, 128 columns of
+//   S): dCB's tiles summed over the heads in order, dC_i = sum_j dCB_ij
+//   B_j and dB_j = sum_i dCB_ij C_i + sum_h (x o w) dst_h.
 #include "ssd_tiles.cuh"
 
 namespace {
@@ -845,29 +860,406 @@ cudaError_t launch_heads(const Params& p, long long smem, dim3 grid,
 }
 
 bool valid(int BN, int H, int Q, int P, int S) {
-  return BN >= 1 && H >= 1 && Q >= 1 && Q <= kQMax && P >= 1 && S >= 1;
+  return BN >= 1 && H >= 1 && Q >= 1 && P >= 1 && S >= 1;
 }
 
 }  // namespace
 
+// ---- the tiled route: chunks of q > kQMax rows ----------------------------
+
+namespace tlb {
+
+using ssd::kThreads;
+using namespace ssd::tiled;
+
+constexpr int kST2 = 2 * kT;   // the chunk pass's S columns a block
+
+struct Args {
+  const float* x;
+  const float* B;
+  const float* C;
+  const float* dt;
+  const float* cum;
+  const float* dy;
+  const float* dst;
+  float* dx;
+  float* dB;
+  float* dC;
+  float* ddt;
+  float* dcum;
+  int H, Q, P, S;
+  int nT, nPT, nST;   // 64-row tiles of q, 64-column of P, 128-column of S
+};
+
+// the heads pass: the staging, a 64 x 64 tile, the sums' reduction, and
+// nine vectors of a tile's rows (cum and dt of tile t and of the other
+// tile, ddt's and G's column sums, G's row sums, u and another tile's u)
+constexpr long long kSmemHeads =
+    4ll * (kStageFloats + kT * kLdT + 16 * kT + 9 * kT);
+// the chunk pass: the staging and a 64 x 64 tile
+constexpr long long kSmemChunk = 4ll * (kStageFloats + kT * kLdT);
+
+__global__ void __launch_bounds__(kThreads)
+ssd_bwd_heads_tiled(const Args p) {
+  extern __shared__ __align__(16) float smem[];
+  float* stage = smem;
+  float* ms = stage + kStageFloats;
+  float* red = ms + kT * kLdT;
+  float* cumt = red + 16 * kT;
+  float* dtt = cumt + kT;
+  float* cumo = dtt + kT;
+  float* dto = cumo + kT;
+  float* ddts = dto + kT;
+  float* colg = ddts + kT;
+  float* rowg = colg + kT;
+  float* us = rowg + kT;
+  float* uo = us + kT;
+  __shared__ float tot;
+  const long long bn = blockIdx.x;
+  const int h = blockIdx.y / p.nT, t = blockIdx.y % p.nT, t0 = t * kT;
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const long long HP = (long long)p.H * p.P;
+  const int Q = p.Q;
+  const float* xb = p.x + bn * Q * HP + (long long)h * p.P;    // row j: j HP
+  const float* dyb = p.dy + bn * Q * HP + (long long)h * p.P;
+  const float* Bb = p.B + bn * Q * p.S;
+  const float* Cb = p.C + bn * Q * p.S;
+  const float* cumh = p.cum + bn * Q * p.H + h;                // row j: j H
+  const float* dth = p.dt + bn * Q * p.H + h;
+  const float* dstb = p.dst + (bn * p.H + h) * (long long)p.P * p.S;
+  const float cend = cumh[(long long)(Q - 1) * p.H];
+  auto rows_of = [&](int r0, float* cm, float* dm) {
+    for (int e = tid; e < kT; e += kThreads) {
+      const bool in = r0 + e < Q;
+      cm[e] = in ? cumh[(long long)(r0 + e) * p.H] : 0.f;
+      if (dm) dm[e] = in ? dth[(long long)(r0 + e) * p.H] : 0.f;
+    }
+  };
+  // C.B^T's and dM's tiles of rows [i0, + 64) by columns [j0, + 64)
+  auto cb_dm = [&](float (&cb)[4][4], float (&dm)[4][4], int i0, int j0) {
+    zero(cb);
+    mm_acc<4, true, true>(
+        cb, p.S,
+        [&](int r, int k) {
+          return i0 + r < Q ? Cb[(long long)(i0 + r) * p.S + k] : 0.f;
+        },
+        [&](int k, int c) {
+          return j0 + c < Q ? Bb[(long long)(j0 + c) * p.S + k] : 0.f;
+        },
+        stage);
+    zero(dm);
+    mm_acc<4, true, true>(
+        dm, p.P,
+        [&](int r, int k) { return i0 + r < Q ? dyb[(i0 + r) * HP + k] : 0.f; },
+        [&](int k, int c) { return j0 + c < Q ? xb[(j0 + c) * HP + k] : 0.f; },
+        stage);
+  };
+  // E = B dst^T's tile of rows [r0, + 64) by P columns [p0, + 64)
+  auto e_tile = [&](float (&e)[4][4], int r0, int p0) {
+    zero(e);
+    mm_acc<4, true, true>(
+        e, p.S,
+        [&](int r, int k) {
+          return r0 + r < Q ? Bb[(long long)(r0 + r) * p.S + k] : 0.f;
+        },
+        [&](int k, int c) {
+          return p0 + c < p.P ? dstb[(long long)(p0 + c) * p.S + k] : 0.f;
+        },
+        stage);
+  };
+  // u of rows [r0, + 64) (sum over p of x E), the E tile of p0 in e
+  auto u_part = [&](float (&e)[4][4], int r0, int p0, float* dst) {
+    float v[4][4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const int j = r0 + 4 * ty + a, pc = p0 + tx + 16 * b;
+        v[a][b] = j < Q && pc < p.P ? xb[j * HP + pc] * e[a][b] : 0.f;
+      }
+    row_sums(v, red, dst);
+  };
+
+  rows_of(t0, cumt, dtt);
+  for (int e = tid; e < kT; e += kThreads)
+    ddts[e] = colg[e] = rowg[e] = us[e] = 0.f;
+  float cb[4][4], dm[4][4];
+  // as columns j of tile t: over the row tiles i >= t
+  for (int pt = 0; pt < p.nPT; ++pt) {
+    const int p0 = pt * kT;
+    float dxa[4][4];
+    zero(dxa);
+    for (int it = t; it < p.nT; ++it) {
+      const int i0 = it * kT;
+      rows_of(i0, cumo, nullptr);
+      cb_dm(cb, dm, i0, t0);
+      // M to shared memory; in place, dm o CB o L (dm) and G (cb)
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          const int ri = 4 * ty + a, cj = tx + 16 * b;
+          const int i = i0 + ri, j = t0 + cj;
+          const bool on = i >= j && i < Q && j < Q;
+          const float cbl = cb[a][b] * decay_l(cumo[ri], cumt[cj], on);
+          const float mv = cbl * dtt[cj];
+          const float d = on ? dm[a][b] : 0.f;
+          ms[ri * kLdT + cj] = on ? mv : 0.f;
+          dm[a][b] = d * cbl;
+          cb[a][b] = i > j ? d * mv : 0.f;
+        }
+      if (pt == 0) {
+        col_sums(dm, red, ddts);
+        col_sums(cb, red, colg);
+      }
+      mm_acc<4, false, false>(
+          dxa, kT, [&](int r, int k) { return ms[k * kLdT + r]; },
+          [&](int k, int c) {
+            return i0 + k < Q && p0 + c < p.P ? dyb[(i0 + k) * HP + p0 + c]
+                                              : 0.f;
+          },
+          stage);
+    }
+    float e[4][4];
+    e_tile(e, t0, p0);
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const int rj = 4 * ty + a, j = t0 + rj, pc = p0 + tx + 16 * b;
+        if (j < Q && pc < p.P) {
+          const float w = expf(cend - cumt[rj]) * dtt[rj];
+          p.dx[(bn * Q + j) * HP + (long long)h * p.P + pc] =
+              dxa[a][b] + w * e[a][b];
+        }
+      }
+    u_part(e, t0, p0, us);
+  }
+  // as rows i of tile t: over the column tiles j <= t, G's row sums
+  for (int jt = 0; jt <= t; ++jt) {
+    const int j0 = jt * kT;
+    rows_of(j0, cumo, dto);
+    cb_dm(cb, dm, t0, j0);
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const int ri = 4 * ty + a, cj = tx + 16 * b;
+        const int i = t0 + ri, j = j0 + cj;
+        const bool on = i > j && i < Q && j < Q;
+        cb[a][b] = on ? dm[a][b] * (cb[a][b] * decay_l(cumt[ri], cumo[cj],
+                                                       on) * dto[cj])
+                      : 0.f;                    // G
+      }
+    row_sums(cb, red, rowg);
+  }
+  // the last tile: cum_end's share, sum over the chunk of u_j w_j, tile
+  // by tile in order
+  if (tid == 0) tot = 0.f;
+  if (t == p.nT - 1) {
+    for (int tt = 0; tt < p.nT; ++tt) {
+      const float* u = us;
+      if (tt != t) {
+        for (int e = tid; e < kT; e += kThreads) uo[e] = 0.f;
+        for (int pt = 0; pt < p.nPT; ++pt) {
+          float e[4][4];
+          e_tile(e, tt * kT, pt * kT);
+          u_part(e, tt * kT, pt * kT, uo);
+        }
+        u = uo;
+      }
+      __syncthreads();
+      if (tid == 0) {
+        float sum = 0.f;
+        for (int r = 0; r < kT && tt * kT + r < Q; ++r) {
+          const long long j = tt * kT + r;
+          sum += u[r] * (expf(cend - cumh[j * p.H]) * dth[j * p.H]);
+        }
+        tot += sum;
+      }
+      __syncthreads();
+    }
+  }
+  __syncthreads();
+  if (tid < kT && t0 + tid < Q) {
+    const int j = t0 + tid;
+    const float wend = expf(cend - cumt[tid]), w = wend * dtt[tid];
+    const long long o = (bn * Q + j) * p.H + h;
+    p.ddt[o] = ddts[tid] + us[tid] * wend;
+    p.dcum[o] = rowg[tid] - colg[tid] - us[tid] * w + (j == Q - 1 ? tot : 0.f);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+ssd_bwd_chunk_tiled(const Args p) {
+  extern __shared__ __align__(16) float smem[];
+  float* stage = smem;
+  float* ms = stage + kStageFloats;
+  const long long bn = blockIdx.x;
+  const int per = p.nT * p.nST;
+  const int role = blockIdx.y / per, t = blockIdx.y % per / p.nST;
+  const int s0 = blockIdx.y % p.nST * kST2, t0 = t * kT;
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const long long HP = (long long)p.H * p.P;
+  const int Q = p.Q;
+  const float* xb = p.x + bn * Q * HP;
+  const float* dyb = p.dy + bn * Q * HP;
+  const float* Bb = p.B + bn * Q * p.S;
+  const float* Cb = p.C + bn * Q * p.S;
+  const float* cumb = p.cum + bn * Q * p.H;
+  const float* dtb = p.dt + bn * Q * p.H;
+  // dCB's tile of rows [i0, + 64) by columns [j0, + 64): the heads' dM o L
+  // o dt_j, summed over the heads in order, into ms
+  auto dcb_tile = [&](int i0, int j0) {
+    float v[4][4];
+    zero(v);
+    for (int h = 0; h < p.H; ++h) {
+      float dm[4][4];
+      zero(dm);
+      const long long ho = (long long)h * p.P;
+      mm_acc<4, true, true>(
+          dm, p.P,
+          [&](int r, int k) {
+            return i0 + r < Q ? dyb[(i0 + r) * HP + ho + k] : 0.f;
+          },
+          [&](int k, int c) {
+            return j0 + c < Q ? xb[(j0 + c) * HP + ho + k] : 0.f;
+          },
+          stage);
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          const int i = i0 + 4 * ty + a, j = j0 + tx + 16 * b;
+          const bool on = i >= j && i < Q && j < Q;
+          if (on)
+            v[a][b] += dm[a][b] * decay_l(cumb[(long long)i * p.H + h],
+                                          cumb[(long long)j * p.H + h], on) *
+                       dtb[(long long)j * p.H + h];
+        }
+    }
+    store_tile(ms, v);
+  };
+  float acc[4][8];
+  zero(acc);
+  if (role == 0) {                    // dC of rows [t0, + 64)
+    for (int jt = 0; jt <= t; ++jt) {
+      const int j0 = jt * kT;
+      dcb_tile(t0, j0);
+      mm_acc<8, false, false>(
+          acc, kT, [&](int r, int k) { return ms[r * kLdT + k]; },
+          [&](int k, int c) {
+            return j0 + k < Q && s0 + c < p.S
+                       ? Bb[(long long)(j0 + k) * p.S + s0 + c]
+                       : 0.f;
+          },
+          stage);
+    }
+  } else {                            // dB of rows [t0, + 64)
+    for (int it = t; it < p.nT; ++it) {
+      const int i0 = it * kT;
+      dcb_tile(i0, t0);
+      mm_acc<8, false, false>(
+          acc, kT, [&](int r, int k) { return ms[k * kLdT + r]; },
+          [&](int k, int c) {
+            return i0 + k < Q && s0 + c < p.S
+                       ? Cb[(long long)(i0 + k) * p.S + s0 + c]
+                       : 0.f;
+          },
+          stage);
+    }
+    // + sum over the heads of (x o w) dst_h
+    for (int h = 0; h < p.H; ++h) {
+      const float cend = cumb[(long long)(Q - 1) * p.H + h];
+      const long long ho = (long long)h * p.P;
+      const float* dsth = p.dst + (bn * p.H + h) * (long long)p.P * p.S;
+      mm_acc<8, true, false>(
+          acc, p.P,
+          [&](int r, int k) {
+            const long long j = t0 + r;
+            return j < Q ? xb[j * HP + ho + k] *
+                               (expf(cend - cumb[j * p.H + h]) *
+                                dtb[j * p.H + h])
+                         : 0.f;
+          },
+          [&](int k, int c) {
+            return s0 + c < p.S ? dsth[(long long)k * p.S + s0 + c] : 0.f;
+          },
+          stage);
+    }
+  }
+  float* out = role == 0 ? p.dC : p.dB;
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int b = 0; b < 8; ++b) {
+      const int r = t0 + 4 * ty + a, sc = s0 + tx + 16 * b;
+      if (r < Q && sc < p.S) out[(bn * Q + r) * p.S + sc] = acc[a][b];
+    }
+}
+
+Args make_args(int H, int Q, int P, int S) {
+  Args a{};
+  a.H = H;
+  a.Q = Q;
+  a.P = P;
+  a.S = S;
+  a.nT = (Q + kT - 1) / kT;
+  a.nPT = (P + kT - 1) / kT;
+  a.nST = (S + kST2 - 1) / kST2;
+  return a;
+}
+
+int launch(const Args& a, int BN, cudaStream_t stream) {
+  const long long g1 = (long long)a.H * a.nT, g2 = 2ll * a.nT * a.nST;
+  if (g1 > 65535 || g2 > 65535) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      ssd_bwd_heads_tiled, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)kSmemHeads);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(ssd_bwd_chunk_tiled,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)kSmemChunk);
+  if (err != cudaSuccess) return (int)err;
+  ssd_bwd_heads_tiled<<<dim3((unsigned)BN, (unsigned)g1), kThreads,
+                        kSmemHeads, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  ssd_bwd_chunk_tiled<<<dim3((unsigned)BN, (unsigned)g2), kThreads,
+                        kSmemChunk, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tlb
+
 // floats of scratch a call takes: each group's partial dCB and state term
+// (none on the tiled route)
 extern "C" long long ssd_chunk_backward_scratch(int BN, int H, int Q, int P,
                                                 int S) {
-  if (!valid(BN, H, Q, P, S)) return 0;
+  if (!valid(BN, H, Q, P, S) || Q > kQMax) return 0;
   const Plan pl = plan(BN, H, Q, P, S);
   return (long long)BN * pl.G *
          ((long long)pl.QP * pl.QP + (long long)Q * pl.SP);
 }
 
-// the heads pass's plan: out[0..6] = heads a group, groups, warps a block,
-// blocks an SM, shared memory bytes, B resident, state term on chip
+// the heads pass's plan: out[0..7] = heads a group, groups, warps a block,
+// blocks an SM, shared memory bytes, B resident, state term on chip,
+// tiled (the tiled route, q > kQMax: a head a block, 8 warps, blocks an SM
+// as its shared memory allows, nothing kept on chip across tiles)
 extern "C" int ssd_chunk_backward_plan(int BN, int H, int Q, int P, int S,
                                        long long* out) {
   if (!valid(BN, H, Q, P, S)) return (int)cudaErrorInvalidValue;
+  if (Q > kQMax) {
+    const int per_sm = (int)(233472 / (tlb::kSmemHeads + 1024));
+    const long long v[8] = {1, H, ssd::kWarps, per_sm < 8 ? per_sm : 8,
+                            tlb::kSmemHeads, 0, 0, 1};
+    for (int i = 0; i < 8; ++i) out[i] = v[i];
+    return 0;
+  }
   const Plan pl = plan(BN, H, Q, P, S);
-  const long long v[7] = {pl.HG, pl.G, kWarpsH, 1, pl.smem, pl.b_res,
-                          pl.st_res};
-  for (int i = 0; i < 7; ++i) out[i] = v[i];
+  const long long v[8] = {pl.HG, pl.G, kWarpsH, 1, pl.smem, pl.b_res,
+                          pl.st_res, 0};
+  for (int i = 0; i < 8; ++i) out[i] = v[i];
   return 0;
 }
 
@@ -879,6 +1271,22 @@ extern "C" int ssd_chunk_backward(const float* x, const float* Bm,
                                   float* scratch, int BN, int H, int Q,
                                   int P, int S, void* stream) {
   if (!valid(BN, H, Q, P, S)) return (int)cudaErrorInvalidValue;
+  if (Q > kQMax) {
+    tlb::Args a = tlb::make_args(H, Q, P, S);
+    a.x = x;
+    a.B = Bm;
+    a.C = Cm;
+    a.dt = dt;
+    a.cum = cum;
+    a.dy = dy;
+    a.dst = dst;
+    a.dx = dx;
+    a.dB = dB;
+    a.dC = dC;
+    a.ddt = ddt;
+    a.dcum = dcum;
+    return tlb::launch(a, BN, (cudaStream_t)stream);
+  }
   const Plan pl = plan(BN, H, Q, P, S);
   if (pl.smem > kMaxSmem) return (int)cudaErrorInvalidValue;
   Params p;

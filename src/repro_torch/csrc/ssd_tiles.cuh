@@ -9,6 +9,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "fma_tiles.cuh"
 #include "tf32x3.cuh"
 
 namespace ssd {
@@ -73,6 +74,24 @@ __device__ __forceinline__ void store2(float* out, long long off, int col,
     if (col + 1 < cols) out[off + 1] = b;
   }
 }
+
+// ---- the tiled route (chunks of q > 128 rows) -----------------------------
+//
+// What the forward and backward of a long chunk share: the chunk's rows in
+// 64-row tiles, every product through fma_tiles.cuh (a block of 256
+// threads a 64 x (16 NB) output tile), fp32 on the CUDA cores; each sum
+// runs in a fixed order and no block sums into another's output.
+namespace tiled {
+
+using namespace fma_tiles;
+
+// the decay L[i, j] = exp(cum_i - cum_j) where i >= j and both rows lie
+// in the chunk, else 0 (the exponential is taken only there)
+__device__ __forceinline__ float decay_l(float ci, float cj, bool on) {
+  return on ? expf(ci - cj) : 0.f;
+}
+
+}  // namespace tiled
 
 inline int sm_count() {
   static int cache[64];

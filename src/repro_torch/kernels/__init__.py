@@ -18,8 +18,10 @@ launches its kernel (built from ``csrc/`` with nvcc at first use) or
 raises.  flash_attention and ssd_chunk have backward kernels: on the
 card the others raise :class:`NoBackwardError` where autograd would need
 their gradient.  :data:`LAUNCHES` counts the kernel launches per wrapper, and
-flash_attention's also per route (``flash_attention_wgmma``,
-``flash_attention_mma``).
+also per route where a kernel has several (``flash_attention_wgmma``,
+``flash_attention_mma``, ``flash_attention_split``, ``gather_mlp_wide``,
+``hub_reuse_resident``, ``hub_reuse_stream``, ``ssd_chunk_whole``,
+``ssd_chunk_tiled``, ``ssd_chunk_bwd_whole``, ``ssd_chunk_bwd_tiled``).
 """
 from ._build import _LOCK, BUILD_LOG, LAUNCHES, NoBackwardError, build
 

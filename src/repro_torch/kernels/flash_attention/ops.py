@@ -5,6 +5,8 @@
 A CPU tensor takes the plain PyTorch versions (:func:`attention_ref`,
 :func:`attention_lse_ref`, :func:`attention_bwd_ref`); a CUDA tensor
 launches the kernel of the route that :func:`_variant` names or raises.
+Every head width D >= 1 has a route: ``wgmma`` and ``mma`` up to
+:data:`MAX_D`, ``split`` above it.
 
 The log-sum-exp that the forward hands the backward is float32 (B, Hq,
 Sq) in the kernels' log2 domain: row i's log2(sum_j exp2(q_i·k_j ·
@@ -21,9 +23,9 @@ from .. import _build, plans
 from .ref import attention_bwd_ref, attention_lse_ref, attention_ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-MAX_D = 256
+MAX_D = 256                # the widest head of the mma and wgmma routes
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_VARIANTS = {"mma": 0, "wgmma": 1}
+_VARIANTS = {"mma": 0, "wgmma": 1, "split": 2}
 # the backward's kernels, each launched once a call, in this order
 BWD_PASSES = ("dq", "dkdv")
 
@@ -44,10 +46,10 @@ def _lib():
 
 
 def library_layout(route: str, dtype, d: int) -> dict:
-    """The tiles the built forward launches on ``route`` (``"mma"`` or
-    ``"wgmma"``) for ``dtype`` (a torch dtype or its name) and D
-    (``LAYOUT``: query rows a block, keys a kv tile, D padded, a block's
-    shared memory and threads).  Loads the library, so a card is
+    """The tiles the built forward launches on ``route`` (``"mma"``,
+    ``"wgmma"`` or ``"split"``) for ``dtype`` (a torch dtype or its name)
+    and D (``LAYOUT``: query rows a block, keys a kv tile, D padded, a
+    block's shared memory and threads).  Loads the library, so a card is
     needed.  Raises for a route the call cannot take."""
     if isinstance(dtype, str):
         dtype = getattr(torch, dtype)
@@ -70,14 +72,17 @@ def _lib_bwd():
 
 def _variant(dtype, d: int, ptrs=()) -> str:
     """The route a CUDA call takes, forward and backward alike:
-    ``"wgmma"`` (bf16 products on ``wgmma``, fed by TMA, whose base
-    addresses and rows must be multiples of 16 bytes) for bfloat16 with
-    D % 8 == 0, D <= 128 and every address in ``ptrs`` 16-byte aligned,
-    else ``"mma"`` (``mma.sync``: f32 in 3xTF32, bf16 with fp32
-    accumulation).  Raises for D outside 1..MAX_D."""
-    if not 0 < d <= MAX_D:
-        raise ValueError(f"flash_attention: the kernels take 0 < D <= "
-                         f"{MAX_D}, got D={d}")
+    ``"split"`` (fp32 on the CUDA cores, D in 64-column slices across
+    blocks) for D > MAX_D; ``"wgmma"`` (bf16 products on ``wgmma``, fed
+    by TMA, whose base addresses and rows must be multiples of 16 bytes)
+    for bfloat16 with D % 8 == 0, D <= 128 and every address in ``ptrs``
+    16-byte aligned; else ``"mma"`` (``mma.sync``: f32 in 3xTF32, bf16
+    with fp32 accumulation).  Raises for D < 1."""
+    if d < 1:
+        raise ValueError(f"flash_attention: the kernels take D >= 1, got "
+                         f"D={d}")
+    if d > MAX_D:
+        return "split"
     aligned = all(p % 16 == 0 for p in ptrs)
     return ("wgmma" if dtype == torch.bfloat16 and d % 8 == 0 and d <= 128
             and aligned else "mma")
@@ -138,8 +143,8 @@ def flash_attention_backward(q, k, v, o, do, causal: bool = True,
     ``_forward(..., lse=True)`` returns it).  -> (dq, dk, dv) in their
     inputs' dtype: P recomputed from q, k and the log-sum-exp in float32,
     dS = P ∘ (dO·vᵀ − rowsum(dO ∘ O)), dq = dS·k/sqrt(D), dk and dv
-    summed over each kv head's query heads.  On a CUDA device D <= 256
-    and every operand contiguous; two launches on the route of
+    summed over each kv head's query heads.  On a CUDA device every
+    operand contiguous, any D >= 1; two launches on the route of
     :func:`_variant` (counted per pass and route,
     ``flash_attention_bwd_<pass>_<route>``), no atomics (the same inputs
     give the same bits).  With ``lse=None`` on the card the forward kernel
@@ -165,10 +170,9 @@ def flash_attention_backward(q, k, v, o, do, causal: bool = True,
     if q.dtype not in _DTYPES:
         raise ValueError(f"flash_attention_backward: dtype {q.dtype}, "
                          f"expected float32 or bfloat16")
-    if not 0 < d <= MAX_D or skv < 1:
+    if d < 1 or skv < 1:
         raise ValueError(f"flash_attention_backward: the kernel takes "
-                         f"0 < D <= {MAX_D} and Skv >= 1, got D={d}, "
-                         f"Skv={skv}")
+                         f"D >= 1 and Skv >= 1, got D={d}, Skv={skv}")
     dtypes = dict.fromkeys(ops, q.dtype)
     if lse is None:
         lse = _forward(q, k, v, causal, lse=True)[1]
@@ -202,12 +206,12 @@ def flash_attention_backward(q, k, v, o, do, causal: bool = True,
 def _note(q, k, v, causal, lse):
     """Record the call's launch for ``plans.capture()``: its dims, dtype,
     whether q, k and v are 16-byte aligned, and the route
-    :func:`_variant` names (None for a D no kernel takes)."""
+    :func:`_variant` names (None for a D no kernel takes: D < 1)."""
     b, hq, sq, d = q.shape
     ptrs = [t.data_ptr() for t in (q, k, v)]
     plans.note_plan("flash_attention", dict(
         b=b, hq=hq, hkv=k.shape[1], sq=sq, skv=k.shape[2], d=d), dict(
-        route=_variant(q.dtype, d, ptrs) if 0 < d <= MAX_D else None,
+        route=_variant(q.dtype, d, ptrs) if d > 0 else None,
         dtype=str(q.dtype).removeprefix("torch."),
         aligned=all(p % 16 == 0 for p in ptrs), causal=bool(causal),
         lse=bool(lse)))
@@ -223,7 +227,8 @@ def _forward(q, k, v, causal: bool = True, lse: bool = False):
     probabilities to bf16 before the product with v; f32 runs its
     products in 3xTF32).  With ``lse`` -> (out, the rows' log-sum-exp,
     float32 (B, Hq, Sq) in the module's log2 domain), which the kernel
-    stores beside the output.  On a CUDA device D <= 256."""
+    stores beside the output.  On a CUDA device any D >= 1 (the route of
+    :func:`_variant`)."""
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"flash_attention: q and k must be 4-d, got "
                          f"{tuple(q.shape)} and {tuple(k.shape)}")

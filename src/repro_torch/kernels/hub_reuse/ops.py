@@ -2,15 +2,20 @@
 
 A CPU tensor takes the plain PyTorch version (:func:`hub_reuse_ref`); a
 CUDA tensor launches the kernel or raises.  A launch takes a chunk of at
-most ``chunk`` cache rows (64 or 128; :data:`CHUNK` unless a plan says
-otherwise); a larger C takes one launch a chunk, each merged into the
-output by an elementwise max.
+most ``chunk`` cache rows (64 or 128); a larger C takes one launch a
+chunk, each merged into the output by an elementwise max.  The kernel has
+two routes, which the call's widths fix
+(:func:`~repro_torch.kernels.tiling.hub_reuse_route`): ``resident``
+stages x and the slot table whole; ``stream``, for widths whose 64-row
+resident launch would pass a block's shared memory, streams x in
+64-column slices and the slots a tile at a time.  Every shape has a plan.
 
 Each call resolves its plan (:func:`plan`) before the CPU/CUDA split, as
 ``gather_mlp``'s does: an explicit ``chunk`` or ``variant`` over a hit in
 the tile-plan store (``repro_torch.kernels.plans``) over the heuristic
-(``chunk`` = 128).  A ``"per_cloud"`` plan launches once per cloud (and
-chunk), at B = 1.
+(``chunk`` = 128 where a 128-row launch fits, else 64,
+:func:`~repro_torch.kernels.tiling.hub_reuse_chunk`).  A ``"per_cloud"``
+plan launches once per cloud (and chunk), at B = 1.
 """
 from __future__ import annotations
 
@@ -23,7 +28,7 @@ from .. import _build, plans, tiling
 from .ref import hub_reuse_ref
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-CHUNK = 128                # the heuristic's cache rows a launch (csrc kMaxC)
+CHUNK = 128                # the most cache rows a launch takes (csrc kMaxC)
 VARIANTS = ("batched", "per_cloud")
 
 
@@ -32,6 +37,8 @@ def _declare(lib):
     lib.hub_reuse_forward.restype = _I
     lib.hub_reuse_smem_bytes.argtypes = [_I] * 7
     lib.hub_reuse_smem_bytes.restype = _L
+    lib.hub_reuse_streams.argtypes = [_I] * 4
+    lib.hub_reuse_streams.restype = _I
 
 
 def _lib():
@@ -40,11 +47,17 @@ def _lib():
 
 def library_smem(c: int, m: int, k: int, d: int, h: int, live: bool = True,
                  chunk: int = CHUNK) -> int:
-    """Shared memory of a block of the call's largest launch at ``chunk``,
-    as the built kernel counts it (the card's answer to
-    :func:`~repro_torch.kernels.tiling.hub_reuse_smem`); -1 for a chunk
-    out of range."""
+    """Shared memory of a block of the call's largest launch at ``chunk``
+    on the call's route, as the built kernel counts it (the card's answer
+    to :func:`~repro_torch.kernels.tiling.hub_reuse_smem`); -1 for a
+    chunk out of range."""
     return _lib().hub_reuse_smem_bytes(c, m, k, d, h, int(live), chunk)
+
+
+def library_route(c: int, m: int, k: int, d: int) -> str:
+    """The route the built kernel takes at these widths (the card's
+    answer to :func:`~repro_torch.kernels.tiling.hub_reuse_route`)."""
+    return "stream" if _lib().hub_reuse_streams(c, m, k, d) else "resident"
 
 
 # ---- plan resolution -------------------------------------------------------
@@ -57,13 +70,13 @@ def plan(b: int, hn: int, c: int, m: int, k: int, d: int, h: int, f: int,
          device, chunk: int | None = None,
          variant: str | None = None) -> dict:
     """The plan a call of b clouds of hn islands (C cache rows, M subsets
-    of K points, widths d, h, f) on ``device`` launches: ``variant``
-    ("batched" or "per_cloud"), ``provenance`` ("override", "autotuned"
-    or "heuristic", as ``gather_mlp``'s) and ``chunk``, with ``route``
-    None (one route).  A given chunk that does not fit raises
-    ``ValueError``; a store entry that does not fit warns and the
-    heuristic plans the call.  Memoised per call shape until the store
-    changes."""
+    of K points, widths d, h, f) on ``device`` launches: ``route``
+    ("resident" or "stream", fixed by the widths), ``variant`` ("batched"
+    or "per_cloud"), ``provenance`` ("override", "autotuned" or
+    "heuristic", as ``gather_mlp``'s) and ``chunk``.  A given chunk that
+    does not fit raises ``ValueError``; a store entry that does not fit
+    warns and the heuristic plans the call.  Memoised per call shape
+    until the store changes."""
     return _resolved((b, hn, c, m, k, d, h, f, torch.device(device), chunk,
                       variant))
 
@@ -104,8 +117,9 @@ def _resolve(b, hn, c, m, k, d, h, f, device, chunk, variant):
                 knobs = plans.knobs("hub_reuse", entry)
                 prov = "autotuned"
                 variant = entry.get("variant") or "batched"
-    return dict(route=None, variant=variant, provenance=prov,
-                chunk=knobs.get("chunk", CHUNK))
+    return dict(route=tiling.hub_reuse_route(c, m, k, d), variant=variant,
+                provenance=prov,
+                chunk=knobs.get("chunk", tiling.hub_reuse_chunk(c, m, k, d)))
 
 
 def hub_reuse(pool_in, slot, comp, w1, b1, w2, b2, live=None, *,
@@ -178,5 +192,5 @@ def hub_reuse(pool_in, slot, comp, w1, b1, w2, b2, live=None, *,
                     *ptrs, bb, hn, c, m, k, d, hdim, fout, c0, int(c0 > 0),
                     step, stream)
                 _build.check_launch(lib, "hub_reuse", code)
-                _build.count_launch("hub_reuse")
+                _build.count_launch("hub_reuse", f"hub_reuse_{pl['route']}")
     return out[0] if single else out

@@ -4,6 +4,10 @@ joined by :class:`SsdChunkFn`.
 
 A CPU tensor takes the plain PyTorch versions (:func:`ssd_chunk_ref`,
 :func:`ssd_chunk_bwd_ref`); a CUDA tensor launches the kernel or raises.
+Both kernels take any chunk length q, in two routes (:func:`route`):
+``"whole"`` for q <= :data:`MAX_Q`, which keeps the chunk's C·Bᵀ in
+shared memory, and ``"tiled"`` above it, which walks the chunk's rows in
+64-row tiles (Mamba-2's published chunk is 256).
 """
 from __future__ import annotations
 
@@ -15,8 +19,9 @@ from .. import _build, plans
 from .ref import ssd_chunk_bwd_ref, ssd_chunk_ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# the longest chunk the kernels take (csrc/ssd_chunk.cu kQMax: C·Bᵀ and
-# two x tiles of q rows in shared memory); P and S are tiled, any size
+# the longest chunk of the "whole" route (csrc/ssd_chunk.cu kQMax: C·Bᵀ
+# and two x tiles of q rows in shared memory); longer chunks take the
+# "tiled" route; P and S are tiled, any size
 MAX_Q = 128
 # the backward's kernels, each launched once a call, in this order: per
 # (chunk, head group) dx, ddt, dcum and the group's partial sums; per
@@ -24,11 +29,16 @@ MAX_Q = 128
 SSD_BWD_PASSES = ("heads", "chunk")
 # ssd_chunk_backward_plan's fields, in order (the heads pass's launch)
 BWD_PLAN = ("heads_a_group", "groups", "warps", "blocks_an_sm",
-            "smem_bytes", "b_resident", "state_term_on_chip")
+            "smem_bytes", "b_resident", "state_term_on_chip", "tiled")
 
 
 # what ssd_chunk_plan reports: the forward's launch
-PLAN = ("qp", "hg", "grid_x", "grid_y", "smem")
+PLAN = ("qp", "hg", "grid_x", "grid_y", "smem", "tiled")
+
+
+def route(q: int) -> str:
+    """The route both kernels take for chunks of q rows."""
+    return "whole" if q <= MAX_Q else "tiled"
 
 
 def _declare(lib):
@@ -44,9 +54,10 @@ def _lib():
 
 def library_plan(bn: int, h: int, q: int, p: int, s: int) -> dict:
     """The forward's launch at these widths, as the library plans it on
-    the current device (``PLAN``: q padded to 16, heads a block, the grid
-    and a block's shared memory).  Loads the library, so a card is
-    needed: the plan follows its SM count."""
+    the current device (``PLAN``: q padded (to 16, or to the tiled
+    route's 64-row tiles), heads a block, the grid, a block's shared
+    memory and whether the route is the tiled one).  Loads the library,
+    so a card is needed: the plan follows its SM count."""
     lib = _lib()
     out = (ctypes.c_longlong * len(PLAN))()
     code = lib.ssd_chunk_plan(bn, h, q, p, s, out)
@@ -69,8 +80,9 @@ def _lib_bwd():
 
 def backward_plan(bs, nc, q, h, p, s) -> dict:
     """The heads pass's launch at these widths, as the library plans it
-    (``BWD_PLAN``: heads a group, its warps and shared memory, and whether
-    B and the state term of dB stay on chip).  Loads the library, so a
+    (``BWD_PLAN``: heads a group, its warps and shared memory, whether B
+    and the state term of dB stay on chip, and whether the route is the
+    tiled one).  Loads the library, so a
     card is needed: the plan follows its SM count."""
     lib = _lib_bwd()
     out = (ctypes.c_longlong * len(BWD_PLAN))()
@@ -122,9 +134,9 @@ def _check_shapes(name, x, B, ops):
         if arg in expect and tuple(t.shape) != expect[arg]:
             raise ValueError(f"{name}: {arg} has shape {tuple(t.shape)}, "
                              f"expected {expect[arg]}")
-    if not (0 < q <= MAX_Q and p > 0 and s > 0):
-        raise ValueError(f"{name}: the kernel takes chunks of 0 < q <= "
-                         f"{MAX_Q} and P, S > 0; got q={q}, P={p}, S={s}")
+    if not (q > 0 and p > 0 and s > 0):
+        raise ValueError(f"{name}: the kernel takes chunks of q > 0 rows "
+                         f"and P, S > 0; got q={q}, P={p}, S={s}")
     return bs, nc, q, h, p, s
 
 
@@ -133,7 +145,7 @@ def _forward(x, B, C, dt, cum):
     if plans.capturing() and x.dim() == 5:
         bs, nc, q, h, p = x.shape
         plans.note_plan("ssd_chunk", dict(bn=bs * nc, h=h, q=q, p=p,
-                                          s=B.shape[-1]), {"route": None})
+                                          s=B.shape[-1]), {"route": route(q)})
     if x.device.type == "cpu":
         return ssd_chunk_ref(x, B, C, dt, cum)
     if x.device.type != "cuda":
@@ -153,7 +165,7 @@ def _forward(x, B, C, dt, cum):
             cum.data_ptr(), y.data_ptr(), states.data_ptr(), bs * nc, h, q,
             p, s, torch._C._cuda_getCurrentRawStream(x.device.index))
         _build.check_launch(lib, "ssd_chunk", code)
-        _build.count_launch("ssd_chunk")
+        _build.count_launch("ssd_chunk", f"ssd_chunk_{route(q)}")
     return y, states
 
 
@@ -162,8 +174,9 @@ def ssd_chunk_backward(x, B, C, dt, cum, dy, dst):
     outputs' gradients dy (bs, nc, q, H, P) and dst (bs, nc, H, P, S),
     all float32.  -> (dx, dB, dC, ddt, dcum) in the inputs' shapes (see
     :func:`ssd_chunk_bwd_ref` for the closed form).  On a CUDA device
-    q <= 128 and every operand contiguous; ``len(SSD_BWD_PASSES)``
-    launches, no atomics (the same inputs give the same bits)."""
+    every operand contiguous, any q (the route of :func:`route`);
+    ``len(SSD_BWD_PASSES)`` launches, no atomics (the same inputs give the
+    same bits)."""
     _build.refuse_dtensor("ssd_chunk_backward", (x, B, C, dt, cum, dy, dst))
     if x.device.type == "cpu":
         return ssd_chunk_bwd_ref(x, B, C, dt, cum, dy, dst)
@@ -192,5 +205,5 @@ def ssd_chunk_backward(x, B, C, dt, cum, dy, dst):
         torch._C._cuda_getCurrentRawStream(x.device.index))
     _build.check_launch(lib, "ssd_chunk_bwd", code)
     for _ in SSD_BWD_PASSES:
-        _build.count_launch("ssd_chunk_bwd")
+        _build.count_launch("ssd_chunk_bwd", f"ssd_chunk_bwd_{route(q)}")
     return dx, dB, dC, ddt, dcum

@@ -14,11 +14,17 @@ plan sets, per kernel and route:
                                             across blocks, 1 to ⌈H/32⌉
   hub_reuse                     ``chunk``   cache rows a launch, 64 or 128
 
+hub_reuse has two routes, fixed by the call's widths
+(:func:`hub_reuse_route`): ``resident`` stages x and the slot table
+whole; ``stream`` takes the calls whose 64-row launch would not fit that
+way, streaming x in 64-column slices and the slots a warp's tile at a
+time, in fixed shared memory.
+
 The formulas mirror the kernels' own (``smem_bytes`` and
-``wide::make_plan`` in ``gather_mlp.cu``, ``smem_bytes`` in
-``hub_reuse.cu``); each library also answers for itself
-(``gather_mlp_smem_bytes``, ``hub_reuse_smem_bytes``), which
-``chip_smoke.py`` holds these against.
+``wide::make_plan`` in ``gather_mlp.cu``, ``smem_bytes`` and ``streams``
+in ``hub_reuse.cu``); each library also answers for itself
+(``gather_mlp_smem_bytes``, ``hub_reuse_smem_bytes``,
+``hub_reuse_streams``), which ``chip_smoke.py`` holds these against.
 """
 from __future__ import annotations
 
@@ -28,6 +34,7 @@ WIDE_BLOCKS_PER_SM = 2     # what the wide route's plan aims at (kBlocks)
 NARROW_BLOCKS_PER_SM = 2   # what the narrow row tile aims at (kBlocksPerSM)
 ROWS = (64, 128)           # the narrow route's row tiles
 CHUNKS = (64, 128)         # hub_reuse's cache rows a launch
+SLOT_TILE = 128            # hub_reuse's slots a warp stages when streamed
 H_CHUNK = 32               # the wide route's columns of h a chunk
 ROUTES = ("narrow", "wide")
 #: the knobs of each kernel's plans, and the route each acts on
@@ -147,18 +154,45 @@ def hub_reuse_launches(c: int, chunk: int = 128) -> list:
     return [min(chunk, c - c0) for c0 in range(0, c, chunk)]
 
 
-def hub_reuse_smem(c: int, m: int, k: int, d: int, live: bool = True,
-                   chunk: int = 128) -> int:
-    """Bytes of shared memory a block of the call's largest launch (its
-    first chunk's) takes (``hub_reuse.cu``: ``smem_bytes``), with the
-    liveness mask staged or without, as ``hub_reuse_smem_bytes``
-    answers."""
-    rows = 64 if min(chunk, c) <= 64 else 128
+def _resident_smem(rows: int, m: int, k: int, d: int, live: bool) -> int:
+    """Bytes of shared memory a resident block of ``rows`` cache rows
+    takes: the slot table and liveness, x (later y), h and the ring."""
     k4 = round_up(k, 4)
     live_floats = (m * k + 15) // 16 * 4 if live else 0
     hs = 64 + 8                             # kHS
     xy = rows * max(_stride(round_up(d, 8)), hs)
     return 4 * (m * k4 + live_floats + xy + rows * hs + 3 * 64 * (64 + 4))
+
+
+def hub_reuse_route(c: int, m: int, k: int, d: int) -> str:
+    """The route hub_reuse takes for C cache rows, M subsets of K slots
+    and width D (``hub_reuse.cu``: ``streams``): ``"stream"`` where a
+    64-row resident launch, liveness counted, would pass a block's shared
+    memory, else ``"resident"``.  Not C: each launch takes 128 rows at
+    most."""
+    return ("stream" if _resident_smem(64, m, k, d, True) > MAX_SMEM
+            else "resident")
+
+
+def hub_reuse_smem(c: int, m: int, k: int, d: int, live: bool = True,
+                   chunk: int = 128) -> int:
+    """Bytes of shared memory a block of the call's largest launch (its
+    first chunk's) takes on the call's route (``hub_reuse.cu``:
+    ``smem_bytes``), with the liveness mask staged or without, as
+    ``hub_reuse_smem_bytes`` answers.  A streamed block holds each warp's
+    slot tile, one x slice (later y), h and the ring, whatever D, M and
+    K."""
+    rows = 64 if min(chunk, c) <= 64 else 128
+    if hub_reuse_route(c, m, k, d) == "stream":
+        return 4 * ((rows // 8) * SLOT_TILE + 2 * rows * (64 + 8)
+                    + 3 * 64 * (64 + 4))
+    return _resident_smem(rows, m, k, d, live)
+
+
+def hub_reuse_chunk(c: int, m: int, k: int, d: int) -> int:
+    """The heuristic's cache rows a launch: 128 wherever a 128-row launch
+    fits (a streamed one always does), else 64."""
+    return 128 if hub_reuse_smem(c, m, k, d, True, 128) <= MAX_SMEM else 64
 
 
 def knobs_of(kernel: str, dims: dict) -> tuple:
@@ -202,8 +236,9 @@ def infeasible(kernel: str, dims: dict, knobs: dict) -> str | None:
             if v not in CHUNKS:
                 return f"'chunk' must be one of {CHUNKS}, got {v}"
     if kernel == "hub_reuse":
-        smem = hub_reuse_smem(dims["c"], dims["m"], dims["k"], dims["d"],
-                              True, knobs.get("chunk", 128))
+        c, m, k, d = (dims[n] for n in ("c", "m", "k", "d"))
+        smem = hub_reuse_smem(c, m, k, d, True,
+                              knobs.get("chunk", hub_reuse_chunk(c, m, k, d)))
         if smem > MAX_SMEM:
             return (f"a launch takes {smem} B of shared memory, past a "
                     f"block's {MAX_SMEM}")

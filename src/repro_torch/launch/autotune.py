@@ -60,7 +60,8 @@ def heuristic_knobs(kernel: str, dims: dict, sms: int) -> dict:
     """The knob the heuristic sets for the cell on a card of ``sms`` SMs
     (always candidate 0, so the winner never loses to the default)."""
     if kernel == "hub_reuse":
-        return {"chunk": 128}
+        return {"chunk": tiling.hub_reuse_chunk(
+            *(dims[n] for n in ("c", "m", "k", "d")))}
     shape = [dims[n] for n in ("b", "s", "k", "d", "dc", "h", "f")]
     if tiling.knobs_of(kernel, dims) == ("rows",):
         return {"rows": tiling.narrow_rows(*shape, sms)}

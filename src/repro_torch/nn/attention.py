@@ -8,11 +8,11 @@ arguments alone, where its softmax(QKᵀ)V core runs:
   * ``"flash"`` — the hand-written ``flash_attention`` kernel on
     (B, H, S, D) tensors: :func:`causal_attention` without a
     bidirectional prefix and without a softcap, and
-    :func:`bidir_attention` (``causal=False``), for head_dim up to the
-    kernel's ``MAX_D``.  These calls have Sq == Skv, where the kernel's
-    top-left causal mask is the JAX package's ``rows >= cols``, and one
-    call computes what the JAX package's query chunking above
-    ``CHUNK_Q_ABOVE`` computes.
+    :func:`bidir_attention` (``causal=False``), at any head_dim (the
+    kernel's ``split`` route takes those past ``MAX_D`` = 256).  These
+    calls have Sq == Skv, where the kernel's top-left causal mask is the
+    JAX package's ``rows >= cols``, and one call computes what the JAX
+    package's query chunking above ``CHUNK_Q_ABOVE`` computes.
   * ``"plain"`` — torch einsums mirroring the JAX package: PaliGemma's
     bidirectional prefix, a softcap, :func:`local_attention`, cross
     attention and decode.
@@ -33,7 +33,6 @@ import torch
 
 from ..dist import sharding as shd
 from ..kernels.flash_attention import flash_attention
-from ..kernels.flash_attention.ops import MAX_D
 from .layers import lecun, rope
 
 NEG = -2.0e38
@@ -46,7 +45,7 @@ def attention_route(kind: str, head_dim: int, prefix_len: int = 0,
     """``"flash"`` or ``"plain"`` for an attention call of ``kind``
     (``causal``, ``bidir``, ``local``, ``cross``, ``decode``)."""
     if (kind in ("causal", "bidir") and prefix_len == 0 and softcap == 0
-            and 0 < head_dim <= MAX_D):
+            and head_dim > 0):
         return "flash"
     return "plain"
 

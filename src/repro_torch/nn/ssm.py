@@ -4,7 +4,8 @@
 Chunked SSD: within a chunk the recurrence is a masked attention-like
 quadratic form; across chunks a short loop carries the (n_heads, headdim,
 d_state) states.  The intra-chunk output and the chunk states come from
-the hand-written ``ssd_chunk`` kernel (float32, chunks of q <= 128), and
+the hand-written ``ssd_chunk`` kernel (float32, chunks of any length:
+its tiled route takes those over 128 rows, Mamba-2's published 256), and
 under autograd their gradient from its backward kernel (``SsdChunkFn``;
 on a CPU tensor the wrappers run ``ssd_chunk_ref`` and the closed form
 ``ssd_chunk_bwd_ref``); the inter-chunk scan and the rest are plain

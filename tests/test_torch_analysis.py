@@ -106,7 +106,10 @@ def test_wide_site_merges_its_h_splits():
 
 
 def test_k001_site_over_227_kb():
-    hub = _site("hub_reuse", dict(HUB, d=2048), chunk=128)
+    # a forced 128-row chunk of a resident call whose 64-row one fits (a
+    # call too wide for 64 rows streams, in fixed shared memory)
+    hub = _site("hub_reuse", dict(HUB, d=387), chunk=128)
+    assert hub.launch["route"] == "resident"
     assert hub.smem > tiling.MAX_SMEM
     assert _rules(check_kernel_site(hub)) == {"K001"}
     dims = dict(b=2, s=64, k=32, d=192, dc=3, h=192, f=256)
@@ -126,8 +129,9 @@ def test_k002_route_preconditions():
     assert "K002" in _rules(check_kernel_site(chunk))
     assert _site("flash_attention", FLASH,
                  dtype="bfloat16").launch["route"] == "wgmma"
-    ssd = _site("ssd_chunk", dict(SSD, q=160))
+    ssd = _site("ssd_chunk", dict(SSD, q=0))
     assert "K002" in _rules(check_kernel_site(ssd))
+    assert check_kernel_site(_site("ssd_chunk", dict(SSD, q=160))) == []
 
 
 def test_k003_grid_misses_the_last_row():
@@ -567,12 +571,14 @@ def test_cli_and_matrix_default_to_the_card(monkeypatch, capsys):
 def test_full_matrix_is_clean():
     """Every target of the full matrix (4 families x 2 modes x 2 backends,
     the serving partial batch, the one-rank sharded engine, the entry
-    kernels) runs, traces and lints with no unsuppressed finding; every
-    family has sites, every lpcn ``cuda`` target both FC kernels', every
-    entry target its kernel's."""
+    kernels and hub_reuse's routes past the reduced specs) runs, traces
+    and lints with no unsuppressed finding; every family has sites, every
+    lpcn ``cuda`` target both FC kernels', every entry target its
+    kernel's, and the routes past the old limits (hub_reuse ``stream``,
+    ssd_chunk ``tiled``, flash ``split``) theirs."""
     sups, meta = cli._src_suppressions(None)
     tl = T.default_targets(device="cpu")
-    assert len(tl) == 4 * 2 * 2 + 2 + 3
+    assert len(tl) == 4 * 2 * 2 + 2 + len(T.ENTRIES)
     findings, rows = cli.analyze_targets(tl, suppressions=sups)
     assert meta == []
     assert active(findings) == [], [str(f) for f in active(findings)]
@@ -585,6 +591,9 @@ def test_full_matrix_is_clean():
             assert kinds == {"gather_mlp", "hub_reuse"}, t.name
         elif t.name.startswith("entry:"):
             assert kinds == {t.name.split(":")[1]}, t.name
+    routes = {(r["kernel"], r["launch"].get("route")) for r in rows}
+    assert {("hub_reuse", "stream"), ("ssd_chunk", "tiled"),
+            ("flash_attention", "split")} <= routes, routes
 
 
 def test_autotune_refuses_a_plan_that_fails_a_k_rule(monkeypatch):

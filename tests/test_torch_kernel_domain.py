@@ -1,0 +1,485 @@
+"""The shapes past the earlier routes' limits, which the port's kernels now
+take as the JAX package's Pallas kernels do: hub_reuse past a block's
+shared memory (its resident route in 64-row chunks, and the ``stream``
+route), ssd_chunk forward and backward at chunks over 128 rows (the
+``tiled`` route; Mamba-2's published chunk is 256) and flash_attention
+forward and backward at heads over 256 wide (the ``split`` route).
+
+On the CPU the wrappers run their plain versions: those are held against
+the JAX package at the new shapes (1e-4 against Pallas in interpret mode,
+1e-5 against eager JAX, each times max(1, max|ref|)), the reduced
+mamba2-2.7b at ``ssd_chunk=256`` against JAX's (logits and grads 1e-4),
+and every published ``MODEL_ZOO`` spec's hub_reuse calls at
+``cache_capacity_x`` 1, 2 and 4 have a plan that fits, which the
+analysis's K rules pass.  The ``cuda``-marked tests run each new route
+against its plain version on the card.
+
+The JAX package is imported inside the tests that compare with it, so
+the card tests (``pytest -m cuda tests/test_torch_kernel_domain.py``)
+also run on a host without JAX."""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.analysis.kernels import check_kernel_site, site_from_capture
+from repro_torch.kernels import _build, plans, tiling
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                     attention_lse_ref,
+                                                     attention_ref)
+from repro_torch.kernels.hub_reuse import hub_reuse, hub_reuse_ref
+from repro_torch.kernels.hub_reuse import ops as hub_ops
+from repro_torch.kernels.ssd_chunk import ops as ssd_ops
+from repro_torch.kernels.ssd_chunk.ref import ssd_chunk_bwd_ref, ssd_chunk_ref
+
+torch.set_num_threads(1)
+
+PALLAS_TOL = 1e-4      # against a Pallas kernel in interpret mode
+EAGER_TOL = 1e-5       # against eager JAX (f32 sums in another order)
+LM_TOL = 1e-4          # the reduced mamba2-2.7b's logits and grads
+CARD_TOL = 1e-4        # a kernel route against its plain version, f32
+CACHE_X = (1.0, 2.0, 4.0)
+
+# (H, C, M, K, D, Hd, F): D = 387 at C = 128 (pointvector_l's block 4
+# under the paper's Fig. 22 cache size, cut in H, M, Hd and F), resident
+# in 64-row chunks; D = 700 streamed
+HUB_SHAPES = [(2, 128, 16, 8, 387, 32, 32), (2, 128, 16, 8, 700, 32, 32)]
+SSD_QS = (129, 256, 512)
+FLASH_DS = (257, 320, 512)
+
+
+def _close(got, want, tol, label=""):
+    got = np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    assert got.shape == want.shape, label
+    err = float(np.abs(got - want).max()) if got.size else 0.0
+    lim = tol * max(1.0, float(np.abs(want).max()))
+    assert err <= lim, f"{label}: max|Δ| {err:.3g} > {lim:.3g}"
+
+
+def _hub_arrays(rng, h, c, m, k, d, hd, f):
+    slot = rng.integers(-1, c, (h, m, k)).astype(np.int32)
+    slot[:, ::5] = -1                            # subsets with no slot
+    return (rng.normal(size=(h, c, d)).astype(np.float32), slot,
+            rng.normal(size=(h, m, f)).astype(np.float32),
+            (rng.normal(size=(d, hd)) * (2 / d) ** .5).astype(np.float32),
+            (0.1 * rng.normal(size=hd)).astype(np.float32),
+            (rng.normal(size=(hd, f)) * (2 / hd) ** .5).astype(np.float32),
+            (0.1 * rng.normal(size=f)).astype(np.float32),
+            (rng.random((h, m, k)) < 0.9).astype(np.int32))
+
+
+def _ssd_arrays(rng, bs, nc, q, h, p, s):
+    """x, B, C, dt, cum (cum non-increasing within a chunk), dy, dst."""
+    arrays = (rng.normal(size=(bs, nc, q, h, p)),
+              rng.normal(size=(bs, nc, q, s)),
+              rng.normal(size=(bs, nc, q, s)),
+              rng.uniform(0.1, 1.0, (bs, nc, q, h)),
+              -np.cumsum(rng.uniform(0.01, 0.2, (bs, nc, q, h)), axis=2),
+              rng.normal(size=(bs, nc, q, h, p)),
+              rng.normal(size=(bs, nc, h, p, s)))
+    return [a.astype(np.float32) for a in arrays]
+
+
+def _qkv(rng, b, hq, hkv, s, d):
+    return [rng.normal(size=shape).astype(np.float32)
+            for shape in ((b, hq, s, d), (b, hkv, s, d), (b, hkv, s, d),
+                          (b, hq, s, d))]
+
+
+def _t(arrays, device="cpu"):
+    return [torch.from_numpy(np.asarray(a)).to(device) for a in arrays]
+
+
+# ---- hub_reuse --------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", HUB_SHAPES)
+def test_hub_reuse_ref_matches_pallas_past_shared_memory(shape):
+    """The plain version against hub_reuse_pallas (interpret mode) at a
+    width whose 128-row resident launch passes a block's shared memory
+    (the heuristic plans 64-row chunks) and at one whose 64-row launch
+    does too (the stream route); the plan is resolved before the CPU/CUDA
+    split, so the route shows here."""
+    import jax.numpy as jnp
+    from repro.kernels.hub_reuse.hub_reuse import hub_reuse_pallas
+    h, c, m, k, d, hd, f = shape
+    arrays = _hub_arrays(np.random.default_rng(d), *shape)
+    pool, slot, comp, w1, b1, w2, b2, live = _t(arrays)
+    with plans.capture() as cap:
+        got = hub_reuse(pool, slot, comp, w1, b1, w2, b2, live=live != 0)
+    (rec,) = cap
+    route = tiling.hub_reuse_route(c, m, k, d)
+    assert rec["plan"]["route"] == route == ("stream" if d > 600
+                                             else "resident")
+    assert rec["plan"]["chunk"] == (128 if route == "stream" else 64)
+    want = hub_reuse_pallas(*[jnp.asarray(a) for a in arrays[:7]],
+                            interpret=True, live=jnp.asarray(arrays[7]))
+    _close(got.numpy(), want, PALLAS_TOL, f"hub_reuse D={d}")
+    _close(hub_reuse_ref(pool, slot, comp, w1, b1, w2, b2,
+                         live=live).numpy(), want, PALLAS_TOL)
+
+
+def test_hub_reuse_plans_fall_to_64_rows_then_stream():
+    """128 rows where they fit, 64 where only those do, the stream route
+    (whose shared memory is fixed) where 64 rows do not fit either, or
+    where the slot table alone is too large; a forced chunk that does not
+    fit still raises, and the library's formula's copies agree."""
+    assert tiling.hub_reuse_chunk(128, 64, 64, 128) == 128
+    assert tiling.hub_reuse_chunk(128, 64, 32, 259) == 64   # pointnext_s
+    assert tiling.hub_reuse_chunk(128, 64, 32, 387) == 64   # pointvector_l
+    for c, m, k, d in ((128, 64, 32, 600), (64, 500, 64, 6)):
+        assert tiling.hub_reuse_route(c, m, k, d) == "stream"
+        for chunk in tiling.CHUNKS:
+            assert tiling.hub_reuse_smem(c, m, k, d, True,
+                                         chunk) <= tiling.MAX_SMEM
+    dims = dict(b=2, hn=1, c=128, m=64, k=32, d=387, h=1536, f=768)
+    assert "shared memory" in tiling.infeasible("hub_reuse", dims,
+                                                {"chunk": 128})
+    assert tiling.infeasible("hub_reuse", dims, {}) is None
+    with pytest.raises(ValueError, match="shared memory"):
+        hub_ops.plan(*dims.values(), "cpu", chunk=128)
+    # the autotuner offers a chunk only where it fits
+    from repro_torch.launch.autotune import candidate_plans
+    per_cloud = {"variant": "per_cloud"}
+    assert candidate_plans("hub_reuse", dims, sms=132) == [{"chunk": 64},
+                                                          per_cloud]
+    stream = dict(dims, d=700)
+    assert candidate_plans("hub_reuse", stream, sms=132) == [
+        {"chunk": 128}, {"chunk": 64}, per_cloud]
+
+
+@pytest.fixture(scope="module")
+def zoo_hub_calls():
+    """Every published spec's hub_reuse calls at each CACHE_X, captured
+    from one lpcn forward of a 1024-point cloud (B = 1; the calls' widths
+    do not depend on N)."""
+    from repro_torch.data.synthetic import make_cloud
+    from repro_torch.engine import Batch, PCNEngine
+    from repro_torch.models import MODEL_ZOO
+    rng = np.random.default_rng(0)
+    calls = {}
+    for name, (_, spec) in MODEL_ZOO.items():
+        cloud = make_cloud(rng, 1024, scene_like=spec.task == "seg")
+        feats = (None if spec.in_feats <= 3 else [np.concatenate(
+            [cloud, rng.uniform(0, 1, (1024, spec.in_feats - 3))
+             .astype(np.float32)], -1)])
+        batch = Batch.from_clouds([cloud], feats=feats, n_pad=1024,
+                                  device="cpu")
+        for x in CACHE_X:
+            eng = PCNEngine(spec, mode="lpcn", fc_backend="cuda",
+                            isl_kw={"cache_capacity_x": x}, device="cpu")
+            with plans.capture() as cap, torch.no_grad():
+                eng.apply(eng.init(seed=0), batch)
+            calls[name, x] = [r for r in cap if r["kernel"] == "hub_reuse"]
+    return calls
+
+
+@pytest.mark.parametrize("x", CACHE_X)
+def test_every_zoo_hub_call_has_a_plan_the_k_rules_pass(zoo_hub_calls, x):
+    """At cache_capacity_x 1, 2 and 4, every hub_reuse call of every
+    published spec: C = x·k, the heuristic plan fits (``tiling.infeasible``
+    None) and its launch site has no K001–K005 finding; block 4 of
+    pointnext_s and pointvector_l at x = 4 take 64-row chunks."""
+    from repro_torch.models import MODEL_ZOO
+    for name in MODEL_ZOO:
+        recs = zoo_hub_calls[name, x]
+        assert recs, name
+        for i, rec in enumerate(recs):
+            dims, plan = rec["dims"], rec["plan"]
+            assert dims["c"] == int(x * dims["k"]), (name, dims)
+            assert tiling.infeasible("hub_reuse", dims, {}) is None
+            assert plan["chunk"] == tiling.hub_reuse_chunk(
+                dims["c"], dims["m"], dims["k"], dims["d"])
+            site = site_from_capture(rec, f"{name}:{x}:{i}", sms=132)
+            assert check_kernel_site(site) == [], (name, x, dims)
+    if x == 4.0:
+        for name in ("pointnext_s", "pointvector_l"):
+            assert zoo_hub_calls[name, x][-1]["plan"]["chunk"] == 64
+
+
+# ---- ssd_chunk --------------------------------------------------------------
+
+@pytest.mark.parametrize("q", SSD_QS)
+def test_ssd_chunk_ref_matches_pallas_past_128_rows(q):
+    """ssd_chunk_ref against ssd_chunk_pallas (interpret mode) at chunks
+    of 129, 256 and 512 rows; the plan names the tiled route."""
+    import jax.numpy as jnp
+    from repro.kernels.ssd_chunk.ssd_chunk import ssd_chunk_pallas
+    arrays = _ssd_arrays(np.random.default_rng(q), 1, 1, q, 2, 8, 16)
+    with plans.capture() as cap:
+        got = ssd_ops._forward(*_t(arrays[:5]))
+    assert cap[0]["plan"]["route"] == ssd_ops.route(q) == "tiled"
+    want = ssd_chunk_pallas(*[jnp.asarray(a) for a in arrays[:5]],
+                            interpret=True)
+    for part, g, w in zip(("y_in", "states"), got, want):
+        _close(g.numpy(), w, PALLAS_TOL, f"q={q} {part}")
+    for g, w in zip(ssd_chunk_ref(*_t(arrays[:5])), got):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("q", SSD_QS)
+def test_ssd_chunk_bwd_ref_matches_jax_vjp_past_128_rows(q):
+    """ssd_chunk_bwd_ref against jax.vjp of the JAX package's
+    ssd_chunk_ref at chunks of 129, 256 and 512 rows, every output."""
+    import jax
+    import jax.numpy as jnp
+    from repro.kernels.ssd_chunk.ref import ssd_chunk_ref as jssd_ref
+    arrays = _ssd_arrays(np.random.default_rng(q + 1), 1, 1, q, 2, 8, 16)
+    got = ssd_chunk_bwd_ref(*_t(arrays))
+    cot = (jnp.asarray(arrays[5]), jnp.asarray(arrays[6]))
+    want = jax.vjp(jssd_ref, *[jnp.asarray(a) for a in arrays[:5]])[1](cot)
+    for part, g, w in zip(("dx", "dB", "dC", "ddt", "dcum"), got, want):
+        _close(g.numpy(), w, EAGER_TOL, f"q={q} {part}")
+
+
+@pytest.fixture(scope="module")
+def mamba2_c256():
+    """The reduced mamba2-2.7b at ``ssd_chunk=256`` in float32, JAX's
+    params and two token batches (S = 512: two chunks of 256; S = 200:
+    one chunk of 200), as numpy."""
+    import jax
+    from repro.configs import get_config
+    from repro.lm import model_zoo as jzoo
+    cfg = dataclasses.replace(get_config("mamba2-2.7b", reduced=True),
+                              dtype="float32", ssd_chunk=256)
+    params = jax.tree.map(np.asarray, jzoo.init(jax.random.PRNGKey(0), cfg))
+    rng = np.random.default_rng(0)
+    batches = {s: rng.integers(0, cfg.vocab, (1, s + 1)).astype(np.int32)
+               for s in (512, 200)}
+    return cfg, params, batches
+
+
+class _ExpBelowOverflow:
+    """jax.numpy with ``exp``'s argument clamped at 80.  The JAX package's
+    SSD (``repro/nn/ssm.py``) takes exp(cum_i - cum_j) above the diagonal
+    too and masks it after: over a chunk of 256 rows cum_i - cum_j there
+    passes 88, exp overflows to inf, and its gradient through the mask is
+    inf · 0 = NaN in every leaf upstream of the first SSD layer.  Every
+    exponential the forward keeps has an argument <= 0, so the clamp
+    changes no forward value; it makes the masked entries' gradient 0, as
+    the port's kernels (which take exp only where i >= j) and the masked
+    oracle of tests/test_torch_ssd_bwd.py do."""
+
+    def __getattr__(self, name):
+        import jax.numpy as jnp
+        return getattr(jnp, name)
+
+    @staticmethod
+    def exp(x):
+        import jax.numpy as jnp
+        return jnp.exp(jnp.minimum(x, 80.0))
+
+
+@pytest.mark.parametrize("s", (512, 200))
+def test_mamba2_at_chunk_256_matches_jax(mamba2_c256, s, monkeypatch):
+    """Logits and every leaf's gradient of the reduced mamba2-2.7b at
+    ssd_chunk = 256 against JAX's, the gradient with the JAX SSD's
+    exponentials held below overflow (``_ExpBelowOverflow``; as it is,
+    JAX's gradient is NaN at this chunk); the prefill's ssd_chunk calls
+    take the tiled route."""
+    import jax
+    import jax.numpy as jnp
+    import repro.nn.ssm
+    from repro.lm import model_zoo as jzoo
+    from repro.lm import transformer as jtfm
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.lm import transformer as ptfm
+    from repro_torch.lm.params import from_numpy
+    from repro_torch.lm.steps import loss_and_grads
+    jcfg, params, batches = mamba2_c256
+    pcfg = dataclasses.replace(get_config("mamba2-2.7b", reduced=True),
+                               dtype="float32", ssd_chunk=256)
+    toks = batches[s]
+    pparams = from_numpy(params, "cpu")
+    with plans.capture() as cap:
+        logits, _ = ptfm.forward(pcfg, pparams,
+                                 tokens=torch.from_numpy(toks[:, :-1]))
+    routes = {r["plan"]["route"] for r in cap if r["kernel"] == "ssd_chunk"}
+    assert routes == {"tiled"}
+    want, _ = jtfm.forward(jcfg, params, tokens=jnp.asarray(toks[:, :-1]))
+    _close(logits.detach().numpy(), want, LM_TOL, "logits")
+    batch = {"tokens": toks}
+    monkeypatch.setattr(repro.nn.ssm, "jnp", _ExpBelowOverflow())
+    jg = jax.grad(lambda p, b: jzoo.loss_fn(jcfg, p, b)[0])(params, batch)
+    got = loss_and_grads(pcfg, pparams,
+                         {"tokens": torch.from_numpy(toks)})[2]
+    paths = tree.paths(pparams)
+    for path, g, w in zip(paths, got, jax.tree.leaves(jg)):
+        _close(g.numpy(), w, LM_TOL, path)
+
+
+# ---- flash_attention --------------------------------------------------------
+
+@pytest.mark.parametrize("d", FLASH_DS)
+def test_attention_ref_matches_pallas_past_256_wide(d):
+    """attention_ref against flash_attention_pallas (interpret mode) at
+    head widths 257, 320 and 512 (GQA, causal), and its gradient
+    (attention_bwd_ref) against jax.vjp of the JAX package's
+    attention_ref; the route is ``split``, in f32 and bf16."""
+    import jax
+    import jax.numpy as jnp
+    from repro.kernels.flash_attention.flash_attention import (
+        flash_attention_pallas)
+    from repro.kernels.flash_attention.ref import (
+        attention_ref as jattention_ref)
+    q, k, v, do = _qkv(np.random.default_rng(d), 1, 2, 1, 128, d)
+    for dt in (torch.float32, torch.bfloat16):
+        assert flash_ops._variant(dt, d) == "split"
+    with plans.capture() as cap:
+        out = flash_ops._forward(*_t((q, k, v)), causal=True)
+    assert cap[0]["plan"]["route"] == "split"
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    want = flash_attention_pallas(jq, jk, jv, causal=True, tq=64, tk=64,
+                                  interpret=True)
+    _close(out.numpy(), want, PALLAS_TOL, f"D={d} forward")
+    got = attention_bwd_ref(*_t((q, k, v)), out, torch.from_numpy(do),
+                            causal=True)
+    _, pull = jax.vjp(lambda a, b, c: jattention_ref(a, b, c, causal=True),
+                      jq, jk, jv)
+    for part, g, w in zip(("dq", "dk", "dv"), got, pull(jnp.asarray(do))):
+        _close(g.numpy(), w, EAGER_TOL, f"D={d} {part}")
+
+
+def test_attention_route_takes_every_width():
+    from repro_torch.nn.attention import attention_route
+    for d in (64, 256, 257, 512, 1024):
+        assert attention_route("causal", d) == "flash"
+        assert attention_route("bidir", d) == "flash"
+    assert attention_route("causal", 512, 16) == "plain"
+    with pytest.raises(ValueError, match="D >= 1"):
+        flash_ops._variant(torch.float32, 0)
+
+
+# ---- the routes on the card --------------------------------------------------
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    (2, 128, 64, 32, 387, 1536, 768),      # pointvector_l block 4, x = 4
+    (2, 128, 64, 32, 259, 1024, 512),      # pointnext_s block 4, x = 4
+    (4, 128, 64, 32, 700, 1024, 512),      # streamed: D
+    (3, 200, 500, 64, 6, 8, 16),           # streamed: the slot table
+    (2, 50, 7, 300, 650, 70, 100)])        # streamed: K past a slot tile
+def test_hub_reuse_routes_match_plain_on_card(shape):
+    """Each route past the old limit against the plain version, with and
+    without liveness, at B = 2 and for each chunk that fits: 1e-4 ·
+    max(1, max|plain|), the -BIG identity exactly; the library's route
+    and shared memory equal tiling.py's; one launch a chunk, counted on
+    the route."""
+    dev = _cuda()
+    h, c, m, k, d, hd, f = shape
+    rng = np.random.default_rng(d)
+    clouds = [_hub_arrays(rng, *shape) for _ in range(2)]
+    pool, slot, comp = (torch.from_numpy(np.stack([a[i] for a in clouds]))
+                        .to(dev) for i in range(3))
+    w1, b1, w2, b2 = _t(clouds[0][3:7], dev)
+    live = torch.from_numpy(np.stack([a[7] for a in clouds]) != 0).to(dev)
+    route = tiling.hub_reuse_route(c, m, k, d)
+    assert hub_ops.library_route(c, m, k, d) == route
+    for chunk in tiling.CHUNKS:
+        dims = dict(b=2, hn=h, c=c, m=m, k=k, d=d, h=hd, f=f)
+        if not tiling.feasible("hub_reuse", dims, {"chunk": chunk}):
+            continue
+        assert hub_ops.library_smem(c, m, k, d, hd, True, chunk) == \
+            tiling.hub_reuse_smem(c, m, k, d, True, chunk)
+        for lv in (live, None):
+            before = _build.LAUNCHES[f"hub_reuse_{route}"]
+            got = hub_reuse(pool, slot, comp, w1, b1, w2, b2, live=lv,
+                            chunk=chunk)
+            assert _build.LAUNCHES[f"hub_reuse_{route}"] == before + len(
+                tiling.hub_reuse_launches(c, chunk))
+            want = hub_reuse_ref(pool, slot, comp, w1, b1, w2, b2, lv)
+            dead = want <= -1.7e38
+            assert torch.equal(got[dead], want[dead])
+            _close(got[~dead].cpu().numpy(), want[~dead].cpu().numpy(),
+                   CARD_TOL, f"{shape} chunk {chunk}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 2, 129, 3, 16, 8),
+                                   (1, 2, 256, 4, 64, 128),
+                                   (1, 1, 512, 2, 64, 128),
+                                   (2, 1, 200, 3, 36, 100),
+                                   (1, 1, 300, 2, 130, 260)])
+def test_ssd_chunk_tiled_route_matches_plain_on_card(shape):
+    """The tiled route's forward and backward against the plain versions
+    (the backward's dcum against float64: its diagonal terms cancel),
+    1e-4 · max(1, max|ref|); two backward calls bit-equal; one forward
+    launch and two backward launches a call, on the tiled route; the
+    library's plans name it."""
+    dev = _cuda()
+    arrays = _t(_ssd_arrays(np.random.default_rng(sum(shape)), *shape), dev)
+    bs, nc, q, h, p, s = shape
+    plan = ssd_ops.library_plan(bs * nc, h, q, p, s)
+    assert plan["tiled"] == 1 and plan["hg"] == 1
+    assert ssd_ops.backward_plan(bs, nc, q, h, p, s)["tiled"] == 1
+    before = dict(_build.LAUNCHES)
+    got = ssd_ops._forward(*arrays[:5])
+    grads = ssd_ops.ssd_chunk_backward(*arrays)
+    again = ssd_ops.ssd_chunk_backward(*arrays)
+    assert _build.LAUNCHES["ssd_chunk_tiled"] == before.get(
+        "ssd_chunk_tiled", 0) + 1
+    assert _build.LAUNCHES["ssd_chunk_bwd_tiled"] == before.get(
+        "ssd_chunk_bwd_tiled", 0) + 4
+    for g, w in zip(got, ssd_chunk_ref(*arrays[:5])):
+        _close(g.cpu().numpy(), w.cpu().numpy(), CARD_TOL)
+    want = ssd_chunk_bwd_ref(*arrays)
+    wide = ssd_chunk_bwd_ref(*[a.double() for a in arrays])
+    for part, g, a, w, w64 in zip(("dx", "dB", "dC", "ddt", "dcum"), grads,
+                                  again, want, wide):
+        assert torch.equal(g, a), part
+        ref = w64 if part == "dcum" else w
+        _close(g.cpu().numpy(), ref.float().cpu().numpy(), CARD_TOL, part)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,hq,hkv,s,d,causal", [
+    (1, 4, 2, 200, 257, True), (1, 2, 1, 130, 320, False),
+    (2, 2, 2, 300, 512, True)])
+def test_flash_split_route_matches_plain_on_card(b, hq, hkv, s, d, causal,
+                                                 dtype):
+    """The split route's forward (and log-sum-exp) and backward against
+    the plain versions: f32 within 1e-4 · max(1, max|ref|), bf16 by
+    ‖Δ‖/‖ref‖ <= 2e-2; two backward calls bit-equal; launches counted on
+    the split route; the library's layout equal to the analysis's."""
+    from repro_torch.analysis.kernels import flash_layout
+    dev = _cuda()
+    dt = getattr(torch, dtype)
+    q, k, v, do = (t.to(dt) for t in _t(_qkv(
+        np.random.default_rng(d), b, hq, hkv, s, d), dev))
+    do = do[:, :hq]
+    lay = flash_ops.library_layout("split", dt, d)
+    assert {n: lay[n] for n in ("bq", "bk", "dp", "smem")} == flash_layout(
+        "split", dtype, d)
+    before = dict(_build.LAUNCHES)
+    out, lse = flash_ops._forward(q, k, v, causal, lse=True)
+    grads = flash_ops.flash_attention_backward(q, k, v, out, do, causal,
+                                               lse=lse)
+    again = flash_ops.flash_attention_backward(q, k, v, out, do, causal,
+                                               lse=lse)
+    assert _build.LAUNCHES["flash_attention_split"] == before.get(
+        "flash_attention_split", 0) + 1
+    assert _build.LAUNCHES["flash_attention_bwd_dq_split"] == before.get(
+        "flash_attention_bwd_dq_split", 0) + 2
+    _close(lse.cpu().numpy(), attention_lse_ref(q, k, causal).cpu().numpy(),
+           CARD_TOL, "lse")
+    pairs = [("out", out, attention_ref(q, k, v, causal))]
+    pairs += zip(("dq", "dk", "dv"), grads,
+                 attention_bwd_ref(q, k, v, out, do, causal))
+    for (part, g, w), a in zip(pairs, (None, *again)):
+        if a is not None:
+            assert torch.equal(g, a), part
+        g, w = g.float(), w.float()
+        if dt == torch.float32:
+            _close(g.cpu().numpy(), w.cpu().numpy(), CARD_TOL, part)
+        else:
+            assert ((g - w).norm() / w.norm()).item() <= 2e-2, part

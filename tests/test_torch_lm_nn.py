@@ -168,11 +168,11 @@ def test_cross_entropy():
 @pytest.mark.parametrize("kind,head_dim,prefix,softcap,route", [
     ("causal", 128, 0, 0.0, "flash"),
     ("causal", 256, 0, 0.0, "flash"),
-    ("causal", 257, 0, 0.0, "plain"),
+    ("causal", 257, 0, 0.0, "flash"),
     ("causal", 128, 16, 0.0, "plain"),
     ("causal", 128, 0, 30.0, "plain"),
     ("bidir", 64, 0, 0.0, "flash"),
-    ("bidir", 512, 0, 0.0, "plain"),
+    ("bidir", 512, 0, 0.0, "flash"),
     ("local", 128, 0, 0.0, "plain"),
     ("cross", 64, 0, 0.0, "plain"),
     ("decode", 128, 0, 0.0, "plain"),

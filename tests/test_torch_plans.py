@@ -237,7 +237,7 @@ def test_heuristic_knob_unknown_off_the_card():
     ("gather_mlp", GDIMS, {"nsplit": 2}),       # the other route's knob
     ("gather_mlp", WDIMS, {"rows": 64}),
     ("gather_mlp", WDIMS, {"nsplit": 17}),      # past H / 32
-    ("hub_reuse", dict(HDIMS, m=500, k=64), {"chunk": 128})])
+    ("hub_reuse", dict(HDIMS, c=128, d=387), {"chunk": 128})])
 def test_infeasible_store_entry_warns_and_falls_back(kernel, dims, knob):
     """An entry that no longer fits (here: it never did) is not served:
     the wrapper warns and the heuristic plans the call."""
@@ -256,7 +256,7 @@ def test_infeasible_store_entry_warns_and_falls_back(kernel, dims, knob):
     ("gather_mlp", WDIMS, {"rows": 64}, "other one"),
     ("gather_mlp", WDIMS, {"nsplit": 17}, "1..16"),
     ("hub_reuse", HDIMS, {"chunk": 32}, "chunk"),
-    ("hub_reuse", dict(HDIMS, m=500, k=64), {"chunk": 64},
+    ("hub_reuse", dict(HDIMS, c=128, d=387), {"chunk": 128},
      "shared memory"),
     ("gather_mlp", GDIMS, {"variant": "vmap"}, "variant")])
 def test_explicit_infeasible_knob_raises(kernel, dims, knob, match):

@@ -179,10 +179,17 @@ def test_ssd_chunk_backward_refuses_other_devices_and_shapes():
     with pytest.raises(ValueError, match="dst has shape"):
         ssd_ops._check_shapes("ssd_chunk_backward", meta[0], meta[1],
                               {"dst": meta[6][..., :4]})
+    # a chunk past the whole route's 128 rows takes the tiled route
     long = torch.empty((1, 1, 129, 2, 8), device="meta")
-    with pytest.raises(ValueError, match="q <= 128"):
-        ssd_ops._check_shapes("ssd_chunk_backward", long,
-                              torch.empty((1, 1, 129, 8), device="meta"), {})
+    assert ssd_ops._check_shapes(
+        "ssd_chunk_backward", long,
+        torch.empty((1, 1, 129, 8), device="meta"), {}) == (1, 1, 129, 2,
+                                                            8, 8)
+    assert ssd_ops.route(128) == "whole" and ssd_ops.route(129) == "tiled"
+    empty = torch.empty((1, 1, 0, 2, 8), device="meta")
+    with pytest.raises(ValueError, match="q > 0"):
+        ssd_ops._check_shapes("ssd_chunk_backward", empty,
+                              torch.empty((1, 1, 0, 8), device="meta"), {})
 
 
 class _StubFn:

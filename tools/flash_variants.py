@@ -56,8 +56,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(ROOT), str(ROOT / "src"), str(ROOT / "tools")]
 
-FILES = ("flash_attention.cu", "sm90.cuh", "tf32x3.cuh")
-BWD_FILES = ("flash_attention_bwd.cu", "sm90.cuh", "tf32x3.cuh")
+FILES = ("flash_attention.cu", "sm90.cuh", "tf32x3.cuh", "flash_split.cuh",
+         "fma_tiles.cuh")
+BWD_FILES = ("flash_attention_bwd.cu", "sm90.cuh", "tf32x3.cuh",
+             "flash_split.cuh", "fma_tiles.cuh")
 # name -> [(file, text, replacement), ...]; each text occurs once
 VARIANTS = {
     "committed": [],

@@ -57,8 +57,9 @@ FAULTS = {
                                "const float cend = cum[p.Q - 1];",
                                "const float cend = cum[p.Q - 2];"),
 }
-FILES = ("ssd_chunk.cu", "ssd_tiles.cuh", "tf32x3.cuh")
-BWD_FILES = ("ssd_chunk_bwd.cu", "ssd_tiles.cuh", "tf32x3.cuh")
+FILES = ("ssd_chunk.cu", "ssd_tiles.cuh", "tf32x3.cuh", "fma_tiles.cuh")
+BWD_FILES = ("ssd_chunk_bwd.cu", "ssd_tiles.cuh", "tf32x3.cuh",
+             "fma_tiles.cuh")
 # (bs, nc, q, H, P, S) where B is too wide to stay in shared memory beside
 # chunk 128's C.B^T and streams in S tiles, the last one ragged
 BWD_STREAMED_B = (1, 2, 128, 4, 64, 250)

@@ -51,7 +51,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(ROOT), str(ROOT / "src"), str(ROOT / "tools")]
 
-FILES = ("ssd_chunk.cu", "ssd_tiles.cuh", "tf32x3.cuh")
+FILES = ("ssd_chunk.cu", "ssd_tiles.cuh", "tf32x3.cuh", "fma_tiles.cuh")
 NO_Y = ("ssd_chunk.cu", "    if (pr < npairs) {", "    if (false) {")
 NO_STATES = ("ssd_chunk.cu",
              "for (int wi = warp; wi < npp * nsq; wi += kWarps) {",
@@ -100,7 +100,8 @@ VARIANTS = {
 }
 
 
-BWD_FILES = ("ssd_chunk_bwd.cu", "ssd_tiles.cuh", "tf32x3.cuh")
+BWD_FILES = ("ssd_chunk_bwd.cu", "ssd_tiles.cuh", "tf32x3.cuh",
+             "fma_tiles.cuh")
 BWD_VARIANTS = {
     "committed": [],
     "sync_copies": [("ssd_chunk_bwd.cu", "    prefetch(d);\n",
