@@ -207,7 +207,11 @@ Phases, each timed, any failure exits non-zero:
      ``ssd_held``, ``ssd_bwd_held``), flash_attention and its backward on
      the split route at ``FLASH_SPLIT`` (8 heads, S = 2048, causal, D =
      512 in f32 and bf16, D = 257 in bf16; ``FLASH_TOL``, ``BWD_TOL``,
-     SDPA timed beside each); then mamba2-2.7b at full width with
+     SDPA timed beside each; each row with the library's cluster and
+     slice, its share of bound and the HMMA count of flash_split.cuh's
+     kernels, which must be nonzero) and on the split_fma route past the
+     cluster's reach at ``FLASH_SPLIT_FMA`` (the same layer at D = 1040,
+     f32 and bf16, held and timed alike); then mamba2-2.7b at full width with
      ``ssd_chunk`` = 256: a counted f32 prefill of 2 × 2048 (64 tiled
      launches) against the plain route (``LM_F32_TOL``), and the 2-layer
      gradient wiring (``grad_wiring``, its planted fault included).
@@ -565,6 +569,9 @@ SSD_TILED = {"mamba2_2p7b_c256": dict(bs=1, nc=8, q=256, h=80, p=64, s=128),
 FLASH_SPLIT_LAYER = dict(b=1, hq=8, hkv=8, s=2048, causal=True)
 FLASH_SPLIT = (("split_d512", 512, "float32"), ("split_d512", 512, "bfloat16"),
                ("split_d257", 257, "bfloat16"))
+# and past the cluster's reach (D > 1024), the split_fma route, same layer
+FLASH_SPLIT_FMA = (("split_fma_d1040", 1040, "float32"),
+                   ("split_fma_d1040", 1040, "bfloat16"))
 # mamba2-2.7b at chunk 256: a B x S prefill (f32) against the plain route,
 # and the 2-layer gradient wiring (TRAIN_WIRING)
 SSD_CHUNK_LONG = 256
@@ -647,15 +654,23 @@ def time_pair(fn_kernel, fn_plain, iters=20):
     return t["kernel"], t["plain"]
 
 
-def sass_count(name: str, *words: str) -> int:
+def sass_count(name: str, *words: str, within: str = "") -> int:
     """Instructions of the built ``name`` library whose SASS line holds
-    every one of ``words`` (``cuobjdump -sass``)."""
+    every one of ``words`` (``cuobjdump -sass``); with ``within``, only
+    those of the kernels whose mangled name starts with it (``_ZN5split``:
+    flash_split.cuh's)."""
     from repro_torch.kernels import _build
     tool = Path(_build._nvcc()).with_name("cuobjdump")
     lib = _build.library_path(name)
     sass = subprocess.run([str(tool), "-sass", str(lib)], check=True,
                           capture_output=True, text=True).stdout
-    return sum(all(w in line for w in words) for line in sass.splitlines())
+    n, inside = 0, True
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = line.split("Function :")[1].strip().startswith(within)
+        elif inside and all(w in line for w in words):
+            n += 1
+    return n
 
 
 def ptxas_kernels(log: str) -> list:
@@ -3680,8 +3695,8 @@ def domain_drive(dev, seed) -> tuple[dict, dict]:
     set to 0 just before and read just after: hub_reuse at
     ``REUSE_DOMAIN`` (resident in 64-row chunks, streamed), ssd_chunk and
     its backward at ``SSD_TILED`` (tiled), flash_attention and its
-    backward at ``FLASH_SPLIT`` (split), each route's count as its plan
-    says.  -> (launches by wrapper and by route, the calls' inputs)."""
+    backward at ``FLASH_SPLIT`` (split) and ``FLASH_SPLIT_FMA``
+    (split_fma), each route's count as its plan says.  -> (launches by wrapper and by route, the calls' inputs)."""
     import torch
     from repro_torch import kernels
     from repro_torch.kernels import tiling
@@ -3701,7 +3716,7 @@ def domain_drive(dev, seed) -> tuple[dict, dict]:
         torch.randn((f["b"], h, f["s"], d), generator=gen,
                     device=dev).to(getattr(torch, dt))
         for h in (f["hq"], f["hkv"], f["hkv"], f["hq"]))
-        for layer, d, dt in FLASH_SPLIT}
+        for layer, d, dt in FLASH_SPLIT + FLASH_SPLIT_FMA}
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     for a in hub.values():
@@ -3719,14 +3734,18 @@ def domain_drive(dev, seed) -> tuple[dict, dict]:
         REUSE_DOMAIN.values()]
     routes = [tiling.hub_reuse_route(shp["c"], shp["m"], shp["k"], shp["d"])
               for shp in REUSE_DOMAIN.values()]
-    n_ssd, n_fl = len(SSD_TILED), len(FLASH_SPLIT)
+    n_ssd, n_fl, n_fma = len(SSD_TILED), len(FLASH_SPLIT), len(
+        FLASH_SPLIT_FMA)
     want = {"hub_reuse": sum(map(len, chunks)),
             "ssd_chunk": n_ssd, "ssd_chunk_tiled": n_ssd,
             "ssd_chunk_bwd": 2 * n_ssd, "ssd_chunk_bwd_tiled": 2 * n_ssd,
-            "flash_attention": n_fl, "flash_attention_split": n_fl,
-            "flash_attention_bwd": 2 * n_fl,
+            "flash_attention": n_fl + n_fma, "flash_attention_split": n_fl,
+            "flash_attention_split_fma": n_fma,
+            "flash_attention_bwd": 2 * (n_fl + n_fma),
             "flash_attention_bwd_dq_split": n_fl,
-            "flash_attention_bwd_dkdv_split": n_fl}
+            "flash_attention_bwd_dkdv_split": n_fl,
+            "flash_attention_bwd_dq_split_fma": n_fma,
+            "flash_attention_bwd_dkdv_split_fma": n_fma}
     for route, ch in zip(routes, chunks):
         want[f"hub_reuse_{route}"] = want.get(f"hub_reuse_{route}", 0) + len(
             ch)
@@ -3792,8 +3811,8 @@ def domain_phase(dev, seed, smi) -> tuple[list, list]:
     """Phase 14, the kernels' domain routes: ``domain_drive`` (counted),
     then each route held against its plain version and timed beside it
     (``domain_hub_rows``; ``ssd_row`` and ``ssd_bwd_rows`` at
-    ``SSD_TILED``; ``flash_row`` and ``bwd_row`` at ``FLASH_SPLIT``, SDPA
-    beside them), each row with its wrapper's and its route's launches in
+    ``SSD_TILED``; ``flash_row`` and ``bwd_row`` at ``FLASH_SPLIT`` and
+    ``FLASH_SPLIT_FMA``, SDPA beside them), each row with its wrapper's and its route's launches in
     the drive; then mamba2-2.7b at chunk ``SSD_CHUNK_LONG``: a counted
     f32 prefill of ``LM_PREFILL`` against the plain route (max|Δ| <=
     ``LM_F32_TOL`` · max(1, max|plain|)) and the gradient wiring
@@ -3826,24 +3845,55 @@ def domain_phase(dev, seed, smi) -> tuple[list, list]:
     parity += ssd_parity + bwd_parity
     rows += bwd
     f = FLASH_SPLIT_LAYER
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    # tensor-core instructions of flash_split.cuh's kernels, by library
+    # and type (bf16: HMMA ... BF16; f32 in 3xTF32: HMMA ... TF32)
+    hmma = {(lib, dt): sass_count(lib, "HMMA", word, within="_ZN5split")
+            for lib in ("flash_attention", "flash_attention_bwd")
+            for dt, word in (("float32", "TF32"), ("bfloat16", "BF16"))}
+    log(json.dumps({"split_sass_hmma": {f"{a}_{b}": n for (a, b), n in
+                                        hmma.items()}}))
+    for key, n in hmma.items():
+        check(n > 0, f"flash_split.cuh's {key[1]} kernels in {key[0]} have "
+              f"no tensor-core HMMA")
     for (layer, dt), (q, k, v, _) in inputs["flash"].items():
         d = q.shape[-1]
-        from repro_torch.kernels.flash_attention import flash_attention
+        route = flash_ops._variant(q.dtype, d)
+        check(route == ("split" if d <= flash_ops.SPLIT_DMAX else
+                        "split_fma"), f"flash {layer} {dt}: route {route}")
+        src = ("src/repro_torch/csrc/flash_split.cuh" if route == "split"
+               else "src/repro_torch/csrc/flash_split_fma.cuh")
+        lay = flash_ops.library_layout(route, dt, d)
+        # split_fma runs on the CUDA cores: no HMMA to count
+        sass = ({"sass_count": hmma[("flash_attention", dt)]}
+                if route == "split" else {})
         with torch.no_grad():
             out = flash_attention(q, k, v, causal=True)
         p_row, k_row = flash_row(layer, {**f, "d": d}, dt, q, k, v, out)
-        k_row.update(source="src/repro_torch/csrc/flash_split.cuh",
-                     launches=launches["flash_attention"],
-                     route_launches=launches["flash_attention_split"])
+        k_row.update(source=src, launches=launches["flash_attention"],
+                     route_launches=launches[f"flash_attention_{route}"],
+                     cluster=lay["cluster"], slice=lay["slice"],
+                     share=k_row["bound_ms"] / k_row["ms"], **sass)
+        if k_row["library_ms"]:
+            k_row["vs_library"] = k_row["ms"] / k_row["library_ms"]
         parity.append(p_row)
         rows.append(k_row)
+        log(json.dumps({"split_kernel": k_row}))
         p_row, k_row = bwd_row(layer, {**f, "d": d}, getattr(torch, dt), dev,
                                seed + 7)
-        k_row.update(source="src/repro_torch/csrc/flash_split.cuh",
-                     launches=launches["flash_attention_bwd"],
+        sass = ({"sass_count": hmma[("flash_attention_bwd", dt)]}
+                if route == "split" else {})
+        check(k_row["variant"] == route, f"flash_attention_bwd {layer} {dt}: "
+              f"route {k_row['variant']}, expected {route}")
+        k_row.update(source=src, launches=launches["flash_attention_bwd"],
                      route_launches={
-                         p: launches[f"flash_attention_bwd_{p}_split"]
-                         for p in ("dq", "dkdv")})
+                         p: launches[f"flash_attention_bwd_{p}_{route}"]
+                         for p in ("dq", "dkdv")},
+                     cluster={"dq": lay["dq_cluster"],
+                              "dkdv": lay["dkv_cluster"]},
+                     slice={"dq": lay["dq_slice"], "dkdv": lay["dkv_slice"]},
+                     **sass)
         parity.append(p_row)
         rows.append(k_row)
         log(json.dumps({"bwd_kernel": k_row}))

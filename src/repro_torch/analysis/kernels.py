@@ -23,8 +23,9 @@ own launch, so the copies are held to the sources they copy.
   holds whole 16-padded subsets, the wide route's F tiles are 64-column
   multiples of at most 256, ``wgmma`` takes bf16 rows of 16 bytes, a
   chunk is 64 or 128 cache rows, an SSD chunk at most 128 rows on its
-  ``whole`` route, a flash head at most 256 wide off its ``split``
-  route.
+  ``whole`` route, a flash head at most 256 wide off its split routes,
+  and on the ``split`` route D within its cluster's slices (at most 8
+  blocks a cluster).
 * **K003** — the grid writes every output tile and no block writes
   only outside the output or nothing, the splits of H and of the cache
   rows cover them, and the plan that launched (captured on the card, or
@@ -103,11 +104,19 @@ KNN_WARPS, KNN_TILE, KNN_BUF = 8, 1024, 96
 KNN_SCRATCH_BUDGET = 256 << 20
 # SSD_QMAX: the longest chunk of ssd_chunk's "whole" route (the tiled
 # route takes longer ones in SSD_TILE-row tiles, with 128-column S tiles
-# for its states); FLASH_DMAX: the widest head off flash's "split" route
+# for its states); FLASH_DMAX: the widest head off flash's split routes
 SSD_QMAX, SSD_ST, SSD_PT, SSD_MAX_HEADS = 128, 128, 64, 16
 SSD_TILE = 64
 SSD_TILED_SMEM = 4 * (2 * 32 * 129 + 64 * 65 + 3 * 64)
 FLASH_DMAX = 256
+# flash_split.cuh: a block's rows, its tile (keys in the forward and dQ
+# pass, query rows in the dK/dV pass; in fp32 the dQ and the dK/dV
+# pass's apart), its widest slice in the forward, the dQ pass and the
+# dK/dV pass, blocks a cluster at most, and the widest head of the split
+# route (split_fma past it)
+SPLIT_ROWS, SPLIT_TILE, SPLIT_DQ_TILE_F32, SPLIT_DKV_TILE_F32 = 64, 32, 32, 16
+SPLIT_WMAX, SPLIT_DQ_WMAX, SPLIT_DKV_WMAX, SPLIT_CLUSTER = 256, 256, 128, 8
+SPLIT_DMAX = SPLIT_CLUSTER * SPLIT_DKV_WMAX
 
 
 def knn_plan(s: int, n: int, k: int, sms: int) -> dict:
@@ -135,14 +144,71 @@ def knn_plan(s: int, n: int, k: int, sms: int) -> dict:
                 smem=smem, scratch=scratch)
 
 
+def split_bufs(one: int, part: int) -> int:
+    """``flash_split.cuh``'s ``bufs``: two buffers of partial tiles (of
+    ``part`` bytes) where they fit and cost no block an SM (two blocks at
+    most), else one; ``one``: the pass's bytes with one."""
+    def blocks(b):
+        return min(SMEM_SM // (b + STATIC_SMEM), 2)
+    return (2 if one + part <= MAX_SMEM and blocks(one + part) >= blocks(one)
+            else 1)
+
+
+def split_plan(d: int, wmax: int) -> tuple[int, int, int]:
+    """``flash_split.cuh``'s ``plan``: D cut into ``c`` slices of ``w``
+    columns (a multiple of 16) over a cluster's blocks, each padded to
+    ``wp`` (128, 192 or 256)."""
+    c = -(-d // wmax)
+    w = round_up(-(-d // c), 16)
+    return c, w, 128 if w <= 128 else 192 if w <= 192 else 256
+
+
 def flash_layout(route: str, dtype: str, d: int) -> dict:
     """``flash_attention.cu``'s tiles for a route: query rows a block
-    ``bq``, keys a tile ``bk``, D padded ``dp`` and shared memory (the
-    split route: ``flash_split.cuh``, 64 rows and 64 columns of D a
-    block)."""
+    ``bq``, keys a tile ``bk``, D padded ``dp`` (a block's slice of it on
+    the split routes), shared memory, blocks a cluster and columns of D a
+    block; on the split routes the backward's passes too
+    (``dq_cluster``, ``dq_slice``, ``dq_smem``, ``dkv_*``).  ``split``:
+    ``flash_split.cuh`` (``split_plan``; fp32 partial tiles of 64 rows by
+    32 exchanged (by 16 in the fp32 backward), q and two stages of K and
+    V in the forward, q, dO and
+    one or two stages of K and V in the dQ pass, K, V and two stages of
+    q, dO and their rows in the dK/dV pass; ``split_bufs`` buffers of the
+    partials); ``split_fma``:
+    ``flash_split_fma.cuh``, 64 rows and 64 columns of D a block."""
     if route == "split":
-        return dict(bq=64, bk=64, dp=round_up(d, 64),
-                    smem=4 * (2 * 32 * 129 + 64 * 65))
+        sz = 4 if dtype == "float32" else 2
+        rows, tile = SPLIT_ROWS, SPLIT_TILE
+        part = 4 * rows * tile                   # one partial tile
+        c, w, wp = split_plan(d, SPLIT_WMAX)
+        ld = wp + 8
+        ld_v = wp + 4 if sz == 4 else ld
+        fwd = part + sz * (rows * ld + 2 * tile * ld + 2 * tile * ld_v)
+        fwd += (split_bufs(fwd, part) - 1) * part
+        cq, wq, wpq = split_plan(d, SPLIT_DQ_WMAX)
+        ld = wpq + 8
+        tile = SPLIT_DQ_TILE_F32 if sz == 4 else SPLIT_TILE
+        part = 4 * rows * tile
+        fixed = 2 * part + sz * 2 * rows * ld + 4 * 2 * rows
+        stage = sz * 2 * tile * ld
+        dq = fixed + (2 if fixed + 2 * stage <= MAX_SMEM else 1) * stage
+        dq += (split_bufs(dq, 2 * part) - 1) * 2 * part
+        ck, wk, wpk = split_plan(d, SPLIT_DKV_WMAX)
+        ldk = wpk + 8
+        tile = SPLIT_DKV_TILE_F32 if sz == 4 else SPLIT_TILE
+        part = 4 * rows * tile
+        dkv = (2 * part + sz * 2 * rows * ldk
+               + 2 * (sz * 2 * tile * ldk + 2 * tile * 4))
+        dkv += (split_bufs(dkv, 2 * part) - 1) * 2 * part
+        return dict(bq=rows, bk=SPLIT_TILE, dp=wp, smem=fwd, cluster=c,
+                    slice=w, dq_cluster=cq, dq_slice=wq, dq_smem=dq,
+                    dkv_cluster=ck, dkv_slice=wk, dkv_smem=dkv)
+    if route == "split_fma":
+        fwd = 4 * (2 * 32 * 129 + 64 * 65)
+        return dict(bq=64, bk=64, dp=round_up(d, 64), smem=fwd, cluster=1,
+                    slice=64, dq_cluster=1, dq_slice=64,
+                    dq_smem=fwd + 4 * 2 * 64, dkv_cluster=1, dkv_slice=64,
+                    dkv_smem=fwd + 4 * (64 * 65 + 2 * 64))
     if route == "wgmma":
         dp = 64 if d <= 64 else 128
         tile = dp // 64 * 128 * 128          # kHalves x 128 rows x 128 B
@@ -158,8 +224,11 @@ def flash_layout(route: str, dtype: str, d: int) -> dict:
 
 
 def flash_route(dtype: str, d: int, aligned: bool) -> str:
-    """``ops._variant``: split for D > FLASH_DMAX, wgmma for 16-byte
-    aligned bf16 with D % 8 == 0 and D <= 128, else mma."""
+    """``ops._variant``: split_fma for D > SPLIT_DMAX, split for D >
+    FLASH_DMAX, wgmma for 16-byte aligned bf16 with D % 8 == 0 and D <=
+    128, else mma."""
+    if d > SPLIT_DMAX:
+        return "split_fma"
     if d > FLASH_DMAX:
         return "split"
     return ("wgmma" if dtype == "bfloat16" and d % 8 == 0 and d <= 128
@@ -352,19 +421,29 @@ def _flash_site(dims, plan, where, sms, card):
                 [f"route {plan['route']} launched, {route} derived"])
     lay = flash_layout(route, dtype, d)
     bq = lay["bq"]
-    pre = [(f"D={d} in 1..{FLASH_DMAX} off the split route",
-            0 < d and (route == "split" or d <= FLASH_DMAX)),
+    split = route in ("split", "split_fma")
+    pre = [(f"D={d} in 1..{FLASH_DMAX} off the split routes",
+            0 < d and (split or d <= FLASH_DMAX)),
            (f"Hq={hq} a multiple of Hkv={hkv}", hkv > 0 and hq % hkv == 0)]
+    if route == "split":
+        for name, c, w in (("forward and dQ", lay["cluster"], lay["slice"]),
+                           ("dK/dV", lay["dkv_cluster"], lay["dkv_slice"])):
+            pre.append((f"split {name}: {c} blocks a cluster (at most "
+                        f"{SPLIT_CLUSTER}) of {w} columns cover D={d} and "
+                        f"none lies past it",
+                        c <= SPLIT_CLUSTER and (c - 1) * w < d <= c * w))
     if route == "wgmma":
         pre += [(f"wgmma takes bf16, got {dtype}", dtype == "bfloat16"),
                 (f"wgmma's rows of D={d} bf16 are 16-byte multiples",
                  d % 8 == 0 and d <= 128),
                 ("wgmma's TMA bases 16-byte aligned",
                  bool(plan.get("aligned", True)))]
-    # the split route's grid also runs D's 64-column slices
-    if route == "split":
-        grid, out_shape, out_block = ((b * hq, -(-sq // bq), -(-d // 64)),
-                                      (b * hq, sq, d), (1, bq, 64))
+    # the split routes' grids also run D's slices (on ``split`` the
+    # blocks of a cluster)
+    if split:
+        grid, out_shape, out_block = ((b * hq, -(-sq // bq),
+                                       -(-d // lay["slice"])),
+                                      (b * hq, sq, d), (1, bq, lay["slice"]))
     else:
         grid, out_shape, out_block = ((b * hq, -(-sq // bq)), (b * hq, sq),
                                       (1, bq))
@@ -379,7 +458,9 @@ def _flash_site(dims, plan, where, sms, card):
         lib = ops.library_layout(route, dtype, d)
         site.smem_library = lib["smem"]
         ours = {n: lay[n] for n in ("bq", "bk", "dp")}
-        theirs = {n: lib[n] for n in ours}
+        if split:
+            ours.update({n: lay[n] for n in lay if n not in ("smem", *ours)})
+        theirs = {n: lib.get(n) for n in ours}
         if theirs != ours:
             site.mismatch.append(f"{route} tiles {theirs} from the "
                                  f"library, {ours} derived")

@@ -95,7 +95,12 @@
 //   fragment from shared memory for 16 rows only, and mma.sync has no
 //   asynchronous pipeline to hide the softmax behind.
 //
-// * split (D > 256, fp32 or bf16): csrc/flash_split.cuh, fp32 on the CUDA
+// * split (256 < D <= 1024, fp32 or bf16): csrc/flash_split.cuh, D cut
+//   into slices over the blocks of a thread-block cluster (up to 256
+//   columns a block), each block's partial S summed in rank order through
+//   distributed shared memory, the products on mma.sync as on the mma
+//   route.
+// * split_fma (D > 1024): csrc/flash_split_fma.cuh, fp32 on the CUDA
 //   cores, 64 query rows and a 64-column slice of D a block, S summed
 //   over all of D; correct, not tuned.
 //
@@ -115,6 +120,7 @@
 #include <stdint.h>
 
 #include "flash_split.cuh"
+#include "flash_split_fma.cuh"
 #include "sm90.cuh"
 #include "tf32x3.cuh"
 
@@ -934,25 +940,25 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 namespace {
 
 template <typename T>
-cudaError_t launch_split(const void* q, const void* k, const void* v,
-                         void* o, float* lse, int B, int Hq, int Hkv, int Sq,
-                         int Skv, int D, int causal, cudaStream_t stream) {
-  const dim3 grid = split::grid(Sq, (long long)B * Hq, D);
+cudaError_t launch_split_fma(const void* q, const void* k, const void* v,
+                             void* o, float* lse, int B, int Hq, int Hkv,
+                             int Sq, int Skv, int D, int causal,
+                             cudaStream_t stream) {
+  namespace sf = split_fma;
+  const dim3 grid = sf::grid(Sq, (long long)B * Hq, D);
   if (grid.y > 65535 || grid.z > 65535) return cudaErrorInvalidValue;
-  const cudaError_t err =
-      split::smem_attr(split::flash_split_fwd<T>, split::kFwdSmem);
+  const cudaError_t err = sf::smem_attr(sf::flash_split_fwd<T>, sf::kFwdSmem);
   if (err != cudaSuccess) return err;
-  split::flash_split_fwd<T><<<grid, split::kBlock, split::kFwdSmem,
-                              stream>>>(
+  sf::flash_split_fwd<T><<<grid, sf::kBlock, sf::kFwdSmem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)o, lse,
-      split::make_shape(Hq, Hkv, Sq, Skv, D, causal));
+      sf::make_shape(Hq, Hkv, Sq, Skv, D, causal));
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // variant: 0 mma, 1 wgmma (bf16, D % 8 == 0, D <= 128, 16-byte aligned),
-// 2 split (D > 256)
+// 2 split (256 < D <= 1024, clusters), 3 split_fma (D > 1024)
 extern "C" int flash_attention_forward(const void* q, const void* k,
                                        const void* v, void* o, void* lse,
                                        int B, int Hq, int Hkv, int Sq,
@@ -963,13 +969,23 @@ extern "C" int flash_attention_forward(const void* q, const void* k,
   const cudaStream_t st = (cudaStream_t)stream;
   float* l = static_cast<float*>(lse);
   if (variant == 2) {
-    if (D <= kDMax) return (int)cudaErrorInvalidValue;
+    if (D <= kDMax || D > split::kReach) return (int)cudaErrorInvalidValue;
     if (dtype == 0)
-      return (int)launch_split<float>(q, k, v, o, l, B, Hq, Hkv, Sq, Skv, D,
-                                      causal, st);
+      return (int)split::launch_fwd<float>(q, k, v, o, l, B, Hq, Hkv, Sq, Skv,
+                                           D, causal, st);
     if (dtype == 1)
-      return (int)launch_split<__nv_bfloat16>(q, k, v, o, l, B, Hq, Hkv, Sq,
-                                              Skv, D, causal, st);
+      return (int)split::launch_fwd<__nv_bfloat16>(q, k, v, o, l, B, Hq, Hkv,
+                                                   Sq, Skv, D, causal, st);
+    return (int)cudaErrorInvalidValue;
+  }
+  if (variant == 3) {
+    if (D <= split::kReach) return (int)cudaErrorInvalidValue;
+    if (dtype == 0)
+      return (int)launch_split_fma<float>(q, k, v, o, l, B, Hq, Hkv, Sq, Skv,
+                                          D, causal, st);
+    if (dtype == 1)
+      return (int)launch_split_fma<__nv_bfloat16>(q, k, v, o, l, B, Hq, Hkv,
+                                                  Sq, Skv, D, causal, st);
     return (int)cudaErrorInvalidValue;
   }
   if (D > kDMax) return (int)cudaErrorInvalidValue;
@@ -996,6 +1012,7 @@ extern "C" int flash_attention_forward(const void* q, const void* k,
 
 namespace {
 
+// out[5..12]: one block a cluster, the slice D padded, no backward passes
 template <typename T, int DP>
 void mm_layout(int* out) {
   using C = mm::Cfg<T, DP>;
@@ -1004,6 +1021,8 @@ void mm_layout(int* out) {
   out[2] = DP;
   out[3] = C::kBytes;
   out[4] = C::kThreads;
+  out[5] = 1;
+  out[6] = DP;
 }
 
 template <int DP>
@@ -1013,24 +1032,70 @@ void wg_layout(int* out) {
   out[2] = DP;
   out[3] = wg::Layout<DP>::kBytes;
   out[4] = wg::kThreads;
+  out[5] = 1;
+  out[6] = DP;
+}
+
+// the split route: the forward's rows, keys and padded slice; its shared
+// memory, threads, blocks a cluster and slice width; then each backward
+// pass's blocks a cluster, slice and shared memory (split::layout)
+template <typename T>
+void split_layout(int D, int* out) {
+  int lay[12];
+  split::layout<T>(D, lay);
+  out[0] = split::kRows;
+  out[1] = split::kTile;
+  out[2] = lay[2];
+  out[3] = lay[3];
+  out[4] = split::kThreads;
+  out[5] = lay[0];
+  out[6] = lay[1];
+  out[7] = lay[4];
+  out[8] = lay[5];
+  out[9] = lay[7];
+  out[10] = lay[8];
+  out[11] = lay[9];
+  out[12] = lay[11];
 }
 
 }  // namespace
 
-// the tiles flash_attention_forward launches for a route (variant and
-// dtype as it takes them) and D: {query rows a block, keys a kv tile, D
-// padded, a block's shared memory bytes, threads}; 0, or an error for a
-// route the call cannot take
+// the tiles flash_attention_forward (and, on the split routes,
+// flash_attention_backward) launches for a route (variant and dtype as it
+// takes them) and D: {query rows a block, keys a kv tile, D padded (a
+// block's slice of it on the split routes), a block's shared memory
+// bytes, threads, blocks a cluster, columns of D a block, then the dQ
+// pass's blocks a cluster, slice and shared memory and the dK/dV pass's
+// (0 where the route's backward is not reported)}: 13 ints; 0, or an
+// error for a route the call cannot take
 extern "C" int flash_attention_layout(int variant, int dtype, int D,
                                       int* out) {
+  for (int i = 0; i < 13; ++i) out[i] = 0;
   if (variant == 2) {
-    if (D <= kDMax || (dtype != 0 && dtype != 1))
+    if (D <= kDMax || D > split::kReach || (dtype != 0 && dtype != 1))
       return (int)cudaErrorInvalidValue;
-    out[0] = split::kT;
-    out[1] = split::kT;
-    out[2] = (D + split::kT - 1) / split::kT * split::kT;
-    out[3] = (int)split::kFwdSmem;
-    out[4] = split::kBlock;
+    if (dtype == 0)
+      split_layout<float>(D, out);
+    else
+      split_layout<__nv_bfloat16>(D, out);
+    return 0;
+  }
+  if (variant == 3) {
+    if (D <= split::kReach || (dtype != 0 && dtype != 1))
+      return (int)cudaErrorInvalidValue;
+    out[0] = split_fma::kT;
+    out[1] = split_fma::kT;
+    out[2] = (D + split_fma::kT - 1) / split_fma::kT * split_fma::kT;
+    out[3] = (int)split_fma::kFwdSmem;
+    out[4] = split_fma::kBlock;
+    out[5] = 1;
+    out[6] = split_fma::kT;
+    out[7] = 1;
+    out[8] = split_fma::kT;
+    out[9] = (int)split_fma::kDqSmem;
+    out[10] = 1;
+    out[11] = split_fma::kT;
+    out[12] = (int)split_fma::kDkvSmem;
     return 0;
   }
   if (D < 1 || D > kDMax) return (int)cudaErrorInvalidValue;

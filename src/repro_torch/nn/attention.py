@@ -9,7 +9,7 @@ arguments alone, where its softmax(QKᵀ)V core runs:
     (B, H, S, D) tensors: :func:`causal_attention` without a
     bidirectional prefix and without a softcap, and
     :func:`bidir_attention` (``causal=False``), at any head_dim (the
-    kernel's ``split`` route takes those past ``MAX_D`` = 256).  These
+    kernel's ``split`` routes take those past ``MAX_D`` = 256).  These
     calls have Sq == Skv, where the kernel's top-left causal mask is the
     JAX package's ``rows >= cols``, and one call computes what the JAX
     package's query chunking above ``CHUNK_Q_ABOVE`` computes.

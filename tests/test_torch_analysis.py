@@ -47,6 +47,7 @@ WIDE = dict(b=2, s=8, k=20, d=256, dc=256, h=512, f=256)
 HUB = dict(b=2, hn=4, c=200, m=4, k=4, d=6, h=8, f=16)
 KNN = dict(s=64, n=1024, k=300)
 FLASH = dict(b=2, hq=4, hkv=2, sq=64, skv=64, d=64)
+FLASH_SPLIT = dict(b=1, hq=4, hkv=2, sq=96, skv=96, d=512)
 SSD = dict(bn=4, h=4, q=64, p=16, s=16)
 
 
@@ -194,8 +195,8 @@ def _library_answers(monkeypatch, shift=0):
 
     def layout(route, dtype, d):
         lay = K.flash_layout(route, dtype, d)
-        return dict(bq=lay["bq"] + shift, bk=lay["bk"], dp=lay["dp"],
-                    smem=lay["smem"] + shift, threads=0)
+        return dict(lay, bq=lay["bq"] + shift, smem=lay["smem"] + shift,
+                    threads=0, cluster=lay.get("cluster", 1) + shift)
 
     def plan(bn, h, q, p, s):
         sp = K.ssd_plan(bn, h, q, p, s, SMS)
@@ -212,6 +213,7 @@ def _library_answers(monkeypatch, shift=0):
     ("knn", KNN, {}),
     ("flash_attention", FLASH, {"dtype": "bfloat16", "aligned": True}),
     ("flash_attention", FLASH, {"dtype": "float32"}),
+    ("flash_attention", FLASH_SPLIT, {"dtype": "bfloat16"}),
     ("ssd_chunk", SSD, {})])
 def test_entry_sites_are_held_to_their_libraries(monkeypatch, kernel, dims,
                                                  plan):

@@ -18,6 +18,7 @@ The JAX package is imported inside the tests that compare with it, so
 the card tests (``pytest -m cuda tests/test_torch_kernel_domain.py``)
 also run on a host without JAX."""
 import dataclasses
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -353,6 +354,92 @@ def test_attention_route_takes_every_width():
         flash_ops._variant(torch.float32, 0)
 
 
+
+# flash_split.cuh's plan worked by hand: D -> the forward's and dQ pass's
+# (blocks a cluster, slice, slice padded), the dK/dV pass's (blocks,
+# slice), and the route; c = ceil(D / wmax) with wmax 256 (128 in the
+# dK/dV pass), the slice ceil(D / c) rounded up to 16, padded to 192 or
+# 256 (128 in the dK/dV pass); past 8 blocks of 128 columns the route is
+# split_fma
+SPLIT_PLANS = {
+    257: ((2, 144, 192), (3, 96), "split"),
+    264: ((2, 144, 192), (3, 96), "split"),
+    320: ((2, 160, 192), (3, 112), "split"),
+    512: ((2, 256, 256), (4, 128), "split"),
+    640: ((3, 224, 256), (5, 128), "split"),
+    1024: ((4, 256, 256), (8, 128), "split"),
+    1040: (None, None, "split_fma")}
+# a block's shared memory by hand (bytes), (float32, bfloat16), by padded
+# slice: the forward (a 64 x 32 fp32 partial, q of 64 rows and two stages
+# of K and V of 32 keys, rows wp + 8 apart, fp32 V wp + 4), the dQ pass
+# (partials of S and dP, q and dO and their 2 x 64 floats, K and V in two
+# stages) and the dK/dV
+# pass (two partials, K and V of 64 keys, two stages of q, dO and their
+# 2 x 32 floats, rows 136 apart; in fp32 16 rows a tile); each with a
+# second buffer of its partials where that fits and keeps its blocks an
+# SM: not the bf16 forward at 256 (109,568 B, two blocks an SM; 117,760
+# one), nor the fp32 dQ pass (one stage at 256, past 227 KB with two),
+# nor the fp32 dK/dV pass (112,896 B, two)
+SPLIT_SMEM = {
+    "fwd": {192: (168960, 93184), 256: (218112, 109568)},
+    "dq": {192: (221696, 135680), 256: (219648, 168448)},
+    "dkv": (112896, 102912)}
+
+
+@pytest.mark.parametrize("d", sorted(SPLIT_PLANS))
+def test_flash_split_plan_follows_the_formula(d):
+    """The analysis's copy of the split route's launch (clusters, slices
+    and shared memory of each pass) at heads of 257 to 1024 and one past
+    the cluster's reach, against the values worked by hand, and the route
+    ``_variant`` names."""
+    from repro_torch.analysis.kernels import flash_layout, flash_route
+    fwd, dkv, route = SPLIT_PLANS[d]
+    for i, dtype in enumerate(("float32", "bfloat16")):
+        assert flash_route(dtype, d, True) == route
+        assert flash_ops._variant(getattr(torch, dtype), d) == route
+        lay = flash_layout(route, dtype, d)
+        if route == "split_fma":
+            assert (lay["cluster"], lay["slice"], lay["dkv_cluster"]) == (
+                1, 64, 1)
+            continue
+        c, w, wp = fwd
+        assert (lay["bq"], lay["bk"], lay["dp"]) == (64, 32, wp)
+        assert (lay["cluster"], lay["slice"]) == (c, w)
+        assert (lay["dq_cluster"], lay["dq_slice"]) == (c, w)
+        assert (lay["dkv_cluster"], lay["dkv_slice"]) == dkv
+        assert lay["smem"] == SPLIT_SMEM["fwd"][wp][i]
+        assert lay["dq_smem"] == SPLIT_SMEM["dq"][wp][i]
+        assert lay["dkv_smem"] == SPLIT_SMEM["dkv"][i]
+        for cl, sl in ((c, w), dkv):
+            assert cl <= 8 and (cl - 1) * sl < d <= cl * sl
+
+
+def _flash_variant_edits():
+    import importlib.util
+    path = Path(__file__).resolve().parents[1] / "tools" / "flash_variants.py"
+    spec = importlib.util.spec_from_file_location("flash_variants", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return {**{("fwd", n): e for n, e in mod.VARIANTS.items()},
+            **{("bwd", n): e for n, e in mod.BWD_VARIANTS.items()}}
+
+
+_VARIANT_EDITS = _flash_variant_edits()
+
+
+@pytest.mark.parametrize("key", sorted(_VARIANT_EDITS),
+                         ids=lambda k: f"{k[0]}-{k[1]}")
+def test_flash_variants_apply_to_the_sources(key):
+    """Each design choice ``tools/flash_variants.py`` times is an edit of
+    the committed sources whose text occurs exactly once, applied in
+    turn, so the alternatives live in the tool and not as dead branches
+    in the kernels."""
+    texts = {}
+    for fname, old, new in _VARIANT_EDITS[key]:
+        text = texts.get(fname) or (_build.CSRC / fname).read_text()
+        assert text.count(old) == 1, (fname, old)
+        texts[fname] = text.replace(old, new)
+
 # ---- the routes on the card --------------------------------------------------
 
 def _cuda():
@@ -444,32 +531,45 @@ def test_ssd_chunk_tiled_route_matches_plain_on_card(shape):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("b,hq,hkv,s,d,causal", [
     (1, 4, 2, 200, 257, True), (1, 2, 1, 130, 320, False),
-    (2, 2, 2, 300, 512, True)])
+    (2, 2, 2, 300, 512, True),
+    (1, 2, 2, 150, 264, True),             # an uneven last slice
+    (1, 2, 1, 130, 1024, True),            # the widest cluster
+    (1, 8, 2, 160, 384, True),             # GQA, a group of 4
+    (1, 2, 1, (100, 230), 512, False),     # Sq != Skv
+    (1, 2, 2, (230, 100), 320, True),
+    (1, 2, 1, 96, 1040, True)])            # past the cluster's reach
 def test_flash_split_route_matches_plain_on_card(b, hq, hkv, s, d, causal,
                                                  dtype):
-    """The split route's forward (and log-sum-exp) and backward against
-    the plain versions: f32 within 1e-4 · max(1, max|ref|), bf16 by
-    ‖Δ‖/‖ref‖ <= 2e-2; two backward calls bit-equal; launches counted on
-    the split route; the library's layout equal to the analysis's."""
+    """The split routes' forward (and log-sum-exp) and backward against
+    the plain versions at s = Sq = Skv or (Sq, Skv): f32 within 1e-4 ·
+    max(1, max|ref|), bf16 by ‖Δ‖/‖ref‖ <= 2e-2; two backward calls
+    bit-equal; launches counted on the route ``_variant`` names (``split``
+    up to D = 1024, ``split_fma`` past it); the library's layout (each
+    pass's cluster, slice and shared memory) equal to the analysis's."""
     from repro_torch.analysis.kernels import flash_layout
     dev = _cuda()
     dt = getattr(torch, dtype)
-    q, k, v, do = (t.to(dt) for t in _t(_qkv(
-        np.random.default_rng(d), b, hq, hkv, s, d), dev))
-    do = do[:, :hq]
-    lay = flash_ops.library_layout("split", dt, d)
-    assert {n: lay[n] for n in ("bq", "bk", "dp", "smem")} == flash_layout(
-        "split", dtype, d)
+    sq, skv = s if isinstance(s, tuple) else (s, s)
+    rng = np.random.default_rng(d)
+    q, k, v, do = (torch.from_numpy(rng.normal(size=shape).astype(
+        np.float32)).to(dev).to(dt) for shape in (
+            (b, hq, sq, d), (b, hkv, skv, d), (b, hkv, skv, d),
+            (b, hq, sq, d)))
+    route = "split" if d <= flash_ops.SPLIT_DMAX else "split_fma"
+    assert flash_ops._variant(dt, d) == route
+    want = flash_layout(route, dtype, d)
+    lay = flash_ops.library_layout(route, dt, d)
+    assert {n: lay[n] for n in want} == want
     before = dict(_build.LAUNCHES)
     out, lse = flash_ops._forward(q, k, v, causal, lse=True)
     grads = flash_ops.flash_attention_backward(q, k, v, out, do, causal,
                                                lse=lse)
     again = flash_ops.flash_attention_backward(q, k, v, out, do, causal,
                                                lse=lse)
-    assert _build.LAUNCHES["flash_attention_split"] == before.get(
-        "flash_attention_split", 0) + 1
-    assert _build.LAUNCHES["flash_attention_bwd_dq_split"] == before.get(
-        "flash_attention_bwd_dq_split", 0) + 2
+    for name, n in ((f"flash_attention_{route}", 1),
+                    (f"flash_attention_bwd_dq_{route}", 2),
+                    (f"flash_attention_bwd_dkdv_{route}", 2)):
+        assert _build.LAUNCHES[name] == before.get(name, 0) + n, name
     _close(lse.cpu().numpy(), attention_lse_ref(q, k, causal).cpu().numpy(),
            CARD_TOL, "lse")
     pairs = [("out", out, attention_ref(q, k, v, causal))]

@@ -31,7 +31,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(ROOT), str(ROOT / "src"), str(ROOT / "tools")]
 
-HEADERS = ("sm90.cuh", "tf32x3.cuh", "flash_split.cuh", "fma_tiles.cuh")
+HEADERS = ("sm90.cuh", "tf32x3.cuh", "flash_split.cuh", "flash_split_fma.cuh",
+           "fma_tiles.cuh")
 FWD, BWD = "flash_attention.cu", "flash_attention_bwd.cu"
 WGMMA = ("qwen2_72b_bf16",)
 MMA = ("olmo_1b_f32", "qwen2_72b_bf16_unaligned")

@@ -29,7 +29,7 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(ROOT), str(ROOT / "src"), str(ROOT / "tools")]
 
 FILES = ("flash_attention.cu", "sm90.cuh", "tf32x3.cuh", "flash_split.cuh",
-         "fma_tiles.cuh")
+         "flash_split_fma.cuh", "fma_tiles.cuh")
 WGMMA = ("qwen2_72b_bf16", "ragged_bf16")
 # name -> (file, text, its replacement, the shapes it runs on); each text
 # occurs once in its file

@@ -22,6 +22,16 @@ alternatives the kernel does not take (``VARIANTS``).  Prints ptxas's
 registers and spills per kernel of each variant and one JSON line per
 (shape, variant): ms, max |Δ| and ‖Δ‖/‖plain‖ against the plain version,
 and the shape's bound.
+The split route (heads over 256 wide; ``--shapes
+split_d512_f32,split_d512_bf16,split_d257_bf16``, chip_smoke.py's
+``FLASH_SPLIT``, forward or ``--backward``) has its own design choices
+as variants (``SPLIT_VARIANTS``: the slice width ``split_wmax128``, the
+exchange ``split_one_buffer``, ``split_one_rank`` and
+``split_two_ranks``, the tiles and
+products ``split_dq192``, ``split_dq_tile16``, ``split_dkv_tile32`` and
+``split_unfused``,
+and the diagnostics ``split_no_sum`` and ``split_no_barrier``);
+a parent tree from before the cluster design runs its fp32 kernels there.
 ``--against DIR`` adds the sources of another tree (``flash_attention.cu``
 and, where DIR has them, its headers; e.g. a parent commit's
 ``src/repro_torch/csrc``) as the variant ``against``, timed in the same
@@ -57,9 +67,73 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(ROOT), str(ROOT / "src"), str(ROOT / "tools")]
 
 FILES = ("flash_attention.cu", "sm90.cuh", "tf32x3.cuh", "flash_split.cuh",
-         "fma_tiles.cuh")
+         "flash_split_fma.cuh", "fma_tiles.cuh")
 BWD_FILES = ("flash_attention_bwd.cu", "sm90.cuh", "tf32x3.cuh",
-             "flash_split.cuh", "fma_tiles.cuh")
+             "flash_split.cuh", "flash_split_fma.cuh", "fma_tiles.cuh")
+_SPLIT = "flash_split.cuh"
+# the split route's design choices, forward and backward alike: slices of
+# at most 128 columns in the forward (c = 4 at D = 512, not 2), one buffer
+# of partials everywhere (two cluster barriers a tile; committed: two
+# buffers where they fit and cost no block an SM), one rank's partials in
+# flight at a time in bf16 too (``split_one_rank``; committed: two in bf16,
+# one in fp32; ``split_two_ranks``: two in fp32 too), the
+# dQ pass's slices at most 192 wide (c = 3 at D = 512), the fp32 dQ
+# pass's tiles of 16 rows (not 32) and the fp32 dK/dV pass's of 32 (not
+# 16), the backward's two partial products one after the other (not in
+# one k loop); and, wrong on purpose, to show what the exchange costs:
+# each block's own partial alone (``split_no_sum``: no remote reads) and
+# no barrier between the stores of the partials and their reads
+# (``split_no_barrier``)
+SPLIT_VARIANTS = {
+    "split_wmax128": [(_SPLIT, "constexpr int kFwdWMax = 256;",
+                       "constexpr int kFwdWMax = 128;"),
+                      (_SPLIT, "  if (p.wp == 192)\n"
+                               "    return launch_fwd_as<T, 192>",
+                       "  if (p.wp == 128)\n"
+                       "    return launch_fwd_as<T, 128>(q, k, v, o, lse, B, "
+                       "Hq, Hkv, Sq, Skv, D,\n"
+                       "                                 causal, stream);\n"
+                       "  if (p.wp == 192)\n"
+                       "    return launch_fwd_as<T, 192>"),
+                      (_SPLIT, "out[3] = p.wp == 192 ?",
+                       "out[3] = p.wp == 128 ? Fwd<T, 128>::kBytes : "
+                       "p.wp == 192 ?")],
+    "split_one_buffer": [(_SPLIT, "  return one + part <= kSmemMax && "
+                                  "sm_blocks(one + part) >= sm_blocks(one)\n"
+                                  "             ? 2\n             : 1;",
+                          "  return 1;")],
+    "split_one_rank": [(_SPLIT, "constexpr int kRanksBf16 = 2, kRanksF32 = 1;",
+                        "constexpr int kRanksBf16 = 1, kRanksF32 = 1;")],
+    "split_two_ranks": [(_SPLIT, "constexpr int kRanksBf16 = 2, "
+                                 "kRanksF32 = 1;",
+                         "constexpr int kRanksBf16 = 2, kRanksF32 = 2;")],
+    "split_dq192": [(_SPLIT, "constexpr int kDqWMax = 256;",
+                     "constexpr int kDqWMax = 192;")],
+    "split_dq_tile16": [(_SPLIT, "constexpr int kDqTileF32 = 32;",
+                         "constexpr int kDqTileF32 = 16;")],
+    "split_dkv_tile32": [(_SPLIT, "constexpr int kDkvTileF32 = 16;",
+                          "constexpr int kDkvTileF32 = 32;")],
+    "split_unfused": [(_SPLIT, "      gemm_nt2<T, kH, kBK, kLd>(s, dp, qs + ch * "
+                               "kH, dos + ch * kH,\n"
+                               "                                16 * rg, kb, "
+                               "vb, lane);",
+                       "    {\n      gemm_nt<T, kH, kBK, kLd>(s, qs + ch * kH, "
+                       "16 * rg, kb, lane);\n"
+                       "      gemm_nt<T, kH, kBK, kLd>(dp, dos + ch * kH, "
+                       "16 * rg, vb, lane);\n    }"),
+                      (_SPLIT, "      gemm_nt2<T, WP, kBQ, kLd>(s, dp, ks, vs, "
+                               "16 * warp, qs, dos, lane);",
+                       "      gemm_nt<T, WP, kBQ, kLd>(s, ks, 16 * warp, qs, "
+                       "lane);\n"
+                       "      gemm_nt<T, WP, kBQ, kLd>(dp, vs, 16 * warp, dos, "
+                       "lane);")],
+    "split_no_sum": [(_SPLIT, "  const int c = (int)cl.num_blocks(), "
+                              "rank = (int)cl.block_rank();\n  const int at",
+                      "  const int c = 1, rank = 0;\n  const int at")],
+    "split_no_barrier": [(_SPLIT, "void xch_stored() {\n  cluster_arrive();\n"
+                                  "  cluster_wait();\n}",
+                          "void xch_stored() {}")],
+}
 # name -> [(file, text, replacement), ...]; each text occurs once
 VARIANTS = {
     "committed": [],
@@ -116,6 +190,7 @@ VARIANTS = {
                    "2 * (kBytes + 1024) <= 233472 && (kF32 || DP != 128) ? 2 "
                    ": 1;",
                    "1;")],
+    **SPLIT_VARIANTS,
 }
 _BWD = "flash_attention_bwd.cu"
 BWD_VARIANTS = {
@@ -163,6 +238,7 @@ BWD_VARIANTS = {
                                "L::kLdPart>(\n      part, dk + off,",
                          "  if (D < 0) cluster_sum<__nv_bfloat16, kBKV, DP, "
                          "L::kLdPart>(\n      part, dk + off,")],
+    **SPLIT_VARIANTS,
 }
 # name -> (B, Hq, Hkv, S, D, dtype, element offset of q, k, v, variant)
 SHAPES = {
@@ -173,6 +249,10 @@ SHAPES = {
     "gemma_7b_f32": (1, 16, 16, 2048, 256, "float32", 0, 0),
     "gemma_7b_bf16": (1, 16, 16, 2048, 256, "bfloat16", 0, 0),
     "gemma_7b_bf16_unaligned": (1, 16, 16, 2048, 256, "bfloat16", 1, 0),
+    # chip_smoke.py's FLASH_SPLIT, on the split route (variant 2)
+    "split_d512_f32": (1, 8, 8, 2048, 512, "float32", 0, 2),
+    "split_d512_bf16": (1, 8, 8, 2048, 512, "bfloat16", 0, 2),
+    "split_d257_bf16": (1, 8, 8, 2048, 257, "bfloat16", 0, 2),
 }
 
 
@@ -293,9 +373,14 @@ def main() -> int:
 
 def bwd_shapes() -> dict:
     """name -> (BWD_LAYERS entry, dtype, route): every layer on its own
-    route and the bf16 ones on the mma route too."""
+    route and the bf16 ones on the mma route too; FLASH_SPLIT's calls on
+    the split route (``split_d512_f32``, ...)."""
     import chip_smoke
     out = {}
+    for name, d, dtype in chip_smoke.FLASH_SPLIT:
+        label = f"{name}_{'bf16' if dtype == 'bfloat16' else 'f32'}"
+        out[label] = ({**chip_smoke.FLASH_SPLIT_LAYER, "d": d}, dtype,
+                      "split")
     for name, f, dtype in chip_smoke.BWD_LAYERS:
         label = f"{name}_{'bf16' if dtype == 'bfloat16' else 'f32'}"
         if dtype == "bfloat16":
@@ -404,8 +489,9 @@ def backward(args) -> int:
         ms = chip_smoke.time_turns(fns, iters=args.iters)
         if "committed" in fns:
             rows["committed"]["device_ms"] = {
-                p: chip_smoke.device_ms(fns["committed"], f"bwd_{p}_")
-                for p in ("dq", "dkv")}
+                p: chip_smoke.device_ms(fns["committed"], (
+                    f"split::{p}_kernel" if route == "split" else
+                    f"bwd_{p}_")) for p in ("dq", "dkv")}
         flops = chip_smoke.bwd_flops(b, hq, s, s, d, causal)
         moved = chip_smoke.nbytes(q, k, v, o, do, lse, *ref)
         bounds = (dict(bound_ms=chip_smoke.bound(
