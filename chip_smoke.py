@@ -204,7 +204,10 @@ Phases, each timed, any failure exits non-zero:
      chunks; the streamed route at D = 700; route and shared memory equal
      to the library's), ssd_chunk and its backward on the tiled route at
      ``SSD_TILED`` (Mamba2-2.7B's widths at chunk 256, bs 1 and 2;
-     ``ssd_held``, ``ssd_bwd_held``), flash_attention and its backward on
+     ``ssd_held``, ``ssd_bwd_held``; the plans equal to the analysis's
+     formula, each row with the TF32 HMMA count of the tiled kernels,
+     which must be nonzero, and the backward's device time by pass),
+     flash_attention and its backward on
      the split route at ``FLASH_SPLIT`` (8 heads, S = 2048, causal, D =
      512 in f32 and bf16, D = 257 in bf16; ``FLASH_TOL``, ``BWD_TOL``,
      SDPA timed beside each; each row with the library's cluster and
@@ -1814,10 +1817,15 @@ def knn_call_sets(spec, batch, seed, dev) -> dict:
     return sets, structs
 
 
-def device_ms(fn, name: str, iters: int = 10) -> float | None:
+def device_ms(fn, name: str, iters: int = 10,
+              per_call: int | None = None) -> float | None:
     """Device time of the kernels whose name holds ``name``, per call of
     ``fn`` (torch.profiler's CUDA kernel time over ``iters`` calls after
-    a warm-up); None where the profiler recorded no such kernel."""
+    a warm-up); None where the profiler recorded no such kernel.  With
+    ``per_call`` (the matching launches a call makes), the mean of the
+    events recorded times ``per_call``, so that events the profiler drops
+    (a session can lose some or all of its kernel records) bias
+    nothing."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1829,7 +1837,21 @@ def device_ms(fn, name: str, iters: int = 10) -> float | None:
         torch.cuda.synchronize()
     us = [e.device_time for e in prof.events()
           if e.device_type == DeviceType.CUDA and name in e.name]
-    return sum(us) / iters / 1e3 if us else None
+    if not us:
+        return None
+    if per_call:
+        return sum(us) / len(us) * per_call / 1e3
+    return sum(us) / iters / 1e3
+
+
+def pass_ms(fn, name: str, tries: int = 3) -> float | None:
+    """``device_ms`` of a kernel ``fn`` launches once a call, profiled
+    again (up to ``tries`` sessions) where a session records none."""
+    for _ in range(tries):
+        ms = device_ms(fn, name, per_call=1)
+        if ms is not None:
+            return ms
+    return None
 
 
 def flash_row(layer: str, f: dict, name: str, q, k, v, out):
@@ -2732,8 +2754,8 @@ def ssd_bwd_rows(dev, seed, layers=None) -> tuple[list, list]:
             share=bms / t["kernel"], library_ms=None,
             sass_count=sass_count("ssd_chunk_bwd", "HMMA", "TF32"),
             spill_bytes=spilled_bytes(BUILD_LOG["ssd_chunk_bwd"]),
-            device_ms={p: device_ms(lambda: ssd_chunk_backward(*args),
-                                    f"ssd_bwd_{p}")
+            device_ms={p: pass_ms(lambda: ssd_chunk_backward(*args),
+                                  f"ssd_bwd_{p}")
                        for p in ssd_ops.SSD_BWD_PASSES},
             plan=ssd_ops.backward_plan(*f.values()))
         rows.append(row)
@@ -3821,6 +3843,7 @@ def domain_phase(dev, seed, smi) -> tuple[list, list]:
 
     import torch
     from repro_torch import kernels
+    from repro_torch.analysis.kernels import ssd_plan
     from repro_torch.configs import get_config
     from repro_torch.kernels.ssd_chunk import ops as ssd_ops
     from repro_torch.lm import model_zoo as zoo
@@ -3828,20 +3851,37 @@ def domain_phase(dev, seed, smi) -> tuple[list, list]:
     launches, inputs = domain_drive(dev, seed)
     log(json.dumps({"domain_launches": launches}))
     parity, rows = domain_hub_rows(inputs["hub"], launches)
+    # TF32 HMMA of the tiled route's kernels (tl::, tlb::), by library
+    tiled_hmma = {lib: sass_count(lib, "HMMA", "TF32", within=within)
+                  for lib, within in (("ssd_chunk", "_ZN2tl"),
+                                      ("ssd_chunk_bwd", "_ZN3tlb"))}
+    log(json.dumps({"ssd_tiled_sass_hmma": tiled_hmma}))
+    for lib, n in tiled_hmma.items():
+        check(n > 0, f"{lib}'s tiled kernels have no tensor-core HMMA")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     ssd_parity = []
     for name, a in inputs["ssd"].items():
         row = ssd_row(name, a[:5], ssd_ops._forward(*a[:5]), ssd_parity)
-        row.update(variant="fp32_tiled", plan=ssd_ops.library_plan(
-            a[0].shape[0] * a[0].shape[1], a[0].shape[3], a[0].shape[2],
-            a[0].shape[4], a[1].shape[-1]), launches=launches["ssd_chunk"],
-            route_launches=launches["ssd_chunk_tiled"])
+        dims = (a[0].shape[0] * a[0].shape[1], a[0].shape[3], a[0].shape[2],
+                a[0].shape[4], a[1].shape[-1])
+        plan, want = ssd_ops.library_plan(*dims), ssd_plan(*dims, sms)
+        check((plan["qp"], plan["hg"], (plan["grid_x"], plan["grid_y"]),
+               plan["smem"]) == (want["qp"], want["hg"], want["grid"],
+                                 want["smem"]),
+              f"ssd_chunk {name}: plan {plan} from the library, {want} "
+              f"derived")
+        row.update(variant="tf32x3_tiled", plan=plan,
+                   launches=launches["ssd_chunk"],
+                   route_launches=launches["ssd_chunk_tiled"],
+                   tiled_sass_count=tiled_hmma["ssd_chunk"])
         rows.append(row)
     del inputs["ssd"]
     free_card()
     bwd_parity, bwd = ssd_bwd_rows(dev, seed + 7, SSD_TILED)
     for row in bwd:
-        row.update(variant="fp32_tiled", launches=launches["ssd_chunk_bwd"],
-                   route_launches=launches["ssd_chunk_bwd_tiled"])
+        row.update(variant="tf32x3_tiled", launches=launches["ssd_chunk_bwd"],
+                   route_launches=launches["ssd_chunk_bwd_tiled"],
+                   tiled_sass_count=tiled_hmma["ssd_chunk_bwd"])
     parity += ssd_parity + bwd_parity
     rows += bwd
     f = FLASH_SPLIT_LAYER

@@ -103,11 +103,12 @@ class KernelSite:
 KNN_WARPS, KNN_TILE, KNN_BUF = 8, 1024, 96
 KNN_SCRATCH_BUDGET = 256 << 20
 # SSD_QMAX: the longest chunk of ssd_chunk's "whole" route (the tiled
-# route takes longer ones in SSD_TILE-row tiles, with 128-column S tiles
-# for its states); FLASH_DMAX: the widest head off flash's split routes
+# route takes longer ones: SSD_TILE-row strips in pairs, an x stage of
+# SSD_TILE rows by SSD_TILED_LDX, a block's S tile of the states
+# SSD_TILED_SS wide, C.B^T staged SSD_TILED_SC columns of S at a time);
+# FLASH_DMAX: the widest head off flash's split routes
 SSD_QMAX, SSD_ST, SSD_PT, SSD_MAX_HEADS = 128, 128, 64, 16
-SSD_TILE = 64
-SSD_TILED_SMEM = 4 * (2 * 32 * 129 + 64 * 65 + 3 * 64)
+SSD_TILE, SSD_TILED_LDX, SSD_TILED_SS, SSD_TILED_SC = 64, 68, 64, 32
 FLASH_DMAX = 256
 # flash_split.cuh: a block's rows, its tile (keys in the forward and dQ
 # pass, query rows in the dK/dV pass; in fp32 the dQ and the dK/dV
@@ -235,16 +236,42 @@ def flash_route(dtype: str, d: int, aligned: bool) -> str:
             and aligned else "mma")
 
 
+def ssd_tiled_smem(n: int, w: int, qv: int) -> int:
+    """``tl::smem_bytes``: a block's strips of C.B^T in a window of w j
+    tiles, two x stages, the window's rows of B in its S tile and the
+    vectors."""
+    cb = SSD_TILE * (SSD_TILE * min(2 * w, n + 1) + 16)
+    return 4 * (cb + 2 * SSD_TILE * SSD_TILED_LDX
+                + SSD_TILE * w * (SSD_TILED_SS + 4) + 7 * qv + 2 * SSD_TILE)
+
+
 def ssd_plan(bn: int, h: int, q: int, p: int, s: int, sms: int) -> dict:
     """``ssd_chunk.cu``'s launch: q padded ``qp``, heads a block ``hg``
     (``heads_per_block``), the grid and shared memory; ``tiled`` for the
-    tiled route (q > SSD_QMAX: a head a block, and per chunk each head's
-    row tiles and states tiles)."""
+    tiled route (q > SSD_QMAX: per (chunk, group of hg heads) a block a
+    role, y of a strip pair and the states of a 64-column S tile,
+    ``window`` j tiles at a time, one block an SM, hg for whole waves)."""
     if q > SSD_QMAX:
-        nt = -(-q // SSD_TILE)
-        tiles = nt + -(-p // SSD_PT) * -(-s // (2 * SSD_TILE))
-        return dict(qp=nt * SSD_TILE, hg=1, grid=(bn, h * tiles),
-                    smem=SSD_TILED_SMEM, tiled=1)
+        n = -(-q // SSD_TILE)
+        roles = max((n + 1) // 2, -(-s // SSD_TILED_SS))
+        qv = n * SSD_TILE
+        w = next((w for w in range(n, 0, -1)
+                  if ssd_tiled_smem(n, w, qv) <= MAX_SMEM - STATIC_SMEM), 0)
+        pp = -(-p // SSD_PT) * float(SSD_PT)
+        tiles = (n + 1) * float(SSD_TILE * SSD_TILE)
+        head = tiles * pp + pp * SSD_TILED_SS * qv
+        cb = tiles * round_up(s, SSD_TILED_SC)
+        best, best_cost = 1, 0.0
+        for hg in range(1, h + 1):
+            gy = -(-h // hg) * roles
+            if gy > 65535:
+                continue
+            cost = -(-(bn * gy) // sms) * (hg * head + cb)
+            if best_cost == 0 or cost < best_cost:
+                best, best_cost = hg, cost
+        return dict(qp=qv, hg=best, grid=(bn, -(-h // best) * roles),
+                    smem=ssd_tiled_smem(n, max(w, 1), qv), tiled=1,
+                    window=w)
     qp = round_up(q, 16)
     ldcb = round_up(qp, 32) + 8
     smem = 4 * (qp * (SSD_ST + 4) + qp * ldcb + 2 * qp * (SSD_PT + 4)
@@ -475,15 +502,16 @@ def _ssd_site(dims, plan, where, sms, card):
     site = KernelSite(
         "ssd_chunk", where, dims, plan, grid=sp["grid"],
         semantics=(PARALLEL, PARALLEL),
-        # the tiled route: a block a (chunk, head, tile)
+        # the tiled route: a block a (chunk, group, role), its own rows
         out_shape=(bn, sp["grid"][1] if sp["tiled"] else h),
-        out_block=(1, hg), out_map=lambda pt: [pt], smem=sp["smem"],
+        out_block=(1, 1 if sp["tiled"] else hg), out_map=lambda pt: [pt],
+        smem=sp["smem"],
         smem_limit=MAX_SMEM - STATIC_SMEM, launch=dict(route=way, **sp),
         preconditions=[
             (f"chunk q={q} in 1..{SSD_QMAX} on the whole route",
              0 < q and (sp["tiled"] or q <= SSD_QMAX)),
-            (f"{hg} heads a block in 1..{SSD_MAX_HEADS}",
-             0 < hg <= SSD_MAX_HEADS)],
+            (f"{hg} heads a block in 1..{h if sp['tiled'] else SSD_MAX_HEADS}",
+             0 < hg <= (h if sp["tiled"] else SSD_MAX_HEADS))],
         mismatch=([] if plan.get("route") in (None, way) else
                   [f"route {plan['route']} launched, {way} derived"]))
     if card and q > 0:

@@ -1,7 +1,6 @@
-// fma_tiles.cuh: tile products on the CUDA cores in fp32, for the routes
-// that take the shapes the tensor-core routes do not (ssd_chunk's tiled
-// route for chunks over 128 rows, flash_attention's split route for heads
-// over 256 wide).
+// fma_tiles.cuh: tile products on the CUDA cores in fp32, for the route
+// that takes the shapes the tensor-core routes do not (flash_attention's
+// split_fma route, heads over 1024 wide).
 //
 // A block of 256 threads owns one 64 x (16 NB) output tile: a thread rows
 // 4 ty .. 4 ty + 3 and columns tx + 16 b (ty = tid / 16, tx = tid % 16;

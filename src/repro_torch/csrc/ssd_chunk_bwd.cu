@@ -85,19 +85,40 @@
 // bound is the warps' own latency, four a scheduler: with no copies at all
 // it is 11 % faster, with one TF32 pass in place of three 20 %.
 //
-// The tiled route (q > kQMax, where C.B^T alone passes 64 KB): the
-// forward's tiled route's tiles (ssd_tiles.cuh, namespace tiled), fp32 on
-// the CUDA cores, the same two passes, no scratch and no atomics; no
-// speed sought.
-// * heads pass, a block per (chunk, head, 64-row tile t): as columns j of
-//   t, over the row tiles i >= t, C.B^T's and dM's tiles (over S and P),
-//   M, the column sums of dM o CB o L and of G, and dx_j += M^T dy_i; then
-//   E = B dst^T of its rows, dx += w E and u; as rows i of t, over the
-//   column tiles j <= t, the row sums of G; the last tile's block also
-//   sums u_j w_j over the chunk, tile by tile in order.
-// * chunk pass, a block per (chunk, dC or dB, 64-row tile, 128 columns of
-//   S): dCB's tiles summed over the heads in order, dC_i = sum_j dCB_ij
-//   B_j and dB_j = sum_i dCB_ij C_i + sum_h (x o w) dst_h.
+// The tiled route (q > kQMax, where C.B^T alone passes 64 KB) has the
+// same two passes and no atomics, with the chunk's columns split across
+// blocks; every product on mma.sync in 3xTF32:
+// * heads pass, a block of 8 warps per (chunk, group of HG heads, role):
+//   - "cols" blocks, each the pair of 32-column strips p and n - 1 - p of
+//     the chunk's columns j (n = q / 32; every pair has about as many
+//     entries under the diagonal): the block forms C.B^T of its columns
+//     against the rows i >= j once a group, into shared memory.  For
+//     each head and P tile it first runs E = B_J dst^T over S (dst
+//     staged 32 columns at a time) into dx's accumulators, then streams
+//     dy in 64-row i tiles through a cp.async double buffer; a tile's
+//     L = exp(cum_i - cum_j) is formed once into shared memory (the
+//     exponential only where i >= j), then dx_J += M^T dy_i (a warp a
+//     16-row strip of both strips, so every warp has the same work) and
+//     dM = dy_i x_J^T, once a head (a warp a 16 x 32 item), with its
+//     share of the group's dCB (added in shared memory, in head order),
+//     G's row sums (to scratch by strip) and column sums, and dM o CB o
+//     L's column sums.  At a head's end it writes ddt_J, dcum_J's own
+//     terms (- colsum G - u w) and the block's share of sum_j u_j w_j.
+//   - "state" blocks, 128 rows j by 128 columns of S: dB's state term
+//     sum_h (x o w) dst_h for the group, w formed once a head.
+//   The group's dCB (lower triangle) and state term go to scratch.  Where
+//   a cols block's strips pass shared memory (q over ~400), the i tiles
+//   go in windows: dx, ddt and dcum are read back at the next window.
+// * chunk pass, a block per (chunk, 64 rows, 64 columns of S, dC or dB):
+//   the groups' dCB summed in group order as it is staged, dC = dCB B
+//   and dB = dCB^T C + the groups' state terms; the dC blocks of the first
+//   S tile add to dcum the strips' row sums of G, in strip order, and at
+//   the chunk's last row the blocks' shares of sum_j u_j w_j.  dM is not
+//   formed again.
+// What holds it (tools/ssd_chunk_variants.py --backward at chunk 256):
+// the heads pass, ~0.77 of ~0.9 ms at bs 1; the products issue in waves
+// (tf32x3::mma3_row, as the forward's), which took the chunk pass from
+// 0.15 to 0.07 ms and left the heads pass as it was.
 #include "ssd_tiles.cuh"
 
 namespace {
@@ -869,10 +890,34 @@ bool valid(int BN, int H, int Q, int P, int S) {
 
 namespace tlb {
 
-using ssd::kThreads;
-using namespace ssd::tiled;
+using namespace ssd;
+using tf32x3::Frag;
 
-constexpr int kST2 = 2 * kT;   // the chunk pass's S columns a block
+constexpr int kCW = 32;              // columns j of a strip
+constexpr int kJ = 2 * kCW;          // a cols block's columns: two strips
+constexpr int kIT = 64;              // rows of an i tile (a dy stage)
+constexpr int kLdC = kCW + 4;        // C.B^T's and dCB's strip rows, = 4
+                                     // mod 32 (M^T's fragments read across
+                                     // rows)
+constexpr int kLdL = kJ + 4;         // a tile's L rows: = 4 mod 32
+constexpr int kLdD = kPT + 4;        // dy stage rows: = 4 mod 32 (load_b)
+constexpr int kLdXJ = kPT + 8;       // x_J rows: = 8 mod 32 (load_bt)
+constexpr int kSE = 32;              // S columns an E step (and a C.B^T one)
+constexpr int kLdE = kSE + 8;        // staged B_J, dst and C rows: = 8 mod 32
+constexpr int kStage = 2 * kJ * kLdE;      // an E stage: B_J and dst
+constexpr int kXJ = kJ * kLdXJ;            // an x_J tile
+constexpr int kSlots = 12 * kJ;      // a head's sums: u by P quarter, G's
+                                     // and dM CB L's column sums by i strip
+static_assert(kIT * kLdD <= kStage, "a dy stage fits an E stage");
+// the state blocks: 128 rows j by 128 columns of S
+constexpr int kSJ = 128, kSS = 128;
+constexpr int kLdSX = kPT + 8;       // x rows: = 8 mod 32 (A fragments)
+constexpr int kLdSD = kSS + 4;       // dst rows: = 4 mod 32 (B fragments)
+constexpr int kSStage = kSJ * kLdSX + kPT * kLdSD;
+// the chunk pass: 64 rows by 64 columns of S, k staged 32 at a time
+constexpr int kCR = 64, kCS = 64, kCK = 32;
+constexpr int kLdA = kCK + 8;        // staged dCB (or dCB^T) rows: = 8 mod 32
+constexpr int kLdK = kCS + 4;        // staged B (or C) rows: = 4 mod 32
 
 struct Args {
   const float* x;
@@ -887,379 +932,760 @@ struct Args {
   float* dC;
   float* ddt;
   float* dcum;
+  float* part_cb;   // [BN][G][Q][Q]: each group's dCB, lower triangle
+  float* part_st;   // [BN][G][Q][S]: each group's state term of dB
+  float* rowg;      // [BN][n32][QV][H]: G's row sums by column strip
+  float* totp;      // [BN][npairs][H]: each cols block's sum of u w
   int H, Q, P, S;
-  int nT, nPT, nST;   // 64-row tiles of q, 64-column of P, 128-column of S
+  int n32;          // 32-column strips
+  int n64;          // 64-row i tiles
+  int npairs;       // cols blocks a group: strips p and n32 - 1 - p
+  int roles;        // blocks a group: npairs, then the state blocks
+  int nP;           // 64-column P tiles
+  int HG, G;        // heads a group, groups
+  int W;            // i tiles a window
+  int QV;           // n64 * 64
+  int o_l, o_r, o_x, o_v;   // offsets (floats): L, the ring, x_J, vectors
+  int vx;           // x and dy rows 16-byte aligned
+  int vbc;          // B and C rows 16-byte aligned
+  int vst;          // dst rows 16-byte aligned
+  int vdx;          // dx in 8-byte pairs
+  int vs2;          // dB, dC and the state term in 8-byte pairs
 };
 
-// the heads pass: the staging, a 64 x 64 tile, the sums' reduction, and
-// nine vectors of a tile's rows (cum and dt of tile t and of the other
-// tile, ddt's and G's column sums, G's row sums, u and another tile's u)
-constexpr long long kSmemHeads =
-    4ll * (kStageFloats + kT * kLdT + 16 * kT + 9 * kT);
-// the chunk pass: the staging and a 64 x 64 tile
-constexpr long long kSmemChunk = 4ll * (kStageFloats + kT * kLdT);
-
-__global__ void __launch_bounds__(kThreads)
-ssd_bwd_heads_tiled(const Args p) {
-  extern __shared__ __align__(16) float smem[];
-  float* stage = smem;
-  float* ms = stage + kStageFloats;
-  float* red = ms + kT * kLdT;
-  float* cumt = red + 16 * kT;
-  float* dtt = cumt + kT;
-  float* cumo = dtt + kT;
-  float* dto = cumo + kT;
-  float* ddts = dto + kT;
-  float* colg = ddts + kT;
-  float* rowg = colg + kT;
-  float* us = rowg + kT;
-  float* uo = us + kT;
-  __shared__ float tot;
-  const long long bn = blockIdx.x;
-  const int h = blockIdx.y / p.nT, t = blockIdx.y % p.nT, t0 = t * kT;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const long long HP = (long long)p.H * p.P;
-  const int Q = p.Q;
-  const float* xb = p.x + bn * Q * HP + (long long)h * p.P;    // row j: j HP
-  const float* dyb = p.dy + bn * Q * HP + (long long)h * p.P;
-  const float* Bb = p.B + bn * Q * p.S;
-  const float* Cb = p.C + bn * Q * p.S;
-  const float* cumh = p.cum + bn * Q * p.H + h;                // row j: j H
-  const float* dth = p.dt + bn * Q * p.H + h;
-  const float* dstb = p.dst + (bn * p.H + h) * (long long)p.P * p.S;
-  const float cend = cumh[(long long)(Q - 1) * p.H];
-  auto rows_of = [&](int r0, float* cm, float* dm) {
-    for (int e = tid; e < kT; e += kThreads) {
-      const bool in = r0 + e < Q;
-      cm[e] = in ? cumh[(long long)(r0 + e) * p.H] : 0.f;
-      if (dm) dm[e] = in ? dth[(long long)(r0 + e) * p.H] : 0.f;
-    }
-  };
-  // C.B^T's and dM's tiles of rows [i0, + 64) by columns [j0, + 64)
-  auto cb_dm = [&](float (&cb)[4][4], float (&dm)[4][4], int i0, int j0) {
-    zero(cb);
-    mm_acc<4, true, true>(
-        cb, p.S,
-        [&](int r, int k) {
-          return i0 + r < Q ? Cb[(long long)(i0 + r) * p.S + k] : 0.f;
-        },
-        [&](int k, int c) {
-          return j0 + c < Q ? Bb[(long long)(j0 + c) * p.S + k] : 0.f;
-        },
-        stage);
-    zero(dm);
-    mm_acc<4, true, true>(
-        dm, p.P,
-        [&](int r, int k) { return i0 + r < Q ? dyb[(i0 + r) * HP + k] : 0.f; },
-        [&](int k, int c) { return j0 + c < Q ? xb[(j0 + c) * HP + k] : 0.f; },
-        stage);
-  };
-  // E = B dst^T's tile of rows [r0, + 64) by P columns [p0, + 64)
-  auto e_tile = [&](float (&e)[4][4], int r0, int p0) {
-    zero(e);
-    mm_acc<4, true, true>(
-        e, p.S,
-        [&](int r, int k) {
-          return r0 + r < Q ? Bb[(long long)(r0 + r) * p.S + k] : 0.f;
-        },
-        [&](int k, int c) {
-          return p0 + c < p.P ? dstb[(long long)(p0 + c) * p.S + k] : 0.f;
-        },
-        stage);
-  };
-  // u of rows [r0, + 64) (sum over p of x E), the E tile of p0 in e
-  auto u_part = [&](float (&e)[4][4], int r0, int p0, float* dst) {
-    float v[4][4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const int j = r0 + 4 * ty + a, pc = p0 + tx + 16 * b;
-        v[a][b] = j < Q && pc < p.P ? xb[j * HP + pc] * e[a][b] : 0.f;
-      }
-    row_sums(v, red, dst);
-  };
-
-  rows_of(t0, cumt, dtt);
-  for (int e = tid; e < kT; e += kThreads)
-    ddts[e] = colg[e] = rowg[e] = us[e] = 0.f;
-  float cb[4][4], dm[4][4];
-  // as columns j of tile t: over the row tiles i >= t
-  for (int pt = 0; pt < p.nPT; ++pt) {
-    const int p0 = pt * kT;
-    float dxa[4][4];
-    zero(dxa);
-    for (int it = t; it < p.nT; ++it) {
-      const int i0 = it * kT;
-      rows_of(i0, cumo, nullptr);
-      cb_dm(cb, dm, i0, t0);
-      // M to shared memory; in place, dm o CB o L (dm) and G (cb)
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int b = 0; b < 4; ++b) {
-          const int ri = 4 * ty + a, cj = tx + 16 * b;
-          const int i = i0 + ri, j = t0 + cj;
-          const bool on = i >= j && i < Q && j < Q;
-          const float cbl = cb[a][b] * decay_l(cumo[ri], cumt[cj], on);
-          const float mv = cbl * dtt[cj];
-          const float d = on ? dm[a][b] : 0.f;
-          ms[ri * kLdT + cj] = on ? mv : 0.f;
-          dm[a][b] = d * cbl;
-          cb[a][b] = i > j ? d * mv : 0.f;
-        }
-      if (pt == 0) {
-        col_sums(dm, red, ddts);
-        col_sums(cb, red, colg);
-      }
-      mm_acc<4, false, false>(
-          dxa, kT, [&](int r, int k) { return ms[k * kLdT + r]; },
-          [&](int k, int c) {
-            return i0 + k < Q && p0 + c < p.P ? dyb[(i0 + k) * HP + p0 + c]
-                                              : 0.f;
-          },
-          stage);
-    }
-    float e[4][4];
-    e_tile(e, t0, p0);
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const int rj = 4 * ty + a, j = t0 + rj, pc = p0 + tx + 16 * b;
-        if (j < Q && pc < p.P) {
-          const float w = expf(cend - cumt[rj]) * dtt[rj];
-          p.dx[(bn * Q + j) * HP + (long long)h * p.P + pc] =
-              dxa[a][b] + w * e[a][b];
-        }
-      }
-    u_part(e, t0, p0, us);
-  }
-  // as rows i of tile t: over the column tiles j <= t, G's row sums
-  for (int jt = 0; jt <= t; ++jt) {
-    const int j0 = jt * kT;
-    rows_of(j0, cumo, dto);
-    cb_dm(cb, dm, t0, j0);
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const int ri = 4 * ty + a, cj = tx + 16 * b;
-        const int i = t0 + ri, j = j0 + cj;
-        const bool on = i > j && i < Q && j < Q;
-        cb[a][b] = on ? dm[a][b] * (cb[a][b] * decay_l(cumt[ri], cumo[cj],
-                                                       on) * dto[cj])
-                      : 0.f;                    // G
-      }
-    row_sums(cb, red, rowg);
-  }
-  // the last tile: cum_end's share, sum over the chunk of u_j w_j, tile
-  // by tile in order
-  if (tid == 0) tot = 0.f;
-  if (t == p.nT - 1) {
-    for (int tt = 0; tt < p.nT; ++tt) {
-      const float* u = us;
-      if (tt != t) {
-        for (int e = tid; e < kT; e += kThreads) uo[e] = 0.f;
-        for (int pt = 0; pt < p.nPT; ++pt) {
-          float e[4][4];
-          e_tile(e, tt * kT, pt * kT);
-          u_part(e, tt * kT, pt * kT, uo);
-        }
-        u = uo;
-      }
-      __syncthreads();
-      if (tid == 0) {
-        float sum = 0.f;
-        for (int r = 0; r < kT && tt * kT + r < Q; ++r) {
-          const long long j = tt * kT + r;
-          sum += u[r] * (expf(cend - cumh[j * p.H]) * dth[j * p.H]);
-        }
-        tot += sum;
-      }
-      __syncthreads();
-    }
-  }
-  __syncthreads();
-  if (tid < kT && t0 + tid < Q) {
-    const int j = t0 + tid;
-    const float wend = expf(cend - cumt[tid]), w = wend * dtt[tid];
-    const long long o = (bn * Q + j) * p.H + h;
-    p.ddt[o] = ddts[tid] + us[tid] * wend;
-    p.dcum[o] = rowg[tid] - colg[tid] - us[tid] * w + (j == Q - 1 ? tot : 0.f);
-  }
+// a strip's rows of C.B^T in a window of i tiles [it0, it1): from its
+// first row's i tile, or the window's
+__host__ __device__ __forceinline__ int strip_lo(int s, int it0) {
+  const int a = kIT * (s / 2), b = kIT * it0;
+  return a > b ? a : b;
 }
 
-__global__ void __launch_bounds__(kThreads)
-ssd_bwd_chunk_tiled(const Args p) {
-  extern __shared__ __align__(16) float smem[];
-  float* stage = smem;
-  float* ms = stage + kStageFloats;
-  const long long bn = blockIdx.x;
-  const int per = p.nT * p.nST;
-  const int role = blockIdx.y / per, t = blockIdx.y % per / p.nST;
-  const int s0 = blockIdx.y % p.nST * kST2, t0 = t * kT;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const long long HP = (long long)p.H * p.P;
-  const int Q = p.Q;
-  const float* xb = p.x + bn * Q * HP;
-  const float* dyb = p.dy + bn * Q * HP;
-  const float* Bb = p.B + bn * Q * p.S;
-  const float* Cb = p.C + bn * Q * p.S;
-  const float* cumb = p.cum + bn * Q * p.H;
-  const float* dtb = p.dt + bn * Q * p.H;
-  // dCB's tile of rows [i0, + 64) by columns [j0, + 64): the heads' dM o L
-  // o dt_j, summed over the heads in order, into ms
-  auto dcb_tile = [&](int i0, int j0) {
-    float v[4][4];
-    zero(v);
-    for (int h = 0; h < p.H; ++h) {
-      float dm[4][4];
-      zero(dm);
-      const long long ho = (long long)h * p.P;
-      mm_acc<4, true, true>(
-          dm, p.P,
-          [&](int r, int k) {
-            return i0 + r < Q ? dyb[(i0 + r) * HP + ho + k] : 0.f;
-          },
-          [&](int k, int c) {
-            return j0 + c < Q ? xb[(j0 + c) * HP + ho + k] : 0.f;
-          },
-          stage);
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int b = 0; b < 4; ++b) {
-          const int i = i0 + 4 * ty + a, j = j0 + tx + 16 * b;
-          const bool on = i >= j && i < Q && j < Q;
-          if (on)
-            v[a][b] += dm[a][b] * decay_l(cumb[(long long)i * p.H + h],
-                                          cumb[(long long)j * p.H + h], on) *
-                       dtb[(long long)j * p.H + h];
-        }
-    }
-    store_tile(ms, v);
-  };
-  float acc[4][8];
-  zero(acc);
-  if (role == 0) {                    // dC of rows [t0, + 64)
-    for (int jt = 0; jt <= t; ++jt) {
-      const int j0 = jt * kT;
-      dcb_tile(t0, j0);
-      mm_acc<8, false, false>(
-          acc, kT, [&](int r, int k) { return ms[r * kLdT + k]; },
-          [&](int k, int c) {
-            return j0 + k < Q && s0 + c < p.S
-                       ? Bb[(long long)(j0 + k) * p.S + s0 + c]
-                       : 0.f;
-          },
-          stage);
-    }
-  } else {                            // dB of rows [t0, + 64)
-    for (int it = t; it < p.nT; ++it) {
-      const int i0 = it * kT;
-      dcb_tile(i0, t0);
-      mm_acc<8, false, false>(
-          acc, kT, [&](int r, int k) { return ms[k * kLdT + r]; },
-          [&](int k, int c) {
-            return i0 + k < Q && s0 + c < p.S
-                       ? Cb[(long long)(i0 + k) * p.S + s0 + c]
-                       : 0.f;
-          },
-          stage);
-    }
-    // + sum over the heads of (x o w) dst_h
-    for (int h = 0; h < p.H; ++h) {
-      const float cend = cumb[(long long)(Q - 1) * p.H + h];
-      const long long ho = (long long)h * p.P;
-      const float* dsth = p.dst + (bn * p.H + h) * (long long)p.P * p.S;
-      mm_acc<8, true, false>(
-          acc, p.P,
-          [&](int r, int k) {
-            const long long j = t0 + r;
-            return j < Q ? xb[j * HP + ho + k] *
-                               (expf(cend - cumb[j * p.H + h]) *
-                                dtb[j * p.H + h])
-                         : 0.f;
-          },
-          [&](int k, int c) {
-            return s0 + c < p.S ? dsth[(long long)k * p.S + s0 + c] : 0.f;
-          },
-          stage);
-    }
-  }
-  float* out = role == 0 ? p.dC : p.dB;
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < 8; ++b) {
-      const int r = t0 + 4 * ty + a, sc = s0 + tx + 16 * b;
-      if (r < Q && sc < p.S) out[(bn * Q + r) * p.S + sc] = acc[a][b];
-    }
+int strip_rows(int s, int it0, int it1) {
+  const int r = kIT * it1 - strip_lo(s, it0);
+  return r > 0 ? r : 0;
 }
 
-Args make_args(int H, int Q, int P, int S) {
-  Args a{};
+// floats of a cols block's C.B^T and dCB (the most any pair and window
+// takes at W i tiles a window) and of a block's shared memory: the
+// region, a tile's L, two stages, two x_J tiles (or the state blocks'
+// two stages), the vectors (cum and dt by head parity, w and w_end by
+// head parity, the sums by head parity)
+long long region_floats(const Args& a, int W) {
+  long long most = 0;
+  for (int pr = 0; pr < a.npairs; ++pr) {
+    const int sa = pr, sb = a.n32 - 1 - pr;
+    for (int it0 = sa / 2; it0 < a.n64; it0 += W) {
+      const int it1 = it0 + W < a.n64 ? it0 + W : a.n64;
+      const long long r = strip_rows(sa, it0, it1) +
+                          (sb != sa ? strip_rows(sb, it0, it1) : 0);
+      if (r > most) most = r;
+    }
+  }
+  return 2 * kLdC * most;
+}
+
+struct Launch {
+  Args a;
+  dim3 grid1, grid2;
+  long long smem, scratch;
+};
+
+void set_offsets(Args& a, long long region) {
+  a.o_l = (int)region;
+  a.o_r = a.o_l + kIT * kLdL;
+  a.o_x = a.o_r + 2 * kStage;
+  a.o_v = a.o_x + 2 * kXJ > 2 * kSStage ? a.o_x + 2 * kXJ : 2 * kSStage;
+}
+
+long long smem_bytes(const Args& a) {
+  return 4 * ((long long)a.o_v + 4ll * a.QV + 4 * kJ + 2 * kSlots);
+}
+
+long long round4(long long n) { return (n + 3) / 4 * 4; }
+
+// The widest window that fits (W = 0: none does), and the heads a group:
+// one 8-warp block an SM (its shared memory allows no second), the HG
+// that minimises whole waves x the slower block's multiply-adds (a cols
+// block: its heads' E, M^T dy and dM and its C.B^T; a state block: its
+// heads' state term).  Scratch: each section rounded to 4 floats.
+Launch make_launch(int BN, int H, int Q, int P, int S) {
+  Launch l;
+  Args& a = l.a;
+  a = Args{};
   a.H = H;
   a.Q = Q;
   a.P = P;
   a.S = S;
-  a.nT = (Q + kT - 1) / kT;
-  a.nPT = (P + kT - 1) / kT;
-  a.nST = (S + kST2 - 1) / kST2;
-  return a;
+  a.n32 = (Q + kCW - 1) / kCW;
+  a.n64 = (Q + kIT - 1) / kIT;
+  a.npairs = (a.n32 + 1) / 2;
+  a.roles = a.npairs + ((Q + kSJ - 1) / kSJ) * ((S + kSS - 1) / kSS);
+  a.nP = (P + kPT - 1) / kPT;
+  a.QV = a.n64 * kIT;
+  for (int w = a.n64; w >= 1 && !a.W; --w) {
+    set_offsets(a, region_floats(a, w));
+    if (smem_bytes(a) <= kMaxSmem) a.W = w;
+  }
+  if (!a.W) set_offsets(a, region_floats(a, 1));
+  l.smem = smem_bytes(a);
+  const long long slots = ssd::sm_count();
+  const double pp = a.nP * (double)kPT, sp = (S + kSE - 1) / kSE * kSE;
+  const double tri = (a.n64 + 1.0) * kIT * kCW;   // a pair's entries
+  const double cols_head = pp * (kJ * sp + 2 * tri), cols_cb = tri * sp;
+  const double st_head = pp * kSJ * kSS;
+  a.HG = 1;
+  double best = 0;
+  for (int hg = 1; hg <= H; ++hg) {
+    const long long gy = (long long)((H + hg - 1) / hg) * a.roles;
+    if (gy > 65535) continue;
+    const double waves = (double)((BN * gy + slots - 1) / slots);
+    const double cost = waves * fmax(hg * cols_head + cols_cb, hg * st_head);
+    if (best == 0 || cost < best) {
+      a.HG = hg;
+      best = cost;
+    }
+  }
+  a.G = (H + a.HG - 1) / a.HG;
+  l.grid1 = dim3((unsigned)BN, (unsigned)((long long)a.G * a.roles));
+  l.grid2 = dim3((unsigned)BN, (unsigned)a.n64,
+                 (unsigned)(2 * ((S + kCS - 1) / kCS)));
+  l.scratch = round4((long long)BN * a.G * Q * Q) +
+              round4((long long)BN * a.G * Q * S) +
+              round4((long long)BN * a.n32 * a.QV * H) +
+              round4((long long)BN * a.npairs * H);
+  return l;
 }
 
-int launch(const Args& a, int BN, cudaStream_t stream) {
-  const long long g1 = (long long)a.H * a.nT, g2 = 2ll * a.nT * a.nST;
-  if (g1 > 65535 || g2 > 65535) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      ssd_bwd_heads_tiled, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kSmemHeads);
+bool valid(const Launch& l) { return l.a.W > 0 && l.grid1.y <= 65535; }
+
+__global__ void __launch_bounds__(kThreads, 1)
+ssd_bwd_heads_tiled(const Args p) {
+  extern __shared__ __align__(16) float smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const long long bn = blockIdx.x;   // b * nc + n
+  const int grp = blockIdx.y / p.roles, role = blockIdx.y % p.roles;
+  const int h0 = grp * p.HG, hg = min(p.HG, p.H - h0);
+  const int Q = p.Q, QV = p.QV, nP = p.nP, units = hg * nP;
+  const long long HP = (long long)p.H * p.P;
+  float* cumv = smem + p.o_v;        // 2 x QV: a head's cum, by parity
+  float* dtv = cumv + 2 * QV;        // 2 x QV: its dt
+  for (int e = threadIdx.x; e < 4 * QV; e += kThreads)
+    if (e % QV >= Q) cumv[e] = 0.f;   // past Q: zero (the loads skip it)
+  auto issue_vectors = [&](int hh) {
+    const int h = h0 + hh;
+    float* cb = cumv + (hh & 1) * QV;
+    float* db = dtv + (hh & 1) * QV;
+    for (int e = threadIdx.x; e < Q; e += kThreads) {
+      tf32x3::cp_async4(cb + e, p.cum + (bn * Q + e) * p.H + h);
+      tf32x3::cp_async4(db + e, p.dt + (bn * Q + e) * p.H + h);
+    }
+  };
+
+  if (role >= p.npairs) {
+    // ---- a state block: sum over the group's heads of (x o w) dst_h ----
+    const int sr = role - p.npairs, nst = (p.S + kSS - 1) / kSS;
+    const int j0 = (sr / nst) * kSJ, c0 = (sr % nst) * kSS;
+    const int jm = warp >> 1, sn = warp & 1;   // rows 32 jm, columns 64 sn
+    auto issue = [&](int u) {
+      const int hh = u / nP, pt = u - hh * nP, h = h0 + hh, p0 = pt * kPT;
+      float* xs = smem + (u & 1) * kSStage;
+      load_tile(xs, kLdSX, p.x + ((bn * Q + j0) * p.H + h) * (long long)p.P
+                + p0, HP, kSJ, kPT, min(kSJ, Q - j0), min(kPT, p.P - p0),
+                p.vx);
+      load_tile(xs + kSJ * kLdSX, kLdSD,
+                p.dst + ((bn * p.H + h) * (long long)p.P + p0) * p.S + c0,
+                p.S, kPT, kSS, min(kPT, p.P - p0), min(kSS, p.S - c0), p.vst);
+      if (pt == 0) issue_vectors(hh);
+    };
+    float acc[2][8][4] = {};
+    issue(0);
+    tf32x3::cp_async_commit();
+    for (int u = 0; u < units; ++u) {
+      const int hh = u / nP;
+      tf32x3::cp_async_wait<0>();
+      __syncthreads();   // unit u landed; unit u - 1 is read
+      if (u + 1 < units) issue(u + 1);
+      tf32x3::cp_async_commit();
+      const float* xs = smem + (u & 1) * kSStage;
+      const float* ds = xs + kSJ * kLdSX;
+      const float* cum = cumv + (hh & 1) * QV;
+      const float* dt = dtv + (hh & 1) * QV;
+      const float cend = cum[Q - 1];
+      float w[2][2];   // the warp's rows' w, once a unit
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int a = 0; a < 2; ++a) {
+          const int j = j0 + 32 * jm + 16 * m + g + 8 * a;
+          w[m][a] = j < Q ? __expf(cend - cum[j]) * dt[j] : 0.f;
+        }
+#pragma unroll 2
+      for (int ks = 0; ks < kPT / 8; ++ks) {
+        Frag<4> af[2];
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+          const float* x0 = xs + (32 * jm + 16 * m + g) * kLdSX + 8 * ks
+                            + 2 * t;
+          const float2 lo = *reinterpret_cast<const float2*>(x0);
+          const float2 hi = *reinterpret_cast<const float2*>(x0 + 8 * kLdSX);
+          const float v[4] = {lo.x * w[m][0], hi.x * w[m][1], lo.y * w[m][0],
+                              hi.y * w[m][1]};
+          tf32x3::split_fast(af[m], v);
+        }
+        Frag<2> b[8];
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+          b[nt] = tf32x3::load_b<true>(ds, kLdSD, 8 * ks, 64 * sn + 8 * nt,
+                                       lane);
+#pragma unroll
+        for (int m = 0; m < 2; ++m) tf32x3::mma3_row(acc[m], af[m], b);
+      }
+    }
+    float* ps = p.part_st + (bn * p.G + grp) * (long long)Q * p.S;
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const int j = j0 + 32 * jm + 16 * m + g;
+        const int col = c0 + 64 * sn + 8 * nt + 2 * t;
+        if (j < Q)
+          store2(ps, (long long)j * p.S + col, col, p.S, acc[m][nt][0],
+                 acc[m][nt][1], p.vs2);
+        if (j + 8 < Q)
+          store2(ps, (long long)(j + 8) * p.S + col, col, p.S, acc[m][nt][2],
+                 acc[m][nt][3], p.vs2);
+      }
+    return;
+  }
+
+  // ---- a cols block: the strips sa and sb of the chunk's columns --------
+  const int pair = role, sa = pair, sb = p.n32 - 1 - pair;
+  const int nstr = sa == sb ? 1 : 2;
+  const int sk[2] = {sa, sb};
+  float* Lt = smem + p.o_l;            // kIT x kLdL: the tile's L
+  float* ring = smem + p.o_r;          // 2 stages
+  float* xjb = smem + p.o_x;           // 2 x_J tiles, by unit parity
+  float* wv = dtv + 2 * QV;            // 2 x kJ: w_J, by head parity
+  float* wendv = wv + 2 * kJ;          // 2 x kJ: w_end
+  float* slots = wendv + 2 * kJ;       // 2 x kSlots, by head parity
+  const int mi = warp & 1, pq = warp >> 1;   // dx: rows 16 mi of each
+                                             // strip, P columns 16 pq
+  const int im = warp & 3, kw = warp >> 2;   // dM: rows 16 im of the
+                                             // tile, strip kw
+  const int first_it = sa / 2;
+  const int nE = (p.S + kSE - 1) / kSE;
+  const int nwin = (p.n64 - first_it + p.W - 1) / p.W;
+  for (int e = threadIdx.x; e < 2 * kSlots; e += kThreads) slots[e] = 0.f;
+
+  for (int win = 0; win < nwin; ++win) {
+    const int it0 = first_it + win * p.W, it1 = min(it0 + p.W, p.n64);
+    int lo[2], nr[2];
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      lo[k] = strip_lo(sk[k], it0);
+      nr[k] = k < nstr ? max(0, kIT * it1 - lo[k]) : 0;
+    }
+    // strip k's row i at cbk[k] + (i - lo[k]) kLdC (dCB: dck[k])
+    float* cbk[2] = {smem, smem + nr[0] * kLdC};
+    float* dck[2] = {smem + (nr[0] + nr[1]) * kLdC,
+                     smem + (2 * nr[0] + nr[1]) * kLdC};
+    const int ne = win == 0 ? nE : 0;          // E steps a unit
+    const int nsu = ne + it1 - it0;            // steps a unit
+    const int steps = units * nsu;
+
+    // ddt, dcum and the share of sum u w of the group's head hf from the
+    // sums its steps left (warp 0, two columns a lane; the slots are
+    // zeroed as they are read, for the head two after)
+    auto finish = [&](int hf) {
+      const int pf = hf & 1, h = h0 + hf;
+      float* sl = slots + pf * kSlots;
+      float tot = 0.f;
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const int jl = lane + kCW * k, j = kCW * sk[k] + lane;
+        float u = 0.f, cg = 0.f, ct = 0.f;
+#pragma unroll
+        for (int q4 = 0; q4 < 4; ++q4) {
+          u += sl[q4 * kJ + jl];
+          cg += sl[(4 + q4) * kJ + jl];
+          ct += sl[(8 + q4) * kJ + jl];
+          sl[q4 * kJ + jl] = sl[(4 + q4) * kJ + jl] =
+              sl[(8 + q4) * kJ + jl] = 0.f;
+        }
+        if (k < nstr && j < Q) {
+          const long long o = (bn * Q + j) * p.H + h;
+          if (win == 0) {
+            const float uw = u * wv[pf * kJ + jl];
+            p.ddt[o] = ct + u * wendv[pf * kJ + jl];
+            p.dcum[o] = -cg - uw;
+            tot += uw;
+          } else {
+            p.ddt[o] += ct;
+            p.dcum[o] -= cg;
+          }
+        }
+      }
+      if (win == 0) {
+#pragma unroll
+        for (int s = 16; s; s >>= 1) tot += __shfl_xor_sync(0xffffffffu, tot, s);
+        if (lane == 0) p.totp[(bn * p.npairs + pair) * p.H + h] = tot;
+      }
+    };
+
+    __syncthreads();   // the last window is read
+    for (int e = threadIdx.x; e < 2 * (nr[0] + nr[1]) * kLdC; e += kThreads)
+      smem[e] = 0.f;   // entries never formed read as 0
+    // C.B^T of the window's rows against the strips' columns: a warp an
+    // item (16 rows of the i tile, a strip), S in 32-column steps with
+    // the tile's C and B_J staged in the ring
+    {
+      float* cst = ring;
+      float* bst = ring + kIT * kLdE;
+      for (int it = it0; it < it1; ++it) {
+        const bool act = kw < nstr && kIT * it + 16 * im + 15 >=
+                         kCW * (kw ? sb : sa) && kIT * it + 16 * im < Q;
+        float c[4][4] = {};
+        for (int sc = 0; sc < nE; ++sc) {
+          const int c0 = sc * kSE, cw = min(kSE, p.S - c0);
+          __syncthreads();   // the staging is read (and the zeroing done)
+          load_tile(cst, kLdE, p.C + (bn * Q + kIT * it) * p.S + c0, p.S,
+                    kIT, kSE, min(kIT, Q - kIT * it), cw, p.vbc);
+#pragma unroll
+          for (int k = 0; k < 2; ++k)
+            load_tile(bst + k * kCW * kLdE, kLdE,
+                      p.B + (bn * Q + kCW * sk[k]) * p.S + c0, p.S, kCW, kSE,
+                      k < nstr ? min(kCW, Q - kCW * sk[k]) : 0, cw, p.vbc);
+          tf32x3::cp_async_commit();
+          tf32x3::cp_async_wait<0>();
+          __syncthreads();
+          if (act) {
+#pragma unroll
+            for (int ks = 0; ks < kSE / 8; ++ks) {
+              const Frag<4> af = tf32x3::load_a<true>(cst, kLdE, 16 * im,
+                                                      8 * ks, lane);
+              Frag<2> b[4];
+#pragma unroll
+              for (int n = 0; n < 4; ++n)
+                b[n] = tf32x3::load_bt<true>(bst, kLdE, kCW * kw + 8 * n,
+                                             8 * ks, lane);
+              tf32x3::mma3_row(c, af, b);
+            }
+          }
+        }
+        if (act) {
+          float* o = (kw ? cbk[1] : cbk[0]) +
+                     (kIT * it + 16 * im + g - (kw ? lo[1] : lo[0])) * kLdC
+                     + 2 * t;
+#pragma unroll
+          for (int n = 0; n < 4; ++n) {
+            *reinterpret_cast<float2*>(o + 8 * n) = make_float2(c[n][0],
+                                                                c[n][1]);
+            *reinterpret_cast<float2*>(o + 8 * kLdC + 8 * n) =
+                make_float2(c[n][2], c[n][3]);
+          }
+        }
+      }
+    }
+    __syncthreads();   // C.B^T formed; the staging is the ring's again
+
+    // step d of the window: unit d / nsu's E step (B_J's and dst_h's 32
+    // columns of S) or dy's i tile, into ring half d & 1; with a unit's
+    // first step its x_J, and with a head's its cum and dt
+    auto issue = [&](int d) {
+      const int u = d / nsu, ks = d - u * nsu;
+      const int hh = u / nP, pt = u - hh * nP, h = h0 + hh, p0 = pt * kPT;
+      float* st = ring + (d & 1) * kStage;
+      if (ks < ne) {
+        const int c0 = ks * kSE, cw = min(kSE, p.S - c0);
+#pragma unroll
+        for (int k = 0; k < 2; ++k)
+          load_tile(st + k * kCW * kLdE, kLdE,
+                    p.B + (bn * Q + kCW * sk[k]) * p.S + c0, p.S, kCW, kSE,
+                    k < nstr ? min(kCW, Q - kCW * sk[k]) : 0, cw, p.vbc);
+        load_tile(st + kJ * kLdE, kLdE,
+                  p.dst + ((bn * p.H + h) * (long long)p.P + p0) * p.S + c0,
+                  p.S, kPT, kSE, min(kPT, p.P - p0), cw, p.vst);
+      } else {
+        const int r0 = kIT * (it0 + ks - ne);
+        load_tile(st, kLdD, p.dy + ((bn * Q + r0) * p.H + h) * (long long)p.P
+                  + p0, HP, kIT, kPT, min(kIT, Q - r0), min(kPT, p.P - p0),
+                  p.vx);
+      }
+      if (ks == 0) {
+        float* xj = xjb + (u & 1) * kXJ;
+#pragma unroll
+        for (int k = 0; k < 2; ++k)
+          load_tile(xj + k * kCW * kLdXJ, kLdXJ,
+                    p.x + ((bn * Q + kCW * sk[k]) * p.H + h) * (long long)p.P
+                    + p0, HP, kCW, kPT,
+                    k < nstr ? min(kCW, Q - kCW * sk[k]) : 0,
+                    min(kPT, p.P - p0), p.vx);
+        if (pt == 0) issue_vectors(hh);
+      }
+    };
+
+    issue(0);
+    tf32x3::cp_async_commit();
+    float acc[2][2][4];   // dx (E first): strip k's rows 16 mi, n8 tile nt
+    for (int d = 0; d < steps; ++d) {
+      const int u = d / nsu, ks = d - u * nsu;
+      const int hh = u / nP, pt = u - hh * nP, h = h0 + hh, par = hh & 1;
+      const int p0 = pt * kPT;
+      tf32x3::cp_async_wait<0>();
+      __syncthreads();   // step d landed; step d - 1 is read
+      if (d + 1 < steps) issue(d + 1);
+      tf32x3::cp_async_commit();
+      const float* st = ring + (d & 1) * kStage;
+      const float* xj = xjb + (u & 1) * kXJ;
+      const float* cum = cumv + par * QV;
+      const float* dt = dtv + par * QV;
+      float* sl = slots + par * kSlots;
+
+      if (ks == 0 && pt == 0) {   // a head's first step
+        if (hh && warp == 0) finish(hh - 1);
+        const int jl = threadIdx.x - 64;   // w and w_end of its columns
+        if (jl >= 0 && jl < kJ) {
+          const int k = jl / kCW, j = kCW * (k ? sb : sa) + jl % kCW;
+          const bool in = k < nstr && j < Q;
+          const float we = in ? __expf(cum[Q - 1] - cum[j]) : 0.f;
+          wendv[par * kJ + jl] = we;
+          wv[par * kJ + jl] = in ? we * dt[j] : 0.f;
+        }
+      }
+      if (ks == 0) {   // the unit's dx: 0 (E comes first), or the last
+                       // window's
+#pragma unroll
+        for (int k = 0; k < 2; ++k)
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt) {
+            float2 l0 = make_float2(0.f, 0.f), l1 = l0;
+            const int j = kCW * sk[k] + 16 * mi + g;
+            const int col = p0 + 16 * pq + 8 * nt + 2 * t;
+            if (win && k < nstr) {
+              const long long o = ((bn * Q + j) * p.H + h) * (long long)p.P
+                                  + col;
+              if (j < Q) l0 = load2(p.dx, o, col, p.P);
+              if (j + 8 < Q) l1 = load2(p.dx, o + 8 * HP, col, p.P);
+            }
+            acc[k][nt][0] = l0.x; acc[k][nt][1] = l0.y;
+            acc[k][nt][2] = l1.x; acc[k][nt][3] = l1.y;
+          }
+      }
+
+      if (ks < ne) {   // E += B_J dst_h^T over 32 columns of S
+        const float* ds = st + kJ * kLdE;
+#pragma unroll
+        for (int k8 = 0; k8 < kSE / 8; ++k8) {
+          Frag<4> af[2];
+#pragma unroll
+          for (int k = 0; k < 2; ++k)
+            af[k] = tf32x3::load_a<true>(st, kLdE, kCW * k + 16 * mi, 8 * k8,
+                                         lane);
+          Frag<2> b[2];
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt)
+            b[nt] = tf32x3::load_bt<true>(ds, kLdE, 16 * pq + 8 * nt, 8 * k8,
+                                          lane);
+#pragma unroll
+          for (int k = 0; k < 2; ++k)
+            if (k < nstr) tf32x3::mma3_row(acc[k], af[k], b);
+        }
+        continue;
+      }
+
+      const int r0 = kIT * (it0 + ks - ne);
+      // the tile's L against the block's columns, the exponential only
+      // where i >= j
+      for (int e = threadIdx.x; e < kIT * kJ; e += kThreads) {
+        const int il = e / kJ, jl = e - il * kJ, k = jl / kCW;
+        const int i = r0 + il, j = kCW * (k ? sb : sa) + jl % kCW;
+        const bool on = k < nstr && i >= j && i < Q && j < Q;
+        Lt[il * kLdL + jl] = on ? __expf(cum[i] - cum[j]) : 0.f;
+      }
+      if (ks == ne && win == 0) {
+        // E is complete: u = sum_p x E (by P quarter), then dx = w E
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          const int jl0 = kCW * k + 16 * mi + g, jl1 = jl0 + 8;
+          float u0 = 0.f, u1 = 0.f;
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt) {
+            const int pc = 16 * pq + 8 * nt + 2 * t;
+            u0 += xj[jl0 * kLdXJ + pc] * acc[k][nt][0] +
+                  xj[jl0 * kLdXJ + pc + 1] * acc[k][nt][1];
+            u1 += xj[jl1 * kLdXJ + pc] * acc[k][nt][2] +
+                  xj[jl1 * kLdXJ + pc + 1] * acc[k][nt][3];
+          }
+          u0 = quad_sum(u0);
+          u1 = quad_sum(u1);
+          if (t == 0) {
+            sl[pq * kJ + jl0] += u0;
+            sl[pq * kJ + jl1] += u1;
+          }
+          const float w0 = wv[par * kJ + jl0], w1 = wv[par * kJ + jl1];
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt) {
+            acc[k][nt][0] *= w0;
+            acc[k][nt][1] *= w0;
+            acc[k][nt][2] *= w1;
+            acc[k][nt][3] *= w1;
+          }
+        }
+      }
+      __syncthreads();   // L formed
+
+      // dx_J += M^T dy_i: M^T's fragments from C.B^T, L and dt_j
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const int jd = kCW * sk[k] + 16 * mi;   // the 16 rows' first j
+        if (k >= nstr || r0 + kIT <= jd) continue;
+        const int jl = kCW * k + 16 * mi + g;
+        const int j0 = jd + g;
+        const float dj0 = dt[j0], dj1 = dt[j0 + 8];
+        // row i of the strip's C.B^T at cb + (i - r0) kLdC
+        const float* cb = cbk[k] + (r0 - lo[k]) * kLdC + 16 * mi + g;
+        for (int k8 = max(0, (jd - r0) / 8); k8 < kIT / 8; ++k8) {
+          const int il0 = 8 * k8 + 2 * t;
+          const float v[4] = {
+              cb[il0 * kLdC] * Lt[il0 * kLdL + jl] * dj0,
+              cb[il0 * kLdC + 8] * Lt[il0 * kLdL + jl + 8] * dj1,
+              cb[(il0 + 1) * kLdC] * Lt[(il0 + 1) * kLdL + jl] * dj0,
+              cb[(il0 + 1) * kLdC + 8] * Lt[(il0 + 1) * kLdL + jl + 8] * dj1};
+          Frag<4> af;
+          tf32x3::split_fast(af, v);
+          Frag<2> b[2];
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt)
+            b[nt] = tf32x3::load_b<true>(st, kLdD, 8 * k8, 16 * pq + 8 * nt,
+                                         lane);
+          tf32x3::mma3_row(acc[k], af, b);
+        }
+      }
+
+      // dM = dy_i x_J^T for the warp's item, then its share of dCB and
+      // the sums of G = dM o M (i != j: G_ii cancels) and dM o CB o L
+      {
+        const int s = kw ? sb : sa, ri = r0 + 16 * im;
+        if (kw < nstr && ri + 15 >= kCW * s && ri < Q) {
+          float dm[4][4] = {};
+#pragma unroll 2
+          for (int k8 = 0; k8 < kPT / 8; ++k8) {
+            const Frag<4> af = tf32x3::load_a<true>(st, kLdD, 16 * im, 8 * k8,
+                                                    lane);
+            Frag<2> b[4];
+#pragma unroll
+            for (int n = 0; n < 4; ++n)
+              b[n] = tf32x3::load_bt<true>(xj, kLdXJ, kCW * kw + 8 * n,
+                                           8 * k8, lane);
+            tf32x3::mma3_row(dm, af, b);
+          }
+          // row il of the tile at cb + il kLdC (dCB: dc)
+          const int ro = (r0 - (kw ? lo[1] : lo[0])) * kLdC;
+          const float* cb = (kw ? cbk[1] : cbk[0]) + ro;
+          float* dc = (kw ? dck[1] : dck[0]) + ro;
+          float rg[2] = {0.f, 0.f}, cg[4][2] = {}, ct[4][2] = {};
+#pragma unroll
+          for (int n = 0; n < 4; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int a = e >> 1, b = e & 1;
+              const int il = 16 * im + g + 8 * a, i = r0 + il;
+              const int jl = 8 * n + 2 * t + b, j = kCW * s + jl;
+              const bool on = i >= j && i < Q && j < Q;
+              const float dl = (on ? dm[n][e] : 0.f) *
+                               Lt[il * kLdL + kCW * kw + jl];
+              const float dj = dt[j];
+              if (on) dc[il * kLdC + jl] += dl * dj;   // dCB
+              const float tv = dl * cb[il * kLdC + jl];  // dM CB L
+              const float gv = tv * dj;                  // dM M
+              if (i != j) {
+                rg[a] += gv;
+                cg[n][b] += gv;
+              }
+              ct[n][b] += tv;
+            }
+          rg[0] = quad_sum(rg[0]);
+          rg[1] = quad_sum(rg[1]);
+          if (t == 0) {   // G's row sums of strip s, summed over P tiles
+            float* o = p.rowg + ((bn * p.n32 + s) * QV + ri + g) * p.H + h;
+            o[0] = (pt ? o[0] : 0.f) + rg[0];
+            o[8 * p.H] = (pt ? o[8 * p.H] : 0.f) + rg[1];
+          }
+#pragma unroll
+          for (int n = 0; n < 4; ++n)
+#pragma unroll
+            for (int b = 0; b < 2; ++b) {
+              const float vg = column_sum(cg[n][b]);
+              const float vt = column_sum(ct[n][b]);
+              if (g == 0) {
+                const int jl = kCW * kw + 8 * n + 2 * t + b;
+                sl[(4 + im) * kJ + jl] += vg;
+                sl[(8 + im) * kJ + jl] += vt;
+              }
+            }
+        }
+      }
+
+      if (ks == nsu - 1) {   // the unit's last step: dx
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          if (k >= nstr) continue;
+          const int j = kCW * sk[k] + 16 * mi + g;
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt) {
+            const int col = p0 + 16 * pq + 8 * nt + 2 * t;
+            const long long o = ((bn * Q + j) * p.H + h) * (long long)p.P
+                                + col;
+            if (j < Q)
+              store2(p.dx, o, col, p.P, acc[k][nt][0], acc[k][nt][1], p.vdx);
+            if (j + 8 < Q)
+              store2(p.dx, o + 8 * HP, col, p.P, acc[k][nt][2],
+                     acc[k][nt][3], p.vdx);
+          }
+        }
+      }
+    }
+    __syncthreads();   // the last head's sums and the window's dCB written
+    if (warp == 0) finish(hg - 1);
+    // the group's dCB of the window's rows, lower triangle
+    float* pc = p.part_cb + (bn * p.G + grp) * (long long)Q * Q;
+#pragma unroll
+    for (int k = 0; k < 2; ++k)
+      for (int e = threadIdx.x; e < nr[k] * kCW; e += kThreads) {
+        const int r = e / kCW, c = e - r * kCW;
+        const int i = lo[k] + r, j = kCW * sk[k] + c;
+        if (i < Q && j < Q && i >= j)
+          pc[(long long)i * Q + j] = dck[k][r * kLdC + c];
+      }
+  }
+}
+
+// a block per (chunk, 64 rows r0, 64 columns of S, dC or dB): dC_i =
+// sum_{j <= i} dCB_ij B_j, dB_j = sum_{i >= j} dCB_ij C_i + the state
+// terms, dCB summed over the groups in order as it is staged; then (dC
+// blocks of the first S tile) dcum's strips' row sums of G and cum_end's
+// share
+__global__ void __launch_bounds__(kThreads)
+ssd_bwd_chunk_tiled(const Args p) {
+  __shared__ __align__(16) float as[kCR * kLdA];
+  __shared__ __align__(16) float bs[kCK * kLdK];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const long long bn = blockIdx.x;
+  const int Q = p.Q, S = p.S, r0 = blockIdx.y * kCR;
+  const int nsc = (S + kCS - 1) / kCS;
+  const bool dc = (int)blockIdx.z < nsc;
+  const int c0 = (blockIdx.z % nsc) * kCS;
+  const long long QQ = (long long)Q * Q;
+  const float* pc = p.part_cb + bn * p.G * QQ;
+  const int mi = warp >> 1, nh = warp & 1;   // rows 16 mi, columns 32 nh
+  float acc[4][4] = {};
+  const int klo = dc ? 0 : r0, khi = dc ? min(r0 + kCR, Q) : Q;
+  for (int k0 = klo; k0 < khi; k0 += kCK) {
+    __syncthreads();   // the staging is read
+    for (int e = threadIdx.x; e < kCR * kCK; e += kThreads) {
+      // dC: row a, k = j (contiguous); dB: k = i, row a = j (contiguous)
+      const int a = dc ? e / kCK : e % kCR, kk = dc ? e % kCK : e / kCR;
+      const int i = dc ? r0 + a : k0 + kk, j = dc ? k0 + kk : r0 + a;
+      float v = 0.f;
+      if (i >= j && i < Q && j < Q)
+        for (int gi = 0; gi < p.G; ++gi) v += pc[gi * QQ + (long long)i * Q + j];
+      as[a * kLdA + kk] = v;
+    }
+    load_tile(bs, kLdK, (dc ? p.B : p.C) + (bn * Q + k0) * S + c0, S, kCK,
+              kCS, min(kCK, Q - k0), min(kCS, S - c0), p.vbc);
+    tf32x3::cp_async_commit();
+    tf32x3::cp_async_wait<0>();
+    __syncthreads();
+#pragma unroll
+    for (int ks = 0; ks < kCK / 8; ++ks) {
+      const Frag<4> af = tf32x3::load_a<true>(as, kLdA, 16 * mi, 8 * ks, lane);
+      Frag<2> b[4];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+        b[nt] = tf32x3::load_b<true>(bs, kLdK, 8 * ks, 32 * nh + 8 * nt, lane);
+      tf32x3::mma3_row(acc, af, b);
+    }
+  }
+  float* out = dc ? p.dC : p.dB;
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int a = 0; a < 2; ++a) {
+      const int r = r0 + 16 * mi + g + 8 * a;
+      const int col = c0 + 32 * nh + 8 * nt + 2 * t;
+      if (r >= Q) continue;
+      float v0 = acc[nt][2 * a], v1 = acc[nt][2 * a + 1];
+      if (!dc)
+        for (int gi = 0; gi < p.G; ++gi) {
+          const float2 s2 = load2(p.part_st, ((bn * p.G + gi) * Q + r) *
+                                                 (long long)S + col, col, S);
+          v0 += s2.x;
+          v1 += s2.y;
+        }
+      store2(out, (bn * Q + r) * S + col, col, S, v0, v1, p.vs2);
+    }
+  if (dc && c0 == 0)
+    for (int e = threadIdx.x; e < kCR * p.H; e += kThreads) {
+      const int i = r0 + e / p.H, h = e % p.H;
+      if (i >= Q) continue;
+      const long long o = (bn * Q + i) * p.H + h;
+      float v = p.dcum[o];
+      for (int s = 0; s <= i / kCW; ++s)
+        v += p.rowg[((bn * p.n32 + s) * p.QV + i) * p.H + h];
+      if (i == Q - 1)
+        for (int pr = 0; pr < p.npairs; ++pr)
+          v += p.totp[(bn * p.npairs + pr) * p.H + h];
+      p.dcum[o] = v;
+    }
+}
+
+int launch(const Launch& l, cudaStream_t stream) {
+  static long long attr_set[64];
+  cudaError_t err = set_smem(ssd_bwd_heads_tiled, l.smem, attr_set);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(ssd_bwd_chunk_tiled,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)kSmemChunk);
-  if (err != cudaSuccess) return (int)err;
-  ssd_bwd_heads_tiled<<<dim3((unsigned)BN, (unsigned)g1), kThreads,
-                        kSmemHeads, stream>>>(a);
+  ssd_bwd_heads_tiled<<<l.grid1, kThreads, l.smem, stream>>>(l.a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  ssd_bwd_chunk_tiled<<<dim3((unsigned)BN, (unsigned)g2), kThreads,
-                        kSmemChunk, stream>>>(a);
+  ssd_bwd_chunk_tiled<<<l.grid2, kThreads, 0, stream>>>(l.a);
   return (int)cudaGetLastError();
 }
 
 }  // namespace tlb
 
 // floats of scratch a call takes: each group's partial dCB and state term
-// (none on the tiled route)
+// (on the tiled route also G's row sums by strip and the cols blocks'
+// shares of sum u w)
 extern "C" long long ssd_chunk_backward_scratch(int BN, int H, int Q, int P,
                                                 int S) {
-  if (!valid(BN, H, Q, P, S) || Q > kQMax) return 0;
+  if (!valid(BN, H, Q, P, S)) return 0;
+  if (Q > kQMax) return tlb::make_launch(BN, H, Q, P, S).scratch;
   const Plan pl = plan(BN, H, Q, P, S);
   return (long long)BN * pl.G *
          ((long long)pl.QP * pl.QP + (long long)Q * pl.SP);
 }
 
-// the heads pass's plan: out[0..7] = heads a group, groups, warps a block,
+// the heads pass's plan: out[0..9] = heads a group, groups, warps a block,
 // blocks an SM, shared memory bytes, B resident, state term on chip,
-// tiled (the tiled route, q > kQMax: a head a block, 8 warps, blocks an SM
-// as its shared memory allows, nothing kept on chip across tiles)
+// tiled, the heads pass's grid y and the scratch's floats (the tiled route,
+// q > kQMax: 8 warps, one block an SM, groups x (cols + state blocks) a
+// chunk)
 extern "C" int ssd_chunk_backward_plan(int BN, int H, int Q, int P, int S,
                                        long long* out) {
   if (!valid(BN, H, Q, P, S)) return (int)cudaErrorInvalidValue;
   if (Q > kQMax) {
-    const int per_sm = (int)(233472 / (tlb::kSmemHeads + 1024));
-    const long long v[8] = {1, H, ssd::kWarps, per_sm < 8 ? per_sm : 8,
-                            tlb::kSmemHeads, 0, 0, 1};
-    for (int i = 0; i < 8; ++i) out[i] = v[i];
-    return 0;
+    const tlb::Launch l = tlb::make_launch(BN, H, Q, P, S);
+    const long long v[10] = {l.a.HG, l.a.G, ssd::kWarps, 1, l.smem, 0, 0, 1,
+                             l.grid1.y, l.scratch};
+    for (int i = 0; i < 10; ++i) out[i] = v[i];
+    return tlb::valid(l) ? 0 : (int)cudaErrorInvalidValue;
   }
   const Plan pl = plan(BN, H, Q, P, S);
-  const long long v[8] = {pl.HG, pl.G, kWarpsH, 1, pl.smem, pl.b_res,
-                          pl.st_res, 0};
-  for (int i = 0; i < 8; ++i) out[i] = v[i];
+  const long long v[10] = {pl.HG, pl.G, kWarpsH, 1, pl.smem, pl.b_res,
+                           pl.st_res, 0, pl.G,
+                           ssd_chunk_backward_scratch(BN, H, Q, P, S)};
+  for (int i = 0; i < 10; ++i) out[i] = v[i];
   return 0;
 }
 
@@ -1272,7 +1698,9 @@ extern "C" int ssd_chunk_backward(const float* x, const float* Bm,
                                   int P, int S, void* stream) {
   if (!valid(BN, H, Q, P, S)) return (int)cudaErrorInvalidValue;
   if (Q > kQMax) {
-    tlb::Args a = tlb::make_args(H, Q, P, S);
+    tlb::Launch l = tlb::make_launch(BN, H, Q, P, S);
+    if (!tlb::valid(l)) return (int)cudaErrorInvalidValue;
+    tlb::Args& a = l.a;
     a.x = x;
     a.B = Bm;
     a.C = Cm;
@@ -1285,7 +1713,17 @@ extern "C" int ssd_chunk_backward(const float* x, const float* Bm,
     a.dC = dC;
     a.ddt = ddt;
     a.dcum = dcum;
-    return tlb::launch(a, BN, (cudaStream_t)stream);
+    a.part_cb = scratch;
+    a.part_st = a.part_cb + tlb::round4((long long)BN * a.G * Q * Q);
+    a.rowg = a.part_st + tlb::round4((long long)BN * a.G * Q * S);
+    a.totp = a.rowg + tlb::round4((long long)BN * a.n32 * a.QV * H);
+    a.vx = ssd::aligned(x, 16) && ssd::aligned(dy, 16) && P % 4 == 0;
+    a.vbc = ssd::aligned(Bm, 16) && ssd::aligned(Cm, 16) && S % 4 == 0;
+    a.vst = ssd::aligned(dst, 16) && S % 4 == 0;
+    a.vdx = ssd::aligned(dx, 8) && P % 2 == 0;
+    a.vs2 = ssd::aligned(dB, 8) && ssd::aligned(dC, 8) &&
+            ssd::aligned(scratch, 8) && S % 2 == 0;
+    return tlb::launch(l, (cudaStream_t)stream);
   }
   const Plan pl = plan(BN, H, Q, P, S);
   if (pl.smem > kMaxSmem) return (int)cudaErrorInvalidValue;

@@ -1,7 +1,8 @@
 // ssd_tiles.cuh: what the ssd_chunk forward (csrc/ssd_chunk.cu) and its
 // gradient (csrc/ssd_chunk_bwd.cu) share: blocks of 8 warps (the
 // gradient's heads pass takes 16: the loads' NT), 64-column P tiles, tile
-// loads by cp.async, the decay M[i, j] taken only where i >= j, pair
+// loads by cp.async (zero-filled past the operand's edge on the tiled
+// route), the decay M[i, j] taken only where i >= j, pair loads and
 // stores, and the SM count.
 #pragma once
 
@@ -9,7 +10,6 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "fma_tiles.cuh"
 #include "tf32x3.cuh"
 
 namespace ssd {
@@ -75,23 +75,48 @@ __device__ __forceinline__ void store2(float* out, long long off, int col,
   }
 }
 
-// ---- the tiled route (chunks of q > 128 rows) -----------------------------
-//
-// What the forward and backward of a long chunk share: the chunk's rows in
-// 64-row tiles, every product through fma_tiles.cuh (a block of 256
-// threads a 64 x (16 NB) output tile), fp32 on the CUDA cores; each sum
-// runs in a fixed order and no block sums into another's output.
-namespace tiled {
-
-using namespace fma_tiles;
-
-// the decay L[i, j] = exp(cum_i - cum_j) where i >= j and both rows lie
-// in the chunk, else 0 (the exponential is taken only there)
-__device__ __forceinline__ float decay_l(float ci, float cj, bool on) {
-  return on ? expf(ci - cj) : 0.f;
+// rows x cols floats (cols a multiple of 4) at src, row stride stride,
+// into dst, row stride ld (a multiple of 4, dst 16-byte aligned): rows <
+// rv and columns < cv by cp.async, 16 bytes at a time where vec (then cv
+// is a multiple of 4 and src 16-byte aligned), the rest zeroed, so that
+// nothing stale reaches a product
+__device__ __forceinline__ void load_tile(float* dst, int ld,
+                                          const float* src, long long stride,
+                                          int rows, int cols, int rv, int cv,
+                                          bool vec) {
+  if (vec) {
+    const int per = cols >> 2;
+    for (int e = threadIdx.x; e < rows * per; e += kThreads) {
+      const int r = e / per, c = (e - r * per) << 2;
+      float* d = dst + r * ld + c;
+      if (r < rv && c < cv)
+        tf32x3::cp_async16(d, src + r * stride + c);
+      else
+        *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  } else {
+    for (int e = threadIdx.x; e < rows * cols; e += kThreads) {
+      const int r = e / cols, c = e - r * cols;
+      if (r < rv && c < cv)
+        tf32x3::cp_async4(dst + r * ld + c, src + r * stride + c);
+      else
+        dst[r * ld + c] = 0.f;
+    }
+  }
 }
 
-}  // namespace tiled
+// a at an n-byte boundary (n a power of 2)
+inline bool aligned(const void* a, int n) {
+  return (reinterpret_cast<uintptr_t>(a) & (n - 1)) == 0;
+}
+
+// the pair at (row, col) and (row, col + 1) of a row-major matrix with
+// cols columns, 0 past its edge (store2's counterpart)
+__device__ __forceinline__ float2 load2(const float* in, long long off,
+                                        int col, int cols) {
+  return make_float2(col < cols ? in[off] : 0.f,
+                     col + 1 < cols ? in[off + 1] : 0.f);
+}
 
 inline int sm_count() {
   static int cache[64];

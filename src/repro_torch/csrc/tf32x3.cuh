@@ -127,6 +127,21 @@ __device__ __forceinline__ void mma3(float (&c)[4], const Frag<4>& a,
   mma(c, a.big, b.big);
 }
 
+// c[i] += a·b[i] in 3xTF32 for N tiles that share a: each tile's three
+// products in mma3's order, issued in waves across the tiles, so that no
+// product waits on the one just issued to its accumulator (a warp issues
+// in order)
+template <int N>
+__device__ __forceinline__ void mma3_row(float (&c)[N][4], const Frag<4>& a,
+                                         const Frag<2> (&b)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) mma(c[i], a.small, b[i].big);
+#pragma unroll
+  for (int i = 0; i < N; ++i) mma(c[i], a.big, b[i].small);
+#pragma unroll
+  for (int i = 0; i < N; ++i) mma(c[i], a.big, b[i].big);
+}
+
 // cp.async: 16-byte (L2 only) and 4-byte copies from global to shared
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));

@@ -6,8 +6,9 @@ A CPU tensor takes the plain PyTorch versions (:func:`ssd_chunk_ref`,
 :func:`ssd_chunk_bwd_ref`); a CUDA tensor launches the kernel or raises.
 Both kernels take any chunk length q, in two routes (:func:`route`):
 ``"whole"`` for q <= :data:`MAX_Q`, which keeps the chunk's C·Bᵀ in
-shared memory, and ``"tiled"`` above it, which walks the chunk's rows in
-64-row tiles (Mamba-2's published chunk is 256).
+shared memory, and ``"tiled"`` above it, which splits the chunk's rows
+(forward) or columns (backward) across blocks, each forming its share of
+C·Bᵀ once a head group (Mamba-2's published chunk is 256).
 """
 from __future__ import annotations
 
@@ -27,9 +28,11 @@ MAX_Q = 128
 # (chunk, head group) dx, ddt, dcum and the group's partial sums; per
 # chunk the partial sums added in a fixed order, then dB and dC
 SSD_BWD_PASSES = ("heads", "chunk")
-# ssd_chunk_backward_plan's fields, in order (the heads pass's launch)
+# ssd_chunk_backward_plan's fields, in order (the heads pass's launch,
+# its grid's y and the scratch the call takes, in floats)
 BWD_PLAN = ("heads_a_group", "groups", "warps", "blocks_an_sm",
-            "smem_bytes", "b_resident", "state_term_on_chip", "tiled")
+            "smem_bytes", "b_resident", "state_term_on_chip", "tiled",
+            "grid_y", "scratch")
 
 
 # what ssd_chunk_plan reports: the forward's launch
@@ -81,8 +84,8 @@ def _lib_bwd():
 def backward_plan(bs, nc, q, h, p, s) -> dict:
     """The heads pass's launch at these widths, as the library plans it
     (``BWD_PLAN``: heads a group, its warps and shared memory, whether B
-    and the state term of dB stay on chip, and whether the route is the
-    tiled one).  Loads the library, so a
+    and the state term of dB stay on chip, whether the route is the tiled
+    one, the grid's y and the scratch in floats).  Loads the library, so a
     card is needed: the plan follows its SM count."""
     lib = _lib_bwd()
     out = (ctypes.c_longlong * len(BWD_PLAN))()

@@ -414,6 +414,76 @@ def test_flash_split_plan_follows_the_formula(d):
             assert cl <= 8 and (cl - 1) * sl < d <= cl * sl
 
 
+# the tiled route's forward launch (csrc/ssd_chunk.cu, tl::make_launch) on
+# 132 SMs, worked by hand: n = ceil(q / 64) strips and max((n + 1) // 2,
+# ceil(S / 64)) blocks a group; the window W the widest whose shared
+# memory 4 (64 (64 min(2W, n + 1) + 16) + 2 * 64 * 68 + 64 W * 68 + 7 * 64 n
+# + 128) fits 231,424 B (q = 256: 4 * 49,536); HG the first that minimises
+# whole waves of one block an SM times HG ((n + 1) 64^2 * 64 nP + 64 nP *
+# 64 * 64 n) + (n + 1) 64^2 * ceil32(S) (bs 1: HG 10, 8 x 16 = 128 blocks,
+# one wave).  Mamba2-2.7B at chunk 256 (bs 1, 2: 8 and 16 chunks), ragged
+# q and H, and q past one window.
+SSD_TILED_PLANS = {
+    # (bn, h, q, p, s): (qp, hg, grid_y, smem, window)
+    (8, 80, 256, 64, 128): (256, 10, 16, 198144, 4),
+    (16, 80, 256, 64, 128): (256, 20, 8, 198144, 4),
+    (2, 7, 200, 64, 128): (256, 1, 14, 198144, 4),
+    (1, 2, 300, 130, 260): (320, 1, 10, 216320, 4),
+    (1, 2, 1000, 64, 128): (1024, 1, 16, 218624, 3),
+}
+
+
+@pytest.mark.parametrize("dims", sorted(SSD_TILED_PLANS))
+def test_ssd_tiled_plan_follows_the_formula(dims):
+    """The analysis's copy of the tiled forward's launch (heads a group,
+    grid, shared memory and window) against the values worked by hand;
+    the route is the tiled one past 128 rows."""
+    from repro_torch.analysis.kernels import ssd_plan
+    qp, hg, gy, smem, window = SSD_TILED_PLANS[dims]
+    bn, h, q, p, s = dims
+    assert ssd_ops.route(q) == "tiled"
+    got = ssd_plan(*dims, 132)
+    assert (got["qp"], got["hg"], got["grid"], got["smem"], got["tiled"],
+            got["window"]) == (qp, hg, (bn, gy), smem, 1, window)
+
+
+def _ssd_tool_edits():
+    import importlib.util
+    out = {}
+    for tool in ("ssd_chunk_variants", "ssd_chunk_planted_faults"):
+        path = Path(__file__).resolve().parents[1] / "tools" / f"{tool}.py"
+        spec = importlib.util.spec_from_file_location(tool, path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        if tool == "ssd_chunk_variants":
+            out.update({("variants-fwd", n): e for n, e in
+                        mod.VARIANTS.items()})
+            out.update({("variants-bwd", n): e for n, e in
+                        mod.BWD_VARIANTS.items()})
+        else:
+            out.update({("faults-fwd", n): [e] for n, e in
+                        mod.FAULTS.items()})
+            out.update({("faults-bwd", n): [e] for n, e in
+                        mod.BWD_FAULTS.items()})
+    return out
+
+
+_SSD_EDITS = _ssd_tool_edits()
+
+
+@pytest.mark.parametrize("key", sorted(_SSD_EDITS),
+                         ids=lambda k: f"{k[0]}-{k[1]}")
+def test_ssd_variants_and_faults_apply_to_the_sources(key):
+    """Each variant ``tools/ssd_chunk_variants.py`` times and each fault
+    ``tools/ssd_chunk_planted_faults.py`` plants is an edit of the
+    committed sources whose text occurs exactly once, applied in turn."""
+    texts = {}
+    for fname, old, new in _SSD_EDITS[key]:
+        text = texts.get(fname) or (_build.CSRC / fname).read_text()
+        assert text.count(old) == 1, (fname, old)
+        texts[fname] = text.replace(old, new)
+
+
 def _flash_variant_edits():
     import importlib.util
     path = Path(__file__).resolve().parents[1] / "tools" / "flash_variants.py"
@@ -495,19 +565,28 @@ def test_hub_reuse_routes_match_plain_on_card(shape):
                                    (1, 2, 256, 4, 64, 128),
                                    (1, 1, 512, 2, 64, 128),
                                    (2, 1, 200, 3, 36, 100),
-                                   (1, 1, 300, 2, 130, 260)])
+                                   (1, 1, 300, 2, 130, 260),
+                                   (1, 2, 200, 7, 64, 128)])
 def test_ssd_chunk_tiled_route_matches_plain_on_card(shape):
     """The tiled route's forward and backward against the plain versions
     (the backward's dcum against float64: its diagonal terms cancel),
     1e-4 · max(1, max|ref|); two backward calls bit-equal; one forward
     launch and two backward launches a call, on the tiled route; the
-    library's plans name it."""
+    library's forward plan equal to the analysis's formula (its heads a
+    group, grid and shared memory), the backward's naming the tiled
+    route and the scratch the wrapper allocates."""
+    from repro_torch.analysis.kernels import ssd_plan
     dev = _cuda()
     arrays = _t(_ssd_arrays(np.random.default_rng(sum(shape)), *shape), dev)
     bs, nc, q, h, p, s = shape
     plan = ssd_ops.library_plan(bs * nc, h, q, p, s)
-    assert plan["tiled"] == 1 and plan["hg"] == 1
-    assert ssd_ops.backward_plan(bs, nc, q, h, p, s)["tiled"] == 1
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    want = ssd_plan(bs * nc, h, q, p, s, sms)
+    assert plan == dict(qp=want["qp"], hg=want["hg"], grid_x=want["grid"][0],
+                        grid_y=want["grid"][1], smem=want["smem"], tiled=1)
+    bplan = ssd_ops.backward_plan(bs, nc, q, h, p, s)
+    assert bplan["tiled"] == 1 and bplan["scratch"] == \
+        ssd_ops._lib_bwd().ssd_chunk_backward_scratch(bs * nc, h, q, p, s)
     before = dict(_build.LAUNCHES)
     got = ssd_ops._forward(*arrays[:5])
     grads = ssd_ops.ssd_chunk_backward(*arrays)

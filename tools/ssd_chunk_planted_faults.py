@@ -7,18 +7,20 @@ Builds copies of ``src/repro_torch/csrc/ssd_chunk.cu`` and its headers
 ``ssd_tiles.cuh`` and ``tf32x3.cuh`` with one fault each (under
 ``build/repro_torch/faults/ssd_chunk/``; the sources are not touched),
 runs each through ``repro_torch.kernels.ssd_chunk`` at chip_smoke.py's
-``SSD_LAYERS`` (a Mamba2-2.7B layer at chunks of 64 and 128) and
-``SSD_PARITY`` shapes (two P and two S tiles, ragged tiles), and prints
-one JSON line per (fault, shape): max |Δ| of y_in and of the states
-against ``ssd_chunk_ref`` beside the smoke's limit 2e-4 · max(1,
-max|plain|).  The output block is freed full of NaN just before each
-call, so what a fault leaves unwritten cannot read as the last run's
-answer.  The unchanged sources run at every shape.  Exits 1 if they
-break the limit or a fault passes it everywhere.
+``SSD_LAYERS`` (a Mamba2-2.7B layer at chunks of 64 and 128),
+``SSD_PARITY`` shapes (two P and two S tiles, ragged tiles) and
+``SSD_TILED`` (the layer at chunk 256: the tiled route), and prints one
+JSON line per (fault, shape): max |Δ| of y_in and of the states against
+``ssd_chunk_ref`` beside the smoke's limit 2e-4 · max(1, max|plain|).
+The output block is freed full of NaN just before each call, so what a
+fault leaves unwritten cannot read as the last run's answer.  The
+unchanged sources run at every shape.  Exits 1 if they break the limit,
+a fault passes it everywhere, or a fault of the tiled route
+(``tiled_*``) passes it at every ``SSD_TILED`` shape.
 
 ``--backward`` does the same for ``ssd_chunk_bwd.cu`` (``BWD_FAULTS``) at
-chip_smoke.py's ``SSD_BWD_LAYERS``, ``SSD_PARITY`` and ``SSD_BWD_STEEP``
-shapes and ``BWD_STREAMED_B``, calling each library's
+chip_smoke.py's ``SSD_BWD_LAYERS``, ``SSD_PARITY``, ``SSD_BWD_STEEP`` and
+``SSD_TILED`` shapes and ``BWD_STREAMED_B``, calling each library's
 ``ssd_chunk_backward`` directly with its outputs and scratch filled with
 NaN: max |Δ| of dx, dB, dC, ddt and dcum
 against ``ssd_chunk_bwd_ref`` beside the smoke's ``SSD_BWD_TOL`` ·
@@ -56,10 +58,25 @@ FAULTS = {
     "decay_to_cum_q_minus_2": ("ssd_chunk.cu",
                                "const float cend = cum[p.Q - 1];",
                                "const float cend = cum[p.Q - 2];"),
+    # the tiled route: every head after a group's first reads C.B^T's
+    # strips 8 rows down (a strip formed once a group, the wrong rows)
+    "tiled_cb_wrong_rows_after_first_head": (
+        "ssd_chunk.cu",
+        "        const float* cbr[2] = {cba + (16 * mi + g) * lda",
+        "        const float* cbr[2] = {cba + (16 * mi + g + (hh ? 8 : 0)) "
+        "* lda"),
+    # M's decay taken above the diagonal too (i >= j dropped)
+    "tiled_exp_above_diagonal": (
+        "ssd_chunk.cu",
+        "                  decay(lo.x, ci[k][0], cj0, dj0, i0 >= j0 && j0 < Q),",
+        "                  decay(lo.x, ci[k][0], cj0, dj0, j0 < Q),"),
+    # the states blocks form w for a group's first head only
+    "tiled_w_first_head_only": (
+        "ssd_chunk.cu", "if (hs && jt == jt0 && pt == 0) {   // once a head",
+        "if (hs && jt == jt0 && pt == 0 && hh == 0) {   // once a head"),
 }
-FILES = ("ssd_chunk.cu", "ssd_tiles.cuh", "tf32x3.cuh", "fma_tiles.cuh")
-BWD_FILES = ("ssd_chunk_bwd.cu", "ssd_tiles.cuh", "tf32x3.cuh",
-             "fma_tiles.cuh")
+FILES = ("ssd_chunk.cu", "ssd_tiles.cuh", "tf32x3.cuh")
+BWD_FILES = ("ssd_chunk_bwd.cu", "ssd_tiles.cuh", "tf32x3.cuh")
 # (bs, nc, q, H, P, S) where B is too wide to stay in shared memory beside
 # chunk 128's C.B^T and streams in S tiles, the last one ragged
 BWD_STREAMED_B = (1, 2, 128, 4, 64, 250)
@@ -93,6 +110,39 @@ BWD_FAULTS = {
         "ssd_chunk_bwd.cu",
         "i >= j && i < Q ? __expf(cum[i] - cum[j]) : 0.f;",
         "__expf(cum[i] - cum[j]) * (i >= j && i < Q ? 1.f : 0.f);"),
+    # the tiled route: the chunk pass sums the groups' dCB out of order,
+    # group 0 twice
+    "tiled_group_dcb_doubled": (
+        "ssd_chunk_bwd.cu",
+        "for (int gi = 0; gi < p.G; ++gi) v += pc[gi * QQ",
+        "for (int gi = p.G - 1; gi >= -1; --gi) v += pc[max(gi, 0) * QQ"),
+    # a group's dCB partial dropped (group 0 never summed)
+    "tiled_group_dcb_dropped": (
+        "ssd_chunk_bwd.cu",
+        "for (int gi = 0; gi < p.G; ++gi) v += pc[gi * QQ",
+        "for (int gi = 1; gi < p.G; ++gi) v += pc[gi * QQ"),
+    # every head after a group's first reads C.B^T's strip 8 rows down
+    # in M^T dy
+    "tiled_cb_wrong_rows_after_first_head": (
+        "ssd_chunk_bwd.cu",
+        "const float* cb = cbk[k] + (r0 - lo[k]) * kLdC + 16 * mi + g;",
+        "const float* cb = cbk[k] + (r0 - lo[k] + (hh ? 8 : 0)) * kLdC + "
+        "16 * mi + g;"),
+    # L's exponential taken above the diagonal too (i >= j dropped)
+    "tiled_exp_above_diagonal": (
+        "ssd_chunk_bwd.cu",
+        "const bool on = k < nstr && i >= j && i < Q && j < Q;",
+        "const bool on = k < nstr && i < Q && j < Q;"),
+    # G_ii in dcum's row sums, so it no longer cancels
+    "tiled_g_ii_not_cancelled": (
+        "ssd_chunk_bwd.cu",
+        "              if (i != j) {\n                rg[a] += gv;\n",
+        "              rg[a] += gv;\n              if (i != j) {\n"),
+    # a group's state term dropped in the chunk pass
+    "tiled_state_term_group_dropped": (
+        "ssd_chunk_bwd.cu",
+        "        for (int gi = 0; gi < p.G; ++gi) {\n          const float2 s2",
+        "        for (int gi = 1; gi < p.G; ++gi) {\n          const float2 s2"),
 }
 
 
@@ -132,8 +182,10 @@ def backward(args) -> int:
                                             "s"), shp)), False)
                for shp in (*chip_smoke.SSD_PARITY, BWD_STREAMED_B)]
     shapes.append(("steep", chip_smoke.SSD_BWD_STEEP, True))
+    shapes += [(name, m, False) for name, m in chip_smoke.SSD_TILED.items()]
     parts = ("dx", "dB", "dC", "ddt", "dcum")
     broken = {name: False for name in loaded}
+    broken_tiled = dict(broken)   # at the SSD_TILED shapes
     ok = True
     for shape, m, steep in shapes:
         ops = chip_smoke.ssd_bwd_inputs(gen, dev, **m, steep=steep)
@@ -162,10 +214,13 @@ def backward(args) -> int:
             if name == "none":
                 ok &= not breaks
             broken[name] |= breaks
+            broken_tiled[name] |= breaks and shape in chip_smoke.SSD_TILED
         del ops, refs
         chip_smoke.free_card()
-    ok &= all(broken[name] for name in BWD_FAULTS)
+    ok &= all(broken_tiled[name] if name.startswith("tiled_") else
+              broken[name] for name in BWD_FAULTS)
     print(json.dumps({"ok": ok, "broken": broken,
+                      "broken_at_ssd_tiled": broken_tiled,
                       "limit": f"{chip_smoke.SSD_BWD_TOL} * max(1, "
                                f"max|ref|)"}))
     return 0 if ok else 1
@@ -209,7 +264,10 @@ def main() -> int:
               for name, m in chip_smoke.SSD_LAYERS.items()}
     shapes.update({"bs={} nc={} q={} H={} P={} S={}".format(*shp): shp
                    for shp in chip_smoke.SSD_PARITY})
+    shapes.update({name: tuple(m.values())
+                   for name, m in chip_smoke.SSD_TILED.items()})
     broken = {name: False for name in libs}
+    broken_tiled = dict(broken)   # at the SSD_TILED shapes
     ok = True
     for shape, (bs, nc, q, h, p, s) in shapes.items():
         ops = chip_smoke.ssd_inputs(gen, dev, bs, nc, q, h, p, s)
@@ -236,9 +294,12 @@ def main() -> int:
             if name == "none":
                 ok &= not breaks
             broken[name] |= breaks
+            broken_tiled[name] |= breaks and shape in chip_smoke.SSD_TILED
     _build._LIBS.pop("ssd_chunk", None)
-    ok &= all(broken[name] for name in FAULTS)
+    ok &= all(broken_tiled[name] if name.startswith("tiled_") else
+              broken[name] for name in FAULTS)
     print(json.dumps({"ok": ok, "broken": broken,
+                      "broken_at_ssd_tiled": broken_tiled,
                       "limit": "2e-4 * max(1, max|plain|)"}))
     return 0 if ok else 1
 

@@ -7,29 +7,31 @@
 
 Builds copies of ``src/repro_torch/csrc/ssd_chunk.cu``, ``ssd_tiles.cuh``
 and ``tf32x3.cuh`` with one edit each (under
-``build/repro_torch/variants/ssd_chunk/``; the
-sources are not touched), calls each library's ``ssd_chunk_forward``
-directly (no Python wrapper) at chip_smoke.py's ``SSD_LAYERS`` (a
-Mamba2-2.7B layer at chunks of 64 and 128), and times every variant and
-the plain version in turns with CUDA events.  ``one_pass`` computes a
-wrong result on purpose (1xTF32: the two small products dropped), to
-show what they cost; the others are alternatives the kernel does not
-take (``VARIANTS``).  Prints ptxas's registers and spills per kernel of
-each variant and one JSON line per (shape, variant): ms and max |Δ| of
-y_in and the states against the plain version beside the limit 2e-4 ·
-max(1, max|plain|).  ``--against DIR`` adds another tree's
-``ssd_chunk.cu`` (and its headers where DIR has them; e.g. a
-parent commit's ``src/repro_torch/csrc``) as the variant ``against``,
-timed in the same turns; a library that refuses a shape (a parent at
-q > 64) says so.
+``build/repro_torch/variants/ssd_chunk/``; the sources are not touched),
+calls each library's ``ssd_chunk_forward`` directly (no Python wrapper)
+at chip_smoke.py's ``SSD_LAYERS`` (a Mamba2-2.7B layer at chunks of 64
+and 128, the ``whole`` route) and ``SSD_TILED`` (the layer at Mamba-2's
+published chunk, 256, bs 1 and 2: the ``tiled`` route), and times every
+variant and the plain version in turns with CUDA events.  ``one_pass``
+computes a wrong result on purpose (1xTF32: the two small products
+dropped), to show what they cost; the others are alternatives the kernel
+does not take (``VARIANTS``; the tiled route's are named ``tiled_*``).
+Prints ptxas's registers and spills per kernel of each variant and one
+JSON line per (shape, variant): ms and max |Δ| of y_in and the states
+against the plain version beside the limit 2e-4 · max(1, max|plain|).
+``--against DIR`` adds another tree's ``ssd_chunk.cu`` and the headers
+beside it (e.g. a parent commit's ``src/repro_torch/csrc``) as the
+variant ``against``, timed in the same turns, and ``speedup`` (against's
+ms over each variant's); a library that refuses a shape says so.
 
 ``--backward`` does the same for ``ssd_chunk_bwd.cu`` at chip_smoke.py's
 ``SSD_BWD_LAYERS`` (the layer at chunks of 64 and 128, and the trainer's
-microbatch), calling each library's ``ssd_chunk_backward`` with scratch
-sized by its own ``ssd_chunk_backward_scratch``: max |Δ| of each output
-against ``ssd_chunk_bwd_ref`` beside the smoke's ``SSD_BWD_TOL`` ·
-max(1, max|ref|), ms, the bound, and for ``committed`` each pass's device
-time (torch.profiler) and the plan.  Its variants (``BWD_VARIANTS``) take
+microbatch) and ``SSD_TILED``, calling each library's
+``ssd_chunk_backward`` with scratch sized by its own
+``ssd_chunk_backward_scratch``: max |Δ| of each output against
+``ssd_chunk_bwd_ref`` beside the smoke's ``SSD_BWD_TOL`` · max(1,
+max|ref|), ms, the bound, and for ``committed`` each pass's device time
+(torch.profiler) and the plan.  Its variants (``BWD_VARIANTS``) take
 one design step out at a time (``sync_copies``: every copy waited for as
 soon as it is issued; ``b_reload``: B's S tiles through the copy ring
 for every unit; ``st_through_scratch``: dB's state term added into the
@@ -37,7 +39,8 @@ group's scratch slot at every (unit, S tile)), ``one_pass`` (1xTF32,
 wrong on purpose) and ``hg10`` (10 heads a group); designs measured and
 not taken (``l_regs``, ``unroll``, ``mma3_split``); ``timeline`` (block
 (0, 0)'s cycles a step, by warp group); and diagnostics that drop a part,
-wrong on purpose (``BWD_DIAGNOSTICS``).  Needs one CUDA device.
+wrong on purpose (``BWD_DIAGNOSTICS``); the tiled route's are named
+``tiled_*``.  Needs one CUDA device.
 """
 from __future__ import annotations
 
@@ -51,7 +54,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(ROOT), str(ROOT / "src"), str(ROOT / "tools")]
 
-FILES = ("ssd_chunk.cu", "ssd_tiles.cuh", "tf32x3.cuh", "fma_tiles.cuh")
+FILES = ("ssd_chunk.cu", "ssd_tiles.cuh", "tf32x3.cuh")
 NO_Y = ("ssd_chunk.cu", "    if (pr < npairs) {", "    if (false) {")
 NO_STATES = ("ssd_chunk.cu",
              "for (int wi = warp; wi < npp * nsq; wi += kWarps) {",
@@ -98,10 +101,73 @@ VARIANTS = {
     "hg8": [("ssd_chunk.cu", "  return best;\n}", "  return 8;\n}")],
     "hg16": [("ssd_chunk.cu", "  return best;\n}", "  return 16;\n}")],
 }
+# the tiled route (q > 128): diagnostics, all wrong on purpose (the y
+# blocks' M x, the states blocks' product, C.B^T's products dropped; the
+# exponential dropped), every stage waited for as soon as it is issued,
+# and fixed heads a group
+_TL_GRID = ("  l.grid = dim3((unsigned)BN,\n"
+            "                (unsigned)((long long)((H + a.HG - 1) / a.HG) * "
+            "a.roles));")
+VARIANTS.update({
+    "tiled_no_y": [("ssd_chunk.cu",
+                    "        const int kend = max(kmax[0], kmax[1]);",
+                    "        const int kend = 0;")],
+    "tiled_no_states": [("ssd_chunk.cu",
+                         "for (int ks = 0; ks < kR / 8; ++ks) {",
+                         "for (int ks = 0; ks < 0; ++ks) {")],
+    "tiled_no_cb": [("ssd_chunk.cu",
+                     "          if (k >= nstr || jt > s || (jt == s && 32 * cg "
+                     "> 16 * m + 15))\n            continue;",
+                     "          if (true) continue;")],
+    "tiled_no_exp": [("ssd_tiles.cuh",
+                      "return on ? cb * __expf(ci - cj) * dj : 0.f;",
+                      "return on ? cb * dj : 0.f;")],
+    "tiled_bare": [],
+    "tiled_sync_copies": [("ssd_chunk.cu",
+                           "        column_factors(d + 1, jt0, nj);\n      }\n"
+                           "      tf32x3::cp_async_commit();\n",
+                           "        column_factors(d + 1, jt0, nj);\n      }\n"
+                           "      tf32x3::cp_async_commit();\n"
+                           "      tf32x3::cp_async_wait<0>();\n"
+                           "      __syncthreads();\n")],
+    **{f"tiled_hg{n}": [("ssd_chunk.cu", _TL_GRID,
+                         f"  a.HG = H < {n} ? H : {n};\n" + _TL_GRID)]
+       for n in (5, 10, 40)},
+})
+# block (0, 0)'s clock at each step of the tiled route: thread 0 past the
+# step's barrier, y warp 0 and states warp 4 at the end of their products
+_TL_CLK = ("blockIdx.x == 0 && blockIdx.y == 0 && lane == 0 && d < 4096")
+VARIANTS["tiled_timeline"] = [
+    ("ssd_chunk.cu", "constexpr int kQMax = 128;            // chunk length\n",
+     "constexpr int kQMax = 128;            // chunk length\n"
+     "__device__ long long g_tl[3][4096];\n"),
+    ("ssd_chunk.cu",
+     "      __syncthreads();   // stage d landed; stage d - 1 is read\n",
+     "      __syncthreads();   // stage d landed; stage d - 1 is read\n"
+     f"      if ({_TL_CLK} && warp == 0) g_tl[0][d] = clock64();\n"),
+    ("ssd_chunk.cu",
+     "        if (jt == jt1 - 1) {   // the unit's last tile in this window\n",
+     f"        if ({_TL_CLK} && warp == 0) g_tl[1][d] = clock64();\n"
+     "        if (jt == jt1 - 1) {   // the unit's last tile in this window\n"),
+    ("ssd_chunk.cu",
+     "        if (jt == jt1 - 1) {\n#pragma unroll\n          for (int m = 0;",
+     f"        if ({_TL_CLK} && warp == 4) g_tl[2][d] = clock64();\n"
+     "        if (jt == jt1 - 1) {\n#pragma unroll\n          for (int m = 0;"),
+    ("ssd_chunk.cu", "extern \"C\" const char* ssd_chunk_error_string",
+     "extern \"C\" int ssd_tl_timeline(long long* out) {\n"
+     "  return (int)cudaMemcpyFromSymbol(out, g_tl, sizeof(g_tl));\n}\n\n"
+     "extern \"C\" const char* ssd_chunk_error_string")]
+_TL_YLOOP = ("        for (int ks = 0; ks < kend; ++ks) {\n"
+             "          const int jl = 8 * ks + 2 * t, j0 = jt * kR + jl, "
+             "j1 = j0 + 1;\n")
+for _n in (2, 4):
+    VARIANTS[f"tiled_y_unroll{_n}"] = [("ssd_chunk.cu", _TL_YLOOP,
+                                        f"#pragma unroll {_n}\n" + _TL_YLOOP)]
+VARIANTS["tiled_bare"] = (VARIANTS["tiled_no_y"] + VARIANTS["tiled_no_states"]
+                          + VARIANTS["tiled_no_cb"])
 
 
-BWD_FILES = ("ssd_chunk_bwd.cu", "ssd_tiles.cuh", "tf32x3.cuh",
-             "fma_tiles.cuh")
+BWD_FILES = ("ssd_chunk_bwd.cu", "ssd_tiles.cuh", "tf32x3.cuh")
 BWD_VARIANTS = {
     "committed": [],
     "sync_copies": [("ssd_chunk_bwd.cu", "    prefetch(d);\n",
@@ -164,8 +230,9 @@ _TL = ("    if (blockIdx.x == 0 && blockIdx.y == 0 && d < 4096) {\n"
        "      if (threadIdx.x == 256) g_tl[1][d] = clock64();\n"
        "    }\n")
 BWD_VARIANTS["timeline"] = [
-    ("ssd_chunk_bwd.cu", "using namespace ssd;\n",
-     "using namespace ssd;\n__device__ long long g_tl[3][4096];\n"),
+    ("ssd_chunk_bwd.cu", "constexpr int kQMax = 128;           // chunk length\n",
+     "constexpr int kQMax = 128;           // chunk length\n"
+     "__device__ long long g_tl[3][4096];\n"),
     ("ssd_chunk_bwd.cu", "    if (si == 1) tf32x3::cp_async_wait<1>();\n",
      _TL + "    if (si == 1) tf32x3::cp_async_wait<1>();\n"),
     ("ssd_chunk_bwd.cu", "    prefetch(d);\n",
@@ -223,8 +290,8 @@ def texts_of(files, variants, only, against):
         sources[name] = texts
     if against:
         d = Path(against)
-        sources["against"] = {f: (d / f).read_text() for f in files
-                              if (d / f).exists()}
+        sources["against"] = {f.name: f.read_text() for f in
+                              (d / files[0], *sorted(d.glob("*.cuh")))}
     return sources
 
 
@@ -256,6 +323,28 @@ def timeline(lib, call, m) -> dict:
             row[k] = round(row[k] / row["n"])
     out["cycles"] = tb[steps - 1] - tb[0]
     return out
+
+
+def fwd_timeline(so, call) -> dict:
+    """One more call of the ``tiled_timeline`` variant, then block (0, 0)'s
+    steps: cycles from a step's barrier to the end of the y warp's and the
+    states warp's products, and from one step's barrier to the next."""
+    import torch
+    call()
+    torch.cuda.synchronize()
+    lib = ctypes.CDLL(str(so))
+    buf = (ctypes.c_longlong * (3 * 4096))()
+    if lib.ssd_tl_timeline(buf):
+        return {}
+    t0, ty, ts = (list(buf[k * 4096:(k + 1) * 4096]) for k in range(3))
+    steps = next((i for i in range(1, 4096) if t0[i] == 0), 4096)
+    y = [ty[d] - t0[d] for d in range(steps) if ty[d]]
+    st = [ts[d] - t0[d] for d in range(steps) if ts[d]]
+    gap = [t0[d + 1] - t0[d] for d in range(steps - 1)]
+    mean = lambda v: round(sum(v) / len(v)) if v else None
+    return dict(steps=steps, y=mean(y), states=mean(st), step=mean(gap),
+                first=t0[0], total=t0[steps - 1] - t0[0],
+                y_each=y[:8], states_each=st[:8], step_each=gap[:8])
 
 
 def backward(args) -> int:
@@ -291,7 +380,8 @@ def backward(args) -> int:
     stream = torch.cuda.current_stream(dev).cuda_stream
     keep = set(filter(None, args.shapes.split(",")))
     parts = ("dx", "dB", "dC", "ddt", "dcum")
-    for shape, m in chip_smoke.SSD_BWD_LAYERS.items():
+    for shape, m in {**chip_smoke.SSD_BWD_LAYERS,
+                     **chip_smoke.SSD_TILED}.items():
         if keep and shape not in keep:
             continue
         ops = chip_smoke.ssd_bwd_inputs(gen, dev, **m)
@@ -327,7 +417,7 @@ def backward(args) -> int:
                                                  fns["timeline"], m)
         if "committed" in fns:
             rows["committed"]["device_ms"] = {
-                p: chip_smoke.device_ms(fns["committed"], f"ssd_bwd_{p}")
+                p: chip_smoke.pass_ms(fns["committed"], f"ssd_bwd_{p}")
                 for p in ssd_ops.SSD_BWD_PASSES}
             rows["committed"]["plan"] = ssd_ops.backward_plan(
                 m["bs"], m["nc"], m["q"], m["h"], m["p"], m["s"])
@@ -340,6 +430,8 @@ def backward(args) -> int:
             if name in ms:
                 row["ms"] = ms[name]
                 row["share"] = bms / ms[name]
+                if "against" in ms:
+                    row["speedup"] = ms["against"] / ms[name]
             print(json.dumps(dict(shape=shape, variant=name, **row,
                                   bound_ms=bms, bound_by=by)), flush=True)
         del ops, refs, fns, rows
@@ -397,7 +489,7 @@ def main() -> int:
             ctypes.c_void_p]
         fwd[name] = f
     keep = set(filter(None, args.shapes.split(",")))
-    for shape, m in chip_smoke.SSD_LAYERS.items():
+    for shape, m in {**chip_smoke.SSD_LAYERS, **chip_smoke.SSD_TILED}.items():
         if keep and shape not in keep:
             continue
         ops = chip_smoke.ssd_inputs(gen, dev, **m)
@@ -419,10 +511,15 @@ def main() -> int:
                     tol=2e-4 * max(1.0, r.abs().max().item()))
             fns[name] = call
         ms = chip_smoke.time_turns(fns, iters=args.iters)
+        if "tiled_timeline" in fns:
+            rows["tiled_timeline"]["steps"] = fwd_timeline(
+                libs["tiled_timeline"], fns["tiled_timeline"])
         for name in (*fwd, "plain"):
             row = rows.get(name, {})
             if name in ms:
                 row["ms"] = ms[name]
+                if "against" in ms:
+                    row["speedup"] = ms["against"] / ms[name]
             print(json.dumps(dict(shape=shape, variant=name, **row)),
                   flush=True)
     return 0
