@@ -10,7 +10,8 @@ Phases, each timed, any failure exits non-zero:
      both PointNet++(c) block shapes, batched (B=8) and at B=1, masked and
      unmasked, and hub_reuse also at the other families' widest blocks
      (``REUSE_WIDE``) and past one launch's 128 cache rows
-     (``REUSE_C256``, timed): ``max|Δ| <= 1e-4 · max(1, max|plain|)``,
+     (``REUSE_C256``, timed: two 128-row resident launches, whose grid
+     fills the card): ``max|Δ| <= 1e-4 · max(1, max|plain|)``,
      the -BIG identity exactly;
   3. time each FC kernel and its plain version in turns at the main path's
      shapes;
@@ -29,11 +30,11 @@ Phases, each timed, any failure exits non-zero:
      in a subprocess; and one (8, 1024) batch against the "reference"
      backend;
   5. one batch in ``mode="traditional"``; one lpcn batch at
-     ``cache_capacity_x = 4`` (``CACHE_X4``: 256 cache rows at block 2, two
-     hub_reuse launches there) against the "reference" backend, and
+     ``cache_capacity_x = 4`` (``CACHE_X4``: 256 cache rows at block 2,
+     the launches each call's plan makes) against the "reference" backend, and
      pointnext_s and pointvector_l (``CACHE_X4_FAMILIES``) likewise at the
-     families phase's batch (block 4: C = 128 in 64-row chunks, the
-     launches each call's plan makes); then the
+     families phase's batch (block 4: C = 128 rows too wide for a resident
+     block, layered; one launch a call); then the
      same batch under each data structuring of ``DS_VARIANTS`` (the
      paper's DS baselines HgPCN, EdgePC and Crescent beside PointACC's,
      the ball query, the random and Morton samplers, FPS hubs): one
@@ -170,7 +171,7 @@ Phases, each timed, any failure exits non-zero:
      site whose shared memory by ``tiling.py`` or the analysis's copies
      of the entry kernels' formulas differs from the built library's, and
      on a family, an lpcn ``cuda`` target's FC kernel or
-     an entry kernel without sites, and on hub_reuse's ``stream``,
+     an entry kernel without sites, and on hub_reuse's ``layered``,
      ssd_chunk's ``tiled`` or flash's ``split`` route without sites.  An
      ``analysis`` line (targets, sites by kernel and family, findings,
      wall time) beside the card's name and power limit.
@@ -200,9 +201,9 @@ Phases, each timed, any failure exits non-zero:
      (``domain_phase``): each driven once with the launch counts reset
      (``domain_drive``: by wrapper and by route), then held against its
      plain version and timed beside it: hub_reuse at ``REUSE_DOMAIN``
-     (pointvector_l's block 4 under ``CACHE_X4``, resident in 64-row
-     chunks; the streamed route at D = 700; route and shared memory equal
-     to the library's), ssd_chunk and its backward on the tiled route at
+     (pointvector_l's block 4 under ``CACHE_X4`` and D = 700, both on the
+     layered route; route, H splits, scratch and shared memory equal to
+     the library's), ssd_chunk and its backward on the tiled route at
      ``SSD_TILED`` (Mamba2-2.7B's widths at chunk 256, bs 1 and 2;
      ``ssd_held``, ``ssd_bwd_held``; the plans equal to the analysis's
      formula, each row with the TF32 HMMA count of the tiled kernels,
@@ -212,9 +213,11 @@ Phases, each timed, any failure exits non-zero:
      512 in f32 and bf16, D = 257 in bf16; ``FLASH_TOL``, ``BWD_TOL``,
      SDPA timed beside each; each row with the library's cluster and
      slice, its share of bound and the HMMA count of flash_split.cuh's
-     kernels, which must be nonzero) and on the split_fma route past the
-     cluster's reach at ``FLASH_SPLIT_FMA`` (the same layer at D = 1040,
-     f32 and bf16, held and timed alike); then mamba2-2.7b at full width with
+     kernels, which must be nonzero), past 8 blocks of 128 columns in the
+     dK/dV pass at ``FLASH_SPLIT_WIDE`` (the same layer at D = 1040, f32
+     and bf16) and past 8 slices of 256 at ``FLASH_SPLIT_STREAM`` (D =
+     2056 at ``FLASH_STREAM_LAYER``, 512 tokens: the streamed kernels, in
+     sweeps), held and timed alike; then mamba2-2.7b at full width with
      ``ssd_chunk`` = 256: a counted f32 prefill of 2 × 2048 (64 tiled
      launches) against the plain route (``LM_F32_TOL``), and the 2-layer
      gradient wiring (``grad_wiring``, its planted fault included).
@@ -308,7 +311,8 @@ DENSE = {"blk1": dict(s=512, k=32, d=65, dc=1, h=64, f=128, masked=True),
 REUSE = {"blk1": dict(hn=16, c=64, m=64, k=32, d=64, h=64, f=128),
          "blk2": dict(hn=4, c=128, m=64, k=64, d=128, h=128, f=256)}
 # hub_reuse past one launch's 128 cache rows: pointnet2_c block 2 at the
-# paper's Fig. 22 cache size, cache_capacity_x = 4 (C = 4k = 256), at B = 8
+# paper's Fig. 22 cache size, cache_capacity_x = 4 (C = 4k = 256), at B =
+# 8 (two 128-row resident launches: their grid fills the card)
 REUSE_C256 = {"blk2_c256": dict(hn=4, c=256, m=64, k=64, d=128, h=128,
                                 f=256)}
 # the lpcn forward at that cache size, against the "reference" backend
@@ -552,12 +556,12 @@ SERVE_MESH_MAIN = ("olmo-1b", "mamba2-2.7b")
 SERVE_MESH_CUT = ("recurrentgemma-2b", "whisper-large-v3",
                   "llama4-maverick-400b-a17b")
 # phase 5: the families whose block 4 passes a block's shared memory at
-# the paper's Fig. 22 cache size (C = 128 there: 64-row chunks), at the
-# families phase's batch
+# the paper's Fig. 22 cache size (C = 128 there: the layered route), at
+# the families phase's batch
 CACHE_X4_FAMILIES = ("pointnext_s", "pointvector_l")
 # phase 14, the kernels' domain routes (each against its plain version):
-# hub_reuse at pointvector_l's block 4 under CACHE_X4 (resident, 64-row
-# chunks) and on its streamed route at D = 700, at B = 2
+# hub_reuse's layered route at pointvector_l's block 4 under CACHE_X4
+# and at D = 700, at B = 2
 REUSE_DOMAIN = {
     "pointvector_l_blk4_c128": dict(hn=1, c=128, m=64, k=32, d=387, h=1536,
                                     f=768),
@@ -572,9 +576,14 @@ SSD_TILED = {"mamba2_2p7b_c256": dict(bs=1, nc=8, q=256, h=80, p=64, s=128),
 FLASH_SPLIT_LAYER = dict(b=1, hq=8, hkv=8, s=2048, causal=True)
 FLASH_SPLIT = (("split_d512", 512, "float32"), ("split_d512", 512, "bfloat16"),
                ("split_d257", 257, "bfloat16"))
-# and past the cluster's reach (D > 1024), the split_fma route, same layer
-FLASH_SPLIT_FMA = (("split_fma_d1040", 1040, "float32"),
-                   ("split_fma_d1040", 1040, "bfloat16"))
+# and past 8 blocks of 128 columns in the dK/dV pass (D > 1024; the same
+# layer), and past 8 slices of 256 (D > 2048, the streamed kernels, a
+# layer of 512 tokens)
+FLASH_SPLIT_WIDE = (("split_d1040", 1040, "float32"),
+                    ("split_d1040", 1040, "bfloat16"))
+FLASH_STREAM_LAYER = dict(b=1, hq=8, hkv=8, s=512, causal=True)
+FLASH_SPLIT_STREAM = (("split_d2056", 2056, "float32"),
+                      ("split_d2056", 2056, "bfloat16"))
 # mamba2-2.7b at chunk 256: a B x S prefill (f32) against the plain route,
 # and the 2-layer gradient wiring (TRAIN_WIRING)
 SSD_CHUNK_LONG = 256
@@ -717,6 +726,7 @@ def kernel_phase(dev, seed):
     import torch
     from repro_torch.kernels.gather_mlp import gather_mlp, gather_mlp_ref
     from repro_torch.kernels.hub_reuse import hub_reuse, hub_reuse_ref
+    from repro_torch.kernels.hub_reuse import ops as hub_ops
     gen = torch.Generator().manual_seed(seed)
     parity, rows, per_cloud = [], [], []
     for blk, shp in DENSE.items():
@@ -796,7 +806,7 @@ def kernel_phase(dev, seed):
                               f"Hd={shp['h']} F={shp['f']} live=True",
                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
                         bound_ms=bms, bound_by=by, library_ms=None))
-    for blk, shp in REUSE_C256.items():   # two launches a call
+    for blk, shp in REUSE_C256.items():   # two resident launches a call
         pool, slot, comp, w1, b1, w2, b2, live = reuse_inputs(
             gen, dev, B, **shp)
         args = (pool, slot, comp, w1, b1, w2, b2)
@@ -815,7 +825,10 @@ def kernel_phase(dev, seed):
         bms, by = bound(3 * flops, moved, PEAK_TF32)
         rows.append(dict(
             name="hub_reuse", block=blk, route="cuda",
-            variant="mma_tf32x3_chunked", tflops=flops / ms / 1e9,
+            variant="mma_tf32x3_" + hub_ops.plan(
+                B, *(shp[n] for n in ("hn", "c", "m", "k", "d", "h", "f")),
+                dev)["route"],
+            tflops=flops / ms / 1e9,
             bound_fp32_ms=bound(flops, moved)[0],
             source="src/repro_torch/csrc/hub_reuse.cu",
             replaces="src/repro/kernels/hub_reuse/hub_reuse.py:307",
@@ -1311,30 +1324,22 @@ def cache_x4_phase(params, batch, seed, dev) -> dict:
     """One pointnet2_c lpcn forward at the paper's Fig. 22 cache size
     (``CACHE_X4``: C = 4k, 256 rows at block 2) with the launch counts set
     to 0 just before and read just after: one gather_mlp launch a block
-    and one hub_reuse launch per 128 cache rows, no entry kernel; logits
+    and the hub_reuse launches each call's plan makes
+    (``expected_launches``), no entry kernel; logits
     within 1e-4 of the "reference" backend at the same cache size.  Then
     ``CACHE_X4_FAMILIES`` likewise at the families phase's batch
     (``x4_family``).  -> (pointnet2_c's launch counts, each family's)."""
     import torch
-    from repro_torch import kernels
     from repro_torch.engine import PCNEngine
     from repro_torch.models.pointnet2 import POINTNET2_C
     eng = PCNEngine(POINTNET2_C, mode="lpcn", fc_backend="cuda",
                     isl_kw=CACHE_X4)
     ref = PCNEngine(POINTNET2_C, mode="lpcn", fc_backend="reference",
                     isl_kw=CACHE_X4)
-    torch.cuda.synchronize()
-    kernels.reset_launch_counts()
-    out = eng.apply(params, batch)
-    torch.cuda.synchronize()
-    launches = kernels.launch_counts()
-    chunks = sum(-(-int(CACHE_X4["cache_capacity_x"] * b.k) // 128)
-                 for b in POINTNET2_C.blocks)
-    check(launches == {**dict.fromkeys(launches, 0),
-                       "gather_mlp": len(POINTNET2_C.blocks),
-                       "hub_reuse": chunks},
-          f"cache_x4 launches {launches}, expected gather_mlp "
-          f"{len(POINTNET2_C.blocks)} and hub_reuse {chunks}")
+    out, launches, cap = counted_forward(eng, params, batch)
+    want = expected_launches(cap)
+    check(launches == {**dict.fromkeys(launches, 0), **want},
+          f"cache_x4 launches {launches}, expected {want}")
     check(bool(torch.isfinite(out).all()), "cache_x4: non-finite logits")
     err, tol = close(out, ref.apply(params, batch))
     log(json.dumps({"cache_x4": {"isl_kw": CACHE_X4, "launches": {
@@ -1349,8 +1354,8 @@ def x4_family(name, seed, dev) -> dict:
     """``name`` at full width, published, in lpcn mode at ``CACHE_X4``:
     one ragged batch of the families phase's size through
     ``fc_backend="cuda"``, counted (``counted_forward``: the hub_reuse
-    launches each call's plan makes, 64-row chunks where 128 rows pass a
-    block's shared memory), the logits within 1e-4 · max(1, max|ref|) of
+    launches each call's plan makes, the layered route where 128 rows
+    pass a block's shared memory), the logits within 1e-4 · max(1, max|ref|) of
     the "reference" backend.  -> the launch counts."""
     import torch
     from repro_torch.engine import PCNEngine
@@ -1470,12 +1475,13 @@ def ds_variants_phase(params, batch, smi) -> None:
 
 def expected_launches(captured) -> dict:
     """Kernel launches the captured plans make: one a call, or one a cloud
-    on a per_cloud plan; hub_reuse once per chunk of cache rows."""
+    on a per_cloud plan; hub_reuse's resident route once per chunk of
+    cache rows."""
     out = {"gather_mlp": 0, "hub_reuse": 0}
     for rec in captured:
         pl, dims = rec["plan"], rec["dims"]
         n = dims["b"] if pl["variant"] == "per_cloud" else 1
-        if rec["kernel"] == "hub_reuse":
+        if rec["kernel"] == "hub_reuse" and pl["chunk"]:
             n *= -(-dims["c"] // pl["chunk"])
         out[rec["kernel"]] += n
     return out
@@ -3489,7 +3495,7 @@ def analysis_phase(smi) -> dict:
           f"analysis: a kernel or family without sites: {by_kernel} "
           f"{by_family}")
     routes = {(r["kernel"], r["launch"].get("route")) for r in rows}
-    check({("hub_reuse", "stream"), ("ssd_chunk", "tiled"),
+    check({("hub_reuse", "layered"), ("ssd_chunk", "tiled"),
            ("flash_attention", "split")} <= routes,
           f"analysis: a route past the old limits without sites: {routes}")
     for t in {r["target"] for r in rows if r["target"].endswith(
@@ -3712,13 +3718,22 @@ def pcn_train_phase(dev, smi) -> dict:
     return launches
 
 
+def flash_calls() -> list:
+    """Phase 14's flash calls: (layer, name, D, dtype) of ``FLASH_SPLIT``
+    and ``FLASH_SPLIT_WIDE`` at ``FLASH_SPLIT_LAYER`` and of
+    ``FLASH_SPLIT_STREAM`` at ``FLASH_STREAM_LAYER``."""
+    return ([(FLASH_SPLIT_LAYER, *c) for c in FLASH_SPLIT + FLASH_SPLIT_WIDE]
+            + [(FLASH_STREAM_LAYER, *c) for c in FLASH_SPLIT_STREAM])
+
+
 def domain_drive(dev, seed) -> tuple[dict, dict]:
     """The domain routes' calls, each launched once with the launch counts
     set to 0 just before and read just after: hub_reuse at
-    ``REUSE_DOMAIN`` (resident in 64-row chunks, streamed), ssd_chunk and
-    its backward at ``SSD_TILED`` (tiled), flash_attention and its
-    backward at ``FLASH_SPLIT`` (split) and ``FLASH_SPLIT_FMA``
-    (split_fma), each route's count as its plan says.  -> (launches by wrapper and by route, the calls' inputs)."""
+    ``REUSE_DOMAIN`` (layered), ssd_chunk and its backward at
+    ``SSD_TILED`` (tiled), flash_attention and its backward at
+    ``FLASH_SPLIT``, ``FLASH_SPLIT_WIDE`` and ``FLASH_SPLIT_STREAM``
+    (split), each route's count as its plan says.  -> (launches by
+    wrapper and by route, the calls' inputs)."""
     import torch
     from repro_torch import kernels
     from repro_torch.kernels import tiling
@@ -3733,12 +3748,11 @@ def domain_drive(dev, seed) -> tuple[dict, dict]:
            for name, shp in REUSE_DOMAIN.items()}
     ssd = {name: ssd_bwd_inputs(gen, dev, **f) for name, f in
            SSD_TILED.items()}
-    f = FLASH_SPLIT_LAYER
     flash = {(layer, dt): tuple(
         torch.randn((f["b"], h, f["s"], d), generator=gen,
                     device=dev).to(getattr(torch, dt))
         for h in (f["hq"], f["hkv"], f["hkv"], f["hq"]))
-        for layer, d, dt in FLASH_SPLIT + FLASH_SPLIT_FMA}
+        for f, layer, d, dt in flash_calls()}
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     for a in hub.values():
@@ -3751,39 +3765,31 @@ def domain_drive(dev, seed) -> tuple[dict, dict]:
         flash_attention_backward(q, k, v, o, do, True, lse=lse)
     torch.cuda.synchronize()
     launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
-    chunks = [tiling.hub_reuse_launches(shp["c"], tiling.hub_reuse_chunk(
-        shp["c"], shp["m"], shp["k"], shp["d"])) for shp in
-        REUSE_DOMAIN.values()]
-    routes = [tiling.hub_reuse_route(shp["c"], shp["m"], shp["k"], shp["d"])
-              for shp in REUSE_DOMAIN.values()]
-    n_ssd, n_fl, n_fma = len(SSD_TILED), len(FLASH_SPLIT), len(
-        FLASH_SPLIT_FMA)
-    want = {"hub_reuse": sum(map(len, chunks)),
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    routes = [tiling.hub_reuse_route(2, *(shp[n] for n in (
+        "hn", "c", "m", "k", "d", "f")), sms) for shp in REUSE_DOMAIN.values()]
+    n_hub, n_ssd, n_fl = len(REUSE_DOMAIN), len(SSD_TILED), len(flash)
+    want = {"hub_reuse": n_hub, "hub_reuse_layered": n_hub,
             "ssd_chunk": n_ssd, "ssd_chunk_tiled": n_ssd,
             "ssd_chunk_bwd": 2 * n_ssd, "ssd_chunk_bwd_tiled": 2 * n_ssd,
-            "flash_attention": n_fl + n_fma, "flash_attention_split": n_fl,
-            "flash_attention_split_fma": n_fma,
-            "flash_attention_bwd": 2 * (n_fl + n_fma),
+            "flash_attention": n_fl, "flash_attention_split": n_fl,
+            "flash_attention_bwd": 2 * n_fl,
             "flash_attention_bwd_dq_split": n_fl,
-            "flash_attention_bwd_dkdv_split": n_fl,
-            "flash_attention_bwd_dq_split_fma": n_fma,
-            "flash_attention_bwd_dkdv_split_fma": n_fma}
-    for route, ch in zip(routes, chunks):
-        want[f"hub_reuse_{route}"] = want.get(f"hub_reuse_{route}", 0) + len(
-            ch)
+            "flash_attention_bwd_dkdv_split": n_fl}
     check(launches == want, f"domain launches {launches}, expected {want}")
-    check(routes == ["resident", "stream"] and chunks == [[64, 64], [128]],
-          f"domain: hub_reuse routes {routes} and chunks {chunks}, expected "
-          f"resident in 64-row chunks and stream")
+    check(routes == ["layered"] * n_hub,
+          f"domain: hub_reuse routes {routes}, expected layered")
     return {**dict.fromkeys(want, 0), **launches}, dict(hub=hub, ssd=ssd,
                                                        flash=flash)
 
 
 def domain_hub_rows(hub, launches) -> tuple[list, list]:
-    """hub_reuse at ``REUSE_DOMAIN``: the plan's route and shared memory
-    equal to the library's, the kernel against its plain version (1e-4 ·
-    max(1, max|plain|), the -BIG identity exactly), both timed in turns.
-    -> (parity rows, ``kernels`` rows)."""
+    """hub_reuse at ``REUSE_DOMAIN``: the plan's route, H splits, scratch
+    and shared memory equal to the library's, the kernel against its
+    plain version (1e-4 · max(1, max|plain|), the -BIG identity exactly)
+    and twice bit-equal, both timed in turns.  -> (parity rows,
+    ``kernels`` rows)."""
+    import torch
     from repro_torch.kernels import tiling
     from repro_torch.kernels.hub_reuse import hub_reuse, hub_reuse_ref
     from repro_torch.kernels.hub_reuse import ops as hub_ops
@@ -3794,18 +3800,23 @@ def domain_hub_rows(hub, launches) -> tuple[list, list]:
         dims = (shp["c"], shp["m"], shp["k"], shp["d"])
         pl = hub_ops.plan(2, shp["hn"], *dims, shp["h"], shp["f"],
                           pool.device)
-        smem = tiling.hub_reuse_smem(*dims, True, pl["chunk"])
-        lib = hub_ops.library_smem(*dims, shp["h"], True, pl["chunk"])
-        check(hub_ops.library_route(*dims) == pl["route"] and lib == smem,
-              f"hub_reuse {name}: route {pl['route']} and {smem} B by "
-              f"tiling.py, the library's {hub_ops.library_route(*dims)} "
-              f"and {lib} B")
+        sms = torch.cuda.get_device_properties(
+            pool.device).multi_processor_count
+        lp = tiling.hub_reuse_layered_plan(2, shp["hn"], shp["c"], shp["h"],
+                                           shp["f"], sms)
+        ours = dict(route=pl["route"], nsplit=lp["nsplit"],
+                    scratch=lp["scratch"], smem=tiling.LAYERED_SMEM)
+        lib = hub_ops.library_plan(2, shp["hn"], *dims, shp["h"], shp["f"])
+        check(lib == ours, f"hub_reuse {name}: plan {ours} by tiling.py, "
+              f"{lib} by the library")
         out = hub_reuse(*args, live=live)
         err, tol = max_err(out, hub_reuse_ref(*args, live=live))
+        same = bool(torch.equal(out, hub_reuse(*args, live=live)))
         parity.append(dict(name="hub_reuse", block=name, b=2, masked=True,
-                           route=pl["route"], chunk=pl["chunk"],
-                           max_abs_err=err, tol=tol))
+                           route=pl["route"], nsplit=lp["nsplit"],
+                           max_abs_err=err, tol=tol, bit_equal=same))
         check(err <= tol, f"hub_reuse {name}: max|err| {err} > {tol}")
+        check(same, f"hub_reuse {name}: two calls differ")
         ms, plain_ms = time_pair(lambda: hub_reuse(*args, live=live),
                                  lambda: hub_reuse_ref(*args, live=live),
                                  iters=10)
@@ -3815,7 +3826,7 @@ def domain_hub_rows(hub, launches) -> tuple[list, list]:
         bms, by = bound(3 * flops, moved, PEAK_TF32)
         rows.append(dict(
             name="hub_reuse", block=name, route="cuda",
-            variant=f"mma_tf32x3_{pl['route']}_chunk{pl['chunk']}",
+            variant=f"mma_tf32x3_{pl['route']}_nsplit{lp['nsplit']}",
             tflops=flops / ms / 1e9, bound_fp32_ms=bound(flops, moved)[0],
             source="src/repro_torch/csrc/hub_reuse.cu",
             replaces="src/repro/kernels/hub_reuse/hub_reuse.py:307",
@@ -3823,7 +3834,7 @@ def domain_hub_rows(hub, launches) -> tuple[list, list]:
                   f"K={shp['k']} D={shp['d']} Hd={shp['h']} F={shp['f']} "
                   f"live=True",
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-            bound_by=by, library_ms=None, smem=smem,
+            bound_by=by, library_ms=None, smem=ours["smem"],
             launches=launches["hub_reuse"],
             route_launches=launches[f"hub_reuse_{pl['route']}"]))
     return parity, rows
@@ -3833,8 +3844,9 @@ def domain_phase(dev, seed, smi) -> tuple[list, list]:
     """Phase 14, the kernels' domain routes: ``domain_drive`` (counted),
     then each route held against its plain version and timed beside it
     (``domain_hub_rows``; ``ssd_row`` and ``ssd_bwd_rows`` at
-    ``SSD_TILED``; ``flash_row`` and ``bwd_row`` at ``FLASH_SPLIT`` and
-    ``FLASH_SPLIT_FMA``, SDPA beside them), each row with its wrapper's and its route's launches in
+    ``SSD_TILED``; ``flash_row`` and ``bwd_row`` at ``FLASH_SPLIT``,
+    ``FLASH_SPLIT_WIDE`` and ``FLASH_SPLIT_STREAM``, SDPA beside them),
+    each row with its wrapper's and its route's launches in
     the drive; then mamba2-2.7b at chunk ``SSD_CHUNK_LONG``: a counted
     f32 prefill of ``LM_PREFILL`` against the plain route (max|Δ| <=
     ``LM_F32_TOL`` · max(1, max|plain|)) and the gradient wiring
@@ -3884,7 +3896,7 @@ def domain_phase(dev, seed, smi) -> tuple[list, list]:
                    tiled_sass_count=tiled_hmma["ssd_chunk_bwd"])
     parity += ssd_parity + bwd_parity
     rows += bwd
-    f = FLASH_SPLIT_LAYER
+    layers = {(layer, dt): f for f, layer, _, dt in flash_calls()}
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.flash_attention import ops as flash_ops
     # tensor-core instructions of flash_split.cuh's kernels, by library
@@ -3898,22 +3910,19 @@ def domain_phase(dev, seed, smi) -> tuple[list, list]:
         check(n > 0, f"flash_split.cuh's {key[1]} kernels in {key[0]} have "
               f"no tensor-core HMMA")
     for (layer, dt), (q, k, v, _) in inputs["flash"].items():
-        d = q.shape[-1]
+        d, f = q.shape[-1], layers[layer, dt]
         route = flash_ops._variant(q.dtype, d)
-        check(route == ("split" if d <= flash_ops.SPLIT_DMAX else
-                        "split_fma"), f"flash {layer} {dt}: route {route}")
-        src = ("src/repro_torch/csrc/flash_split.cuh" if route == "split"
-               else "src/repro_torch/csrc/flash_split_fma.cuh")
+        check(route == "split", f"flash {layer} {dt}: route {route}")
+        src = "src/repro_torch/csrc/flash_split.cuh"
         lay = flash_ops.library_layout(route, dt, d)
-        # split_fma runs on the CUDA cores: no HMMA to count
-        sass = ({"sass_count": hmma[("flash_attention", dt)]}
-                if route == "split" else {})
+        sass = {"sass_count": hmma[("flash_attention", dt)]}
         with torch.no_grad():
             out = flash_attention(q, k, v, causal=True)
         p_row, k_row = flash_row(layer, {**f, "d": d}, dt, q, k, v, out)
         k_row.update(source=src, launches=launches["flash_attention"],
                      route_launches=launches[f"flash_attention_{route}"],
                      cluster=lay["cluster"], slice=lay["slice"],
+                     sweeps=lay["sweeps"],
                      share=k_row["bound_ms"] / k_row["ms"], **sass)
         if k_row["library_ms"]:
             k_row["vs_library"] = k_row["ms"] / k_row["library_ms"]
@@ -3922,8 +3931,7 @@ def domain_phase(dev, seed, smi) -> tuple[list, list]:
         log(json.dumps({"split_kernel": k_row}))
         p_row, k_row = bwd_row(layer, {**f, "d": d}, getattr(torch, dt), dev,
                                seed + 7)
-        sass = ({"sass_count": hmma[("flash_attention_bwd", dt)]}
-                if route == "split" else {})
+        sass = {"sass_count": hmma[("flash_attention_bwd", dt)]}
         check(k_row["variant"] == route, f"flash_attention_bwd {layer} {dt}: "
               f"route {k_row['variant']}, expected {route}")
         k_row.update(source=src, launches=launches["flash_attention_bwd"],
@@ -3933,6 +3941,8 @@ def domain_phase(dev, seed, smi) -> tuple[list, list]:
                      cluster={"dq": lay["dq_cluster"],
                               "dkdv": lay["dkv_cluster"]},
                      slice={"dq": lay["dq_slice"], "dkdv": lay["dkv_slice"]},
+                     sweeps={"dq": lay["dq_sweeps"],
+                             "dkdv": lay["dkv_sweeps"]},
                      **sass)
         parity.append(p_row)
         rows.append(k_row)

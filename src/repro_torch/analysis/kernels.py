@@ -106,18 +106,19 @@ KNN_SCRATCH_BUDGET = 256 << 20
 # route takes longer ones: SSD_TILE-row strips in pairs, an x stage of
 # SSD_TILE rows by SSD_TILED_LDX, a block's S tile of the states
 # SSD_TILED_SS wide, C.B^T staged SSD_TILED_SC columns of S at a time);
-# FLASH_DMAX: the widest head off flash's split routes
+# FLASH_DMAX: the widest head off flash's split route
 SSD_QMAX, SSD_ST, SSD_PT, SSD_MAX_HEADS = 128, 128, 64, 16
 SSD_TILE, SSD_TILED_LDX, SSD_TILED_SS, SSD_TILED_SC = 64, 68, 64, 32
 FLASH_DMAX = 256
 # flash_split.cuh: a block's rows, its tile (keys in the forward and dQ
 # pass, query rows in the dK/dV pass; in fp32 the dQ and the dK/dV
-# pass's apart), its widest slice in the forward, the dQ pass and the
-# dK/dV pass, blocks a cluster at most, and the widest head of the split
-# route (split_fma past it)
+# pass's apart), the columns the forward, the dQ pass and the dK/dV pass
+# hold, blocks a cluster at most (the dK/dV pass's: a non-portable
+# cluster), the widest slice kept in shared memory and the piece a wider
+# one streams in
 SPLIT_ROWS, SPLIT_TILE, SPLIT_DQ_TILE_F32, SPLIT_DKV_TILE_F32 = 64, 32, 32, 16
 SPLIT_WMAX, SPLIT_DQ_WMAX, SPLIT_DKV_WMAX, SPLIT_CLUSTER = 256, 256, 128, 8
-SPLIT_DMAX = SPLIT_CLUSTER * SPLIT_DKV_WMAX
+SPLIT_DKV_CLUSTER, SPLIT_RES_MAX, SPLIT_PIECE = 16, 256, 128
 
 
 def knn_plan(s: int, n: int, k: int, sms: int) -> dict:
@@ -155,13 +156,20 @@ def split_bufs(one: int, part: int) -> int:
             else 1)
 
 
-def split_plan(d: int, wmax: int) -> tuple[int, int, int]:
-    """``flash_split.cuh``'s ``plan``: D cut into ``c`` slices of ``w``
-    columns (a multiple of 16) over a cluster's blocks, each padded to
-    ``wp`` (128, 192 or 256)."""
+def split_plan(d: int, wmax: int,
+               cmax: int = SPLIT_CLUSTER) -> tuple[int, int, int, int, bool]:
+    """``flash_split.cuh``'s ``plan`` for a pass holding ``wmax`` columns:
+    D cut into ``c`` slices (ceil(D / wmax) where that is at most
+    ``cmax``, else SPLIT_CLUSTER) of ``w`` columns (a multiple of 16)
+    over a cluster's blocks; a slice up to SPLIT_RES_MAX padded to ``wp``
+    (128, 192 or 256), one sweep, a wider one ``stream``ed in pieces of
+    ``wp`` = SPLIT_PIECE, one sweep a piece."""
     c = -(-d // wmax)
+    c = c if c <= cmax else SPLIT_CLUSTER
     w = round_up(-(-d // c), 16)
-    return c, w, 128 if w <= 128 else 192 if w <= 192 else 256
+    if w > SPLIT_RES_MAX:
+        return c, w, SPLIT_PIECE, -(-w // SPLIT_PIECE), True
+    return c, w, 128 if w <= 128 else 192 if w <= 192 else 256, 1, False
 
 
 def flash_layout(route: str, dtype: str, d: int) -> dict:
@@ -169,47 +177,54 @@ def flash_layout(route: str, dtype: str, d: int) -> dict:
     ``bq``, keys a tile ``bk``, D padded ``dp`` (a block's slice of it on
     the split routes), shared memory, blocks a cluster and columns of D a
     block; on the split routes the backward's passes too
-    (``dq_cluster``, ``dq_slice``, ``dq_smem``, ``dkv_*``).  ``split``:
-    ``flash_split.cuh`` (``split_plan``; fp32 partial tiles of 64 rows by
-    32 exchanged (by 16 in the fp32 backward), q and two stages of K and
-    V in the forward, q, dO and
-    one or two stages of K and V in the dQ pass, K, V and two stages of
-    q, dO and their rows in the dK/dV pass; ``split_bufs`` buffers of the
-    partials); ``split_fma``:
-    ``flash_split_fma.cuh``, 64 rows and 64 columns of D a block."""
+    (``dq_cluster``, ``dq_slice``, ``dq_smem``, ``dkv_*``) and each
+    pass's sweeps.  ``split``: ``flash_split.cuh`` (``split_plan``; fp32
+    partial tiles of 64 rows by 32 exchanged (by 16 in the fp32 dK/dV
+    pass); a resident slice: q and two stages of K and V in the forward,
+    q, dO and one or two stages of K and V in the dQ pass, K, V and two
+    stages of q, dO and their rows in the dK/dV pass, ``split_bufs``
+    buffers of the partials; a streamed one: one stage of each pass's
+    pieces, rows SPLIT_PIECE + 8 apart (fp32 V + 4), one buffer)."""
     if route == "split":
         sz = 4 if dtype == "float32" else 2
         rows, tile = SPLIT_ROWS, SPLIT_TILE
+        ldp = SPLIT_PIECE + 8
         part = 4 * rows * tile                   # one partial tile
-        c, w, wp = split_plan(d, SPLIT_WMAX)
-        ld = wp + 8
-        ld_v = wp + 4 if sz == 4 else ld
-        fwd = part + sz * (rows * ld + 2 * tile * ld + 2 * tile * ld_v)
-        fwd += (split_bufs(fwd, part) - 1) * part
-        cq, wq, wpq = split_plan(d, SPLIT_DQ_WMAX)
-        ld = wpq + 8
+        c, w, wp, sw, stream = split_plan(d, SPLIT_WMAX)
+        if stream:
+            fwd = part + sz * ((rows + tile) * ldp
+                               + tile * (ldp - 4 if sz == 4 else ldp))
+        else:
+            ld = wp + 8
+            ld_v = wp + 4 if sz == 4 else ld
+            fwd = part + sz * (rows * ld + 2 * tile * ld + 2 * tile * ld_v)
+            fwd += (split_bufs(fwd, part) - 1) * part
+        cq, wq, wpq, swq, stream = split_plan(d, SPLIT_DQ_WMAX)
         tile = SPLIT_DQ_TILE_F32 if sz == 4 else SPLIT_TILE
         part = 4 * rows * tile
-        fixed = 2 * part + sz * 2 * rows * ld + 4 * 2 * rows
-        stage = sz * 2 * tile * ld
-        dq = fixed + (2 if fixed + 2 * stage <= MAX_SMEM else 1) * stage
-        dq += (split_bufs(dq, 2 * part) - 1) * 2 * part
-        ck, wk, wpk = split_plan(d, SPLIT_DKV_WMAX)
-        ldk = wpk + 8
+        if stream:
+            dq = 2 * part + sz * 2 * (rows + tile) * ldp + 4 * 2 * rows
+        else:
+            ld = wpq + 8
+            fixed = 2 * part + sz * 2 * rows * ld + 4 * 2 * rows
+            stage = sz * 2 * tile * ld
+            dq = fixed + (2 if fixed + 2 * stage <= MAX_SMEM else 1) * stage
+            dq += (split_bufs(dq, 2 * part) - 1) * 2 * part
+        ck, wk, wpk, swk, stream = split_plan(d, SPLIT_DKV_WMAX,
+                                              SPLIT_DKV_CLUSTER)
         tile = SPLIT_DKV_TILE_F32 if sz == 4 else SPLIT_TILE
         part = 4 * rows * tile
-        dkv = (2 * part + sz * 2 * rows * ldk
-               + 2 * (sz * 2 * tile * ldk + 2 * tile * 4))
-        dkv += (split_bufs(dkv, 2 * part) - 1) * 2 * part
+        if stream:
+            dkv = 2 * part + sz * 2 * (rows + tile) * ldp + 4 * 2 * tile
+        else:
+            ldk = wpk + 8
+            dkv = (2 * part + sz * 2 * rows * ldk
+                   + 2 * (sz * 2 * tile * ldk + 2 * tile * 4))
+            dkv += (split_bufs(dkv, 2 * part) - 1) * 2 * part
         return dict(bq=rows, bk=SPLIT_TILE, dp=wp, smem=fwd, cluster=c,
                     slice=w, dq_cluster=cq, dq_slice=wq, dq_smem=dq,
-                    dkv_cluster=ck, dkv_slice=wk, dkv_smem=dkv)
-    if route == "split_fma":
-        fwd = 4 * (2 * 32 * 129 + 64 * 65)
-        return dict(bq=64, bk=64, dp=round_up(d, 64), smem=fwd, cluster=1,
-                    slice=64, dq_cluster=1, dq_slice=64,
-                    dq_smem=fwd + 4 * 2 * 64, dkv_cluster=1, dkv_slice=64,
-                    dkv_smem=fwd + 4 * (64 * 65 + 2 * 64))
+                    dkv_cluster=ck, dkv_slice=wk, dkv_smem=dkv, sweeps=sw,
+                    dq_sweeps=swq, dkv_sweeps=swk)
     if route == "wgmma":
         dp = 64 if d <= 64 else 128
         tile = dp // 64 * 128 * 128          # kHalves x 128 rows x 128 B
@@ -225,11 +240,8 @@ def flash_layout(route: str, dtype: str, d: int) -> dict:
 
 
 def flash_route(dtype: str, d: int, aligned: bool) -> str:
-    """``ops._variant``: split_fma for D > SPLIT_DMAX, split for D >
-    FLASH_DMAX, wgmma for 16-byte aligned bf16 with D % 8 == 0 and D <=
-    128, else mma."""
-    if d > SPLIT_DMAX:
-        return "split_fma"
+    """``ops._variant``: split for D > FLASH_DMAX, wgmma for 16-byte
+    aligned bf16 with D % 8 == 0 and D <= 128, else mma."""
     if d > FLASH_DMAX:
         return "split"
     return ("wgmma" if dtype == "bfloat16" and d % 8 == 0 and d <= 128
@@ -373,13 +385,46 @@ def _hub_reuse_site(dims, plan, where, sms, card):
                                                  "d", "h", "f"))
     per_cloud = plan.get("variant") == "per_cloud"
     nb, bb = (b, 1) if per_cloud else (1, b)
+    route = tiling.hub_reuse_route(bb, hn, c, m, k, d, f, sms)
+    nf = -(-f // 64)
+    mismatch = ([] if plan.get("route") in (None, route) else
+                [f"route {plan['route']} launched, {route} derived"])
+    if route == "layered":
+        # three kernels a call: layer 1, layer 2 (H split), the gather,
+        # whose grid (islands x subset tiles, feature tiles) the site
+        # holds; nothing stages the slot table
+        lp = tiling.hub_reuse_layered_plan(bb, hn, c, h, f, sms)
+        mt = -(-m // tiling.GATHER_SUBSETS)
+        site = KernelSite(
+            "hub_reuse", where, dims, plan,
+            grid=(nb, bb * hn * mt, nf),
+            semantics=(PARALLEL, PARALLEL, PARALLEL),
+            out_shape=(nb, bb * hn * mt, f), out_block=(1, 1, 64),
+            out_map=lambda p: [p],
+            smem=tiling.LAYERED_SMEM,
+            launch=dict(route=route, chunk=None, launches=[c],
+                        nsplit=lp["nsplit"], scratch=lp["scratch"]),
+            operands=[OperandInfo("slot table", (m, k), (1, 32), False)],
+            preconditions=[(f"chunk {plan.get('chunk')} is None on the "
+                            f"layered route", plan.get("chunk") is None)],
+            coverage=[(f"layer 2's {lp['nsplit']} splits of "
+                       f"{lp['kper']} rows cover H={h}",
+                       (lp["nsplit"] - 1) * lp["kper"] < h
+                       <= lp["nsplit"] * lp["kper"])],
+            mismatch=mismatch)
+        if card:
+            from ..kernels.hub_reuse import ops
+            lib = ops.library_plan(bb, hn, c, m, k, d, h, f)
+            site.smem_library = lib["smem"]
+            ours = dict(route=route, nsplit=lp["nsplit"],
+                        scratch=lp["scratch"])
+            theirs = {n: lib[n] for n in ours}
+            if theirs != ours:
+                site.mismatch.append(f"layered plan {theirs} from the "
+                                     f"library, {ours} derived")
+        return site
     chunk = plan.get("chunk") or tiling.hub_reuse_chunk(c, m, k, d)
     launches = tiling.hub_reuse_launches(c, chunk)
-    route = tiling.hub_reuse_route(c, m, k, d)
-    # the streamed route stages a warp's slots a tile at a time
-    slots = ((m, round_up(k, 4)) if route == "resident"
-             else (1, tiling.SLOT_TILE))
-    nf = -(-f // 64)
     site = KernelSite(
         "hub_reuse", where, dims, plan,
         grid=(nb, len(launches), bb * hn, nf),
@@ -388,19 +433,18 @@ def _hub_reuse_site(dims, plan, where, sms, card):
         out_map=lambda p: [(p[0], p[2], p[3])],
         smem=tiling.hub_reuse_smem(c, m, k, d, True, chunk),
         launch=dict(route=route, chunk=chunk, launches=launches),
-        operands=[OperandInfo("slot table", (m, k), slots,
-                              route == "resident")],
+        operands=[OperandInfo("slot table", (m, k), (m, round_up(k, 4)),
+                              True)],
         preconditions=[(f"chunk {chunk} in {tiling.CHUNKS}",
                         chunk in tiling.CHUNKS)],
         coverage=[(f"launches {launches} cover the {c} cache rows",
                    sum(launches) == c and all(0 < r <= chunk
                                               for r in launches))],
-        mismatch=([] if plan.get("route") in (None, route) else
-                  [f"route {plan['route']} launched, {route} derived"]))
+        mismatch=mismatch)
     if card:
         from ..kernels.hub_reuse import ops
         site.smem_library = ops.library_smem(c, m, k, d, h, True, chunk)
-        lib_route = ops.library_route(c, m, k, d)
+        lib_route = ops.library_plan(bb, hn, c, m, k, d, h, f)["route"]
         if lib_route != route:
             site.mismatch.append(f"route {lib_route} from the library, "
                                  f"{route} derived")
@@ -448,25 +492,27 @@ def _flash_site(dims, plan, where, sms, card):
                 [f"route {plan['route']} launched, {route} derived"])
     lay = flash_layout(route, dtype, d)
     bq = lay["bq"]
-    split = route in ("split", "split_fma")
-    pre = [(f"D={d} in 1..{FLASH_DMAX} off the split routes",
+    split = route == "split"
+    pre = [(f"D={d} in 1..{FLASH_DMAX} off the split route",
             0 < d and (split or d <= FLASH_DMAX)),
            (f"Hq={hq} a multiple of Hkv={hkv}", hkv > 0 and hq % hkv == 0)]
     if route == "split":
-        for name, c, w in (("forward and dQ", lay["cluster"], lay["slice"]),
-                           ("dK/dV", lay["dkv_cluster"], lay["dkv_slice"])):
+        for name, c, w, most in (
+                ("forward and dQ", lay["cluster"], lay["slice"],
+                 SPLIT_CLUSTER),
+                ("dK/dV", lay["dkv_cluster"], lay["dkv_slice"],
+                 SPLIT_DKV_CLUSTER)):
             pre.append((f"split {name}: {c} blocks a cluster (at most "
-                        f"{SPLIT_CLUSTER}) of {w} columns cover D={d} and "
-                        f"none lies past it",
-                        c <= SPLIT_CLUSTER and (c - 1) * w < d <= c * w))
+                        f"{most}) of {w} columns cover D={d} and none lies "
+                        f"past it", c <= most and (c - 1) * w < d <= c * w))
     if route == "wgmma":
         pre += [(f"wgmma takes bf16, got {dtype}", dtype == "bfloat16"),
                 (f"wgmma's rows of D={d} bf16 are 16-byte multiples",
                  d % 8 == 0 and d <= 128),
                 ("wgmma's TMA bases 16-byte aligned",
                  bool(plan.get("aligned", True)))]
-    # the split routes' grids also run D's slices (on ``split`` the
-    # blocks of a cluster)
+    # the split route's grids also run D's slices (the blocks of a
+    # cluster)
     if split:
         grid, out_shape, out_block = ((b * hq, -(-sq // bq),
                                        -(-d // lay["slice"])),
@@ -660,9 +706,15 @@ def plan_site(kernel: str, dims: dict, knobs: dict, *, sms: int,
     library's own shared memory and wide plan beside the formulas'."""
     plan = {"provenance": "override", "variant": knobs.get("variant"),
             **{n: knobs.get(n) for n in tiling.KNOBS[kernel]}}
-    if kernel == "hub_reuse":
-        plan["chunk"] = knobs.get("chunk", tiling.hub_reuse_chunk(
+    if kernel == "hub_reuse" and "variant" not in knobs:
+        plan["chunk"] = (knobs.get("chunk", tiling.hub_reuse_chunk(
             *(dims[n] for n in ("c", "m", "k", "d"))))
+            if tiling.knobs_of(kernel, dims, sms) else None)
+    elif kernel == "hub_reuse":        # per cloud: its launches' own route
+        one = dict(dims, b=1)
+        plan["chunk"] = (tiling.hub_reuse_chunk(
+            *(dims[n] for n in ("c", "m", "k", "d")))
+            if tiling.knobs_of(kernel, one, sms) else None)
     return site_from_capture({"kernel": kernel, "dims": dims, "plan": plan},
                              f"{where}:{kernel}", sms=sms, card=card)
 

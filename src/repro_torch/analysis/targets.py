@@ -187,8 +187,8 @@ def _entry_targets(device, names=ENTRIES) -> list:
     reduced heads in float32 and bfloat16 and at a head of 320 (the split
     route), ssd_chunk at mamba2-2.7b's reduced widths and at a chunk of
     160 (the tiled route); and one for the FC kernel's routes that no
-    reduced spec reaches: hub_reuse at C = 128 and D = 387 (resident, in
-    64-row chunks) and at D = 700 (streamed)."""
+    reduced spec reaches: hub_reuse at C = 128 and D = 387 and 700 (the
+    layered route)."""
     from ..configs import get_config
     gen = torch.Generator().manual_seed(0)
 

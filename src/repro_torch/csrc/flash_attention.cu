@@ -95,14 +95,11 @@
 //   fragment from shared memory for 16 rows only, and mma.sync has no
 //   asynchronous pipeline to hide the softmax behind.
 //
-// * split (256 < D <= 1024, fp32 or bf16): csrc/flash_split.cuh, D cut
-//   into slices over the blocks of a thread-block cluster (up to 256
-//   columns a block), each block's partial S summed in rank order through
-//   distributed shared memory, the products on mma.sync as on the mma
-//   route.
-// * split_fma (D > 1024): csrc/flash_split_fma.cuh, fp32 on the CUDA
-//   cores, 64 query rows and a 64-column slice of D a block, S summed
-//   over all of D; correct, not tuned.
+// * split (D > 256, fp32 or bf16): csrc/flash_split.cuh, D cut into
+//   slices over the blocks of a thread-block cluster (up to 256 columns a
+//   block held, wider slices streamed in pieces and taken in sweeps), each
+//   block's partial S summed in rank order through distributed shared
+//   memory, the products on mma.sync as on the mma route.
 //
 // The routes round differently from the TPU kernel, which multiplies p by
 // v in fp32: bf16 on either route rounds P to bf16 first, as tensor-core
@@ -120,7 +117,6 @@
 #include <stdint.h>
 
 #include "flash_split.cuh"
-#include "flash_split_fma.cuh"
 #include "sm90.cuh"
 #include "tf32x3.cuh"
 
@@ -937,28 +933,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 // log-sum-exp in the kernels' log2 domain, log2(sum_j exp2(q_i . k_j *
 // scale * log2(e))) over the visible keys (lse2 above), which
 // flash_attention_bwd reads
-namespace {
-
-template <typename T>
-cudaError_t launch_split_fma(const void* q, const void* k, const void* v,
-                             void* o, float* lse, int B, int Hq, int Hkv,
-                             int Sq, int Skv, int D, int causal,
-                             cudaStream_t stream) {
-  namespace sf = split_fma;
-  const dim3 grid = sf::grid(Sq, (long long)B * Hq, D);
-  if (grid.y > 65535 || grid.z > 65535) return cudaErrorInvalidValue;
-  const cudaError_t err = sf::smem_attr(sf::flash_split_fwd<T>, sf::kFwdSmem);
-  if (err != cudaSuccess) return err;
-  sf::flash_split_fwd<T><<<grid, sf::kBlock, sf::kFwdSmem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, lse,
-      sf::make_shape(Hq, Hkv, Sq, Skv, D, causal));
-  return cudaGetLastError();
-}
-
-}  // namespace
-
 // variant: 0 mma, 1 wgmma (bf16, D % 8 == 0, D <= 128, 16-byte aligned),
-// 2 split (256 < D <= 1024, clusters), 3 split_fma (D > 1024)
+// 2 split (D > 256, clusters)
 extern "C" int flash_attention_forward(const void* q, const void* k,
                                        const void* v, void* o, void* lse,
                                        int B, int Hq, int Hkv, int Sq,
@@ -969,23 +945,13 @@ extern "C" int flash_attention_forward(const void* q, const void* k,
   const cudaStream_t st = (cudaStream_t)stream;
   float* l = static_cast<float*>(lse);
   if (variant == 2) {
-    if (D <= kDMax || D > split::kReach) return (int)cudaErrorInvalidValue;
+    if (D <= kDMax) return (int)cudaErrorInvalidValue;
     if (dtype == 0)
       return (int)split::launch_fwd<float>(q, k, v, o, l, B, Hq, Hkv, Sq, Skv,
                                            D, causal, st);
     if (dtype == 1)
       return (int)split::launch_fwd<__nv_bfloat16>(q, k, v, o, l, B, Hq, Hkv,
                                                    Sq, Skv, D, causal, st);
-    return (int)cudaErrorInvalidValue;
-  }
-  if (variant == 3) {
-    if (D <= split::kReach) return (int)cudaErrorInvalidValue;
-    if (dtype == 0)
-      return (int)launch_split_fma<float>(q, k, v, o, l, B, Hq, Hkv, Sq, Skv,
-                                          D, causal, st);
-    if (dtype == 1)
-      return (int)launch_split_fma<__nv_bfloat16>(q, k, v, o, l, B, Hq, Hkv,
-                                                  Sq, Skv, D, causal, st);
     return (int)cudaErrorInvalidValue;
   }
   if (D > kDMax) return (int)cudaErrorInvalidValue;
@@ -1012,7 +978,8 @@ extern "C" int flash_attention_forward(const void* q, const void* k,
 
 namespace {
 
-// out[5..12]: one block a cluster, the slice D padded, no backward passes
+// out[5..6]: one block a cluster, the slice D padded; no sweeps, no
+// backward passes
 template <typename T, int DP>
 void mm_layout(int* out) {
   using C = mm::Cfg<T, DP>;
@@ -1023,6 +990,7 @@ void mm_layout(int* out) {
   out[4] = C::kThreads;
   out[5] = 1;
   out[6] = DP;
+  out[13] = 1;
 }
 
 template <int DP>
@@ -1034,14 +1002,16 @@ void wg_layout(int* out) {
   out[4] = wg::kThreads;
   out[5] = 1;
   out[6] = DP;
+  out[13] = 1;
 }
 
-// the split route: the forward's rows, keys and padded slice; its shared
-// memory, threads, blocks a cluster and slice width; then each backward
-// pass's blocks a cluster, slice and shared memory (split::layout)
+// the split route: the forward's rows, keys and padded slice (its piece
+// where streamed); its shared memory, threads, blocks a cluster and slice
+// width; then each backward pass's blocks a cluster, slice and shared
+// memory; then each pass's sweeps (split::layout)
 template <typename T>
 void split_layout(int D, int* out) {
-  int lay[12];
+  int lay[15];
   split::layout<T>(D, lay);
   out[0] = split::kRows;
   out[1] = split::kTile;
@@ -1050,12 +1020,15 @@ void split_layout(int D, int* out) {
   out[4] = split::kThreads;
   out[5] = lay[0];
   out[6] = lay[1];
-  out[7] = lay[4];
-  out[8] = lay[5];
-  out[9] = lay[7];
-  out[10] = lay[8];
-  out[11] = lay[9];
-  out[12] = lay[11];
+  out[7] = lay[5];
+  out[8] = lay[6];
+  out[9] = lay[8];
+  out[10] = lay[10];
+  out[11] = lay[11];
+  out[12] = lay[13];
+  out[13] = lay[4];
+  out[14] = lay[9];
+  out[15] = lay[14];
 }
 
 }  // namespace
@@ -1063,39 +1036,22 @@ void split_layout(int D, int* out) {
 // the tiles flash_attention_forward (and, on the split routes,
 // flash_attention_backward) launches for a route (variant and dtype as it
 // takes them) and D: {query rows a block, keys a kv tile, D padded (a
-// block's slice of it on the split routes), a block's shared memory
-// bytes, threads, blocks a cluster, columns of D a block, then the dQ
-// pass's blocks a cluster, slice and shared memory and the dK/dV pass's
-// (0 where the route's backward is not reported)}: 13 ints; 0, or an
-// error for a route the call cannot take
+// block's slice of it on the split route, a piece of that where it
+// streams), a block's shared memory bytes, threads, blocks a cluster,
+// columns of D a block, then the dQ pass's blocks a cluster, slice and
+// shared memory and the dK/dV pass's (0 where the route's backward is not
+// reported), then the forward's, the dQ pass's and the dK/dV pass's
+// sweeps}: 16 ints; 0, or an error for a route the call cannot take
 extern "C" int flash_attention_layout(int variant, int dtype, int D,
                                       int* out) {
-  for (int i = 0; i < 13; ++i) out[i] = 0;
+  for (int i = 0; i < 16; ++i) out[i] = 0;
   if (variant == 2) {
-    if (D <= kDMax || D > split::kReach || (dtype != 0 && dtype != 1))
+    if (D <= kDMax || (dtype != 0 && dtype != 1))
       return (int)cudaErrorInvalidValue;
     if (dtype == 0)
       split_layout<float>(D, out);
     else
       split_layout<__nv_bfloat16>(D, out);
-    return 0;
-  }
-  if (variant == 3) {
-    if (D <= split::kReach || (dtype != 0 && dtype != 1))
-      return (int)cudaErrorInvalidValue;
-    out[0] = split_fma::kT;
-    out[1] = split_fma::kT;
-    out[2] = (D + split_fma::kT - 1) / split_fma::kT * split_fma::kT;
-    out[3] = (int)split_fma::kFwdSmem;
-    out[4] = split_fma::kBlock;
-    out[5] = 1;
-    out[6] = split_fma::kT;
-    out[7] = 1;
-    out[8] = split_fma::kT;
-    out[9] = (int)split_fma::kDqSmem;
-    out[10] = 1;
-    out[11] = split_fma::kT;
-    out[12] = (int)split_fma::kDkvSmem;
     return 0;
   }
   if (D < 1 || D > kDMax) return (int)cudaErrorInvalidValue;

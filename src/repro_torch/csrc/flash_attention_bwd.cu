@@ -77,15 +77,13 @@
 //   16 bytes or with D * sizeof(T) % 16 != 0 load element by element into
 //   the same stages.
 //
-// * split (256 < D <= 1024, fp32 or bf16): csrc/flash_split.cuh, the same
-//   two passes with D cut into slices over the blocks of a thread-block
-//   cluster (up to 256 columns a block in the dQ pass, 128 in the dK/dV
-//   pass), the partials of S and dP summed in rank order through
+// * split (D > 256, fp32 or bf16): csrc/flash_split.cuh, the same two
+//   passes with D cut into slices over the blocks of a thread-block
+//   cluster (up to 256 columns a block held in the dQ pass, 128 in the
+//   dK/dV pass; wider slices taken in sweeps, past 256 columns streamed in
+//   pieces), the partials of S and dP summed in rank order through
 //   distributed shared memory, the products on mma.sync; the dK/dV pass
 //   walks the group's query heads in order.
-// * split_fma (D > 1024): csrc/flash_split_fma.cuh, fp32 on the CUDA
-//   cores, the same two passes with 64 rows and a 64-column slice of D a
-//   block (S and dP summed over all of D); correct, not tuned.
 //
 // Rows past Sq or Skv load as zero and are masked, so a ragged last tile
 // gives P = 0 there.  What bounds it on an H100: the five products of the
@@ -104,7 +102,6 @@
 #include <type_traits>
 
 #include "flash_split.cuh"
-#include "flash_split_fma.cuh"
 #include "sm90.cuh"
 #include "tf32x3.cuh"
 
@@ -1249,36 +1246,13 @@ cudaError_t launch_wgmma(const Args& a) {
              a.Sq, a.Skv, a.D, scale_log2, scale, a.causal);
 }
 
-template <typename T>
-cudaError_t launch_split_fma(const Args& a) {
-  namespace sf = split_fma;
-  const sf::Shape sh = sf::make_shape(a.Hq, a.Hkv, a.Sq, a.Skv, a.D,
-                                      a.causal);
-  const dim3 g1 = sf::grid(a.Sq, (long long)a.B * a.Hq, a.D);
-  const dim3 g2 = sf::grid(a.Skv, (long long)a.B * a.Hkv, a.D);
-  if (g1.y > 65535 || g1.z > 65535) return cudaErrorInvalidValue;
-  cudaError_t err = sf::smem_attr(sf::flash_split_dq<T>, sf::kDqSmem);
-  if (err != cudaSuccess) return err;
-  err = sf::smem_attr(sf::flash_split_dkv<T>, sf::kDkvSmem);
-  if (err != cudaSuccess) return err;
-  sf::flash_split_dq<T><<<g1, sf::kBlock, sf::kDqSmem, a.stream>>>(
-      (const T*)a.q, (const T*)a.k, (const T*)a.v, (const T*)a.o,
-      (const T*)a.dout, a.lse, (T*)a.dq, a.dsum, sh);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  sf::flash_split_dkv<T><<<g2, sf::kBlock, sf::kDkvSmem, a.stream>>>(
-      (const T*)a.q, (const T*)a.k, (const T*)a.v, (const T*)a.dout, a.lse,
-      (const float*)a.dsum, (T*)a.dk, (T*)a.dv, sh);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 // dq (B, Hq, Sq, D), dk and dv (B, Hkv, Skv, D) in the inputs' type (dtype
 // 0 fp32, 1 bf16); lse: the forward's (flash_attention_forward), B * Hq *
 // Sq floats; dsum: B * Hq * Sq floats of scratch.  variant: 0 mma, 1 wgmma
 // (bf16, D % 8 == 0, D <= 128, q, k, v, o and dout 16-byte aligned), 2
-// split (256 < D <= 1024, clusters), 3 split_fma (D > 1024).  Two
+// split (D > 256, clusters).  Two
 // launches on `stream`; returns the first cudaError_t that is not success.
 extern "C" int flash_attention_backward(const void* q, const void* k,
                                         const void* v, const void* o,
@@ -1294,7 +1268,7 @@ extern "C" int flash_attention_backward(const void* q, const void* k,
                static_cast<float*>(dsum), B, Hq, Hkv, Sq, Skv, D, causal,
                (cudaStream_t)stream};
   if (variant == 2) {
-    if (D <= kDMax || D > split::kReach) return (int)cudaErrorInvalidValue;
+    if (D <= kDMax) return (int)cudaErrorInvalidValue;
     const float* l = a.lse;
     if (dtype == 0)
       return (int)split::launch_bwd<float>(q, k, v, o, dout, l, dq, dk, dv,
@@ -1305,12 +1279,6 @@ extern "C" int flash_attention_backward(const void* q, const void* k,
                                                    dk, dv, a.dsum, B, Hq, Hkv,
                                                    Sq, Skv, D, causal,
                                                    a.stream);
-    return (int)cudaErrorInvalidValue;
-  }
-  if (variant == 3) {
-    if (D <= split::kReach) return (int)cudaErrorInvalidValue;
-    if (dtype == 0) return (int)launch_split_fma<float>(a);
-    if (dtype == 1) return (int)launch_split_fma<__nv_bfloat16>(a);
     return (int)cudaErrorInvalidValue;
   }
   if (D > kDMax) return (int)cudaErrorInvalidValue;

@@ -1,10 +1,9 @@
 // flash_split.cuh: flash_attention's split route, forward
-// (flash_attention.cu) and backward (flash_attention_bwd.cu), for heads
-// wider than the tensor-core routes' 256 columns, up to kReach (1024);
-// flash_split_fma.cuh takes the wider ones.  bf16 or fp32 in, the input's
-// type out; every product on the tensor cores with mma.sync (bf16
-// m16n8k16 with fp32 accumulation, fragments by ldmatrix; fp32 in 3xTF32
-// through tf32x3.cuh), as the mma route of those files.
+// (flash_attention.cu) and backward (flash_attention_bwd.cu), for every
+// head wider than the tensor-core routes' 256 columns.  bf16 or fp32 in,
+// the input's type out; every product on the tensor cores with mma.sync
+// (bf16 m16n8k16 with fp32 accumulation, fragments by ldmatrix; fp32 in
+// 3xTF32 through tf32x3.cuh), as the mma route of those files.
 //
 // What bounds it on an H100: the products, as on the other routes (at B =
 // 1, 8 heads, S = 2048, causal, D = 512: 34.4 GFLOP forward, 0.035 ms at
@@ -43,7 +42,28 @@
 // * dK/dV pass: keys are the rows, the group's query heads walked in
 //   order; per query tile the partials of S^T and dP^T exchanged, dv_slice
 //   += P^T dO[:, slice], dk_slice += dS^T q[:, slice].  dK and dV both
-//   live in registers, so its slices are half as wide (kDkvWMax).
+//   live in registers, so a pass holds half as many columns (kDkvWMax).
+//
+// Past 8 slices.  A portable cluster has kMaxCluster blocks, so past 8
+// slices a block's slice is wider than its pass holds in registers (256
+// columns of O or dQ, 128 of dK and of dV).
+// * dK/dV pass, 1024 < D <= 2048: a non-portable cluster of up to
+//   kDkvCluster blocks of 128 columns, as above.  (The alternative, 8
+//   blocks of up to 256 columns in two sweeps of half a slice each, forms
+//   S and dP twice and holds one block an SM in fp32: 1.62x slower in
+//   fp32 and 1.45x in bf16 on an H100 at D = 1040.)
+// * any pass, slices past 256 columns (D > 2048 in the forward and the dQ
+//   pass, past 16 slices of 128 in the dK/dV pass): the streamed kernels
+//   below, in sweeps.  Sweep j is a cluster of its own (grid x runs over
+//   heads, sweeps and ranks), which forms the same full partial S (and
+//   dP) over the block's whole slice, exchanges it as above, and
+//   accumulates only its own piece of the output.  The slice is cut into
+//   pieces of kPiece columns; for each tile a block loads its rows' and
+//   the tile's piece at a time and sums the pieces' products into its
+//   partial (the sweep's own piece last, so its q, K, dO or V is still in
+//   shared memory for the output's product).  No slice stays resident, so
+//   any D runs, the products of S paid once a piece and a sweep; one stage
+//   and one buffer: no speed was sought.
 //
 // The backward's two partial products of a tile run in one k loop
 // (gemm_nt2), which doubles the independent accumulators a warp has in
@@ -54,8 +74,8 @@
 // bf16): fp32 is copied an element at a time by cp.async; bf16 tiles that
 // stream are copied as each row's aligned 16-byte blocks, by cp.async into
 // the second stage, and shifted into the first once they land (place_tile);
-// the tiles loaded once by plain loads of those blocks, shifted in
-// registers (load16).
+// the tiles loaded once, and every tile of the streamed kernels, by plain
+// loads of those blocks, shifted in registers (load16).
 //
 // bf16 rounds P (and dS) to bf16 before their products, as the other
 // routes do.  A cluster launch the card refuses returns its error; the
@@ -84,10 +104,12 @@ constexpr int kTile = 32;           // keys a kv tile (forward); rows a
 constexpr int kDqTileF32 = 32;      //   but fp32's dQ pass
 constexpr int kDkvTileF32 = 16;     //   and dK/dV pass (see Dq, Dkv)
 constexpr int kMaxCluster = 8;      // the portable cluster size
-constexpr int kFwdWMax = 256;       // widest slice: forward
+constexpr int kDkvCluster = 16;     // the dK/dV pass's, non-portable
+constexpr int kFwdWMax = 256;       // columns a pass holds: forward
 constexpr int kDqWMax = 256;        //   dQ pass
 constexpr int kDkvWMax = 128;       //   dK/dV pass (two accumulators)
-constexpr int kReach = kMaxCluster * kDkvWMax;   // the widest head
+constexpr int kResMax = 256;        // widest slice kept in shared memory
+constexpr int kPiece = 128;         // columns a piece (streamed kernels)
 constexpr int kSmemMax = 232448;    // shared memory a block can have
 constexpr int kSmemSm = 233472;     // shared memory of an SM
 
@@ -107,19 +129,28 @@ __host__ __device__ constexpr int bufs(int one, int part) {
 }
 
 // D cut into c slices of w columns (w a multiple of 16, the last slice
-// zero-padded), each padded to wp in shared memory and registers
+// zero-padded) for a pass holding wmax columns in registers: c =
+// ceil(D / wmax) where that is at most cmax, else kMaxCluster (past
+// kMaxCluster blocks, a cluster the card may refuse: the dK/dV pass asks
+// for up to kDkvCluster).  A slice up to kResMax wide (then at most
+// wmax) is padded to wp (128, 192 or 256) in shared memory, one sweep; a
+// wider one (past cmax slices) streams (`stream`) in pieces of wp =
+// kPiece columns, one sweep a piece.
 struct Plan {
-  int c, w, wp;
+  int c, w, wp, sweeps, stream;
 };
 
 __host__ __device__ constexpr int padded(int w) {
   return w <= 128 ? 128 : w <= 192 ? 192 : 256;
 }
 
-__host__ __device__ constexpr Plan plan(int D, int wmax) {
-  const int c = (D + wmax - 1) / wmax;
+__host__ __device__ constexpr Plan plan(int D, int wmax,
+                                        int cmax = kMaxCluster) {
+  const int c0 = (D + wmax - 1) / wmax;
+  const int c = c0 <= cmax ? c0 : kMaxCluster;
   const int w = ((D + c - 1) / c + 15) / 16 * 16;
-  return Plan{c, w, padded(w)};
+  if (w > kResMax) return Plan{c, w, kPiece, (w + kPiece - 1) / kPiece, 1};
+  return Plan{c, w, padded(w), 1, 0};
 }
 
 // ---- tiles and shared memory of each pass ---------------------------------
@@ -441,13 +472,11 @@ __device__ __forceinline__ void zero(float (&acc)[N][4]) {
 // row-major tiles in shared memory with rows LD apart (B's NC rows are s's
 // columns).  Accumulator fragment of the m16n8 tile j, lane 4 g + t: s[j] =
 // (g, 8 j + 2t), (g, 8 j + 2t + 1), (g + 8, 8 j + 2t), (g + 8, 8 j + 2t + 1).
-template <typename T, int WP, int NC, int LD>
+// (ZERO false: s += A · B^T)
+template <typename T, int WP, int NC, int LD, bool ZERO = true>
 __device__ __forceinline__ void gemm_nt(float (&s)[NC / 8][4], const T* a,
                                         int row0, const T* b, int lane) {
-#pragma unroll
-  for (int j = 0; j < NC / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+  if constexpr (ZERO) zero(s);
   if constexpr (sizeof(T) == 4) {
 #pragma unroll 2
     for (int ks = 0; ks < WP / 8; ++ks) {
@@ -477,14 +506,17 @@ __device__ __forceinline__ void gemm_nt(float (&s)[NC / 8][4], const T* a,
 
 // The backward's two partial products of a tile at once, s = A · B^T and
 // t = A2 · B2^T (A and A2 row-major with the same rows, B and B2 with NC
-// rows), in one k loop: twice the independent accumulators in flight.
-template <typename T, int WP, int NC, int LD>
+// rows), in one k loop: twice the independent accumulators in flight
+// (ZERO false: s and t accumulate).
+template <typename T, int WP, int NC, int LD, bool ZERO = true>
 __device__ __forceinline__ void gemm_nt2(float (&s)[NC / 8][4],
                                          float (&t)[NC / 8][4], const T* a,
                                          const T* a2, int row0, const T* b,
                                          const T* b2, int lane) {
-  zero(s);
-  zero(t);
+  if constexpr (ZERO) {
+    zero(s);
+    zero(t);
+  }
   if constexpr (sizeof(T) == 4) {
 #pragma unroll 2
     for (int ks = 0; ks < WP / 8; ++ks) {
@@ -686,6 +718,87 @@ __device__ __forceinline__ void store_rows(T* dst, long long ld,
 
 // ---- forward --------------------------------------------------------------
 
+// One kv tile of the forward's online softmax in the log2 domain, on a
+// warp's summed S tile s (16 rows from row_lo by keys from k0): keys past
+// Skv (or, causal, past a row) masked, the rows' running max m_run and sum
+// l_run (a partial over the lane's columns) updated, acc rescaled and s
+// replaced by P.  Row i of the lane's is e >> 1.
+template <int NA>
+__device__ __forceinline__ void softmax_tile(float (&s)[kTile / 8][4],
+                                             float (&acc)[NA][4],
+                                             float (&m_run)[2],
+                                             float (&l_run)[2], int k0,
+                                             int row_lo, int Skv, int causal,
+                                             float scale_log2, int lane) {
+  const int g = lane / 4, t = lane % 4;
+  if (k0 + kTile > Skv || (causal && k0 + kTile - 1 > row_lo)) {
+#pragma unroll
+    for (int j = 0; j < kTile / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = k0 + 8 * j + 2 * t + (e & 1);
+        const int row = row_lo + g + 8 * (e >> 1);
+        if (col >= Skv || (causal && col > row)) s[j][e] = -INFINITY;
+      }
+  }
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < kTile / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+  float base[2], corr[2], rsum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    const float mnew = fmaxf(m_run[i], mx[i] * scale_log2);
+    base[i] = mnew == -INFINITY ? 0.f : mnew;
+    corr[i] = ex2(m_run[i] - base[i]);
+    m_run[i] = mnew;
+  }
+#pragma unroll
+  for (int j = 0; j < kTile / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[j][e] = ex2(fmaf(s[j][e], scale_log2, -base[e >> 1]));
+      rsum[e >> 1] += s[j][e];
+    }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) l_run[i] = corr[i] * l_run[i] + rsum[i];
+#pragma unroll
+  for (int n = 0; n < NA; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] *= corr[e >> 1];
+}
+
+// The forward's end for a warp's 16 rows from row_lo: l reduced over the
+// row's 4 lanes, the log-sum-exp into lse at rows base + row (where lse is
+// not null), O = acc / l into dst (rows D apart), its first `cols` columns
+template <typename T, int NN>
+__device__ __forceinline__ void finish_rows(T* dst, int D,
+                                            const float (&acc)[NN / 8][4],
+                                            const float (&m_run)[2],
+                                            float (&l_run)[2], float* lse,
+                                            long long base, int row_lo,
+                                            int Sq, int cols, int lane) {
+  const int g = lane / 4, t = lane % 4;
+  float inv[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l_run[i] += __shfl_xor_sync(0xffffffffu, l_run[i], 1);
+    l_run[i] += __shfl_xor_sync(0xffffffffu, l_run[i], 2);
+    const int row = row_lo + g + 8 * i;
+    if (lse != nullptr && t == 0 && row < Sq)
+      lse[base + row] =
+          m_run[i] == -INFINITY ? 0.f : m_run[i] + log2f(l_run[i]);
+    inv[i] = 1.f / fmaxf(l_run[i], 1e-20f);
+  }
+  const bool pairs =
+      D % 2 == 0 && reinterpret_cast<uintptr_t>(dst) % (2 * sizeof(T)) == 0;
+  if (row_lo < Sq)
+    store_rows<T, NN>(dst, D, acc, inv, row_lo, Sq, cols, pairs, lane);
+}
+
 // grid (B Hq c, query tiles from the last), clusters of c along x: block
 // rank r of the cluster at x takes head x / c, columns [r w, r w + w)
 template <typename T, int WP>
@@ -703,7 +816,6 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   cg::cluster_group cl = cg::this_cluster();
   const int c = (int)cl.num_blocks(), rank = (int)cl.block_rank();
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
   const int bh = blockIdx.x / c;                          // b * Hq + h
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;   // heavy tiles first
   const long long kvh =
@@ -765,69 +877,94 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (live) sum_parts<ranks_a_round<T>()>(s, x, warp, lane);
     xch_read<C::kBufs>();
     if (!live) continue;
-    if (k0 + kTile > Skv || (causal && k0 + kTile - 1 > row_lo)) {
-#pragma unroll
-      for (int j = 0; j < kTile / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = k0 + 8 * j + 2 * t + (e & 1);
-          const int row = row_lo + g + 8 * (e >> 1);
-          if (col >= Skv || (causal && col > row)) s[j][e] = -INFINITY;
-        }
-    }
-    // online softmax in the log2 domain; row i of mine is e >> 1
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int j = 0; j < kTile / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
-    float base[2], corr[2], rsum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      const float mnew = fmaxf(m_run[i], mx[i] * scale_log2);
-      base[i] = mnew == -INFINITY ? 0.f : mnew;
-      corr[i] = ex2(m_run[i] - base[i]);
-      m_run[i] = mnew;
-    }
-#pragma unroll
-    for (int j = 0; j < kTile / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[j][e] = ex2(fmaf(s[j][e], scale_log2, -base[e >> 1]));
-        rsum[e >> 1] += s[j][e];
-      }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) l_run[i] = corr[i] * l_run[i] + rsum[i];
-#pragma unroll
-    for (int n = 0; n < WP / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[n][e] *= corr[e >> 1];
+    softmax_tile(s, acc, m_run, l_run, k0, row_lo, Skv, causal, scale_log2,
+                 lane);
     gemm_pv<T, kTile, WP, C::kLdV>(acc, s, vb, lane);
   }
   xch_close<C::kBufs>();
-
-  // l is a partial sum over my columns: reduce over the row's 4 lanes
-  float inv[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l_run[i] += __shfl_xor_sync(0xffffffffu, l_run[i], 1);
-    l_run[i] += __shfl_xor_sync(0xffffffffu, l_run[i], 2);
-    const int row = row_lo + g + 8 * i;
-    if (lse != nullptr && rank == 0 && t == 0 && row < Sq)
-      lse[(long long)bh * Sq + row] =
-          m_run[i] == -INFINITY ? 0.f : m_run[i] + log2f(l_run[i]);
-    inv[i] = 1.f / fmaxf(l_run[i], 1e-20f);
-  }
-  const bool pairs =
-      D % 2 == 0 && reinterpret_cast<uintptr_t>(o) % (2 * sizeof(T)) == 0;
-  if (row_lo < Sq)
-    store_rows<T, WP>(o + (long long)bh * Sq * D + col0, D, acc, inv, row_lo,
-                      Sq, cols, pairs, lane);
+  finish_rows<T, WP>(o + (long long)bh * Sq * D + col0, D, acc, m_run, l_run,
+                     rank == 0 ? lse : nullptr, (long long)bh * Sq, row_lo,
+                     Sq, cols, lane);
 }
 
 // ---- backward: dQ pass ----------------------------------------------------
+
+// the rows' D_i = dO_i . O_i over the cluster's slices (each block's
+// partial over its `cols` columns from col0, summed in rank order through
+// xd, a buffer of partials), into di_rows, and their LSE into lse_rows,
+// for the 16 rows from row_lo of warp rg; rank 0 of sweep 0 stores D_i in
+// dsum.  Leaves the exchange as xch_read leaves it.
+template <typename T>
+__device__ __forceinline__ void dq_rows(const T* dout, const T* o,
+                                        const float* lse, float* dsum,
+                                        float* xd, float* lse_rows,
+                                        float* di_rows, long long base,
+                                        int q0, int Sq, int D, int col0,
+                                        int cols, bool first, int rg,
+                                        bool active, int lane) {
+  cg::cluster_group cl = cg::this_cluster();
+  const int c = (int)cl.num_blocks(), rank = (int)cl.block_rank();
+  const int g = lane / 4, t = lane % 4;
+  const int row_lo = q0 + 16 * rg;
+  if (active) {
+#pragma unroll 4
+    for (int r = 0; r < 16; ++r) {
+      float a = 0.f;
+      if (row_lo + r < Sq) {
+        const long long at = (base + 16 * rg + r) * D + col0;
+        for (int cc = lane; cc < cols; cc += 32)
+          a += to_f32(dout[at + cc]) * to_f32(o[at + cc]);
+      }
+      a = warp_sum(a);
+      if (lane == 0) xd[16 * rg + r] = a;
+    }
+  }
+  xch_stored();
+  if (active) {
+    float di[2] = {0.f, 0.f};
+    for (int r = 0; r < c; ++r) {
+      const float* x = r == rank ? xd : cl.map_shared_rank(xd, r);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) di[i] += x[16 * rg + g + 8 * i];
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = row_lo + g + 8 * i;
+      if (t == 0) {
+        lse_rows[16 * rg + g + 8 * i] =
+            row < Sq ? lse[base + 16 * rg + g + 8 * i] : 0.f;
+        di_rows[16 * rg + g + 8 * i] = di[i];
+      }
+      if (first && rank == 0 && t == 0 && row < Sq)
+        dsum[base + 16 * rg + g + 8 * i] = di[i];
+    }
+  }
+}
+
+// dS = P (dP - D_i) on a warp's summed S and dP tiles (16 rows from
+// row_lo by keys from k0; rows' LSE and D_i at lse_rows, di_rows), into s
+template <int NK>
+__device__ __forceinline__ void dq_ds(float (&s)[NK / 8][4],
+                                      const float (&dp)[NK / 8][4],
+                                      const float* lse_rows,
+                                      const float* di_rows, int k0,
+                                      int row_lo, int Skv, int causal,
+                                      float scale_log2, int lane) {
+  const int g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int j = 0; j < NK / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = k0 + 8 * j + 2 * t + (e & 1);
+      const int row = row_lo + g + 8 * (e >> 1);
+      const bool hidden = col >= Skv || (causal && col > row);
+      const float p = hidden ? 0.f
+                             : ex2(fmaf(s[j][e], scale_log2,
+                                        -lse_rows[g + 8 * (e >> 1)]));
+      s[j][e] = p * (dp[j][e] - di_rows[g + 8 * (e >> 1)]);
+    }
+}
+
 
 // grid (B Hq c, query tiles from the last), clusters of c along x.  Two
 // warps a 16 rows (kDqThreads), warp ch of them over columns [ch WP / 2,
@@ -860,7 +997,6 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int c = (int)cl.num_blocks(), rank = (int)cl.block_rank();
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int rg = warp % 4, ch = warp / 4;   // row group, column ch
-  const int g = lane / 4, t = lane % 4;
   const int bh = blockIdx.x / c;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;
   const long long kvh =
@@ -896,40 +1032,8 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // them for the dK/dV pass), through the last buffer, which tile 0 leaves
   // alone
   const int row_lo = q0 + 16 * rg;      // my rows: row_lo + g, row_lo + g + 8
-  float* xd = xch + (kBufs - 1) * 2 * kPart;
-  if (ch == 0) {
-#pragma unroll 4
-    for (int r = 0; r < 16; ++r) {
-      float a = 0.f;
-      if (row_lo + r < Sq) {
-        const long long at = (base + 16 * rg + r) * D + col0;
-        for (int cc = lane; cc < cols; cc += 32)
-          a += to_f32(dout[at + cc]) * to_f32(o[at + cc]);
-      }
-      a = warp_sum(a);
-      if (lane == 0) xd[16 * rg + r] = a;
-    }
-  }
-  xch_stored();
-  if (ch == 0) {
-    float di[2] = {0.f, 0.f};
-    for (int r = 0; r < c; ++r) {
-      const float* x = r == rank ? xd : cl.map_shared_rank(xd, r);
-#pragma unroll
-      for (int i = 0; i < 2; ++i) di[i] += x[16 * rg + g + 8 * i];
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int row = row_lo + g + 8 * i;
-      if (t == 0) {
-        lse_rows[16 * rg + g + 8 * i] =
-            row < Sq ? lse[base + 16 * rg + g + 8 * i] : 0.f;
-        di_rows[16 * rg + g + 8 * i] = di[i];
-      }
-      if (rank == 0 && t == 0 && row < Sq)
-        dsum[base + 16 * rg + g + 8 * i] = di[i];
-    }
-  }
+  dq_rows(dout, o, lse, dsum, xch + (kBufs - 1) * 2 * kPart, lse_rows,
+          di_rows, base, q0, Sq, D, col0, cols, true, rg, ch == 0, lane);
   xch_read<kBufs>();
   const bool live_rows = row_lo < Sq;
 
@@ -985,19 +1089,8 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     xch_read<kBufs>();
     if (!live) continue;
-#pragma unroll
-    for (int j = 0; j < kBK / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + 8 * j + 2 * t + (e & 1);
-        const int row = row_lo + g + 8 * (e >> 1);
-        const bool hidden = col >= Skv || (causal && col > row);
-        const float p =
-            hidden ? 0.f
-                   : ex2(fmaf(s[j][e], scale_log2,
-                              -lse_rows[16 * rg + g + 8 * (e >> 1)]));
-        s[j][e] = p * (dp[j][e] - di_rows[16 * rg + g + 8 * (e >> 1)]);
-      }
+    dq_ds<kBK>(s, dp, lse_rows + 16 * rg, di_rows + 16 * rg, k0, row_lo, Skv,
+               causal, scale_log2, lane);
     gemm_pv<T, kBK, kH, kLd>(acc, s, kb, lane);
   }
   xch_close<kBufs>();
@@ -1010,6 +1103,25 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---- backward: dK/dV pass -------------------------------------------------
+
+// a warp's 16 keys from key_lo of dV and dK (times scale), their first
+// `cols` columns, at dk + off and dv + off (rows D apart)
+template <typename T, int NN>
+__device__ __forceinline__ void store_kv(T* dk, T* dv,
+                                         const float (&adk)[NN / 8][4],
+                                         const float (&adv)[NN / 8][4],
+                                         long long off, int D, int key_lo,
+                                         int Skv, int cols, float scale,
+                                         int lane) {
+  const bool pairs = D % 2 == 0 &&
+                     (reinterpret_cast<uintptr_t>(dk) |
+                      reinterpret_cast<uintptr_t>(dv)) % (2 * sizeof(T)) == 0;
+  if (key_lo < Skv) {
+    const float one[2] = {1.f, 1.f}, mul[2] = {scale, scale};
+    store_rows<T, NN>(dv + off, D, adv, one, key_lo, Skv, cols, pairs, lane);
+    store_rows<T, NN>(dk + off, D, adk, mul, key_lo, Skv, cols, pairs, lane);
+  }
+}
 
 // grid (B Hkv c, key tiles), clusters of c along x; key tile 0, which sees
 // every query row when causal, first
@@ -1150,28 +1262,350 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   tf32x3::cp_async_wait<0>();
   xch_close<kBufs>();
-  const bool pairs = D % 2 == 0 &&
-                     (reinterpret_cast<uintptr_t>(dk) |
-                      reinterpret_cast<uintptr_t>(dv)) % (2 * sizeof(T)) == 0;
-  if (key_lo < Skv) {
-    const float one[2] = {1.f, 1.f}, mul[2] = {scale, scale};
-    const long long off = (long long)bkv * Skv * D + col0;
-    store_rows<T, WP>(dv + off, D, adv, one, key_lo, Skv, cols, pairs, lane);
-    store_rows<T, WP>(dk + off, D, adk, mul, key_lo, Skv, cols, pairs, lane);
+  store_kv<T, WP>(dk, dv, adk, adv, (long long)bkv * Skv * D + col0, D,
+                  key_lo, Skv, cols, scale, lane);
+}
+
+// ---- the streamed kernels: slices past kResMax ----------------------------
+
+// Pieces of kPiece columns, rows kLdP apart (V's ld_pv() in fp32, for
+// load_b); one stage a tile, one buffer of partials.
+constexpr int kLdP = kPiece + 8;
+template <typename T>
+__host__ __device__ constexpr int ld_pv() {
+  return sizeof(T) == 4 ? kPiece + 4 : kLdP;
+}
+
+// forward: q's rows, K and V pieces of kTile keys, one partial S tile
+template <typename T>
+struct FwdS {
+  static constexpr int kPart = kRows * kTile;             // floats
+  static constexpr int kBytes =
+      4 * kPart + (int)sizeof(T) * ((kRows + kTile) * kLdP +
+                                    kTile * ld_pv<T>());
+};
+
+// dQ pass: q's and dO's rows, K and V pieces of kBK keys, the partials of
+// S and dP, the rows' LSE and D
+template <typename T>
+struct DqS {
+  static constexpr int kBK = bwd_tile<T>(kDqTileF32);
+  static constexpr int kPart = 2 * kRows * kBK;
+  static constexpr int kBytes = 4 * kPart +
+                                (int)sizeof(T) * 2 * (kRows + kBK) * kLdP +
+                                4 * 2 * kRows;
+};
+
+// dK/dV pass: K's and V's rows, q and dO pieces of kBQ rows and their LSE
+// and D, the partials of S^T and dP^T
+template <typename T>
+struct DkvS {
+  static constexpr int kBQ = bwd_tile<T>(kDkvTileF32);
+  static constexpr int kPart = 2 * kRows * kBQ;
+  static constexpr int kBytes = 4 * kPart +
+                                (int)sizeof(T) * 2 * (kRows + kBQ) * kLdP +
+                                4 * 2 * kBQ;
+};
+
+// the i-th piece a sweep j of `np` loads: the others first, its own last
+__device__ __forceinline__ int piece(int i, int j, int np) {
+  return (j + 1 + i) % np * kPiece;
+}
+
+// grid (B Hq sweeps c, query tiles from the last), clusters of c along x:
+// block rank r of cluster x / c takes head x / c / sweeps, slice [r w, r w
+// + w) and writes O's piece x / c % sweeps of it
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+fwd_stream_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                  const T* __restrict__ v, T* __restrict__ o,
+                  float* __restrict__ lse, int Hq, int group, int Sq,
+                  int Skv, int D, int w, int sweeps, float scale_log2,
+                  int causal, int vec) {
+  using C = FwdS<T>;
+  constexpr int kLdV = ld_pv<T>();
+  extern __shared__ __align__(16) uint8_t fs_smem[];
+  float* xch = reinterpret_cast<float*>(fs_smem);
+  T* qs = reinterpret_cast<T*>(xch + C::kPart);
+  T* ks = qs + kRows * kLdP;
+  T* vs = ks + kTile * kLdP;
+  cg::cluster_group cl = cg::this_cluster();
+  const int c = (int)cl.num_blocks(), rank = (int)cl.block_rank();
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int bh = blockIdx.x / c / sweeps, j = blockIdx.x / c % sweeps;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;
+  const long long kvh =
+      (long long)(bh / Hq) * (Hq / group) + (bh % Hq) / group;
+  const int col0 = rank * w, cols = min(w, D - col0);
+  const T* qp = q + ((long long)bh * Sq + q0) * D + col0;
+  const T* kp = k + kvh * Skv * D + col0;
+  const T* vp = v + kvh * Skv * D + col0;
+  int n_kt = (Skv + kTile - 1) / kTile;
+  if (causal) n_kt = min(n_kt, (min(q0 + kRows, Sq) - 1) / kTile + 1);
+  const int mode = vec ? kVec : kPlain;
+  xch_open<1>();
+
+  const int row_lo = q0 + 16 * warp;
+  float acc[kPiece / 8][4];
+  zero(acc);
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * kTile;
+    const long long off = (long long)k0 * D;
+    const bool live = row_lo < Sq && !(causal && k0 > row_lo + 15);
+    float s[kTile / 8][4];
+    zero(s);
+    for (int i = 0; i < sweeps; ++i) {
+      const int pc = piece(i, j, sweeps);
+      __syncthreads();                  // the last piece read
+      load_tile<T, kRows, kPiece, kLdP>(qs, qp + pc, D, Sq - q0, cols - pc,
+                                        mode);
+      load_tile<T, kTile, kPiece, kLdP>(ks, kp + off + pc, D, Skv - k0,
+                                        cols - pc, mode);
+      if (i == sweeps - 1)
+        load_tile<T, kTile, kPiece, kLdV>(vs, vp + off + pc, D, Skv - k0,
+                                          cols - pc, mode);
+      tf32x3::cp_async_commit();
+      tf32x3::cp_async_wait<0>();
+      __syncthreads();                  // the piece in, for all
+      if (live)
+        gemm_nt<T, kPiece, kTile, kLdP, false>(s, qs, 16 * warp, ks, lane);
+    }
+    xch_store<1>();
+    if (live) put_part(xch, s, warp, lane);
+    xch_stored();
+    if (live) sum_parts<ranks_a_round<T>()>(s, xch, warp, lane);
+    xch_read<1>();
+    if (!live) continue;
+    softmax_tile(s, acc, m_run, l_run, k0, row_lo, Skv, causal, scale_log2,
+                 lane);
+    gemm_pv<T, kTile, kPiece, kLdV>(acc, s, vs, lane);
   }
+  xch_close<1>();
+  finish_rows<T, kPiece>(o + (long long)bh * Sq * D + col0 + j * kPiece, D,
+                         acc, m_run, l_run,
+                         rank == 0 && j == 0 ? lse : nullptr,
+                         (long long)bh * Sq, row_lo, Sq, cols - j * kPiece,
+                         lane);
+}
+
+// grid (B Hq sweeps c, query tiles from the last), clusters of c along x,
+// as fwd_stream_kernel; 4 warps of 16 rows
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+dq_stream_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, const T* __restrict__ o,
+                 const T* __restrict__ dout, const float* __restrict__ lse,
+                 T* __restrict__ dq, float* __restrict__ dsum, int Hq,
+                 int group, int Sq, int Skv, int D, int w, int sweeps,
+                 float scale_log2, float scale, int causal, int vec) {
+  using C = DqS<T>;
+  constexpr int kBK = C::kBK, kPart = kRows * kBK;
+  extern __shared__ __align__(16) uint8_t dqs_smem[];
+  float* xch = reinterpret_cast<float*>(dqs_smem);  // S, then dP
+  T* qs = reinterpret_cast<T*>(xch + C::kPart);
+  T* dos = qs + kRows * kLdP;
+  T* ks = dos + kRows * kLdP;
+  T* vs = ks + kBK * kLdP;
+  float* lse_rows = reinterpret_cast<float*>(vs + kBK * kLdP);
+  float* di_rows = lse_rows + kRows;
+  cg::cluster_group cl = cg::this_cluster();
+  const int c = (int)cl.num_blocks(), rank = (int)cl.block_rank();
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int bh = blockIdx.x / c / sweeps, j = blockIdx.x / c % sweeps;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;
+  const long long kvh =
+      (long long)(bh / Hq) * (Hq / group) + (bh % Hq) / group;
+  const long long base = (long long)bh * Sq + q0;
+  const int col0 = rank * w, cols = min(w, D - col0);
+  const T* qp = q + base * D + col0;
+  const T* dop = dout + base * D + col0;
+  const T* kp = k + kvh * Skv * D + col0;
+  const T* vp = v + kvh * Skv * D + col0;
+  int n_kt = (Skv + kBK - 1) / kBK;
+  if (causal) n_kt = min(n_kt, (min(q0 + kRows, Sq) - 1) / kBK + 1);
+  const int mode = vec ? kVec : kPlain;
+  const int row_lo = q0 + 16 * warp;
+  dq_rows(dout, o, lse, dsum, xch, lse_rows, di_rows, base, q0, Sq, D, col0,
+          cols, j == 0, warp, true, lane);
+  xch_read<1>();
+  const bool live_rows = row_lo < Sq;
+
+  float acc[kPiece / 8][4];
+  zero(acc);
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * kBK;
+    const long long off = (long long)k0 * D;
+    const bool live = live_rows && !(causal && k0 > row_lo + 15);
+    float s[kBK / 8][4], dp[kBK / 8][4];
+    zero(s);
+    zero(dp);
+    for (int i = 0; i < sweeps; ++i) {
+      const int pc = piece(i, j, sweeps);
+      __syncthreads();                  // the last piece read
+      load_tile<T, kRows, kPiece, kLdP>(qs, qp + pc, D, Sq - q0, cols - pc,
+                                        mode);
+      load_tile<T, kRows, kPiece, kLdP>(dos, dop + pc, D, Sq - q0,
+                                        cols - pc, mode);
+      load_tile<T, kBK, kPiece, kLdP>(ks, kp + off + pc, D, Skv - k0,
+                                      cols - pc, mode);
+      load_tile<T, kBK, kPiece, kLdP>(vs, vp + off + pc, D, Skv - k0,
+                                      cols - pc, mode);
+      tf32x3::cp_async_commit();
+      tf32x3::cp_async_wait<0>();
+      __syncthreads();                  // the piece in, for all
+      if (live)
+        gemm_nt2<T, kPiece, kBK, kLdP, false>(s, dp, qs, dos, 16 * warp, ks,
+                                              vs, lane);
+    }
+    xch_store<1>();
+    if (live) {
+      put_part(xch, s, warp, lane);
+      put_part(xch + kPart, dp, warp, lane);
+    }
+    xch_stored();
+    if (live) {
+      sum_parts<ranks_a_round<T>()>(s, xch, warp, lane);
+      sum_parts<ranks_a_round<T>()>(dp, xch + kPart, warp, lane);
+    }
+    xch_read<1>();
+    if (!live) continue;
+    dq_ds<kBK>(s, dp, lse_rows + 16 * warp, di_rows + 16 * warp, k0, row_lo,
+               Skv, causal, scale_log2, lane);
+    gemm_pv<T, kBK, kPiece, kLdP>(acc, s, ks, lane);   // K's piece j
+  }
+  xch_close<1>();
+  const float mul[2] = {scale, scale};
+  const bool pairs =
+      D % 2 == 0 && reinterpret_cast<uintptr_t>(dq) % (2 * sizeof(T)) == 0;
+  if (live_rows)
+    store_rows<T, kPiece>(dq + (long long)bh * Sq * D + col0 + j * kPiece, D,
+                          acc, mul, row_lo, Sq, cols - j * kPiece, pairs,
+                          lane);
+}
+
+// grid (B Hkv sweeps c, key tiles), clusters of c along x; 4 warps of 16
+// keys, the group's query heads walked in order as dkv_kernel's
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+dkv_stream_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                  const T* __restrict__ v, const T* __restrict__ dout,
+                  const float* __restrict__ lse,
+                  const float* __restrict__ dsum, T* __restrict__ dk,
+                  T* __restrict__ dv, int Hq, int group, int Sq, int Skv,
+                  int D, int w, int sweeps, float scale_log2, float scale,
+                  int causal, int vec) {
+  using C = DkvS<T>;
+  constexpr int kBQ = C::kBQ, kPart = kRows * kBQ;
+  extern __shared__ __align__(16) uint8_t dkvs_smem[];
+  float* xch = reinterpret_cast<float*>(dkvs_smem);  // S^T, then dP^T
+  T* ks = reinterpret_cast<T*>(xch + C::kPart);
+  T* vs = ks + kRows * kLdP;
+  T* qs = vs + kRows * kLdP;
+  T* dos = qs + kBQ * kLdP;
+  float* lse_s = reinterpret_cast<float*>(dos + kBQ * kLdP);
+  float* dsum_s = lse_s + kBQ;
+  cg::cluster_group cl = cg::this_cluster();
+  const int c = (int)cl.num_blocks(), rank = (int)cl.block_rank();
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int bkv = blockIdx.x / c / sweeps, j = blockIdx.x / c % sweeps;
+  const int hkv_n = Hq / group;
+  const int b = bkv / hkv_n, hkv = bkv % hkv_n;
+  const int k0 = blockIdx.y * kRows;
+  const long long kvbase = (long long)bkv * Skv + k0;
+  const int col0 = rank * w, cols = min(w, D - col0);
+  const int qt0 = causal ? k0 / kBQ : 0;
+  const int nq = max(0, (Sq + kBQ - 1) / kBQ - qt0);
+  const int n_it = group * nq;
+  const int mode = vec ? kVec : kPlain;
+  xch_open<1>();
+
+  const int key_lo = k0 + 16 * warp;
+  float adk[kPiece / 8][4], adv[kPiece / 8][4];
+  zero(adk);
+  zero(adv);
+  for (int it = 0; it < n_it; ++it) {
+    const long long bh =
+        (long long)b * Hq + (long long)hkv * group + it / nq;
+    const int i0 = (qt0 + it % nq) * kBQ;
+    const long long qbase = bh * Sq + i0;
+    const bool live = key_lo < Skv && !(causal && key_lo > i0 + kBQ - 1);
+    float s[kBQ / 8][4], dp[kBQ / 8][4];
+    zero(s);
+    zero(dp);
+    for (int i = 0; i < sweeps; ++i) {
+      const int pc = col0 + piece(i, j, sweeps), pcols = cols + col0 - pc;
+      __syncthreads();                  // the last piece read
+      load_tile<T, kRows, kPiece, kLdP>(ks, k + kvbase * D + pc, D,
+                                        Skv - k0, pcols, mode);
+      load_tile<T, kRows, kPiece, kLdP>(vs, v + kvbase * D + pc, D,
+                                        Skv - k0, pcols, mode);
+      load_tile<T, kBQ, kPiece, kLdP>(qs, q + qbase * D + pc, D, Sq - i0,
+                                      pcols, mode);
+      load_tile<T, kBQ, kPiece, kLdP>(dos, dout + qbase * D + pc, D,
+                                      Sq - i0, pcols, mode);
+      if (i == sweeps - 1) {
+        load_rows<kBQ>(lse_s, lse + qbase, Sq - i0);
+        load_rows<kBQ>(dsum_s, dsum + qbase, Sq - i0);
+      }
+      tf32x3::cp_async_commit();
+      tf32x3::cp_async_wait<0>();
+      __syncthreads();                  // the piece in, for all
+      if (live)
+        gemm_nt2<T, kPiece, kBQ, kLdP, false>(s, dp, ks, vs, 16 * warp, qs,
+                                              dos, lane);
+    }
+    xch_store<1>();
+    if (live) {
+      put_part(xch, s, warp, lane);
+      put_part(xch + kPart, dp, warp, lane);
+    }
+    xch_stored();
+    if (live) {
+      sum_parts<ranks_a_round<T>()>(s, xch, warp, lane);
+      sum_parts<ranks_a_round<T>()>(dp, xch + kPart, warp, lane);
+    }
+    xch_read<1>();
+    if (!live) continue;
+#pragma unroll
+    for (int jj = 0; jj < kBQ / 8; ++jj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qi = 8 * jj + 2 * t + (e & 1);
+        const int row = i0 + qi;
+        const int key = key_lo + g + 8 * (e >> 1);
+        const bool hidden = key >= Skv || row >= Sq || (causal && key > row);
+        const float p =
+            hidden ? 0.f : ex2(fmaf(s[jj][e], scale_log2, -lse_s[qi]));
+        s[jj][e] = p;
+        dp[jj][e] = p * (dp[jj][e] - dsum_s[qi]);
+      }
+    gemm_pv<T, kBQ, kPiece, kLdP>(adv, s, dos, lane);   // dO's piece j
+    gemm_pv<T, kBQ, kPiece, kLdP>(adk, dp, qs, lane);   // q's piece j
+  }
+  xch_close<1>();
+  store_kv<T, kPiece>(dk, dv, adk, adv,
+                      (long long)bkv * Skv * D + col0 + j * kPiece, D, key_lo,
+                      Skv, cols - j * kPiece, scale, lane);
 }
 
 // ---- launches -------------------------------------------------------------
 
-// sets the kernel's shared memory and launches it in clusters of c blocks
-// along x; a launch the card refuses (a cluster it cannot place) returns
-// its error
+// sets the kernel's shared memory (and, past kMaxCluster blocks, allows a
+// non-portable cluster) and launches it in clusters of c blocks along x; a
+// launch the card refuses (a cluster it cannot place) returns its error
 template <typename... P, typename... A>
 cudaError_t run(void (*kernel)(P...), dim3 grid, int threads, int smem,
                 int c, cudaStream_t stream, A... args) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
+  if (c > kMaxCluster) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+  }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
   cfg.blockDim = dim3((unsigned)threads);
@@ -1212,15 +1646,30 @@ cudaError_t launch_fwd_as(const void* q, const void* k, const void* v,
              Sq, Skv, D, p.w, scale_log2, causal, vec);
 }
 
-// the forward of a head kDMax < D <= kReach
+// grid x of a pass over `heads` at plan p: heads, sweeps and ranks
+inline long long grid_x(long long heads, const Plan& p) {
+  return heads * p.sweeps * p.c;
+}
+
+// the forward of a head D > kDMax
 template <typename T>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
                        float* lse, int B, int Hq, int Hkv, int Sq, int Skv,
                        int D, int causal, cudaStream_t stream) {
   const Plan p = plan(D, kFwdWMax);
-  if ((long long)B * Hq * p.c > 0x7fffffffLL ||
+  if (grid_x((long long)B * Hq, p) > 0x7fffffffLL ||
       (Sq + kRows - 1) / kRows > 65535)
     return cudaErrorInvalidValue;
+  if (p.stream) {
+    const void* ptrs[3] = {q, k, v};
+    const dim3 grid((unsigned)grid_x((long long)B * Hq, p),
+                    (unsigned)((Sq + kRows - 1) / kRows));
+    const float scale_log2 = (float)(1.4426950408889634 / sqrt((double)D));
+    return run(fwd_stream_kernel<T>, grid, kThreads, FwdS<T>::kBytes, p.c,
+               stream, (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, Hq,
+               Hq / Hkv, Sq, Skv, D, p.w, p.sweeps, scale_log2, causal,
+               vec_ok(ptrs, 3, D, (int)sizeof(T)));
+  }
   if (p.wp == 192)
     return launch_fwd_as<T, 192>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, D,
                                  causal, stream);
@@ -1234,11 +1683,9 @@ template <typename T, int WP>
 cudaError_t launch_dq_as(const void* q, const void* k, const void* v,
                          const void* o, const void* dout, const float* lse,
                          void* dq, float* dsum, int B, int Hq, int Hkv,
-                         int Sq, int Skv, int D, int causal,
+                         int Sq, int Skv, int D, int causal, int vec,
                          cudaStream_t stream) {
   const Plan p = plan(D, kDqWMax);
-  const void* ptrs[4] = {q, k, v, dout};
-  const int vec = vec_ok(ptrs, 4, D, (int)sizeof(T));
   const dim3 grid((unsigned)((long long)B * Hq * p.c),
                   (unsigned)((Sq + kRows - 1) / kRows));
   const float scale = (float)(1.0 / sqrt((double)D));
@@ -1250,57 +1697,85 @@ cudaError_t launch_dq_as(const void* q, const void* k, const void* v,
              p.w, scale_log2, scale, causal, vec);
 }
 
-// the backward's two passes of a head kDMax < D <= kReach: dq (and dsum,
-// B * Hq * Sq floats, the rows' dO . O), then dk and dv
+// the backward's two passes of a head D > kDMax: dq (and dsum, B * Hq *
+// Sq floats, the rows' dO . O), then dk and dv
 template <typename T>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v,
                        const void* o, const void* dout, const float* lse,
                        void* dq, void* dk, void* dv, float* dsum, int B,
                        int Hq, int Hkv, int Sq, int Skv, int D, int causal,
                        cudaStream_t stream) {
-  const Plan p = plan(D, kDqWMax), pk = plan(D, kDkvWMax);
-  if ((long long)B * Hq * p.c > 0x7fffffffLL || pk.c > kMaxCluster ||
+  const Plan p = plan(D, kDqWMax), pk = plan(D, kDkvWMax, kDkvCluster);
+  if (grid_x((long long)B * Hq, p) > 0x7fffffffLL ||
+      grid_x((long long)B * Hkv, pk) > 0x7fffffffLL ||
       (Sq + kRows - 1) / kRows > 65535 || (Skv + kRows - 1) / kRows > 65535)
     return cudaErrorInvalidValue;
-  cudaError_t err = cudaErrorInvalidValue;
-  if (p.wp == 192)
-    err = launch_dq_as<T, 192>(q, k, v, o, dout, lse, dq, dsum, B, Hq, Hkv,
-                               Sq, Skv, D, causal, stream);
-  else if (p.wp == 256)
-    err = launch_dq_as<T, 256>(q, k, v, o, dout, lse, dq, dsum, B, Hq, Hkv,
-                               Sq, Skv, D, causal, stream);
-  if (err != cudaSuccess) return err;
   const void* ptrs[4] = {q, k, v, dout};
   const int vec = vec_ok(ptrs, 4, D, (int)sizeof(T));
-  const dim3 grid((unsigned)((long long)B * Hkv * pk.c),
-                  (unsigned)((Skv + kRows - 1) / kRows));
   const float scale = (float)(1.0 / sqrt((double)D));
   const float scale_log2 = (float)(1.4426950408889634 / sqrt((double)D));
+  cudaError_t err = cudaErrorInvalidValue;
+  if (p.stream)
+    err = run(dq_stream_kernel<T>,
+              dim3((unsigned)grid_x((long long)B * Hq, p),
+                   (unsigned)((Sq + kRows - 1) / kRows)),
+              kThreads, DqS<T>::kBytes, p.c, stream, (const T*)q,
+              (const T*)k, (const T*)v, (const T*)o, (const T*)dout, lse,
+              (T*)dq, dsum, Hq, Hq / Hkv, Sq, Skv, D, p.w, p.sweeps,
+              scale_log2, scale, causal, vec);
+  else if (p.wp == 192)
+    err = launch_dq_as<T, 192>(q, k, v, o, dout, lse, dq, dsum, B, Hq, Hkv,
+                               Sq, Skv, D, causal, vec, stream);
+  else if (p.wp == 256)
+    err = launch_dq_as<T, 256>(q, k, v, o, dout, lse, dq, dsum, B, Hq, Hkv,
+                               Sq, Skv, D, causal, vec, stream);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((unsigned)grid_x((long long)B * Hkv, pk),
+                  (unsigned)((Skv + kRows - 1) / kRows));
+  if (pk.stream)
+    return run(dkv_stream_kernel<T>, grid, kThreads, DkvS<T>::kBytes, pk.c,
+               stream, (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
+               lse, (const float*)dsum, (T*)dk, (T*)dv, Hq, Hq / Hkv, Sq, Skv,
+               D, pk.w, pk.sweeps, scale_log2, scale, causal, vec);
+  // a resident slice of the dK/dV pass is 128 wide at most (kDkvCluster)
   return run(dkv_kernel<T>, grid, kThreads, Dkv<T>::kBytes, pk.c, stream,
-             (const T*)q,
-             (const T*)k, (const T*)v, (const T*)dout, lse,
+             (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse,
              (const float*)dsum, (T*)dk, (T*)dv, Hq, Hq / Hkv, Sq, Skv, D,
              pk.w, scale_log2, scale, causal, vec);
 }
 
-// {clusters, slice, padded slice, shared memory} of each pass at D:
-// out[0..3] the forward, out[4..7] the dQ pass, out[8..11] the dK/dV pass
+// shared memory of each pass's kernel at a plan
+template <typename T>
+int fwd_smem(const Plan& p) {
+  return p.stream ? FwdS<T>::kBytes
+         : p.wp == 192 ? Fwd<T, 192>::kBytes : Fwd<T, 256>::kBytes;
+}
+template <typename T>
+int dq_smem(const Plan& p) {
+  return p.stream ? DqS<T>::kBytes
+         : p.wp == 192 ? Dq<T, 192>::kBytes : Dq<T, 256>::kBytes;
+}
+template <typename T>
+int dkv_smem(const Plan& p) {
+  return p.stream ? DkvS<T>::kBytes : Dkv<T>::kBytes;
+}
+
+// {clusters, slice, padded slice (a piece where streamed), shared memory,
+// sweeps} of each pass at D: out[0..4] the forward, out[5..9] the dQ
+// pass, out[10..14] the dK/dV pass
 template <typename T>
 void layout(int D, int* out) {
-  const Plan p = plan(D, kFwdWMax), pq = plan(D, kDqWMax),
-             pk = plan(D, kDkvWMax);
-  out[0] = p.c;
-  out[1] = p.w;
-  out[2] = p.wp;
-  out[3] = p.wp == 192 ? Fwd<T, 192>::kBytes : Fwd<T, 256>::kBytes;
-  out[4] = pq.c;
-  out[5] = pq.w;
-  out[6] = pq.wp;
-  out[7] = pq.wp == 192 ? Dq<T, 192>::kBytes : Dq<T, 256>::kBytes;
-  out[8] = pk.c;
-  out[9] = pk.w;
-  out[10] = pk.wp;
-  out[11] = Dkv<T>::kBytes;
+  const Plan ps[3] = {plan(D, kFwdWMax), plan(D, kDqWMax),
+                      plan(D, kDkvWMax, kDkvCluster)};
+  const int smem[3] = {fwd_smem<T>(ps[0]), dq_smem<T>(ps[1]),
+                       dkv_smem<T>(ps[2])};
+  for (int i = 0; i < 3; ++i) {
+    out[5 * i] = ps[i].c;
+    out[5 * i + 1] = ps[i].w;
+    out[5 * i + 2] = ps[i].wp;
+    out[5 * i + 3] = smem[i];
+    out[5 * i + 4] = ps[i].sweeps;
+  }
 }
 
 }  // namespace split

@@ -13,12 +13,19 @@
 //                 y[slot[m,k], f] + comp[m, f]                    (M, F)
 //
 // and -BIG (the merge identity, not 0) where a subset has no live slot.
-// Slots clamp at C - 1, as the plain version's do.  A launch takes a
-// chunk of at most 64 or 128 cache rows (the wrapper's knob; 128 unless a
-// plan says otherwise), rows [c0, c0 + chunk) of each island; the wrapper
-// covers a larger C with one launch a chunk, each merged into the last
-// one's output by an elementwise max (a subset with no live slot in a
-// chunk gives -BIG there, the identity of that max).  The TPU kernel gathers
+// Slots clamp at C - 1, as the plain version's do.  Two routes, which the
+// call's widths fix (`layered_route` below; the planner's copy is
+// kernels/tiling.py::hub_reuse_route): `resident`, one block an island
+// and 64 features with the island's cache rows in shared memory, for the
+// calls one launch of it covers (C <= 128 rows that fit a block); and
+// `layered`, three launches over global memory, for every other call.
+//
+// The resident route.  A launch takes a chunk of at most 64 or 128 cache
+// rows (the wrapper's knob; 128 unless a plan says otherwise), rows [c0,
+// c0 + chunk) of each island; a forced chunk smaller than C takes one
+// launch a chunk, each merged into the last one's output by an
+// elementwise max (a subset with no live slot in a chunk gives -BIG
+// there, the identity of that max).  The TPU kernel gathers
 // y[slot] as a one-hot matmul on the MXU; here a warp reads y[slot] from
 // shared memory, which gives the same values for finite inputs.  Each
 // block reads only its own island, so the TPU kernel's out-of-range-island
@@ -61,17 +68,34 @@
 //     each (m, k) reads one y row without bank conflicts and a dead slot
 //     is a warp-uniform skip; comp is read once per (m, f), coalesced.
 //
-// The streamed route.  The route above stages x (C x D) and the slots and
-// liveness (M x K) whole, so its shared memory grows with D and M*K: past
-// 227 KB at 64 rows (D of ~590, or M*K of ~28,000 slots) no chunk fits.
-// Such a call streams (`streams` below; the planner's copy is
-// kernels/tiling.py::hub_reuse_route): the same grid, warps and ring, but
-// x arrives one 64-column slice at a time, at each W1 stage, into an R x
-// 64 tile that later holds y (so layer 1 is summed over D in slices, as
-// gather_mlp's wide route streams x), and each warp stages its subset's
-// slots and liveness kSlotTile at a time just before its gather.  Its
-// shared memory is fixed: 93 KB at 64 rows, 134 KB at 128.  The slices
-// are re-read once per Hd chunk, from L2; no speed was sought.
+// The layered route.  The resident route stages x (C x D) and the slots
+// and liveness (M x K) whole, and each of its ceil(F / 64) feature tiles
+// recomputes the whole first layer: past 128 rows, or where 128 rows of a
+// wide D do not fit a block, it would take several launches merged by a
+// max, and at one island an SM-starved grid (PointVector-L's block 4 at
+// cache_capacity_x = 4: B = 2, H = 1, C = 128, D = 387, Hd = 1536, F =
+// 768, 24 blocks on 132 SMs, each forming the 64 x 387 x 1536 first layer
+// anew).  The layered route forms each layer once, for all B*H*C cache
+// rows at once, on the same 3xTF32 mma.sync:
+//   1. h = relu(x W1 + b1) for the N = B*H*C rows, in 64 x 64 tiles (4
+//      warps of 32 x 32; K in 64-deep stages of a three-stage cp.async
+//      ring), into device scratch (N x Hd floats, held in L2).
+//   2. y = h W2, the same tiles, Hd split into `nsplit` ranges where the
+//      tiles are too few to fill the card (`layered::plan`: ceil(SMs /
+//      tiles), as gather_mlp's wide route splits H), each range's partial
+//      into its own slice of scratch: no atomics.
+//   3. The gather: a block of 8 warps takes 16 subsets of an island and 64
+//      features, grid (island x subset tiles, feature tiles).  It first
+//      sums the island's y at its features (b2 plus the nsplit partials
+//      in order) into shared memory, C x 64 (up to kStagedC rows; past
+//      them each slot's row is summed from L2 where it is read: reading
+//      every (m, k)'s row from L2 took 45 of 79 us at PointNet++(c)'s
+//      block 2 with C = 256).  A warp a subset: its lanes turn 32 slots at
+//      a time into y rows (-1 where not cached or not live), then each
+//      live slot's row is a warp-uniform read and a max; comp once per
+//      (m, f).
+// Nothing stages C x D or M x K whole, so any C, D and M*K take one call,
+// and the same inputs give the same bits.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -91,7 +115,6 @@ constexpr int kHS = kNC + 8;             // h and y row stride (≡ 8 mod 32)
 constexpr int kN2 = kNC / kKC;           // W2 stages per Hd chunk
 constexpr int kMaxC = 128;               // the most cache rows a launch takes
 constexpr float kBig = 3.4e38f;          // the max-pool identity of the JAX code
-constexpr int kSlotTile = 128;           // slots a warp stages (streamed)
 constexpr long long kMaxSmem = 232448;   // a block's shared memory
 
 struct Params {
@@ -225,18 +248,15 @@ __host__ __device__ __forceinline__ int live_floats(const Params& p) {
   return p.live == nullptr ? 0 : (p.M * p.K + 15) / 16 * 4;
 }
 
-// Floats of the x region: R rows of x (a 64-column slice of them when
-// streamed), later R rows of y
-template <class L, bool kStream>
+// Floats of the x region: R rows of x, later R rows of y
+template <class L>
 __host__ __device__ __forceinline__ int xy_floats(const Params& p) {
-  return L::kR * (!kStream && p.XD > kHS ? p.XD : kHS);
+  return L::kR * (p.XD > kHS ? p.XD : kHS);
 }
 
-// Floats before the x region: the island's slots and liveness, or each
-// warp's kSlotTile staged slots when streamed
-template <class L, bool kStream>
+// Floats before the x region: the island's slots and liveness
 __host__ __device__ __forceinline__ int slot_floats(const Params& p) {
-  return kStream ? L::kWarps * kSlotTile : p.M * p.K4 + live_floats(p);
+  return p.M * p.K4 + live_floats(p);
 }
 
 // max over a subset's live slots of y, plus comp; -BIG where none is live
@@ -244,17 +264,16 @@ __device__ __forceinline__ float merged(float m, float c) {
   return m == -INFINITY ? -kBig : m + c;
 }
 
-template <class L, bool kStream>
+template <class L>
 __global__ void __launch_bounds__(L::kThreads, L::kMinBlocks)
 hub_reuse_kernel(const Params p) {
   constexpr int R = L::kR, kNT = L::kNT, kThreads = L::kThreads;
   extern __shared__ __align__(16) float smem[];
-  int* sl = reinterpret_cast<int*>(smem);              // M x K4 (streamed:
-                                                       // warps x kSlotTile)
+  int* sl = reinterpret_cast<int*>(smem);              // M x K4
   uint8_t* lv = reinterpret_cast<uint8_t*>(sl + p.M * p.K4);  // M x K
-  float* xs = smem + slot_floats<L, kStream>(p);       // R x XD (R x kHS)
+  float* xs = smem + slot_floats(p);                   // R x XD
   float* ys = xs;                                      // R x kHS, after
-  float* hs = xs + xy_floats<L, kStream>(p);           // R x kHS
+  float* hs = xs + xy_floats<L>(p);                    // R x kHS
   float* ws = hs + R * kHS;                            // kStages x kKC x kWS
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -267,7 +286,7 @@ hub_reuse_kernel(const Params p) {
 
   // ---- prologue: x by cp.async, the ring's first stages, the slots ------
   const float* poolp = p.pool + (isl * p.C + p.c0) * p.D;
-  for (int e = tid; !kStream && e < R * (p.Dp / 4); e += kThreads) {
+  for (int e = tid; e < R * (p.Dp / 4); e += kThreads) {
     const int r = e / (p.Dp / 4), c = (e % (p.Dp / 4)) * 4;
     float* dst = xs + r * p.XD + c;
     const float* src = poolp + (size_t)r * p.D + c;
@@ -289,10 +308,10 @@ hub_reuse_kernel(const Params p) {
   // here would hold up its part of the products); rows of K4
   const long long mk = (long long)p.M * p.K;
   const int32_t* slp = p.slot + isl * mk;
-  for (int m = warp; !kStream && m < p.M; m += L::kWarps)
+  for (int m = warp; m < p.M; m += L::kWarps)
     for (int k = lane; k < p.K; k += 32)
       tf32x3::cp_async4(sl + m * p.K4 + k, slp + m * p.K + k);
-  if (!kStream && p.live != nullptr) {
+  if (p.live != nullptr) {
     const uint8_t* lvp = p.live + isl * mk;
     if (p.live_words)
       for (int e = tid; e < mk / 4; e += kThreads)
@@ -326,21 +345,8 @@ hub_reuse_kernel(const Params p) {
 #pragma unroll
             for (int i = 0; i < 4; ++i) acc_h[mt][n][i] = 0.f;
       }
-      if constexpr (kStream) {               // x[:, r * kKC : + kKC]
-        const int d0 = r * kKC;
-        for (int e = tid; e < R * kKC; e += kThreads) {
-          const int row = e / kKC, col = e % kKC;
-          xs[row * kHS + col] = row < p.Cc && d0 + col < p.D
-                                    ? poolp[(size_t)row * p.D + d0 + col]
-                                    : 0.f;
-        }
-        __syncthreads();                     // the slice, for all
-        mma_stage<L>(acc_h, xs, kHS, 0, st, min(kKC, p.Dp - d0) / 8, wm,
-                     wn, lane);
-      } else {
-        mma_stage<L>(acc_h, xs, p.XD, r * kKC, st,
-                     min(kKC, p.Dp - r * kKC) / 8, wm, wn, lane);
-      }
+      mma_stage<L>(acc_h, xs, p.XD, r * kKC, st,
+                   min(kKC, p.Dp - r * kKC) / 8, wm, wn, lane);
       if (r == p.n1 - 1)                     // read after the next barrier
         store_tile<L, true>(hs, acc_h, p.b1 + j * kNC,
                             min(kNC, p.Hd - j * kNC), wm, wn, lane);
@@ -359,47 +365,6 @@ hub_reuse_kernel(const Params p) {
   // bank conflicts, and a dead slot is a warp-uniform skip
   const float2* y2 = reinterpret_cast<const float2*>(ys);
   const int c = 2 * lane;
-  if constexpr (kStream) {
-    // a warp a subset as above; its slots and liveness kSlotTile at a
-    // time, from device memory into the warp's own rows
-    int* e = sl + warp * kSlotTile;
-    const uint8_t* lvp = p.live == nullptr ? nullptr : p.live + isl * mk;
-    for (int m = warp; m < p.M; m += kThreads / 32) {
-      const long long row = (isl * p.M + m) * p.F + f0;
-      const float c0 = c < ft ? p.comp[row + c] : 0.f;
-      const float c1 = c + 1 < ft ? p.comp[row + c + 1] : 0.f;
-      float a0 = -INFINITY, a1 = -INFINITY;
-      for (int k0 = 0; k0 < p.K; k0 += kSlotTile) {
-        const int n = min(kSlotTile, p.K - k0);
-        for (int k = lane; k < n; k += 32) {
-          const long long at = (long long)m * p.K + k0 + k;
-          const int v = slp[at];
-          const bool ok = v >= 0 && (lvp == nullptr || lvp[at] != 0);
-          const int s = ok ? min(v, p.C - 1) - p.c0 : -1;
-          e[k] = s >= 0 && s < p.Cc ? s : -1;
-        }
-        __syncwarp();
-        for (int k = 0; k < n; ++k) {
-          const int s = e[k];
-          if (s >= 0) {                      // warp-uniform
-            const float2 v = y2[s * (kHS / 2) + lane];
-            a0 = fmaxf(a0, v.x);
-            a1 = fmaxf(a1, v.y);
-          }
-        }
-        __syncwarp();                        // e is rewritten next
-      }
-      if (c < ft) {
-        const float v = merged(a0, c0);
-        p.out[row + c] = p.merge ? fmaxf(p.out[row + c], v) : v;
-      }
-      if (c + 1 < ft) {
-        const float v = merged(a1, c1);
-        p.out[row + c + 1] = p.merge ? fmaxf(p.out[row + c + 1], v) : v;
-      }
-    }
-    return;
-  }
   for (int m = warp; m < p.M; m += L::kWarps) {
     const long long row = (isl * p.M + m) * p.F + f0;
     const float c0 = c < ft ? p.comp[row + c] : 0.f;
@@ -437,23 +402,21 @@ hub_reuse_kernel(const Params p) {
 }
 
 // Bytes of shared memory a block of L takes
-template <class L, bool kStream>
+template <class L>
 size_t smem_bytes(const Params& p) {
-  return sizeof(float) * ((size_t)slot_floats<L, kStream>(p) +
-                          xy_floats<L, kStream>(p) + (size_t)L::kR * kHS +
-                          (size_t)kStages * kKC * kWS);
+  return sizeof(float) * ((size_t)slot_floats(p) + xy_floats<L>(p) +
+                          (size_t)L::kR * kHS + (size_t)kStages * kKC * kWS);
 }
 
-template <class L, bool kStream>
+template <class L>
 int launch(const Params& p, long long islands, void* stream) {
-  const size_t smem = smem_bytes<L, kStream>(p);
+  const size_t smem = smem_bytes<L>(p);
   cudaError_t err = cudaFuncSetAttribute(
-      hub_reuse_kernel<L, kStream>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      hub_reuse_kernel<L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)islands, (p.F + kNC - 1) / kNC);
-  hub_reuse_kernel<L, kStream>
-      <<<grid, L::kThreads, smem, (cudaStream_t)stream>>>(p);
+  hub_reuse_kernel<L><<<grid, L::kThreads, smem, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -469,37 +432,297 @@ void set_shape(Params& p, int chunk) {
 
 bool chunk_ok(int chunk) { return chunk == Rows64::kR || chunk == kMaxC; }
 
-// Whether a call takes the streamed route: where a 64-row launch that
-// stages x, the slots and the liveness whole (counted whether the call
-// passes liveness or not, as the planner counts it) would pass a block's
-// shared memory
-bool streams(int C, int M, int K, int D) {
+// Shared memory of a block of the resident launch p (its shape set)
+long long resident_smem(const Params& p) {
+  return (long long)(p.Cc <= Rows64::kR ? smem_bytes<Rows64>(p)
+                                        : smem_bytes<Rows128>(p));
+}
+
+// Whether a call of B clouds of H islands takes the layered route on a
+// card of `sms` SMs: where no single resident launch covers its C cache
+// rows (a block of its min(C, 128) rows, slots and liveness, counted
+// whether the call passes liveness or not as the planner counts it,
+// would pass a block's shared memory), unless C passes 128, a 128-row
+// block fits and the resident grid, B H ceil(F / 64) blocks, covers at
+// least 3/4 of the SMs (then resident in 128-row chunks: on an H100,
+// PointNet++(c)'s block 2 at C = 256 took 0.063 ms at B = 8, 128 blocks,
+// against the layered route's 0.080; at B = 4, 64 blocks, 0.064 against
+// 0.047)
+bool layered_route(int B, int H, int C, int M, int K, int D, int F,
+                   int sms) {
   Params p{};
   p.live = reinterpret_cast<const uint8_t*>(1);
   p.C = C;
   p.M = M;
   p.K = K;
   p.D = D;
-  set_shape(p, Rows64::kR);
-  return (long long)smem_bytes<Rows64, false>(p) > kMaxSmem;
+  set_shape(p, kMaxC);
+  const bool fits = resident_smem(p) <= kMaxSmem;
+  if (C <= kMaxC) return !fits;
+  const long long grid = (long long)B * H * ((F + kNC - 1) / kNC);
+  return !(fits && 4 * grid >= 3LL * sms);
 }
 
-// Shared memory of a block of the launch p (its shape set) on its route
-long long route_smem(const Params& p, bool stream) {
-  const bool r64 = p.Cc <= Rows64::kR;
-  if (stream)
-    return (long long)(r64 ? smem_bytes<Rows64, true>(p)
-                           : smem_bytes<Rows128, true>(p));
-  return (long long)(r64 ? smem_bytes<Rows64, false>(p)
-                         : smem_bytes<Rows128, false>(p));
+// ---- the layered route ------------------------------------------------------
+
+namespace layered {
+
+constexpr int kT = 64;                   // a GEMM tile: 64 x 64
+constexpr int kThreads = 128;            // 4 warps of 32 x 32
+constexpr int kLA = kT + 8;              // A stage row stride (≡ 8 mod 32)
+constexpr int kLB = kT + 4;              // B stage row stride (≡ 4 mod 16)
+constexpr int kStageFloats = kT * kLA + kKC * kLB;
+constexpr int kSmem = (int)sizeof(float) * kStages * kStageFloats;
+constexpr int kGatherWarps = 8;          // warps a gather block
+constexpr int kGatherSubsets = 16;       // subsets a gather block
+constexpr int kStagedC = 384;            // the most cache rows it stages
+
+// out = act(A[:, ks] B[ks, :] (+ bias)) for A rows x K and B K x N (both
+// row-major), split z over the K range [z kper, + kper), into out + z rows
+// N; bias (null: none) and relu on split 0 only when nsplit is 1
+struct Gemm {
+  const float* a;
+  const float* b;
+  const float* bias;
+  float* out;
+  int rows, K, N, kper;
+  int a_vec, b_vec;
+};
+
+// rows [0, 64) by columns [0, 64) of the row-major matrix at src (rows ld
+// apart) into dst (rows ldd apart); rows past `rows` and columns past
+// `cols` zero.  vec: 16-byte copies (src and ld 16-byte aligned)
+__device__ __forceinline__ void load64(float* dst, int ldd, const float* src,
+                                       long long ld, int rows, int cols,
+                                       bool vec) {
+  for (int e = threadIdx.x; e < kT * (kT / 4); e += kThreads) {
+    const int r = e / (kT / 4), c = e % (kT / 4) * 4;
+    float* d = dst + r * ldd + c;
+    const float* s = src + r * ld + c;
+    if (vec && r < rows && c + 4 <= cols) {
+      tf32x3::cp_async16(d, s);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (r < rows && c + i < cols) tf32x3::cp_async4(d + i, s + i);
+        else d[i] = 0.f;
+      }
+    }
+  }
 }
+
+template <bool kRelu>
+__global__ void __launch_bounds__(kThreads, 2) gemm_kernel(const Gemm g) {
+  extern __shared__ __align__(16) float lsmem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = warp >> 1, wn = warp & 1;   // a 32 x 32 quarter
+  const int r0 = blockIdx.x * kT, n0 = blockIdx.y * kT;
+  const int kb = blockIdx.z * g.kper, ke = min(g.K, kb + g.kper);
+  const int nst = (ke - kb + kKC - 1) / kKC;
+  auto issue = [&](int q) {
+    if (q < nst) {
+      float* st = lsmem + (q % kStages) * kStageFloats;
+      const int k0 = kb + q * kKC;
+      load64(st, kLA, g.a + (long long)r0 * g.K + k0, g.K, g.rows - r0,
+             ke - k0, g.a_vec != 0);
+      load64(st + kT * kLA, kLB, g.b + (long long)k0 * g.N + n0, g.N,
+             ke - k0, g.N - n0, g.b_vec != 0);
+    }
+    tf32x3::cp_async_commit();
+  };
+  for (int q = 0; q < kStages - 1; ++q) issue(q);
+  float acc[2][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][j][i] = 0.f;
+  for (int q = 0; q < nst; ++q) {
+    tf32x3::cp_async_wait<kStages - 2>();    // stage q landed
+    __syncthreads();                         // for all; stage q - 1 read
+    issue(q + kStages - 1);
+    const float* as = lsmem + (q % kStages) * kStageFloats;
+    const float* bs = as + kT * kLA;
+#pragma unroll 2
+    for (int s = 0; s < kKC / 8; ++s) {
+      Frag<4> af[2];
+      Frag<2> bf[4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+        af[mt] = tf32x3::load_a(as, kLA, wm * 32 + mt * 16, s * 8, lane);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        bf[j] = tf32x3::load_b(bs, kLB, s * 8, wn * 32 + j * 8, lane);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) tf32x3::mma3_row(acc[mt], af[mt], bf);
+    }
+  }
+  tf32x3::cp_async_wait<0>();
+  // the tile's rows and columns inside out, plus bias, relu'd if asked
+  float* out = g.out + (long long)blockIdx.z * g.rows * g.N;
+  const int gr = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int c = n0 + wn * 32 + j * 8 + 2 * t;
+    const float b0 = g.bias != nullptr && c < g.N ? __ldg(g.bias + c) : 0.f;
+    const float b1 =
+        g.bias != nullptr && c + 1 < g.N ? __ldg(g.bias + c + 1) : 0.f;
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = r0 + wm * 32 + mt * 16 + gr + 8 * h;
+        if (r >= g.rows) continue;
+        float v0 = acc[mt][j][2 * h] + b0, v1 = acc[mt][j][2 * h + 1] + b1;
+        if (kRelu) {
+          v0 = fmaxf(v0, 0.f);
+          v1 = fmaxf(v1, 0.f);
+        }
+        float* o = out + (long long)r * g.N + c;
+        if (c < g.N) o[0] = v0;
+        if (c + 1 < g.N) o[1] = v1;
+      }
+  }
+}
+
+struct Gather {
+  const float* y;          // nsplit partials of (N x F), N = islands x C
+  const float* b2;
+  const int32_t* slot;
+  const float* comp;
+  const uint8_t* live;
+  float* out;
+  long long part;          // floats a partial
+  int C, M, K, F, nsplit, mtiles, staged;
+};
+
+// Row `row` of y (F wide, nsplit partials `part` floats apart) at
+// features c, c + 1: b2 plus the partials in order
+__device__ __forceinline__ float2 y_at(const float* y, long long part,
+                                       int F, int nsplit, long long row,
+                                       int c, float bias0, float bias1) {
+  y += row * F + c;
+  float v0 = 0.f, v1 = 0.f;
+  for (int s = 0; s < nsplit; ++s) {         // the partials in order
+    if (c < F) v0 += __ldg(y + s * part);
+    if (c + 1 < F) v1 += __ldg(y + s * part + 1);
+  }
+  return make_float2(v0 + bias0, v1 + bias1);
+}
+
+// grid (islands x mtiles, ceil(F / 64)): block x takes kGatherSubsets
+// subsets (x % mtiles) kGatherSubsets + ... of island x / mtiles, warp w
+// the subsets w, w + kGatherWarps, ..., lanes features 2l and 2l + 1 of
+// the block's 64.  staged (C <= kStagedC): the island's y at the block's
+// features, C x 64, summed once into shared memory, each (m, k) then
+// reading its row there; else each (m, k) reads and sums its row of the
+// partials through L2.  (Bounds of one block an SM: without them ptxas
+// held it to 48 registers and spilled.)
+__global__ void __launch_bounds__(32 * kGatherWarps, 1) gather_kernel(
+    const Gather g) {
+  const float* y = g.y;
+  const long long part = g.part;
+  const int C = g.C, F = g.F, nsplit = g.nsplit;
+  extern __shared__ __align__(16) float ys[];      // C x kT (staged)
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long isl = blockIdx.x / g.mtiles;
+  const int m0 = blockIdx.x % g.mtiles * kGatherSubsets;
+  const int f0 = blockIdx.y * kT, c = f0 + 2 * lane;
+  const float bias0 = c < g.F ? __ldg(g.b2 + c) : 0.f;
+  const float bias1 = c + 1 < g.F ? __ldg(g.b2 + c + 1) : 0.f;
+  if (g.staged) {
+    for (int r = warp; r < C; r += kGatherWarps)
+      reinterpret_cast<float2*>(ys + r * kT)[lane] =
+          y_at(y, part, F, nsplit, isl * C + r, c, bias0, bias1);
+    __syncthreads();
+  }
+  for (int m = m0 + warp; m < min(m0 + kGatherSubsets, g.M);
+       m += kGatherWarps) {
+    const long long sub = isl * g.M + m;
+    const int32_t* slp = g.slot + sub * g.K;
+    const uint8_t* lvp = g.live == nullptr ? nullptr : g.live + sub * g.K;
+    float a0 = -INFINITY, a1 = -INFINITY;
+    for (int k0 = 0; k0 < g.K; k0 += 32) {
+      int mine = -1;                         // my slot's row of y, or -1
+      if (k0 + lane < g.K) {
+        const int v = __ldg(slp + k0 + lane);
+        const bool ok = v >= 0 && (lvp == nullptr || lvp[k0 + lane] != 0);
+        mine = ok ? min(v, g.C - 1) : -1;
+      }
+      const int n = min(32, g.K - k0);
+      for (int i = 0; i < n; ++i) {
+        const int row = __shfl_sync(0xffffffffu, mine, i);
+        if (row < 0) continue;               // warp-uniform
+        const float2 v =
+            g.staged ? reinterpret_cast<const float2*>(ys + row * kT)[lane]
+                     : y_at(y, part, F, nsplit, isl * C + row, c, bias0,
+                            bias1);
+        a0 = fmaxf(a0, v.x);
+        a1 = fmaxf(a1, v.y);
+      }
+    }
+    const long long at = sub * g.F + c;
+    if (c < g.F) g.out[at] = merged(a0, g.comp[at]);
+    if (c + 1 < g.F) g.out[at + 1] = merged(a1, g.comp[at + 1]);
+  }
+}
+
+// What a layered call of N cache rows launches on a card of `sms` SMs:
+// layer 2's Hd splits (ceil(sms / tiles) where its 64 x 64 tiles are
+// fewer than the SMs, at most one 64-row stage of Hd each) and its
+// range, and the scratch floats (h, then the partials of y)
+struct Plan {
+  int nsplit, kper;
+  long long scratch;
+};
+
+Plan plan(long long N, int Hd, int F, int sms) {
+  const long long tiles = (N + kT - 1) / kT * ((F + kT - 1) / kT);
+  const int nch = (Hd + kKC - 1) / kKC;
+  long long want = tiles >= sms ? 1 : (sms + tiles - 1) / tiles;
+  if (want > nch) want = nch;
+  const int per = (nch + (int)want - 1) / (int)want;   // stages a split
+  Plan p;
+  p.nsplit = (nch + per - 1) / per;
+  p.kper = per * kKC;
+  p.scratch = N * Hd + (long long)p.nsplit * N * F;
+  return p;
+}
+
+int sm_count() {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    return 0;
+  return sms;
+}
+
+template <bool kRelu>
+cudaError_t run_gemm(const Gemm& g, int nsplit, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      gemm_kernel<kRelu>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((unsigned)((g.rows + kT - 1) / kT),
+                  (unsigned)((g.N + kT - 1) / kT), (unsigned)nsplit);
+  gemm_kernel<kRelu><<<grid, kThreads, kSmem, stream>>>(g);
+  return cudaGetLastError();
+}
+
+inline bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+}  // namespace layered
 
 }  // namespace
 
-// chunk: cache rows a launch takes, 64 (Rows64) or 128 (Rows128 where
-// more than 64 are left); the wrapper covers C with one launch a chunk.
-// The route follows from C, M, K and D (`streams`); a chunk whose launch
-// does not fit its route's shared memory is refused.
+// The resident route.  chunk: cache rows a launch takes, 64 (Rows64) or
+// 128 (Rows128 where more than 64 are left); the wrapper covers C with one
+// launch a chunk.  A call of the layered route (B and H as the wrapper's
+// launch takes them), or a chunk whose launch does not fit a block's
+// shared memory, is refused.
 extern "C" int hub_reuse_forward(const float* pool, const int32_t* slot,
                                  const float* comp, const uint8_t* live,
                                  const float* w1, const float* b1,
@@ -508,7 +731,8 @@ extern "C" int hub_reuse_forward(const float* pool, const int32_t* slot,
                                  int Hd, int F, int c0, int merge, int chunk,
                                  void* stream) {
   // the wrapper raises on the error: it splits C into chunks
-  if (C < 1 || c0 < 0 || c0 >= C || D < 1 || !chunk_ok(chunk))
+  if (C < 1 || c0 < 0 || c0 >= C || D < 1 || !chunk_ok(chunk) ||
+      layered_route(B, H, C, M, K, D, F, layered::sm_count()))
     return (int)cudaErrorInvalidValue;
   Params p{pool, slot, comp, live, w1, b1, w2, b2, out, C, M, K, D, Hd, F,
            c0, 0, merge};
@@ -519,18 +743,91 @@ extern "C" int hub_reuse_forward(const float* pool, const int32_t* slot,
   p.live_words = (long long)M * K % 4 == 0 &&
                  reinterpret_cast<uintptr_t>(live) % 4 == 0;
   const long long islands = (long long)B * H;
-  const bool streamed = streams(C, M, K, D);
-  if (route_smem(p, streamed) > kMaxSmem) return (int)cudaErrorInvalidValue;
-  if (streamed)
-    return p.Cc <= Rows64::kR ? launch<Rows64, true>(p, islands, stream)
-                              : launch<Rows128, true>(p, islands, stream);
-  return p.Cc <= Rows64::kR ? launch<Rows64, false>(p, islands, stream)
-                            : launch<Rows128, false>(p, islands, stream);
+  if (resident_smem(p) > kMaxSmem) return (int)cudaErrorInvalidValue;
+  return p.Cc <= Rows64::kR ? launch<Rows64>(p, islands, stream)
+                            : launch<Rows128>(p, islands, stream);
 }
 
-// Bytes of shared memory a block of the call's largest launch (its first
-// chunk's) takes at the knob chunk on the call's route, with liveness
-// (live != 0) or without; -1 for a chunk out of range or C < 1
+// The layered route: h into scratch, y's partials after it, then the
+// gather (three launches on `stream`).  scratch: the floats
+// hub_reuse_plan reports.  A call of the resident route is
+// refused.
+extern "C" int hub_reuse_layered(const float* pool, const int32_t* slot,
+                                 const float* comp, const uint8_t* live,
+                                 const float* w1, const float* b1,
+                                 const float* w2, const float* b2, float* out,
+                                 float* scratch, int B, int H, int C, int M,
+                                 int K, int D, int Hd, int F, void* stream) {
+  namespace ly = layered;
+  const int sms = ly::sm_count();
+  if (C < 1 || D < 1 || Hd < 1 || F < 1 || K < 0 || M < 1 || B < 1 ||
+      H < 1 || sms < 1 || !layered_route(B, H, C, M, K, D, F, sms))
+    return (int)cudaErrorInvalidValue;
+  const long long N = (long long)B * H * C;
+  if (N > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const ly::Plan pl = ly::plan(N, Hd, F, sms);
+  const cudaStream_t st = (cudaStream_t)stream;
+  float* h = scratch;
+  float* y = scratch + N * Hd;
+  const ly::Gemm g1{pool, w1, b1, h, (int)N, D, Hd, ((D + kKC - 1) / kKC) * kKC,
+                    D % 4 == 0 && ly::aligned16(pool),
+                    Hd % 4 == 0 && ly::aligned16(w1)};
+  cudaError_t err = ly::run_gemm<true>(g1, 1, st);
+  if (err != cudaSuccess) return (int)err;
+  const ly::Gemm g2{h, w2, nullptr, y, (int)N, Hd, F, pl.kper,
+                    Hd % 4 == 0 && ly::aligned16(h),
+                    F % 4 == 0 && ly::aligned16(w2)};
+  err = ly::run_gemm<false>(g2, pl.nsplit, st);
+  if (err != cudaSuccess) return (int)err;
+  const int mtiles = (M + ly::kGatherSubsets - 1) / ly::kGatherSubsets;
+  const long long gx = (long long)B * H * mtiles;
+  if (gx > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const int staged = C <= ly::kStagedC;
+  const int gsmem = staged ? (int)sizeof(float) * C * ly::kT : 0;
+  err = cudaFuncSetAttribute(ly::gather_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             gsmem);
+  if (err != cudaSuccess) return (int)err;
+  const ly::Gather g3{y, b2, slot, comp, live, out, N * F, C, M, K, F,
+                      pl.nsplit, mtiles, staged};
+  ly::gather_kernel<<<dim3((unsigned)gx, (unsigned)((F + ly::kT - 1) / ly::kT)),
+                      32 * ly::kGatherWarps, gsmem, st>>>(g3);
+  return (int)cudaGetLastError();
+}
+
+// {route (0 resident, 1 layered), layer 2's Hd splits, scratch floats,
+// shared memory of a block} of a call of B clouds (one for a launch a
+// cloud) on this card (the splits and scratch 0 on the resident route,
+// whose shared memory is at chunk = 128 with liveness); -1 for C < 1 or
+// D < 1
+extern "C" int hub_reuse_plan(int B, int H, int C, int M, int K, int D,
+                              int Hd, int F, long long* out) {
+  for (int i = 0; i < 4; ++i) out[i] = 0;
+  if (C < 1 || D < 1) return -1;
+  const int sms = layered::sm_count();
+  if (!layered_route(B, H, C, M, K, D, F, sms)) {
+    Params p{};
+    p.live = reinterpret_cast<const uint8_t*>(1);
+    p.C = C;
+    p.M = M;
+    p.K = K;
+    p.D = D;
+    p.Hd = Hd;
+    set_shape(p, kMaxC);
+    out[3] = resident_smem(p);
+    return 0;
+  }
+  const layered::Plan pl = layered::plan((long long)B * H * C, Hd, F, sms);
+  out[0] = 1;
+  out[1] = pl.nsplit;
+  out[2] = pl.scratch;
+  out[3] = layered::kSmem;
+  return 0;
+}
+
+// Bytes of shared memory a block of the call's largest resident launch
+// (its first chunk's) takes at the knob chunk, with liveness (live != 0)
+// or without; -1 for a chunk out of range or C < 1
 extern "C" long long hub_reuse_smem_bytes(int C, int M, int K, int D, int Hd,
                                           int live, int chunk) {
   if (C < 1 || D < 1 || !chunk_ok(chunk)) return -1;
@@ -542,12 +839,7 @@ extern "C" long long hub_reuse_smem_bytes(int C, int M, int K, int D, int Hd,
   p.D = D;
   p.Hd = Hd;
   set_shape(p, chunk);
-  return route_smem(p, streams(C, M, K, D));
-}
-
-// 1 where a call of these widths takes the streamed route, else 0
-extern "C" int hub_reuse_streams(int C, int M, int K, int D) {
-  return C >= 1 && D >= 1 && streams(C, M, K, D) ? 1 : 0;
+  return resident_smem(p);
 }
 
 extern "C" const char* hub_reuse_error_string(int code) {

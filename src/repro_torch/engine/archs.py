@@ -76,7 +76,8 @@ class EngineCtx:
     """Per-call execution context.  ``kernel_kw`` holds the FC kernels'
     launch knobs (``rows``: gather_mlp's narrow row tile, 64 or 128;
     ``nsplit``: its wide route's H split; ``chunk``: hub_reuse's cache
-    rows a launch, 64 or 128), over the tile-plan store and the
+    rows a resident launch, 64 or 128; each acts only on the calls of its
+    route), over the tile-plan store and the
     heuristic (``repro_torch.kernels.plans``).  ``mesh``: the data mesh
     of the sharded forward (None: one device)."""
     mode: str = "lpcn"
@@ -103,7 +104,8 @@ class EngineCtx:
                 f"kernel_kw {tpu}: TPU tile knobs of the JAX package; the "
                 f"CUDA kernels take {sorted(EngineCtx.KERNEL_KW_KEYS)} "
                 f"(rows: gather_mlp's narrow row tile, nsplit: its wide "
-                f"route's H split, chunk: hub_reuse's cache rows a launch)")
+                f"route's H split, chunk: hub_reuse's cache rows a "
+                f"resident launch)")
         unknown = sorted(set(kernel_kw) - EngineCtx.KERNEL_KW_KEYS)
         if unknown:
             raise ValueError(

@@ -133,11 +133,20 @@ def _dense_cuda(mlp: MLP, kind, xyz, feats, nbr_idx, centers_xyz,
 
 def _reuse_cuda(mlp: MLP, pool_in, slot, comp, live=None, kernel_kw=None,
                 variant=None):
-    """Reuse dataflow through ONE hub_reuse launch.  -> (B, H, M, Fout)."""
+    """Reuse dataflow through ONE hub_reuse call.  -> (B, H, M, Fout)."""
     prologue, weights = two_layer_form(mlp)
     x = pool_in if prologue is None else prologue(pool_in)
+    kw = {}
+    if kernel_kw:
+        from ..kernels.hub_reuse.ops import card_sms
+        hn, c, d = x.shape[-3:]
+        dims = dict(b=1 if x.dim() == 3 else x.shape[0], hn=hn, c=c,
+                    m=slot.shape[-2], k=slot.shape[-1], d=d,
+                    f=weights[2].shape[1])
+        kw = _route_knobs(kernel_kw, tiling.knobs_of("hub_reuse", dims,
+                                                     card_sms(x.device)))
     return hub_reuse(x, slot, comp, *weights, live=live, variant=variant,
-                     **_route_knobs(kernel_kw, ("chunk",)))
+                     **kw)
 
 
 def _dense_per_cloud(*args, **kw):

@@ -19,9 +19,8 @@ raises.  flash_attention and ssd_chunk have backward kernels: on the
 card the others raise :class:`NoBackwardError` where autograd would need
 their gradient.  :data:`LAUNCHES` counts the kernel launches per wrapper, and
 also per route where a kernel has several (``flash_attention_wgmma``,
-``flash_attention_mma``, ``flash_attention_split``,
-``flash_attention_split_fma``, ``gather_mlp_wide``,
-``hub_reuse_resident``, ``hub_reuse_stream``, ``ssd_chunk_whole``,
+``flash_attention_mma``, ``flash_attention_split``, ``gather_mlp_wide``,
+``hub_reuse_resident``, ``hub_reuse_layered``, ``ssd_chunk_whole``,
 ``ssd_chunk_tiled``, ``ssd_chunk_bwd_whole``, ``ssd_chunk_bwd_tiled``).
 """
 from ._build import _LOCK, BUILD_LOG, LAUNCHES, NoBackwardError, build

@@ -6,8 +6,8 @@ A CPU tensor takes the plain PyTorch versions (:func:`attention_ref`,
 :func:`attention_lse_ref`, :func:`attention_bwd_ref`); a CUDA tensor
 launches the kernel of the route that :func:`_variant` names or raises.
 Every head width D >= 1 has a route: ``wgmma`` and ``mma`` up to
-:data:`MAX_D`, ``split`` (D over a thread-block cluster) up to
-:data:`SPLIT_DMAX`, ``split_fma`` above it.
+:data:`MAX_D`, ``split`` (D over a thread-block cluster, in sweeps where
+a block's slice is wider than its pass holds) above it.
 
 The log-sum-exp that the forward hands the backward is float32 (B, Hq,
 Sq) in the kernels' log2 domain: row i's log2(sum_j exp2(q_i·k_j ·
@@ -25,21 +25,22 @@ from .ref import attention_bwd_ref, attention_lse_ref, attention_ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 MAX_D = 256                # the widest head of the mma and wgmma routes
-SPLIT_DMAX = 1024          # the widest of the split route (flash_split.cuh)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_VARIANTS = {"mma": 0, "wgmma": 1, "split": 2, "split_fma": 3}
+_VARIANTS = {"mma": 0, "wgmma": 1, "split": 2}
 # the backward's kernels, each launched once a call, in this order
 BWD_PASSES = ("dq", "dkdv")
 
 
 # what flash_attention_layout reports for a route: the forward's query
 # rows a block, keys a kv tile, D padded (a block's slice of it on the
-# split routes), shared memory, threads, blocks a cluster and columns of D
-# a block; then the backward's dQ and dK/dV passes' blocks a cluster, slice
-# and shared memory (the split routes; 0 on the others)
+# split route, a piece of that where the slice streams), shared memory,
+# threads, blocks a cluster and columns of D a block; then the backward's
+# dQ and dK/dV passes' blocks a cluster, slice and shared memory (the split
+# route; 0 on the others); then the sweeps of the forward and of each
+# backward pass (1 but on the split route, whose widest slices take more)
 LAYOUT = ("bq", "bk", "dp", "smem", "threads", "cluster", "slice",
           "dq_cluster", "dq_slice", "dq_smem", "dkv_cluster", "dkv_slice",
-          "dkv_smem")
+          "dkv_smem", "sweeps", "dq_sweeps", "dkv_sweeps")
 
 
 def _declare(lib):
@@ -55,7 +56,7 @@ def _lib():
 
 def library_layout(route: str, dtype, d: int) -> dict:
     """The tiles the built forward launches on ``route`` (``"mma"``,
-    ``"wgmma"``, ``"split"`` or ``"split_fma"``) for ``dtype`` (a torch
+    ``"wgmma"`` or ``"split"``) for ``dtype`` (a torch
     dtype or its name) and D (``LAYOUT``; on the split routes the
     backward's passes too).  Loads the library, so a card is needed.
     Raises for a route the call cannot take."""
@@ -81,8 +82,7 @@ def _lib_bwd():
 def _variant(dtype, d: int, ptrs=()) -> str:
     """The route a CUDA call takes, forward and backward alike:
     ``"split"`` (D in slices over the blocks of a thread-block cluster,
-    mma.sync) for MAX_D < D <= SPLIT_DMAX; ``"split_fma"`` (fp32 on the
-    CUDA cores, D in 64-column slices across blocks) above; ``"wgmma"``
+    mma.sync) for every D > MAX_D; ``"wgmma"``
     (bf16 products on ``wgmma``, fed by TMA, whose base addresses and rows
     must be multiples of 16 bytes) for bfloat16 with D % 8 == 0, D <= 128
     and every address in ``ptrs`` 16-byte aligned; else ``"mma"``
@@ -91,8 +91,6 @@ def _variant(dtype, d: int, ptrs=()) -> str:
     if d < 1:
         raise ValueError(f"flash_attention: the kernels take D >= 1, got "
                          f"D={d}")
-    if d > SPLIT_DMAX:
-        return "split_fma"
     if d > MAX_D:
         return "split"
     aligned = all(p % 16 == 0 for p in ptrs)

@@ -1,20 +1,24 @@
 """Wrapper of the hub_reuse CUDA kernel (``csrc/hub_reuse.cu``).
 
 A CPU tensor takes the plain PyTorch version (:func:`hub_reuse_ref`); a
-CUDA tensor launches the kernel or raises.  A launch takes a chunk of at
-most ``chunk`` cache rows (64 or 128); a larger C takes one launch a
-chunk, each merged into the output by an elementwise max.  The kernel has
-two routes, which the call's widths fix
-(:func:`~repro_torch.kernels.tiling.hub_reuse_route`): ``resident``
-stages x and the slot table whole; ``stream``, for widths whose 64-row
-resident launch would pass a block's shared memory, streams x in
-64-column slices and the slots a tile at a time.  Every shape has a plan.
+CUDA tensor launches the kernel or raises.  The kernel has two routes,
+which the call's widths and the card's SM count fix
+(:func:`~repro_torch.kernels.tiling.hub_reuse_route`): ``resident``, for
+the calls one launch of an island's cache rows in a block covers (C <=
+128 rows that fit) and, in 128-row chunks, for C past 128 where its grid
+fills most of the card; and ``layered`` for every other call (the two
+layers once for all cache rows, in device scratch, then the gather;
+three kernels a call, counted as one launch).  On ``resident`` a launch
+takes a chunk of at most ``chunk`` cache rows (64 or 128); a C past the
+chunk takes one launch a chunk, each merged into the output by an
+elementwise max.  Every shape has a plan.
 
 Each call resolves its plan (:func:`plan`) before the CPU/CUDA split, as
 ``gather_mlp``'s does: an explicit ``chunk`` or ``variant`` over a hit in
 the tile-plan store (``repro_torch.kernels.plans``) over the heuristic
-(``chunk`` = 128 where a 128-row launch fits, else 64,
-:func:`~repro_torch.kernels.tiling.hub_reuse_chunk`).  A ``"per_cloud"``
+(``chunk`` = 128 on the resident route, none on the layered one,
+:func:`~repro_torch.kernels.tiling.hub_reuse_chunk`); the SM count is the
+card's (an H100's, 132, for a CPU call).  A ``"per_cloud"``
 plan launches once per cloud (and chunk), at B = 1.
 """
 from __future__ import annotations
@@ -30,34 +34,67 @@ from .ref import hub_reuse_ref
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 CHUNK = 128                # the most cache rows a launch takes (csrc kMaxC)
 VARIANTS = ("batched", "per_cloud")
+#: what hub_reuse_plan reports: the route (0 resident, 1 layered), layer
+#: 2's H splits, scratch floats and a block's shared memory
+PLAN = ("route", "nsplit", "scratch", "smem")
 
 
 def _declare(lib):
     lib.hub_reuse_forward.argtypes = [_P] * 9 + [_I] * 11 + [_P]
     lib.hub_reuse_forward.restype = _I
+    lib.hub_reuse_layered.argtypes = [_P] * 10 + [_I] * 8 + [_P]
+    lib.hub_reuse_layered.restype = _I
     lib.hub_reuse_smem_bytes.argtypes = [_I] * 7
     lib.hub_reuse_smem_bytes.restype = _L
-    lib.hub_reuse_streams.argtypes = [_I] * 4
-    lib.hub_reuse_streams.restype = _I
+    lib.hub_reuse_plan.argtypes = [_I] * 8 + [_P]
+    lib.hub_reuse_plan.restype = _I
 
 
 def _lib():
     return _build.load("hub_reuse", _declare)
 
 
+_LIB_PLANS: dict = {}
+
+
+def library_plan(b: int, hn: int, c: int, m: int, k: int, d: int, h: int,
+                 f: int) -> dict:
+    """What the built kernel launches for the call on this card
+    (:data:`PLAN`; the route by name): the card's answer to
+    :func:`~repro_torch.kernels.tiling.hub_reuse_route`, ``nsplit`` and
+    ``scratch`` of
+    :func:`~repro_torch.kernels.tiling.hub_reuse_layered_plan` (0 on the
+    resident route) and :func:`~repro_torch.kernels.tiling.hub_reuse_smem`
+    at chunk 128."""
+    lib = _lib()
+    key = (id(lib), torch.cuda.current_device(), b, hn, c, m, k, d, h, f)
+    got = _LIB_PLANS.get(key)     # memoised: a layered call asks each time
+    if got is None:
+        out = (ctypes.c_longlong * len(PLAN))()
+        if lib.hub_reuse_plan(b, hn, c, m, k, d, h, f, out) != 0:
+            raise ValueError(f"hub_reuse: no plan for C={c}, D={d}")
+        got = dict(zip(PLAN, out))
+        got["route"] = ("resident", "layered")[got["route"]]
+        _LIB_PLANS[key] = got
+    return dict(got)
+
+
 def library_smem(c: int, m: int, k: int, d: int, h: int, live: bool = True,
                  chunk: int = CHUNK) -> int:
-    """Shared memory of a block of the call's largest launch at ``chunk``
-    on the call's route, as the built kernel counts it (the card's answer
-    to :func:`~repro_torch.kernels.tiling.hub_reuse_smem`); -1 for a
-    chunk out of range."""
+    """Shared memory of a resident block of the call's largest launch at
+    ``chunk``, as the built kernel counts it (the card's answer to
+    :func:`~repro_torch.kernels.tiling.hub_reuse_smem`); -1 for a chunk
+    out of range."""
     return _lib().hub_reuse_smem_bytes(c, m, k, d, h, int(live), chunk)
 
 
-def library_route(c: int, m: int, k: int, d: int) -> str:
-    """The route the built kernel takes at these widths (the card's
-    answer to :func:`~repro_torch.kernels.tiling.hub_reuse_route`)."""
-    return "stream" if _lib().hub_reuse_streams(c, m, k, d) else "resident"
+def card_sms(device) -> int:
+    """The SM count a call's route is planned for: the card's, or an
+    H100's (``tiling.H100_SMS``) for a CPU call."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return tiling.H100_SMS
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 # ---- plan resolution -------------------------------------------------------
@@ -71,12 +108,13 @@ def plan(b: int, hn: int, c: int, m: int, k: int, d: int, h: int, f: int,
          variant: str | None = None) -> dict:
     """The plan a call of b clouds of hn islands (C cache rows, M subsets
     of K points, widths d, h, f) on ``device`` launches: ``route``
-    ("resident" or "stream", fixed by the widths), ``variant`` ("batched"
-    or "per_cloud"), ``provenance`` ("override", "autotuned" or
-    "heuristic", as ``gather_mlp``'s) and ``chunk``.  A given chunk that
-    does not fit raises ``ValueError``; a store entry that does not fit
-    warns and the heuristic plans the call.  Memoised per call shape
-    until the store changes."""
+    ("resident" or "layered", fixed by the widths), ``variant``
+    ("batched" or "per_cloud"), ``provenance`` ("override", "autotuned" or
+    "heuristic", as ``gather_mlp``'s) and ``chunk`` (None on the layered
+    route).  A given chunk that does not fit, or on the layered route,
+    raises ``ValueError``; a store entry that does not fit warns and the
+    heuristic plans the call.  Memoised per call shape until the store
+    changes."""
     return _resolved((b, hn, c, m, k, d, h, f, torch.device(device), chunk,
                       variant))
 
@@ -90,12 +128,13 @@ def _resolved(key: tuple) -> dict:
 
 def _resolve(b, hn, c, m, k, d, h, f, device, chunk, variant):
     dims = dict(b=b, hn=hn, c=c, m=m, k=k, d=d, h=h, f=f)
+    sms = card_sms(device)
     if variant is not None and variant not in VARIANTS:
         raise ValueError(f"hub_reuse: variant {variant!r} is not one of "
                          f"{VARIANTS}")
     knobs = {} if chunk is None else {"chunk": chunk}
     if knobs or variant is not None:
-        err = tiling.infeasible("hub_reuse", dims, knobs)
+        err = tiling.infeasible("hub_reuse", dims, knobs, sms)
         if err:
             raise ValueError(f"hub_reuse: {plans.plan_key('hub_reuse', dims)}"
                              f": {err}")
@@ -106,7 +145,8 @@ def _resolve(b, hn, c, m, k, d, h, f, device, chunk, variant):
         if entry is not None:
             err = (plans.entry_error("hub_reuse", entry)
                    or tiling.infeasible("hub_reuse", dims,
-                                        plans.knobs("hub_reuse", entry)))
+                                        plans.knobs("hub_reuse", entry),
+                                        sms))
             if err:
                 warnings.warn(
                     f"tile plan for {plans.plan_key('hub_reuse', dims)} no "
@@ -117,9 +157,12 @@ def _resolve(b, hn, c, m, k, d, h, f, device, chunk, variant):
                 knobs = plans.knobs("hub_reuse", entry)
                 prov = "autotuned"
                 variant = entry.get("variant") or "batched"
-    return dict(route=tiling.hub_reuse_route(c, m, k, d), variant=variant,
-                provenance=prov,
-                chunk=knobs.get("chunk", tiling.hub_reuse_chunk(c, m, k, d)))
+    # a per_cloud plan's launches each take one cloud
+    rb = 1 if variant == "per_cloud" else b
+    route = tiling.hub_reuse_route(rb, hn, c, m, k, d, f, sms)
+    return dict(route=route, variant=variant, provenance=prov,
+                chunk=(knobs.get("chunk", tiling.hub_reuse_chunk(c, m, k, d))
+                       if route == "resident" else None))
 
 
 def hub_reuse(pool_in, slot, comp, w1, b1, w2, b2, live=None, *,
@@ -176,10 +219,14 @@ def hub_reuse(pool_in, slot, comp, w1, b1, w2, b2, live=None, *,
         stream = torch._C._cuda_getCurrentRawStream(pool_in.device.index)
         weights = (w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
                    b2.data_ptr())
-        step = pl["chunk"]
-        # one launch a chunk for the batch, or for each cloud at the
-        # clouds' offsets (every operand is contiguous, the batch leading)
+        # the batch at once, or each cloud at the clouds' offsets (every
+        # operand is contiguous, the batch leading)
         n, bb = (b, 1) if pl["variant"] == "per_cloud" else (1, b)
+        layered = pl["route"] == "layered"
+        if layered:
+            scratch = torch.empty(
+                library_plan(bb, hn, c, m, k, d, hdim, fout)["scratch"],
+                dtype=torch.float32, device=pool_in.device)
         for i in range(n):
             mk = i * hn * m * k
             ptrs = (pool_in.data_ptr() + i * 4 * hn * c * d,
@@ -187,10 +234,18 @@ def hub_reuse(pool_in, slot, comp, w1, b1, w2, b2, live=None, *,
                     comp.data_ptr() + i * 4 * hn * m * fout,
                     None if live is None else live.data_ptr() + mk,
                     *weights, out.data_ptr() + i * 4 * hn * m * fout)
-            for c0 in range(0, c, step):
+            if layered:
+                code = lib.hub_reuse_layered(
+                    *ptrs, scratch.data_ptr(), bb, hn, c, m, k, d, hdim,
+                    fout, stream)
+                _build.check_launch(lib, "hub_reuse", code)
+                _build.count_launch("hub_reuse", "hub_reuse_layered")
+                continue
+            # one launch a chunk, each merged into the last by a max
+            for c0 in range(0, c, pl["chunk"]):
                 code = lib.hub_reuse_forward(
                     *ptrs, bb, hn, c, m, k, d, hdim, fout, c0, int(c0 > 0),
-                    step, stream)
+                    pl["chunk"], stream)
                 _build.check_launch(lib, "hub_reuse", code)
-                _build.count_launch("hub_reuse", f"hub_reuse_{pl['route']}")
+                _build.count_launch("hub_reuse", "hub_reuse_resident")
     return out[0] if single else out

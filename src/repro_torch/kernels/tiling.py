@@ -12,19 +12,23 @@ plan sets, per kernel and route:
   gather_mlp, route ``narrow``  ``rows``    the row tile, 64 or 128
   gather_mlp, route ``wide``    ``nsplit``  H's 32-column chunks split
                                             across blocks, 1 to ⌈H/32⌉
-  hub_reuse                     ``chunk``   cache rows a launch, 64 or 128
+  hub_reuse, route ``resident`` ``chunk``   cache rows a launch, 64 or 128
 
-hub_reuse has two routes, fixed by the call's widths
-(:func:`hub_reuse_route`): ``resident`` stages x and the slot table
-whole; ``stream`` takes the calls whose 64-row launch would not fit that
-way, streaming x in 64-column slices and the slots a warp's tile at a
-time, in fixed shared memory.
+hub_reuse has two routes, fixed by the call's widths and the card's SM
+count (:func:`hub_reuse_route`): ``resident`` stages an island's x and
+slot table in a block, for the calls one launch of it covers (C <= 128
+rows that fit) and, in 128-row chunks, for C past 128 where its grid
+fills most of the card; ``layered`` takes every other call in three
+launches over device memory (the first layer once for all cache rows,
+the second with H split where its tiles are few, the gather; its plan,
+:func:`hub_reuse_layered_plan`, depends on the SM count too).
 
 The formulas mirror the kernels' own (``smem_bytes`` and
-``wide::make_plan`` in ``gather_mlp.cu``, ``smem_bytes`` and ``streams``
-in ``hub_reuse.cu``); each library also answers for itself
-(``gather_mlp_smem_bytes``, ``hub_reuse_smem_bytes``,
-``hub_reuse_streams``), which ``chip_smoke.py`` holds these against.
+``wide::make_plan`` in ``gather_mlp.cu``, ``smem_bytes``,
+``layered_route`` and ``layered::plan`` in ``hub_reuse.cu``); each
+library also answers for itself (``gather_mlp_smem_bytes``,
+``hub_reuse_smem_bytes``, ``hub_reuse_plan``), which ``chip_smoke.py``
+holds these against.
 """
 from __future__ import annotations
 
@@ -33,13 +37,19 @@ SMEM_SM = 233472           # an SM's shared memory, bytes
 WIDE_BLOCKS_PER_SM = 2     # what the wide route's plan aims at (kBlocks)
 NARROW_BLOCKS_PER_SM = 2   # what the narrow row tile aims at (kBlocksPerSM)
 ROWS = (64, 128)           # the narrow route's row tiles
-CHUNKS = (64, 128)         # hub_reuse's cache rows a launch
-SLOT_TILE = 128            # hub_reuse's slots a warp stages when streamed
+CHUNKS = (64, 128)         # hub_reuse's cache rows a resident launch
 H_CHUNK = 32               # the wide route's columns of h a chunk
 ROUTES = ("narrow", "wide")
+H100_SMS = 132             # the SM count planned for off the card
+LAYERED_TILE = 64          # the layered route's GEMM tiles, 64 x 64
+GATHER_SUBSETS = 16        # the layered gather's subsets a block
+#: a layered GEMM block's shared memory: three stages of a 64 x 72 A tile
+#: and a 64 x 68 B tile (the gather's, y at 64 features of at most 384
+#: cache rows, is less)
+LAYERED_SMEM = 4 * 3 * (64 * 72 + 64 * 68)
 #: the knobs of each kernel's plans, and the route each acts on
 KNOBS = {"gather_mlp": ("rows", "nsplit"), "hub_reuse": ("chunk",)}
-KNOB_ROUTE = {"rows": "narrow", "nsplit": "wide", "chunk": None}
+KNOB_ROUTE = {"rows": "narrow", "nsplit": "wide", "chunk": "resident"}
 
 
 def round_up(n: int, m: int) -> int:
@@ -150,7 +160,8 @@ def gather_mlp_smem(b, s, k, d, dc, h, f, sms: int, rows: int = 0,
 
 
 def hub_reuse_launches(c: int, chunk: int = 128) -> list:
-    """Cache rows of each hub_reuse launch a call of C rows makes."""
+    """Cache rows of each resident hub_reuse launch a call of C rows
+    makes at ``chunk``."""
     return [min(chunk, c - c0) for c0 in range(0, c, chunk)]
 
 
@@ -164,52 +175,101 @@ def _resident_smem(rows: int, m: int, k: int, d: int, live: bool) -> int:
     return 4 * (m * k4 + live_floats + xy + rows * hs + 3 * 64 * (64 + 4))
 
 
-def hub_reuse_route(c: int, m: int, k: int, d: int) -> str:
-    """The route hub_reuse takes for C cache rows, M subsets of K slots
-    and width D (``hub_reuse.cu``: ``streams``): ``"stream"`` where a
-    64-row resident launch, liveness counted, would pass a block's shared
-    memory, else ``"resident"``.  Not C: each launch takes 128 rows at
-    most."""
-    return ("stream" if _resident_smem(64, m, k, d, True) > MAX_SMEM
-            else "resident")
+def hub_reuse_route(b: int, hn: int, c: int, m: int, k: int, d: int,
+                    f: int, sms: int) -> str:
+    """The route hub_reuse takes for b clouds of hn islands of C cache
+    rows, M subsets of K slots, widths D and F, on a card of ``sms`` SMs
+    (``hub_reuse.cu``: ``layered_route``): ``"resident"`` where one
+    resident launch covers the call (C <= 128 and a block of min(C, 128)
+    rows padded to 64 or 128, liveness counted, fits a block's shared
+    memory), or where C passes 128, a 128-row block fits and the
+    resident grid, b·hn·ceil(F/64) blocks, is at least 3/4 of the SMs
+    (PointNet++(c)'s block 2 at C = 256 and B = 8, 128 blocks: 0.063 ms
+    in two launches against the layered route's 0.080; at B = 4, 64
+    blocks, 0.064 against 0.047, on an H100); else ``"layered"``."""
+    if c <= CHUNKS[-1]:
+        rows = 64 if c <= 64 else 128
+        return ("layered" if _resident_smem(rows, m, k, d, True) > MAX_SMEM
+                else "resident")
+    fits = _resident_smem(CHUNKS[-1], m, k, d, True) <= MAX_SMEM
+    grid = b * hn * -(-f // 64)
+    return "resident" if fits and 4 * grid >= 3 * sms else "layered"
+
+
+def _layered_reason(c: int, m: int, k: int, d: int) -> str:
+    """Why a layered call is not resident."""
+    rows = 64 if c <= 64 else 128
+    smem = _resident_smem(rows, m, k, d, True)
+    if smem > MAX_SMEM:
+        return (f"a resident block of {rows} rows takes {smem} B of shared "
+                f"memory, past a block's {MAX_SMEM}")
+    return (f"C={c} passes {CHUNKS[-1]} cache rows and the resident grid "
+            f"would cover less than 3/4 of the card")
 
 
 def hub_reuse_smem(c: int, m: int, k: int, d: int, live: bool = True,
                    chunk: int = 128) -> int:
-    """Bytes of shared memory a block of the call's largest launch (its
-    first chunk's) takes on the call's route (``hub_reuse.cu``:
+    """Bytes of shared memory a resident block of the call's largest
+    launch (its first chunk's) takes at ``chunk`` (``hub_reuse.cu``:
     ``smem_bytes``), with the liveness mask staged or without, as
-    ``hub_reuse_smem_bytes`` answers.  A streamed block holds each warp's
-    slot tile, one x slice (later y), h and the ring, whatever D, M and
-    K."""
+    ``hub_reuse_smem_bytes`` answers.  (A layered call's blocks take
+    :data:`LAYERED_SMEM`, as ``hub_reuse_plan`` answers.)"""
     rows = 64 if min(chunk, c) <= 64 else 128
-    if hub_reuse_route(c, m, k, d) == "stream":
-        return 4 * ((rows // 8) * SLOT_TILE + 2 * rows * (64 + 8)
-                    + 3 * 64 * (64 + 4))
     return _resident_smem(rows, m, k, d, live)
 
 
-def hub_reuse_chunk(c: int, m: int, k: int, d: int) -> int:
-    """The heuristic's cache rows a launch: 128 wherever a 128-row launch
-    fits (a streamed one always does), else 64."""
-    return 128 if hub_reuse_smem(c, m, k, d, True, 128) <= MAX_SMEM else 64
+def hub_reuse_chunk(c: int, m: int, k: int, d: int) -> int | None:
+    """The heuristic's cache rows a resident launch: 128 where a 128-row
+    block fits (one launch for C <= 128), else 64 where a 64-row one
+    does, else None (no resident launch fits)."""
+    for rows in reversed(CHUNKS):
+        block = 64 if min(rows, c) <= 64 else 128
+        if _resident_smem(block, m, k, d, True) <= MAX_SMEM:
+            return rows
+    return None
 
 
-def knobs_of(kernel: str, dims: dict) -> tuple:
+def hub_reuse_layered_plan(b: int, hn: int, c: int, h: int, f: int,
+                           sms: int) -> dict:
+    """What a layered call of b clouds of hn islands of C cache rows (H
+    hidden, F out) launches on a card of ``sms`` SMs (``hub_reuse.cu``:
+    ``layered::plan``): N = b·hn·C rows; layer 1's grid (64-row tiles,
+    64-column tiles of H); layer 2's, H split into ``nsplit`` ranges of
+    ``kper`` rows (ceil(sms / tiles) where its tiles are fewer than the
+    SMs, at most one 64-row stage of H a range); the scratch floats (h,
+    then y's partials)."""
+    n = b * hn * c
+    t = LAYERED_TILE
+    rt, ft = -(-n // t), -(-f // t)
+    tiles = rt * ft
+    nch = -(-h // 64)
+    want = 1 if tiles >= sms else -(-sms // tiles)
+    per = -(-nch // min(want, nch))
+    nsplit = -(-nch // per)
+    return dict(n=n, layer1=(rt, -(-h // t), 1), layer2=(rt, ft, nsplit),
+                nsplit=nsplit, kper=per * 64,
+                scratch=n * h + nsplit * n * f)
+
+
+def knobs_of(kernel: str, dims: dict, sms: int = H100_SMS) -> tuple:
     """The knobs that act on the call ``dims`` describes: ``("rows",)``
     on gather_mlp's narrow route, ``("nsplit",)`` on its wide one,
-    ``("chunk",)`` for hub_reuse."""
+    ``("chunk",)`` on hub_reuse's resident route, none on its layered
+    one (on a card of ``sms`` SMs, an H100's by default)."""
     if kernel == "hub_reuse":
-        return ("chunk",)
+        way = hub_reuse_route(*(dims[n] for n in ("b", "hn", "c", "m", "k",
+                                                  "d", "f")), sms)
+        return ("chunk",) if way == "resident" else ()
     way = route(dims["k"], dims["d"], dims["dc"], dims["h"], dims["f"])
     return ("rows",) if way == "narrow" else ("nsplit",)
 
 
-def infeasible(kernel: str, dims: dict, knobs: dict) -> str | None:
+def infeasible(kernel: str, dims: dict, knobs: dict,
+               sms: int = H100_SMS) -> str | None:
     """Why the knobs of a plan do not fit the call ``dims`` describes
-    (None where they do).  ``knobs`` holds the plan's knob fields only
-    (empty = the heuristic's launch); a knob of the other route does not
-    fit."""
+    on a card of ``sms`` SMs (None where they do).  ``knobs`` holds the
+    plan's knob fields only (empty = the heuristic's launch); a knob of
+    the other route does not fit."""
     if kernel not in KNOBS:
         return f"unknown kernel {kernel!r}"
     for name, v in knobs.items():
@@ -217,9 +277,11 @@ def infeasible(kernel: str, dims: dict, knobs: dict) -> str | None:
             return f"{name!r} is not a knob of {kernel}"
         if not isinstance(v, int) or isinstance(v, bool):
             return f"{name!r} must be an int, got {v!r}"
-        if name not in knobs_of(kernel, dims):
-            return (f"{name!r} acts on gather_mlp's {KNOB_ROUTE[name]} "
-                    f"route and this call takes the other one")
+        if name not in knobs_of(kernel, dims, sms):
+            why = (f" ({_layered_reason(*(dims[n] for n in 'cmkd'))})"
+                   if kernel == "hub_reuse" else "")
+            return (f"{name!r} acts on {kernel}'s {KNOB_ROUTE[name]} "
+                    f"route and this call takes the other one{why}")
         if name == "rows":
             if v not in ROWS:
                 return f"'rows' must be one of {ROWS}, got {v}"
@@ -235,7 +297,7 @@ def infeasible(kernel: str, dims: dict, knobs: dict) -> str | None:
         elif name == "chunk":
             if v not in CHUNKS:
                 return f"'chunk' must be one of {CHUNKS}, got {v}"
-    if kernel == "hub_reuse":
+    if kernel == "hub_reuse" and knobs_of(kernel, dims, sms):
         c, m, k, d = (dims[n] for n in ("c", "m", "k", "d"))
         smem = hub_reuse_smem(c, m, k, d, True,
                               knobs.get("chunk", hub_reuse_chunk(c, m, k, d)))
@@ -245,6 +307,7 @@ def infeasible(kernel: str, dims: dict, knobs: dict) -> str | None:
     return None
 
 
-def feasible(kernel: str, dims: dict, knobs: dict) -> bool:
+def feasible(kernel: str, dims: dict, knobs: dict,
+             sms: int = H100_SMS) -> bool:
     """Whether the knobs fit the call (see :func:`infeasible`)."""
-    return infeasible(kernel, dims, knobs) is None
+    return infeasible(kernel, dims, knobs, sms) is None

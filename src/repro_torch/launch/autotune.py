@@ -60,6 +60,8 @@ def heuristic_knobs(kernel: str, dims: dict, sms: int) -> dict:
     """The knob the heuristic sets for the cell on a card of ``sms`` SMs
     (always candidate 0, so the winner never loses to the default)."""
     if kernel == "hub_reuse":
+        if not tiling.knobs_of(kernel, dims, sms):      # the layered route
+            return {}
         return {"chunk": tiling.hub_reuse_chunk(
             *(dims[n] for n in ("c", "m", "k", "d")))}
     shape = [dims[n] for n in ("b", "s", "k", "d", "dc", "h", "f")]
@@ -73,6 +75,8 @@ def _launch_sig(kernel: str, dims: dict, knobs: dict, sms: int) -> tuple:
     if "variant" in knobs:
         return ("per_cloud",)
     if kernel == "hub_reuse":
+        if "chunk" not in knobs:
+            return ("layered",)
         return tuple(64 if r <= 64 else 128
                      for r in tiling.hub_reuse_launches(dims["c"],
                                                         knobs["chunk"]))
@@ -94,19 +98,19 @@ def candidate_plans(kernel: str, dims: dict, budget: int = 16,
 
     def admit(knobs):
         sig = _launch_sig(kernel, dims, knobs, sms)
-        if sig in seen or not tiling.feasible(kernel, dims, knobs):
+        if sig in seen or not tiling.feasible(kernel, dims, knobs, sms):
             return
         seen.add(sig)
         out.append(knobs)
 
     admit(heuristic_knobs(kernel, dims, sms))
-    (name,) = tiling.knobs_of(kernel, dims)
     values = {"rows": tiling.ROWS, "chunk": tiling.CHUNKS,
               "nsplit": range(1, tiling.wide_chunks(dims.get("h", 1)) + 1)}
-    for v in values[name]:
-        admit({name: int(v)})
+    for name in tiling.knobs_of(kernel, dims, sms):   # none: hub layered
+        for v in values[name]:
+            admit({name: int(v)})
     out = out[:max(int(budget), 1)]
-    if tiling.feasible(kernel, dims, {}):   # the heuristic's launch, at B=1
+    if tiling.feasible(kernel, dims, {}, sms):   # the heuristic's, at B=1
         out.append(dict(PER_CLOUD))
     return out
 
@@ -225,7 +229,9 @@ def autotune_cell(kernel: str, dims: dict, *, budget: int = 16,
     the fastest :data:`FINALISTS` that pass are re-timed interleaved with
     the per-cloud launch for :data:`FINAL_PASSES` passes, min-merged.
     Where the per-cloud launch beats every finalist, the cell records
-    ``{"variant": "per_cloud"}``.  The entry carries the measurement:
+    ``{"variant": "per_cloud"}``; a cell whose route has no knob
+    (hub_reuse's layered route) records nothing else, its heuristic
+    being its only batched plan.  The entry carries the measurement:
     every candidate's ms, difference from the heuristic's output,
     bit-equality and shared memory, the heuristic's and the per-cloud
     ms, and the card."""
@@ -296,7 +302,8 @@ def autotune_cell(kernel: str, dims: dict, *, budget: int = 16,
     else:
         entry = {**knobs, "provenance": "autotuned", "measured_ms": ms,
                  **context}
-    store.record(kernel, dims, entry, device=device)
+    if entry.get("variant") or knobs:
+        store.record(kernel, dims, entry, device=device)
     if log:
         win = entry.get("variant") or knobs
         log(f"{key}: {win} -> {entry['measured_ms']:.4f} ms (heuristic "

@@ -41,10 +41,11 @@ torch.set_num_threads(1)
 SMS = 132                # an H100 SXM's, for planning off the card
 BIG = 3.4e38
 # cells: narrow (pointnet2's reduced first block), wide (H split 8 ways),
-# hub_reuse over two chunks, the entry kernels at the targets' widths
+# hub_reuse resident (two chunks when forced to 64 rows), the entry
+# kernels at the targets' widths
 NARROW = dict(b=3, s=48, k=8, d=6, dc=3, h=16, f=32)
 WIDE = dict(b=2, s=8, k=20, d=256, dc=256, h=512, f=256)
-HUB = dict(b=2, hn=4, c=200, m=4, k=4, d=6, h=8, f=16)
+HUB = dict(b=2, hn=4, c=128, m=4, k=4, d=6, h=8, f=16)
 KNN = dict(s=64, n=1024, k=300)
 FLASH = dict(b=2, hq=4, hkv=2, sq=64, skv=64, d=64)
 FLASH_SPLIT = dict(b=1, hq=4, hkv=2, sq=96, skv=96, d=512)
@@ -107,12 +108,14 @@ def test_wide_site_merges_its_h_splits():
 
 
 def test_k001_site_over_227_kb():
-    # a forced 128-row chunk of a resident call whose 64-row one fits (a
-    # call too wide for 64 rows streams, in fixed shared memory)
-    hub = _site("hub_reuse", dict(HUB, d=387), chunk=128)
-    assert hub.launch["route"] == "resident"
-    assert hub.smem > tiling.MAX_SMEM
-    assert _rules(check_kernel_site(hub)) == {"K001"}
+    # every resident plan fits (a call one resident launch does not
+    # cover takes the layered route, in fixed shared memory): a layered
+    # site planted past 227 KB
+    hub = _site("hub_reuse", dict(HUB, d=387))
+    assert hub.launch["route"] == "layered"
+    assert check_kernel_site(hub) == []
+    over = dataclasses.replace(hub, smem=tiling.MAX_SMEM + 1)
+    assert _rules(check_kernel_site(over)) == {"K001"}
     dims = dict(b=2, s=64, k=32, d=192, dc=3, h=192, f=256)
     forced = _site("gather_mlp", dims, provenance="override", rows=128)
     assert "K001" in _rules(check_kernel_site(forced))
@@ -143,9 +146,9 @@ def test_k003_grid_misses_the_last_row():
     assert _rules(fs) == {"K003"} and "unwritten" in fs[0].message
     over = dataclasses.replace(site, grid=(nb, groups + 1))
     assert "outside" in check_kernel_site(over)[0].message
-    hub = _site("hub_reuse", HUB, chunk=128)
+    hub = _site("hub_reuse", HUB, chunk=64)
     gap = dataclasses.replace(hub, coverage=[(
-        "launches [128] cover the 200 cache rows", False)])
+        "launches [64] cover the 128 cache rows", False)])
     assert _rules(check_kernel_site(gap)) == {"K003"}
     # the plan that launched (rows 64) is not the one derived (128)
     launched = _site("gather_mlp", dict(NARROW, b=64, s=512), rows=64)
@@ -168,7 +171,7 @@ def test_k005_two_blocks_write_one_tile():
                                 out_map=lambda p: [(p[0], p[1] // 2, 0)])
     assert _rules(check_kernel_site(twice)) == {"K005"}
     hub = _site("hub_reuse", HUB, chunk=64)
-    assert hub.grid[1] == 4 and check_kernel_site(hub) == []
+    assert hub.grid[1] == 2 and check_kernel_site(hub) == []
     race = dataclasses.replace(hub, semantics=(K.PARALLEL,) * 4)
     assert _rules(check_kernel_site(race)) == {"K005"}
 
@@ -594,7 +597,7 @@ def test_full_matrix_is_clean():
         elif t.name.startswith("entry:"):
             assert kinds == {t.name.split(":")[1]}, t.name
     routes = {(r["kernel"], r["launch"].get("route")) for r in rows}
-    assert {("hub_reuse", "stream"), ("ssd_chunk", "tiled"),
+    assert {("hub_reuse", "layered"), ("ssd_chunk", "tiled"),
             ("flash_attention", "split")} <= routes, routes
 
 

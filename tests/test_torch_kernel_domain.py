@@ -1,7 +1,7 @@
 """The shapes past the earlier routes' limits, which the port's kernels now
-take as the JAX package's Pallas kernels do: hub_reuse past a block's
-shared memory (its resident route in 64-row chunks, and the ``stream``
-route), ssd_chunk forward and backward at chunks over 128 rows (the
+take as the JAX package's Pallas kernels do: hub_reuse past one resident
+launch (the ``layered`` route: past 128 cache rows, or where they pass a
+block's shared memory), ssd_chunk forward and backward at chunks over 128 rows (the
 ``tiled`` route; Mamba-2's published chunk is 256) and flash_attention
 forward and backward at heads over 256 wide (the ``split`` route).
 
@@ -44,8 +44,8 @@ CARD_TOL = 1e-4        # a kernel route against its plain version, f32
 CACHE_X = (1.0, 2.0, 4.0)
 
 # (H, C, M, K, D, Hd, F): D = 387 at C = 128 (pointvector_l's block 4
-# under the paper's Fig. 22 cache size, cut in H, M, Hd and F), resident
-# in 64-row chunks; D = 700 streamed
+# under the paper's Fig. 22 cache size, cut in H, M, Hd and F) and D =
+# 700, both past a 128-row resident block: the layered route
 HUB_SHAPES = [(2, 128, 16, 8, 387, 32, 32), (2, 128, 16, 8, 700, 32, 32)]
 SSD_QS = (129, 256, 512)
 FLASH_DS = (257, 320, 512)
@@ -98,11 +98,10 @@ def _t(arrays, device="cpu"):
 
 @pytest.mark.parametrize("shape", HUB_SHAPES)
 def test_hub_reuse_ref_matches_pallas_past_shared_memory(shape):
-    """The plain version against hub_reuse_pallas (interpret mode) at a
-    width whose 128-row resident launch passes a block's shared memory
-    (the heuristic plans 64-row chunks) and at one whose 64-row launch
-    does too (the stream route); the plan is resolved before the CPU/CUDA
-    split, so the route shows here."""
+    """The plain version against hub_reuse_pallas (interpret mode) at
+    widths whose 128-row resident launch passes a block's shared memory
+    (the layered route, no chunk); the plan is resolved before the
+    CPU/CUDA split, so the route shows here."""
     import jax.numpy as jnp
     from repro.kernels.hub_reuse.hub_reuse import hub_reuse_pallas
     h, c, m, k, d, hd, f = shape
@@ -111,10 +110,9 @@ def test_hub_reuse_ref_matches_pallas_past_shared_memory(shape):
     with plans.capture() as cap:
         got = hub_reuse(pool, slot, comp, w1, b1, w2, b2, live=live != 0)
     (rec,) = cap
-    route = tiling.hub_reuse_route(c, m, k, d)
-    assert rec["plan"]["route"] == route == ("stream" if d > 600
-                                             else "resident")
-    assert rec["plan"]["chunk"] == (128 if route == "stream" else 64)
+    route = tiling.hub_reuse_route(1, h, c, m, k, d, f, tiling.H100_SMS)
+    assert rec["plan"]["route"] == route == "layered"
+    assert rec["plan"]["chunk"] is None
     want = hub_reuse_pallas(*[jnp.asarray(a) for a in arrays[:7]],
                             interpret=True, live=jnp.asarray(arrays[7]))
     _close(got.numpy(), want, PALLAS_TOL, f"hub_reuse D={d}")
@@ -123,32 +121,66 @@ def test_hub_reuse_ref_matches_pallas_past_shared_memory(shape):
 
 
 def test_hub_reuse_plans_fall_to_64_rows_then_stream():
-    """128 rows where they fit, 64 where only those do, the stream route
-    (whose shared memory is fixed) where 64 rows do not fit either, or
-    where the slot table alone is too large; a forced chunk that does not
-    fit still raises, and the library's formula's copies agree."""
+    """One resident launch wherever it covers the call (C <= 128 rows
+    that fit a block: chunk 128); past 128 rows, resident in 128-row
+    chunks where their grid B·H·ceil(F/64) covers 3/4 of the SMs; the
+    layered route for every other call (128 rows of pointnext_s's and
+    pointvector_l's block 4 at C = 128, C past 128 on a small grid, a D
+    or a slot table too large for 64 rows), whose shared memory is
+    fixed; the chunk knob acts on the resident route only; the layered
+    plan's H splits follow the SM count; the autotuner offers no chunk on
+    the layered route."""
+    sms = tiling.H100_SMS
     assert tiling.hub_reuse_chunk(128, 64, 64, 128) == 128
-    assert tiling.hub_reuse_chunk(128, 64, 32, 259) == 64   # pointnext_s
-    assert tiling.hub_reuse_chunk(128, 64, 32, 387) == 64   # pointvector_l
-    for c, m, k, d in ((128, 64, 32, 600), (64, 500, 64, 6)):
-        assert tiling.hub_reuse_route(c, m, k, d) == "stream"
-        for chunk in tiling.CHUNKS:
-            assert tiling.hub_reuse_smem(c, m, k, d, True,
-                                         chunk) <= tiling.MAX_SMEM
+    assert tiling.hub_reuse_chunk(64, 64, 32, 64) == 128
+    assert tiling.hub_reuse_chunk(128, 64, 32, 387) == 64
+    assert tiling.hub_reuse_route(8, 4, 128, 64, 64, 128, 256,
+                                  sms) == "resident"
+    # C = 256 at PointNet++(c)'s block 2: 8 clouds x 4 islands x 4
+    # feature tiles = 128 blocks >= 99 take two 128-row launches, 4
+    # clouds (64 blocks) the layered route; a card of 200 SMs needs 150
+    assert tiling.hub_reuse_route(8, 4, 256, 64, 64, 128, 256,
+                                  sms) == "resident"
+    assert tiling.hub_reuse_route(4, 4, 256, 64, 64, 128, 256,
+                                  sms) == "layered"
+    assert tiling.hub_reuse_route(8, 4, 256, 64, 64, 128, 256,
+                                  200) == "layered"
+    for c, m, k, d in ((128, 64, 32, 259), (128, 64, 32, 387),
+                       (128, 64, 32, 600), (64, 500, 64, 6),
+                       (129, 4, 4, 4), (256, 64, 32, 387)):
+        # (at C <= 128 whatever the grid)
+        assert c > 128 or tiling.hub_reuse_route(
+            64, 16, c, m, k, d, 512, sms) == "layered"
+        assert tiling.hub_reuse_route(2, 1, c, m, k, d, 512,
+                                      sms) == "layered", (c, d)
+    assert tiling.LAYERED_SMEM <= tiling.MAX_SMEM
     dims = dict(b=2, hn=1, c=128, m=64, k=32, d=387, h=1536, f=768)
-    assert "shared memory" in tiling.infeasible("hub_reuse", dims,
-                                                {"chunk": 128})
+    for chunk in tiling.CHUNKS:
+        assert "resident route" in tiling.infeasible("hub_reuse", dims,
+                                                     {"chunk": chunk})
     assert tiling.infeasible("hub_reuse", dims, {}) is None
-    with pytest.raises(ValueError, match="shared memory"):
-        hub_ops.plan(*dims.values(), "cpu", chunk=128)
-    # the autotuner offers a chunk only where it fits
+    with pytest.raises(ValueError, match="resident route"):
+        hub_ops.plan(*dims.values(), "cpu", chunk=64)
+    pl = hub_ops.plan(*dims.values(), "cpu")
+    assert (pl["route"], pl["chunk"]) == ("layered", None)
+    # layer 2's H split: ceil(SMs / tiles) where its tiles are fewer
+    lp = tiling.hub_reuse_layered_plan(2, 1, 128, 1536, 768, 132)
+    assert (lp["layer1"], lp["layer2"], lp["kper"]) == ((4, 24, 1),
+                                                        (4, 12, 3), 512)
+    assert lp["scratch"] == 256 * 1536 + 3 * 256 * 768
+    assert tiling.hub_reuse_layered_plan(2, 4, 128, 1024, 512,
+                                         132)["nsplit"] == 2
+    assert tiling.hub_reuse_layered_plan(8, 4, 256, 128, 256,
+                                         132)["nsplit"] == 1
+    assert tiling.hub_reuse_layered_plan(2, 1, 128, 1536, 768,
+                                         16)["nsplit"] == 1
+    # the autotuner offers a chunk only where it acts
     from repro_torch.launch.autotune import candidate_plans
     per_cloud = {"variant": "per_cloud"}
-    assert candidate_plans("hub_reuse", dims, sms=132) == [{"chunk": 64},
-                                                          per_cloud]
-    stream = dict(dims, d=700)
-    assert candidate_plans("hub_reuse", stream, sms=132) == [
-        {"chunk": 128}, {"chunk": 64}, per_cloud]
+    assert candidate_plans("hub_reuse", dims, sms=132) == [{}, per_cloud]
+    assert candidate_plans("hub_reuse", dict(dims, d=128, h=128, f=256),
+                           sms=132) == [{"chunk": 128}, {"chunk": 64},
+                                        per_cloud]
 
 
 @pytest.fixture(scope="module")
@@ -182,7 +214,7 @@ def test_every_zoo_hub_call_has_a_plan_the_k_rules_pass(zoo_hub_calls, x):
     """At cache_capacity_x 1, 2 and 4, every hub_reuse call of every
     published spec: C = x·k, the heuristic plan fits (``tiling.infeasible``
     None) and its launch site has no K001–K005 finding; block 4 of
-    pointnext_s and pointvector_l at x = 4 take 64-row chunks."""
+    pointnext_s and pointvector_l at x = 4 take the layered route."""
     from repro_torch.models import MODEL_ZOO
     for name in MODEL_ZOO:
         recs = zoo_hub_calls[name, x]
@@ -191,13 +223,67 @@ def test_every_zoo_hub_call_has_a_plan_the_k_rules_pass(zoo_hub_calls, x):
             dims, plan = rec["dims"], rec["plan"]
             assert dims["c"] == int(x * dims["k"]), (name, dims)
             assert tiling.infeasible("hub_reuse", dims, {}) is None
-            assert plan["chunk"] == tiling.hub_reuse_chunk(
+            assert plan["chunk"] == (tiling.hub_reuse_chunk(
                 dims["c"], dims["m"], dims["k"], dims["d"])
+                if plan["route"] == "resident" else None)
             site = site_from_capture(rec, f"{name}:{x}:{i}", sms=132)
             assert check_kernel_site(site) == [], (name, x, dims)
     if x == 4.0:
         for name in ("pointnext_s", "pointvector_l"):
-            assert zoo_hub_calls[name, x][-1]["plan"]["chunk"] == 64
+            assert zoo_hub_calls[name, x][-1]["plan"]["route"] == "layered"
+
+
+def _resident_bytes(rows, m, k, d):
+    """hub_reuse.cu's resident block worked by hand: the slot table (K to
+    4), its liveness bytes (to 16), x at a row stride of D to 8 then to 8
+    mod 32 (at least the 72 of y), h, and three 64 x 68 ring stages."""
+    k4 = -(-k // 4) * 4
+    dp = -(-d // 8) * 8
+    xd = max(dp + (8 - dp) % 32, 72)
+    return 4 * (m * k4 + -(-m * k // 16) * 4 + rows * xd + rows * 72
+                + 3 * 64 * 68)
+
+
+@pytest.mark.parametrize("x", CACHE_X)
+def test_zoo_hub_routes_follow_the_rule(zoo_hub_calls, x):
+    """Every published spec's hub_reuse call at cache_capacity_x 1, 2 and
+    4 (one cloud): the wrapper's plan, tiling.py's route and the
+    analysis's site name one route, the one the kernel's rule gives
+    worked by hand (resident where C <= 128 and a block of min(C, 128)
+    rows padded to 64 or 128 fits 227 KB, or where C > 128, 128 rows fit
+    and B·H·ceil(F/64) >= 3/4 of 132 SMs; else layered); a resident call
+    is one launch a 128 rows (``hub_reuse_launches``), a layered one a
+    plan whose H splits cover H."""
+    layered = []
+    for name, recs in ((n, zoo_hub_calls[n, y]) for n, y in zoo_hub_calls
+                       if y == x):
+        for rec in recs:
+            d = rec["dims"]
+            c, m, k, dd, h = d["c"], d["m"], d["k"], d["d"], d["h"]
+            fits = _resident_bytes(64 if c <= 64 else 128, m, k,
+                                   dd) <= 232448
+            grid = d["b"] * d["hn"] * -(-d["f"] // 64)
+            fits = fits and (c <= 128 or 4 * grid >= 3 * 132)
+            want = "resident" if fits else "layered"
+            site = site_from_capture(rec, f"{name}:{x}", sms=132)
+            assert (rec["plan"]["route"], tiling.hub_reuse_route(
+                d["b"], d["hn"], c, m, k, dd, d["f"], 132),
+                site.launch["route"]) == (want,) * 3, (name, d)
+            if fits:
+                assert tiling.hub_reuse_launches(c, rec["plan"]["chunk"]) \
+                    == site.launch["launches"] == [128] * (c // 128) + (
+                        [c % 128] if c % 128 else [])
+            else:
+                layered.append(name)
+                lp = tiling.hub_reuse_layered_plan(d["b"], d["hn"], c, h,
+                                                   d["f"], 132)
+                assert (lp["nsplit"] - 1) * lp["kper"] < h <= \
+                    lp["nsplit"] * lp["kper"]
+                assert site.launch["nsplit"] == lp["nsplit"]
+    # at x = 4: block 2 of the PointNet++ specs (C = 256) and block 4 of
+    # pointnext_s and pointvector_l (128 rows of D = 259 / 387)
+    assert sorted(set(layered)) == ([] if x < 4 else [
+        "pointnet2_c", "pointnet2_ps", "pointnext_s", "pointvector_l"])
 
 
 # ---- ssd_chunk --------------------------------------------------------------
@@ -356,19 +442,23 @@ def test_attention_route_takes_every_width():
 
 
 # flash_split.cuh's plan worked by hand: D -> the forward's and dQ pass's
-# (blocks a cluster, slice, slice padded), the dK/dV pass's (blocks,
-# slice), and the route; c = ceil(D / wmax) with wmax 256 (128 in the
-# dK/dV pass), the slice ceil(D / c) rounded up to 16, padded to 192 or
-# 256 (128 in the dK/dV pass); past 8 blocks of 128 columns the route is
-# split_fma
+# (blocks a cluster, slice, slice padded, sweeps) and the dK/dV pass's;
+# c = ceil(D / wmax) with wmax 256 (128 in the dK/dV pass) where that is
+# at most 8 (16 in the dK/dV pass, a non-portable cluster), else 8; the
+# slice ceil(D / c) rounded up to 16, padded to 128, 192 or 256, one
+# sweep; a slice past 256 streams in pieces of 128, a sweep a piece
 SPLIT_PLANS = {
-    257: ((2, 144, 192), (3, 96), "split"),
-    264: ((2, 144, 192), (3, 96), "split"),
-    320: ((2, 160, 192), (3, 112), "split"),
-    512: ((2, 256, 256), (4, 128), "split"),
-    640: ((3, 224, 256), (5, 128), "split"),
-    1024: ((4, 256, 256), (8, 128), "split"),
-    1040: (None, None, "split_fma")}
+    257: ((2, 144, 192, 1), (3, 96, 128, 1)),
+    264: ((2, 144, 192, 1), (3, 96, 128, 1)),
+    320: ((2, 160, 192, 1), (3, 112, 128, 1)),
+    512: ((2, 256, 256, 1), (4, 128, 128, 1)),
+    640: ((3, 224, 256, 1), (5, 128, 128, 1)),
+    1024: ((4, 256, 256, 1), (8, 128, 128, 1)),
+    1025: ((5, 208, 256, 1), (9, 128, 128, 1)),
+    1040: ((5, 208, 256, 1), (9, 128, 128, 1)),
+    2048: ((8, 256, 256, 1), (16, 128, 128, 1)),
+    2056: ((8, 272, 128, 3), (8, 272, 128, 3)),
+    4100: ((8, 528, 128, 5), (8, 528, 128, 5))}
 # a block's shared memory by hand (bytes), (float32, bfloat16), by padded
 # slice: the forward (a 64 x 32 fp32 partial, q of 64 rows and two stages
 # of K and V of 32 keys, rows wp + 8 apart, fp32 V wp + 4), the dQ pass
@@ -379,39 +469,50 @@ SPLIT_PLANS = {
 # second buffer of its partials where that fits and keeps its blocks an
 # SM: not the bf16 forward at 256 (109,568 B, two blocks an SM; 117,760
 # one), nor the fp32 dQ pass (one stage at 256, past 227 KB with two),
-# nor the fp32 dK/dV pass (112,896 B, two)
+# nor the fp32 dK/dV pass (112,896 B, two).  Streamed (a piece of 128,
+# rows 136 apart, fp32 V 132; one stage, one buffer): the forward's
+# partial, q, K and V (8,192 + 4 (96 x 136 + 32 x 132) in fp32), the dQ
+# pass's two partials of 64 x 32, q, dO, K and V and 2 x 64 floats, the
+# dK/dV pass's two partials of 64 x 16 (32 in bf16), K, V, q, dO and 2 x
+# 16 (32) floats
 SPLIT_SMEM = {
-    "fwd": {192: (168960, 93184), 256: (218112, 109568)},
-    "dq": {192: (221696, 135680), 256: (219648, 168448)},
-    "dkv": (112896, 102912)}
+    "fwd": {192: (168960, 93184), 256: (218112, 109568),
+            128: (77312, 43008)},
+    "dq": {192: (221696, 135680), 256: (219648, 168448),
+           128: (121344, 69120)},
+    "dkv": {128: (112896, 102912)},
+    "dkv_stream": (95360, 68864)}
 
 
 @pytest.mark.parametrize("d", sorted(SPLIT_PLANS))
 def test_flash_split_plan_follows_the_formula(d):
-    """The analysis's copy of the split route's launch (clusters, slices
-    and shared memory of each pass) at heads of 257 to 1024 and one past
-    the cluster's reach, against the values worked by hand, and the route
-    ``_variant`` names."""
+    """The analysis's copy of the split route's launch (clusters, slices,
+    sweeps and shared memory of each pass) at heads of 257 to 4100:
+    within 8 slices, past 8 blocks of 128 columns in the dK/dV pass (a
+    cluster of up to 16) and past 8 slices of 256 (streamed), against
+    the values worked by hand, and the route ``_variant`` names."""
     from repro_torch.analysis.kernels import flash_layout, flash_route
-    fwd, dkv, route = SPLIT_PLANS[d]
+    fwd, dkv = SPLIT_PLANS[d]
     for i, dtype in enumerate(("float32", "bfloat16")):
-        assert flash_route(dtype, d, True) == route
-        assert flash_ops._variant(getattr(torch, dtype), d) == route
-        lay = flash_layout(route, dtype, d)
-        if route == "split_fma":
-            assert (lay["cluster"], lay["slice"], lay["dkv_cluster"]) == (
-                1, 64, 1)
-            continue
-        c, w, wp = fwd
+        assert flash_route(dtype, d, True) == "split"
+        assert flash_ops._variant(getattr(torch, dtype), d) == "split"
+        lay = flash_layout("split", dtype, d)
+        c, w, wp, sw = fwd
         assert (lay["bq"], lay["bk"], lay["dp"]) == (64, 32, wp)
-        assert (lay["cluster"], lay["slice"]) == (c, w)
-        assert (lay["dq_cluster"], lay["dq_slice"]) == (c, w)
-        assert (lay["dkv_cluster"], lay["dkv_slice"]) == dkv
+        assert (lay["cluster"], lay["slice"], lay["sweeps"]) == (c, w, sw)
+        assert (lay["dq_cluster"], lay["dq_slice"], lay["dq_sweeps"]) == (
+            c, w, sw)
+        assert (lay["dkv_cluster"], lay["dkv_slice"],
+                lay["dkv_sweeps"]) == (dkv[0], dkv[1], dkv[3])
         assert lay["smem"] == SPLIT_SMEM["fwd"][wp][i]
         assert lay["dq_smem"] == SPLIT_SMEM["dq"][wp][i]
-        assert lay["dkv_smem"] == SPLIT_SMEM["dkv"][i]
-        for cl, sl in ((c, w), dkv):
-            assert cl <= 8 and (cl - 1) * sl < d <= cl * sl
+        assert lay["dkv_smem"] == (SPLIT_SMEM["dkv_stream"][i] if dkv[1] > 256
+                                   else SPLIT_SMEM["dkv"][dkv[2]][i])
+        for cl, sl, sweeps, most in ((c, w, sw, 8),
+                                     (dkv[0], dkv[1], dkv[3], 16)):
+            assert cl <= most and (cl - 1) * sl < d <= cl * sl
+            if sl > 256:
+                assert (cl, -(-sl // 128)) == (8, sweeps)
 
 
 # the tiled route's forward launch (csrc/ssd_chunk.cu, tl::make_launch) on
@@ -510,6 +611,41 @@ def test_flash_variants_apply_to_the_sources(key):
         assert text.count(old) == 1, (fname, old)
         texts[fname] = text.replace(old, new)
 
+def _fault_tool_edits():
+    import importlib.util
+    out = {}
+    for tool in ("hub_reuse_variants", "hub_reuse_planted_faults",
+                 "flash_planted_faults", "flash_bwd_planted_faults"):
+        path = Path(__file__).resolve().parents[1] / "tools" / f"{tool}.py"
+        spec = importlib.util.spec_from_file_location(tool, path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        if tool == "hub_reuse_variants":
+            out.update({(tool, n): e for n, e in {
+                **mod.VARIANTS, **mod.LAYERED_VARIANTS}.items()})
+        else:
+            out.update({(tool, n): [e[:3]] for n, e in mod.FAULTS.items()})
+    return out
+
+
+_FAULT_EDITS = _fault_tool_edits()
+
+
+@pytest.mark.parametrize("key", sorted(_FAULT_EDITS),
+                         ids=lambda k: f"{k[0]}-{k[1]}")
+def test_hub_and_flash_tool_edits_apply_to_the_sources(key):
+    """Each variant ``tools/hub_reuse_variants.py`` times (the resident
+    route's and the layered route's) and each fault
+    ``tools/{hub_reuse,flash,flash_bwd}_planted_faults.py`` plants (the
+    split route's sweeps and streamed kernels among them) is an edit of
+    the committed sources whose text occurs exactly once."""
+    texts = {}
+    for fname, old, new in _FAULT_EDITS[key]:
+        text = texts.get(fname) or (_build.CSRC / fname).read_text()
+        assert text.count(old) == 1, (fname, old)
+        texts[fname] = text.replace(old, new)
+
+
 # ---- the routes on the card --------------------------------------------------
 
 def _cuda():
@@ -522,15 +658,19 @@ def _cuda():
 @pytest.mark.parametrize("shape", [
     (2, 128, 64, 32, 387, 1536, 768),      # pointvector_l block 4, x = 4
     (2, 128, 64, 32, 259, 1024, 512),      # pointnext_s block 4, x = 4
-    (4, 128, 64, 32, 700, 1024, 512),      # streamed: D
-    (3, 200, 500, 64, 6, 8, 16),           # streamed: the slot table
-    (2, 50, 7, 300, 650, 70, 100)])        # streamed: K past a slot tile
+    (4, 128, 64, 32, 700, 1024, 512),      # D past a 64-row block
+    (4, 256, 64, 64, 128, 128, 256),       # C past 128, a 2-cloud grid
+    (3, 200, 500, 64, 6, 8, 16),           # the slot table past a block
+    (2, 50, 7, 300, 650, 70, 100),         # K past a warp's 32 slots
+    (3, 333, 37, 13, 67, 96, 75),          # ragged: every width off 64
+    (1, 500, 9, 20, 33, 40, 70)])          # past the gather's 384 staged
 def test_hub_reuse_routes_match_plain_on_card(shape):
-    """Each route past the old limit against the plain version, with and
-    without liveness, at B = 2 and for each chunk that fits: 1e-4 ·
-    max(1, max|plain|), the -BIG identity exactly; the library's route
-    and shared memory equal tiling.py's; one launch a chunk, counted on
-    the route."""
+    """The layered route against the plain version, with and without
+    liveness and with subsets whose every slot is dead (-BIG), at B = 2:
+    1e-4 · max(1, max|plain|), the -BIG identity exactly, two calls
+    bit-equal; the library's plan (route, H splits, scratch, shared
+    memory) equal to tiling.py's; one launch a call, counted on the route;
+    a forced chunk raises."""
     dev = _cuda()
     h, c, m, k, d, hd, f = shape
     rng = np.random.default_rng(d)
@@ -539,25 +679,53 @@ def test_hub_reuse_routes_match_plain_on_card(shape):
                         .to(dev) for i in range(3))
     w1, b1, w2, b2 = _t(clouds[0][3:7], dev)
     live = torch.from_numpy(np.stack([a[7] for a in clouds]) != 0).to(dev)
-    route = tiling.hub_reuse_route(c, m, k, d)
-    assert hub_ops.library_route(c, m, k, d) == route
-    for chunk in tiling.CHUNKS:
-        dims = dict(b=2, hn=h, c=c, m=m, k=k, d=d, h=hd, f=f)
-        if not tiling.feasible("hub_reuse", dims, {"chunk": chunk}):
-            continue
-        assert hub_ops.library_smem(c, m, k, d, hd, True, chunk) == \
-            tiling.hub_reuse_smem(c, m, k, d, True, chunk)
-        for lv in (live, None):
-            before = _build.LAUNCHES[f"hub_reuse_{route}"]
-            got = hub_reuse(pool, slot, comp, w1, b1, w2, b2, live=lv,
-                            chunk=chunk)
-            assert _build.LAUNCHES[f"hub_reuse_{route}"] == before + len(
-                tiling.hub_reuse_launches(c, chunk))
-            want = hub_reuse_ref(pool, slot, comp, w1, b1, w2, b2, lv)
-            dead = want <= -1.7e38
-            assert torch.equal(got[dead], want[dead])
-            _close(got[~dead].cpu().numpy(), want[~dead].cpu().numpy(),
-                   CARD_TOL, f"{shape} chunk {chunk}")
+    live[:, :, 1::4] = False                     # subsets with none live
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert tiling.hub_reuse_route(2, h, c, m, k, d, f, sms) == "layered"
+    lp = tiling.hub_reuse_layered_plan(2, h, c, hd, f, sms)
+    assert hub_ops.library_plan(2, h, c, m, k, d, hd, f) == dict(
+        route="layered", nsplit=lp["nsplit"], scratch=lp["scratch"],
+        smem=tiling.LAYERED_SMEM)
+    for lv in (live, None):
+        before = _build.LAUNCHES["hub_reuse_layered"]
+        got = hub_reuse(pool, slot, comp, w1, b1, w2, b2, live=lv)
+        again = hub_reuse(pool, slot, comp, w1, b1, w2, b2, live=lv)
+        assert _build.LAUNCHES["hub_reuse_layered"] == before + 2
+        assert torch.equal(got, again)
+        want = hub_reuse_ref(pool, slot, comp, w1, b1, w2, b2, lv)
+        dead = want <= -1.7e38
+        if lv is not None:
+            assert bool(dead[:, :, 1::4].all())
+        assert torch.equal(got[dead], want[dead])
+        _close(got[~dead].cpu().numpy(), want[~dead].cpu().numpy(),
+               CARD_TOL, f"{shape}")
+    with pytest.raises(ValueError, match="resident route"):
+        hub_reuse(pool, slot, comp, w1, b1, w2, b2, live=live, chunk=128)
+
+
+@pytest.mark.cuda
+def test_zoo_hub_plans_match_the_library_on_card(zoo_hub_calls):
+    """Every published spec's hub_reuse call at cache_capacity_x 1, 2 and
+    4: the built library's plan (route, H splits, scratch, shared memory)
+    equal to tiling.py's on this card."""
+    dev = _cuda()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for (name, x), recs in zoo_hub_calls.items():
+        for rec in recs:
+            d = rec["dims"]
+            c, m, k, dd = d["c"], d["m"], d["k"], d["d"]
+            route = tiling.hub_reuse_route(d["b"], d["hn"], c, m, k, dd,
+                                           d["f"], sms)
+            want = dict(route=route, nsplit=0, scratch=0,
+                        smem=tiling.hub_reuse_smem(c, m, k, dd)
+                        if route == "resident" else tiling.LAYERED_SMEM)
+            if route == "layered":
+                lp = tiling.hub_reuse_layered_plan(d["b"], d["hn"], c, d["h"],
+                                                   d["f"], sms)
+                want.update(nsplit=lp["nsplit"], scratch=lp["scratch"])
+            got = hub_ops.library_plan(d["b"], d["hn"], c, m, k, dd, d["h"],
+                                       d["f"])
+            assert got == want, (name, x, d)
 
 
 @pytest.mark.cuda
@@ -616,15 +784,19 @@ def test_ssd_chunk_tiled_route_matches_plain_on_card(shape):
     (1, 8, 2, 160, 384, True),             # GQA, a group of 4
     (1, 2, 1, (100, 230), 512, False),     # Sq != Skv
     (1, 2, 2, (230, 100), 320, True),
-    (1, 2, 1, 96, 1040, True)])            # past the cluster's reach
+    (1, 2, 1, 96, 1040, True),             # the dK/dV pass past 8 blocks
+    (1, 4, 2, (80, 130), 1040, False),
+    (1, 2, 1, 96, 2056, True),             # streamed, in sweeps
+    (1, 4, 2, (70, 90), 2057, False),
+    (1, 2, 1, 64, 4100, True)])
 def test_flash_split_route_matches_plain_on_card(b, hq, hkv, s, d, causal,
                                                  dtype):
     """The split routes' forward (and log-sum-exp) and backward against
     the plain versions at s = Sq = Skv or (Sq, Skv): f32 within 1e-4 ·
     max(1, max|ref|), bf16 by ‖Δ‖/‖ref‖ <= 2e-2; two backward calls
-    bit-equal; launches counted on the route ``_variant`` names (``split``
-    up to D = 1024, ``split_fma`` past it); the library's layout (each
-    pass's cluster, slice and shared memory) equal to the analysis's."""
+    bit-equal; launches counted on the route ``_variant`` names
+    (``split`` at every D > 256); the library's layout (each pass's
+    cluster, slice, sweeps and shared memory) equal to the analysis's."""
     from repro_torch.analysis.kernels import flash_layout
     dev = _cuda()
     dt = getattr(torch, dtype)
@@ -634,7 +806,7 @@ def test_flash_split_route_matches_plain_on_card(b, hq, hkv, s, d, causal,
         np.float32)).to(dev).to(dt) for shape in (
             (b, hq, sq, d), (b, hkv, skv, d), (b, hkv, skv, d),
             (b, hq, sq, d)))
-    route = "split" if d <= flash_ops.SPLIT_DMAX else "split_fma"
+    route = "split"
     assert flash_ops._variant(dt, d) == route
     want = flash_layout(route, dtype, d)
     lay = flash_ops.library_layout(route, dt, d)

@@ -248,16 +248,16 @@ def test_flash_attention_ragged_kv_is_finite_and_right():
     (torch.float32, 128, 0, "mma"),
     (torch.bfloat16, 256, 0, "mma"), (torch.float32, 256, 0, "mma"),
     (torch.bfloat16, 257, 0, "split"), (torch.float32, 257, 0, "split"),
-    (torch.bfloat16, 1024, 1, "split"), (torch.float32, 1025, 0, "split_fma"),
-    (torch.bfloat16, 2048, 0, "split_fma"),
+    (torch.bfloat16, 1024, 1, "split"), (torch.float32, 1025, 0, "split"),
+    (torch.bfloat16, 2048, 0, "split"),
 ])
 def test_flash_attention_variant(dtype, d, offset, want):
     """bf16 rows of a multiple of 16 bytes, D <= 128, at 16-byte aligned
     addresses take ``wgmma``; f32, other bf16 widths (D = 256 too) and a
     bf16 view at an offset of ``offset`` elements into a flat buffer
-    (aligned when the offset is 16 bytes) the ``mma.sync`` kernel; D > 256
-    the ``split`` kernels (a thread-block cluster) up to 1024, aligned or
-    not, the ``split_fma`` ones past it; D < 1 raises."""
+    (aligned when the offset is 16 bytes) the ``mma.sync`` kernel; every
+    D > 256 the ``split`` kernels (a thread-block cluster), aligned or
+    not; D < 1 raises."""
     flat = torch.zeros(offset + 4 * d, dtype=dtype)
     view = flat[offset:].view(4, d)
     assert flat.data_ptr() % 16 == 0
@@ -527,7 +527,10 @@ class _StubLib:
     (reuse_ops, "hub_reuse", {
         "hub_reuse_forward": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 11
         + [ctypes.c_void_p],
-        "hub_reuse_smem_bytes": [ctypes.c_int] * 7}),
+        "hub_reuse_layered": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
+        + [ctypes.c_void_p],
+        "hub_reuse_smem_bytes": [ctypes.c_int] * 7,
+        "hub_reuse_plan": [ctypes.c_int] * 8 + [ctypes.c_void_p]}),
     (flash_ops, "flash_attention", {
         "flash_attention_forward": [ctypes.c_void_p] * 5
         + [ctypes.c_int] * 9 + [ctypes.c_void_p],

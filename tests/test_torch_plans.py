@@ -430,6 +430,24 @@ def test_per_cloud_promoted_when_batched_loses(kernel, dims):
     assert e2 == entry
 
 
+def test_layered_cell_records_only_a_per_cloud_win():
+    """A hub_reuse cell on the layered route (C past 128) has no knob:
+    its heuristic is its only batched candidate, a batched win records
+    nothing, a per-cloud win records the per_cloud entry."""
+    dims = dict(HDIMS, c=200)
+    assert autotune.candidate_plans("hub_reuse", dims, sms=SMS) == [
+        {}, {"variant": "per_cloud"}]
+    store = plans.PlanStore()
+    entry = autotune.autotune_cell("hub_reuse", dims, store=store,
+                                   timer=cost_model, device="cpu", sms=SMS)
+    assert plans.knobs("hub_reuse", entry) == {} and not store.entries
+    entry = autotune.autotune_cell(
+        "hub_reuse", dims, store=store, device="cpu", sms=SMS,
+        timer=lambda call, knobs: 1.0 if "variant" in knobs else 5.0)
+    assert store.lookup("hub_reuse", device="cpu", **dims) == entry
+    assert entry["variant"] == "per_cloud"
+
+
 def test_per_cloud_entries_round_trip_and_validate(tmp_path):
     store = plans.PlanStore()
     store.record("hub_reuse", HDIMS, _entry(variant="per_cloud"),

@@ -3,7 +3,7 @@
 in turns.
 
     python3 tools/fc_wrapper_ab.py --against DIR [--seed N] [--iters N]
-                                   [--rounds N]
+                                   [--rounds N] [--cache-x4]
 
 ``DIR`` is another checkout's root (e.g. a parent commit unpacked with
 ``git archive``).  Saves chip_smoke.py's gather_mlp and hub_reuse calls
@@ -16,7 +16,14 @@ heuristic) and timing each call through
 ``repro_torch.kernels.{gather_mlp,hub_reuse}`` with CUDA events: wall
 time, the wrapper's host work included.  Prints one JSON line per (tree,
 turn, call) with ms a call, best of 5 runs of ``--iters``, and the card's
-name and power limit first.  Needs one CUDA device.
+name and power limit first.  ``--cache-x4`` times instead, in the same
+turns, each tree's whole lpcn forward of chip_smoke.py's
+``CACHE_X4_FAMILIES`` at the paper's Fig. 22 cache size (``CACHE_X4``,
+the families phase's batch and seeded weights, from each tree's own
+chip_smoke.py): its ``breakdown`` (host-clock ms of stage 1, the FC
+stage and the tail, each ended by a device sync, best of 5) and the
+device time of its hub_reuse kernels a forward (torch.profiler, 3
+forwards).  Needs one CUDA device.
 """
 from __future__ import annotations
 
@@ -52,6 +59,37 @@ for name, (kernel, args, mask) in calls.items():
         best = min(best, t0.elapsed_time(t1) / iters)
     print(json.dumps({"call": name, "ms": best}))
 """
+# the child of --cache-x4: run in a tree's root, with that tree's
+# chip_smoke.py and repro_torch
+CHILD_X4 = r"""
+import json, torch
+import chip_smoke as cs
+from repro_torch.engine import PCNEngine
+from repro_torch.models import MODEL_ZOO
+dev = torch.device("cuda")
+for name in cs.CACHE_X4_FAMILIES:
+    spec = MODEL_ZOO[name][1]
+    b, n = cs.FAMILIES[name]
+    eng = PCNEngine(spec, mode="lpcn", fc_backend="cuda", isl_kw=cs.CACHE_X4)
+    params = cs.seed_biases(eng.init(seed=0), torch.Generator().manual_seed(1))
+    batch, _ = cs.family_batch(spec, b, n, 0, dev)
+    eng.apply(params, batch)
+    ms = cs.breakdown(params, spec, batch, repeats=5, isl_kw=cs.CACHE_X4)
+    # hub_reuse's device time a forward (its resident and layered kernels)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            eng.apply(params, batch)
+        torch.cuda.synchronize()
+    hub = [e.device_time for e in prof.events()
+           if e.device_type == DeviceType.CUDA and (
+               "hub_reuse_kernel" in e.name or "layered::" in e.name)]
+    print(json.dumps({"call": f"{name}_cache_x4", "b": b, "n": n, **ms,
+                      "hub_reuse_device_ms": sum(hub) / 3 / 1e3,
+                      "hub_reuse_kernels": len(hub) / 3}))
+"""
 
 
 def main() -> int:
@@ -61,6 +99,8 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--rounds", type=int, default=1)
+    ap.add_argument("--cache-x4", action="store_true",
+                    help="the CACHE_X4_FAMILIES forwards, not the FC calls")
     args = ap.parse_args()
 
     sys.path[:0] = [str(ROOT), str(ROOT / "src")]
@@ -92,8 +132,9 @@ def main() -> int:
     for turn, tree in enumerate(order):
         env = {**os.environ, "PYTHONPATH": str(trees[tree] / "src"),
                "REPRO_TORCH_TILE_PLANS": str(ROOT / "build" / "no_plans")}
-        out = subprocess.run([sys.executable, "-c", CHILD, str(path),
-                              str(args.iters)], env=env, check=True,
+        argv = (["-c", CHILD_X4] if args.cache_x4 else
+                ["-c", CHILD, str(path), str(args.iters)])
+        out = subprocess.run([sys.executable, *argv], env=env, check=True,
                              capture_output=True, text=True,
                              cwd=trees[tree]).stdout
         for line in out.splitlines():

@@ -11,8 +11,10 @@ with their headers, one fault each (under
 touched), runs each through ``flash_attention_backward`` given the
 forward's log-sum-exp at the shapes of the route it breaks (``SHAPES``:
 chip_smoke.py's Qwen2-72B layer in bf16 on the ``wgmma`` route and off 16
-bytes on the ``mma`` route, both a GQA group of 8 in clusters of 4, and
-olmo-1b's layer in f32 on the ``mma`` route), and prints one JSON line
+bytes on the ``mma`` route, both a GQA group of 8 in clusters of 4,
+olmo-1b's layer in f32 on the ``mma`` route, and on the ``split`` route
+``FLASH_STREAM_LAYER`` at D = 1040 in f32 (its dK/dV pass a cluster of 9)
+and at D = 2056 in bf16, streamed in sweeps), and prints one JSON line
 per (fault, shape): each output's max |Δ| and ‖Δ‖/‖plain‖ against
 ``attention_bwd_ref`` and whether it breaks chip_smoke.py's limit
 (``BWD_TOL``: f32 max |Δ| <= 1e-4 · max(1, max|ref|), bf16 ‖Δ‖/‖ref‖ <=
@@ -31,8 +33,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(ROOT), str(ROOT / "src"), str(ROOT / "tools")]
 
-HEADERS = ("sm90.cuh", "tf32x3.cuh", "flash_split.cuh", "flash_split_fma.cuh",
-           "fma_tiles.cuh")
+HEADERS = ("sm90.cuh", "tf32x3.cuh", "flash_split.cuh")
+SPLIT_H = "flash_split.cuh"
+SPLIT = ("split_d1040_f32", "split_d2056_bf16")
 FWD, BWD = "flash_attention.cu", "flash_attention_bwd.cu"
 WGMMA = ("qwen2_72b_bf16",)
 MMA = ("olmo_1b_f32", "qwen2_72b_bf16_unaligned")
@@ -87,6 +90,23 @@ FAULTS = {
     "mma_stage_read_early": (BWD, "    const T* qs = stage_q(buf);",
                              "    const T* qs = stage_q(buf ^ 1);",
                              ("qwen2_72b_bf16_unaligned",)),
+    # split: the exchange leaves the cluster's last round of ranks' partials
+    # out (one rank in fp32, two in bf16)
+    "split_rank_dropped": (SPLIT_H, "for (int r = 0; r < c; r += RANKS) {",
+                           "for (int r = 0; r < c - RANKS; r += RANKS) {", SPLIT),
+    # split: D_i = dO . O summed without the cluster's last block's slice
+    "split_di_rank_dropped": (SPLIT_H, "    for (int r = 0; r < c; ++r) {",
+                              "    for (int r = 0; r < c - 1; ++r) {", SPLIT),
+    # split, streamed: the dQ pass's dS times V's piece, not K's
+    "split_dq_stream_wrong_piece": (
+        SPLIT_H, "gemm_pv<T, kBK, kPiece, kLdP>(acc, s, ks, lane);",
+        "gemm_pv<T, kBK, kPiece, kLdP>(acc, s, vs, lane);",
+        ("split_d2056_bf16",)),
+    # split, streamed: dV from q's piece, not dO's
+    "split_dkv_stream_wrong_piece": (
+        SPLIT_H, "gemm_pv<T, kBQ, kPiece, kLdP>(adv, s, dos, lane);",
+        "gemm_pv<T, kBQ, kPiece, kLdP>(adv, s, qs, lane);",
+        ("split_d2056_bf16",)),
 }
 
 
@@ -95,10 +115,14 @@ def shapes() -> dict:
     import chip_smoke
     layers = {(name, dtype): f for name, f, dtype in chip_smoke.BWD_LAYERS}
     qwen = layers[("qwen2_72b", "bfloat16")]
+    short = chip_smoke.FLASH_STREAM_LAYER
     return {"qwen2_72b_bf16": (qwen, "bfloat16", 0, "wgmma"),
             "qwen2_72b_bf16_unaligned": (qwen, "bfloat16", 1, "mma"),
             "olmo_1b_f32": (layers[("olmo_1b", "float32")], "float32", 0,
-                            "mma")}
+                            "mma"),
+            "split_d1040_f32": ({**short, "d": 1040}, "float32", 0, "split"),
+            "split_d2056_bf16": ({**short, "d": 2056}, "bfloat16", 0,
+                                 "split")}
 
 
 def main() -> int:

@@ -9,8 +9,10 @@ headers ``sm90.cuh`` and ``tf32x3.cuh`` with one fault each (under
 touched), runs each through ``repro_torch.kernels.flash_attention`` at the
 shapes of the route it breaks (``SHAPES``: chip_smoke.py's Qwen2-72B layer,
 causal, and its ragged non-causal parity shape, in bf16 on the ``wgmma``
-route and in f32 and bf16 off 16 bytes on the ``mma`` route, and the
-gemma_7b layer, head_dim 256, in f32), and prints one JSON line per
+route and in f32 and bf16 off 16 bytes on the ``mma`` route, the
+gemma_7b layer, head_dim 256, in f32, and on the ``split`` route
+``FLASH_STREAM_LAYER`` at D = 1040 in f32 and at D = 2056, streamed in
+sweeps, in bf16), and prints one JSON line per
 (fault, shape): max |Δ| and ‖Δ‖/‖plain‖ against ``attention_ref`` and
 which of chip_smoke.py's limits (``FLASH_TOL``) each breaks.  The
 unchanged sources run at every shape.  Exits 1 if they break a limit or a
@@ -28,9 +30,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(ROOT), str(ROOT / "src"), str(ROOT / "tools")]
 
-FILES = ("flash_attention.cu", "sm90.cuh", "tf32x3.cuh", "flash_split.cuh",
-         "flash_split_fma.cuh", "fma_tiles.cuh")
+FILES = ("flash_attention.cu", "sm90.cuh", "tf32x3.cuh", "flash_split.cuh")
 WGMMA = ("qwen2_72b_bf16", "ragged_bf16")
+SPLIT = ("split_d1040_f32", "split_d2056_bf16")
 # name -> (file, text, its replacement, the shapes it runs on); each text
 # occurs once in its file
 FAULTS = {
@@ -69,6 +71,22 @@ FAULTS = {
                                 "(causal && col > row + 1);",
                                 ("qwen2_72b_f32", "qwen2_72b_bf16_unaligned",
                                  "gemma_7b_f32")),
+    # split: the exchange leaves the cluster's last round of ranks' partial S
+    # out (one rank in fp32, two in bf16)
+    "split_rank_dropped": ("flash_split.cuh",
+                           "for (int r = 0; r < c; r += RANKS) {",
+                           "for (int r = 0; r < c - RANKS; r += RANKS) {", SPLIT),
+    # split, streamed: every sweep's pieces in one order, so the last
+    # loaded is not the sweep's own (its V is another piece's)
+    "split_sweep_piece_order": ("flash_split.cuh",
+                                "return (j + 1 + i) % np * kPiece;",
+                                "return i * kPiece;", ("split_d2056_bf16",)),
+    # split, streamed: the forward's first piece left out of S
+    "split_first_piece_dropped": (
+        "flash_split.cuh",
+        "gemm_nt<T, kPiece, kTile, kLdP, false>(s, qs, 16 * warp, ks, lane);",
+        "if (i > 0) gemm_nt<T, kPiece, kTile, kLdP, false>(s, qs, 16 * warp, "
+        "ks, lane);", ("split_d2056_bf16",)),
 }
 
 
@@ -77,6 +95,7 @@ def shapes() -> dict:
     route)."""
     import chip_smoke
     f, g = chip_smoke.QWEN2_72B, chip_smoke.GEMMA_7B
+    L = chip_smoke.FLASH_STREAM_LAYER
     qwen = (f["b"], f["hq"], f["hkv"], f["s"], f["s"], f["d"], True)
     ragged = chip_smoke.FLASH_PARITY[0][:7]
     return {
@@ -86,7 +105,11 @@ def shapes() -> dict:
         "ragged_f32": (*ragged, "float32", 0, "mma"),
         "qwen2_72b_bf16_unaligned": (*qwen, "bfloat16", 1, "mma"),
         "gemma_7b_f32": (g["b"], g["hq"], g["hkv"], g["s"], g["s"], g["d"],
-                         True, "float32", 0, "mma")}
+                         True, "float32", 0, "mma"),
+        **{f"split_d{d}_{tag}": (
+            L["b"], L["hq"], L["hkv"], L["s"], L["s"], d, True, dtype, 0,
+            "split") for d, dtype, tag in ((1040, "float32", "f32"),
+                                           (2056, "bfloat16", "bf16"))}}
 
 
 def main() -> int:

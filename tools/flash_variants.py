@@ -24,18 +24,18 @@ registers and spills per kernel of each variant and one JSON line per
 and the shape's bound.
 The split route (heads over 256 wide; ``--shapes
 split_d512_f32,split_d512_bf16,split_d257_bf16``, chip_smoke.py's
-``FLASH_SPLIT``, forward or ``--backward``) has its own design choices
-as variants (``SPLIT_VARIANTS``: the slice width ``split_wmax128``, the
-exchange ``split_one_buffer``, ``split_one_rank`` and
-``split_two_ranks``, the tiles and
-products ``split_dq192``, ``split_dq_tile16``, ``split_dkv_tile32`` and
-``split_unfused``,
-and the diagnostics ``split_no_sum`` and ``split_no_barrier``);
-a parent tree from before the cluster design runs its fp32 kernels there.
+``FLASH_SPLIT``, and ``split_d1040_*`` (``FLASH_SPLIT_WIDE``) and
+``split_d2056_*`` (``FLASH_SPLIT_STREAM``, its short layer), forward or
+``--backward``) has its own design choices as variants
+(``SPLIT_VARIANTS``: the slice width ``split_wmax128``, the exchange
+``split_one_buffer``, ``split_one_rank`` and ``split_two_ranks``, the
+tiles and products ``split_dq192``, ``split_dq_tile16``,
+``split_dkv_tile32`` and ``split_unfused``, and the diagnostics
+``split_no_sum`` and ``split_no_barrier``).
 ``--against DIR`` adds the sources of another tree (``flash_attention.cu``
-and, where DIR has them, its headers; e.g. a parent commit's
-``src/repro_torch/csrc``) as the variant ``against``, timed in the same
-turns.
+or ``flash_attention_bwd.cu`` and every header DIR has; e.g. a parent
+commit's ``src/repro_torch/csrc``) as the variant ``against``, timed in
+the same turns.
 
 ``--backward`` does the same for the backward,
 ``flash_attention_bwd.cu`` (``BWD_VARIANTS``: the steps of its design
@@ -66,10 +66,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(ROOT), str(ROOT / "src"), str(ROOT / "tools")]
 
-FILES = ("flash_attention.cu", "sm90.cuh", "tf32x3.cuh", "flash_split.cuh",
-         "flash_split_fma.cuh", "fma_tiles.cuh")
+FILES = ("flash_attention.cu", "sm90.cuh", "tf32x3.cuh", "flash_split.cuh")
 BWD_FILES = ("flash_attention_bwd.cu", "sm90.cuh", "tf32x3.cuh",
-             "flash_split.cuh", "flash_split_fma.cuh", "fma_tiles.cuh")
+             "flash_split.cuh")
 _SPLIT = "flash_split.cuh"
 # the split route's design choices, forward and backward alike: slices of
 # at most 128 columns in the forward (c = 4 at D = 512, not 2), one buffer
@@ -95,9 +94,11 @@ SPLIT_VARIANTS = {
                        "                                 causal, stream);\n"
                        "  if (p.wp == 192)\n"
                        "    return launch_fwd_as<T, 192>"),
-                      (_SPLIT, "out[3] = p.wp == 192 ?",
-                       "out[3] = p.wp == 128 ? Fwd<T, 128>::kBytes : "
-                       "p.wp == 192 ?")],
+                      (_SPLIT, "         : p.wp == 192 ? Fwd<T, 192>::kBytes "
+                               ": Fwd<T, 256>::kBytes;",
+                       "         : p.wp == 128 ? Fwd<T, 128>::kBytes\n"
+                       "         : p.wp == 192 ? Fwd<T, 192>::kBytes "
+                       ": Fwd<T, 256>::kBytes;")],
     "split_one_buffer": [(_SPLIT, "  return one + part <= kSmemMax && "
                                   "sm_blocks(one + part) >= sm_blocks(one)\n"
                                   "             ? 2\n             : 1;",
@@ -253,7 +254,27 @@ SHAPES = {
     "split_d512_f32": (1, 8, 8, 2048, 512, "float32", 0, 2),
     "split_d512_bf16": (1, 8, 8, 2048, 512, "bfloat16", 0, 2),
     "split_d257_bf16": (1, 8, 8, 2048, 257, "bfloat16", 0, 2),
+    # FLASH_SPLIT_WIDE and FLASH_SPLIT_STREAM's widths at this layer
+    "split_d1040_f32": (1, 8, 8, 2048, 1040, "float32", 0, 2),
+    "split_d1040_bf16": (1, 8, 8, 2048, 1040, "bfloat16", 0, 2),
+    "split_d2056_f32": (1, 8, 8, 2048, 2056, "float32", 0, 2),
+    "split_d2056_bf16": (1, 8, 8, 2048, 2056, "bfloat16", 0, 2),
 }
+
+
+def against(directory: str, cu: str) -> dict:
+    """Another tree's ``cu`` and every header beside it."""
+    d = Path(directory)
+    return {f.name: f.read_text() for f in sorted(d.glob("*.cuh"))} | {
+        cu: (d / cu).read_text()}
+
+
+def route_code(texts: dict, code: int, d: int) -> int:
+    """The C entry's variant code for the split route (2) in a tree's
+    sources: a tree from before split took every D past 1024 had its own
+    variant 3 there."""
+    old = any("variant == 3" in t for t in texts.values()) and d > 1024
+    return 3 if code == 2 and old else code
 
 
 def main() -> int:
@@ -301,9 +322,7 @@ def main() -> int:
             texts[fname] = texts[fname].replace(old, new)
         sources[name] = texts
     if args.against:
-        d = Path(args.against)
-        sources["against"] = {f: (d / f).read_text() for f in FILES
-                              if (d / f).exists()}
+        sources["against"] = against(args.against, FILES[0])
     libs, logs = build(sources,
                        _build.BUILD_DIR / "variants" / "flash_attention",
                        with_logs=True)
@@ -343,10 +362,11 @@ def main() -> int:
             del fns["sdpa"]
         for name, (f, with_lse) in fwd.items():
             out = torch.empty_like(q)
-            call = (lambda f=f, out=out, lse=(None,) * with_lse: f(
+            call = (lambda f=f, out=out, lse=(None,) * with_lse,
+                    code=route_code(sources[name], variant, d): f(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 *lse, b, hq, hkv, s, s, d, 1,
-                1 if dt == torch.bfloat16 else 0, variant, stream))
+                1 if dt == torch.bfloat16 else 0, code, stream))
             code = call()
             torch.cuda.synchronize()
             if code != 0:
@@ -373,14 +393,18 @@ def main() -> int:
 
 def bwd_shapes() -> dict:
     """name -> (BWD_LAYERS entry, dtype, route): every layer on its own
-    route and the bf16 ones on the mma route too; FLASH_SPLIT's calls on
-    the split route (``split_d512_f32``, ...)."""
+    route and the bf16 ones on the mma route too; FLASH_SPLIT's,
+    FLASH_SPLIT_WIDE's and FLASH_SPLIT_STREAM's calls on the split route
+    (``split_d512_f32``, ...)."""
     import chip_smoke
     out = {}
-    for name, d, dtype in chip_smoke.FLASH_SPLIT:
-        label = f"{name}_{'bf16' if dtype == 'bfloat16' else 'f32'}"
-        out[label] = ({**chip_smoke.FLASH_SPLIT_LAYER, "d": d}, dtype,
-                      "split")
+    for layer, calls in ((chip_smoke.FLASH_SPLIT_LAYER,
+                          chip_smoke.FLASH_SPLIT + chip_smoke.FLASH_SPLIT_WIDE),
+                         (chip_smoke.FLASH_STREAM_LAYER,
+                          chip_smoke.FLASH_SPLIT_STREAM)):
+        for name, d, dtype in calls:
+            label = f"{name}_{'bf16' if dtype == 'bfloat16' else 'f32'}"
+            out[label] = ({**layer, "d": d}, dtype, "split")
     for name, f, dtype in chip_smoke.BWD_LAYERS:
         label = f"{name}_{'bf16' if dtype == 'bfloat16' else 'f32'}"
         if dtype == "bfloat16":
@@ -415,9 +439,7 @@ def backward(args) -> int:
             texts[fname] = texts[fname].replace(old, new)
         sources[name] = texts
     if args.against:
-        d = Path(args.against)
-        sources["against"] = {f: (d / f).read_text() for f in BWD_FILES
-                              if (d / f).exists()}
+        sources["against"] = against(args.against, BWD_FILES[0])
     libs, logs = build(sources,
                        _build.BUILD_DIR / "variants" / "flash_attention_bwd",
                        with_logs=True)
@@ -467,7 +489,8 @@ def backward(args) -> int:
                 argv = (*ptrs, lse.data_ptr(), *[t.data_ptr() for t in outs],
                         scratch[1].data_ptr(), b, hq, hkv, s, s, d,
                         int(causal), 1 if dt == torch.bfloat16 else 0,
-                        flash_ops._VARIANTS[route], stream)
+                        route_code(sources[name], flash_ops._VARIANTS[route],
+                                   d), stream)
             elif route == "wgmma":
                 continue                # that tree has no wgmma route
             else:
@@ -490,7 +513,7 @@ def backward(args) -> int:
         if "committed" in fns:
             rows["committed"]["device_ms"] = {
                 p: chip_smoke.device_ms(fns["committed"], (
-                    f"split::{p}_kernel" if route == "split" else
+                    f"split::{p}_" if route == "split" else
                     f"bwd_{p}_")) for p in ("dq", "dkv")}
         flops = chip_smoke.bwd_flops(b, hq, s, s, d, causal)
         moved = chip_smoke.nbytes(q, k, v, o, do, lse, *ref)

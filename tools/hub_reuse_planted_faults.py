@@ -6,14 +6,19 @@
 Builds copies of ``src/repro_torch/csrc/hub_reuse.cu`` and its header
 ``tf32x3.cuh`` with one fault each (written under
 ``build/repro_torch/faults/hub_reuse/``; the sources are not touched),
-runs each through ``repro_torch.kernels.hub_reuse`` at both PointNet++(c)
-block shapes of chip_smoke.py (B = 8, live masked, subsets with no live
-slot) and at block 2's widths with C = 256 cache rows (``REUSE_C256``,
-two launches a call; the dropped-chunk fault runs there only), and
-prints one JSON line per (fault, block): max |Δ| against
-``hub_reuse_ref`` beside chip_smoke.py's limit 1e-4 · max(1, max|plain|),
-and whether the -BIG identity came out exactly.  Exits 1 if the unchanged
-sources break the limit or a fault passes it.  Needs one CUDA device.
+runs each through ``repro_torch.kernels.hub_reuse`` on the shapes of the
+route it breaks: the resident route at both PointNet++(c) block shapes
+of chip_smoke.py (B = 8, live masked, subsets with no live slot; block 2
+also forced to two 64-row chunks, for the fault in their merge) and at
+block 2's widths with C = 256 cache rows (``REUSE_C256``, two 128-row
+launches), the layered route at ``REUSE_DOMAIN`` (PointVector-L's block
+4 under the paper's cache size, whose second layer splits H three ways,
+and D = 700), at B = 2 there; and prints one JSON line per (fault,
+shape): max
+|Δ| against ``hub_reuse_ref`` beside chip_smoke.py's limit 1e-4 · max(1,
+max|plain|), and whether the -BIG identity came out exactly.  Exits 1 if
+the unchanged sources break the limit or a fault passes it on a shape of
+its route.  Needs one CUDA device.
 """
 from __future__ import annotations
 
@@ -27,32 +32,58 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(ROOT), str(ROOT / "src"), str(ROOT / "tools")]
 
-# the two small products of tf32x3::mma3
+# the two small products of tf32x3::mma3 (the resident route's) and of
+# tf32x3::mma3_row (the layered route's)
 SMALL_PASSES = "  mma(c, a.small, b.big);\n  mma(c, a.big, b.small);\n"
-# name -> (file, text, its replacement); each text occurs once in its file
+SMALL_WAVES = ("#pragma unroll\n"
+               "  for (int i = 0; i < N; ++i) mma(c[i], a.small, b[i].big);\n"
+               "#pragma unroll\n"
+               "  for (int i = 0; i < N; ++i) mma(c[i], a.big, b[i].small);\n")
+# name -> (file, text, its replacement, the route it breaks: "resident",
+# "layered" or None for both); each text occurs once in its file
 FAULTS = {
     # 1xTF32: the two small products dropped
-    "one_tf32_pass": ("tf32x3.cuh", SMALL_PASSES, ""),
-    # y without the last 64-column chunk of h
-    "last_hd_chunk_skipped": ("hub_reuse.cu",
-                              "p.nchunk = (Hd + kNC - 1) / kNC;",
-                              "p.nchunk = (Hd - 1) / kNC;"),
-    # every cached slot live: live is not read
-    "live_ignored": ("hub_reuse.cu", "(p.live == nullptr || lv[",
-                     "(true || lv["),
+    "one_tf32_pass": ("tf32x3.cuh", SMALL_PASSES, "", "resident"),
+    "layered_one_tf32_pass": ("tf32x3.cuh", SMALL_WAVES, "", "layered"),
     # the compensation not added
-    "comp_dropped": ("hub_reuse.cu", "-kBig : m + c;", "-kBig : m;"),
+    "comp_dropped": ("hub_reuse.cu", "-kBig : m + c;", "-kBig : m;", None),
     # a subset with no live slot written as 0, not the merge identity
     "big_identity_as_zero": ("hub_reuse.cu", "-kBig : m + c;",
-                             "0.f : m + c;"),
-    # past 128 cache rows: the second chunk's launch does nothing
-    "chunk_dropped": ("hub_reuse.cu",
-                      "  const int Cc = min(kMaxC, C - c0);",
-                      "  if (c0 > 0) return 0;\n"
-                      "  const int Cc = min(kMaxC, C - c0);"),
+                             "0.f : m + c;", None),
+    # resident: y without the last 64-column chunk of h
+    "last_hd_chunk_skipped": ("hub_reuse.cu",
+                              "p.nchunk = (p.Hd + kNC - 1) / kNC;",
+                              "p.nchunk = (p.Hd - 1) / kNC;", "resident"),
+    # resident: every cached slot live, live is not read
+    "live_ignored": ("hub_reuse.cu", "(p.live == nullptr || lv[",
+                     "(true || lv[", "resident"),
+    # resident, past one chunk: each chunk's launch overwrites the last's
+    "merge_ignored": ("hub_reuse.cu",
+                      "p.out[row + c] = p.merge ? fmaxf(p.out[row + c], v) "
+                      ": v;", "p.out[row + c] = v;", "resident"),
+    # layered: layer 1 without its bias, or without its relu
+    "layered_b1_dropped": ("hub_reuse.cu",
+                           "const ly::Gemm g1{pool, w1, b1, h,",
+                           "const ly::Gemm g1{pool, w1, nullptr, h,",
+                           "layered"),
+    "layered_relu_dropped": ("hub_reuse.cu",
+                             "ly::run_gemm<true>(g1, 1, st);",
+                             "ly::run_gemm<false>(g1, 1, st);", "layered"),
+    # layered: each GEMM without its last, partial K stage
+    "layered_last_k_stage": ("hub_reuse.cu",
+                             "const int nst = (ke - kb + kKC - 1) / kKC;",
+                             "const int nst = (ke - kb - 1) / kKC;",
+                             "layered"),
+    # layered: the gather without layer 2's last H split
+    "layered_last_split_dropped": ("hub_reuse.cu",
+                                   "for (int s = 0; s < nsplit; ++s)",
+                                   "for (int s = 0; s < nsplit - 1; ++s)",
+                                   "layered"),
+    # layered: every cached slot live
+    "layered_live_ignored": ("hub_reuse.cu",
+                             "(lvp == nullptr || lvp[k0 + lane] != 0)",
+                             "(true || lvp[k0 + lane] != 0)", "layered"),
 }
-# faults that only a C past one launch's 128 rows shows: run there only
-LARGE_C = ("chunk_dropped",)
 FILES = ("hub_reuse.cu", "tf32x3.cuh")
 
 
@@ -67,8 +98,9 @@ def main() -> int:
         return 2
     import chip_smoke
     from gather_mlp_planted_faults import build
-    from repro_torch.kernels import _build
+    from repro_torch.kernels import _build, tiling
     from repro_torch.kernels.hub_reuse import hub_reuse, hub_reuse_ref
+    from repro_torch.kernels.hub_reuse import ops as hub_ops
     from repro_torch.kernels.hub_reuse.ops import _declare
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -77,7 +109,7 @@ def main() -> int:
     print(smi.splitlines()[0], flush=True)
     sound = {f: (_build.CSRC / f).read_text() for f in FILES}
     sources = {"none": sound}
-    for name, (fname, old, new) in FAULTS.items():
+    for name, (fname, old, new, _) in FAULTS.items():
         if sound[fname].count(old) != 1:
             raise RuntimeError(f"fault {name}: {old!r} occurs "
                                f"{sound[fname].count(old)} times in {fname}")
@@ -87,29 +119,48 @@ def main() -> int:
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(args.seed)
     ok = True
-    for blk, shp in {**chip_smoke.REUSE, **chip_smoke.REUSE_C256}.items():
+    cases = [(blk, shp, chip_smoke.B, None) for blk, shp in
+             chip_smoke.REUSE.items()]
+    cases.append(("blk2_chunk64", chip_smoke.REUSE["blk2"], chip_smoke.B,
+                  64))
+    cases += [(blk, shp, chip_smoke.B, None) for blk, shp in
+              chip_smoke.REUSE_C256.items()]
+    cases += [(blk, shp, 2, None) for blk, shp in
+              chip_smoke.REUSE_DOMAIN.items()]
+    for blk, shp, b, chunk in cases:
         pool, slot, comp, w1, b1, w2, b2, live = chip_smoke.reuse_inputs(
-            gen, dev, chip_smoke.B, **shp)
+            gen, dev, b, **shp)
         ops = (pool, slot, comp, w1, b1, w2, b2)
         ref = hub_reuse_ref(*ops, live=live)
         empty = ref <= -chip_smoke.BIG / 2
         tol = chip_smoke.TOL * max(1.0, ref[~empty].abs().max().item())
+        pl = hub_ops.plan(b, shp["hn"], shp["c"], shp["m"], shp["k"],
+                          shp["d"], shp["h"], shp["f"], dev, chunk=chunk)
+        route = pl["route"]
+        calls = (1 if route == "layered" else
+                 len(tiling.hub_reuse_launches(shp["c"], pl["chunk"])))
         for name, so in libs.items():
-            if name in LARGE_C and shp["c"] <= 128:
+            # a fault of another route, a merge where one launch takes
+            # the call, or on the forced chunks any fault but the merge's
+            if name != "none" and (
+                    FAULTS[name][3] not in (None, route)
+                    or (name == "merge_ignored" and calls < 2)
+                    or (chunk is not None and name != "merge_ignored")):
                 continue
             lib = ctypes.CDLL(str(so))
             _declare(lib)
             _build._LIBS["hub_reuse"] = lib
             before = _build.LAUNCHES["hub_reuse"]
-            out = hub_reuse(*ops, live=live)
+            out = hub_reuse(*ops, live=live, chunk=chunk)
             torch.cuda.synchronize()
-            if _build.LAUNCHES["hub_reuse"] != before + -(-shp["c"] // 128):
+            if _build.LAUNCHES["hub_reuse"] != before + calls:
                 raise RuntimeError(f"{blk}: the kernel did not launch")
             identity = bool(torch.equal(out[empty], ref[empty]))
             err = (out[~empty] - ref[~empty]).abs().max().item()
             breaks = not (identity and err <= tol)
-            print(json.dumps(dict(fault=name, block=blk, max_abs_err=err,
-                                  tol=tol, big_identity_exact=identity,
+            print(json.dumps(dict(fault=name, block=blk, route=route,
+                                  max_abs_err=err, tol=tol,
+                                  big_identity_exact=identity,
                                   breaks=breaks)), flush=True)
             ok &= breaks if name != "none" else not breaks
     _build._LIBS.pop("hub_reuse", None)

@@ -2,6 +2,7 @@
 """Time text variants of the hub_reuse kernel side by side.
 
     python3 tools/hub_reuse_variants.py [--seed N] [--iters N]
+        [--only a,b] [--against DIR] [--layered]
 
 Builds copies of ``src/repro_torch/csrc/hub_reuse.cu`` and
 ``tf32x3.cuh`` with one edit each (under
@@ -15,7 +16,14 @@ B): ms and max |Δ| against the plain version.  Some variants compute a
 wrong result on purpose: each removes one part of the kernel (the small
 TF32 products, all products, the gather) so that its time shows that
 part's cost; the others are alternatives the kernel does not take.
-Needs one CUDA device.
+``--layered`` runs the layered route's shapes instead (chip_smoke.py's
+``REUSE_C256`` at B = 8, 1, 2 and 4 and ``REUSE_DOMAIN`` at B = 2), each library
+through ``hub_reuse_layered`` (``LAYERED_VARIANTS``), beside the plain
+version (``plain``).  ``--against DIR`` adds another tree's
+``hub_reuse.cu`` (e.g. a parent commit's ``src/repro_torch/csrc``) as
+the variant ``against``, called as that tree's wrapper calls it: one
+launch a chunk of 128 cache rows, or of 64 where its 128-row launch is
+refused, each merged into the last.  Needs one CUDA device.
 """
 from __future__ import annotations
 
@@ -100,12 +108,128 @@ VARIANTS = {
     "rows128_8_warps": [("hub_reuse.cu", "using Rows128 = Layout<4, 4>;",
                          "using Rows128 = Layout<4, 2>;")],
 }
+# the layered route's: every C past 128 on it (not the resident route's
+# 128-row chunks where their grid covers 3/4 of the card: the rule's
+# other side); layer 2 without its H split (one range, however few its
+# tiles); the gather reading every slot's row of the partials
+# through L2 (no y tile in shared memory); the gather's subsets left out
+# (wrong on purpose: the cost of everything but them)
+LAYERED_VARIANTS = {
+    "committed": [],
+    "layered_nsplit1": [("hub_reuse.cu",
+                         "  long long want = tiles >= sms ? 1 : "
+                         "(sms + tiles - 1) / tiles;",
+                         "  long long want = 1;")],
+    "layered_always": [("hub_reuse.cu",
+                        "  return !(fits && 4 * grid >= 3LL * sms);",
+                        "  return true;")],
+    "layered_unstaged": [("hub_reuse.cu",
+                          "  const int staged = C <= ly::kStagedC;",
+                          "  const int staged = 0;")],
+    "layered_no_gather": [("hub_reuse.cu",
+                           "  for (int m = m0 + warp; m < min(m0 + "
+                           "kGatherSubsets, g.M);",
+                           "  for (int m = m0 + warp; m < 0;")],
+}
+
+
+def parent_call(lib, ops, out, dims, stream):
+    """A call of another tree's ``hub_reuse_forward`` as its wrapper makes
+    it: one launch a chunk of 128 cache rows (64 where 128 is refused),
+    each merged into the last.  -> a zero-argument call."""
+    b, hn, c, m, k, d, h, f = dims
+    fwd = lib.hub_reuse_forward
+    fwd.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 11 + [
+        ctypes.c_void_p]
+    ptrs = [t.data_ptr() for t in (*ops, out)]
+
+    def run(chunk):
+        for c0 in range(0, c, chunk):
+            code = fwd(*ptrs, b, hn, c, m, k, d, h, f, c0, int(c0 > 0), chunk,
+                       stream)
+            if code:
+                return code
+        return 0
+    chunk = 128 if run(128) == 0 else 64
+    if chunk == 64 and run(64):
+        raise RuntimeError("against: its launches were refused")
+    return lambda: run(chunk)
+
+
+def layered(args, libs, dev) -> int:
+    """The layered route's shapes (see the module's doc)."""
+    import torch
+
+    import chip_smoke
+    from repro_torch.kernels.hub_reuse import hub_reuse, hub_reuse_ref
+    gen = torch.Generator().manual_seed(args.seed)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    shapes = [(blk, chip_smoke.B, shp) for blk, shp in
+              chip_smoke.REUSE_C256.items()]
+    # the same widths at smaller batches, where the chunked resident
+    # route's grid (B H ceil(F / 64) blocks) covers less of the card
+    shapes += [(f"{blk}_b{bb}", bb, shp) for blk, shp in
+               chip_smoke.REUSE_C256.items() for bb in (1, 2, 4)]
+    shapes += [(blk, 2, shp) for blk, shp in chip_smoke.REUSE_DOMAIN.items()]
+    for blk, bb, shp in shapes:
+        pool, slot, comp, w1, b1, w2, b2, live = chip_smoke.reuse_inputs(
+            gen, dev, bb, **shp)
+        ops = (pool, slot, comp, live, w1, b1, w2, b2)
+        plain = (pool, slot, comp, w1, b1, w2, b2)
+        ref = hub_reuse_ref(*plain, live=live)
+        dims = (bb, shp["hn"], shp["c"], shp["m"], shp["k"], shp["d"],
+                shp["h"], shp["f"])
+        fns = {"wrapper": lambda: hub_reuse(*plain, live=live),
+               "plain": lambda: hub_reuse_ref(*plain, live=live)}
+        outs = {"wrapper": fns["wrapper"]()}
+        for name, so in libs.items():
+            lib = ctypes.CDLL(str(so))
+            out = torch.empty_like(ref)
+            if name == "against":
+                fns[name] = parent_call(lib, ops, out, dims, stream)
+            else:
+                plan = (ctypes.c_longlong * 4)()
+                lib.hub_reuse_plan.argtypes = [ctypes.c_int] * 8 + [
+                    ctypes.c_void_p]
+                lib.hub_reuse_plan(*dims, plan)
+                scratch = torch.empty(plan[2], device=dev)
+                fn = lib.hub_reuse_layered
+                fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [
+                    ctypes.c_void_p]
+                fns[name] = (lambda fn=fn, out=out, scratch=scratch: fn(
+                    *(t.data_ptr() for t in (*ops, out, scratch)), *dims,
+                    stream))
+                if fns[name]() != 0:      # a call its rule puts on resident
+                    print(json.dumps(dict(variant=name, block=blk, b=bb,
+                                          refused=True)), flush=True)
+                    del fns[name]
+                    continue
+            torch.cuda.synchronize()
+            outs[name] = out
+        ms = chip_smoke.time_turns(fns, iters=args.iters)
+        for name in fns:
+            row = dict(variant=name, block=blk, b=bb, ms=ms[name])
+            if name in outs:
+                try:
+                    row["max_abs_err"], row["tol"] = chip_smoke.max_err(
+                        outs[name], ref)
+                except AssertionError:      # a variant wrong on purpose
+                    row["big_identity_exact"] = False
+            print(json.dumps(row), flush=True)
+    return 0
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--iters", type=int, default=50)
+    ap.add_argument("--only", default="",
+                    help="comma-separated variants to build (default all)")
+    ap.add_argument("--against", default="",
+                    help="a directory with another hub_reuse.cu, timed as "
+                         "the variant 'against'")
+    ap.add_argument("--layered", action="store_true",
+                    help="the layered route's shapes and variants")
     args = ap.parse_args()
 
     import torch
@@ -124,7 +248,11 @@ def main() -> int:
     print(smi.splitlines()[0], flush=True)
     sound = {f: (_build.CSRC / f).read_text() for f in FILES}
     sources = {}
-    for name, edits in VARIANTS.items():
+    only = set(filter(None, args.only.split(",")))
+    for name, edits in (LAYERED_VARIANTS if args.layered
+                        else VARIANTS).items():
+        if only and name not in only:
+            continue
         texts = dict(sound)
         for fname, old, new in edits:
             if texts[fname].count(old) != 1:
@@ -132,6 +260,9 @@ def main() -> int:
                                    f"{texts[fname].count(old)} times")
             texts[fname] = texts[fname].replace(old, new)
         sources[name] = texts
+    if args.against:
+        sources["against"] = {f: (Path(args.against) / f).read_text()
+                              for f in FILES}
     libs, logs = build(sources, _build.BUILD_DIR / "variants" / "hub_reuse",
                        with_logs=True)
     for name, log in logs.items():
@@ -140,6 +271,8 @@ def main() -> int:
             if "registers" in line or "spill" in line]}), flush=True)
 
     dev = torch.device("cuda")
+    if args.layered:
+        return layered(args, libs, dev)
     gen = torch.Generator().manual_seed(args.seed)
     stream = torch.cuda.current_stream(dev).cuda_stream
     for blk, shp in chip_smoke.REUSE.items():
