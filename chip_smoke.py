@@ -59,13 +59,22 @@ Phases, each timed, any failure exits non-zero:
      4096, dgcnn_c 8 × 1024, dgcnn_s 1 × 8192, pointnext_s and
      pointvector_l 2 × 4096), one ragged lpcn batch each through
      ``fc_backend="cuda"`` with the launch counts reset (one gather_mlp
-     and one hub_reuse launch a block; gather_mlp's wide route at exactly
-     the blocks that need it), every logit against the "reference"
-     backend, seg padding rows exactly 0, the stages timed; dgcnn_c once
-     in traditional mode; gather_mlp's wide route against its plain
-     version and timed at the six blocks that take it (``DENSE_WIDE``)
-     and at D = 700 (``WIDE_D``), its plan (grid, layer-1 recompute)
-     equal in wrapper and library;
+     and one hub_reuse launch a block; gather_mlp's launches by route
+     equal to the routes of the engine's lowering: ``linear`` at every
+     block of the one-layer families dgcnn_c, dgcnn_s, pointnext_s and
+     pointvector_l, ``narrow`` at PointNet++'s, ``wide`` at none), every
+     logit against the "reference" backend, seg padding rows exactly 0,
+     the stages timed; dgcnn_c's stage 1 on the card against the CPU at
+     its families batch (the ``all`` sampler and DGCNN's islands, every
+     integer field equal); dgcnn_c once in traditional mode (4
+     ``linear`` launches); gather_mlp's linear route against its plain
+     version and timed at ``DENSE_LINEAR`` (the six blocks the wide
+     route took before it, one narrow one-layer block and D = 700), its
+     row tile and shared memory equal in wrapper and library; the
+     two-layer wide route, which no published spec takes since, driven
+     once with the launch counts reset and held and timed alike at
+     ``DENSE_WIDE`` and ``WIDE_D`` (the split-sign two-layer form), its
+     plan (grid, layer-1 recompute) equal in wrapper and library;
      the CLI on a seg model (``SEG_CLI``: pointnext_s, 8 requests);
   7. entry kernels: drive ``knn`` (stage 1 of the first batch, both
      blocks, every cloud; block 1 again at k = 96 and 300; dgcnn_s's kNN,
@@ -245,8 +254,8 @@ and power limit), ``plan_cells``, a ``plan_cell`` line per tuned cell
 bit-equality, shared memory by tiling.py and by the library; the
 heuristic's, the per-cloud and the winner's ms; beside the card's name
 and power limit), ``plan_forward`` lines and ``mesorasi``, a ``family``
-line per model and ``wide_parity``, a
-an ``lm`` line
+line per model, ``family_structure_card_vs_cpu``, ``wide_parity`` and
+``linear_parity``, an ``lm`` line
 per LM config (its routes, launches, prefill and decode times, beside the
 card's name and power limit), ``lm_parity``, a ``bwd_kernel`` line per
 backward layer (flash_attention's and ssd_chunk's), a ``train_wiring``
@@ -261,10 +270,12 @@ launches, seconds), ``pcn_card_vs_cpu``, ``pcn_kernels_vs_plain``,
 ``pcn_grad_refusal``, the examples' lines (``example <name>: ...``) and
 ``pcn_examples_s``, a ``kernels`` JSON
 line (every TPU kernel's counterpart: the FC kernels batched and per
-cloud, gather_mlp's wide route, the entry kernels, and flash_attention
-and ssd_chunk at the LM prefills' inputs; ``launches`` counted per
-wrapper, in the async serving run for the FC kernels, over the families
-phase's counted forwards for the wide route, in the entry phase for the
+cloud, gather_mlp's wide and linear routes, the entry kernels, and
+flash_attention and ssd_chunk at the LM prefills' inputs; ``launches``
+counted per wrapper, in the async serving run for the FC kernels, over
+the families phase's counted forwards for the linear route, in the wide
+route's own drive for its rows (``families_launches`` beside: 0, no
+published spec takes it), in the entry phase for the
 entry kernels' rows (``lm_launches`` beside them: the LM phase's counted
 prefills), in the LM phase for its rows, in the full-width training
 runs for ``flash_attention_bwd``'s and ``ssd_chunk_bwd``'s, and in phase
@@ -368,6 +379,17 @@ DENSE_WIDE = {
 # alone over 227 KB at D above ~600): x streams through the ring in slices
 WIDE_D = {"d700": dict(b=2, s=128, k=32, d=700, dc=3, h=1024, f=512,
                        masked=False)}
+# gather_mlp's linear route (h = 0: one layer, the engine's lowering of
+# every one-layer point-MLP): the six DENSE_WIDE blocks as the engine
+# launches them since the route exists, one narrow one-layer block
+# (dgcnn_c block 2: 1024 subsets of 20 a cloud, D = 128, F = 64) and
+# WIDE_D's widths; the two-layer DENSE_WIDE and WIDE_D above keep the
+# wide route's rows at the split-sign form those blocks had before
+DENSE_LINEAR = {
+    **{blk: dict(shp, h=0) for blk, shp in DENSE_WIDE.items()},
+    "dgcnn_c_blk2": dict(b=8, s=1024, k=20, d=128, dc=128, h=0, f=64,
+                         masked=True),
+    "d700": dict(WIDE_D["d700"], h=0)}
 # the CLI on a seg model: 8 S3DIS-sized requests in buckets up to 4096
 SEG_CLI = ("--arch", "pointnext_s", "--trace", "8", "--buckets",
            "2048,4096", "--points", "3500", "--size-sigma", "0.1",
@@ -614,6 +636,8 @@ def max_err(out, ref) -> tuple[float, float]:
 
 
 def dense_inputs(gen, dev, b, s, k, d, dc, h, f, masked):
+    """gather_mlp's operands (raw, ctr, w1, b1, w2, b2, mask); h = 0: one
+    layer, w1 (d, f), b1 (f,), w2 = b2 = None."""
     import torch
     r = lambda *shape, scale=1.0: (torch.randn(shape, generator=gen)
                                    * scale).to(dev)
@@ -622,6 +646,9 @@ def dense_inputs(gen, dev, b, s, k, d, dc, h, f, masked):
         mask = torch.rand((b, s, k), generator=gen) < 0.8
         mask[:, ::7] = False                  # whole subsets dead
         mask = mask.to(dev)
+    if h == 0:
+        return (r(b, s, k, d), r(b, s, dc), r(d, f, scale=(2 / d) ** .5),
+                r(f, scale=.1), None, None, mask)
     return (r(b, s, k, d), r(b, s, dc), r(d, h, scale=(2 / d) ** .5),
             r(h, scale=.1), r(h, f, scale=(2 / h) ** .5), r(f, scale=.1),
             mask)
@@ -1161,32 +1188,47 @@ def family_batch(spec, b, n, seed, dev):
                              device=dev), sizes
 
 
-def wide_blocks(spec, params) -> list:
-    """Block numbers (from 1) whose gather_mlp launch takes the wide
-    route, from the wrapper's route at the engine's lowering."""
+# the families whose every block is one linear map (the linear route)
+ONE_LAYER_FAMILIES = ("dgcnn_c", "dgcnn_s", "pointnext_s", "pointvector_l")
+GATHER_ROUTES = ("narrow", "wide", "linear")
+
+
+def route_blocks(spec, params) -> dict:
+    """Block numbers (from 1) of each gather_mlp route, from the wrapper's
+    route at the engine's lowering."""
     from repro_torch.engine.fc import dense_shape
     from repro_torch.kernels.gather_mlp.ops import route
-    return [i for i, (b, mlp) in enumerate(zip(spec.blocks, params.blocks),
-                                           1)
-            if route(*dense_shape(b.kind, b.k, mlp)) == "wide"]
+    out = {way: [] for way in GATHER_ROUTES}
+    for i, (b, mlp) in enumerate(zip(spec.blocks, params.blocks), 1):
+        out[route(*dense_shape(b.kind, b.k, mlp))].append(i)
+    return out
 
 
-def families_phase(dev, seed, smi) -> int:
+def route_launches() -> dict:
+    """gather_mlp's launch counts by route since the counts were reset."""
+    from repro_torch import kernels
+    return {way: kernels.LAUNCHES[f"gather_mlp_{way}"]
+            for way in GATHER_ROUTES}
+
+
+def families_phase(dev, seed, smi) -> dict:
     """Every other model of the zoo at full width: one ragged lpcn batch
     through ``PCNEngine(spec, fc_backend="cuda")`` with the launch counts
     set to 0 just before and read just after (one gather_mlp and one
-    hub_reuse launch a block, the wide route at exactly the blocks that
-    need it, no entry kernel), every logit against the "reference" backend
-    on the card, seg padding rows exactly 0, and the forward's stages
-    timed; then dgcnn_c once in traditional mode.  -> the wide route's
-    launches over the counted forwards."""
+    hub_reuse launch a block, gather_mlp's launches by route equal to the
+    lowering's routes: ``linear`` at every block of ``ONE_LAYER_FAMILIES``,
+    ``wide`` at none; no entry kernel), every logit against the
+    "reference" backend on the card, seg padding rows exactly 0, and the
+    forward's stages timed; dgcnn_c's stage 1 on the card against the CPU
+    (every integer field equal); then dgcnn_c once in traditional mode.
+    -> gather_mlp's launches by route over the counted forwards."""
     import torch
     from repro_torch import kernels
     from repro_torch.engine import PCNEngine
     from repro_torch.models import MODEL_ZOO
     off_path = ("knn", "flash_attention", "flash_attention_bwd", "ssd_chunk",
                 "ssd_chunk_bwd")
-    wide_launches = 0
+    totals = dict.fromkeys(GATHER_ROUTES, 0)
     for name, (b, n) in FAMILIES.items():
         spec = MODEL_ZOO[name][1]
         engine = PCNEngine(spec, mode="lpcn", fc_backend="cuda")
@@ -1194,7 +1236,7 @@ def families_phase(dev, seed, smi) -> int:
         params = seed_biases(engine.init(seed=seed),
                              torch.Generator().manual_seed(seed + 1))
         batch, sizes = family_batch(spec, b, n, seed, dev)
-        wide = wide_blocks(spec, params)
+        blocks = route_blocks(spec, params)
         torch.cuda.synchronize()
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
@@ -1202,15 +1244,22 @@ def families_phase(dev, seed, smi) -> int:
         torch.cuda.synchronize()
         first_ms = (time.perf_counter() - t0) * 1e3
         launches = kernels.launch_counts()
-        n_wide = kernels.LAUNCHES["gather_mlp_wide"]
+        by_route = route_launches()
         nb = len(spec.blocks)
         check(launches["gather_mlp"] == launches["hub_reuse"] == nb
               and not any(launches[k] for k in off_path),
               f"{name}: launches {launches}, expected gather_mlp == "
               f"hub_reuse == {nb} and no entry kernel")
-        check(n_wide == len(wide), f"{name}: {n_wide} wide-route launches, "
-              f"expected one at each of blocks {wide}")
-        wide_launches += n_wide
+        check(by_route == {way: len(bl) for way, bl in blocks.items()},
+              f"{name}: gather_mlp launches by route {by_route}, expected "
+              f"one at each block of {blocks}")
+        check(not blocks["wide"] and (blocks["linear"] == list(
+            range(1, nb + 1))) == (name in ONE_LAYER_FAMILIES),
+              f"{name}: routes {blocks}: the wide route at a published "
+              f"block, or the linear route not at every block of exactly "
+              f"the one-layer families")
+        for way in GATHER_ROUTES:
+            totals[way] += by_route[way]
         seg = spec.task == "seg"
         check(tuple(out.shape) == ((b, n, spec.n_classes) if seg
                                    else (b, spec.n_classes)),
@@ -1230,8 +1279,15 @@ def families_phase(dev, seed, smi) -> int:
             "first_forward_ms": first_ms,
             "stage1_share": stages["structure_ms"] / sum(stages.values()),
             "launches": {k: v for k, v in launches.items() if v},
-            "wide_blocks": wide, "wide_launches": n_wide,
+            "route_blocks": blocks, "route_launches": by_route,
             "max_abs_err": err, "tol": tol}}))
+        if name == "dgcnn_c":
+            mismatch = structure_card_vs_cpu(spec, batch)
+            log(json.dumps({"family_structure_card_vs_cpu": {
+                "spec": name, "b": b, "n": n, "mismatches": mismatch}}))
+            check(not any(mismatch.values()),
+                  f"dgcnn_c: stage 1 on the card differs from the CPU: "
+                  f"{mismatch}")
 
     # ---- traditional mode, once: dgcnn_c --------------------------------
     spec = MODEL_ZOO["dgcnn_c"][1]
@@ -1251,33 +1307,53 @@ def families_phase(dev, seed, smi) -> int:
     check(launches == {**dict.fromkeys(launches, 0),
                        "gather_mlp": len(spec.blocks)},
           f"dgcnn_c traditional launches {launches}")
-    check(kernels.LAUNCHES["gather_mlp_wide"] == 1,
-          "dgcnn_c traditional: block 4 did not take the wide route")
-    wide_launches += 1
+    by_route = route_launches()
+    check(by_route == {**dict.fromkeys(GATHER_ROUTES, 0),
+                       "linear": len(spec.blocks)},
+          f"dgcnn_c traditional: gather_mlp launches by route {by_route}, "
+          f"expected every block on the linear route")
+    totals["linear"] += by_route["linear"]
     check(bool(torch.isfinite(out).all()), "dgcnn_c traditional: non-finite")
     err, tol = close(out, trad_ref.apply(params, batch))
     check(err <= tol, f"dgcnn_c traditional: max|err| {err} > {tol}")
     log(json.dumps({"family_traditional": {
         "spec": "dgcnn_c", "device": smi, "b": b, "n": n, "forward_ms": ms,
         "launches": {k: v for k, v in launches.items() if v},
-        "max_abs_err": err, "tol": tol}}))
-    return wide_launches
+        "route_launches": by_route, "max_abs_err": err, "tol": tol}}))
+    return totals
 
 
-def wide_kernel_rows(dev, seed, launches) -> tuple[list, list]:
-    """gather_mlp's wide route at ``DENSE_WIDE`` and ``WIDE_D``: the
-    wrapper's route and plan equal to the library's, the kernel against
-    its plain version, both timed in turns.  -> (parity rows, kernel rows
-    with ``launches`` and the plan: grid, layer-1 recompute factor)."""
+def wide_kernel_rows(dev, seed, families_launches) -> tuple[list, list]:
+    """gather_mlp's wide route at ``DENSE_WIDE`` and ``WIDE_D`` (two
+    layers, the split-sign form): each call launched once with the launch
+    counts set to 0 just before and read just after (no published spec
+    takes the route since the linear route exists), the wrapper's route
+    and plan equal to the library's, the kernel against its plain
+    version, both timed in turns.  -> (parity rows, kernel rows with the
+    drive's ``launches``, the families phase's beside, and the plan:
+    grid, layer-1 recompute factor)."""
     import torch
+    from repro_torch import kernels
     from repro_torch.kernels.gather_mlp import gather_mlp, gather_mlp_ref
     from repro_torch.kernels.gather_mlp.ops import (library_plan,
                                                     library_route, route,
                                                     wide_plan)
     gen = torch.Generator().manual_seed(seed + 2)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    shapes = {**DENSE_WIDE, **WIDE_D}
+    inputs = {blk: dense_inputs(gen, dev, **shp)
+              for blk, shp in shapes.items()}
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    for raw, ctr, w1, b1, w2, b2, mask in inputs.values():
+        gather_mlp(raw, ctr, w1, b1, w2, b2, mask=mask)
+    torch.cuda.synchronize()
+    drive = route_launches()
+    check(drive == {**dict.fromkeys(GATHER_ROUTES, 0), "wide": len(shapes)}
+          and kernels.LAUNCHES["gather_mlp"] == len(shapes),
+          f"the wide route's drive: launches by route {drive}")
     parity, rows = [], []
-    for blk, shp in {**DENSE_WIDE, **WIDE_D}.items():
+    for blk, shp in shapes.items():
         kshape = (shp["k"], shp["d"], shp["dc"], shp["h"], shp["f"])
         check(route(*kshape) == library_route(*kshape) == "wide",
               f"gather_mlp {blk}: routes {route(*kshape)} (wrapper) and "
@@ -1286,7 +1362,7 @@ def wide_kernel_rows(dev, seed, launches) -> tuple[list, list]:
         check(plan == wide_plan(shp["b"], shp["s"], *kshape, sms=sms),
               f"gather_mlp {blk}: the library's plan {plan} differs from "
               f"the wrapper's")
-        raw, ctr, w1, b1, w2, b2, mask = dense_inputs(gen, dev, **shp)
+        raw, ctr, w1, b1, w2, b2, mask = inputs[blk]
         args = (raw, ctr, w1, b1, w2, b2)
         out = gather_mlp(*args, mask=mask)
         ref = gather_mlp_ref(*args, mask=mask)
@@ -1313,10 +1389,66 @@ def wide_kernel_rows(dev, seed, launches) -> tuple[list, list]:
                   f"Dc={shp['dc']} H={shp['h']} F={shp['f']} "
                   f"masked={shp['masked']}",
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-            bound_by=by, library_ms=None, launches=launches,
+            bound_by=by, library_ms=None, launches=drive["wide"],
+            families_launches=families_launches,
             plan=dict(plan, grid=[plan["groups"], plan["nft"],
                                   plan["nsplit"]],
                       layer1_recompute=plan["nft"])))
+    return parity, rows
+
+
+def linear_kernel_rows(dev, seed, launches) -> tuple[list, list]:
+    """gather_mlp's linear route at ``DENSE_LINEAR``: the wrapper's route,
+    row tile and shared memory equal to the library's, the kernel against
+    its plain version (1e-4 · max(1, max|plain|)) and twice bit-equal,
+    both timed in turns; the bound by the one layer's flops.  -> (parity
+    rows, kernel rows with ``launches``: the families phase's count of
+    the route, and the plan: grid, row tile)."""
+    import torch
+    from repro_torch.kernels import tiling
+    from repro_torch.kernels.gather_mlp import gather_mlp, gather_mlp_ref
+    from repro_torch.kernels.gather_mlp import ops
+    gen = torch.Generator().manual_seed(seed + 3)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    parity, rows = [], []
+    for blk, shp in DENSE_LINEAR.items():
+        b, s, k, d, dc, f = (shp[n] for n in ("b", "s", "k", "d", "dc", "f"))
+        lp = tiling.linear_plan(b, s, k, f, sms)
+        got = dict(route=ops.library_route(k, d, dc, 0, f),
+                   rows=ops.plan(b, s, k, d, dc, 0, f, dev)["rows"],
+                   smem=ops.library_smem(b, s, k, d, dc, 0, f))
+        check(got == dict(route="linear", rows=lp["rows"], smem=lp["smem"])
+              and ops.route(k, d, dc, 0, f) == "linear",
+              f"gather_mlp {blk}: the library's {got}, tiling.py's {lp}")
+        raw, ctr, w, bias, _, _, mask = dense_inputs(gen, dev, **shp)
+        args = (raw, ctr, w, bias)
+        out = gather_mlp(*args, mask=mask)
+        ref = gather_mlp_ref(*args, mask=mask)
+        torch.cuda.synchronize()
+        err, tol = max_err(out, ref)
+        same = bool(torch.equal(out, gather_mlp(*args, mask=mask)))
+        parity.append(dict(name="gather_mlp", block=blk, b=b,
+                           masked=shp["masked"], route="linear",
+                           max_abs_err=err, tol=tol, bit_equal=same))
+        check(err <= tol, f"gather_mlp {blk}: max|err| {err} > {tol}")
+        check(same, f"gather_mlp {blk}: two calls differ")
+        ms, plain_ms = time_pair(lambda: gather_mlp(*args, mask=mask),
+                                 lambda: gather_mlp_ref(*args, mask=mask),
+                                 iters=10)
+        flops = 2 * b * s * k * d * f
+        moved = nbytes(*args, mask, out)
+        bms, by = bound(3 * flops, moved, PEAK_TF32)
+        rows.append(dict(
+            name="gather_mlp", block=blk, route="cuda",
+            variant="mma_tf32x3_linear", tflops=flops / ms / 1e9,
+            bound_fp32_ms=bound(flops, moved)[0],
+            source="src/repro_torch/csrc/gather_mlp.cu",
+            replaces="src/repro/kernels/gather_mlp/gather_mlp.py:239",
+            shape=f"B={b} S={s} K={k} D={d} Dc={dc} F={f} one layer "
+                  f"masked={shp['masked']}",
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+            bound_by=by, library_ms=None, launches=launches,
+            plan=dict(lp, grid=[lp["groups"], lp["nft"]])))
     return parity, rows
 
 
@@ -4133,14 +4265,19 @@ def main() -> int:
 
     # ---- the families: every other model of the zoo at full width -------
     t = time.perf_counter()
-    wide_launches = families_phase(dev, args.seed, smi.splitlines()[0])
+    family_routes = families_phase(dev, args.seed, smi.splitlines()[0])
     phases["families_s"] = time.perf_counter() - t
     t = time.perf_counter()
-    wide_parity, wide_rows = wide_kernel_rows(dev, args.seed, wide_launches)
-    phases["wide_kernels_s"] = time.perf_counter() - t
-    log(f"families_s {phases['families_s']:.2f}; wide-route launches "
-        f"{wide_launches}; wide_kernels_s {phases['wide_kernels_s']:.2f}")
+    wide_parity, wide_rows = wide_kernel_rows(dev, args.seed,
+                                              family_routes["wide"])
+    linear_parity, linear_rows = linear_kernel_rows(
+        dev, args.seed, family_routes["linear"])
+    phases["route_kernels_s"] = time.perf_counter() - t
+    log(f"families_s {phases['families_s']:.2f}; gather_mlp launches by "
+        f"route {family_routes}; route_kernels_s "
+        f"{phases['route_kernels_s']:.2f}")
     log(json.dumps({"wide_parity": wide_parity}))
+    log(json.dumps({"linear_parity": linear_parity}))
     phases["seg_cli_s"] = cli_phase(smi.splitlines()[0], SEG_CLI)
 
     # ---- entry kernels: knn, flash_attention, ssd_chunk -----------------
@@ -4224,7 +4361,8 @@ def main() -> int:
         if row["block"] == "pointvector_l_blk4_c128":
             row["cache_x4_launches"] = x4_families["pointvector_l"][
                 "hub_reuse"]
-    rows += wide_rows + entry_rows + lm_rows + train_rows + domain_rows
+    rows += (wide_rows + linear_rows + entry_rows + lm_rows + train_rows
+             + domain_rows)
     for row in rows:
         if row["name"] in pcn_launches:
             row["pcn_train_launches"] = pcn_launches[row["name"]]

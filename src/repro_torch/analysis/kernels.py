@@ -20,15 +20,16 @@ own launch, so the copies are held to the sources they copy.
   (``gather_mlp_smem_bytes``, ``hub_reuse_smem_bytes``,
   ``knn_smem_bytes``, ``flash_attention_layout``, ``ssd_chunk_plan``).
 * **K002** — each route's alignment precondition: the narrow row tile
-  holds whole 16-padded subsets, the wide route's F tiles are 64-column
-  multiples of at most 256, ``wgmma`` takes bf16 rows of 16 bytes, a
+  holds whole 16-padded subsets, the linear one whole subsets packed K
+  rows apart, the wide route's F tiles are 64-column multiples of at
+  most 256, ``wgmma`` takes bf16 rows of 16 bytes, a
   chunk is 64 or 128 cache rows, an SSD chunk at most 128 rows on its
   ``whole`` route, a flash head at most 256 wide off its split routes,
   and on the ``split`` route D within its cluster's slices (at most 8
   blocks a cluster).
 * **K003** — the grid writes every output tile and no block writes
   only outside the output or nothing, the splits of H and of the cache
-  rows cover them, and the plan that launched (captured on the card, or
+  rows and the linear route's row tiles of a long subset cover them, and the plan that launched (captured on the card, or
   reported there by the library: ``gather_mlp_wide_plan``, ``knn_plan``,
   ``flash_attention_layout``'s tiles, ``ssd_chunk_plan``) equals the
   derived one.
@@ -314,7 +315,29 @@ def _gather_mlp_site(dims, plan, where, sms, card):
     mismatch = []
     if plan.get("route") not in (None, way):
         mismatch.append(f"route {plan['route']} launched, {way} derived")
-    if way == "narrow":
+    if way == "linear":
+        lp = tiling.linear_plan(bb, s, k, f, sms,
+                                (plan.get("rows") or 0) if forced else 0)
+        rows, spt = lp["rows"], lp["spt"]
+        if plan.get("rows") is not None and plan["rows"] != rows:
+            mismatch.append(f"rows {plan['rows']} launched, {rows} derived")
+        site = KernelSite(
+            "gather_mlp", where, dims, plan,
+            grid=(nb, lp["groups"], lp["nft"]),
+            semantics=(PARALLEL, PARALLEL, PARALLEL),
+            out_shape=(nb, bb * s, f),
+            out_block=(1, spt, tiling.LINEAR_COLS),
+            out_map=lambda p: [(p[0], p[1], p[2])], smem=lp["smem"],
+            launch=dict(route=way, **lp),
+            preconditions=[
+                (f"row tile {rows} in {tiling.ROWS}", rows in tiling.ROWS),
+                (f"{spt} subsets of {max(k, 1)} rows fit a {rows}-row tile",
+                 spt * max(k, 1) <= rows or spt == 1)],
+            coverage=[
+                (f"{lp['n_tiles']} row tiles of {rows} cover a subset's "
+                 f"{k} rows", lp["n_tiles"] * rows >= k)])
+        knobs = ((plan.get("rows") or 0) if forced else 0, 0)
+    elif way == "narrow":
         rows = tiling.narrow_rows(bb, s, k, d, dc, h, f, sms,
                                   (plan.get("rows") or 0) if forced else 0)
         if plan.get("rows") is not None and plan["rows"] != rows:

@@ -48,7 +48,9 @@
 //
 // That is the narrow route.  Where a 64-row tile's x and whole h exceed a
 // block's 227 KB, gather_mlp_forward takes the wide route (namespace wide
-// below), which holds y in registers and h in 32-column chunks.
+// below), which holds y in registers and h in 32-column chunks.  A call
+// with no hidden layer (H = 0: y = x W + b, one product, no relu) takes
+// the linear route (namespace linear below).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -890,6 +892,342 @@ int launch(Plan w, float* scratch, void* stream) {
 
 }  // namespace wide
 
+// ---- the linear route: one layer, y = x W + b ----------------------------
+// The one-layer point-MLPs (every block of DGCNN, PointNeXt-S and
+// PointVector-L, and any block_end MLP, composed into one map) need
+// neither relu nor a second product: for each (cloud b, subset s)
+//
+//     out = max over live k of (x[k] W + b)                    (F,)
+//
+// with x formed as above.  A GEMM of B·S·K rows, F columns and depth D:
+// a block takes a tile of R = 128 rows (64 where 128-row tiles times the
+// F tiles would give fewer than two blocks an SM) by 128 output columns
+// (grid: row tiles x F tiles).  Whole subsets are packed K rows apart with
+// no padding (K = 20: 6 to 120 rows), so the tile's rows are one
+// contiguous run of raw's rows; a subset longer than R loops over row
+// tiles with a running max.  raw's columns, W's rows and the tile's
+// centers stream over D together through a two-stage cp.async ring of
+// 32-deep slices (one barrier a stage), so any D fits and x is read once
+// per F tile.  The centers are subtracted in registers as each A
+// fragment is loaded (a pass over the slice before the barrier took 17 %
+// more time at dgcnn_c block 4, where Dc = D, on an H100).  The product runs on mma.sync in
+// 3xTF32 (tf32x3.cuh), 8 warps as 4 x 2 (128 rows) or 2 x 4 (64 rows), y
+// in registers.  The epilogue stores y over the ring, and a thread a
+// (subset, column) takes the max over the subset's live rows and adds b
+// once (max(y) + b = max(y + b): rounding is monotone); a subset with no
+// live row gives 0.  out is written directly: no scratch, no second
+// kernel.
+//
+// What bounds it: the product, 2·B·S·K·D·F flops, three TF32 passes at
+// the 495 TFLOP/s peak; dgcnn_c block 4 at B = 8 (163,840 rows, D = F =
+// 256) is 21.5 GFLOP, 0.130 ms, against 0.056 ms of bytes.  The two-layer
+// form of the same block (x [W, -W], relu, [I; -I]) does 4x the flops.
+namespace linear {
+
+constexpr int kBK = 32;                  // depth of a ring stage
+constexpr int kStages = 2;               // ring stages (one in flight)
+constexpr int kBN = kNC;                 // output columns a block
+constexpr int kXS = kBK + 8;             // x and center slices' row stride
+                                         // (≡ 8 mod 32)
+constexpr int kYS = kBN + 8;             // y tile row stride (≡ 8 mod 32)
+
+struct LinParams {
+  const float* raw;
+  const float* ctr;
+  const uint8_t* mask;
+  const float* w;          // D x F
+  const float* b;          // F
+  float* out;
+  long long bs;            // B * S subsets
+  int K, D, Dc, F;
+  int spt, n_tiles;        // subsets a tile (1 where K > R), tiles a subset
+  int nk, Dp;              // ring stages over D, D to 8
+  int x_vec, w_vec, c_vec; // 16-byte copies allowed
+};
+
+// floats of a ring stage: the x slice, W's rows, the spt centers' slice
+__host__ __device__ constexpr int stage_floats(int R, int spt) {
+  return R * kXS + kBK * kWS + spt * kXS;
+}
+
+// floats of the shared memory: the row tables (3R ints), the running max
+// (kBN), then the ring, which y overlays in the epilogue
+__host__ __device__ constexpr int smem_floats(int R, int spt) {
+  return 3 * R + kBN + (kStages * stage_floats(R, spt) > R * kYS
+                            ? kStages * stage_floats(R, spt)
+                            : R * kYS);
+}
+
+// tf32x3::load_a's fragment of x - c: the rows' centers from cs (row
+// stride kXS), s0 and s1 the subset slots of rows g and g + 8
+__device__ __forceinline__ Frag<4> load_a_centered(const float* xs,
+                                                   const float* cs,
+                                                   int row0, int k0, int s0,
+                                                   int s1, int lane) {
+  const int col = k0 + 2 * (lane & 3);
+  const float* px = xs + (row0 + (lane >> 2)) * kXS + col;
+  const float2 lo = *reinterpret_cast<const float2*>(px);
+  const float2 hi = *reinterpret_cast<const float2*>(px + 8 * kXS);
+  const float2 clo = *reinterpret_cast<const float2*>(cs + s0 * kXS + col);
+  const float2 chi = *reinterpret_cast<const float2*>(cs + s1 * kXS + col);
+  const float v[4] = {lo.x - clo.x, hi.x - chi.x, lo.y - clo.y,
+                      hi.y - chi.y};
+  Frag<4> f;
+  tf32x3::split(f, v);
+  return f;
+}
+
+template <class L>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
+gather_mlp_linear_kernel(const LinParams p) {
+  constexpr int R = L::kR, NT = L::kNT;
+  const int ST = stage_floats(R, p.spt);
+  extern __shared__ __align__(16) float smem_l[];
+  int* rowsub = reinterpret_cast<int*>(smem_l);        // R: subset slot, -1
+  int* rowlive = rowsub + R;                           // R
+  int* anyl = rowlive + R;                             // R: a live row
+  float* pool = smem_l + 3 * R;                        // kBN (n_tiles > 1)
+  float* ring = pool + kBN;                            // kStages x ST
+  float* ys = ring;                                    // R x kYS, at the end
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp / L::kWN, wn = warp % L::kWN;
+  const int g = lane >> 2, t = lane & 3;
+  const bool multi = p.n_tiles > 1;       // one subset over several tiles
+  const int Kp = p.K > 0 ? p.K : 1;
+  const long long sub0 = (long long)blockIdx.x * p.spt;
+  const int f0 = blockIdx.y * kBN, ft = min(kBN, p.F - f0);
+  const int nc8 = (ft + 7) & ~7;
+
+  for (int e = tid; e < kBN; e += kThreads) pool[e] = -kBig;
+  for (int e = tid; e < R; e += kThreads) anyl[e] = 0;
+  float acc[kMT][NT][4];
+  for (int it = 0; it < p.n_tiles; ++it) {
+    // the tile's rows are raw's rows row0 .. row0 + R (packed K apart)
+    const long long row0 = sub0 * p.K + (multi ? (long long)it * R : 0);
+    __syncthreads();                      // the last tile done with smem
+    for (int r = tid; r < R; r += kThreads) {
+      const int sl = multi ? 0 : r / Kp;
+      const int k = multi ? it * R + r : r % Kp;
+      const bool valid = sl < p.spt && k < p.K && sub0 + sl < p.bs;
+      const bool lv = valid && (p.mask == nullptr || p.mask[row0 + r] != 0);
+      rowsub[r] = valid ? sl : -1;
+      rowlive[r] = lv;
+      if (lv) anyl[sl] = 1;
+    }
+    __syncthreads();
+    // the subset slots of this warp's rows g and g + 8 of each m16 tile
+    // (slot 0 for a row past the subsets: its y is never pooled)
+    int slot[kMT][2];
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        slot[mt][h] = max(rowsub[(wm * kMT + mt) * 16 + g + 8 * h], 0);
+
+    // stage q: raw's columns and W's rows [32q, 32q + 32), W's columns
+    // [f0, f0 + nc8), the centers' columns [32q, 32q + 32) where below
+    // Dc; rows past the subsets, columns past D or Dc and W's rows past D
+    // zero
+    auto issue = [&](int q) {
+      float* xs = ring + (q % kStages) * ST;
+      float* ws = xs + R * kXS;
+      float* cs = ws + kBK * kWS;
+      const int d0 = q * kBK;
+      for (int e = tid; e < R * (kBK / 4); e += kThreads) {
+        const int r = e / (kBK / 4), c = (e % (kBK / 4)) * 4, d = d0 + c;
+        float* o = xs + r * kXS + c;
+        const bool ok = rowsub[r] >= 0;
+        const float* src = p.raw + (row0 + r) * p.D + d;
+        if (p.x_vec && ok && d < p.D) {
+          tf32x3::cp_async16(o, src);
+        } else {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            if (ok && d + i < p.D) tf32x3::cp_async4(o + i, src + i);
+            else o[i] = 0.f;
+          }
+        }
+      }
+      for (int e = tid; e < kBK * (kBN / 4); e += kThreads) {
+        const int r = e / (kBN / 4), c = (e % (kBN / 4)) * 4, kr = d0 + r;
+        if (c >= nc8) continue;
+        float* o = ws + r * kWS + c;
+        const float* src = p.w + (size_t)kr * p.F + f0 + c;
+        if (p.w_vec && kr < p.D && c < ft) {
+          tf32x3::cp_async16(o, src);
+        } else {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            if (kr < p.D && c + i < ft) tf32x3::cp_async4(o + i, src + i);
+            else o[i] = 0.f;
+          }
+        }
+      }
+      if (d0 >= p.Dc) return;
+      for (int e = tid; e < p.spt * (kBK / 4); e += kThreads) {
+        const int sl = e / (kBK / 4), c = (e % (kBK / 4)) * 4, d = d0 + c;
+        float* o = cs + sl * kXS + c;
+        const bool ok = sub0 + sl < p.bs;
+        const float* src = p.ctr + (sub0 + sl) * p.Dc + d;
+        if (p.c_vec && ok && d < p.Dc) {
+          tf32x3::cp_async16(o, src);
+        } else {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            if (ok && d + i < p.Dc) tf32x3::cp_async4(o + i, src + i);
+            else o[i] = 0.f;
+          }
+        }
+      }
+    };
+
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[mt][j][i] = 0.f;
+#pragma unroll
+    for (int q = 0; q < kStages - 1; ++q) {
+      if (q < p.nk) issue(q);
+      tf32x3::cp_async_commit();          // one group a stage, empty or not
+    }
+    for (int q = 0; q < p.nk; ++q) {
+      tf32x3::cp_async_wait<kStages - 2>();  // this thread's copies of q
+      __syncthreads();                    // stage q for all; q - 1's slot free
+      if (q + kStages - 1 < p.nk) issue(q + kStages - 1);
+      tf32x3::cp_async_commit();
+      const float* xs = ring + (q % kStages) * ST;
+      const float* ws = xs + R * kXS;
+      const float* cs = ws + kBK * kWS;
+      const bool centered = q * kBK < p.Dc;  // the slice holds center lanes
+      const int steps = min(kBK, p.Dp - q * kBK) / 8;
+#pragma unroll
+      for (int s = 0; s < kBK / 8; ++s) {
+        if (s >= steps) break;
+        Frag<4> af[kMT];
+#pragma unroll
+        for (int mt = 0; mt < kMT; ++mt) {
+          const int r0 = (wm * kMT + mt) * 16;
+          af[mt] = centered ? load_a_centered(xs, cs, r0, s * 8,
+                                              slot[mt][0], slot[mt][1], lane)
+                            : tf32x3::load_a(xs, kXS, r0, s * 8, lane);
+        }
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const int n0 = (wn + L::kWN * j) * 8;
+          if (n0 >= nc8) continue;
+          const Frag<2> bf = tf32x3::load_b(ws, kWS, s * 8, n0, lane);
+          // the kMT tiles' products in waves: no product waits on the one
+          // just issued to its accumulator
+#pragma unroll
+          for (int mt = 0; mt < kMT; ++mt)
+            tf32x3::mma(acc[mt][j], af[mt].small, bf.big);
+#pragma unroll
+          for (int mt = 0; mt < kMT; ++mt)
+            tf32x3::mma(acc[mt][j], af[mt].big, bf.small);
+#pragma unroll
+          for (int mt = 0; mt < kMT; ++mt)
+            tf32x3::mma(acc[mt][j], af[mt].big, bf.big);
+        }
+      }
+    }
+
+    // ---- y over the ring, then a thread a (subset, column) -------------
+    tf32x3::cp_async_wait<0>();           // only empty groups are left
+    __syncthreads();                      // every warp done with the ring
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int c = (wn + L::kWN * j) * 8 + 2 * t;
+      if (c >= nc8) continue;
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt) {
+        float* row = ys + ((wm * kMT + mt) * 16 + g) * kYS + c;
+        const float* v = acc[mt][j];
+        *reinterpret_cast<float2*>(row) = make_float2(v[0], v[1]);
+        *reinterpret_cast<float2*>(row + 8 * kYS) = make_float2(v[2], v[3]);
+      }
+    }
+    __syncthreads();
+    if (multi) {                          // a running max across tiles
+      const int rows = min(R, p.K - it * R);
+      for (int c = tid; c < ft; c += kThreads) {
+        float m = pool[c];
+        for (int r = 0; r < rows; ++r)
+          if (rowlive[r]) m = fmaxf(m, ys[r * kYS + c]);
+        pool[c] = m;
+      }
+    } else {
+      for (int e = tid; e < p.spt * ft; e += kThreads) {
+        const int sl = e / ft, c = e % ft;
+        if (sub0 + sl >= p.bs) continue;
+        float m = -kBig;
+        for (int k = 0; k < p.K; ++k) {
+          const int r = sl * Kp + k;
+          if (rowlive[r]) m = fmaxf(m, ys[r * kYS + c]);
+        }
+        p.out[(sub0 + sl) * p.F + f0 + c] =
+            anyl[sl] ? m + __ldg(p.b + f0 + c) : 0.f;
+      }
+    }
+  }
+  if (multi) {
+    __syncthreads();
+    for (int c = tid; c < ft; c += kThreads)
+      p.out[sub0 * p.F + f0 + c] = anyl[0] ? pool[c] + __ldg(p.b + f0 + c)
+                                           : 0.f;
+  }
+}
+
+size_t smem_bytes(int R, int spt) {
+  return sizeof(float) * smem_floats(R, spt);
+}
+
+// Subsets a tile of R rows
+int subsets(int K, int R) { return K <= R ? R / (K > 0 ? K : 1) : 1; }
+
+// Row tiles a launch at R rows takes: row-tile groups x F tiles
+long long blocks(long long bs, int K, int F, int R) {
+  return (bs + subsets(K, R) - 1) / subsets(K, R) * ((F + kBN - 1) / kBN);
+}
+
+// The heuristic's rows per tile: 64 where 128-row tiles would give fewer
+// than two blocks an SM, else 128
+int row_tile(long long bs, int K, int F, int sms) {
+  return blocks(bs, K, F, 128) < (long long)kBlocksPerSM * sms ? 64 : 128;
+}
+
+LinParams make(const float* raw, const float* ctr, const uint8_t* mask,
+               const float* w, const float* b, float* out, long long bs,
+               int K, int D, int Dc, int F, int R) {
+  LinParams p{raw, ctr, mask, w, b, out, bs, K, D, Dc, F};
+  p.spt = subsets(K, R);
+  p.n_tiles = K <= R ? 1 : (K + R - 1) / R;
+  p.Dp = (D + 7) & ~7;
+  p.nk = (p.Dp + kBK - 1) / kBK;
+  p.x_vec = D % 4 == 0 && reinterpret_cast<uintptr_t>(raw) % 16 == 0;
+  p.w_vec = F % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  p.c_vec = Dc % 4 == 0 && reinterpret_cast<uintptr_t>(ctr) % 16 == 0;
+  return p;
+}
+
+template <class L>
+int launch(const LinParams& p, void* stream) {
+  const size_t smem = smem_bytes(L::kR, p.spt);
+  cudaError_t err = cudaFuncSetAttribute(
+      gather_mlp_linear_kernel<L>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)((p.bs + p.spt - 1) / p.spt),
+                  (p.F + kBN - 1) / kBN);
+  gather_mlp_linear_kernel<L><<<grid, kThreads, smem,
+                                (cudaStream_t)stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace linear
+
 // The shape fields of p from K, D and H: K padded to 16, D and H to 8,
 // and the x/h row stride
 void set_shape(Params& p) {
@@ -937,27 +1275,38 @@ Params make_params(const float* raw, const float* ctr, const uint8_t* mask,
 namespace {
 
 // How a call launches under the knobs: rows (0 = the heuristic; 64 or 128
-// force the narrow route's row tile) and nsplit (0 = make_plan's; 1 to the
-// number of 32-column H chunks force the wide route's H split).  Each
-// knob acts on its own route and is ignored on the other.  Returns 0, or
-// an error for a knob out of range and, where strict, for a forced row
-// tile whose shared memory overflows a block's (the heuristic drops 128
-// rows to 64 there instead).  l.smem is the launch's shared memory either
-// way.
+// force the narrow or the linear route's row tile) and nsplit (0 =
+// make_plan's; 1 to the number of 32-column H chunks force the wide
+// route's H split).  Each knob acts on its own routes and is ignored on
+// the others.  Returns 0, or an error for a knob out of range and, where
+// strict, for a forced narrow row tile whose shared memory overflows a
+// block's (the heuristic drops 128 rows to 64 there instead).  l.smem is
+// the launch's shared memory either way.
+enum Route { kNarrow = 0, kWide = 1, kLinear = 2 };
+
 struct Launch {
-  bool wide;
-  int R;                   // rows per tile (narrow)
+  int route;               // Route
+  int R;                   // rows per tile (narrow, linear)
   wide::Plan w;            // (wide)
   size_t smem;             // bytes a block
 };
+
+int route_of(const Params& p) {
+  return p.H == 0 ? kLinear : narrow_fits(p) ? kNarrow : kWide;
+}
 
 int plan_launch(Params& p, int B, int S, int rows, int nsplit, bool strict,
                 Launch& l) {
   constexpr int big = Layout<4>::kR, small = Layout<2>::kR;
   if ((rows != 0 && rows != small && rows != big) || nsplit < 0)
     return (int)cudaErrorInvalidValue;
-  l.wide = !narrow_fits(p);
-  if (l.wide) {
+  l.route = route_of(p);
+  if (l.route == kLinear) {
+    l.R = rows ? rows : linear::row_tile(p.bs, p.K, p.F, sm_count());
+    l.smem = linear::smem_bytes(l.R, linear::subsets(p.K, l.R));
+    return 0;
+  }
+  if (l.route == kWide) {
     if (nsplit > (p.H + wide::kHC - 1) / wide::kHC)
       return (int)cudaErrorInvalidValue;
     l.w = wide::make_plan(p, sm_count(), nsplit);
@@ -977,9 +1326,11 @@ int plan_launch(Params& p, int B, int S, int rows, int nsplit, bool strict,
 
 }  // namespace
 
-// scratch: gather_mlp_scratch_bytes of device memory (the wide route's
-// partial y where it splits H; null where that is 0); rows and nsplit as
-// plan_launch takes them (0, 0 = the heuristic's launch)
+// H = 0 means one layer: y = x w1 + b1, F = w1's columns, w2 and b2
+// unused (the linear route).  scratch: gather_mlp_scratch_bytes of device
+// memory (the wide route's partial y where it splits H; null where that
+// is 0); rows and nsplit as plan_launch takes them (0, 0 = the
+// heuristic's launch)
 extern "C" int gather_mlp_forward(const float* raw, const float* ctr,
                                   const uint8_t* mask, const float* w1,
                                   const float* b1, const float* w2,
@@ -991,7 +1342,13 @@ extern "C" int gather_mlp_forward(const float* raw, const float* ctr,
   Launch l;
   const int code = plan_launch(p, B, S, rows, nsplit, true, l);
   if (code) return code;
-  if (l.wide) return wide::launch(l.w, scratch, stream);
+  if (l.route == kLinear) {
+    const linear::LinParams q = linear::make(raw, ctr, mask, w1, b1, out,
+                                             p.bs, K, D, Dc, F, l.R);
+    return l.R == Layout<4>::kR ? linear::launch<Layout<4>>(q, stream)
+                                : linear::launch<Layout<2>>(q, stream);
+  }
+  if (l.route == kWide) return wide::launch(l.w, scratch, stream);
   const long long grid = (p.bs + p.spt - 1) / p.spt;
   return l.R == Layout<4>::kR
              ? launch<Layout<4>>(p, l.smem, grid, stream)
@@ -999,12 +1356,13 @@ extern "C" int gather_mlp_forward(const float* raw, const float* ctr,
 }
 
 // The route a shape takes: 0 the narrow one (h whole), 1 the wide one (y
-// in registers, h in chunks).  Every shape has one.
+// in registers, h in chunks), 2 the linear one (H = 0: one layer).  Every
+// shape has one.
 extern "C" int gather_mlp_route(int K, int D, int Dc, int H, int F) {
   const Params p = make_params(nullptr, nullptr, nullptr, nullptr, nullptr,
                                nullptr, nullptr, nullptr, 1, 1, K, D, Dc, H,
                                F);
-  return narrow_fits(p) ? 0 : 1;
+  return route_of(p);
 }
 
 // Bytes of shared memory a block of the call takes under the knobs (a
@@ -1019,16 +1377,17 @@ extern "C" long long gather_mlp_smem_bytes(int B, int S, int K, int D,
   return (long long)l.smem;
 }
 
-// Rows per tile the narrow route takes under the knob rows (64 or 128;
-// the heuristic's where rows is 0); 0 where the call takes the wide route,
-// -1 where the knobs are out of range or a forced tile overflows
+// Rows per tile the narrow or the linear route takes under the knob rows
+// (64 or 128; the heuristic's where rows is 0); 0 where the call takes the
+// wide route, -1 where the knobs are out of range or a forced narrow tile
+// overflows
 extern "C" int gather_mlp_rows(int B, int S, int K, int D, int Dc, int H,
                                int F, int rows) {
   Params p = make_params(nullptr, nullptr, nullptr, nullptr, nullptr,
                          nullptr, nullptr, nullptr, B, S, K, D, Dc, H, F);
   Launch l;
   if (plan_launch(p, B, S, rows, 0, true, l)) return -1;
-  return l.wide ? 0 : l.R;
+  return l.route == kWide ? 0 : l.R;
 }
 
 // Bytes of device scratch gather_mlp_forward needs for the call
@@ -1038,22 +1397,23 @@ extern "C" long long gather_mlp_scratch_bytes(int B, int S, int K, int D,
   Params p = make_params(nullptr, nullptr, nullptr, nullptr, nullptr,
                          nullptr, nullptr, nullptr, B, S, K, D, Dc, H, F);
   Launch l;
-  if (plan_launch(p, B, S, 0, nsplit, true, l) || !l.wide) return 0;
+  if (plan_launch(p, B, S, 0, nsplit, true, l) || l.route != kWide)
+    return 0;
   return (long long)wide::scratch_bytes(l.w);
 }
 
 // The wide route's plan for a call on the current device under the knob
 // nsplit, into out[8]: x resident (1) or streamed (0), output columns a
 // block, F tiles, H splits, H chunks a split, subsets a tile, row-tile
-// groups, shared memory bytes; out[0] = -1 where the call takes the
-// narrow route or nsplit is out of range
+// groups, shared memory bytes; out[0] = -1 where the call takes another
+// route or nsplit is out of range
 extern "C" void gather_mlp_wide_plan(int B, int S, int K, int D, int Dc,
                                      int H, int F, int nsplit,
                                      long long* out) {
   Params p = make_params(nullptr, nullptr, nullptr, nullptr, nullptr,
                          nullptr, nullptr, nullptr, B, S, K, D, Dc, H, F);
   Launch l;
-  if (plan_launch(p, B, S, 0, nsplit, true, l) || !l.wide) {
+  if (plan_launch(p, B, S, 0, nsplit, true, l) || l.route != kWide) {
     out[0] = -1;
     return;
   }

@@ -74,7 +74,8 @@ def structure_report(spec: PCNSpec, structs) -> WorkloadReport | None:
 @dataclass(frozen=True)
 class EngineCtx:
     """Per-call execution context.  ``kernel_kw`` holds the FC kernels'
-    launch knobs (``rows``: gather_mlp's narrow row tile, 64 or 128;
+    launch knobs (``rows``: gather_mlp's narrow or linear row tile, 64 or
+    128;
     ``nsplit``: its wide route's H split; ``chunk``: hub_reuse's cache
     rows a resident launch, 64 or 128; each acts only on the calls of its
     route), over the tile-plan store and the
@@ -103,7 +104,8 @@ class EngineCtx:
             raise ValueError(
                 f"kernel_kw {tpu}: TPU tile knobs of the JAX package; the "
                 f"CUDA kernels take {sorted(EngineCtx.KERNEL_KW_KEYS)} "
-                f"(rows: gather_mlp's narrow row tile, nsplit: its wide "
+                f"(rows: gather_mlp's narrow or linear row tile, nsplit: "
+                f"its wide "
                 f"route's H split, chunk: hub_reuse's cache rows a "
                 f"resident launch)")
         unknown = sorted(set(kernel_kw) - EngineCtx.KERNEL_KW_KEYS)

@@ -4,26 +4,31 @@ the hand-written kernels (on CPU tensors, through their plain versions).
   dense  -> kernels/gather_mlp   fused normalize → MLP → max over K
   reuse  -> kernels/hub_reuse    pool MLP → reuse gather → Δ-comp → max
 
-Both kernels are fixed two-layer (W1, relu, W2) pipelines.  General
-point-MLPs are lowered to that form exactly:
+The dense dataflow hands gather_mlp one linear map or two layers
+(:func:`dense_form`):
 
-  * ``block_end`` (all layers linear): compose every layer into ONE linear
-    map, then embed it as relu(x·[W,−W]+[b,−b])·[I;−I] — exact, because
-    relu(a) − relu(−a) = a.
-  * ``per_layer`` with 2 layers: direct; with 1 layer: the split-sign
-    embedding.
+  * ``block_end`` (all layers linear): every layer composed into ONE
+    linear map (W, b), which gather_mlp's ``linear`` route computes in
+    one product; ``per_layer`` with 1 layer likewise.
+  * ``per_layer`` with 2 layers: the kernel's two-layer (W1, relu, W2)
+    form, directly.
   * ``per_layer`` with more than 2 layers: the leading layers run as a
     plain PyTorch prologue (the cheap narrow layers, left to
     ``torch.matmul`` as the JAX package leaves them to XLA); the last two
     run fused in the kernel.
 
+hub_reuse is a fixed two-layer pipeline, and the reuse dataflow lowers
+every point-MLP to that form exactly (:func:`two_layer_form`): the one
+linear map above embedded as relu(x·[W,−W]+[b,−b])·[I;−I] — exact,
+because relu(a) − relu(−a) = a — and the prologue as above.
+
 Each dataflow is ONE kernel launch for the whole batch of clouds (one a
 cloud under ``"cuda_per_cloud"``, the A/B counterpart of the JAX
 package's ``"pallas_vmap"``).  ``kernel_kw`` (the engine's ``{"rows",
 "nsplit", "chunk"}``) reaches each launch whose route its knob acts on:
-``rows`` gather_mlp's narrow route, ``nsplit`` its wide one, ``chunk``
-hub_reuse.  A knob is left out of the launches of the other route, and
-raises where its value does not fit the launch.
+``rows`` gather_mlp's narrow and linear routes, ``nsplit`` its wide one,
+``chunk`` hub_reuse.  A knob is left out of the launches of the other
+routes, and raises where its value does not fit the launch.
 """
 from __future__ import annotations
 
@@ -45,18 +50,26 @@ def _split_sign(w, b):
             torch.cat([eye, -eye], dim=0), torch.zeros_like(b))
 
 
+def _one_map(mlp: MLP):
+    """(w, b) of ``mlp`` where it is one linear map (``block_end``: every
+    layer composed; ``per_layer`` with one layer), else None."""
+    layers = mlp.layers
+    if mlp.activation != "block_end" and len(layers) != 1:
+        return None
+    w, b = layers[0].w, layers[0].b
+    for layer in layers[1:]:
+        b = b @ layer.w + layer.b
+        w = w @ layer.w
+    return w, b
+
+
 def two_layer_form(mlp: MLP):
     """(prologue | None, (w1, b1, w2, b2)): ``mlp`` in the kernels' fixed
     relu-sandwich form; the prologue (if any) runs before the kernel."""
     layers = mlp.layers
-    if mlp.activation == "block_end":
-        w, b = layers[0].w, layers[0].b
-        for layer in layers[1:]:
-            b = b @ layer.w + layer.b
-            w = w @ layer.w
-        return None, _split_sign(w, b)
-    if len(layers) == 1:
-        return None, _split_sign(layers[0].w, layers[0].b)
+    one = _one_map(mlp)
+    if one is not None:
+        return None, _split_sign(*one)
     if len(layers) == 2:
         return None, (layers[0].w, layers[0].b, layers[1].w, layers[1].b)
 
@@ -69,24 +82,40 @@ def two_layer_form(mlp: MLP):
                       layers[-1].b)
 
 
+def dense_form(mlp: MLP):
+    """(prologue | None, weights): ``mlp`` as gather_mlp takes it, the
+    weights (w, b) of its ``linear`` route where ``mlp`` is one linear map,
+    else :func:`two_layer_form`'s (w1, b1, w2, b2)."""
+    one = _one_map(mlp)
+    return (None, one) if one is not None else two_layer_form(mlp)
+
+
 def _dense_weights(mlp: MLP):
     """The gather_mlp weights; on the prologue path W1 gains a zero row for
     the zero center lane :func:`_dense_raw_ctr` prepends (the kernel
     subtracts at least one center lane)."""
-    prologue, (w1, b1, w2, b2) = two_layer_form(mlp)
+    prologue, (w1, *rest) = dense_form(mlp)
     if prologue is not None:
         w1 = torch.cat([w1.new_zeros((1, w1.shape[1])), w1], dim=0)
-    return prologue, (w1, b1, w2, b2)
+    return prologue, (w1, *rest)
+
+
+def _widths(weights) -> tuple:
+    """(H, F) of gather_mlp's weights: H = 0 for one layer (w, b)."""
+    if len(weights) == 2:
+        return 0, weights[0].shape[1]
+    return weights[0].shape[1], weights[2].shape[1]
 
 
 def dense_shape(kind: str, k: int, mlp: MLP) -> tuple:
     """(K, D, Dc, H, F) of the gather_mlp launch that the dense dataflow
     of a block of ``kind`` with k neighbors and point-MLP ``mlp`` makes
-    (:func:`_dense_raw_ctr` gives raw (…, K, D) and centers (…, Dc))."""
-    prologue, (w1, _, w2, _) = _dense_weights(mlp)
-    d = w1.shape[0]
+    (:func:`_dense_raw_ctr` gives raw (…, K, D) and centers (…, Dc)); H is
+    0 where the launch takes one layer (the linear route)."""
+    prologue, weights = _dense_weights(mlp)
+    d = weights[0].shape[0]
     dc = 1 if prologue is not None else 3 if kind == "sa" else d
-    return k, d, dc, w1.shape[1], w2.shape[1]
+    return (k, d, dc, *_widths(weights))
 
 
 def _dense_raw_ctr(prologue, kind, xyz, feats, nbr_idx, centers_xyz,
@@ -124,9 +153,9 @@ def _dense_cuda(mlp: MLP, kind, xyz, feats, nbr_idx, centers_xyz,
     kw = {}
     if kernel_kw:
         way = tiling.route(raw.shape[-2], raw.shape[-1], ctr.shape[-1],
-                           weights[0].shape[1], weights[2].shape[1])
-        kw = _route_knobs(kernel_kw, ("rows",) if way == "narrow"
-                          else ("nsplit",))
+                           *_widths(weights))
+        kw = _route_knobs(kernel_kw, ("nsplit",) if way == "wide"
+                          else ("rows",))
     return gather_mlp(raw, ctr, *weights, mask=nbr_valid, variant=variant,
                       **kw)
 

@@ -2,7 +2,8 @@
 
 The two FC dataflows of the PCN main path:
 
-  gather_mlp       fused normalize → 2-layer MLP → max over K (dense path)
+  gather_mlp       fused normalize → 2-layer MLP or one layer → max over K
+                   (dense path)
   hub_reuse        pool MLP → compensated reuse gather → max over K (islands)
 
 and three entry points of their own (no call site in the engine):

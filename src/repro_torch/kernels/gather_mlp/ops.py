@@ -2,16 +2,20 @@
 on the tensor cores).
 
 A CPU tensor takes the plain PyTorch version (:func:`gather_mlp_ref`); a
-CUDA tensor launches the kernel or raises.  The kernel has two routes
-(:func:`route`): ``"narrow"`` keeps a row tile's h whole in shared memory,
-``"wide"`` keeps y in registers and h in 32-column chunks where whole h
-does not fit (:func:`wide_plan`: how it tiles a call).
+CUDA tensor launches the kernel or raises.  The kernel has three routes
+(:func:`route`): for two layers, ``"narrow"`` keeps a row tile's h whole
+in shared memory, ``"wide"`` keeps y in registers and h in 32-column
+chunks where whole h does not fit (:func:`wide_plan`: how it tiles a
+call); a one-layer call (``w2`` None: y = x·W + b, which the plans key as
+h = 0) takes ``"linear"``, one product streamed over D
+(:func:`linear_plan`).
 
 Each call resolves its plan (:func:`plan`) before the CPU/CUDA split, so
 a CPU forward records the same cells: an explicit knob (``rows`` on the
-narrow route, ``nsplit`` on the wide one, ``variant``) over a hit in the
-tile-plan store (``repro_torch.kernels.plans``) over the heuristic.  A
-``"per_cloud"`` plan launches the kernel once per cloud, at B = 1.
+narrow and linear routes, ``nsplit`` on the wide one, ``variant``) over a
+hit in the tile-plan store (``repro_torch.kernels.plans``) over the
+heuristic.  A ``"per_cloud"`` plan launches the kernel once per cloud, at
+B = 1.
 """
 from __future__ import annotations
 
@@ -22,7 +26,8 @@ import torch
 
 from .. import _build, plans, tiling
 from ..tiling import (MAX_SMEM, ROUTES, SMEM_SM,  # noqa: F401
-                      WIDE_BLOCKS_PER_SM, route, wide_plan)
+                      WIDE_BLOCKS_PER_SM, linear_plan, route,
+                      wide_plan)
 from .ref import gather_mlp_ref
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -62,8 +67,8 @@ def library_plan(b: int, s: int, k: int, d: int, dc: int, h: int,
                  f: int, nsplit: int = 0) -> dict | None:
     """The wide route's plan the built kernel reports for the call on the
     current CUDA device under the knob ``nsplit`` (0 = its own), the
-    card's answer to :func:`wide_plan`; None where the call takes the
-    narrow route."""
+    card's answer to :func:`wide_plan`; None where the call takes
+    another route."""
     out = (ctypes.c_longlong * len(PLAN))()
     _lib().gather_mlp_wide_plan(b, s, k, d, dc, h, f, nsplit, out)
     return None if out[0] < 0 else dict(zip(PLAN, out))
@@ -94,12 +99,12 @@ def plan(b: int, s: int, k: int, d: int, dc: int, h: int, f: int, device,
          rows: int | None = None, nsplit: int | None = None,
          variant: str | None = None) -> dict:
     """The plan a call of b clouds of s subsets of k points (widths d, dc,
-    h, f) on ``device`` launches: ``route``, ``variant`` ("batched" or
-    "per_cloud"), ``provenance`` ("override" where a knob or ``variant``
-    is given, "autotuned" for a store hit, else "heuristic"), and the
-    route's knob: ``rows`` (narrow) or ``nsplit`` (wide), the library's
-    own where the heuristic sets it on a card, None where it does on the
-    CPU.  A given knob that does not fit raises ``ValueError``; a store
+    h, f; h = 0 for one layer) on ``device`` launches: ``route``,
+    ``variant`` ("batched" or "per_cloud"), ``provenance`` ("override"
+    where a knob or ``variant`` is given, "autotuned" for a store hit,
+    else "heuristic"), and the route's knob: ``rows`` (narrow, linear) or
+    ``nsplit`` (wide), the library's own where the heuristic sets it on a
+    card, None where it does on the CPU.  A given knob that does not fit raises ``ValueError``; a store
     entry that does not fit warns and the heuristic plans the call.
     Memoised per call shape until the store changes."""
     return _resolved((b, s, k, d, dc, h, f, torch.device(device), rows,
@@ -153,7 +158,7 @@ def _resolve(b, s, k, d, dc, h, f, device, rows, nsplit, variant):
     if device.type == "cuda":
         lib = _lib()
         bb = 1 if variant == "per_cloud" else b
-        if way == "narrow":
+        if way != "wide":
             out["rows"] = lib.gather_mlp_rows(bb, s, k, d, dc, h, f, r_arg)
         else:
             out["nsplit"] = library_plan(bb, s, k, d, dc, h, f,
@@ -163,23 +168,30 @@ def _resolve(b, s, k, d, dc, h, f, device, rows, nsplit, variant):
     return out, r_arg, n_arg, scratch
 
 
-def gather_mlp(raw, centers, w1, b1, w2, b2, mask=None, *, rows=None,
-               nsplit=None, variant=None):
-    """Fused normalize → 2-layer MLP → max over K.
+def gather_mlp(raw, centers, w1, b1, w2=None, b2=None, mask=None, *,
+               rows=None, nsplit=None, variant=None):
+    """Fused normalize → 2-layer MLP (or one layer) → max over K.
 
     raw (B, S, K, D) or (S, K, D); centers (…, S, Dc) subtracted from the
-    leading Dc lanes of raw; w1 (D, H), b1 (H,), w2 (H, F), b2 (F,);
-    mask (…, S, K) bool marks live positions (None = all), and a subset
-    with none live gives a zero row.  ``rows`` (64 or 128, narrow route),
-    ``nsplit`` (wide route) and ``variant`` ("batched", "per_cloud")
-    force the plan (:func:`plan`).  -> (…, S, F) float32."""
+    leading Dc lanes of raw; w1 (D, H), b1 (H,), w2 (H, F), b2 (F,), or
+    with ``w2`` and ``b2`` None one layer: w1 (D, F), b1 (F,), y = x·w1 +
+    b1 (the linear route); mask (…, S, K) bool marks live positions (None
+    = all), and a subset with none live gives a zero row.  ``rows`` (64
+    or 128, narrow and linear routes), ``nsplit`` (wide route) and
+    ``variant`` ("batched", "per_cloud") force the plan (:func:`plan`).
+    -> (…, S, F) float32."""
     _build.refuse_dtensor("gather_mlp", (raw, centers, w1, b1, w2, b2, mask))
     if raw.device.type not in ("cpu", "cuda"):
         raise ValueError(f"gather_mlp: unsupported device {raw.device}")
+    if (w2 is None) != (b2 is None):
+        raise ValueError("gather_mlp: w2 and b2 are given together (two "
+                         "layers) or both None (one layer)")
     single = raw.dim() == 3
     s, k, d = raw.shape[-3:]
     b = 1 if single else raw.shape[0]
-    dc, hdim, fout = centers.shape[-1], w1.shape[1], w2.shape[1]
+    dc = centers.shape[-1]
+    hdim, fout = (0, w1.shape[1]) if w2 is None else (w1.shape[1],
+                                                      w2.shape[1])
     pl, r_arg, n_arg, nbytes = _resolved((b, s, k, d, dc, hdim, fout,
                                           raw.device, rows, nsplit, variant))
     if plans.capturing():
@@ -194,8 +206,9 @@ def gather_mlp(raw, centers, w1, b1, w2, b2, mask=None, *, rows=None,
         mask = None if mask is None else mask[None]
     if mask is not None and mask.dtype != torch.bool:
         mask = mask != 0
-    expect = {"centers": (b, s, dc), "w1": (d, hdim), "b1": (hdim,),
-              "w2": (hdim, fout), "b2": (fout,), "mask": (b, s, k)}
+    expect = {"centers": (b, s, dc), "w1": (d, hdim or fout),
+              "b1": (hdim or fout,), "w2": (hdim, fout), "b2": (fout,),
+              "mask": (b, s, k)}
     ops = {"raw": raw, "centers": centers, "w1": w1, "b1": b1, "w2": w2,
            "b2": b2, "mask": mask}
     for arg, shape in expect.items():
@@ -214,8 +227,9 @@ def gather_mlp(raw, centers, w1, b1, w2, b2, mask=None, *, rows=None,
             scratch = torch.empty(nbytes, dtype=torch.uint8,
                                   device=raw.device)
         stream = torch._C._cuda_getCurrentRawStream(raw.device.index)
-        weights = (w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-                   b2.data_ptr())
+        weights = (w1.data_ptr(), b1.data_ptr(),
+                   None if w2 is None else w2.data_ptr(),
+                   None if b2 is None else b2.data_ptr())
         scratch_ptr = None if scratch is None else scratch.data_ptr()
         # one launch for the batch, or one a cloud at the clouds' offsets
         # (every operand is contiguous, the batch its leading axis)

@@ -6,15 +6,17 @@ import torch
 BIG = 3.4e38
 
 
-def gather_mlp_ref(raw, centers, w1, b1, w2, b2, mask=None):
+def gather_mlp_ref(raw, centers, w1, b1, w2=None, b2=None, mask=None):
     """raw (…, S, K, D), centers (…, S, Dc) subtracted from the leading Dc
-    lanes; relu(x·W1 + b1)·W2 + b2; max over K.  -> (…, S, F).  ``mask``
-    (…, S, K) marks live positions (None = all); a row with none live is
-    zero."""
+    lanes; relu(x·W1 + b1)·W2 + b2, or x·W1 + b1 where ``w2`` and ``b2``
+    are None (one layer); max over K.  -> (…, S, F).  ``mask`` (…, S, K)
+    marks live positions (None = all); a row with none live is zero."""
     dc = centers.shape[-1]
     x = torch.cat([raw[..., :dc] - centers[..., None, :], raw[..., dc:]],
                   dim=-1)
-    y = torch.relu(x @ w1 + b1) @ w2 + b2
+    y = x @ w1 + b1
+    if w2 is not None:
+        y = torch.relu(y) @ w2 + b2
     if mask is None:
         return y.amax(-2)
     live = mask != 0

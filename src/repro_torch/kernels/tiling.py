@@ -12,7 +12,13 @@ plan sets, per kernel and route:
   gather_mlp, route ``narrow``  ``rows``    the row tile, 64 or 128
   gather_mlp, route ``wide``    ``nsplit``  H's 32-column chunks split
                                             across blocks, 1 to ⌈H/32⌉
+  gather_mlp, route ``linear``  ``rows``    the row tile, 64 or 128
   hub_reuse, route ``resident`` ``chunk``   cache rows a launch, 64 or 128
+
+gather_mlp's route follows from the widths alone (:func:`route`): a call
+with no hidden layer (H = 0, one product) takes ``linear``; a two-layer
+call ``narrow`` where a 64-row tile's x and whole h fit a block, else
+``wide``.
 
 hub_reuse has two routes, fixed by the call's widths and the card's SM
 count (:func:`hub_reuse_route`): ``resident`` stages an island's x and
@@ -24,7 +30,8 @@ the second with H split where its tiles are few, the gather; its plan,
 :func:`hub_reuse_layered_plan`, depends on the SM count too).
 
 The formulas mirror the kernels' own (``smem_bytes`` and
-``wide::make_plan`` in ``gather_mlp.cu``, ``smem_bytes``,
+``wide::make_plan`` and ``linear::smem_floats`` in ``gather_mlp.cu``,
+``smem_bytes``,
 ``layered_route`` and ``layered::plan`` in ``hub_reuse.cu``); each
 library also answers for itself (``gather_mlp_smem_bytes``,
 ``hub_reuse_smem_bytes``, ``hub_reuse_plan``), which ``chip_smoke.py``
@@ -39,7 +46,7 @@ NARROW_BLOCKS_PER_SM = 2   # what the narrow row tile aims at (kBlocksPerSM)
 ROWS = (64, 128)           # the narrow route's row tiles
 CHUNKS = (64, 128)         # hub_reuse's cache rows a resident launch
 H_CHUNK = 32               # the wide route's columns of h a chunk
-ROUTES = ("narrow", "wide")
+ROUTES = ("narrow", "wide", "linear")   # gather_mlp_route's 0, 1, 2
 H100_SMS = 132             # the SM count planned for off the card
 LAYERED_TILE = 64          # the layered route's GEMM tiles, 64 x 64
 GATHER_SUBSETS = 16        # the layered gather's subsets a block
@@ -49,7 +56,10 @@ GATHER_SUBSETS = 16        # the layered gather's subsets a block
 LAYERED_SMEM = 4 * 3 * (64 * 72 + 64 * 68)
 #: the knobs of each kernel's plans, and the route each acts on
 KNOBS = {"gather_mlp": ("rows", "nsplit"), "hub_reuse": ("chunk",)}
-KNOB_ROUTE = {"rows": "narrow", "nsplit": "wide", "chunk": "resident"}
+KNOB_ROUTES = {"rows": ("narrow", "linear"), "nsplit": ("wide",),
+               "chunk": ("resident",)}
+LINEAR_COLS = 128          # the linear route's output columns a block
+LINEAR_STAGES = 2          # the linear route's ring stages (kStages)
 
 
 def round_up(n: int, m: int) -> int:
@@ -79,10 +89,47 @@ def narrow_smem(rows: int, k: int, d: int, dc: int, h: int, f: int) -> int:
 
 def route(k: int, d: int, dc: int, h: int, f: int) -> str:
     """The route gather_mlp takes for subsets of k points of width d,
-    centers of width dc, hidden width h and output width f: ``"narrow"``
-    where a 64-row tile's x and whole h fit, else ``"wide"``, which takes
-    any shape."""
+    centers of width dc, hidden width h and output width f: ``"linear"``
+    where h is 0 (one layer, whatever the widths); for two layers
+    ``"narrow"`` where a 64-row tile's x and whole h fit, else ``"wide"``,
+    which takes any shape."""
+    if h == 0:
+        return "linear"
     return "narrow" if narrow_smem(64, k, d, dc, h, f) <= MAX_SMEM else "wide"
+
+
+def linear_smem(rows: int, spt: int) -> int:
+    """Bytes of shared memory a block of the linear route takes at a row
+    tile of ``rows`` holding ``spt`` subsets (``gather_mlp.cu``:
+    ``linear::smem_floats``): the row tables, the running max, and a ring
+    of ``LINEAR_STAGES`` stages of a 32-deep x slice and the subsets'
+    centers (row stride 40) and W slice (row stride 132), which y (row
+    stride 136) overlays at the end.  Any D and F: 78,720 B at 128 rows
+    of K = 20, 56,192 at 64 rows of K = 32."""
+    ring = LINEAR_STAGES * ((rows + spt) * 40 + 32 * 132)
+    return 4 * (3 * rows + LINEAR_COLS + max(ring, rows * (LINEAR_COLS + 8)))
+
+
+def linear_plan(b: int, s: int, k: int, f: int, sms: int,
+                rows: int = 0) -> dict:
+    """How the linear route tiles a call of b·s subsets of k points with
+    f outputs on a card of ``sms`` SMs (``gather_mlp.cu``: ``linear::``):
+    ``rows`` a tile (the knob where given, else 128, or 64 where 128-row
+    tiles times the F tiles would give fewer than two blocks an SM),
+    whole subsets packed k rows apart (``spt`` a tile; one subset over
+    ``n_tiles`` tiles where k passes the tile), ``groups`` row-tile
+    groups by ``nft`` 128-column F tiles, ``smem`` bytes a block."""
+    def spt_of(r):
+        return r // max(k, 1) if k <= r else 1
+
+    nft = -(-f // LINEAR_COLS)
+    if not rows:
+        rows = 64 if (-(-(b * s) // spt_of(128)) * nft
+                      < NARROW_BLOCKS_PER_SM * sms) else 128
+    spt = spt_of(rows)
+    return dict(rows=rows, spt=spt, n_tiles=-(-k // rows) if k > rows else 1,
+                groups=-(-(b * s) // spt), nft=nft,
+                smem=linear_smem(rows, spt))
 
 
 def row_tile(b: int, s: int, k: int, sms: int) -> int:
@@ -153,7 +200,10 @@ def gather_mlp_smem(b, s, k, d, dc, h, f, sms: int, rows: int = 0,
     """Bytes of shared memory a block of the gather_mlp call takes under
     the knobs (0 = the heuristic's; a forced row tile's even where it
     overflows), as ``gather_mlp_smem_bytes`` answers."""
-    if route(k, d, dc, h, f) == "wide":
+    way = route(k, d, dc, h, f)
+    if way == "linear":
+        return linear_plan(b, s, k, f, sms, rows)["smem"]
+    if way == "wide":
         return wide_plan(b, s, k, d, dc, h, f, sms, nsplit)["smem"]
     return narrow_smem(narrow_rows(b, s, k, d, dc, h, f, sms, rows), k, d,
                        dc, h, f)
@@ -253,7 +303,8 @@ def hub_reuse_layered_plan(b: int, hn: int, c: int, h: int, f: int,
 
 def knobs_of(kernel: str, dims: dict, sms: int = H100_SMS) -> tuple:
     """The knobs that act on the call ``dims`` describes: ``("rows",)``
-    on gather_mlp's narrow route, ``("nsplit",)`` on its wide one,
+    on gather_mlp's narrow and linear routes, ``("nsplit",)`` on its wide
+    one,
     ``("chunk",)`` on hub_reuse's resident route, none on its layered
     one (on a card of ``sms`` SMs, an H100's by default)."""
     if kernel == "hub_reuse":
@@ -261,7 +312,7 @@ def knobs_of(kernel: str, dims: dict, sms: int = H100_SMS) -> tuple:
                                                   "d", "f")), sms)
         return ("chunk",) if way == "resident" else ()
     way = route(dims["k"], dims["d"], dims["dc"], dims["h"], dims["f"])
-    return ("rows",) if way == "narrow" else ("nsplit",)
+    return ("nsplit",) if way == "wide" else ("rows",)
 
 
 def infeasible(kernel: str, dims: dict, knobs: dict,
@@ -269,7 +320,7 @@ def infeasible(kernel: str, dims: dict, knobs: dict,
     """Why the knobs of a plan do not fit the call ``dims`` describes
     on a card of ``sms`` SMs (None where they do).  ``knobs`` holds the
     plan's knob fields only (empty = the heuristic's launch); a knob of
-    the other route does not fit."""
+    another route does not fit."""
     if kernel not in KNOBS:
         return f"unknown kernel {kernel!r}"
     for name, v in knobs.items():
@@ -280,11 +331,14 @@ def infeasible(kernel: str, dims: dict, knobs: dict,
         if name not in knobs_of(kernel, dims, sms):
             why = (f" ({_layered_reason(*(dims[n] for n in 'cmkd'))})"
                    if kernel == "hub_reuse" else "")
-            return (f"{name!r} acts on {kernel}'s {KNOB_ROUTE[name]} "
-                    f"route and this call takes the other one{why}")
+            return (f"{name!r} acts on {kernel}'s "
+                    f"{' and '.join(KNOB_ROUTES[name])} route and this "
+                    f"call takes another one{why}")
         if name == "rows":
             if v not in ROWS:
                 return f"'rows' must be one of {ROWS}, got {v}"
+            if dims["h"] == 0:               # linear: any D fits
+                continue
             smem = narrow_smem(v, dims["k"], dims["d"], dims["dc"],
                                dims["h"], dims["f"])
             if smem > MAX_SMEM:

@@ -65,7 +65,11 @@ def heuristic_knobs(kernel: str, dims: dict, sms: int) -> dict:
         return {"chunk": tiling.hub_reuse_chunk(
             *(dims[n] for n in ("c", "m", "k", "d")))}
     shape = [dims[n] for n in ("b", "s", "k", "d", "dc", "h", "f")]
-    if tiling.knobs_of(kernel, dims) == ("rows",):
+    way = tiling.route(*shape[2:])
+    if way == "linear":
+        return {"rows": tiling.linear_plan(*shape[:3], shape[-1], sms)
+                ["rows"]}
+    if way == "narrow":
         return {"rows": tiling.narrow_rows(*shape, sms)}
     return {"nsplit": tiling.wide_plan(*shape, sms)["nsplit"]}
 
@@ -127,8 +131,11 @@ def synth_cell_args(kernel: str, dims: dict, seed: int = 0, device=None):
         return torch.randn(shape, generator=g, device=dev) * scale
 
     b, d, h, f = dims["b"], dims["d"], dims["h"], dims["f"]
-    weights = (r(d, h, scale=(2 / d) ** .5), r(h, scale=.1),
-               r(h, f, scale=(2 / h) ** .5), r(f, scale=.1))
+    if h == 0:                  # gather_mlp's one layer (linear route)
+        weights = (r(d, f, scale=(2 / d) ** .5), r(f, scale=.1))
+    else:
+        weights = (r(d, h, scale=(2 / d) ** .5), r(h, scale=.1),
+                   r(h, f, scale=(2 / h) ** .5), r(f, scale=.1))
     if kernel == "gather_mlp":
         s, k = dims["s"], dims["k"]
         mask = torch.rand((b, s, k), generator=g, device=dev) < 0.8

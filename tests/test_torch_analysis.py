@@ -41,10 +41,12 @@ torch.set_num_threads(1)
 SMS = 132                # an H100 SXM's, for planning off the card
 BIG = 3.4e38
 # cells: narrow (pointnet2's reduced first block), wide (H split 8 ways),
-# hub_reuse resident (two chunks when forced to 64 rows), the entry
-# kernels at the targets' widths
+# linear (one layer: dgcnn_c's block-4 widths, K = 20 packed, three F
+# tiles), hub_reuse resident (two chunks when forced to 64 rows), the
+# entry kernels at the targets' widths
 NARROW = dict(b=3, s=48, k=8, d=6, dc=3, h=16, f=32)
 WIDE = dict(b=2, s=8, k=20, d=256, dc=256, h=512, f=256)
+LINEAR = dict(b=3, s=48, k=20, d=256, dc=256, h=0, f=300)
 HUB = dict(b=2, hn=4, c=128, m=4, k=4, d=6, h=8, f=16)
 KNN = dict(s=64, n=1024, k=300)
 FLASH = dict(b=2, hq=4, hkv=2, sq=64, skv=64, d=64)
@@ -87,7 +89,12 @@ CLEAN = [("gather_mlp", NARROW, {}),
          ("flash_attention", FLASH, dict(dtype="bfloat16", aligned=True)),
          ("flash_attention", dict(FLASH, d=256), dict(dtype="bfloat16")),
          ("ssd_chunk", SSD, {}), ("ssd_chunk", dict(SSD, q=128, p=64,
-                                                    s=128), {})]
+                                                    s=128), {}),
+         ("gather_mlp", LINEAR, {}),
+         ("gather_mlp", LINEAR, dict(provenance="override", rows=128)),
+         ("gather_mlp", LINEAR, dict(provenance="override",
+                                     variant="per_cloud")),
+         ("gather_mlp", dict(LINEAR, k=200, d=700), {})]
 
 
 @pytest.mark.parametrize("kernel,dims,plan", CLEAN,
@@ -154,6 +161,30 @@ def test_k003_grid_misses_the_last_row():
     launched = _site("gather_mlp", dict(NARROW, b=64, s=512), rows=64)
     assert launched.launch["rows"] == 128
     assert _rules(check_kernel_site(launched)) == {"K003"}
+
+
+def test_linear_site_from_tiling():
+    """The linear route's launch from tiling.py: a row-tile group by
+    128-column F tile grid, the rows knob the plan launched held to the
+    derived one (K003), a row tile off 64 / 128 refused (K002), the row
+    tiles of a subset past the tile covering it (K003)."""
+    site = _site("gather_mlp", LINEAR)
+    lp = tiling.linear_plan(3, 48, 20, 300, SMS)
+    assert site.launch == dict(route="linear", **lp)
+    assert site.grid == (1, lp["groups"], 3) and site.smem == lp["smem"]
+    assert check_kernel_site(site) == []
+    launched = _site("gather_mlp", LINEAR, rows=128)
+    assert launched.launch["rows"] == 64
+    assert _rules(check_kernel_site(launched)) == {"K003"}
+    odd = _site("gather_mlp", LINEAR, provenance="override", rows=96)
+    assert "K002" in _rules(check_kernel_site(odd))
+    long = _site("gather_mlp", dict(LINEAR, k=200))
+    assert long.launch["rows"] == 128 and long.launch["n_tiles"] == 2
+    assert check_kernel_site(long) == []
+    gap = dataclasses.replace(long, coverage=[("1 row tile of 128 covers "
+                                               "a subset's 200 rows",
+                                               False)])
+    assert _rules(check_kernel_site(gap)) == {"K003"}
 
 
 def test_k004_resident_operand_must_cover():

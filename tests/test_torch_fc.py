@@ -351,9 +351,10 @@ def test_tf32x3_keeps_the_kernel_tolerance(blk):
     assert err[1] > 1e-4 * lim, err
 
 
-# gather_mlp's kernel shapes (K, D, Dc, H, F) that keep h whole, and the
-# blocks that need the wide route: the widest of dgcnn_c, pointnext_s and
-# pointvector_l, whose one-layer MLPs lower to Hd = 2F
+# the blocks whose two-layer form takes the wide route: the widest of
+# dgcnn_c, pointnext_s and pointvector_l, as (K, D, Dc, H, F) of their
+# one-layer MLPs embedded split-sign (H = 2F), the form the engine lowered
+# them to before the linear route (it now gives them H = 0)
 WIDE_BLOCKS = {("dgcnn_c", 4): (20, 256, 256, 512, 256),
                ("pointnext_s", 3): (32, 131, 3, 512, 256),
                ("pointnext_s", 4): (32, 259, 3, 1024, 512),
@@ -363,22 +364,33 @@ WIDE_BLOCKS = {("dgcnn_c", 4): (20, 256, 256, 512, 256),
 
 
 def test_gather_mlp_route_follows_shared_memory():
-    """The wrapper's route, from the kernel's shared-memory formulas: the
-    narrow route (h whole) at every block of every model but the
-    six of ``WIDE_BLOCKS``, which take the wide route, at the shapes the
-    engine's lowering gives them; past every 64-row tile's room (D = 4000)
-    the wide route too, which takes any D by streaming x in slices."""
+    """The wrapper's route at the shapes the engine's lowering gives every
+    block of every model: the linear route (H = 0, one layer) at every
+    block whose MLP is one linear map, the narrow route (h whole, from the
+    kernel's shared-memory formulas) at every two-layer block, the wide
+    route at none.  The six ``WIDE_BLOCKS`` in their split-sign two-layer
+    form still take the wide route, and so does a two-layer call past
+    every 64-row tile's room (D = 4000), which it takes by streaming x in
+    slices."""
     from repro_torch.engine import init
     from repro_torch.kernels.gather_mlp.ops import route
     from repro_torch.models import MODEL_ZOO
-    seen = {}
+    seen, one_map = {}, set()
     for name, (_, spec) in MODEL_ZOO.items():
         params = init(spec, device="cpu")
         for i, (b, mlp) in enumerate(zip(spec.blocks, params.blocks), 1):
             seen[name, i] = fc.dense_shape(b.kind, b.k, mlp)
-    wide = {key: shp for key, shp in seen.items()
-            if route(*shp) == "wide"}
-    assert wide == WIDE_BLOCKS
+            if mlp.activation == "block_end" or len(mlp.layers) == 1:
+                one_map.add((name, i))
+    routes = {key: route(*shp) for key, shp in seen.items()}
+    assert "wide" not in routes.values()
+    assert {key for key, way in routes.items() if way == "linear"} == \
+        one_map == {key for key, shp in seen.items() if shp[3] == 0}
+    assert all(way == "narrow" for key, way in routes.items()
+               if key not in one_map)
+    for key, (k, d, dc, h, f) in WIDE_BLOCKS.items():
+        assert seen[key] == (k, d, dc, 0, f) and h == 2 * f
+        assert route(k, d, dc, h, f) == "wide"
     assert seen["pointnet2_c", 1] == (32, 65, 1, 64, 128)
     assert seen["pointnet2_c", 2] == (64, 129, 1, 128, 256)
     assert route(32, 4000, 3, 512, 256) == "wide"
@@ -536,6 +548,15 @@ def test_kernels_match_plain_versions_on_card():
         assert LAUNCHES[f"gather_mlp_{way}"] == before + 7
     assert tilings == {64, 128}, tilings
     assert routes == {"narrow", "wide"}, routes
+    # the same shapes' one-layer calls take the linear route
+    for b, s, k, d, dc, h, f in CARD_DENSE[:3] + CARD_WIDE[:3]:
+        raw, ctr = r(b, s, k, d), r(b, s, dc)
+        w, bias = r(d, f, scale=(2 / d) ** .5), r(f, scale=.1)
+        before = LAUNCHES["gather_mlp_linear"]
+        got = gather_mlp(raw, ctr, w, bias)
+        torch.testing.assert_close(got, gather_mlp_ref(raw, ctr, w, bias),
+                                   rtol=1e-4, atol=1e-4)
+        assert LAUNCHES["gather_mlp_linear"] == before + 1
     for b, hn, c, m, k, d, h, f in CARD_REUSE:
         pool, comp = r(b, hn, c, d), r(b, hn, m, f)
         w1, b1 = r(d, h, scale=(2 / d) ** .5), r(h, scale=.1)

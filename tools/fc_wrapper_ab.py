@@ -3,7 +3,7 @@
 in turns.
 
     python3 tools/fc_wrapper_ab.py --against DIR [--seed N] [--iters N]
-                                   [--rounds N] [--cache-x4]
+                                   [--rounds N] [--cache-x4 | --families]
 
 ``DIR`` is another checkout's root (e.g. a parent commit unpacked with
 ``git archive``).  Saves chip_smoke.py's gather_mlp and hub_reuse calls
@@ -23,7 +23,11 @@ the families phase's batch and seeded weights, from each tree's own
 chip_smoke.py): its ``breakdown`` (host-clock ms of stage 1, the FC
 stage and the tail, each ended by a device sync, best of 5) and the
 device time of its hub_reuse kernels a forward (torch.profiler, 3
-forwards).  Needs one CUDA device.
+forwards).  ``--families`` times likewise each tree's lpcn forward of
+the four one-layer families and of pointnet2_s at the families phase's
+batch (``FAMILIES``, default cache size): its ``breakdown`` and the
+device time and count of its gather_mlp kernels a forward, by kernel
+name (torch.profiler, 3 forwards).  Needs one CUDA device.
 """
 from __future__ import annotations
 
@@ -90,6 +94,43 @@ for name in cs.CACHE_X4_FAMILIES:
                       "hub_reuse_device_ms": sum(hub) / 3 / 1e3,
                       "hub_reuse_kernels": len(hub) / 3}))
 """
+# the child of --families: gather_mlp's device time a forward, by kernel
+CHILD_FAMILIES = r"""
+import collections, json, re, torch
+import chip_smoke as cs
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+from repro_torch.engine import PCNEngine
+from repro_torch.models import MODEL_ZOO
+dev = torch.device("cuda")
+for name in ("dgcnn_c", "dgcnn_s", "pointnext_s", "pointvector_l",
+             "pointnet2_s"):
+    spec = MODEL_ZOO[name][1]
+    b, n = cs.FAMILIES[name]
+    eng = PCNEngine(spec, mode="lpcn", fc_backend="cuda")
+    params = cs.seed_biases(eng.init(seed=0), torch.Generator().manual_seed(1))
+    batch, _ = cs.family_batch(spec, b, n, 0, dev)
+    eng.apply(params, batch)
+    ms = cs.breakdown(params, spec, batch, repeats=5)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            eng.apply(params, batch)
+        torch.cuda.synchronize()
+    by = collections.defaultdict(float)
+    count = collections.Counter()
+    for e in prof.events():
+        kind = re.search(r"gather_mlp\w*", e.name)
+        if e.device_type == DeviceType.CUDA and kind:
+            kind = kind.group(0)
+            by[kind] += e.device_time / 3 / 1e3
+            count[kind] += 1
+    print(json.dumps({"call": name, "b": b, "n": n, **ms,
+                      "gather_mlp_device_ms": sum(by.values()),
+                      "gather_mlp_by_kernel_ms": dict(by),
+                      "gather_mlp_kernels": {k: v / 3 for k, v in
+                                             count.items()}}))
+"""
 
 
 def main() -> int:
@@ -101,6 +142,9 @@ def main() -> int:
     ap.add_argument("--rounds", type=int, default=1)
     ap.add_argument("--cache-x4", action="store_true",
                     help="the CACHE_X4_FAMILIES forwards, not the FC calls")
+    ap.add_argument("--families", action="store_true",
+                    help="the one-layer families' forwards: gather_mlp's "
+                         "device time a forward")
     args = ap.parse_args()
 
     sys.path[:0] = [str(ROOT), str(ROOT / "src")]
@@ -133,6 +177,7 @@ def main() -> int:
         env = {**os.environ, "PYTHONPATH": str(trees[tree] / "src"),
                "REPRO_TORCH_TILE_PLANS": str(ROOT / "build" / "no_plans")}
         argv = (["-c", CHILD_X4] if args.cache_x4 else
+                ["-c", CHILD_FAMILIES] if args.families else
                 ["-c", CHILD, str(path), str(args.iters)])
         out = subprocess.run([sys.executable, *argv], env=env, check=True,
                              capture_output=True, text=True,

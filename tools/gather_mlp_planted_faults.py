@@ -10,7 +10,10 @@ runs each through ``repro_torch.kernels.gather_mlp`` at the shapes of the
 route it breaks: the narrow route at both PointNet++(c) block shapes of
 chip_smoke.py (B = 8, masked, with all-dead subsets), the wide route at
 chip_smoke.py's ``DENSE_WIDE`` (the six blocks that take it) and
-``WIDE_D`` (D = 700, x streamed), and prints
+``WIDE_D`` (D = 700, x streamed), the linear route at chip_smoke.py's
+``DENSE_LINEAR`` and at ``LINEAR_EDGE`` (F = 100: an F tile that ends
+inside an n8 tile), each fault where it applies (an ignored mask on
+the masked shapes only), and prints
 one JSON line per (fault, block): max |Δ| against ``gather_mlp_ref``
 beside chip_smoke.py's limit 1e-4 · max(1, max|plain|).  The unchanged
 sources run at every shape.  Exits 1 if they break the limit or a fault
@@ -29,8 +32,9 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(ROOT), str(ROOT / "src")]
 
 # name -> ([(file, text, its replacement), ...], the routes it is run
-# on: "wide_unsplit" the wide route's shapes where H is not split); each
-# text occurs once in its file
+# on: "wide_unsplit" the wide route's shapes where H is not split,
+# "linear_masked" the linear route's masked shapes, "linear_edge"
+# LINEAR_EDGE); each text occurs once in its file
 FAULTS = {
     # 1xTF32: the two small products dropped
     "one_tf32_pass": ([("tf32x3.cuh",
@@ -42,7 +46,10 @@ FAULTS = {
                                 "gemm<L>(acc, hs, p.XH, p.Hp - kKC,")],
                               ("narrow",)),
     # every row live: the mask is not read
-    "mask_ignored": ([("gather_mlp.cu", "p.mask == nullptr ||", "true ||")],
+    "mask_ignored": ([("gather_mlp.cu",
+                       "(p.mask == nullptr ||\n                      "
+                       "p.mask[(size_t)",
+                       "(true ||\n                      p.mask[(size_t)")],
                      ("narrow",)),
     # the last subset of each row tile keeps the -3.4e38 identity
     "last_subset_unpooled": ([("gather_mlp.cu", "e < spt * nc;",
@@ -71,8 +78,35 @@ FAULTS = {
                                     "  p.n1 = (p.Dp + p.dc - 1) / p.dc;",
                                     "  p.n1 = (p.Dp - 1) / p.dc;")],
                                   ("wide",)),
+    # linear route: the last center lane not staged, so not subtracted
+    "linear_center_lane_dropped": ([("gather_mlp.cu",
+                                     "if (p.c_vec && ok && d < p.Dc) {",
+                                     "if (p.c_vec && ok && d + 4 < p.Dc) {"),
+                                    ("gather_mlp.cu",
+                                     "if (ok && d + i < p.Dc) tf32x3::",
+                                     "if (ok && d + i < p.Dc - 1) tf32x3::")],
+                                   ("linear",)),
+    # linear route: every valid row live, the mask not read
+    "linear_mask_ignored": ([("gather_mlp.cu",
+                              "const bool lv = valid && (p.mask == nullptr "
+                              "|| p.mask[row0 + r] != 0);",
+                              "const bool lv = valid;")],
+                            ("linear_masked",)),
+    # linear route: b not added to the pooled max
+    "linear_bias_missing": ([("gather_mlp.cu",
+                              "anyl[sl] ? m + __ldg(p.b + f0 + c) : 0.f;",
+                              "anyl[sl] ? m : 0.f;")], ("linear",)),
+    # linear route: an F tile's columns past its last whole n8 tile not
+    # computed (its edge rounded down, not up, to 8)
+    "linear_f_tile_edge": ([("gather_mlp.cu",
+                             "  const int nc8 = (ft + 7) & ~7;\n\n",
+                             "  const int nc8 = ft & ~7;\n\n")],
+                           ("linear_edge",)),
 }
 FILES = ("gather_mlp.cu", "tf32x3.cuh")
+# an F tile that ends inside an n8 tile (F = 100), masked, K = 20 packed
+LINEAR_EDGE = {"linear_edge": dict(b=2, s=64, k=20, d=35, dc=3, h=0, f=100,
+                                   masked=True)}
 
 
 def build(sources: dict, out_dir: Path, with_logs: bool = False):
@@ -139,6 +173,8 @@ def main() -> int:
               for blk, shp in chip_smoke.DENSE.items()]
     shapes += [("wide", blk, shp) for blk, shp in
                {**chip_smoke.DENSE_WIDE, **chip_smoke.WIDE_D}.items()]
+    shapes += [("linear", blk, shp) for blk, shp in
+               {**chip_smoke.DENSE_LINEAR, **LINEAR_EDGE}.items()]
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     unsplit = {blk: wide_plan(shp["b"], shp["s"], shp["k"], shp["d"],
                               shp["dc"], shp["h"], shp["f"],
@@ -152,9 +188,12 @@ def main() -> int:
         ref = gather_mlp_ref(*ops, mask=mask)
         for name, so in libs.items():
             routes = FAULTS[name][1] if name != "none" else ()
-            if name != "none" and way not in routes and not (
-                    "wide_unsplit" in routes and way == "wide"
-                    and unsplit[blk]):
+            tags = {way, *(("wide_unsplit",) if way == "wide"
+                           and unsplit[blk] else ()),
+                    *(("linear_masked",) if way == "linear"
+                      and shp["masked"] else ()),
+                    *(("linear_edge",) if blk in LINEAR_EDGE else ())}
+            if name != "none" and not tags & set(routes):
                 continue
             lib = ctypes.CDLL(str(so))
             _declare(lib)

@@ -2,7 +2,8 @@
 """Time text variants of the gather_mlp kernel side by side.
 
     python3 tools/gather_mlp_variants.py [--seed N] [--iters N]
-        [--narrow] [--only committed,one_pass,...] [--against DIR]
+        [--narrow | --linear] [--only committed,one_pass,...]
+        [--against DIR]
 
 Builds copies of ``src/repro_torch/csrc/gather_mlp.cu`` and
 ``tf32x3.cuh`` with one edit each (under ``build/repro_torch/variants/``;
@@ -11,7 +12,12 @@ directly (no Python wrapper) and times all variants in turns with CUDA
 events, beside the committed kernel called through the wrapper
 (``wrapper``: the host's share).  By default at the wide route's shapes
 (chip_smoke.py's ``DENSE_WIDE`` and ``WIDE_D``), with ``--narrow`` at
-the narrow route's block shapes, batched (B = 8) and per cloud (B = 1).
+the narrow route's block shapes, batched (B = 8) and per cloud (B = 1),
+with ``--linear`` at every one-layer block of the zoo at chip_smoke.py's
+``FAMILIES`` batches (the engine's lowering gives each one linear map)
+and at ``DENSE_LINEAR``'s D = 700: the committed sources are called with
+(W, b) and H = 0, ``--against``'s with the split-sign two-layer weights
+(x·[W, −W] + [b, −b], relu, [I; −I], 0) the parent's lowering made.
 Prints ptxas's registers and spills per variant and one JSON line per
 (variant, shape): ms and max |Δ| against the plain version.  Most
 variants compute a wrong result or take a worse path on purpose: each
@@ -21,7 +27,8 @@ time shows that part's worth; the others are alternatives the kernel
 does not take.  ``--only`` keeps the named variants; ``--against DIR``
 adds the sources of another tree (``gather_mlp.cu`` and ``tf32x3.cuh``
 in DIR, e.g. a parent commit's ``src/repro_torch/csrc``) as the variant
-``against``, timed in the same turns (called with its own signature).
+``against``, timed in the same turns (called with its own signature;
+in ``--linear`` mode with the two-layer weights).
 Needs one CUDA device.
 """
 from __future__ import annotations
@@ -37,12 +44,38 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(ROOT), str(ROOT / "src"), str(ROOT / "tools")]
 
 SMALL = "  mma(c, a.small, b.big);\n  mma(c, a.big, b.small);\n"
-# name -> (the route whose shapes it runs on, [(file, text, replacement),
-# ...]); each text occurs once
+# name -> (the route whose shapes it runs on, "all" for every route,
+# [(file, text, replacement), ...]); each text occurs once
 VARIANTS = {
-    "committed": ("both", []),
-    # 1xTF32: what the two small products cost
-    "one_pass": ("both", [("tf32x3.cuh", SMALL, "")]),
+    "committed": ("all", []),
+    # 1xTF32: what the two small products cost (mma3's; the linear route's
+    # waves keep their three products)
+    "one_pass": ("all", [("tf32x3.cuh", SMALL, "")]),
+    # ---- the linear route ------------------------------------------------
+    # a three-stage ring (two stages in flight)
+    "lin_three_stages": ("linear", [("gather_mlp.cu",
+                                     "constexpr int kStages = 2;",
+                                     "constexpr int kStages = 3;")]),
+    # 64-row tiles at every size
+    "lin_rows64": ("linear", [("gather_mlp.cu",
+                               "  return blocks(bs, K, F, 128) < (long long)"
+                               "kBlocksPerSM * sms ? 64 : 128;",
+                               "  return 64;")]),
+    # the centers neither staged nor subtracted: what centering costs
+    "lin_no_center": ("linear", [("gather_mlp.cu",
+                                  "      if (d0 >= p.Dc) return;\n"
+                                  "      for (int e = tid; e < p.spt",
+                                  "      return;\n"
+                                  "      for (int e = tid; e < p.spt"),
+                                 ("gather_mlp.cu",
+                                  "const bool centered = q * kBK < p.Dc;",
+                                  "const bool centered = false;")]),
+    # y not pooled: what the epilogue's max costs
+    "lin_no_pool": ("linear", [("gather_mlp.cu",
+                                "      for (int e = tid; e < p.spt * ft; "
+                                "e += kThreads) {",
+                                "      for (int e = tid; e < 0; "
+                                "e += kThreads) {")]),
     # ---- the wide route --------------------------------------------------
     # layer 1 once per 64-column F tile, as the PR 18 route did
     "recompute": ("wide", [("gather_mlp.cu",
@@ -56,11 +89,11 @@ VARIANTS = {
     "one_block": ("wide", [("gather_mlp.cu", "constexpr int kBlocks = 2;",
                             "constexpr int kBlocks = 1;")]),
     # H never split: small grids leave SMs idle
-    "no_split": ("wide", [("gather_mlp.cu", "  if (blocks < sms) {",
-                           "  if (false) {")]),
+    "no_split": ("wide", [("gather_mlp.cu", "} else if (blocks < sms) {",
+                           "} else if (false) {")]),
     # H split only where the blocks would fill at most half the SMs
-    "split_half": ("wide", [("gather_mlp.cu", "  if (blocks < sms) {",
-                             "  if (2 * blocks <= sms) {")]),
+    "split_half": ("wide", [("gather_mlp.cu", "} else if (blocks < sms) {",
+                             "} else if (2 * blocks <= sms) {")]),
     # x always streamed in slices beside W1, never resident
     "stream_x": ("wide", [("gather_mlp.cu",
                            "  if (smem_bytes(p) > (size_t)kBudget) {",
@@ -106,8 +139,8 @@ VARIANTS = {
                                 "loads in flight (rolled: spills)\n", "")]),
     # the centers not subtracted: what the per-thread fix-up costs
     "no_center": ("wide", [("gather_mlp.cu",
-                            "    if (d0 >= p.Dc) return;",
-                            "    return;")]),
+                            "    if (d0 >= p.Dc) return;\n#pragma unroll 4",
+                            "    return;\n#pragma unroll 4")]),
     # ---- the narrow route ------------------------------------------------
     # x left as it was: what staging the raw rows costs
     "no_raw": ("narrow", [("gather_mlp.cu",
@@ -168,12 +201,45 @@ def forward(lib, dev):
     return bind
 
 
+def split_sign(w, b):
+    """(w1, b1, w2, b2) of x·w + b as the parent's lowering embedded it:
+    relu(x·[w, −w] + [b, −b])·[I; −I] + 0."""
+    import torch
+    eye = torch.eye(w.shape[1], dtype=w.dtype, device=w.device)
+    return (torch.cat([w, -w], 1), torch.cat([b, -b]),
+            torch.cat([eye, -eye], 0), torch.zeros_like(b))
+
+
+def one_layer_blocks() -> dict:
+    """Every one-layer block of the zoo at chip_smoke.py's ``FAMILIES``
+    batch, as the engine's lowering launches it (``dense_shape``, h = 0),
+    masked as the path calls it (EdgeConv's every block and the SA
+    stacks' first see n_valid)."""
+    import chip_smoke
+    from repro_torch.engine import init
+    from repro_torch.engine.fc import dense_shape
+    from repro_torch.models import MODEL_ZOO
+    out = {}
+    for name, (b, _) in chip_smoke.FAMILIES.items():
+        spec = MODEL_ZOO[name][1]
+        params = init(spec, device="cpu")
+        for i, (blk, mlp) in enumerate(zip(spec.blocks, params.blocks), 1):
+            k, d, dc, h, f = dense_shape(blk.kind, blk.k, mlp)
+            if h == 0:
+                out[f"{name}_blk{i}"] = dict(
+                    b=b, s=blk.n_centers, k=k, d=d, dc=dc, h=0, f=f,
+                    masked=blk.kind == "edge" or i == 1)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--narrow", action="store_true",
                     help="time the narrow route's shapes instead")
+    ap.add_argument("--linear", action="store_true",
+                    help="time the one-layer blocks on the linear route")
     ap.add_argument("--only", default="",
                     help="comma-separated variants to build (default all)")
     ap.add_argument("--against", default="",
@@ -194,12 +260,12 @@ def main() -> int:
                           "--format=csv,noheader"], check=True,
                          capture_output=True, text=True).stdout.strip()
     print(smi.splitlines()[0], flush=True)
-    way = "narrow" if args.narrow else "wide"
+    way = "narrow" if args.narrow else "linear" if args.linear else "wide"
     sound = {f: (_build.CSRC / f).read_text() for f in FILES}
     sources = {}
     only = set(filter(None, args.only.split(",")))
     for name, (route, edits) in VARIANTS.items():
-        if (only and name not in only) or route not in ("both", way):
+        if (only and name not in only) or route not in ("all", way):
             continue
         texts = dict(sound)
         for fname, old, new in edits:
@@ -223,6 +289,9 @@ def main() -> int:
         shapes = {f"{blk}_b{bb}": {"b": bb, **shp}
                   for blk, shp in chip_smoke.DENSE.items()
                   for bb in (chip_smoke.B, 1)}
+    elif args.linear:
+        shapes = {**one_layer_blocks(),
+                  "d700": chip_smoke.DENSE_LINEAR["d700"]}
     else:
         shapes = {**chip_smoke.DENSE_WIDE, **chip_smoke.WIDE_D}
     callers = {name: forward(ctypes.CDLL(str(so)), dev)
@@ -236,11 +305,22 @@ def main() -> int:
                 shp["f"])
         ptrs = [t.data_ptr() if t is not None else None
                 for t in (raw, ctr, mask, w1, b1, w2, b2)]
+        two = None                   # the parent's two-layer form of (W, b)
+        if args.linear:
+            two = [t.contiguous() for t in split_sign(w1, b1)]
+            two_dims = (*dims[:5], 2 * shp["f"], shp["f"])
+            two_ptrs = [raw.data_ptr(), ctr.data_ptr(),
+                        None if mask is None else mask.data_ptr(),
+                        *(t.data_ptr() for t in two)]
         fns = {"wrapper": lambda: gather_mlp(*args_, mask=mask)}
         outs = {"wrapper": None}
         for name, bind in callers.items():
             out = torch.empty_like(ref)
-            fns[name], outs[name] = bind(ptrs, out.data_ptr(), dims), out
+            if two is not None and name == "against":
+                fns[name] = bind(two_ptrs, out.data_ptr(), two_dims)
+            else:
+                fns[name] = bind(ptrs, out.data_ptr(), dims)
+            outs[name] = out
         errs = {}
         for name, fn in list(fns.items()):
             got = fn()
