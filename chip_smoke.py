@@ -33,8 +33,9 @@ Phases, each timed, any failure exits non-zero:
      ``cache_capacity_x = 4`` (``CACHE_X4``: 256 cache rows at block 2,
      the launches each call's plan makes) against the "reference" backend, and
      pointnext_s and pointvector_l (``CACHE_X4_FAMILIES``) likewise at the
-     families phase's batch (block 4: C = 128 rows too wide for a resident
-     block, layered; one launch a call); then the
+     families phase's batch (every hub_reuse launch in the one-layer
+     form; pointvector_l's block 4: C = 128 rows of D = 387 too wide for a
+     resident block, layered; one launch a call); then the
      same batch under each data structuring of ``DS_VARIANTS`` (the
      paper's DS baselines HgPCN, EdgePC and Crescent beside PointACC's,
      the ball query, the random and Morton samplers, FPS hubs): one
@@ -62,12 +63,21 @@ Phases, each timed, any failure exits non-zero:
      and one hub_reuse launch a block; gather_mlp's launches by route
      equal to the routes of the engine's lowering: ``linear`` at every
      block of the one-layer families dgcnn_c, dgcnn_s, pointnext_s and
-     pointvector_l, ``narrow`` at PointNet++'s, ``wide`` at none), every
+     pointvector_l, ``narrow`` at PointNet++'s, ``wide`` at none;
+     hub_reuse's by form likewise: one layer at every block of those
+     four, two at PointNet++'s), every
      logit against the "reference" backend, seg padding rows exactly 0,
      the stages timed; dgcnn_c's stage 1 on the card against the CPU at
      its families batch (the ``all`` sampler and DGCNN's islands, every
      integer field equal); dgcnn_c once in traditional mode (4
-     ``linear`` launches); gather_mlp's linear route against its plain
+     ``linear`` launches); hub_reuse's one-layer form at
+     ``REUSE_LINEAR`` (the families' calls at their batches and
+     pointvector_l's block 4 under ``CACHE_X4``, layered) against its plain
+     version, timed beside it and beside the same block in the split-sign
+     two-layer form, its route, chunk, D splits and shared memory equal in
+     wrapper and library, and the one-layer resident kernels' ptxas
+     spills (0) and TF32 HMMA count (nonzero); gather_mlp's linear route
+     against its plain
      version and timed at ``DENSE_LINEAR`` (the six blocks the wide
      route took before it, one narrow one-layer block and D = 700), its
      row tile and shared memory equal in wrapper and library; the
@@ -210,9 +220,10 @@ Phases, each timed, any failure exits non-zero:
      (``domain_phase``): each driven once with the launch counts reset
      (``domain_drive``: by wrapper and by route), then held against its
      plain version and timed beside it: hub_reuse at ``REUSE_DOMAIN``
-     (pointvector_l's block 4 under ``CACHE_X4`` and D = 700, both on the
-     layered route; route, H splits, scratch and shared memory equal to
-     the library's), ssd_chunk and its backward on the tiled route at
+     (two layers: pointvector_l's block 4 under ``CACHE_X4`` in the
+     split-sign form, which no published spec's block reaches since the
+     one-layer form, and D = 700, both on the layered route; route, H
+     splits, scratch and shared memory equal to the library's), ssd_chunk and its backward on the tiled route at
      ``SSD_TILED`` (Mamba2-2.7B's widths at chunk 256, bs 1 and 2;
      ``ssd_held``, ``ssd_bwd_held``; the plans equal to the analysis's
      formula, each row with the TF32 HMMA count of the tiled kernels,
@@ -255,7 +266,8 @@ bit-equality, shared memory by tiling.py and by the library; the
 heuristic's, the per-cloud and the winner's ms; beside the card's name
 and power limit), ``plan_forward`` lines and ``mesorasi``, a ``family``
 line per model, ``family_structure_card_vs_cpu``, ``wide_parity`` and
-``linear_parity``, an ``lm`` line
+``linear_parity``, ``reuse_linear_parity``, ``hub_reuse_linear_sass``,
+an ``lm`` line
 per LM config (its routes, launches, prefill and decode times, beside the
 card's name and power limit), ``lm_parity``, a ``bwd_kernel`` line per
 backward layer (flash_attention's and ssd_chunk's), a ``train_wiring``
@@ -270,7 +282,8 @@ launches, seconds), ``pcn_card_vs_cpu``, ``pcn_kernels_vs_plain``,
 ``pcn_grad_refusal``, the examples' lines (``example <name>: ...``) and
 ``pcn_examples_s``, a ``kernels`` JSON
 line (every TPU kernel's counterpart: the FC kernels batched and per
-cloud, gather_mlp's wide and linear routes, the entry kernels, and
+cloud, gather_mlp's wide and linear routes, hub_reuse's one-layer form,
+the entry kernels, and
 flash_attention and ssd_chunk at the LM prefills' inputs; ``launches``
 counted per wrapper, in the async serving run for the FC kernels, over
 the families phase's counted forwards for the linear route, in the wide
@@ -280,8 +293,9 @@ entry kernels' rows (``lm_launches`` beside them: the LM phase's counted
 prefills), in the LM phase for its rows, in the full-width training
 runs for ``flash_attention_bwd``'s and ``ssd_chunk_bwd``'s, and in phase
 14's drive for the domain routes' rows (``route_launches`` beside: the
-route's own count; ``cache_x4_launches`` beside pointvector_l's block 4:
-phase 5's forward of that spec);
+route's own count), over the families phase's counted forwards for
+hub_reuse's one-layer rows (their route's one-layer count; phase 5's
+pointvector_l forward for its block 4 under ``CACHE_X4``);
 ``pcn_train_launches`` beside the FC rows: phase 13's full-size run),
 and last
 ``{"ok": true,
@@ -343,8 +357,11 @@ DS_VARIANTS = {"pointacc": ("fps", "pointacc", {}),
                "random": ("random", "pointacc", {}),
                "fractal": ("morton", "edgepc", {}),
                "fps_hubs": ("fps", "pointacc", {"hub_select": "fps"})}
-# parity only, at B = 2: hub_reuse at the other families' widest blocks
-# (two_layer_form doubles Hd for one-layer MLPs; C = 2k cache rows)
+# parity only, at B = 2: hub_reuse's two-layer form at the other
+# families' widest blocks in the split-sign form (two_layer_form: Hd =
+# 2F), which the engine lowered them to before the one-layer form; no
+# published spec's block reaches these widths now (REUSE_LINEAR below
+# holds the calls the engine makes there)
 REUSE_WIDE = {
     "pointnext_s_blk4": dict(hn=4, c=64, m=16, k=32, d=259, h=1024, f=512),
     "pointvector_l_blk3": dict(hn=4, c=64, m=16, k=32, d=195, h=768, f=384),
@@ -379,6 +396,28 @@ DENSE_WIDE = {
 # alone over 227 KB at D above ~600): x streams through the ring in slices
 WIDE_D = {"d700": dict(b=2, s=128, k=32, d=700, dc=3, h=1024, f=512,
                        masked=False)}
+# hub_reuse's one-layer form (h = 0: y = x·W + b, the engine's lowering
+# of every one-layer point-MLP) at the calls the families phase makes,
+# with its batches (dgcnn_s: 8192 points, 256 islands; its blocks 2 and 3
+# share a shape), and pointvector_l's block 4 under CACHE_X4 (C = 128
+# rows of D = 387 pass a resident block: layered)
+REUSE_LINEAR = {
+    "dgcnn_c_blk1": dict(b=8, hn=32, c=40, m=64, k=20, d=6, f=64),
+    "dgcnn_c_blk2": dict(b=8, hn=32, c=40, m=64, k=20, d=128, f=64),
+    "dgcnn_c_blk3": dict(b=8, hn=32, c=40, m=64, k=20, d=128, f=128),
+    "dgcnn_c_blk4": dict(b=8, hn=32, c=40, m=64, k=20, d=256, f=256),
+    "dgcnn_s_blk1": dict(b=1, hn=256, c=40, m=64, k=20, d=12, f=64),
+    "dgcnn_s_blk2": dict(b=1, hn=256, c=40, m=64, k=20, d=128, f=64),
+    "pointnext_s_blk1": dict(b=2, hn=64, c=64, m=64, k=32, d=35, f=64),
+    "pointnext_s_blk2": dict(b=2, hn=16, c=64, m=64, k=32, d=67, f=128),
+    "pointnext_s_blk3": dict(b=2, hn=4, c=64, m=64, k=32, d=131, f=256),
+    "pointnext_s_blk4": dict(b=2, hn=1, c=64, m=64, k=32, d=259, f=512),
+    "pointvector_l_blk1": dict(b=2, hn=64, c=64, m=64, k=32, d=67, f=96),
+    "pointvector_l_blk2": dict(b=2, hn=16, c=64, m=64, k=32, d=99, f=192),
+    "pointvector_l_blk3": dict(b=2, hn=4, c=64, m=64, k=32, d=195, f=384),
+    "pointvector_l_blk4": dict(b=2, hn=1, c=64, m=64, k=32, d=387, f=768),
+    "pointvector_l_blk4_c128": dict(b=2, hn=1, c=128, m=64, k=32, d=387,
+                                    f=768)}
 # gather_mlp's linear route (h = 0: one layer, the engine's lowering of
 # every one-layer point-MLP): the six DENSE_WIDE blocks as the engine
 # launches them since the route exists, one narrow one-layer block
@@ -582,8 +621,11 @@ SERVE_MESH_CUT = ("recurrentgemma-2b", "whisper-large-v3",
 # the families phase's batch
 CACHE_X4_FAMILIES = ("pointnext_s", "pointvector_l")
 # phase 14, the kernels' domain routes (each against its plain version):
-# hub_reuse's layered route at pointvector_l's block 4 under CACHE_X4
-# and at D = 700, at B = 2
+# hub_reuse's layered route in two layers at pointvector_l's block 4
+# under CACHE_X4 in the split-sign form (Hd = 2F, which no published
+# spec's block reaches since the one-layer form: REUSE_LINEAR's
+# pointvector_l_blk4_c128 is the engine's call there) and at D = 700, at
+# B = 2
 REUSE_DOMAIN = {
     "pointvector_l_blk4_c128": dict(hn=1, c=128, m=64, k=32, d=387, h=1536,
                                     f=768),
@@ -655,6 +697,8 @@ def dense_inputs(gen, dev, b, s, k, d, dc, h, f, masked):
 
 
 def reuse_inputs(gen, dev, b, hn, c, m, k, d, h, f):
+    """hub_reuse's operands (pool, slot, comp, w1, b1, w2, b2, live); h =
+    0: one layer, w1 (d, f), b1 (f,), w2 = b2 = None."""
     import torch
     r = lambda *shape, scale=1.0: (torch.randn(shape, generator=gen)
                                    * scale).to(dev)
@@ -662,6 +706,10 @@ def reuse_inputs(gen, dev, b, hn, c, m, k, d, h, f):
                          dtype=torch.int32)
     slot[:, :, ::9] = -1                      # subsets with no cached slot
     live = (torch.rand((b, hn, m, k), generator=gen) < 0.9)
+    if h == 0:
+        return (r(b, hn, c, d), slot.to(dev), r(b, hn, m, f),
+                r(d, f, scale=(2 / d) ** .5), r(f, scale=.1), None, None,
+                live.to(dev))
     return (r(b, hn, c, d), slot.to(dev), r(b, hn, m, f), r(d, h,
             scale=(2 / d) ** .5), r(h, scale=.1), r(h, f,
             scale=(2 / h) ** .5), r(f, scale=.1), live.to(dev))
@@ -1211,17 +1259,34 @@ def route_launches() -> dict:
             for way in GATHER_ROUTES}
 
 
+# hub_reuse's launch counts by route (both forms) and by route and form
+# (one layer)
+REUSE_COUNTS = ("resident", "layered", "resident_linear", "layered_linear")
+
+
+def reuse_form_launches() -> dict:
+    """hub_reuse's launch counts by route and form since the counts were
+    reset (``REUSE_COUNTS``), and ``linear``: its one-layer launches."""
+    from repro_torch import kernels
+    out = {k: kernels.LAUNCHES[f"hub_reuse_{k}"] for k in REUSE_COUNTS}
+    out["linear"] = out["resident_linear"] + out["layered_linear"]
+    return out
+
+
 def families_phase(dev, seed, smi) -> dict:
     """Every other model of the zoo at full width: one ragged lpcn batch
     through ``PCNEngine(spec, fc_backend="cuda")`` with the launch counts
     set to 0 just before and read just after (one gather_mlp and one
     hub_reuse launch a block, gather_mlp's launches by route equal to the
     lowering's routes: ``linear`` at every block of ``ONE_LAYER_FAMILIES``,
-    ``wide`` at none; no entry kernel), every logit against the
-    "reference" backend on the card, seg padding rows exactly 0, and the
-    forward's stages timed; dgcnn_c's stage 1 on the card against the CPU
-    (every integer field equal); then dgcnn_c once in traditional mode.
-    -> gather_mlp's launches by route over the counted forwards."""
+    ``wide`` at none; hub_reuse's by form likewise: one layer at every
+    block of ``ONE_LAYER_FAMILIES``, two at PointNet++'s; no entry
+    kernel), every logit against the "reference" backend on the card, seg
+    padding rows exactly 0, and the forward's stages timed; dgcnn_c's
+    stage 1 on the card against the CPU (every integer field equal); then
+    dgcnn_c once in traditional mode.  -> gather_mlp's launches by route
+    and hub_reuse's one-layer launches by route
+    (``hub_reuse_<route>_linear``) over the counted forwards."""
     import torch
     from repro_torch import kernels
     from repro_torch.engine import PCNEngine
@@ -1229,6 +1294,7 @@ def families_phase(dev, seed, smi) -> dict:
     off_path = ("knn", "flash_attention", "flash_attention_bwd", "ssd_chunk",
                 "ssd_chunk_bwd")
     totals = dict.fromkeys(GATHER_ROUTES, 0)
+    totals.update(hub_reuse_resident_linear=0, hub_reuse_layered_linear=0)
     for name, (b, n) in FAMILIES.items():
         spec = MODEL_ZOO[name][1]
         engine = PCNEngine(spec, mode="lpcn", fc_backend="cuda")
@@ -1245,6 +1311,7 @@ def families_phase(dev, seed, smi) -> dict:
         first_ms = (time.perf_counter() - t0) * 1e3
         launches = kernels.launch_counts()
         by_route = route_launches()
+        forms = reuse_form_launches()
         nb = len(spec.blocks)
         check(launches["gather_mlp"] == launches["hub_reuse"] == nb
               and not any(launches[k] for k in off_path),
@@ -1258,8 +1325,15 @@ def families_phase(dev, seed, smi) -> dict:
               f"{name}: routes {blocks}: the wide route at a published "
               f"block, or the linear route not at every block of exactly "
               f"the one-layer families")
+        one_layer = nb if name in ONE_LAYER_FAMILIES else 0
+        check(forms["linear"] == one_layer,
+              f"{name}: hub_reuse launches by route and form {forms}, "
+              f"expected {one_layer} of one layer and {nb - one_layer} of "
+              f"two")
         for way in GATHER_ROUTES:
             totals[way] += by_route[way]
+        for way in ("resident_linear", "layered_linear"):
+            totals[f"hub_reuse_{way}"] += forms[way]
         seg = spec.task == "seg"
         check(tuple(out.shape) == ((b, n, spec.n_classes) if seg
                                    else (b, spec.n_classes)),
@@ -1280,7 +1354,7 @@ def families_phase(dev, seed, smi) -> dict:
             "stage1_share": stages["structure_ms"] / sum(stages.values()),
             "launches": {k: v for k, v in launches.items() if v},
             "route_blocks": blocks, "route_launches": by_route,
-            "max_abs_err": err, "tol": tol}}))
+            "hub_reuse_forms": forms, "max_abs_err": err, "tol": tol}}))
         if name == "dgcnn_c":
             mismatch = structure_card_vs_cpu(spec, batch)
             log(json.dumps({"family_structure_card_vs_cpu": {
@@ -1452,6 +1526,101 @@ def linear_kernel_rows(dev, seed, launches) -> tuple[list, list]:
     return parity, rows
 
 
+def reuse_linear_rows(dev, seed, totals, x4_launches) -> tuple[list, list]:
+    """hub_reuse's one-layer form at ``REUSE_LINEAR``: the wrapper's route,
+    chunk, shared memory (and on the layered route its D splits and
+    scratch) equal to the library's, the kernel against its plain version
+    (1e-4 · max(1, max|plain|), the -BIG identity exactly) and twice
+    bit-equal, timed in turns beside the plain version and beside the
+    same block in the split-sign two-layer form (relu(x·[W, −W] + [b,
+    −b])·[I; −I], Hd = 2F, which the engine lowered it to before; the
+    same function) through the same wrapper; the bound by the one layer's
+    flops.  -> (parity rows, kernel rows with ``launches``: the families
+    phase's count of the row's route in one layer (``totals``), or at
+    pointvector_l_blk4_c128 phase 5's pointvector_l forward's
+    (``x4_launches``), and the plan)."""
+    import torch
+    from repro_torch.engine.fc import _split_sign
+    from repro_torch.kernels import tiling
+    from repro_torch.kernels.hub_reuse import hub_reuse, hub_reuse_ref
+    from repro_torch.kernels.hub_reuse import ops as hub_ops
+    gen = torch.Generator().manual_seed(seed + 4)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    parity, rows = [], []
+    for blk, shp in REUSE_LINEAR.items():
+        b, hn, c, m, k, d, f = (shp[n] for n in ("b", "hn", "c", "m", "k",
+                                                 "d", "f"))
+        pl = hub_ops.plan(b, hn, c, m, k, d, 0, f, dev)
+        lib = hub_ops.library_plan(b, hn, c, m, k, d, 0, f)
+        ours = dict(route=tiling.hub_reuse_route(b, hn, c, m, k, d, f, sms,
+                                                 h=0), nsplit=0, scratch=0,
+                    smem=tiling.LAYERED_SMEM)
+        if ours["route"] == "layered":
+            lp = tiling.hub_reuse_layered_plan(b, hn, c, 0, f, sms, d)
+            ours.update(nsplit=lp["nsplit"], scratch=lp["scratch"])
+        else:
+            ours["smem"] = tiling.hub_reuse_smem(c, m, k, d, h=0)
+            check(hub_ops.library_smem(c, m, k, d, 0) == ours["smem"]
+                  and pl["chunk"] == tiling.hub_reuse_chunk(c, m, k, d, 0),
+                  f"hub_reuse {blk}: chunk {pl['chunk']} and the library's "
+                  f"shared memory differ from tiling.py's {ours}")
+        check(lib == ours and pl["route"] == ours["route"],
+              f"hub_reuse {blk}: plan {ours} by tiling.py, {lib} by the "
+              f"library, route {pl['route']} by the wrapper")
+        pool, slot, comp, w, bias, _, _, live = reuse_inputs(
+            gen, dev, b, hn, c, m, k, d, 0, f)
+        args = (pool, slot, comp, w, bias)
+        two = (pool, slot, comp, *_split_sign(w, bias))
+        out = hub_reuse(*args, live=live)
+        err, tol = max_err(out, hub_reuse_ref(*args, live=live))
+        same = bool(torch.equal(out, hub_reuse(*args, live=live)))
+        parity.append(dict(name="hub_reuse", block=blk, b=b, masked=True,
+                           form="linear", route=pl["route"],
+                           max_abs_err=err, tol=tol, bit_equal=same))
+        check(err <= tol, f"hub_reuse {blk}: max|err| {err} > {tol}")
+        check(same, f"hub_reuse {blk}: two calls differ")
+        t = time_turns({"plain": lambda: hub_reuse_ref(*args, live=live),
+                        "kernel": lambda: hub_reuse(*args, live=live),
+                        "split_sign": lambda: hub_reuse(*two, live=live)},
+                       iters=10)
+        flops = 2 * b * hn * c * d * f
+        moved = nbytes(*args, live, out)
+        bms, by = bound(3 * flops, moved, PEAK_TF32)
+        launches = (x4_launches[f"hub_reuse_{pl['route']}_linear"]
+                    if blk.endswith("_c128") else
+                    totals[f"hub_reuse_{pl['route']}_linear"])
+        rows.append(dict(
+            name="hub_reuse", block=blk, route="cuda",
+            variant=f"mma_tf32x3_linear_{pl['route']}",
+            tflops=flops / t["kernel"] / 1e9,
+            bound_fp32_ms=bound(flops, moved)[0],
+            source="src/repro_torch/csrc/hub_reuse.cu",
+            replaces="src/repro/kernels/hub_reuse/hub_reuse.py:307",
+            shape=f"B={b} H={hn} C={c} M={m} K={k} D={d} F={f} one layer "
+                  f"live=True",
+            max_abs_err=err, ms=t["kernel"], plain_ms=t["plain"],
+            bound_ms=bms, bound_by=by, library_ms=None, launches=launches,
+            split_sign_ms=t["split_sign"],
+            split_sign_over_ms=t["split_sign"] / t["kernel"],
+            plan=dict(ours, chunk=pl["chunk"])))
+    return parity, rows
+
+
+def linear_sass() -> dict:
+    """The one-layer resident kernels of the built hub_reuse library
+    (``hub_reuse_kernel<L, true>``): each one's registers and spills
+    (ptxas) and its TF32 HMMA count (SASS)."""
+    from repro_torch import kernels
+    out = {}
+    for row in ptxas_kernels(kernels.BUILD_LOG["hub_reuse"]):
+        if "hub_reuse_kernel" in row["kernel"] and "Lb1E" in row["kernel"]:
+            out[row["kernel"]] = dict(
+                registers=row["registers"], spill=row["spill"],
+                hmma_tf32=sass_count("hub_reuse", "HMMA", "TF32",
+                                     within=row["kernel"]))
+    return out
+
+
 def cache_x4_phase(params, batch, seed, dev) -> dict:
     """One pointnet2_c lpcn forward at the paper's Fig. 22 cache size
     (``CACHE_X4``: C = 4k, 256 rows at block 2) with the launch counts set
@@ -1487,8 +1656,10 @@ def x4_family(name, seed, dev) -> dict:
     one ragged batch of the families phase's size through
     ``fc_backend="cuda"``, counted (``counted_forward``: the hub_reuse
     launches each call's plan makes, the layered route where 128 rows
-    pass a block's shared memory), the logits within 1e-4 · max(1, max|ref|) of
-    the "reference" backend.  -> the launch counts."""
+    pass a block's shared memory, every one in the one-layer form), the
+    logits within 1e-4 · max(1, max|ref|) of the "reference" backend.  ->
+    the launch counts, hub_reuse's by route and form among them
+    (``hub_reuse_<route>[_linear]``)."""
     import torch
     from repro_torch.engine import PCNEngine
     from repro_torch.models import MODEL_ZOO
@@ -1501,9 +1672,15 @@ def x4_family(name, seed, dev) -> dict:
                          torch.Generator().manual_seed(seed + 1))
     fam, _ = family_batch(spec, b, n, seed, dev)
     out, launches, cap = counted_forward(eng, params, fam)
-    plans = [dict(c=r["dims"]["c"], d=r["dims"]["d"], route=r["plan"][
-        "route"], chunk=r["plan"]["chunk"]) for r in cap
-        if r["kernel"] == "hub_reuse"]
+    forms = reuse_form_launches()
+    check(forms["linear"] == launches["hub_reuse"],
+          f"cache_x4 {name}: hub_reuse launches by route and form {forms}, "
+          f"expected every one of one layer")
+    launches = {**launches, **{f"hub_reuse_{k}": v
+                               for k, v in forms.items()}}
+    plans = [dict(c=r["dims"]["c"], d=r["dims"]["d"], h=r["dims"]["h"],
+                  route=r["plan"]["route"], chunk=r["plan"]["chunk"])
+             for r in cap if r["kernel"] == "hub_reuse"]
     err, tol = close(out, ref.apply(params, fam))
     log(json.dumps({"cache_x4": {"spec": name, "b": b, "n": n,
                                  "isl_kw": CACHE_X4, "hub_reuse": plans,
@@ -4182,6 +4359,12 @@ def main() -> int:
         hmma = sass_count(name, "HMMA", "TF32")
         log(f"sass {name}: {hmma} HMMA TF32 instructions")
         check(hmma > 0, f"the {name} library has no TF32 HMMA (mma.sync)")
+    one_layer = linear_sass()
+    log(json.dumps({"hub_reuse_linear_sass": one_layer}))
+    check(len(one_layer) == 2 and all(
+        r["spill"] == 0 and r["hmma_tf32"] > 0 for r in one_layer.values()),
+          f"hub_reuse's one-layer resident kernels (both row tiles): "
+          f"{one_layer}, expected no spill and TF32 HMMA in each")
 
     t = time.perf_counter()
     parity, rows, per_cloud = kernel_phase(dev, args.seed)
@@ -4272,12 +4455,15 @@ def main() -> int:
                                               family_routes["wide"])
     linear_parity, linear_rows = linear_kernel_rows(
         dev, args.seed, family_routes["linear"])
+    reuse_parity, reuse_rows = reuse_linear_rows(
+        dev, args.seed, family_routes, x4_families["pointvector_l"])
     phases["route_kernels_s"] = time.perf_counter() - t
     log(f"families_s {phases['families_s']:.2f}; gather_mlp launches by "
-        f"route {family_routes}; route_kernels_s "
-        f"{phases['route_kernels_s']:.2f}")
+        f"route and hub_reuse's one-layer ones {family_routes}; "
+        f"route_kernels_s {phases['route_kernels_s']:.2f}")
     log(json.dumps({"wide_parity": wide_parity}))
     log(json.dumps({"linear_parity": linear_parity}))
+    log(json.dumps({"reuse_linear_parity": reuse_parity}))
     phases["seg_cli_s"] = cli_phase(smi.splitlines()[0], SEG_CLI)
 
     # ---- entry kernels: knn, flash_attention, ssd_chunk -----------------
@@ -4357,12 +4543,8 @@ def main() -> int:
         row["launches"] = lm_launches[row["name"]]
     for row in train_rows:
         row["launches"] = train_launches[row["name"]]
-    for row in domain_rows:           # the block phase 5 runs published
-        if row["block"] == "pointvector_l_blk4_c128":
-            row["cache_x4_launches"] = x4_families["pointvector_l"][
-                "hub_reuse"]
-    rows += (wide_rows + linear_rows + entry_rows + lm_rows + train_rows
-             + domain_rows)
+    rows += (wide_rows + linear_rows + reuse_rows + entry_rows + lm_rows
+             + train_rows + domain_rows)
     for row in rows:
         if row["name"] in pcn_launches:
             row["pcn_train_launches"] = pcn_launches[row["name"]]

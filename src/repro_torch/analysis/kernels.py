@@ -408,15 +408,17 @@ def _hub_reuse_site(dims, plan, where, sms, card):
                                                  "d", "h", "f"))
     per_cloud = plan.get("variant") == "per_cloud"
     nb, bb = (b, 1) if per_cloud else (1, b)
-    route = tiling.hub_reuse_route(bb, hn, c, m, k, d, f, sms)
+    route = tiling.hub_reuse_route(bb, hn, c, m, k, d, f, sms, h=h)
     nf = -(-f // 64)
     mismatch = ([] if plan.get("route") in (None, route) else
                 [f"route {plan['route']} launched, {route} derived"])
     if route == "layered":
-        # three kernels a call: layer 1, layer 2 (H split), the gather,
-        # whose grid (islands x subset tiles, feature tiles) the site
-        # holds; nothing stages the slot table
-        lp = tiling.hub_reuse_layered_plan(bb, hn, c, h, f, sms)
+        # three kernels a call in two layers: layer 1, layer 2 (H split),
+        # the gather; two in one (h = 0): x·W (D split), the gather.  The
+        # site holds the gather's grid (islands x subset tiles, feature
+        # tiles); nothing stages the slot table
+        lp = tiling.hub_reuse_layered_plan(bb, hn, c, h, f, sms, d)
+        depth, what = (d, "x·W's") if h == 0 else (h, "layer 2's")
         mt = -(-m // tiling.GATHER_SUBSETS)
         site = KernelSite(
             "hub_reuse", where, dims, plan,
@@ -430,9 +432,9 @@ def _hub_reuse_site(dims, plan, where, sms, card):
             operands=[OperandInfo("slot table", (m, k), (1, 32), False)],
             preconditions=[(f"chunk {plan.get('chunk')} is None on the "
                             f"layered route", plan.get("chunk") is None)],
-            coverage=[(f"layer 2's {lp['nsplit']} splits of "
-                       f"{lp['kper']} rows cover H={h}",
-                       (lp["nsplit"] - 1) * lp["kper"] < h
+            coverage=[(f"{what} {lp['nsplit']} splits of {lp['kper']} "
+                       f"rows cover {'D' if h == 0 else 'H'}={depth}",
+                       (lp["nsplit"] - 1) * lp["kper"] < depth
                        <= lp["nsplit"] * lp["kper"])],
             mismatch=mismatch)
         if card:
@@ -446,7 +448,7 @@ def _hub_reuse_site(dims, plan, where, sms, card):
                 site.mismatch.append(f"layered plan {theirs} from the "
                                      f"library, {ours} derived")
         return site
-    chunk = plan.get("chunk") or tiling.hub_reuse_chunk(c, m, k, d)
+    chunk = plan.get("chunk") or tiling.hub_reuse_chunk(c, m, k, d, h)
     launches = tiling.hub_reuse_launches(c, chunk)
     site = KernelSite(
         "hub_reuse", where, dims, plan,
@@ -454,7 +456,7 @@ def _hub_reuse_site(dims, plan, where, sms, card):
         semantics=(PARALLEL, MERGE, PARALLEL, PARALLEL),
         out_shape=(nb, bb * hn, f), out_block=(1, 1, 64),
         out_map=lambda p: [(p[0], p[2], p[3])],
-        smem=tiling.hub_reuse_smem(c, m, k, d, True, chunk),
+        smem=tiling.hub_reuse_smem(c, m, k, d, True, chunk, h),
         launch=dict(route=route, chunk=chunk, launches=launches),
         operands=[OperandInfo("slot table", (m, k), (m, round_up(k, 4)),
                               True)],
@@ -731,12 +733,12 @@ def plan_site(kernel: str, dims: dict, knobs: dict, *, sms: int,
             **{n: knobs.get(n) for n in tiling.KNOBS[kernel]}}
     if kernel == "hub_reuse" and "variant" not in knobs:
         plan["chunk"] = (knobs.get("chunk", tiling.hub_reuse_chunk(
-            *(dims[n] for n in ("c", "m", "k", "d"))))
+            *(dims[n] for n in ("c", "m", "k", "d")), dims.get("h")))
             if tiling.knobs_of(kernel, dims, sms) else None)
     elif kernel == "hub_reuse":        # per cloud: its launches' own route
         one = dict(dims, b=1)
         plan["chunk"] = (tiling.hub_reuse_chunk(
-            *(dims[n] for n in ("c", "m", "k", "d")))
+            *(dims[n] for n in ("c", "m", "k", "d")), dims.get("h"))
             if tiling.knobs_of(kernel, one, sms) else None)
     return site_from_capture({"kernel": kernel, "dims": dims, "plan": plan},
                              f"{where}:{kernel}", sms=sms, card=card)

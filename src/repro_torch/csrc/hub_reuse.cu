@@ -1,5 +1,5 @@
 // hub_reuse: islandized FC — pool MLP + compensated reuse gather + masked
-// max over K, fp32 in and out, both products on Hopper's tensor cores in
+// max over K, fp32 in and out, the products on Hopper's tensor cores in
 // 3xTF32.
 //
 // Replaces the Pallas TPU kernels hub_reuse_pallas and
@@ -13,12 +13,23 @@
 //                 y[slot[m,k], f] + comp[m, f]                    (M, F)
 //
 // and -BIG (the merge identity, not 0) where a subset has no live slot.
-// Slots clamp at C - 1, as the plain version's do.  Two routes, which the
-// call's widths fix (`layered_route` below; the planner's copy is
-// kernels/tiling.py::hub_reuse_route): `resident`, one block an island
-// and 64 features with the island's cache rows in shared memory, for the
-// calls one launch of it covers (C <= 128 rows that fit a block); and
-// `layered`, three launches over global memory, for every other call.
+// Slots clamp at C - 1, as the plain version's do.
+//
+// Two forms, which Hd fixes.  Hd > 0 is the two-layer form above.  Hd = 0
+// is the one-layer form, y = pool[b,h] W1 + b1 with W1 D x F (w2 and b2
+// null): the lowering of every one-layer point-MLP (each block of DGCNN,
+// PointNeXt-S and PointVector-L, and any block_end MLP composed into one
+// map), which the two-layer form took before as relu(x [W, -W] + [b,
+// -b]) [I; -I] at Hd = 2F: 2 D 2F + 2 2F F flops a cache row for a
+// function of 2 D F, 3x (DGCNN(c) block 2) to 28x (PointVector-L block 4,
+// D padded to 8) the products.  The gather is the same in both forms.
+//
+// Two routes, which the call's widths and form fix (`layered_route`
+// below; the planner's copy is kernels/tiling.py::hub_reuse_route):
+// `resident`, one block an island and 64 features with the island's
+// cache rows in shared memory, for the calls one launch of it covers (C
+// <= 128 rows that fit a block); and `layered`, over global memory, for
+// every other call (three launches for two layers, two for one).
 //
 // The resident route.  A launch takes a chunk of at most 64 or 128 cache
 // rows (the wrapper's knob; 128 unless a plan says otherwise), rows [c0,
@@ -54,46 +65,53 @@
 //     its row stride keeps fragment loads free of bank conflicts.  So do
 //     the island's slots and liveness, which no thread waits on before the
 //     gather (plain loads there held each block up by microseconds).
-//   * Hd in chunks of 64: h_chunk = relu(x W1[:, chunk] + b1) is summed
-//     over all of D, written to shared memory, and fed at once into
-//     y += h_chunk W2[chunk, ftile], which stays in registers; whole h is
-//     never resident, so shared memory does not grow with Hd.  W1 and W2
-//     stream through one three-stage cp.async ring of 64 x 64 tiles, one
-//     barrier a stage.
-//   * Both products run on mma.sync m16n8k8 TF32 in three passes
+//   * Two layers: Hd in chunks of 64: h_chunk = relu(x W1[:, chunk] + b1)
+//     is summed over all of D, written to shared memory, and fed at once
+//     into y += h_chunk W2[chunk, ftile], which stays in registers; whole
+//     h is never resident, so shared memory does not grow with Hd.  W1
+//     and W2 stream through one three-stage cp.async ring of 64 x 64
+//     tiles, one barrier a stage.
+//   * One layer (a template flag of the same kernel): the ring streams
+//     only W1[:, f0 : f0 + 64] over D into y's registers, ceil(D / 64)
+//     stages against the two-layer form's ceil(Hd / 64) (ceil(D / 64) +
+//     1); no relu, no h tile (its R x 72 floats of shared memory are not
+//     taken, so 128 rows of a wider D fit a block), no second product.
+//   * The products run on mma.sync m16n8k8 TF32 in three passes
 //     (tf32x3.cuh): operands fp32 in shared memory, split in registers.
-//   * After the last chunk, y + b2 goes to shared memory over x.  A warp
-//     takes a subset, its lanes along f: it turns the subset's staged
-//     slots into y rows (-1 where a slot is not cached or not live), then
-//     each (m, k) reads one y row without bank conflicts and a dead slot
-//     is a warp-uniform skip; comp is read once per (m, f), coalesced.
+//   * After the last stage, y plus its bias (b2, or b1 in one layer) goes
+//     to shared memory over x.  A warp takes a subset, its lanes along f:
+//     it turns the subset's staged slots into y rows (-1 where a slot is
+//     not cached or not live), then each (m, k) reads one y row without
+//     bank conflicts and a dead slot is a warp-uniform skip; comp is read
+//     once per (m, f), coalesced.
 //
 // The layered route.  The resident route stages x (C x D) and the slots
 // and liveness (M x K) whole, and each of its ceil(F / 64) feature tiles
 // recomputes the whole first layer: past 128 rows, or where 128 rows of a
 // wide D do not fit a block, it would take several launches merged by a
 // max, and at one island an SM-starved grid (PointVector-L's block 4 at
-// cache_capacity_x = 4: B = 2, H = 1, C = 128, D = 387, Hd = 1536, F =
-// 768, 24 blocks on 132 SMs, each forming the 64 x 387 x 1536 first layer
-// anew).  The layered route forms each layer once, for all B*H*C cache
-// rows at once, on the same 3xTF32 mma.sync:
-//   1. h = relu(x W1 + b1) for the N = B*H*C rows, in 64 x 64 tiles (4
-//      warps of 32 x 32; K in 64-deep stages of a three-stage cp.async
-//      ring), into device scratch (N x Hd floats, held in L2).
-//   2. y = h W2, the same tiles, Hd split into `nsplit` ranges where the
-//      tiles are too few to fill the card (`layered::plan`: ceil(SMs /
-//      tiles), as gather_mlp's wide route splits H), each range's partial
-//      into its own slice of scratch: no atomics.
+// cache_capacity_x = 4: B = 2, H = 1, C = 128, D = 387, F = 768, 24
+// blocks on 132 SMs).  The layered route forms each layer once, for all
+// B*H*C cache rows at once, on the same 3xTF32 mma.sync:
+//   1. two layers: h = relu(x W1 + b1) for the N = B*H*C rows, in 64 x 64
+//      tiles (4 warps of 32 x 32; K in 64-deep stages of a three-stage
+//      cp.async ring), into device scratch (N x Hd floats, held in L2).
+//   2. y = h W2 (two layers) or y = x W1 (one layer: no h, no scratch for
+//      it), the same tiles, the depth (Hd, or D) split into `nsplit`
+//      ranges where the tiles are too few to fill the card
+//      (`layered::plan`: ceil(SMs / tiles), as gather_mlp's wide route
+//      splits H), each range's partial into its own slice of scratch: no
+//      atomics.
 //   3. The gather: a block of 8 warps takes 16 subsets of an island and 64
 //      features, grid (island x subset tiles, feature tiles).  It first
-//      sums the island's y at its features (b2 plus the nsplit partials
-//      in order) into shared memory, C x 64 (up to kStagedC rows; past
-//      them each slot's row is summed from L2 where it is read: reading
-//      every (m, k)'s row from L2 took 45 of 79 us at PointNet++(c)'s
-//      block 2 with C = 256).  A warp a subset: its lanes turn 32 slots at
-//      a time into y rows (-1 where not cached or not live), then each
-//      live slot's row is a warp-uniform read and a max; comp once per
-//      (m, f).
+//      sums the island's y at its features (the bias plus the nsplit
+//      partials in order) into shared memory, C x 64 (up to kStagedC rows;
+//      past them each slot's row is summed from L2 where it is read:
+//      reading every (m, k)'s row from L2 took 45 of 79 us at
+//      PointNet++(c)'s block 2 with C = 256).  A warp a subset: its lanes
+//      turn 32 slots at a time into y rows (-1 where not cached or not
+//      live), then each live slot's row is a warp-uniform read and a max;
+//      comp once per (m, f).
 // Nothing stages C x D or M x K whole, so any C, D and M*K take one call,
 // and the same inputs give the same bits.
 #include <cuda_runtime.h>
@@ -122,12 +140,12 @@ struct Params {
   const int32_t* slot;
   const float* comp;
   const uint8_t* live;
-  const float* w1;
+  const float* w1;        // D x Hd, or D x F in one layer
   const float* b1;
-  const float* w2;
-  const float* b2;
+  const float* w2;        // null in one layer
+  const float* b2;        // null in one layer
   float* out;
-  int C, M, K, D, Hd, F;
+  int C, M, K, D, Hd, F;  // Hd = 0: one layer
   int c0, Cc;              // the launch's cache rows [c0, c0 + Cc)
   int merge;               // out = max(out, this launch's result)
   int Dp, XD, K4;          // D to 8, the x row stride, K to 4
@@ -176,12 +194,18 @@ __device__ __forceinline__ void load_stage(float* st, const float* w,
 }
 
 // Stage q of the ring's sequence: per Hd chunk j, n1 stages of W1[:, j]
-// (rows of D) then kN2 stages of W2[j, ftile] (rows of the chunk).
-template <int kThreads>
+// (rows of D) then kN2 stages of W2[j, ftile] (rows of the chunk); in one
+// layer (kLin) the n1 stages of W1[:, ftile].
+template <int kThreads, bool kLin>
 __device__ __forceinline__ void issue(float* ws, const Params& p, int q,
                                       int f0, int ft) {
-  const int per = p.n1 + kN2, j = q / per, r = q % per;
   float* st = ws + (q % kStages) * kKC * kWS;
+  if (kLin) {
+    load_stage<kThreads>(st, p.w1, p.D, p.F, q * kKC, f0, ft,
+                         p.w1_vec != 0);
+    return;
+  }
+  const int per = p.n1 + kN2, j = q / per, r = q % per;
   if (r < p.n1)
     load_stage<kThreads>(st, p.w1, p.D, p.Hd, r * kKC, j * kNC,
                          min(kNC, p.Hd - j * kNC), p.w1_vec != 0);
@@ -248,6 +272,12 @@ __host__ __device__ __forceinline__ int live_floats(const Params& p) {
   return p.live == nullptr ? 0 : (p.M * p.K + 15) / 16 * 4;
 }
 
+// Floats of the h tile: R rows in two layers, none in one
+template <class L>
+__host__ __device__ __forceinline__ int h_floats(const Params& p) {
+  return p.Hd == 0 ? 0 : L::kR * kHS;
+}
+
 // Floats of the x region: R rows of x, later R rows of y
 template <class L>
 __host__ __device__ __forceinline__ int xy_floats(const Params& p) {
@@ -264,7 +294,8 @@ __device__ __forceinline__ float merged(float m, float c) {
   return m == -INFINITY ? -kBig : m + c;
 }
 
-template <class L>
+// kLin: the one-layer form (p.Hd == 0), else the two-layer one
+template <class L, bool kLin>
 __global__ void __launch_bounds__(L::kThreads, L::kMinBlocks)
 hub_reuse_kernel(const Params p) {
   constexpr int R = L::kR, kNT = L::kNT, kThreads = L::kThreads;
@@ -273,16 +304,16 @@ hub_reuse_kernel(const Params p) {
   uint8_t* lv = reinterpret_cast<uint8_t*>(sl + p.M * p.K4);  // M x K
   float* xs = smem + slot_floats(p);                   // R x XD
   float* ys = xs;                                      // R x kHS, after
-  float* hs = xs + xy_floats<L>(p);                    // R x kHS
-  float* ws = hs + R * kHS;                            // kStages x kKC x kWS
+  float* hs = xs + xy_floats<L>(p);                    // R x kHS (two layers)
+  float* ws = hs + (kLin ? 0 : R * kHS);               // kStages x kKC x kWS
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp / L::kWN, wn = warp % L::kWN;
   const long long isl = blockIdx.x;                    // b * H + h
   const int f0 = blockIdx.y * kNC;
   const int ft = min(kNC, p.F - f0);
-  const int per = p.n1 + kN2;
-  const int nq = p.nchunk * per;
+  const int per = kLin ? p.n1 : p.n1 + kN2;
+  const int nq = kLin ? p.n1 : p.nchunk * per;
 
   // ---- prologue: x by cp.async, the ring's first stages, the slots ------
   const float* poolp = p.pool + (isl * p.C + p.c0) * p.D;
@@ -301,7 +332,7 @@ hub_reuse_kernel(const Params p) {
     }
   }
   for (int q = 0; q < kStages - 1; ++q) {
-    if (q < nq) issue<kThreads>(ws, p, q, f0, ft);
+    if (q < nq) issue<kThreads, kLin>(ws, p, q, f0, ft);
     tf32x3::cp_async_commit();
   }
   // slots and liveness by cp.async too (a thread that waited on loads
@@ -320,7 +351,8 @@ hub_reuse_kernel(const Params p) {
       for (int e = tid; e < mk; e += kThreads) lv[e] = lvp[e];
   }
 
-  // ---- h a chunk at a time, y += h_chunk W2 in registers ----------------
+  // ---- h a chunk at a time, y += h_chunk W2 in registers (two layers);
+  // ---- y += x W1 stage in registers (one layer) ------------------------
   float acc_h[kMT][kNT][4], acc_y[kMT][kNT][4];
 #pragma unroll
   for (int mt = 0; mt < kMT; ++mt)
@@ -332,9 +364,14 @@ hub_reuse_kernel(const Params p) {
     tf32x3::cp_async_wait<kStages - 2>();    // stage q (and x) landed
     __syncthreads();                         // for all; slot q - 1 free
     if (q + kStages - 1 < nq)
-      issue<kThreads>(ws, p, q + kStages - 1, f0, ft);
+      issue<kThreads, kLin>(ws, p, q + kStages - 1, f0, ft);
     tf32x3::cp_async_commit();
     const float* st = ws + (q % kStages) * kKC * kWS;
+    if (kLin) {                              // y += x · W1 stage
+      mma_stage<L>(acc_y, xs, p.XD, q * kKC, st,
+                   min(kKC, p.Dp - q * kKC) / 8, wm, wn, lane);
+      continue;
+    }
     const int j = q / per, r = q % per;
     if (r < p.n1) {                          // h_chunk += x · W1 stage
       if (r == 0) {
@@ -356,10 +393,11 @@ hub_reuse_kernel(const Params p) {
     }
   }
 
-  // ---- y + b2 over x, then the gather ------------------------------------
+  // ---- y + b2 over x, then the gather (one layer: y + b1) ---------------
   tf32x3::cp_async_wait<0>();
   __syncthreads();                           // every warp done with x
-  store_tile<L, false>(ys, acc_y, p.b2 + f0, ft, wm, wn, lane);
+  store_tile<L, false>(ys, acc_y, (kLin ? p.b1 : p.b2) + f0, ft, wm, wn,
+                       lane);
   __syncthreads();
   // a warp a subset, lanes along f: each (m, k) reads one y row without
   // bank conflicts, and a dead slot is a warp-uniform skip
@@ -401,23 +439,32 @@ hub_reuse_kernel(const Params p) {
   }
 }
 
-// Bytes of shared memory a block of L takes
+// Bytes of shared memory a block of L takes (the form's: no h tile in
+// one layer)
 template <class L>
 size_t smem_bytes(const Params& p) {
   return sizeof(float) * ((size_t)slot_floats(p) + xy_floats<L>(p) +
-                          (size_t)L::kR * kHS + (size_t)kStages * kKC * kWS);
+                          (size_t)h_floats<L>(p) +
+                          (size_t)kStages * kKC * kWS);
+}
+
+template <class L, bool kLin>
+int launch_form(const Params& p, long long islands, void* stream) {
+  const size_t smem = smem_bytes<L>(p);
+  cudaError_t err = cudaFuncSetAttribute(
+      hub_reuse_kernel<L, kLin>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)islands, (p.F + kNC - 1) / kNC);
+  hub_reuse_kernel<L, kLin>
+      <<<grid, L::kThreads, smem, (cudaStream_t)stream>>>(p);
+  return (int)cudaGetLastError();
 }
 
 template <class L>
 int launch(const Params& p, long long islands, void* stream) {
-  const size_t smem = smem_bytes<L>(p);
-  cudaError_t err = cudaFuncSetAttribute(
-      hub_reuse_kernel<L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)islands, (p.F + kNC - 1) / kNC);
-  hub_reuse_kernel<L><<<grid, L::kThreads, smem, (cudaStream_t)stream>>>(p);
-  return (int)cudaGetLastError();
+  return p.Hd == 0 ? launch_form<L, true>(p, islands, stream)
+                   : launch_form<L, false>(p, islands, stream);
 }
 
 // The shape fields of p; Cc = min(chunk, C - c0) cache rows a launch
@@ -432,6 +479,13 @@ void set_shape(Params& p, int chunk) {
 
 bool chunk_ok(int chunk) { return chunk == Rows64::kR || chunk == kMaxC; }
 
+// Whether the weights match the form Hd names: w2 and b2 given for two
+// layers (Hd > 0), both null for one (Hd = 0)
+bool form_ok(int Hd, const float* w2, const float* b2) {
+  return Hd > 0 ? w2 != nullptr && b2 != nullptr
+                : Hd == 0 && w2 == nullptr && b2 == nullptr;
+}
+
 // Shared memory of a block of the resident launch p (its shape set)
 long long resident_smem(const Params& p) {
   return (long long)(p.Cc <= Rows64::kR ? smem_bytes<Rows64>(p)
@@ -441,14 +495,15 @@ long long resident_smem(const Params& p) {
 // Whether a call of B clouds of H islands takes the layered route on a
 // card of `sms` SMs: where no single resident launch covers its C cache
 // rows (a block of its min(C, 128) rows, slots and liveness, counted
-// whether the call passes liveness or not as the planner counts it,
-// would pass a block's shared memory), unless C passes 128, a 128-row
+// whether the call passes liveness or not as the planner counts it, and
+// the form's h tile, none in one layer (Hd = 0), would pass a block's
+// shared memory), unless C passes 128, a 128-row
 // block fits and the resident grid, B H ceil(F / 64) blocks, covers at
 // least 3/4 of the SMs (then resident in 128-row chunks: on an H100,
 // PointNet++(c)'s block 2 at C = 256 took 0.063 ms at B = 8, 128 blocks,
 // against the layered route's 0.080; at B = 4, 64 blocks, 0.064 against
 // 0.047)
-bool layered_route(int B, int H, int C, int M, int K, int D, int F,
+bool layered_route(int B, int H, int C, int M, int K, int D, int Hd, int F,
                    int sms) {
   Params p{};
   p.live = reinterpret_cast<const uint8_t*>(1);
@@ -456,6 +511,7 @@ bool layered_route(int B, int H, int C, int M, int K, int D, int F,
   p.M = M;
   p.K = K;
   p.D = D;
+  p.Hd = Hd;
   set_shape(p, kMaxC);
   const bool fits = resident_smem(p) <= kMaxSmem;
   if (C <= kMaxC) return !fits;
@@ -588,7 +644,7 @@ __global__ void __launch_bounds__(kThreads, 2) gemm_kernel(const Gemm g) {
 
 struct Gather {
   const float* y;          // nsplit partials of (N x F), N = islands x C
-  const float* b2;
+  const float* b2;         // y's bias: b2, or b1 in one layer
   const int32_t* slot;
   const float* comp;
   const uint8_t* live;
@@ -669,17 +725,18 @@ __global__ void __launch_bounds__(32 * kGatherWarps, 1) gather_kernel(
 }
 
 // What a layered call of N cache rows launches on a card of `sms` SMs:
-// layer 2's Hd splits (ceil(sms / tiles) where its 64 x 64 tiles are
-// fewer than the SMs, at most one 64-row stage of Hd each) and its
-// range, and the scratch floats (h, then the partials of y)
+// the splits of y's GEMM over its depth, Hd (layer 2) or in one layer
+// (Hd = 0) D (ceil(sms / tiles) where its 64 x 64 tiles are fewer than
+// the SMs, at most one 64-row stage each) and their range, and the
+// scratch floats (h in two layers, then the partials of y)
 struct Plan {
   int nsplit, kper;
   long long scratch;
 };
 
-Plan plan(long long N, int Hd, int F, int sms) {
+Plan plan(long long N, int D, int Hd, int F, int sms) {
   const long long tiles = (N + kT - 1) / kT * ((F + kT - 1) / kT);
-  const int nch = (Hd + kKC - 1) / kKC;
+  const int nch = ((Hd > 0 ? Hd : D) + kKC - 1) / kKC;
   long long want = tiles >= sms ? 1 : (sms + tiles - 1) / tiles;
   if (want > nch) want = nch;
   const int per = (nch + (int)want - 1) / (int)want;   // stages a split
@@ -720,9 +777,10 @@ inline bool aligned16(const void* p) {
 
 // The resident route.  chunk: cache rows a launch takes, 64 (Rows64) or
 // 128 (Rows128 where more than 64 are left); the wrapper covers C with one
-// launch a chunk.  A call of the layered route (B and H as the wrapper's
-// launch takes them), or a chunk whose launch does not fit a block's
-// shared memory, is refused.
+// launch a chunk.  Hd = 0: one layer, w1 D x F, w2 and b2 null.  A call
+// of the layered route (B and H as the wrapper's launch takes them), a
+// chunk whose launch does not fit a block's shared memory, or weights of
+// the other form are refused.
 extern "C" int hub_reuse_forward(const float* pool, const int32_t* slot,
                                  const float* comp, const uint8_t* live,
                                  const float* w1, const float* b1,
@@ -732,13 +790,15 @@ extern "C" int hub_reuse_forward(const float* pool, const int32_t* slot,
                                  void* stream) {
   // the wrapper raises on the error: it splits C into chunks
   if (C < 1 || c0 < 0 || c0 >= C || D < 1 || !chunk_ok(chunk) ||
-      layered_route(B, H, C, M, K, D, F, layered::sm_count()))
+      !form_ok(Hd, w2, b2) ||
+      layered_route(B, H, C, M, K, D, Hd, F, layered::sm_count()))
     return (int)cudaErrorInvalidValue;
   Params p{pool, slot, comp, live, w1, b1, w2, b2, out, C, M, K, D, Hd, F,
            c0, 0, merge};
   set_shape(p, chunk);
   p.x_vec = D % 4 == 0 && reinterpret_cast<uintptr_t>(pool) % 16 == 0;
-  p.w1_vec = Hd % 4 == 0 && reinterpret_cast<uintptr_t>(w1) % 16 == 0;
+  p.w1_vec = (Hd > 0 ? Hd : F) % 4 == 0 &&
+             reinterpret_cast<uintptr_t>(w1) % 16 == 0;
   p.w2_vec = F % 4 == 0 && reinterpret_cast<uintptr_t>(w2) % 16 == 0;
   p.live_words = (long long)M * K % 4 == 0 &&
                  reinterpret_cast<uintptr_t>(live) % 4 == 0;
@@ -749,9 +809,10 @@ extern "C" int hub_reuse_forward(const float* pool, const int32_t* slot,
 }
 
 // The layered route: h into scratch, y's partials after it, then the
-// gather (three launches on `stream`).  scratch: the floats
-// hub_reuse_plan reports.  A call of the resident route is
-// refused.
+// gather (three launches on `stream`); in one layer (Hd = 0, w2 and b2
+// null) y's partials of x W1 into scratch, then the gather (two).
+// scratch: the floats hub_reuse_plan reports.  A call of the resident
+// route, or weights of the other form, are refused.
 extern "C" int hub_reuse_layered(const float* pool, const int32_t* slot,
                                  const float* comp, const uint8_t* live,
                                  const float* w1, const float* b1,
@@ -760,24 +821,34 @@ extern "C" int hub_reuse_layered(const float* pool, const int32_t* slot,
                                  int K, int D, int Hd, int F, void* stream) {
   namespace ly = layered;
   const int sms = ly::sm_count();
-  if (C < 1 || D < 1 || Hd < 1 || F < 1 || K < 0 || M < 1 || B < 1 ||
-      H < 1 || sms < 1 || !layered_route(B, H, C, M, K, D, F, sms))
+  if (C < 1 || D < 1 || Hd < 0 || F < 1 || K < 0 || M < 1 || B < 1 ||
+      H < 1 || sms < 1 || !form_ok(Hd, w2, b2) ||
+      !layered_route(B, H, C, M, K, D, Hd, F, sms))
     return (int)cudaErrorInvalidValue;
   const long long N = (long long)B * H * C;
   if (N > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const ly::Plan pl = ly::plan(N, Hd, F, sms);
+  const ly::Plan pl = ly::plan(N, D, Hd, F, sms);
   const cudaStream_t st = (cudaStream_t)stream;
   float* h = scratch;
   float* y = scratch + N * Hd;
-  const ly::Gemm g1{pool, w1, b1, h, (int)N, D, Hd, ((D + kKC - 1) / kKC) * kKC,
-                    D % 4 == 0 && ly::aligned16(pool),
-                    Hd % 4 == 0 && ly::aligned16(w1)};
-  cudaError_t err = ly::run_gemm<true>(g1, 1, st);
-  if (err != cudaSuccess) return (int)err;
-  const ly::Gemm g2{h, w2, nullptr, y, (int)N, Hd, F, pl.kper,
-                    Hd % 4 == 0 && ly::aligned16(h),
-                    F % 4 == 0 && ly::aligned16(w2)};
-  err = ly::run_gemm<false>(g2, pl.nsplit, st);
+  cudaError_t err;
+  if (Hd == 0) {                             // y = x W1, split over D
+    const ly::Gemm g{pool, w1, nullptr, y, (int)N, D, F, pl.kper,
+                     D % 4 == 0 && ly::aligned16(pool),
+                     F % 4 == 0 && ly::aligned16(w1)};
+    err = ly::run_gemm<false>(g, pl.nsplit, st);
+  } else {
+    const ly::Gemm g1{pool, w1, b1, h, (int)N, D, Hd,
+                      ((D + kKC - 1) / kKC) * kKC,
+                      D % 4 == 0 && ly::aligned16(pool),
+                      Hd % 4 == 0 && ly::aligned16(w1)};
+    err = ly::run_gemm<true>(g1, 1, st);
+    if (err != cudaSuccess) return (int)err;
+    const ly::Gemm g2{h, w2, nullptr, y, (int)N, Hd, F, pl.kper,
+                      Hd % 4 == 0 && ly::aligned16(h),
+                      F % 4 == 0 && ly::aligned16(w2)};
+    err = ly::run_gemm<false>(g2, pl.nsplit, st);
+  }
   if (err != cudaSuccess) return (int)err;
   const int mtiles = (M + ly::kGatherSubsets - 1) / ly::kGatherSubsets;
   const long long gx = (long long)B * H * mtiles;
@@ -788,24 +859,24 @@ extern "C" int hub_reuse_layered(const float* pool, const int32_t* slot,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              gsmem);
   if (err != cudaSuccess) return (int)err;
-  const ly::Gather g3{y, b2, slot, comp, live, out, N * F, C, M, K, F,
-                      pl.nsplit, mtiles, staged};
+  const ly::Gather g3{y, Hd == 0 ? b1 : b2, slot, comp, live, out, N * F,
+                      C, M, K, F, pl.nsplit, mtiles, staged};
   ly::gather_kernel<<<dim3((unsigned)gx, (unsigned)((F + ly::kT - 1) / ly::kT)),
                       32 * ly::kGatherWarps, gsmem, st>>>(g3);
   return (int)cudaGetLastError();
 }
 
-// {route (0 resident, 1 layered), layer 2's Hd splits, scratch floats,
-// shared memory of a block} of a call of B clouds (one for a launch a
-// cloud) on this card (the splits and scratch 0 on the resident route,
-// whose shared memory is at chunk = 128 with liveness); -1 for C < 1 or
-// D < 1
+// {route (0 resident, 1 layered), y's GEMM's splits (over Hd, or over D
+// in one layer: Hd = 0), scratch floats, shared memory of a block} of a
+// call of B clouds (one for a launch a cloud) on this card (the splits
+// and scratch 0 on the resident route, whose shared memory is at chunk =
+// 128 with liveness); -1 for C < 1, D < 1 or Hd < 0
 extern "C" int hub_reuse_plan(int B, int H, int C, int M, int K, int D,
                               int Hd, int F, long long* out) {
   for (int i = 0; i < 4; ++i) out[i] = 0;
-  if (C < 1 || D < 1) return -1;
+  if (C < 1 || D < 1 || Hd < 0) return -1;
   const int sms = layered::sm_count();
-  if (!layered_route(B, H, C, M, K, D, F, sms)) {
+  if (!layered_route(B, H, C, M, K, D, Hd, F, sms)) {
     Params p{};
     p.live = reinterpret_cast<const uint8_t*>(1);
     p.C = C;
@@ -817,7 +888,8 @@ extern "C" int hub_reuse_plan(int B, int H, int C, int M, int K, int D,
     out[3] = resident_smem(p);
     return 0;
   }
-  const layered::Plan pl = layered::plan((long long)B * H * C, Hd, F, sms);
+  const layered::Plan pl =
+      layered::plan((long long)B * H * C, D, Hd, F, sms);
   out[0] = 1;
   out[1] = pl.nsplit;
   out[2] = pl.scratch;
@@ -827,10 +899,11 @@ extern "C" int hub_reuse_plan(int B, int H, int C, int M, int K, int D,
 
 // Bytes of shared memory a block of the call's largest resident launch
 // (its first chunk's) takes at the knob chunk, with liveness (live != 0)
-// or without; -1 for a chunk out of range or C < 1
+// or without, in the form Hd names (0: one layer); -1 for a chunk out of
+// range, C < 1 or Hd < 0
 extern "C" long long hub_reuse_smem_bytes(int C, int M, int K, int D, int Hd,
                                           int live, int chunk) {
-  if (C < 1 || D < 1 || !chunk_ok(chunk)) return -1;
+  if (C < 1 || D < 1 || Hd < 0 || !chunk_ok(chunk)) return -1;
   Params p{};
   p.live = live ? reinterpret_cast<const uint8_t*>(1) : nullptr;
   p.C = C;

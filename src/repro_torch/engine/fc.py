@@ -4,23 +4,26 @@ the hand-written kernels (on CPU tensors, through their plain versions).
   dense  -> kernels/gather_mlp   fused normalize → MLP → max over K
   reuse  -> kernels/hub_reuse    pool MLP → reuse gather → Δ-comp → max
 
-The dense dataflow hands gather_mlp one linear map or two layers
+Both dataflows hand their kernel one linear map or two layers
 (:func:`dense_form`):
 
   * ``block_end`` (all layers linear): every layer composed into ONE
-    linear map (W, b), which gather_mlp's ``linear`` route computes in
-    one product; ``per_layer`` with 1 layer likewise.
-  * ``per_layer`` with 2 layers: the kernel's two-layer (W1, relu, W2)
+    linear map (W, b), which gather_mlp's ``linear`` route and
+    hub_reuse's one-layer form compute in one product; ``per_layer``
+    with 1 layer likewise.
+  * ``per_layer`` with 2 layers: the kernels' two-layer (W1, relu, W2)
     form, directly.
   * ``per_layer`` with more than 2 layers: the leading layers run as a
     plain PyTorch prologue (the cheap narrow layers, left to
     ``torch.matmul`` as the JAX package leaves them to XLA); the last two
     run fused in the kernel.
 
-hub_reuse is a fixed two-layer pipeline, and the reuse dataflow lowers
-every point-MLP to that form exactly (:func:`two_layer_form`): the one
-linear map above embedded as relu(x·[W,−W]+[b,−b])·[I;−I] — exact,
-because relu(a) − relu(−a) = a — and the prologue as above.
+The JAX package's kernels take only the two-layer form, and it lowers
+the one linear map as relu(x·[W,−W]+[b,−b])·[I;−I] (:func:`two_layer_form`,
+exact, because relu(a) − relu(−a) = a); the port's kernels take the
+map itself, one product, where that form does 2 + 2F/D times its flops
+(hub_reuse's resident route, which forms the first layer in each of its
+64-feature tiles, 2F·(D + 64)/(64·D) times).
 
 Each dataflow is ONE kernel launch for the whole batch of clouds (one a
 cloud under ``"cuda_per_cloud"``, the A/B counterpart of the JAX
@@ -83,9 +86,10 @@ def two_layer_form(mlp: MLP):
 
 
 def dense_form(mlp: MLP):
-    """(prologue | None, weights): ``mlp`` as gather_mlp takes it, the
-    weights (w, b) of its ``linear`` route where ``mlp`` is one linear map,
-    else :func:`two_layer_form`'s (w1, b1, w2, b2)."""
+    """(prologue | None, weights): ``mlp`` as both dataflows' kernels take
+    it, the weights (w, b) of their one-layer form (gather_mlp's
+    ``linear`` route, hub_reuse with ``w2`` None) where ``mlp`` is one
+    linear map, else :func:`two_layer_form`'s (w1, b1, w2, b2)."""
     one = _one_map(mlp)
     return (None, one) if one is not None else two_layer_form(mlp)
 
@@ -101,7 +105,7 @@ def _dense_weights(mlp: MLP):
 
 
 def _widths(weights) -> tuple:
-    """(H, F) of gather_mlp's weights: H = 0 for one layer (w, b)."""
+    """(H, F) of the kernels' weights: H = 0 for one layer (w, b)."""
     if len(weights) == 2:
         return 0, weights[0].shape[1]
     return weights[0].shape[1], weights[2].shape[1]
@@ -162,16 +166,17 @@ def _dense_cuda(mlp: MLP, kind, xyz, feats, nbr_idx, centers_xyz,
 
 def _reuse_cuda(mlp: MLP, pool_in, slot, comp, live=None, kernel_kw=None,
                 variant=None):
-    """Reuse dataflow through ONE hub_reuse call.  -> (B, H, M, Fout)."""
-    prologue, weights = two_layer_form(mlp)
+    """Reuse dataflow through ONE hub_reuse call, one layer where ``mlp``
+    is one linear map (:func:`dense_form`).  -> (B, H, M, Fout)."""
+    prologue, weights = dense_form(mlp)
     x = pool_in if prologue is None else prologue(pool_in)
     kw = {}
     if kernel_kw:
         from ..kernels.hub_reuse.ops import card_sms
         hn, c, d = x.shape[-3:]
+        h, f = _widths(weights)
         dims = dict(b=1 if x.dim() == 3 else x.shape[0], hn=hn, c=c,
-                    m=slot.shape[-2], k=slot.shape[-1], d=d,
-                    f=weights[2].shape[1])
+                    m=slot.shape[-2], k=slot.shape[-1], d=d, h=h, f=f)
         kw = _route_knobs(kernel_kw, tiling.knobs_of("hub_reuse", dims,
                                                      card_sms(x.device)))
     return hub_reuse(x, slot, comp, *weights, live=live, variant=variant,

@@ -1,17 +1,23 @@
 """Wrapper of the hub_reuse CUDA kernel (``csrc/hub_reuse.cu``).
 
 A CPU tensor takes the plain PyTorch version (:func:`hub_reuse_ref`); a
-CUDA tensor launches the kernel or raises.  The kernel has two routes,
-which the call's widths and the card's SM count fix
+CUDA tensor launches the kernel or raises.  The kernel has two forms: two
+layers, relu(x·W1 + b1)·W2 + b2, and one, x·W1 + b1 (``w2`` and ``b2``
+None, which the plans key as h = 0: the engine's lowering of every
+one-layer point-MLP).  It has two routes, which the call's widths, form
+and the card's SM count fix
 (:func:`~repro_torch.kernels.tiling.hub_reuse_route`): ``resident``, for
 the calls one launch of an island's cache rows in a block covers (C <=
 128 rows that fit) and, in 128-row chunks, for C past 128 where its grid
-fills most of the card; and ``layered`` for every other call (the two
-layers once for all cache rows, in device scratch, then the gather;
-three kernels a call, counted as one launch).  On ``resident`` a launch
-takes a chunk of at most ``chunk`` cache rows (64 or 128); a C past the
-chunk takes one launch a chunk, each merged into the output by an
-elementwise max.  Every shape has a plan.
+fills most of the card; and ``layered`` for every other call (the layers
+once for all cache rows, in device scratch, then the gather; three
+kernels a call in two layers, two in one, counted as one launch).  On
+``resident`` a launch takes a chunk of at most ``chunk`` cache rows (64
+or 128); a C past the chunk takes one launch a chunk, each merged into
+the output by an elementwise max.  Every shape has a plan.  Launches are
+counted as ``hub_reuse``, by route (``hub_reuse_resident``,
+``hub_reuse_layered``, both forms) and, for the one-layer form, by route
+and form (``hub_reuse_resident_linear``, ``hub_reuse_layered_linear``).
 
 Each call resolves its plan (:func:`plan`) before the CPU/CUDA split, as
 ``gather_mlp``'s does: an explicit ``chunk`` or ``variant`` over a hit in
@@ -34,8 +40,9 @@ from .ref import hub_reuse_ref
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 CHUNK = 128                # the most cache rows a launch takes (csrc kMaxC)
 VARIANTS = ("batched", "per_cloud")
-#: what hub_reuse_plan reports: the route (0 resident, 1 layered), layer
-#: 2's H splits, scratch floats and a block's shared memory
+#: what hub_reuse_plan reports: the route (0 resident, 1 layered), the
+#: splits of y's GEMM (over H, or over D in one layer), scratch floats and
+#: a block's shared memory
 PLAN = ("route", "nsplit", "scratch", "smem")
 
 
@@ -59,8 +66,8 @@ _LIB_PLANS: dict = {}
 
 def library_plan(b: int, hn: int, c: int, m: int, k: int, d: int, h: int,
                  f: int) -> dict:
-    """What the built kernel launches for the call on this card
-    (:data:`PLAN`; the route by name): the card's answer to
+    """What the built kernel launches for the call on this card (h = 0:
+    one layer; :data:`PLAN`; the route by name): the card's answer to
     :func:`~repro_torch.kernels.tiling.hub_reuse_route`, ``nsplit`` and
     ``scratch`` of
     :func:`~repro_torch.kernels.tiling.hub_reuse_layered_plan` (0 on the
@@ -72,7 +79,7 @@ def library_plan(b: int, hn: int, c: int, m: int, k: int, d: int, h: int,
     if got is None:
         out = (ctypes.c_longlong * len(PLAN))()
         if lib.hub_reuse_plan(b, hn, c, m, k, d, h, f, out) != 0:
-            raise ValueError(f"hub_reuse: no plan for C={c}, D={d}")
+            raise ValueError(f"hub_reuse: no plan for C={c}, D={d}, H={h}")
         got = dict(zip(PLAN, out))
         got["route"] = ("resident", "layered")[got["route"]]
         _LIB_PLANS[key] = got
@@ -82,7 +89,8 @@ def library_plan(b: int, hn: int, c: int, m: int, k: int, d: int, h: int,
 def library_smem(c: int, m: int, k: int, d: int, h: int, live: bool = True,
                  chunk: int = CHUNK) -> int:
     """Shared memory of a resident block of the call's largest launch at
-    ``chunk``, as the built kernel counts it (the card's answer to
+    ``chunk`` in the form ``h`` names (0: one layer), as the built kernel
+    counts it (the card's answer to
     :func:`~repro_torch.kernels.tiling.hub_reuse_smem`); -1 for a chunk
     out of range."""
     return _lib().hub_reuse_smem_bytes(c, m, k, d, h, int(live), chunk)
@@ -107,7 +115,8 @@ def plan(b: int, hn: int, c: int, m: int, k: int, d: int, h: int, f: int,
          device, chunk: int | None = None,
          variant: str | None = None) -> dict:
     """The plan a call of b clouds of hn islands (C cache rows, M subsets
-    of K points, widths d, h, f) on ``device`` launches: ``route``
+    of K points, widths d, h, f; h = 0 for one layer) on ``device``
+    launches: ``route``
     ("resident" or "layered", fixed by the widths), ``variant``
     ("batched" or "per_cloud"), ``provenance`` ("override", "autotuned" or
     "heuristic", as ``gather_mlp``'s) and ``chunk`` (None on the layered
@@ -159,32 +168,39 @@ def _resolve(b, hn, c, m, k, d, h, f, device, chunk, variant):
                 variant = entry.get("variant") or "batched"
     # a per_cloud plan's launches each take one cloud
     rb = 1 if variant == "per_cloud" else b
-    route = tiling.hub_reuse_route(rb, hn, c, m, k, d, f, sms)
+    route = tiling.hub_reuse_route(rb, hn, c, m, k, d, f, sms, h=h)
     return dict(route=route, variant=variant, provenance=prov,
-                chunk=(knobs.get("chunk", tiling.hub_reuse_chunk(c, m, k, d))
+                chunk=(knobs.get("chunk", tiling.hub_reuse_chunk(c, m, k, d,
+                                                                 h=h))
                        if route == "resident" else None))
 
 
-def hub_reuse(pool_in, slot, comp, w1, b1, w2, b2, live=None, *,
+def hub_reuse(pool_in, slot, comp, w1, b1, w2=None, b2=None, live=None, *,
               chunk=None, variant=None):
     """Pool MLP + compensated reuse gather + masked max over K.
 
     pool_in (B, H, C, D) or (H, C, D) hub-relative cache inputs; slot
     (…, H, M, K) int32 cache slot per position (-1 = not cached); comp
-    (…, H, M, F) per-subset compensation; live (…, H, M, K) bool (None =
-    all resident).  -> (…, H, M, F) float32: max over the live slots of
-    y[slot] + comp, ``-BIG`` where a subset has none.  ``chunk`` (64 or
-    128 cache rows a launch) and ``variant`` ("batched", "per_cloud")
-    force the plan (:func:`plan`)."""
+    (…, H, M, F) per-subset compensation; w1 (D, H), b1 (H,), w2 (H, F),
+    b2 (F,): y = relu(pool_in·w1 + b1)·w2 + b2, or with ``w2`` and ``b2``
+    None one layer: w1 (D, F), b1 (F,), y = pool_in·w1 + b1; live (…, H,
+    M, K) bool (None = all resident).  -> (…, H, M, F) float32: max over
+    the live slots of y[slot] + comp, ``-BIG`` where a subset has none.
+    ``chunk`` (64 or 128 cache rows a launch) and ``variant`` ("batched",
+    "per_cloud") force the plan (:func:`plan`)."""
     _build.refuse_dtensor("hub_reuse", (pool_in, slot, comp, w1, b1, w2, b2,
                                         live))
     if pool_in.device.type not in ("cpu", "cuda"):
         raise ValueError(f"hub_reuse: unsupported device {pool_in.device}")
+    if (w2 is None) != (b2 is None):
+        raise ValueError("hub_reuse: w2 and b2 are given together (two "
+                         "layers) or both None (one layer)")
     single = pool_in.dim() == 3
     hn, c, d = pool_in.shape[-3:]
     b = 1 if single else pool_in.shape[0]
     m, k = slot.shape[-2:]
-    hdim, fout = w1.shape[1], w2.shape[1]
+    hdim, fout = (0, w1.shape[1]) if w2 is None else (w1.shape[1],
+                                                      w2.shape[1])
     pl = _resolved((b, hn, c, m, k, d, hdim, fout, pool_in.device, chunk,
                     variant))
     if plans.capturing():
@@ -200,8 +216,8 @@ def hub_reuse(pool_in, slot, comp, w1, b1, w2, b2, live=None, *,
     if live is not None and live.dtype != torch.bool:
         live = live != 0
     expect = {"slot": (b, hn, m, k), "comp": (b, hn, m, fout),
-              "w1": (d, hdim), "b1": (hdim,), "w2": (hdim, fout),
-              "b2": (fout,), "live": (b, hn, m, k)}
+              "w1": (d, hdim or fout), "b1": (hdim or fout,),
+              "w2": (hdim, fout), "b2": (fout,), "live": (b, hn, m, k)}
     ops = {"pool_in": pool_in, "slot": slot, "comp": comp, "w1": w1,
            "b1": b1, "w2": w2, "b2": b2, "live": live}
     for arg, shape in expect.items():
@@ -217,8 +233,14 @@ def hub_reuse(pool_in, slot, comp, w1, b1, w2, b2, live=None, *,
     if b * hn * m:
         lib = _lib()
         stream = torch._C._cuda_getCurrentRawStream(pool_in.device.index)
-        weights = (w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-                   b2.data_ptr())
+        weights = (w1.data_ptr(), b1.data_ptr(),
+                   None if w2 is None else w2.data_ptr(),
+                   None if b2 is None else b2.data_ptr())
+        # the counts a launch adds: the kernel's, its route's, and in one
+        # layer its route's and form's
+        way = f"hub_reuse_{pl['route']}"
+        counts = ("hub_reuse", way) + ((way + "_linear",) if hdim == 0
+                                       else ())
         # the batch at once, or each cloud at the clouds' offsets (every
         # operand is contiguous, the batch leading)
         n, bb = (b, 1) if pl["variant"] == "per_cloud" else (1, b)
@@ -239,7 +261,7 @@ def hub_reuse(pool_in, slot, comp, w1, b1, w2, b2, live=None, *,
                     *ptrs, scratch.data_ptr(), bb, hn, c, m, k, d, hdim,
                     fout, stream)
                 _build.check_launch(lib, "hub_reuse", code)
-                _build.count_launch("hub_reuse", "hub_reuse_layered")
+                _build.count_launch(*counts)
                 continue
             # one launch a chunk, each merged into the last by a max
             for c0 in range(0, c, pl["chunk"]):
@@ -247,5 +269,5 @@ def hub_reuse(pool_in, slot, comp, w1, b1, w2, b2, live=None, *,
                     *ptrs, bb, hn, c, m, k, d, hdim, fout, c0, int(c0 > 0),
                     pl["chunk"], stream)
                 _build.check_launch(lib, "hub_reuse", code)
-                _build.count_launch("hub_reuse", "hub_reuse_resident")
+                _build.count_launch(*counts)
     return out[0] if single else out

@@ -19,9 +19,12 @@ for a CPU forward), so an entry measured on another card is a miss.  The
 file is JSON version 1, ``{"version": 1, "plans": {key: entry}}``, and an
 entry holds one knob (:data:`~repro_torch.kernels.tiling.KNOBS`):
 
-    gather_mlp  {"rows": 64|128}     (narrow route)
+    gather_mlp  {"rows": 64|128}     (narrow and linear routes)
                 {"nsplit": n}        (wide route)
-    hub_reuse   {"chunk": 64|128}
+    hub_reuse   {"chunk": 64|128}    (resident route, either form)
+
+A one-layer call of either kernel (``w2`` None) is keyed with ``h=0``, so
+its cell never meets the two-layer cell of the same widths.
 
 or ``{"variant": "per_cloud"}`` (one launch per cloud, at B = 1: the cell
 where the batched launch measured slower; the JAX package's ``"vmap"``),

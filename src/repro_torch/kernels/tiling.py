@@ -20,13 +20,16 @@ with no hidden layer (H = 0, one product) takes ``linear``; a two-layer
 call ``narrow`` where a 64-row tile's x and whole h fit a block, else
 ``wide``.
 
-hub_reuse has two routes, fixed by the call's widths and the card's SM
-count (:func:`hub_reuse_route`): ``resident`` stages an island's x and
-slot table in a block, for the calls one launch of it covers (C <= 128
-rows that fit) and, in 128-row chunks, for C past 128 where its grid
-fills most of the card; ``layered`` takes every other call in three
-launches over device memory (the first layer once for all cache rows,
-the second with H split where its tiles are few, the gather; its plan,
+hub_reuse has two forms, two layers and one (h = 0: y = x·W + b, the
+engine's lowering of every one-layer point-MLP), and two routes, fixed
+by the call's widths, its form and the card's SM count
+(:func:`hub_reuse_route`): ``resident`` stages an island's x and slot
+table in a block (and in two layers an h tile), for the calls one launch
+of it covers (C <= 128 rows that fit) and, in 128-row chunks, for C past
+128 where its grid fills most of the card; ``layered`` takes every other
+call over device memory (two layers: the first layer once for all cache
+rows, the second with H split where its tiles are few, the gather; one
+layer: x·W with D split where its tiles are few, the gather; its plan,
 :func:`hub_reuse_layered_plan`, depends on the SM count too).
 
 The formulas mirror the kernels' own (``smem_bytes`` and
@@ -215,41 +218,48 @@ def hub_reuse_launches(c: int, chunk: int = 128) -> list:
     return [min(chunk, c - c0) for c0 in range(0, c, chunk)]
 
 
-def _resident_smem(rows: int, m: int, k: int, d: int, live: bool) -> int:
+def _resident_smem(rows: int, m: int, k: int, d: int, live: bool,
+                   h: int | None = None) -> int:
     """Bytes of shared memory a resident block of ``rows`` cache rows
-    takes: the slot table and liveness, x (later y), h and the ring."""
+    takes: the slot table and liveness, x (later y), the h tile (none in
+    one layer, h = 0) and the ring."""
     k4 = round_up(k, 4)
     live_floats = (m * k + 15) // 16 * 4 if live else 0
     hs = 64 + 8                             # kHS
     xy = rows * max(_stride(round_up(d, 8)), hs)
-    return 4 * (m * k4 + live_floats + xy + rows * hs + 3 * 64 * (64 + 4))
+    h_tile = 0 if h == 0 else rows * hs
+    return 4 * (m * k4 + live_floats + xy + h_tile + 3 * 64 * (64 + 4))
 
 
 def hub_reuse_route(b: int, hn: int, c: int, m: int, k: int, d: int,
-                    f: int, sms: int) -> str:
+                    f: int, sms: int, h: int | None = None) -> str:
     """The route hub_reuse takes for b clouds of hn islands of C cache
-    rows, M subsets of K slots, widths D and F, on a card of ``sms`` SMs
-    (``hub_reuse.cu``: ``layered_route``): ``"resident"`` where one
+    rows, M subsets of K slots, widths D and F, in the form ``h`` names
+    (0: one layer; None or a width: two layers), on a card of ``sms``
+    SMs (``hub_reuse.cu``: ``layered_route``): ``"resident"`` where one
     resident launch covers the call (C <= 128 and a block of min(C, 128)
-    rows padded to 64 or 128, liveness counted, fits a block's shared
-    memory), or where C passes 128, a 128-row block fits and the
-    resident grid, b·hn·ceil(F/64) blocks, is at least 3/4 of the SMs
-    (PointNet++(c)'s block 2 at C = 256 and B = 8, 128 blocks: 0.063 ms
-    in two launches against the layered route's 0.080; at B = 4, 64
-    blocks, 0.064 against 0.047, on an H100); else ``"layered"``."""
+    rows padded to 64 or 128, liveness and the form's h tile counted,
+    fits a block's shared memory), or where C passes 128, a 128-row block
+    fits and the resident grid, b·hn·ceil(F/64) blocks, is at least 3/4
+    of the SMs (PointNet++(c)'s block 2 at C = 256 and B = 8, 128 blocks:
+    0.063 ms in two launches against the layered route's 0.080; at B =
+    4, 64 blocks, 0.064 against 0.047, on an H100); else ``"layered"``.
+    One layer's smaller block keeps 128 rows of D = 259 resident
+    (``pointnext_s``'s block 4 at cache_capacity_x = 4)."""
     if c <= CHUNKS[-1]:
         rows = 64 if c <= 64 else 128
-        return ("layered" if _resident_smem(rows, m, k, d, True) > MAX_SMEM
-                else "resident")
-    fits = _resident_smem(CHUNKS[-1], m, k, d, True) <= MAX_SMEM
+        return ("layered" if _resident_smem(rows, m, k, d, True, h)
+                > MAX_SMEM else "resident")
+    fits = _resident_smem(CHUNKS[-1], m, k, d, True, h) <= MAX_SMEM
     grid = b * hn * -(-f // 64)
     return "resident" if fits and 4 * grid >= 3 * sms else "layered"
 
 
-def _layered_reason(c: int, m: int, k: int, d: int) -> str:
+def _layered_reason(c: int, m: int, k: int, d: int,
+                    h: int | None = None) -> str:
     """Why a layered call is not resident."""
     rows = 64 if c <= 64 else 128
-    smem = _resident_smem(rows, m, k, d, True)
+    smem = _resident_smem(rows, m, k, d, True, h)
     if smem > MAX_SMEM:
         return (f"a resident block of {rows} rows takes {smem} B of shared "
                 f"memory, past a block's {MAX_SMEM}")
@@ -258,44 +268,54 @@ def _layered_reason(c: int, m: int, k: int, d: int) -> str:
 
 
 def hub_reuse_smem(c: int, m: int, k: int, d: int, live: bool = True,
-                   chunk: int = 128) -> int:
+                   chunk: int = 128, h: int | None = None) -> int:
     """Bytes of shared memory a resident block of the call's largest
-    launch (its first chunk's) takes at ``chunk`` (``hub_reuse.cu``:
-    ``smem_bytes``), with the liveness mask staged or without, as
-    ``hub_reuse_smem_bytes`` answers.  (A layered call's blocks take
-    :data:`LAYERED_SMEM`, as ``hub_reuse_plan`` answers.)"""
+    launch (its first chunk's) takes at ``chunk`` in the form ``h`` names
+    (0: one layer) (``hub_reuse.cu``: ``smem_bytes``), with the liveness
+    mask staged or without, as ``hub_reuse_smem_bytes`` answers.  (A
+    layered call's blocks take :data:`LAYERED_SMEM`, as
+    ``hub_reuse_plan`` answers.)"""
     rows = 64 if min(chunk, c) <= 64 else 128
-    return _resident_smem(rows, m, k, d, live)
+    return _resident_smem(rows, m, k, d, live, h)
 
 
-def hub_reuse_chunk(c: int, m: int, k: int, d: int) -> int | None:
-    """The heuristic's cache rows a resident launch: 128 where a 128-row
-    block fits (one launch for C <= 128), else 64 where a 64-row one
-    does, else None (no resident launch fits)."""
+def hub_reuse_chunk(c: int, m: int, k: int, d: int,
+                    h: int | None = None) -> int | None:
+    """The heuristic's cache rows a resident launch in the form ``h``
+    names: 128 where a 128-row block fits (one launch for C <= 128), else
+    64 where a 64-row one does, else None (no resident launch fits)."""
     for rows in reversed(CHUNKS):
         block = 64 if min(rows, c) <= 64 else 128
-        if _resident_smem(block, m, k, d, True) <= MAX_SMEM:
+        if _resident_smem(block, m, k, d, True, h) <= MAX_SMEM:
             return rows
     return None
 
 
 def hub_reuse_layered_plan(b: int, hn: int, c: int, h: int, f: int,
-                           sms: int) -> dict:
+                           sms: int, d: int = 0) -> dict:
     """What a layered call of b clouds of hn islands of C cache rows (H
     hidden, F out) launches on a card of ``sms`` SMs (``hub_reuse.cu``:
     ``layered::plan``): N = b·hn·C rows; layer 1's grid (64-row tiles,
     64-column tiles of H); layer 2's, H split into ``nsplit`` ranges of
     ``kper`` rows (ceil(sms / tiles) where its tiles are fewer than the
     SMs, at most one 64-row stage of H a range); the scratch floats (h,
-    then y's partials)."""
+    then y's partials).  In one layer (h = 0, ``d`` the input width
+    given) one GEMM, x·W: ``layer1`` its grid, D split as H is in two,
+    ``layer2`` None, the scratch y's partials alone."""
+    if h == 0 and d < 1:
+        raise ValueError("hub_reuse_layered_plan: one layer (h = 0) needs "
+                         "the input width d")
     n = b * hn * c
     t = LAYERED_TILE
     rt, ft = -(-n // t), -(-f // t)
     tiles = rt * ft
-    nch = -(-h // 64)
+    nch = -(-(h or d) // 64)
     want = 1 if tiles >= sms else -(-sms // tiles)
     per = -(-nch // min(want, nch))
     nsplit = -(-nch // per)
+    if h == 0:
+        return dict(n=n, layer1=(rt, ft, nsplit), layer2=None,
+                    nsplit=nsplit, kper=per * 64, scratch=nsplit * n * f)
     return dict(n=n, layer1=(rt, -(-h // t), 1), layer2=(rt, ft, nsplit),
                 nsplit=nsplit, kper=per * 64,
                 scratch=n * h + nsplit * n * f)
@@ -304,12 +324,13 @@ def hub_reuse_layered_plan(b: int, hn: int, c: int, h: int, f: int,
 def knobs_of(kernel: str, dims: dict, sms: int = H100_SMS) -> tuple:
     """The knobs that act on the call ``dims`` describes: ``("rows",)``
     on gather_mlp's narrow and linear routes, ``("nsplit",)`` on its wide
-    one,
-    ``("chunk",)`` on hub_reuse's resident route, none on its layered
-    one (on a card of ``sms`` SMs, an H100's by default)."""
+    one, ``("chunk",)`` on hub_reuse's resident route (either form), none
+    on its layered one (on a card of ``sms`` SMs, an H100's by
+    default)."""
     if kernel == "hub_reuse":
         way = hub_reuse_route(*(dims[n] for n in ("b", "hn", "c", "m", "k",
-                                                  "d", "f")), sms)
+                                                  "d", "f")), sms,
+                              h=dims.get("h"))
         return ("chunk",) if way == "resident" else ()
     way = route(dims["k"], dims["d"], dims["dc"], dims["h"], dims["f"])
     return ("nsplit",) if way == "wide" else ("rows",)
@@ -329,8 +350,11 @@ def infeasible(kernel: str, dims: dict, knobs: dict,
         if not isinstance(v, int) or isinstance(v, bool):
             return f"{name!r} must be an int, got {v!r}"
         if name not in knobs_of(kernel, dims, sms):
-            why = (f" ({_layered_reason(*(dims[n] for n in 'cmkd'))})"
-                   if kernel == "hub_reuse" else "")
+            why = ""
+            if kernel == "hub_reuse":
+                why = _layered_reason(*(dims[n] for n in "cmkd"),
+                                      dims.get("h"))
+                why = f" ({why})"
             return (f"{name!r} acts on {kernel}'s "
                     f"{' and '.join(KNOB_ROUTES[name])} route and this "
                     f"call takes another one{why}")
@@ -352,9 +376,10 @@ def infeasible(kernel: str, dims: dict, knobs: dict,
             if v not in CHUNKS:
                 return f"'chunk' must be one of {CHUNKS}, got {v}"
     if kernel == "hub_reuse" and knobs_of(kernel, dims, sms):
-        c, m, k, d = (dims[n] for n in ("c", "m", "k", "d"))
+        c, m, k, d, h = (dims.get(n) for n in ("c", "m", "k", "d", "h"))
         smem = hub_reuse_smem(c, m, k, d, True,
-                              knobs.get("chunk", hub_reuse_chunk(c, m, k, d)))
+                              knobs.get("chunk",
+                                        hub_reuse_chunk(c, m, k, d, h)), h)
         if smem > MAX_SMEM:
             return (f"a launch takes {smem} B of shared memory, past a "
                     f"block's {MAX_SMEM}")

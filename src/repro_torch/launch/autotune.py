@@ -63,7 +63,7 @@ def heuristic_knobs(kernel: str, dims: dict, sms: int) -> dict:
         if not tiling.knobs_of(kernel, dims, sms):      # the layered route
             return {}
         return {"chunk": tiling.hub_reuse_chunk(
-            *(dims[n] for n in ("c", "m", "k", "d")))}
+            *(dims[n] for n in ("c", "m", "k", "d")), dims.get("h"))}
     shape = [dims[n] for n in ("b", "s", "k", "d", "dc", "h", "f")]
     way = tiling.route(*shape[2:])
     if way == "linear":
@@ -131,7 +131,7 @@ def synth_cell_args(kernel: str, dims: dict, seed: int = 0, device=None):
         return torch.randn(shape, generator=g, device=dev) * scale
 
     b, d, h, f = dims["b"], dims["d"], dims["h"], dims["f"]
-    if h == 0:                  # gather_mlp's one layer (linear route)
+    if h == 0:                  # one layer (either kernel)
         weights = (r(d, f, scale=(2 / d) ** .5), r(f, scale=.1))
     else:
         weights = (r(d, h, scale=(2 / d) ** .5), r(h, scale=.1),

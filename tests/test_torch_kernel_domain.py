@@ -214,7 +214,8 @@ def test_every_zoo_hub_call_has_a_plan_the_k_rules_pass(zoo_hub_calls, x):
     """At cache_capacity_x 1, 2 and 4, every hub_reuse call of every
     published spec: C = x·k, the heuristic plan fits (``tiling.infeasible``
     None) and its launch site has no K001–K005 finding; block 4 of
-    pointnext_s and pointvector_l at x = 4 take the layered route."""
+    pointvector_l at x = 4 takes the layered route, and pointnext_s's
+    (D = 259, one layer: no h tile) fits a resident block."""
     from repro_torch.models import MODEL_ZOO
     for name in MODEL_ZOO:
         recs = zoo_hub_calls[name, x]
@@ -224,24 +225,27 @@ def test_every_zoo_hub_call_has_a_plan_the_k_rules_pass(zoo_hub_calls, x):
             assert dims["c"] == int(x * dims["k"]), (name, dims)
             assert tiling.infeasible("hub_reuse", dims, {}) is None
             assert plan["chunk"] == (tiling.hub_reuse_chunk(
-                dims["c"], dims["m"], dims["k"], dims["d"])
+                dims["c"], dims["m"], dims["k"], dims["d"], dims["h"])
                 if plan["route"] == "resident" else None)
             site = site_from_capture(rec, f"{name}:{x}:{i}", sms=132)
             assert check_kernel_site(site) == [], (name, x, dims)
     if x == 4.0:
-        for name in ("pointnext_s", "pointvector_l"):
-            assert zoo_hub_calls[name, x][-1]["plan"]["route"] == "layered"
+        assert zoo_hub_calls["pointvector_l", x][-1]["plan"]["route"] \
+            == "layered"
+        assert zoo_hub_calls["pointnext_s", x][-1]["plan"]["route"] \
+            == "resident"
 
 
-def _resident_bytes(rows, m, k, d):
+def _resident_bytes(rows, m, k, d, h):
     """hub_reuse.cu's resident block worked by hand: the slot table (K to
     4), its liveness bytes (to 16), x at a row stride of D to 8 then to 8
-    mod 32 (at least the 72 of y), h, and three 64 x 68 ring stages."""
+    mod 32 (at least the 72 of y), h (none in one layer, h = 0), and three
+    64 x 68 ring stages."""
     k4 = -(-k // 4) * 4
     dp = -(-d // 8) * 8
     xd = max(dp + (8 - dp) % 32, 72)
-    return 4 * (m * k4 + -(-m * k // 16) * 4 + rows * xd + rows * 72
-                + 3 * 64 * 68)
+    return 4 * (m * k4 + -(-m * k // 16) * 4 + rows * xd
+                + (rows * 72 if h else 0) + 3 * 64 * 68)
 
 
 @pytest.mark.parametrize("x", CACHE_X)
@@ -250,10 +254,11 @@ def test_zoo_hub_routes_follow_the_rule(zoo_hub_calls, x):
     4 (one cloud): the wrapper's plan, tiling.py's route and the
     analysis's site name one route, the one the kernel's rule gives
     worked by hand (resident where C <= 128 and a block of min(C, 128)
-    rows padded to 64 or 128 fits 227 KB, or where C > 128, 128 rows fit
-    and B·H·ceil(F/64) >= 3/4 of 132 SMs; else layered); a resident call
-    is one launch a 128 rows (``hub_reuse_launches``), a layered one a
-    plan whose H splits cover H."""
+    rows padded to 64 or 128, in the call's form, fits 227 KB, or where
+    C > 128, 128 rows fit and B·H·ceil(F/64) >= 3/4 of 132 SMs; else
+    layered); a resident call is one launch a 128 rows
+    (``hub_reuse_launches``), a layered one a plan whose splits cover H
+    (two layers) or D (one)."""
     layered = []
     for name, recs in ((n, zoo_hub_calls[n, y]) for n, y in zoo_hub_calls
                        if y == x):
@@ -261,13 +266,13 @@ def test_zoo_hub_routes_follow_the_rule(zoo_hub_calls, x):
             d = rec["dims"]
             c, m, k, dd, h = d["c"], d["m"], d["k"], d["d"], d["h"]
             fits = _resident_bytes(64 if c <= 64 else 128, m, k,
-                                   dd) <= 232448
+                                   dd, h) <= 232448
             grid = d["b"] * d["hn"] * -(-d["f"] // 64)
             fits = fits and (c <= 128 or 4 * grid >= 3 * 132)
             want = "resident" if fits else "layered"
             site = site_from_capture(rec, f"{name}:{x}", sms=132)
             assert (rec["plan"]["route"], tiling.hub_reuse_route(
-                d["b"], d["hn"], c, m, k, dd, d["f"], 132),
+                d["b"], d["hn"], c, m, k, dd, d["f"], 132, h=h),
                 site.launch["route"]) == (want,) * 3, (name, d)
             if fits:
                 assert tiling.hub_reuse_launches(c, rec["plan"]["chunk"]) \
@@ -276,14 +281,16 @@ def test_zoo_hub_routes_follow_the_rule(zoo_hub_calls, x):
             else:
                 layered.append(name)
                 lp = tiling.hub_reuse_layered_plan(d["b"], d["hn"], c, h,
-                                                   d["f"], 132)
-                assert (lp["nsplit"] - 1) * lp["kper"] < h <= \
+                                                   d["f"], 132, dd)
+                depth = h or dd
+                assert (lp["nsplit"] - 1) * lp["kper"] < depth <= \
                     lp["nsplit"] * lp["kper"]
                 assert site.launch["nsplit"] == lp["nsplit"]
     # at x = 4: block 2 of the PointNet++ specs (C = 256) and block 4 of
-    # pointnext_s and pointvector_l (128 rows of D = 259 / 387)
+    # pointvector_l (128 rows of D = 387, one layer); pointnext_s's block
+    # 4 (D = 259) fits a one-layer resident block
     assert sorted(set(layered)) == ([] if x < 4 else [
-        "pointnet2_c", "pointnet2_ps", "pointnext_s", "pointvector_l"])
+        "pointnet2_c", "pointnet2_ps", "pointvector_l"])
 
 
 # ---- ssd_chunk --------------------------------------------------------------
@@ -622,7 +629,8 @@ def _fault_tool_edits():
         spec.loader.exec_module(mod)
         if tool == "hub_reuse_variants":
             out.update({(tool, n): e for n, e in {
-                **mod.VARIANTS, **mod.LAYERED_VARIANTS}.items()})
+                **mod.VARIANTS, **mod.LAYERED_VARIANTS,
+                **mod.LINEAR_VARIANTS}.items()})
         else:
             out.update({(tool, n): [e[:3]] for n, e in mod.FAULTS.items()})
     return out
@@ -635,7 +643,7 @@ _FAULT_EDITS = _fault_tool_edits()
                          ids=lambda k: f"{k[0]}-{k[1]}")
 def test_hub_and_flash_tool_edits_apply_to_the_sources(key):
     """Each variant ``tools/hub_reuse_variants.py`` times (the resident
-    route's and the layered route's) and each fault
+    route's, the layered route's and the one-layer form's) and each fault
     ``tools/{hub_reuse,flash,flash_bwd}_planted_faults.py`` plants (the
     split route's sweeps and streamed kernels among them) is an edit of
     the committed sources whose text occurs exactly once."""
@@ -706,8 +714,9 @@ def test_hub_reuse_routes_match_plain_on_card(shape):
 @pytest.mark.cuda
 def test_zoo_hub_plans_match_the_library_on_card(zoo_hub_calls):
     """Every published spec's hub_reuse call at cache_capacity_x 1, 2 and
-    4: the built library's plan (route, H splits, scratch, shared memory)
-    equal to tiling.py's on this card."""
+    4, in the form the engine lowers it to: the built library's plan
+    (route, H or D splits, scratch, shared memory) equal to tiling.py's
+    on this card."""
     dev = _cuda()
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for (name, x), recs in zoo_hub_calls.items():
@@ -715,13 +724,13 @@ def test_zoo_hub_plans_match_the_library_on_card(zoo_hub_calls):
             d = rec["dims"]
             c, m, k, dd = d["c"], d["m"], d["k"], d["d"]
             route = tiling.hub_reuse_route(d["b"], d["hn"], c, m, k, dd,
-                                           d["f"], sms)
+                                           d["f"], sms, h=d["h"])
             want = dict(route=route, nsplit=0, scratch=0,
-                        smem=tiling.hub_reuse_smem(c, m, k, dd)
+                        smem=tiling.hub_reuse_smem(c, m, k, dd, h=d["h"])
                         if route == "resident" else tiling.LAYERED_SMEM)
             if route == "layered":
                 lp = tiling.hub_reuse_layered_plan(d["b"], d["hn"], c, d["h"],
-                                                   d["f"], sms)
+                                                   d["f"], sms, dd)
                 want.update(nsplit=lp["nsplit"], scratch=lp["scratch"])
             got = hub_ops.library_plan(d["b"], d["hn"], c, m, k, dd, d["h"],
                                        d["f"])

@@ -22,12 +22,15 @@ turns, each tree's whole lpcn forward of chip_smoke.py's
 the families phase's batch and seeded weights, from each tree's own
 chip_smoke.py): its ``breakdown`` (host-clock ms of stage 1, the FC
 stage and the tail, each ended by a device sync, best of 5) and the
-device time of its hub_reuse kernels a forward (torch.profiler, 3
-forwards).  ``--families`` times likewise each tree's lpcn forward of
-the four one-layer families and of pointnet2_s at the families phase's
-batch (``FAMILIES``, default cache size): its ``breakdown`` and the
-device time and count of its gather_mlp kernels a forward, by kernel
-name (torch.profiler, 3 forwards).  Needs one CUDA device.
+device time of its hub_reuse kernels a forward, in all and by kernel
+(torch.profiler, 3 forwards).  ``--families`` times likewise each tree's
+lpcn forward of the four one-layer families and of pointnet2_s at the
+families phase's batch (``FAMILIES``, default cache size): its
+``breakdown`` and the device time and count of its gather_mlp and of its
+hub_reuse kernels a forward, by kernel name (torch.profiler, 3
+forwards; hub_reuse's resident kernel by row tile and form, ``true``
+the one-layer one, and its layered kernels by name).  Needs one CUDA
+device.
 """
 from __future__ import annotations
 
@@ -63,10 +66,22 @@ for name, (kernel, args, mask) in calls.items():
         best = min(best, t0.elapsed_time(t1) / iters)
     print(json.dumps({"call": name, "ms": best}))
 """
+# the short name of a profiled FC kernel: gather_mlp's by its name,
+# hub_reuse's resident kernel with its template arguments (the row tile,
+# and the form where the tree has two: true for one layer) and its
+# layered kernels by name; None for any other kernel
+KIND = r"""
+import re
+def kind(name):
+    name = name.replace("(anonymous namespace)::", "")
+    m = re.search(r"gather_mlp\w*|hub_reuse_kernel<[^(]*>"
+                  r"|layered::\w+(<\w+>)?", name)
+    return None if m is None else m.group(0)
+"""
 # the child of --cache-x4: run in a tree's root, with that tree's
 # chip_smoke.py and repro_torch
-CHILD_X4 = r"""
-import json, torch
+CHILD_X4 = KIND + r"""
+import collections, json, torch
 import chip_smoke as cs
 from repro_torch.engine import PCNEngine
 from repro_torch.models import MODEL_ZOO
@@ -87,16 +102,22 @@ for name in cs.CACHE_X4_FAMILIES:
         for _ in range(3):
             eng.apply(params, batch)
         torch.cuda.synchronize()
-    hub = [e.device_time for e in prof.events()
-           if e.device_type == DeviceType.CUDA and (
-               "hub_reuse_kernel" in e.name or "layered::" in e.name)]
+    by = collections.defaultdict(float)
+    count = collections.Counter()
+    for e in prof.events():
+        k = kind(e.name)
+        if e.device_type == DeviceType.CUDA and k and "gather_mlp" not in k:
+            by[k] += e.device_time / 3 / 1e3
+            count[k] += 1
     print(json.dumps({"call": f"{name}_cache_x4", "b": b, "n": n, **ms,
-                      "hub_reuse_device_ms": sum(hub) / 3 / 1e3,
-                      "hub_reuse_kernels": len(hub) / 3}))
+                      "hub_reuse_device_ms": sum(by.values()),
+                      "hub_reuse_kernels": sum(count.values()) / 3,
+                      "hub_reuse_by_kernel_ms": dict(by)}))
 """
-# the child of --families: gather_mlp's device time a forward, by kernel
-CHILD_FAMILIES = r"""
-import collections, json, re, torch
+# the child of --families: gather_mlp's and hub_reuse's device time a
+# forward, by kernel
+CHILD_FAMILIES = KIND + r"""
+import collections, json, torch
 import chip_smoke as cs
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
@@ -120,16 +141,18 @@ for name in ("dgcnn_c", "dgcnn_s", "pointnext_s", "pointvector_l",
     by = collections.defaultdict(float)
     count = collections.Counter()
     for e in prof.events():
-        kind = re.search(r"gather_mlp\w*", e.name)
-        if e.device_type == DeviceType.CUDA and kind:
-            kind = kind.group(0)
-            by[kind] += e.device_time / 3 / 1e3
-            count[kind] += 1
-    print(json.dumps({"call": name, "b": b, "n": n, **ms,
-                      "gather_mlp_device_ms": sum(by.values()),
-                      "gather_mlp_by_kernel_ms": dict(by),
-                      "gather_mlp_kernels": {k: v / 3 for k, v in
-                                             count.items()}}))
+        k = kind(e.name)
+        if e.device_type == DeviceType.CUDA and k:
+            by[k] += e.device_time / 3 / 1e3
+            count[k] += 1
+    out = {"call": name, "b": b, "n": n, **ms}
+    for fc in ("gather_mlp", "hub_reuse"):
+        mine = [k for k in by if (k.startswith("gather_mlp")
+                                  == (fc == "gather_mlp"))]
+        out[f"{fc}_device_ms"] = sum(by[k] for k in mine)
+        out[f"{fc}_by_kernel_ms"] = {k: by[k] for k in mine}
+        out[f"{fc}_kernels"] = {k: count[k] / 3 for k in mine}
+    print(json.dumps(out))
 """
 
 

@@ -13,8 +13,11 @@ also forced to two 64-row chunks, for the fault in their merge) and at
 block 2's widths with C = 256 cache rows (``REUSE_C256``, two 128-row
 launches), the layered route at ``REUSE_DOMAIN`` (PointVector-L's block
 4 under the paper's cache size, whose second layer splits H three ways,
-and D = 700), at B = 2 there; and prints one JSON line per (fault,
-shape): max
+and D = 700), at B = 2 there, and the one-layer form at three of
+``REUSE_LINEAR``'s calls (DGCNN(c)'s block 4 and PointVector-L's at
+their batches, resident; PointVector-L's block 4 under the paper's cache
+size, layered, D split three ways);
+and prints one JSON line per (fault, shape): max
 |Δ| against ``hub_reuse_ref`` beside chip_smoke.py's limit 1e-4 · max(1,
 max|plain|), and whether the -BIG identity came out exactly.  Exits 1 if
 the unchanged sources break the limit or a fault passes it on a shape of
@@ -40,51 +43,81 @@ SMALL_WAVES = ("#pragma unroll\n"
                "#pragma unroll\n"
                "  for (int i = 0; i < N; ++i) mma(c[i], a.big, b[i].small);\n")
 # name -> (file, text, its replacement, the route it breaks: "resident",
-# "layered" or None for both); each text occurs once in its file
+# "layered" or None for both, and the form: "two" (layers), "one" or None
+# for both); each text occurs once in its file
 FAULTS = {
     # 1xTF32: the two small products dropped
-    "one_tf32_pass": ("tf32x3.cuh", SMALL_PASSES, "", "resident"),
-    "layered_one_tf32_pass": ("tf32x3.cuh", SMALL_WAVES, "", "layered"),
+    "one_tf32_pass": ("tf32x3.cuh", SMALL_PASSES, "", "resident", None),
+    "layered_one_tf32_pass": ("tf32x3.cuh", SMALL_WAVES, "", "layered",
+                              None),
     # the compensation not added
-    "comp_dropped": ("hub_reuse.cu", "-kBig : m + c;", "-kBig : m;", None),
+    "comp_dropped": ("hub_reuse.cu", "-kBig : m + c;", "-kBig : m;", None,
+                     None),
     # a subset with no live slot written as 0, not the merge identity
     "big_identity_as_zero": ("hub_reuse.cu", "-kBig : m + c;",
-                             "0.f : m + c;", None),
+                             "0.f : m + c;", None, None),
     # resident: y without the last 64-column chunk of h
     "last_hd_chunk_skipped": ("hub_reuse.cu",
                               "p.nchunk = (p.Hd + kNC - 1) / kNC;",
-                              "p.nchunk = (p.Hd - 1) / kNC;", "resident"),
+                              "p.nchunk = (p.Hd - 1) / kNC;", "resident",
+                              "two"),
     # resident: every cached slot live, live is not read
     "live_ignored": ("hub_reuse.cu", "(p.live == nullptr || lv[",
-                     "(true || lv[", "resident"),
+                     "(true || lv[", "resident", None),
     # resident, past one chunk: each chunk's launch overwrites the last's
     "merge_ignored": ("hub_reuse.cu",
                       "p.out[row + c] = p.merge ? fmaxf(p.out[row + c], v) "
-                      ": v;", "p.out[row + c] = v;", "resident"),
+                      ": v;", "p.out[row + c] = v;", "resident", None),
     # layered: layer 1 without its bias, or without its relu
     "layered_b1_dropped": ("hub_reuse.cu",
                            "const ly::Gemm g1{pool, w1, b1, h,",
                            "const ly::Gemm g1{pool, w1, nullptr, h,",
-                           "layered"),
+                           "layered", "two"),
     "layered_relu_dropped": ("hub_reuse.cu",
                              "ly::run_gemm<true>(g1, 1, st);",
-                             "ly::run_gemm<false>(g1, 1, st);", "layered"),
+                             "ly::run_gemm<false>(g1, 1, st);", "layered",
+                             "two"),
     # layered: each GEMM without its last, partial K stage
     "layered_last_k_stage": ("hub_reuse.cu",
                              "const int nst = (ke - kb + kKC - 1) / kKC;",
                              "const int nst = (ke - kb - 1) / kKC;",
-                             "layered"),
+                             "layered", None),
     # layered: the gather without layer 2's last H split
     "layered_last_split_dropped": ("hub_reuse.cu",
                                    "for (int s = 0; s < nsplit; ++s)",
                                    "for (int s = 0; s < nsplit - 1; ++s)",
-                                   "layered"),
+                                   "layered", None),
     # layered: every cached slot live
     "layered_live_ignored": ("hub_reuse.cu",
                              "(lvp == nullptr || lvp[k0 + lane] != 0)",
-                             "(true || lvp[k0 + lane] != 0)", "layered"),
+                             "(true || lvp[k0 + lane] != 0)", "layered", None),
+    # one layer, resident: y without W's last 64-row stage of D
+    "linear_last_d_stage": ("hub_reuse.cu",
+                            "const int nq = kLin ? p.n1 : p.nchunk * per;",
+                            "const int nq = kLin ? p.n1 - 1 : p.nchunk * "
+                            "per;", "resident", "one"),
+    # one layer, resident: every feature tile reads W's first 64 columns
+    "linear_first_w_tile": ("hub_reuse.cu",
+                            "load_stage<kThreads>(st, p.w1, p.D, p.F, "
+                            "q * kKC, f0, ft,",
+                            "load_stage<kThreads>(st, p.w1, p.D, p.F, "
+                            "q * kKC, 0, ft,", "resident", "one"),
+    # one layer, resident: y without b1
+    "linear_bias_dropped": ("hub_reuse.cu",
+                            "(kLin ? p.b1 : p.b2) + f0, ft, wm, wn,",
+                            "(kLin ? p.b1 : p.b2) + f0, kLin ? 0 : ft, wm, "
+                            "wn,", "resident", "one"),
+    # one layer, layered: x·W's first D split only
+    "linear_first_split_only": ("hub_reuse.cu",
+                                "err = ly::run_gemm<false>(g, pl.nsplit, "
+                                "st);",
+                                "err = ly::run_gemm<false>(g, 1, st);",
+                                "layered", "one"),
 }
 FILES = ("hub_reuse.cu", "tf32x3.cuh")
+# the one-layer calls of REUSE_LINEAR the faults run on
+LINEAR_CASES = ("dgcnn_c_blk4", "pointvector_l_blk4",
+                "pointvector_l_blk4_c128")
 
 
 def main() -> int:
@@ -109,7 +142,7 @@ def main() -> int:
     print(smi.splitlines()[0], flush=True)
     sound = {f: (_build.CSRC / f).read_text() for f in FILES}
     sources = {"none": sound}
-    for name, (fname, old, new, _) in FAULTS.items():
+    for name, (fname, old, new, _, _) in FAULTS.items():
         if sound[fname].count(old) != 1:
             raise RuntimeError(f"fault {name}: {old!r} occurs "
                                f"{sound[fname].count(old)} times in {fname}")
@@ -119,6 +152,7 @@ def main() -> int:
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(args.seed)
     ok = True
+    # (block, shape, B, forced chunk, form)
     cases = [(blk, shp, chip_smoke.B, None) for blk, shp in
              chip_smoke.REUSE.items()]
     cases.append(("blk2_chunk64", chip_smoke.REUSE["blk2"], chip_smoke.B,
@@ -127,7 +161,12 @@ def main() -> int:
               chip_smoke.REUSE_C256.items()]
     cases += [(blk, shp, 2, None) for blk, shp in
               chip_smoke.REUSE_DOMAIN.items()]
-    for blk, shp, b, chunk in cases:
+    cases = [(*case, "two") for case in cases]
+    cases += [(blk, dict(chip_smoke.REUSE_LINEAR[blk], h=0),
+               chip_smoke.REUSE_LINEAR[blk]["b"], None, "one")
+              for blk in LINEAR_CASES]
+    for blk, shp, b, chunk, form in cases:
+        shp = {n: v for n, v in shp.items() if n != "b"}
         pool, slot, comp, w1, b1, w2, b2, live = chip_smoke.reuse_inputs(
             gen, dev, b, **shp)
         ops = (pool, slot, comp, w1, b1, w2, b2)
@@ -144,6 +183,7 @@ def main() -> int:
             # the call, or on the forced chunks any fault but the merge's
             if name != "none" and (
                     FAULTS[name][3] not in (None, route)
+                    or FAULTS[name][4] not in (None, form)
                     or (name == "merge_ignored" and calls < 2)
                     or (chunk is not None and name != "merge_ignored")):
                 continue
@@ -159,6 +199,7 @@ def main() -> int:
             err = (out[~empty] - ref[~empty]).abs().max().item()
             breaks = not (identity and err <= tol)
             print(json.dumps(dict(fault=name, block=blk, route=route,
+                                  form=form,
                                   max_abs_err=err, tol=tol,
                                   big_identity_exact=identity,
                                   breaks=breaks)), flush=True)

@@ -2,7 +2,7 @@
 """Time text variants of the hub_reuse kernel side by side.
 
     python3 tools/hub_reuse_variants.py [--seed N] [--iters N]
-        [--only a,b] [--against DIR] [--layered]
+        [--only a,b] [--against DIR] [--layered | --linear]
 
 Builds copies of ``src/repro_torch/csrc/hub_reuse.cu`` and
 ``tf32x3.cuh`` with one edit each (under
@@ -19,11 +19,22 @@ part's cost; the others are alternatives the kernel does not take.
 ``--layered`` runs the layered route's shapes instead (chip_smoke.py's
 ``REUSE_C256`` at B = 8, 1, 2 and 4 and ``REUSE_DOMAIN`` at B = 2), each library
 through ``hub_reuse_layered`` (``LAYERED_VARIANTS``), beside the plain
-version (``plain``).  ``--against DIR`` adds another tree's
-``hub_reuse.cu`` (e.g. a parent commit's ``src/repro_torch/csrc``) as
-the variant ``against``, called as that tree's wrapper calls it: one
-launch a chunk of 128 cache rows, or of 64 where its 128-row launch is
-refused, each merged into the last.  Needs one CUDA device.
+version (``plain``).  ``--linear`` runs the one-layer form instead
+(chip_smoke.py's ``REUSE_LINEAR``: the families' one-layer calls at their
+batches and pointvector_l's block 4 under ``CACHE_X4``), each library
+called with (W, b) and Hd = 0 by its own plan (``LINEAR_VARIANTS``),
+beside the plain version (``plain``) and this tree's wrapper on the
+split-sign two-layer weights of the same block (``split_sign``: x·[W,
+−W] + [b, −b], relu, [I; −I], 0, Hd = 2F, the parent's lowering).
+``--against DIR`` adds another tree's ``hub_reuse.cu`` (e.g. a parent
+commit's ``src/repro_torch/csrc``) as the variant ``against``, called as
+that tree's wrapper calls it, by its own plan (``hub_reuse_plan``): the
+layered route with its scratch, or one resident launch a chunk of 128
+cache rows (64 where the 128-row launch is refused), each merged into
+the last; in ``--linear`` mode on the split-sign weights.  Outside
+``--linear`` each row also says whether its output equals ``against``'s
+bit for bit (``bit_equal_against``: the two-layer form's code is the
+parent's).  Needs one CUDA device.
 """
 from __future__ import annotations
 
@@ -133,15 +144,46 @@ LAYERED_VARIANTS = {
 }
 
 
-def parent_call(lib, ops, out, dims, stream):
-    """A call of another tree's ``hub_reuse_forward`` as its wrapper makes
-    it: one launch a chunk of 128 cache rows (64 where 128 is refused),
-    each merged into the last.  -> a zero-argument call."""
+# the one-layer form's: every call on the layered route (its rule's
+# other side: C <= 128 calls that fit a resident block); x·W without its
+# D split; 1xTF32 (wrong on purpose: what the small products cost); the
+# resident gather left out (wrong on purpose: the cost of the rest).
+# (VARIANTS' stage_rows_32 is the resident route's alone: the layered
+# GEMM's 64-row tiles overrun its 32-row stages.)
+LINEAR_VARIANTS = {
+    "committed": [],
+    "linear_layered_always": [("hub_reuse.cu",
+                               "  if (C <= kMaxC) return !fits;",
+                               "  if (C <= kMaxC) return true;")],
+    "linear_nsplit1": LAYERED_VARIANTS["layered_nsplit1"],
+    "one_pass": VARIANTS["one_pass"],
+    "no_gather": VARIANTS["no_gather"],
+}
+
+
+def library_call(lib, ops, out, dims, stream):
+    """A call of a built hub_reuse library as its tree's wrapper makes it,
+    by the library's own plan (``hub_reuse_plan``): the layered route
+    with the scratch it reports, or one resident launch a chunk of 128
+    cache rows (64 where 128 is refused), each merged into the last.  ops:
+    (pool, slot, comp, live, w1, b1, w2, b2), w2 and b2 None in one layer
+    (h = 0).  -> a zero-argument call returning the launch's code."""
+    import torch
     b, hn, c, m, k, d, h, f = dims
+    ptrs = [None if t is None else t.data_ptr() for t in (*ops, out)]
+    plan = (ctypes.c_longlong * 4)()
+    lib.hub_reuse_plan.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    if lib.hub_reuse_plan(*dims, plan) != 0:
+        raise RuntimeError(f"no plan for {dims}")
+    if plan[0] == 1:
+        scratch = torch.empty(plan[2], device=out.device)
+        fn = lib.hub_reuse_layered
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [
+            ctypes.c_void_p]
+        return lambda: fn(*ptrs, scratch.data_ptr(), *dims, stream)
     fwd = lib.hub_reuse_forward
     fwd.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 11 + [
         ctypes.c_void_p]
-    ptrs = [t.data_ptr() for t in (*ops, out)]
 
     def run(chunk):
         for c0 in range(0, c, chunk):
@@ -152,8 +194,68 @@ def parent_call(lib, ops, out, dims, stream):
         return 0
     chunk = 128 if run(128) == 0 else 64
     if chunk == 64 and run(64):
-        raise RuntimeError("against: its launches were refused")
+        raise RuntimeError(f"{dims}: its launches were refused")
     return lambda: run(chunk)
+
+
+def against_bits(outs: dict, name: str) -> dict:
+    """``bit_equal_against``: whether variant ``name``'s output equals the
+    ``against`` tree's bit for bit (where both ran)."""
+    import torch
+    if "against" not in outs or name not in outs:
+        return {}
+    return {"bit_equal_against": bool(torch.equal(outs[name],
+                                                  outs["against"]))}
+
+
+def linear(args, libs, dev) -> int:
+    """The one-layer form's shapes (see the module's doc)."""
+    import torch
+
+    import chip_smoke
+    from repro_torch.engine.fc import _split_sign
+    from repro_torch.kernels.hub_reuse import hub_reuse, hub_reuse_ref
+    gen = torch.Generator().manual_seed(args.seed)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for blk, shp in chip_smoke.REUSE_LINEAR.items():
+        pool, slot, comp, w, bias, _, _, live = chip_smoke.reuse_inputs(
+            gen, dev, h=0, **shp)
+        two = _split_sign(w, bias)
+        ref = hub_reuse_ref(pool, slot, comp, w, bias, live=live)
+        b, hn, c, m, k, d, f = (shp[n] for n in ("b", "hn", "c", "m", "k",
+                                                 "d", "f"))
+        fns = {"wrapper": lambda: hub_reuse(pool, slot, comp, w, bias,
+                                            live=live),
+               "plain": lambda: hub_reuse_ref(pool, slot, comp, w, bias,
+                                              live=live),
+               "split_sign": lambda: hub_reuse(pool, slot, comp, *two,
+                                               live=live)}
+        outs = {name: fns[name]() for name in ("wrapper", "split_sign")}
+        for name, so in libs.items():
+            lib = ctypes.CDLL(str(so))
+            out = torch.empty_like(ref)
+            if name == "against":
+                ops = (pool, slot, comp, live, *two)
+                dims = (b, hn, c, m, k, d, 2 * f, f)
+            else:
+                ops = (pool, slot, comp, live, w, bias, None, None)
+                dims = (b, hn, c, m, k, d, 0, f)
+            fns[name] = library_call(lib, ops, out, dims, stream)
+            if fns[name]() != 0:
+                raise RuntimeError(f"{name} {blk}: launch failed")
+            torch.cuda.synchronize()
+            outs[name] = out
+        ms = chip_smoke.time_turns(fns, iters=args.iters)
+        for name in fns:
+            row = dict(variant=name, block=blk, b=b, ms=ms[name])
+            if name in outs:
+                try:
+                    row["max_abs_err"], row["tol"] = chip_smoke.max_err(
+                        outs[name], ref)
+                except AssertionError:      # a variant wrong on purpose
+                    row["big_identity_exact"] = False
+            print(json.dumps(row), flush=True)
+    return 0
 
 
 def layered(args, libs, dev) -> int:
@@ -185,30 +287,15 @@ def layered(args, libs, dev) -> int:
         for name, so in libs.items():
             lib = ctypes.CDLL(str(so))
             out = torch.empty_like(ref)
-            if name == "against":
-                fns[name] = parent_call(lib, ops, out, dims, stream)
-            else:
-                plan = (ctypes.c_longlong * 4)()
-                lib.hub_reuse_plan.argtypes = [ctypes.c_int] * 8 + [
-                    ctypes.c_void_p]
-                lib.hub_reuse_plan(*dims, plan)
-                scratch = torch.empty(plan[2], device=dev)
-                fn = lib.hub_reuse_layered
-                fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [
-                    ctypes.c_void_p]
-                fns[name] = (lambda fn=fn, out=out, scratch=scratch: fn(
-                    *(t.data_ptr() for t in (*ops, out, scratch)), *dims,
-                    stream))
-                if fns[name]() != 0:      # a call its rule puts on resident
-                    print(json.dumps(dict(variant=name, block=blk, b=bb,
-                                          refused=True)), flush=True)
-                    del fns[name]
-                    continue
+            fns[name] = library_call(lib, ops, out, dims, stream)
+            if fns[name]() != 0:
+                raise RuntimeError(f"{name} {blk}: launch failed")
             torch.cuda.synchronize()
             outs[name] = out
         ms = chip_smoke.time_turns(fns, iters=args.iters)
         for name in fns:
-            row = dict(variant=name, block=blk, b=bb, ms=ms[name])
+            row = dict(variant=name, block=blk, b=bb, ms=ms[name],
+                       **against_bits(outs, name))
             if name in outs:
                 try:
                     row["max_abs_err"], row["tol"] = chip_smoke.max_err(
@@ -230,6 +317,8 @@ def main() -> int:
                          "the variant 'against'")
     ap.add_argument("--layered", action="store_true",
                     help="the layered route's shapes and variants")
+    ap.add_argument("--linear", action="store_true",
+                    help="the one-layer form's shapes and variants")
     args = ap.parse_args()
 
     import torch
@@ -249,7 +338,8 @@ def main() -> int:
     sound = {f: (_build.CSRC / f).read_text() for f in FILES}
     sources = {}
     only = set(filter(None, args.only.split(",")))
-    for name, edits in (LAYERED_VARIANTS if args.layered
+    for name, edits in (LAYERED_VARIANTS if args.layered else
+                        LINEAR_VARIANTS if args.linear
                         else VARIANTS).items():
         if only and name not in only:
             continue
@@ -273,6 +363,8 @@ def main() -> int:
     dev = torch.device("cuda")
     if args.layered:
         return layered(args, libs, dev)
+    if args.linear:
+        return linear(args, libs, dev)
     gen = torch.Generator().manual_seed(args.seed)
     stream = torch.cuda.current_stream(dev).cuda_stream
     for blk, shp in chip_smoke.REUSE.items():
@@ -282,7 +374,7 @@ def main() -> int:
             ops = (pool, slot, comp, w1, b1, w2, b2)
             ref = hub_reuse_ref(*ops, live=live)
             fns = {"wrapper": lambda: hub_reuse(*ops, live=live)}
-            errs = {"wrapper": (fns["wrapper"]() - ref).abs().max().item()}
+            outs = {"wrapper": fns["wrapper"]()}
             for name, so in libs.items():
                 lib = ctypes.CDLL(str(so))
                 fwd = lib.hub_reuse_forward
@@ -301,7 +393,7 @@ def main() -> int:
                 if call() != 0:
                     raise RuntimeError(f"{name}: launch failed")
                 torch.cuda.synchronize()
-                errs[name] = (out - ref).abs().max().item()
+                outs[name] = out
                 if name == "timeline":
                     print(json.dumps(dict(
                         variant=name, block=blk, b=bb,
@@ -309,9 +401,10 @@ def main() -> int:
                 fns[name] = call
             ms = chip_smoke.time_turns(fns, iters=args.iters)
             for name in fns:
-                print(json.dumps(dict(variant=name, block=blk, b=bb,
-                                      ms=ms[name], max_abs_err=errs[name])),
-                      flush=True)
+                print(json.dumps(dict(
+                    variant=name, block=blk, b=bb, ms=ms[name],
+                    max_abs_err=(outs[name] - ref).abs().max().item(),
+                    **against_bits(outs, name))), flush=True)
     return 0
 
 
