@@ -77,10 +77,13 @@ Phases, each timed, any failure exits non-zero:
      two-layer form, its route, chunk, D splits and shared memory equal in
      wrapper and library, and the one-layer resident kernels' ptxas
      spills (0) and TF32 HMMA count (nonzero); gather_mlp's linear route
-     against its plain
+     (3xTF32 ``wgmma``) against its plain
      version and timed at ``DENSE_LINEAR`` (the six blocks the wide
      route took before it, one narrow one-layer block and D = 700), its
-     row tile and shared memory equal in wrapper and library; the
+     row tile, shared memory and plan (ring stages, columns a block, x
+     by TMA or cp.async, scratch) equal in wrapper and library, and its
+     first kernel, W's split into TF32 halves, bit-equal to
+     ``split_weights_ref`` and timed; the
      two-layer wide route, which no published spec takes since, driven
      once with the launch counts reset and held and timed alike at
      ``DENSE_WIDE`` and ``WIDE_D`` (the split-sign two-layer form), its
@@ -252,7 +255,9 @@ ssd_chunk, ssd_chunk_bwd and flash_attention_bwd must not spill), the
 counts of HGMMA (wgmma) and HMMA (mma.sync) instructions in the built
 flash_attention and flash_attention_bwd libraries and of TF32 HMMA
 instructions in the gather_mlp, hub_reuse, ssd_chunk, ssd_chunk_bwd and
-flash_attention_bwd ones,
+flash_attention_bwd ones, ``gather_mlp_linear_sass`` (each of gather_mlp's
+linear kernels: registers, spills (0), TF32 HGMMA (nonzero) and TF32
+HMMA (0)),
 ``parity``,
 ``per_cloud`` and ``entry_parity``
 JSON lines, the serving reports (``serve_async``, ``serve_sync``,
@@ -288,7 +293,9 @@ flash_attention and ssd_chunk at the LM prefills' inputs; ``launches``
 counted per wrapper, in the async serving run for the FC kernels, over
 the families phase's counted forwards for the linear route, in the wide
 route's own drive for its rows (``families_launches`` beside: 0, no
-published spec takes it), in the entry phase for the
+published spec takes it), over the families phase's counted forwards
+for the linear route's W split (``split_weights``, one a linear
+launch), in the entry phase for the
 entry kernels' rows (``lm_launches`` beside them: the LM phase's counted
 prefills), in the LM phase for its rows, in the full-width training
 runs for ``flash_attention_bwd``'s and ``ssd_chunk_bwd``'s, and in phase
@@ -1284,7 +1291,8 @@ def families_phase(dev, seed, smi) -> dict:
     kernel), every logit against the "reference" backend on the card, seg
     padding rows exactly 0, and the forward's stages timed; dgcnn_c's
     stage 1 on the card against the CPU (every integer field equal); then
-    dgcnn_c once in traditional mode.  -> gather_mlp's launches by route
+    dgcnn_c once in traditional mode.  -> gather_mlp's launches by route,
+    the linear route's W splits (``split_weights``, one a linear launch)
     and hub_reuse's one-layer launches by route
     (``hub_reuse_<route>_linear``) over the counted forwards."""
     import torch
@@ -1294,7 +1302,8 @@ def families_phase(dev, seed, smi) -> dict:
     off_path = ("knn", "flash_attention", "flash_attention_bwd", "ssd_chunk",
                 "ssd_chunk_bwd")
     totals = dict.fromkeys(GATHER_ROUTES, 0)
-    totals.update(hub_reuse_resident_linear=0, hub_reuse_layered_linear=0)
+    totals.update(hub_reuse_resident_linear=0, hub_reuse_layered_linear=0,
+                  split_weights=0)
     for name, (b, n) in FAMILIES.items():
         spec = MODEL_ZOO[name][1]
         engine = PCNEngine(spec, mode="lpcn", fc_backend="cuda")
@@ -1311,8 +1320,13 @@ def families_phase(dev, seed, smi) -> dict:
         first_ms = (time.perf_counter() - t0) * 1e3
         launches = kernels.launch_counts()
         by_route = route_launches()
+        split = kernels.LAUNCHES["gather_mlp_split_weights"]
         forms = reuse_form_launches()
         nb = len(spec.blocks)
+        check(split == by_route["linear"],
+              f"{name}: {split} W splits for {by_route['linear']} linear "
+              f"launches, expected one each")
+        totals["split_weights"] += split
         check(launches["gather_mlp"] == launches["hub_reuse"] == nb
               and not any(launches[k] for k in off_path),
               f"{name}: launches {launches}, expected gather_mlp == "
@@ -1382,11 +1396,14 @@ def families_phase(dev, seed, smi) -> dict:
                        "gather_mlp": len(spec.blocks)},
           f"dgcnn_c traditional launches {launches}")
     by_route = route_launches()
+    split = kernels.LAUNCHES["gather_mlp_split_weights"]
     check(by_route == {**dict.fromkeys(GATHER_ROUTES, 0),
-                       "linear": len(spec.blocks)},
+                       "linear": len(spec.blocks)}
+          and split == len(spec.blocks),
           f"dgcnn_c traditional: gather_mlp launches by route {by_route}, "
-          f"expected every block on the linear route")
+          f"{split} W splits, expected every block on the linear route")
     totals["linear"] += by_route["linear"]
+    totals["split_weights"] += split
     check(bool(torch.isfinite(out).all()), "dgcnn_c traditional: non-finite")
     err, tol = close(out, trad_ref.apply(params, batch))
     check(err <= tol, f"dgcnn_c traditional: max|err| {err} > {tol}")
@@ -1471,58 +1488,99 @@ def wide_kernel_rows(dev, seed, families_launches) -> tuple[list, list]:
     return parity, rows
 
 
-def linear_kernel_rows(dev, seed, launches) -> tuple[list, list]:
+def linear_kernel_rows(dev, seed, launches,
+                       split_launches) -> tuple[list, list]:
     """gather_mlp's linear route at ``DENSE_LINEAR``: the wrapper's route,
-    row tile and shared memory equal to the library's, the kernel against
-    its plain version (1e-4 · max(1, max|plain|)) and twice bit-equal,
-    both timed in turns; the bound by the one layer's flops.  -> (parity
-    rows, kernel rows with ``launches``: the families phase's count of
-    the route, and the plan: grid, row tile)."""
+    row tile and shared memory and the library's plan (rows, F tiles,
+    columns a block, ring stages, x by TMA or cp.async, shared memory,
+    scratch; the heuristic's and each forced row tile's) equal to
+    tiling.py's, the kernel against its plain version
+    (1e-4 · max(1, max|plain|)) and twice bit-equal, both timed in turns;
+    the bound by the one layer's flops; the route's first kernel, W's
+    split into TF32 halves, bit-equal to ``split_weights_ref`` and timed
+    beside it, its bound by bytes.  -> (parity rows, kernel rows with
+    ``launches``: the families phase's count of the route, and of its W
+    splits (``split_launches``), and the plan)."""
     import torch
     from repro_torch.kernels import tiling
     from repro_torch.kernels.gather_mlp import gather_mlp, gather_mlp_ref
     from repro_torch.kernels.gather_mlp import ops
+    from repro_torch.kernels.gather_mlp.ref import split_weights_ref
     gen = torch.Generator().manual_seed(seed + 3)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     parity, rows = [], []
     for blk, shp in DENSE_LINEAR.items():
         b, s, k, d, dc, f = (shp[n] for n in ("b", "s", "k", "d", "dc", "f"))
         lp = tiling.linear_plan(b, s, k, f, sms)
+        ours = dict(lp, x_tma=int(tiling.linear_x_tma(d)),
+                    scratch=tiling.linear_scratch(d, f))
+        lib = ops.library_linear_plan(b, s, k, d, dc, f)
         got = dict(route=ops.library_route(k, d, dc, 0, f),
                    rows=ops.plan(b, s, k, d, dc, 0, f, dev)["rows"],
-                   smem=ops.library_smem(b, s, k, d, dc, 0, f))
-        check(got == dict(route="linear", rows=lp["rows"], smem=lp["smem"])
-              and ops.route(k, d, dc, 0, f) == "linear",
-              f"gather_mlp {blk}: the library's {got}, tiling.py's {lp}")
+                   smem=ops.library_smem(b, s, k, d, dc, 0, f),
+                   scratch=ops.library_scratch(b, s, k, d, dc, 0, f))
+        check(got == dict(route="linear", rows=lp["rows"], smem=lp["smem"],
+                          scratch=ours["scratch"])
+              and lib == ours and ops.route(k, d, dc, 0, f) == "linear",
+              f"gather_mlp {blk}: the library's {got} and plan {lib}, "
+              f"tiling.py's {ours}")
+        for tile in tiling.ROWS:                  # either row tile, forced
+            forced = dict(tiling.linear_plan(b, s, k, f, sms, tile),
+                          x_tma=ours["x_tma"], scratch=ours["scratch"])
+            got = ops.library_linear_plan(b, s, k, d, dc, f, tile)
+            check(got == forced and ops.library_smem(
+                b, s, k, d, dc, 0, f, tile) == forced["smem"],
+                  f"gather_mlp {blk} at {tile} rows: the library's plan "
+                  f"{got}, tiling.py's {forced}")
         raw, ctr, w, bias, _, _, mask = dense_inputs(gen, dev, **shp)
         args = (raw, ctr, w, bias)
         out = gather_mlp(*args, mask=mask)
         ref = gather_mlp_ref(*args, mask=mask)
+        halves = ops.split_weights(w)
         torch.cuda.synchronize()
         err, tol = max_err(out, ref)
         same = bool(torch.equal(out, gather_mlp(*args, mask=mask)))
+        split_same = bool(torch.equal(halves, split_weights_ref(w)))
         parity.append(dict(name="gather_mlp", block=blk, b=b,
                            masked=shp["masked"], route="linear",
-                           max_abs_err=err, tol=tol, bit_equal=same))
+                           max_abs_err=err, tol=tol, bit_equal=same,
+                           split_weights_bit_equal=split_same))
         check(err <= tol, f"gather_mlp {blk}: max|err| {err} > {tol}")
         check(same, f"gather_mlp {blk}: two calls differ")
+        check(split_same, f"gather_mlp {blk}: W's split differs from "
+              f"split_weights_ref")
         ms, plain_ms = time_pair(lambda: gather_mlp(*args, mask=mask),
                                  lambda: gather_mlp_ref(*args, mask=mask),
                                  iters=10)
         flops = 2 * b * s * k * d * f
         moved = nbytes(*args, mask, out)
         bms, by = bound(3 * flops, moved, PEAK_TF32)
+        shape = (f"B={b} S={s} K={k} D={d} Dc={dc} F={f} one layer "
+                 f"masked={shp['masked']}")
         rows.append(dict(
             name="gather_mlp", block=blk, route="cuda",
-            variant="mma_tf32x3_linear", tflops=flops / ms / 1e9,
+            variant="wgmma_tf32x3_linear", tflops=flops / ms / 1e9,
             bound_fp32_ms=bound(flops, moved)[0],
             source="src/repro_torch/csrc/gather_mlp.cu",
             replaces="src/repro/kernels/gather_mlp/gather_mlp.py:239",
-            shape=f"B={b} S={s} K={k} D={d} Dc={dc} F={f} one layer "
-                  f"masked={shp['masked']}",
-            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-            bound_by=by, library_ms=None, launches=launches,
-            plan=dict(lp, grid=[lp["groups"], lp["nft"]])))
+            shape=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms=bms, bound_by=by, library_ms=None, launches=launches,
+            plan=dict(ours, grid=[lp["groups"] * lp["nft"]],
+                      x_by="tma" if ours["x_tma"] else "cp.async")))
+        split_ms, split_plain_ms = time_pair(
+            lambda: ops.split_weights(w), lambda: split_weights_ref(w),
+            iters=10)
+        sbms, sby = bound(0, nbytes(w, halves))
+        rows.append(dict(
+            name="gather_mlp", block=blk, route="cuda",
+            variant="split_weights", part="the linear route's first "
+            "kernel: W into its TF32 halves in scratch",
+            source="src/repro_torch/csrc/gather_mlp.cu",
+            replaces="src/repro/kernels/gather_mlp/gather_mlp.py:239",
+            shape=f"D={d} F={f} -> {tuple(halves.shape)}", max_abs_err=0.0,
+            bit_equal=split_same, ms=split_ms, plain_ms=split_plain_ms,
+            bound_ms=sbms, bound_by=sby, library_ms=None,
+            launches=split_launches))
     return parity, rows
 
 
@@ -1604,6 +1662,41 @@ def reuse_linear_rows(dev, seed, totals, x4_launches) -> tuple[list, list]:
             split_sign_over_ms=t["split_sign"] / t["kernel"],
             plan=dict(ours, chunk=pl["chunk"])))
     return parity, rows
+
+
+def sass_by_function(name: str, *words: str) -> dict:
+    """Instructions of the built ``name`` library whose SASS line holds
+    every one of ``words``, by kernel (mangled name; ``cuobjdump -sass``
+    once)."""
+    from repro_torch.kernels import _build
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass",
+                           str(_build.library_path(name))], check=True,
+                          capture_output=True, text=True).stdout
+    out, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            out.setdefault(fn, 0)
+        elif fn and all(w in line for w in words):
+            out[fn] += 1
+    return out
+
+
+def gather_linear_sass() -> dict:
+    """The linear route's product kernels of the built gather_mlp library
+    (``gather_mlp_linear_kernel<NC, N>``: both row tiles, four widths):
+    each one's registers and spills (ptxas), and its TF32 HGMMA (wgmma)
+    and TF32 HMMA (mma.sync) counts (SASS)."""
+    from repro_torch import kernels
+    hgmma = sass_by_function("gather_mlp", "HGMMA", "TF32")
+    hmma = sass_by_function("gather_mlp", "HMMA", "TF32")
+    return {row["kernel"]: dict(registers=row["registers"],
+                                spill=row["spill"],
+                                hgmma_tf32=hgmma.get(row["kernel"], 0),
+                                hmma_tf32=hmma.get(row["kernel"], 0))
+            for row in ptxas_kernels(kernels.BUILD_LOG["gather_mlp"])
+            if "gather_mlp_linear_kernel" in row["kernel"]}
 
 
 def linear_sass() -> dict:
@@ -4359,6 +4452,14 @@ def main() -> int:
         hmma = sass_count(name, "HMMA", "TF32")
         log(f"sass {name}: {hmma} HMMA TF32 instructions")
         check(hmma > 0, f"the {name} library has no TF32 HMMA (mma.sync)")
+    dense_linear = gather_linear_sass()
+    log(json.dumps({"gather_mlp_linear_sass": dense_linear}))
+    check(len(dense_linear) == 8 and all(
+        r["spill"] == 0 and r["hgmma_tf32"] > 0 and r["hmma_tf32"] == 0
+        for r in dense_linear.values()),
+          f"gather_mlp's linear kernels (two row tiles, four widths): "
+          f"{dense_linear}, expected no spill, TF32 HGMMA and no TF32 HMMA "
+          f"in each")
     one_layer = linear_sass()
     log(json.dumps({"hub_reuse_linear_sass": one_layer}))
     check(len(one_layer) == 2 and all(
@@ -4454,7 +4555,8 @@ def main() -> int:
     wide_parity, wide_rows = wide_kernel_rows(dev, args.seed,
                                               family_routes["wide"])
     linear_parity, linear_rows = linear_kernel_rows(
-        dev, args.seed, family_routes["linear"])
+        dev, args.seed, family_routes["linear"],
+        family_routes["split_weights"])
     reuse_parity, reuse_rows = reuse_linear_rows(
         dev, args.seed, family_routes, x4_families["pointvector_l"])
     phases["route_kernels_s"] = time.perf_counter() - t

@@ -316,6 +316,9 @@ def _gather_mlp_site(dims, plan, where, sms, card):
     if plan.get("route") not in (None, way):
         mismatch.append(f"route {plan['route']} launched, {way} derived")
     if way == "linear":
+        # two kernels a call: W split into its TF32 halves in scratch,
+        # then the product; the site holds the product's grid (row-tile
+        # groups, F tiles)
         lp = tiling.linear_plan(bb, s, k, f, sms,
                                 (plan.get("rows") or 0) if forced else 0)
         rows, spt = lp["rows"], lp["spt"]
@@ -326,11 +329,17 @@ def _gather_mlp_site(dims, plan, where, sms, card):
             grid=(nb, lp["groups"], lp["nft"]),
             semantics=(PARALLEL, PARALLEL, PARALLEL),
             out_shape=(nb, bb * s, f),
-            out_block=(1, spt, tiling.LINEAR_COLS),
+            out_block=(1, spt, lp["n"]),
             out_map=lambda p: [(p[0], p[1], p[2])], smem=lp["smem"],
-            launch=dict(route=way, **lp),
+            launch=dict(route=way, **lp, kernels=2,
+                        scratch=tiling.linear_scratch(d, f)),
             preconditions=[
                 (f"row tile {rows} in {tiling.ROWS}", rows in tiling.ROWS),
+                (f"{lp['n']} columns a block, a multiple of "
+                 f"{tiling.LINEAR_TILE_COLS} and at most "
+                 f"{tiling.LINEAR_MAX_COLS}",
+                 lp["n"] % tiling.LINEAR_TILE_COLS == 0
+                 and 0 < lp["n"] <= tiling.LINEAR_MAX_COLS),
                 (f"{spt} subsets of {max(k, 1)} rows fit a {rows}-row tile",
                  spt * max(k, 1) <= rows or spt == 1)],
             coverage=[
@@ -393,6 +402,13 @@ def _gather_mlp_site(dims, plan, where, sms, card):
     if card:
         from ..kernels.gather_mlp import ops
         site.smem_library = ops.library_smem(bb, s, k, d, dc, h, f, *knobs)
+        if way == "linear":
+            lib = ops.library_linear_plan(bb, s, k, d, dc, f, knobs[0])
+            ours = {n: site.launch[n] for n in ops.LINEAR_PLAN
+                    if n != "x_tma"}
+            if lib is None or {n: lib[n] for n in ours} != ours:
+                mismatch.append(f"linear plan {lib} from the library, "
+                                f"{ours} derived")
         if way == "wide":
             lib = ops.library_plan(bb, s, k, d, dc, h, f, knobs[1])
             ours = {n: site.launch[n] for n in ops.PLAN}

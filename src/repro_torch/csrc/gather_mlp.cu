@@ -53,7 +53,9 @@
 // the linear route (namespace linear below).
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
+#include "sm90_tf32.cuh"
 #include "tf32x3.cuh"
 
 namespace {
@@ -68,6 +70,7 @@ constexpr int kKC = 32;                  // rows of W per ring stage
 constexpr int kWS = kNC + 4;             // stage row stride (≡ 4 mod 16)
 constexpr float kBig = 3.4e38f;          // the max-pool identity of the JAX code
 constexpr int kMaxSmem = 232448;         // a block's shared-memory limit
+constexpr int kSmemSM = 233472;          // an SM's
 
 struct Params {
   const float* raw;
@@ -899,331 +902,555 @@ int launch(Plan w, float* scratch, void* stream) {
 //
 //     out = max over live k of (x[k] W + b)                    (F,)
 //
-// with x formed as above.  A GEMM of B·S·K rows, F columns and depth D:
-// a block takes a tile of R = 128 rows (64 where 128-row tiles times the
-// F tiles would give fewer than two blocks an SM) by 128 output columns
-// (grid: row tiles x F tiles).  Whole subsets are packed K rows apart with
-// no padding (K = 20: 6 to 120 rows), so the tile's rows are one
-// contiguous run of raw's rows; a subset longer than R loops over row
-// tiles with a running max.  raw's columns, W's rows and the tile's
-// centers stream over D together through a two-stage cp.async ring of
-// 32-deep slices (one barrier a stage), so any D fits and x is read once
-// per F tile.  The centers are subtracted in registers as each A
-// fragment is loaded (a pass over the slice before the barrier took 17 %
-// more time at dgcnn_c block 4, where Dc = D, on an H100).  The product runs on mma.sync in
-// 3xTF32 (tf32x3.cuh), 8 warps as 4 x 2 (128 rows) or 2 x 4 (64 rows), y
-// in registers.  The epilogue stores y over the ring, and a thread a
-// (subset, column) takes the max over the subset's live rows and adds b
-// once (max(y) + b = max(y + b): rounding is monotone); a subset with no
-// live row gives 0.  out is written directly: no scratch, no second
-// kernel.
+// with x formed as above.  A GEMM of B·S·K rows, F columns and depth D,
+// held to 1e-4 of fp32, so 3xTF32 (tf32x3.cuh's split, three products,
+// small ones first).
 //
 // What bounds it: the product, 2·B·S·K·D·F flops, three TF32 passes at
 // the 495 TFLOP/s peak; dgcnn_c block 4 at B = 8 (163,840 rows, D = F =
-// 256) is 21.5 GFLOP, 0.130 ms, against 0.056 ms of bytes.  The two-layer
-// form of the same block (x [W, -W], relu, [I; -I]) does 4x the flops.
+// 256) is 21.5 GFLOP, 0.130 ms, against 0.056 ms of bytes.  Only wgmma
+// reaches that peak, and wgmma takes B from shared memory, K-major only
+// for TF32, reading its fp32 bit pattern with the low 13 bits cut off.
+// So, in two kernels a call:
+//   * split_weights_kernel writes W once into device scratch as two
+//     halves, big = rna(W) and small = rna(W - big), each F_pad rows of
+//     D_pad (K-major: row n holds column n of W), zero past D and F.
+//     Within each 8-group of k, logical k sits at position
+//     (k % 2) * 4 + k / 2, so that wgmma's k slots t and t + 4 of a
+//     thread's A fragment are x's columns 2t and 2t + 1: one 8-byte load.
+//   * gather_mlp_linear_kernel: a work item is a tile of R = 128 rows
+//     (two consumer warpgroups, 64 rows each; 64 rows and one where
+//     128-row tiles would leave a quarter of the blocks idle) by N output
+//     columns, N the whole F up to 256 (so x crosses DRAM once; past 256,
+//     F tiles of at most 256, a row group's tiles adjacent in the item
+//     order, so the repeated x reads hit L2).  Whole subsets are packed K
+//     rows apart (K = 20: 6 to 120 rows); a subset longer than R loops
+//     over row tiles with a running max.  One block an SM (two at N = 64)
+//     walks the items (persistent), so the ring runs on from one item
+//     into the next.  A
+//     producer warpgroup fills a ring of 16-deep stages (as many as fit,
+//     up to 8) behind full / empty mbarriers: both W halves by TMA (a
+//     16 x N box each, 64-byte swizzle); x by TMA where its rows are
+//     16-byte multiples (a 24 x R box, so the slice's row stride keeps
+//     the A loads free of bank conflicts), else by cp.async (PointNeXt's
+//     D = 35 ... 387, DGCNN block 1's 6); the centers by cp.async;
+//     zero-filled past the rows and D.  Each consumer loads its A
+//     fragments from the x slice, subtracts the centers there, splits
+//     big / small in registers and issues, per k8 step, three
+//     wgmma.m64nNk8 .tf32 (small·big, big·small, big·big) into N/2 fp32
+//     accumulators a thread; the two warpgroups take turns on the tensor
+//     cores, so one loads its next fragments while the other's products
+//     run.  No block-wide barrier in the loop; a row tile's mask and bias
+//     are read a tile ahead.
+//   * The epilogue stages y 64 columns at a time in its own buffer (the
+//     ring keeps filling meanwhile), and a thread a (subset, column)
+//     takes the max over the subset's live rows and adds b once (max(y)
+//     + b = max(y + b): rounding is monotone); a subset with no live row
+//     gives 0.  out is written directly.
 namespace linear {
 
-constexpr int kBK = 32;                  // depth of a ring stage
-constexpr int kStages = 2;               // ring stages (one in flight)
-constexpr int kBN = kNC;                 // output columns a block
-constexpr int kXS = kBK + 8;             // x and center slices' row stride
-                                         // (≡ 8 mod 32)
-constexpr int kYS = kBN + 8;             // y tile row stride (≡ 8 mod 32)
+constexpr int kBK = 16;                  // depth of a ring stage
+constexpr int kXS = kBK + 8;             // x slice row stride (float2 A
+                                         // loads: 4 rows hit 32 banks)
+constexpr int kCS = kBK;                 // centers slice row stride
+constexpr int kMaxN = 256;               // output columns a block
+constexpr int kTileN = 64;               // N is a multiple of it
+constexpr int kYC = 64;                  // y's columns staged at a time
+constexpr int kYS = kYC + 8;             // y's row stride (≡ 8 mod 32)
+constexpr int kMaxStages = 8;
+constexpr int kCenterThreads = 32;       // producers of the centers where
+                                         // x goes by TMA
+constexpr bool kXByTma = true;           // x by TMA where D % 4 == 0
 
 struct LinParams {
   const float* raw;
   const float* ctr;
   const uint8_t* mask;
-  const float* w;          // D x F
-  const float* b;          // F
+  const float* b;
   float* out;
   long long bs;            // B * S subsets
+  long long rows;          // B * S * K rows of raw
   int K, D, Dc, F;
   int spt, n_tiles;        // subsets a tile (1 where K > R), tiles a subset
-  int nk, Dp;              // ring stages over D, D to 8
-  int x_vec, w_vec, c_vec; // 16-byte copies allowed
+  int nft, items;          // F tiles, row-tile groups x F tiles
+  int nk;                  // ring stages over D
+  int stages, stage_bytes;
+  int x_tma, x_vec, c_vec; // x by TMA; 16-byte copies of x, of the centers
 };
 
-// floats of a ring stage: the x slice, W's rows, the spt centers' slice
-__host__ __device__ constexpr int stage_floats(int R, int spt) {
-  return R * kXS + kBK * kWS + spt * kXS;
+__host__ __device__ constexpr int round_up(int n, int m) {
+  return (n + m - 1) / m * m;
 }
 
-// floats of the shared memory: the row tables (3R ints), the running max
-// (kBN), then the ring, which y overlays in the epilogue
-__host__ __device__ constexpr int smem_floats(int R, int spt) {
-  return 3 * R + kBN + (kStages * stage_floats(R, spt) > R * kYS
-                            ? kStages * stage_floats(R, spt)
-                            : R * kYS);
+// bytes of a ring stage: both W halves (N rows of 64 bytes each), the x
+// slice, the spt centers' slice
+__host__ __device__ constexpr int stage_bytes(int R, int N, int spt) {
+  return round_up(2 * N * kBK * 4 + R * kXS * 4 + spt * kCS * 4, 1024);
 }
 
-// tf32x3::load_a's fragment of x - c: the rows' centers from cs (row
-// stride kXS), s0 and s1 the subset slots of rows g and g + 8
-__device__ __forceinline__ Frag<4> load_a_centered(const float* xs,
-                                                   const float* cs,
-                                                   int row0, int k0, int s0,
-                                                   int s1, int lane) {
-  const int col = k0 + 2 * (lane & 3);
-  const float* px = xs + (row0 + (lane >> 2)) * kXS + col;
-  const float2 lo = *reinterpret_cast<const float2*>(px);
-  const float2 hi = *reinterpret_cast<const float2*>(px + 8 * kXS);
-  const float2 clo = *reinterpret_cast<const float2*>(cs + s0 * kXS + col);
-  const float2 chi = *reinterpret_cast<const float2*>(cs + s1 * kXS + col);
-  const float v[4] = {lo.x - clo.x, hi.x - chi.x, lo.y - clo.y,
-                      hi.y - chi.y};
-  Frag<4> f;
-  tf32x3::split(f, v);
-  return f;
+// bytes after the ring: y's staging (R x kYS), the barriers (full and
+// empty a stage), the live rows (one a consumer thread, 2R), the running
+// max and its live flags, the tile's bias (kMaxN: one a consumer thread
+// and column)
+__host__ __device__ constexpr int tail_bytes(int R, int N) {
+  return R * kYS * 4 + 8 * 2 * kMaxStages + 8 * R + 8 * N + 4 * kMaxN;
 }
 
-template <class L>
-__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
-gather_mlp_linear_kernel(const LinParams p) {
-  constexpr int R = L::kR, NT = L::kNT;
-  const int ST = stage_floats(R, p.spt);
-  extern __shared__ __align__(16) float smem_l[];
-  int* rowsub = reinterpret_cast<int*>(smem_l);        // R: subset slot, -1
-  int* rowlive = rowsub + R;                           // R
-  int* anyl = rowlive + R;                             // R: a live row
-  float* pool = smem_l + 3 * R;                        // kBN (n_tiles > 1)
-  float* ring = pool + kBN;                            // kStages x ST
-  float* ys = ring;                                    // R x kYS, at the end
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp / L::kWN, wn = warp % L::kWN;
-  const int g = lane >> 2, t = lane & 3;
-  const bool multi = p.n_tiles > 1;       // one subset over several tiles
-  const int Kp = p.K > 0 ? p.K : 1;
-  const long long sub0 = (long long)blockIdx.x * p.spt;
-  const int f0 = blockIdx.y * kBN, ft = min(kBN, p.F - f0);
-  const int nc8 = (ft + 7) & ~7;
-
-  for (int e = tid; e < kBN; e += kThreads) pool[e] = -kBig;
-  for (int e = tid; e < R; e += kThreads) anyl[e] = 0;
-  float acc[kMT][NT][4];
-  for (int it = 0; it < p.n_tiles; ++it) {
-    // the tile's rows are raw's rows row0 .. row0 + R (packed K apart)
-    const long long row0 = sub0 * p.K + (multi ? (long long)it * R : 0);
-    __syncthreads();                      // the last tile done with smem
-    for (int r = tid; r < R; r += kThreads) {
-      const int sl = multi ? 0 : r / Kp;
-      const int k = multi ? it * R + r : r % Kp;
-      const bool valid = sl < p.spt && k < p.K && sub0 + sl < p.bs;
-      const bool lv = valid && (p.mask == nullptr || p.mask[row0 + r] != 0);
-      rowsub[r] = valid ? sl : -1;
-      rowlive[r] = lv;
-      if (lv) anyl[sl] = 1;
-    }
-    __syncthreads();
-    // the subset slots of this warp's rows g and g + 8 of each m16 tile
-    // (slot 0 for a row past the subsets: its y is never pooled)
-    int slot[kMT][2];
-#pragma unroll
-    for (int mt = 0; mt < kMT; ++mt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        slot[mt][h] = max(rowsub[(wm * kMT + mt) * 16 + g + 8 * h], 0);
-
-    // stage q: raw's columns and W's rows [32q, 32q + 32), W's columns
-    // [f0, f0 + nc8), the centers' columns [32q, 32q + 32) where below
-    // Dc; rows past the subsets, columns past D or Dc and W's rows past D
-    // zero
-    auto issue = [&](int q) {
-      float* xs = ring + (q % kStages) * ST;
-      float* ws = xs + R * kXS;
-      float* cs = ws + kBK * kWS;
-      const int d0 = q * kBK;
-      for (int e = tid; e < R * (kBK / 4); e += kThreads) {
-        const int r = e / (kBK / 4), c = (e % (kBK / 4)) * 4, d = d0 + c;
-        float* o = xs + r * kXS + c;
-        const bool ok = rowsub[r] >= 0;
-        const float* src = p.raw + (row0 + r) * p.D + d;
-        if (p.x_vec && ok && d < p.D) {
-          tf32x3::cp_async16(o, src);
-        } else {
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            if (ok && d + i < p.D) tf32x3::cp_async4(o + i, src + i);
-            else o[i] = 0.f;
-          }
-        }
-      }
-      for (int e = tid; e < kBK * (kBN / 4); e += kThreads) {
-        const int r = e / (kBN / 4), c = (e % (kBN / 4)) * 4, kr = d0 + r;
-        if (c >= nc8) continue;
-        float* o = ws + r * kWS + c;
-        const float* src = p.w + (size_t)kr * p.F + f0 + c;
-        if (p.w_vec && kr < p.D && c < ft) {
-          tf32x3::cp_async16(o, src);
-        } else {
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            if (kr < p.D && c + i < ft) tf32x3::cp_async4(o + i, src + i);
-            else o[i] = 0.f;
-          }
-        }
-      }
-      if (d0 >= p.Dc) return;
-      for (int e = tid; e < p.spt * (kBK / 4); e += kThreads) {
-        const int sl = e / (kBK / 4), c = (e % (kBK / 4)) * 4, d = d0 + c;
-        float* o = cs + sl * kXS + c;
-        const bool ok = sub0 + sl < p.bs;
-        const float* src = p.ctr + (sub0 + sl) * p.Dc + d;
-        if (p.c_vec && ok && d < p.Dc) {
-          tf32x3::cp_async16(o, src);
-        } else {
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            if (ok && d + i < p.Dc) tf32x3::cp_async4(o + i, src + i);
-            else o[i] = 0.f;
-          }
-        }
-      }
-    };
-
-#pragma unroll
-    for (int mt = 0; mt < kMT; ++mt)
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[mt][j][i] = 0.f;
-#pragma unroll
-    for (int q = 0; q < kStages - 1; ++q) {
-      if (q < p.nk) issue(q);
-      tf32x3::cp_async_commit();          // one group a stage, empty or not
-    }
-    for (int q = 0; q < p.nk; ++q) {
-      tf32x3::cp_async_wait<kStages - 2>();  // this thread's copies of q
-      __syncthreads();                    // stage q for all; q - 1's slot free
-      if (q + kStages - 1 < p.nk) issue(q + kStages - 1);
-      tf32x3::cp_async_commit();
-      const float* xs = ring + (q % kStages) * ST;
-      const float* ws = xs + R * kXS;
-      const float* cs = ws + kBK * kWS;
-      const bool centered = q * kBK < p.Dc;  // the slice holds center lanes
-      const int steps = min(kBK, p.Dp - q * kBK) / 8;
-#pragma unroll
-      for (int s = 0; s < kBK / 8; ++s) {
-        if (s >= steps) break;
-        Frag<4> af[kMT];
-#pragma unroll
-        for (int mt = 0; mt < kMT; ++mt) {
-          const int r0 = (wm * kMT + mt) * 16;
-          af[mt] = centered ? load_a_centered(xs, cs, r0, s * 8,
-                                              slot[mt][0], slot[mt][1], lane)
-                            : tf32x3::load_a(xs, kXS, r0, s * 8, lane);
-        }
-#pragma unroll
-        for (int j = 0; j < NT; ++j) {
-          const int n0 = (wn + L::kWN * j) * 8;
-          if (n0 >= nc8) continue;
-          const Frag<2> bf = tf32x3::load_b(ws, kWS, s * 8, n0, lane);
-          // the kMT tiles' products in waves: no product waits on the one
-          // just issued to its accumulator
-#pragma unroll
-          for (int mt = 0; mt < kMT; ++mt)
-            tf32x3::mma(acc[mt][j], af[mt].small, bf.big);
-#pragma unroll
-          for (int mt = 0; mt < kMT; ++mt)
-            tf32x3::mma(acc[mt][j], af[mt].big, bf.small);
-#pragma unroll
-          for (int mt = 0; mt < kMT; ++mt)
-            tf32x3::mma(acc[mt][j], af[mt].big, bf.big);
-        }
-      }
-    }
-
-    // ---- y over the ring, then a thread a (subset, column) -------------
-    tf32x3::cp_async_wait<0>();           // only empty groups are left
-    __syncthreads();                      // every warp done with the ring
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int c = (wn + L::kWN * j) * 8 + 2 * t;
-      if (c >= nc8) continue;
-#pragma unroll
-      for (int mt = 0; mt < kMT; ++mt) {
-        float* row = ys + ((wm * kMT + mt) * 16 + g) * kYS + c;
-        const float* v = acc[mt][j];
-        *reinterpret_cast<float2*>(row) = make_float2(v[0], v[1]);
-        *reinterpret_cast<float2*>(row + 8 * kYS) = make_float2(v[2], v[3]);
-      }
-    }
-    __syncthreads();
-    if (multi) {                          // a running max across tiles
-      const int rows = min(R, p.K - it * R);
-      for (int c = tid; c < ft; c += kThreads) {
-        float m = pool[c];
-        for (int r = 0; r < rows; ++r)
-          if (rowlive[r]) m = fmaxf(m, ys[r * kYS + c]);
-        pool[c] = m;
-      }
-    } else {
-      for (int e = tid; e < p.spt * ft; e += kThreads) {
-        const int sl = e / ft, c = e % ft;
-        if (sub0 + sl >= p.bs) continue;
-        float m = -kBig;
-        for (int k = 0; k < p.K; ++k) {
-          const int r = sl * Kp + k;
-          if (rowlive[r]) m = fmaxf(m, ys[r * kYS + c]);
-        }
-        p.out[(sub0 + sl) * p.F + f0 + c] =
-            anyl[sl] ? m + __ldg(p.b + f0 + c) : 0.f;
-      }
-    }
-  }
-  if (multi) {
-    __syncthreads();
-    for (int c = tid; c < ft; c += kThreads)
-      p.out[sub0 * p.F + f0 + c] = anyl[0] ? pool[c] + __ldg(p.b + f0 + c)
-                                           : 0.f;
-  }
+// Blocks an SM by the columns a block takes: two at N = 64, where a
+// tile's products are short and a second block hides one's epilogue and
+// latencies; else one (shared memory allows no more).
+__host__ __device__ constexpr int blocks_per_sm(int N) {
+  return N <= kTileN ? 2 : 1;
 }
 
-size_t smem_bytes(int R, int spt) {
-  return sizeof(float) * smem_floats(R, spt);
+// The setmaxnreg split of the registers between the producer and the
+// two consumer warpgroups: 40 + 2 x 96 of 3 x 80 at two blocks of 384
+// threads an SM (N = 64), 56 + 2 x 224 of 3 x 168 at one.  One consumer
+// keeps what it has (a block of 256 threads).
+template <int N>
+struct Regs {
+  static constexpr int kProducer = blocks_per_sm(N) == 2 ? 40 : 56;
+  static constexpr int kConsumer = blocks_per_sm(N) == 2 ? 96 : 224;
+};
+
+// a block's shared-memory budget: a block's limit, or half an SM's less
+// its reserved 1 KB at two blocks an SM
+__host__ __device__ constexpr int smem_budget(int N) {
+  return blocks_per_sm(N) == 2 ? kSmemSM / 2 - 1024 : kMaxSmem;
+}
+
+// stages of the ring: as many as fit the budget, at most kMaxStages
+__host__ __device__ constexpr int ring_stages(int R, int N, int spt) {
+  return (smem_budget(N) - 1024 - tail_bytes(R, N)) /
+                     stage_bytes(R, N, spt) < kMaxStages
+             ? (smem_budget(N) - 1024 - tail_bytes(R, N)) /
+                   stage_bytes(R, N, spt)
+             : kMaxStages;
+}
+
+// F tiles and the columns a block takes: F in ceil(F / 256) tiles, each
+// rounded up to a multiple of 64
+int f_tiles(int F) { return (F + kMaxN - 1) / kMaxN; }
+int cols(int F) {
+  const int nft = f_tiles(F);
+  return round_up((F + nft - 1) / nft, kTileN);
 }
 
 // Subsets a tile of R rows
 int subsets(int K, int R) { return K <= R ? R / (K > 0 ? K : 1) : 1; }
 
-// Row tiles a launch at R rows takes: row-tile groups x F tiles
-long long blocks(long long bs, int K, int F, int R) {
-  return (bs + subsets(K, R) - 1) / subsets(K, R) * ((F + kBN - 1) / kBN);
+size_t smem_bytes(int R, int N, int spt) {
+  return 1024 + ring_stages(R, N, spt) * stage_bytes(R, N, spt) +
+         tail_bytes(R, N);
 }
 
-// The heuristic's rows per tile: 64 where 128-row tiles would give fewer
-// than two blocks an SM, else 128
-int row_tile(long long bs, int K, int F, int sms) {
-  return blocks(bs, K, F, 128) < (long long)kBlocksPerSM * sms ? 64 : 128;
+// W's halves: each F_pad = F tiles x N rows of D_pad = D to 16
+size_t scratch_bytes(int D, int F) {
+  return 2 * sizeof(float) * (size_t)f_tiles(F) * cols(F) *
+         round_up(D, kBK);
 }
+
+// W (D x F, row-major) into its halves at out (two F_pad x D_pad blocks,
+// big then small), a 32 x 32 tile a block through shared memory
+__global__ void __launch_bounds__(256)
+split_weights_kernel(const float* __restrict__ w, float* __restrict__ out,
+                     int D, int F, int Dp, int Fp) {
+  __shared__ float tile[32][33];
+  const int k0 = blockIdx.x * 32, n0 = blockIdx.y * 32;
+  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
+  for (int i = ty; i < 32; i += 8) {
+    const int k = k0 + i, n = n0 + tx;
+    tile[i][tx] = k < D && n < F ? w[(size_t)k * F + n] : 0.f;
+  }
+  __syncthreads();
+  for (int i = ty; i < 32; i += 8) {
+    const int n = n0 + i, pos = k0 + tx;
+    if (n >= Fp || pos >= Dp) continue;
+    const int j = pos & 7;               // position j holds k 2 (j % 4) + j / 4
+    const float v = tile[(tx & ~7) | ((j & 3) * 2 + (j >> 2))][i];
+    const uint32_t big = tf32x3::to_tf32(v);
+    const uint32_t small = tf32x3::to_tf32(v - __uint_as_float(big));
+    out[(size_t)n * Dp + pos] = __uint_as_float(big);
+    out[((size_t)Fp + n) * Dp + pos] = __uint_as_float(small);
+  }
+}
+
+int split_weights(const float* w, float* out, int D, int F,
+                  cudaStream_t stream) {
+  const int Dp = round_up(D, kBK), Fp = f_tiles(F) * cols(F);
+  const dim3 grid((Dp + 31) / 32, (Fp + 31) / 32);
+  split_weights_kernel<<<grid, 256, 0, stream>>>(w, out, D, F, Dp, Fp);
+  return (int)cudaGetLastError();
+}
+
+// ties the fragments' definitions to this point (no instruction)
+__device__ __forceinline__ void fence_frags(tf32x3::Frag<4> (&af)[kBK / 8]) {
+#pragma unroll
+  for (int j = 0; j < kBK / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      asm volatile("" : "+r"(af[j].big[i]), "+r"(af[j].small[i])::"memory");
+}
+
+// Consumer warpgroups 0 .. NC - 1 take 64 rows each of the R = 64 NC row
+// tile; warpgroup NC is the producer.
+template <int NC, int N>
+__global__ void __launch_bounds__(128 * (NC + 1), blocks_per_sm(N))
+gather_mlp_linear_kernel(const __grid_constant__ CUtensorMap wmap,
+                         const __grid_constant__ CUtensorMap xmap,
+                         const LinParams p) {
+  constexpr int R = 64 * NC, kCons = 128 * NC;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const int S = p.stages, ST = p.stage_bytes;
+  float* ys = reinterpret_cast<float*>(smem + S * ST);     // R x kYS
+  uint64_t* full = reinterpret_cast<uint64_t*>(ys + R * kYS);
+  uint64_t* empty = full + kMaxStages;
+  int* rowlive = reinterpret_cast<int*>(empty + kMaxStages);  // kCons
+  float* pool = reinterpret_cast<float*>(rowlive + kCons);    // N
+  int* pany = reinterpret_cast<int*>(pool + N);               // N
+  float* bsm = reinterpret_cast<float*>(pany + N);            // kMaxN: b
+  const bool multi = p.n_tiles > 1;       // one subset over several tiles
+  const int Kp = p.K > 0 ? p.K : 1;
+  // the producer threads that copy: all where x goes by cp.async, else
+  // the centers' (thread 0 also issues the TMA copies)
+  const int copiers = p.x_tma ? kCenterThreads : 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      sm90::mbar_init(full + s, copiers + 1);  // their copies, the TMA
+      sm90::mbar_init(empty + s, 4 * NC);      // a consumer warp each
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kCons) {
+    // ---- producer: W (and x) by TMA, x or the centers by cp.async ------
+    if constexpr (NC == 2)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(
+          Regs<N>::kProducer));
+    const int pt = threadIdx.x - kCons;
+    if (pt >= copiers) return;
+    const int tx = 2 * N * kBK * 4 + (p.x_tma ? R * kXS * 4 : 0);
+    int qg = 0;
+    for (int item = blockIdx.x; item < p.items; item += gridDim.x) {
+      const long long sub0 = (long long)(item / p.nft) * p.spt;
+      const int f0 = (item % p.nft) * N;
+      for (int it = 0; it < p.n_tiles; ++it) {
+        const long long row0 = sub0 * p.K + (multi ? (long long)it * R : 0);
+        // rows of the tile that hold its subsets' points (the rest zero)
+        const long long left = multi ? p.K - (long long)it * R
+                                     : min((long long)p.spt, p.bs - sub0) *
+                                           p.K;
+        const int nrows = (int)min((long long)R, left);
+        for (int q = 0; q < p.nk; ++q, ++qg) {
+          const int s = qg % S;
+          sm90::mbar_wait(empty + s, ((qg / S) & 1) ^ 1);
+          uint8_t* st = smem + s * ST;
+          float* xs = reinterpret_cast<float*>(st + 2 * N * kBK * 4);
+          float* cs = xs + R * kXS;
+          const int d0 = q * kBK;
+          if (pt == 0) {
+            sm90::mbar_expect_tx(full + s, tx);
+            sm90::tma_load(st, &wmap, full + s, d0, f0, 0);
+            sm90::tma_load(st + N * kBK * 4, &wmap, full + s, d0, f0, 1);
+            if (p.x_tma)
+              sm90_tf32::tma_load_2d(xs, &xmap, full + s, d0, (int)row0);
+          }
+          if (!p.x_tma) {
+            for (int e = pt; e < R * (kBK / 4); e += 128) {
+              const int r = e / (kBK / 4), c = (e % (kBK / 4)) * 4;
+              const int d = d0 + c;
+              float* o = xs + r * kXS + c;
+              const float* src = p.raw + (row0 + r) * p.D + d;
+              if (p.x_vec) {
+                const bool ok = r < nrows && d < p.D;
+                sm90_tf32::cp_async16_fill(o, ok ? src : p.raw, ok ? 16 : 0);
+              } else {
+#pragma unroll
+                for (int i = 0; i < 4; ++i) {
+                  const bool ok = r < nrows && d + i < p.D;
+                  sm90_tf32::cp_async4_fill(o + i, ok ? src + i : p.raw,
+                                            ok ? 4 : 0);
+                }
+              }
+            }
+          }
+          if (d0 < p.Dc) {
+            for (int e = pt; e < p.spt * (kBK / 4); e += copiers) {
+              const int sl = e / (kBK / 4), c = (e % (kBK / 4)) * 4;
+              const int d = d0 + c;
+              float* o = cs + sl * kCS + c;
+              const bool in = sub0 + sl < p.bs;
+              const float* src = p.ctr + (sub0 + sl) * p.Dc + d;
+              if (p.c_vec) {
+                const bool ok = in && d < p.Dc;
+                sm90_tf32::cp_async16_fill(o, ok ? src : p.ctr, ok ? 16 : 0);
+              } else {
+#pragma unroll
+                for (int i = 0; i < 4; ++i) {
+                  const bool ok = in && d + i < p.Dc;
+                  sm90_tf32::cp_async4_fill(o + i, ok ? src + i : p.ctr,
+                                            ok ? 4 : 0);
+                }
+              }
+            }
+          }
+          sm90_tf32::cp_async_arrive(full + s);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: 64 rows each, three products a k8 step -------------
+    if constexpr (NC == 2)
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(
+          Regs<N>::kConsumer));
+    const int ct = threadIdx.x, lane = ct & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int ra = 16 * (ct >> 5) + g;     // rows ra and ra + 8 of mine
+    // this block's row tiles: item blockIdx.x + (j / n_tiles) gridDim.x,
+    // row tile j % n_tiles
+    const int tiles = (p.items - blockIdx.x + gridDim.x - 1) / gridDim.x *
+                      p.n_tiles;
+    // row ct's liveness and columns ct, ct + kCons's bias in tile j, read
+    // a tile ahead (their loads run under the tile before); without
+    // branches (loads from clamped addresses, then selects), so that no
+    // compiler-inserted warpgroup arrive lands in a divergent path
+    constexpr int kNB = (N + kCons - 1) / kCons;
+    auto ahead = [&](int j, int& live, float (&bias)[kNB]) {
+      const int item = blockIdx.x + (j / p.n_tiles) * gridDim.x;
+      const int it = j % p.n_tiles, f0 = (item % p.nft) * N;
+      const long long sub0 = (long long)(item / p.nft) * p.spt;
+      const long long row0 = sub0 * p.K + (multi ? (long long)it * R : 0);
+      const int sl = multi ? 0 : ct / Kp;
+      const int k = multi ? it * R + ct : ct % Kp;
+      const int valid = (ct < R) & (sl < p.spt) & (k < p.K) &
+                        (sub0 + sl < p.bs);
+      int m = 1;
+      if (p.mask != nullptr && p.rows > 0)
+        m = p.mask[min(row0 + ct, p.rows - 1)] != 0;
+      live = valid & m;
+#pragma unroll
+      for (int i = 0; i < kNB; ++i) {
+        const int c = f0 + ct + i * kCons;
+        const float v = __ldg(p.b + min(c, p.F - 1));
+        bias[i] = (ct + i * kCons < N) & (c < p.F) ? v : 0.f;
+      }
+    };
+    float acc[N / 2];
+    int qg = 0, live_next = 0;
+    float bias_next[kNB] = {};
+    if (tiles > 0) ahead(0, live_next, bias_next);
+    for (int j = 0; j < tiles; ++j) {
+      const int item = blockIdx.x + (j / p.n_tiles) * gridDim.x;
+      const int it = j % p.n_tiles;
+      const long long sub0 = (long long)(item / p.nft) * p.spt;
+      const int f0 = (item % p.nft) * N, ft = min(N, p.F - f0);
+      const int live = live_next;
+      float bias[kNB];
+#pragma unroll
+      for (int i = 0; i < kNB; ++i) bias[i] = bias_next[i];
+      if (j + 1 < tiles) ahead(j + 1, live_next, bias_next);
+      if (multi && it == 0) {
+        for (int c = ct; c < N; c += kCons) pool[c] = -kBig, pany[c] = 0;
+      }
+      // the centers' slots of rows ra and ra + 8 (the last slot for a
+      // row past the subsets: its y is never pooled)
+      const int s0 = multi ? 0 : min(ra / Kp, p.spt - 1);
+      const int s1 = multi ? 0 : min((ra + 8) / Kp, p.spt - 1);
+#pragma unroll
+      for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+      for (int q = 0; q < p.nk; ++q, ++qg) {
+        const int s = qg % S;
+        const uint8_t* st = smem + s * ST;
+        const float* xs = reinterpret_cast<const float*>(st + 2 * N * kBK * 4);
+        const float* cs = xs + R * kXS;
+        const bool centered = q * kBK < p.Dc;  // the slice holds center lanes
+        sm90::mbar_wait(full + s, (qg / S) & 1);
+        // both k8 steps, past D too (x, the centers and W are zero there):
+        // no branch between the fence and the products, where ptxas would
+        // add a warpgroup arrive and serialize them
+        tf32x3::Frag<4> af[kBK / 8];
+#pragma unroll
+        for (int k8 = 0; k8 < kBK / 8; ++k8) {
+          const float* px = xs + ra * kXS + 8 * k8 + 2 * t;
+          float2 lo = *reinterpret_cast<const float2*>(px);
+          float2 hi = *reinterpret_cast<const float2*>(px + 8 * kXS);
+          if (centered) {
+            const float2 c0 = *reinterpret_cast<const float2*>(
+                cs + s0 * kCS + 8 * k8 + 2 * t);
+            const float2 c1 = *reinterpret_cast<const float2*>(
+                cs + s1 * kCS + 8 * k8 + 2 * t);
+            lo.x -= c0.x, lo.y -= c0.y, hi.x -= c1.x, hi.y -= c1.y;
+          }
+          const float v[4] = {lo.x, hi.x, lo.y, hi.y};
+          tf32x3::split(af[k8], v);
+        }
+        const uint32_t wb = sm90::smem_u32(st);
+        const uint32_t wsm = wb + N * kBK * 4;
+        // acc and the fragments defined before the fence, likewise
+        sm90::fence_regs(acc);
+        fence_frags(af);
+        sm90::wgmma_fence();
+#pragma unroll
+        for (int k8 = 0; k8 < kBK / 8; ++k8) {
+          sm90_tf32::wgmma_tf32(acc, af[k8].small,
+                                sm90_tf32::desc_sw64(wb + 32 * k8), 1);
+          sm90_tf32::wgmma_tf32(acc, af[k8].big,
+                                sm90_tf32::desc_sw64(wsm + 32 * k8), 1);
+          sm90_tf32::wgmma_tf32(acc, af[k8].big,
+                                sm90_tf32::desc_sw64(wb + 32 * k8), 1);
+        }
+        sm90::wgmma_commit();
+        sm90::wgmma_wait();
+        sm90::fence_regs(acc);
+        sm90_tf32::mbar_arrive_lane0(empty + s, 1);
+      }
+
+      // ---- y 64 columns at a time, a thread a (subset, column) ---------
+      for (int cc = 0; cc * kYC < ft; ++cc) {
+        // chunk cc's registers, selected by constant indices (a runtime
+        // index would move acc to local memory)
+#pragma unroll
+        for (int i = 0; i < N / 2; i += 4) {
+          if (i / (kYC / 2) != cc) continue;
+          float* row = ys + ra * kYS + 8 * (i / 4) - cc * kYC + 2 * t;
+          *reinterpret_cast<float2*>(row) = make_float2(acc[i], acc[i + 1]);
+          *reinterpret_cast<float2*>(row + 8 * kYS) =
+              make_float2(acc[i + 2], acc[i + 3]);
+        }
+        if (cc == 0) {                    // no branch on ct (see ahead)
+          rowlive[ct] = live;
+#pragma unroll
+          for (int i = 0; i < kNB; ++i) bsm[ct + i * kCons] = bias[i];
+        }
+        sm90_tf32::named_sync(1, kCons);
+        const int nc = min(kYC, ft - cc * kYC), c0 = cc * kYC;
+        // the max over rows r0 .. r0 + n of column c, live rows only
+        // (loads unconditional: every staged row is finite)
+        auto pooled = [&](int r0, int n, int c, float& m, int& any) {
+#pragma unroll 4
+          for (int r = r0; r < r0 + n; ++r) {
+            const float v = ys[r * kYS + c];
+            const int lv = rowlive[r];
+            m = lv ? fmaxf(m, v) : m;
+            any |= lv;
+          }
+        };
+        if (multi) {                      // a running max across tiles
+          const int rows = min(R, p.K - it * R);
+          for (int c = ct; c < nc; c += kCons) {
+            float m = pool[c0 + c];
+            int any = pany[c0 + c];
+            pooled(0, rows, c, m, any);
+            pool[c0 + c] = m;
+            pany[c0 + c] = any;
+          }
+        } else {
+          for (int e = ct; e < p.spt * nc; e += kCons) {
+            const int sl = e / nc, c = e % nc;
+            if (sub0 + sl >= p.bs) continue;
+            float m = -kBig;
+            int any = 0;
+            pooled(sl * Kp, p.K, c, m, any);
+            p.out[(sub0 + sl) * p.F + f0 + c0 + c] =
+                any ? m + bsm[c0 + c] : 0.f;
+          }
+        }
+        sm90_tf32::named_sync(1, kCons);  // y and the tables read
+      }
+      if (multi && it == p.n_tiles - 1) {
+        for (int c = ct; c < ft; c += kCons)
+          p.out[sub0 * p.F + f0 + c] = pany[c] ? pool[c] + bsm[c] : 0.f;
+        sm90_tf32::named_sync(1, kCons);  // the pool and bias read
+      }
+    }
+  }
+}
+
+// The heuristic's rows per tile: 64 where 128-row tiles times the F tiles
+// would give fewer items than 3/4 of the persistent grid's blocks, else
+// 128 (on an H100, 128 rows won at 128 and 256 items, 64 at 32, 48 and
+// 64, against the other tile in the same turns)
+int row_tile(long long bs, int K, int F, int sms) {
+  const long long items = (bs + subsets(K, 128) - 1) / subsets(K, 128) *
+                          f_tiles(F);
+  return 4 * items < 3LL * blocks_per_sm(cols(F)) * sms ? 64 : 128;
+}
+
+// Whether x goes by TMA: the policy, and a row stride of 16-byte
+// multiples (raw's alignment is checked at the launch)
+bool x_by_tma(int D) { return kXByTma && D % 4 == 0; }
 
 LinParams make(const float* raw, const float* ctr, const uint8_t* mask,
-               const float* w, const float* b, float* out, long long bs,
-               int K, int D, int Dc, int F, int R) {
-  LinParams p{raw, ctr, mask, w, b, out, bs, K, D, Dc, F};
+               const float* b, float* out, long long bs, int K, int D,
+               int Dc, int F, int R) {
+  LinParams p{raw, ctr, mask, b, out, bs, bs * K, K, D, Dc, F};
+  const int N = cols(F);
   p.spt = subsets(K, R);
   p.n_tiles = K <= R ? 1 : (K + R - 1) / R;
-  p.Dp = (D + 7) & ~7;
-  p.nk = (p.Dp + kBK - 1) / kBK;
+  p.nft = f_tiles(F);
+  p.items = (int)((bs + p.spt - 1) / p.spt * p.nft);
+  p.nk = (D + kBK - 1) / kBK;
+  p.stages = ring_stages(R, N, p.spt);
+  p.stage_bytes = stage_bytes(R, N, p.spt);
+  p.x_tma = x_by_tma(D) && reinterpret_cast<uintptr_t>(raw) % 16 == 0;
   p.x_vec = D % 4 == 0 && reinterpret_cast<uintptr_t>(raw) % 16 == 0;
-  p.w_vec = F % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
   p.c_vec = Dc % 4 == 0 && reinterpret_cast<uintptr_t>(ctr) % 16 == 0;
   return p;
 }
 
-template <class L>
-int launch(const LinParams& p, void* stream) {
-  const size_t smem = smem_bytes(L::kR, p.spt);
+template <int NC, int N>
+int launch_tile(const LinParams& p, const CUtensorMap& wmap,
+                const CUtensorMap& xmap, cudaStream_t stream) {
+  constexpr int R = 64 * NC;
+  const size_t smem = smem_bytes(R, N, p.spt);
   cudaError_t err = cudaFuncSetAttribute(
-      gather_mlp_linear_kernel<L>,
+      gather_mlp_linear_kernel<NC, N>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)((p.bs + p.spt - 1) / p.spt),
-                  (p.F + kBN - 1) / kBN);
-  gather_mlp_linear_kernel<L><<<grid, kThreads, smem,
-                                (cudaStream_t)stream>>>(p);
+  const int grid = min(p.items, blocks_per_sm(N) * sm_count());
+  gather_mlp_linear_kernel<NC, N><<<grid, 128 * (NC + 1), smem, stream>>>(
+      wmap, xmap, p);
   return (int)cudaGetLastError();
+}
+
+template <int NC>
+int launch_cols(const LinParams& p, const CUtensorMap& wmap,
+                const CUtensorMap& xmap, cudaStream_t stream) {
+  switch (cols(p.F)) {
+    case 64: return launch_tile<NC, 64>(p, wmap, xmap, stream);
+    case 128: return launch_tile<NC, 128>(p, wmap, xmap, stream);
+    case 192: return launch_tile<NC, 192>(p, wmap, xmap, stream);
+    case 256: return launch_tile<NC, 256>(p, wmap, xmap, stream);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// W split into scratch (scratch_bytes(D, F)), then the product
+int launch(const LinParams& p, const float* w, float* scratch, int R,
+           void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  // the rows and the items are TMA coordinates and a grid's ints
+  if (scratch == nullptr || p.rows >= (1LL << 31) ||
+      (p.bs + p.spt - 1) / p.spt * p.nft >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  if (p.items == 0) return 0;
+  const int N = cols(p.F);
+  const int Dp = round_up(p.D, kBK), Fp = p.nft * N;
+  CUtensorMap wmap, xmap;
+  if (!sm90_tf32::make_weight_map(&wmap, scratch, Dp, Fp, N))
+    return (int)cudaErrorInvalidValue;
+  memset(&xmap, 0, sizeof(xmap));
+  if (p.x_tma && !sm90_tf32::make_rows_map(&xmap, p.raw, p.D, p.rows, kXS,
+                                           R))
+    return (int)cudaErrorInvalidValue;
+  const int code = split_weights(w, scratch, p.D, p.F, s);
+  if (code) return code;
+  return R == 128 ? launch_cols<2>(p, wmap, xmap, s)
+                  : launch_cols<1>(p, wmap, xmap, s);
 }
 
 }  // namespace linear
@@ -1303,7 +1530,8 @@ int plan_launch(Params& p, int B, int S, int rows, int nsplit, bool strict,
   l.route = route_of(p);
   if (l.route == kLinear) {
     l.R = rows ? rows : linear::row_tile(p.bs, p.K, p.F, sm_count());
-    l.smem = linear::smem_bytes(l.R, linear::subsets(p.K, l.R));
+    l.smem = linear::smem_bytes(l.R, linear::cols(p.F),
+                                linear::subsets(p.K, l.R));
     return 0;
   }
   if (l.route == kWide) {
@@ -1328,9 +1556,9 @@ int plan_launch(Params& p, int B, int S, int rows, int nsplit, bool strict,
 
 // H = 0 means one layer: y = x w1 + b1, F = w1's columns, w2 and b2
 // unused (the linear route).  scratch: gather_mlp_scratch_bytes of device
-// memory (the wide route's partial y where it splits H; null where that
-// is 0); rows and nsplit as plan_launch takes them (0, 0 = the
-// heuristic's launch)
+// memory (the wide route's partial y where it splits H, the linear
+// route's split W; null where that is 0); rows and nsplit as plan_launch
+// takes them (0, 0 = the heuristic's launch)
 extern "C" int gather_mlp_forward(const float* raw, const float* ctr,
                                   const uint8_t* mask, const float* w1,
                                   const float* b1, const float* w2,
@@ -1343,10 +1571,9 @@ extern "C" int gather_mlp_forward(const float* raw, const float* ctr,
   const int code = plan_launch(p, B, S, rows, nsplit, true, l);
   if (code) return code;
   if (l.route == kLinear) {
-    const linear::LinParams q = linear::make(raw, ctr, mask, w1, b1, out,
-                                             p.bs, K, D, Dc, F, l.R);
-    return l.R == Layout<4>::kR ? linear::launch<Layout<4>>(q, stream)
-                                : linear::launch<Layout<2>>(q, stream);
+    const linear::LinParams q = linear::make(raw, ctr, mask, b1, out, p.bs,
+                                             K, D, Dc, F, l.R);
+    return linear::launch(q, w1, scratch, l.R, stream);
   }
   if (l.route == kWide) return wide::launch(l.w, scratch, stream);
   const long long grid = (p.bs + p.spt - 1) / p.spt;
@@ -1397,9 +1624,41 @@ extern "C" long long gather_mlp_scratch_bytes(int B, int S, int K, int D,
   Params p = make_params(nullptr, nullptr, nullptr, nullptr, nullptr,
                          nullptr, nullptr, nullptr, B, S, K, D, Dc, H, F);
   Launch l;
-  if (plan_launch(p, B, S, 0, nsplit, true, l) || l.route != kWide)
-    return 0;
-  return (long long)wide::scratch_bytes(l.w);
+  if (plan_launch(p, B, S, 0, nsplit, true, l)) return 0;
+  if (l.route == kLinear) return (long long)linear::scratch_bytes(D, F);
+  return l.route == kWide ? (long long)wide::scratch_bytes(l.w) : 0;
+}
+
+// The linear route's split of W (D x F) into out (scratch_bytes of the
+// call: two F_pad x D_pad halves, big then small, K-major, k permuted
+// within 8-groups), alone: the first of the route's two kernels
+extern "C" int gather_mlp_split_weights(const float* w, float* out, int D,
+                                        int F, void* stream) {
+  return linear::split_weights(w, out, D, F, (cudaStream_t)stream);
+}
+
+// The linear route's plan for a call on the current device under the
+// knob rows (0 = the heuristic's), into out[10]: rows a tile, subsets a
+// tile, row tiles a subset, row-tile groups, F tiles, output columns a
+// block, ring stages, x by TMA (1, where raw is 16-byte aligned) or
+// cp.async (0), shared memory bytes, scratch bytes; out[0] = -1 where the
+// call takes another route or rows is out of range
+extern "C" void gather_mlp_linear_plan(int B, int S, int K, int D, int Dc,
+                                       int F, int rows, long long* out) {
+  Params p = make_params(nullptr, nullptr, nullptr, nullptr, nullptr,
+                         nullptr, nullptr, nullptr, B, S, K, D, Dc, 0, F);
+  Launch l;
+  if (plan_launch(p, B, S, rows, 0, true, l) || l.route != kLinear) {
+    out[0] = -1;
+    return;
+  }
+  const int spt = linear::subsets(K, l.R);
+  const long long v[10] = {
+      l.R, spt, K <= l.R ? 1 : (K + l.R - 1) / l.R,
+      (p.bs + spt - 1) / spt, linear::f_tiles(F), linear::cols(F),
+      linear::ring_stages(l.R, linear::cols(F), spt), linear::x_by_tma(D),
+      (long long)l.smem, (long long)linear::scratch_bytes(D, F)};
+  for (int i = 0; i < 10; ++i) out[i] = v[i];
 }
 
 // The wide route's plan for a call on the current device under the knob

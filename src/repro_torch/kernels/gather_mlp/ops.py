@@ -7,8 +7,9 @@ CUDA tensor launches the kernel or raises.  The kernel has three routes
 in shared memory, ``"wide"`` keeps y in registers and h in 32-column
 chunks where whole h does not fit (:func:`wide_plan`: how it tiles a
 call); a one-layer call (``w2`` None: y = x·W + b, which the plans key as
-h = 0) takes ``"linear"``, one product streamed over D
-(:func:`linear_plan`).
+h = 0) takes ``"linear"``, two kernels: W split into TF32 halves in
+scratch (:func:`split_weights`), then one product on wgmma streamed over
+D (:func:`linear_plan`).
 
 Each call resolves its plan (:func:`plan`) before the CPU/CUDA split, so
 a CPU forward records the same cells: an explicit knob (``rows`` on the
@@ -28,11 +29,14 @@ from .. import _build, plans, tiling
 from ..tiling import (MAX_SMEM, ROUTES, SMEM_SM,  # noqa: F401
                       WIDE_BLOCKS_PER_SM, linear_plan, route,
                       wide_plan)
-from .ref import gather_mlp_ref
+from .ref import gather_mlp_ref, split_weights_ref
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # the wide route's plan fields, in gather_mlp_wide_plan's order
 PLAN = ("resident", "ft", "nft", "nsplit", "cps", "spt", "groups", "smem")
+# the linear route's plan fields, in gather_mlp_linear_plan's order
+LINEAR_PLAN = ("rows", "spt", "n_tiles", "groups", "nft", "n", "stages",
+               "x_tma", "smem", "scratch")
 VARIANTS = ("batched", "per_cloud")
 
 
@@ -51,6 +55,10 @@ def _declare(lib):
     lib.gather_mlp_scratch_bytes.restype = _L
     lib.gather_mlp_wide_plan.argtypes = [_I] * 8 + [_P]
     lib.gather_mlp_wide_plan.restype = None
+    lib.gather_mlp_linear_plan.argtypes = [_I] * 7 + [_P]
+    lib.gather_mlp_linear_plan.restype = None
+    lib.gather_mlp_split_weights.argtypes = [_P, _P, _I, _I, _P]
+    lib.gather_mlp_split_weights.restype = _I
 
 
 def _lib():
@@ -72,6 +80,46 @@ def library_plan(b: int, s: int, k: int, d: int, dc: int, h: int,
     out = (ctypes.c_longlong * len(PLAN))()
     _lib().gather_mlp_wide_plan(b, s, k, d, dc, h, f, nsplit, out)
     return None if out[0] < 0 else dict(zip(PLAN, out))
+
+
+def library_linear_plan(b: int, s: int, k: int, d: int, dc: int, f: int,
+                        rows: int = 0) -> dict | None:
+    """The linear route's plan the built kernel reports for the one-layer
+    call on the current CUDA device under the knob ``rows`` (0 = its
+    own): :func:`linear_plan`'s fields, ``x_tma`` and ``scratch`` bytes;
+    None where the call takes another route."""
+    out = (ctypes.c_longlong * len(LINEAR_PLAN))()
+    _lib().gather_mlp_linear_plan(b, s, k, d, dc, f, rows, out)
+    return None if out[0] < 0 else dict(zip(LINEAR_PLAN, out))
+
+
+def library_scratch(b: int, s: int, k: int, d: int, dc: int, h: int,
+                    f: int, nsplit: int = 0) -> int:
+    """Bytes of device scratch the built kernel asks of the call (the
+    wide route's partial y where it splits H, the linear route's split
+    W; 0 on the narrow route)."""
+    return _lib().gather_mlp_scratch_bytes(b, s, k, d, dc, h, f, nsplit)
+
+
+def split_weights(w):
+    """The linear route's first kernel alone: W (D, F) split into its
+    TF32 halves, (2, F_pad, D_pad) float32, as :func:`split_weights_ref`
+    lays them out.  A CPU tensor takes that plain version; a CUDA one
+    launches the kernel (counted as ``gather_mlp_split_weights``)."""
+    if w.device.type == "cpu":
+        return split_weights_ref(w)
+    _build.check_operands("split_weights", {"w": w}, w.device)
+    d, f = w.shape
+    nft, n = tiling.linear_tiles(f)
+    out = torch.empty((2, nft * n, tiling.round_up(d, tiling.LINEAR_DEPTH)),
+                      dtype=torch.float32, device=w.device)
+    lib = _lib()
+    code = lib.gather_mlp_split_weights(
+        w.data_ptr(), out.data_ptr(), d, f,
+        torch._C._cuda_getCurrentRawStream(w.device.index))
+    _build.check_launch(lib, "gather_mlp", code)
+    _build.count_launch("gather_mlp_split_weights")
+    return out
 
 
 def library_smem(b: int, s: int, k: int, d: int, dc: int, h: int, f: int,
@@ -163,8 +211,7 @@ def _resolve(b, s, k, d, dc, h, f, device, rows, nsplit, variant):
         else:
             out["nsplit"] = library_plan(bb, s, k, d, dc, h, f,
                                          n_arg)["nsplit"]
-            scratch = lib.gather_mlp_scratch_bytes(bb, s, k, d, dc, h, f,
-                                                   n_arg)
+        scratch = lib.gather_mlp_scratch_bytes(bb, s, k, d, dc, h, f, n_arg)
     return out, r_arg, n_arg, scratch
 
 
@@ -243,4 +290,6 @@ def gather_mlp(raw, centers, w1, b1, w2=None, b2=None, mask=None, *,
                 bb, s, k, d, dc, hdim, fout, r_arg, n_arg, stream)
             _build.check_launch(lib, "gather_mlp", code)
             _build.count_launch("gather_mlp", f"gather_mlp_{pl['route']}")
+            if pl["route"] == "linear":     # W's split, then the product
+                _build.count_launch("gather_mlp_split_weights")
     return out[0] if single else out

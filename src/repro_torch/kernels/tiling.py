@@ -33,7 +33,7 @@ layer: x·W with D split where its tiles are few, the gather; its plan,
 :func:`hub_reuse_layered_plan`, depends on the SM count too).
 
 The formulas mirror the kernels' own (``smem_bytes`` and
-``wide::make_plan`` and ``linear::smem_floats`` in ``gather_mlp.cu``,
+``wide::make_plan`` and ``linear::smem_bytes`` in ``gather_mlp.cu``,
 ``smem_bytes``,
 ``layered_route`` and ``layered::plan`` in ``hub_reuse.cu``); each
 library also answers for itself (``gather_mlp_smem_bytes``,
@@ -61,8 +61,12 @@ LAYERED_SMEM = 4 * 3 * (64 * 72 + 64 * 68)
 KNOBS = {"gather_mlp": ("rows", "nsplit"), "hub_reuse": ("chunk",)}
 KNOB_ROUTES = {"rows": ("narrow", "linear"), "nsplit": ("wide",),
                "chunk": ("resident",)}
-LINEAR_COLS = 128          # the linear route's output columns a block
-LINEAR_STAGES = 2          # the linear route's ring stages (kStages)
+LINEAR_MAX_COLS = 256      # the linear route's most output columns a block
+LINEAR_TILE_COLS = 64      # its columns a block are a multiple of it
+LINEAR_DEPTH = 16          # its ring stages' depth (kBK)
+LINEAR_MAX_STAGES = 8      # its most ring stages (kMaxStages)
+LINEAR_X_TMA = True        # its x by TMA where D % 4 == 0 (kXByTma)
+LINEAR_Y_COLS = 64         # its y's columns staged at a time (kYC)
 
 
 def round_up(n: int, m: int) -> int:
@@ -101,16 +105,72 @@ def route(k: int, d: int, dc: int, h: int, f: int) -> str:
     return "narrow" if narrow_smem(64, k, d, dc, h, f) <= MAX_SMEM else "wide"
 
 
-def linear_smem(rows: int, spt: int) -> int:
+def linear_tiles(f: int) -> tuple:
+    """The linear route's F tiles and output columns a block for f
+    outputs (``gather_mlp.cu``: ``linear::f_tiles``, ``linear::cols``):
+    ceil(f / 256) tiles of ceil(f / tiles) columns rounded up to 64."""
+    nft = -(-f // LINEAR_MAX_COLS)
+    return nft, round_up(-(-f // nft), LINEAR_TILE_COLS)
+
+
+def _linear_tail(rows: int, n: int) -> int:
+    """Bytes after the linear route's ring: y's staging (rows x 72 fp32),
+    the mbarriers (full and empty a stage), the live rows, the running
+    max, its live flags and the tile's bias (``linear::tail_bytes``):
+    the live rows one a consumer thread (2 · rows), the bias 256 wide."""
+    return (4 * rows * (LINEAR_Y_COLS + 8) + 8 * 2 * LINEAR_MAX_STAGES
+            + 8 * rows + 8 * n + 4 * LINEAR_MAX_COLS)
+
+
+def linear_stage_bytes(rows: int, n: int, spt: int) -> int:
+    """Bytes of a ring stage of the linear route (``linear::stage_bytes``):
+    both W halves (n rows of 16 fp32 each), the x slice (row stride 24)
+    and the spt centers' slice (16 each), rounded up to 1024."""
+    return round_up(4 * (2 * n * LINEAR_DEPTH + rows * (LINEAR_DEPTH + 8)
+                         + spt * LINEAR_DEPTH), 1024)
+
+
+def linear_blocks_per_sm(n: int) -> int:
+    """Blocks an SM of the linear route at ``n`` columns a block
+    (``linear::blocks_per_sm``): two at 64, else one."""
+    return 2 if n <= LINEAR_TILE_COLS else 1
+
+
+def linear_stages(rows: int, n: int, spt: int) -> int:
+    """The linear route's ring stages (``linear::ring_stages``): as many
+    as fit a block's budget (a block's limit, or half an SM less its
+    reserved 1 KB at two blocks an SM), at most ``LINEAR_MAX_STAGES``."""
+    budget = (SMEM_SM // 2 - 1024 if linear_blocks_per_sm(n) == 2
+              else MAX_SMEM)
+    room = budget - 1024 - _linear_tail(rows, n)
+    return min(LINEAR_MAX_STAGES, room // linear_stage_bytes(rows, n, spt))
+
+
+def linear_smem(rows: int, spt: int, n: int) -> int:
     """Bytes of shared memory a block of the linear route takes at a row
-    tile of ``rows`` holding ``spt`` subsets (``gather_mlp.cu``:
-    ``linear::smem_floats``): the row tables, the running max, and a ring
-    of ``LINEAR_STAGES`` stages of a 32-deep x slice and the subsets'
-    centers (row stride 40) and W slice (row stride 132), which y (row
-    stride 136) overlays at the end.  Any D and F: 78,720 B at 128 rows
-    of K = 20, 56,192 at 64 rows of K = 32."""
-    ring = LINEAR_STAGES * ((rows + spt) * 40 + 32 * 132)
-    return 4 * (3 * rows + LINEAR_COLS + max(ring, rows * (LINEAR_COLS + 8)))
+    tile of ``rows`` holding ``spt`` subsets and ``n`` output columns
+    (``gather_mlp.cu``: ``linear::smem_bytes``): 1024 of alignment, the
+    ring of :func:`linear_stages` stages, and the tail (y staged 64
+    columns at a time, mbarriers, live rows, running max, bias): 226,432
+    B at 128 rows of K = 20 by 256 columns (4 stages, one block an SM),
+    105,088 by 64 columns (3 stages, two blocks an SM)."""
+    return (1024 + linear_stages(rows, n, spt)
+            * linear_stage_bytes(rows, n, spt) + _linear_tail(rows, n))
+
+
+def linear_scratch(d: int, f: int) -> int:
+    """Bytes of device scratch a linear call takes: W's two TF32 halves,
+    each F_pad = tiles x columns rows of D_pad = d rounded up to 16
+    (``linear::scratch_bytes``)."""
+    nft, n = linear_tiles(f)
+    return 2 * 4 * nft * n * round_up(d, LINEAR_DEPTH)
+
+
+def linear_x_tma(d: int) -> bool:
+    """Whether a linear call of input width d takes x by TMA (raw
+    16-byte aligned, as the wrapper's contiguous tensors are):
+    ``LINEAR_X_TMA`` and rows of 16-byte multiples."""
+    return LINEAR_X_TMA and d % 4 == 0
 
 
 def linear_plan(b: int, s: int, k: int, f: int, sms: int,
@@ -118,21 +178,24 @@ def linear_plan(b: int, s: int, k: int, f: int, sms: int,
     """How the linear route tiles a call of b·s subsets of k points with
     f outputs on a card of ``sms`` SMs (``gather_mlp.cu``: ``linear::``):
     ``rows`` a tile (the knob where given, else 128, or 64 where 128-row
-    tiles times the F tiles would give fewer than two blocks an SM),
+    tiles times the F tiles would give fewer items than 3/4 of the
+    persistent grid's blocks, :func:`linear_blocks_per_sm` an SM),
     whole subsets packed k rows apart (``spt`` a tile; one subset over
     ``n_tiles`` tiles where k passes the tile), ``groups`` row-tile
-    groups by ``nft`` 128-column F tiles, ``smem`` bytes a block."""
+    groups by ``nft`` F tiles of ``n`` columns, a ring of ``stages``
+    16-deep stages, ``smem`` bytes a block."""
     def spt_of(r):
         return r // max(k, 1) if k <= r else 1
 
-    nft = -(-f // LINEAR_COLS)
+    nft, n = linear_tiles(f)
     if not rows:
-        rows = 64 if (-(-(b * s) // spt_of(128)) * nft
-                      < NARROW_BLOCKS_PER_SM * sms) else 128
+        items = -(-(b * s) // spt_of(128)) * nft
+        rows = 64 if 4 * items < 3 * linear_blocks_per_sm(n) * sms else 128
     spt = spt_of(rows)
     return dict(rows=rows, spt=spt, n_tiles=-(-k // rows) if k > rows else 1,
-                groups=-(-(b * s) // spt), nft=nft,
-                smem=linear_smem(rows, spt))
+                groups=-(-(b * s) // spt), nft=nft, n=n,
+                stages=linear_stages(rows, n, spt),
+                smem=linear_smem(rows, spt, n))
 
 
 def row_tile(b: int, s: int, k: int, sms: int) -> int:

@@ -164,14 +164,17 @@ def test_k003_grid_misses_the_last_row():
 
 
 def test_linear_site_from_tiling():
-    """The linear route's launch from tiling.py: a row-tile group by
-    128-column F tile grid, the rows knob the plan launched held to the
+    """The linear route's launch from tiling.py: a row-tile group by F
+    tile grid (F tiles of up to 256 columns), its two kernels and W's
+    scratch, the rows knob the plan launched held to the
     derived one (K003), a row tile off 64 / 128 refused (K002), the row
     tiles of a subset past the tile covering it (K003)."""
     site = _site("gather_mlp", LINEAR)
     lp = tiling.linear_plan(3, 48, 20, 300, SMS)
-    assert site.launch == dict(route="linear", **lp)
-    assert site.grid == (1, lp["groups"], 3) and site.smem == lp["smem"]
+    assert site.launch == dict(route="linear", **lp, kernels=2,
+                               scratch=tiling.linear_scratch(256, 300))
+    assert lp["nft"] == 2 and lp["n"] == 192     # F = 300: 2 x 192
+    assert site.grid == (1, lp["groups"], 2) and site.smem == lp["smem"]
     assert check_kernel_site(site) == []
     launched = _site("gather_mlp", LINEAR, rows=128)
     assert launched.launch["rows"] == 64

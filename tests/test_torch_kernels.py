@@ -523,7 +523,10 @@ class _StubLib:
         "gather_mlp_rows": [ctypes.c_int] * 8,
         "gather_mlp_smem_bytes": [ctypes.c_int] * 9,
         "gather_mlp_scratch_bytes": [ctypes.c_int] * 8,
-        "gather_mlp_wide_plan": [ctypes.c_int] * 8 + [ctypes.c_void_p]}),
+        "gather_mlp_wide_plan": [ctypes.c_int] * 8 + [ctypes.c_void_p],
+        "gather_mlp_linear_plan": [ctypes.c_int] * 7 + [ctypes.c_void_p],
+        "gather_mlp_split_weights": [ctypes.c_void_p] * 2
+        + [ctypes.c_int] * 2 + [ctypes.c_void_p]}),
     (reuse_ops, "hub_reuse", {
         "hub_reuse_forward": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 11
         + [ctypes.c_void_p],

@@ -190,36 +190,66 @@ def test_every_one_layer_block_routes_linear():
     assert tiling.route(1, 1, 1, 0, 1) == "linear"
 
 
-# (b, s, k, f, sms) -> (rows, spt, n_tiles, groups, nft)
+# (b, s, k, f, sms) -> (rows, spt, n_tiles, groups, nft, n, stages)
 LINEAR_PLANS = {
-    (8, 1024, 20, 256, 132): (128, 6, 1, 1366, 2),    # dgcnn_c block 4
-    (2, 32, 32, 768, 132): (64, 2, 1, 32, 6),         # pointvector_l blk 4
-    (1, 8192, 20, 64, 132): (128, 6, 1, 1366, 1),     # dgcnn_s block 1
-    (1, 9, 200, 300, 132): (64, 1, 4, 9, 3),          # K past the tile
+    (8, 1024, 20, 256, 132): (128, 6, 1, 1366, 1, 256, 4),  # dgcnn_c blk 4
+    (2, 32, 32, 768, 132): (64, 2, 1, 32, 3, 256, 5),     # pointvector_l 4
+    (1, 8192, 20, 64, 132): (128, 6, 1, 1366, 1, 64, 3),  # dgcnn_s block 1
+    (1, 9, 200, 300, 132): (64, 1, 4, 9, 2, 192, 6),      # K past the tile
 }
 
 
 @pytest.mark.parametrize("key", sorted(LINEAR_PLANS))
 def test_linear_plan(key):
     """The linear route's tiling: 128-row tiles of whole subsets packed K
-    rows apart, 64 where the grid would give fewer than two blocks an
-    SM, one subset over several tiles past the tile, 128-column F tiles;
-    78,720 B of shared memory at 128 rows of K = 20, 56,192 at 64 rows of
-    K = 32, two blocks an SM up to 64 subsets a tile, whatever D."""
+    rows apart, 64 where 128-row tiles would give fewer items than 3/4
+    of the persistent grid's blocks (one an SM, two at 64 columns), one
+    subset over several tiles past the tile; F in ceil(F / 256)
+    tiles of columns rounded up to 64 (768: 3 x 256, 300: 2 x 192); a
+    ring of 16-deep stages, as many as fit up to 8.  A stage is both W
+    halves (2 · N · 16 · 4 B), the x slice (R rows of 24 floats) and the
+    centers (spt rows of 16), rounded up to 1024 B: at 128 rows of K = 20
+    by 256 columns 32,768 + 12,288 + 384 -> 46,080 B, and 4 of them
+    (184,320 B) fit beside 1024 B of alignment and a 41,088-B tail (y
+    staged 64 columns at a time 128 · 72 · 4, mbarriers 16 · 8, live rows
+    one a consumer thread 4 · 256, running max and its flags 8 · 256, the
+    bias 4 · 256): 226,432 B, one block an SM; by 64 columns 8,192 +
+    12,288 + 384 -> 21,504 B and two blocks an SM, each within 233,472 /
+    2 - 1024 = 115,712 B: 3 stages, 105,088 B.  Whatever D."""
     b, s, k, f, sms = key
     p = tiling.linear_plan(b, s, k, f, sms)
-    assert (p["rows"], p["spt"], p["n_tiles"], p["groups"], p["nft"]) == \
-        LINEAR_PLANS[key]
-    assert p["smem"] == tiling.linear_smem(p["rows"], p["spt"])
-    assert tiling.linear_smem(128, 6) == 78720
-    assert tiling.linear_smem(64, 2) == 56192
-    assert 2 * (tiling.linear_smem(128, 64) + 1024) <= tiling.SMEM_SM
+    assert (p["rows"], p["spt"], p["n_tiles"], p["groups"], p["nft"],
+            p["n"], p["stages"]) == LINEAR_PLANS[key]
+    assert p["smem"] == tiling.linear_smem(p["rows"], p["spt"], p["n"])
+    assert tiling.linear_stage_bytes(128, 256, 6) == 46080
+    assert tiling.linear_smem(128, 6, 256) == 226432
+    assert tiling.linear_stage_bytes(128, 64, 6) == 21504
+    assert tiling.linear_smem(128, 6, 64) == 105088
+    assert tiling.SMEM_SM < 2 * (tiling.linear_smem(64, 1, 128) + 1024)
+    assert 2 * (tiling.linear_smem(128, 128, 64) + 1024) <= tiling.SMEM_SM
+    for rows in tiling.ROWS:                  # the worst case still fits
+        for n in (64, 128, 192, 256):
+            assert tiling.linear_stages(rows, n, rows) >= 2
+            assert tiling.linear_stages(rows, n, 6) >= 3
+            assert tiling.linear_smem(rows, rows, n) <= tiling.MAX_SMEM
     dims = dict(b=b, s=s, k=k, d=4000, dc=3, h=0, f=f)
     assert tiling.gather_mlp_smem(*dims.values(), sms) == p["smem"]
     assert tiling.knobs_of("gather_mlp", dims, sms) == ("rows",)
     for rows in tiling.ROWS:                  # any D fits either tile
         assert tiling.feasible("gather_mlp", dims, {"rows": rows}, sms)
         assert tiling.linear_plan(b, s, k, f, sms, rows)["rows"] == rows
+
+
+@pytest.mark.parametrize("f", [1, 40, 64, 77, 96, 100, 130, 192, 256, 257,
+                               300, 384, 512, 513, 768, 769, 1000])
+def test_linear_f_tiles_cover_f(f):
+    """F's tiles: at most 256 columns a block, a multiple of 64, none
+    empty, covering F; the scratch holds both halves of F_pad x D_pad."""
+    nft, n = tiling.linear_tiles(f)
+    assert n % 64 == 0 and n <= 256
+    assert (nft - 1) * n < f <= nft * n
+    assert nft == -(-f // 256)
+    assert tiling.linear_scratch(35, f) == 2 * 4 * nft * n * 48
 
 
 def test_linear_knobs_and_plan_on_cpu():
@@ -257,8 +287,8 @@ def test_linear_cell_autotunes_on_cpu():
 
 def test_linear_analysis_site_is_clean():
     """The analysis derives the linear launch from tiling.py: grid (1,
-    groups, F tiles), no finding; a planted site whose grid drops an F
-    tile leaves output unwritten (K003)."""
+    groups, F tiles; F = 300 in two of 192), no finding; a planted site
+    whose grid drops an F tile leaves output unwritten (K003)."""
     import dataclasses
 
     from repro_torch.analysis.kernels import (check_kernel_site,
@@ -266,9 +296,9 @@ def test_linear_analysis_site_is_clean():
     dims = dict(b=2, s=64, k=20, d=35, dc=3, h=0, f=300)
     site = site_from_capture({"kernel": "gather_mlp", "dims": dims,
                               "plan": {"route": "linear"}}, "t", sms=132)
-    assert site.grid == (1, 43, 3) and site.launch["rows"] == 64
+    assert site.grid == (1, 43, 2) and site.launch["rows"] == 64
     assert check_kernel_site(site) == []
-    short = dataclasses.replace(site, grid=(1, 43, 2))
+    short = dataclasses.replace(site, grid=(1, 43, 1))
     assert {f.rule for f in check_kernel_site(short)} == {"K003"}
 
 
@@ -309,6 +339,138 @@ def test_tf32x3_keeps_the_linear_tolerance(blk):
     assert err[1] > 1e-4 * lim, err
 
 
+# W's widths (D, F): dgcnn_c block 4's, pointvector_l block 4's (F in
+# three tiles), DGCNN block 1's D = 6, and edges in D and F
+SPLIT_W = ((256, 256), (387, 768), (6, 64), (35, 100), (700, 300),
+           (9, 40))
+
+
+def _weights(d, f, seed):
+    rng = np.random.default_rng(seed)
+    w = rng.standard_normal((d, f)) * (2 / d) ** .5
+    w[0, 0], w[-1, -1] = 1.5 + 2 ** -11, -(3 + 2 ** -10)   # ties of rna
+    return torch.from_numpy(w.astype(np.float32))
+
+
+def _bits(x):
+    return x.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("d,f", SPLIT_W)
+def test_split_weights_halves_are_tf32(d, f):
+    """Both halves have their low 13 bits zero, so wgmma's truncation of
+    a TF32 operand is a no-op on them; big + small equals W to 2⁻²²
+    relative (small rounds a remainder of at most 2⁻¹¹·|W| to 11
+    bits)."""
+    from repro_torch.kernels.gather_mlp.ref import split_weights_ref
+    w = _weights(d, f, d + f)
+    big, small = split_weights_ref(w)
+    assert bool(((_bits(big) & 0x1FFF) == 0).all())
+    assert bool(((_bits(small) & 0x1FFF) == 0).all())
+    back = (big.double() + small.double())[:f, :]       # (F, D_pad)
+    order = np.argsort(np.asarray(_order(back.shape[1])))
+    back = back[:, order][:, :d].t()
+    err = (back - w.double()).abs()
+    assert bool((err <= 2.0 ** -22 * w.double().abs()).all()), \
+        float((err / w.double().abs().clamp_min(1e-30)).max())
+
+
+def _order(d_pad):
+    """The logical k at each position, as wgmma's A fragment fixes it: a
+    thread's slots t and t + 4 of a k8 step hold x's columns 2t and 2t +
+    1 (one 8-byte load), so slot j holds 2 (j % 4) + j // 4."""
+    return [8 * (p // 8) + [0, 2, 4, 6, 1, 3, 5, 7][p % 8]
+            for p in range(d_pad)]
+
+
+@pytest.mark.parametrize("d,f", SPLIT_W)
+def test_split_weights_layout_gathers_back(d, f):
+    """The halves' layout: (2, F_pad, D_pad), F_pad the F tiles times the
+    columns a block and D_pad D rounded up to 16; K-major (row n holds
+    column n of W), logical k at position 8 (k // 8) + (k % 2)·4 +
+    (k % 8) // 2 (the k order the A fragment's 8-byte loads need), zero
+    past D and F: gathered back by that formula, big is rna(W) exactly
+    and the padding is 0."""
+    from repro_torch.kernels.gather_mlp.ref import (linear_k_order,
+                                                    split_weights_ref)
+    w = _weights(d, f, d * f)
+    halves = split_weights_ref(w)
+    nft, n = tiling.linear_tiles(f)
+    d_pad = -(-d // 16) * 16
+    assert halves.shape == (2, nft * n, d_pad) and halves.dtype == w.dtype
+    assert linear_k_order(d_pad).tolist() == _order(d_pad)
+    k = torch.arange(d)
+    pos = 8 * (k // 8) + (k % 2) * 4 + (k % 8) // 2
+    assert torch.equal(halves[0][:f][:, pos], _tf32(w).t())
+    assert torch.equal(halves[1][:f][:, pos], _tf32(w - _tf32(w)).t())
+    pad = torch.ones(d_pad, dtype=torch.bool)
+    pad[pos] = False
+    assert not bool(halves[:, :, pad].any()) and not bool(halves[:, f:].any())
+
+
+@pytest.mark.parametrize("blk", sorted(TF32_LINEAR))
+def test_split_weights_product_keeps_the_linear_tolerance(blk):
+    """The linear route's arithmetic through the halves' layout: x padded
+    to D_pad and read in the A fragment's k order, centered, split
+    big / small, times W's halves as stored (small·big, big·small,
+    big·big, summed in fp32), pooled, b added to the max: within 1e-5 ·
+    max(1, |ref|) of fp64, as ``test_tf32x3_keeps_the_linear_tolerance``
+    holds the route's arithmetic to."""
+    from repro_torch.kernels.gather_mlp.ref import split_weights_ref
+    s, k, d, dc, f = TF32_LINEAR[blk]
+    rng = np.random.default_rng(k * d)
+    n = lambda *shape, scale=1.0: torch.from_numpy(
+        (rng.standard_normal(shape) * scale).astype(np.float32))
+    raw, ctr = n(s, k, d), n(s, dc)
+    w, b = n(d, f, scale=(2 / d) ** .5), n(f, scale=.1)
+    ref = gather_mlp_ref(*(t.double() for t in (raw, ctr, w, b)))
+    big_w, small_w = split_weights_ref(w)
+    x = torch.cat([raw[..., :dc] - ctr[:, None], raw[..., dc:]], dim=-1)
+    x = torch.nn.functional.pad(x, (0, big_w.shape[1] - d))
+    x = x[..., _order(big_w.shape[1])]
+    xb = _tf32(x)
+    xs = _tf32(x - xb)
+    y = xs @ big_w.t() + xb @ small_w.t() + xb @ big_w.t()
+    got = y[..., :f].amax(1) + b
+    lim = max(1.0, ref.abs().max().item())
+    assert (got - ref).abs().max().item() <= 1e-5 * lim
+
+
+def _gather_tool_edits():
+    import importlib.util
+    from pathlib import Path
+    out = {}
+    for tool, table in (("gather_mlp_variants", "VARIANTS"),
+                        ("gather_mlp_planted_faults", "FAULTS")):
+        path = Path(__file__).resolve().parents[1] / "tools" / f"{tool}.py"
+        spec = importlib.util.spec_from_file_location(tool, path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        for name, entry in getattr(mod, table).items():
+            edits = entry[1] if table == "VARIANTS" else entry[0]
+            out[(tool, name)] = edits
+    return out
+
+
+_GATHER_EDITS = _gather_tool_edits()
+
+
+@pytest.mark.parametrize("key", sorted(_GATHER_EDITS),
+                         ids=lambda k: f"{k[0]}-{k[1]}")
+def test_gather_mlp_tool_edits_apply_to_the_sources(key):
+    """Each variant ``tools/gather_mlp_variants.py`` times and each fault
+    ``tools/gather_mlp_planted_faults.py`` plants (the linear route's
+    among them: 1xTF32, F tiles of 128, x by cp.async, no product in
+    flight, W's small half dropped, W's k order unpermuted, ...) is an
+    edit of the committed sources whose text occurs exactly once."""
+    from repro_torch.kernels import _build
+    texts = {}
+    for fname, old, new in _GATHER_EDITS[key]:
+        text = texts.get(fname) or (_build.CSRC / fname).read_text()
+        assert text.count(old) == 1, (fname, old)
+        texts[fname] = text.replace(old, new)
+
+
 # on the card: (B, S, K, D, Dc, F) — the six blocks the wide route took
 # at a small B·S, K = 20 packed six to a 128-row tile on enough tiles for
 # 128-row tiles, K past one and two tiles, K = 1, odd D and F (4-byte
@@ -328,12 +490,14 @@ def test_linear_kernel_matches_plain_version_on_card():
     """On a CUDA host: the linear route against its plain version within
     1e-4 (masked with all-dead subsets, and not), batched and per cloud,
     at both row tiles, repeats bit-equal, one ``gather_mlp_linear``
-    launch a call; the library's route, rows and shared memory equal to
-    tiling.py's."""
+    launch (and one W split) a call; the library's route, rows, shared
+    memory, plan and scratch bytes equal to tiling.py's; its first
+    kernel, W's split, bit-equal to ``split_weights_ref``."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from repro_torch.kernels import LAUNCHES
     from repro_torch.kernels.gather_mlp import ops
+    from repro_torch.kernels.gather_mlp.ref import split_weights_ref
     dev = torch.device("cuda")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     g = torch.Generator().manual_seed(0)
@@ -347,18 +511,28 @@ def test_linear_kernel_matches_plain_version_on_card():
         for rows in (0, *tiling.ROWS):
             assert ops.library_smem(b, s, k, d, dc, 0, f, rows) == \
                 tiling.linear_plan(b, s, k, f, sms, rows)["smem"]
+            assert ops.library_linear_plan(b, s, k, d, dc, f, rows) == dict(
+                tiling.linear_plan(b, s, k, f, sms, rows),
+                x_tma=int(tiling.linear_x_tma(d)),
+                scratch=tiling.linear_scratch(d, f))
+        assert ops.library_scratch(b, s, k, d, dc, 0, f) == \
+            tiling.linear_scratch(d, f)
         raw, ctr = r(b, s, k, d), r(b, s, dc)
         w, bias = r(d, f, scale=(2 / d) ** .5), r(f, scale=.1)
+        assert torch.equal(ops.split_weights(w), split_weights_ref(w))
         mask = torch.rand(b, s, k, generator=g) < .7
         mask[:, ::5] = False                        # all-dead subsets
         mask = mask.to(dev)
         for m in (None, mask):
             want = gather_mlp_ref(raw, ctr, w, bias, mask=m)
             for rows in (None, *tiling.ROWS):
-                before = LAUNCHES["gather_mlp_linear"]
+                before = (LAUNCHES["gather_mlp_linear"],
+                          LAUNCHES["gather_mlp_split_weights"])
                 got = gather_mlp(raw, ctr, w, bias, mask=m, rows=rows)
                 torch.cuda.synchronize()
-                assert LAUNCHES["gather_mlp_linear"] == before + 1
+                assert (LAUNCHES["gather_mlp_linear"],
+                        LAUNCHES["gather_mlp_split_weights"]) == (
+                    before[0] + 1, before[1] + 1)
                 torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
                 assert torch.equal(
                     gather_mlp(raw, ctr, w, bias, mask=m, rows=rows), got)

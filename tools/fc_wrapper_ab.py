@@ -66,7 +66,8 @@ for name, (kernel, args, mask) in calls.items():
         best = min(best, t0.elapsed_time(t1) / iters)
     print(json.dumps({"call": name, "ms": best}))
 """
-# the short name of a profiled FC kernel: gather_mlp's by its name,
+# the short name of a profiled FC kernel: gather_mlp's by its name (the
+# linear route's W split, split_weights_kernel, among them),
 # hub_reuse's resident kernel with its template arguments (the row tile,
 # and the form where the tree has two: true for one layer) and its
 # layered kernels by name; None for any other kernel
@@ -74,9 +75,10 @@ KIND = r"""
 import re
 def kind(name):
     name = name.replace("(anonymous namespace)::", "")
-    m = re.search(r"gather_mlp\w*|hub_reuse_kernel<[^(]*>"
+    m = re.search(r"gather_mlp\w*|split_weights_kernel|hub_reuse_kernel<[^(]*>"
                   r"|layered::\w+(<\w+>)?", name)
     return None if m is None else m.group(0)
+GATHER = ("gather_mlp", "split_weights")   # gather_mlp's kernels
 """
 # the child of --cache-x4: run in a tree's root, with that tree's
 # chip_smoke.py and repro_torch
@@ -106,7 +108,8 @@ for name in cs.CACHE_X4_FAMILIES:
     count = collections.Counter()
     for e in prof.events():
         k = kind(e.name)
-        if e.device_type == DeviceType.CUDA and k and "gather_mlp" not in k:
+        if e.device_type == DeviceType.CUDA and k and not k.startswith(
+                GATHER):
             by[k] += e.device_time / 3 / 1e3
             count[k] += 1
     print(json.dumps({"call": f"{name}_cache_x4", "b": b, "n": n, **ms,
@@ -147,7 +150,7 @@ for name in ("dgcnn_c", "dgcnn_s", "pointnext_s", "pointvector_l",
             count[k] += 1
     out = {"call": name, "b": b, "n": n, **ms}
     for fc in ("gather_mlp", "hub_reuse"):
-        mine = [k for k in by if (k.startswith("gather_mlp")
+        mine = [k for k in by if (k.startswith(GATHER)
                                   == (fc == "gather_mlp"))]
         out[f"{fc}_device_ms"] = sum(by[k] for k in mine)
         out[f"{fc}_by_kernel_ms"] = {k: by[k] for k in mine}

@@ -12,7 +12,7 @@ chip_smoke.py (B = 8, masked, with all-dead subsets), the wide route at
 chip_smoke.py's ``DENSE_WIDE`` (the six blocks that take it) and
 ``WIDE_D`` (D = 700, x streamed), the linear route at chip_smoke.py's
 ``DENSE_LINEAR`` and at ``LINEAR_EDGE`` (F = 100: an F tile that ends
-inside an n8 tile), each fault where it applies (an ignored mask on
+off a multiple of 8), each fault where it applies (an ignored mask on
 the masked shapes only), and prints
 one JSON line per (fault, block): max |Δ| against ``gather_mlp_ref``
 beside chip_smoke.py's limit 1e-4 · max(1, max|plain|).  The unchanged
@@ -80,31 +80,42 @@ FAULTS = {
                                   ("wide",)),
     # linear route: the last center lane not staged, so not subtracted
     "linear_center_lane_dropped": ([("gather_mlp.cu",
-                                     "if (p.c_vec && ok && d < p.Dc) {",
-                                     "if (p.c_vec && ok && d + 4 < p.Dc) {"),
+                                     "const bool ok = in && d < p.Dc;",
+                                     "const bool ok = in && d + 4 < p.Dc;"),
                                     ("gather_mlp.cu",
-                                     "if (ok && d + i < p.Dc) tf32x3::",
-                                     "if (ok && d + i < p.Dc - 1) tf32x3::")],
+                                     "const bool ok = in && d + i < p.Dc;",
+                                     "const bool ok = in && d + i < p.Dc - 1;")],
                                    ("linear",)),
     # linear route: every valid row live, the mask not read
     "linear_mask_ignored": ([("gather_mlp.cu",
-                              "const bool lv = valid && (p.mask == nullptr "
-                              "|| p.mask[row0 + r] != 0);",
-                              "const bool lv = valid;")],
+                              "live = valid & m;",
+                              "live = valid;")],
                             ("linear_masked",)),
     # linear route: b not added to the pooled max
     "linear_bias_missing": ([("gather_mlp.cu",
-                              "anyl[sl] ? m + __ldg(p.b + f0 + c) : 0.f;",
-                              "anyl[sl] ? m : 0.f;")], ("linear",)),
-    # linear route: an F tile's columns past its last whole n8 tile not
-    # computed (its edge rounded down, not up, to 8)
+                              "any ? m + bsm[c0 + c] : 0.f;",
+                              "any ? m : 0.f;")], ("linear",)),
+    # linear route: an F tile's columns past its last multiple of 8 not
+    # pooled (its edge rounded down, not kept)
     "linear_f_tile_edge": ([("gather_mlp.cu",
-                             "  const int nc8 = (ft + 7) & ~7;\n\n",
-                             "  const int nc8 = ft & ~7;\n\n")],
+                             "ft = min(N, p.F - f0);",
+                             "ft = min(N, p.F - f0) & ~7;")],
                            ("linear_edge",)),
+    # linear route: W's small TF32 half written as 0 (W in 1xTF32)
+    "linear_w_small_half_dropped": ([("gather_mlp.cu",
+                                      "out[((size_t)Fp + n) * Dp + pos] = "
+                                      "__uint_as_float(small);",
+                                      "out[((size_t)Fp + n) * Dp + pos] = "
+                                      "0.f;")], ("linear",)),
+    # linear route: W's k in natural order within each 8-group, not the
+    # order the A fragment's 8-byte loads read x in
+    "linear_k_order_unpermuted": ([("gather_mlp.cu",
+                                    "tile[(tx & ~7) | ((j & 3) * 2 + "
+                                    "(j >> 2))][i]",
+                                    "tile[tx][i]")], ("linear",)),
 }
-FILES = ("gather_mlp.cu", "tf32x3.cuh")
-# an F tile that ends inside an n8 tile (F = 100), masked, K = 20 packed
+FILES = ("gather_mlp.cu", "tf32x3.cuh", "sm90.cuh", "sm90_tf32.cuh")
+# an F tile that ends off a multiple of 8 (F = 100), masked, K = 20 packed
 LINEAR_EDGE = {"linear_edge": dict(b=2, s=64, k=20, d=35, dc=3, h=0, f=100,
                                    masked=True)}
 

@@ -16,19 +16,21 @@ the narrow route's block shapes, batched (B = 8) and per cloud (B = 1),
 with ``--linear`` at every one-layer block of the zoo at chip_smoke.py's
 ``FAMILIES`` batches (the engine's lowering gives each one linear map)
 and at ``DENSE_LINEAR``'s D = 700: the committed sources are called with
-(W, b) and H = 0, ``--against``'s with the split-sign two-layer weights
-(x·[W, −W] + [b, −b], relu, [I; −I], 0) the parent's lowering made.
-Prints ptxas's registers and spills per variant and one JSON line per
-(variant, shape): ms and max |Δ| against the plain version.  Most
+(W, b) and H = 0, and so are ``--against``'s where that library has the
+linear route, else with the split-sign two-layer weights (x·[W, −W] +
+[b, −b], relu, [I; −I], 0) the lowering made before it.
+Prints ptxas's registers and spills per variant, one JSON line per
+(variant, shape): ms and max |Δ| against the plain version, and with
+``--against`` one per shape: whether the committed output is bit-equal to
+the other tree's.  Most
 variants compute a wrong result or take a worse path on purpose: each
 removes one part of the design (the small TF32 products, layer 1 once a
 block, subsets packed K rows apart, two blocks an SM, ...) so that its
 time shows that part's worth; the others are alternatives the kernel
 does not take.  ``--only`` keeps the named variants; ``--against DIR``
-adds the sources of another tree (``gather_mlp.cu`` and ``tf32x3.cuh``
+adds the sources of another tree (``gather_mlp.cu`` and the headers
 in DIR, e.g. a parent commit's ``src/repro_torch/csrc``) as the variant
-``against``, timed in the same turns (called with its own signature;
-in ``--linear`` mode with the two-layer weights).
+``against``, timed in the same turns (called with its own signature).
 Needs one CUDA device.
 """
 from __future__ import annotations
@@ -52,30 +54,61 @@ VARIANTS = {
     # waves keep their three products)
     "one_pass": ("all", [("tf32x3.cuh", SMALL, "")]),
     # ---- the linear route ------------------------------------------------
-    # a three-stage ring (two stages in flight)
-    "lin_three_stages": ("linear", [("gather_mlp.cu",
-                                     "constexpr int kStages = 2;",
-                                     "constexpr int kStages = 3;")]),
-    # 64-row tiles at every size
+    # 1xTF32 on wgmma: the two small products dropped
+    "lin_one_pass": ("linear", [("gather_mlp.cu",
+                                 "          sm90_tf32::wgmma_tf32(acc, af[k8].small,\n"
+                                 "                                sm90_tf32::desc_sw64(wb + 32 * k8), 1);\n"
+                                 "          sm90_tf32::wgmma_tf32(acc, af[k8].big,\n"
+                                 "                                sm90_tf32::desc_sw64(wsm + 32 * k8), 1);\n",
+                                 "")]),
+    # F tiles of at most 128 columns: x crosses DRAM twice at F = 256
+    "lin_n128": ("linear", [("gather_mlp.cu",
+                             "constexpr int kMaxN = 256;",
+                             "constexpr int kMaxN = 128;")]),
+    # x by cp.async everywhere, not by TMA where D % 4 == 0
+    "lin_x_cp_async": ("linear", [("gather_mlp.cu",
+                                   "constexpr bool kXByTma = true;",
+                                   "constexpr bool kXByTma = false;")]),
+    # a block an item, not one an SM walking the items
+    "lin_no_persist": ("linear", [("gather_mlp.cu",
+                                   "const int grid = min(p.items, "
+                                   "blocks_per_sm(N) * sm_count());",
+                                   "const int grid = p.items;")]),
+    # a ring of at most 3 stages
+    "lin_stages3": ("linear", [("gather_mlp.cu",
+                                "constexpr int kMaxStages = 8;",
+                                "constexpr int kMaxStages = 3;")]),
+    # 128-row tiles (two consumer warpgroups) at every size
+    "lin_rows128": ("linear", [("gather_mlp.cu",
+                                "  return 4 * items < 3LL * blocks_per_sm(cols(F)) "
+                                "* sms ? 64 : 128;",
+                                "  return 128;")]),
+    # 64-row tiles (one consumer warpgroup) at every size
     "lin_rows64": ("linear", [("gather_mlp.cu",
-                               "  return blocks(bs, K, F, 128) < (long long)"
-                               "kBlocksPerSM * sms ? 64 : 128;",
+                               "  return 4 * items < 3LL * blocks_per_sm(cols(F)) "
+                               "* sms ? 64 : 128;",
                                "  return 64;")]),
+    # W's halves never copied (stale): what streaming W through L2 costs
+    "lin_no_w": ("linear", [("gather_mlp.cu",
+                             "            sm90::tma_load(st, &wmap, full + s, d0, f0, 0);\n"
+                             "            sm90::tma_load(st + N * kBK * 4, &wmap, full + s, d0, f0, 1);\n",
+                             ""),
+                            ("gather_mlp.cu",
+                             "    const int tx = 2 * N * kBK * 4 + (p.x_tma ? R * kXS * 4 : 0);",
+                             "    const int tx = p.x_tma ? R * kXS * 4 : 0;")]),
     # the centers neither staged nor subtracted: what centering costs
     "lin_no_center": ("linear", [("gather_mlp.cu",
-                                  "      if (d0 >= p.Dc) return;\n"
-                                  "      for (int e = tid; e < p.spt",
-                                  "      return;\n"
-                                  "      for (int e = tid; e < p.spt"),
+                                  "          if (d0 < p.Dc) {\n            for (int e = pt;",
+                                  "          if (false) {\n            for (int e = pt;"),
                                  ("gather_mlp.cu",
                                   "const bool centered = q * kBK < p.Dc;",
                                   "const bool centered = false;")]),
     # y not pooled: what the epilogue's max costs
     "lin_no_pool": ("linear", [("gather_mlp.cu",
-                                "      for (int e = tid; e < p.spt * ft; "
-                                "e += kThreads) {",
-                                "      for (int e = tid; e < 0; "
-                                "e += kThreads) {")]),
+                                "for (int e = ct; e < p.spt * nc; "
+                                "e += kCons) {",
+                                "for (int e = ct; e < 0; "
+                                "e += kCons) {")]),
     # ---- the wide route --------------------------------------------------
     # layer 1 once per 64-column F tile, as the PR 18 route did
     "recompute": ("wide", [("gather_mlp.cu",
@@ -276,7 +309,8 @@ def main() -> int:
         sources[name] = texts
     if args.against:
         sources["against"] = {f: (Path(args.against) / f).read_text()
-                              for f in FILES}
+                              for f in FILES
+                              if (Path(args.against) / f).exists()}
     libs, logs = build(sources, _build.BUILD_DIR / "variants" / "gather_mlp",
                        with_logs=True)
     for name, log in logs.items():
@@ -296,6 +330,11 @@ def main() -> int:
         shapes = {**chip_smoke.DENSE_WIDE, **chip_smoke.WIDE_D}
     callers = {name: forward(ctypes.CDLL(str(so)), dev)
                for name, so in libs.items()}
+    against_linear = False           # the other tree has the linear route
+    if "against" in libs:
+        lib = ctypes.CDLL(str(libs["against"]))
+        against_linear = (hasattr(lib, "gather_mlp_route")
+                          and lib.gather_mlp_route(1, 8, 3, 0, 8) == 2)
     for blk, shp in shapes.items():
         raw, ctr, w1, b1, w2, b2, mask = chip_smoke.dense_inputs(
             gen, dev, **shp)
@@ -305,8 +344,8 @@ def main() -> int:
                 shp["f"])
         ptrs = [t.data_ptr() if t is not None else None
                 for t in (raw, ctr, mask, w1, b1, w2, b2)]
-        two = None                   # the parent's two-layer form of (W, b)
-        if args.linear:
+        two = None                   # the two-layer form of (W, b)
+        if args.linear and not against_linear:
             two = [t.contiguous() for t in split_sign(w1, b1)]
             two_dims = (*dims[:5], 2 * shp["f"], shp["f"])
             two_ptrs = [raw.data_ptr(), ctr.data_ptr(),
@@ -340,6 +379,10 @@ def main() -> int:
             print(json.dumps(dict(variant=name, shape=blk, ms=ms[name],
                                   max_abs_err=errs[name], device=smi)),
                   flush=True)
+        if "against" in fns and "committed" in fns:
+            print(json.dumps(dict(shape=blk, bit_equal_against=bool(
+                torch.equal(outs["committed"], outs["against"])))),
+                flush=True)
     return 0
 
 
