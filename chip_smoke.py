@@ -74,9 +74,17 @@ Phases, each timed, any failure exits non-zero:
      ``REUSE_LINEAR`` (the families' calls at their batches and
      pointvector_l's block 4 under ``CACHE_X4``, layered) against its plain
      version, timed beside it and beside the same block in the split-sign
-     two-layer form, its route, chunk, D splits and shared memory equal in
-     wrapper and library, and the one-layer resident kernels' ptxas
-     spills (0) and TF32 HMMA count (nonzero); gather_mlp's linear route
+     two-layer form, its route, chunk, scratch and shared memory equal in
+     wrapper and library, the rule that sends a resident call to the
+     3xTF32 ``wgmma`` kernel (2^28 multiply-adds and more) and that
+     kernel's plan (rows and islands a tile, N, items, stages, x by TMA
+     or cp.async) equal in tiling.py and library, its W split into TF32
+     halves bit-equal to ``split_weights_ref`` and timed, its W splits in
+     the families phase one a wgmma call, its kernels'
+     (``hub_reuse_linear_sass``) ptxas spills (0), TF32 HGMMA (nonzero)
+     and TF32 HMMA (0), and the mma.sync one-layer kernels'
+     (``linear_sass``) spills (0) and TF32 HMMA (nonzero); gather_mlp's
+     linear route
      (3xTF32 ``wgmma``) against its plain
      version and timed at ``DENSE_LINEAR`` (the six blocks the wide
      route took before it, one narrow one-layer block and D = 700), its
@@ -302,7 +310,10 @@ runs for ``flash_attention_bwd``'s and ``ssd_chunk_bwd``'s, and in phase
 14's drive for the domain routes' rows (``route_launches`` beside: the
 route's own count), over the families phase's counted forwards for
 hub_reuse's one-layer rows (their route's one-layer count; phase 5's
-pointvector_l forward for its block 4 under ``CACHE_X4``);
+pointvector_l forward for its block 4 under ``CACHE_X4``; the wgmma
+kernel's own count, ``hub_reuse_linear_wgmma``, on its rows) and over
+the families phase's counted forwards for their W splits
+(``hub_reuse_split_weights``, one a wgmma call);
 ``pcn_train_launches`` beside the FC rows: phase 13's full-size run),
 and last
 ``{"ok": true,
@@ -1292,9 +1303,11 @@ def families_phase(dev, seed, smi) -> dict:
     padding rows exactly 0, and the forward's stages timed; dgcnn_c's
     stage 1 on the card against the CPU (every integer field equal); then
     dgcnn_c once in traditional mode.  -> gather_mlp's launches by route,
-    the linear route's W splits (``split_weights``, one a linear launch)
-    and hub_reuse's one-layer launches by route
-    (``hub_reuse_<route>_linear``) over the counted forwards."""
+    the linear route's W splits (``split_weights``, one a linear launch),
+    hub_reuse's one-layer launches by route (``hub_reuse_<route>_linear``),
+    the wgmma kernel's among them (``hub_reuse_linear_wgmma``) and its W
+    splits (``hub_reuse_split_weights``, one a wgmma call) over the
+    counted forwards."""
     import torch
     from repro_torch import kernels
     from repro_torch.engine import PCNEngine
@@ -1303,7 +1316,8 @@ def families_phase(dev, seed, smi) -> dict:
                 "ssd_chunk_bwd")
     totals = dict.fromkeys(GATHER_ROUTES, 0)
     totals.update(hub_reuse_resident_linear=0, hub_reuse_layered_linear=0,
-                  split_weights=0)
+                  split_weights=0, hub_reuse_linear_wgmma=0,
+                  hub_reuse_split_weights=0)
     for name, (b, n) in FAMILIES.items():
         spec = MODEL_ZOO[name][1]
         engine = PCNEngine(spec, mode="lpcn", fc_backend="cuda")
@@ -1348,6 +1362,14 @@ def families_phase(dev, seed, smi) -> dict:
             totals[way] += by_route[way]
         for way in ("resident_linear", "layered_linear"):
             totals[f"hub_reuse_{way}"] += forms[way]
+        reuse_split = kernels.LAUNCHES["hub_reuse_split_weights"]
+        wgmma = kernels.LAUNCHES["hub_reuse_linear_wgmma"]
+        check(reuse_split == wgmma <= forms["resident_linear"],
+              f"{name}: {reuse_split} hub_reuse W splits for {wgmma} wgmma "
+              f"launches of {forms['resident_linear']} one-layer resident "
+              f"ones, expected one a wgmma call (C <= 128: one launch)")
+        totals["hub_reuse_split_weights"] += reuse_split
+        totals["hub_reuse_linear_wgmma"] += wgmma
         seg = spec.task == "seg"
         check(tuple(out.shape) == ((b, n, spec.n_classes) if seg
                                    else (b, spec.n_classes)),
@@ -1586,22 +1608,30 @@ def linear_kernel_rows(dev, seed, launches,
 
 def reuse_linear_rows(dev, seed, totals, x4_launches) -> tuple[list, list]:
     """hub_reuse's one-layer form at ``REUSE_LINEAR``: the wrapper's route,
-    chunk, shared memory (and on the layered route its D splits and
-    scratch) equal to the library's, the kernel against its plain version
-    (1e-4 · max(1, max|plain|), the -BIG identity exactly) and twice
-    bit-equal, timed in turns beside the plain version and beside the
-    same block in the split-sign two-layer form (relu(x·[W, −W] + [b,
-    −b])·[I; −I], Hd = 2F, which the engine lowered it to before; the
-    same function) through the same wrapper; the bound by the one layer's
-    flops.  -> (parity rows, kernel rows with ``launches``: the families
-    phase's count of the row's route in one layer (``totals``), or at
-    pointvector_l_blk4_c128 phase 5's pointvector_l forward's
-    (``x4_launches``), and the plan)."""
+    chunk, shared memory, scratch (and on the layered route its D splits)
+    equal to the library's; the kernel rule (``reuse_linear_wgmma``: the
+    wgmma kernel where a resident call's products reach 2^28
+    multiply-adds, else the mma.sync one) and the wgmma kernel's plan
+    (rows, islands a tile, groups, F tiles, N, items, stages, x by TMA or
+    cp.async, shared memory, scratch) equal in tiling.py and library; the
+    kernel against its plain version (1e-4 · max(1, max|plain|), the -BIG
+    identity exactly) and twice bit-equal, timed in turns beside the
+    plain version and beside the same block in the split-sign two-layer
+    form (relu(x·[W, −W] + [b, −b])·[I; −I], Hd = 2F, the same function)
+    through the same wrapper; the bound by the one layer's flops; on the
+    wgmma kernel its W split into TF32 halves bit-equal to
+    ``split_weights_ref`` and timed beside it.  -> (parity rows, kernel
+    rows with ``launches``: the families phase's count of the row's
+    kernel (``hub_reuse_linear_wgmma``) or route in one layer
+    (``totals``), or at pointvector_l_blk4_c128 phase 5's pointvector_l
+    forward's (``x4_launches``), and the plan; the split's rows with the
+    families phase's ``hub_reuse_split_weights``)."""
     import torch
     from repro_torch.engine.fc import _split_sign
     from repro_torch.kernels import tiling
     from repro_torch.kernels.hub_reuse import hub_reuse, hub_reuse_ref
     from repro_torch.kernels.hub_reuse import ops as hub_ops
+    from repro_torch.kernels.tf32_split import split_weights_ref
     gen = torch.Generator().manual_seed(seed + 4)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     parity, rows = [], []
@@ -1613,12 +1643,22 @@ def reuse_linear_rows(dev, seed, totals, x4_launches) -> tuple[list, list]:
         ours = dict(route=tiling.hub_reuse_route(b, hn, c, m, k, d, f, sms,
                                                  h=0), nsplit=0, scratch=0,
                     smem=tiling.LAYERED_SMEM)
+        wgmma = ours["route"] == "resident" and tiling.reuse_linear_wgmma(
+            b, hn, c, d, f)
+        lp = tiling.reuse_linear_plan(b, hn, c, d, f, sms) if wgmma else None
+        got = hub_ops.library_linear_plan(b, hn, c, m, k, d, f)
+        check(got == lp, f"hub_reuse {blk}: the library's wgmma plan {got}, "
+              f"tiling.py's {lp} (None: the mma.sync kernel or layered)")
         if ours["route"] == "layered":
-            lp = tiling.hub_reuse_layered_plan(b, hn, c, 0, f, sms, d)
-            ours.update(nsplit=lp["nsplit"], scratch=lp["scratch"])
+            lay = tiling.hub_reuse_layered_plan(b, hn, c, 0, f, sms, d)
+            ours.update(nsplit=lay["nsplit"], scratch=lay["scratch"])
         else:
-            ours["smem"] = tiling.hub_reuse_smem(c, m, k, d, h=0)
-            check(hub_ops.library_smem(c, m, k, d, 0) == ours["smem"]
+            ours["smem"] = tiling.hub_reuse_smem(c, m, k, d, h=0, b=b, hn=hn,
+                                                 f=f, sms=sms)
+            if wgmma:
+                ours["scratch"] = lp["scratch"] // 4
+            check(hub_ops.library_smem(b, hn, c, m, k, d, 0, f)
+                  == ours["smem"]
                   and pl["chunk"] == tiling.hub_reuse_chunk(c, m, k, d, 0),
                   f"hub_reuse {blk}: chunk {pl['chunk']} and the library's "
                   f"shared memory differ from tiling.py's {ours}")
@@ -1632,9 +1672,9 @@ def reuse_linear_rows(dev, seed, totals, x4_launches) -> tuple[list, list]:
         out = hub_reuse(*args, live=live)
         err, tol = max_err(out, hub_reuse_ref(*args, live=live))
         same = bool(torch.equal(out, hub_reuse(*args, live=live)))
-        parity.append(dict(name="hub_reuse", block=blk, b=b, masked=True,
-                           form="linear", route=pl["route"],
-                           max_abs_err=err, tol=tol, bit_equal=same))
+        prow = dict(name="hub_reuse", block=blk, b=b, masked=True,
+                    form="linear", route=pl["route"], wgmma=wgmma,
+                    max_abs_err=err, tol=tol, bit_equal=same)
         check(err <= tol, f"hub_reuse {blk}: max|err| {err} > {tol}")
         check(same, f"hub_reuse {blk}: two calls differ")
         t = time_turns({"plain": lambda: hub_reuse_ref(*args, live=live),
@@ -1644,12 +1684,20 @@ def reuse_linear_rows(dev, seed, totals, x4_launches) -> tuple[list, list]:
         flops = 2 * b * hn * c * d * f
         moved = nbytes(*args, live, out)
         bms, by = bound(3 * flops, moved, PEAK_TF32)
-        launches = (x4_launches[f"hub_reuse_{pl['route']}_linear"]
-                    if blk.endswith("_c128") else
-                    totals[f"hub_reuse_{pl['route']}_linear"])
+        count = ("hub_reuse_linear_wgmma" if wgmma
+                 else f"hub_reuse_{pl['route']}_linear")
+        launches = (x4_launches[count] if blk.endswith("_c128")
+                    else totals[count])
+        plan = dict(ours, chunk=pl["chunk"])
+        if wgmma:                        # the wgmma kernel's tiling
+            plan["linear"] = dict(
+                lp, x_by="tma" if lp["x_tma"] else "cp.async",
+                grid=min(lp["items"], sms * tiling.reuse_linear_blocks_per_sm(
+                    lp["rows"], lp["n"])))
         rows.append(dict(
             name="hub_reuse", block=blk, route="cuda",
-            variant=f"mma_tf32x3_linear_{pl['route']}",
+            variant=(f"{'wgmma' if wgmma else 'mma'}_tf32x3_linear_"
+                     f"{pl['route']}"),
             tflops=flops / t["kernel"] / 1e9,
             bound_fp32_ms=bound(flops, moved)[0],
             source="src/repro_torch/csrc/hub_reuse.cu",
@@ -1659,8 +1707,34 @@ def reuse_linear_rows(dev, seed, totals, x4_launches) -> tuple[list, list]:
             max_abs_err=err, ms=t["kernel"], plain_ms=t["plain"],
             bound_ms=bms, bound_by=by, library_ms=None, launches=launches,
             split_sign_ms=t["split_sign"],
-            split_sign_over_ms=t["split_sign"] / t["kernel"],
-            plan=dict(ours, chunk=pl["chunk"])))
+            split_sign_over_ms=t["split_sign"] / t["kernel"], plan=plan))
+        if wgmma:                        # its W split, once a call
+            f_pad = tiling.round_up(f, tiling.REUSE_LINEAR_MAX_COLS)
+            halves = hub_ops.split_weights(w)
+            split_same = bool(torch.equal(halves,
+                                          split_weights_ref(w, f_pad)))
+            prow["split_weights_bit_equal"] = split_same
+            check(split_same, f"hub_reuse {blk}: W's split differs from "
+                  f"split_weights_ref")
+            split_ms, split_plain_ms = time_pair(
+                lambda: hub_ops.split_weights(w),
+                lambda: split_weights_ref(w, f_pad), iters=10)
+            sbms, sby = bound(0, nbytes(w, halves))
+            rows.append(dict(
+                name="hub_reuse", block=blk, route="cuda",
+                variant="split_weights", part="the wgmma kernel's W into "
+                "its TF32 halves in scratch, once a call",
+                source="src/repro_torch/csrc/tf32_split.cuh",
+                replaces="src/repro/kernels/hub_reuse/hub_reuse.py:307",
+                shape=f"D={d} F={f} -> {tuple(halves.shape)}",
+                max_abs_err=0.0, bit_equal=split_same, ms=split_ms,
+                plain_ms=split_plain_ms, bound_ms=sbms, bound_by=sby,
+                library_ms=None,
+                launches=totals["hub_reuse_split_weights"]))
+        parity.append(prow)
+    check(sum(r["variant"].startswith("wgmma") for r in rows) == 1,
+          "hub_reuse: expected the wgmma kernel at dgcnn_c's block 4 alone "
+          "of REUSE_LINEAR")
     return parity, rows
 
 
@@ -1700,9 +1774,9 @@ def gather_linear_sass() -> dict:
 
 
 def linear_sass() -> dict:
-    """The one-layer resident kernels of the built hub_reuse library
-    (``hub_reuse_kernel<L, true>``): each one's registers and spills
-    (ptxas) and its TF32 HMMA count (SASS)."""
+    """The mma.sync one-layer resident kernels of the built hub_reuse
+    library (``hub_reuse_kernel<L, true>``): each one's registers and
+    spills (ptxas) and its TF32 HMMA count (SASS)."""
     from repro_torch import kernels
     out = {}
     for row in ptxas_kernels(kernels.BUILD_LOG["hub_reuse"]):
@@ -1712,6 +1786,22 @@ def linear_sass() -> dict:
                 hmma_tf32=sass_count("hub_reuse", "HMMA", "TF32",
                                      within=row["kernel"]))
     return out
+
+
+def hub_reuse_linear_sass() -> dict:
+    """The wgmma one-layer kernels of the built hub_reuse library
+    (``hub_reuse_linear_kernel<NC, N>``: both row tiles, both widths):
+    each one's registers and spills (ptxas), and its TF32 HGMMA (wgmma)
+    and TF32 HMMA (mma.sync) counts (SASS)."""
+    from repro_torch import kernels
+    hgmma = sass_by_function("hub_reuse", "HGMMA", "TF32")
+    hmma = sass_by_function("hub_reuse", "HMMA", "TF32")
+    return {row["kernel"]: dict(registers=row["registers"],
+                                spill=row["spill"],
+                                hgmma_tf32=hgmma.get(row["kernel"], 0),
+                                hmma_tf32=hmma.get(row["kernel"], 0))
+            for row in ptxas_kernels(kernels.BUILD_LOG["hub_reuse"])
+            if "hub_reuse_linear_kernel" in row["kernel"]}
 
 
 def cache_x4_phase(params, batch, seed, dev) -> dict:
@@ -4461,11 +4551,19 @@ def main() -> int:
           f"{dense_linear}, expected no spill, TF32 HGMMA and no TF32 HMMA "
           f"in each")
     one_layer = linear_sass()
-    log(json.dumps({"hub_reuse_linear_sass": one_layer}))
+    log(json.dumps({"linear_sass": one_layer}))
     check(len(one_layer) == 2 and all(
         r["spill"] == 0 and r["hmma_tf32"] > 0 for r in one_layer.values()),
-          f"hub_reuse's one-layer resident kernels (both row tiles): "
-          f"{one_layer}, expected no spill and TF32 HMMA in each")
+          f"hub_reuse's mma.sync one-layer resident kernels (both row "
+          f"tiles): {one_layer}, expected no spill and TF32 HMMA in each")
+    wgmma = hub_reuse_linear_sass()
+    log(json.dumps({"hub_reuse_linear_sass": wgmma}))
+    check(len(wgmma) == 4 and all(
+        r["spill"] == 0 and r["hgmma_tf32"] > 0 and r["hmma_tf32"] == 0
+        for r in wgmma.values()),
+          f"hub_reuse's wgmma one-layer kernels (two row tiles, two "
+          f"widths): {wgmma}, expected no spill, TF32 HGMMA and no TF32 "
+          f"HMMA in each")
 
     t = time.perf_counter()
     parity, rows, per_cloud = kernel_phase(dev, args.seed)

@@ -466,6 +466,52 @@ def _hub_reuse_site(dims, plan, where, sms, card):
         return site
     chunk = plan.get("chunk") or tiling.hub_reuse_chunk(c, m, k, d, h)
     launches = tiling.hub_reuse_launches(c, chunk)
+    if h == 0 and tiling.reuse_linear_wgmma(bb, hn, c, d, f):
+        # one layer on wgmma: W's split, then a persistent grid over items
+        # (a row tile of ipt whole islands by n columns); the site holds
+        # each launch's items, nothing stages the slot table
+        lp = tiling.reuse_linear_plan(bb, hn, c, d, f, sms, chunk)
+        ipt, n, isl = lp["ipt"], lp["n"], bb * hn
+
+        def item_tiles(p):
+            g, ft = p[2] // lp["nft"], p[2] % lp["nft"]
+            cols = [t for t in range(ft * n // 64, (ft + 1) * n // 64)
+                    if t * 64 < f]
+            return [(p[0], i, t) for i in range(g * ipt,
+                                                min(isl, (g + 1) * ipt))
+                    for t in cols]
+        site = KernelSite(
+            "hub_reuse", where, dims, plan,
+            grid=(nb, len(launches), lp["items"]),
+            semantics=(PARALLEL, MERGE, PARALLEL),
+            out_shape=(nb, isl, f), out_block=(1, 1, 64),
+            out_map=item_tiles,
+            smem=lp["smem"],
+            launch=dict(route=route, chunk=chunk, launches=launches,
+                        rows=lp["rows"], ipt=ipt, n=n, items=lp["items"],
+                        scratch=lp["scratch"]),
+            operands=[OperandInfo("slot table", (m, k), (1, 32), False)],
+            preconditions=[(f"chunk {chunk} in {tiling.CHUNKS}",
+                            chunk in tiling.CHUNKS),
+                           (f"a {lp['rows']}-row tile holds {ipt} whole "
+                            f"islands of {min(chunk, c)} rows",
+                            ipt >= 1 and ipt * min(chunk, c) <= lp["rows"])],
+            coverage=[(f"launches {launches} cover the {c} cache rows",
+                       sum(launches) == c and all(0 < r <= chunk
+                                                  for r in launches))],
+            mismatch=mismatch)
+        if card:
+            from ..kernels.hub_reuse import ops
+            site.smem_library = ops.library_smem(bb, hn, c, m, k, d, h, f,
+                                                 True, chunk)
+            lib = ops.library_linear_plan(bb, hn, c, m, k, d, f, chunk)
+            # (x_tma: the library's also asks the pool's alignment)
+            if lib is None or any(lib[key] != lp[key]
+                                  for key in ops.LINEAR_PLAN
+                                  if key != "x_tma"):
+                site.mismatch.append(f"one-layer plan {lib} from the "
+                                     f"library, {lp} derived")
+        return site
     site = KernelSite(
         "hub_reuse", where, dims, plan,
         grid=(nb, len(launches), bb * hn, nf),
@@ -484,7 +530,8 @@ def _hub_reuse_site(dims, plan, where, sms, card):
         mismatch=mismatch)
     if card:
         from ..kernels.hub_reuse import ops
-        site.smem_library = ops.library_smem(c, m, k, d, h, True, chunk)
+        site.smem_library = ops.library_smem(bb, hn, c, m, k, d, h, f, True,
+                                             chunk)
         lib_route = ops.library_plan(bb, hn, c, m, k, d, h, f)["route"]
         if lib_route != route:
             site.mismatch.append(f"route {lib_route} from the library, "

@@ -56,6 +56,7 @@
 #include <string.h>
 
 #include "sm90_tf32.cuh"
+#include "tf32_split.cuh"
 #include "tf32x3.cuh"
 
 namespace {
@@ -1052,34 +1053,18 @@ size_t scratch_bytes(int D, int F) {
 
 // W (D x F, row-major) into its halves at out (two F_pad x D_pad blocks,
 // big then small), a 32 x 32 tile a block through shared memory
-__global__ void __launch_bounds__(256)
+// (tf32_split.cuh, which hub_reuse.cu's one-layer route shares)
+__global__ void __launch_bounds__(tf32_split::kThreads)
 split_weights_kernel(const float* __restrict__ w, float* __restrict__ out,
                      int D, int F, int Dp, int Fp) {
-  __shared__ float tile[32][33];
-  const int k0 = blockIdx.x * 32, n0 = blockIdx.y * 32;
-  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
-  for (int i = ty; i < 32; i += 8) {
-    const int k = k0 + i, n = n0 + tx;
-    tile[i][tx] = k < D && n < F ? w[(size_t)k * F + n] : 0.f;
-  }
-  __syncthreads();
-  for (int i = ty; i < 32; i += 8) {
-    const int n = n0 + i, pos = k0 + tx;
-    if (n >= Fp || pos >= Dp) continue;
-    const int j = pos & 7;               // position j holds k 2 (j % 4) + j / 4
-    const float v = tile[(tx & ~7) | ((j & 3) * 2 + (j >> 2))][i];
-    const uint32_t big = tf32x3::to_tf32(v);
-    const uint32_t small = tf32x3::to_tf32(v - __uint_as_float(big));
-    out[(size_t)n * Dp + pos] = __uint_as_float(big);
-    out[((size_t)Fp + n) * Dp + pos] = __uint_as_float(small);
-  }
+  tf32_split::split_tile(w, out, D, F, Dp, Fp);
 }
 
 int split_weights(const float* w, float* out, int D, int F,
                   cudaStream_t stream) {
   const int Dp = round_up(D, kBK), Fp = f_tiles(F) * cols(F);
-  const dim3 grid((Dp + 31) / 32, (Fp + 31) / 32);
-  split_weights_kernel<<<grid, 256, 0, stream>>>(w, out, D, F, Dp, Fp);
+  split_weights_kernel<<<tf32_split::grid(Dp, Fp), tf32_split::kThreads, 0,
+                         stream>>>(w, out, D, F, Dp, Fp);
   return (int)cudaGetLastError();
 }
 

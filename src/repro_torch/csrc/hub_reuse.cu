@@ -29,7 +29,9 @@
 // `resident`, one block an island and 64 features with the island's
 // cache rows in shared memory, for the calls one launch of it covers (C
 // <= 128 rows that fit a block); and `layered`, over global memory, for
-// every other call (three launches for two layers, two for one).
+// every other call (three launches for two layers, two for one).  A
+// one-layer resident call whose products reach 2^28 multiply-adds takes
+// a kernel of its own on wgmma instead (`linear_wgmma`; rl:: at the end).
 //
 // The resident route.  A launch takes a chunk of at most 64 or 128 cache
 // rows (the wrapper's knob; 128 unless a plan says otherwise), rows [c0,
@@ -71,15 +73,11 @@
 //     h is never resident, so shared memory does not grow with Hd.  W1
 //     and W2 stream through one three-stage cp.async ring of 64 x 64
 //     tiles, one barrier a stage.
-//   * One layer (a template flag of the same kernel): the ring streams
-//     only W1[:, f0 : f0 + 64] over D into y's registers, ceil(D / 64)
-//     stages against the two-layer form's ceil(Hd / 64) (ceil(D / 64) +
-//     1); no relu, no h tile (its R x 72 floats of shared memory are not
-//     taken, so 128 rows of a wider D fit a block), no second product.
+//   * One layer: y += x W1 over D in the same ring, no h.
 //   * The products run on mma.sync m16n8k8 TF32 in three passes
 //     (tf32x3.cuh): operands fp32 in shared memory, split in registers.
-//   * After the last stage, y plus its bias (b2, or b1 in one layer) goes
-//     to shared memory over x.  A warp takes a subset, its lanes along f:
+//   * After the last stage, y plus its bias b2 goes to shared memory
+//     over x.  A warp takes a subset, its lanes along f:
 //     it turns the subset's staged slots into y rows (-1 where a slot is
 //     not cached or not live), then each (m, k) reads one y row without
 //     bank conflicts and a dead slot is a warp-uniform skip; comp is read
@@ -114,10 +112,49 @@
 //      comp once per (m, f).
 // Nothing stages C x D or M x K whole, so any C, D and M*K take one call,
 // and the same inputs give the same bits.
+//
+// The one-layer resident route on wgmma (namespace rl below), for the
+// calls `linear_wgmma` names.  The one-layer form is a GEMM of B·H·C rows
+// by F columns of depth D, then the gather: dgcnn_c's block 4 at B = 8
+// (256 islands of C = 40, D = F = 256) is 10,240 rows, 4.0 GFLOP in
+// 3xTF32 (8 us at the 495 TFLOP/s TF32 peak) against 46 MB of pool,
+// slots, comp and out (13.7 us at 3.35 TB/s), and its gather reads M·K·F
+// floats of y from shared memory an island, 335 MB a call (~10 us of the
+// card's shared-memory bandwidth).  hub_reuse_kernel<L, true> streams W
+// through L2 once an island on latency-bound mma.sync chains; only wgmma
+// reaches the TF32 peak, so, as gather_mlp's linear route:
+//   * W split once a call into device scratch as TF32 halves, K-major, k
+//     permuted within 8-groups (tf32_split.cuh, the split gather_mlp
+//     uses), which every chunk's launch reads;
+//   * hub_reuse_linear_kernel: a work item is a row tile of R = 64 rows
+//     (one consumer warpgroup; 128 and two where Cc passes 64) holding
+//     whole islands, floor(R / Cc) of Cc cache rows each, by N output
+//     columns (F in tiles of at most 128; 64 where the items would leave
+//     SMs idle).  No island is split across tiles.  Two blocks an SM (one
+//     at R = 128, N = 128) walk the items (persistent).  A producer
+//     warpgroup fills a ring of 16-deep stages: W's halves by TMA (64-byte
+//     swizzle), x's 16-column slice of the tile's rows by TMA where its
+//     rows are 16-byte multiples and the tile's islands are adjacent in
+//     memory, else by cp.async.  The consumers issue three wgmma.m64nNk8
+//     .tf32 a k8 step (small·big, big·small, big·big; A from registers),
+//     x streamed, so D is not bounded.
+//   * The gather in the epilogue: y staged 64 columns at a time in a
+//     buffer of its own (the ring keeps filling for the next item
+//     meanwhile); a warp takes kGroup subsets at once, its lanes along f,
+//     their slots, liveness and comp loaded together; a slot clamps at
+//     C - 1 and counts only inside [c0, c0 + Cc) of its own island, whose
+//     rows it reads; b and comp are added to the max once per (m, f)
+//     (max(y) + b = max(y + b): rounding is monotone), and out is written
+//     once, coalesced (max-merged where a launch follows another chunk).
+// Slots and liveness are never staged whole, so D and M·K do not bound
+// it.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+#include <string.h>
 
+#include "sm90_tf32.cuh"
+#include "tf32_split.cuh"
 #include "tf32x3.cuh"
 
 namespace {
@@ -773,11 +810,548 @@ inline bool aligned16(const void* p) {
 
 }  // namespace layered
 
+// ---- the one-layer resident route on wgmma ---------------------------------
+
+// Whether a one-layer resident call of `islands` islands takes rl:: (the
+// wgmma kernel) rather than hub_reuse_kernel<L, true>: where its products,
+// islands x min(C, 128) rows x D x F, reach 2^28 multiply-adds.  On an
+// H100 (700 W) the wgmma kernel took DGCNN(c)'s block 4 at B = 8 (2^29.3)
+// in 0.079 ms against the mma.sync kernel's 0.134, and lost at every
+// smaller family block, by up to 2x (its split and persistent ring cost
+// ~10 us a call; DGCNN(c)'s block 3, 2^27.3, 0.037 against 0.034)
+constexpr long long kWgmmaMacs = 1LL << 28;
+
+bool linear_wgmma(long long islands, int C, int D, int F) {
+  return islands * min(C, kMaxC) * D * F >= kWgmmaMacs;
+}
+
+// W into its halves for the route (tf32_split.cuh), under a name of its own
+__global__ void __launch_bounds__(tf32_split::kThreads)
+hub_reuse_split_weights_kernel(const float* __restrict__ w,
+                               float* __restrict__ out, int D, int F, int Dp,
+                               int Fp) {
+  tf32_split::split_tile(w, out, D, F, Dp, Fp);
+}
+
+namespace rl {
+
+constexpr int kBK = tf32_split::kDepth;  // depth of a ring stage
+constexpr int kXS = kBK + 8;             // x slice row stride (float2 A
+                                         // loads: 4 rows hit 32 banks)
+constexpr int kMaxN = 128;               // output columns a block
+constexpr int kTileN = 64;               // N is a multiple of it
+constexpr int kYC = 64;                  // y's columns staged at a time
+constexpr int kYS = kYC + 8;             // y's row stride (≡ 8 mod 32)
+constexpr int kMaxStages = 8;
+constexpr int kGroup = 4;                // subsets a warp gathers at once
+constexpr int kTab = 24576;              // bytes for an item's slot table
+constexpr bool kXByTma = true;           // x by TMA where it may go so
+
+struct LinParams {
+  const float* pool;
+  const int32_t* slot;
+  const float* comp;
+  const uint8_t* live;
+  const float* b;
+  float* out;
+  long long islands;       // B * H
+  int C, M, K, D, F;
+  int c0, Cc, merge;       // the launch's cache rows [c0, c0 + Cc)
+  int ipt;                 // islands a tile
+  int nft, items;          // F tiles, tile groups x F tiles
+  int nk;                  // ring stages over D
+  int stages, stage_bytes;
+  int x_tma, x_vec;        // x by TMA; 16-byte cp.async copies of x
+};
+
+__host__ __device__ constexpr int round_up(int n, int m) {
+  return (n + m - 1) / m * m;
+}
+
+// bytes of a ring stage: both W halves (N rows of 64 bytes each), the x
+// slice, rounded up to 1024
+__host__ __device__ constexpr int stage_bytes(int R, int N) {
+  return round_up(2 * N * kBK * 4 + R * kXS * 4, 1024);
+}
+
+// bytes after the ring: y's staging (R x kYS, then a row of -inf that
+// every dead slot reads), the item's slot table and liveness (kTab) and
+// the barriers (full and empty a stage)
+__host__ __device__ constexpr int tail_bytes(int R) {
+  return (R + 1) * kYS * 4 + kTab + 8 * 2 * kMaxStages;
+}
+
+// Whether an item of n slots stages its slots and liveness in the kTab
+// bytes (else the gather reads them from global memory)
+__host__ __device__ constexpr bool tab_fits(int n) {
+  return 4 * ((n + 3) / 4 * 4) + (n + 15) / 16 * 16 <= kTab;
+}
+
+// Blocks an SM of R rows by N columns: two of one consumer warpgroup
+// (R = 64), or at N = 64, where one block's gather runs beside the
+// other's products; else one (R = 128 at N = 128: shared memory allows
+// no more)
+__host__ __device__ constexpr int blocks_per_sm(int R, int N) {
+  return R <= 64 || N <= kTileN ? 2 : 1;
+}
+
+// The setmaxnreg split of the registers between the producer and the
+// consumer warpgroups: at two blocks an SM 40 + 216 of 2 x 128 (R = 64)
+// or 40 + 2 x 96 of 3 x 80 (R = 128, N = 64); at one (R = 128, N = 128)
+// 56 + 2 x 224 of 3 x 168, as gather_mlp's linear route
+template <int R, int N>
+struct Regs {
+  static constexpr bool kTwo = blocks_per_sm(R, N) == 2;
+  static constexpr int kProducer = kTwo ? 40 : 56;
+  static constexpr int kConsumer = kTwo ? (R <= 64 ? 216 : 96) : 224;
+};
+
+// a block's shared-memory budget: a block's limit, or half an SM's less
+// its reserved 1 KB at two blocks an SM
+__host__ __device__ constexpr int smem_budget(int R, int N) {
+  return blocks_per_sm(R, N) == 2 ? 233472 / 2 - 1024 : (int)kMaxSmem;
+}
+
+// stages of the ring: as many as fit the budget, at most kMaxStages
+__host__ __device__ constexpr int ring_stages(int R, int N) {
+  return (smem_budget(R, N) - 1024 - tail_bytes(R)) / stage_bytes(R, N) <
+                 kMaxStages
+             ? (smem_budget(R, N) - 1024 - tail_bytes(R)) /
+                   stage_bytes(R, N)
+             : kMaxStages;
+}
+
+size_t smem_bytes(int R, int N) {
+  return 1024 + (size_t)ring_stages(R, N) * stage_bytes(R, N) +
+         tail_bytes(R);
+}
+
+// F's tiles at N columns, and the widest N: F in ceil(F / 128) tiles,
+// each rounded up to a multiple of 64 (N = 256 took DGCNN(c)'s block 4
+// in 0.115 ms against N = 128's 0.079: one block an SM, its gather
+// beside nothing)
+int f_tiles(int F, int N) { return (F + N - 1) / N; }
+int widest(int F) {
+  const int nft = (F + kMaxN - 1) / kMaxN;
+  return round_up((F + nft - 1) / nft, kTileN);
+}
+
+// What a launch of Cc cache rows of each of `islands` islands tiles into
+// on a card of `sms` SMs (the rules below)
+struct Plan {
+  int R, N, ipt, nft, stages, x_tma;
+  long long groups, items;
+  size_t smem, scratch;
+};
+
+// The row rule: 64 rows (one consumer warpgroup, floor(64 / Cc) islands
+// a tile, two blocks an SM) where an island's Cc rows fit them, else 128
+// (two, one island a tile).  DGCNN(c)'s block 4 (Cc = 40) took 0.079 ms
+// in 64-row tiles against 0.097 in 128-row tiles of three islands.
+int row_rule(int Cc) { return Cc > 64 ? 128 : 64; }
+
+// The N rule: the widest N, down to 64 where the items would leave a
+// quarter of the persistent grid's blocks idle
+int col_rule(int R, long long groups, int F, int sms) {
+  const int N = widest(F);
+  return N > kTileN &&
+                 4 * groups * f_tiles(F, N) < 3LL * blocks_per_sm(R, N) * sms
+             ? kTileN
+             : N;
+}
+
+Plan plan(long long islands, int C, int Cc, int D, int F, int sms) {
+  Plan p;
+  p.R = row_rule(Cc);
+  p.ipt = p.R / Cc;
+  p.groups = (islands + p.ipt - 1) / p.ipt;
+  p.N = col_rule(p.R, p.groups, F, sms);
+  p.nft = f_tiles(F, p.N);
+  p.items = p.groups * p.nft;
+  p.stages = ring_stages(p.R, p.N);
+  p.x_tma = kXByTma && D % 4 == 0 && (p.ipt == 1 || Cc == C);
+  p.smem = smem_bytes(p.R, p.N);
+  // W's halves, split once a call for every launch: F to 128 rows (nft N
+  // <= F to 128, N 64 or 128)
+  p.scratch = 2 * sizeof(float) * (size_t)round_up(F, kMaxN) *
+              round_up(D, kBK);
+  return p;
+}
+
+// ties the fragments' definitions to this point (no instruction)
+__device__ __forceinline__ void fence_frags(Frag<4> (&af)[kBK / 8]) {
+#pragma unroll
+  for (int j = 0; j < kBK / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      asm volatile("" : "+r"(af[j].big[i]), "+r"(af[j].small[i])::"memory");
+}
+
+// An item's slots and liveness, from its first subset on: in shared
+// memory (staged) or global memory, indexed alike
+struct Tab {
+  const int32_t* slot;
+  const uint8_t* live;     // null: every slot live
+};
+
+// Where in the staged y (floats from its start) the row that slot `at`
+// of the item's table (island j of the tile) reads begins, or `dead` (the
+// row of -inf) where the slot is not cached, not live or outside the
+// launch's rows of its island (the slot and its liveness loaded together)
+__device__ __forceinline__ int slot_row(const LinParams& p, const Tab& t,
+                                        int at, int j, int dead) {
+  const int v = t.slot[at];
+  const int lv = t.live == nullptr ? 1 : t.live[at];
+  const int r = v >= 0 && lv != 0 ? min(v, p.C - 1) - p.c0 : -1;
+  return r >= 0 && r < p.Cc ? (j * p.Cc + r) * kYS : dead;
+}
+
+// max over a subset's live slots of y, plus b, plus comp; -BIG where none
+// is live
+__device__ __forceinline__ float pooled(float m, float b, float c) {
+  return m == -INFINITY ? -kBig : (m + b) + c;
+}
+
+// What a warp's group of kGroup subsets (from e0 of the tile) reads
+// before its max: each subset's first 32 slots as rows of the staged y
+// (lane k holds slot k's), and comp at the lane's two columns
+struct Group {
+  int mine[kGroup];
+  float c0[kGroup], c1[kGroup];
+};
+
+__device__ __forceinline__ void load_group(const LinParams& p, const Tab& t,
+                                           Group& g, long long i0, int nsub,
+                                           int e0, int c, bool in0, bool in1,
+                                           int lane, int dead) {
+#pragma unroll
+  for (int u = 0; u < kGroup; ++u) {
+    const int e = e0 + u;
+    const bool in = e < nsub;
+    const int j = in ? e / p.M : 0;
+    const long long sub = (i0 + j) * p.M + (in ? e - j * p.M : 0);
+    g.mine[u] = in && lane < p.K ? slot_row(p, t, e * p.K + lane, j, dead)
+                                 : dead;
+    const long long at = sub * p.F + c;
+    g.c0[u] = in && in0 ? __ldg(p.comp + at) : 0.f;
+    g.c1[u] = in && in1 ? __ldg(p.comp + at + 1) : 0.f;
+  }
+}
+
+// out at columns [fc, fc + nc) of the subsets of islands [i0, i0 + nisl)
+// from y staged at ys (R x kYS, those columns, then the row of -inf at
+// `dead`) and the item's slots and liveness t: a warp takes kGroup
+// subsets at once, its lanes columns fc + 2 lane and + 1, the next
+// group's slots and comp loaded while this group's max runs
+template <int kWarps>
+__device__ __forceinline__ void gather(const LinParams& p, const Tab& t,
+                                       const float* ys, int dead,
+                                       long long i0, int nisl, int fc,
+                                       int nc, int warp, int lane) {
+  const float* ylane = ys + 2 * lane;
+  const int c = fc + 2 * lane;
+  const bool in0 = 2 * lane < nc, in1 = 2 * lane + 1 < nc;
+  const float b0 = in0 ? __ldg(p.b + c) : 0.f;
+  const float b1 = in1 ? __ldg(p.b + c + 1) : 0.f;
+  const int nsub = nisl * p.M, step = kWarps * kGroup;
+  Group cur, next;
+  load_group(p, t, cur, i0, nsub, warp * kGroup, c, in0, in1, lane, dead);
+  for (int e0 = warp * kGroup; e0 < nsub; e0 += step) {
+    load_group(p, t, next, i0, nsub, e0 + step, c, in0, in1, lane, dead);
+    float a0[kGroup], a1[kGroup];
+#pragma unroll
+    for (int u = 0; u < kGroup; ++u) a0[u] = a1[u] = -INFINITY;
+    // branch-free, unrolled: a warp keeps 4 kGroup reads of y in flight
+    // (a dead slot reads the row of -inf, the max's identity)
+    const int k32 = min(p.K, 32);
+#pragma unroll 4
+    for (int i = 0; i < k32; ++i) {
+#pragma unroll
+      for (int u = 0; u < kGroup; ++u) {
+        const int r = __shfl_sync(0xffffffffu, cur.mine[u], i);
+        const float2 v = *reinterpret_cast<const float2*>(ylane + r);
+        a0[u] = fmaxf(a0[u], v.x);
+        a1[u] = fmaxf(a1[u], v.y);
+      }
+    }
+    for (int k0 = 32; k0 < p.K; k0 += 32) {   // slots past 32, 32 at a time
+#pragma unroll
+      for (int u = 0; u < kGroup; ++u) {
+        const int e = e0 + u;
+        const bool in = e < nsub;
+        const int j = in ? e / p.M : 0;
+        const int row = in && k0 + lane < p.K
+                            ? slot_row(p, t, e * p.K + k0 + lane, j, dead)
+                            : dead;
+        const int n = min(32, p.K - k0);
+        for (int i = 0; i < n; ++i) {
+          const int r = __shfl_sync(0xffffffffu, row, i);
+          const float2 v = *reinterpret_cast<const float2*>(ylane + r);
+          a0[u] = fmaxf(a0[u], v.x);
+          a1[u] = fmaxf(a1[u], v.y);
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kGroup; ++u) {
+      const int e = e0 + u;
+      if (e >= nsub) continue;           // warp-uniform
+      const int j = e / p.M;
+      const long long at = ((i0 + j) * p.M + e - j * p.M) * p.F + c;
+      if (in0) {
+        const float v = pooled(a0[u], b0, cur.c0[u]);
+        p.out[at] = p.merge ? fmaxf(p.out[at], v) : v;
+      }
+      if (in1) {
+        const float v = pooled(a1[u], b1, cur.c1[u]);
+        p.out[at + 1] = p.merge ? fmaxf(p.out[at + 1], v) : v;
+      }
+    }
+    cur = next;
+  }
+}
+
+// Consumer warpgroups 0 .. NC - 1 take 64 rows each of the R = 64 NC row
+// tile; warpgroup NC is the producer.
+template <int NC, int N>
+__global__ void __launch_bounds__(128 * (NC + 1), blocks_per_sm(64 * NC, N))
+hub_reuse_linear_kernel(const __grid_constant__ CUtensorMap wmap,
+                        const __grid_constant__ CUtensorMap xmap,
+                        const LinParams p) {
+  constexpr int R = 64 * NC, kCons = 128 * NC;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const int S = p.stages, ST = p.stage_bytes;
+  float* ys = reinterpret_cast<float*>(smem + S * ST);  // (R + 1) x kYS
+  int32_t* tab = reinterpret_cast<int32_t*>(ys + (R + 1) * kYS);  // kTab
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      reinterpret_cast<uint8_t*>(tab) + kTab);
+  uint64_t* empty = full + kMaxStages;
+  // the producer threads that copy x: all where it goes by cp.async, none
+  // where by TMA (thread 0 issues the TMA copies either way)
+  const int copiers = p.x_tma ? 0 : 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      sm90::mbar_init(full + s, copiers + 1);  // their copies, the TMA
+      sm90::mbar_init(empty + s, 4 * NC);      // a consumer warp each
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kCons) {
+    // ---- producer: W (and x) by TMA, else x by cp.async ----------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(
+        Regs<R, N>::kProducer));
+    const int pt = threadIdx.x - kCons;
+    if (pt >= (p.x_tma ? 1 : 128)) return;
+    const int tx = 2 * N * kBK * 4 + (p.x_tma ? R * kXS * 4 : 0);
+    int qg = 0;
+    for (int item = blockIdx.x; item < p.items; item += gridDim.x) {
+      const long long i0 = (long long)(item / p.nft) * p.ipt;
+      const int f0 = (item % p.nft) * N;
+      const int nisl = (int)min((long long)p.ipt, p.islands - i0);
+      for (int q = 0; q < p.nk; ++q, ++qg) {
+        const int s = qg % S;
+        sm90::mbar_wait(empty + s, ((qg / S) & 1) ^ 1);
+        uint8_t* st = smem + s * ST;
+        float* xs = reinterpret_cast<float*>(st + 2 * N * kBK * 4);
+        const int d0 = q * kBK;
+        if (pt == 0) {
+          sm90::mbar_expect_tx(full + s, tx);
+          sm90::tma_load(st, &wmap, full + s, d0, f0, 0);
+          sm90::tma_load(st + N * kBK * 4, &wmap, full + s, d0, f0, 1);
+          if (p.x_tma)
+            sm90_tf32::tma_load_2d(xs, &xmap, full + s, d0,
+                                   (int)(i0 * p.C + p.c0));
+        }
+        if (!p.x_tma) {
+          // row r of the tile: row r % Cc of its island r / Cc, zero past
+          // the tile's islands and past D
+          for (int e = pt; e < R * (kBK / 4); e += 128) {
+            const int r = e / (kBK / 4), c = (e % (kBK / 4)) * 4;
+            const int j = r / p.Cc, d = d0 + c;
+            float* o = xs + r * kXS + c;
+            const float* src =
+                p.pool + ((i0 + j) * p.C + p.c0 + (r - j * p.Cc)) * p.D + d;
+            if (p.x_vec) {
+              const bool ok = j < nisl && d < p.D;
+              sm90_tf32::cp_async16_fill(o, ok ? src : p.pool, ok ? 16 : 0);
+            } else {
+#pragma unroll
+              for (int i = 0; i < 4; ++i) {
+                const bool ok = j < nisl && d + i < p.D;
+                sm90_tf32::cp_async4_fill(o + i, ok ? src + i : p.pool,
+                                          ok ? 4 : 0);
+              }
+            }
+          }
+          sm90_tf32::cp_async_arrive(full + s);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: 64 rows each, three products a k8 step, the gather -
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(
+        Regs<R, N>::kConsumer));
+    const int ct = threadIdx.x, lane = ct & 31, warp = ct >> 5;
+    const int g = lane >> 2, t = lane & 3;
+    const int ra = 16 * warp + g;          // rows ra and ra + 8 of mine
+    // the row of -inf the dead slots read (read after the first barrier)
+    for (int i = ct; i < kYS; i += kCons) ys[R * kYS + i] = -INFINITY;
+    float acc[N / 2];
+    int qg = 0;
+    for (int item = blockIdx.x; item < p.items; item += gridDim.x) {
+      const long long i0 = (long long)(item / p.nft) * p.ipt;
+      const int f0 = (item % p.nft) * N, ft = min(N, p.F - f0);
+      const int nisl = (int)min((long long)p.ipt, p.islands - i0);
+      // the item's slots and liveness into shared memory by cp.async,
+      // waited on after the products (the last item's gather is done)
+      const long long mk = (long long)p.M * p.K;
+      const int nslots = (int)(nisl * mk);
+      Tab tb{p.slot + i0 * mk,
+             p.live == nullptr ? nullptr : p.live + i0 * mk};
+      if (tab_fits(nslots)) {
+        uint8_t* tl = reinterpret_cast<uint8_t*>(tab + (nslots + 3) / 4 * 4);
+        for (int e = ct; e < nslots; e += kCons)
+          tf32x3::cp_async4(tab + e, tb.slot + e);
+        if (tb.live != nullptr) {               // 4 bytes at a time
+          const int words = reinterpret_cast<uintptr_t>(tb.live) % 4 == 0
+                                ? nslots / 4 : 0;
+          for (int e = ct; e < words; e += kCons)
+            tf32x3::cp_async4(tl + 4 * e, tb.live + 4 * e);
+          for (int e = 4 * words + ct; e < nslots; e += kCons)
+            tl[e] = tb.live[e];
+        }
+        tf32x3::cp_async_commit();
+        tb = Tab{tab, tb.live == nullptr ? nullptr : tl};
+      }
+#pragma unroll
+      for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+      for (int q = 0; q < p.nk; ++q, ++qg) {
+        const int s = qg % S;
+        const uint8_t* st = smem + s * ST;
+        const float* xs = reinterpret_cast<const float*>(st + 2 * N * kBK * 4);
+        sm90::mbar_wait(full + s, (qg / S) & 1);
+        // both k8 steps, past D too (x and W are zero there): no branch
+        // between the fence and the products, where ptxas would add a
+        // warpgroup arrive and serialize them
+        Frag<4> af[kBK / 8];
+#pragma unroll
+        for (int k8 = 0; k8 < kBK / 8; ++k8) {
+          const float* px = xs + ra * kXS + 8 * k8 + 2 * t;
+          const float2 lo = *reinterpret_cast<const float2*>(px);
+          const float2 hi = *reinterpret_cast<const float2*>(px + 8 * kXS);
+          const float v[4] = {lo.x, hi.x, lo.y, hi.y};
+          tf32x3::split(af[k8], v);
+        }
+        const uint32_t wb = sm90::smem_u32(st);
+        const uint32_t wsm = wb + N * kBK * 4;
+        // acc and the fragments defined before the fence, likewise
+        sm90::fence_regs(acc);
+        fence_frags(af);
+        sm90::wgmma_fence();
+#pragma unroll
+        for (int k8 = 0; k8 < kBK / 8; ++k8) {
+          sm90_tf32::wgmma_tf32(acc, af[k8].small,
+                                sm90_tf32::desc_sw64(wb + 32 * k8), 1);
+          sm90_tf32::wgmma_tf32(acc, af[k8].big,
+                                sm90_tf32::desc_sw64(wsm + 32 * k8), 1);
+          sm90_tf32::wgmma_tf32(acc, af[k8].big,
+                                sm90_tf32::desc_sw64(wb + 32 * k8), 1);
+        }
+        sm90::wgmma_commit();
+        sm90::wgmma_wait();
+        sm90::fence_regs(acc);
+        sm90_tf32::mbar_arrive_lane0(empty + s, 1);
+      }
+
+      // ---- y 64 columns at a time, then the gather over them -----------
+      for (int cc = 0; cc * kYC < ft; ++cc) {
+        // chunk cc's registers, selected by constant indices (a runtime
+        // index would move acc to local memory)
+#pragma unroll
+        for (int i = 0; i < N / 2; i += 4) {
+          if (i / (kYC / 2) != cc) continue;
+          float* row = ys + ra * kYS + 8 * (i / 4) - cc * kYC + 2 * t;
+          *reinterpret_cast<float2*>(row) = make_float2(acc[i], acc[i + 1]);
+          *reinterpret_cast<float2*>(row + 8 * kYS) =
+              make_float2(acc[i + 2], acc[i + 3]);
+        }
+        if (cc == 0) tf32x3::cp_async_wait<0>();   // my part of the table
+        sm90_tf32::named_sync(1, kCons);
+        gather<4 * NC>(p, tb, ys, R * kYS, i0, nisl, f0 + cc * kYC,
+                       min(kYC, ft - cc * kYC), warp, lane);
+        sm90_tf32::named_sync(1, kCons);  // y read
+      }
+    }
+  }
+}
+
+template <int NC, int N>
+int launch_tile(const LinParams& p, const CUtensorMap& wmap,
+                const CUtensorMap& xmap, size_t smem, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      hub_reuse_linear_kernel<NC, N>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int grid =
+      min(p.items, blocks_per_sm(64 * NC, N) * layered::sm_count());
+  hub_reuse_linear_kernel<NC, N><<<grid, 128 * (NC + 1), smem, stream>>>(
+      wmap, xmap, p);
+  return (int)cudaGetLastError();
+}
+
+template <int NC>
+int launch_cols(const LinParams& p, int N, const CUtensorMap& wmap,
+                const CUtensorMap& xmap, size_t smem, cudaStream_t stream) {
+  switch (N) {
+    case 64: return launch_tile<NC, 64>(p, wmap, xmap, smem, stream);
+    case 128: return launch_tile<NC, 128>(p, wmap, xmap, smem, stream);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// One launch, the product and the gather, on W's halves as
+// hub_reuse_split_weights left them (Plan::scratch bytes)
+int launch(const float* pool, const int32_t* slot, const float* comp,
+           const uint8_t* live, const float* halves, const float* b,
+           float* out, long long islands, int C, int M, int K, int D, int F,
+           int c0, int Cc, int merge, const Plan& pl, cudaStream_t stream) {
+  // the rows and the items are TMA coordinates and a grid's ints
+  if (halves == nullptr || islands * C >= (1LL << 31) ||
+      pl.items >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  const bool aligned = reinterpret_cast<uintptr_t>(pool) % 16 == 0;
+  LinParams p{pool, slot, comp, live, b, out, islands, C, M, K, D, F, c0, Cc,
+              merge, pl.ipt, pl.nft, (int)pl.items, (D + kBK - 1) / kBK,
+              pl.stages, stage_bytes(pl.R, pl.N), pl.x_tma && aligned,
+              D % 4 == 0 && aligned};
+  CUtensorMap wmap, xmap;
+  if (!sm90_tf32::make_weight_map(&wmap, halves, round_up(D, kBK),
+                                  round_up(F, kMaxN), pl.N))
+    return (int)cudaErrorInvalidValue;
+  memset(&xmap, 0, sizeof(xmap));
+  if (p.x_tma && !sm90_tf32::make_rows_map(&xmap, pool, D, islands * C, kXS,
+                                           pl.R))
+    return (int)cudaErrorInvalidValue;
+  return pl.R == 128 ? launch_cols<2>(p, pl.N, wmap, xmap, pl.smem, stream)
+                     : launch_cols<1>(p, pl.N, wmap, xmap, pl.smem, stream);
+}
+
+}  // namespace rl
+
 }  // namespace
 
-// The resident route.  chunk: cache rows a launch takes, 64 (Rows64) or
-// 128 (Rows128 where more than 64 are left); the wrapper covers C with one
-// launch a chunk.  Hd = 0: one layer, w1 D x F, w2 and b2 null.  A call
+// The resident route.  chunk: cache rows a launch takes, 64 or 128
+// (Rows64, or Rows128 where more than 64 are left); the wrapper covers C
+// with one launch a chunk, each merged into the last (merge).  Hd = 0:
+// one layer, w1 D x F, w2 and b2 null; where linear_wgmma holds, on rl::
+// with W's halves in scratch (hub_reuse_split_weights, once a call: the
+// floats hub_reuse_plan reports), else on hub_reuse_kernel<L, true>.
+// Two layers and the mma.sync one-layer kernel take no scratch.  A call
 // of the layered route (B and H as the wrapper's launch takes them), a
 // chunk whose launch does not fit a block's shared memory, or weights of
 // the other form are refused.
@@ -785,14 +1359,21 @@ extern "C" int hub_reuse_forward(const float* pool, const int32_t* slot,
                                  const float* comp, const uint8_t* live,
                                  const float* w1, const float* b1,
                                  const float* w2, const float* b2, float* out,
-                                 int B, int H, int C, int M, int K, int D,
-                                 int Hd, int F, int c0, int merge, int chunk,
-                                 void* stream) {
+                                 const float* scratch, int B, int H, int C,
+                                 int M, int K, int D, int Hd, int F, int c0,
+                                 int merge, int chunk, void* stream) {
   // the wrapper raises on the error: it splits C into chunks
-  if (C < 1 || c0 < 0 || c0 >= C || D < 1 || !chunk_ok(chunk) ||
-      !form_ok(Hd, w2, b2) ||
-      layered_route(B, H, C, M, K, D, Hd, F, layered::sm_count()))
+  const int sms = layered::sm_count();
+  if (C < 1 || c0 < 0 || c0 >= C || D < 1 || F < 1 || !chunk_ok(chunk) ||
+      !form_ok(Hd, w2, b2) || layered_route(B, H, C, M, K, D, Hd, F, sms))
     return (int)cudaErrorInvalidValue;
+  const long long islands = (long long)B * H;
+  if (Hd == 0 && linear_wgmma(islands, C, D, F)) {
+    const int Cc = min(chunk, C - c0);
+    const rl::Plan pl = rl::plan(islands, C, Cc, D, F, sms);
+    return rl::launch(pool, slot, comp, live, scratch, b1, out, islands, C,
+                      M, K, D, F, c0, Cc, merge, pl, (cudaStream_t)stream);
+  }
   Params p{pool, slot, comp, live, w1, b1, w2, b2, out, C, M, K, D, Hd, F,
            c0, 0, merge};
   set_shape(p, chunk);
@@ -802,7 +1383,6 @@ extern "C" int hub_reuse_forward(const float* pool, const int32_t* slot,
   p.w2_vec = F % 4 == 0 && reinterpret_cast<uintptr_t>(w2) % 16 == 0;
   p.live_words = (long long)M * K % 4 == 0 &&
                  reinterpret_cast<uintptr_t>(live) % 4 == 0;
-  const long long islands = (long long)B * H;
   if (resident_smem(p) > kMaxSmem) return (int)cudaErrorInvalidValue;
   return p.Cc <= Rows64::kR ? launch<Rows64>(p, islands, stream)
                             : launch<Rows128>(p, islands, stream);
@@ -868,15 +1448,24 @@ extern "C" int hub_reuse_layered(const float* pool, const int32_t* slot,
 
 // {route (0 resident, 1 layered), y's GEMM's splits (over Hd, or over D
 // in one layer: Hd = 0), scratch floats, shared memory of a block} of a
-// call of B clouds (one for a launch a cloud) on this card (the splits
-// and scratch 0 on the resident route, whose shared memory is at chunk =
-// 128 with liveness); -1 for C < 1, D < 1 or Hd < 0
+// call of B clouds (one for a launch a cloud) on this card: on the
+// layered route its GEMM's splits, h and y's partials in scratch and a
+// GEMM block's shared memory; on the resident route no splits, a block's
+// shared memory at chunk = 128 with liveness, and scratch only on rl::
+// (W's halves); -1 for C < 1, D < 1, F < 1 or Hd < 0
 extern "C" int hub_reuse_plan(int B, int H, int C, int M, int K, int D,
                               int Hd, int F, long long* out) {
   for (int i = 0; i < 4; ++i) out[i] = 0;
-  if (C < 1 || D < 1 || Hd < 0) return -1;
+  if (C < 1 || D < 1 || F < 1 || Hd < 0) return -1;
   const int sms = layered::sm_count();
   if (!layered_route(B, H, C, M, K, D, Hd, F, sms)) {
+    if (Hd == 0 && linear_wgmma((long long)B * H, C, D, F)) {
+      const rl::Plan pl = rl::plan((long long)B * H, C, min(kMaxC, C), D, F,
+                                   sms);
+      out[2] = (long long)(pl.scratch / sizeof(float));
+      out[3] = (long long)pl.smem;
+      return 0;
+    }
     Params p{};
     p.live = reinterpret_cast<const uint8_t*>(1);
     p.C = C;
@@ -899,11 +1488,17 @@ extern "C" int hub_reuse_plan(int B, int H, int C, int M, int K, int D,
 
 // Bytes of shared memory a block of the call's largest resident launch
 // (its first chunk's) takes at the knob chunk, with liveness (live != 0)
-// or without, in the form Hd names (0: one layer); -1 for a chunk out of
-// range, C < 1 or Hd < 0
-extern "C" long long hub_reuse_smem_bytes(int C, int M, int K, int D, int Hd,
-                                          int live, int chunk) {
-  if (C < 1 || D < 1 || Hd < 0 || !chunk_ok(chunk)) return -1;
+// or without, in the form Hd names (0: one layer; on rl::, where
+// linear_wgmma holds, its block follows B, H and F and this card's SM
+// count); -1 for a chunk out of range, C < 1, D < 1, F < 1 or Hd < 0
+extern "C" long long hub_reuse_smem_bytes(int B, int H, int C, int M, int K,
+                                          int D, int Hd, int F, int live,
+                                          int chunk) {
+  if (C < 1 || D < 1 || F < 1 || Hd < 0 || !chunk_ok(chunk)) return -1;
+  if (Hd == 0 && linear_wgmma((long long)B * H, C, D, F))
+    return (long long)rl::plan((long long)B * H, C, min(chunk, C), D, F,
+                               layered::sm_count())
+        .smem;
   Params p{};
   p.live = live ? reinterpret_cast<const uint8_t*>(1) : nullptr;
   p.C = C;
@@ -913,6 +1508,44 @@ extern "C" long long hub_reuse_smem_bytes(int C, int M, int K, int D, int Hd,
   p.Hd = Hd;
   set_shape(p, chunk);
   return resident_smem(p);
+}
+
+// rl::'s plan for a one-layer call on the current device at the knob
+// chunk (its first launch's), into out[10]: rows a tile, islands a tile,
+// tile groups, F tiles, output columns a block (N), items, ring stages, x
+// by TMA (1, where pool is 16-byte aligned) or cp.async (0), shared
+// memory bytes, scratch bytes (W's halves); out[0] = -1 where the call
+// does not take rl:: (the layered route, or linear_wgmma fails) or its
+// widths are out of range
+extern "C" void hub_reuse_linear_plan(int B, int H, int C, int M, int K,
+                                      int D, int F, int chunk,
+                                      long long* out) {
+  const int sms = layered::sm_count();
+  if (C < 1 || D < 1 || F < 1 || !chunk_ok(chunk) ||
+      layered_route(B, H, C, M, K, D, 0, F, sms) ||
+      !linear_wgmma((long long)B * H, C, D, F)) {
+    out[0] = -1;
+    return;
+  }
+  const rl::Plan pl = rl::plan((long long)B * H, C, min(chunk, C), D, F, sms);
+  const long long v[10] = {pl.R,      pl.ipt,   pl.groups, pl.nft,
+                           pl.N,      pl.items, pl.stages, pl.x_tma,
+                           (long long)pl.smem, (long long)pl.scratch};
+  for (int i = 0; i < 10; ++i) out[i] = v[i];
+}
+
+// W (D x F) split into rl::'s halves at out (two F_pad x D_pad blocks,
+// big then small, K-major, k permuted within 8-groups; F_pad F rounded up
+// to 128, D_pad D to 16): once a call, before its launches
+extern "C" int hub_reuse_split_weights(const float* w, float* out, int D,
+                                       int F, void* stream) {
+  if (D < 1 || F < 1) return (int)cudaErrorInvalidValue;
+  const int Dp = rl::round_up(D, rl::kBK), Fp = rl::round_up(F, rl::kMaxN);
+  hub_reuse_split_weights_kernel<<<tf32_split::grid(Dp, Fp),
+                                   tf32_split::kThreads, 0,
+                                   (cudaStream_t)stream>>>(w, out, D, F, Dp,
+                                                           Fp);
+  return (int)cudaGetLastError();
 }
 
 extern "C" const char* hub_reuse_error_string(int code) {

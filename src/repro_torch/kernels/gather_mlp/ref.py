@@ -1,10 +1,14 @@
 """Plain PyTorch versions of the gather_mlp kernels: the product and
-pool, and the linear route's split of W into TF32 halves."""
+pool, and the linear route's split of W into TF32 halves (the split
+hub_reuse's one-layer resident route shares, ``kernels.tf32_split``)."""
 from __future__ import annotations
 
 import torch
 
-from ..tiling import LINEAR_DEPTH, linear_tiles, round_up
+from ..tf32_split import k_order as linear_k_order  # noqa: F401
+from ..tf32_split import split_weights_ref as _split
+from ..tf32_split import tf32  # noqa: F401
+from ..tiling import linear_tiles
 
 BIG = 3.4e38
 
@@ -27,34 +31,10 @@ def gather_mlp_ref(raw, centers, w1, b1, w2=None, b2=None, mask=None):
     return torch.where(live.any(-1)[..., None], pooled, 0.0)
 
 
-def tf32(x):
-    """``tf32x3::to_tf32`` (``cvt.rna.tf32.f32`` for finite x): the low 13
-    mantissa bits rounded off, ties away from zero, as fp32."""
-    return ((x.contiguous().view(torch.int32) + 0x1000) & ~0x1FFF).view(
-        torch.float32)
-
-
-def linear_k_order(d_pad: int):
-    """The logical k at each position of a row of W's halves: within each
-    8-group, position j holds k 2 (j % 4) + j // 4 (k at position
-    (k % 2)·4 + k // 2), so that wgmma's k slots t and t + 4 of a
-    thread's A fragment are x's columns 2t and 2t + 1."""
-    j = torch.arange(d_pad)
-    return j // 8 * 8 + 2 * (j % 4) + j % 8 // 4
-
-
 def split_weights_ref(w):
-    """W (D, F) as the linear route's first kernel lays it out in scratch:
-    (2, F_pad, D_pad), big = rna(W)ᵀ then small = rna(Wᵀ − big), K-major
-    (row n holds column n of W), k permuted within each 8-group
-    (:func:`linear_k_order`), zero past D and F; F_pad the F tiles times
-    the columns a block (``tiling.linear_tiles``), D_pad D rounded up to
-    16."""
-    d, f = w.shape
-    nft, n = linear_tiles(f)
-    d_pad = round_up(d, LINEAR_DEPTH)
-    wt = torch.zeros((nft * n, d_pad), dtype=torch.float32, device=w.device)
-    wt[:f, :d] = w.t()
-    wt = wt[:, linear_k_order(d_pad).to(w.device)]
-    big = tf32(wt)
-    return torch.stack([big, tf32(wt - big)])
+    """W (D, F) as the linear route's first kernel lays it out in scratch
+    (``tf32_split.split_weights_ref``): (2, F_pad, D_pad), F_pad the F
+    tiles times the columns a block (``tiling.linear_tiles``), D_pad D
+    rounded up to 16."""
+    nft, n = linear_tiles(w.shape[1])
+    return _split(w, nft * n)

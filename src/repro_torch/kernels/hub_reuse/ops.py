@@ -14,10 +14,16 @@ once for all cache rows, in device scratch, then the gather; three
 kernels a call in two layers, two in one, counted as one launch).  On
 ``resident`` a launch takes a chunk of at most ``chunk`` cache rows (64
 or 128); a C past the chunk takes one launch a chunk, each merged into
-the output by an elementwise max.  Every shape has a plan.  Launches are
-counted as ``hub_reuse``, by route (``hub_reuse_resident``,
-``hub_reuse_layered``, both forms) and, for the one-layer form, by route
-and form (``hub_reuse_resident_linear``, ``hub_reuse_layered_linear``).
+the output by an elementwise max.  A one-layer resident call whose
+products reach 2^28 multiply-adds (``tiling.reuse_linear_wgmma``) takes
+a kernel on ``wgmma`` with the gather in its epilogue
+(:func:`linear_plan`), after W's split into TF32 halves in scratch, once
+a call.  Every shape has a plan.  Launches are counted as ``hub_reuse``,
+by route (``hub_reuse_resident``, ``hub_reuse_layered``, both forms)
+and, for the one-layer form, by route and form
+(``hub_reuse_resident_linear``, ``hub_reuse_layered_linear``); the wgmma
+kernel's also as ``hub_reuse_linear_wgmma``, and its call's W split as
+``hub_reuse_split_weights``.
 
 Each call resolves its plan (:func:`plan`) before the CPU/CUDA split, as
 ``gather_mlp``'s does: an explicit ``chunk`` or ``variant`` over a hit in
@@ -35,26 +41,36 @@ import warnings
 import torch
 
 from .. import _build, plans, tiling
+from ..tf32_split import split_weights_ref
 from .ref import hub_reuse_ref
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 CHUNK = 128                # the most cache rows a launch takes (csrc kMaxC)
 VARIANTS = ("batched", "per_cloud")
 #: what hub_reuse_plan reports: the route (0 resident, 1 layered), the
-#: splits of y's GEMM (over H, or over D in one layer), scratch floats and
-#: a block's shared memory
+#: splits of y's GEMM (over H, or over D in one layer), scratch floats
+#: (the layered route's h and partials of y, the wgmma kernel's W halves)
+#: and a block's shared memory
 PLAN = ("route", "nsplit", "scratch", "smem")
+#: the wgmma kernel's plan fields, in hub_reuse_linear_plan's order
+#: (``tiling.reuse_linear_plan``'s)
+LINEAR_PLAN = ("rows", "ipt", "groups", "nft", "n", "items", "stages",
+               "x_tma", "smem", "scratch")
 
 
 def _declare(lib):
-    lib.hub_reuse_forward.argtypes = [_P] * 9 + [_I] * 11 + [_P]
+    lib.hub_reuse_forward.argtypes = [_P] * 10 + [_I] * 11 + [_P]
     lib.hub_reuse_forward.restype = _I
     lib.hub_reuse_layered.argtypes = [_P] * 10 + [_I] * 8 + [_P]
     lib.hub_reuse_layered.restype = _I
-    lib.hub_reuse_smem_bytes.argtypes = [_I] * 7
+    lib.hub_reuse_smem_bytes.argtypes = [_I] * 10
     lib.hub_reuse_smem_bytes.restype = _L
     lib.hub_reuse_plan.argtypes = [_I] * 8 + [_P]
     lib.hub_reuse_plan.restype = _I
+    lib.hub_reuse_linear_plan.argtypes = [_I] * 8 + [_P]
+    lib.hub_reuse_linear_plan.restype = None
+    lib.hub_reuse_split_weights.argtypes = [_P, _P, _I, _I, _P]
+    lib.hub_reuse_split_weights.restype = _I
 
 
 def _lib():
@@ -86,14 +102,61 @@ def library_plan(b: int, hn: int, c: int, m: int, k: int, d: int, h: int,
     return dict(got)
 
 
-def library_smem(c: int, m: int, k: int, d: int, h: int, live: bool = True,
-                 chunk: int = CHUNK) -> int:
+def library_smem(b: int, hn: int, c: int, m: int, k: int, d: int, h: int,
+                 f: int, live: bool = True, chunk: int = CHUNK) -> int:
     """Shared memory of a resident block of the call's largest launch at
-    ``chunk`` in the form ``h`` names (0: one layer), as the built kernel
-    counts it (the card's answer to
+    ``chunk`` in the form ``h`` names (0: one layer; the wgmma kernel's
+    block follows b, hn, f and the card), as the built kernel counts it
+    (the card's answer to
     :func:`~repro_torch.kernels.tiling.hub_reuse_smem`); -1 for a chunk
     out of range."""
-    return _lib().hub_reuse_smem_bytes(c, m, k, d, h, int(live), chunk)
+    return _lib().hub_reuse_smem_bytes(b, hn, c, m, k, d, h, f, int(live),
+                                       chunk)
+
+
+def library_linear_plan(b: int, hn: int, c: int, m: int, k: int, d: int,
+                        f: int, chunk: int = CHUNK) -> dict | None:
+    """The wgmma kernel's plan the built library reports for the call's
+    first launch at ``chunk`` on the current CUDA device
+    (:data:`LINEAR_PLAN`: the card's answer to
+    :func:`~repro_torch.kernels.tiling.reuse_linear_plan`, ``x_tma`` for
+    a 16-byte aligned pool); None where the call does not take that
+    kernel (the layered route, or
+    :func:`~repro_torch.kernels.tiling.reuse_linear_wgmma` fails)."""
+    out = (ctypes.c_longlong * len(LINEAR_PLAN))()
+    _lib().hub_reuse_linear_plan(b, hn, c, m, k, d, f, chunk, out)
+    return None if out[0] < 0 else dict(zip(LINEAR_PLAN, out))
+
+
+def split_weights(w):
+    """The wgmma kernel's W (D, F) split into its TF32 halves, once a
+    call: (2, F_pad, D_pad) float32, F_pad = F rounded up to 128, as
+    :func:`~repro_torch.kernels.tf32_split.split_weights_ref` lays them
+    out.  A CPU tensor takes that plain version; a CUDA one launches the
+    kernel (counted as ``hub_reuse_split_weights``)."""
+    d, f = w.shape
+    f_pad = tiling.round_up(f, tiling.REUSE_LINEAR_MAX_COLS)
+    if w.device.type == "cpu":
+        return split_weights_ref(w, f_pad)
+    _build.check_operands("split_weights", {"w": w}, w.device)
+    out = torch.empty((2, f_pad, tiling.round_up(d, tiling.LINEAR_DEPTH)),
+                      dtype=torch.float32, device=w.device)
+    lib = _lib()
+    code = lib.hub_reuse_split_weights(
+        w.data_ptr(), out.data_ptr(), d, f,
+        torch._C._cuda_getCurrentRawStream(w.device.index))
+    _build.check_launch(lib, "hub_reuse", code)
+    _build.count_launch("hub_reuse_split_weights")
+    return out
+
+
+def linear_plan(b: int, hn: int, c: int, d: int, f: int, device,
+                chunk: int = CHUNK) -> dict:
+    """How the wgmma kernel tiles a one-layer call's first launch on
+    ``device`` (an H100's SM count for a CPU call):
+    :func:`~repro_torch.kernels.tiling.reuse_linear_plan`."""
+    return tiling.reuse_linear_plan(b, hn, c, d, f, card_sms(device),
+                                    chunk)
 
 
 def card_sms(device) -> int:
@@ -245,10 +308,16 @@ def hub_reuse(pool_in, slot, comp, w1, b1, w2=None, b2=None, live=None, *,
         # operand is contiguous, the batch leading)
         n, bb = (b, 1) if pl["variant"] == "per_cloud" else (1, b)
         layered = pl["route"] == "layered"
+        # scratch: the layered route's h and y's partials, or the wgmma
+        # kernel's W halves, split once for every launch of the call
+        scratch = None
         if layered:
             scratch = torch.empty(
                 library_plan(bb, hn, c, m, k, d, hdim, fout)["scratch"],
                 dtype=torch.float32, device=pool_in.device)
+        elif hdim == 0 and tiling.reuse_linear_wgmma(bb, hn, c, d, fout):
+            counts += ("hub_reuse_linear_wgmma",)
+            scratch = split_weights(w1)
         for i in range(n):
             mk = i * hn * m * k
             ptrs = (pool_in.data_ptr() + i * 4 * hn * c * d,
@@ -266,7 +335,8 @@ def hub_reuse(pool_in, slot, comp, w1, b1, w2=None, b2=None, live=None, *,
             # one launch a chunk, each merged into the last by a max
             for c0 in range(0, c, pl["chunk"]):
                 code = lib.hub_reuse_forward(
-                    *ptrs, bb, hn, c, m, k, d, hdim, fout, c0, int(c0 > 0),
+                    *ptrs, None if scratch is None else scratch.data_ptr(),
+                    bb, hn, c, m, k, d, hdim, fout, c0, int(c0 > 0),
                     pl["chunk"], stream)
                 _build.check_launch(lib, "hub_reuse", code)
                 _build.count_launch(*counts)

@@ -30,15 +30,19 @@ of it covers (C <= 128 rows that fit) and, in 128-row chunks, for C past
 call over device memory (two layers: the first layer once for all cache
 rows, the second with H split where its tiles are few, the gather; one
 layer: x·W with D split where its tiles are few, the gather; its plan,
-:func:`hub_reuse_layered_plan`, depends on the SM count too).
+:func:`hub_reuse_layered_plan`, depends on the SM count too).  A
+one-layer resident call large enough (:func:`reuse_linear_wgmma`) takes
+a kernel of its own on wgmma instead (:func:`reuse_linear_plan`: W's
+halves split once a call and x streamed, row tiles of whole islands, the
+gather in its epilogue).
 
 The formulas mirror the kernels' own (``smem_bytes`` and
 ``wide::make_plan`` and ``linear::smem_bytes`` in ``gather_mlp.cu``,
-``smem_bytes``,
-``layered_route`` and ``layered::plan`` in ``hub_reuse.cu``); each
-library also answers for itself (``gather_mlp_smem_bytes``,
-``hub_reuse_smem_bytes``, ``hub_reuse_plan``), which ``chip_smoke.py``
-holds these against.
+``smem_bytes``, ``layered_route``, ``layered::plan`` and ``rl::plan`` in
+``hub_reuse.cu``); each library also answers for itself
+(``gather_mlp_smem_bytes``, ``hub_reuse_smem_bytes``, ``hub_reuse_plan``,
+``hub_reuse_linear_plan``), which ``chip_smoke.py`` holds these
+against.
 """
 from __future__ import annotations
 
@@ -275,6 +279,101 @@ def gather_mlp_smem(b, s, k, d, dc, h, f, sms: int, rows: int = 0,
                        dc, h, f)
 
 
+REUSE_LINEAR_MACS = 1 << 28    # rl::kWgmmaMacs
+REUSE_LINEAR_MAX_COLS = 128    # its most output columns a block (rl::kMaxN)
+REUSE_LINEAR_TAB = 24576       # its bytes for an item's slot table (kTab)
+
+
+def reuse_linear_wgmma(b: int, hn: int, c: int, d: int, f: int) -> bool:
+    """Whether a one-layer resident hub_reuse call takes the wgmma kernel
+    (``hub_reuse.cu``: ``linear_wgmma``) rather than the mma.sync one:
+    where its products, b·hn islands x min(C, 128) rows x d x f, reach
+    2^28 multiply-adds.  On an H100 (700 W) the wgmma kernel took
+    dgcnn_c's block 4 at B = 8 (2^29.3) in 0.079 ms against 0.134, and
+    lost at every smaller family block, by up to 2x (its W split and
+    persistent ring cost ~10 us a call)."""
+    return b * hn * min(c, CHUNKS[-1]) * d * f >= REUSE_LINEAR_MACS
+
+
+def reuse_linear_stage_bytes(rows: int, n: int) -> int:
+    """Bytes of a ring stage of the wgmma kernel (``rl::stage_bytes``;
+    the linear route's ring, no centers): both W halves (n rows of 16
+    fp32 each) and the x slice (row stride 24), rounded up to 1024."""
+    return round_up(4 * (2 * n * LINEAR_DEPTH + rows * (LINEAR_DEPTH + 8)),
+                    1024)
+
+
+def _reuse_linear_tail(rows: int) -> int:
+    """Bytes after its ring (``rl::tail_bytes``): y's staging (rows x 72
+    fp32 and a row of -inf that the dead slots read), the item's slot
+    table and liveness (``REUSE_LINEAR_TAB``) and the barriers."""
+    return (4 * (rows + 1) * (LINEAR_Y_COLS + 8) + REUSE_LINEAR_TAB
+            + 8 * 2 * LINEAR_MAX_STAGES)
+
+
+def reuse_linear_blocks_per_sm(rows: int, n: int) -> int:
+    """Blocks an SM of its ``rows`` x ``n`` tiles (``rl::blocks_per_sm``):
+    two of one consumer warpgroup (64 rows), or at n = 64; else one."""
+    return 2 if rows <= 64 or n <= LINEAR_TILE_COLS else 1
+
+
+def reuse_linear_stages(rows: int, n: int) -> int:
+    """Its ring stages (``rl::ring_stages``): as many as fit a block's
+    budget (a block's limit, or half an SM's less its reserved 1 KB at
+    two blocks an SM) after the 1 KB of alignment and the tail, at most
+    ``LINEAR_MAX_STAGES``."""
+    budget = (SMEM_SM // 2 - 1024
+              if reuse_linear_blocks_per_sm(rows, n) == 2 else MAX_SMEM)
+    return min(LINEAR_MAX_STAGES,
+               (budget - 1024 - _reuse_linear_tail(rows))
+               // reuse_linear_stage_bytes(rows, n))
+
+
+def reuse_linear_widest(f: int) -> int:
+    """Its widest output columns a block (``rl::widest``): f in ceil(f /
+    128) tiles, each rounded up to 64."""
+    nft = -(-f // REUSE_LINEAR_MAX_COLS)
+    return round_up(-(-f // nft), LINEAR_TILE_COLS)
+
+
+def reuse_linear_plan(b: int, hn: int, c: int, d: int, f: int, sms: int,
+                      chunk: int = 128) -> dict:
+    """How the wgmma kernel (:func:`reuse_linear_wgmma` names its calls)
+    tiles the first launch of a call of b·hn islands (``cc`` = min(chunk,
+    C) cache rows each) with input width d and f outputs on a card of
+    ``sms`` SMs (``hub_reuse.cu``: ``rl::plan``).  The row rule: ``rows``
+    = 64 (one consumer warpgroup, ``ipt`` = floor(64 / cc) whole islands
+    a tile) where cc <= 64, else 128 (two, one island).  The N rule: the
+    widest N (:func:`reuse_linear_widest`), or 64 where ``groups`` x
+    ceil(f / N) items would be fewer than 3/4 of the persistent grid's
+    blocks (:func:`reuse_linear_blocks_per_sm` an SM).  ``nft`` F tiles
+    of ``n`` columns, ``items`` = groups x nft, ``stages`` of the ring, x
+    by TMA (``x_tma``, pool 16-byte aligned) where d % 4 == 0 and the
+    tile's islands are adjacent rows (one a tile, or cc = C), ``smem``
+    bytes a block, ``scratch`` bytes of W's halves (f rounded up to 128
+    rows of d rounded up to 16 each, split once a call: every launch's
+    nft·n rows lie within it)."""
+    islands = b * hn
+    cc = min(chunk, c)
+    rows = 64 if cc <= 64 else 128
+    ipt = rows // cc
+    groups = -(-islands // ipt)
+    n = reuse_linear_widest(f)
+    if n > LINEAR_TILE_COLS and 4 * groups * -(-f // n) < 3 * sms * \
+            reuse_linear_blocks_per_sm(rows, n):
+        n = LINEAR_TILE_COLS
+    nft = -(-f // n)
+    stages = reuse_linear_stages(rows, n)
+    return dict(rows=rows, ipt=ipt, groups=groups, nft=nft, n=n,
+                items=groups * nft, stages=stages,
+                x_tma=int(LINEAR_X_TMA and d % 4 == 0
+                          and (ipt == 1 or cc == c)),
+                smem=(1024 + stages * reuse_linear_stage_bytes(rows, n)
+                      + _reuse_linear_tail(rows)),
+                scratch=2 * 4 * round_up(f, REUSE_LINEAR_MAX_COLS)
+                * round_up(d, LINEAR_DEPTH))
+
+
 def hub_reuse_launches(c: int, chunk: int = 128) -> list:
     """Cache rows of each resident hub_reuse launch a call of C rows
     makes at ``chunk``."""
@@ -331,13 +430,20 @@ def _layered_reason(c: int, m: int, k: int, d: int,
 
 
 def hub_reuse_smem(c: int, m: int, k: int, d: int, live: bool = True,
-                   chunk: int = 128, h: int | None = None) -> int:
+                   chunk: int = 128, h: int | None = None, *,
+                   b: int | None = None, hn: int | None = None,
+                   f: int | None = None, sms: int = H100_SMS) -> int:
     """Bytes of shared memory a resident block of the call's largest
     launch (its first chunk's) takes at ``chunk`` in the form ``h`` names
     (0: one layer) (``hub_reuse.cu``: ``smem_bytes``), with the liveness
-    mask staged or without, as ``hub_reuse_smem_bytes`` answers.  (A
-    layered call's blocks take :data:`LAYERED_SMEM`, as
-    ``hub_reuse_plan`` answers.)"""
+    mask staged or without, as ``hub_reuse_smem_bytes`` answers; a
+    one-layer call whose ``b``, ``hn`` and ``f`` are given and
+    :func:`reuse_linear_wgmma` names takes the wgmma kernel's block
+    (:func:`reuse_linear_plan` on ``sms`` SMs).  (A layered call's blocks
+    take :data:`LAYERED_SMEM`, as ``hub_reuse_plan`` answers.)"""
+    if h == 0 and None not in (b, hn, f) and reuse_linear_wgmma(b, hn, c, d,
+                                                                 f):
+        return reuse_linear_plan(b, hn, c, d, f, sms, chunk)["smem"]
     rows = 64 if min(chunk, c) <= 64 else 128
     return _resident_smem(rows, m, k, d, live, h)
 
@@ -442,7 +548,9 @@ def infeasible(kernel: str, dims: dict, knobs: dict,
         c, m, k, d, h = (dims.get(n) for n in ("c", "m", "k", "d", "h"))
         smem = hub_reuse_smem(c, m, k, d, True,
                               knobs.get("chunk",
-                                        hub_reuse_chunk(c, m, k, d, h)), h)
+                                        hub_reuse_chunk(c, m, k, d, h)), h,
+                              b=dims["b"], hn=dims["hn"], f=dims["f"],
+                              sms=sms)
         if smem > MAX_SMEM:
             return (f"a launch takes {smem} B of shared memory, past a "
                     f"block's {MAX_SMEM}")

@@ -715,8 +715,9 @@ def test_hub_reuse_routes_match_plain_on_card(shape):
 def test_zoo_hub_plans_match_the_library_on_card(zoo_hub_calls):
     """Every published spec's hub_reuse call at cache_capacity_x 1, 2 and
     4, in the form the engine lowers it to: the built library's plan
-    (route, H or D splits, scratch, shared memory) equal to tiling.py's
-    on this card."""
+    (route, H or D splits, scratch, shared memory; the wgmma kernel's
+    block and W halves where ``tiling.reuse_linear_wgmma`` holds) equal
+    to tiling.py's on this card."""
     dev = _cuda()
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for (name, x), recs in zoo_hub_calls.items():
@@ -726,8 +727,14 @@ def test_zoo_hub_plans_match_the_library_on_card(zoo_hub_calls):
             route = tiling.hub_reuse_route(d["b"], d["hn"], c, m, k, dd,
                                            d["f"], sms, h=d["h"])
             want = dict(route=route, nsplit=0, scratch=0,
-                        smem=tiling.hub_reuse_smem(c, m, k, dd, h=d["h"])
+                        smem=tiling.hub_reuse_smem(
+                            c, m, k, dd, h=d["h"], b=d["b"], hn=d["hn"],
+                            f=d["f"], sms=sms)
                         if route == "resident" else tiling.LAYERED_SMEM)
+            if route == "resident" and d["h"] == 0 and \
+                    tiling.reuse_linear_wgmma(d["b"], d["hn"], c, dd, d["f"]):
+                want["scratch"] = tiling.reuse_linear_plan(
+                    d["b"], d["hn"], c, dd, d["f"], sms)["scratch"] // 4
             if route == "layered":
                 lp = tiling.hub_reuse_layered_plan(d["b"], d["hn"], c, d["h"],
                                                    d["f"], sms, dd)

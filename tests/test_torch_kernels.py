@@ -528,12 +528,15 @@ class _StubLib:
         "gather_mlp_split_weights": [ctypes.c_void_p] * 2
         + [ctypes.c_int] * 2 + [ctypes.c_void_p]}),
     (reuse_ops, "hub_reuse", {
-        "hub_reuse_forward": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 11
+        "hub_reuse_forward": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 11
         + [ctypes.c_void_p],
         "hub_reuse_layered": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
         + [ctypes.c_void_p],
-        "hub_reuse_smem_bytes": [ctypes.c_int] * 7,
-        "hub_reuse_plan": [ctypes.c_int] * 8 + [ctypes.c_void_p]}),
+        "hub_reuse_smem_bytes": [ctypes.c_int] * 10,
+        "hub_reuse_plan": [ctypes.c_int] * 8 + [ctypes.c_void_p],
+        "hub_reuse_linear_plan": [ctypes.c_int] * 8 + [ctypes.c_void_p],
+        "hub_reuse_split_weights": [ctypes.c_void_p] * 2
+        + [ctypes.c_int] * 2 + [ctypes.c_void_p]}),
     (flash_ops, "flash_attention", {
         "flash_attention_forward": [ctypes.c_void_p] * 5
         + [ctypes.c_int] * 9 + [ctypes.c_void_p],

@@ -367,9 +367,11 @@ def test_engine_knobs_reach_the_one_layer_call():
 
 def test_one_layer_analysis_sites_are_clean():
     """The analysis derives both routes' one-layer launches from tiling.py
-    with no finding: the resident site's shared memory is the one-layer
-    block's, the layered site's D splits cover D; a planted layered site
-    whose splits fall short of D fails its coverage (K003)."""
+    with no finding: the resident site (dgcnn_c's block 4, on the wgmma
+    kernel) takes that kernel's shared memory and a grid of its items,
+    the layered site's D splits cover D; a planted resident site whose
+    items write no tile, and a planted layered site whose splits fall
+    short of D, fail their coverage (K003)."""
     import dataclasses
 
     from repro_torch.analysis.kernels import (check_kernel_site,
@@ -377,9 +379,13 @@ def test_one_layer_analysis_sites_are_clean():
     res = dict(b=8, hn=32, c=40, m=64, k=20, d=256, h=0, f=256)
     site = site_from_capture({"kernel": "hub_reuse", "dims": res,
                               "plan": {"route": "resident"}}, "t", sms=132)
-    assert site.smem == tiling.hub_reuse_smem(40, 64, 20, 256, h=0)
+    assert site.smem == tiling.hub_reuse_smem(40, 64, 20, 256, h=0, b=8,
+                                              hn=32, f=256)
     assert site.launch["route"] == "resident" and site.launch["chunk"] == 128
+    assert site.launch["items"] == site.grid[-1] == 512
     assert check_kernel_site(site) == []
+    short = dataclasses.replace(site, out_map=lambda p: [])
+    assert {f.rule for f in check_kernel_site(short)} == {"K003"}
     lay = dict(b=2, hn=1, c=128, m=64, k=32, d=387, h=0, f=768)
     site = site_from_capture({"kernel": "hub_reuse", "dims": lay,
                               "plan": {"route": "layered", "chunk": None}},
@@ -454,12 +460,17 @@ def test_tf32x3_keeps_the_one_layer_tolerance(blk):
 # on the card: (B, H, C, M, K, D, F) — resident at 64-row and 128-row
 # blocks (C 40, 64, 100, 128), odd D and F (4-byte copies, an F tile
 # ending inside an n8 tile), one D stage and several, pointnext_s's block
-# 4 at C = 128 (resident only in one layer); layered at pointvector_l's
-# block 4 under cache_capacity_x = 4 (D split 3 ways at B = 2), D = 700,
-# and C = 256 on a small grid
+# 4 at C = 128 (resident only in one layer); on the wgmma kernel (2^28
+# multiply-adds and more) one island of 40 a 64-row tile, three of 20,
+# 64 of C = 1, M·K odd with F = 130, and D = 67 (x by cp.async); layered
+# at pointvector_l's block 4 under cache_capacity_x = 4 (D split 3 ways
+# at B = 2), D = 700, and C = 256 on a small grid
 CARD_RESIDENT = ((2, 3, 40, 9, 20, 6, 64), (1, 2, 64, 16, 32, 35, 64),
                  (2, 2, 100, 9, 13, 131, 77), (2, 1, 128, 64, 32, 259, 512),
-                 (1, 2, 64, 16, 32, 387, 768), (3, 2, 50, 7, 5, 33, 130))
+                 (1, 2, 64, 16, 32, 387, 768), (3, 2, 50, 7, 5, 33, 130),
+                 (8, 256, 40, 64, 20, 64, 256), (4, 512, 20, 16, 8, 128, 256),
+                 (1, 8192, 1, 3, 4, 256, 128), (2, 1024, 32, 5, 7, 64, 130),
+                 (2, 1024, 32, 5, 7, 67, 130))
 CARD_LAYERED = ((2, 1, 128, 64, 32, 387, 768), (2, 4, 128, 64, 32, 700, 512),
                 (1, 2, 256, 16, 64, 128, 256), (2, 1, 129, 5, 9, 37, 70))
 
@@ -469,12 +480,14 @@ def test_one_layer_kernel_matches_plain_version_on_card():
     """On a CUDA host, both routes in one layer: against the plain version
     within 1e-4 (the -BIG identity exactly; live given and not), batched
     and per cloud, repeats bit-equal, one launch a call counted by route
-    and form (``hub_reuse_<route>_linear``), within 1e-4 of the split-sign
-    two-layer call; the library's plan (route, D splits, scratch, shared
-    memory) equal to tiling.py's; the library refuses weights of the
-    other form.  (Per cloud the layered route's D splits follow N, so
-    only the resident route's per-cloud call is bit-equal to the
-    batch's.)"""
+    and form (``hub_reuse_<route>_linear``; the wgmma kernel's also as
+    ``hub_reuse_linear_wgmma``, after one W split a call), within 1e-4 of
+    the split-sign two-layer call; the library's plan (route, D splits,
+    scratch, shared memory) equal to tiling.py's; the library refuses
+    weights of the other form.  (Per cloud the layered route's D splits
+    follow N, and one cloud may fall below the wgmma kernel's rule, so
+    only a per-cloud call on the batch's resident kernel is bit-equal to
+    the batch's.)"""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     import ctypes
@@ -490,8 +503,14 @@ def test_one_layer_kernel_matches_plain_version_on_card():
             route = tiling.hub_reuse_route(b, hn, c, m, k, d, f, sms, h=0)
             assert route == way, (b, hn, c, m, k, d, f)
             lib = hub_ops.library_plan(b, hn, c, m, k, d, 0, f)
+            wgmma = way == "resident" and tiling.reuse_linear_wgmma(
+                b, hn, c, d, f)
             want = dict(route=way, nsplit=0, scratch=0,
-                        smem=tiling.hub_reuse_smem(c, m, k, d, h=0))
+                        smem=tiling.hub_reuse_smem(c, m, k, d, h=0, b=b,
+                                                   hn=hn, f=f, sms=sms))
+            if wgmma:
+                want["scratch"] = tiling.reuse_linear_plan(
+                    b, hn, c, d, f, sms)["scratch"] // 4
             if way == "layered":
                 lp = tiling.hub_reuse_layered_plan(b, hn, c, 0, f, sms, d)
                 want.update(nsplit=lp["nsplit"], scratch=lp["scratch"],
@@ -507,10 +526,13 @@ def test_one_layer_kernel_matches_plain_version_on_card():
             slot, live = slot.to(dev), live.to(dev)
             for lv in (None, live):
                 want = hub_reuse_ref(pool, slot, comp, w, bias, live=lv)
-                before = LAUNCHES[f"hub_reuse_{way}_linear"]
+                names = (f"hub_reuse_{way}_linear", "hub_reuse_linear_wgmma",
+                         "hub_reuse_split_weights")
+                before = [LAUNCHES[n] for n in names]
                 got = hub_reuse(pool, slot, comp, w, bias, live=lv)
                 torch.cuda.synchronize()
-                assert LAUNCHES[f"hub_reuse_{way}_linear"] == before + 1
+                assert [LAUNCHES[n] for n in names] == [
+                    before[0] + 1, before[1] + wgmma, before[2] + wgmma]
                 dead = want <= -BIG / 2
                 assert torch.equal(got[dead], want[dead])
                 lim = TOL * max(1.0, want[~dead].abs().max().item())
@@ -525,7 +547,8 @@ def test_one_layer_kernel_matches_plain_version_on_card():
                 # the layered one splits D by its own, smaller N
                 one = hub_reuse(pool[-1], slot[-1], comp[-1], w, bias,
                                 live=None if lv is None else lv[-1])
-                if way == "resident":
+                if way == "resident" and wgmma == \
+                        tiling.reuse_linear_wgmma(1, hn, c, d, f):
                     assert torch.equal(one, got[-1])
                 assert torch.equal(one[dead[-1]], want[-1][dead[-1]])
                 assert (one[~dead[-1]] - want[-1][~dead[-1]]).abs().max() \
@@ -541,6 +564,7 @@ def test_one_layer_kernel_matches_plain_version_on_card():
     for w2, hd in ((w.data_ptr(), 0), (None, f)):
         code = so.hub_reuse_forward(*ptrs, w.data_ptr(), bias.data_ptr(), w2,
                                     bias.data_ptr() if w2 else None,
-                                    out.data_ptr(), b, hn, c, m, k, d, hd,
-                                    f, 0, 0, 128, ctypes.c_void_p(stream))
+                                    out.data_ptr(), None, b, hn, c, m, k, d,
+                                    hd, f, 0, 0, 128,
+                                    ctypes.c_void_p(stream))
         assert code != 0

@@ -68,14 +68,17 @@ for name, (kernel, args, mask) in calls.items():
 """
 # the short name of a profiled FC kernel: gather_mlp's by its name (the
 # linear route's W split, split_weights_kernel, among them),
-# hub_reuse's resident kernel with its template arguments (the row tile,
-# and the form where the tree has two: true for one layer) and its
-# layered kernels by name; None for any other kernel
+# hub_reuse's resident kernels with their template arguments (the row
+# tile, and the form where the tree has two: true for one layer; the
+# one-layer wgmma kernel, hub_reuse_linear_kernel<NC, N>), its W split
+# (hub_reuse_split_weights_kernel) and its layered kernels by name; None
+# for any other kernel
 KIND = r"""
 import re
 def kind(name):
     name = name.replace("(anonymous namespace)::", "")
-    m = re.search(r"gather_mlp\w*|split_weights_kernel|hub_reuse_kernel<[^(]*>"
+    m = re.search(r"gather_mlp\w*|hub_reuse_split_weights_kernel"
+                  r"|split_weights_kernel|hub_reuse\w*kernel<[^(]*>"
                   r"|layered::\w+(<\w+>)?", name)
     return None if m is None else m.group(0)
 GATHER = ("gather_mlp", "split_weights")   # gather_mlp's kernels

@@ -102,19 +102,20 @@ FAULTS = {
                              "ft = min(N, p.F - f0) & ~7;")],
                            ("linear_edge",)),
     # linear route: W's small TF32 half written as 0 (W in 1xTF32)
-    "linear_w_small_half_dropped": ([("gather_mlp.cu",
+    "linear_w_small_half_dropped": ([("tf32_split.cuh",
                                       "out[((size_t)Fp + n) * Dp + pos] = "
                                       "__uint_as_float(small);",
                                       "out[((size_t)Fp + n) * Dp + pos] = "
                                       "0.f;")], ("linear",)),
     # linear route: W's k in natural order within each 8-group, not the
     # order the A fragment's 8-byte loads read x in
-    "linear_k_order_unpermuted": ([("gather_mlp.cu",
+    "linear_k_order_unpermuted": ([("tf32_split.cuh",
                                     "tile[(tx & ~7) | ((j & 3) * 2 + "
                                     "(j >> 2))][i]",
                                     "tile[tx][i]")], ("linear",)),
 }
-FILES = ("gather_mlp.cu", "tf32x3.cuh", "sm90.cuh", "sm90_tf32.cuh")
+FILES = ("gather_mlp.cu", "tf32x3.cuh", "sm90.cuh", "sm90_tf32.cuh",
+         "tf32_split.cuh")
 # an F tile that ends off a multiple of 8 (F = 100), masked, K = 20 packed
 LINEAR_EDGE = {"linear_edge": dict(b=2, s=64, k=20, d=35, dc=3, h=0, f=100,
                                    masked=True)}

@@ -14,9 +14,13 @@ block 2's widths with C = 256 cache rows (``REUSE_C256``, two 128-row
 launches), the layered route at ``REUSE_DOMAIN`` (PointVector-L's block
 4 under the paper's cache size, whose second layer splits H three ways,
 and D = 700), at B = 2 there, and the one-layer form at three of
-``REUSE_LINEAR``'s calls (DGCNN(c)'s block 4 and PointVector-L's at
-their batches, resident; PointVector-L's block 4 under the paper's cache
-size, layered, D split three ways);
+``REUSE_LINEAR``'s calls (DGCNN(c)'s block 4 at its batch, resident on
+the wgmma kernel; PointVector-L's block 4 at its batch, resident on the
+mma.sync kernel; PointVector-L's block 4 under the paper's cache size,
+layered, D split three ways) and at ``LINEAR_EXTRA`` (on the wgmma
+kernel three islands of 20 rows packed a tile and an F tile ending off
+a multiple of 8; the latter on the mma.sync kernel too; 256 cache rows
+on a small grid, layered, D split);
 and prints one JSON line per (fault, shape): max
 |Δ| against ``hub_reuse_ref`` beside chip_smoke.py's limit 1e-4 · max(1,
 max|plain|), and whether the -BIG identity came out exactly.  Exits 1 if
@@ -43,8 +47,10 @@ SMALL_WAVES = ("#pragma unroll\n"
                "#pragma unroll\n"
                "  for (int i = 0; i < N; ++i) mma(c[i], a.big, b[i].small);\n")
 # name -> (file, text, its replacement, the route it breaks: "resident",
-# "layered" or None for both, and the form: "two" (layers), "one" or None
-# for both); each text occurs once in its file
+# "layered" or None for both, the form: "two" (layers), "one" (one layer
+# off the wgmma kernel), "wgmma" (one layer on it: rl::, its own code) or
+# None for "two" and "one", and optionally the cases it runs on where it
+# shows only there); each text occurs once in its file.
 FAULTS = {
     # 1xTF32: the two small products dropped
     "one_tf32_pass": ("tf32x3.cuh", SMALL_PASSES, "", "resident", None),
@@ -107,6 +113,49 @@ FAULTS = {
                             "(kLin ? p.b1 : p.b2) + f0, ft, wm, wn,",
                             "(kLin ? p.b1 : p.b2) + f0, kLin ? 0 : ft, wm, "
                             "wn,", "resident", "one"),
+    # the wgmma kernel: a slot's tile row without its island's packing
+    # offset (every packed island reads the first's rows)
+    "wgmma_island_offset": ("hub_reuse.cu",
+                            "? (j * p.Cc + r) * kYS : dead;",
+                            "? r * kYS : dead;", "resident", "wgmma",
+                            ("packed",)),
+    # the wgmma kernel: the small·big product dropped (2 of 3 TF32 passes)
+    "wgmma_small_big_dropped": ("hub_reuse.cu",
+                                "          sm90_tf32::wgmma_tf32(acc, "
+                                "af[k8].small,\n"
+                                "                                "
+                                "sm90_tf32::desc_sw64(wb + 32 * k8), 1);\n",
+                                "", "resident", "wgmma"),
+    # the wgmma kernel: an F tile's columns past its last multiple of 8
+    # not gathered (its edge rounded down)
+    "wgmma_f_tile_edge": ("hub_reuse.cu",
+                          "const int f0 = (item % p.nft) * N, ft = "
+                          "min(N, p.F - f0);",
+                          "const int f0 = (item % p.nft) * N, ft = "
+                          "min(N, p.F - f0) & ~7;", "resident", "wgmma",
+                          ("wgmma_edge77",)),
+    # the wgmma kernel: y without W's last 16-deep stage of D
+    "wgmma_last_d_stage": ("hub_reuse.cu",
+                           "pl.items, (D + kBK - 1) / kBK,",
+                           "pl.items, (D - 1) / kBK,", "resident", "wgmma"),
+    # the wgmma kernel: every F tile reads W's first N columns (its big
+    # half)
+    "wgmma_first_w_tile": ("hub_reuse.cu",
+                           "sm90::tma_load(st, &wmap, full + s, d0, f0, 0);",
+                           "sm90::tma_load(st, &wmap, full + s, d0, 0, 0);",
+                           "resident", "wgmma", ("dgcnn_c_blk4",)),
+    # the wgmma kernel: y without b; comp not added; a subset with no live
+    # slot written as 0; every cached slot live
+    "wgmma_bias_dropped": ("hub_reuse.cu", "? -kBig : (m + b) + c;",
+                           "? -kBig : m + c;", "resident", "wgmma"),
+    "wgmma_comp_dropped": ("hub_reuse.cu", "? -kBig : (m + b) + c;",
+                           "? -kBig : m + b;", "resident", "wgmma"),
+    "wgmma_identity_as_zero": ("hub_reuse.cu", "? -kBig : (m + b) + c;",
+                               "? 0.f : (m + b) + c;", "resident", "wgmma"),
+    "wgmma_live_ignored": ("hub_reuse.cu",
+                           "const int lv = t.live == nullptr ? 1 : "
+                           "t.live[at];", "const int lv = 1;", "resident",
+                           "wgmma"),
     # one layer, layered: x·W's first D split only
     "linear_first_split_only": ("hub_reuse.cu",
                                 "err = ly::run_gemm<false>(g, pl.nsplit, "
@@ -114,10 +163,19 @@ FAULTS = {
                                 "err = ly::run_gemm<false>(g, 1, st);",
                                 "layered", "one"),
 }
-FILES = ("hub_reuse.cu", "tf32x3.cuh")
-# the one-layer calls of REUSE_LINEAR the faults run on
+FILES = ("hub_reuse.cu", "tf32x3.cuh", "sm90.cuh", "sm90_tf32.cuh",
+         "tf32_split.cuh")
+# the one-layer calls of REUSE_LINEAR the faults run on, and four more:
+# 2048 islands of C = 20 (three a 64-row tile, wgmma), F = 77 (an F tile
+# ending off a multiple of 8) on the wgmma kernel (1024 islands) and off
+# it (6), C = 256 on a small grid (layered, D split)
 LINEAR_CASES = ("dgcnn_c_blk4", "pointvector_l_blk4",
                 "pointvector_l_blk4_c128")
+LINEAR_EXTRA = {
+    "packed": dict(b=8, hn=256, c=20, m=16, k=20, d=128, f=64),
+    "wgmma_edge77": dict(b=2, hn=512, c=100, m=9, k=13, d=131, f=77),
+    "edge77": dict(b=2, hn=3, c=100, m=9, k=13, d=131, f=77),
+    "layered_c256": dict(b=2, hn=1, c=256, m=64, k=32, d=387, f=768)}
 
 
 def main() -> int:
@@ -142,7 +200,7 @@ def main() -> int:
     print(smi.splitlines()[0], flush=True)
     sound = {f: (_build.CSRC / f).read_text() for f in FILES}
     sources = {"none": sound}
-    for name, (fname, old, new, _, _) in FAULTS.items():
+    for name, (fname, old, new, *_) in FAULTS.items():
         if sound[fname].count(old) != 1:
             raise RuntimeError(f"fault {name}: {old!r} occurs "
                                f"{sound[fname].count(old)} times in {fname}")
@@ -162,9 +220,10 @@ def main() -> int:
     cases += [(blk, shp, 2, None) for blk, shp in
               chip_smoke.REUSE_DOMAIN.items()]
     cases = [(*case, "two") for case in cases]
-    cases += [(blk, dict(chip_smoke.REUSE_LINEAR[blk], h=0),
-               chip_smoke.REUSE_LINEAR[blk]["b"], None, "one")
-              for blk in LINEAR_CASES]
+    cases += [(blk, dict(shp, h=0), shp["b"], None, "one")
+              for blk, shp in {**{blk: chip_smoke.REUSE_LINEAR[blk]
+                                  for blk in LINEAR_CASES},
+                               **LINEAR_EXTRA}.items()]
     for blk, shp, b, chunk, form in cases:
         shp = {n: v for n, v in shp.items() if n != "b"}
         pool, slot, comp, w1, b1, w2, b2, live = chip_smoke.reuse_inputs(
@@ -176,14 +235,23 @@ def main() -> int:
         pl = hub_ops.plan(b, shp["hn"], shp["c"], shp["m"], shp["k"],
                           shp["d"], shp["h"], shp["f"], dev, chunk=chunk)
         route = pl["route"]
+        if form == "one" and route == "resident" and \
+                tiling.reuse_linear_wgmma(b, shp["hn"], shp["c"], shp["d"],
+                                          shp["f"]):
+            form = "wgmma"
         calls = (1 if route == "layered" else
                  len(tiling.hub_reuse_launches(shp["c"], pl["chunk"])))
         for name, so in libs.items():
-            # a fault of another route, a merge where one launch takes
-            # the call, or on the forced chunks any fault but the merge's
+            # a fault of another route or form (the wgmma kernel takes
+            # its own faults only) or of other cases, a merge where one
+            # launch takes the call, or on the forced chunks any fault but
+            # the merge's
+            fault = FAULTS.get(name, (None,) * 5)
             if name != "none" and (
-                    FAULTS[name][3] not in (None, route)
-                    or FAULTS[name][4] not in (None, form)
+                    fault[3] not in (None, route)
+                    or fault[4] != form and not (fault[4] is None
+                                                 and form != "wgmma")
+                    or (len(fault) > 5 and blk not in fault[5])
                     or (name == "merge_ignored" and calls < 2)
                     or (chunk is not None and name != "merge_ignored")):
                 continue

@@ -22,19 +22,22 @@ through ``hub_reuse_layered`` (``LAYERED_VARIANTS``), beside the plain
 version (``plain``).  ``--linear`` runs the one-layer form instead
 (chip_smoke.py's ``REUSE_LINEAR``: the families' one-layer calls at their
 batches and pointvector_l's block 4 under ``CACHE_X4``), each library
-called with (W, b) and Hd = 0 by its own plan (``LINEAR_VARIANTS``),
-beside the plain version (``plain``) and this tree's wrapper on the
-split-sign two-layer weights of the same block (``split_sign``: x·[W,
-−W] + [b, −b], relu, [I; −I], 0, Hd = 2F, the parent's lowering).
-``--against DIR`` adds another tree's ``hub_reuse.cu`` (e.g. a parent
+called with (W, b) and Hd = 0 by its own plan (``LINEAR_VARIANTS``: the
+rule between the wgmma and the mma.sync kernel forced either way, the
+wgmma kernel's row and N rules forced, its parts taken out one at a
+time), beside the plain version (``plain``) and this tree's wrapper on
+the split-sign two-layer weights of the same block (``split_sign``: x·[W,
+−W] + [b, −b], relu, [I; −I], 0, Hd = 2F).  ``--against DIR`` adds
+another tree's ``hub_reuse.cu`` and the headers it has (e.g. a parent
 commit's ``src/repro_torch/csrc``) as the variant ``against``, called as
 that tree's wrapper calls it, by its own plan (``hub_reuse_plan``): the
 layered route with its scratch, or one resident launch a chunk of 128
 cache rows (64 where the 128-row launch is refused), each merged into
-the last; in ``--linear`` mode on the split-sign weights.  Outside
-``--linear`` each row also says whether its output equals ``against``'s
-bit for bit (``bit_equal_against``: the two-layer form's code is the
-parent's).  Needs one CUDA device.
+the last; in ``--linear`` mode with (W, b) in one layer too.  Each row
+also says whether its output equals ``against``'s bit for bit
+(``bit_equal_against``: the two-layer form's, the layered route's and
+the mma.sync one-layer kernel's code is the parent's).  Needs one CUDA
+device.
 """
 from __future__ import annotations
 
@@ -144,20 +147,68 @@ LAYERED_VARIANTS = {
 }
 
 
-# the one-layer form's: every call on the layered route (its rule's
-# other side: C <= 128 calls that fit a resident block); x·W without its
-# D split; 1xTF32 (wrong on purpose: what the small products cost); the
-# resident gather left out (wrong on purpose: the cost of the rest).
-# (VARIANTS' stage_rows_32 is the resident route's alone: the layered
-# GEMM's 64-row tiles overrun its 32-row stages.)
+# the one-layer form's: the kernel rule forced either way (every
+# resident call on the wgmma kernel, rl:: in hub_reuse.cu, or none: the
+# mma.sync kernel everywhere); the wgmma kernel's row rule forced to 128
+# rows (floor(128 / Cc) islands a tile); one block an SM at 64 rows (N >
+# 64), not two; its N rule off (the widest N, F up to 128) or N forced to
+# 64; 1xTF32 (wrong on purpose: what the small products cost); no
+# products, or the gather left out (wrong on purpose: the cost of the
+# rest); the gather's slot loop not unrolled; subsets gathered one or
+# eight at a time a warp, not four; x by cp.async everywhere; every call
+# on the layered route (the route rule's other side); x·W without its D
+# split on the layered route
 LINEAR_VARIANTS = {
     "committed": [],
+    "wgmma_always": [("hub_reuse.cu",
+                      "  return islands * min(C, kMaxC) * D * F >= "
+                      "kWgmmaMacs;", "  return true;")],
+    "wgmma_never": [("hub_reuse.cu",
+                     "  return islands * min(C, kMaxC) * D * F >= "
+                     "kWgmmaMacs;", "  return false;")],
+    "rows128": [("hub_reuse.cu",
+                 "int row_rule(int Cc) { return Cc > 64 ? 128 : 64; }",
+                 "int row_rule(int) { return 128; }")],
+    "one_block_rows64": [("hub_reuse.cu",
+                          "  return R <= 64 || N <= kTileN ? 2 : 1;",
+                          "  return N <= kTileN ? 2 : 1;")],
+    "cols_widest": [("hub_reuse.cu", "  return N > kTileN &&",
+                     "  return false &&")],
+    "cols64": [("hub_reuse.cu", "  const int N = widest(F);",
+                "  const int N = kTileN;")],
+    "one_pass": [("hub_reuse.cu",
+                  "          sm90_tf32::wgmma_tf32(acc, af[k8].small,\n"
+                  "                                sm90_tf32::desc_sw64(wb + "
+                  "32 * k8), 1);\n"
+                  "          sm90_tf32::wgmma_tf32(acc, af[k8].big,\n"
+                  "                                sm90_tf32::desc_sw64(wsm + "
+                  "32 * k8), 1);\n", "")],
+    "no_products": [("hub_reuse.cu",
+                     "          sm90_tf32::wgmma_tf32(acc, af[k8].small,\n"
+                     "                                sm90_tf32::desc_sw64(wb + "
+                     "32 * k8), 1);\n"
+                     "          sm90_tf32::wgmma_tf32(acc, af[k8].big,\n"
+                     "                                sm90_tf32::desc_sw64(wsm + "
+                     "32 * k8), 1);\n"
+                     "          sm90_tf32::wgmma_tf32(acc, af[k8].big,\n"
+                     "                                sm90_tf32::desc_sw64(wb + "
+                     "32 * k8), 1);\n", "")],
+    "no_gather": [("hub_reuse.cu",
+                   "  for (int e0 = warp * kGroup; e0 < nsub;",
+                   "  for (int e0 = warp * kGroup; e0 < 0;")],
+    "gather_unroll1": [("hub_reuse.cu",
+                        "#pragma unroll 4\n    for (int i = 0; i < k32; ++i) {",
+                        "#pragma unroll 1\n    for (int i = 0; i < k32; ++i) {")],
+    "group1": [("hub_reuse.cu", "constexpr int kGroup = 4;",
+                "constexpr int kGroup = 1;")],
+    "group8": [("hub_reuse.cu", "constexpr int kGroup = 4;",
+                "constexpr int kGroup = 8;")],
+    "x_cp_async": [("hub_reuse.cu", "constexpr bool kXByTma = true;",
+                    "constexpr bool kXByTma = false;")],
     "linear_layered_always": [("hub_reuse.cu",
                                "  if (C <= kMaxC) return !fits;",
                                "  if (C <= kMaxC) return true;")],
     "linear_nsplit1": LAYERED_VARIANTS["layered_nsplit1"],
-    "one_pass": VARIANTS["one_pass"],
-    "no_gather": VARIANTS["no_gather"],
 }
 
 
@@ -165,9 +216,11 @@ def library_call(lib, ops, out, dims, stream):
     """A call of a built hub_reuse library as its tree's wrapper makes it,
     by the library's own plan (``hub_reuse_plan``): the layered route
     with the scratch it reports, or one resident launch a chunk of 128
-    cache rows (64 where 128 is refused), each merged into the last.  ops:
-    (pool, slot, comp, live, w1, b1, w2, b2), w2 and b2 None in one layer
-    (h = 0).  -> a zero-argument call returning the launch's code."""
+    cache rows (64 where 128 is refused), each merged into the last,
+    after W's split into that scratch where the plan reports one on the
+    resident route (the wgmma kernel: once a call).  ops: (pool, slot,
+    comp, live, w1, b1, w2, b2), w2 and b2 None in one layer (h = 0).  ->
+    a zero-argument call returning the launch's code."""
     import torch
     b, hn, c, m, k, d, h, f = dims
     ptrs = [None if t is None else t.data_ptr() for t in (*ops, out)]
@@ -175,20 +228,33 @@ def library_call(lib, ops, out, dims, stream):
     lib.hub_reuse_plan.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p]
     if lib.hub_reuse_plan(*dims, plan) != 0:
         raise RuntimeError(f"no plan for {dims}")
+    scratch = torch.empty(max(plan[2], 1), device=out.device)
     if plan[0] == 1:
-        scratch = torch.empty(plan[2], device=out.device)
         fn = lib.hub_reuse_layered
         fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [
             ctypes.c_void_p]
         return lambda: fn(*ptrs, scratch.data_ptr(), *dims, stream)
     fwd = lib.hub_reuse_forward
-    fwd.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 11 + [
-        ctypes.c_void_p]
+    # a tree with the wgmma kernel passes scratch (W's halves, split
+    # where its plan reports them)
+    extra = ((scratch.data_ptr(),) if hasattr(lib, "hub_reuse_linear_plan")
+             else ())
+    fwd.argtypes = [ctypes.c_void_p] * (9 + len(extra)) + [
+        ctypes.c_int] * 11 + [ctypes.c_void_p]
+    split = None
+    if extra and plan[2] > 0:
+        split = lib.hub_reuse_split_weights
+        split.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [
+            ctypes.c_void_p]
 
     def run(chunk):
+        if split is not None:
+            code = split(ptrs[4], scratch.data_ptr(), d, f, stream)
+            if code:
+                return code
         for c0 in range(0, c, chunk):
-            code = fwd(*ptrs, b, hn, c, m, k, d, h, f, c0, int(c0 > 0), chunk,
-                       stream)
+            code = fwd(*ptrs, *extra, b, hn, c, m, k, d, h, f, c0,
+                       int(c0 > 0), chunk, stream)
             if code:
                 return code
         return 0
@@ -234,12 +300,8 @@ def linear(args, libs, dev) -> int:
         for name, so in libs.items():
             lib = ctypes.CDLL(str(so))
             out = torch.empty_like(ref)
-            if name == "against":
-                ops = (pool, slot, comp, live, *two)
-                dims = (b, hn, c, m, k, d, 2 * f, f)
-            else:
-                ops = (pool, slot, comp, live, w, bias, None, None)
-                dims = (b, hn, c, m, k, d, 0, f)
+            ops = (pool, slot, comp, live, w, bias, None, None)
+            dims = (b, hn, c, m, k, d, 0, f)
             fns[name] = library_call(lib, ops, out, dims, stream)
             if fns[name]() != 0:
                 raise RuntimeError(f"{name} {blk}: launch failed")
@@ -247,7 +309,8 @@ def linear(args, libs, dev) -> int:
             outs[name] = out
         ms = chip_smoke.time_turns(fns, iters=args.iters)
         for name in fns:
-            row = dict(variant=name, block=blk, b=b, ms=ms[name])
+            row = dict(variant=name, block=blk, b=b, ms=ms[name],
+                       **against_bits(outs, name))
             if name in outs:
                 try:
                     row["max_abs_err"], row["tol"] = chip_smoke.max_err(
@@ -350,9 +413,10 @@ def main() -> int:
                                    f"{texts[fname].count(old)} times")
             texts[fname] = texts[fname].replace(old, new)
         sources[name] = texts
-    if args.against:
+    if args.against:                  # the files that tree has
         sources["against"] = {f: (Path(args.against) / f).read_text()
-                              for f in FILES}
+                              for f in FILES
+                              if (Path(args.against) / f).exists()}
     libs, logs = build(sources, _build.BUILD_DIR / "variants" / "hub_reuse",
                        with_logs=True)
     for name, log in logs.items():
@@ -381,13 +445,16 @@ def main() -> int:
                 # the chunk knob (128 cache rows a launch) where it is taken
                 chunk = ((128,) if hasattr(lib, "hub_reuse_smem_bytes")
                          else ())
-                fwd.argtypes = ([ctypes.c_void_p] * 9
+                # no scratch in two layers, where the tree takes one
+                extra = ((None,) if hasattr(lib, "hub_reuse_linear_plan")
+                         else ())
+                fwd.argtypes = ([ctypes.c_void_p] * (9 + len(extra))
                                 + [ctypes.c_int] * (10 + len(chunk))
                                 + [ctypes.c_void_p])
                 out = torch.empty_like(ref)
-                call = (lambda fwd=fwd, out=out, chunk=chunk: fwd(
+                call = (lambda fwd=fwd, out=out, chunk=chunk, extra=extra: fwd(
                     *(t.data_ptr() for t in (pool, slot, comp, live, w1, b1,
-                                             w2, b2, out)),
+                                             w2, b2, out)), *extra,
                     bb, shp["hn"], shp["c"], shp["m"], shp["k"], shp["d"],
                     shp["h"], shp["f"], 0, 0, *chunk, stream))
                 if call() != 0:
